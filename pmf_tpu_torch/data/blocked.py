@@ -1,0 +1,310 @@
+"""Hybrid edge layout: a dense head staircase plus a CSR sparse tail.
+
+Rows are relabelled by descending rating count (NEW space) so the busiest
+users and items sit at low ids.  The (top users) x (top items) corner of a
+Zipf-shaped rating matrix is then dense enough that its CAVI statistics
+are dense products over stored cell planes (``DenseHead``, processed by
+``ops.dense_head``); the remaining edges form the sparse tail, stored per
+direction as CSR over new-space self rows (``TailCSR``, processed by
+``ops.cavi_edge``).
+
+The permutations, the staircase picker ``_pick_tiers`` and the head cell
+planes are identical to the JAX package's, so head statistics compare
+cell for cell.  The JAX tail is cut into (self block, other block) chunks
+for one-hot matrix-unit gathers; a GPU warp reads rows directly, so here
+the tail is plain CSR: ``row_ptr`` (n_self+1,) int64, ``other`` (nnz,)
+int32 new-space ids and ``x`` (nnz,) ratings, stably sorted by self row.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from pmf_tpu_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class TailCSR:
+    """One direction of the sparse tail, with the permutations its pass
+    needs: tables are permuted into new space with ``*_old_of_new`` and
+    statistics mapped back with ``self_new_of_old``."""
+
+    row_ptr: torch.Tensor  # (n_self + 1,) int64
+    other: torch.Tensor  # (nnz,) int32, new-space other ids
+    x: torch.Tensor  # (nnz,) ratings
+    self_old_of_new: torch.Tensor  # (n_self,) int64
+    other_old_of_new: torch.Tensor  # (n_other,) int64
+    self_new_of_old: torch.Tensor  # (n_self,) int64
+    n_self: int
+    n_other: int
+    nnz: int
+    reordered: bool
+
+    def max_row_len(self) -> int:
+        if self.n_self == 0:
+            return 0
+        return int((self.row_ptr[1:] - self.row_ptr[:-1]).max())
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseHead:
+    """Dense cell planes of one staircase tier: new-space user rows
+    [row_start, row_start + hu) x item columns [0, hi), columns padded to
+    ``hip`` (a multiple of 512).  X = sum of ratings per cell, stored as
+    bf16 ``x_hi`` plus a bf16 remainder ``x_lo`` (None when X is
+    bf16-exact); M = edge multiplicity per cell (bf16 when every count is
+    <= 256, else f32).  Duplicate (u, i) edges are exact: rate is the same
+    across duplicates, so sum_e x_e / rate == X / rate."""
+
+    x_hi: torch.Tensor  # (hu, hip) bfloat16
+    x_lo: torch.Tensor | None  # (hu, hip) bfloat16 remainder, or None
+    m: torch.Tensor  # (hu, hip) bfloat16 or float32
+    hu: int
+    hi: int
+    r0: int
+    row_start: int = 0
+
+    @property
+    def hip(self) -> int:
+        return self.m.shape[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockedCOO:
+    by_user: TailCSR  # user rows -> theta block statistics
+    by_item: TailCSR  # item rows -> beta block statistics
+    head: tuple | None = None  # DenseHead tiers (disjoint user bands)
+
+
+def _pick_tiers(
+    new_u: np.ndarray,
+    new_i: np.ndarray,
+    n_users: int,
+    n_items: int,
+    head_bytes: int,
+    cell_bytes: int,
+    r0: int,
+    min_nnz: int = 4_000_000,
+    min_cover: float = 0.02,
+    max_tiers: int = 4,
+    row_mult: int = 1,
+) -> list:
+    """Auto staircase sizing: tier 0 covers the top users across all items
+    (<= 64k columns); each further tier quarters the item width and spends
+    the freed bytes on a 3x-wider band of less-active users.  Returns
+    [(row_start, rows, hi), ...] (contiguous user bands from row 0), empty
+    when the data is too small or the head would not pay."""
+    nnz = len(new_u)
+    if nnz < min_nnz:
+        return []
+    budget_cells = head_bytes // cell_bytes
+    hi0 = min(n_items, 65536)
+    unit = r0 * max(row_mult, 1)
+    hu0 = int(budget_cells / (hi0 * (1 + 0.75 * (max_tiers - 1)))) // unit * unit
+    if hu0 < unit:
+        hu = min((budget_cells // max(hi0, 1)) // unit * unit,
+                 (n_users // unit) * unit)
+        tiers = [(0, hu, hi0)] if hu >= unit else []
+    else:
+        tiers = []
+        row, band, hi = 0, hu0, hi0
+        for t in range(max_tiers):
+            rows = min(band, ((n_users - row) // unit) * unit)
+            if rows < unit or hi < 128:
+                break
+            tiers.append((row, rows, hi))
+            row += rows
+            band = 3 * hu0 * (4 ** t)
+            hi = hi // 4
+    kept = []
+    for rs, rows, hi in tiers:
+        cover = np.count_nonzero(
+            (new_u >= rs) & (new_u < rs + rows) & (new_i < hi)
+        )
+        if cover < min_cover * nnz:
+            break
+        kept.append((int(rs), int(rows), int(hi)))
+    if kept:
+        # Extend the last tier through the remaining users as far as the
+        # byte budget allows.
+        rs, rows, hi = kept[-1]
+        hip = -(-hi // 512) * 512
+        used = sum(r * (-(-h // 512) * 512) for _, r, h in kept)
+        extra = min(
+            ((n_users - rs - rows) // unit) * unit,
+            max(budget_cells - used, 0) // hip // unit * unit,
+        )
+        if extra > 0:
+            kept[-1] = (rs, rows + int(extra), hi)
+    return kept
+
+
+def _head_cell_index(nu: np.ndarray, ni: np.ndarray, hip: int) -> np.ndarray:
+    """Flat cell index of each head edge in the (hu, hip) dense planes."""
+    return nu.astype(np.int32) * np.int32(hip) + ni.astype(np.int32)
+
+
+def _scatter_head(idx: np.ndarray, x: np.ndarray, hu: int, hi: int, r0: int,
+                  row_start: int, device) -> DenseHead:
+    """Scatter head edges (flat cell index + rating) into the dense planes
+    on ``device``: only the edge triples cross to the card, not the cells.
+    Duplicate (u, i) pairs sum into X and count into M."""
+    hip = -(-hi // 512) * 512
+    if hu * hip >= 2**31:
+        raise ValueError(
+            f"head tier ({hu} x {hip}) exceeds int32 flat-index range "
+            f"({hu * hip} cells >= 2^31); shrink head_bytes or the tier"
+        )
+    idx_t = torch.from_numpy(np.asarray(idx, np.int64)).to(device)
+    xs = torch.from_numpy(np.asarray(x, np.float32)).to(device)
+    X = torch.zeros(hu * hip, dtype=torch.float32, device=device)
+    X.index_add_(0, idx_t, xs)
+    M = torch.zeros(hu * hip, dtype=torch.float32, device=device)
+    M.index_add_(0, idx_t, torch.ones_like(xs))
+    del idx_t, xs
+    X = X.view(hu, hip)
+    M = M.view(hu, hip)
+    x_hi = X.to(torch.bfloat16)
+    rem = X - x_hi.float()
+    has_rem = bool(torch.any(rem != 0))
+    x_lo = rem.to(torch.bfloat16) if has_rem else None
+    del rem
+    # Multiplicities <= 256 are bf16-exact; beyond that keep f32.
+    m_exact = M.numel() == 0 or float(M.max()) <= 256
+    head = DenseHead(
+        x_hi=x_hi,
+        x_lo=x_lo,
+        m=M.to(torch.bfloat16) if m_exact else M,
+        hu=hu,
+        hi=hi,
+        r0=r0,
+        row_start=row_start,
+    )
+    return head
+
+
+def _tail_csr(s: np.ndarray, o: np.ndarray, x: np.ndarray, n_self: int,
+              n_other: int, perms: tuple, reordered: bool, dtype,
+              device) -> TailCSR:
+    """CSR over self rows; edges stable-sorted by self row."""
+    order = np.argsort(s, kind="stable")
+    counts = np.bincount(s, minlength=n_self)
+    row_ptr = np.zeros(n_self + 1, dtype=np.int64)
+    np.cumsum(counts, out=row_ptr[1:])
+    self_old_of_new, other_old_of_new, self_new_of_old = (
+        torch.from_numpy(np.asarray(p, np.int64)).to(device) for p in perms)
+    return TailCSR(
+        row_ptr=torch.from_numpy(row_ptr).to(device),
+        other=torch.from_numpy(o[order].astype(np.int32)).to(device),
+        x=torch.from_numpy(np.asarray(x[order], dtype=dtype)).to(device),
+        self_old_of_new=self_old_of_new,
+        other_old_of_new=other_old_of_new,
+        self_new_of_old=self_new_of_old,
+        n_self=int(n_self),
+        n_other=int(n_other),
+        nnz=int(len(s)),
+        reordered=reordered,
+    )
+
+
+def _count_perms(ids: np.ndarray, n: int):
+    """(old_of_new, new_of_old) for descending-count order (stable)."""
+    counts = np.bincount(ids, minlength=n)
+    old_of_new = np.argsort(-counts, kind="stable").astype(np.int32)
+    new_of_old = np.empty(n, dtype=np.int32)
+    new_of_old[old_of_new] = np.arange(n, dtype=np.int32)
+    return old_of_new, new_of_old
+
+
+def build_blocked(
+    u, i, x,
+    n_users: int | None = None,
+    n_items: int | None = None,
+    dtype=np.float32,
+    reorder: bool = False,
+    head=None,
+    head_bytes: int = 2 << 30,
+    head_r0: int = 512,
+    head_row_mult: int = 1,
+    device=None,
+) -> BlockedCOO:
+    """``head``: None = all edges in the tail; "auto" = size a dense
+    staircase from the data (requires ``reorder``); (hu, hi) = explicit
+    head rows/cols (hu a multiple of ``head_r0``); a list of
+    (row_start, rows, hi) = explicit tiers.  Edges inside the tiers are
+    stored as cell planes and left out of the tail.  ``device`` None =
+    the card."""
+    device = resolve_device(device)
+    u = np.asarray(u, dtype=np.int64)
+    i = np.asarray(i, dtype=np.int64)
+    x = np.asarray(x)
+    if n_users is None:
+        n_users = int(u.max()) + 1
+    if n_items is None:
+        n_items = int(i.max()) + 1
+    if head is not None and not reorder:
+        raise ValueError("head requires reorder=True (head = top-count corner)")
+
+    if reorder:
+        user_old_of_new, user_new_of_old = _count_perms(u, n_users)
+        item_old_of_new, item_new_of_old = _count_perms(i, n_items)
+    else:
+        user_old_of_new = user_new_of_old = np.arange(n_users, dtype=np.int32)
+        item_old_of_new = item_new_of_old = np.arange(n_items, dtype=np.int32)
+    nu = user_new_of_old[u]
+    ni = item_new_of_old[i]
+
+    tiers = []
+    r0 = head_r0
+    if head is not None:
+        x32 = x.astype(np.float32)
+        # bf16-exact iff the low 16 mantissa bits of every f32 are zero.
+        exact = not bool(np.any(x32.view(np.uint32) & np.uint32(0xFFFF)))
+        cell_bytes = 4 if exact else 6  # x_hi + m (+ x_lo)
+        if head == "auto":
+            tiers = _pick_tiers(nu, ni, n_users, n_items, head_bytes,
+                                cell_bytes, r0, row_mult=head_row_mult)
+        elif isinstance(head, list):
+            tiers = [(int(rs), int(rows), int(hi)) for rs, rows, hi in head]
+            spans = sorted((rs, rs + rows) for rs, rows, _ in tiers)
+            for (a0, b0), (a1, _) in zip(spans, spans[1:]):
+                if a1 < b0:
+                    raise ValueError("head tiers must have disjoint user bands")
+            for rs, rows, hi in tiers:
+                if rows % max(min(r0, rows), 1) or rs + rows > n_users or hi > n_items:
+                    raise ValueError(f"head tier ({rs}, {rows}, {hi}) invalid")
+        else:
+            hu, hi = head
+            r0 = min(head_r0, hu) if hu else head_r0
+            if hu % max(r0, 1) or hu > n_users or hi > n_items:
+                raise ValueError(
+                    f"head ({hu}, {hi}) invalid: hu must be a multiple of r0={r0} "
+                    f"and within ({n_users}, {n_items})"
+                )
+            tiers = [(0, hu, hi)] if hu and hi else []
+
+    in_head = np.zeros(len(nu), dtype=bool)
+    heads = []
+    for rs, rows, hi_t in tiers:
+        mask = (nu >= rs) & (nu < rs + rows) & (ni < hi_t)
+        hip_t = -(-hi_t // 512) * 512
+        idx_t = _head_cell_index(nu[mask] - rs, ni[mask], hip_t)
+        heads.append(_scatter_head(idx_t, x32[mask], hu=rows, hi=hi_t,
+                                   r0=min(r0, rows), row_start=rs,
+                                   device=device))
+        in_head |= mask
+    if tiers:
+        tu, ti, tx = nu[~in_head], ni[~in_head], x[~in_head]
+    else:
+        tu, ti, tx = nu, ni, x
+    by_user = _tail_csr(tu, ti, tx, n_users, n_items,
+                        (user_old_of_new, item_old_of_new, user_new_of_old),
+                        reorder, dtype, device)
+    by_item = _tail_csr(ti, tu, tx, n_items, n_users,
+                        (item_old_of_new, user_old_of_new, item_new_of_old),
+                        reorder, dtype, device)
+    return BlockedCOO(by_user=by_user, by_item=by_item,
+                      head=tuple(heads) if heads else None)

@@ -1,0 +1,50 @@
+"""Evaluation metrics: host numpy forms and the masked tensor forms used
+inside the fit loop (padded eval sets, precomputed rating classes)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pmf_tpu_torch.ops.segment import sorted_segment_sum
+
+
+def rmse(y_true, y_pred) -> float:
+    y_true = np.asarray(y_true, dtype=np.float64)
+    y_pred = np.asarray(y_pred, dtype=np.float64)
+    return float(np.sqrt(np.mean((y_true - y_pred) ** 2)))
+
+
+def macro_mae(y_true, y_pred) -> float:
+    """MAE averaged over the unique true-rating classes (equal weight)."""
+    y_true = np.asarray(y_true, dtype=np.float64)
+    y_pred = np.asarray(y_pred, dtype=np.float64)
+    per_class = [
+        np.mean(np.abs(y_true[y_true == v] - y_pred[y_true == v]))
+        for v in np.unique(y_true)
+    ]
+    return float(np.mean(per_class))
+
+
+def masked_rmse(y_true: torch.Tensor, y_pred: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """RMSE over rows where ``mask`` is true (padding excluded)."""
+    mask = mask.to(y_true.dtype)
+    err2 = mask * (y_true - y_pred) ** 2
+    return torch.sqrt(torch.sum(err2) / torch.clamp_min(torch.sum(mask), 1.0))
+
+
+def masked_macro_mae(y_true: torch.Tensor, y_pred: torch.Tensor,
+                     mask: torch.Tensor, class_id: torch.Tensor,
+                     n_classes: int) -> torch.Tensor:
+    """Macro-MAE via one segment mean per rating class; classes with no
+    masked-in rows are left out of the average."""
+    m = mask.to(y_true.dtype)
+    abs_err = m * torch.abs(y_true - y_pred)
+    ids = torch.where(mask, class_id.long(), n_classes)
+    per_class_sum = sorted_segment_sum(abs_err, ids, n_classes)
+    per_class_n = sorted_segment_sum(m, ids, n_classes)
+    present = per_class_n > 0
+    per_class_mae = per_class_sum / torch.clamp_min(per_class_n, 1.0)
+    return torch.sum(torch.where(present, per_class_mae, 0.0)) / torch.clamp_min(
+        torch.sum(present.to(y_true.dtype)), 1.0)

@@ -1,0 +1,186 @@
+"""Shared model machinery: the host-side fit loop around CAVI sweeps.
+
+Each CAVI iteration is one sweep over the whole rating set; the early-stop
+decision stays on the host between sweeps.  PyTorch queues device work
+asynchronously, so the loop queues the copy of this iteration's
+validation scalars, dispatches the next sweep, and only then waits for
+the copy (the one host-device sync per iteration): the card keeps working
+through the round trip.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from pmf_tpu_torch.data.coo import EvalSet, RatingsCOO, build_eval_set, build_ratings
+from pmf_tpu_torch.utils.device import ScalarReader, mark
+
+
+def as_triples(data) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Accept a pandas DataFrame with columns u/i/rating, a dict, or a
+    (u, i, x) tuple of arrays; return numpy triples."""
+    if isinstance(data, tuple) and len(data) == 3:
+        u, i, x = data
+    elif hasattr(data, "columns"):
+        u = data["u"].to_numpy()
+        i = data["i"].to_numpy()
+        x = data["rating"].to_numpy()
+    elif isinstance(data, dict):
+        u, i, x = data["u"], data["i"], data["rating"]
+    else:
+        raise TypeError(f"Unsupported ratings container: {type(data)!r}")
+    return (
+        np.asarray(u, dtype=np.int64),
+        np.asarray(i, dtype=np.int64),
+        np.asarray(x, dtype=np.float64),
+    )
+
+
+class FitLoop:
+    """Drives sweeps with host-side early stopping.
+
+    ``stop_rule(prev_rmse, rmse, tol) -> bool`` encodes the per-model rule.
+    ``n_sweeps`` counts the sweeps dispatched, the discarded speculative
+    one included."""
+
+    def __init__(self, sweep_fn: Callable, eval_fn: Optional[Callable],
+                 max_iter: int, tol, stop_rule: Callable, verbose: bool = False,
+                 name: str = "CAVI", edge_visits_per_iter: Optional[int] = None):
+        self.sweep_fn = sweep_fn
+        self.eval_fn = eval_fn
+        self.max_iter = max_iter
+        self.tol = tol
+        self.stop_rule = stop_rule
+        self.verbose = verbose
+        self.name = name
+        # Ratings touched per iteration (nnz x edge passes); when set, each
+        # history record carries ``updates_per_sec``.
+        self.edge_visits_per_iter = edge_visits_per_iter
+        self.history: list[dict] = []
+        self.n_sweeps = 0
+
+    def _sweep(self, state, data):
+        """Dispatch one sweep; returns (state, wait for that sweep)."""
+        self.n_sweeps += 1
+        state = self.sweep_fn(state, data)
+        return state, mark(next(iter(state.values())))
+
+    def _timed(self, record: dict, t0: float) -> float:
+        record["iter_seconds"] = time.perf_counter() - t0
+        if self.edge_visits_per_iter:
+            record["updates_per_sec"] = self.edge_visits_per_iter / record["iter_seconds"]
+        return time.perf_counter()
+
+    def run(self, state: dict, data, val: Optional[EvalSet]) -> dict:
+        """The returned state is the one the stop decision was made on; at
+        most one speculative sweep past the stop point is discarded."""
+        if self.max_iter <= 0:
+            return state
+        prev_val_rmse = None
+        reader = ScalarReader()
+        state, done = self._sweep(state, data)  # iteration 1 dispatch
+        t0 = time.perf_counter()
+        for it in range(1, self.max_iter + 1):
+            cur, cur_done = state, done
+            record = {"iteration": it, "iter_seconds": None}
+            if val is not None and self.eval_fn is not None:
+                scalars = reader.start(*self.eval_fn(cur, val))
+                if it < self.max_iter:
+                    # Speculative dispatch: queued on the device behind the
+                    # eval scalars' copy, before the host waits for it.
+                    state, done = self._sweep(cur, data)
+                val_rmse, val_macro = scalars()  # device sync point
+                record.update(val_rmse=val_rmse, val_macro_mae=val_macro)
+                t0 = self._timed(record, t0)
+                if self.verbose:
+                    ups = record.get("updates_per_sec")
+                    print(
+                        f"{self.name} iter {it}/{self.max_iter} | "
+                        f"val RMSE {val_rmse:.4f} | macro-MAE {record['val_macro_mae']:.4f} | "
+                        f"{record['iter_seconds']:.3f}s"
+                        + (f" | {ups/1e6:.1f}M updates/s" if ups else ""),
+                        flush=True,
+                    )
+                self.history.append(record)
+                if prev_val_rmse is not None and self.stop_rule(
+                        prev_val_rmse, val_rmse, self.tol):
+                    if self.verbose:
+                        print("Early stopping on validation improvement.", flush=True)
+                    return cur
+                prev_val_rmse = val_rmse
+            else:
+                if it < self.max_iter:
+                    state, done = self._sweep(cur, data)
+                # Wait for sweep `it` (not the one just queued) so the time
+                # measures compute, not dispatch.
+                cur_done()
+                t0 = self._timed(record, t0)
+                self.history.append(record)
+        return state
+
+
+def resolve_engine(engine: str, nnz: Optional[int] = None) -> str:
+    """"auto" -> "flat" below 300k edges (layout build time dominates a
+    short fit there), "blocked_high" (the hybrid kernels) otherwise."""
+    if engine != "auto":
+        return engine
+    if nnz is not None and nnz < 300_000:
+        return "flat"
+    return "blocked_high"
+
+
+def gaussian_stop_rule(prev: float, cur: float, tol) -> bool:
+    improvement = prev - cur
+    return tol is not None and 0.0 <= improvement < tol
+
+
+def poisson_stop_rule(prev: float, cur: float, tol) -> bool:
+    improvement = prev - cur
+    return tol is not None and improvement < tol
+
+
+class FactorModel:
+    """Base for the CAVI models: boundary conversion, prediction, metrics."""
+
+    def __init__(self, config):
+        self.config = config
+        self.n_users: Optional[int] = None
+        self.n_items: Optional[int] = None
+        self.state: Optional[dict] = None
+        self.device: Optional[torch.device] = None
+        self.fit_history: list[dict] = []
+
+    def _point_estimates(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(user_factors, item_factors) point estimates (means)."""
+        raise NotImplementedError
+
+    @property
+    def _dtype(self):
+        return np.dtype(getattr(self.config, "dtype", "float32"))
+
+    def _build_train(self, train) -> RatingsCOO:
+        u, i, x = as_triples(train)
+        return build_ratings(u, i, x, dtype=self._dtype, device=self.device)
+
+    def _build_eval(self, df) -> EvalSet:
+        u, i, x = as_triples(df)
+        return build_eval_set(u, i, x, self.n_users, self.n_items,
+                              dtype=self._dtype, device=self.device)
+
+    def predict(self, user_ids, item_ids) -> np.ndarray:
+        """Out-of-range (unseen) pairs predict 0."""
+        u = np.asarray(user_ids, dtype=np.int64)
+        i = np.asarray(item_ids, dtype=np.int64)
+        valid = (u < self.n_users) & (i < self.n_items) & (u >= 0) & (i >= 0)
+        theta, beta = self._point_estimates()
+        theta = theta.detach().cpu().numpy()
+        beta = beta.detach().cpu().numpy()
+        preds = np.zeros(len(u), dtype=np.float64)
+        if valid.any():
+            preds[valid] = np.sum(theta[u[valid]] * beta[i[valid]],
+                                  axis=-1).astype(np.float64)
+        return preds

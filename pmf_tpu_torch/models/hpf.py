@@ -1,0 +1,248 @@
+"""Hierarchical Poisson Factorization (Gopalan et al.) with CAVI.
+
+Model:
+    x_ui ~ Poisson(theta_u^T beta_i)
+    theta_uk ~ Gamma(a, xi_u),    xi_u ~ Gamma(a', b')
+    beta_ik ~ Gamma(c, eta_i),    eta_i ~ Gamma(c', d')
+
+Each sweep runs the four coordinate blocks in the order theta -> xi ->
+beta -> eta with expectation refreshes between blocks; rows without
+observations reset to shape a (resp. c) and rate E[xi_u] (resp.
+E[eta_i]).  The state is a dict of tensors with the JAX package's keys.
+
+Engines: "flat" computes the edge statistics with gathers and
+``index_add_`` segment sums over the dual-sorted COO; "blocked_high" runs
+the hybrid layout through the two CUDA kernels (``ops.cavi_edge`` for the
+sparse tail, ``ops.dense_head`` for the dense head tiers) on the card, or
+through their plain versions on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from pmf_tpu_torch.data.coo import EvalSet, RatingsCOO
+from pmf_tpu_torch.eval.metrics import macro_mae, masked_macro_mae, masked_rmse, rmse
+from pmf_tpu_torch.models.base import (
+    FactorModel,
+    FitLoop,
+    as_triples,
+    poisson_stop_rule,
+    resolve_engine,
+)
+from pmf_tpu_torch.ops.segment import edge_dot, gather_rows, sorted_segment_sum
+from pmf_tpu_torch.utils.device import resolve_device
+
+RATE_FLOOR = 1e-10
+STATE_KEYS = ("a_theta", "b_theta", "a_beta", "b_beta", "b_xi", "b_eta")
+
+
+@dataclasses.dataclass
+class HPFConfig:
+    n_factors: int = 20
+    a: float = 0.3
+    a_prime: float = 0.3
+    b_prime: float = 1.0
+    c: float = 0.3
+    c_prime: float = 0.3
+    d_prime: float = 1.0
+    max_iter: int = 100
+    tol: Optional[float] = 1e-4
+    random_state: int = 42
+    verbose: bool = True
+    dtype: str = "float32"
+    # "flat" (gather + index_add_), "blocked_high" (hybrid layout through
+    # the CUDA kernels) or "auto" (flat below 300k edges, else blocked).
+    engine: str = "auto"
+
+
+def _init_state_numpy(n_users: int, n_items: int, cfg: HPFConfig) -> dict:
+    """Initial Gamma state as numpy arrays, drawn in the JAX package's
+    order (theta shape, theta rate, beta shape, beta rate), so both
+    packages start from the same bits."""
+    rng = np.random.default_rng(cfg.random_state)
+    K = cfg.n_factors
+    dt = np.dtype(cfg.dtype)
+    N, M = n_users, n_items
+    return {
+        "a_theta": (cfg.a + rng.gamma(1.0, 0.1, size=(N, K))).astype(dt),
+        "b_theta": (cfg.b_prime + rng.gamma(1.0, 0.1, size=(N, K))).astype(dt),
+        "a_beta": (cfg.c + rng.gamma(1.0, 0.1, size=(M, K))).astype(dt),
+        "b_beta": (cfg.d_prime + rng.gamma(1.0, 0.1, size=(M, K))).astype(dt),
+        # xi/eta shapes are scalars, constant through training.
+        "b_xi": np.full((N,), cfg.b_prime, dtype=dt),
+        "b_eta": np.full((M,), cfg.d_prime, dtype=dt),
+    }
+
+
+def state_from_numpy(state_np: dict, device=None, dtype=None) -> dict:
+    """numpy Gamma state (the JAX package's keys) -> dict of tensors on
+    ``device`` (None = the card)."""
+    device = resolve_device(device)
+    out = {}
+    for k in STATE_KEYS:
+        t = torch.from_numpy(np.array(state_np[k]))  # a writable copy
+        out[k] = t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
+    return out
+
+
+def state_to_numpy(state: dict) -> dict:
+    """dict of tensors -> numpy Gamma state (host copies)."""
+    return {k: state[k].detach().cpu().numpy() for k in STATE_KEYS}
+
+
+def init_state(n_users: int, n_items: int, cfg: HPFConfig, device=None) -> dict:
+    return state_from_numpy(_init_state_numpy(n_users, n_items, cfg), device)
+
+
+def _hpf_factor_block(E_self, E_other, E_rate_prior, self_ids, other_ids, x,
+                      counts, shape0, n_self):
+    """theta- or beta-block: multinomial allocation for the shape, observed
+    sum of other rows plus the hierarchical rate expectation for the rate.
+    Empty rows -> (shape0, E_rate_prior)."""
+    self_rows = gather_rows(E_self, self_ids)
+    other_rows = gather_rows(E_other, other_ids)
+    rate = torch.clamp_min(edge_dot(self_rows, other_rows), RATE_FLOOR)
+    alloc = (x / rate)[:, None] * self_rows * other_rows
+    s_alloc = sorted_segment_sum(alloc, self_ids, n_self)
+    s_other = sorted_segment_sum(other_rows, self_ids, n_self)
+    return _factor_update(s_alloc, s_other, E_rate_prior, counts, shape0)
+
+
+def _factor_update(s_alloc, s_other, E_rate_prior, counts, shape0):
+    has = (counts > 0)[:, None]
+    prior = E_rate_prior[:, None]
+    a_out = torch.where(has, shape0 + s_alloc, torch.full_like(s_alloc, shape0))
+    b_out = torch.where(has, prior + s_other, prior.expand_as(s_other))
+    return a_out, b_out
+
+
+def _expectations(state: dict, a, a_prime, c, c_prime):
+    K = state["a_theta"].shape[1]
+    a_xi = a_prime + K * a  # constant shapes
+    a_eta = c_prime + K * c
+    return (state["a_theta"] / state["b_theta"], state["a_beta"] / state["b_beta"],
+            a_xi / state["b_xi"], a_eta / state["b_eta"])
+
+
+def sweep(state: dict, data: RatingsCOO, a: float, a_prime: float,
+          b_prime: float, c: float, c_prime: float, d_prime: float) -> dict:
+    """One CAVI iteration over the flat dual-sorted COO."""
+    E_theta, E_beta, E_xi, E_eta = _expectations(state, a, a_prime, c, c_prime)
+
+    a_theta, b_theta = _hpf_factor_block(
+        E_theta, E_beta, E_xi, data.u_by_u, data.i_by_u, data.x_by_u,
+        data.user_counts, a, data.n_users)
+    E_theta = a_theta / b_theta
+    b_xi = b_prime + torch.sum(E_theta, dim=1)
+
+    a_beta, b_beta = _hpf_factor_block(
+        E_beta, E_theta, E_eta, data.i_by_i, data.u_by_i, data.x_by_i,
+        data.item_counts, c, data.n_items)
+    E_beta = a_beta / b_beta
+    b_eta = d_prime + torch.sum(E_beta, dim=1)
+
+    return {"a_theta": a_theta, "b_theta": b_theta, "a_beta": a_beta,
+            "b_beta": b_beta, "b_xi": b_xi, "b_eta": b_eta}
+
+
+def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
+                  item_counts: torch.Tensor, a: float, a_prime: float,
+                  b_prime: float, c: float, c_prime: float,
+                  d_prime: float) -> dict:
+    """Same iteration as :func:`sweep`, with the two edge passes computed
+    over the hybrid layout (``data.blocked.BlockedCOO``): sparse tail by
+    kernel K1, dense head tiers by kernel K2."""
+    from pmf_tpu_torch.ops.cavi_edge import poisson_edge_stats
+
+    E_theta, E_beta, E_xi, E_eta = _expectations(state, a, a_prime, c, c_prime)
+    head = blocked.head
+
+    s_alloc, s_other = poisson_edge_stats(E_theta, E_beta, blocked.by_user,
+                                          head=head, head_side="user")
+    a_theta, b_theta = _factor_update(s_alloc, s_other, E_xi, user_counts, a)
+    E_theta = a_theta / b_theta
+    b_xi = b_prime + torch.sum(E_theta, dim=1)
+
+    s_alloc_i, s_other_i = poisson_edge_stats(E_beta, E_theta, blocked.by_item,
+                                              head=head, head_side="item")
+    a_beta, b_beta = _factor_update(s_alloc_i, s_other_i, E_eta, item_counts, c)
+    E_beta = a_beta / b_beta
+    b_eta = d_prime + torch.sum(E_beta, dim=1)
+
+    return {"a_theta": a_theta, "b_theta": b_theta, "a_beta": a_beta,
+            "b_beta": b_beta, "b_xi": b_xi, "b_eta": b_eta}
+
+
+def eval_metrics(state: dict, ev: EvalSet):
+    """(val RMSE, val macro-MAE) as 0-d tensors on the state's device."""
+    E_theta = state["a_theta"] / state["b_theta"]
+    E_beta = state["a_beta"] / state["b_beta"]
+    pred = edge_dot(gather_rows(E_theta, ev.u), gather_rows(E_beta, ev.i))
+    pred = torch.where(ev.valid, pred, 0.0)
+    r = masked_rmse(ev.x, pred, ev.real)
+    mm = masked_macro_mae(ev.x, pred, ev.real, ev.class_id, ev.n_classes)
+    return r, mm
+
+
+class HPF(FactorModel):
+    """HPF-CAVI with the JAX package's fit/predict surface."""
+
+    def fit(self, train_df, val_df=None, device=None):
+        """``device``: None = the CUDA card (raises without one); "cpu"
+        runs the kernels' plain versions on the host."""
+        cfg = self.config
+        self.device = resolve_device(device)
+        data = self._build_train(train_df)
+        self.n_users, self.n_items = data.n_users, data.n_items
+        if cfg.verbose:
+            print(f"Inferred n_users={self.n_users}, n_items={self.n_items}", flush=True)
+        state = init_state(self.n_users, self.n_items, cfg, self.device)
+
+        engine = resolve_engine(cfg.engine, data.nnz)
+        self.engine_used = engine
+        hyper = (cfg.a, cfg.a_prime, cfg.b_prime, cfg.c, cfg.c_prime, cfg.d_prime)
+        if engine == "blocked_high":
+            from pmf_tpu_torch.data.blocked import build_blocked
+
+            u, i, x = as_triples(train_df)
+            # head_bytes: 2.5 GiB, the JAX package's tuned budget, so the
+            # head tiers equal the reference's.
+            self.blocked = blocked = build_blocked(
+                u, i, x, n_users=self.n_users, n_items=self.n_items,
+                dtype=self._dtype, reorder=True, head="auto",
+                head_bytes=5 << 29, device=self.device)
+
+            def sweep_fn(s, d):
+                return sweep_blocked(s, blocked, d.user_counts, d.item_counts, *hyper)
+        elif engine == "flat":
+
+            def sweep_fn(s, d):
+                return sweep(s, d, *hyper)
+        else:
+            raise ValueError(f"unknown engine {engine!r} (flat, blocked_high, auto)")
+
+        val = self._build_eval(val_df) if val_df is not None else None
+        loop = FitLoop(sweep_fn, eval_metrics, cfg.max_iter, cfg.tol,
+                       poisson_stop_rule, verbose=cfg.verbose, name="HPF",
+                       edge_visits_per_iter=2 * data.nnz)  # theta + beta passes
+        self.state = loop.run(state, data, val)
+        self.fit_history = loop.history
+        self.n_sweeps = loop.n_sweeps
+        return self
+
+    def _point_estimates(self):
+        return (self.state["a_theta"] / self.state["b_theta"],
+                self.state["a_beta"] / self.state["b_beta"])
+
+    def evaluate_rmse(self, df) -> float:
+        u, i, x = as_triples(df)
+        return rmse(x, self.predict(u, i))
+
+    def evaluate_macro_mae(self, df) -> float:
+        u, i, x = as_triples(df)
+        return macro_mae(x, self.predict(u, i))

@@ -1,0 +1,136 @@
+"""Build and load the port's CUDA kernels.
+
+``load_library()`` compiles every ``pmf_tpu_torch/csrc/*.cu`` with
+``nvcc`` for ``sm_90a`` (one compiler process per source, all started
+together), links them into one shared library with a plain C interface
+under ``pmf_tpu_torch/_build/`` keyed by a hash of the sources, and loads
+it with ctypes.  A later call (or process) with unchanged sources reuses
+the library.  Any build failure raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+SRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-lineinfo"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name -> argtypes (every entry returns cudaError_t as int).
+SIGNATURES = {
+    # e_self, e_other, row_ptr, other, x, n_self, K, rate_floor, out, stream
+    "pmf_cavi_edge": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P],
+    # theta, beta, x_hi, x_lo, m, m_is_f32, rows, hip, K, rate_floor,
+    # item_side, n_splits, partial, out, stream
+    "pmf_dense_head_tier": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+                            _P, _P, _P],
+}
+
+
+def sources() -> list[Path]:
+    return sorted(p for p in SRC_DIR.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libpmf_kernels_{source_hash()}.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build() -> Path:
+    """Compile and link the kernels if the keyed library is missing.
+    The compiler's resource report lands in ``<library>.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        objs = []
+        for src in sources():
+            if src.suffix != ".cu":
+                continue
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs = []
+        failed = []
+        for src, proc in procs:
+            text, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                               + "\n".join(logs))
+        tmp_so = Path(tmp) / out.name
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_so), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("linking the kernel library failed:\n" + link.stdout)
+        Path(str(out) + ".log").write_text("\n".join(logs))
+        os.replace(tmp_so, out)
+    return out
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.pmf_error_string.argtypes = [ctypes.c_int]
+    lib.pmf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+class LaunchCounter:
+    """Kernel launches made through one wrapper (a plain integer)."""
+
+    def __init__(self) -> None:
+        self.count = 0
+
+    def reset(self) -> None:
+        self.count = 0
+
+
+def check(lib: ctypes.CDLL, err: int, name: str) -> None:
+    """Raise when a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = lib.pmf_error_string(err).decode(errors="replace")
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

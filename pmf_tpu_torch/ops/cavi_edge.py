@@ -1,0 +1,121 @@
+"""Poisson/HPF CAVI edge pass over the hybrid layout.
+
+``poisson_edge_stats`` permutes the factor tables into count-reordered
+space, runs the sparse-tail kernel (K1, ``csrc/cavi_edge.cu``) over the
+direction's CSR tail, adds each dense head tier's statistics
+(``ops.dense_head``, kernel K2) and maps the result back to the original
+row order — the same function as the JAX package's
+``pmf_tpu/ops/pallas/cavi_edge.py::poisson_edge_stats`` in mode "cavi".
+
+``tail_edge_stats`` is K1's wrapper: on a CUDA tensor it launches the
+kernel (or raises); on a CPU tensor it runs ``tail_edge_stats_plain``,
+the same function in plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pmf_tpu_torch.data.blocked import TailCSR
+from pmf_tpu_torch.ops import _build
+from pmf_tpu_torch.ops.dense_head import poisson_head_stats, poisson_head_stats_t
+
+RATE_FLOOR = 1e-10
+TAIL_LAUNCHES = _build.LaunchCounter()
+
+
+def tail_edge_stats_plain(e_self: torch.Tensor, e_other: torch.Tensor,
+                          row_ptr: torch.Tensor, other: torch.Tensor,
+                          x: torch.Tensor, rate_floor: float = RATE_FLOOR
+                          ) -> torch.Tensor:
+    """(n_self, 2K) [sum x e_s*e_o / max(<e_s, e_o>, floor) | sum e_o] per
+    self row of the CSR tail, in the tables' dtype."""
+    n_self, K = e_self.shape
+    counts = row_ptr[1:] - row_ptr[:-1]
+    self_ids = torch.repeat_interleave(
+        torch.arange(n_self, device=e_self.device), counts)
+    g_self = e_self[self_ids]
+    g_other = e_other[other.long()]
+    rate = torch.clamp_min(torch.sum(g_self * g_other, dim=1), rate_floor)
+    alloc = (x.to(e_self.dtype) / rate)[:, None] * g_self * g_other
+    out = torch.zeros((n_self, 2 * K), dtype=e_self.dtype, device=e_self.device)
+    out.index_add_(0, self_ids, torch.cat([alloc, g_other], dim=1))
+    return out
+
+
+def _check_cuda_args(e_self, e_other, row_ptr, other, x):
+    K = e_self.shape[1]
+    if not 1 <= K <= 32:
+        raise ValueError(f"tail kernel needs 1 <= K <= 32, got K={K}")
+    for name, t, dt in (("e_self", e_self, torch.float32),
+                        ("e_other", e_other, torch.float32),
+                        ("row_ptr", row_ptr, torch.int64),
+                        ("other", other, torch.int32),
+                        ("x", x, torch.float32)):
+        if t.device != e_self.device:
+            raise ValueError(f"{name} is on {t.device}, e_self on {e_self.device}")
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if e_other.shape[1] != K:
+        raise ValueError("e_self and e_other differ in K")
+    if row_ptr.shape[0] != e_self.shape[0] + 1 or other.shape != x.shape:
+        raise ValueError("CSR shapes do not match the self table")
+
+
+def tail_edge_stats(e_self: torch.Tensor, e_other: torch.Tensor,
+                    row_ptr: torch.Tensor, other: torch.Tensor,
+                    x: torch.Tensor, rate_floor: float = RATE_FLOOR
+                    ) -> torch.Tensor:
+    """K1: the tail pass.  CUDA tensors launch the kernel; CPU tensors run
+    the plain version."""
+    if not e_self.is_cuda:
+        return tail_edge_stats_plain(e_self, e_other, row_ptr, other, x,
+                                     rate_floor)
+    _check_cuda_args(e_self, e_other, row_ptr, other, x)
+    lib = _build.load_library()
+    n_self, K = e_self.shape
+    out = torch.empty((n_self, 2 * K), dtype=torch.float32, device=e_self.device)
+    with torch.cuda.device(e_self.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pmf_cavi_edge(
+            e_self.data_ptr(), e_other.data_ptr(), row_ptr.data_ptr(),
+            other.data_ptr(), x.data_ptr(), n_self, K, rate_floor,
+            out.data_ptr(), stream)
+    _build.check(lib, err, "pmf_cavi_edge")
+    TAIL_LAUNCHES.count += 1
+    return out
+
+
+def poisson_edge_stats(e_self: torch.Tensor, e_other: torch.Tensor,
+                       p: TailCSR, rate_floor: float = RATE_FLOOR,
+                       head=None, head_side: str = "user"):
+    """(S_alloc, S_other), both (n_self, K), in the original row order:
+    S_alloc[r] = sum over r's edges of x * e_self[r] * e_other[o] / rate,
+    S_other[r] = sum of e_other[o].  ``head``: the layout's DenseHead tiers
+    (their edges are not in ``p``); ``head_side`` says whether self rows
+    are the head's user axis ("user", by_user pass) or item axis."""
+    K = e_self.shape[1]
+    if p.reordered:
+        e_self = e_self[p.self_old_of_new]
+        e_other = e_other[p.other_old_of_new]
+    acc = tail_edge_stats(e_self.contiguous(), e_other.contiguous(),
+                          p.row_ptr, p.other, p.x, rate_floor)
+    for tier in head or ():
+        if not p.reordered:
+            raise ValueError("dense head requires a reordered layout")
+        rs, hu, hi = tier.row_start, tier.hu, tier.hi
+        if head_side == "user":
+            theta_h = e_self[rs : rs + hu]
+            beta_h = torch.nn.functional.pad(e_other[:hi], (0, 0, 0, tier.hip - hi))
+            sa, so = poisson_head_stats(theta_h, beta_h, tier, rate_floor)
+            acc[rs : rs + hu] += torch.cat([sa, so], dim=1).to(acc.dtype)
+        else:
+            theta_h = e_other[rs : rs + hu]
+            beta_h = torch.nn.functional.pad(e_self[:hi], (0, 0, 0, tier.hip - hi))
+            sa, so = poisson_head_stats_t(theta_h, beta_h, tier, rate_floor)
+            acc[:hi] += torch.cat([sa[:hi], so[:hi]], dim=1).to(acc.dtype)
+    if p.reordered:
+        acc = acc[p.self_new_of_old]
+    return acc[:, :K], acc[:, K:]

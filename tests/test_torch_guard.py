@@ -1,0 +1,173 @@
+"""Boundaries of the port: it imports neither JAX nor the JAX package,
+its entry points run on the CUDA card unless the caller names the CPU,
+and its kernel wrappers launch or raise on a CUDA tensor, never falling
+back to the plain version."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import pmf_tpu_torch
+from pmf_tpu_torch.models.hpf import HPF, HPFConfig
+from pmf_tpu_torch.ops import _build, cavi_edge, dense_head
+from pmf_tpu_torch.utils import device as device_mod
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "pmf_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    banned = _imported_roots(path) & {"jax", "jaxlib", "pmf_tpu"}
+    assert not banned, f"{path} imports {banned}"
+
+
+def test_port_package_files_are_scanned():
+    names = {p.name for p in PORT_FILES}
+    assert {"chip_smoke.py", "hpf.py", "cavi_edge.py", "dense_head.py",
+            "blocked.py"} <= names
+    assert Path(pmf_tpu_torch.__file__).parent == REPO / "pmf_tpu_torch"
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_mod.resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA is absent"):
+        device_mod.resolve_device("cuda")
+    assert device_mod.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_resolve_device_turns_tf32_off(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    assert device_mod.resolve_device(None) == torch.device("cuda")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_fit_without_device_raises_without_cuda(monkeypatch, small_splits):
+    _no_cuda(monkeypatch)
+    train, val, _ = small_splits
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HPF(HPFConfig(n_factors=4, max_iter=2, verbose=False)).fit(train, val)
+
+
+def test_builders_without_device_raise_without_cuda(monkeypatch, small_ratings):
+    from pmf_tpu_torch.data.blocked import build_blocked
+    from pmf_tpu_torch.data.coo import build_eval_set, build_ratings
+    from pmf_tpu_torch.models.hpf import init_state
+
+    _no_cuda(monkeypatch)
+    u, i, x = small_ratings
+    for call in (lambda: build_ratings(u, i, x),
+                 lambda: build_eval_set(u, i, x, 120, 80),
+                 lambda: build_blocked(u, i, x, reorder=True),
+                 lambda: init_state(120, 80, HPFConfig(n_factors=3))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+class _CudaLooking(torch.Tensor):
+    """A CPU tensor that reports ``is_cuda``: reaches a wrapper's kernel
+    branch without a card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _cuda_looking(t):
+    return t.contiguous().as_subclass(_CudaLooking)
+
+
+@pytest.fixture
+def broken_build(monkeypatch, tmp_path):
+    """The kernel library cannot be built: no compiler."""
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    _build.load_library.cache_clear()
+    yield
+    _build.load_library.cache_clear()
+
+
+def _forbid(monkeypatch, module, name):
+    def called(*args, **kwargs):
+        raise AssertionError(f"{name} ran for a CUDA tensor")
+
+    monkeypatch.setattr(module, name, called)
+
+
+def test_tail_wrapper_raises_instead_of_falling_back(monkeypatch, broken_build):
+    _forbid(monkeypatch, cavi_edge, "tail_edge_stats_plain")
+    es = _cuda_looking(torch.rand(4, 3))
+    eo = _cuda_looking(torch.rand(5, 3))
+    row_ptr = _cuda_looking(torch.tensor([0, 1, 1, 2, 3]))
+    other = _cuda_looking(torch.tensor([0, 4, 2], dtype=torch.int32))
+    x = _cuda_looking(torch.ones(3))
+    before = cavi_edge.TAIL_LAUNCHES.count
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cavi_edge.tail_edge_stats(es, eo, row_ptr, other, x)
+    assert cavi_edge.TAIL_LAUNCHES.count == before
+
+
+def test_head_wrapper_raises_instead_of_falling_back(monkeypatch, broken_build):
+    _forbid(monkeypatch, dense_head, "fused_alloc_tier_plain")
+    theta = _cuda_looking(torch.rand(8, 4))
+    beta = _cuda_looking(torch.rand(512, 4))
+    x_hi = _cuda_looking(torch.ones(8, 512, dtype=torch.bfloat16))
+    m = _cuda_looking(torch.ones(8, 512, dtype=torch.bfloat16))
+    before = dense_head.HEAD_LAUNCHES.count
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        dense_head.fused_alloc_tier(theta, beta, x_hi, m, rate_floor=1e-10)
+    assert dense_head.HEAD_LAUNCHES.count == before
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    es = _cuda_looking(torch.rand(4, 40))  # K > 32
+    with pytest.raises(ValueError, match="K <= 32"):
+        cavi_edge.tail_edge_stats(es, es, _cuda_looking(torch.zeros(5, dtype=torch.int64)),
+                                  _cuda_looking(torch.zeros(0, dtype=torch.int32)),
+                                  _cuda_looking(torch.zeros(0)))
+    theta = _cuda_looking(torch.rand(8, 4))
+    beta = _cuda_looking(torch.rand(512, 4))
+    x_hi = _cuda_looking(torch.ones(8, 512))  # f32, not bf16
+    with pytest.raises(TypeError, match="x_hi"):
+        dense_head.fused_alloc_tier(theta, beta, x_hi, x_hi, rate_floor=1e-10)
+
+
+def test_kernel_sources_name_what_they_replace():
+    srcs = {p.name: p.read_text() for p in _build.sources()}
+    assert set(srcs) == {"cavi_edge.cu", "dense_head.cu"}
+    assert "pmf_tpu/ops/pallas/cavi_edge.py::_kernel" in srcs["cavi_edge.cu"]
+    assert "pmf_tpu/ops/dense_head.py::_fused_kernel" in srcs["dense_head.cu"]
+    for text in srcs.values():
+        assert "What bounds it" in text
+    assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
+    assert len(_build.source_hash()) == 16
+    assert np.all([name in srcs["cavi_edge.cu"] + srcs["dense_head.cu"]
+                   for name in _build.SIGNATURES])
