@@ -19,6 +19,23 @@ result line:
               the kernel launch counters reset just before and read after.
 8. profile -- steady sweep time, and one sweep under torch.profiler.
 
+The HPF layout and model are freed, then the Gaussian-MF CAVI path:
+
+9.  gdata    -- the benchmark's N(0, 1) ratings on the same ids and split,
+                and the layout ``GaussianMF.fit`` builds (3.75 GiB head).
+10. K3/K5/K6 -- the factor, bias and diag tail kernels vs their plain
+                versions, both directions, under a per-column criterion
+                fit for signed sums; ``torch.sparse.mm`` as the library
+                reference of K3's and K5's pass-through bulk.
+11. ghead    -- the head tiers' linear products (library matmuls), timed.
+12. K4       -- the Gauss-Jordan inverse on the real theta/beta precision
+                matrices vs its plain version and float64 ``linalg.inv``.
+13. gsmall   -- three blocked sweeps on the card vs the host, exact, lagged
+                and diag, on a small input with a two-tier head.
+14. gfit     -- ``GaussianMF.fit(engine="blocked_high")`` at K=20: 4 sweeps
+                exact full covariance, then 2 diag, with launch counters.
+15. gprofile -- steady sweep times, and one exact sweep under the profiler.
+
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.
 """
@@ -39,6 +56,7 @@ FIT_SWEEPS = 4
 # Published H100 SXM peaks: HBM bytes/s and float32 CUDA-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12  # dense tensor cores
 # Kernel vs plain version: f32 sums of positive terms taken in another
 # order; relative error per element.
 RTOL = 1e-4
@@ -95,6 +113,34 @@ def phase_device():
     return smi
 
 
+def _ptxas_report(text: str) -> list:
+    """One line per compiled kernel from ``ptxas -v``: its name (template
+    argument kept), registers and spills."""
+    import re
+
+    out, name = [], "?"
+    for ln in text.splitlines():
+        if "Function properties for" in ln:
+            mangled = ln.rsplit(" ", 1)[-1]
+            m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+            if m:
+                rest = mangled[m.end():]
+                name = rest[: int(m.group(1))]
+                t = re.match(r"ILi(\d+)E(?:Lb([01])E)?", rest[int(m.group(1)):])
+                if t:
+                    name += f"<{t.group(1)}" + (f", {t.group(2)}>" if t.group(2)
+                                                else ">")
+            else:
+                name = mangled
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln)
+            out.append(f"{name}: {regs.group(1) if regs else '?'} registers, "
+                       f"{spill}")
+    return out
+
+
 def phase_build():
     from pmf_tpu_torch.ops import _build
 
@@ -102,9 +148,8 @@ def phase_build():
     path = _build.build()
     secs = time.perf_counter() - t0
     _build.load_library()
-    report = [ln.strip() for ln in open(str(path) + ".log")
-              if "registers" in ln or "spill" in ln] if os.path.exists(
-                  str(path) + ".log") else []
+    log_path = str(path) + ".log"
+    report = _ptxas_report(open(log_path).read()) if os.path.exists(log_path) else []
     log(f"phase build: ok | {path.name} in {secs:.1f}s")
     for ln in report:
         log(f"  ptxas {ln}")
@@ -145,7 +190,7 @@ def phase_data():
     for name, p in (("by_user", blocked.by_user), ("by_item", blocked.by_item)):
         log(f"  tail {name}: nnz {p.nnz} ({p.nnz / n_train:.1%} of edges) | "
             f"longest row {p.max_row_len()}")
-    return train, val, blocked
+    return train, val, blocked, (u, i, is_val)
 
 
 def _new_space_tables(blocked):
@@ -359,13 +404,536 @@ def phase_profile(model, train, smi):
         log(f"  {dev_ms:9.4f} ms  {n:3d}x  {key[:90]}")
 
 
+# ---------------------------------------------------------------- Gaussian --
+
+GAUSS_HEAD_BYTES = 15 << 28  # GaussianMF.fit's head budget
+GFIT_SWEEPS = 4
+GDIAG_SWEEPS = 2
+# Kernel vs plain version for the signed Gaussian sums (m_o * resid
+# cancels, so an elementwise relative error is meaningless near zero):
+# each output column's largest error against that column's largest
+# magnitude.  f32 sums of up to a few thousand terms in another order
+# stay near 1e-6 of it.
+COL_RTOL = 1e-4
+# K4 vs plain and vs float64 inv, per matrix: largest error against the
+# matrix's largest entry.
+INV_RTOL = 1e-4
+
+
+def column_check(got, ref):
+    """(max abs error, worst column ratio max|got-ref| / max|ref|, ok)."""
+    import torch
+
+    diff = (got.double() - ref.double()).abs().amax(dim=0)
+    scale = ref.double().abs().amax(dim=0)
+    ratio = torch.where(diff == 0, torch.zeros_like(diff),
+                        diff / scale.clamp_min(1e-300))
+    return (float(diff.max()), float(ratio.max()),
+            bool((diff <= COL_RTOL * scale).all()))
+
+
+def phase_gdata(split):
+    """The bench's Gaussian ratings on the same ids and split, and the
+    layout GaussianMF.fit builds."""
+    import torch
+
+    from pmf_tpu_torch.data.blocked import build_blocked
+
+    u, i, is_val = split
+    t0 = time.perf_counter()
+    x = np.random.default_rng(1).standard_normal(NNZ).astype(np.float32)
+    train = (u[~is_val], i[~is_val], x[~is_val])
+    val = (u[is_val], i[is_val], x[is_val])
+    blocked = build_blocked(*train, n_users=N_USERS, n_items=N_ITEMS,
+                            reorder=True, head="auto",
+                            head_bytes=GAUSS_HEAD_BYTES, device="cuda")
+    torch.cuda.synchronize()
+    t_layout = time.perf_counter() - t0
+    heads = blocked.head or ()
+    tiers = [(h.row_start, h.hu, h.hi) for h in heads]
+    cell_bytes = sum(h.x_hi.nbytes + h.m.nbytes
+                     + (h.x_lo.nbytes if h.x_lo is not None else 0) for h in heads)
+    cells = sum(h.hu * h.hip for h in heads)
+    has_lo = [h.x_lo is not None for h in heads]
+    n_train = len(train[0])
+    log(f"phase gdata: ok | train {n_train} val {N_VAL} N(0,1) ratings K={K} | "
+        f"host layout build {t_layout:.1f}s")
+    log(f"  tiers (row_start, rows, hi): {tiers} | head cells {cells} (budget "
+        f"{GAUSS_HEAD_BYTES // 6} at 6 B) | head cell bytes {cell_bytes} | "
+        f"x_lo present {has_lo}")
+    if not heads or not all(has_lo):
+        raise AssertionError("gdata: expected a head with x_lo planes")
+    for name, p in (("by_user", blocked.by_user), ("by_item", blocked.by_item)):
+        log(f"  tail {name}: nnz {p.nnz} ({p.nnz / n_train:.1%} of edges) | "
+            f"longest row {p.max_row_len()}")
+    return train, val, blocked
+
+
+def _gauss_tables(n, seed):
+    """Random Gaussian-state rows on the card: means m, SPD covariances V,
+    biases b and diagonal variances v."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    m = 0.1 * torch.randn(n, K, generator=g, device="cuda")
+    A = 0.1 * torch.randn(n, K, K, generator=g, device="cuda")
+    V = 0.5 * torch.eye(K, device="cuda") + A @ A.transpose(1, 2)
+    b = 0.1 * torch.randn(n, generator=g, device="cuda")
+    v = 0.1 + 0.5 * torch.rand(n, K, generator=g, device="cuda")
+    return m, V, b, v
+
+
+def _new_space_gauss(blocked):
+    """Per direction: (name, pass, self rows, other rows), each table set
+    permuted into the pass's new space."""
+    users = _gauss_tables(N_USERS, 11)
+    items = _gauss_tables(N_ITEMS, 12)
+    out = []
+    for name, p, s, o in (("user", blocked.by_user, users, items),
+                          ("item", blocked.by_item, items, users)):
+        out.append((name, p, tuple(t[p.self_old_of_new] for t in s),
+                    tuple(t[p.other_old_of_new] for t in o)))
+    return out
+
+
+def _csr_ones(p):
+    """The tail's CSR pattern with unit values (the library reference)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings():  # beta-state and invariant-check notices
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(p.row_ptr, p.other.long(),
+                                       torch.ones(p.nnz, device="cuda"),
+                                       size=(p.n_self, p.n_other))
+
+
+def _tail_phase(label, blocked, make_args, kernel, plain, n_bytes_fn,
+                n_flops_per_edge, library_fn=None, no_library=""):
+    """Kernel vs plain version (column criterion), times and bound, both
+    directions; returns the per-sweep sums.  ``library_fn`` times
+    torch.sparse.mm over the pass-through bulk; ``no_library`` says why a
+    pass has none."""
+    res = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, n_bytes=0.0, n_flops=0.0,
+               library_ms=0.0 if library_fn else None)
+    for name, p, s, o in _new_space_gauss(blocked):
+        args = make_args(p, s, o)
+        got = kernel(*args)
+        ref = plain(*args, max_edges=1 << 21)
+        abs_err, worst, ok = column_check(got, ref)
+        ms = cuda_ms(lambda: kernel(*args))
+        plain_ms = cuda_ms(lambda: plain(*args, max_edges=1 << 21), reps=3)
+        n_bytes = n_bytes_fn(args) + got.nbytes
+        n_flops = p.nnz * n_flops_per_edge
+        b_ms, b_by = bound(n_bytes, n_flops)
+        lib = f" | library: none ({no_library})"
+        if library_fn:
+            lib_ms = cuda_ms(library_fn(p, args))
+            res["library_ms"] += lib_ms
+            lib = f" | library (torch.sparse.mm, pass-through bulk only) {lib_ms:.4f} ms"
+        log(f"  {label} {name}: nnz {p.nnz} | max abs err {abs_err:.3e} | worst "
+            f"column max|err|/max|plain| {worst:.3e} (tol {COL_RTOL}) | kernel "
+            f"{ms:.4f} ms | plain {plain_ms:.4f} ms{lib} | bound {b_ms:.4f} ms "
+            f"({b_by})")
+        if not ok:
+            raise AssertionError(f"{label} {name}: column error {worst} > {COL_RTOL}")
+        res["ms"] += ms
+        res["plain_ms"] += plain_ms
+        res["max_abs_err"] = max(res["max_abs_err"], abs_err)
+        res["n_bytes"] += n_bytes
+        res["n_flops"] += n_flops
+    res["bound_ms"], res["bound_by"] = bound(res["n_bytes"], res["n_flops"])
+    log(f"phase {label}: ok | per sweep: kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']})" + (f", library {res['library_ms']:.4f} ms"
+                                  if library_fn else ""))
+    return res
+
+
+def phase_k3(blocked):
+    """K3, the factor tail pass; library: CSR-ones @ [m | b | tri] by
+    torch.sparse.mm, the pass's pass-through bulk (not the m * resid or
+    sum x columns)."""
+    import torch
+
+    from pmf_tpu_torch.ops import gaussian_edge as ge
+
+    def make_args(p, s, o):
+        m, V, b, _ = o
+        A = (V + m[:, :, None] * m[:, None, :]).reshape(-1, K * K)
+        aug = torch.cat([m, b[:, None], ge.pack_tri(A, K)], dim=1).contiguous()
+        return (aug, p.row_ptr, p.other, p.x, K, False)
+
+    def library(p, args):
+        csr = _csr_ones(p)
+        return lambda: torch.sparse.mm(csr, args[0])
+
+    T = ge.tri_size(K)
+    return _tail_phase(
+        "K3", blocked, make_args, ge.factor_tail_stats, ge.factor_tail_stats_plain,
+        lambda a: sum(t.nbytes for t in a[:4]),
+        # per edge: 2K for m (x - b), K for sum m, 1 + T pass-through adds
+        3 * K + 1 + T, library)
+
+
+def phase_k5(blocked):
+    """K5, the bias tail pass; library: CSR-ones @ [m | b] (all but sum x)."""
+    import torch
+
+    from pmf_tpu_torch.ops import gaussian_edge as ge
+
+    def make_args(p, s, o):
+        m, _, b, _ = o
+        return (torch.cat([m, b[:, None]], dim=1).contiguous(), p.row_ptr,
+                p.other, p.x)
+
+    def library(p, args):
+        csr = _csr_ones(p)
+        return lambda: torch.sparse.mm(csr, args[0])
+
+    return _tail_phase(
+        "K5", blocked, make_args, ge.bias_tail_stats, ge.bias_tail_stats_plain,
+        lambda a: sum(t.nbytes for t in a), K + 2, library)
+
+
+def phase_k6(blocked):
+    """K6, the diag tail pass; no library call computes it (a per-edge
+    dot with the self row weights every term)."""
+    import torch
+
+    from pmf_tpu_torch.ops import gaussian_edge as ge
+
+    def make_args(p, s, o):
+        m_o, _, b_o, v_o = o
+        m_s, _, b_s, _ = s
+        aug = torch.cat([m_o, v_o + m_o * m_o, b_o[:, None]], dim=1).contiguous()
+        self_tab = torch.cat([m_s, b_s[:, None]], dim=1).contiguous()
+        return (aug, self_tab, p.row_ptr, p.other, p.x)
+
+    # per edge: dot 2K, resid 2, m * (resid - pred) 2K, sq K, m^2 2K
+    return _tail_phase(
+        "K6", blocked, make_args, ge.diag_tail_stats, ge.diag_tail_stats_plain,
+        lambda a: sum(t.nbytes for t in a), 7 * K + 2,
+        no_library="a per-edge dot with the self row weights every term")
+
+
+def phase_ghead(blocked):
+    """The Gaussian head products per tier and side (library matmuls):
+    K3's [m | b m | tri | b] and X @ m products, and K5's [m | b]."""
+    import torch
+
+    from pmf_tpu_torch.ops import gaussian_edge as ge
+    from pmf_tpu_torch.ops.dense_head import head_products, head_products_t
+
+    rows = {}
+    for name, p, s, o in _new_space_gauss(blocked):
+        m, V, b, _ = o
+        tri = ge.pack_tri((V + m[:, :, None] * m[:, None, :]).reshape(-1, K * K), K)
+        rows[name] = torch.cat([m, b[:, None] * m, tri, b[:, None]], dim=1)
+    total = 0.0
+    for t, h in enumerate(blocked.head or ()):
+        planes = 2 + (h.x_lo is not None)
+        for side in ("user", "item"):
+            if side == "user":
+                tab = torch.nn.functional.pad(rows["user"][: h.hi],
+                                              (0, 0, 0, h.hip - h.hi))
+                fn = head_products
+            else:
+                tab = rows["item"][h.row_start : h.row_start + h.hu]
+                fn = head_products_t
+            m_tab = tab[:, :K].contiguous()
+            mb_tab = torch.cat([tab[:, :K], tab[:, -1:]], dim=1)
+            ms_f = cuda_ms(lambda: fn(h, tab, m_tab), reps=5)
+            ms_b = cuda_ms(lambda: fn(h, mb_tab, None), reps=5)
+            cell_bytes = sum(a.nbytes for a in (h.x_hi, h.m, h.x_lo) if a is not None)
+            # bf16 tensor-core products: M @ two table planes, X planes @ m
+            n_flops = 2.0 * h.hu * h.hip * (2 * tab.shape[1] + (planes - 1) * 2 * K
+                                            + 2 * mb_tab.shape[1])
+            t_bytes = (h.m.nbytes + cell_bytes + 2 * tab.nbytes
+                       + 4 * (h.hu if side == "user" else h.hip)
+                       * (tab.shape[1] + K + K + 1))
+            b_ms = max(t_bytes / HBM_BYTES_PER_S, n_flops / BF16_FLOPS_PER_S) * 1e3
+            total += ms_f + ms_b
+            log(f"  head tier {t} ({h.row_start}, {h.hu}, {h.hi}) {side}: factor "
+                f"products {ms_f:.4f} ms | bias products {ms_b:.4f} ms | bound "
+                f"{b_ms:.4f} ms")
+    log(f"phase ghead: ok | bf16 planes, torch.mm(out_dtype=float32) | per exact "
+        f"sweep {total:.4f} ms")
+
+
+def _real_precisions(blocked):
+    """The theta- and beta-block precision matrices I/eta^2 + S_A/sigma^2
+    of one factor pass from the initial state (default hyperparameters)."""
+    import torch
+
+    from pmf_tpu_torch.models.gaussian_mf import GaussianMFConfig, init_state
+    from pmf_tpu_torch.ops.gaussian_edge import gaussian_factor_stats
+
+    cfg = GaussianMFConfig(n_factors=K)
+    st = init_state(N_USERS, N_ITEMS, cfg, device="cuda")
+    eye = torch.eye(K, device="cuda")
+    out = []
+    for side, p, m_o, V_o, b_s, b_o, eta2 in (
+            ("user", blocked.by_user, st["m_beta"], st["V_beta"], st["b_user"],
+             st["b_item"], cfg.eta_theta2),
+            ("item", blocked.by_item, st["m_theta"], st["V_theta"], st["b_item"],
+             st["b_user"], cfg.eta_beta2)):
+        _, S_A = gaussian_factor_stats(m_o, V_o, b_s, b_o, p, head=blocked.head,
+                                       head_side=side)
+        out.append(eye / eta2 + S_A / cfg.sigma2)
+    del st
+    return out
+
+
+def phase_k4(blocked):
+    import torch
+
+    from pmf_tpu_torch.ops.gj_inverse import (
+        batched_psd_inverse_gj, batched_psd_inverse_gj_plain)
+
+    res = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0,
+               n_bytes=0.0, n_flops=0.0)
+    for name, P in zip(("theta", "beta"), _real_precisions(blocked)):
+        P = P.contiguous()
+        got = batched_psd_inverse_gj(P)
+        ref = batched_psd_inverse_gj_plain(P)
+        ref64 = torch.linalg.inv(P.double())
+        scale = ref64.abs().amax(dim=(1, 2))
+        err_plain = float(((got - ref).abs().amax(dim=(1, 2)) / scale).max())
+        err64 = float(((got.double() - ref64).abs().amax(dim=(1, 2)) / scale).max())
+        resid = float((P.double() @ got.double()
+                       - torch.eye(K, device="cuda", dtype=torch.float64)).abs().max())
+        ms = cuda_ms(lambda: batched_psd_inverse_gj(P))
+        plain_ms = cuda_ms(lambda: batched_psd_inverse_gj_plain(P), reps=3)
+        lib_ms = cuda_ms(lambda: torch.linalg.inv(P))
+        R = P.shape[0]
+        n_bytes = 2 * P.nbytes
+        n_flops = R * 4 * K**3  # K pivots x K lanes x 2K multiply-subtracts
+        b_ms, b_by = bound(n_bytes, n_flops)
+        abs_err = float((got - ref).abs().max())
+        log(f"  K4 {name}: {R} x {K}x{K} | per-matrix max|err|/max|inv| vs plain "
+            f"{err_plain:.3e}, vs float64 inv {err64:.3e} (tol {INV_RTOL}) | "
+            f"max|P V - I| {resid:.3e} | kernel {ms:.4f} ms | plain {plain_ms:.4f} "
+            f"ms | torch.linalg.inv {lib_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
+        if not (err_plain <= INV_RTOL and err64 <= INV_RTOL):
+            raise AssertionError(f"K4 {name}: error {err_plain} / {err64} > {INV_RTOL}")
+        res["ms"] += ms
+        res["plain_ms"] += plain_ms
+        res["library_ms"] += lib_ms
+        res["max_abs_err"] = max(res["max_abs_err"], abs_err)
+        res["n_bytes"] += n_bytes
+        res["n_flops"] += n_flops
+    res["bound_ms"], res["bound_by"] = bound(res["n_bytes"], res["n_flops"])
+    log(f"phase K4: ok | per sweep: kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, torch.linalg.inv {res['library_ms']:.4f} ms, "
+        f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+    return res
+
+
+def phase_gsmall():
+    """Three blocked Gaussian sweeps on the card vs the host (plain
+    kernels) on one small input with a two-tier head, in the exact,
+    lagged and diag modes, at the JAX package's blocked-vs-flat gate."""
+    import torch
+
+    from pmf_tpu_torch.data.blocked import build_blocked
+    from pmf_tpu_torch.data.coo import build_ratings
+    from pmf_tpu_torch.data.synthetic import synth_ratings
+    from pmf_tpu_torch.models import gaussian_mf as gm
+
+    u, i, _ = synth_ratings(3000, 1500, 120_000, seed=5)
+    x = np.random.default_rng(2).standard_normal(len(u)).astype(np.float32)
+    head = [(0, 256, 1500), (256, 768, 300)]
+    worst = {}
+    for cov, upd in (("full", "exact"), ("full", "lagged"), ("diag", "exact")):
+        cfg = gm.GaussianMFConfig(n_factors=K, covariance=cov, bias_update=upd)
+        states = {}
+        for dev in ("cpu", "cuda"):
+            blocked = build_blocked(u, i, x, reorder=True, head=head, head_r0=256,
+                                    device=dev)
+            flat = build_ratings(u, i, x, device=dev)
+            s = gm.init_state(flat.n_users, flat.n_items, cfg, device=dev)
+            for _ in range(3):
+                s = gm.sweep_blocked(s, blocked, flat.user_counts, flat.item_counts,
+                                     cfg.sigma2, cfg.eta_theta2, cfg.eta_beta2,
+                                     cfg.eta_bias2, True, cov, upd)
+            states[dev] = gm.state_to_numpy(s)
+        w = 0.0
+        for k, ref in states["cpu"].items():
+            got = states["cuda"][k]
+            if got.shape != ref.shape or not np.all(np.isfinite(got)):
+                raise AssertionError(f"gsmall {cov}/{upd}: {k} shape or not finite")
+            np.testing.assert_allclose(got, ref, rtol=5e-3, atol=2e-5,
+                                       err_msg=f"{cov}/{upd} {k}")
+            w = max(w, float(np.max(np.abs(got - ref) / (2e-5 + 5e-3 * np.abs(ref)))))
+        worst[f"{cov}/{upd}"] = w
+    torch.cuda.synchronize()
+    log(f"phase gsmall: ok | 3 sweeps card vs host (rtol 5e-3, atol 2e-5), worst "
+        f"|diff| / (atol + rtol |host|): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
+
+
+def _gauss_counters():
+    from pmf_tpu_torch.ops import cavi_edge, dense_head, gaussian_edge, gj_inverse
+
+    return {"K1": cavi_edge.TAIL_LAUNCHES, "K2": dense_head.HEAD_LAUNCHES,
+            "K3": gaussian_edge.FACTOR_LAUNCHES, "K4": gj_inverse.GJ_LAUNCHES,
+            "K5": gaussian_edge.BIAS_LAUNCHES, "K6": gaussian_edge.DIAG_LAUNCHES}
+
+
+def _train_rmse(state, train, n=1_000_000):
+    """RMSE of the biased prediction on the first n training ratings."""
+    import torch
+
+    u, i, x = (torch.from_numpy(np.ascontiguousarray(a[:n])).cuda() for a in train)
+    pred = (torch.sum(state["m_theta"][u] * state["m_beta"][i], dim=1)
+            + state["b_user"][u] + state["b_item"][i])
+    return float(torch.sqrt(torch.mean((x - pred) ** 2)))
+
+
+def _run_gfit(train, val, smi, covariance, sweeps, want_of):
+    import torch
+
+    from pmf_tpu_torch.models.gaussian_mf import (
+        GaussianMF, GaussianMFConfig, init_state, state_to_numpy)
+
+    cfg = GaussianMFConfig(n_factors=K, max_iter=sweeps, tol=None, verbose=False,
+                           engine="blocked_high", covariance=covariance)
+    model = GaussianMF(cfg)
+    counters = _gauss_counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    model.fit(train, val, global_mean=0.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    for rec in model.fit_history:
+        log(f"  {covariance} sweep {rec['iteration']}: {rec['iter_seconds']:.4f} s | "
+            f"{rec['updates_per_sec'] / 1e6:.1f}M updates/s | val RMSE "
+            f"{rec['val_rmse']:.6f} | {smi}")
+    want = want_of(model.n_sweeps)
+    if launches != want:
+        raise AssertionError(f"gfit {covariance} launches {launches}, expected {want}")
+    state = state_to_numpy(model.state)
+    shapes = {"m_theta": (N_USERS, K), "m_beta": (N_ITEMS, K),
+              "V_theta": (N_USERS, K, K) if covariance == "full" else (N_USERS, K),
+              "V_beta": (N_ITEMS, K, K) if covariance == "full" else (N_ITEMS, K),
+              "b_user": (N_USERS,), "b_item": (N_ITEMS,)}
+    for k, v in state.items():
+        if v.shape != shapes[k] or not np.all(np.isfinite(v)):
+            raise AssertionError(f"gfit {covariance} state {k}: shape {v.shape} "
+                                 f"or non-finite values")
+    rmses = [rec["val_rmse"] for rec in model.fit_history]
+    if len(rmses) != sweeps or not np.all(np.isfinite(rmses)):
+        raise AssertionError(f"gfit {covariance} val RMSE history {rmses}")
+    # The reported val RMSE equals the host's from the returned state.
+    host = model.evaluate_rmse(val)
+    if not abs(host - rmses[-1]) < 1e-4:
+        raise AssertionError(f"gfit {covariance}: host val RMSE {host} vs {rmses[-1]}")
+    # The fit explains training ratings better than its initial state.
+    init = init_state(N_USERS, N_ITEMS, cfg, device="cuda")
+    tr0, tr1 = _train_rmse(init, train), _train_rmse(model.state, train)
+    del init
+    if not tr1 < tr0:
+        raise AssertionError(f"gfit {covariance}: train RMSE {tr0} -> {tr1}")
+    log(f"phase gfit ({covariance}): ok | {model.n_sweeps} sweeps in {wall:.1f}s "
+        f"wall (layout build included) | launches {launches} | val RMSE "
+        f"{rmses[0]:.6f} -> {rmses[-1]:.6f} (host {host:.6f}) | train RMSE "
+        f"(first 1M) {tr0:.6f} -> {tr1:.6f}")
+    return model, launches
+
+
+def phase_gfit(train, val, smi):
+    """GaussianMF.fit(engine="blocked_high"): exact full covariance for
+    GFIT_SWEEPS sweeps (K3, K4, K5 twice a sweep), then the diag
+    configuration for GDIAG_SWEEPS (K6 and K5 twice a sweep)."""
+    full, launches = _run_gfit(
+        train, val, smi, "full", GFIT_SWEEPS,
+        lambda n: {"K1": 0, "K2": 0, "K3": 2 * n, "K4": 2 * n, "K5": 2 * n, "K6": 0})
+    diag, dlaunches = _run_gfit(
+        train, val, smi, "diag", GDIAG_SWEEPS,
+        lambda n: {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 2 * n, "K6": 2 * n})
+    return full, diag, {k: launches[k] + dlaunches[k] for k in launches}
+
+
+def phase_gprofile(full, diag, train, smi):
+    """Steady sweep times (CUDA events over chained sweeps) of both
+    configurations and one exact sweep under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pmf_tpu_torch.models.gaussian_mf import sweep_blocked
+
+    user_counts, item_counts = (
+        torch.bincount(torch.from_numpy(ids).cuda(), minlength=n).float()
+        for ids, n in ((train[0], N_USERS), (train[1], N_ITEMS)))
+    nnz = len(train[0])
+
+    def chained(model):
+        """One sweep from the last one's state (the fit's final state first)."""
+        cfg = model.config
+        box = [dict(model.state)]
+
+        def one_sweep():
+            box[0] = sweep_blocked(box[0], model.blocked, user_counts, item_counts,
+                                   cfg.sigma2, cfg.eta_theta2, cfg.eta_beta2,
+                                   cfg.eta_bias2, cfg.use_bias, cfg.covariance,
+                                   cfg.bias_update)
+        return one_sweep
+
+    steady = {}
+    sweeps = {"full": chained(full), "diag": chained(diag)}
+    for name, one_sweep in sweeps.items():
+        steady[name] = cuda_ms(one_sweep, reps=5)
+        log(f"  steady {name} sweep: {steady[name]:.4f} ms | "
+            f"{4 * nnz / steady[name] / 1e3:.1f}M updates/s (4 x nnz) | {smi}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweeps["full"]()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    groups = {"K3 factor_kernel": 0.0, "K5 bias_kernel": 0.0,
+              "K4 gj_inverse_kernel": 0.0, "head products (gemm)": 0.0,
+              "other": 0.0}
+    for dev_ms, _, key in rows:
+        k = key.lower()
+        if "factor_kernel" in k:
+            groups["K3 factor_kernel"] += dev_ms
+        elif "bias_kernel" in k:
+            groups["K5 bias_kernel"] += dev_ms
+        elif "gj_inverse" in k:
+            groups["K4 gj_inverse_kernel"] += dev_ms
+        elif "gemm" in k or "cutlass" in k or "sm90_xmma" in k or "nvjet" in k:
+            groups["head products (gemm)"] += dev_ms
+        else:
+            groups["other"] += dev_ms
+    log(f"phase gprofile: ok | one exact sweep: device busy {busy:.4f} ms of "
+        f"{wall_ms:.4f} ms window (idle share {1 - busy / wall_ms:.1%})")
+    if busy > 0:
+        log("  by part: " + ", ".join(f"{k} {v:.4f} ms ({v / busy:.1%})"
+                                       for k, v in groups.items()))
+    for dev_ms, n, key in rows[:12]:
+        log(f"  {dev_ms:9.4f} ms  {n:3d}x  {key[:90]}")
+    return steady
+
+
 def main() -> int:
     smi = phase_device()
+    import gc
+
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     phase_build()
-    train, val, blocked = phase_data()
+    train, val, blocked, split = phase_data()
     k1 = phase_k1(blocked)
     k2 = phase_k2(blocked)
     del blocked
@@ -373,19 +941,45 @@ def main() -> int:
     phase_small()
     model, launches = phase_fit(train, val, smi)
     phase_profile(model, train, smi)
+    del model, train, val
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gtrain, gval, gblocked = phase_gdata(split)
+    k3 = phase_k3(gblocked)
+    k5 = phase_k5(gblocked)
+    k6 = phase_k6(gblocked)
+    phase_ghead(gblocked)
+    k4 = phase_k4(gblocked)
+    del gblocked
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_gsmall()
+    full, diag, glaunches = phase_gfit(gtrain, gval, smi)
+    phase_gprofile(full, diag, gtrain, smi)
 
     def entry(name, source, replaces, res, n):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n,
                 "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-                "bound_by": res["bound_by"], "library_ms": None}
+                "bound_by": res["bound_by"],
+                "library_ms": res.get("library_ms")}
 
+    gsrc = "pmf_tpu_torch/csrc/gaussian_edge.cu"
     kernels = [
         entry("cavi_edge_tail", "pmf_tpu_torch/csrc/cavi_edge.cu",
               "pmf_tpu/ops/pallas/cavi_edge.py:93", k1, launches["K1"]),
         entry("dense_head_tier", "pmf_tpu_torch/csrc/dense_head.cu",
               "pmf_tpu/ops/dense_head.py:85", k2, launches["K2"]),
+        entry("gaussian_factor_tail", gsrc,
+              "pmf_tpu/ops/pallas/gaussian_edge.py:90", k3, glaunches["K3"]),
+        entry("gj_inverse", "pmf_tpu_torch/csrc/gj_inverse.cu",
+              "pmf_tpu/ops/pallas/gj_inverse.py:25", k4, glaunches["K4"]),
+        entry("gaussian_bias_tail", gsrc,
+              "pmf_tpu/ops/pallas/gaussian_edge.py:175", k5, glaunches["K5"]),
+        entry("gaussian_diag_tail", gsrc,
+              "pmf_tpu/ops/pallas/gaussian_edge.py:242", k6, glaunches["K6"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

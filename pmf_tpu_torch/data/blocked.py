@@ -57,19 +57,38 @@ class DenseHead:
     bf16 ``x_hi`` plus a bf16 remainder ``x_lo`` (None when X is
     bf16-exact); M = edge multiplicity per cell (bf16 when every count is
     <= 256, else f32).  Duplicate (u, i) edges are exact: rate is the same
-    across duplicates, so sum_e x_e / rate == X / rate."""
+    across duplicates, so sum_e x_e / rate == X / rate.  ``x_sum_user`` /
+    ``x_sum_item`` are X's f32 row and column sums (static rating sums
+    that the Gaussian bias statistics read)."""
 
     x_hi: torch.Tensor  # (hu, hip) bfloat16
     x_lo: torch.Tensor | None  # (hu, hip) bfloat16 remainder, or None
     m: torch.Tensor  # (hu, hip) bfloat16 or float32
+    x_sum_user: torch.Tensor  # (hu,) float32
+    x_sum_item: torch.Tensor  # (hip,) float32
     hu: int
     hi: int
     r0: int
     row_start: int = 0
+    _planes: dict = dataclasses.field(default_factory=dict, repr=False,
+                                      compare=False)
 
     @property
     def hip(self) -> int:
         return self.m.shape[1]
+
+    def m_bf16_planes(self) -> list:
+        """M as bf16 planes that sum to it: [m] when M is stored bf16, else
+        its top 16 bits and the remainder (exact for counts below 2^16).
+        Made at first use and kept with the head: the Gaussian head
+        products read them on every pass."""
+        if self.m.dtype == torch.bfloat16:
+            return [self.m]
+        if "m" not in self._planes:
+            hi = (self.m.contiguous().view(torch.int32) & -65536).view(torch.float32)
+            self._planes["m"] = [hi.to(torch.bfloat16),
+                                 (self.m - hi).to(torch.bfloat16)]
+        return self._planes["m"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,6 +197,8 @@ def _scatter_head(idx: np.ndarray, x: np.ndarray, hu: int, hi: int, r0: int,
         x_hi=x_hi,
         x_lo=x_lo,
         m=M.to(torch.bfloat16) if m_exact else M,
+        x_sum_user=X.sum(dim=1),
+        x_sum_item=X.sum(dim=0),
         hu=hu,
         hi=hi,
         r0=r0,

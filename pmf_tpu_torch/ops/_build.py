@@ -37,6 +37,14 @@ SIGNATURES = {
     # item_side, n_splits, partial, out, stream
     "pmf_dense_head_tier": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                             _P, _P, _P],
+    # aug, row_ptr, other, x, n_self, K, with_bias_stats, out, stream
+    "pmf_gauss_factor": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # aug, row_ptr, other, x, n_self, K, out, stream
+    "pmf_gauss_bias": [_P, _P, _P, _P, _I, _I, _P, _P],
+    # aug, self_tab, row_ptr, other, x, n_self, K, out, stream
+    "pmf_gauss_diag": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
+    # mats, R, K, out, stream
+    "pmf_gj_inverse": [_P, _I, _I, _P, _P],
 }
 
 
@@ -134,3 +142,19 @@ def check(lib: ctypes.CDLL, err: int, name: str) -> None:
     if err != 0:
         msg = lib.pmf_error_string(err).decode(errors="replace")
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def launch(name: str, counter: LaunchCounter, device, *args) -> None:
+    """Call C entry point ``name`` on ``device``'s current stream (its
+    last argument): tensors pass as data pointers, None as a null pointer,
+    numbers as they are.  Raises on a reported CUDA error; counts the
+    launch only when it was made."""
+    import torch
+
+    lib = load_library()
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, name)(*ptrs, stream)
+    check(lib, err, name)
+    counter.count += 1

@@ -74,17 +74,10 @@ def tail_edge_stats(e_self: torch.Tensor, e_other: torch.Tensor,
         return tail_edge_stats_plain(e_self, e_other, row_ptr, other, x,
                                      rate_floor)
     _check_cuda_args(e_self, e_other, row_ptr, other, x)
-    lib = _build.load_library()
     n_self, K = e_self.shape
     out = torch.empty((n_self, 2 * K), dtype=torch.float32, device=e_self.device)
-    with torch.cuda.device(e_self.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pmf_cavi_edge(
-            e_self.data_ptr(), e_other.data_ptr(), row_ptr.data_ptr(),
-            other.data_ptr(), x.data_ptr(), n_self, K, rate_floor,
-            out.data_ptr(), stream)
-    _build.check(lib, err, "pmf_cavi_edge")
-    TAIL_LAUNCHES.count += 1
+    _build.launch("pmf_cavi_edge", TAIL_LAUNCHES, e_self.device, e_self, e_other,
+                  row_ptr, other, x, n_self, K, rate_floor, out)
     return out
 
 

@@ -12,6 +12,16 @@ tier's user rows and beta its item rows (zero past ``hi``):
 on CUDA tensors it launches the kernel (or raises), on CPU tensors it runs
 ``fused_alloc_tier_plain``.  ``poisson_head_stats{,_t}`` apply the final
 self-factor multiply, as the JAX package's functions of the same names.
+
+``head_products{,_t}`` are the linear products the Gaussian statistics
+need over one tier, ``(M @ tab, X @ xtab)`` and their transposes.  The
+JAX package leaves them to XLA dots, so here they are library matmuls.
+On the card they follow the JAX bf16 part scheme: M is one exact bf16
+plane, X the stored ``x_hi`` + ``x_lo`` planes, each f32 table two bf16
+planes; every product accumulates and returns float32
+(``torch.mm(..., out_dtype=torch.float32)``: a plain bf16 ``torch.mm``
+would round its output to bf16).  On the CPU, whose torch has no kernel
+for that overload, they are plain matmuls in the table's dtype.
 """
 
 from __future__ import annotations
@@ -111,7 +121,7 @@ def fused_alloc_tier(theta_h, beta_h, x_hi, m, x_lo=None, *,
     theta_h = theta_h.contiguous()
     beta_h = beta_h.contiguous()
     _check_cuda_args(theta_h, beta_h, x_hi, m, x_lo)
-    lib = _build.load_library()
+    _build.load_library()  # build (or raise) before asking the card anything
     rows, K = theta_h.shape
     hip = m.shape[1]
     dev = theta_h.device
@@ -121,17 +131,9 @@ def fused_alloc_tier(theta_h, beta_h, x_hi, m, x_lo=None, *,
     splits = plan_splits(rows, hip, item_side, n_sm)
     partial = (torch.empty((splits, out_rows, 2 * K), dtype=torch.float32,
                            device=dev) if splits > 1 else None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pmf_dense_head_tier(
-            theta_h.data_ptr(), beta_h.data_ptr(), x_hi.data_ptr(),
-            None if x_lo is None else x_lo.data_ptr(), m.data_ptr(),
-            int(m.dtype == torch.float32), rows, hip, K, rate_floor,
-            int(item_side), splits,
-            None if partial is None else partial.data_ptr(), out.data_ptr(),
-            stream)
-    _build.check(lib, err, "pmf_dense_head_tier")
-    HEAD_LAUNCHES.count += 1
+    _build.launch("pmf_dense_head_tier", HEAD_LAUNCHES, dev, theta_h, beta_h,
+                  x_hi, x_lo, m, int(m.dtype == torch.float32), rows, hip, K,
+                  rate_floor, int(item_side), splits, partial, out)
     return out
 
 
@@ -154,3 +156,66 @@ def poisson_head_stats_t(theta_h: torch.Tensor, beta_h: torch.Tensor,
     out = fused_alloc_tier(theta_h, beta_h, head.x_hi, head.m, head.x_lo,
                            rate_floor=rate_floor, item_side=True)
     return beta_h * out[:, :K], out[:, K:]
+
+
+def _bf16_planes(t: torch.Tensor) -> list:
+    """float32 (n, c) -> [hi, lo] bf16 planes with hi + lo == t to ~2^-16
+    relative: hi keeps the top 16 bits (exact in bf16), lo rounds the
+    remainder."""
+    hi = (t.float().contiguous().view(torch.int32) & -65536).view(torch.float32)
+    return [hi.to(torch.bfloat16), (t.float() - hi).to(torch.bfloat16)]
+
+
+def _cells_product(planes: list, b: torch.Tensor, transpose_a: bool) -> torch.Tensor:
+    """(sum of cell planes) @ b, or its transpose.  On the card the planes
+    are bf16 and b splits into two bf16 planes: sum_{i+j<2} A_i @ B_j in
+    float32, one matmul per A plane with its B planes side by side.  On
+    the CPU, a plain matmul in b's dtype."""
+    if not b.is_cuda:
+        a = planes[0].to(b.dtype)
+        for p in planes[1:]:
+            a = a + p.to(b.dtype)
+        return a.T @ b if transpose_a else a @ b
+    b_planes = _bf16_planes(b)
+    w = b.shape[1]
+    out = None
+    for i, a in enumerate(planes):
+        bs = b_planes[: 2 - i]
+        prod = torch.mm(a.T if transpose_a else a, torch.cat(bs, dim=1),
+                        out_dtype=torch.float32)
+        for j in range(len(bs)):
+            part = prod[:, j * w : (j + 1) * w]
+            out = part if out is None else out + part
+    return out
+
+
+def _m_planes(head: DenseHead, tab: torch.Tensor) -> list:
+    """M as the card's bf16 planes, or as stored for the CPU's matmuls."""
+    return head.m_bf16_planes() if tab.is_cuda else [head.m]
+
+
+def _x_planes(head: DenseHead) -> list:
+    return [head.x_hi] + ([head.x_lo] if head.x_lo is not None else [])
+
+
+def head_products(head: DenseHead, other_tab: torch.Tensor,
+                  x_tab: torch.Tensor | None):
+    """User-side linear head statistics ``(M @ other_tab, X @ x_tab)``:
+    other_tab (hip, W) and x_tab (hip, Wx) or None, per head item (rows
+    past hi zero).  Returns ((hu, W), (hu, Wx) or None), float32 on the
+    card, the tables' dtype on the CPU."""
+    mp = _cells_product(_m_planes(head, other_tab), other_tab, transpose_a=False)
+    xp = (None if x_tab is None
+          else _cells_product(_x_planes(head), x_tab, transpose_a=False))
+    return mp, xp
+
+
+def head_products_t(head: DenseHead, self_tab: torch.Tensor,
+                    x_tab: torch.Tensor | None):
+    """Item-side linear head statistics ``(M^T @ self_tab, X^T @ x_tab)``:
+    self_tab (hu, W) and x_tab (hu, Wx) or None, per tier user row.
+    Returns ((hip, W), (hip, Wx) or None); rows past hi are zeros."""
+    mp = _cells_product(_m_planes(head, self_tab), self_tab, transpose_a=True)
+    xp = (None if x_tab is None
+          else _cells_product(_x_planes(head), x_tab, transpose_a=True))
+    return mp, xp

@@ -1,0 +1,387 @@
+"""Gaussian CAVI edge passes over the hybrid layout.
+
+The Gaussian coordinate blocks need, per self row, sums over its edges
+of other-row quantities (``pmf_tpu/ops/pallas/gaussian_edge.py``):
+
+    factor pass (K3)  [sum m_o (x - b_o) | sum m_o | sum triu(V_o + m_o m_o^T)
+                       (| sum x | sum b_o)]
+    bias pass (K5)    [sum m_o | sum b_o | sum x]
+    diag pass (K6)    [sum m_o (resid - <m_s, m_o>) | sum (v_o + m_o^2) | sum m_o^2]
+
+``gaussian_{factor,bias,diag}_stats`` have the JAX functions' call shapes
+and return the statistics in the original row order.  Each permutes its
+other-row table into count-reordered space, runs its tail kernel over the
+direction's CSR tail, adds each dense head tier's linear products
+(``ops.dense_head.head_products{,_t}``) onto the same columns, and maps
+the result back.  The second moment is symmetric, so only its K(K+1)/2
+upper triangle rides the pass (``pack_tri`` / ``unpack_tri``).
+
+``factor_tail_stats``, ``bias_tail_stats`` and ``diag_tail_stats`` wrap
+the kernels of ``csrc/gaussian_edge.cu``: on CUDA tensors they launch (or
+raise), on CPU tensors they run their ``*_plain`` versions.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from pmf_tpu_torch.data.blocked import TailCSR
+from pmf_tpu_torch.ops import _build
+from pmf_tpu_torch.ops.dense_head import head_products, head_products_t
+
+FACTOR_LAUNCHES = _build.LaunchCounter()
+BIAS_LAUNCHES = _build.LaunchCounter()
+DIAG_LAUNCHES = _build.LaunchCounter()
+FACTOR_MAX_K = 30  # K + 1 + K(K+1)/2 <= 16 warp-wide loads per record
+BIAS_MAX_K = 31  # [m | b] fits one warp
+DIAG_MAX_K = 32
+
+
+def tri_size(k: int) -> int:
+    return k * (k + 1) // 2
+
+
+@functools.lru_cache(maxsize=None)
+def _tri_indices(k: int, device: torch.device):
+    """(flat upper-triangle indices into K*K, and the K*K -> tri map) on
+    ``device``, made once: a copy from host memory to the card waits for
+    the card, so it must not happen on every pass."""
+    flat, full = [], [0] * (k * k)
+    t = 0
+    for a in range(k):
+        for b in range(a, k):
+            full[a * k + b] = full[b * k + a] = t
+            flat.append(a * k + b)
+            t += 1
+    return (torch.tensor(flat, device=device), torch.tensor(full, device=device))
+
+
+def pack_tri(A_flat: torch.Tensor, k: int) -> torch.Tensor:
+    """(R, K*K) symmetric rows -> (R, K(K+1)/2) upper-triangle columns."""
+    flat, _ = _tri_indices(k, A_flat.device)
+    return A_flat.index_select(1, flat)
+
+
+def unpack_tri(S_tri: torch.Tensor, k: int) -> torch.Tensor:
+    """(R, K(K+1)/2) -> full symmetric (R, K, K)."""
+    _, full = _tri_indices(k, S_tri.device)
+    return S_tri.index_select(1, full).reshape(-1, k, k)
+
+
+def _row_chunks(row_ptr: torch.Tensor, max_edges: int | None):
+    """(row_start, row_end) ranges of whole rows holding <= max_edges edges
+    each (a longer single row forms its own range)."""
+    n = row_ptr.shape[0] - 1
+    if max_edges is None:
+        yield 0, n
+        return
+    rp = row_ptr.cpu()
+    r = 0
+    while r < n:
+        stop = int(torch.searchsorted(rp, rp[r] + max_edges, right=True)) - 1
+        stop = min(max(stop, r + 1), n)
+        yield r, stop
+        r = stop
+
+
+def _edges(row_ptr, other, r0, r1):
+    """(local self row, other id, edge slice) of rows [r0, r1)."""
+    lo, hi = int(row_ptr[r0]), int(row_ptr[r1])
+    counts = row_ptr[r0 + 1 : r1 + 1] - row_ptr[r0:r1]
+    local = torch.repeat_interleave(
+        torch.arange(r1 - r0, device=row_ptr.device), counts)
+    return local, other[lo:hi].long(), slice(lo, hi)
+
+
+# ------------------------------------------------------------------ K3 --
+
+def factor_tail_stats_plain(aug, row_ptr, other, x, K: int,
+                            with_bias_stats: bool = False,
+                            max_edges: int | None = None) -> torch.Tensor:
+    """Plain K3: aug (n_other, K+1+T) = [m | b | tri] -> (n_self, 2K+T(+2))
+    [sum m(x-b) | sum m | sum tri (| sum x | sum b)] in aug's dtype.
+    ``max_edges`` bounds the edges whose temporaries exist at once."""
+    T = tri_size(K)
+    n_self = row_ptr.shape[0] - 1
+    w_out = 2 * K + T + (2 if with_bias_stats else 0)
+    out = torch.zeros((n_self, w_out), dtype=aug.dtype, device=aug.device)
+    for r0, r1 in _row_chunks(row_ptr, max_edges):
+        local, o, sl = _edges(row_ptr, other, r0, r1)
+        g = aug[o]
+        xv = x[sl].to(aug.dtype)
+        m, b = g[:, :K], g[:, K]
+        cols = [m * (xv - b)[:, None], m, g[:, K + 1 :]]
+        if with_bias_stats:
+            cols += [xv[:, None], b[:, None]]
+        out[r0:r1].index_add_(0, local, torch.cat(cols, dim=1))
+    return out
+
+
+def _check_tail_args(tables, row_ptr, other, x, n_self):
+    """Raise on what the tail kernels do not take: ``tables`` are
+    (name, tensor) pairs of float32 row tables."""
+    checks = [(name, t, torch.float32) for name, t in tables] + [
+        ("row_ptr", row_ptr, torch.int64), ("other", other, torch.int32),
+        ("x", x, torch.float32)]
+    for name, t, dt in checks:
+        if t.device != row_ptr.device:
+            raise ValueError(f"{name} is on {t.device}, row_ptr on {row_ptr.device}")
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if row_ptr.shape[0] != n_self + 1 or other.shape != x.shape:
+        raise ValueError("CSR shapes do not match the self rows")
+
+
+def factor_tail_stats(aug, row_ptr, other, x, K: int,
+                      with_bias_stats: bool = False) -> torch.Tensor:
+    """K3: the factor tail pass.  CUDA tensors launch the kernel; CPU
+    tensors run the plain version."""
+    if not aug.is_cuda:
+        return factor_tail_stats_plain(aug, row_ptr, other, x, K, with_bias_stats)
+    if not 1 <= K <= FACTOR_MAX_K:
+        raise ValueError(f"factor kernel needs 1 <= K <= {FACTOR_MAX_K}, got K={K}")
+    if aug.dim() != 2 or aug.shape[1] != K + 1 + tri_size(K):
+        raise ValueError(f"aug must be (n_other, {K + 1 + tri_size(K)})")
+    n_self = row_ptr.shape[0] - 1
+    _check_tail_args([("aug", aug)], row_ptr, other, x, n_self)
+    T = tri_size(K)
+    out = torch.empty((n_self, 2 * K + T + (2 if with_bias_stats else 0)),
+                      dtype=torch.float32, device=aug.device)
+    _build.launch("pmf_gauss_factor", FACTOR_LAUNCHES, aug.device, aug, row_ptr,
+                  other, x, n_self, K, int(with_bias_stats), out)
+    return out
+
+
+# ------------------------------------------------------------------ K5 --
+
+def bias_tail_stats_plain(aug, row_ptr, other, x,
+                          max_edges: int | None = None) -> torch.Tensor:
+    """Plain K5: aug (n_other, K+1) = [m | b] -> (n_self, K+2)
+    [sum m | sum b | sum x] in aug's dtype."""
+    n_self = row_ptr.shape[0] - 1
+    out = torch.zeros((n_self, aug.shape[1] + 1), dtype=aug.dtype,
+                      device=aug.device)
+    for r0, r1 in _row_chunks(row_ptr, max_edges):
+        local, o, sl = _edges(row_ptr, other, r0, r1)
+        payload = torch.cat([aug[o], x[sl].to(aug.dtype)[:, None]], dim=1)
+        out[r0:r1].index_add_(0, local, payload)
+    return out
+
+
+def bias_tail_stats(aug, row_ptr, other, x) -> torch.Tensor:
+    """K5: the bias tail pass.  CUDA tensors launch the kernel; CPU
+    tensors run the plain version."""
+    if not aug.is_cuda:
+        return bias_tail_stats_plain(aug, row_ptr, other, x)
+    K = aug.shape[1] - 1
+    if not 1 <= K <= BIAS_MAX_K:
+        raise ValueError(f"bias kernel needs 1 <= K <= {BIAS_MAX_K}, got K={K}")
+    n_self = row_ptr.shape[0] - 1
+    _check_tail_args([("aug", aug)], row_ptr, other, x, n_self)
+    out = torch.empty((n_self, K + 2), dtype=torch.float32, device=aug.device)
+    _build.launch("pmf_gauss_bias", BIAS_LAUNCHES, aug.device, aug, row_ptr, other,
+                  x, n_self, K, out)
+    return out
+
+
+# ------------------------------------------------------------------ K6 --
+
+def diag_tail_stats_plain(aug, self_tab, row_ptr, other, x,
+                          max_edges: int | None = None) -> torch.Tensor:
+    """Plain K6: aug (n_other, 2K+1) = [m | v + m^2 | b], self_tab
+    (n_self, K+1) = [m | b] -> (n_self, 3K)
+    [sum m_o (x - b_s - b_o - <m_s, m_o>) | sum sq_o | sum m_o^2]."""
+    K = self_tab.shape[1] - 1
+    n_self = row_ptr.shape[0] - 1
+    out = torch.zeros((n_self, 3 * K), dtype=aug.dtype, device=aug.device)
+    for r0, r1 in _row_chunks(row_ptr, max_edges):
+        local, o, sl = _edges(row_ptr, other, r0, r1)
+        g = aug[o]
+        s = self_tab[r0:r1][local]
+        m_o = g[:, :K]
+        pred = torch.sum(s[:, :K] * m_o, dim=1)
+        resid = x[sl].to(aug.dtype) - s[:, K] - g[:, 2 * K]
+        payload = torch.cat([m_o * (resid - pred)[:, None], g[:, K : 2 * K],
+                             m_o * m_o], dim=1)
+        out[r0:r1].index_add_(0, local, payload)
+    return out
+
+
+def diag_tail_stats(aug, self_tab, row_ptr, other, x) -> torch.Tensor:
+    """K6: the diag tail pass.  CUDA tensors launch the kernel; CPU
+    tensors run the plain version."""
+    if not aug.is_cuda:
+        return diag_tail_stats_plain(aug, self_tab, row_ptr, other, x)
+    K = self_tab.shape[1] - 1
+    if not 1 <= K <= DIAG_MAX_K:
+        raise ValueError(f"diag kernel needs 1 <= K <= {DIAG_MAX_K}, got K={K}")
+    if aug.dim() != 2 or aug.shape[1] != 2 * K + 1:
+        raise ValueError(f"aug must be (n_other, {2 * K + 1})")
+    n_self = row_ptr.shape[0] - 1
+    if self_tab.shape[0] != n_self:
+        raise ValueError("self_tab rows do not match the CSR")
+    _check_tail_args([("aug", aug), ("self_tab", self_tab)], row_ptr, other, x,
+                     n_self)
+    out = torch.empty((n_self, 3 * K), dtype=torch.float32, device=aug.device)
+    _build.launch("pmf_gauss_diag", DIAG_LAUNCHES, aug.device, aug, self_tab,
+                  row_ptr, other, x, n_self, K, out)
+    return out
+
+
+# ------------------------------------------------------- head + wrappers --
+
+def _head_rows(tab: torch.Tensor, tier, head_side: str) -> torch.Tensor:
+    """The tier's other rows of a new-space table, zero-padded to the
+    product's contraction length: head items [0, hi) padded to hip on
+    the user side, the tier's user band on the item side."""
+    if head_side == "user":
+        t = tab[: tier.hi]
+        return torch.nn.functional.pad(t, (0, 0, 0, tier.hip - t.shape[0]))
+    return tab[tier.row_start : tier.row_start + tier.hu]
+
+
+def _products(tier, tab, x_tab, head_side):
+    """(start row, M-product, X-product) of one tier, cut to its self rows."""
+    if head_side == "user":
+        mp, xp = head_products(tier, tab, x_tab)
+        return tier.row_start, mp, xp
+    mp, xp = head_products_t(tier, tab, x_tab)
+    return 0, mp[: tier.hi], None if xp is None else xp[: tier.hi]
+
+
+def _x_sum(tier, head_side):
+    return tier.x_sum_user if head_side == "user" else tier.x_sum_item[: tier.hi]
+
+
+def _gauss_head_out(tier, aug, K, T, with_bias_stats, head_side):
+    """One tier's contribution in K3's column layout
+    [S_w' | S_m | triA (| S_x | S_b)] (S_w' without the b_self term, like
+    the kernel).  ``aug`` is the new-space [m | b | tri] table (b zero
+    without biases)."""
+    a = _head_rows(aug, tier, head_side)
+    m_h, b_h, tri_h = a[:, :K], a[:, K : K + 1], a[:, K + 1 :]
+    tab = torch.cat([m_h, b_h * m_h, tri_h, b_h], dim=1)
+    start, mp, xp = _products(tier, tab, m_h, head_side)
+    cols = [xp - mp[:, K : 2 * K], mp[:, :K], mp[:, 2 * K : 2 * K + T]]
+    if with_bias_stats:
+        cols += [_x_sum(tier, head_side)[:, None].to(mp.dtype), mp[:, -1:]]
+    return start, torch.cat(cols, dim=1)
+
+
+def _add_heads(out, head_outs):
+    for start, h in head_outs:
+        out[start : start + h.shape[0]] += h.to(out.dtype)
+    return out
+
+
+def _check_head(p: TailCSR, head):
+    if head and not p.reordered:
+        raise ValueError("dense head requires a reordered layout")
+    return head or ()
+
+
+def gaussian_factor_stats(m_other, V_other, b_self, b_other, p: TailCSR,
+                          use_bias: bool = True, with_bias_stats: bool = False,
+                          head=None, head_side: str = "user"):
+    """(S_w (n_self, K), S_A (n_self, K, K)) for one factor block, with
+    S_w = sum m_o (x [- b_s - b_o]) and S_A = sum (V_o + m_o m_o^T).  With
+    ``with_bias_stats`` also (S_m, S_x, S_b): the per-row sums of m_o, x
+    and b_o that the lagged bias block reads.  ``head``: the layout's
+    DenseHead tiers (their edges are not in ``p``); ``head_side`` says
+    whether self rows are the head's user axis ("user") or item axis."""
+    if with_bias_stats and not use_bias:
+        raise ValueError("with_bias_stats requires use_bias=True")
+    K = m_other.shape[1]
+    T = tri_size(K)
+    A_flat = (V_other + m_other[:, :, None] * m_other[:, None, :]).reshape(-1, K * K)
+    b_col = b_other if use_bias else torch.zeros_like(b_other)
+    aug = torch.cat([m_other, b_col[:, None], pack_tri(A_flat, K)], dim=1)
+    del A_flat
+    heads = _check_head(p, head)
+    if p.reordered:
+        aug = aug[p.other_old_of_new]
+    out = factor_tail_stats(aug.contiguous(), p.row_ptr, p.other, p.x, K,
+                            with_bias_stats)
+    out = _add_heads(out, [_gauss_head_out(t, aug, K, T, with_bias_stats,
+                                           head_side) for t in heads])
+    if p.reordered:
+        out = out[p.self_new_of_old]
+    S_w = out[:, :K]
+    S_m = out[:, K : 2 * K]
+    if use_bias:
+        # sum m_o (x - b_s - b_o) = sum m_o (x - b_o) - b_s sum m_o
+        S_w = S_w - b_self[:, None] * S_m
+    S_A = unpack_tri(out[:, 2 * K : 2 * K + T], K)
+    if with_bias_stats:
+        return S_w, S_A, S_m, out[:, 2 * K + T], out[:, 2 * K + T + 1]
+    return S_w, S_A
+
+
+def gaussian_bias_stats(m_self, m_other, b_other, p: TailCSR, head=None,
+                        head_side: str = "user") -> torch.Tensor:
+    """s (n_self,): per-row sums of bias residuals
+    sum (x - b_o - <m_s, m_o>), assembled from the pass-through sums
+    [sum m_o | sum b_o | sum x] (K5 on the tail, linear products on the
+    head)."""
+    K = m_self.shape[1]
+    aug = torch.cat([m_other, b_other[:, None]], dim=1)
+    heads = _check_head(p, head)
+    if p.reordered:
+        aug = aug[p.other_old_of_new]
+    out = bias_tail_stats(aug.contiguous(), p.row_ptr, p.other, p.x)
+    head_outs = []
+    for tier in heads:
+        start, mp, _ = _products(tier, _head_rows(aug, tier, head_side), None,
+                                 head_side)
+        head_outs.append((start, torch.cat(
+            [mp, _x_sum(tier, head_side)[:, None].to(mp.dtype)], dim=1)))
+    out = _add_heads(out, head_outs)
+    if p.reordered:
+        out = out[p.self_new_of_old]
+    S_m, S_b, S_x = out[:, :K], out[:, K], out[:, K + 1]
+    return S_x - S_b - torch.sum(m_self * S_m, dim=1)
+
+
+def _diag_head_out(tier, aug, self_tab, K, head_side):
+    """One tier's [S_mr | S_sq | S_mm] (b columns zero without biases).
+    The cross term sum m_o <m_s, m_o> is unpack(M @ tri(m_o m_o^T)) @ m_s,
+    linear in per-other payloads."""
+    a = _head_rows(aug, tier, head_side)
+    m_o, sq_o, b_o = a[:, :K], a[:, K : 2 * K], a[:, 2 * K : 2 * K + 1]
+    tri_mm = pack_tri((m_o[:, :, None] * m_o[:, None, :]).reshape(-1, K * K), K)
+    tab = torch.cat([m_o, b_o * m_o, sq_o, m_o * m_o, tri_mm], dim=1)
+    start, mp, xp = _products(tier, tab, m_o, head_side)
+    s = self_tab[start : start + mp.shape[0]].to(mp.dtype)
+    m_s, b_s = s[:, :K], s[:, K]
+    pred_term = torch.einsum("rkl,rl->rk", unpack_tri(mp[:, 4 * K :], K), m_s)
+    S_mr = xp - pred_term - b_s[:, None] * mp[:, :K] - mp[:, K : 2 * K]
+    return start, torch.cat([S_mr, mp[:, 2 * K : 3 * K], mp[:, 3 * K : 4 * K]],
+                            dim=1)
+
+
+def gaussian_diag_stats(m_other, v_other, m_self, b_self, b_other, p: TailCSR,
+                        use_bias: bool = True, head=None,
+                        head_side: str = "user"):
+    """(S_mr, S_sq, S_mm), each (n_self, K), for one diag-covariance
+    factor block: S_mr = sum m_o (resid - <m_s, m_o>) with resid =
+    x [- b_s - b_o], S_sq = sum (v_o + m_o^2), S_mm = sum m_o^2."""
+    K = m_other.shape[1]
+    if not use_bias:
+        b_self, b_other = torch.zeros_like(b_self), torch.zeros_like(b_other)
+    aug = torch.cat([m_other, v_other + m_other * m_other, b_other[:, None]], dim=1)
+    self_tab = torch.cat([m_self, b_self[:, None]], dim=1)
+    heads = _check_head(p, head)
+    if p.reordered:
+        aug = aug[p.other_old_of_new]
+        self_tab = self_tab[p.self_old_of_new]
+    out = diag_tail_stats(aug.contiguous(), self_tab.contiguous(), p.row_ptr,
+                          p.other, p.x)
+    out = _add_heads(out, [_diag_head_out(t, aug, self_tab, K, head_side)
+                           for t in heads])
+    if p.reordered:
+        out = out[p.self_new_of_old]
+    return out[:, :K], out[:, K : 2 * K], out[:, 2 * K :]

@@ -11,8 +11,9 @@ import pytest
 import torch
 
 import pmf_tpu_torch
+from pmf_tpu_torch.models import gaussian_mf
 from pmf_tpu_torch.models.hpf import HPF, HPFConfig
-from pmf_tpu_torch.ops import _build, cavi_edge, dense_head
+from pmf_tpu_torch.ops import _build, cavi_edge, dense_head, gaussian_edge, gj_inverse
 from pmf_tpu_torch.utils import device as device_mod
 
 torch.set_num_threads(1)
@@ -40,7 +41,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 def test_port_package_files_are_scanned():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "hpf.py", "cavi_edge.py", "dense_head.py",
-            "blocked.py"} <= names
+            "blocked.py", "gaussian_mf.py", "gaussian_edge.py", "gj_inverse.py",
+            "solve.py"} <= names
     assert Path(pmf_tpu_torch.__file__).parent == REPO / "pmf_tpu_torch"
 
 
@@ -71,6 +73,9 @@ def test_fit_without_device_raises_without_cuda(monkeypatch, small_splits):
     train, val, _ = small_splits
     with pytest.raises(RuntimeError, match="no CUDA device"):
         HPF(HPFConfig(n_factors=4, max_iter=2, verbose=False)).fit(train, val)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gaussian_mf.GaussianMF(gaussian_mf.GaussianMFConfig(
+            n_factors=4, max_iter=2, verbose=False)).fit(train, val)
 
 
 def test_builders_without_device_raise_without_cuda(monkeypatch, small_ratings):
@@ -83,7 +88,9 @@ def test_builders_without_device_raise_without_cuda(monkeypatch, small_ratings):
     for call in (lambda: build_ratings(u, i, x),
                  lambda: build_eval_set(u, i, x, 120, 80),
                  lambda: build_blocked(u, i, x, reorder=True),
-                 lambda: init_state(120, 80, HPFConfig(n_factors=3))):
+                 lambda: init_state(120, 80, HPFConfig(n_factors=3)),
+                 lambda: gaussian_mf.init_state(
+                     120, 80, gaussian_mf.GaussianMFConfig(n_factors=3))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
@@ -160,14 +167,85 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         dense_head.fused_alloc_tier(theta, beta, x_hi, x_hi, rate_floor=1e-10)
 
 
+def _csr(n_self, n_other, nnz):
+    """A CUDA-looking CSR tail with ``nnz`` edges on row 0."""
+    row_ptr = torch.full((n_self + 1,), nnz, dtype=torch.int64)
+    row_ptr[0] = 0
+    other = torch.arange(nnz, dtype=torch.int32) % n_other
+    return tuple(_cuda_looking(t) for t in (row_ptr, other, torch.ones(nnz)))
+
+
+K = 4
+T = K * (K + 1) // 2
+GAUSSIAN_WRAPPERS = {
+    "K3": (gaussian_edge, "factor_tail_stats", "FACTOR_LAUNCHES",
+           lambda: (_cuda_looking(torch.rand(5, K + 1 + T)), *_csr(3, 5, 4), K)),
+    "K5": (gaussian_edge, "bias_tail_stats", "BIAS_LAUNCHES",
+           lambda: (_cuda_looking(torch.rand(5, K + 1)), *_csr(3, 5, 4))),
+    "K6": (gaussian_edge, "diag_tail_stats", "DIAG_LAUNCHES",
+           lambda: (_cuda_looking(torch.rand(5, 2 * K + 1)),
+                    _cuda_looking(torch.rand(3, K + 1)), *_csr(3, 5, 4))),
+    "K4": (gj_inverse, "batched_psd_inverse_gj", "GJ_LAUNCHES",
+           lambda: (_cuda_looking(torch.eye(K).expand(6, K, K)),)),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(GAUSSIAN_WRAPPERS))
+def test_gaussian_wrappers_raise_instead_of_falling_back(monkeypatch, broken_build,
+                                                         kernel):
+    module, name, counter, args = GAUSSIAN_WRAPPERS[kernel]
+    _forbid(monkeypatch, module, name + "_plain")
+    before = getattr(module, counter).count
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        getattr(module, name)(*args())
+    assert getattr(module, counter).count == before
+
+
+def test_gaussian_wrappers_reject_what_the_kernels_do_not_take():
+    csr = _csr(3, 5, 4)
+    with pytest.raises(ValueError, match="K <= 30"):
+        gaussian_edge.factor_tail_stats(
+            _cuda_looking(torch.rand(5, 31 + 1 + 31 * 32 // 2)), *csr, 31)
+    with pytest.raises(ValueError, match="aug must be"):
+        gaussian_edge.factor_tail_stats(_cuda_looking(torch.rand(5, 9)), *csr, K)
+    with pytest.raises(TypeError, match="aug"):
+        gaussian_edge.factor_tail_stats(
+            _cuda_looking(torch.rand(5, K + 1 + T, dtype=torch.float64)), *csr, K)
+    with pytest.raises(ValueError, match="K <= 31"):
+        gaussian_edge.bias_tail_stats(_cuda_looking(torch.rand(5, 33)), *csr)
+    with pytest.raises(TypeError, match="x must be"):
+        gaussian_edge.bias_tail_stats(_cuda_looking(torch.rand(5, K + 1)), *csr[:2],
+                                      _cuda_looking(torch.ones(4, dtype=torch.float64)))
+    with pytest.raises(ValueError, match="K <= 32"):
+        gaussian_edge.diag_tail_stats(_cuda_looking(torch.rand(5, 67)),
+                                      _cuda_looking(torch.rand(3, 34)), *csr)
+    with pytest.raises(TypeError, match="self_tab"):
+        gaussian_edge.diag_tail_stats(
+            _cuda_looking(torch.rand(5, 2 * K + 1)),
+            _cuda_looking(torch.rand(3, K + 1, dtype=torch.float64)), *csr)
+    with pytest.raises(ValueError, match="K <= 32"):
+        gj_inverse.batched_psd_inverse_gj(_cuda_looking(torch.rand(2, 33, 33)))
+    with pytest.raises(TypeError, match="float32"):
+        gj_inverse.batched_psd_inverse_gj(
+            _cuda_looking(torch.rand(2, 3, 3, dtype=torch.float64)))
+
+
 def test_kernel_sources_name_what_they_replace():
     srcs = {p.name: p.read_text() for p in _build.sources()}
-    assert set(srcs) == {"cavi_edge.cu", "dense_head.cu"}
-    assert "pmf_tpu/ops/pallas/cavi_edge.py::_kernel" in srcs["cavi_edge.cu"]
-    assert "pmf_tpu/ops/dense_head.py::_fused_kernel" in srcs["dense_head.cu"]
-    for text in srcs.values():
-        assert "What bounds it" in text
+    replaces = {
+        "cavi_edge.cu": ["pmf_tpu/ops/pallas/cavi_edge.py::_kernel"],
+        "dense_head.cu": ["pmf_tpu/ops/dense_head.py::_fused_kernel"],
+        "gaussian_edge.cu": [
+            "pmf_tpu/ops/pallas/gaussian_edge.py::_factor_kernel",
+            "pmf_tpu/ops/pallas/gaussian_edge.py::_bias_kernel",
+            "pmf_tpu/ops/pallas/gaussian_edge.py::_diag_kernel"],
+        "gj_inverse.cu": ["pmf_tpu/ops/pallas/gj_inverse.py::_gj_kernel"],
+    }
+    assert set(srcs) == set(replaces)
+    for name, funcs in replaces.items():
+        assert all(f in srcs[name] for f in funcs), name
+        assert "What bounds" in srcs[name]
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
     assert len(_build.source_hash()) == 16
-    assert np.all([name in srcs["cavi_edge.cu"] + srcs["dense_head.cu"]
-                   for name in _build.SIGNATURES])
+    every = "".join(srcs.values())
+    assert np.all([f'extern "C" int {name}(' in every for name in _build.SIGNATURES])
