@@ -19,7 +19,17 @@ result line:
               the kernel launch counters reset just before and read after.
 8. profile -- steady sweep time, and one sweep under torch.profiler.
 
-The HPF layout and model are freed, then the Gaussian-MF CAVI path:
+Between phases 5 and 6, on the same layout's tail: K7 and K8, the
+extended-Poisson factor and scalar-rate tail kernels vs their plain
+versions, both directions, with the linear library forms of K8.  After
+phase 8 the HPF model is freed, then the Poisson-MF CAVI path on the same
+ratings: psmall (three blocked sweeps card vs host, plain and extended),
+pfit (``PoissonMF.fit(engine="blocked_high")``, 4 sweeps plain then 4
+extended, with launch counters), pprofile (steady sweep times of both, one
+extended sweep under the profiler) and pelbo (a 2-sweep plain fit with
+``elbo_every=1``).
+
+Those are freed, then the Gaussian-MF CAVI path:
 
 9.  gdata    -- the benchmark's N(0, 1) ratings on the same ids and split,
                 and the layout ``GaussianMF.fit`` builds (3.75 GiB head).
@@ -97,6 +107,57 @@ def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def profile_once(fn, expect: dict):
+    """One call of ``fn`` under torch.profiler: (device rows sorted by time
+    as (ms, count, name), busy ms, window ms on the host clock).
+    ``expect`` maps a kernel-name part to the launches one call makes; a
+    trace that holds fewer of them lost events, so the call is profiled
+    again (three traces at most) and a shortfall that stays is logged."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA), reverse=True)
+        seen = {part: sum(n for _, n, key in rows if part in key) for part in expect}
+        if seen == expect:
+            break
+        log(f"  trace {attempt + 1} holds launches {seen}, one call makes {expect}")
+    return rows, sum(r[0] for r in rows), wall_ms
+
+
+def _head_launches(model) -> dict:
+    """K2's launches in one sweep of ``model``: each tier once a side."""
+    n_tiers = len(model.blocked.head or ())
+    return {"head_user_kernel": n_tiers, "head_item_kernel": n_tiers}
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper's launch counter, by kernel id."""
+    from pmf_tpu_torch.ops import (
+        cavi_edge, dense_head, ext_edge, gaussian_edge, gj_inverse)
+
+    return {"K1": cavi_edge.TAIL_LAUNCHES, "K2": dense_head.HEAD_LAUNCHES,
+            "K3": gaussian_edge.FACTOR_LAUNCHES, "K4": gj_inverse.GJ_LAUNCHES,
+            "K5": gaussian_edge.BIAS_LAUNCHES, "K6": gaussian_edge.DIAG_LAUNCHES,
+            "K7": ext_edge.FACTOR_LAUNCHES, "K8": ext_edge.SCALAR_LAUNCHES}
+
+
+def reset_counters() -> dict:
+    counters = kernel_counters()
+    for c in counters.values():
+        c.reset()
+    return counters
 
 
 def phase_device():
@@ -329,24 +390,22 @@ def phase_fit(train, val, smi):
     import torch
 
     from pmf_tpu_torch.models.hpf import HPF, HPFConfig, state_to_numpy
-    from pmf_tpu_torch.ops.cavi_edge import TAIL_LAUNCHES
-    from pmf_tpu_torch.ops.dense_head import HEAD_LAUNCHES
 
     model = HPF(HPFConfig(n_factors=K, max_iter=FIT_SWEEPS, tol=None,
                           verbose=False, engine="blocked_high"))
-    TAIL_LAUNCHES.reset()
-    HEAD_LAUNCHES.reset()
+    counters = reset_counters()
     t0 = time.perf_counter()
     model.fit(train, val)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"K1": TAIL_LAUNCHES.count, "K2": HEAD_LAUNCHES.count}
+    launches = {k: c.count for k, c in counters.items()}
     n_tiers = len(model.blocked.head or ())
     for rec in model.fit_history:
         log(f"  sweep {rec['iteration']}: {rec['iter_seconds']:.4f} s | "
             f"{rec['updates_per_sec'] / 1e6:.1f}M updates/s | val RMSE "
             f"{rec['val_rmse']:.6f} | {smi}")
-    want = {"K1": 2 * model.n_sweeps, "K2": 2 * n_tiers * model.n_sweeps}
+    want = dict.fromkeys(launches, 0)
+    want.update(K1=2 * model.n_sweeps, K2=2 * n_tiers * model.n_sweeps)
     if launches != want or n_tiers == 0:
         raise AssertionError(f"fit launches {launches}, expected {want} "
                              f"({model.n_sweeps} sweeps, {n_tiers} tiers)")
@@ -368,8 +427,6 @@ def phase_profile(model, train, smi):
     """Steady sweep time (CUDA events over chained sweeps) and one sweep
     under torch.profiler: device time by kernel and the idle share."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from pmf_tpu_torch.models.hpf import sweep_blocked
 
@@ -388,20 +445,303 @@ def phase_profile(model, train, smi):
     ms = cuda_ms(one_sweep, reps=5)
     log(f"  steady sweep: {ms:.4f} ms | {2 * len(train[0]) / ms / 1e3:.1f}M "
         f"updates/s | {smi}")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        one_sweep()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                  reverse=True)
-    busy = sum(r[0] for r in rows)
+    rows, busy, wall_ms = profile_once(
+        one_sweep, {"cavi_edge_kernel": 2, **_head_launches(model)})
     log(f"phase profile: ok | one sweep: device busy {busy:.4f} ms of "
         f"{wall_ms:.4f} ms window (idle share {1 - busy / wall_ms:.1%})")
     for dev_ms, n, key in rows[:8]:
         log(f"  {dev_ms:9.4f} ms  {n:3d}x  {key[:90]}")
+
+
+# ----------------------------------------------------------------- Poisson --
+
+PFIT_SWEEPS = 4
+PELBO_SWEEPS = 2
+
+
+def _ext_tables(n_self, n_other, seed):
+    """Random positive new-space tables on the card: self rows, refreshed
+    self rows, other rows and the other side's scalars."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def pos(*shape):
+        return 0.05 + torch.rand(*shape, generator=g, device="cuda")
+
+    return pos(n_self, K), pos(n_self, K), pos(n_other, K), pos(n_other)
+
+
+def phase_k7k8(blocked):
+    """K7 and K8 vs their plain versions on the real tail, both directions.
+    K8 is linear, so two library forms compute it: the row dot of the
+    refreshed rows with K7's second output, and torch.sparse.mm of the
+    tail's pattern by s * E_other followed by that row dot."""
+    import torch
+
+    from pmf_tpu_torch.ops import ext_edge as ee
+
+    res7 = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, n_bytes=0.0, n_flops=0.0)
+    res8 = dict(res7, identity_ms=0.0, sparse_ms=0.0)
+    half_ms = 0.0
+    for seed, (name, p) in enumerate((("user", blocked.by_user),
+                                      ("item", blocked.by_item))):
+        es, es_new, eo, so = _ext_tables(p.n_self, p.n_other, 21 + seed)
+        csr = (p.row_ptr, p.other)
+        args7 = (es, eo, so, *csr, p.x, ee.RATE_FLOOR)
+        args8 = (es_new, eo, so, *csr)
+        got7 = ee.ext_factor_tail(*args7)
+        ref7 = ee.ext_factor_tail_plain(*args7, max_edges=1 << 22)
+        got8 = ee.ext_scalar_tail(*args8)
+        ref8 = ee.ext_scalar_tail_plain(*args8, max_edges=1 << 22)
+        pattern = _csr_ones(p)
+        sparse8 = lambda: torch.sum(  # noqa: E731
+            es_new * torch.sparse.mm(pattern, so[:, None] * eo), dim=1)
+        identity8 = lambda: torch.sum(es_new * got7[:, K:], dim=1)  # noqa: E731
+        for label, form in (("identity", identity8), ("sparse.mm", sparse8)):
+            _, rel = compare(form(), ref8)
+            if not rel <= RTOL:
+                raise AssertionError(f"K8 {name}: library form {label} differs "
+                                     f"from the plain version by {rel}")
+        for label, res, got, ref, kern, plain, a, n_bytes, flops in (
+                ("K7", res7, got7, ref7, ee.ext_factor_tail,
+                 ee.ext_factor_tail_plain, args7,
+                 sum(t.nbytes for t in args7[:6]), 6 * K + 1),
+                ("K8", res8, got8, ref8, ee.ext_scalar_tail,
+                 ee.ext_scalar_tail_plain, args8,
+                 sum(t.nbytes for t in args8), 3 * K)):
+            abs_err, rel_err = compare(got, ref)
+            ms = cuda_ms(lambda: kern(*a))
+            plain_ms = cuda_ms(lambda: plain(*a, max_edges=1 << 22), reps=3)
+            n_bytes += got.nbytes
+            b_ms, b_by = bound(n_bytes, p.nnz * flops)
+            log(f"  {label} {name}: nnz {p.nnz} | max abs err {abs_err:.3e} rel "
+                f"{rel_err:.3e} (tol {RTOL}) | kernel {ms:.4f} ms | plain "
+                f"{plain_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
+            if not rel_err <= RTOL:
+                raise AssertionError(f"{label} {name}: relative error {rel_err} "
+                                     f"> {RTOL}")
+            res["ms"] += ms
+            res["plain_ms"] += plain_ms
+            res["max_abs_err"] = max(res["max_abs_err"], abs_err)
+            res["n_bytes"] += n_bytes
+            res["n_flops"] += p.nnz * flops
+        ident_ms, sparse_ms = cuda_ms(identity8), cuda_ms(sparse8)
+        side_half = cuda_ms(lambda: torch.sparse.mm(pattern, so[:, None] * eo))
+        half_ms += side_half
+        res8["identity_ms"] += ident_ms
+        res8["sparse_ms"] += sparse_ms
+        log(f"  K8 {name} library forms: rowsum(E_new * S_wother) {ident_ms:.4f} ms "
+            f"(reads K7's output, not the edges) | torch.sparse.mm + row dot "
+            f"{sparse_ms:.4f} ms || K7 {name}: its S_wother half alone by "
+            f"torch.sparse.mm {side_half:.4f} ms")
+    for res in (res7, res8):
+        res["bound_ms"], res["bound_by"] = bound(res["n_bytes"], res["n_flops"])
+    res7["library_ms"] = None  # a per-edge x / max(<.,.>, floor) inside the sums
+    res8["library_ms"] = min(res8["identity_ms"], res8["sparse_ms"])
+    log(f"phase K7: ok | per sweep: kernel {res7['ms']:.4f} ms, plain "
+        f"{res7['plain_ms']:.4f} ms, bound {res7['bound_ms']:.4f} ms "
+        f"({res7['bound_by']}), library: none for the allocation half; the "
+        f"S_wother half alone by torch.sparse.mm {half_ms:.4f} ms")
+    log(f"phase K8: ok | per sweep: kernel {res8['ms']:.4f} ms, plain "
+        f"{res8['plain_ms']:.4f} ms, bound {res8['bound_ms']:.4f} ms "
+        f"({res8['bound_by']}), library: identity {res8['identity_ms']:.4f} ms, "
+        f"sparse.mm {res8['sparse_ms']:.4f} ms")
+    return res7, res8
+
+
+def _poisson_sweep_fn(cfg, blocked, train, n_users, n_items, device):
+    """state -> state: one blocked Poisson sweep as ``PoissonMF.fit`` runs
+    it, from the training triples."""
+    import torch
+
+    from pmf_tpu_torch.models import poisson_mf as pm
+
+    u, i, x = (torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in train)
+    counts = [torch.bincount(ids, minlength=n).float()
+              for ids, n in ((u, n_users), (i, n_items))]
+    if not cfg.extended:
+        return lambda s: pm.sweep_blocked(s, blocked, *counts, cfg.a0, cfg.b0)
+    sx = [torch.bincount(ids, weights=x.double(), minlength=n).float()
+          for ids, n in ((u, n_users), (i, n_items))]
+    return lambda s: pm.sweep_blocked_extended(s, blocked, *counts, *sx,
+                                               cfg.a0, cfg.b0)
+
+
+def phase_psmall():
+    """Three blocked Poisson sweeps on the card vs the host (plain
+    kernels), plain and extended, on one small input with a two-tier
+    head, at the JAX package's blocked-vs-flat gate."""
+    import torch
+
+    from pmf_tpu_torch.data.blocked import build_blocked
+    from pmf_tpu_torch.data.synthetic import synth_ratings
+    from pmf_tpu_torch.models import poisson_mf as pm
+
+    u, i, x = synth_ratings(3000, 1500, 120_000, seed=5)
+    n_users, n_items = int(u.max()) + 1, int(i.max()) + 1
+    head = [(0, 256, 1500), (256, 768, 300)]
+    worst = {}
+    for extended in (False, True):
+        cfg = pm.PoissonMFConfig(n_factors=K, extended=extended)
+        states = {}
+        for dev in ("cpu", "cuda"):
+            blocked = build_blocked(u, i, x, reorder=True, head=head, head_r0=256,
+                                    device=dev)
+            step = _poisson_sweep_fn(cfg, blocked, (u, i, x.astype(np.float32)),
+                                     n_users, n_items, dev)
+            s = pm.init_state(n_users, n_items, cfg, device=dev)
+            for _ in range(3):
+                s = step(s)
+            states[dev] = pm.state_to_numpy(s)
+        name = "extended" if extended else "plain"
+        if len(states["cuda"]) != (8 if extended else 4):
+            raise AssertionError(f"psmall {name}: state keys {sorted(states['cuda'])}")
+        w = 0.0
+        for k, ref in states["cpu"].items():
+            got = states["cuda"][k]
+            if got.shape != ref.shape or not np.all(np.isfinite(got)):
+                raise AssertionError(f"psmall {name}: {k} shape or not finite")
+            np.testing.assert_allclose(got, ref, rtol=5e-4, atol=1e-5,
+                                       err_msg=f"{name} {k}")
+            w = max(w, float(np.max(np.abs(got - ref) / np.abs(ref))))
+        worst[name] = w
+    torch.cuda.synchronize()
+    log("phase psmall: ok | 3 sweeps card vs host (rtol 5e-4, atol 1e-5), max rel "
+        "diff: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+
+
+def _run_pfit(train, val, smi, extended, sweeps, elbo_every=0):
+    import torch
+
+    from pmf_tpu_torch.models.poisson_mf import (
+        PoissonMF, PoissonMFConfig, state_to_numpy)
+
+    name = "extended" if extended else "plain"
+    model = PoissonMF(PoissonMFConfig(n_factors=K, max_iter=sweeps, tol=None,
+                                      verbose=False, engine="blocked_high",
+                                      extended=extended))
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    model.fit(train, val, elbo_every=elbo_every)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    n_tiers = len(model.blocked.head or ())
+    for rec in model.fit_history:
+        log(f"  {name} sweep {rec['iteration']}: {rec['iter_seconds']:.4f} s | "
+            f"{rec['updates_per_sec'] / 1e6:.1f}M updates/s | val RMSE "
+            f"{rec['val_rmse']:.6f}"
+            + (f" | ELBO {rec['elbo']:.6e}" if "elbo" in rec else "") + f" | {smi}")
+    n = model.n_sweeps
+    want = dict.fromkeys(launches, 0)
+    want.update(K2=2 * n_tiers * n)
+    want.update({"K7": 2 * n, "K8": 2 * n} if extended else {"K1": 2 * n})
+    if launches != want or n_tiers == 0:
+        raise AssertionError(f"pfit {name} launches {launches}, expected {want} "
+                             f"({n} sweeps, {n_tiers} tiers)")
+    state = state_to_numpy(model.state)
+    shapes = {"a_theta": (N_USERS, K), "b_theta": (N_USERS, K),
+              "a_beta": (N_ITEMS, K), "b_beta": (N_ITEMS, K)}
+    if extended:
+        shapes.update(a_phi=(N_USERS,), b_phi=(N_USERS,), a_psi=(N_ITEMS,),
+                      b_psi=(N_ITEMS,))
+    if {k: v.shape for k, v in state.items()} != shapes:
+        raise AssertionError(f"pfit {name}: state shapes "
+                             f"{ {k: v.shape for k, v in state.items()} }")
+    for k, v in state.items():
+        if not np.all(np.isfinite(v)):
+            raise AssertionError(f"pfit {name} state {k} has non-finite values")
+    rmses = [rec["val_rmse"] for rec in model.fit_history]
+    if len(rmses) != sweeps or not np.all(np.isfinite(rmses)):
+        raise AssertionError(f"pfit {name} val RMSE history {rmses}")
+    # The reported val RMSE equals the host's from the returned state.
+    host = model.evaluate_rmse(val)
+    if not abs(host - rmses[-1]) < 1e-4:
+        raise AssertionError(f"pfit {name}: host val RMSE {host} vs {rmses[-1]}")
+    return model, launches, rmses, host, wall
+
+
+def phase_pfit(train, val, smi):
+    """PoissonMF.fit(engine="blocked_high") on the Zipf ratings (no shift):
+    PFIT_SWEEPS plain (K1 twice and K2 twice per tier a sweep), then
+    PFIT_SWEEPS extended (K7, K8 twice and K2 twice per tier a sweep).  The
+    plain fit's val RMSE must not rise; the extended fit's history is
+    printed and only held finite (the reference's extended fit stalls
+    early at this scale)."""
+    out = {}
+    for extended in (False, True):
+        name = "extended" if extended else "plain"
+        model, launches, rmses, host, wall = _run_pfit(train, val, smi, extended,
+                                                       PFIT_SWEEPS)
+        if not extended and not all(b <= a for a, b in zip(rmses, rmses[1:])):
+            raise AssertionError(f"pfit plain: val RMSE rose over the sweeps: {rmses}")
+        log(f"phase pfit ({name}): ok | {model.n_sweeps} sweeps in {wall:.1f}s wall "
+            f"(layout build included) | launches {launches} | val RMSE "
+            + " -> ".join(f"{r:.6f}" for r in rmses) + f" (host {host:.6f})")
+        out[name] = (model, launches)
+    return out
+
+
+def phase_pprofile(models, train, smi):
+    """Steady sweep times (CUDA events over chained sweeps) of the plain and
+    extended Poisson sweeps, and one extended sweep under torch.profiler."""
+    nnz = len(train[0])
+    sweeps = {}
+    for name, (model, _) in models.items():
+        step = _poisson_sweep_fn(model.config, model.blocked, train, N_USERS,
+                                 N_ITEMS, "cuda")
+        box = [dict(model.state)]
+
+        def one_sweep(step=step, box=box):
+            box[0] = step(box[0])
+
+        sweeps[name] = one_sweep
+    steady = {}
+    for name, one_sweep in sweeps.items():
+        steady[name] = cuda_ms(one_sweep, reps=5)
+        visits = 4 if name == "extended" else 2
+        log(f"  steady {name} sweep: {steady[name]:.4f} ms | "
+            f"{visits * nnz / steady[name] / 1e3:.1f}M updates/s ({visits} x nnz) "
+            f"| {smi}")
+    rows, busy, wall_ms = profile_once(
+        sweeps["extended"], {"ext_factor_kernel": 2, "ext_scalar_kernel": 2,
+                             **_head_launches(models["extended"][0])})
+    groups = {"K2 head kernels": 0.0, "K7 ext_factor_kernel": 0.0,
+              "K8 ext_scalar_kernel": 0.0, "head products (gemm)": 0.0, "other": 0.0}
+    for dev_ms, _, key in rows:
+        k = key.lower()
+        if "ext_factor_kernel" in k:
+            groups["K7 ext_factor_kernel"] += dev_ms
+        elif "ext_scalar_kernel" in k:
+            groups["K8 ext_scalar_kernel"] += dev_ms
+        elif "head_user_kernel" in k or "head_item_kernel" in k \
+                or "sum_partials_kernel" in k:
+            groups["K2 head kernels"] += dev_ms
+        elif "gemm" in k or "cutlass" in k or "sm90_xmma" in k or "nvjet" in k:
+            groups["head products (gemm)"] += dev_ms
+        else:
+            groups["other"] += dev_ms
+    log(f"phase pprofile: ok | one extended sweep: device busy {busy:.4f} ms of "
+        f"{wall_ms:.4f} ms window (idle share {1 - busy / wall_ms:.1%})")
+    if busy > 0:
+        log("  by part: " + ", ".join(f"{k} {v:.4f} ms ({v / busy:.1%})"
+                                       for k, v in groups.items()))
+    for dev_ms, n, key in rows[:12]:
+        log(f"  {dev_ms:9.4f} ms  {n:3d}x  {key[:90]}")
+    return steady
+
+
+def phase_pelbo(train, val, smi):
+    """One plain fit of PELBO_SWEEPS sweeps with elbo_every=1: the ELBO
+    values must be finite (their rise per sweep is empirical, not gated)."""
+    model, _, _, _, wall = _run_pfit(train, val, smi, False, PELBO_SWEEPS,
+                                     elbo_every=1)
+    elbos = [rec.get("elbo") for rec in model.fit_history]
+    if len(elbos) != PELBO_SWEEPS or None in elbos or not np.all(np.isfinite(elbos)):
+        raise AssertionError(f"pelbo: ELBO history {elbos}")
+    log(f"phase pelbo: ok | {PELBO_SWEEPS} plain sweeps with elbo_every=1 in "
+        f"{wall:.1f}s wall | ELBO " + " -> ".join(f"{e:.6e}" for e in elbos))
 
 
 # ---------------------------------------------------------------- Gaussian --
@@ -774,14 +1114,6 @@ def phase_gsmall():
         + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
 
 
-def _gauss_counters():
-    from pmf_tpu_torch.ops import cavi_edge, dense_head, gaussian_edge, gj_inverse
-
-    return {"K1": cavi_edge.TAIL_LAUNCHES, "K2": dense_head.HEAD_LAUNCHES,
-            "K3": gaussian_edge.FACTOR_LAUNCHES, "K4": gj_inverse.GJ_LAUNCHES,
-            "K5": gaussian_edge.BIAS_LAUNCHES, "K6": gaussian_edge.DIAG_LAUNCHES}
-
-
 def _train_rmse(state, train, n=1_000_000):
     """RMSE of the biased prediction on the first n training ratings."""
     import torch
@@ -801,9 +1133,7 @@ def _run_gfit(train, val, smi, covariance, sweeps, want_of):
     cfg = GaussianMFConfig(n_factors=K, max_iter=sweeps, tol=None, verbose=False,
                            engine="blocked_high", covariance=covariance)
     model = GaussianMF(cfg)
-    counters = _gauss_counters()
-    for c in counters.values():
-        c.reset()
+    counters = reset_counters()
     t0 = time.perf_counter()
     model.fit(train, val, global_mean=0.0)
     torch.cuda.synchronize()
@@ -813,7 +1143,8 @@ def _run_gfit(train, val, smi, covariance, sweeps, want_of):
         log(f"  {covariance} sweep {rec['iteration']}: {rec['iter_seconds']:.4f} s | "
             f"{rec['updates_per_sec'] / 1e6:.1f}M updates/s | val RMSE "
             f"{rec['val_rmse']:.6f} | {smi}")
-    want = want_of(model.n_sweeps)
+    want = dict.fromkeys(launches, 0)
+    want.update(want_of(model.n_sweeps))
     if launches != want:
         raise AssertionError(f"gfit {covariance} launches {launches}, expected {want}")
     state = state_to_numpy(model.state)
@@ -851,10 +1182,10 @@ def phase_gfit(train, val, smi):
     configuration for GDIAG_SWEEPS (K6 and K5 twice a sweep)."""
     full, launches = _run_gfit(
         train, val, smi, "full", GFIT_SWEEPS,
-        lambda n: {"K1": 0, "K2": 0, "K3": 2 * n, "K4": 2 * n, "K5": 2 * n, "K6": 0})
+        lambda n: {"K3": 2 * n, "K4": 2 * n, "K5": 2 * n})
     diag, dlaunches = _run_gfit(
         train, val, smi, "diag", GDIAG_SWEEPS,
-        lambda n: {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 2 * n, "K6": 2 * n})
+        lambda n: {"K5": 2 * n, "K6": 2 * n})
     return full, diag, {k: launches[k] + dlaunches[k] for k in launches}
 
 
@@ -862,8 +1193,6 @@ def phase_gprofile(full, diag, train, smi):
     """Steady sweep times (CUDA events over chained sweeps) of both
     configurations and one exact sweep under torch.profiler."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from pmf_tpu_torch.models.gaussian_mf import sweep_blocked
 
@@ -890,16 +1219,8 @@ def phase_gprofile(full, diag, train, smi):
         steady[name] = cuda_ms(one_sweep, reps=5)
         log(f"  steady {name} sweep: {steady[name]:.4f} ms | "
             f"{4 * nnz / steady[name] / 1e3:.1f}M updates/s (4 x nnz) | {smi}")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sweeps["full"]()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                  reverse=True)
-    busy = sum(r[0] for r in rows)
+    rows, busy, wall_ms = profile_once(
+        sweeps["full"], {"::factor_kernel": 2, "gj_inverse_kernel": 2, "bias_kernel": 2})
     groups = {"K3 factor_kernel": 0.0, "K5 bias_kernel": 0.0,
               "K4 gj_inverse_kernel": 0.0, "head products (gemm)": 0.0,
               "other": 0.0}
@@ -936,12 +1257,26 @@ def main() -> int:
     train, val, blocked, split = phase_data()
     k1 = phase_k1(blocked)
     k2 = phase_k2(blocked)
+    k7, k8 = phase_k7k8(blocked)
     del blocked
     torch.cuda.empty_cache()
     phase_small()
     model, launches = phase_fit(train, val, smi)
     phase_profile(model, train, smi)
-    del model, train, val
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase_psmall()
+    pmodels = phase_pfit(train, val, smi)
+    phase_pprofile(pmodels, train, smi)
+    for _, plaunches in pmodels.values():
+        launches = {k: launches[k] + plaunches[k] for k in launches}
+    del pmodels
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_pelbo(train, val, smi)
+    del train, val
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -980,6 +1315,10 @@ def main() -> int:
               "pmf_tpu/ops/pallas/gaussian_edge.py:175", k5, glaunches["K5"]),
         entry("gaussian_diag_tail", gsrc,
               "pmf_tpu/ops/pallas/gaussian_edge.py:242", k6, glaunches["K6"]),
+        entry("ext_factor_tail", "pmf_tpu_torch/csrc/ext_edge.cu",
+              "pmf_tpu/ops/pallas/ext_edge.py:59", k7, launches["K7"]),
+        entry("ext_scalar_tail", "pmf_tpu_torch/csrc/ext_edge.cu",
+              "pmf_tpu/ops/pallas/ext_edge.py:107", k8, launches["K8"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

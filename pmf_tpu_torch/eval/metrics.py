@@ -15,6 +15,12 @@ def rmse(y_true, y_pred) -> float:
     return float(np.sqrt(np.mean((y_true - y_pred) ** 2)))
 
 
+def mae(y_true, y_pred) -> float:
+    y_true = np.asarray(y_true, dtype=np.float64)
+    y_pred = np.asarray(y_pred, dtype=np.float64)
+    return float(np.mean(np.abs(y_true - y_pred)))
+
+
 def macro_mae(y_true, y_pred) -> float:
     """MAE averaged over the unique true-rating classes (equal weight)."""
     y_true = np.asarray(y_true, dtype=np.float64)
@@ -24,6 +30,14 @@ def macro_mae(y_true, y_pred) -> float:
         for v in np.unique(y_true)
     ]
     return float(np.mean(per_class))
+
+
+def poisson_log_predictive_likelihood(y_true, lam, epsilon: float = 1e-10) -> float:
+    """Sum of Poisson log pmfs, the rate floored at ``epsilon``."""
+    y_true = np.asarray(y_true, dtype=np.float64)
+    lam = np.maximum(np.asarray(lam, dtype=np.float64), epsilon)
+    log_fact = torch.lgamma(torch.from_numpy(y_true + 1.0)).numpy()
+    return float(np.sum(y_true * np.log(lam) - lam - log_fact))
 
 
 def masked_rmse(y_true: torch.Tensor, y_pred: torch.Tensor,

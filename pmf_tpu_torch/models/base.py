@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from pmf_tpu_torch.data.coo import EvalSet, RatingsCOO, build_eval_set, build_ratings
+from pmf_tpu_torch.eval.metrics import macro_mae, rmse
 from pmf_tpu_torch.utils.device import ScalarReader, mark
 
 
@@ -49,7 +50,9 @@ class FitLoop:
 
     def __init__(self, sweep_fn: Callable, eval_fn: Optional[Callable],
                  max_iter: int, tol, stop_rule: Callable, verbose: bool = False,
-                 name: str = "CAVI", edge_visits_per_iter: Optional[int] = None):
+                 name: str = "CAVI", edge_visits_per_iter: Optional[int] = None,
+                 elbo_fn: Optional[Callable] = None, elbo_every: int = 1,
+                 elbo_monotone: Optional[float] = None):
         self.sweep_fn = sweep_fn
         self.eval_fn = eval_fn
         self.max_iter = max_iter
@@ -60,6 +63,14 @@ class FitLoop:
         # Ratings touched per iteration (nnz x edge passes); when set, each
         # history record carries ``updates_per_sec``.
         self.edge_visits_per_iter = edge_visits_per_iter
+        # Convergence diagnostic: ``elbo_fn(state) -> scalar`` is evaluated
+        # every ``elbo_every`` iterations and recorded as ``elbo``.
+        # ``elbo_monotone`` (a relative tolerance) enforces non-decrease,
+        # valid where the sweep is exact coordinate ascent on that ELBO.
+        self.elbo_fn = elbo_fn
+        self.elbo_every = max(int(elbo_every), 1)
+        self.elbo_monotone = elbo_monotone
+        self._prev_elbo: Optional[float] = None
         self.history: list[dict] = []
         self.n_sweeps = 0
 
@@ -69,11 +80,30 @@ class FitLoop:
         state = self.sweep_fn(state, data)
         return state, mark(next(iter(state.values())))
 
-    def _timed(self, record: dict, t0: float) -> float:
+    def _timed(self, record: dict, t0: float, state: dict) -> float:
+        """Close iteration ``record`` (time, rate, the ELBO when due);
+        returns the next iteration's start: ELBO time is not sweep time."""
         record["iter_seconds"] = time.perf_counter() - t0
         if self.edge_visits_per_iter:
             record["updates_per_sec"] = self.edge_visits_per_iter / record["iter_seconds"]
+        self._maybe_elbo(state, record)
         return time.perf_counter()
+
+    def _maybe_elbo(self, state: dict, record: dict) -> None:
+        it = record["iteration"]
+        if self.elbo_fn is None or it % self.elbo_every:
+            return
+        elbo = float(self.elbo_fn(state))
+        record["elbo"] = elbo
+        prev = self._prev_elbo
+        if (self.elbo_monotone is not None and prev is not None
+                and elbo < prev - self.elbo_monotone * (1.0 + abs(prev))):
+            raise RuntimeError(
+                f"{self.name}: ELBO decreased at iteration {it} "
+                f"({prev!r} -> {elbo!r}): the sweep is coordinate ascent on "
+                "this objective, so a decrease beyond rounding indicates a "
+                "bug (or mismatched train data passed to elbo_every)")
+        self._prev_elbo = elbo
 
     def run(self, state: dict, data, val: Optional[EvalSet]) -> dict:
         """The returned state is the one the stop decision was made on; at
@@ -95,14 +125,15 @@ class FitLoop:
                     state, done = self._sweep(cur, data)
                 val_rmse, val_macro = scalars()  # device sync point
                 record.update(val_rmse=val_rmse, val_macro_mae=val_macro)
-                t0 = self._timed(record, t0)
+                t0 = self._timed(record, t0, cur)
                 if self.verbose:
                     ups = record.get("updates_per_sec")
                     print(
                         f"{self.name} iter {it}/{self.max_iter} | "
                         f"val RMSE {val_rmse:.4f} | macro-MAE {record['val_macro_mae']:.4f} | "
                         f"{record['iter_seconds']:.3f}s"
-                        + (f" | {ups/1e6:.1f}M updates/s" if ups else ""),
+                        + (f" | {ups/1e6:.1f}M updates/s" if ups else "")
+                        + (f" | ELBO {record['elbo']:.6g}" if "elbo" in record else ""),
                         flush=True,
                     )
                 self.history.append(record)
@@ -118,7 +149,7 @@ class FitLoop:
                 # Wait for sweep `it` (not the one just queued) so the time
                 # measures compute, not dispatch.
                 cur_done()
-                t0 = self._timed(record, t0)
+                t0 = self._timed(record, t0, cur)
                 self.history.append(record)
         return state
 
@@ -171,6 +202,26 @@ class FactorModel:
         return build_eval_set(u, i, x, self.n_users, self.n_items,
                               dtype=self._dtype, device=self.device)
 
+    def _elbo_edges(self, train):
+        """(u, i, x, n_chunks): the train edges as tensors on the fit's
+        device and the chunk count that bounds the ELBO's gathers."""
+        from pmf_tpu_torch.eval.elbo import _auto_chunks
+
+        u, i, x = as_triples(train)
+        dev = self.device
+        return (torch.from_numpy(u).to(dev), torch.from_numpy(i).to(dev),
+                torch.from_numpy(x.astype(self._dtype)).to(dev),
+                _auto_chunks(len(u), self.config.n_factors))
+
+    def _make_elbo_fn(self, train) -> Callable:
+        """state -> ELBO over the train edges (``fit(elbo_every=)``, ``elbo``)."""
+        raise NotImplementedError(f"{type(self).__name__} has no ELBO yet")
+
+    def elbo(self, train) -> float:
+        """Auxiliary-variable ELBO of the fitted state over ``train`` (on
+        the scale passed to fit); see ``eval.elbo``."""
+        return float(self._make_elbo_fn(train)(self.state))
+
     def predict(self, user_ids, item_ids) -> np.ndarray:
         """Out-of-range (unseen) pairs predict 0."""
         u = np.asarray(user_ids, dtype=np.int64)
@@ -184,3 +235,11 @@ class FactorModel:
             preds[valid] = np.sum(theta[u[valid]] * beta[i[valid]],
                                   axis=-1).astype(np.float64)
         return preds
+
+    def evaluate_rmse(self, df) -> float:
+        u, i, x = as_triples(df)
+        return rmse(x, self.predict(u, i))
+
+    def evaluate_macro_mae(self, df) -> float:
+        u, i, x = as_triples(df)
+        return macro_mae(x, self.predict(u, i))

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from pmf_tpu_torch.data.coo import EvalSet, RatingsCOO
-from pmf_tpu_torch.eval.metrics import macro_mae, masked_macro_mae, masked_rmse, rmse
+from pmf_tpu_torch.eval.metrics import masked_macro_mae, masked_rmse
 from pmf_tpu_torch.models.base import (
     FactorModel,
     FitLoop,
@@ -192,9 +192,11 @@ def eval_metrics(state: dict, ev: EvalSet):
 class HPF(FactorModel):
     """HPF-CAVI with the JAX package's fit/predict surface."""
 
-    def fit(self, train_df, val_df=None, device=None):
+    def fit(self, train_df, val_df=None, device=None, elbo_every: int = 0):
         """``device``: None = the CUDA card (raises without one); "cpu"
-        runs the kernels' plain versions on the host."""
+        runs the kernels' plain versions on the host.  ``elbo_every=N``
+        records the auxiliary-variable ELBO in fit_history every N
+        iterations (0 = off)."""
         cfg = self.config
         self.device = resolve_device(device)
         data = self._build_train(train_df)
@@ -229,20 +231,23 @@ class HPF(FactorModel):
         val = self._build_eval(val_df) if val_df is not None else None
         loop = FitLoop(sweep_fn, eval_metrics, cfg.max_iter, cfg.tol,
                        poisson_stop_rule, verbose=cfg.verbose, name="HPF",
-                       edge_visits_per_iter=2 * data.nnz)  # theta + beta passes
+                       edge_visits_per_iter=2 * data.nnz,  # theta + beta passes
+                       elbo_fn=self._make_elbo_fn(train_df) if elbo_every else None,
+                       elbo_every=elbo_every or 1)
         self.state = loop.run(state, data, val)
         self.fit_history = loop.history
         self.n_sweeps = loop.n_sweeps
         return self
 
+    def _make_elbo_fn(self, train):
+        """``train`` on the +1-shifted scale passed to fit()."""
+        from pmf_tpu_torch.eval.elbo import hpf_elbo
+
+        cfg = self.config
+        u, i, x, nc = self._elbo_edges(train)
+        return lambda s: hpf_elbo(s, u, i, x, cfg.a, cfg.a_prime, cfg.b_prime,
+                                  cfg.c, cfg.c_prime, cfg.d_prime, n_chunks=nc)
+
     def _point_estimates(self):
         return (self.state["a_theta"] / self.state["b_theta"],
                 self.state["a_beta"] / self.state["b_beta"])
-
-    def evaluate_rmse(self, df) -> float:
-        u, i, x = as_triples(df)
-        return rmse(x, self.predict(u, i))
-
-    def evaluate_macro_mae(self, df) -> float:
-        u, i, x = as_triples(df)
-        return macro_mae(x, self.predict(u, i))

@@ -45,6 +45,11 @@ SIGNATURES = {
     "pmf_gauss_diag": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
     # mats, R, K, out, stream
     "pmf_gj_inverse": [_P, _I, _I, _P, _P],
+    # e_self, e_other, s_other, row_ptr, other, x, n_self, K, rate_floor,
+    # out, stream
+    "pmf_ext_factor": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P],
+    # e_self_new, e_other, s_other, row_ptr, other, n_self, K, out, stream
+    "pmf_ext_scalar": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
 }
 
 

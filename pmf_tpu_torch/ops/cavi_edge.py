@@ -18,6 +18,13 @@ import torch
 
 from pmf_tpu_torch.data.blocked import TailCSR
 from pmf_tpu_torch.ops import _build
+from pmf_tpu_torch.ops._tail import (
+    add_heads,
+    check_head,
+    check_tail_args,
+    head_out,
+    head_tables,
+)
 from pmf_tpu_torch.ops.dense_head import poisson_head_stats, poisson_head_stats_t
 
 RATE_FLOOR = 1e-10
@@ -47,21 +54,10 @@ def _check_cuda_args(e_self, e_other, row_ptr, other, x):
     K = e_self.shape[1]
     if not 1 <= K <= 32:
         raise ValueError(f"tail kernel needs 1 <= K <= 32, got K={K}")
-    for name, t, dt in (("e_self", e_self, torch.float32),
-                        ("e_other", e_other, torch.float32),
-                        ("row_ptr", row_ptr, torch.int64),
-                        ("other", other, torch.int32),
-                        ("x", x, torch.float32)):
-        if t.device != e_self.device:
-            raise ValueError(f"{name} is on {t.device}, e_self on {e_self.device}")
-        if t.dtype != dt:
-            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_tail_args([("e_self", e_self), ("e_other", e_other)], row_ptr, other,
+                    x, e_self.shape[0])
     if e_other.shape[1] != K:
         raise ValueError("e_self and e_other differ in K")
-    if row_ptr.shape[0] != e_self.shape[0] + 1 or other.shape != x.shape:
-        raise ValueError("CSR shapes do not match the self table")
 
 
 def tail_edge_stats(e_self: torch.Tensor, e_other: torch.Tensor,
@@ -90,25 +86,17 @@ def poisson_edge_stats(e_self: torch.Tensor, e_other: torch.Tensor,
     (their edges are not in ``p``); ``head_side`` says whether self rows
     are the head's user axis ("user", by_user pass) or item axis."""
     K = e_self.shape[1]
+    heads = check_head(p, head)
     if p.reordered:
         e_self = e_self[p.self_old_of_new]
         e_other = e_other[p.other_old_of_new]
     acc = tail_edge_stats(e_self.contiguous(), e_other.contiguous(),
                           p.row_ptr, p.other, p.x, rate_floor)
-    for tier in head or ():
-        if not p.reordered:
-            raise ValueError("dense head requires a reordered layout")
-        rs, hu, hi = tier.row_start, tier.hu, tier.hi
-        if head_side == "user":
-            theta_h = e_self[rs : rs + hu]
-            beta_h = torch.nn.functional.pad(e_other[:hi], (0, 0, 0, tier.hip - hi))
-            sa, so = poisson_head_stats(theta_h, beta_h, tier, rate_floor)
-            acc[rs : rs + hu] += torch.cat([sa, so], dim=1).to(acc.dtype)
-        else:
-            theta_h = e_other[rs : rs + hu]
-            beta_h = torch.nn.functional.pad(e_self[:hi], (0, 0, 0, tier.hip - hi))
-            sa, so = poisson_head_stats_t(theta_h, beta_h, tier, rate_floor)
-            acc[:hi] += torch.cat([sa[:hi], so[:hi]], dim=1).to(acc.dtype)
+    fn = poisson_head_stats if head_side == "user" else poisson_head_stats_t
+    acc = add_heads(acc, [
+        head_out(tier, head_side, fn(*head_tables(e_self, e_other, tier, head_side),
+                                     tier, rate_floor))
+        for tier in heads])
     if p.reordered:
         acc = acc[p.self_new_of_old]
     return acc[:, :K], acc[:, K:]

@@ -22,6 +22,10 @@ planes; every product accumulates and returns float32
 (``torch.mm(..., out_dtype=torch.float32)``: a plain bf16 ``torch.mm``
 would round its output to bf16).  On the CPU, whose torch has no kernel
 for that overload, they are plain matmuls in the table's dtype.
+
+``ext_head_stats{,_t}`` are the extended-Poisson head statistics: the
+allocation half from K2 (the scalar factors cancel in it), the
+scalar-weighted rate half ``M @ (s * B)`` from ``head_products{,_t}``.
 """
 
 from __future__ import annotations
@@ -219,3 +223,29 @@ def head_products_t(head: DenseHead, self_tab: torch.Tensor,
     xp = (None if x_tab is None
           else _cells_product(_x_planes(head), x_tab, transpose_a=True))
     return mp, xp
+
+
+def ext_head_stats(theta_h: torch.Tensor, beta_h: torch.Tensor,
+                   sbeta_h: torch.Tensor, head: DenseHead, rate_floor: float):
+    """Extended-Poisson user-side head statistics (S_alloc, S_wother), both
+    (hu, K).  The allocation divides by the factor dot alone, so S_alloc
+    is the plain form's (K2; its M @ B half goes unused); the rate
+    statistic is scalar-weighted, S_wother = M @ sbeta_h with sbeta_h =
+    s_other[:, None] * beta_h made by the caller."""
+    K = theta_h.shape[1]
+    out = fused_alloc_tier(theta_h, beta_h, head.x_hi, head.m, head.x_lo,
+                           rate_floor=rate_floor)
+    sw, _ = head_products(head, sbeta_h, None)
+    return theta_h * out[:, :K], sw
+
+
+def ext_head_stats_t(theta_h: torch.Tensor, beta_h: torch.Tensor,
+                     stheta_h: torch.Tensor, head: DenseHead, rate_floor: float):
+    """Extended-Poisson item-side head statistics (S_alloc, S_wother), both
+    (hip, K), rows past hi zero; stheta_h = s_other[:, None] * theta_h (the
+    user scalars)."""
+    K = theta_h.shape[1]
+    out = fused_alloc_tier(theta_h, beta_h, head.x_hi, head.m, head.x_lo,
+                           rate_floor=rate_floor, item_side=True)
+    sw, _ = head_products_t(head, stheta_h, None)
+    return beta_h * out[:, :K], sw

@@ -29,7 +29,15 @@ import torch
 
 from pmf_tpu_torch.data.blocked import TailCSR
 from pmf_tpu_torch.ops import _build
-from pmf_tpu_torch.ops.dense_head import head_products, head_products_t
+from pmf_tpu_torch.ops._tail import (
+    add_heads as _add_heads,
+    check_head as _check_head,
+    check_tail_args as _check_tail_args,
+    edges as _edges,
+    head_rows as _head_rows,
+    products as _products,
+    row_chunks as _row_chunks,
+)
 
 FACTOR_LAUNCHES = _build.LaunchCounter()
 BIAS_LAUNCHES = _build.LaunchCounter()
@@ -70,31 +78,6 @@ def unpack_tri(S_tri: torch.Tensor, k: int) -> torch.Tensor:
     return S_tri.index_select(1, full).reshape(-1, k, k)
 
 
-def _row_chunks(row_ptr: torch.Tensor, max_edges: int | None):
-    """(row_start, row_end) ranges of whole rows holding <= max_edges edges
-    each (a longer single row forms its own range)."""
-    n = row_ptr.shape[0] - 1
-    if max_edges is None:
-        yield 0, n
-        return
-    rp = row_ptr.cpu()
-    r = 0
-    while r < n:
-        stop = int(torch.searchsorted(rp, rp[r] + max_edges, right=True)) - 1
-        stop = min(max(stop, r + 1), n)
-        yield r, stop
-        r = stop
-
-
-def _edges(row_ptr, other, r0, r1):
-    """(local self row, other id, edge slice) of rows [r0, r1)."""
-    lo, hi = int(row_ptr[r0]), int(row_ptr[r1])
-    counts = row_ptr[r0 + 1 : r1 + 1] - row_ptr[r0:r1]
-    local = torch.repeat_interleave(
-        torch.arange(r1 - r0, device=row_ptr.device), counts)
-    return local, other[lo:hi].long(), slice(lo, hi)
-
-
 # ------------------------------------------------------------------ K3 --
 
 def factor_tail_stats_plain(aug, row_ptr, other, x, K: int,
@@ -117,23 +100,6 @@ def factor_tail_stats_plain(aug, row_ptr, other, x, K: int,
             cols += [xv[:, None], b[:, None]]
         out[r0:r1].index_add_(0, local, torch.cat(cols, dim=1))
     return out
-
-
-def _check_tail_args(tables, row_ptr, other, x, n_self):
-    """Raise on what the tail kernels do not take: ``tables`` are
-    (name, tensor) pairs of float32 row tables."""
-    checks = [(name, t, torch.float32) for name, t in tables] + [
-        ("row_ptr", row_ptr, torch.int64), ("other", other, torch.int32),
-        ("x", x, torch.float32)]
-    for name, t, dt in checks:
-        if t.device != row_ptr.device:
-            raise ValueError(f"{name} is on {t.device}, row_ptr on {row_ptr.device}")
-        if t.dtype != dt:
-            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if row_ptr.shape[0] != n_self + 1 or other.shape != x.shape:
-        raise ValueError("CSR shapes do not match the self rows")
 
 
 def factor_tail_stats(aug, row_ptr, other, x, K: int,
@@ -234,25 +200,6 @@ def diag_tail_stats(aug, self_tab, row_ptr, other, x) -> torch.Tensor:
 
 # ------------------------------------------------------- head + wrappers --
 
-def _head_rows(tab: torch.Tensor, tier, head_side: str) -> torch.Tensor:
-    """The tier's other rows of a new-space table, zero-padded to the
-    product's contraction length: head items [0, hi) padded to hip on
-    the user side, the tier's user band on the item side."""
-    if head_side == "user":
-        t = tab[: tier.hi]
-        return torch.nn.functional.pad(t, (0, 0, 0, tier.hip - t.shape[0]))
-    return tab[tier.row_start : tier.row_start + tier.hu]
-
-
-def _products(tier, tab, x_tab, head_side):
-    """(start row, M-product, X-product) of one tier, cut to its self rows."""
-    if head_side == "user":
-        mp, xp = head_products(tier, tab, x_tab)
-        return tier.row_start, mp, xp
-    mp, xp = head_products_t(tier, tab, x_tab)
-    return 0, mp[: tier.hi], None if xp is None else xp[: tier.hi]
-
-
 def _x_sum(tier, head_side):
     return tier.x_sum_user if head_side == "user" else tier.x_sum_item[: tier.hi]
 
@@ -270,18 +217,6 @@ def _gauss_head_out(tier, aug, K, T, with_bias_stats, head_side):
     if with_bias_stats:
         cols += [_x_sum(tier, head_side)[:, None].to(mp.dtype), mp[:, -1:]]
     return start, torch.cat(cols, dim=1)
-
-
-def _add_heads(out, head_outs):
-    for start, h in head_outs:
-        out[start : start + h.shape[0]] += h.to(out.dtype)
-    return out
-
-
-def _check_head(p: TailCSR, head):
-    if head and not p.reordered:
-        raise ValueError("dense head requires a reordered layout")
-    return head or ()
 
 
 def gaussian_factor_stats(m_other, V_other, b_self, b_other, p: TailCSR,

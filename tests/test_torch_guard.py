@@ -11,9 +11,16 @@ import pytest
 import torch
 
 import pmf_tpu_torch
-from pmf_tpu_torch.models import gaussian_mf
+from pmf_tpu_torch.models import gaussian_mf, poisson_mf
 from pmf_tpu_torch.models.hpf import HPF, HPFConfig
-from pmf_tpu_torch.ops import _build, cavi_edge, dense_head, gaussian_edge, gj_inverse
+from pmf_tpu_torch.ops import (
+    _build,
+    cavi_edge,
+    dense_head,
+    ext_edge,
+    gaussian_edge,
+    gj_inverse,
+)
 from pmf_tpu_torch.utils import device as device_mod
 
 torch.set_num_threads(1)
@@ -42,7 +49,8 @@ def test_port_package_files_are_scanned():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "hpf.py", "cavi_edge.py", "dense_head.py",
             "blocked.py", "gaussian_mf.py", "gaussian_edge.py", "gj_inverse.py",
-            "solve.py"} <= names
+            "solve.py", "poisson_mf.py", "ext_edge.py", "elbo.py",
+            "_tail.py"} <= names
     assert Path(pmf_tpu_torch.__file__).parent == REPO / "pmf_tpu_torch"
 
 
@@ -76,6 +84,24 @@ def test_fit_without_device_raises_without_cuda(monkeypatch, small_splits):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gaussian_mf.GaussianMF(gaussian_mf.GaussianMFConfig(
             n_factors=4, max_iter=2, verbose=False)).fit(train, val)
+
+
+@pytest.mark.parametrize("extended", [False, True], ids=["plain", "extended"])
+def test_poisson_fit_without_device_raises_without_cuda(monkeypatch, small_splits,
+                                                        extended):
+    _no_cuda(monkeypatch)
+    train, val, _ = small_splits
+    cfg = poisson_mf.PoissonMFConfig(n_factors=4, max_iter=2, verbose=False,
+                                     extended=extended)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        poisson_mf.PoissonMF(cfg).fit(train, val)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        poisson_mf.init_state(120, 80, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        poisson_mf.state_from_numpy(poisson_mf._init_state_numpy(12, 8, cfg))
+    # Named, the CPU runs the plain versions.
+    m = poisson_mf.PoissonMF(cfg).fit(train, val, device="cpu")
+    assert m.device == torch.device("cpu") and len(m.fit_history) == 2
 
 
 def test_builders_without_device_raise_without_cuda(monkeypatch, small_ratings):
@@ -230,6 +256,50 @@ def test_gaussian_wrappers_reject_what_the_kernels_do_not_take():
             _cuda_looking(torch.rand(2, 3, 3, dtype=torch.float64)))
 
 
+EXT_WRAPPERS = {
+    "K7": ("ext_factor_tail", "FACTOR_LAUNCHES",
+           lambda: (_cuda_looking(torch.rand(3, K)), _cuda_looking(torch.rand(5, K)),
+                    _cuda_looking(torch.rand(5)), *_csr(3, 5, 4))),
+    "K8": ("ext_scalar_tail", "SCALAR_LAUNCHES",
+           lambda: (_cuda_looking(torch.rand(3, K)), _cuda_looking(torch.rand(5, K)),
+                    _cuda_looking(torch.rand(5)), *_csr(3, 5, 4)[:2])),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(EXT_WRAPPERS))
+def test_ext_wrappers_raise_instead_of_falling_back(monkeypatch, broken_build, kernel):
+    name, counter, args = EXT_WRAPPERS[kernel]
+    _forbid(monkeypatch, ext_edge, name + "_plain")
+    before = getattr(ext_edge, counter).count
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        getattr(ext_edge, name)(*args())
+    assert getattr(ext_edge, counter).count == before
+
+
+@pytest.mark.parametrize("kernel", sorted(EXT_WRAPPERS))
+def test_ext_wrappers_reject_what_the_kernels_do_not_take(kernel):
+    name, _, args = EXT_WRAPPERS[kernel]
+    fn = getattr(ext_edge, name)
+    good = args()
+    wide = _cuda_looking(torch.rand(3, 33))  # K > 32
+    with pytest.raises(ValueError, match="K <= 32"):
+        fn(wide, _cuda_looking(torch.rand(5, 33)), *good[2:])
+    with pytest.raises(TypeError, match="e_other"):
+        fn(good[0], _cuda_looking(torch.rand(5, K, dtype=torch.float64)), *good[2:])
+    with pytest.raises(TypeError, match="s_other"):
+        fn(*good[:2], _cuda_looking(torch.rand(5, dtype=torch.float64)), *good[3:])
+    with pytest.raises(ValueError, match="s_other must be"):
+        fn(*good[:2], _cuda_looking(torch.rand(4)), *good[3:])  # one scalar short
+    with pytest.raises(ValueError, match="differ in K"):
+        fn(good[0], _cuda_looking(torch.rand(5, K + 1)), *good[2:])
+    with pytest.raises(TypeError, match="other must be"):
+        fn(*good[:4], _cuda_looking(torch.zeros(4, dtype=torch.int64)), *good[5:])
+    with pytest.raises(ValueError, match="is on"):
+        fn(good[0], _cuda_looking(torch.rand(5, K, device="meta")), *good[2:])
+    with pytest.raises(ValueError, match="CSR shapes"):
+        fn(_cuda_looking(torch.rand(2, K)), *good[1:])  # row_ptr has 4 entries
+
+
 def test_kernel_sources_name_what_they_replace():
     srcs = {p.name: p.read_text() for p in _build.sources()}
     replaces = {
@@ -240,6 +310,8 @@ def test_kernel_sources_name_what_they_replace():
             "pmf_tpu/ops/pallas/gaussian_edge.py::_bias_kernel",
             "pmf_tpu/ops/pallas/gaussian_edge.py::_diag_kernel"],
         "gj_inverse.cu": ["pmf_tpu/ops/pallas/gj_inverse.py::_gj_kernel"],
+        "ext_edge.cu": ["pmf_tpu/ops/pallas/ext_edge.py::_factor_kernel",
+                        "pmf_tpu/ops/pallas/ext_edge.py::_scalar_kernel"],
     }
     assert set(srcs) == set(replaces)
     for name, funcs in replaces.items():
