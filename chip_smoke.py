@@ -29,6 +29,15 @@ extended, with launch counters), pprofile (steady sweep times of both, one
 extended sweep under the profiler) and pelbo (a 2-sweep plain fit with
 ``elbo_every=1``).
 
+Beside K1, on the same tail: K1raw, the tail kernel's mode "raw" vs its
+plain version and its linear library form.  After the Poisson phases, on
+the same ratings, the HPF-MAP/SGD path: mdata (the segment layout at
+batch_size=65536, mix=8), K9 (the minibatch-gradient kernel vs its plain
+version on real steps, and one whole epoch of its launches timed), msmall
+(three blocked and three flat epochs card vs host on a small input), mfit
+(``HPFMap.fit`` for 3 epochs, engine "blocked_high" then "flat", with
+launch counters) and mprofile (20 steady blocked steps under the profiler).
+
 Those are freed, then the Gaussian-MF CAVI path:
 
 9.  gdata    -- the benchmark's N(0, 1) ratings on the same ids and split,
@@ -145,12 +154,14 @@ def _head_launches(model) -> dict:
 def kernel_counters() -> dict:
     """Every kernel wrapper's launch counter, by kernel id."""
     from pmf_tpu_torch.ops import (
-        cavi_edge, dense_head, ext_edge, gaussian_edge, gj_inverse)
+        cavi_edge, dense_head, ext_edge, gaussian_edge, gj_inverse, map_grad)
 
-    return {"K1": cavi_edge.TAIL_LAUNCHES, "K2": dense_head.HEAD_LAUNCHES,
+    return {"K1": cavi_edge.TAIL_LAUNCHES, "K1raw": cavi_edge.TAIL_RAW_LAUNCHES,
+            "K2": dense_head.HEAD_LAUNCHES,
             "K3": gaussian_edge.FACTOR_LAUNCHES, "K4": gj_inverse.GJ_LAUNCHES,
             "K5": gaussian_edge.BIAS_LAUNCHES, "K6": gaussian_edge.DIAG_LAUNCHES,
-            "K7": ext_edge.FACTOR_LAUNCHES, "K8": ext_edge.SCALAR_LAUNCHES}
+            "K7": ext_edge.FACTOR_LAUNCHES, "K8": ext_edge.SCALAR_LAUNCHES,
+            "K9": map_grad.MAP_GRAD_LAUNCHES}
 
 
 def reset_counters() -> dict:
@@ -299,6 +310,58 @@ def phase_k1(blocked):
     log(f"phase K1: ok | per sweep: kernel {res['ms']:.4f} ms, plain "
         f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
         f"({res['bound_by']})")
+    return res
+
+
+def phase_k1raw(blocked):
+    """K1's mode "raw" vs its plain version on the real tail, both
+    directions.  "raw" is linear, sum_e e_s * e_o = e_s * sum_e e_o, so one
+    library call computes it: torch.sparse.mm of the tail's pattern by the
+    other table, scaled by the self rows."""
+    import torch
+
+    from pmf_tpu_torch.ops.cavi_edge import tail_edge_stats, tail_edge_stats_plain
+
+    e_user, e_item = _new_space_tables(blocked)
+    res = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0,
+               n_bytes=0.0, n_flops=0.0)
+    for name, p, es, eo in (("user", blocked.by_user, e_user, e_item),
+                            ("item", blocked.by_item, e_item, e_user)):
+        args = (es, eo, p.row_ptr, p.other, None)
+        got = tail_edge_stats(*args, mode="raw")
+        ref = tail_edge_stats_plain(*args, mode="raw")
+        abs_err, rel_err = compare(got, ref)
+        pattern = _csr_ones(p)
+
+        def library(es=es, eo=eo, pattern=pattern):
+            s_other = torch.sparse.mm(pattern, eo)
+            return torch.cat([es * s_other, s_other], dim=1)
+
+        _, lib_rel = compare(library(), ref)
+        ms = cuda_ms(lambda: tail_edge_stats(*args, mode="raw"))
+        plain_ms = cuda_ms(lambda: tail_edge_stats_plain(*args, mode="raw"), reps=3)
+        lib_ms = cuda_ms(library)
+        n_bytes = (es.nbytes + eo.nbytes + p.row_ptr.nbytes + p.other.nbytes
+                   + got.nbytes)
+        n_flops = p.nnz * 3 * K  # product and sum K each, other sum K
+        b_ms, b_by = bound(n_bytes, n_flops)
+        log(f"  K1raw {name}: nnz {p.nnz} | max abs err {abs_err:.3e} rel "
+            f"{rel_err:.3e} (tol {RTOL}) | kernel {ms:.4f} ms | plain "
+            f"{plain_ms:.4f} ms | library e_s * sparse.mm(pattern, e_o) "
+            f"{lib_ms:.4f} ms (rel {lib_rel:.3e}) | bound {b_ms:.4f} ms ({b_by})")
+        if not (rel_err <= RTOL and lib_rel <= RTOL):
+            raise AssertionError(f"K1raw {name}: relative error {rel_err} (kernel) "
+                                 f"or {lib_rel} (library form) > {RTOL}")
+        res["ms"] += ms
+        res["plain_ms"] += plain_ms
+        res["library_ms"] += lib_ms
+        res["max_abs_err"] = max(res["max_abs_err"], abs_err)
+        res["n_bytes"] += n_bytes
+        res["n_flops"] += n_flops
+    res["bound_ms"], res["bound_by"] = bound(res["n_bytes"], res["n_flops"])
+    log(f"phase K1raw: ok | per sweep: kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, library {res['library_ms']:.4f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
     return res
 
 
@@ -742,6 +805,306 @@ def phase_pelbo(train, val, smi):
         raise AssertionError(f"pelbo: ELBO history {elbos}")
     log(f"phase pelbo: ok | {PELBO_SWEEPS} plain sweeps with elbo_every=1 in "
         f"{wall:.1f}s wall | ELBO " + " -> ".join(f"{e:.6e}" for e in elbos))
+
+
+# ----------------------------------------------------------------- HPF-MAP --
+
+MAP_BATCH, MAP_MIX, MAP_EPOCHS, MAP_LR = 65536, 8, 3, 0.001
+MPROFILE_STEPS = 20
+
+
+def phase_mdata(train):
+    """The blocked MAP engine's segment layout on the HPF ratings."""
+    import torch
+
+    from pmf_tpu_torch.models.hpf_map import build_map_layout
+
+    t0 = time.perf_counter()
+    lay = build_map_layout(*train, N_USERS, N_ITEMS, MAP_BATCH, mix=MAP_MIX,
+                           device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for name, d in (("by_user", lay.by_user), ("by_item", lay.by_item)):
+        log(f"  {name}: {d.n_runs} row runs ({d.n_runs / lay.n_real_segments:.0f} "
+            f"a segment, {lay.nnz / d.n_runs:.1f} edges a run) | longest run "
+            f"{_longest_run(d)} | {d.nbytes()} bytes")
+    log(f"phase mdata: ok | {lay.n_segments} segments ({lay.n_real_segments} hold "
+        f"ratings) of {MAP_BATCH // MAP_MIX} | {lay.n_segments // MAP_MIX} steps an "
+        f"epoch at mix={MAP_MIX} | {lay.nbytes()} bytes on the card | build "
+        f"{secs:.1f}s")
+    if lay.n_real_segments != -(-lay.nnz // (MAP_BATCH // MAP_MIX)):
+        raise AssertionError(f"mdata: {lay.n_real_segments} real segments")
+    return lay
+
+
+def _longest_run(d) -> int:
+    """Most edges any one row holds inside one segment of a direction."""
+    import torch
+
+    # Runs never span segments; each segment's first row_ptr entry is 0, so
+    # the negative differences at segment starts drop out of the maximum.
+    return int(torch.max(d.row_ptr[1:] - d.row_ptr[:-1])) if d.n_runs else 0
+
+
+def _map_tables(lay):
+    """Softplus'd initial tables in the layout's row space."""
+    from pmf_tpu_torch.models import hpf_map as hm
+
+    params = hm.init_params(N_USERS, N_ITEMS, hm.HPFMapConfig(n_factors=K),
+                            device="cuda")
+    return (hm.softplus(params["user"][lay.u_old_of_new]).contiguous(),
+            hm.softplus(params["item"][lay.i_old_of_new]).contiguous())
+
+
+def _step_coo(lay, seg_ids):
+    import torch
+
+    return tuple(torch.cat(c) for c in zip(*(lay.segment(s) for s in seg_ids)))
+
+
+def phase_k9(lay):
+    """K9 vs its plain version on real steps of the layout (the first, the
+    last and two drawn from a seeded generator), then one whole epoch of
+    its launches timed by CUDA events.  The w * beta and w * theta sums and
+    the per-row nll sums are signed and cancel, so they are held per output
+    column; the counts exactly; the step's total nll relatively."""
+    import torch
+
+    from pmf_tpu_torch.models.hpf_map import LAMBDA_FLOOR
+    from pmf_tpu_torch.ops.map_grad import map_grad_plain, map_grad_rows, map_grad_step
+
+    u_sp, i_sp = _map_tables(lay)
+    rng = np.random.default_rng(4)
+    n_steps = lay.n_segments // MAP_MIX
+    steps = {"first": list(range(MAP_MIX)),
+             "last": list(range(lay.n_segments - MAP_MIX, lay.n_segments)),
+             "drawn a": rng.choice(lay.n_segments, MAP_MIX, replace=False).tolist(),
+             "drawn b": rng.choice(lay.n_segments, MAP_MIX, replace=False).tolist()}
+    res = dict(max_abs_err=0.0, library_ms=None)
+    for name, seg_ids in steps.items():
+        got_u, got_i = map_grad_step(u_sp, i_sp, lay, seg_ids, LAMBDA_FLOOR)
+        ref_u, ref_i = map_grad_plain(u_sp, i_sp, *_step_coo(lay, seg_ids),
+                                      LAMBDA_FLOOR)
+        abs_u, worst_u, ok_u = column_check(got_u, ref_u)
+        abs_i, worst_i, ok_i = column_check(got_i, ref_i)
+        counts = bool(torch.equal(got_u[:, K], ref_u[:, K])
+                      and torch.equal(got_i[:, K], ref_i[:, K]))
+        _, rel_n = compare(got_u[:, K + 1].double().sum(),
+                           ref_u[:, K + 1].double().sum())
+        n_edges = int(ref_u[:, K].sum())
+        log(f"  K9 step {name} {seg_ids}: {n_edges} edges | worst column "
+            f"max|err|/max|plain| user {worst_u:.3e} item {worst_i:.3e} (tol "
+            f"{COL_RTOL}) | counts equal {counts} | total nll rel {rel_n:.3e} "
+            f"(tol {RTOL})")
+        if not (ok_u and ok_i and counts and rel_n <= RTOL):
+            raise AssertionError(f"K9 step {name}: kernel and plain version disagree")
+        res["max_abs_err"] = max(res["max_abs_err"], abs_u, abs_i)
+
+    acc_u = torch.zeros((N_USERS, K + 2), device="cuda")
+    acc_i = torch.zeros((N_ITEMS, K + 1), device="cuda")
+
+    def epoch_launches():
+        for s in range(lay.n_segments):
+            map_grad_rows(u_sp, i_sp, *lay.by_user.segs[s], LAMBDA_FLOOR, True, acc_u)
+            map_grad_rows(i_sp, u_sp, *lay.by_item.segs[s], LAMBDA_FLOOR, False, acc_i)
+
+    t0 = time.perf_counter()
+    epoch_launches()
+    enqueue_s = time.perf_counter() - t0
+    res["ms"] = cuda_ms(epoch_launches, reps=2)
+    # The plain version, one step at a time over the same epoch.
+    plain_ms = 0.0
+    for step in range(n_steps):
+        coo = _step_coo(lay, range(step * MAP_MIX, (step + 1) * MAP_MIX))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        map_grad_plain(u_sp, i_sp, *coo, LAMBDA_FLOOR)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms += start.elapsed_time(end)
+    res["plain_ms"] = plain_ms
+    # Bound: per direction the sorted edges (8 B each), 12 B of row list a
+    # run, one read-modify-write of an accumulator row a run, the run's self
+    # row, and each other row the segment touches once (= the opposite
+    # direction's runs).
+    row = 4 * (K + 1)
+    n_bytes = 0.0
+    for d, opp, width in ((lay.by_user, lay.by_item, K + 2),
+                          (lay.by_item, lay.by_user, K + 1)):
+        n_bytes += (d.other.nbytes + d.x.nbytes + 12 * d.n_runs
+                    + 2 * 4 * width * d.n_runs + row * d.n_runs + row * opp.n_runs)
+    n_flops = 2 * lay.nnz * (4 * K + 6)  # per edge and direction: dot, w * row, w, nll
+    res["bound_ms"], res["bound_by"] = bound(n_bytes, n_flops)
+    launches = 2 * lay.n_real_segments
+    log(f"phase K9: ok | one epoch: {launches} launches in {res['ms']:.4f} ms by "
+        f"CUDA events ({res['ms'] / launches * 1e3:.2f} us a launch; the host "
+        f"enqueued them in {enqueue_s * 1e3:.1f} ms) | plain {plain_ms:.4f} ms in "
+        f"{n_steps} steps | bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
+        f"{n_bytes / 1e9:.3f} GB) | library: none (a nonlinear weight inside the sums)")
+    return res
+
+
+def phase_msmall():
+    """Three blocked and three flat epochs on the card vs the host (plain
+    gradients) on one small input, from the same segment orders and
+    permutations."""
+    import torch
+
+    from pmf_tpu_torch.data.synthetic import synth_ratings
+    from pmf_tpu_torch.models import hpf_map as hm
+    from pmf_tpu_torch.ops.adam import adam_init
+
+    u, i, x = synth_ratings(3000, 1500, 120_000, seed=5)
+    x = (x + 1.0).astype(np.float32)
+    n_users, n_items, nnz = int(u.max()) + 1, int(i.max()) + 1, len(u)
+    cfg = hm.HPFMapConfig(n_factors=K)
+    scal = (cfg.a, cfg.a_prime, cfg.b_prime, cfg.c, cfg.c_prime, cfg.d_prime)
+    B, mix = 4096, 4
+    n_pad = -(-nnz // B) * B
+    ui = np.full((n_pad, 2), -1, dtype=np.int32)
+    ui[:nnz, 0], ui[:nnz, 1], ui[nnz:, 1] = u, i, 0
+    x_pad = np.zeros(n_pad, dtype=np.float32)
+    x_pad[:nnz] = x
+    scales = [(1.0 / (np.bincount(ids, minlength=n) + 1e-6)).astype(np.float32)
+              for ids, n in ((u, n_users), (i, n_items))]
+    rng = np.random.default_rng(6)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        us, is_ = (torch.from_numpy(s).to(dev) for s in scales)
+        lay = hm.build_map_layout(u, i, x, n_users, n_items, B, mix=mix, device=dev)
+        if dev == "cpu":
+            seg_perms = [rng.permutation(lay.n_segments) for _ in range(3)]
+            flat_perms = [rng.permutation(n_pad) for _ in range(3)]
+        params = hm.init_params(n_users, n_items, cfg, device=dev)
+        p, st = hm._permute_rows(params, adam_init(params), lay.u_old_of_new,
+                                 lay.i_old_of_new)
+        for perm in seg_perms:
+            p, st, loss_b = hm.train_epoch_blocked(
+                p, st, perm, lay, us[lay.u_old_of_new], is_[lay.i_old_of_new], scal,
+                MAP_LR, mix)
+        p, _ = hm._permute_rows(p, st, lay.u_new_of_old, lay.i_new_of_old)
+        q, st = params, adam_init(params)
+        ui_t, x_t = torch.from_numpy(ui).to(dev), torch.from_numpy(x_pad).to(dev)
+        for perm in flat_perms:
+            q, st, loss_f = hm.train_epoch(q, st, perm, ui_t, x_t, us, is_, scal,
+                                           MAP_LR, B)
+        out[dev] = {"blocked": hm.params_to_numpy(p), "flat": hm.params_to_numpy(q),
+                    "losses": (float(loss_b), float(loss_f))}
+    worst = {}
+    for engine in ("blocked", "flat"):
+        w = 0.0
+        for k, ref in out["cpu"][engine].items():
+            got = out["cuda"][engine][k]
+            if got.shape != ref.shape or not np.all(np.isfinite(got)):
+                raise AssertionError(f"msmall {engine}: {k} shape or not finite")
+            np.testing.assert_allclose(got, ref, rtol=5e-4, atol=1e-5,
+                                       err_msg=f"{engine} {k}")
+            w = max(w, float(np.max(np.abs(got - ref) / (1e-5 + 5e-4 * np.abs(ref)))))
+        worst[engine] = w
+    log(f"phase msmall: ok | 3 epochs card vs host (rtol 5e-4, atol 1e-5), worst "
+        f"|diff| / (atol + rtol |host|): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+        + f" | last epoch loss card {out['cuda']['losses']} host {out['cpu']['losses']}")
+
+
+def _run_mfit(train, val, smi, engine):
+    import torch
+
+    from pmf_tpu_torch.models.hpf_map import HPFMap, HPFMapConfig, params_to_numpy
+
+    model = HPFMap(HPFMapConfig(n_factors=K, lr=MAP_LR, batch_size=MAP_BATCH,
+                                mix=MAP_MIX, epochs=MAP_EPOCHS, verbose=False,
+                                engine=engine))
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    model.fit(train, val)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    nnz = len(train[0])
+    for rec in model.fit_history:
+        log(f"  {engine} epoch {rec['epoch']}: {rec['epoch_seconds']:.4f} s | "
+            f"{nnz / rec['epoch_seconds'] / 1e6:.1f}M edge-visits/s | loss "
+            f"{rec['train_loss']:.6e} | val RMSE {rec['val_rmse']:.6f} | {smi}")
+    want = dict.fromkeys(launches, 0)
+    if engine == "blocked_high":
+        want["K9"] = 2 * model.layout.n_real_segments * MAP_EPOCHS
+    if launches != want or model.engine_used != engine:
+        raise AssertionError(f"mfit {engine} launches {launches}, expected {want}")
+    state = params_to_numpy(model.state)
+    shapes = {"user": (N_USERS, K + 1), "item": (N_ITEMS, K + 1)}
+    for k, v in state.items():
+        if v.shape != shapes[k] or not np.all(np.isfinite(v)):
+            raise AssertionError(f"mfit {engine} state {k}: shape {v.shape} or "
+                                 f"non-finite values")
+    losses = [rec["train_loss"] for rec in model.fit_history]
+    if len(losses) != MAP_EPOCHS or not np.all(np.isfinite(losses))             or not losses[-1] < losses[0]:
+        raise AssertionError(f"mfit {engine}: train loss history {losses}")
+    # The reported val RMSE equals the host's from the returned state.
+    host = model.evaluate_rmse(val)
+    last = model.fit_history[-1]["val_rmse"]
+    if not abs(host - last) < 1e-4:
+        raise AssertionError(f"mfit {engine}: host val RMSE {host} vs {last}")
+    secs = [rec["epoch_seconds"] for rec in model.fit_history]
+    log(f"phase mfit ({engine}): ok | {MAP_EPOCHS} epochs in {wall:.1f}s wall (set-up "
+        f"included) | first epoch {secs[0]:.4f} s, later epochs "
+        + ", ".join(f"{t:.4f}" for t in secs[1:])
+        + f" s ({nnz / np.mean(secs[1:]) / 1e6:.1f}M edge-visits/s) | launches "
+        f"{launches} | loss {losses[0]:.6e} -> {losses[-1]:.6e} | val RMSE "
+        f"{model.fit_history[0]['val_rmse']:.6f} -> {last:.6f} (host {host:.6f})")
+    return model, launches
+
+
+def phase_mfit(train, val, smi):
+    """HPFMap.fit at batch_size 65536, mix 8, 3 epochs: the blocked engine
+    (2 K9 launches a segment and epoch), then the flat one (no kernel)."""
+    blocked, launches = _run_mfit(train, val, smi, "blocked_high")
+    flat, flaunches = _run_mfit(train, val, smi, "flat")
+    del flat
+    return blocked, {k: launches[k] + flaunches[k] for k in launches}
+
+
+def phase_mprofile(model, train, smi):
+    """MPROFILE_STEPS steady blocked steps from the fitted state under
+    torch.profiler: busy time, idle share, K9's share and the dense part's."""
+    import torch
+
+    from pmf_tpu_torch.models import hpf_map as hm
+    from pmf_tpu_torch.ops.adam import adam_init
+
+    cfg, lay = model.config, model.layout
+    scal = (cfg.a, cfg.a_prime, cfg.b_prime, cfg.c, cfg.c_prime, cfg.d_prime)
+    scales = [torch.from_numpy((1.0 / (np.bincount(ids, minlength=n) + 1e-6))
+                               .astype(np.float32)).cuda()[perm]
+              for ids, n, perm in ((train[0], N_USERS, lay.u_old_of_new),
+                                   (train[1], N_ITEMS, lay.i_old_of_new))]
+    params, opt = hm._permute_rows(model.state, adam_init(model.state),
+                                   lay.u_old_of_new, lay.i_old_of_new)
+    box = [params, opt]
+    order = np.random.default_rng(8).permutation(lay.n_segments)
+    segs = order[: MPROFILE_STEPS * MAP_MIX]
+    n_real = int(sum(lay.by_user.segs[s][0].numel() > 0 for s in segs))
+
+    def steps():
+        box[0], box[1], _ = hm.train_epoch_blocked(box[0], box[1], segs, lay, *scales,
+                                                   scal, cfg.lr, MAP_MIX)
+
+    ms = cuda_ms(steps, reps=3)
+    log(f"  steady blocked step: {ms / MPROFILE_STEPS:.4f} ms "
+        f"({MAP_BATCH / (ms / MPROFILE_STEPS) / 1e3:.1f}M edge-visits/s) | {smi}")
+    rows, busy, wall_ms = profile_once(steps, {"map_grad_kernel": 2 * n_real})
+    k9 = sum(r[0] for r in rows if "map_grad_kernel" in r[2])
+    n_dense = sum(r[1] for r in rows if "map_grad_kernel" not in r[2])
+    log(f"phase mprofile: ok | {MPROFILE_STEPS} blocked steps: device busy "
+        f"{busy:.4f} ms of {wall_ms:.4f} ms window (idle share "
+        f"{1 - busy / wall_ms:.1%})")
+    if busy > 0:
+        log(f"  by part: K9 map_grad_kernel {k9:.4f} ms ({k9 / busy:.1%}) in "
+            f"{2 * n_real} launches, dense part {busy - k9:.4f} ms "
+            f"({1 - k9 / busy:.1%}) in {n_dense} launches")
+    for dev_ms, n, key in rows[:12]:
+        log(f"  {dev_ms:9.4f} ms  {n:4d}x  {key[:90]}")
 
 
 # ---------------------------------------------------------------- Gaussian --
@@ -1256,6 +1619,7 @@ def main() -> int:
     phase_build()
     train, val, blocked, split = phase_data()
     k1 = phase_k1(blocked)
+    k1raw = phase_k1raw(blocked)
     k2 = phase_k2(blocked)
     k7, k8 = phase_k7k8(blocked)
     del blocked
@@ -1276,7 +1640,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_pelbo(train, val, smi)
-    del train, val
+
+    mlay = phase_mdata(train)
+    k9 = phase_k9(mlay)
+    del mlay
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_msmall()
+    mmodel, mlaunches = phase_mfit(train, val, smi)
+    phase_mprofile(mmodel, train, smi)
+    del mmodel, train, val
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1293,13 +1666,13 @@ def main() -> int:
     full, diag, glaunches = phase_gfit(gtrain, gval, smi)
     phase_gprofile(full, diag, gtrain, smi)
 
-    def entry(name, source, replaces, res, n):
+    def entry(name, source, replaces, res, n, **more):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n,
                 "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"],
-                "library_ms": res.get("library_ms")}
+                "library_ms": res.get("library_ms"), **more}
 
     gsrc = "pmf_tpu_torch/csrc/gaussian_edge.cu"
     kernels = [
@@ -1319,6 +1692,14 @@ def main() -> int:
               "pmf_tpu/ops/pallas/ext_edge.py:59", k7, launches["K7"]),
         entry("ext_scalar_tail", "pmf_tpu_torch/csrc/ext_edge.cu",
               "pmf_tpu/ops/pallas/ext_edge.py:107", k8, launches["K8"]),
+        entry("map_grad", "pmf_tpu_torch/csrc/map_grad.cu",
+              "pmf_tpu/ops/pallas/map_grad.py:56", k9, mlaunches["K9"],
+              note="ms, plain_ms and bound_ms are per epoch"),
+        entry("cavi_edge_tail_raw", "pmf_tpu_torch/csrc/cavi_edge.cu",
+              "pmf_tpu/ops/pallas/cavi_edge.py:93", k1raw,
+              launches["K1raw"] + glaunches["K1raw"] + mlaunches["K1raw"],
+              note="mode \"raw\": no single-device fit runs it (its path is "
+                   "the tensor-parallel ring), so its launches are 0"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

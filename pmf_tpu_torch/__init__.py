@@ -1,12 +1,14 @@
 """PyTorch/CUDA port of pmf_tpu on an NVIDIA H100: the hybrid HPF-CAVI,
-Gaussian-MF CAVI and Poisson-MF CAVI (plain and extended) fits.
+Gaussian-MF CAVI and Poisson-MF CAVI (plain and extended) fits, and
+HPF-MAP training by SGD (flat and blocked engines).
 
 Imports torch only; nothing of JAX or of the JAX package.
 """
 
 from pmf_tpu_torch.models.gaussian_mf import GaussianMF, GaussianMFConfig
 from pmf_tpu_torch.models.hpf import HPF, HPFConfig
+from pmf_tpu_torch.models.hpf_map import HPFMap, HPFMapConfig
 from pmf_tpu_torch.models.poisson_mf import PoissonMF, PoissonMFConfig
 
-__all__ = ["GaussianMF", "GaussianMFConfig", "HPF", "HPFConfig", "PoissonMF",
-           "PoissonMFConfig"]
+__all__ = ["GaussianMF", "GaussianMFConfig", "HPF", "HPFConfig", "HPFMap",
+           "HPFMapConfig", "PoissonMF", "PoissonMFConfig"]

@@ -1,0 +1,518 @@
+"""HPF by minibatch MAP/SGD.
+
+Same generative model as :mod:`pmf_tpu_torch.models.hpf`, optimized by
+Adam on softplus-constrained unconstrained parameters:
+
+  * Poisson NLL  sum(lambda - x log lambda)  with lambda clamped >= 1e-6.
+  * Exact negative log-Gamma prior terms for theta|xi, beta|eta, xi, eta.
+  * Frequency-scaled priors: each batch occurrence of user u weighs its
+    prior by 1/count(u), so the prior of every entity is applied exactly
+    once per epoch.
+
+The scalar entity parameters ride as the LAST column of the factor tables:
+params = {"user": (n_users, K+1) [theta | xi], "item": (n_items, K+1)
+[beta | eta]}.  The optimizer state is explicit (``ops.adam``).
+
+Engines.  "flat": uniformly shuffled batches of ``batch_size`` ratings,
+the last one padded and masked, gradients by autograd on ``batch_loss``.
+"blocked_high": the ratings lie in count-reordered, tile-major order, cut
+into segments of ``batch_size // mix`` ratings; one Adam step takes ``mix``
+segments drawn from the epoch's shuffle of the segments, and its NLL
+gradients come from the CUDA kernel K9 (``ops.map_grad``) on the card, or
+from its plain version on the CPU.  The prior terms, the softplus chain
+rule, the loss and Adam are dense row-local tensor code.  The blocked
+batches are unions of tile-band segments instead of uniform draws: the
+same estimator family with another batch composition, so "auto" stays
+flat.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from pmf_tpu_torch.data.blocked import _count_perms
+from pmf_tpu_torch.data.coo import EvalSet
+from pmf_tpu_torch.eval.metrics import masked_macro_mae, masked_rmse
+from pmf_tpu_torch.models.base import FactorModel, as_triples
+from pmf_tpu_torch.ops.adam import adam_init, adam_update
+from pmf_tpu_torch.ops.map_grad import map_grad_step
+from pmf_tpu_torch.ops.segment import edge_dot, gather_rows
+from pmf_tpu_torch.utils.device import resolve_device
+
+LAMBDA_FLOOR = 1e-6
+TILE = 512  # rows per tile side of the tile-major edge order
+PARAM_KEYS = ("user", "item")
+
+
+@dataclasses.dataclass
+class HPFMapConfig:
+    n_factors: int = 20
+    a: float = 0.3
+    a_prime: float = 1.0
+    b_prime: float = 1.0
+    c: float = 0.3
+    c_prime: float = 1.0
+    d_prime: float = 1.0
+    lr: float = 0.001
+    # Dense Adam touches every parameter each step, so small batches are
+    # dominated by optimizer traffic; use >= 2^16 at scale.
+    batch_size: int = 1024
+    epochs: int = 20
+    device: str = "tpu"  # kept for best_hyperparams.txt compatibility; unused
+    verbose: bool = True
+    random_state: int = 42
+    dtype: str = "float32"
+    # "flat" (uniform batches, autograd), "blocked_high" (tile-band
+    # segments through kernel K9) or "auto" (= flat, see the module text).
+    engine: str = "auto"
+    # Blocked engine only: segments of batch_size // mix ratings
+    # accumulated per Adam step, drawn from the epoch-wide segment shuffle.
+    mix: int = 8
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + exp(x)) at every x (``torch.nn.functional.softplus``
+    switches to the identity above its threshold)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _init_params_numpy(n_users: int, n_items: int, cfg: HPFMapConfig) -> dict:
+    """Gaussian(0, 0.1) init of the unconstrained parameters, drawn in the
+    JAX package's order (theta, beta, xi, eta), so both packages start
+    from the same bits."""
+    rng = np.random.default_rng(cfg.random_state)
+    K = cfg.n_factors
+    dt = np.dtype(cfg.dtype)
+    theta = (0.1 * rng.standard_normal((n_users, K))).astype(dt)
+    beta = (0.1 * rng.standard_normal((n_items, K))).astype(dt)
+    xi = (0.1 * rng.standard_normal(n_users)).astype(dt)
+    eta = (0.1 * rng.standard_normal(n_items)).astype(dt)
+    return {"user": np.concatenate([theta, xi[:, None]], axis=1),
+            "item": np.concatenate([beta, eta[:, None]], axis=1)}
+
+
+def params_from_numpy(params_np: dict, device=None) -> dict:
+    """numpy {"user", "item"} tables -> dict of tensors on ``device``
+    (None = the card)."""
+    device = resolve_device(device)
+    # np.array: a writable copy
+    return {k: torch.from_numpy(np.array(params_np[k])).to(device) for k in PARAM_KEYS}
+
+
+def params_to_numpy(params: dict) -> dict:
+    return {k: params[k].detach().cpu().numpy() for k in PARAM_KEYS}
+
+
+def opt_state_from_numpy(count, mu: dict, nu: dict, device=None) -> dict:
+    """Adam's (count, mu, nu), as numpy arrays taken from optax's
+    ``ScaleByAdamState``, -> the explicit state of ``ops.adam``."""
+    return {"count": int(count), "mu": params_from_numpy(mu, device),
+            "nu": params_from_numpy(nu, device)}
+
+
+def opt_state_to_numpy(state: dict):
+    return (np.asarray(state["count"], np.int32), params_to_numpy(state["mu"]),
+            params_to_numpy(state["nu"]))
+
+
+def init_params(n_users: int, n_items: int, cfg: HPFMapConfig, device=None) -> dict:
+    return params_from_numpy(_init_params_numpy(n_users, n_items, cfg), device)
+
+
+def _log_priors(theta, xi, beta, eta, cfg_scalars):
+    """Per-row negative log-Gamma prior terms (lp_theta + lp_xi per user
+    row, lp_beta + lp_eta per item row)."""
+    a, a_prime, b_prime, c, c_prime, d_prime = cfg_scalars
+    lp_theta = torch.sum(-a * torch.log(xi)[:, None] + xi[:, None] * theta
+                         - (a - 1.0) * torch.log(theta), dim=1)
+    lp_beta = torch.sum(-c * torch.log(eta)[:, None] + eta[:, None] * beta
+                        - (c - 1.0) * torch.log(beta), dim=1)
+    lp_xi = -(a_prime - 1.0) * torch.log(xi) + b_prime * xi
+    lp_eta = -(c_prime - 1.0) * torch.log(eta) + d_prime * eta
+    return lp_theta + lp_xi, lp_beta + lp_eta
+
+
+def batch_loss(params, u, i, x, mask, user_scale, item_scale, cfg_scalars):
+    """Masked MAP loss of one batch; ``mask`` zeroes padded rows."""
+    urows = softplus(gather_rows(params["user"], u))
+    irows = softplus(gather_rows(params["item"], i))
+    theta, xi = urows[:, :-1], urows[:, -1]
+    beta, eta = irows[:, :-1], irows[:, -1]
+    m = mask.to(theta.dtype)
+
+    lam = torch.clamp_min(edge_dot(theta, beta), LAMBDA_FLOOR)
+    nll = torch.sum(m * (lam - x * torch.log(lam)))
+
+    u_scale = gather_rows(user_scale, u) * m
+    i_scale = gather_rows(item_scale, i) * m
+    lp_user, lp_item = _log_priors(theta, xi, beta, eta, cfg_scalars)
+    return nll + torch.sum(lp_user * u_scale) + torch.sum(lp_item * i_scale)
+
+
+def train_epoch(params, opt_state, perm, ui_all, x_all, user_scale, item_scale,
+                cfg_scalars, lr: float, batch_size: int):
+    """One flat epoch: batch the padded edge list in the order ``perm`` (a
+    permutation of its n_pad rows) and take one Adam step per batch.
+
+    ``ui_all``: (n_pad, 2) int32 with columns [u-or-minus-one, i]; padding
+    rows carry u == -1 (the batch mask).  Returns (params, opt_state, sum
+    of the batch losses as a 0-d tensor on the device)."""
+    n = ui_all.shape[0]
+    n_batches = n // batch_size
+    perm = torch.as_tensor(perm, device=ui_all.device).long()
+    uib = ui_all[perm].view(n_batches, batch_size, 2)
+    xb = x_all[perm].view(n_batches, batch_size)
+    total = torch.zeros((), dtype=params["user"].dtype, device=ui_all.device)
+    for b in range(n_batches):
+        rows = uib[b]
+        bm = rows[:, 0] >= 0
+        bu = rows[:, 0].clamp_min(0)
+        leaves = {k: params[k].detach().requires_grad_(True) for k in PARAM_KEYS}
+        loss = batch_loss(leaves, bu, rows[:, 1], xb[b], bm, user_scale,
+                          item_scale, cfg_scalars)
+        g_user, g_item = torch.autograd.grad(loss, [leaves["user"], leaves["item"]])
+        params, opt_state = adam_update({"user": g_user, "item": g_item},
+                                        opt_state, params, lr)
+        total = total + loss.detach()
+    return params, opt_state, total
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentCSR:
+    """One direction of the segment layout: per segment a small CSR over
+    the self rows that occur in it.  ``segs[s]`` holds the segment's views
+    (rows, row_ptr, other, x); ``row_ptr`` restarts at 0 in each segment
+    and indexes the segment's own slice of ``other`` / ``x``."""
+
+    rows: torch.Tensor  # (n_runs,) int32 new-space self ids
+    row_ptr: torch.Tensor  # (n_runs + n_segments,) int64
+    other: torch.Tensor  # (nnz,) int32 new-space other ids
+    x: torch.Tensor  # (nnz,) ratings
+    segs: tuple
+
+    @property
+    def n_runs(self) -> int:
+        return self.rows.shape[0]
+
+    def nbytes(self) -> int:
+        return sum(t.nbytes for t in (self.rows, self.row_ptr, self.other, self.x))
+
+
+@dataclasses.dataclass(frozen=True)
+class MapBlockedLayout:
+    """The ratings in count-reordered (new) row space and tile-major order,
+    cut into segments, each stored once per direction.  Parameters, scales
+    and eval ids live in new space for the whole blocked fit."""
+
+    by_user: SegmentCSR  # user rows -> [w * beta | count | nll]
+    by_item: SegmentCSR  # item rows -> [w * theta | count]
+    u_old_of_new: torch.Tensor  # (n_users,) int64
+    u_new_of_old: torch.Tensor
+    i_old_of_new: torch.Tensor  # (n_items,) int64
+    i_new_of_old: torch.Tensor
+    n_segments: int  # a multiple of mix; the trailing ones may be empty
+    n_real_segments: int  # segments that hold ratings
+    mix: int
+    n_users: int
+    n_items: int
+    nnz: int
+
+    def nbytes(self) -> int:
+        return self.by_user.nbytes() + self.by_item.nbytes()
+
+    def segment(self, s: int):
+        """(u_new, i_new, x) of segment ``s`` in its user-sorted order."""
+        rows, row_ptr, other, x = self.by_user.segs[s]
+        u = torch.repeat_interleave(rows.long(), row_ptr[1:] - row_ptr[:-1])
+        return u, other.long(), x
+
+    @classmethod
+    def from_segments(cls, segments, perms, n_users: int, n_items: int,
+                      mix: int, device=None, dtype=np.float32):
+        """The layout over segments given from outside: a list of
+        (u_new, i_new, x) arrays in new-space ids (empty ones allowed),
+        its length a multiple of ``mix``; ``perms`` = (u_old_of_new,
+        u_new_of_old, i_old_of_new, i_new_of_old)."""
+        device = resolve_device(device)
+        if len(segments) % max(mix, 1):
+            raise ValueError(f"{len(segments)} segments are not a multiple of "
+                             f"mix={mix}")
+        lens = [len(s[0]) for s in segments]
+
+        def cat(col, dt):
+            parts = [np.asarray(s[col], dtype=dt) for s in segments]
+            return torch.from_numpy(np.concatenate(parts) if parts
+                                    else np.zeros(0, dt)).to(device)
+
+        return _layout_from_edges(cat(0, np.int64), cat(1, np.int64), cat(2, dtype),
+                                  lens, perms, n_users, n_items, mix, device)
+
+
+def _direction_csr(s, o, x, seg, edge_off, n_self: int) -> SegmentCSR:
+    """Per-segment CSR of one direction: the edges (already in segment
+    order, ``seg`` nondecreasing) stably sorted by self row inside each
+    segment.  ``edge_off``: (n_segments + 1,) host offsets of the segments
+    in the edge order."""
+    n_segments = len(edge_off) - 1
+    dev = s.device
+    key, order = torch.sort(seg * n_self + s, stable=True)
+    uniq, counts = torch.unique_consecutive(key, return_counts=True)
+    run_seg = uniq // n_self
+    rows = (uniq % n_self).to(torch.int32)
+    n_runs = rows.shape[0]
+    run_off = np.zeros(n_segments + 1, dtype=np.int64)
+    np.cumsum(torch.bincount(run_seg, minlength=n_segments).cpu().numpy(),
+              out=run_off[1:])
+    # Segment s owns row_ptr[run_off[s] + s : run_off[s + 1] + s + 1]; its
+    # first entry stays 0 and run r's end lands one past its own slot.
+    row_ptr = torch.zeros(n_runs + n_segments, dtype=torch.int64, device=dev)
+    seg_start = torch.as_tensor(edge_off[:-1], device=dev)
+    row_ptr[torch.arange(n_runs, device=dev) + run_seg + 1] = (
+        torch.cumsum(counts, 0) - seg_start[run_seg])
+    other = o[order].to(torch.int32)
+    xs = x[order].contiguous()
+    segs = tuple(
+        (rows[r0:r1], row_ptr[r0 + k : r1 + k + 1], other[e0:e1], xs[e0:e1])
+        for k, (r0, r1, e0, e1) in enumerate(zip(
+            run_off[:-1].tolist(), run_off[1:].tolist(),
+            edge_off[:-1].tolist(), edge_off[1:].tolist())))
+    return SegmentCSR(rows=rows, row_ptr=row_ptr, other=other, x=xs, segs=segs)
+
+
+def _layout_from_edges(nu, ni, x, seg_lens, perms, n_users, n_items, mix,
+                       device) -> MapBlockedLayout:
+    """``nu``, ``ni`` (int64) and ``x``: the edges on ``device`` in segment
+    order; ``seg_lens``: edges per segment."""
+    edge_off = np.zeros(len(seg_lens) + 1, dtype=np.int64)
+    np.cumsum(seg_lens, out=edge_off[1:])
+    seg = torch.repeat_interleave(
+        torch.arange(len(seg_lens), device=device),
+        torch.as_tensor(np.asarray(seg_lens, np.int64), device=device))
+    u_o2n, u_n2o, i_o2n, i_n2o = (
+        torch.from_numpy(np.asarray(p, np.int64)).to(device) for p in perms)
+    return MapBlockedLayout(
+        by_user=_direction_csr(nu, ni, x, seg, edge_off, n_users),
+        by_item=_direction_csr(ni, nu, x, seg, edge_off, n_items),
+        u_old_of_new=u_o2n, u_new_of_old=u_n2o,
+        i_old_of_new=i_o2n, i_new_of_old=i_n2o,
+        n_segments=len(seg_lens),
+        n_real_segments=int(np.count_nonzero(seg_lens)),
+        mix=int(mix), n_users=int(n_users), n_items=int(n_items), nnz=int(nu.shape[0]))
+
+
+def build_map_layout(u, i, x, n_users: int, n_items: int, batch_size: int,
+                     mix: int = 1, dtype=np.float32, device=None) -> MapBlockedLayout:
+    """The blocked engine's layout: rows relabelled by descending count
+    (stable), the ratings stably sorted into tile-major order by
+    (u_new // 512, i_new // 512), and that order cut into uniform segments
+    of ``max(batch_size // mix, 1)`` ratings (the last one shorter).  The
+    segment count is padded to a multiple of ``mix`` with empty segments.
+    Each Adam step takes ``mix`` segments of the epoch's segment shuffle,
+    so its batch spans ``mix`` distant tile bands instead of one.
+    ``device`` None = the card; the sorts run there."""
+    device = resolve_device(device)
+    mix = max(int(mix), 1)
+    u = np.asarray(u, dtype=np.int64)
+    i = np.asarray(i, dtype=np.int64)
+    u_o2n, u_n2o = _count_perms(u, n_users)
+    i_o2n, i_n2o = _count_perms(i, n_items)
+    nu = torch.from_numpy(u_n2o[u].astype(np.int64)).to(device)
+    ni = torch.from_numpy(i_n2o[i].astype(np.int64)).to(device)
+    xs = torch.from_numpy(np.asarray(x, dtype=dtype)).to(device)
+    n_item_tiles = -(-n_items // TILE)
+    _, order = torch.sort((nu // TILE) * n_item_tiles + ni // TILE, stable=True)
+    nnz = len(u)
+    seg_len = max(batch_size // mix, 1)
+    n_real = max(-(-nnz // seg_len), 1)
+    n_segments = -(-n_real // mix) * mix
+    seg_lens = [min(seg_len, nnz - k * seg_len) for k in range(n_real)]
+    seg_lens += [0] * (n_segments - n_real)
+    return _layout_from_edges(nu[order], ni[order], xs[order], seg_lens,
+                              (u_o2n, u_n2o, i_o2n, i_n2o), n_users, n_items,
+                              mix, device)
+
+
+def train_epoch_blocked(params, opt_state, perm, lay: MapBlockedLayout,
+                        user_scale, item_scale, cfg_scalars, lr: float, mix: int):
+    """One epoch of shuffled tile-band SGD: the layout's segments in the
+    order ``perm`` (host integers; an epoch passes a permutation of all
+    n_segments, a shorter list runs that many whole steps), one Adam step
+    per ``mix`` of them.  params, scales and the layout are in new
+    (count-reordered) row space.  On the card the step's tables are
+    float32; on the CPU they keep the parameters' dtype.  Nothing is read
+    to the host inside the loop."""
+    a, a_prime, b_prime, c, c_prime, d_prime = cfg_scalars
+    order = [int(s) for s in np.asarray(perm).reshape(-1)]
+    if lay.n_segments % mix or len(order) % mix:
+        raise ValueError(f"layout n_segments={lay.n_segments} or the {len(order)} "
+                         f"segments given are not a multiple of mix={mix} "
+                         "(build_map_layout pads to the mix used at build)")
+    dt = params["user"].dtype
+    work = torch.float32 if params["user"].is_cuda else dt
+    K = params["user"].shape[1] - 1
+    total = torch.zeros((), dtype=work, device=params["user"].device)
+    for step in range(len(order) // mix):
+        p_user, p_item = params["user"].to(work), params["item"].to(work)
+        u_sp, i_sp = softplus(p_user), softplus(p_item)
+        acc_u, acc_i = map_grad_step(u_sp, i_sp, lay,
+                                     order[step * mix : (step + 1) * mix],
+                                     LAMBDA_FLOOR)
+        theta, xi = u_sp[:, :K], u_sp[:, K]
+        beta, eta = i_sp[:, :K], i_sp[:, K]
+
+        # Frequency-scaled prior gradients, dense and row-local: weight =
+        # the row's count in this batch times 1/count(entity).
+        wu = acc_u[:, K] * user_scale
+        wi = acc_i[:, K] * item_scale
+        g_theta = acc_u[:, :K] + wu[:, None] * (xi[:, None] - (a - 1.0) / theta)
+        g_xi = wu * (-a * K / xi + theta.sum(1) - (a_prime - 1.0) / xi + b_prime)
+        g_beta = acc_i[:, :K] + wi[:, None] * (eta[:, None] - (c - 1.0) / beta)
+        g_eta = wi * (-c * K / eta + beta.sum(1) - (c_prime - 1.0) / eta + d_prime)
+        # Softplus chain rule: d softplus(p) / dp = sigmoid(p).
+        grads = {
+            "user": (torch.cat([g_theta, g_xi[:, None]], 1)
+                     * torch.sigmoid(p_user)).to(dt),
+            "item": (torch.cat([g_beta, g_eta[:, None]], 1)
+                     * torch.sigmoid(p_item)).to(dt),
+        }
+        lp_user, lp_item = _log_priors(theta, xi, beta, eta, cfg_scalars)
+        total = total + (acc_u[:, K + 1].sum() + torch.sum(wu * lp_user)
+                         + torch.sum(wi * lp_item))
+        params, opt_state = adam_update(grads, opt_state, params, lr)
+    return params, opt_state, total
+
+
+def eval_metrics(params: dict, ev: EvalSet):
+    """(val RMSE, val macro-MAE) as 0-d tensors on the params' device."""
+    theta = softplus(params["user"][:, :-1])
+    beta = softplus(params["item"][:, :-1])
+    pred = edge_dot(gather_rows(theta, ev.u), gather_rows(beta, ev.i))
+    pred = torch.where(ev.valid, pred, 0.0)
+    r = masked_rmse(ev.x, pred, ev.real)
+    mm = masked_macro_mae(ev.x, pred, ev.real, ev.class_id, ev.n_classes)
+    return r, mm
+
+
+def _permute_rows(params, opt_state, u_perm, i_perm):
+    """Apply row permutations to the parameter tables AND the Adam moments
+    (the elementwise optimizer state rides with its parameter row, so the
+    update trajectory is invariant to the relabeling)."""
+    def f(t):
+        return {"user": t["user"][u_perm], "item": t["item"][i_perm]}
+
+    return f(params), {"count": opt_state["count"], "mu": f(opt_state["mu"]),
+                       "nu": f(opt_state["nu"])}
+
+
+class HPFMap(FactorModel):
+    """The MAP/SGD HPF path with the JAX package's fit/predict surface."""
+
+    def fit(self, train_df, val_df=None, device=None):
+        """``device``: None = the CUDA card (raises without one); "cpu"
+        runs the gradient kernel's plain version on the host."""
+        cfg = self.config
+        self.device = dev = resolve_device(device)
+        u, i, x = as_triples(train_df)
+        self.n_users = int(u.max()) + 1
+        self.n_items = int(i.max()) + 1
+        if cfg.verbose:
+            print(f"Inferred n_users={self.n_users}, n_items={self.n_items}", flush=True)
+        engine = "flat" if cfg.engine == "auto" else cfg.engine
+        if engine not in ("flat", "blocked_high"):
+            raise ValueError(f"unknown engine {cfg.engine!r} (flat, blocked_high, auto)")
+        self.engine_used = engine
+
+        dt = self._dtype
+        nnz = len(u)
+        B = cfg.batch_size
+
+        def scale(ids, n):  # 1/count with a 1e-6 guard
+            return torch.from_numpy(
+                (1.0 / (np.bincount(ids, minlength=n) + 1e-6)).astype(dt)).to(dev)
+
+        user_scale, item_scale = scale(u, self.n_users), scale(i, self.n_items)
+        cfg_scalars = tuple(float(v) for v in (cfg.a, cfg.a_prime, cfg.b_prime,
+                                               cfg.c, cfg.c_prime, cfg.d_prime))
+        params = init_params(self.n_users, self.n_items, cfg, dev)
+        opt_state = adam_init(params)
+        gen = torch.Generator(device=dev).manual_seed(cfg.random_state)
+        val = self._build_eval(val_df) if val_df is not None else None
+        export_fn = lambda p, s: (p, s)  # noqa: E731
+
+        if engine == "blocked_high":
+            # Params, Adam moments, scales and eval ids live in new row
+            # space for the whole fit; the final state export unpermutes.
+            self.layout = lay = build_map_layout(
+                u, i, x, self.n_users, self.n_items, B, mix=cfg.mix, dtype=dt,
+                device=dev)
+            params, opt_state = _permute_rows(params, opt_state, lay.u_old_of_new,
+                                              lay.i_old_of_new)
+            user_scale = user_scale[lay.u_old_of_new]
+            item_scale = item_scale[lay.i_old_of_new]
+            if val is not None:
+                val = dataclasses.replace(
+                    val,
+                    u=lay.u_new_of_old[val.u.long().clamp(0, self.n_users - 1)],
+                    i=lay.i_new_of_old[val.i.long().clamp(0, self.n_items - 1)])
+            if cfg.verbose:
+                print(f"HPFMap engine={engine}: {lay.n_segments // lay.mix} "
+                      f"steps/epoch of mix={lay.mix} segments x "
+                      f"{max(B // lay.mix, 1)} ratings", flush=True)
+
+            def epoch_fn(p, s):
+                perm = torch.randperm(lay.n_segments, generator=gen, device=dev)
+                return train_epoch_blocked(p, s, perm.cpu().numpy(), lay, user_scale,
+                                           item_scale, cfg_scalars, cfg.lr, lay.mix)
+
+            def export_fn(p, s):  # noqa: F811
+                return _permute_rows(p, s, lay.u_new_of_old, lay.i_new_of_old)
+        else:
+            n_pad = max((nnz + B - 1) // B, 1) * B
+            # Packed (n_pad, 2) int32 [u | i]; padding rows carry u == -1,
+            # so the mask needs no array of its own (see train_epoch).
+            ui = np.full((n_pad, 2), -1, dtype=np.int32)
+            ui[:nnz, 0] = u
+            ui[:nnz, 1] = i
+            ui[nnz:, 1] = 0
+            ui_all = torch.from_numpy(ui).to(dev)
+            x_pad = np.zeros((n_pad,), dtype=dt)
+            x_pad[:nnz] = x
+            x_all = torch.from_numpy(x_pad).to(dev)
+
+            def epoch_fn(p, s):
+                perm = torch.randperm(n_pad, generator=gen, device=dev)
+                return train_epoch(p, s, perm, ui_all, x_all, user_scale,
+                                   item_scale, cfg_scalars, cfg.lr, B)
+
+        self.fit_history = []
+        self.best_val_rmse = float("inf")
+        self._run_epochs(cfg, params, opt_state, nnz, epoch_fn, val, export_fn)
+        return self
+
+    def _run_epochs(self, cfg, params, opt_state, nnz, epoch_fn, val, export_fn):
+        for epoch in range(1, cfg.epochs + 1):
+            t0 = time.perf_counter()
+            params, opt_state, loss = epoch_fn(params, opt_state)
+            # Reading the loss waits for the epoch's device work.
+            record = {"epoch": epoch, "train_loss": float(loss)}
+            record["epoch_seconds"] = time.perf_counter() - t0
+            record["updates_per_sec"] = nnz / record["epoch_seconds"]
+            msg = f"HPFMap epoch {epoch}/{cfg.epochs} | loss {record['train_loss']:.1f}"
+            if val is not None:
+                val_rmse, val_macro = (float(v) for v in eval_metrics(params, val))
+                record.update(val_rmse=val_rmse, val_macro_mae=val_macro)
+                self.best_val_rmse = min(self.best_val_rmse, val_rmse)
+                msg += f" | val RMSE {val_rmse:.4f}"
+            if cfg.verbose:
+                print(msg, flush=True)
+            self.fit_history.append(record)
+        self.state, _ = export_fn(params, opt_state)
+        return self
+
+    def _point_estimates(self):
+        return (softplus(self.state["user"][:, :-1]),
+                softplus(self.state["item"][:, :-1]))

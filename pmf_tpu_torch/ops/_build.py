@@ -33,6 +33,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     # e_self, e_other, row_ptr, other, x, n_self, K, rate_floor, out, stream
     "pmf_cavi_edge": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P],
+    # e_self, e_other, row_ptr, other, n_self, K, out, stream
+    "pmf_cavi_edge_raw": [_P, _P, _P, _P, _I, _I, _P, _P],
     # theta, beta, x_hi, x_lo, m, m_is_f32, rows, hip, K, rate_floor,
     # item_side, n_splits, partial, out, stream
     "pmf_dense_head_tier": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
@@ -50,6 +52,9 @@ SIGNATURES = {
     "pmf_ext_factor": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P],
     # e_self_new, e_other, s_other, row_ptr, other, n_self, K, out, stream
     "pmf_ext_scalar": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
+    # self_tab, other_tab, rows, row_ptr, other, x, n_rows, K, lam_floor,
+    # with_nll, out, stream
+    "pmf_map_grad": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P],
 }
 
 

@@ -9,7 +9,9 @@ row order — the same function as the JAX package's
 
 ``tail_edge_stats`` is K1's wrapper: on a CUDA tensor it launches the
 kernel (or raises); on a CPU tensor it runs ``tail_edge_stats_plain``,
-the same function in plain PyTorch.
+the same function in plain PyTorch.  Its ``mode="raw"`` (the reference
+kernel's second mode, which the tensor-parallel extended-Poisson scalar
+pass reads) drops the rating and the rate: ``[sum e_s*e_o | sum e_o]``.
 """
 
 from __future__ import annotations
@@ -29,22 +31,30 @@ from pmf_tpu_torch.ops.dense_head import poisson_head_stats, poisson_head_stats_
 
 RATE_FLOOR = 1e-10
 TAIL_LAUNCHES = _build.LaunchCounter()
+TAIL_RAW_LAUNCHES = _build.LaunchCounter()
+MODES = ("cavi", "raw")
 
 
 def tail_edge_stats_plain(e_self: torch.Tensor, e_other: torch.Tensor,
                           row_ptr: torch.Tensor, other: torch.Tensor,
-                          x: torch.Tensor, rate_floor: float = RATE_FLOOR
+                          x: torch.Tensor | None,
+                          rate_floor: float = RATE_FLOOR, mode: str = "cavi"
                           ) -> torch.Tensor:
     """(n_self, 2K) [sum x e_s*e_o / max(<e_s, e_o>, floor) | sum e_o] per
-    self row of the CSR tail, in the tables' dtype."""
+    self row of the CSR tail, in the tables' dtype.  ``mode="raw"``:
+    [sum e_s*e_o | sum e_o], and ``x`` may be None."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r} {MODES}")
     n_self, K = e_self.shape
     counts = row_ptr[1:] - row_ptr[:-1]
     self_ids = torch.repeat_interleave(
         torch.arange(n_self, device=e_self.device), counts)
     g_self = e_self[self_ids]
     g_other = e_other[other.long()]
-    rate = torch.clamp_min(torch.sum(g_self * g_other, dim=1), rate_floor)
-    alloc = (x.to(e_self.dtype) / rate)[:, None] * g_self * g_other
+    alloc = g_self * g_other
+    if mode == "cavi":
+        rate = torch.clamp_min(torch.sum(alloc, dim=1), rate_floor)
+        alloc = (x.to(e_self.dtype) / rate)[:, None] * g_self * g_other
     out = torch.zeros((n_self, 2 * K), dtype=e_self.dtype, device=e_self.device)
     out.index_add_(0, self_ids, torch.cat([alloc, g_other], dim=1))
     return out
@@ -62,18 +72,26 @@ def _check_cuda_args(e_self, e_other, row_ptr, other, x):
 
 def tail_edge_stats(e_self: torch.Tensor, e_other: torch.Tensor,
                     row_ptr: torch.Tensor, other: torch.Tensor,
-                    x: torch.Tensor, rate_floor: float = RATE_FLOOR
-                    ) -> torch.Tensor:
+                    x: torch.Tensor | None, rate_floor: float = RATE_FLOOR,
+                    mode: str = "cavi") -> torch.Tensor:
     """K1: the tail pass.  CUDA tensors launch the kernel; CPU tensors run
-    the plain version."""
+    the plain version.  ``mode="raw"`` reads no ratings (``x`` may be
+    None) and counts its launches in ``TAIL_RAW_LAUNCHES``."""
     if not e_self.is_cuda:
         return tail_edge_stats_plain(e_self, e_other, row_ptr, other, x,
-                                     rate_floor)
-    _check_cuda_args(e_self, e_other, row_ptr, other, x)
+                                     rate_floor, mode)
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r} {MODES}")
+    raw = mode == "raw"
+    _check_cuda_args(e_self, e_other, row_ptr, other, None if raw else x)
     n_self, K = e_self.shape
     out = torch.empty((n_self, 2 * K), dtype=torch.float32, device=e_self.device)
-    _build.launch("pmf_cavi_edge", TAIL_LAUNCHES, e_self.device, e_self, e_other,
-                  row_ptr, other, x, n_self, K, rate_floor, out)
+    if raw:
+        _build.launch("pmf_cavi_edge_raw", TAIL_RAW_LAUNCHES, e_self.device,
+                      e_self, e_other, row_ptr, other, n_self, K, out)
+    else:
+        _build.launch("pmf_cavi_edge", TAIL_LAUNCHES, e_self.device, e_self,
+                      e_other, row_ptr, other, x, n_self, K, rate_floor, out)
     return out
 
 

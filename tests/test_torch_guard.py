@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import pmf_tpu_torch
-from pmf_tpu_torch.models import gaussian_mf, poisson_mf
+from pmf_tpu_torch.models import gaussian_mf, hpf_map, poisson_mf
 from pmf_tpu_torch.models.hpf import HPF, HPFConfig
 from pmf_tpu_torch.ops import (
     _build,
@@ -20,6 +20,7 @@ from pmf_tpu_torch.ops import (
     ext_edge,
     gaussian_edge,
     gj_inverse,
+    map_grad,
 )
 from pmf_tpu_torch.utils import device as device_mod
 
@@ -50,7 +51,7 @@ def test_port_package_files_are_scanned():
     assert {"chip_smoke.py", "hpf.py", "cavi_edge.py", "dense_head.py",
             "blocked.py", "gaussian_mf.py", "gaussian_edge.py", "gj_inverse.py",
             "solve.py", "poisson_mf.py", "ext_edge.py", "elbo.py",
-            "_tail.py"} <= names
+            "_tail.py", "hpf_map.py", "map_grad.py", "adam.py"} <= names
     assert Path(pmf_tpu_torch.__file__).parent == REPO / "pmf_tpu_torch"
 
 
@@ -312,12 +313,162 @@ def test_kernel_sources_name_what_they_replace():
         "gj_inverse.cu": ["pmf_tpu/ops/pallas/gj_inverse.py::_gj_kernel"],
         "ext_edge.cu": ["pmf_tpu/ops/pallas/ext_edge.py::_factor_kernel",
                         "pmf_tpu/ops/pallas/ext_edge.py::_scalar_kernel"],
+        "map_grad.cu": ["pmf_tpu/ops/pallas/map_grad.py::_kernel"],
     }
     assert set(srcs) == set(replaces)
     for name, funcs in replaces.items():
         assert all(f in srcs[name] for f in funcs), name
         assert "What bounds" in srcs[name]
+    assert 'modes "cavi" and\n// "raw"' in srcs["cavi_edge.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
     assert len(_build.source_hash()) == 16
     every = "".join(srcs.values())
     assert np.all([f'extern "C" int {name}(' in every for name in _build.SIGNATURES])
+
+
+# ------------------------------------------------------------ HPF-MAP, K9 --
+
+
+def test_map_entry_points_without_device_raise_without_cuda(monkeypatch, small_splits):
+    _no_cuda(monkeypatch)
+    train, val, _ = small_splits
+    cfg = hpf_map.HPFMapConfig(n_factors=3, epochs=1, batch_size=512, verbose=False)
+    u, i, x = train
+    for call in (lambda: hpf_map.HPFMap(cfg).fit(train, val),
+                 lambda: hpf_map.init_params(12, 8, cfg),
+                 lambda: hpf_map.params_from_numpy(hpf_map._init_params_numpy(12, 8, cfg)),
+                 lambda: hpf_map.opt_state_from_numpy(
+                     0, *(hpf_map._init_params_numpy(12, 8, cfg),) * 2),
+                 lambda: hpf_map.build_map_layout(u, i, x, 150, 90, 512, mix=2),
+                 lambda: hpf_map.MapBlockedLayout.from_segments(
+                     [(u, i, x)], (np.arange(150), np.arange(150), np.arange(90),
+                                   np.arange(90)), 150, 90, 1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # Named, the CPU runs the plain version; the config's device string is
+    # a compatibility field and selects nothing.
+    assert cfg.device == "tpu"
+    m = hpf_map.HPFMap(cfg).fit(train, val, device="cpu")
+    assert m.device == torch.device("cpu") and len(m.fit_history) == 1
+
+
+def _map_args(K=4, with_nll=True, n_self=3, n_other=5):
+    """CUDA-looking arguments of one K9 launch: two runs over four edges."""
+    rows = _cuda_looking(torch.tensor([0, 2], dtype=torch.int32))
+    row_ptr = _cuda_looking(torch.tensor([0, 3, 4]))
+    other = _cuda_looking(torch.tensor([0, 1, 4, 2], dtype=torch.int32))
+    return [_cuda_looking(torch.rand(n_self, K + 1)),
+            _cuda_looking(torch.rand(n_other, K + 1)), rows, row_ptr, other,
+            _cuda_looking(torch.ones(4)), 1e-6, with_nll,
+            _cuda_looking(torch.zeros(n_self, K + 1 + int(with_nll)))]
+
+
+@pytest.mark.parametrize("with_nll", [True, False], ids=["user", "item"])
+def test_map_grad_wrapper_raises_instead_of_falling_back(monkeypatch, broken_build,
+                                                         with_nll):
+    _forbid(monkeypatch, map_grad, "map_grad_rows_plain")
+    before = map_grad.MAP_GRAD_LAUNCHES.count
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        map_grad.map_grad_rows(*_map_args(with_nll=with_nll))
+    assert map_grad.MAP_GRAD_LAUNCHES.count == before
+
+
+def test_map_grad_step_raises_instead_of_falling_back(monkeypatch, broken_build):
+    """The whole step on CUDA-looking tables reaches the kernel, not the
+    plain version."""
+    _forbid(monkeypatch, map_grad, "map_grad_rows_plain")
+    args = _map_args()
+    seg = tuple(args[2:6])
+
+    class Lay:
+        by_user = type("D", (), {"segs": (seg,)})
+        by_item = by_user
+
+    monkeypatch.setattr(torch, "zeros", lambda *a, **k: args[8])
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        map_grad.map_grad_step(args[0], args[0], Lay, [0], 1e-6)
+
+
+def test_map_grad_wrapper_rejects_what_the_kernel_does_not_take():
+    good = _map_args()
+
+    def call(**repl):
+        names = ("self_tab", "other_tab", "rows", "row_ptr", "other", "x",
+                 "lam_floor", "with_nll", "out")
+        a = dict(zip(names, good))
+        a.update(repl)
+        return map_grad.map_grad_rows(*a.values())
+
+    wide = _map_args(K=33)
+    with pytest.raises(ValueError, match="K <= 32"):
+        map_grad.map_grad_rows(*wide)
+    with pytest.raises(TypeError, match="self_tab"):
+        call(self_tab=_cuda_looking(torch.rand(3, 5, dtype=torch.float64)))
+    with pytest.raises(TypeError, match="other_tab"):
+        call(other_tab=_cuda_looking(torch.rand(5, 5, dtype=torch.float64)))
+    with pytest.raises(TypeError, match="out"):
+        call(out=_cuda_looking(torch.zeros(3, 6, dtype=torch.float64)))
+    with pytest.raises(TypeError, match="rows must be"):
+        call(rows=_cuda_looking(torch.tensor([0, 2])))  # int64
+    with pytest.raises(TypeError, match="other must be"):
+        call(other=_cuda_looking(torch.zeros(4, dtype=torch.int64)))
+    with pytest.raises(TypeError, match="x must be"):
+        call(x=_cuda_looking(torch.ones(4, dtype=torch.float64)))
+    with pytest.raises(ValueError, match="differ in K"):
+        call(other_tab=_cuda_looking(torch.rand(5, 6)))
+    with pytest.raises(ValueError, match="out must be"):
+        call(out=_cuda_looking(torch.zeros(3, 5)))  # the item width, with_nll set
+    with pytest.raises(ValueError, match="CSR shapes"):
+        call(rows=_cuda_looking(torch.tensor([0], dtype=torch.int32)))
+    with pytest.raises(ValueError, match="is on"):
+        call(other_tab=_cuda_looking(torch.rand(5, 5, device="meta")))
+
+
+def test_map_grad_wrapper_skips_an_empty_segment_without_a_build(broken_build):
+    args = _map_args()
+    args[2] = _cuda_looking(torch.zeros(0, dtype=torch.int32))
+    args[3] = _cuda_looking(torch.zeros(1, dtype=torch.int64))
+    args[4] = _cuda_looking(torch.zeros(0, dtype=torch.int32))
+    args[5] = _cuda_looking(torch.zeros(0))
+    before = map_grad.MAP_GRAD_LAUNCHES.count
+    map_grad.map_grad_rows(*args)  # nothing to launch, so nothing to build
+    assert map_grad.MAP_GRAD_LAUNCHES.count == before
+    assert float(args[8].abs().max()) == 0.0
+
+
+def test_raw_tail_wrapper_raises_instead_of_falling_back(monkeypatch, broken_build):
+    _forbid(monkeypatch, cavi_edge, "tail_edge_stats_plain")
+    es = _cuda_looking(torch.rand(3, K))
+    eo = _cuda_looking(torch.rand(5, K))
+    row_ptr, other, _ = _csr(3, 5, 4)
+    before = (cavi_edge.TAIL_LAUNCHES.count, cavi_edge.TAIL_RAW_LAUNCHES.count)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cavi_edge.tail_edge_stats(es, eo, row_ptr, other, None, mode="raw")
+    assert before == (cavi_edge.TAIL_LAUNCHES.count, cavi_edge.TAIL_RAW_LAUNCHES.count)
+
+
+def test_raw_tail_wrapper_rejects_what_the_kernel_does_not_take():
+    row_ptr, other, _ = _csr(3, 5, 4)
+    wide = _cuda_looking(torch.rand(3, 33))
+    with pytest.raises(ValueError, match="K <= 32"):
+        cavi_edge.tail_edge_stats(wide, _cuda_looking(torch.rand(5, 33)), row_ptr,
+                                  other, None, mode="raw")
+    with pytest.raises(TypeError, match="e_other"):
+        cavi_edge.tail_edge_stats(_cuda_looking(torch.rand(3, K)),
+                                  _cuda_looking(torch.rand(5, K, dtype=torch.float64)),
+                                  row_ptr, other, None, mode="raw")
+    with pytest.raises(ValueError, match="unknown mode"):
+        cavi_edge.tail_edge_stats(_cuda_looking(torch.rand(3, K)),
+                                  _cuda_looking(torch.rand(5, K)), row_ptr, other,
+                                  None, mode="rate")
+
+
+def test_map_grad_source_names_what_it_replaces_and_its_entry_point():
+    src = (_build.SRC_DIR / "map_grad.cu").read_text()
+    assert "Replaces: pmf_tpu/ops/pallas/map_grad.py::_kernel" in src
+    assert "__shfl_xor_sync" in src and "atomicAdd" not in src
+    assert 'extern "C" int pmf_map_grad(' in src
+    assert len(_build.SIGNATURES["pmf_map_grad"]) == 12
+    raw = (_build.SRC_DIR / "cavi_edge.cu").read_text()
+    assert 'extern "C" int pmf_cavi_edge_raw(' in raw
+    assert len(_build.SIGNATURES["pmf_cavi_edge_raw"]) == 8
