@@ -80,10 +80,22 @@ BF16_FLOPS_PER_S = 989e12  # dense tensor cores
 # order; relative error per element.
 RTOL = 1e-4
 TIMING_REPS = 10
+# K2 per sweep as the CUDA-core kernel before the tensor-core one (H100
+# 80GB HBM3 at 700 W, this script at the commit before the redesign).
+K2_EARLIER_MS = 12.6474
+
+
+LOG_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out",
+                        "chip_smoke.log")
 
 
 def log(msg: str) -> None:
+    """One line to standard output and to ``chiprun_out/chip_smoke.log``
+    beside this script (a git-ignored directory; the file is started anew
+    by ``phase_device``)."""
     print(msg, flush=True)
+    with open(LOG_PATH, "a") as f:
+        f.write(msg + "\n")
 
 
 def cuda_ms(fn, reps: int = TIMING_REPS) -> float:
@@ -177,6 +189,8 @@ def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is false)")
+    os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+    open(LOG_PATH, "w").close()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -198,10 +212,10 @@ def _ptxas_report(text: str) -> list:
             if m:
                 rest = mangled[m.end():]
                 name = rest[: int(m.group(1))]
-                t = re.match(r"ILi(\d+)E(?:Lb([01])E)?", rest[int(m.group(1)):])
-                if t:
-                    name += f"<{t.group(1)}" + (f", {t.group(2)}>" if t.group(2)
-                                                else ">")
+                targs = re.match(r"I((?:L[ib]\d+E)+)E", rest[int(m.group(1)):])
+                if targs:
+                    name += "<" + ", ".join(re.findall(r"L[ib](\d+)E",
+                                                       targs.group(1))) + ">"
             else:
                 name = mangled
         elif "spill" in ln:
@@ -365,20 +379,42 @@ def phase_k1raw(blocked):
     return res
 
 
+def _k2_bound(rows, hip, m_f32, has_lo, n_bytes):
+    """The three lines of K2's bound over one tier and side, in ms: the
+    bytes, the tensor-core flops as the kernel issues them (per 16 x 16
+    cells: the rate product over the padded depth in three terms, then W in
+    three terms and M in two, three for a float32 M, over the padded
+    width, 4096 flops an mma.m16n8k16), and the float32 elementwise work
+    (clamp, reciprocal and multiply, compare and select, the two
+    subtractions of W's split; one add for x_lo, two subtractions for a
+    float32 M's split)."""
+    depth_steps = 1 if K <= 16 else 2
+    width_tiles = -(-K // 8)
+    mmas = 2 * 3 * depth_steps + (3 + (3 if m_f32 else 2)) * width_tiles
+    cells = rows * hip
+    return {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "tensor operations": cells * mmas * 4096 / 256 / BF16_FLOPS_PER_S * 1e3,
+            "elementwise operations": cells * (7 + has_lo + 2 * m_f32)
+            / FP32_FLOPS_PER_S * 1e3}
+
+
 def phase_k2(blocked):
     import torch
 
     from pmf_tpu_torch.ops.cavi_edge import RATE_FLOOR
     from pmf_tpu_torch.ops.dense_head import (
-        fused_alloc_tier, fused_alloc_tier_plain)
+        fused_alloc_tier, fused_alloc_tier_plain, plan_launch)
 
     e_user, e_item = _new_space_tables(blocked)
-    res = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, n_bytes=0.0, n_flops=0.0)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    res = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0)
+    lines = {}
     for t, h in enumerate(blocked.head or ()):
         theta_h = e_user[h.row_start : h.row_start + h.hu].contiguous()
         beta_h = torch.nn.functional.pad(e_item[: h.hi], (0, 0, 0, h.hip - h.hi))
         # Plain version in row chunks of <= 2^27 cells per temporary.
         chunk = max(1, (1 << 27) // h.hip)
+        m_f32, has_lo = h.m.dtype == torch.float32, h.x_lo is not None
         for item_side in (False, True):
             kw = dict(rate_floor=RATE_FLOOR, item_side=item_side)
             args = (theta_h, beta_h, h.x_hi, h.m, h.x_lo)
@@ -390,27 +426,135 @@ def phase_k2(blocked):
                 lambda: fused_alloc_tier_plain(*args, row_chunk=chunk, **kw), reps=3)
             cells_bytes = sum(a.nbytes for a in (h.x_hi, h.m, h.x_lo) if a is not None)
             n_bytes = cells_bytes + theta_h.nbytes + beta_h.nbytes + got.nbytes
-            # Per real cell: rate dot 2K, compare + divide 2, two K-wide FMAs 4K.
-            n_flops = h.hu * h.hi * (6 * K + 2)
-            b_ms, b_by = bound(n_bytes, n_flops)
+            tier_lines = _k2_bound(h.hu, h.hip, m_f32, has_lo, n_bytes)
+            by = max(tier_lines, key=tier_lines.get)
+            plan = plan_launch(h.hu, h.hip, K, item_side, m_f32, has_lo, n_sm)
+            rate = cells_bytes / ms / 1e6
             side = "item" if item_side else "user"
-            log(f"  K2 tier {t} ({h.row_start}, {h.hu}, {h.hi}) {side}: max abs "
-                f"err {abs_err:.3e} rel {rel_err:.3e} (tol {RTOL}) | kernel "
-                f"{ms:.4f} ms | plain {plain_ms:.4f} ms | bound {b_ms:.4f} ms "
-                f"({b_by})")
+            log(f"  K2 tier {t} ({h.row_start}, {h.hu}, {h.hi}) {side}: M "
+                f"{str(h.m.dtype)[6:]}, x_lo {has_lo} | max abs err {abs_err:.3e} "
+                f"rel {rel_err:.3e} (tol {RTOL}) | kernel {ms:.4f} ms | plain "
+                f"{plain_ms:.4f} ms | bound {tier_lines[by]:.4f} ms ({by}) | cells "
+                f"{rate:.1f} GB/s, {rate * 1e9 / HBM_BYTES_PER_S:.1%} of "
+                f"{HBM_BYTES_PER_S / 1e12} TB/s | {plan.stages} stages, "
+                f"{plan.ctas_per_sm} CTAs/SM, {plan.splits} splits, "
+                f"{plan.smem_bytes} B shared")
             if not rel_err <= RTOL:
                 raise AssertionError(
                     f"K2 tier {t} {side}: relative error {rel_err} > {RTOL}")
             res["ms"] += ms
             res["plain_ms"] += plain_ms
             res["max_abs_err"] = max(res["max_abs_err"], abs_err)
-            res["n_bytes"] += n_bytes
-            res["n_flops"] += n_flops
-    res["bound_ms"], res["bound_by"] = bound(res["n_bytes"], res["n_flops"])
+            for name, v in tier_lines.items():
+                lines[name] = lines.get(name, 0.0) + v
+    by = max(lines, key=lines.get)
+    res["bound_ms"] = lines[by]
+    res["bound_by"] = "bytes" if by == "bytes" else "operations"
     log(f"phase K2: ok | per sweep: kernel {res['ms']:.4f} ms, plain "
-        f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
-        f"({res['bound_by']})")
+        f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({by}; "
+        + ", ".join(f"{k} {v:.4f}" for k, v in lines.items()) + ")")
     return res
+
+
+K2SMALL_KS = (1, 4, 7, 20, 24, 32)
+K2SMALL_ROWS = (8, 70, 3000)
+K2SMALL_HIPS = (64, 128, 960)
+K2SMALL_FLOOR = 0.05
+
+
+def _k2small_cells(kind, rows, hip, hi, gen):
+    """Random cell planes on the card, columns past ``hi`` empty: integer
+    (no x_lo, bf16 M), fractional (x_lo) or m_f32 (some multiplicities
+    above 256, so a float32 M and an x_lo)."""
+    import torch
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device="cuda")
+
+    m = torch.floor(4 * rand(rows, hip) ** 3)  # about half the cells empty
+    if kind == "m_f32":
+        m = torch.where(rand(rows, hip) < 0.02, torch.floor(300 + 3000 * rand(rows, hip)), m)
+    m[:, hi:] = 0
+    per_edge = torch.floor(1 + 5 * rand(rows, hip))
+    if kind != "integer":
+        per_edge = per_edge + 0.37 * rand(rows, hip)
+    x = m * per_edge
+    x_hi = x.to(torch.bfloat16)
+    x_lo = None if kind == "integer" else (x - x_hi.float()).to(torch.bfloat16)
+    return x_hi, x_lo, m if kind == "m_f32" else m.to(torch.bfloat16)
+
+
+def phase_k2small():
+    """K2 against its plain version in float64 where the real tiers do not
+    reach: every width of K's padding, rows that do not fill a tile, narrow
+    and ragged heads, the three cell kinds, both sides, rates under the
+    floor, empty columns past ``hi``; and two launches give equal bits."""
+    import torch
+
+    from pmf_tpu_torch.ops.dense_head import fused_alloc_tier, fused_alloc_tier_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst, n_cases, floored = 0.0, 0, 0
+    for rows in K2SMALL_ROWS:
+        for hip in K2SMALL_HIPS:
+            hi = hip - 13
+            for kind in ("integer", "fractional", "m_f32"):
+                x_hi, x_lo, m = _k2small_cells(kind, rows, hip, hi, gen)
+                for k in K2SMALL_KS:
+                    theta = 0.02 + torch.rand(rows, k, generator=gen, device="cuda")
+                    theta[::5] *= 1e-3  # rates under the floor
+                    beta = 0.02 + torch.rand(hip, k, generator=gen, device="cuda")
+                    beta[hi:] = 0
+                    floored += int(((theta @ beta.T)[:, :hi] < K2SMALL_FLOOR).sum())
+                    for item_side in (False, True):
+                        kw = dict(rate_floor=K2SMALL_FLOOR, item_side=item_side)
+                        got = fused_alloc_tier(theta, beta, x_hi, m, x_lo, **kw)
+                        again = fused_alloc_tier(theta, beta, x_hi, m, x_lo, **kw)
+                        ref = fused_alloc_tier_plain(theta.double(), beta.double(),
+                                                     x_hi, m, x_lo, **kw)
+                        _, rel = compare(got, ref)
+                        tag = (f"K2small rows {rows} hip {hip} K {k} {kind} "
+                               f"{'item' if item_side else 'user'}")
+                        if got.shape != ref.shape or not rel <= RTOL:
+                            raise AssertionError(f"{tag}: relative error {rel} > {RTOL}")
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"{tag}: two launches differ in bits")
+                        worst = max(worst, rel)
+                        n_cases += 1
+    log(f"phase K2small: ok | {n_cases} cases (K {K2SMALL_KS}, rows {K2SMALL_ROWS}, "
+        f"hip {K2SMALL_HIPS}, 3 cell kinds, both sides) vs plain float64: worst rel "
+        f"{worst:.3e} (tol {RTOL}); {floored} rates under the floor; repeated "
+        f"launches equal in bits")
+
+
+def phase_k2ab(blocked):
+    """The CUDA-core kernel K2 was until now and the tensor-core kernel, in
+    turns (old, new, new, old) on every real tier and side."""
+    import torch
+
+    from pmf_tpu_torch.ops.cavi_edge import RATE_FLOOR
+    from pmf_tpu_torch.ops.dense_head import fused_alloc_tier, fused_alloc_tier_cc
+
+    e_user, e_item = _new_space_tables(blocked)
+    total = {"old": [0.0, 0.0], "new": [0.0, 0.0]}
+    for t, h in enumerate(blocked.head or ()):
+        theta_h = e_user[h.row_start : h.row_start + h.hu].contiguous()
+        beta_h = torch.nn.functional.pad(e_item[: h.hi], (0, 0, 0, h.hip - h.hi))
+        for item_side in (False, True):
+            kw = dict(rate_floor=RATE_FLOOR, item_side=item_side)
+            args = (theta_h, beta_h, h.x_hi, h.m, h.x_lo)
+            old = lambda: fused_alloc_tier_cc(*args, **kw)  # noqa: E731
+            new = lambda: fused_alloc_tier(*args, **kw)  # noqa: E731
+            _, rel = compare(new(), old())
+            ms = [cuda_ms(f) for f in (old, new, new, old)]
+            for name, (i, j) in (("old", (0, 3)), ("new", (1, 2))):
+                total[name][0] += ms[i]
+                total[name][1] += ms[j]
+            log(f"  K2ab tier {t} ({h.hu} x {h.hip}) {'item' if item_side else 'user'}"
+                f": old {ms[0]:.4f} {ms[3]:.4f} ms | new {ms[1]:.4f} {ms[2]:.4f} ms | "
+                f"{(ms[0] + ms[3]) / (ms[1] + ms[2]):.2f}x | new vs old rel {rel:.3e}")
+    log(f"phase K2ab: ok | per sweep: old {total['old'][0]:.4f} {total['old'][1]:.4f} "
+        f"ms | new {total['new'][0]:.4f} {total['new'][1]:.4f} ms")
 
 
 def phase_small():
@@ -449,7 +593,7 @@ def phase_small():
         f"(tol 5e-4)")
 
 
-def phase_fit(train, val, smi):
+def phase_fit(train, val, smi, want_k2=None):
     import torch
 
     from pmf_tpu_torch.models.hpf import HPF, HPFConfig, state_to_numpy
@@ -468,7 +612,8 @@ def phase_fit(train, val, smi):
             f"{rec['updates_per_sec'] / 1e6:.1f}M updates/s | val RMSE "
             f"{rec['val_rmse']:.6f} | {smi}")
     want = dict.fromkeys(launches, 0)
-    want.update(K1=2 * model.n_sweeps, K2=2 * n_tiers * model.n_sweeps)
+    want.update(K1=2 * model.n_sweeps,
+                K2=2 * n_tiers * model.n_sweeps if want_k2 is None else want_k2)
     if launches != want or n_tiers == 0:
         raise AssertionError(f"fit launches {launches}, expected {want} "
                              f"({model.n_sweeps} sweeps, {n_tiers} tiers)")
@@ -486,9 +631,14 @@ def phase_fit(train, val, smi):
     return model, launches
 
 
-def phase_profile(model, train, smi):
+K2_KERNELS = ("head_user_kernel", "head_item_kernel", "sum_partials_kernel",
+              "split_planes_kernel")
+
+
+def phase_profile(model, train, smi, head_kernels=None):
     """Steady sweep time (CUDA events over chained sweeps) and one sweep
-    under torch.profiler: device time by kernel and the idle share."""
+    under torch.profiler: device time by kernel, K2's share of it and the
+    idle share."""
     import torch
 
     from pmf_tpu_torch.models.hpf import sweep_blocked
@@ -508,12 +658,34 @@ def phase_profile(model, train, smi):
     ms = cuda_ms(one_sweep, reps=5)
     log(f"  steady sweep: {ms:.4f} ms | {2 * len(train[0]) / ms / 1e3:.1f}M "
         f"updates/s | {smi}")
-    rows, busy, wall_ms = profile_once(
-        one_sweep, {"cavi_edge_kernel": 2, **_head_launches(model)})
+    n_tiers = len(model.blocked.head or ())
+    expect = (_head_launches(model) if head_kernels is None
+              else dict.fromkeys(head_kernels, n_tiers))
+    rows, busy, wall_ms = profile_once(one_sweep, {"cavi_edge_kernel": 2, **expect})
+    k2_names = K2_KERNELS if head_kernels is None else (*head_kernels, "sum_partials_cc")
+    k2_ms = sum(ms for ms, _, key in rows if any(name in key for name in k2_names))
     log(f"phase profile: ok | one sweep: device busy {busy:.4f} ms of "
-        f"{wall_ms:.4f} ms window (idle share {1 - busy / wall_ms:.1%})")
+        f"{wall_ms:.4f} ms window (idle share {1 - busy / wall_ms:.1%}) | K2 "
+        f"{k2_ms:.4f} ms ({k2_ms / busy:.1%} of busy)")
     for dev_ms, n, key in rows[:8]:
         log(f"  {dev_ms:9.4f} ms  {n:3d}x  {key[:90]}")
+
+
+def phase_fit_old(train, val, smi):
+    """The same fit and steady sweep through the CUDA-core kernel K2 was
+    until now: the val RMSE history and sweep time the new kernel's are
+    held against."""
+    from pmf_tpu_torch.ops import dense_head
+
+    new = dense_head.fused_alloc_tier
+    dense_head.fused_alloc_tier = dense_head.fused_alloc_tier_cc
+    try:
+        log("  -- the fit through the CUDA-core kernel --")
+        model, _ = phase_fit(train, val, smi, want_k2=0)
+        phase_profile(model, train, smi, head_kernels=("head_user_cc_kernel",
+                                                       "head_item_cc_kernel"))
+    finally:
+        dense_head.fused_alloc_tier = new
 
 
 # ----------------------------------------------------------------- Poisson --
@@ -778,8 +950,7 @@ def phase_pprofile(models, train, smi):
             groups["K7 ext_factor_kernel"] += dev_ms
         elif "ext_scalar_kernel" in k:
             groups["K8 ext_scalar_kernel"] += dev_ms
-        elif "head_user_kernel" in k or "head_item_kernel" in k \
-                or "sum_partials_kernel" in k:
+        elif any(name in k for name in K2_KERNELS):
             groups["K2 head kernels"] += dev_ms
         elif "gemm" in k or "cutlass" in k or "sm90_xmma" in k or "nvjet" in k:
             groups["head products (gemm)"] += dev_ms
@@ -1617,10 +1788,12 @@ def main() -> int:
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     phase_build()
+    phase_k2small()
     train, val, blocked, split = phase_data()
     k1 = phase_k1(blocked)
     k1raw = phase_k1raw(blocked)
     k2 = phase_k2(blocked)
+    phase_k2ab(blocked)
     k7, k8 = phase_k7k8(blocked)
     del blocked
     torch.cuda.empty_cache()
@@ -1628,6 +1801,9 @@ def main() -> int:
     model, launches = phase_fit(train, val, smi)
     phase_profile(model, train, smi)
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_fit_old(train, val, smi)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1679,7 +1855,9 @@ def main() -> int:
         entry("cavi_edge_tail", "pmf_tpu_torch/csrc/cavi_edge.cu",
               "pmf_tpu/ops/pallas/cavi_edge.py:93", k1, launches["K1"]),
         entry("dense_head_tier", "pmf_tpu_torch/csrc/dense_head.cu",
-              "pmf_tpu/ops/dense_head.py:85", k2, launches["K2"]),
+              "pmf_tpu/ops/dense_head.py:85", k2, launches["K2"],
+              earlier_ms=K2_EARLIER_MS,
+              note="earlier_ms: the CUDA-core kernel this one replaced (PR 4 run 2)"),
         entry("gaussian_factor_tail", gsrc,
               "pmf_tpu/ops/pallas/gaussian_edge.py:90", k3, glaunches["K3"]),
         entry("gj_inverse", "pmf_tpu_torch/csrc/gj_inverse.cu",

@@ -13,249 +13,512 @@
 // The caller multiplies the first half by its self factor.  W never
 // reaches device memory.
 //
-// What bounds it on an H100: arithmetic.  Each cell costs ~6K + 2 flops
-// (the K-long rate dot, then two K-wide accumulations) against 4 bytes of
-// cell planes (6 with x_lo): at K = 20 that is ~30 flops per byte, above
-// the FP32 CUDA-core balance point of 67 TFLOP/s / 3.35 TB/s = 20.
+// What bounds it on an H100: bytes.  The three lines of the bound, for a
+// tier of C stored cells of c bytes each (4, 6 with x_lo, 8 with x_lo and
+// a float32 M) at K = 20:
+//   bytes       C * c / 3.35 TB/s                  (1.6 ms a sweep)
+//   tensor work C * 27 mma.m16n8k16 / 256 cells, 4096 flops each, at the
+//               989 TFLOP/s bf16 peak              (0.6 ms a sweep)
+//   elementwise C * 10 float32 operations at 67 TFLOP/s (0.2 ms a sweep)
+// With the three products on the CUDA cores (the first design, 60 FMAs a
+// cell) the operations line was 2.0 ms and the kernel took 12.6 ms.
 //
-// Design (simple, CUDA cores, no tensor cores yet):
-//  * user side: a CTA owns 64 rows and a range of 32-column tiles.  Each
-//    thread keeps one row's theta and its 2K sums in registers and
-//    handles 8 consecutive columns of a tile, read as one 16-byte load
-//    per plane; a quarter warp is 8 rows at one column group, so a warp
-//    reads 64 contiguous bytes of 8 rows.  The beta tile sits in shared
-//    memory and a quarter warp reads the same row of it (broadcast).
-//    The 4 column groups of a row are summed with shuffles at the end.
-//  * item side: a CTA owns 64 columns and a range of rows.  Each lane
-//    keeps its 2 columns' beta and 2K sums in registers; a warp reads one
-//    row's 64 cells as 128 contiguous bytes, with that row's theta read
-//    from shared memory by every lane (broadcast).  The CTA's 4 warps
-//    take interleaved rows and are summed through shared memory.
-//  * Tiers that would leave the card idle (few row tiles on the user
-//    side, few column tiles on the item side) split the reduction axis
-//    over more CTAs; each split writes its own partial rows and a second
-//    kernel sums them.  No atomics, so the result is deterministic.
-// Tensor cores (mma/wgmma for R and the two products) and TMA staging are
-// later work.
+// Design:
+//  * Both sides are one kernel body.  The CTA's fixed operand P (theta
+//    rows on the user side, beta rows on the item side, 16 per warp) sits
+//    in registers as mma A fragments; the other table Q streams past in
+//    tiles of kBQ rows together with the cell tiles.  Per 16-row chunk of
+//    Q a warp computes acc = P Q^T (R, or R^T on the item side), turns the
+//    accumulator into W in registers, and feeds W and M as the A operand
+//    of the second product, out += [W | M] Q: the accumulator layout of
+//    two neighbouring n8 tiles of mma.m16n8k16 is its A-fragment layout.
+//    Each warp owns its P rows over the whole reduction axis, so nothing
+//    is summed across warps.
+//  * Precision: every f32 operand is two bf16 planes rounded to nearest
+//    (hi = bf16(t), lo = bf16(t - hi)) and every product three terms,
+//    hi*hi + hi*lo + lo*hi, summed in float32.  theta and beta are split
+//    once a launch by split_planes_kernel into zero-padded (n, KD) planes;
+//    W is split in registers; a bf16 M is exact, a float32 M is split in
+//    registers like W.  Against the float64 reference: R to 2.5e-5, the
+//    outputs to 5e-6 relative (truncated hi planes: 6.9e-5 and 1.9e-5).
+//  * mma.sync.m16n8k16 with ldmatrix, not wgmma: the tensor work is a
+//    third of the bytes line even at mma.sync's ~60% of the wgmma peak,
+//    W has to pass through registers between the products in any case,
+//    and mma.sync needs no shared-memory descriptors or swizzled tiles.
+//    X and M are read from shared memory at the accumulator's positions
+//    by ldmatrix; the item side reads the same row-major tiles with
+//    ldmatrix.trans, so W^T is the accumulator and is never transposed.
+//    The Q tile serves the first product through ldmatrix and the second
+//    through ldmatrix.trans.  Row strides are padded by 16 bytes, which
+//    keeps the 8 rows of every ldmatrix in distinct banks.
+//  * Staging: a ring of 3-4 stages of (x_hi, x_lo, M, Q hi, Q lo) tiles in
+//    dynamic shared memory, filled by 16-byte cp.async.cg copies (rows past
+//    the end are zero-filled through the src-size operand), one
+//    __syncthreads a tile.  cp.async, not TMA: the tiles are plain 2-D
+//    boxes of 64-256 byte rows, the copies cost a few instructions a
+//    thread a tile, and no tensor map has to be encoded on the host.
+//  * The divide is __fdividef (one MUFU.RCP and a multiply, 2 ulp).
+//  * Tiers that would leave the card idle (few P tiles) split the
+//    reduction axis over more CTAs; each split writes its own partial rows
+//    and sum_partials_kernel adds them.  No atomics, so a launch repeats
+//    bit for bit.
+// Registers, shared memory and CTAs an SM: see the ptxas lines of
+// chip_smoke.py's build phase and ops/dense_head.py::plan_launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-// User side geometry (kept in step with ops/dense_head.py).
-constexpr int kUserRows = 64;     // rows per CTA
-constexpr int kUserCols = 32;     // columns per tile
-constexpr int kUserThreads = 256;
-// Item side geometry.
-constexpr int kItemCols = 64;     // columns per CTA
-constexpr int kItemRowBatch = 32; // theta rows staged per batch
-constexpr int kItemThreads = 128;
-constexpr int kItemWarps = kItemThreads / 32;
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// The same copy with a hint that the L2 fetch 256 bytes around the source.
+__device__ __forceinline__ void cp_async16_pf(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Wait until at most n of this thread's copy groups are pending.
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    default: cp_async_wait<4>(); break;
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0, uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t addr, uint32_t& r0, uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1) : "r"(addr));
+}
+
+// d (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col).
+__device__ __forceinline__ void mma16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                      uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1) {
+  mma16(d, a[0], a[1], a[2], a[3], b0, b1);
+}
+
+// d = a * b: the start of a chain (no accumulator registers to zero first).
+__device__ __forceinline__ void mma16_z(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                        uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+__device__ __forceinline__ void mma16_z(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  mma16_z(d, a[0], a[1], a[2], a[3], b0, b1);
+}
+
+__device__ __forceinline__ void mma8_z(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%7,%7,%7,%7};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0), "f"(0.f));
+}
+
+// d (16x8 f32) += a (16x8 bf16, row) * b (8x8 bf16, col).
+__device__ __forceinline__ void mma8(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
 
 __device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 
-__device__ __forceinline__ void unpack8(const uint4 v, float* f) {
-  f[0] = bf16_lo(v.x); f[1] = bf16_hi(v.x);
-  f[2] = bf16_lo(v.y); f[3] = bf16_hi(v.y);
-  f[4] = bf16_lo(v.z); f[5] = bf16_hi(v.z);
-  f[6] = bf16_lo(v.w); f[7] = bf16_hi(v.w);
+// Two floats rounded to nearest bf16, v0 in the low half.
+__device__ __forceinline__ uint32_t pack_bf16_rn(float v0, float v1) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(v1), "f"(v0));
+  return r;
 }
 
-template <int KP, bool M_F32>
-__global__ void __launch_bounds__(kUserThreads)
-head_user_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
-                 const uint16_t* __restrict__ x_hi, const uint16_t* __restrict__ x_lo,
-                 const void* __restrict__ m_ptr, int rows, int hip, int K,
-                 float rate_floor, int tiles_per_split, float* __restrict__ dst) {
-  __shared__ __align__(16) float bs[kUserCols][KP];
+// (v0, v1) as packed hi and lo bf16 planes, both rounded to nearest.
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16_rn(v0, v1);
+  lo = pack_bf16_rn(v0 - bf16_lo(hi), v1 - bf16_hi(hi));
+}
+
+// tab (n, K) as two bf16 planes of KD zero-padded columns: hi, then lo.
+__global__ void split_planes_kernel(const float* __restrict__ tab, int n, int K, int KD,
+                                    uint16_t* __restrict__ planes) {
+  const int64_t total = (int64_t)n * KD;
+  for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < total;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t row = e / KD;
+    const int k = (int)(e % KD);
+    const float v = k < K ? tab[row * K + k] : 0.f;
+    const __nv_bfloat16 hi = __float2bfloat16_rn(v);
+    planes[e] = __bfloat16_as_ushort(hi);
+    planes[total + e] = __bfloat16_as_ushort(__float2bfloat16_rn(v - __bfloat162float(hi)));
+  }
+}
+
+// Geometry (kept in step with ops/dense_head.py).
+constexpr int kWarps = 4;  // warps a CTA; each owns 16 rows of P
+constexpr int kBQ = 32;  // rows of Q per tile
+constexpr int kThreads = kWarps * 32;
+constexpr int kPT = kWarps * 16;  // rows of P a CTA
+constexpr int kMinCtas = 3;  // resident CTAs the launch bounds keep room for (168 registers)
+
+// Shared-memory row stride of a Q plane of NT 8-column blocks: 16 * NT
+// bytes, padded where that is an even number of 16-byte slots, so that the
+// 8 rows of an ldmatrix fall in distinct banks.
+__host__ __device__ constexpr int q_stride(int nt) { return 16 * nt + (nt % 2 ? 0 : 16); }
+
+// One CTA: kPT rows of P against its split's Q tiles of kBQ rows.  K pads
+// to NT blocks of 8, in depth for the first product and in width for the
+// second.
+template <int NT, bool M_F32, bool ITEM>
+__device__ __forceinline__ void head_tile_body(
+    const float* __restrict__ p_tab, const uint16_t* __restrict__ q_hi,
+    const uint16_t* __restrict__ q_lo, const uint16_t* __restrict__ x_hi,
+    const uint16_t* __restrict__ x_lo, const void* __restrict__ m_ptr, int rows, int hip,
+    int K, float rate_floor, int tiles_per_split, int stages, float* __restrict__ dst) {
+  constexpr int BQ = kBQ, PT = kPT, THREADS = kThreads;
+  constexpr int KD = 8 * NT;
+  constexpr int NC = BQ / 16;  // 16-row chunks of Q a tile
+  constexpr int CELL_ROWS = ITEM ? BQ : PT;
+  constexpr int CELL_COLS = ITEM ? PT : BQ;
+  constexpr int CS = CELL_COLS * 2 + 16;  // bf16 cell row stride, bytes
+  constexpr int MS = M_F32 ? CELL_COLS * 4 + (ITEM ? 16 : 32) : CS;
+  constexpr int QS = q_stride(NT);
+  constexpr int X_BYTES = CELL_ROWS * CS;
+  constexpr int M_BYTES = CELL_ROWS * MS;
+  constexpr int Q_BYTES = BQ * QS;
+  constexpr int OFF_M = X_BYTES;
+  constexpr int OFF_Q = X_BYTES + M_BYTES;
+  constexpr int OFF_XLO = OFF_Q + 2 * Q_BYTES;
+  // The user side walks along the cell rows in pieces of 2 * BQ bytes:
+  // ask the L2 for the whole 256 bytes the next tiles will want.
+  constexpr bool PREFETCH = !ITEM;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const bool has_lo = x_lo != nullptr;
+  const int stage_bytes = OFF_XLO + (has_lo ? X_BYTES : 0);
+  const uint32_t smem_base = smem_u32(smem);
+
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int cg = lane >> 3;  // column group: 8 columns each
-  const int row = blockIdx.x * kUserRows + warp * 8 + (lane & 7);
-  const bool row_ok = row < rows;
+  const int g = lane >> 2, p = lane & 3;  // accumulator row and column pair
+  const int mi = lane >> 3, lr = lane & 7;  // ldmatrix: matrix and row served
+  const int nP = ITEM ? hip : rows, nQ = ITEM ? rows : hip;
+  const int p0 = blockIdx.x * PT;
 
-  float th[KP], acc_a[KP], acc_o[KP];
+  // This warp's 16 P rows as A fragments, split into both planes here:
+  // block kb holds columns 8 kb + 2p, + 1 of rows g (h = 0) and g + 8.
+  uint32_t a_hi[4][2], a_lo[4][2];  // blocks >= NT unused
 #pragma unroll
-  for (int k = 0; k < KP; ++k) {
-    th[k] = (row_ok && k < K) ? theta[(int64_t)row * K + k] : 0.f;
-    acc_a[k] = 0.f;
-    acc_o[k] = 0.f;
+  for (int kb = 0; kb < NT; ++kb) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = p0 + warp * 16 + g + 8 * h;
+      const int k = 8 * kb + 2 * p;
+      const float* src = p_tab + (int64_t)row * K + k;
+      const float v0 = (row < nP && k < K) ? src[0] : 0.f;
+      const float v1 = (row < nP && k + 1 < K) ? src[1] : 0.f;
+      split2(v0, v1, a_hi[kb][h], a_lo[kb][h]);
+    }
   }
-  const int n_tiles = hip / kUserCols;
+
+  const int n_tiles = (nQ + BQ - 1) / BQ;
   const int t0 = blockIdx.y * tiles_per_split;
-  const int t1 = min(t0 + tiles_per_split, n_tiles);
-  for (int t = t0; t < t1; ++t) {
-    const int c0 = t * kUserCols;
-    __syncthreads();
-    for (int e = tid; e < kUserCols * KP; e += kUserThreads) {
-      const int c = e / KP, k = e % KP;
-      bs[c][k] = k < K ? beta[(int64_t)(c0 + c) * K + k] : 0.f;
-    }
-    __syncthreads();
-    float xv[8], mv[8];
-    if (row_ok) {
-      const int64_t off = (int64_t)row * hip + c0 + cg * 8;
-      unpack8(*reinterpret_cast<const uint4*>(x_hi + off), xv);
-      if (x_lo != nullptr) {
-        float lo[8];
-        unpack8(*reinterpret_cast<const uint4*>(x_lo + off), lo);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) xv[j] += lo[j];
-      }
-      if (M_F32) {
-        const float4* mp = reinterpret_cast<const float4*>(
-            static_cast<const float*>(m_ptr) + off);
-        const float4 a = mp[0], b = mp[1];
-        mv[0] = a.x; mv[1] = a.y; mv[2] = a.z; mv[3] = a.w;
-        mv[4] = b.x; mv[5] = b.y; mv[6] = b.z; mv[7] = b.w;
+  const int n_my = max(min(t0 + tiles_per_split, n_tiles) - t0, 0);
+
+  auto load_tile = [&](int t, int s) {
+    const uint32_t st = smem_base + s * stage_bytes;
+    const int q0 = t * BQ;
+    const int grow0 = ITEM ? q0 : p0, gcol0 = ITEM ? p0 : q0;
+    constexpr int XCH = CELL_COLS / 8;  // 16-byte chunks a bf16 cell row
+    for (int e = tid; e < CELL_ROWS * XCH; e += THREADS) {
+      const int r = e / XCH, ch = e % XCH;
+      const int gr = grow0 + r, gc = gcol0 + ch * 8;
+      const bool ok = gr < rows && gc < hip;
+      const int64_t off = ok ? (int64_t)gr * hip + gc : 0;
+      const int nb = ok ? 16 : 0;
+      const uint32_t d = st + r * CS + ch * 16;
+      const uint16_t* mb = static_cast<const uint16_t*>(m_ptr);
+      if (PREFETCH) {
+        cp_async16_pf(d, x_hi + off, nb);
+        if (has_lo) cp_async16_pf(d + OFF_XLO, x_lo + off, nb);
+        if (!M_F32) cp_async16_pf(d + OFF_M, mb + off, nb);
       } else {
-        unpack8(*reinterpret_cast<const uint4*>(
-                    static_cast<const uint16_t*>(m_ptr) + off), mv);
+        cp_async16(d, x_hi + off, nb);
+        if (has_lo) cp_async16(d + OFF_XLO, x_lo + off, nb);
+        if (!M_F32) cp_async16(d + OFF_M, mb + off, nb);
       }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) { xv[j] = 0.f; mv[j] = 0.f; }
     }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float4* brow = reinterpret_cast<const float4*>(&bs[cg * 8 + j][0]);
-      float b[KP];
-#pragma unroll
-      for (int k4 = 0; k4 < KP / 4; ++k4) {
-        const float4 v = brow[k4];
-        b[4 * k4] = v.x; b[4 * k4 + 1] = v.y; b[4 * k4 + 2] = v.z; b[4 * k4 + 3] = v.w;
+    if (M_F32) {
+      constexpr int MCH = CELL_COLS / 4;
+      for (int e = tid; e < CELL_ROWS * MCH; e += THREADS) {
+        const int r = e / MCH, ch = e % MCH;
+        const int gr = grow0 + r, gc = gcol0 + ch * 4;
+        const bool ok = gr < rows && gc < hip;
+        const int64_t off = ok ? (int64_t)gr * hip + gc : 0;
+        const uint32_t d = st + OFF_M + r * MS + ch * 16;
+        if (PREFETCH) cp_async16_pf(d, static_cast<const float*>(m_ptr) + off, ok ? 16 : 0);
+        else cp_async16(d, static_cast<const float*>(m_ptr) + off, ok ? 16 : 0);
       }
-      float r = 0.f;
+    }
+    for (int e = tid; e < 2 * BQ * NT; e += THREADS) {
+      const int pl = e / (BQ * NT), rem = e % (BQ * NT);
+      const int r = rem / NT, ch = rem % NT;
+      const int gq = q0 + r;
+      const bool ok = gq < nQ;
+      const int64_t off = ok ? (int64_t)gq * KD + ch * 8 : 0;
+      cp_async16(st + OFF_Q + pl * Q_BYTES + r * QS + ch * 16,
+                 (pl ? q_lo : q_hi) + off, ok ? 16 : 0);
+    }
+  };
+
+  float ow[NT][4], om[NT][4];
 #pragma unroll
-      for (int k = 0; k < KP; ++k) r = fmaf(th[k], b[k], r);
-      const float w = mv[j] > 0.f ? xv[j] / fmaxf(r, rate_floor) : 0.f;
+  for (int f = 0; f < NT; ++f) {
 #pragma unroll
-      for (int k = 0; k < KP; ++k) {
-        acc_a[k] = fmaf(w, b[k], acc_a[k]);
-        acc_o[k] = fmaf(mv[j], b[k], acc_o[k]);
+    for (int i = 0; i < 4; ++i) { ow[f][i] = 0.f; om[f][i] = 0.f; }
+  }
+
+  for (int s = 0; s < stages - 1; ++s) {
+    if (s < n_my) load_tile(t0 + s, s);
+    cp_async_commit();
+  }
+  int s_cur = 0;  // stage of tile `it`
+  for (int it = 0; it < n_my; ++it) {
+    cp_async_wait_pending(stages - 2);  // tile `it` has landed (this thread's part)
+    __syncthreads();  // everyone's part has; and tile it-1's stage is free
+    {
+      const int nx = it + stages - 1;
+      const int s_nx = s_cur == 0 ? stages - 1 : s_cur - 1;
+      if (nx < n_my) load_tile(t0 + nx, s_nx);
+      cp_async_commit();
+    }
+    const unsigned char* stp = smem + s_cur * stage_bytes;
+    const uint32_t st = smem_base + s_cur * stage_bytes;
+    s_cur = s_cur + 1 == stages ? 0 : s_cur + 1;
+
+    // acc[c][j] = P Q^T for Q rows 16c + 8j .. + 7 (n8 tile j): the depth
+    // in k16 steps and, for an odd NT, one k8 step; three terms.
+    float acc[NC][2][4];
+    auto first_product = [&](int c) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t bh[4], bl[4];  // one register a k block (blocks >= NT repeat the last)
+        const uint32_t addr = st + OFF_Q + (16 * c + 8 * j + lr) * QS
+                              + min(mi, NT - 1) * 16;
+        ldsm_x4(addr, bh);
+        ldsm_x4(addr + Q_BYTES, bl);
+        if (NT >= 2) {
+          mma16_z(acc[c][j], a_lo[0][0], a_lo[0][1], a_lo[1][0], a_lo[1][1], bh[0], bh[1]);
+          mma16(acc[c][j], a_hi[0][0], a_hi[0][1], a_hi[1][0], a_hi[1][1], bl[0], bl[1]);
+          mma16(acc[c][j], a_hi[0][0], a_hi[0][1], a_hi[1][0], a_hi[1][1], bh[0], bh[1]);
+        } else {
+          mma8_z(acc[c][j], a_lo[0][0], a_lo[0][1], bh[0]);
+          mma8(acc[c][j], a_hi[0][0], a_hi[0][1], bl[0]);
+          mma8(acc[c][j], a_hi[0][0], a_hi[0][1], bh[0]);
+        }
+        if (NT == 4) {
+          mma16(acc[c][j], a_lo[2][0], a_lo[2][1], a_lo[3][0], a_lo[3][1], bh[2], bh[3]);
+          mma16(acc[c][j], a_hi[2][0], a_hi[2][1], a_hi[3][0], a_hi[3][1], bl[2], bl[3]);
+          mma16(acc[c][j], a_hi[2][0], a_hi[2][1], a_hi[3][0], a_hi[3][1], bh[2], bh[3]);
+        }
+        if (NT == 3) {
+          mma8(acc[c][j], a_lo[2][0], a_lo[2][1], bh[2]);
+          mma8(acc[c][j], a_hi[2][0], a_hi[2][1], bl[2]);
+          mma8(acc[c][j], a_hi[2][0], a_hi[2][1], bh[2]);
+        }
+      }
+    };
+
+    float tw[NT][4], tm[NT][4];  // chain temporaries of the second product
+    first_product(0);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      // X and M at the accumulator's positions: register i = 2j + h holds
+      // P row g + 8h, Q rows 16c + 8j + 2p + {0, 1}.
+      const int crow = ITEM ? 16 * c + 8 * (mi >> 1) + lr : warp * 16 + 8 * (mi & 1) + lr;
+      const int ccol = ITEM ? warp * 16 + 8 * (mi & 1) : 16 * c + 8 * (mi >> 1);
+      const uint32_t caddr = st + crow * CS + ccol * 2;
+      uint32_t xr[4], xl[4], mr[4];
+      if (ITEM) ldsm_x4_t(caddr, xr); else ldsm_x4(caddr, xr);
+      if (has_lo) {
+        if (ITEM) ldsm_x4_t(caddr + OFF_XLO, xl); else ldsm_x4(caddr + OFF_XLO, xl);
+      }
+      if (!M_F32) {
+        if (ITEM) ldsm_x4_t(caddr + OFF_M, mr); else ldsm_x4(caddr + OFF_M, mr);
+      }
+      // The next chunk's first product goes to the tensor cores before
+      // this chunk's elementwise work, which does not depend on it.
+      if (c + 1 < NC) first_product(c + 1);
+      uint32_t w_hi[4], w_lo[4], m_hi[4], m_lo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = i >> 1, h = i & 1;
+        float x0 = bf16_lo(xr[i]), x1 = bf16_hi(xr[i]);
+        if (has_lo) { x0 += bf16_lo(xl[i]); x1 += bf16_hi(xl[i]); }
+        float m0, m1;
+        if (M_F32) {
+          const unsigned char* mp = stp + OFF_M;
+          if (ITEM) {
+            const int r0 = 16 * c + 8 * j + 2 * p, col = warp * 16 + g + 8 * h;
+            m0 = *reinterpret_cast<const float*>(mp + r0 * MS + col * 4);
+            m1 = *reinterpret_cast<const float*>(mp + (r0 + 1) * MS + col * 4);
+          } else {
+            const int r0 = warp * 16 + g + 8 * h, col = 16 * c + 8 * j + 2 * p;
+            const float2 mm = *reinterpret_cast<const float2*>(mp + r0 * MS + col * 4);
+            m0 = mm.x; m1 = mm.y;
+          }
+          split2(m0, m1, m_hi[i], m_lo[i]);
+        } else {
+          m0 = m1 = 0.f;
+          m_hi[i] = mr[i];
+        }
+        float w0 = __fdividef(x0, fmaxf(acc[c][j][2 * h], rate_floor));
+        float w1 = __fdividef(x1, fmaxf(acc[c][j][2 * h + 1], rate_floor));
+        if (M_F32) {
+          w0 = m0 > 0.f ? w0 : 0.f;
+          w1 = m1 > 0.f ? w1 : 0.f;
+          split2(w0, w1, w_hi[i], w_lo[i]);
+        } else {
+          // Empty cells are masked after the split, both halves at once.
+          const uint32_t zero = 0u;
+          const unsigned keep = __hgt2_mask(*reinterpret_cast<const __nv_bfloat162*>(&mr[i]),
+                                            *reinterpret_cast<const __nv_bfloat162*>(&zero));
+          split2(w0, w1, w_hi[i], w_lo[i]);
+          w_hi[i] &= keep;
+          w_lo[i] &= keep;
+        }
+      }
+
+      // out[f] += [W | M] (16 x 16) * Q (16 rows x factors 8f .. 8f + 7).
+#pragma unroll
+      for (int f = 0; f < NT; f += 2) {
+        uint32_t bh[4], bl[4];
+        const uint32_t addr = st + OFF_Q + (16 * c + 8 * (mi & 1) + lr) * QS
+                              + min(f + (mi >> 1), NT - 1) * 16;
+        if (f + 1 < NT) {
+          ldsm_x4_t(addr, bh);
+          ldsm_x4_t(addr + Q_BYTES, bl);
+        } else {
+          ldsm_x2_t(addr, bh[0], bh[1]);
+          ldsm_x2_t(addr + Q_BYTES, bl[0], bl[1]);
+        }
+#pragma unroll
+        for (int ff = 0; ff < 2; ++ff) {
+          if (f + ff < NT) {
+            // One mma chain a tile from a zero accumulator, then float
+            // adds: the tensor core's accumulator truncates, and a chain as
+            // long as the reduction axis would lose 6e-8 of the sum a step.
+            const uint32_t h0 = bh[2 * ff], h1 = bh[2 * ff + 1];
+            const uint32_t l0 = bl[2 * ff], l1 = bl[2 * ff + 1];
+            if (c == 0) {
+              mma16_z(tw[f + ff], w_lo, h0, h1);
+              if (M_F32) mma16_z(tm[f + ff], m_lo, h0, h1);
+              else mma16_z(tm[f + ff], m_hi, l0, l1);
+            } else {
+              mma16(tw[f + ff], w_lo, h0, h1);
+              if (M_F32) mma16(tm[f + ff], m_lo, h0, h1);
+              else mma16(tm[f + ff], m_hi, l0, l1);
+            }
+            mma16(tw[f + ff], w_hi, l0, l1);
+            mma16(tw[f + ff], w_hi, h0, h1);
+            if (M_F32) mma16(tm[f + ff], m_hi, l0, l1);
+            mma16(tm[f + ff], m_hi, h0, h1);
+            if (c == NC - 1) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                ow[f + ff][i] += tw[f + ff][i];
+                om[f + ff][i] += tm[f + ff][i];
+              }
+            }
+          }
+        }
       }
     }
   }
-  // Sum the 4 column groups of each row (lane bits 3 and 4).
+  cp_async_wait<0>();
+
 #pragma unroll
-  for (int k = 0; k < KP; ++k) {
-    acc_a[k] += __shfl_xor_sync(kFull, acc_a[k], 8);
-    acc_a[k] += __shfl_xor_sync(kFull, acc_a[k], 16);
-    acc_o[k] += __shfl_xor_sync(kFull, acc_o[k], 8);
-    acc_o[k] += __shfl_xor_sync(kFull, acc_o[k], 16);
-  }
-  if (cg == 0 && row_ok) {
-    float* out = dst + ((int64_t)blockIdx.y * rows + row) * 2 * K;
+  for (int f = 0; f < NT; ++f) {
 #pragma unroll
-    for (int k = 0; k < KP; ++k) {
-      if (k < K) {
-        out[k] = acc_a[k];
-        out[K + k] = acc_o[k];
+    for (int i = 0; i < 4; ++i) {
+      const int row = p0 + warp * 16 + g + 8 * (i >> 1);
+      const int k = 8 * f + 2 * p + (i & 1);
+      if (row < nP && k < K) {
+        float* out = dst + ((int64_t)blockIdx.y * nP + row) * 2 * K;
+        out[k] = ow[f][i];
+        out[K + k] = om[f][i];
       }
     }
   }
 }
 
-template <int KP, bool M_F32>
-__global__ void __launch_bounds__(kItemThreads)
-head_item_kernel(const float* __restrict__ theta, const float* __restrict__ beta,
+// planes: the Q table's hi and lo planes, (nQ, 8 NT) bf16 each.
+template <int NT, bool M_F32>
+__global__ void __launch_bounds__(kThreads, kMinCtas)
+head_user_kernel(const float* __restrict__ theta, const uint16_t* __restrict__ planes,
                  const uint16_t* __restrict__ x_hi, const uint16_t* __restrict__ x_lo,
-                 const void* __restrict__ m_ptr, int rows, int hip, int K,
-                 float rate_floor, int batches_per_split, float* __restrict__ dst) {
-  __shared__ __align__(16) float ts[kItemRowBatch][KP];
-  __shared__ float red[kItemCols][2 * KP];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int c0 = blockIdx.x * kItemCols;
-  const int c = c0 + 2 * lane;  // this lane's two columns: c, c + 1
+                 const void* __restrict__ m, int rows, int hip, int K, float rate_floor,
+                 int tiles_per_split, int stages, float* __restrict__ dst) {
+  head_tile_body<NT, M_F32, false>(theta, planes, planes + (int64_t)hip * 8 * NT, x_hi,
+                                      x_lo, m, rows, hip, K, rate_floor, tiles_per_split,
+                                      stages, dst);
+}
 
-  float b0[KP], b1[KP], a0[KP], o0[KP], a1[KP], o1[KP];
-#pragma unroll
-  for (int k = 0; k < KP; ++k) {
-    b0[k] = k < K ? beta[(int64_t)c * K + k] : 0.f;
-    b1[k] = k < K ? beta[(int64_t)(c + 1) * K + k] : 0.f;
-    a0[k] = o0[k] = a1[k] = o1[k] = 0.f;
-  }
-  const int n_batches = (rows + kItemRowBatch - 1) / kItemRowBatch;
-  const int bt0 = blockIdx.y * batches_per_split;
-  const int bt1 = min(bt0 + batches_per_split, n_batches);
-  for (int bt = bt0; bt < bt1; ++bt) {
-    const int r0 = bt * kItemRowBatch;
-    __syncthreads();
-    for (int e = tid; e < kItemRowBatch * KP; e += kItemThreads) {
-      const int r = e / KP, k = e % KP;
-      ts[r][k] = (r0 + r < rows && k < K) ? theta[(int64_t)(r0 + r) * K + k] : 0.f;
-    }
-    __syncthreads();
-    const int nr = min(kItemRowBatch, rows - r0);
-    for (int r = warp; r < nr; r += kItemWarps) {
-      const int64_t off = (int64_t)(r0 + r) * hip + c;
-      const uint32_t xh = *reinterpret_cast<const uint32_t*>(x_hi + off);
-      float x0 = bf16_lo(xh), x1 = bf16_hi(xh);
-      if (x_lo != nullptr) {
-        const uint32_t xl = *reinterpret_cast<const uint32_t*>(x_lo + off);
-        x0 += bf16_lo(xl);
-        x1 += bf16_hi(xl);
-      }
-      float m0, m1;
-      if (M_F32) {
-        const float2 mm = *reinterpret_cast<const float2*>(
-            static_cast<const float*>(m_ptr) + off);
-        m0 = mm.x; m1 = mm.y;
-      } else {
-        const uint32_t mm = *reinterpret_cast<const uint32_t*>(
-            static_cast<const uint16_t*>(m_ptr) + off);
-        m0 = bf16_lo(mm); m1 = bf16_hi(mm);
-      }
-      float t[KP];
-      const float4* trow = reinterpret_cast<const float4*>(&ts[r][0]);
-#pragma unroll
-      for (int k4 = 0; k4 < KP / 4; ++k4) {
-        const float4 v = trow[k4];
-        t[4 * k4] = v.x; t[4 * k4 + 1] = v.y; t[4 * k4 + 2] = v.z; t[4 * k4 + 3] = v.w;
-      }
-      float r0v = 0.f, r1v = 0.f;
-#pragma unroll
-      for (int k = 0; k < KP; ++k) {
-        r0v = fmaf(t[k], b0[k], r0v);
-        r1v = fmaf(t[k], b1[k], r1v);
-      }
-      const float w0 = m0 > 0.f ? x0 / fmaxf(r0v, rate_floor) : 0.f;
-      const float w1 = m1 > 0.f ? x1 / fmaxf(r1v, rate_floor) : 0.f;
-#pragma unroll
-      for (int k = 0; k < KP; ++k) {
-        a0[k] = fmaf(w0, t[k], a0[k]);
-        o0[k] = fmaf(m0, t[k], o0[k]);
-        a1[k] = fmaf(w1, t[k], a1[k]);
-        o1[k] = fmaf(m1, t[k], o1[k]);
-      }
-    }
-  }
-  // Sum the warps' partial columns through shared memory, one warp at a time.
-  for (int w = 0; w < kItemWarps; ++w) {
-    __syncthreads();
-    if (warp == w) {
-      const int cl = 2 * lane;
-#pragma unroll
-      for (int k = 0; k < KP; ++k) {
-        const bool first = w == 0;
-        red[cl][k] = (first ? 0.f : red[cl][k]) + a0[k];
-        red[cl][KP + k] = (first ? 0.f : red[cl][KP + k]) + o0[k];
-        red[cl + 1][k] = (first ? 0.f : red[cl + 1][k]) + a1[k];
-        red[cl + 1][KP + k] = (first ? 0.f : red[cl + 1][KP + k]) + o1[k];
-      }
-    }
-  }
-  __syncthreads();
-  float* out = dst + ((int64_t)blockIdx.y * hip + c0) * 2 * K;
-  for (int e = tid; e < kItemCols * 2 * K; e += kItemThreads) {
-    const int cl = e / (2 * K), j = e % (2 * K);
-    out[e] = red[cl][j < K ? j : KP + (j - K)];
-  }
+template <int NT, bool M_F32>
+__global__ void __launch_bounds__(kThreads, kMinCtas)
+head_item_kernel(const float* __restrict__ beta, const uint16_t* __restrict__ planes,
+                 const uint16_t* __restrict__ x_hi, const uint16_t* __restrict__ x_lo,
+                 const void* __restrict__ m, int rows, int hip, int K, float rate_floor,
+                 int tiles_per_split, int stages, float* __restrict__ dst) {
+  head_tile_body<NT, M_F32, true>(beta, planes, planes + (int64_t)rows * 8 * NT, x_hi,
+                                     x_lo, m, rows, hip, K, rate_floor, tiles_per_split,
+                                     stages, dst);
 }
 
 __global__ void sum_partials_kernel(const float* __restrict__ partial, int n_splits,
@@ -268,68 +531,85 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial, int n_spl
   }
 }
 
-template <int KP, bool M_F32>
-void launch(const float* theta, const float* beta, const uint16_t* x_hi,
-            const uint16_t* x_lo, const void* m, int rows, int hip, int K,
-            float floor, int item_side, int n_splits, float* dst,
-            cudaStream_t stream) {
-  if (item_side) {
-    const int n_batches = (rows + kItemRowBatch - 1) / kItemRowBatch;
-    const int per = (n_batches + n_splits - 1) / n_splits;
-    dim3 grid(hip / kItemCols, n_splits);
-    head_item_kernel<KP, M_F32><<<grid, kItemThreads, 0, stream>>>(
-        theta, beta, x_hi, x_lo, m, rows, hip, K, floor, per, dst);
-  } else {
-    const int n_tiles = hip / kUserCols;
-    const int per = (n_tiles + n_splits - 1) / n_splits;
-    dim3 grid((rows + kUserRows - 1) / kUserRows, n_splits);
-    head_user_kernel<KP, M_F32><<<grid, kUserThreads, 0, stream>>>(
-        theta, beta, x_hi, x_lo, m, rows, hip, K, floor, per, dst);
-  }
+// Dynamic shared memory of one stage (kept in step with
+// ops/dense_head.py::stage_bytes, which the entry point checks).
+constexpr int stage_bytes_of(int nt, bool m_f32, bool has_lo, bool item) {
+  const int bq = kBQ;
+  const int cell_rows = item ? bq : kPT, cell_cols = item ? kPT : bq;
+  const int cs = cell_cols * 2 + 16;
+  const int ms = m_f32 ? cell_cols * 4 + (item ? 16 : 32) : cs;
+  return cell_rows * cs * (has_lo ? 2 : 1) + cell_rows * ms + 2 * bq * q_stride(nt);
 }
 
-template <int KP>
-void launch_m(int m_is_f32, const float* theta, const float* beta,
-              const uint16_t* x_hi, const uint16_t* x_lo, const void* m, int rows,
-              int hip, int K, float floor, int item_side, int n_splits, float* dst,
-              cudaStream_t stream) {
-  if (m_is_f32)
-    launch<KP, true>(theta, beta, x_hi, x_lo, m, rows, hip, K, floor, item_side,
-                     n_splits, dst, stream);
-  else
-    launch<KP, false>(theta, beta, x_hi, x_lo, m, rows, hip, K, floor, item_side,
-                      n_splits, dst, stream);
+template <int NT, bool M_F32>
+cudaError_t launch(const float* p_tab, const uint16_t* planes, const uint16_t* x_hi,
+                   const uint16_t* x_lo, const void* m, int rows, int hip, int K,
+                   float floor, int item_side, int n_splits, int stages, int smem_bytes,
+                   float* dst, cudaStream_t stream) {
+  if (smem_bytes != stages * stage_bytes_of(NT, M_F32, x_lo != nullptr, item_side != 0))
+    return cudaErrorInvalidValue;
+  const int nP = item_side ? hip : rows, nQ = item_side ? rows : hip;
+  const int n_tiles = (nQ + kBQ - 1) / kBQ;
+  const int per = (n_tiles + n_splits - 1) / n_splits;
+  dim3 grid((nP + kPT - 1) / kPT, n_splits);
+  auto kernel = item_side ? head_item_kernel<NT, M_F32> : head_user_kernel<NT, M_F32>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem_bytes, stream>>>(
+      p_tab, planes, x_hi, x_lo, m, rows, hip, K, floor, per, stages, dst);
+  return cudaGetLastError();
+}
+
+template <typename... Args>
+cudaError_t launch_nt(int K, int m_is_f32, Args... args) {
+#define PMF_CASE(N)                                                 \
+  case N:                                                           \
+    return m_is_f32 ? launch<N, true>(args...) : launch<N, false>(args...);
+  switch ((K + 7) / 8) {
+    PMF_CASE(1) PMF_CASE(2) PMF_CASE(3) PMF_CASE(4)
+    default: return cudaErrorInvalidValue;
+  }
+#undef PMF_CASE
 }
 
 }  // namespace
 
 // theta (rows, K) f32, beta (hip, K) f32, x_hi/x_lo (rows, hip) bf16 bits
-// (x_lo may be null), m (rows, hip) bf16 or f32.  hip % 64 == 0, K <= 32.
-// n_splits > 1 needs partial (n_splits * out_rows * 2K floats).
+// (x_lo may be null), m (rows, hip) bf16 or f32.  hip % 64 == 0, K <= 32,
+// 3 <= stages <= 6.  planes: scratch for the streamed table's hi and lo
+// planes, 2 * n * 8 * ceil(K / 8) bf16 with n = hip (user side) or rows.
+// smem_bytes: stages * the stage size, as ops/dense_head.py::plan_launch
+// reckons it (checked here).  n_splits > 1 needs partial (n_splits *
+// out_rows * 2K floats).
 extern "C" int pmf_dense_head_tier(const float* theta, const float* beta,
                                    const void* x_hi, const void* x_lo,
                                    const void* m, int m_is_f32, int rows,
                                    int hip, int K, float rate_floor,
-                                   int item_side, int n_splits, float* partial,
-                                   float* out, void* stream_ptr) {
+                                   int item_side, int n_splits, int stages,
+                                   int smem_bytes, void* planes,
+                                   float* partial, float* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (K < 1 || K > 32 || stages < 3 || stages > 6 || n_splits < 1)
+    return (int)cudaErrorInvalidValue;
+  const int KD = (K + 7) / 8 * 8;
+  uint16_t* pl = static_cast<uint16_t*>(planes);
+  const float* p_tab = item_side ? beta : theta;
+  {
+    const int nQ = item_side ? rows : hip;
+    const int64_t n = (int64_t)nQ * KD;
+    const int threads = 256;
+    const int64_t want = (n + threads - 1) / threads;
+    split_planes_kernel<<<(int)(want < 2048 ? want : 2048), threads, 0, stream>>>(
+        item_side ? theta : beta, nQ, K, KD, pl);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   const uint16_t* xh = static_cast<const uint16_t*>(x_hi);
   const uint16_t* xl = static_cast<const uint16_t*>(x_lo);
   float* dst = n_splits > 1 ? partial : out;
-  const int KP = (K + 3) / 4 * 4;
-  switch (KP) {
-#define PMF_CASE(N)                                                            \
-  case N:                                                                      \
-    launch_m<N>(m_is_f32, theta, beta, xh, xl, m, rows, hip, K, rate_floor,    \
-                item_side, n_splits, dst, stream);                             \
-    break;
-    PMF_CASE(4) PMF_CASE(8) PMF_CASE(12) PMF_CASE(16)
-    PMF_CASE(20) PMF_CASE(24) PMF_CASE(28) PMF_CASE(32)
-#undef PMF_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_nt(K, m_is_f32, p_tab, pl, xh, xl, m, rows, hip, K, rate_floor,
+                              item_side, n_splits, stages, smem_bytes, dst, stream);
   if (err != cudaSuccess || n_splits <= 1) return (int)err;
   const int64_t n = (int64_t)(item_side ? hip : rows) * 2 * K;
   const int threads = 256;

@@ -30,7 +30,9 @@ scalar-weighted rate half ``M @ (s * B)`` from ``head_products{,_t}``.
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -39,12 +41,18 @@ from pmf_tpu_torch.ops import _build
 
 HEAD_LAUNCHES = _build.LaunchCounter()
 
-# Kernel geometry (kept in step with csrc/dense_head.cu).
-USER_ROWS = 64  # rows per CTA, user side
-USER_COLS = 32  # columns per tile, user side
-ITEM_COLS = 64  # columns per CTA, item side
-ITEM_ROW_BATCH = 32  # rows per batch, item side
-CTAS_PER_SM = 4  # split the reduction axis until the grid has this many
+# Kernel geometry (kept in step with csrc/dense_head.cu).  P is the table
+# a CTA keeps in registers (theta on the user side, beta on the item side),
+# Q the table that streams past it in tiles along the reduction axis.
+WARPS = 4  # warps a CTA; each owns 16 rows of P
+P_TILE = 16 * WARPS  # rows of P a CTA
+Q_TILE = 32  # rows of Q per tile
+MAX_CTAS_PER_SM = 3  # resident CTAs the kernel's launch bounds keep registers for
+MIN_STAGES, MAX_STAGES = 3, 4  # ring of staged tiles
+MAX_SPLITS = 64  # CTAs that may share one reduction axis
+SMEM_PER_CTA = 232_448  # dynamic shared memory one CTA may ask for
+SMEM_PER_SM = 233_472  # of which every resident CTA reserves 1 KB
+SMEM_RESERVED = 1024
 
 
 def fused_alloc_tier_plain(theta_h, beta_h, x_hi, m, x_lo=None, *,
@@ -75,20 +83,71 @@ def fused_alloc_tier_plain(theta_h, beta_h, x_hi, m, x_lo=None, *,
     return out
 
 
-def plan_splits(rows: int, hip: int, item_side: bool, n_sm: int) -> int:
-    """How many CTAs share the reduction axis (columns on the user side,
-    rows on the item side) so the grid fills the card."""
-    if item_side:
-        parallel = hip // ITEM_COLS
-        serial = -(-rows // ITEM_ROW_BATCH)
+class LaunchPlan(NamedTuple):
+    """How one tier and side is launched."""
+
+    p_tile: int  # rows of P a CTA owns
+    q_tile: int  # rows of Q per staged tile
+    depth: int  # K padded to a multiple of 8 (columns of the bf16 planes)
+    stages: int  # ring stages
+    ctas_per_sm: int  # resident CTAs the shared memory and registers allow
+    splits: int  # CTAs sharing the reduction axis (grid.y)
+    tiles_per_split: int
+    smem_bytes: int  # dynamic shared memory a CTA
+
+
+def stage_bytes(item_side: bool, m_f32: bool, has_lo: bool, K: int) -> int:
+    """Shared memory of one ring stage: the cell tile's planes (rows padded
+    by 16 bytes, a float32 M by 32 on the user side) and the Q tile's hi and
+    lo planes (rows of 16 bytes per 8 factors, padded by 16 where that
+    count is even)."""
+    blocks = -(-K // 8)
+    q_stride = 16 * blocks + (0 if blocks % 2 else 16)
+    cell_rows, cell_cols = (Q_TILE, P_TILE) if item_side else (P_TILE, Q_TILE)
+    cs = cell_cols * 2 + 16
+    ms = cell_cols * 4 + (16 if item_side else 32) if m_f32 else cs
+    return (cell_rows * cs * (2 if has_lo else 1) + cell_rows * ms
+            + 2 * Q_TILE * q_stride)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_launch(rows: int, hip: int, K: int, item_side: bool, m_f32: bool,
+                has_lo: bool, n_sm: int) -> LaunchPlan:
+    """The launch of one tier and side on a card of ``n_sm`` SMs: the ring
+    depth and resident CTAs the shared memory allows, and the split of the
+    reduction axis (columns on the user side, rows on the item side) that
+    takes the fewest tile times when the P tiles alone would not fill the
+    card."""
+    sb = stage_bytes(item_side, m_f32, has_lo, K)
+    # As many resident CTAs as leave each a ring of MIN_STAGES.
+    for ctas in range(MAX_CTAS_PER_SM, 0, -1):
+        room = min(SMEM_PER_SM // ctas - SMEM_RESERVED, SMEM_PER_CTA)
+        stages = min(MAX_STAGES, room // sb)
+        if stages >= MIN_STAGES:
+            break
     else:
-        parallel = -(-rows // USER_ROWS)
-        serial = hip // USER_COLS
-    if serial <= 1:
-        return 1
-    splits = min(serial, math.ceil(CTAS_PER_SM * n_sm / max(parallel, 1)))
-    per = -(-serial // splits)  # serial tiles per split, as the kernel cuts them
-    return -(-serial // per)  # no empty splits
+        raise ValueError(f"a ring of {MIN_STAGES} stages of {sb} bytes does not "
+                         f"fit {SMEM_PER_CTA} bytes of shared memory")
+    n_p, n_q = (hip, rows) if item_side else (rows, hip)
+    parallel = -(-n_p // P_TILE)
+    serial = max(-(-n_q // Q_TILE), 1)
+    slots = ctas * n_sm
+    # Cost in tile times (one tile through every resident CTA): the waves
+    # of CTAs, each filling its ring once, and for a split axis the partial
+    # rows written and read again, in units of the tiles' cell bytes.
+    cell_bytes = 2 * (1 + has_lo) + (4 if m_f32 else 2)
+    partial_tiles = 2 * n_p * 2 * K * 4 / (slots * P_TILE * Q_TILE * cell_bytes)
+    best = None
+    for s in range(1, min(serial, MAX_SPLITS) + 1):
+        per = -(-serial // s)
+        s = -(-serial // per)  # as the kernel cuts them: no split is empty
+        waves = -(-parallel * s // slots)
+        cost = waves * (per + stages - 1) + (s * partial_tiles if s > 1 else 0)
+        if best is None or cost < best[0]:
+            best = (cost, s, per)
+    _, splits, per = best
+    return LaunchPlan(P_TILE, Q_TILE, 8 * -(-K // 8), stages, ctas, splits, per,
+                      stages * sb)
 
 
 def _check_cuda_args(theta_h, beta_h, x_hi, m, x_lo):
@@ -96,8 +155,9 @@ def _check_cuda_args(theta_h, beta_h, x_hi, m, x_lo):
     hip = m.shape[1]
     if not 1 <= K <= 32:
         raise ValueError(f"head kernel needs 1 <= K <= 32, got K={K}")
-    if hip % ITEM_COLS or hip % USER_COLS:
-        raise ValueError(f"head width {hip} must be a multiple of {ITEM_COLS}")
+    if rows < 1 or hip < 64 or hip % 64:
+        raise ValueError(f"head of {rows} rows by {hip} columns: the kernel needs "
+                         f"rows >= 1 and a width that is a multiple of 64")
     checks = [("theta_h", theta_h, (torch.float32,), (rows, K)),
               ("beta_h", beta_h, (torch.float32,), (hip, K)),
               ("x_hi", x_hi, (torch.bfloat16,), (rows, hip)),
@@ -129,13 +189,52 @@ def fused_alloc_tier(theta_h, beta_h, x_hi, m, x_lo=None, *,
     rows, K = theta_h.shape
     hip = m.shape[1]
     dev = theta_h.device
+    m_f32 = m.dtype == torch.float32
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = plan_launch(rows, hip, K, item_side, m_f32, x_lo is not None, n_sm)
+    out_rows = hip if item_side else rows
+    out = torch.empty((out_rows, 2 * K), dtype=torch.float32, device=dev)
+    # The streamed table's hi and lo bf16 planes, which the launch fills.
+    planes = torch.empty(2 * (rows if item_side else hip) * plan.depth,
+                         dtype=torch.bfloat16, device=dev)
+    partial = (torch.empty((plan.splits, out_rows, 2 * K), dtype=torch.float32,
+                           device=dev) if plan.splits > 1 else None)
+    _build.launch("pmf_dense_head_tier", HEAD_LAUNCHES, dev, theta_h, beta_h,
+                  x_hi, x_lo, m, int(m_f32), rows, hip, K, rate_floor,
+                  int(item_side), plan.splits, plan.stages, plan.smem_bytes,
+                  planes, partial, out)
+    return out
+
+
+# The CUDA-core kernel this module launched before the tensor-core one, kept
+# for one comparison on the card.
+CC_LAUNCHES = _build.LaunchCounter()
+
+
+def _plan_splits_cc(rows, hip, item_side, n_sm):
+    parallel, serial = ((hip // 64, -(-rows // 32)) if item_side
+                        else (-(-rows // 64), hip // 32))
+    if serial <= 1:
+        return 1
+    splits = min(serial, math.ceil(4 * n_sm / max(parallel, 1)))
+    return -(-serial // -(-serial // splits))
+
+
+def fused_alloc_tier_cc(theta_h, beta_h, x_hi, m, x_lo=None, *,
+                        rate_floor: float, item_side: bool = False) -> torch.Tensor:
+    theta_h = theta_h.contiguous()
+    beta_h = beta_h.contiguous()
+    _check_cuda_args(theta_h, beta_h, x_hi, m, x_lo)
+    rows, K = theta_h.shape
+    hip = m.shape[1]
+    dev = theta_h.device
     out_rows = hip if item_side else rows
     out = torch.empty((out_rows, 2 * K), dtype=torch.float32, device=dev)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = plan_splits(rows, hip, item_side, n_sm)
+    splits = _plan_splits_cc(rows, hip, item_side, n_sm)
     partial = (torch.empty((splits, out_rows, 2 * K), dtype=torch.float32,
                            device=dev) if splits > 1 else None)
-    _build.launch("pmf_dense_head_tier", HEAD_LAUNCHES, dev, theta_h, beta_h,
+    _build.launch("pmf_dense_head_tier_cc", CC_LAUNCHES, dev, theta_h, beta_h,
                   x_hi, x_lo, m, int(m.dtype == torch.float32), rows, hip, K,
                   rate_floor, int(item_side), splits, partial, out)
     return out

@@ -86,15 +86,169 @@ def test_head_wrapper_on_cpu_is_the_plain_version(small_ratings):
     assert tdh.HEAD_LAUNCHES.count == before
 
 
-@pytest.mark.parametrize("rows,hip,item_side", [
-    (3072, 59392, False), (3072, 59392, True), (112640, 1024, False),
-    (112640, 1024, True), (8, 512, False), (8, 512, True)])
-def test_plan_splits_leaves_no_split_empty(rows, hip, item_side):
-    splits = tdh.plan_splits(rows, hip, item_side, n_sm=132)
-    if item_side:
-        serial = -(-rows // tdh.ITEM_ROW_BATCH)
+def _planes(t, truncate=False):
+    """float32 -> (hi, lo) bf16 planes as float32: hi rounded to nearest, as
+    the kernel splits, or truncated to the top 16 bits."""
+    t = t.float()
+    if truncate:
+        hi = (t.contiguous().view(torch.int32) & -65536).view(torch.float32)
     else:
-        serial = hip // tdh.USER_COLS
-    per = -(-serial // splits)
-    assert 1 <= splits <= serial
-    assert (splits - 1) * per < serial  # the last split has work
+        hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _three_terms(a, b):
+    """a @ b as the kernel issues it: hi*lo + lo*hi + hi*hi of bf16 planes
+    (each product exact in float32), summed in float32."""
+    (a_hi, a_lo), (b_hi, b_lo) = a, b
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _emulate_kernel(theta, beta, x_hi, m, x_lo, rate_floor, item_side,
+                    truncate=False):
+    """K2's arithmetic in plain float32 tensor code: every f32 operand two
+    bf16 planes, every product three terms (a bf16 M is one exact plane),
+    W split between the two products.  Returns (out, R)."""
+    th, be = _planes(theta, truncate), _planes(beta, truncate)
+    R = _three_terms(th, (be[0].T, be[1].T))
+    x = x_hi.float() + (0 if x_lo is None else x_lo.float())
+    mf = m.float()
+    W = torch.where(mf > 0, x * (1.0 / torch.clamp_min(R, rate_floor)), 0.0)
+    w = _planes(W, truncate)
+    mp = (mf, torch.zeros_like(mf)) if m.dtype == torch.bfloat16 else _planes(mf, truncate)
+    if item_side:
+        w, mp, other = (w[0].T, w[1].T), (mp[0].T, mp[1].T), th
+    else:
+        other = be
+    return torch.cat([_three_terms(w, other), _three_terms(mp, other)], dim=1), R
+
+
+def _tier(small_ratings, kind, K, seed):
+    u, i, x = _case(small_ratings, kind)
+    jb = j_build_blocked(u, i, x, n_users=120, n_items=80, block_users=32,
+                         block_items=32, chunk_size=16, group=2, reorder=True,
+                         head=(40, 60), head_r0=4)
+    tb = t_build_blocked(u, i, x, n_users=120, n_items=80, reorder=True,
+                         head=(40, 60), head_r0=4, device="cpu")
+    h = tb.head[0]
+    rng = np.random.default_rng(seed)
+    theta = rng.gamma(0.3, 1.0, size=(h.hu, K)).astype(np.float32)
+    beta = np.zeros((h.hip, K), np.float32)
+    beta[: h.hi] = rng.gamma(0.3, 1.0, size=(h.hi, K))
+    return jb.head[0], h, torch.from_numpy(theta), torch.from_numpy(beta)
+
+
+KINDS = ["integer", "fractional", "m_f32"]
+SIDES = pytest.mark.parametrize("item_side", [False, True], ids=["user", "item"])
+
+
+@SIDES
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_arithmetic_matches_plain_float64(small_ratings, kind, item_side):
+    """The card check's tolerance, 1e-4 relative per element, holds for the
+    kernel's bf16-plane arithmetic against the plain version in float64."""
+    _, h, theta, beta = _tier(small_ratings, kind, K=20, seed=11)
+    assert (h.x_lo is not None) == (kind != "integer")
+    assert (h.m.dtype == torch.float32) == (kind == "m_f32")
+    got, _ = _emulate_kernel(theta, beta, h.x_hi, h.m, h.x_lo, 1e-10, item_side)
+    ref = tdh.fused_alloc_tier_plain(theta.double(), beta.double(), h.x_hi, h.m,
+                                     h.x_lo, rate_floor=1e-10, item_side=item_side)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    torch.testing.assert_close(got.double(), ref, rtol=1e-4, atol=0)
+
+
+@SIDES
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_arithmetic_matches_jax(small_ratings, kind, item_side):
+    """The same arithmetic against the JAX kernel in interpret mode, at the
+    engine gate."""
+    jh, h, theta, beta = _tier(small_ratings, kind, K=7, seed=12)
+    out, _ = _emulate_kernel(theta, beta, h.x_hi, h.m, h.x_lo, 1e-10, item_side)
+    j_fn = jdh.poisson_head_stats_t if item_side else jdh.poisson_head_stats
+    ref = j_fn(jnp.asarray(theta.numpy()), jnp.asarray(beta.numpy()), jh, 1e-10,
+               "high", True)
+    got = ((beta if item_side else theta) * out[:, :7], out[:, 7:])
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=5e-4, atol=1e-5)
+
+
+def test_rounded_planes_beat_truncated_planes():
+    """hi = bf16(t) rounded to nearest halves the lo plane's range against
+    the truncated top 16 bits, so the three-term products lose less: the
+    kernel rounds."""
+    rng = np.random.default_rng(5)
+    rows, hip, K = 256, 512, 20
+    theta = torch.from_numpy(rng.gamma(0.3, 1.0, size=(rows, K)).astype(np.float32))
+    beta = torch.from_numpy(rng.gamma(0.3, 1.0, size=(hip, K)).astype(np.float32))
+    m = torch.from_numpy((rng.random((rows, hip)) < 0.5).astype(np.float32))
+    x_hi = (m * torch.from_numpy(rng.integers(1, 6, size=(rows, hip)))).to(torch.bfloat16)
+    m = m.to(torch.bfloat16)
+    ref = tdh.fused_alloc_tier_plain(theta.double(), beta.double(), x_hi, m,
+                                     rate_floor=1e-10)
+    R_ref = theta.double() @ beta.double().T
+
+    def worst(got, want):
+        return float(((got.double() - want).abs() / want.abs().clamp_min(1e-300)).max())
+
+    errs = {}
+    for truncate in (False, True):
+        out, R = _emulate_kernel(theta, beta, x_hi, m, None, 1e-10, False, truncate)
+        errs[truncate] = (worst(R, R_ref), worst(out, ref))
+    assert errs[False][0] < 5e-5 and errs[False][1] < 2e-5
+    assert errs[True][0] > 1.5 * errs[False][0]
+    assert errs[True][1] > 1.5 * errs[False][1]
+
+
+REAL_TIERS = [(3072, 59392), (9216, 14848), (36864, 4096), (112640, 1024)]
+EDGE_SHAPES = [(8, 512), (8, 64), (70, 128), (3000, 960)]
+
+
+@pytest.mark.parametrize("rows,hip,item_side", [
+    (r, h, side) for r, h in REAL_TIERS + EDGE_SHAPES for side in (False, True)])
+def test_plan_splits_leaves_no_split_empty(rows, hip, item_side):
+    """The launch plan over the real tiers' shapes and small edge shapes:
+    a ring of at least three stages inside one CTA's shared memory, the
+    resident CTAs inside the SM's, no empty split, and a grid that fills
+    132 SMs wherever the tier has that many tiles."""
+    n_sm = 132
+    for m_f32, has_lo in ((False, False), (False, True), (True, True)):
+        for K in (1, 16, 20, 32):
+            plan = tdh.plan_launch(rows, hip, K, item_side, m_f32, has_lo, n_sm)
+            n_p, n_q = (hip, rows) if item_side else (rows, hip)
+            parallel = -(-n_p // plan.p_tile)
+            serial = -(-n_q // plan.q_tile)
+            assert plan.p_tile == tdh.P_TILE == 16 * tdh.WARPS
+            assert plan.q_tile == tdh.Q_TILE
+            assert plan.depth == 8 * -(-K // 8) >= K
+            assert tdh.MIN_STAGES <= plan.stages <= tdh.MAX_STAGES
+            assert plan.smem_bytes == plan.stages * tdh.stage_bytes(
+                item_side, m_f32, has_lo, K)
+            assert plan.smem_bytes <= 232_448
+            assert 1 <= plan.ctas_per_sm <= tdh.MAX_CTAS_PER_SM
+            assert plan.ctas_per_sm * (plan.smem_bytes + 1024) <= 233_472
+            assert 1 <= plan.splits <= min(serial, tdh.MAX_SPLITS)
+            assert plan.tiles_per_split == -(-serial // plan.splits)
+            assert (plan.splits - 1) * plan.tiles_per_split < serial  # none empty
+            assert plan.splits * plan.tiles_per_split >= serial  # none left out
+            # Equal CTAs in whole waves: the grid may stop a few CTAs short
+            # of the card where one more split would start another wave.
+            if parallel * min(serial, tdh.MAX_SPLITS) >= n_sm:
+                assert parallel * plan.splits >= 0.9 * n_sm
+
+
+def test_stage_bytes_counts_every_plane():
+    """One stage at K=20, user side: 64 x 32 cells of bf16 in rows padded by
+    16 bytes per plane, a float32 M in rows padded by 32, and 32 rows of
+    both Q planes at 48 bytes (three blocks of 8 factors; an even count of
+    blocks pads by 16)."""
+    rows, cols = tdh.P_TILE, tdh.Q_TILE
+    cell = rows * (2 * cols + 16)
+    q = 2 * cols * 48
+    assert tdh.stage_bytes(False, False, False, 20) == 2 * cell + q
+    assert tdh.stage_bytes(False, False, True, 20) == 3 * cell + q
+    assert tdh.stage_bytes(False, True, True, 20) == 2 * cell + rows * (4 * cols + 32) + q
+    assert tdh.stage_bytes(True, True, True, 20) == (
+        2 * cols * (2 * rows + 16) + cols * (4 * rows + 16) + q)
+    assert tdh.stage_bytes(False, False, False, 8) == 2 * cell + 2 * cols * 16
+    assert tdh.stage_bytes(False, False, False, 16) == 2 * cell + 2 * cols * 48
+    assert tdh.stage_bytes(False, False, False, 32) == 2 * cell + 2 * cols * 80

@@ -194,6 +194,82 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         dense_head.fused_alloc_tier(theta, beta, x_hi, x_hi, rate_floor=1e-10)
 
 
+def _head_args(rows=8, hip=128, K=4, m_dtype=torch.bfloat16, x_lo=False):
+    """CUDA-looking arguments of one K2 launch (theta, beta, x_hi, m, x_lo)."""
+    return [_cuda_looking(torch.rand(rows, K)), _cuda_looking(torch.rand(hip, K)),
+            _cuda_looking(torch.ones(rows, hip, dtype=torch.bfloat16)),
+            _cuda_looking(torch.ones(rows, hip, dtype=m_dtype)),
+            _cuda_looking(torch.zeros(rows, hip, dtype=torch.bfloat16)) if x_lo else None]
+
+
+HEAD_REJECTS = {
+    "K_above_32": (ValueError, "1 <= K <= 32", lambda: _head_args(K=33)),
+    "K_zero": (ValueError, "1 <= K <= 32", lambda: _head_args(K=0)),
+    "width_not_64s": (ValueError, "multiple of 64", lambda: _head_args(hip=96)),
+    "no_rows": (ValueError, "rows >= 1", lambda: _head_args(rows=0)),
+    "m_float64": (TypeError, "m must be", lambda: _head_args(m_dtype=torch.float64)),
+    "x_lo_float32": (TypeError, "x_lo must be", lambda: [
+        *_head_args()[:4], _cuda_looking(torch.zeros(8, 128))]),
+    "theta_float64": (TypeError, "theta_h must be", lambda: [
+        _cuda_looking(torch.rand(8, 4, dtype=torch.float64)), *_head_args()[1:]]),
+    "beta_rows": (ValueError, "beta_h has shape", lambda: [
+        _head_args()[0], _cuda_looking(torch.rand(64, 4)), *_head_args()[2:]]),
+    "x_hi_rows": (ValueError, "x_hi has shape", lambda: [
+        *_head_args()[:2], _cuda_looking(torch.ones(9, 128, dtype=torch.bfloat16)),
+        *_head_args()[3:]]),
+    "x_lo_on_another_device": (ValueError, "is on", lambda: [
+        *_head_args()[:4],
+        _cuda_looking(torch.zeros(8, 128, dtype=torch.bfloat16, device="meta"))]),
+    "m_strided": (ValueError, "contiguous and 16-byte aligned", lambda: [
+        *_head_args()[:3],
+        torch.ones(8, 256, dtype=torch.bfloat16)[:, ::2].as_subclass(_CudaLooking), None]),
+    "x_hi_misaligned": (ValueError, "contiguous and 16-byte aligned", lambda: [
+        *_head_args()[:2],
+        torch.ones(8 * 128 + 1, dtype=torch.bfloat16)[1:].view(8, 128)
+        .as_subclass(_CudaLooking), *_head_args()[3:]]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HEAD_REJECTS))
+def test_head_wrapper_rejects_what_the_kernel_does_not_take(monkeypatch, broken_build,
+                                                            case):
+    """Every argument check of K2's wrapper raises before the library is
+    built or the card is asked anything."""
+    exc, match, args = HEAD_REJECTS[case]
+    _forbid(monkeypatch, dense_head, "fused_alloc_tier_plain")
+    theta, beta, x_hi, m, x_lo = args()
+    before = dense_head.HEAD_LAUNCHES.count
+    for item_side in (False, True):
+        with pytest.raises(exc, match=match):
+            dense_head.fused_alloc_tier(theta, beta, x_hi, m, x_lo, rate_floor=1e-10,
+                                        item_side=item_side)
+    assert dense_head.HEAD_LAUNCHES.count == before
+
+
+def test_head_wrapper_launches_without_a_try_or_a_library_matmul():
+    """``fused_alloc_tier`` holds no try/except around its launch and calls
+    no library product; the kernel source holds no atomics."""
+    import inspect
+
+    tree = ast.parse(inspect.getsource(dense_head.fused_alloc_tier))
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    called = {n.func.attr if isinstance(n.func, ast.Attribute) else
+              getattr(n.func, "id", "") for n in ast.walk(tree)
+              if isinstance(n, ast.Call)}
+    assert not called & {"mm", "matmul", "bmm", "einsum", "addmm", "compile"}
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.BinOp)
+                and isinstance(n.op, ast.MatMult)]
+    assert {"launch", "fused_alloc_tier_plain", "plan_launch"} <= called
+    src = (_build.SRC_DIR / "dense_head.cu").read_text()
+    import re
+
+    assert not re.search(r"atomic[A-Z]|\batom\.|\bred\.", src)
+    assert "mma.sync.aligned.m16n8k16" in src and "cp.async.cg" in src
+    assert "ldmatrix" in src and "torch" not in src and "cutlass" not in src.lower()
+    assert 'extern "C" int pmf_dense_head_tier(' in src
+    assert len(_build.SIGNATURES["pmf_dense_head_tier"]) == 18
+
+
 def _csr(n_self, n_other, nnz):
     """A CUDA-looking CSR tail with ``nnz`` edges on row 0."""
     row_ptr = torch.full((n_self + 1,), nnz, dtype=torch.int64)
