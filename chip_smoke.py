@@ -12,7 +12,10 @@ result line:
               ratings, seed 0) and the hybrid layout the fit builds.
 4. K1      -- sparse-tail edge kernel vs its plain version, both directions.
 5. K2      -- dense-head tier kernel vs its plain version, every tier and
-              side.
+              side, with its bound's three lines and the share of the
+              card's memory rate; before the data, K2small: the same
+              kernel vs the plain version in float64 over every padding of
+              K, ragged rows, narrow heads and the three cell kinds.
 6. small   -- three blocked sweeps on the card vs the host (plain kernels)
               on a small input with an explicit two-tier head.
 7. fit     -- ``HPF.fit(engine="blocked_high")`` at K=20 for 4 sweeps, with
@@ -80,9 +83,6 @@ BF16_FLOPS_PER_S = 989e12  # dense tensor cores
 # order; relative error per element.
 RTOL = 1e-4
 TIMING_REPS = 10
-# K2 per sweep as the CUDA-core kernel before the tensor-core one (H100
-# 80GB HBM3 at 700 W, this script at the commit before the redesign).
-K2_EARLIER_MS = 12.6474
 
 
 LOG_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out",
@@ -381,20 +381,20 @@ def phase_k1raw(blocked):
 
 def _k2_bound(rows, hip, m_f32, has_lo, n_bytes):
     """The three lines of K2's bound over one tier and side, in ms: the
-    bytes, the tensor-core flops as the kernel issues them (per 16 x 16
-    cells: the rate product over the padded depth in three terms, then W in
-    three terms and M in two, three for a float32 M, over the padded
-    width, 4096 flops an mma.m16n8k16), and the float32 elementwise work
-    (clamp, reciprocal and multiply, compare and select, the two
-    subtractions of W's split; one add for x_lo, two subtractions for a
-    float32 M's split)."""
-    depth_steps = 1 if K <= 16 else 2
-    width_tiles = -(-K // 8)
-    mmas = 2 * 3 * depth_steps + (3 + (3 if m_f32 else 2)) * width_tiles
+    bytes; the tensor-core flops as the kernel issues them (K pads to
+    ceil(K / 8) blocks of 8 in depth and in width; per 16 x 16 cells the
+    rate product takes three terms over two n8 tiles, half an
+    mma.m16n8k16 a block, then W three terms and M two, three for a
+    float32 M, an mma a block; 4096 flops an mma); and the float32
+    elementwise work a cell (clamp, reciprocal, multiply, the subtraction of
+    W's split, 1.5 adds into the running sums; one add for x_lo; a select
+    and a subtraction for a float32 M)."""
+    blocks = -(-K // 8)
+    mmas = (3 + 3 + (3 if m_f32 else 2)) * blocks
     cells = rows * hip
     return {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
             "tensor operations": cells * mmas * 4096 / 256 / BF16_FLOPS_PER_S * 1e3,
-            "elementwise operations": cells * (7 + has_lo + 2 * m_f32)
+            "elementwise operations": cells * (5.5 + has_lo + 2 * m_f32)
             / FP32_FLOPS_PER_S * 1e3}
 
 
@@ -424,8 +424,12 @@ def phase_k2(blocked):
             ms = cuda_ms(lambda: fused_alloc_tier(*args, **kw))
             plain_ms = cuda_ms(
                 lambda: fused_alloc_tier_plain(*args, row_chunk=chunk, **kw), reps=3)
-            cells_bytes = sum(a.nbytes for a in (h.x_hi, h.m, h.x_lo) if a is not None)
-            n_bytes = cells_bytes + theta_h.nbytes + beta_h.nbytes + got.nbytes
+            # The bytes the function needs: the cells of the hi real columns.
+            # The layout stores hip >= hi columns, the rest zeros, and the
+            # kernel reads those too (logged as "stored").
+            stored_bytes = sum(a.nbytes for a in (h.x_hi, h.m, h.x_lo) if a is not None)
+            cells_bytes = stored_bytes * h.hi // h.hip
+            n_bytes = cells_bytes + theta_h.nbytes + beta_h[: h.hi].nbytes + got.nbytes
             tier_lines = _k2_bound(h.hu, h.hip, m_f32, has_lo, n_bytes)
             by = max(tier_lines, key=tier_lines.get)
             plan = plan_launch(h.hu, h.hip, K, item_side, m_f32, has_lo, n_sm)
@@ -436,7 +440,8 @@ def phase_k2(blocked):
                 f"rel {rel_err:.3e} (tol {RTOL}) | kernel {ms:.4f} ms | plain "
                 f"{plain_ms:.4f} ms | bound {tier_lines[by]:.4f} ms ({by}) | cells "
                 f"{rate:.1f} GB/s, {rate * 1e9 / HBM_BYTES_PER_S:.1%} of "
-                f"{HBM_BYTES_PER_S / 1e12} TB/s | {plan.stages} stages, "
+                f"{HBM_BYTES_PER_S / 1e12} TB/s (stored {stored_bytes / ms / 1e6:.1f} "
+                f"GB/s) | {plan.stages} stages, "
                 f"{plan.ctas_per_sm} CTAs/SM, {plan.splits} splits, "
                 f"{plan.smem_bytes} B shared")
             if not rel_err <= RTOL:
@@ -527,36 +532,6 @@ def phase_k2small():
         f"launches equal in bits")
 
 
-def phase_k2ab(blocked):
-    """The CUDA-core kernel K2 was until now and the tensor-core kernel, in
-    turns (old, new, new, old) on every real tier and side."""
-    import torch
-
-    from pmf_tpu_torch.ops.cavi_edge import RATE_FLOOR
-    from pmf_tpu_torch.ops.dense_head import fused_alloc_tier, fused_alloc_tier_cc
-
-    e_user, e_item = _new_space_tables(blocked)
-    total = {"old": [0.0, 0.0], "new": [0.0, 0.0]}
-    for t, h in enumerate(blocked.head or ()):
-        theta_h = e_user[h.row_start : h.row_start + h.hu].contiguous()
-        beta_h = torch.nn.functional.pad(e_item[: h.hi], (0, 0, 0, h.hip - h.hi))
-        for item_side in (False, True):
-            kw = dict(rate_floor=RATE_FLOOR, item_side=item_side)
-            args = (theta_h, beta_h, h.x_hi, h.m, h.x_lo)
-            old = lambda: fused_alloc_tier_cc(*args, **kw)  # noqa: E731
-            new = lambda: fused_alloc_tier(*args, **kw)  # noqa: E731
-            _, rel = compare(new(), old())
-            ms = [cuda_ms(f) for f in (old, new, new, old)]
-            for name, (i, j) in (("old", (0, 3)), ("new", (1, 2))):
-                total[name][0] += ms[i]
-                total[name][1] += ms[j]
-            log(f"  K2ab tier {t} ({h.hu} x {h.hip}) {'item' if item_side else 'user'}"
-                f": old {ms[0]:.4f} {ms[3]:.4f} ms | new {ms[1]:.4f} {ms[2]:.4f} ms | "
-                f"{(ms[0] + ms[3]) / (ms[1] + ms[2]):.2f}x | new vs old rel {rel:.3e}")
-    log(f"phase K2ab: ok | per sweep: old {total['old'][0]:.4f} {total['old'][1]:.4f} "
-        f"ms | new {total['new'][0]:.4f} {total['new'][1]:.4f} ms")
-
-
 def phase_small():
     """Blocked sweeps on the card vs the host on one small input."""
     import torch
@@ -593,7 +568,7 @@ def phase_small():
         f"(tol 5e-4)")
 
 
-def phase_fit(train, val, smi, want_k2=None):
+def phase_fit(train, val, smi):
     import torch
 
     from pmf_tpu_torch.models.hpf import HPF, HPFConfig, state_to_numpy
@@ -612,8 +587,7 @@ def phase_fit(train, val, smi, want_k2=None):
             f"{rec['updates_per_sec'] / 1e6:.1f}M updates/s | val RMSE "
             f"{rec['val_rmse']:.6f} | {smi}")
     want = dict.fromkeys(launches, 0)
-    want.update(K1=2 * model.n_sweeps,
-                K2=2 * n_tiers * model.n_sweeps if want_k2 is None else want_k2)
+    want.update(K1=2 * model.n_sweeps, K2=2 * n_tiers * model.n_sweeps)
     if launches != want or n_tiers == 0:
         raise AssertionError(f"fit launches {launches}, expected {want} "
                              f"({model.n_sweeps} sweeps, {n_tiers} tiers)")
@@ -635,7 +609,7 @@ K2_KERNELS = ("head_user_kernel", "head_item_kernel", "sum_partials_kernel",
               "split_planes_kernel")
 
 
-def phase_profile(model, train, smi, head_kernels=None):
+def phase_profile(model, train, smi):
     """Steady sweep time (CUDA events over chained sweeps) and one sweep
     under torch.profiler: device time by kernel, K2's share of it and the
     idle share."""
@@ -658,34 +632,14 @@ def phase_profile(model, train, smi, head_kernels=None):
     ms = cuda_ms(one_sweep, reps=5)
     log(f"  steady sweep: {ms:.4f} ms | {2 * len(train[0]) / ms / 1e3:.1f}M "
         f"updates/s | {smi}")
-    n_tiers = len(model.blocked.head or ())
-    expect = (_head_launches(model) if head_kernels is None
-              else dict.fromkeys(head_kernels, n_tiers))
-    rows, busy, wall_ms = profile_once(one_sweep, {"cavi_edge_kernel": 2, **expect})
-    k2_names = K2_KERNELS if head_kernels is None else (*head_kernels, "sum_partials_cc")
-    k2_ms = sum(ms for ms, _, key in rows if any(name in key for name in k2_names))
+    rows, busy, wall_ms = profile_once(
+        one_sweep, {"cavi_edge_kernel": 2, **_head_launches(model)})
+    k2_ms = sum(ms for ms, _, key in rows if any(name in key for name in K2_KERNELS))
     log(f"phase profile: ok | one sweep: device busy {busy:.4f} ms of "
         f"{wall_ms:.4f} ms window (idle share {1 - busy / wall_ms:.1%}) | K2 "
         f"{k2_ms:.4f} ms ({k2_ms / busy:.1%} of busy)")
     for dev_ms, n, key in rows[:8]:
         log(f"  {dev_ms:9.4f} ms  {n:3d}x  {key[:90]}")
-
-
-def phase_fit_old(train, val, smi):
-    """The same fit and steady sweep through the CUDA-core kernel K2 was
-    until now: the val RMSE history and sweep time the new kernel's are
-    held against."""
-    from pmf_tpu_torch.ops import dense_head
-
-    new = dense_head.fused_alloc_tier
-    dense_head.fused_alloc_tier = dense_head.fused_alloc_tier_cc
-    try:
-        log("  -- the fit through the CUDA-core kernel --")
-        model, _ = phase_fit(train, val, smi, want_k2=0)
-        phase_profile(model, train, smi, head_kernels=("head_user_cc_kernel",
-                                                       "head_item_cc_kernel"))
-    finally:
-        dense_head.fused_alloc_tier = new
 
 
 # ----------------------------------------------------------------- Poisson --
@@ -1781,6 +1735,7 @@ def phase_gprofile(full, diag, train, smi):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     smi = phase_device()
     import gc
 
@@ -1793,7 +1748,6 @@ def main() -> int:
     k1 = phase_k1(blocked)
     k1raw = phase_k1raw(blocked)
     k2 = phase_k2(blocked)
-    phase_k2ab(blocked)
     k7, k8 = phase_k7k8(blocked)
     del blocked
     torch.cuda.empty_cache()
@@ -1801,9 +1755,6 @@ def main() -> int:
     model, launches = phase_fit(train, val, smi)
     phase_profile(model, train, smi)
     del model
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_fit_old(train, val, smi)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1855,9 +1806,7 @@ def main() -> int:
         entry("cavi_edge_tail", "pmf_tpu_torch/csrc/cavi_edge.cu",
               "pmf_tpu/ops/pallas/cavi_edge.py:93", k1, launches["K1"]),
         entry("dense_head_tier", "pmf_tpu_torch/csrc/dense_head.cu",
-              "pmf_tpu/ops/dense_head.py:85", k2, launches["K2"],
-              earlier_ms=K2_EARLIER_MS,
-              note="earlier_ms: the CUDA-core kernel this one replaced (PR 4 run 2)"),
+              "pmf_tpu/ops/dense_head.py:85", k2, launches["K2"]),
         entry("gaussian_factor_tail", gsrc,
               "pmf_tpu/ops/pallas/gaussian_edge.py:90", k3, glaunches["K3"]),
         entry("gj_inverse", "pmf_tpu_torch/csrc/gj_inverse.cu",
@@ -1879,6 +1828,7 @@ def main() -> int:
               note="mode \"raw\": no single-device fit runs it (its path is "
                    "the tensor-parallel ring), so its launches are 0"),
     ]
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

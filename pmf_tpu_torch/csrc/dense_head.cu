@@ -13,57 +13,75 @@
 // The caller multiplies the first half by its self factor.  W never
 // reaches device memory.
 //
-// What bounds it on an H100: bytes.  The three lines of the bound, for a
-// tier of C stored cells of c bytes each (4, 6 with x_lo, 8 with x_lo and
-// a float32 M) at K = 20:
-//   bytes       C * c / 3.35 TB/s                  (1.6 ms a sweep)
-//   tensor work C * 27 mma.m16n8k16 / 256 cells, 4096 flops each, at the
-//               989 TFLOP/s bf16 peak              (0.6 ms a sweep)
-//   elementwise C * 10 float32 operations at 67 TFLOP/s (0.2 ms a sweep)
-// With the three products on the CUDA cores (the first design, 60 FMAs a
-// cell) the operations line was 2.0 ms and the kernel took 12.6 ms.
+// What bounds it on an H100: bytes.  The three lines of the bound over the
+// benchmark's four tiers at K = 20 (3.35 GB of cell planes a side: 4 bytes
+// a stored cell, 6 with x_lo, 8 with x_lo and a float32 M), per sweep:
+//   bytes       every real cell read once at 3.35 TB/s           1.95 ms
+//               (2.02 ms with the zero columns the layout stores)
+//   tensor work 24 mma.m16n8k16 per 256 cells (27 with a float32
+//               M), 4096 flops each, at the 989 TFLOP/s bf16 peak 0.53 ms
+//   elementwise 5.5 float32 operations a cell at 67 TFLOP/s      0.14 ms
+// The kernel takes 2.78-2.96 ms a sweep (H100 80GB HBM3 at 700 W,
+// chip_smoke.py phase K2): 54-82% of 3.35 TB/s tier by tier.  With the
+// three products on the CUDA cores (the design before this one, 60 FMAs
+// a cell, 193-255 registers) it took 12.65 ms against an operations line
+// of 2.03 ms.
 //
 // Design:
-//  * Both sides are one kernel body.  The CTA's fixed operand P (theta
-//    rows on the user side, beta rows on the item side, 16 per warp) sits
-//    in registers as mma A fragments; the other table Q streams past in
-//    tiles of kBQ rows together with the cell tiles.  Per 16-row chunk of
-//    Q a warp computes acc = P Q^T (R, or R^T on the item side), turns the
-//    accumulator into W in registers, and feeds W and M as the A operand
-//    of the second product, out += [W | M] Q: the accumulator layout of
-//    two neighbouring n8 tiles of mma.m16n8k16 is its A-fragment layout.
-//    Each warp owns its P rows over the whole reduction axis, so nothing
-//    is summed across warps.
+//  * Both sides are one kernel body.  The CTA's fixed operand P (64 theta
+//    rows on the user side, 64 beta rows on the item side, 16 per warp)
+//    sits in registers as mma A fragments; the other table Q streams past
+//    in tiles of 32 rows together with the 64 x 32 cell tiles.  Per 16-row
+//    chunk of Q a warp computes acc = P Q^T (R, or R^T on the item side),
+//    turns the accumulator into W in registers, and feeds W and M as the A
+//    operand of the second product, out += [W | M] Q: the accumulator
+//    layout of two neighbouring n8 tiles of mma.m16n8k16 is its A-fragment
+//    layout.  Each warp owns its P rows over the whole reduction axis, so
+//    nothing is summed across warps.  The next chunk's first product is
+//    issued before the current chunk's elementwise work.
 //  * Precision: every f32 operand is two bf16 planes rounded to nearest
 //    (hi = bf16(t), lo = bf16(t - hi)) and every product three terms,
-//    hi*hi + hi*lo + lo*hi, summed in float32.  theta and beta are split
-//    once a launch by split_planes_kernel into zero-padded (n, KD) planes;
-//    W is split in registers; a bf16 M is exact, a float32 M is split in
-//    registers like W.  Against the float64 reference: R to 2.5e-5, the
-//    outputs to 5e-6 relative (truncated hi planes: 6.9e-5 and 1.9e-5).
+//    lo*hi + hi*lo + hi*hi, summed in float32.  P is split in registers
+//    once a CTA; Q once a launch by split_planes_kernel into planes of
+//    8 * ceil(K / 8) zero-padded columns; W in registers; a bf16 M is
+//    exact, a float32 M is split like W.  K pads to blocks of 8 in depth
+//    (k16 steps and one k8 step) and in width.  Against the plain version
+//    in float64 (chip_smoke.py phase K2small): 2.5e-5 relative at worst.
+//    Truncated hi planes lose three times as much (the emulation in
+//    tests/test_torch_dense_head.py: R to 6.0e-5 against 2.1e-5).
+//  * The tensor core's float32 accumulator truncates, so a chain of mma
+//    steps as long as the reduction axis loses about 6e-8 of the sum a
+//    step (7e-5 over tier 0's 1400 steps).  Each tile's products therefore
+//    start from a zero accumulator (6 steps) and are added to the running
+//    sums with float adds.
 //  * mma.sync.m16n8k16 with ldmatrix, not wgmma: the tensor work is a
-//    third of the bytes line even at mma.sync's ~60% of the wgmma peak,
-//    W has to pass through registers between the products in any case,
-//    and mma.sync needs no shared-memory descriptors or swizzled tiles.
-//    X and M are read from shared memory at the accumulator's positions
-//    by ldmatrix; the item side reads the same row-major tiles with
-//    ldmatrix.trans, so W^T is the accumulator and is never transposed.
-//    The Q tile serves the first product through ldmatrix and the second
-//    through ldmatrix.trans.  Row strides are padded by 16 bytes, which
-//    keeps the 8 rows of every ldmatrix in distinct banks.
-//  * Staging: a ring of 3-4 stages of (x_hi, x_lo, M, Q hi, Q lo) tiles in
-//    dynamic shared memory, filled by 16-byte cp.async.cg copies (rows past
-//    the end are zero-filled through the src-size operand), one
+//    quarter of the bytes line, W has to pass through registers between
+//    the products in any case, and mma.sync needs no shared-memory
+//    descriptors or swizzled tiles.  X and M are read from shared memory
+//    at the accumulator's positions by ldmatrix; the item side reads the
+//    same row-major tiles with ldmatrix.trans, so W^T is the accumulator
+//    and is never transposed.  The Q tile serves the first product through
+//    ldmatrix and the second through ldmatrix.trans.  Row strides are an
+//    odd number of 16-byte slots (padded where needed), which keeps the 8
+//    rows of every ldmatrix in distinct banks.
+//  * Staging: a ring of 3 stages of (x_hi, x_lo, M, Q hi, Q lo) tiles in
+//    dynamic shared memory (30-75 KB a CTA), filled by 16-byte cp.async.cg
+//    copies (rows past the end are zero-filled through the src-size
+//    operand), two tiles in flight while one is computed, one
 //    __syncthreads a tile.  cp.async, not TMA: the tiles are plain 2-D
 //    boxes of 64-256 byte rows, the copies cost a few instructions a
-//    thread a tile, and no tensor map has to be encoded on the host.
-//  * The divide is __fdividef (one MUFU.RCP and a multiply, 2 ulp).
+//    thread a tile, and no tensor map has to be encoded on the host.  On
+//    the user side, where a tile takes 64 bytes of each of 64 rows, the
+//    copies ask the L2 for the 256 bytes around them (6-25% faster).
+//  * The divide is __fdividef (one MUFU.RCP and a multiply, 2 ulp).  Empty
+//    cells are masked after W's split, two cells a register; a bf16 M
+//    gives the mask with one packed compare.
+//  * 138-168 registers a thread at K = 20 (no spills), 128 threads, three
+//    CTAs an SM by the launch bounds and by shared memory.
 //  * Tiers that would leave the card idle (few P tiles) split the
 //    reduction axis over more CTAs; each split writes its own partial rows
 //    and sum_partials_kernel adds them.  No atomics, so a launch repeats
-//    bit for bit.
-// Registers, shared memory and CTAs an SM: see the ptxas lines of
-// chip_smoke.py's build phase and ops/dense_head.py::plan_launch.
+//    bit for bit.  ops/dense_head.py::plan_launch picks the splits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,35 +93,26 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// 16 bytes from global to shared memory, zero-filled past src_bytes.  With
+// PREFETCH the copy asks the L2 to fetch the 256 bytes around the source.
+template <bool PREFETCH>
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-
-// The same copy with a hint that the L2 fetch 256 bytes around the source.
-__device__ __forceinline__ void cp_async16_pf(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+  if (PREFETCH)
+    asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+  else
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// Wait until at most N of this thread's copy groups are pending.
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Wait until at most n of this thread's copy groups are pending.
-__device__ __forceinline__ void cp_async_wait_pending(int n) {
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    default: cp_async_wait<4>(); break;
-  }
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
@@ -203,6 +212,7 @@ __global__ void split_planes_kernel(const float* __restrict__ tab, int n, int K,
 // Geometry (kept in step with ops/dense_head.py).
 constexpr int kWarps = 4;  // warps a CTA; each owns 16 rows of P
 constexpr int kBQ = 32;  // rows of Q per tile
+constexpr int kStages = 3;  // ring of staged tiles: two in flight, one computed
 constexpr int kThreads = kWarps * 32;
 constexpr int kPT = kWarps * 16;  // rows of P a CTA
 constexpr int kMinCtas = 3;  // resident CTAs the launch bounds keep room for (168 registers)
@@ -220,8 +230,8 @@ __device__ __forceinline__ void head_tile_body(
     const float* __restrict__ p_tab, const uint16_t* __restrict__ q_hi,
     const uint16_t* __restrict__ q_lo, const uint16_t* __restrict__ x_hi,
     const uint16_t* __restrict__ x_lo, const void* __restrict__ m_ptr, int rows, int hip,
-    int K, float rate_floor, int tiles_per_split, int stages, float* __restrict__ dst) {
-  constexpr int BQ = kBQ, PT = kPT, THREADS = kThreads;
+    int K, float rate_floor, int tiles_per_split, float* __restrict__ dst) {
+  constexpr int BQ = kBQ, PT = kPT, THREADS = kThreads, STAGES = kStages;
   constexpr int KD = 8 * NT;
   constexpr int NC = BQ / 16;  // 16-row chunks of Q a tile
   constexpr int CELL_ROWS = ITEM ? BQ : PT;
@@ -283,16 +293,10 @@ __device__ __forceinline__ void head_tile_body(
       const int64_t off = ok ? (int64_t)gr * hip + gc : 0;
       const int nb = ok ? 16 : 0;
       const uint32_t d = st + r * CS + ch * 16;
-      const uint16_t* mb = static_cast<const uint16_t*>(m_ptr);
-      if (PREFETCH) {
-        cp_async16_pf(d, x_hi + off, nb);
-        if (has_lo) cp_async16_pf(d + OFF_XLO, x_lo + off, nb);
-        if (!M_F32) cp_async16_pf(d + OFF_M, mb + off, nb);
-      } else {
-        cp_async16(d, x_hi + off, nb);
-        if (has_lo) cp_async16(d + OFF_XLO, x_lo + off, nb);
-        if (!M_F32) cp_async16(d + OFF_M, mb + off, nb);
-      }
+      cp_async16<PREFETCH>(d, x_hi + off, nb);
+      if (has_lo) cp_async16<PREFETCH>(d + OFF_XLO, x_lo + off, nb);
+      if (!M_F32)
+        cp_async16<PREFETCH>(d + OFF_M, static_cast<const uint16_t*>(m_ptr) + off, nb);
     }
     if (M_F32) {
       constexpr int MCH = CELL_COLS / 4;
@@ -301,9 +305,8 @@ __device__ __forceinline__ void head_tile_body(
         const int gr = grow0 + r, gc = gcol0 + ch * 4;
         const bool ok = gr < rows && gc < hip;
         const int64_t off = ok ? (int64_t)gr * hip + gc : 0;
-        const uint32_t d = st + OFF_M + r * MS + ch * 16;
-        if (PREFETCH) cp_async16_pf(d, static_cast<const float*>(m_ptr) + off, ok ? 16 : 0);
-        else cp_async16(d, static_cast<const float*>(m_ptr) + off, ok ? 16 : 0);
+        cp_async16<PREFETCH>(st + OFF_M + r * MS + ch * 16,
+                             static_cast<const float*>(m_ptr) + off, ok ? 16 : 0);
       }
     }
     for (int e = tid; e < 2 * BQ * NT; e += THREADS) {
@@ -312,8 +315,8 @@ __device__ __forceinline__ void head_tile_body(
       const int gq = q0 + r;
       const bool ok = gq < nQ;
       const int64_t off = ok ? (int64_t)gq * KD + ch * 8 : 0;
-      cp_async16(st + OFF_Q + pl * Q_BYTES + r * QS + ch * 16,
-                 (pl ? q_lo : q_hi) + off, ok ? 16 : 0);
+      cp_async16<false>(st + OFF_Q + pl * Q_BYTES + r * QS + ch * 16,
+                        (pl ? q_lo : q_hi) + off, ok ? 16 : 0);
     }
   };
 
@@ -324,23 +327,23 @@ __device__ __forceinline__ void head_tile_body(
     for (int i = 0; i < 4; ++i) { ow[f][i] = 0.f; om[f][i] = 0.f; }
   }
 
-  for (int s = 0; s < stages - 1; ++s) {
+  for (int s = 0; s < STAGES - 1; ++s) {
     if (s < n_my) load_tile(t0 + s, s);
     cp_async_commit();
   }
   int s_cur = 0;  // stage of tile `it`
   for (int it = 0; it < n_my; ++it) {
-    cp_async_wait_pending(stages - 2);  // tile `it` has landed (this thread's part)
+    cp_async_wait<STAGES - 2>();  // tile `it` has landed (this thread's part)
     __syncthreads();  // everyone's part has; and tile it-1's stage is free
     {
-      const int nx = it + stages - 1;
-      const int s_nx = s_cur == 0 ? stages - 1 : s_cur - 1;
+      const int nx = it + STAGES - 1;
+      const int s_nx = s_cur == 0 ? STAGES - 1 : s_cur - 1;
       if (nx < n_my) load_tile(t0 + nx, s_nx);
       cp_async_commit();
     }
     const unsigned char* stp = smem + s_cur * stage_bytes;
     const uint32_t st = smem_base + s_cur * stage_bytes;
-    s_cur = s_cur + 1 == stages ? 0 : s_cur + 1;
+    s_cur = s_cur + 1 == STAGES ? 0 : s_cur + 1;
 
     // acc[c][j] = P Q^T for Q rows 16c + 8j .. + 7 (n8 tile j): the depth
     // in k16 steps and, for an odd NT, one k8 step; three terms.
@@ -401,9 +404,15 @@ __device__ __forceinline__ void head_tile_body(
         const int j = i >> 1, h = i & 1;
         float x0 = bf16_lo(xr[i]), x1 = bf16_hi(xr[i]);
         if (has_lo) { x0 += bf16_lo(xl[i]); x1 += bf16_hi(xl[i]); }
-        float m0, m1;
+        const float w0 = __fdividef(x0, fmaxf(acc[c][j][2 * h], rate_floor));
+        const float w1 = __fdividef(x1, fmaxf(acc[c][j][2 * h + 1], rate_floor));
+        split2(w0, w1, w_hi[i], w_lo[i]);
+        // Empty cells are masked after the split, both halves of a register
+        // at once (which also drops what 0 / 0 left there).
+        uint32_t keep;
         if (M_F32) {
           const unsigned char* mp = stp + OFF_M;
+          float m0, m1;
           if (ITEM) {
             const int r0 = 16 * c + 8 * j + 2 * p, col = warp * 16 + g + 8 * h;
             m0 = *reinterpret_cast<const float*>(mp + r0 * MS + col * 4);
@@ -414,25 +423,15 @@ __device__ __forceinline__ void head_tile_body(
             m0 = mm.x; m1 = mm.y;
           }
           split2(m0, m1, m_hi[i], m_lo[i]);
+          keep = (m0 > 0.f ? 0x0000ffffu : 0u) | (m1 > 0.f ? 0xffff0000u : 0u);
         } else {
-          m0 = m1 = 0.f;
-          m_hi[i] = mr[i];
-        }
-        float w0 = __fdividef(x0, fmaxf(acc[c][j][2 * h], rate_floor));
-        float w1 = __fdividef(x1, fmaxf(acc[c][j][2 * h + 1], rate_floor));
-        if (M_F32) {
-          w0 = m0 > 0.f ? w0 : 0.f;
-          w1 = m1 > 0.f ? w1 : 0.f;
-          split2(w0, w1, w_hi[i], w_lo[i]);
-        } else {
-          // Empty cells are masked after the split, both halves at once.
           const uint32_t zero = 0u;
-          const unsigned keep = __hgt2_mask(*reinterpret_cast<const __nv_bfloat162*>(&mr[i]),
-                                            *reinterpret_cast<const __nv_bfloat162*>(&zero));
-          split2(w0, w1, w_hi[i], w_lo[i]);
-          w_hi[i] &= keep;
-          w_lo[i] &= keep;
+          m_hi[i] = mr[i];
+          keep = __hgt2_mask(*reinterpret_cast<const __nv_bfloat162*>(&mr[i]),
+                             *reinterpret_cast<const __nv_bfloat162*>(&zero));
         }
+        w_hi[i] &= keep;
+        w_lo[i] &= keep;
       }
 
       // out[f] += [W | M] (16 x 16) * Q (16 rows x factors 8f .. 8f + 7).
@@ -504,10 +503,9 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
 head_user_kernel(const float* __restrict__ theta, const uint16_t* __restrict__ planes,
                  const uint16_t* __restrict__ x_hi, const uint16_t* __restrict__ x_lo,
                  const void* __restrict__ m, int rows, int hip, int K, float rate_floor,
-                 int tiles_per_split, int stages, float* __restrict__ dst) {
+                 int tiles_per_split, float* __restrict__ dst) {
   head_tile_body<NT, M_F32, false>(theta, planes, planes + (int64_t)hip * 8 * NT, x_hi,
-                                      x_lo, m, rows, hip, K, rate_floor, tiles_per_split,
-                                      stages, dst);
+                                   x_lo, m, rows, hip, K, rate_floor, tiles_per_split, dst);
 }
 
 template <int NT, bool M_F32>
@@ -515,10 +513,9 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
 head_item_kernel(const float* __restrict__ beta, const uint16_t* __restrict__ planes,
                  const uint16_t* __restrict__ x_hi, const uint16_t* __restrict__ x_lo,
                  const void* __restrict__ m, int rows, int hip, int K, float rate_floor,
-                 int tiles_per_split, int stages, float* __restrict__ dst) {
+                 int tiles_per_split, float* __restrict__ dst) {
   head_tile_body<NT, M_F32, true>(beta, planes, planes + (int64_t)rows * 8 * NT, x_hi,
-                                     x_lo, m, rows, hip, K, rate_floor, tiles_per_split,
-                                     stages, dst);
+                                  x_lo, m, rows, hip, K, rate_floor, tiles_per_split, dst);
 }
 
 __global__ void sum_partials_kernel(const float* __restrict__ partial, int n_splits,
@@ -531,8 +528,9 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial, int n_spl
   }
 }
 
-// Dynamic shared memory of one stage (kept in step with
-// ops/dense_head.py::stage_bytes, which the entry point checks).
+// Dynamic shared memory of one stage.  ops/dense_head.py::stage_bytes is a
+// copy for the launch plan's reckoning of resident CTAs; the launch uses
+// this one.
 constexpr int stage_bytes_of(int nt, bool m_f32, bool has_lo, bool item) {
   const int bq = kBQ;
   const int cell_rows = item ? bq : kPT, cell_cols = item ? kPT : bq;
@@ -544,10 +542,9 @@ constexpr int stage_bytes_of(int nt, bool m_f32, bool has_lo, bool item) {
 template <int NT, bool M_F32>
 cudaError_t launch(const float* p_tab, const uint16_t* planes, const uint16_t* x_hi,
                    const uint16_t* x_lo, const void* m, int rows, int hip, int K,
-                   float floor, int item_side, int n_splits, int stages, int smem_bytes,
-                   float* dst, cudaStream_t stream) {
-  if (smem_bytes != stages * stage_bytes_of(NT, M_F32, x_lo != nullptr, item_side != 0))
-    return cudaErrorInvalidValue;
+                   float floor, int item_side, int n_splits, float* dst,
+                   cudaStream_t stream) {
+  const int smem_bytes = kStages * stage_bytes_of(NT, M_F32, x_lo != nullptr, item_side != 0);
   const int nP = item_side ? hip : rows, nQ = item_side ? rows : hip;
   const int n_tiles = (nQ + kBQ - 1) / kBQ;
   const int per = (n_tiles + n_splits - 1) / n_splits;
@@ -557,7 +554,7 @@ cudaError_t launch(const float* p_tab, const uint16_t* planes, const uint16_t* x
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem_bytes, stream>>>(
-      p_tab, planes, x_hi, x_lo, m, rows, hip, K, floor, per, stages, dst);
+      p_tab, planes, x_hi, x_lo, m, rows, hip, K, floor, per, dst);
   return cudaGetLastError();
 }
 
@@ -576,21 +573,18 @@ cudaError_t launch_nt(int K, int m_is_f32, Args... args) {
 }  // namespace
 
 // theta (rows, K) f32, beta (hip, K) f32, x_hi/x_lo (rows, hip) bf16 bits
-// (x_lo may be null), m (rows, hip) bf16 or f32.  hip % 64 == 0, K <= 32,
-// 3 <= stages <= 6.  planes: scratch for the streamed table's hi and lo
-// planes, 2 * n * 8 * ceil(K / 8) bf16 with n = hip (user side) or rows.
-// smem_bytes: stages * the stage size, as ops/dense_head.py::plan_launch
-// reckons it (checked here).  n_splits > 1 needs partial (n_splits *
-// out_rows * 2K floats).
+// (x_lo may be null), m (rows, hip) bf16 or f32.  hip % 64 == 0, K <= 32.
+// planes: scratch for the streamed table's hi and lo planes,
+// 2 * n * 8 * ceil(K / 8) bf16 with n = hip (user side) or rows.
+// n_splits > 1 needs partial (n_splits * out_rows * 2K floats).
 extern "C" int pmf_dense_head_tier(const float* theta, const float* beta,
                                    const void* x_hi, const void* x_lo,
                                    const void* m, int m_is_f32, int rows,
                                    int hip, int K, float rate_floor,
-                                   int item_side, int n_splits, int stages,
-                                   int smem_bytes, void* planes,
+                                   int item_side, int n_splits, void* planes,
                                    float* partial, float* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (K < 1 || K > 32 || stages < 3 || stages > 6 || n_splits < 1)
+  if (K < 1 || K > 32 || n_splits < 1)
     return (int)cudaErrorInvalidValue;
   const int KD = (K + 7) / 8 * 8;
   uint16_t* pl = static_cast<uint16_t*>(planes);
@@ -609,7 +603,7 @@ extern "C" int pmf_dense_head_tier(const float* theta, const float* beta,
   const uint16_t* xl = static_cast<const uint16_t*>(x_lo);
   float* dst = n_splits > 1 ? partial : out;
   cudaError_t err = launch_nt(K, m_is_f32, p_tab, pl, xh, xl, m, rows, hip, K, rate_floor,
-                              item_side, n_splits, stages, smem_bytes, dst, stream);
+                              item_side, n_splits, dst, stream);
   if (err != cudaSuccess || n_splits <= 1) return (int)err;
   const int64_t n = (int64_t)(item_side ? hip : rows) * 2 * K;
   const int threads = 256;

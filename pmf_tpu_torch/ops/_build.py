@@ -36,11 +36,9 @@ SIGNATURES = {
     # e_self, e_other, row_ptr, other, n_self, K, out, stream
     "pmf_cavi_edge_raw": [_P, _P, _P, _P, _I, _I, _P, _P],
     # theta, beta, x_hi, x_lo, m, m_is_f32, rows, hip, K, rate_floor,
-    # item_side, n_splits, stages, smem_bytes, planes, partial, out, stream
+    # item_side, n_splits, planes, partial, out, stream
     "pmf_dense_head_tier": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
-                            _I, _I, _P, _P, _P, _P],
-    "pmf_dense_head_tier_cc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
-                               _P, _P, _P],
+                            _P, _P, _P, _P],
     # aug, row_ptr, other, x, n_self, K, with_bias_stats, out, stream
     "pmf_gauss_factor": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     # aug, row_ptr, other, x, n_self, K, out, stream

@@ -10,8 +10,11 @@ tier's user rows and beta its item rows (zero past ``hi``):
 
 ``fused_alloc_tier`` is the wrapper of kernel K2 (``csrc/dense_head.cu``):
 on CUDA tensors it launches the kernel (or raises), on CPU tensors it runs
-``fused_alloc_tier_plain``.  ``poisson_head_stats{,_t}`` apply the final
-self-factor multiply, as the JAX package's functions of the same names.
+``fused_alloc_tier_plain``.  ``plan_launch`` is the kernel's launch plan
+as a pure function of the tier's shape: resident CTAs, splits of the
+reduction axis and shared-memory bytes.  ``poisson_head_stats{,_t}`` apply
+the final self-factor multiply, as the JAX package's functions of the same
+names.
 
 ``head_products{,_t}`` are the linear products the Gaussian statistics
 need over one tier, ``(M @ tab, X @ xtab)`` and their transposes.  The
@@ -31,7 +34,6 @@ scalar-weighted rate half ``M @ (s * B)`` from ``head_products{,_t}``.
 from __future__ import annotations
 
 import functools
-import math
 from typing import NamedTuple
 
 import torch
@@ -41,14 +43,17 @@ from pmf_tpu_torch.ops import _build
 
 HEAD_LAUNCHES = _build.LaunchCounter()
 
-# Kernel geometry (kept in step with csrc/dense_head.cu).  P is the table
+# Kernel geometry, a copy of csrc/dense_head.cu's for the launch plan (the
+# kernel sizes its own shared memory; chip_smoke.py's K2 phases run every
+# case of it on the card, where a copy out of step would show as a wrong
+# count of resident CTAs in the log, not as a wrong result).  P is the table
 # a CTA keeps in registers (theta on the user side, beta on the item side),
 # Q the table that streams past it in tiles along the reduction axis.
 WARPS = 4  # warps a CTA; each owns 16 rows of P
 P_TILE = 16 * WARPS  # rows of P a CTA
 Q_TILE = 32  # rows of Q per tile
 MAX_CTAS_PER_SM = 3  # resident CTAs the kernel's launch bounds keep registers for
-MIN_STAGES, MAX_STAGES = 3, 4  # ring of staged tiles
+STAGES = 3  # ring of staged tiles: two in flight, one computed
 MAX_SPLITS = 64  # CTAs that may share one reduction axis
 SMEM_PER_CTA = 232_448  # dynamic shared memory one CTA may ask for
 SMEM_PER_SM = 233_472  # of which every resident CTA reserves 1 KB
@@ -89,7 +94,7 @@ class LaunchPlan(NamedTuple):
     p_tile: int  # rows of P a CTA owns
     q_tile: int  # rows of Q per staged tile
     depth: int  # K padded to a multiple of 8 (columns of the bf16 planes)
-    stages: int  # ring stages
+    stages: int  # ring stages (STAGES)
     ctas_per_sm: int  # resident CTAs the shared memory and registers allow
     splits: int  # CTAs sharing the reduction axis (grid.y)
     tiles_per_split: int
@@ -113,21 +118,16 @@ def stage_bytes(item_side: bool, m_f32: bool, has_lo: bool, K: int) -> int:
 @functools.lru_cache(maxsize=None)
 def plan_launch(rows: int, hip: int, K: int, item_side: bool, m_f32: bool,
                 has_lo: bool, n_sm: int) -> LaunchPlan:
-    """The launch of one tier and side on a card of ``n_sm`` SMs: the ring
-    depth and resident CTAs the shared memory allows, and the split of the
+    """The launch of one tier and side on a card of ``n_sm`` SMs: the
+    resident CTAs the ring's shared memory allows, and the split of the
     reduction axis (columns on the user side, rows on the item side) that
     takes the fewest tile times when the P tiles alone would not fill the
     card."""
-    sb = stage_bytes(item_side, m_f32, has_lo, K)
-    # As many resident CTAs as leave each a ring of MIN_STAGES.
-    for ctas in range(MAX_CTAS_PER_SM, 0, -1):
-        room = min(SMEM_PER_SM // ctas - SMEM_RESERVED, SMEM_PER_CTA)
-        stages = min(MAX_STAGES, room // sb)
-        if stages >= MIN_STAGES:
-            break
-    else:
-        raise ValueError(f"a ring of {MIN_STAGES} stages of {sb} bytes does not "
-                         f"fit {SMEM_PER_CTA} bytes of shared memory")
+    smem = STAGES * stage_bytes(item_side, m_f32, has_lo, K)
+    if smem > SMEM_PER_CTA:
+        raise ValueError(f"a ring of {STAGES} stages, {smem} bytes, does not fit "
+                         f"{SMEM_PER_CTA} bytes of shared memory")
+    ctas = min(MAX_CTAS_PER_SM, SMEM_PER_SM // (smem + SMEM_RESERVED))
     n_p, n_q = (hip, rows) if item_side else (rows, hip)
     parallel = -(-n_p // P_TILE)
     serial = max(-(-n_q // Q_TILE), 1)
@@ -142,12 +142,11 @@ def plan_launch(rows: int, hip: int, K: int, item_side: bool, m_f32: bool,
         per = -(-serial // s)
         s = -(-serial // per)  # as the kernel cuts them: no split is empty
         waves = -(-parallel * s // slots)
-        cost = waves * (per + stages - 1) + (s * partial_tiles if s > 1 else 0)
+        cost = waves * (per + STAGES - 1) + (s * partial_tiles if s > 1 else 0)
         if best is None or cost < best[0]:
             best = (cost, s, per)
     _, splits, per = best
-    return LaunchPlan(P_TILE, Q_TILE, 8 * -(-K // 8), stages, ctas, splits, per,
-                      stages * sb)
+    return LaunchPlan(P_TILE, Q_TILE, 8 * -(-K // 8), STAGES, ctas, splits, per, smem)
 
 
 def _check_cuda_args(theta_h, beta_h, x_hi, m, x_lo):
@@ -201,42 +200,7 @@ def fused_alloc_tier(theta_h, beta_h, x_hi, m, x_lo=None, *,
                            device=dev) if plan.splits > 1 else None)
     _build.launch("pmf_dense_head_tier", HEAD_LAUNCHES, dev, theta_h, beta_h,
                   x_hi, x_lo, m, int(m_f32), rows, hip, K, rate_floor,
-                  int(item_side), plan.splits, plan.stages, plan.smem_bytes,
-                  planes, partial, out)
-    return out
-
-
-# The CUDA-core kernel this module launched before the tensor-core one, kept
-# for one comparison on the card.
-CC_LAUNCHES = _build.LaunchCounter()
-
-
-def _plan_splits_cc(rows, hip, item_side, n_sm):
-    parallel, serial = ((hip // 64, -(-rows // 32)) if item_side
-                        else (-(-rows // 64), hip // 32))
-    if serial <= 1:
-        return 1
-    splits = min(serial, math.ceil(4 * n_sm / max(parallel, 1)))
-    return -(-serial // -(-serial // splits))
-
-
-def fused_alloc_tier_cc(theta_h, beta_h, x_hi, m, x_lo=None, *,
-                        rate_floor: float, item_side: bool = False) -> torch.Tensor:
-    theta_h = theta_h.contiguous()
-    beta_h = beta_h.contiguous()
-    _check_cuda_args(theta_h, beta_h, x_hi, m, x_lo)
-    rows, K = theta_h.shape
-    hip = m.shape[1]
-    dev = theta_h.device
-    out_rows = hip if item_side else rows
-    out = torch.empty((out_rows, 2 * K), dtype=torch.float32, device=dev)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = _plan_splits_cc(rows, hip, item_side, n_sm)
-    partial = (torch.empty((splits, out_rows, 2 * K), dtype=torch.float32,
-                           device=dev) if splits > 1 else None)
-    _build.launch("pmf_dense_head_tier_cc", CC_LAUNCHES, dev, theta_h, beta_h,
-                  x_hi, x_lo, m, int(m.dtype == torch.float32), rows, hip, K,
-                  rate_floor, int(item_side), splits, partial, out)
+                  int(item_side), plan.splits, planes, partial, out)
     return out
 
 

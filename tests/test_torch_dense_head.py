@@ -1,6 +1,10 @@
 """Port dense-head statistics (kernel K2's plain version on the CPU)
 against the JAX package's fused Pallas kernel in interpret mode, on the
-same tier, at the reference's engine gate (5e-4 / 1e-5)."""
+same tier, at the reference's engine gate (5e-4 / 1e-5).  K2 itself runs
+only on the card, so its arithmetic (bf16 planes rounded to nearest,
+three-term products, float32 sums) is emulated here in plain tensor code
+and held against the plain version in float64 and the JAX kernel, and its
+launch plan is checked as the pure function it is."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -108,7 +112,14 @@ def _emulate_kernel(theta, beta, x_hi, m, x_lo, rate_floor, item_side,
                     truncate=False):
     """K2's arithmetic in plain float32 tensor code: every f32 operand two
     bf16 planes, every product three terms (a bf16 M is one exact plane),
-    W split between the two products.  Returns (out, R)."""
+    W split between the two products.  Returns (out, R).
+
+    Each product here is one float32 matmul over the whole reduction axis.
+    The length of the kernel's mma chains (one chain a tile, joined by float
+    adds) is not emulated: ``test_short_mma_chains_beat_one_long_chain``
+    pins why they are short, and ``chip_smoke.py::phase_k2`` holds the
+    kernel itself on the real tiers, whose reduction axes are long enough
+    to show a truncating accumulator."""
     th, be = _planes(theta, truncate), _planes(beta, truncate)
     R = _three_terms(th, (be[0].T, be[1].T))
     x = x_hi.float() + (0 if x_lo is None else x_lo.float())
@@ -199,6 +210,39 @@ def test_rounded_planes_beat_truncated_planes():
     assert errs[True][1] > 1.5 * errs[False][1]
 
 
+def _chain_truncating(terms):
+    """Sum ``terms`` (steps, chains) along axis 0 as a tensor-core chain
+    does: a float32 accumulator whose every add is truncated toward zero."""
+    acc = np.zeros(terms.shape[1], np.float32)
+    for step in terms:
+        exact = acc.astype(np.float64) + step
+        near = exact.astype(np.float32)
+        over = np.abs(near.astype(np.float64)) > np.abs(exact)
+        acc = np.where(over, np.nextafter(near, np.float32(0)), near)
+    return acc
+
+
+def test_short_mma_chains_beat_one_long_chain():
+    """Why the kernel starts a fresh mma chain every tile: the tensor core's
+    float32 accumulator truncates, so one chain along a reduction axis of
+    1400 steps of positive terms loses some 1e-5 of the sum, which leaves
+    little of the 1e-4 tolerance, while chains of 6 steps joined by
+    (rounding) float adds stay two orders of magnitude under it."""
+    rng = np.random.default_rng(9)
+    steps, per_tile = 1400, 6
+    terms = rng.gamma(0.3, 1.0, size=(steps, 256)).astype(np.float32).astype(np.float64)
+    want = terms.sum(axis=0)
+    long_chain = _chain_truncating(terms)
+    short = np.zeros(256, np.float32)
+    for t0 in range(0, steps, per_tile):
+        short = short + _chain_truncating(terms[t0 : t0 + per_tile])
+    err_long = np.abs(long_chain - want) / want
+    err_short = np.abs(short - want) / want
+    assert err_long.max() > 1e-5
+    assert err_short.max() < 1e-6
+    assert np.all(long_chain <= want)  # truncation only ever loses
+
+
 REAL_TIERS = [(3072, 59392), (9216, 14848), (36864, 4096), (112640, 1024)]
 EDGE_SHAPES = [(8, 512), (8, 64), (70, 128), (3000, 960)]
 
@@ -220,7 +264,7 @@ def test_plan_splits_leaves_no_split_empty(rows, hip, item_side):
             assert plan.p_tile == tdh.P_TILE == 16 * tdh.WARPS
             assert plan.q_tile == tdh.Q_TILE
             assert plan.depth == 8 * -(-K // 8) >= K
-            assert tdh.MIN_STAGES <= plan.stages <= tdh.MAX_STAGES
+            assert plan.stages == tdh.STAGES >= 3
             assert plan.smem_bytes == plan.stages * tdh.stage_bytes(
                 item_side, m_f32, has_lo, K)
             assert plan.smem_bytes <= 232_448
