@@ -35,11 +35,19 @@ extended sweep under the profiler) and pelbo (a 2-sweep plain fit with
 Beside K1, on the same tail: K1raw, the tail kernel's mode "raw" vs its
 plain version and its linear library form.  After the Poisson phases, on
 the same ratings, the HPF-MAP/SGD path: mdata (the segment layout at
-batch_size=65536, mix=8), K9 (the minibatch-gradient kernel vs its plain
-version on real steps, and one whole epoch of its launches timed), msmall
+batch_size=65536, mix=8, and one epoch's grouping by (step, self row),
+timed), K9 (the minibatch-gradient kernel vs its plain version on real
+steps, two launches of a step equal in bits, and one whole epoch of its
+launches, 2 a step, timed by CUDA events and by the profiler), msmall
 (three blocked and three flat epochs card vs host on a small input), mfit
 (``HPFMap.fit`` for 3 epochs, engine "blocked_high" then "flat", with
 launch counters) and mprofile (20 steady blocked steps under the profiler).
+
+Before the data, phase bigk: every kernel at K = 50 and K = 128 vs its
+plain version on small shapes (K2 on both sides with both M types), then
+at K = 50 the small, psmall, gsmall and msmall card-vs-host runs.  Beside
+the real-data phases, "bigk timing": every kernel's time at K = 50 on the
+real tail, tiers, matrices and steps.
 
 Those are freed, then the Gaussian-MF CAVI path:
 
@@ -130,18 +138,27 @@ def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_once(fn, expect: dict):
+WARM_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
+
+
+def profile_once(fn, expect: dict, warm: bool = True, attempts: int = 3):
     """One call of ``fn`` under torch.profiler: (device rows sorted by time
     as (ms, count, name), busy ms, window ms on the host clock).
     ``expect`` maps a kernel-name part to the launches one call makes; a
     trace that holds fewer of them lost events, so the call is profiled
-    again (three traces at most) and a shortfall that stays is logged."""
+    again (``attempts`` traces at most) and a shortfall that stays is
+    logged.  With ``warm`` the trace first runs 8 short sleep kernels,
+    left out of the rows: fault F2 (PERF.md, PR 6), the first kernel
+    records of a trace go missing."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for attempt in range(3):
+    for attempt in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            if warm:
+                for _ in range(8):
+                    torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
@@ -149,11 +166,13 @@ def profile_once(fn, expect: dict):
             wall_ms = (time.perf_counter() - t0) * 1e3
         rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                        for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA), reverse=True)
+                       if e.device_type == DeviceType.CUDA and WARM_KERNEL not in e.key),
+                      reverse=True)
         seen = {part: sum(n for _, n, key in rows if part in key) for part in expect}
         if seen == expect:
             break
-        log(f"  trace {attempt + 1} holds launches {seen}, one call makes {expect}")
+        log(f"  trace {attempt + 1}{'' if warm else ' (no warm-up)'} holds launches "
+            f"{seen}, one call makes {expect}")
     return rows, sum(r[0] for r in rows), wall_ms
 
 
@@ -532,8 +551,264 @@ def phase_k2small():
         f"launches equal in bits")
 
 
-def phase_small():
-    """Blocked sweeps on the card vs the host on one small input."""
+BIGK_KS = (50, 128)  # the K of the bigk phase's checks
+K_WIDE = 50  # the K at which every kernel is also timed on the real data
+
+
+def _pos(gen, *shape):
+    import torch
+
+    return 0.05 + torch.rand(*shape, generator=gen, device="cuda")
+
+
+def _bigk_poisson_tail(blocked, k):
+    """K1 (both modes), K7 and K8 at ``k`` on a small tail, both
+    directions: worst relative error of each (positive sums)."""
+    import torch
+
+    from pmf_tpu_torch.ops import cavi_edge as ce
+    from pmf_tpu_torch.ops import ext_edge as ee
+
+    gen = torch.Generator(device="cuda").manual_seed(31 + k)
+    worst = dict.fromkeys(("K1", "K1raw", "K7", "K8"), 0.0)
+    for p in (blocked.by_user, blocked.by_item):
+        es, es_new, eo, so = (_pos(gen, p.n_self, k), _pos(gen, p.n_self, k),
+                              _pos(gen, p.n_other, k), _pos(gen, p.n_other))
+        csr = (p.row_ptr, p.other)
+        for name, kern, plain, args in (
+                ("K1", ce.tail_edge_stats, ce.tail_edge_stats_plain,
+                 (es, eo, *csr, p.x)),
+                ("K1raw", lambda *a: ce.tail_edge_stats(*a, mode="raw"),
+                 lambda *a: ce.tail_edge_stats_plain(*a, mode="raw"),
+                 (es, eo, *csr, None)),
+                ("K7", ee.ext_factor_tail, ee.ext_factor_tail_plain,
+                 (es, eo, so, *csr, p.x)),
+                ("K8", ee.ext_scalar_tail, ee.ext_scalar_tail_plain,
+                 (es_new, eo, so, *csr))):
+            got, ref = kern(*args), plain(*args)
+            _, rel = compare(got, ref)
+            if got.shape != ref.shape or not rel <= RTOL:
+                raise AssertionError(f"bigk {name} K={k}: relative error {rel} > {RTOL}")
+            worst[name] = max(worst[name], rel)
+    return worst
+
+
+def _bigk_gauss_tail(blocked, k):
+    """K3 (exact and lagged), K5 and K6 at ``k`` on a small tail, both
+    directions: worst column error of each (signed sums)."""
+    import torch
+
+    from pmf_tpu_torch.ops import gaussian_edge as ge
+
+    worst = dict.fromkeys(("K3", "K5", "K6"), 0.0)
+    for _, p, (m_s, _, b_s, _), (m_o, V_o, b_o, v_o) in _new_space_gauss(blocked, k):
+        A = (V_o + m_o[:, :, None] * m_o[:, None, :]).reshape(-1, k * k)
+        aug3 = torch.cat([m_o, b_o[:, None], ge.pack_tri(A, k)], dim=1).contiguous()
+        del A
+        aug5 = torch.cat([m_o, b_o[:, None]], dim=1).contiguous()
+        aug6 = torch.cat([m_o, v_o + m_o * m_o, b_o[:, None]], dim=1).contiguous()
+        self6 = torch.cat([m_s, b_s[:, None]], dim=1).contiguous()
+        csr = (p.row_ptr, p.other, p.x)
+        cases = [("K3", ge.factor_tail_stats, ge.factor_tail_stats_plain,
+                  (aug3, *csr, k, wbs)) for wbs in (False, True)]
+        cases += [("K5", ge.bias_tail_stats, ge.bias_tail_stats_plain, (aug5, *csr)),
+                  ("K6", ge.diag_tail_stats, ge.diag_tail_stats_plain,
+                   (aug6, self6, *csr))]
+        for name, kern, plain, args in cases:
+            got, ref = kern(*args), plain(*args, max_edges=1 << 13)
+            _, col, ok = column_check(got, ref)
+            if got.shape != ref.shape or not ok:
+                raise AssertionError(f"bigk {name} K={k}: column error {col} > {COL_RTOL}")
+            worst[name] = max(worst[name], col)
+    return worst
+
+
+def _bigk_head(k):
+    """K2 at ``k`` vs its plain version in float64: two shapes, the three
+    cell kinds (bf16 and float32 M), both sides, a second launch in bits."""
+    import torch
+
+    from pmf_tpu_torch.ops.dense_head import fused_alloc_tier, fused_alloc_tier_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(70 + k)
+    worst = 0.0
+    for rows, hip in ((70, 128), (3000, 960)):
+        hi = hip - 13
+        for kind in ("integer", "fractional", "m_f32"):
+            x_hi, x_lo, m = _k2small_cells(kind, rows, hip, hi, gen)
+            theta = 0.02 + torch.rand(rows, k, generator=gen, device="cuda")
+            beta = 0.02 + torch.rand(hip, k, generator=gen, device="cuda")
+            beta[hi:] = 0
+            for item_side in (False, True):
+                kw = dict(rate_floor=K2SMALL_FLOOR, item_side=item_side)
+                got = fused_alloc_tier(theta, beta, x_hi, m, x_lo, **kw)
+                again = fused_alloc_tier(theta, beta, x_hi, m, x_lo, **kw)
+                ref = fused_alloc_tier_plain(theta.double(), beta.double(), x_hi, m,
+                                             x_lo, **kw)
+                _, rel = compare(got, ref)
+                tag = (f"bigk K2 K={k} rows {rows} hip {hip} {kind} "
+                       f"{'item' if item_side else 'user'}")
+                if got.shape != ref.shape or not rel <= RTOL:
+                    raise AssertionError(f"{tag}: relative error {rel} > {RTOL}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{tag}: two launches differ in bits")
+                worst = max(worst, rel)
+    return worst
+
+
+def _spd(n, k, seed):
+    """n random K x K positive-definite matrices on the card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    A = 0.1 * torch.randn(n, k, k, generator=g, device="cuda")
+    return (0.5 * torch.eye(k, device="cuda") + A @ A.transpose(1, 2)).contiguous()
+
+
+def _bigk_inverse(k):
+    """K4 at ``k`` vs its plain version and float64 inv, per matrix."""
+    import torch
+
+    from pmf_tpu_torch.ops.gj_inverse import (
+        batched_psd_inverse_gj, batched_psd_inverse_gj_plain)
+
+    P = _spd(3000, k, 40 + k)
+    got = batched_psd_inverse_gj(P)
+    ref = batched_psd_inverse_gj_plain(P)
+    ref64 = torch.linalg.inv(P.double())
+    scale = ref64.abs().amax(dim=(1, 2))
+    err = max(float(((got - ref).abs().amax(dim=(1, 2)) / scale).max()),
+              float(((got.double() - ref64).abs().amax(dim=(1, 2)) / scale).max()))
+    if not err <= INV_RTOL:
+        raise AssertionError(f"bigk K4 K={k}: error {err} > {INV_RTOL}")
+    return err
+
+
+def _bigk_map(u, i, x, k):
+    """K9 at ``k`` on a small layout: three steps of an epoch grouping
+    (the first, the last, the one with the longest item run), with pieces
+    of PIECE edges and of 16 (so that many runs span several pieces)."""
+    from pmf_tpu_torch.models.hpf_map import build_map_layout
+    from pmf_tpu_torch.ops.map_grad import PIECE
+
+    mix = 4
+    lay = build_map_layout(u, i, x, int(u.max()) + 1, int(i.max()) + 1, 4096, mix=mix,
+                           device="cuda")
+    u_sp, i_sp = _map_tables(lay, k)
+    order = np.random.default_rng(9).permutation(lay.n_segments)
+    worst = 0.0
+    for piece in (PIECE, 16):
+        groups = lay.group(order, mix, k, piece)
+        n_steps = groups[0].n_steps
+        longest, edges = _longest_run_step(groups[1])
+        for step in sorted({0, n_steps - 1, longest}):
+            seg_ids = order[step * mix : (step + 1) * mix].tolist()
+            worst = max(worst, _check_map_step(
+                lay, u_sp, i_sp, seg_ids, f"bigk K9 K={k} piece {piece} step {step}"
+                + (f" (longest item run, {edges} edges)" if step == longest else ""),
+                groups, step)[1])
+    return worst
+
+
+def phase_bigk():
+    """Every kernel at K = 50 and K = 128 vs its plain version on small
+    shapes, at the K = 20 phases' tolerances (RTOL for positive sums,
+    COL_RTOL per column for signed ones, INV_RTOL for K4); then, at K = 50,
+    one card-vs-host fit per family (the small, psmall, gsmall and msmall
+    phases)."""
+    import torch
+
+    from pmf_tpu_torch.data.blocked import build_blocked
+    from pmf_tpu_torch.data.synthetic import synth_ratings
+
+    u, i, x = synth_ratings(3000, 1500, 120_000, seed=5)
+    x = (x + 1.0).astype(np.float32)
+    blocked = build_blocked(u, i, x, reorder=True, device="cuda")
+    gx = np.random.default_rng(2).standard_normal(len(u)).astype(np.float32)
+    gblocked = build_blocked(u, i, gx, reorder=True, device="cuda")
+    for k in BIGK_KS:
+        worst = _bigk_poisson_tail(blocked, k)
+        worst.update(_bigk_gauss_tail(gblocked, k))
+        worst["K2"] = _bigk_head(k)
+        worst["K4"] = _bigk_inverse(k)
+        worst["K9"] = _bigk_map(u, i, x, k)
+        torch.cuda.synchronize()
+        log(f"phase bigk K={k}: ok | worst error vs plain: "
+            + ", ".join(f"{n} {v:.3e}" for n, v in worst.items())
+            + f" (K1, K1raw, K2, K7, K8 relative, tol {RTOL}; K3, K5, K6, K9 per "
+            f"column, tol {COL_RTOL}; K4 per matrix, tol {INV_RTOL})")
+    del blocked, gblocked
+    phase_small(K_WIDE)
+    phase_psmall(K_WIDE)
+    phase_gsmall(K_WIDE)
+    phase_msmall(K_WIDE)
+
+
+def phase_wide_poisson(blocked):
+    """Device time at K_WIDE factors of K1, K1raw, K7, K8 on the real tail
+    and of K2 on the real tiers, both directions (CUDA events)."""
+    import torch
+
+    from pmf_tpu_torch.ops import cavi_edge as ce
+    from pmf_tpu_torch.ops import ext_edge as ee
+    from pmf_tpu_torch.ops.dense_head import fused_alloc_tier
+
+    k = K_WIDE
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ms = dict.fromkeys(("K1", "K1raw", "K2", "K7", "K8"), 0.0)
+    for p in (blocked.by_user, blocked.by_item):
+        es, eo, so = _pos(gen, p.n_self, k), _pos(gen, p.n_other, k), _pos(gen, p.n_other)
+        csr = (p.row_ptr, p.other)
+        ms["K1"] += cuda_ms(lambda: ce.tail_edge_stats(es, eo, *csr, p.x))
+        ms["K1raw"] += cuda_ms(lambda: ce.tail_edge_stats(es, eo, *csr, None, mode="raw"))
+        ms["K7"] += cuda_ms(lambda: ee.ext_factor_tail(es, eo, so, *csr, p.x))
+        ms["K8"] += cuda_ms(lambda: ee.ext_scalar_tail(es, eo, so, *csr))
+    for h in blocked.head or ():
+        theta = _pos(gen, h.hu, k)
+        beta = torch.nn.functional.pad(_pos(gen, h.hi, k), (0, 0, 0, h.hip - h.hi))
+        for item_side in (False, True):
+            ms["K2"] += cuda_ms(lambda: fused_alloc_tier(
+                theta, beta, h.x_hi, h.m, h.x_lo, rate_floor=1e-10, item_side=item_side))
+    log(f"phase bigk timing (Poisson, real data, K={k}): ok | per sweep "
+        + ", ".join(f"{n} {v:.4f} ms" for n, v in ms.items()))
+    return ms
+
+
+def phase_wide_gauss(blocked):
+    """Device time at K_WIDE factors of K3 (exact), K5, K6 on the real
+    Gaussian tail and K4 on 162k + 59k matrices (CUDA events)."""
+    import torch
+
+    from pmf_tpu_torch.ops import gaussian_edge as ge
+    from pmf_tpu_torch.ops.gj_inverse import batched_psd_inverse_gj
+
+    k = K_WIDE
+    ms = dict.fromkeys(("K3", "K5", "K6", "K4"), 0.0)
+    for _, p, (m_s, _, b_s, _), (m_o, V_o, b_o, v_o) in _new_space_gauss(blocked, k):
+        A = (V_o + m_o[:, :, None] * m_o[:, None, :]).reshape(-1, k * k)
+        aug3 = torch.cat([m_o, b_o[:, None], ge.pack_tri(A, k)], dim=1).contiguous()
+        del A, V_o
+        csr = (p.row_ptr, p.other, p.x)
+        ms["K3"] += cuda_ms(lambda: ge.factor_tail_stats(aug3, *csr, k, False), reps=3)
+        del aug3
+        aug5 = torch.cat([m_o, b_o[:, None]], dim=1).contiguous()
+        aug6 = torch.cat([m_o, v_o + m_o * m_o, b_o[:, None]], dim=1).contiguous()
+        self6 = torch.cat([m_s, b_s[:, None]], dim=1).contiguous()
+        ms["K5"] += cuda_ms(lambda: ge.bias_tail_stats(aug5, *csr))
+        ms["K6"] += cuda_ms(lambda: ge.diag_tail_stats(aug6, self6, *csr))
+    for n, seed in ((N_USERS, 1), (N_ITEMS, 2)):
+        P = _spd(n, k, seed)
+        ms["K4"] += cuda_ms(lambda: batched_psd_inverse_gj(P), reps=3)
+        del P
+    torch.cuda.empty_cache()
+    log(f"phase bigk timing (Gaussian, real data, K={k}): ok | per sweep "
+        + ", ".join(f"{n} {v:.4f} ms" for n, v in ms.items()))
+    return ms
+
+
+def phase_small(k=K):
+    """Blocked sweeps on the card vs the host on one small input, at ``k``
+    factors."""
     import torch
 
     from pmf_tpu_torch.data.blocked import build_blocked
@@ -543,7 +818,7 @@ def phase_small():
 
     u, i, x = synth_ratings(3000, 1500, 120_000, seed=5)
     x = x + 1.0
-    cfg = hpf.HPFConfig(n_factors=K)
+    cfg = hpf.HPFConfig(n_factors=k)
     hyper = (cfg.a, cfg.a_prime, cfg.b_prime, cfg.c, cfg.c_prime, cfg.d_prime)
     head = [(0, 256, 1500), (256, 768, 300)]
     states = {}
@@ -557,14 +832,14 @@ def phase_small():
                                   *hyper)
         states[dev] = hpf.state_to_numpy(s)
     worst = 0.0
-    for k, ref in states["cpu"].items():
-        got = states["cuda"][k]
+    for key, ref in states["cpu"].items():
+        got = states["cuda"][key]
         if got.shape != ref.shape or not np.all(np.isfinite(got)):
-            raise AssertionError(f"small: {k} shape {got.shape} or not finite")
-        np.testing.assert_allclose(got, ref, rtol=5e-4, atol=1e-5, err_msg=k)
+            raise AssertionError(f"small: {key} shape {got.shape} or not finite")
+        np.testing.assert_allclose(got, ref, rtol=5e-4, atol=1e-5, err_msg=key)
         worst = max(worst, float(np.max(np.abs(got - ref) / np.abs(ref))))
     torch.cuda.synchronize()
-    log(f"phase small: ok | 3 sweeps card vs host, max rel diff {worst:.3e} "
+    log(f"phase small (K={k}): ok | 3 sweeps card vs host, max rel diff {worst:.3e} "
         f"(tol 5e-4)")
 
 
@@ -757,10 +1032,10 @@ def _poisson_sweep_fn(cfg, blocked, train, n_users, n_items, device):
                                                cfg.a0, cfg.b0)
 
 
-def phase_psmall():
+def phase_psmall(k=K):
     """Three blocked Poisson sweeps on the card vs the host (plain
     kernels), plain and extended, on one small input with a two-tier
-    head, at the JAX package's blocked-vs-flat gate."""
+    head, at the JAX package's blocked-vs-flat gate, at ``k`` factors."""
     import torch
 
     from pmf_tpu_torch.data.blocked import build_blocked
@@ -772,7 +1047,7 @@ def phase_psmall():
     head = [(0, 256, 1500), (256, 768, 300)]
     worst = {}
     for extended in (False, True):
-        cfg = pm.PoissonMFConfig(n_factors=K, extended=extended)
+        cfg = pm.PoissonMFConfig(n_factors=k, extended=extended)
         states = {}
         for dev in ("cpu", "cuda"):
             blocked = build_blocked(u, i, x, reorder=True, head=head, head_r0=256,
@@ -787,16 +1062,16 @@ def phase_psmall():
         if len(states["cuda"]) != (8 if extended else 4):
             raise AssertionError(f"psmall {name}: state keys {sorted(states['cuda'])}")
         w = 0.0
-        for k, ref in states["cpu"].items():
-            got = states["cuda"][k]
+        for key, ref in states["cpu"].items():
+            got = states["cuda"][key]
             if got.shape != ref.shape or not np.all(np.isfinite(got)):
-                raise AssertionError(f"psmall {name}: {k} shape or not finite")
+                raise AssertionError(f"psmall {name}: {key} shape or not finite")
             np.testing.assert_allclose(got, ref, rtol=5e-4, atol=1e-5,
-                                       err_msg=f"{name} {k}")
+                                       err_msg=f"{name} {key}")
             w = max(w, float(np.max(np.abs(got - ref) / np.abs(ref))))
         worst[name] = w
     torch.cuda.synchronize()
-    log("phase psmall: ok | 3 sweeps card vs host (rtol 5e-4, atol 1e-5), max rel "
+    log(f"phase psmall (K={k}): ok | 3 sweeps card vs host (rtol 5e-4, atol 1e-5), max rel "
         "diff: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
 
 
@@ -938,44 +1213,77 @@ MAP_BATCH, MAP_MIX, MAP_EPOCHS, MAP_LR = 65536, 8, 3, 0.001
 MPROFILE_STEPS = 20
 
 
+def _longest_run_step(g) -> tuple[int, int]:
+    """(step, edges) of the longest run in a grouping (a run's length
+    summed onto its first piece)."""
+    import torch
+
+    lens = torch.diff(g.piece_ptr)
+    run_len = torch.zeros(g.n_pieces, dtype=torch.int64, device=lens.device)
+    run_len.index_add_(0, g.piece_first.long(), lens)
+    p = int(torch.argmax(run_len))
+    step = int(torch.searchsorted(g.step_off.long(),
+                                  torch.tensor([p], device=lens.device), right=True)[0]) - 1
+    return step, int(run_len[p])
+
+
+def _timed_group(lay, order, mix, k):
+    """(groups, seconds): one grouping on the card, host clock around it
+    with the card synchronised before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    groups = lay.group(order, mix, k)
+    torch.cuda.synchronize()
+    return groups, time.perf_counter() - t0
+
+
 def phase_mdata(train):
-    """The blocked MAP engine's segment layout on the HPF ratings."""
+    """The blocked MAP engine's segment layout on the HPF ratings, and one
+    epoch's grouping by (step, self row): runs, pieces and the grouping's
+    time (once with a cold allocator, then a second order)."""
     import torch
 
     from pmf_tpu_torch.models.hpf_map import build_map_layout
+    from pmf_tpu_torch.ops.map_grad import PIECE
 
     t0 = time.perf_counter()
     lay = build_map_layout(*train, N_USERS, N_ITEMS, MAP_BATCH, mix=MAP_MIX,
                            device="cuda")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    for name, d in (("by_user", lay.by_user), ("by_item", lay.by_item)):
-        log(f"  {name}: {d.n_runs} row runs ({d.n_runs / lay.n_real_segments:.0f} "
-            f"a segment, {lay.nnz / d.n_runs:.1f} edges a run) | longest run "
-            f"{_longest_run(d)} | {d.nbytes()} bytes")
+    rng = np.random.default_rng(3)
+    groups, g_first = _timed_group(lay, rng.permutation(lay.n_segments), MAP_MIX, K)
+    order = rng.permutation(lay.n_segments)
+    groups, g_secs = _timed_group(lay, order, MAP_MIX, K)
+    seg_groups, _ = _timed_group(lay, order, 1, K)  # runs inside one segment
+    rows, busy, wall_ms = profile_once(lambda: lay.group(order, MAP_MIX, K), {})
+    log(f"  grouping under the profiler: device busy {busy:.4f} ms of {wall_ms:.4f} "
+        f"ms | " + " | ".join(f"{ms:.3f} ms {n}x {key[:60]}" for ms, n, key in rows[:6]))
+    for name, g, sg in (("by_user", groups[0], seg_groups[0]),
+                        ("by_item", groups[1], seg_groups[1])):
+        log(f"  {name}: a step holds {g.n_runs / g.n_steps:.0f} row runs "
+            f"({lay.nnz / g.n_runs:.1f} edges a run; {sg.n_runs / lay.n_real_segments:.0f} "
+            f"a segment) cut into {g.n_pieces / g.n_steps:.0f} pieces of <= {PIECE} "
+            f"edges (most in a step {g.max_step_pieces}) | longest run "
+            f"{_longest_run_step(g)[1]} edges in a step, {_longest_run_step(sg)[1]} in a "
+            f"segment")
     log(f"phase mdata: ok | {lay.n_segments} segments ({lay.n_real_segments} hold "
         f"ratings) of {MAP_BATCH // MAP_MIX} | {lay.n_segments // MAP_MIX} steps an "
         f"epoch at mix={MAP_MIX} | {lay.nbytes()} bytes on the card | build "
-        f"{secs:.1f}s")
+        f"{secs:.1f}s | grouping of an epoch {g_secs * 1e3:.1f} ms (first "
+        f"{g_first * 1e3:.1f} ms)")
     if lay.n_real_segments != -(-lay.nnz // (MAP_BATCH // MAP_MIX)):
         raise AssertionError(f"mdata: {lay.n_real_segments} real segments")
-    return lay
+    return lay, order, groups, seg_groups, g_secs
 
 
-def _longest_run(d) -> int:
-    """Most edges any one row holds inside one segment of a direction."""
-    import torch
-
-    # Runs never span segments; each segment's first row_ptr entry is 0, so
-    # the negative differences at segment starts drop out of the maximum.
-    return int(torch.max(d.row_ptr[1:] - d.row_ptr[:-1])) if d.n_runs else 0
-
-
-def _map_tables(lay):
+def _map_tables(lay, k=K):
     """Softplus'd initial tables in the layout's row space."""
     from pmf_tpu_torch.models import hpf_map as hm
 
-    params = hm.init_params(N_USERS, N_ITEMS, hm.HPFMapConfig(n_factors=K),
+    params = hm.init_params(lay.n_users, lay.n_items, hm.HPFMapConfig(n_factors=k),
                             device="cuda")
     return (hm.softplus(params["user"][lay.u_old_of_new]).contiguous(),
             hm.softplus(params["item"][lay.i_old_of_new]).contiguous())
@@ -987,16 +1295,67 @@ def _step_coo(lay, seg_ids):
     return tuple(torch.cat(c) for c in zip(*(lay.segment(s) for s in seg_ids)))
 
 
-def phase_k9(lay):
-    """K9 vs its plain version on real steps of the layout (the first, the
-    last and two drawn from a seeded generator), then one whole epoch of
-    its launches timed by CUDA events.  The w * beta and w * theta sums and
-    the per-row nll sums are signed and cancel, so they are held per output
-    column; the counts exactly; the step's total nll relatively."""
+def _check_map_step(lay, u_sp, i_sp, seg_ids, label, groups=None, step=0):
+    """K9 vs map_grad_plain on one step (the step's own grouping, or
+    ``step`` of ``groups``): per-column criterion on the signed sums, counts
+    exactly, the total nll relatively, and a second launch equal in bits.
+    Returns (max abs error, worst column ratio)."""
     import torch
 
     from pmf_tpu_torch.models.hpf_map import LAMBDA_FLOOR
-    from pmf_tpu_torch.ops.map_grad import map_grad_plain, map_grad_rows, map_grad_step
+    from pmf_tpu_torch.ops.map_grad import map_grad_grouped, map_grad_plain
+
+    k = u_sp.shape[1] - 1
+    if groups is None:
+        groups, step = lay.group(seg_ids, len(seg_ids), k), 0
+    got_u, got_i = map_grad_grouped(u_sp, i_sp, groups, step, LAMBDA_FLOOR)
+    again_u, again_i = map_grad_grouped(u_sp, i_sp, groups, step, LAMBDA_FLOOR)
+    ref_u, ref_i = map_grad_plain(u_sp, i_sp, *_step_coo(lay, seg_ids), LAMBDA_FLOOR)
+    abs_u, worst_u, ok_u = column_check(got_u, ref_u)
+    abs_i, worst_i, ok_i = column_check(got_i, ref_i)
+    counts = bool(torch.equal(got_u[:, k], ref_u[:, k])
+                  and torch.equal(got_i[:, k], ref_i[:, k]))
+    bits = bool(torch.equal(got_u, again_u) and torch.equal(got_i, again_i))
+    _, rel_n = compare(got_u[:, k + 1].double().sum(), ref_u[:, k + 1].double().sum())
+    n_edges = int(ref_u[:, k].sum())
+    log(f"  {label}: {n_edges} edges | worst column max|err|/max|plain| user "
+        f"{worst_u:.3e} item {worst_i:.3e} (tol {COL_RTOL}) | counts equal {counts} "
+        f"| total nll rel {rel_n:.3e} (tol {RTOL}) | second launch equal in bits "
+        f"{bits}")
+    if not (ok_u and ok_i and counts and bits and rel_n <= RTOL):
+        raise AssertionError(f"{label}: kernel and plain version disagree")
+    return max(abs_u, abs_i), max(worst_u, worst_i)
+
+
+def _map_bound(groups, k, lay=None):
+    """K9's bound over every step of ``groups`` in ms: per direction and
+    step its edges (8 B), its pieces' list (20 B), each run's self row and
+    stored accumulator row, and each other row the step touches (= the
+    other direction's runs); the flops of both directions' edges."""
+    row = 4 * (k + 1)
+    n_bytes = 0.0
+    for g, opp, width in ((groups[0], groups[1], k + 2), (groups[1], groups[0], k + 1)):
+        n_bytes += (g.other.nbytes + g.x.nbytes + 20 * g.n_pieces
+                    + (row + 4 * width) * g.n_runs + row * opp.n_runs)
+    n_flops = 2 * int(groups[0].step_edges.sum()) * (4 * k + 6)
+    return bound(n_bytes, n_flops) + (n_bytes,)
+
+
+K9_KERNELS = ("map_grad_kernel", "map_grad_wide_kernel")
+
+
+def phase_k9(lay, order, groups, seg_groups, group_secs):
+    """K9 vs its plain version on real steps of the layout (the first, the
+    last and two drawn from a seeded generator, each grouped alone, and the
+    epoch grouping's step that holds the longest item run), then one whole
+    epoch of its launches timed by CUDA events and by the profiler's device
+    sum.  The w * beta and w * theta sums and the per-row nll sums are
+    signed and cancel, so they are held per output column; the counts
+    exactly; the step's total nll relatively; a second launch in bits."""
+    import torch
+
+    from pmf_tpu_torch.models.hpf_map import LAMBDA_FLOOR
+    from pmf_tpu_torch.ops.map_grad import map_grad_plain
 
     u_sp, i_sp = _map_tables(lay)
     rng = np.random.default_rng(4)
@@ -1007,40 +1366,27 @@ def phase_k9(lay):
              "drawn b": rng.choice(lay.n_segments, MAP_MIX, replace=False).tolist()}
     res = dict(max_abs_err=0.0, library_ms=None)
     for name, seg_ids in steps.items():
-        got_u, got_i = map_grad_step(u_sp, i_sp, lay, seg_ids, LAMBDA_FLOOR)
-        ref_u, ref_i = map_grad_plain(u_sp, i_sp, *_step_coo(lay, seg_ids),
-                                      LAMBDA_FLOOR)
-        abs_u, worst_u, ok_u = column_check(got_u, ref_u)
-        abs_i, worst_i, ok_i = column_check(got_i, ref_i)
-        counts = bool(torch.equal(got_u[:, K], ref_u[:, K])
-                      and torch.equal(got_i[:, K], ref_i[:, K]))
-        _, rel_n = compare(got_u[:, K + 1].double().sum(),
-                           ref_u[:, K + 1].double().sum())
-        n_edges = int(ref_u[:, K].sum())
-        log(f"  K9 step {name} {seg_ids}: {n_edges} edges | worst column "
-            f"max|err|/max|plain| user {worst_u:.3e} item {worst_i:.3e} (tol "
-            f"{COL_RTOL}) | counts equal {counts} | total nll rel {rel_n:.3e} "
-            f"(tol {RTOL})")
-        if not (ok_u and ok_i and counts and rel_n <= RTOL):
-            raise AssertionError(f"K9 step {name}: kernel and plain version disagree")
-        res["max_abs_err"] = max(res["max_abs_err"], abs_u, abs_i)
+        res["max_abs_err"] = max(res["max_abs_err"], _check_map_step(
+            lay, u_sp, i_sp, seg_ids, f"K9 step {name} {seg_ids}")[0])
+    step, longest = _longest_run_step(groups[1])
+    seg_ids = order[step * MAP_MIX : (step + 1) * MAP_MIX].tolist()
+    res["max_abs_err"] = max(res["max_abs_err"], _check_map_step(
+        lay, u_sp, i_sp, seg_ids, f"K9 epoch step {step} (longest item run, "
+        f"{longest} edges)", groups, step)[0])
 
-    acc_u = torch.zeros((N_USERS, K + 2), device="cuda")
-    acc_i = torch.zeros((N_ITEMS, K + 1), device="cuda")
-
-    def epoch_launches():
-        for s in range(lay.n_segments):
-            map_grad_rows(u_sp, i_sp, *lay.by_user.segs[s], LAMBDA_FLOOR, True, acc_u)
-            map_grad_rows(i_sp, u_sp, *lay.by_item.segs[s], LAMBDA_FLOOR, False, acc_i)
-
+    epoch_launches = _epoch_launches(u_sp, i_sp, groups)
     t0 = time.perf_counter()
     epoch_launches()
     enqueue_s = time.perf_counter() - t0
-    res["ms"] = cuda_ms(epoch_launches, reps=2)
+    res["ms"] = cuda_ms(epoch_launches, reps=3)
+    launches = 2 * int(np.count_nonzero(groups[0].step_edges))
+    rows, _, _ = profile_once(epoch_launches, {"map_grad": launches})
+    res["device_ms"] = sum(r[0] for r in rows if any(n in r[2] for n in K9_KERNELS))
+    traced = sum(r[1] for r in rows if any(n in r[2] for n in K9_KERNELS))
     # The plain version, one step at a time over the same epoch.
     plain_ms = 0.0
     for step in range(n_steps):
-        coo = _step_coo(lay, range(step * MAP_MIX, (step + 1) * MAP_MIX))
+        coo = _step_coo(lay, order[step * MAP_MIX : (step + 1) * MAP_MIX])
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1049,31 +1395,76 @@ def phase_k9(lay):
         torch.cuda.synchronize()
         plain_ms += start.elapsed_time(end)
     res["plain_ms"] = plain_ms
-    # Bound: per direction the sorted edges (8 B each), 12 B of row list a
-    # run, one read-modify-write of an accumulator row a run, the run's self
-    # row, and each other row the segment touches once (= the opposite
-    # direction's runs).
-    row = 4 * (K + 1)
-    n_bytes = 0.0
-    for d, opp, width in ((lay.by_user, lay.by_item, K + 2),
-                          (lay.by_item, lay.by_user, K + 1)):
-        n_bytes += (d.other.nbytes + d.x.nbytes + 12 * d.n_runs
-                    + 2 * 4 * width * d.n_runs + row * d.n_runs + row * opp.n_runs)
-    n_flops = 2 * lay.nnz * (4 * K + 6)  # per edge and direction: dot, w * row, w, nll
-    res["bound_ms"], res["bound_by"] = bound(n_bytes, n_flops)
-    launches = 2 * lay.n_real_segments
-    log(f"phase K9: ok | one epoch: {launches} launches in {res['ms']:.4f} ms by "
-        f"CUDA events ({res['ms'] / launches * 1e3:.2f} us a launch; the host "
-        f"enqueued them in {enqueue_s * 1e3:.1f} ms) | plain {plain_ms:.4f} ms in "
-        f"{n_steps} steps | bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
-        f"{n_bytes / 1e9:.3f} GB) | library: none (a nonlinear weight inside the sums)")
+    res["bound_ms"], res["bound_by"], n_bytes = _map_bound(groups, K)
+    seg_bound, _, seg_bytes = _map_bound(seg_groups, K)
+    res["group_ms"] = group_secs * 1e3
+    log(f"phase K9: ok | one epoch: {launches} launches, CUDA events "
+        f"{res['ms']:.4f} ms ({res['ms'] / launches * 1e3:.2f} us a launch; the host "
+        f"enqueued them in {enqueue_s * 1e3:.1f} ms), profiler device sum "
+        f"{res['device_ms']:.4f} ms over {traced} traced launches "
+        f"({res['device_ms'] / traced * 1e3:.2f} us a launch) "
+        f"| grouping {res['group_ms']:.1f} ms | plain {plain_ms:.4f} ms in {n_steps} "
+        f"steps | bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
+        f"{n_bytes / 1e9:.3f} GB; on the segments' runs as PR 5 reckoned it "
+        f"{seg_bound:.4f} ms, {seg_bytes / 1e9:.3f} GB) | library: none (a nonlinear "
+        f"weight inside the sums)")
+    _k9_pieces(lay, order, u_sp, i_sp, launches)
+    res["k50_ms"] = _k9_at(lay, order, K_WIDE)
     return res
 
 
-def phase_msmall():
+def _epoch_launches(u_sp, i_sp, groups):
+    """A call that launches K9 twice for every step of ``groups``, storing
+    into accumulators of its own (zeroed once)."""
+    import torch
+
+    from pmf_tpu_torch.models.hpf_map import LAMBDA_FLOOR
+    from pmf_tpu_torch.ops.map_grad import map_grad_pieces
+
+    k = u_sp.shape[1] - 1
+    acc_u = torch.zeros((u_sp.shape[0], k + 2), device="cuda")
+    acc_i = torch.zeros((i_sp.shape[0], k + 1), device="cuda")
+
+    def launches():
+        for s in range(groups[0].n_steps):
+            map_grad_pieces(u_sp, i_sp, groups[0], s, LAMBDA_FLOOR, True, acc_u)
+            map_grad_pieces(i_sp, u_sp, groups[1], s, LAMBDA_FLOOR, False, acc_i)
+
+    return launches
+
+
+def _k9_pieces(lay, order, u_sp, i_sp, launches):
+    """The piece length's tuning: an epoch of launches by the profiler's
+    device sum with runs cut at 64, 128 (PIECE), 256 and 512 edges."""
+    out = []
+    for piece in (64, 128, 256, 512):
+        groups = lay.group(order, MAP_MIX, K, piece)
+        rows, _, _ = profile_once(_epoch_launches(u_sp, i_sp, groups),
+                                  {"map_grad": launches})
+        dev = sum(r[0] for r in rows if any(n in r[2] for n in K9_KERNELS))
+        out.append(f"{piece}: {dev:.4f} ms ({groups[0].n_pieces + groups[1].n_pieces} "
+                   f"pieces)")
+    log("  K9 piece length, one epoch by the profiler's device sum: " + " | ".join(out))
+
+
+def _k9_at(lay, order, k):
+    """One epoch of K9 launches at ``k`` factors on the same layout and
+    segment order: (CUDA events ms, profiler device ms)."""
+    u_sp, i_sp = _map_tables(lay, k)
+    groups = lay.group(order, MAP_MIX, k)
+    epoch = _epoch_launches(u_sp, i_sp, groups)
+    ms = cuda_ms(epoch, reps=2)
+    rows, _, _ = profile_once(epoch, {"map_grad": 2 * groups[0].n_steps})
+    dev = sum(r[0] for r in rows if any(n in r[2] for n in K9_KERNELS))
+    log(f"  bigk K9 K={k}: one epoch of launches {ms:.4f} ms (CUDA events), "
+        f"{dev:.4f} ms (profiler device sum)")
+    return dev
+
+
+def phase_msmall(k=K):
     """Three blocked and three flat epochs on the card vs the host (plain
     gradients) on one small input, from the same segment orders and
-    permutations."""
+    permutations, at ``k`` factors."""
     import torch
 
     from pmf_tpu_torch.data.synthetic import synth_ratings
@@ -1083,7 +1474,7 @@ def phase_msmall():
     u, i, x = synth_ratings(3000, 1500, 120_000, seed=5)
     x = (x + 1.0).astype(np.float32)
     n_users, n_items, nnz = int(u.max()) + 1, int(i.max()) + 1, len(u)
-    cfg = hm.HPFMapConfig(n_factors=K)
+    cfg = hm.HPFMapConfig(n_factors=k)
     scal = (cfg.a, cfg.a_prime, cfg.b_prime, cfg.c, cfg.c_prime, cfg.d_prime)
     B, mix = 4096, 4
     n_pad = -(-nnz // B) * B
@@ -1119,15 +1510,15 @@ def phase_msmall():
     worst = {}
     for engine in ("blocked", "flat"):
         w = 0.0
-        for k, ref in out["cpu"][engine].items():
-            got = out["cuda"][engine][k]
+        for key, ref in out["cpu"][engine].items():
+            got = out["cuda"][engine][key]
             if got.shape != ref.shape or not np.all(np.isfinite(got)):
-                raise AssertionError(f"msmall {engine}: {k} shape or not finite")
+                raise AssertionError(f"msmall {engine}: {key} shape or not finite")
             np.testing.assert_allclose(got, ref, rtol=5e-4, atol=1e-5,
-                                       err_msg=f"{engine} {k}")
+                                       err_msg=f"{engine} {key}")
             w = max(w, float(np.max(np.abs(got - ref) / (1e-5 + 5e-4 * np.abs(ref)))))
         worst[engine] = w
-    log(f"phase msmall: ok | 3 epochs card vs host (rtol 5e-4, atol 1e-5), worst "
+    log(f"phase msmall (K={k}): ok | 3 epochs card vs host (rtol 5e-4, atol 1e-5), worst "
         f"|diff| / (atol + rtol |host|): "
         + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
         + f" | last epoch loss card {out['cuda']['losses']} host {out['cpu']['losses']}")
@@ -1154,7 +1545,11 @@ def _run_mfit(train, val, smi, engine):
             f"{rec['train_loss']:.6e} | val RMSE {rec['val_rmse']:.6f} | {smi}")
     want = dict.fromkeys(launches, 0)
     if engine == "blocked_high":
-        want["K9"] = 2 * model.layout.n_real_segments * MAP_EPOCHS
+        # One launch a direction a step that holds ratings: every step does,
+        # since fewer than mix segments are empty padding.
+        lay = model.layout
+        assert lay.n_segments - lay.n_real_segments < MAP_MIX
+        want["K9"] = 2 * (lay.n_segments // MAP_MIX) * MAP_EPOCHS
     if launches != want or model.engine_used != engine:
         raise AssertionError(f"mfit {engine} launches {launches}, expected {want}")
     state = params_to_numpy(model.state)
@@ -1183,7 +1578,8 @@ def _run_mfit(train, val, smi, engine):
 
 def phase_mfit(train, val, smi):
     """HPFMap.fit at batch_size 65536, mix 8, 3 epochs: the blocked engine
-    (2 K9 launches a segment and epoch), then the flat one (no kernel)."""
+    (2 K9 launches a step, the grouping once an epoch), then the flat one
+    (no kernel)."""
     blocked, launches = _run_mfit(train, val, smi, "blocked_high")
     flat, flaunches = _run_mfit(train, val, smi, "flat")
     del flat
@@ -1191,8 +1587,9 @@ def phase_mfit(train, val, smi):
 
 
 def phase_mprofile(model, train, smi):
-    """MPROFILE_STEPS steady blocked steps from the fitted state under
-    torch.profiler: busy time, idle share, K9's share and the dense part's."""
+    """MPROFILE_STEPS steady blocked steps from the fitted state, grouped
+    beforehand, under torch.profiler: busy time, idle share, K9's share and
+    the dense part's."""
     import torch
 
     from pmf_tpu_torch.models import hpf_map as hm
@@ -1208,26 +1605,27 @@ def phase_mprofile(model, train, smi):
                                    lay.u_old_of_new, lay.i_old_of_new)
     box = [params, opt]
     order = np.random.default_rng(8).permutation(lay.n_segments)
-    segs = order[: MPROFILE_STEPS * MAP_MIX]
-    n_real = int(sum(lay.by_user.segs[s][0].numel() > 0 for s in segs))
+    groups = lay.group(order[: MPROFILE_STEPS * MAP_MIX], MAP_MIX, K)
+    n_real = int(np.count_nonzero(groups[0].step_edges))
 
     def steps():
-        box[0], box[1], _ = hm.train_epoch_blocked(box[0], box[1], segs, lay, *scales,
-                                                   scal, cfg.lr, MAP_MIX)
+        box[0], box[1], _ = hm.train_steps_grouped(box[0], box[1], groups, *scales,
+                                                   scal, cfg.lr)
 
     ms = cuda_ms(steps, reps=3)
     log(f"  steady blocked step: {ms / MPROFILE_STEPS:.4f} ms "
         f"({MAP_BATCH / (ms / MPROFILE_STEPS) / 1e3:.1f}M edge-visits/s) | {smi}")
-    rows, busy, wall_ms = profile_once(steps, {"map_grad_kernel": 2 * n_real})
-    k9 = sum(r[0] for r in rows if "map_grad_kernel" in r[2])
-    n_dense = sum(r[1] for r in rows if "map_grad_kernel" not in r[2])
+    rows, busy, wall_ms = profile_once(steps, {"map_grad": 2 * n_real})
+    k9 = sum(r[0] for r in rows if any(n in r[2] for n in K9_KERNELS))
+    n_k9 = sum(r[1] for r in rows if any(n in r[2] for n in K9_KERNELS))
+    n_dense = sum(r[1] for r in rows if not any(n in r[2] for n in K9_KERNELS))
     log(f"phase mprofile: ok | {MPROFILE_STEPS} blocked steps: device busy "
         f"{busy:.4f} ms of {wall_ms:.4f} ms window (idle share "
         f"{1 - busy / wall_ms:.1%})")
     if busy > 0:
-        log(f"  by part: K9 map_grad_kernel {k9:.4f} ms ({k9 / busy:.1%}) in "
-            f"{2 * n_real} launches, dense part {busy - k9:.4f} ms "
-            f"({1 - k9 / busy:.1%}) in {n_dense} launches")
+        log(f"  by part: K9 {k9:.4f} ms ({k9 / busy:.1%}) in {n_k9} traced launches "
+            f"of {2 * n_real} ({k9 / n_k9 * 2e3:.2f} us a step), dense part "
+            f"{busy - k9:.4f} ms ({1 - k9 / busy:.1%}) in {n_dense} launches")
     for dev_ms, n, key in rows[:12]:
         log(f"  {dev_ms:9.4f} ms  {n:4d}x  {key[:90]}")
 
@@ -1297,25 +1695,25 @@ def phase_gdata(split):
     return train, val, blocked
 
 
-def _gauss_tables(n, seed):
+def _gauss_tables(n, seed, k=K):
     """Random Gaussian-state rows on the card: means m, SPD covariances V,
     biases b and diagonal variances v."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    m = 0.1 * torch.randn(n, K, generator=g, device="cuda")
-    A = 0.1 * torch.randn(n, K, K, generator=g, device="cuda")
-    V = 0.5 * torch.eye(K, device="cuda") + A @ A.transpose(1, 2)
+    m = 0.1 * torch.randn(n, k, generator=g, device="cuda")
+    A = 0.1 * torch.randn(n, k, k, generator=g, device="cuda")
+    V = 0.5 * torch.eye(k, device="cuda") + A @ A.transpose(1, 2)
     b = 0.1 * torch.randn(n, generator=g, device="cuda")
-    v = 0.1 + 0.5 * torch.rand(n, K, generator=g, device="cuda")
+    v = 0.1 + 0.5 * torch.rand(n, k, generator=g, device="cuda")
     return m, V, b, v
 
 
-def _new_space_gauss(blocked):
+def _new_space_gauss(blocked, k=K):
     """Per direction: (name, pass, self rows, other rows), each table set
     permuted into the pass's new space."""
-    users = _gauss_tables(N_USERS, 11)
-    items = _gauss_tables(N_ITEMS, 12)
+    users = _gauss_tables(blocked.by_user.n_self, 11, k)
+    items = _gauss_tables(blocked.by_item.n_self, 12, k)
     out = []
     for name, p, s, o in (("user", blocked.by_user, users, items),
                           ("item", blocked.by_item, items, users)):
@@ -1559,10 +1957,11 @@ def phase_k4(blocked):
     return res
 
 
-def phase_gsmall():
+def phase_gsmall(k=K):
     """Three blocked Gaussian sweeps on the card vs the host (plain
     kernels) on one small input with a two-tier head, in the exact,
-    lagged and diag modes, at the JAX package's blocked-vs-flat gate."""
+    lagged and diag modes, at the JAX package's blocked-vs-flat gate, at
+    ``k`` factors."""
     import torch
 
     from pmf_tpu_torch.data.blocked import build_blocked
@@ -1575,7 +1974,7 @@ def phase_gsmall():
     head = [(0, 256, 1500), (256, 768, 300)]
     worst = {}
     for cov, upd in (("full", "exact"), ("full", "lagged"), ("diag", "exact")):
-        cfg = gm.GaussianMFConfig(n_factors=K, covariance=cov, bias_update=upd)
+        cfg = gm.GaussianMFConfig(n_factors=k, covariance=cov, bias_update=upd)
         states = {}
         for dev in ("cpu", "cuda"):
             blocked = build_blocked(u, i, x, reorder=True, head=head, head_r0=256,
@@ -1588,16 +1987,16 @@ def phase_gsmall():
                                      cfg.eta_bias2, True, cov, upd)
             states[dev] = gm.state_to_numpy(s)
         w = 0.0
-        for k, ref in states["cpu"].items():
-            got = states["cuda"][k]
+        for key, ref in states["cpu"].items():
+            got = states["cuda"][key]
             if got.shape != ref.shape or not np.all(np.isfinite(got)):
-                raise AssertionError(f"gsmall {cov}/{upd}: {k} shape or not finite")
+                raise AssertionError(f"gsmall {cov}/{upd}: {key} shape or not finite")
             np.testing.assert_allclose(got, ref, rtol=5e-3, atol=2e-5,
-                                       err_msg=f"{cov}/{upd} {k}")
+                                       err_msg=f"{cov}/{upd} {key}")
             w = max(w, float(np.max(np.abs(got - ref) / (2e-5 + 5e-3 * np.abs(ref)))))
         worst[f"{cov}/{upd}"] = w
     torch.cuda.synchronize()
-    log(f"phase gsmall: ok | 3 sweeps card vs host (rtol 5e-3, atol 2e-5), worst "
+    log(f"phase gsmall (K={k}): ok | 3 sweeps card vs host (rtol 5e-3, atol 2e-5), worst "
         f"|diff| / (atol + rtol |host|): "
         + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
 
@@ -1707,8 +2106,12 @@ def phase_gprofile(full, diag, train, smi):
         steady[name] = cuda_ms(one_sweep, reps=5)
         log(f"  steady {name} sweep: {steady[name]:.4f} ms | "
             f"{4 * nnz / steady[name] / 1e3:.1f}M updates/s (4 x nnz) | {smi}")
-    rows, busy, wall_ms = profile_once(
-        sweeps["full"], {"::factor_kernel": 2, "gj_inverse_kernel": 2, "bias_kernel": 2})
+    expect = {"::factor_kernel": 2, "gj_inverse_kernel": 2, "bias_kernel": 2}
+    # Fault F2: a trace without the warm-up kernels, then the trace read.
+    rows, _, _ = profile_once(sweeps["full"], expect, warm=False, attempts=1)
+    seen = {part: sum(n for _, n, key in rows if part in key) for part in expect}
+    log(f"  F2 probe: a trace without warm-up holds launches {seen}")
+    rows, busy, wall_ms = profile_once(sweeps["full"], expect)
     groups = {"K3 factor_kernel": 0.0, "K5 bias_kernel": 0.0,
               "K4 gj_inverse_kernel": 0.0, "head products (gemm)": 0.0,
               "other": 0.0}
@@ -1744,11 +2147,15 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     phase_build()
     phase_k2small()
+    phase_bigk()
+    gc.collect()
+    torch.cuda.empty_cache()
     train, val, blocked, split = phase_data()
     k1 = phase_k1(blocked)
     k1raw = phase_k1raw(blocked)
     k2 = phase_k2(blocked)
     k7, k8 = phase_k7k8(blocked)
+    wide = phase_wide_poisson(blocked)
     del blocked
     torch.cuda.empty_cache()
     phase_small()
@@ -1768,9 +2175,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_pelbo(train, val, smi)
 
-    mlay = phase_mdata(train)
-    k9 = phase_k9(mlay)
-    del mlay
+    mlay, morder, mgroups, mseg_groups, mgroup_secs = phase_mdata(train)
+    k9 = phase_k9(mlay, morder, mgroups, mseg_groups, mgroup_secs)
+    del mlay, mgroups, mseg_groups
     gc.collect()
     torch.cuda.empty_cache()
     phase_msmall()
@@ -1786,6 +2193,8 @@ def main() -> int:
     k6 = phase_k6(gblocked)
     phase_ghead(gblocked)
     k4 = phase_k4(gblocked)
+    wide.update(phase_wide_gauss(gblocked))
+    wide["K9"] = k9["k50_ms"]
     del gblocked
     gc.collect()
     torch.cuda.empty_cache()
@@ -1793,38 +2202,42 @@ def main() -> int:
     full, diag, glaunches = phase_gfit(gtrain, gval, smi)
     phase_gprofile(full, diag, gtrain, smi)
 
-    def entry(name, source, replaces, res, n, **more):
+    def entry(name, source, replaces, res, n, kid, **more):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n,
                 "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"],
-                "library_ms": res.get("library_ms"), **more}
+                "library_ms": res.get("library_ms"), f"ms_k{K_WIDE}": wide[kid],
+                **more}
 
     gsrc = "pmf_tpu_torch/csrc/gaussian_edge.cu"
     kernels = [
         entry("cavi_edge_tail", "pmf_tpu_torch/csrc/cavi_edge.cu",
-              "pmf_tpu/ops/pallas/cavi_edge.py:93", k1, launches["K1"]),
+              "pmf_tpu/ops/pallas/cavi_edge.py:93", k1, launches["K1"], "K1"),
         entry("dense_head_tier", "pmf_tpu_torch/csrc/dense_head.cu",
-              "pmf_tpu/ops/dense_head.py:85", k2, launches["K2"]),
+              "pmf_tpu/ops/dense_head.py:85", k2, launches["K2"], "K2"),
         entry("gaussian_factor_tail", gsrc,
-              "pmf_tpu/ops/pallas/gaussian_edge.py:90", k3, glaunches["K3"]),
+              "pmf_tpu/ops/pallas/gaussian_edge.py:90", k3, glaunches["K3"], "K3"),
         entry("gj_inverse", "pmf_tpu_torch/csrc/gj_inverse.cu",
-              "pmf_tpu/ops/pallas/gj_inverse.py:25", k4, glaunches["K4"]),
+              "pmf_tpu/ops/pallas/gj_inverse.py:25", k4, glaunches["K4"], "K4"),
         entry("gaussian_bias_tail", gsrc,
-              "pmf_tpu/ops/pallas/gaussian_edge.py:175", k5, glaunches["K5"]),
+              "pmf_tpu/ops/pallas/gaussian_edge.py:175", k5, glaunches["K5"], "K5"),
         entry("gaussian_diag_tail", gsrc,
-              "pmf_tpu/ops/pallas/gaussian_edge.py:242", k6, glaunches["K6"]),
+              "pmf_tpu/ops/pallas/gaussian_edge.py:242", k6, glaunches["K6"], "K6"),
         entry("ext_factor_tail", "pmf_tpu_torch/csrc/ext_edge.cu",
-              "pmf_tpu/ops/pallas/ext_edge.py:59", k7, launches["K7"]),
+              "pmf_tpu/ops/pallas/ext_edge.py:59", k7, launches["K7"], "K7"),
         entry("ext_scalar_tail", "pmf_tpu_torch/csrc/ext_edge.cu",
-              "pmf_tpu/ops/pallas/ext_edge.py:107", k8, launches["K8"]),
+              "pmf_tpu/ops/pallas/ext_edge.py:107", k8, launches["K8"], "K8"),
         entry("map_grad", "pmf_tpu_torch/csrc/map_grad.cu",
-              "pmf_tpu/ops/pallas/map_grad.py:56", k9, mlaunches["K9"],
-              note="ms, plain_ms and bound_ms are per epoch"),
+              "pmf_tpu/ops/pallas/map_grad.py:56", k9, mlaunches["K9"], "K9",
+              device_ms=k9["device_ms"], group_ms=k9["group_ms"],
+              note="ms (CUDA events), device_ms and ms_k50 (profiler sums), "
+                   "plain_ms and bound_ms are per epoch of launches; group_ms "
+                   "is the epoch's regrouping"),
         entry("cavi_edge_tail_raw", "pmf_tpu_torch/csrc/cavi_edge.cu",
               "pmf_tpu/ops/pallas/cavi_edge.py:93", k1raw,
-              launches["K1raw"] + glaunches["K1raw"] + mlaunches["K1raw"],
+              launches["K1raw"] + glaunches["K1raw"] + mlaunches["K1raw"], "K1raw",
               note="mode \"raw\": no single-device fit runs it (its path is "
                    "the tensor-parallel ring), so its launches are 0"),
     ]

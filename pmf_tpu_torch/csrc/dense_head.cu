@@ -78,6 +78,16 @@
 //    gives the mask with one packed compare.
 //  * 138-168 registers a thread at K = 20 (no spills), 128 threads, three
 //    CTAs an SM by the launch bounds and by shared memory.
+//  * K > 32: the depth pads to NT = 4 ceil(K / 32) blocks of 8 (8, 12 or
+//    16), so the instances are few and every output group is whole.  P's
+//    A fragments cover the whole depth (4 NT registers a thread), R is
+//    taken over the whole depth in chains of 4 blocks (6 mma steps each,
+//    added with float adds), and the outputs are cut into groups of 4
+//    blocks (32 factors) on grid.z: each group's CTA recomputes R and W
+//    and keeps only its group's [W Q | M Q] accumulators, so their
+//    registers stay those of K = 32.  The cell planes are read once a
+//    group.  Two CTAs an SM by the launch bounds (255 registers a
+//    thread) and by the wider Q planes' shared memory.
 //  * Tiers that would leave the card idle (few P tiles) split the
 //    reduction axis over more CTAs; each split writes its own partial rows
 //    and sum_partials_kernel adds them.  No atomics, so a launch repeats
@@ -216,6 +226,11 @@ constexpr int kStages = 3;  // ring of staged tiles: two in flight, one computed
 constexpr int kThreads = kWarps * 32;
 constexpr int kPT = kWarps * 16;  // rows of P a CTA
 constexpr int kMinCtas = 3;  // resident CTAs the launch bounds keep room for (168 registers)
+constexpr int kMinCtasWide = 2;  // the same past K = 32 (NT > 4)
+constexpr int kGroupBlocks = 4;  // output blocks of 8 factors a CTA keeps past K = 32
+
+// Blocks of 8 in the depth: ceil(K / 8) up to K = 32, then 4 ceil(K / 32).
+__host__ __device__ constexpr int nt_of(int k) { return k <= 32 ? (k + 7) / 8 : 4 * ((k + 31) / 32); }
 
 // Shared-memory row stride of a Q plane of NT 8-column blocks: 16 * NT
 // bytes, padded where that is an even number of 16-byte slots, so that the
@@ -224,7 +239,8 @@ __host__ __device__ constexpr int q_stride(int nt) { return 16 * nt + (nt % 2 ? 
 
 // One CTA: kPT rows of P against its split's Q tiles of kBQ rows.  K pads
 // to NT blocks of 8, in depth for the first product and in width for the
-// second.
+// second; past NT = 4 the CTA's outputs are the group of 4 blocks
+// blockIdx.z.
 template <int NT, bool M_F32, bool ITEM>
 __device__ __forceinline__ void head_tile_body(
     const float* __restrict__ p_tab, const uint16_t* __restrict__ q_hi,
@@ -234,6 +250,8 @@ __device__ __forceinline__ void head_tile_body(
   constexpr int BQ = kBQ, PT = kPT, THREADS = kThreads, STAGES = kStages;
   constexpr int KD = 8 * NT;
   constexpr int NC = BQ / 16;  // 16-row chunks of Q a tile
+  constexpr int NG = NT > kGroupBlocks ? kGroupBlocks : NT;  // output blocks a CTA
+  constexpr int NQ = (NT + 3) / 4;  // ldmatrix.x4 loads of Q's depth a row
   constexpr int CELL_ROWS = ITEM ? BQ : PT;
   constexpr int CELL_COLS = ITEM ? PT : BQ;
   constexpr int CS = CELL_COLS * 2 + 16;  // bf16 cell row stride, bytes
@@ -260,10 +278,11 @@ __device__ __forceinline__ void head_tile_body(
   const int mi = lane >> 3, lr = lane & 7;  // ldmatrix: matrix and row served
   const int nP = ITEM ? hip : rows, nQ = ITEM ? rows : hip;
   const int p0 = blockIdx.x * PT;
+  const int zb = NT > kGroupBlocks ? kGroupBlocks * blockIdx.z : 0;  // first output block
 
   // This warp's 16 P rows as A fragments, split into both planes here:
   // block kb holds columns 8 kb + 2p, + 1 of rows g (h = 0) and g + 8.
-  uint32_t a_hi[4][2], a_lo[4][2];  // blocks >= NT unused
+  uint32_t a_hi[NT][2], a_lo[NT][2];
 #pragma unroll
   for (int kb = 0; kb < NT; ++kb) {
 #pragma unroll
@@ -320,9 +339,9 @@ __device__ __forceinline__ void head_tile_body(
     }
   };
 
-  float ow[NT][4], om[NT][4];
+  float ow[NG][4], om[NG][4];
 #pragma unroll
-  for (int f = 0; f < NT; ++f) {
+  for (int f = 0; f < NG; ++f) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) { ow[f][i] = 0.f; om[f][i] = 0.f; }
   }
@@ -346,39 +365,48 @@ __device__ __forceinline__ void head_tile_body(
     s_cur = s_cur + 1 == STAGES ? 0 : s_cur + 1;
 
     // acc[c][j] = P Q^T for Q rows 16c + 8j .. + 7 (n8 tile j): the depth
-    // in k16 steps and, for an odd NT, one k8 step; three terms.
+    // in k16 steps and, for an odd NT, one k8 step; three terms.  One mma
+    // chain a 4-block slice of the depth, the slices added with float adds.
     float acc[NC][2][4];
     auto first_product = [&](int c) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        uint32_t bh[4], bl[4];  // one register a k block (blocks >= NT repeat the last)
-        const uint32_t addr = st + OFF_Q + (16 * c + 8 * j + lr) * QS
-                              + min(mi, NT - 1) * 16;
-        ldsm_x4(addr, bh);
-        ldsm_x4(addr + Q_BYTES, bl);
-        if (NT >= 2) {
-          mma16_z(acc[c][j], a_lo[0][0], a_lo[0][1], a_lo[1][0], a_lo[1][1], bh[0], bh[1]);
-          mma16(acc[c][j], a_hi[0][0], a_hi[0][1], a_hi[1][0], a_hi[1][1], bl[0], bl[1]);
-          mma16(acc[c][j], a_hi[0][0], a_hi[0][1], a_hi[1][0], a_hi[1][1], bh[0], bh[1]);
-        } else {
-          mma8_z(acc[c][j], a_lo[0][0], a_lo[0][1], bh[0]);
-          mma8(acc[c][j], a_hi[0][0], a_hi[0][1], bl[0]);
-          mma8(acc[c][j], a_hi[0][0], a_hi[0][1], bh[0]);
-        }
-        if (NT == 4) {
-          mma16(acc[c][j], a_lo[2][0], a_lo[2][1], a_lo[3][0], a_lo[3][1], bh[2], bh[3]);
-          mma16(acc[c][j], a_hi[2][0], a_hi[2][1], a_hi[3][0], a_hi[3][1], bl[2], bl[3]);
-          mma16(acc[c][j], a_hi[2][0], a_hi[2][1], a_hi[3][0], a_hi[3][1], bh[2], bh[3]);
-        }
-        if (NT == 3) {
-          mma8(acc[c][j], a_lo[2][0], a_lo[2][1], bh[2]);
-          mma8(acc[c][j], a_hi[2][0], a_hi[2][1], bl[2]);
-          mma8(acc[c][j], a_hi[2][0], a_hi[2][1], bh[2]);
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          uint32_t bh[4], bl[4];  // one register a k block (blocks >= NT repeat the last)
+          const uint32_t addr = st + OFF_Q + (16 * c + 8 * j + lr) * QS
+                                + min(4 * q + mi, NT - 1) * 16;
+          ldsm_x4(addr, bh);
+          ldsm_x4(addr + Q_BYTES, bl);
+          float t[4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int kb = 4 * q + 2 * h;
+            if (kb + 1 < NT) {
+              if (h == 0)
+                mma16_z(t, a_lo[kb][0], a_lo[kb][1], a_lo[kb + 1][0], a_lo[kb + 1][1],
+                        bh[2 * h], bh[2 * h + 1]);
+              else
+                mma16(t, a_lo[kb][0], a_lo[kb][1], a_lo[kb + 1][0], a_lo[kb + 1][1],
+                      bh[2 * h], bh[2 * h + 1]);
+              mma16(t, a_hi[kb][0], a_hi[kb][1], a_hi[kb + 1][0], a_hi[kb + 1][1],
+                    bl[2 * h], bl[2 * h + 1]);
+              mma16(t, a_hi[kb][0], a_hi[kb][1], a_hi[kb + 1][0], a_hi[kb + 1][1],
+                    bh[2 * h], bh[2 * h + 1]);
+            } else if (kb < NT) {
+              if (h == 0) mma8_z(t, a_lo[kb][0], a_lo[kb][1], bh[2 * h]);
+              else mma8(t, a_lo[kb][0], a_lo[kb][1], bh[2 * h]);
+              mma8(t, a_hi[kb][0], a_hi[kb][1], bl[2 * h]);
+              mma8(t, a_hi[kb][0], a_hi[kb][1], bh[2 * h]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[c][j][i] = q == 0 ? t[i] : acc[c][j][i] + t[i];
         }
       }
     };
 
-    float tw[NT][4], tm[NT][4];  // chain temporaries of the second product
+    float tw[NG][4], tm[NG][4];  // chain temporaries of the second product
     first_product(0);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
@@ -434,13 +462,13 @@ __device__ __forceinline__ void head_tile_body(
         w_lo[i] &= keep;
       }
 
-      // out[f] += [W | M] (16 x 16) * Q (16 rows x factors 8f .. 8f + 7).
+      // out[f] += [W | M] (16 x 16) * Q (16 rows x factors 8 (zb + f) .. + 7).
 #pragma unroll
-      for (int f = 0; f < NT; f += 2) {
+      for (int f = 0; f < NG; f += 2) {
         uint32_t bh[4], bl[4];
         const uint32_t addr = st + OFF_Q + (16 * c + 8 * (mi & 1) + lr) * QS
-                              + min(f + (mi >> 1), NT - 1) * 16;
-        if (f + 1 < NT) {
+                              + min(zb + f + (mi >> 1), NT - 1) * 16;
+        if (f + 1 < NG) {
           ldsm_x4_t(addr, bh);
           ldsm_x4_t(addr + Q_BYTES, bl);
         } else {
@@ -449,7 +477,7 @@ __device__ __forceinline__ void head_tile_body(
         }
 #pragma unroll
         for (int ff = 0; ff < 2; ++ff) {
-          if (f + ff < NT) {
+          if (f + ff < NG) {
             // One mma chain a tile from a zero accumulator, then float
             // adds: the tensor core's accumulator truncates, and a chain as
             // long as the reduction axis would lose 6e-8 of the sum a step.
@@ -483,11 +511,11 @@ __device__ __forceinline__ void head_tile_body(
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int f = 0; f < NT; ++f) {
+  for (int f = 0; f < NG; ++f) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = p0 + warp * 16 + g + 8 * (i >> 1);
-      const int k = 8 * f + 2 * p + (i & 1);
+      const int k = 8 * (zb + f) + 2 * p + (i & 1);
       if (row < nP && k < K) {
         float* out = dst + ((int64_t)blockIdx.y * nP + row) * 2 * K;
         out[k] = ow[f][i];
@@ -499,7 +527,7 @@ __device__ __forceinline__ void head_tile_body(
 
 // planes: the Q table's hi and lo planes, (nQ, 8 NT) bf16 each.
 template <int NT, bool M_F32>
-__global__ void __launch_bounds__(kThreads, kMinCtas)
+__global__ void __launch_bounds__(kThreads, NT > kGroupBlocks ? kMinCtasWide : kMinCtas)
 head_user_kernel(const float* __restrict__ theta, const uint16_t* __restrict__ planes,
                  const uint16_t* __restrict__ x_hi, const uint16_t* __restrict__ x_lo,
                  const void* __restrict__ m, int rows, int hip, int K, float rate_floor,
@@ -509,7 +537,7 @@ head_user_kernel(const float* __restrict__ theta, const uint16_t* __restrict__ p
 }
 
 template <int NT, bool M_F32>
-__global__ void __launch_bounds__(kThreads, kMinCtas)
+__global__ void __launch_bounds__(kThreads, NT > kGroupBlocks ? kMinCtasWide : kMinCtas)
 head_item_kernel(const float* __restrict__ beta, const uint16_t* __restrict__ planes,
                  const uint16_t* __restrict__ x_hi, const uint16_t* __restrict__ x_lo,
                  const void* __restrict__ m, int rows, int hip, int K, float rate_floor,
@@ -548,7 +576,7 @@ cudaError_t launch(const float* p_tab, const uint16_t* planes, const uint16_t* x
   const int nP = item_side ? hip : rows, nQ = item_side ? rows : hip;
   const int n_tiles = (nQ + kBQ - 1) / kBQ;
   const int per = (n_tiles + n_splits - 1) / n_splits;
-  dim3 grid((nP + kPT - 1) / kPT, n_splits);
+  dim3 grid((nP + kPT - 1) / kPT, n_splits, NT > kGroupBlocks ? NT / kGroupBlocks : 1);
   auto kernel = item_side ? head_item_kernel<NT, M_F32> : head_user_kernel<NT, M_F32>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -563,8 +591,8 @@ cudaError_t launch_nt(int K, int m_is_f32, Args... args) {
 #define PMF_CASE(N)                                                 \
   case N:                                                           \
     return m_is_f32 ? launch<N, true>(args...) : launch<N, false>(args...);
-  switch ((K + 7) / 8) {
-    PMF_CASE(1) PMF_CASE(2) PMF_CASE(3) PMF_CASE(4)
+  switch (nt_of(K)) {
+    PMF_CASE(1) PMF_CASE(2) PMF_CASE(3) PMF_CASE(4) PMF_CASE(8) PMF_CASE(12) PMF_CASE(16)
     default: return cudaErrorInvalidValue;
   }
 #undef PMF_CASE
@@ -573,9 +601,9 @@ cudaError_t launch_nt(int K, int m_is_f32, Args... args) {
 }  // namespace
 
 // theta (rows, K) f32, beta (hip, K) f32, x_hi/x_lo (rows, hip) bf16 bits
-// (x_lo may be null), m (rows, hip) bf16 or f32.  hip % 64 == 0, K <= 32.
+// (x_lo may be null), m (rows, hip) bf16 or f32.  hip % 64 == 0, K <= 128.
 // planes: scratch for the streamed table's hi and lo planes,
-// 2 * n * 8 * ceil(K / 8) bf16 with n = hip (user side) or rows.
+// 2 * n * 8 * nt_of(K) bf16 with n = hip (user side) or rows.
 // n_splits > 1 needs partial (n_splits * out_rows * 2K floats).
 extern "C" int pmf_dense_head_tier(const float* theta, const float* beta,
                                    const void* x_hi, const void* x_lo,
@@ -584,9 +612,9 @@ extern "C" int pmf_dense_head_tier(const float* theta, const float* beta,
                                    int item_side, int n_splits, void* planes,
                                    float* partial, float* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (K < 1 || K > 32 || n_splits < 1)
+  if (K < 1 || K > 128 || n_splits < 1)
     return (int)cudaErrorInvalidValue;
-  const int KD = (K + 7) / 8 * 8;
+  const int KD = 8 * nt_of(K);
   uint16_t* pl = static_cast<uint16_t*>(planes);
   const float* p_tab = item_side ? beta : theta;
   {

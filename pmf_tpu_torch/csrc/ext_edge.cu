@@ -22,17 +22,18 @@
 // row.  The arithmetic (~6K flops per edge for K7, 3K for K8) is far below
 // the FP32 line; in practice the L2 row gathers' latency sets the time.
 //
-// Design: K1's skeleton.  One warp per self row, lane k holds factor k
-// (K <= 32, lanes >= K hold 0).  The scalars are their own array, not a
-// K+1-th table column, so the other rows stay K floats wide and K = 32
-// still fits a warp: the warp loads 32 edges' ids (and ratings) with one
-// coalesced load, each lane gathers ITS edge's scalar, and the walk over
-// the batch shares id, rating and scalar by __shfl_sync.  Each other row
-// is one coalesced K-float read; four edges are in flight at once.  K7
-// reduces the dot with __shfl_xor_sync per edge (the division needs it);
-// K8 is linear in the dot, so each lane sums s * e_self[k] * e_other[k]
-// over the row's edges and the warp reduces once at the end.  Sums run in
-// edge order in registers: no atomics, deterministic results.
+// Design: K1's skeleton.  One warp per self row; lane l holds factors l,
+// l + 32, ... (F = ceil(K / 32) a lane, a template parameter, F <= 4 for
+// K <= 128; factors >= K hold 0).  The scalars are their own array, not a
+// K+1-th table column, so the other rows stay K floats wide: the warp
+// loads 32 edges' ids (and ratings) with one coalesced load, each lane
+// gathers ITS edge's scalar, and the walk over the batch shares id, rating
+// and scalar by __shfl_sync.  Each other row is F coalesced 32-float
+// reads; four edges are in flight at once.  K7 reduces the dot with one
+// __shfl_xor_sync butterfly per edge (the division needs it); K8 is linear
+// in the dot, so each lane sums s * e_self[k] * e_other[k] over the row's
+// edges and the warp reduces once at the end.  Sums run in edge order in
+// registers: no atomics, deterministic results.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,6 +42,7 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxK = 128;  // F = ceil(K / 32) <= 4 factors a lane
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -48,6 +50,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <int F>
+__device__ __forceinline__ void gather_row(const float* __restrict__ tab, int o, int K,
+                                           int lane, float (&eo)[F]) {
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    const int k = 32 * f + lane;
+    eo[f] = k < K ? __ldg(tab + (int64_t)o * K + k) : 0.f;
+  }
+}
+
+template <int F>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 ext_factor_kernel(const float* __restrict__ e_self,
                   const float* __restrict__ e_other,
@@ -60,9 +73,30 @@ ext_factor_kernel(const float* __restrict__ e_self,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= n_self) return;  // whole warp leaves together
-  const bool active = lane < K;
-  const float es = active ? e_self[(int64_t)row * K + lane] : 0.f;
-  float acc_a = 0.f, acc_w = 0.f;
+  float es[F], acc_a[F], acc_w[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    const int k = 32 * f + lane;
+    es[f] = k < K ? e_self[(int64_t)row * K + k] : 0.f;
+    acc_a[f] = 0.f;
+    acc_w[f] = 0.f;
+  }
+  auto edge = [&](const float (&eo)[F], float xv, float sv) {
+    float p[F];
+    float part = es[0] * eo[0];
+    p[0] = part;
+#pragma unroll
+    for (int f = 1; f < F; ++f) {
+      p[f] = es[f] * eo[f];
+      part += p[f];
+    }
+    const float dot = fmaxf(warp_sum(part), rate_floor);
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      acc_a[f] += (xv / dot) * p[f];
+      acc_w[f] += sv * eo[f];
+    }
+  };
   const int64_t begin = row_ptr[row];
   const int64_t end = row_ptr[row + 1];
   for (int64_t base = begin; base < end; base += 32) {
@@ -77,40 +111,38 @@ ext_factor_kernel(const float* __restrict__ e_self,
     }
     int j = 0;
     for (; j + 4 <= n; j += 4) {
-      float eo[4], xv[4], sv[4];
+      float eo[4][F], xv[4], sv[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int o = __shfl_sync(kFull, my_o, j + q);
         xv[q] = __shfl_sync(kFull, my_x, j + q);
         sv[q] = __shfl_sync(kFull, my_s, j + q);
-        eo[q] = active ? __ldg(e_other + (int64_t)o * K + lane) : 0.f;
+        gather_row(e_other, o, K, lane, eo[q]);
       }
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float p = es * eo[q];
-        const float dot = fmaxf(warp_sum(p), rate_floor);
-        acc_a += (xv[q] / dot) * p;
-        acc_w += sv[q] * eo[q];
-      }
+      for (int q = 0; q < 4; ++q) edge(eo[q], xv[q], sv[q]);
     }
     for (; j < n; ++j) {
       const int o = __shfl_sync(kFull, my_o, j);
       const float xv = __shfl_sync(kFull, my_x, j);
       const float sv = __shfl_sync(kFull, my_s, j);
-      const float eo = active ? __ldg(e_other + (int64_t)o * K + lane) : 0.f;
-      const float p = es * eo;
-      const float dot = fmaxf(warp_sum(p), rate_floor);
-      acc_a += (xv / dot) * p;
-      acc_w += sv * eo;
+      float eo[F];
+      gather_row(e_other, o, K, lane, eo);
+      edge(eo, xv, sv);
     }
   }
-  if (active) {
-    float* dst = out + (int64_t)row * 2 * K;
-    dst[lane] = acc_a;
-    dst[K + lane] = acc_w;
+  float* dst = out + (int64_t)row * 2 * K;
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    const int k = 32 * f + lane;
+    if (k < K) {
+      dst[k] = acc_a[f];
+      dst[K + k] = acc_w[f];
+    }
   }
 }
 
+template <int F>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 ext_scalar_kernel(const float* __restrict__ e_self_new,
                   const float* __restrict__ e_other,
@@ -122,9 +154,18 @@ ext_scalar_kernel(const float* __restrict__ e_self_new,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= n_self) return;  // whole warp leaves together
-  const bool active = lane < K;
-  const float es = active ? e_self_new[(int64_t)row * K + lane] : 0.f;
-  float acc = 0.f;  // this lane's share: sum_e s_o * e_self_new[k] * e_other[o, k]
+  // This lane's share: sum_e s_o * e_self_new[k] * e_other[o, k], its F factors.
+  float es[F], acc[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    const int k = 32 * f + lane;
+    es[f] = k < K ? e_self_new[(int64_t)row * K + k] : 0.f;
+    acc[f] = 0.f;
+  }
+  auto edge = [&](const float (&eo)[F], float sv) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[f] += sv * (es[f] * eo[f]);
+  };
   const int64_t begin = row_ptr[row];
   const int64_t end = row_ptr[row + 1];
   for (int64_t base = begin; base < end; base += 32) {
@@ -138,26 +179,40 @@ ext_scalar_kernel(const float* __restrict__ e_self_new,
     }
     int j = 0;
     for (; j + 4 <= n; j += 4) {
-      float eo[4], sv[4];
+      float eo[4][F], sv[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int o = __shfl_sync(kFull, my_o, j + q);
         sv[q] = __shfl_sync(kFull, my_s, j + q);
-        eo[q] = active ? __ldg(e_other + (int64_t)o * K + lane) : 0.f;
+        gather_row(e_other, o, K, lane, eo[q]);
       }
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc += sv[q] * (es * eo[q]);
+      for (int q = 0; q < 4; ++q) edge(eo[q], sv[q]);
     }
     for (; j < n; ++j) {
       const int o = __shfl_sync(kFull, my_o, j);
       const float sv = __shfl_sync(kFull, my_s, j);
-      const float eo = active ? __ldg(e_other + (int64_t)o * K + lane) : 0.f;
-      acc += sv * (es * eo);
+      float eo[F];
+      gather_row(e_other, o, K, lane, eo);
+      edge(eo, sv);
     }
   }
-  const float total = warp_sum(acc);
+  float part = acc[0];
+#pragma unroll
+  for (int f = 1; f < F; ++f) part += acc[f];
+  const float total = warp_sum(part);
   if (lane == 0) out[row] = total;
 }
+
+// Launch KERNEL<F> with F = ceil(K / 32) factors a lane (K <= 128).
+#define PMF_LAUNCH_F(KERNEL, K, GRID, STREAM, ...)                          \
+  switch (((K) + 31) / 32) {                                                 \
+    case 1: KERNEL<1><<<GRID, kWarpsPerBlock * 32, 0, STREAM>>>(__VA_ARGS__); break; \
+    case 2: KERNEL<2><<<GRID, kWarpsPerBlock * 32, 0, STREAM>>>(__VA_ARGS__); break; \
+    case 3: KERNEL<3><<<GRID, kWarpsPerBlock * 32, 0, STREAM>>>(__VA_ARGS__); break; \
+    case 4: KERNEL<4><<<GRID, kWarpsPerBlock * 32, 0, STREAM>>>(__VA_ARGS__); break; \
+    default: return (int)cudaErrorInvalidValue;                              \
+  }
 
 }  // namespace
 
@@ -166,11 +221,12 @@ extern "C" int pmf_ext_factor(const float* e_self, const float* e_other,
                               const int32_t* other, const float* x, int n_self,
                               int K, float rate_floor, float* out,
                               void* stream) {
+  if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
   if (n_self > 0) {
     const int blocks = (n_self + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    ext_factor_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        e_self, e_other, s_other, row_ptr, other, x, n_self, K, rate_floor, out);
+    PMF_LAUNCH_F(ext_factor_kernel, K, blocks, static_cast<cudaStream_t>(stream),
+                 e_self, e_other, s_other, row_ptr, other, x, n_self, K, rate_floor,
+                 out);
   }
   return (int)cudaGetLastError();
 }
@@ -179,11 +235,11 @@ extern "C" int pmf_ext_scalar(const float* e_self_new, const float* e_other,
                               const float* s_other, const int64_t* row_ptr,
                               const int32_t* other, int n_self, int K,
                               float* out, void* stream) {
+  if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
   if (n_self > 0) {
     const int blocks = (n_self + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    ext_scalar_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        e_self_new, e_other, s_other, row_ptr, other, n_self, K, out);
+    PMF_LAUNCH_F(ext_scalar_kernel, K, blocks, static_cast<cudaStream_t>(stream),
+                 e_self_new, e_other, s_other, row_ptr, other, n_self, K, out);
   }
   return (int)cudaGetLastError();
 }

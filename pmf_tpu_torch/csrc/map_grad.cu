@@ -1,53 +1,58 @@
-// K9 — HPF-MAP minibatch gradients of the Poisson NLL, one direction of
-// one batch segment per launch.
+// K9 — HPF-MAP minibatch gradients of the Poisson NLL, one launch a
+// direction an Adam step.
 //
 // Replaces: pmf_tpu/ops/pallas/map_grad.py::_kernel.
 //
-// A segment is a few thousand edges of the tile-major edge order, stored
-// once per direction as a small CSR over the self rows that occur in it
-// (rows[r] = the table row of run r, row_ptr[r]..row_ptr[r+1] its edges).
+// Layout (ops/map_grad.py::group_steps, rebuilt on the card once an epoch
+// from the epoch's segment order): one direction's edges sorted by (step,
+// self row), so that a row's edges inside one step form one run, and every
+// run cut into pieces of at most PIECE edges.  Piece p holds the edges
+// piece_ptr[p] .. piece_ptr[p + 1] of `other` / `x`, belongs to row
+// piece_row[p], and its run is the piece_count[p] pieces from
+// piece_first[p] on.  Step s owns the pieces step_off[s] .. step_off[s + 1].
 // With the softplus'd tables [theta | xi] and [beta | eta] (K+1 columns,
 // row stride K+1, the last column not part of the dot), per edge:
 //   lam = max(<self, other>, floor)
 //   w   = 1 - x / lam        (0 where the dot fell below the floor)
 //   nll = lam - x log lam
-// and per run r, ADDED into the dense accumulator row rows[r]:
-//   out[row, 0:K] += sum_e w * other[o_e]
-//   out[row, K]   += number of edges
-//   out[row, K+1] += sum_e nll                  (with_nll: user direction)
+// and per row of the step, STORED into the zeroed accumulator row:
+//   out[row, 0:K] = sum_e w * other[o_e]
+//   out[row, K]   = number of edges
+//   out[row, K+1] = sum_e nll                  (with_nll: user direction)
 // The user direction runs with (self, other) = (users, items) and row
 // width K+2, the item direction with the tables swapped and width K+1.
 // lam is computed in both directions: that doubles a dot and saves every
-// atomic.
+// atomic on the other side's rows.
 //
 // What bounds it on an H100: memory and latency, not arithmetic.  Per edge
 // it streams an 8-byte (other id, rating) pair from HBM and gathers one
 // (K+1)-float row of the other table; both tables (under 19 MB at
-// 162k + 59k rows of 21 floats) stay in the 50 MB L2.  Per run it reads
-// 12 bytes of row list and read-modify-writes one accumulator row.  The
-// arithmetic (~4K flops per edge) is far below the FP32 line.  A segment
-// holds only some hundreds to thousands of runs, so one launch cannot
-// fill the card, and its time is that of its LONGEST run: in the dense
-// corner of a Zipf-shaped rating matrix one row holds hundreds to over a
-// thousand of a segment's 8192 edges.
+// 162k + 59k rows of 21 floats) stay in the 50 MB L2.  Per piece it reads
+// 20 bytes of piece list and writes one accumulator row (or one partial
+// row and, for the last piece of a run, reads the run's partials).  The
+// arithmetic (~4K flops per edge) is far below the FP32 line.
 //
-// Design: one warp per run, one LANE PER EDGE.  Each lane takes every 32nd
-// edge of the run, gathers that edge's other row into registers (K
-// independent loads in flight), and computes its dot, lam, w and nll
-// privately: no shuffle, divide or logarithm is repeated across lanes,
-// and a long run advances 32 edges per iteration.  Each lane keeps K
-// partial sums of w * other in registers; the run's self row is read once
-// (a broadcast load).  At the end of the run the warp folds the K partial
-// sums across its lanes by a reduce-scatter (31 shuffles: at each level a
-// lane keeps one half of its values and hands the other half to its
-// partner), which leaves factor k's total in lane k; lane 0 writes the
-// count (the run length) and the butterfly-reduced nll.  K is a run-time
-// argument, so the register arrays are sized by a template bound KMAX
-// (8, 16, 24 or 32) and the loops are unrolled with a k < K guard.
-// Every sum is taken in a fixed order (a lane's edges in order, then the
-// fixed tree).  Within one segment and direction every row occurs in one
-// run only, and launches on one stream run in order, so the
-// read-modify-write needs no atomic and the result is deterministic.
+// Design: one launch covers a whole step (65,536 edges at batch_size
+// 65536), enough pieces to fill 132 SMs, and no piece holds more than
+// PIECE edges, so no warp walks a run of a thousand edges while the card
+// waits.  One warp a piece.
+//  * K <= 32: one LANE PER EDGE.  Each lane takes every 32nd edge of the
+//    piece, gathers that edge's other row into registers (K independent
+//    loads in flight), and computes its dot, lam, w and nll privately.
+//    Each lane keeps K partial sums of w * other; the piece's self row is
+//    read once (a broadcast load).  At the end the warp folds the K
+//    partial sums across its lanes by a reduce-scatter (31 shuffles),
+//    which leaves factor k's total in lane k.  The register arrays are
+//    sized by a template bound KMAX (8, 16, 24 or 32).
+//  * K > 32: lanes over factors, F = ceil(K / 32) a lane, a warp dot an
+//    edge (one __shfl_xor_sync butterfly), four edges in flight, as K1.
+//  * Rows are unique within a step.  A run of one piece STORES its row: no
+//    read-modify-write.  A run of several pieces writes each piece's
+//    partial row to a scratch slot; the last piece to arrive (a counter a
+//    run, atomicInc after __threadfence, which wraps the counter back to 0
+//    for the next launch) adds the run's partials in piece order and
+//    stores the row.  No float atomics: every sum is taken in a fixed
+//    order, so two launches of one step give equal bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,6 +61,7 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxK = 128;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -81,78 +87,216 @@ __device__ __forceinline__ float warp_reduce_scatter(float (&v)[32], int lane) {
   return v[0];
 }
 
+struct Pieces {
+  const int32_t* step_off;
+  const int64_t* piece_ptr;
+  const int32_t* piece_row;
+  const int32_t* piece_first;
+  const int32_t* piece_count;
+  const int32_t* other;
+  const float* x;
+};
+
+// One row (or partial) of width K + 1 + with_nll: lane l holds factors
+// l, l + 32, ... in v; lane 0 writes the count and the nll.
+template <int F>
+__device__ __forceinline__ void store_row(float* dst, const float (&v)[F], float count,
+                                          float nll, int K, int with_nll, int lane) {
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    const int k = 32 * f + lane;
+    if (k < K) dst[k] = v[f];
+  }
+  if (lane == 0) {
+    dst[K] = count;
+    if (with_nll) dst[K + 1] = nll;
+  }
+}
+
+// Piece p (local slot p - p0) is done: store its row, or its partial and,
+// if it is the run's last piece to arrive, the run's sum.
+template <int F>
+__device__ __forceinline__ void finish_piece(const Pieces& pc, int p, int p0, int row,
+                                             const float (&v)[F], float count, float nll,
+                                             int K, int with_nll, float* out,
+                                             float* scratch, unsigned* counters, int lane) {
+  const int width = K + 1 + with_nll;
+  const int n = pc.piece_count[p];
+  if (n == 1) {
+    store_row(out + (int64_t)row * width, v, count, nll, K, with_nll, lane);
+    return;
+  }
+  store_row(scratch + (int64_t)(p - p0) * width, v, count, nll, K, with_nll, lane);
+  __threadfence();  // this lane's partial is visible before the count moves
+  __syncwarp();
+  const int first = pc.piece_first[p] - p0;
+  unsigned old = 0;
+  if (lane == 0) old = atomicInc(counters + first, (unsigned)(n - 1));
+  old = __shfl_sync(kFull, old, 0);
+  if (old != (unsigned)(n - 1)) return;
+  __threadfence();
+  const float* part = scratch + (int64_t)first * width;
+  float* dst = out + (int64_t)row * width;
+  for (int c = lane; c < width; c += 32) {
+    float s = __ldcg(part + c);
+    for (int q = 1; q < n; ++q) s += __ldcg(part + (int64_t)q * width + c);
+    dst[c] = s;
+  }
+}
+
+// K <= 32: one lane per edge.
 template <int KMAX>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-map_grad_kernel(const float* __restrict__ self_tab,
-                const float* __restrict__ other_tab,
-                const int32_t* __restrict__ rows,
-                const int64_t* __restrict__ row_ptr,
-                const int32_t* __restrict__ other,
-                const float* __restrict__ x,
-                int n_rows, int K, float lam_floor, int with_nll,
-                float* out) {
+map_grad_kernel(const float* __restrict__ self_tab, const float* __restrict__ other_tab,
+                Pieces pc, int step, int K, float lam_floor, int with_nll,
+                float* __restrict__ out, float* scratch, unsigned* counters) {
   const int lane = threadIdx.x & 31;
-  const int run = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (run >= n_rows) return;  // whole warp leaves together
+  const int p0 = pc.step_off[step];
+  const int p1 = pc.step_off[step + 1];
   const int stride = K + 1;
-  const int64_t row = rows[run];
-  const float* srow = self_tab + row * stride;
-  float es[KMAX], acc[KMAX];
+  for (int p = p0 + blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); p < p1;
+       p += gridDim.x * kWarpsPerBlock) {
+    const int row = pc.piece_row[p];
+    const float* srow = self_tab + (int64_t)row * stride;
+    float es[KMAX], acc[KMAX];
 #pragma unroll
-  for (int k = 0; k < KMAX; ++k) {
-    es[k] = k < K ? __ldg(srow + k) : 0.f;
-    acc[k] = 0.f;
+    for (int k = 0; k < KMAX; ++k) {
+      es[k] = k < K ? __ldg(srow + k) : 0.f;
+      acc[k] = 0.f;
+    }
+    float acc_nll = 0.f;
+    const int64_t begin = pc.piece_ptr[p];
+    const int64_t end = pc.piece_ptr[p + 1];
+    for (int64_t e = begin + lane; e < end; e += 32) {
+      const float* orow = other_tab + (int64_t)pc.other[e] * stride;
+      const float xv = pc.x[e];
+      float eo[KMAX];
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) eo[k] = k < K ? __ldg(orow + k) : 0.f;
+      float dot = 0.f;
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) dot = fmaf(es[k], eo[k], dot);
+      const float lam = fmaxf(dot, lam_floor);
+      const float w = dot >= lam_floor ? 1.f - xv / lam : 0.f;
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) acc[k] = fmaf(w, eo[k], acc[k]);
+      acc_nll += lam - xv * logf(lam);
+    }
+    __syncwarp();
+    float v[32];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) v[k] = k < KMAX ? acc[k] : 0.f;
+    const float total[1] = {warp_reduce_scatter(v, lane)};
+    acc_nll = warp_sum(acc_nll);
+    finish_piece<1>(pc, p, p0, row, total, (float)(end - begin), acc_nll, K, with_nll,
+                    out, scratch, counters, lane);
   }
-  float acc_nll = 0.f;
-  const int64_t begin = row_ptr[run];
-  const int64_t end = row_ptr[run + 1];
-  for (int64_t e = begin + lane; e < end; e += 32) {
-    const float* orow = other_tab + (int64_t)other[e] * stride;
-    const float xv = x[e];
-    float eo[KMAX];
+}
+
+// K > 32: lanes over factors, F = ceil(K / 32) a lane, a warp dot an edge.
+template <int F>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+map_grad_wide_kernel(const float* __restrict__ self_tab,
+                     const float* __restrict__ other_tab, Pieces pc, int step, int K,
+                     float lam_floor, int with_nll, float* __restrict__ out,
+                     float* scratch, unsigned* counters) {
+  const int lane = threadIdx.x & 31;
+  const int p0 = pc.step_off[step];
+  const int p1 = pc.step_off[step + 1];
+  const int stride = K + 1;
+  for (int p = p0 + blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); p < p1;
+       p += gridDim.x * kWarpsPerBlock) {
+    const int row = pc.piece_row[p];
+    const float* srow = self_tab + (int64_t)row * stride;
+    float es[F], acc[F];
 #pragma unroll
-    for (int k = 0; k < KMAX; ++k) eo[k] = k < K ? __ldg(orow + k) : 0.f;
-    float dot = 0.f;
+    for (int f = 0; f < F; ++f) {
+      const int k = 32 * f + lane;
+      es[f] = k < K ? __ldg(srow + k) : 0.f;
+      acc[f] = 0.f;
+    }
+    float acc_nll = 0.f;  // the same on every lane
+    auto gather = [&](int o, float (&eo)[F]) {
+      const float* orow = other_tab + (int64_t)o * stride;
 #pragma unroll
-    for (int k = 0; k < KMAX; ++k) dot = fmaf(es[k], eo[k], dot);
-    const float lam = fmaxf(dot, lam_floor);
-    const float w = dot >= lam_floor ? 1.f - xv / lam : 0.f;
+      for (int f = 0; f < F; ++f) {
+        const int k = 32 * f + lane;
+        eo[f] = k < K ? __ldg(orow + k) : 0.f;
+      }
+    };
+    auto edge = [&](const float (&eo)[F], float xv) {
+      float part = es[0] * eo[0];
 #pragma unroll
-    for (int k = 0; k < KMAX; ++k) acc[k] = fmaf(w, eo[k], acc[k]);
-    acc_nll += lam - xv * logf(lam);
-  }
-  __syncwarp();
-  float v[32];
+      for (int f = 1; f < F; ++f) part = fmaf(es[f], eo[f], part);
+      const float dot = warp_sum(part);
+      const float lam = fmaxf(dot, lam_floor);
+      const float w = dot >= lam_floor ? 1.f - xv / lam : 0.f;
 #pragma unroll
-  for (int k = 0; k < 32; ++k) v[k] = k < KMAX ? acc[k] : 0.f;
-  const float total = warp_reduce_scatter(v, lane);
-  acc_nll = warp_sum(acc_nll);
-  float* dst = out + row * (stride + (with_nll ? 1 : 0));
-  if (lane < K) dst[lane] += total;
-  if (lane == 0) {
-    dst[K] += (float)(end - begin);
-    if (with_nll) dst[K + 1] += acc_nll;
+      for (int f = 0; f < F; ++f) acc[f] = fmaf(w, eo[f], acc[f]);
+      acc_nll += lam - xv * logf(lam);
+    };
+    const int64_t begin = pc.piece_ptr[p];
+    const int64_t end = pc.piece_ptr[p + 1];
+    for (int64_t base = begin; base < end; base += 32) {
+      const int64_t left = end - base;
+      const int n = left < 32 ? (int)left : 32;
+      int my_o = 0;
+      float my_x = 0.f;
+      if (lane < n) {
+        my_o = pc.other[base + lane];
+        my_x = pc.x[base + lane];
+      }
+      int j = 0;
+      for (; j + 4 <= n; j += 4) {
+        float eo[4][F], xv[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          xv[q] = __shfl_sync(kFull, my_x, j + q);
+          gather(__shfl_sync(kFull, my_o, j + q), eo[q]);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) edge(eo[q], xv[q]);
+      }
+      for (; j < n; ++j) {
+        const float xv = __shfl_sync(kFull, my_x, j);
+        float eo[F];
+        gather(__shfl_sync(kFull, my_o, j), eo);
+        edge(eo, xv);
+      }
+    }
+    finish_piece<F>(pc, p, p0, row, acc, (float)(end - begin), acc_nll, K, with_nll, out,
+                    scratch, counters, lane);
   }
 }
 
 }  // namespace
 
+// One direction of step `step`.  max_pieces: the most pieces any step of
+// the layout holds (the grid gives each a warp); scratch: max_pieces rows
+// of K + 1 + with_nll floats; counters: max_pieces zeros, left zero.
 extern "C" int pmf_map_grad(const float* self_tab, const float* other_tab,
-                            const int32_t* rows, const int64_t* row_ptr,
-                            const int32_t* other, const float* x, int n_rows,
-                            int K, float lam_floor, int with_nll, float* out,
-                            void* stream) {
-  if (n_rows > 0) {
-    const int blocks = (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+                            const int32_t* step_off, int step, int max_pieces,
+                            const int64_t* piece_ptr, const int32_t* piece_row,
+                            const int32_t* piece_first, const int32_t* piece_count,
+                            const int32_t* other, const float* x, int K,
+                            float lam_floor, int with_nll, float* out, float* scratch,
+                            unsigned* counters, void* stream) {
+  if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
+  if (max_pieces > 0) {
+    const int blocks = (max_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PMF_MAP_GRAD_LAUNCH(KMAX)                                            \
-  map_grad_kernel<KMAX><<<blocks, kWarpsPerBlock * 32, 0, st>>>(             \
-      self_tab, other_tab, rows, row_ptr, other, x, n_rows, K, lam_floor,    \
-      with_nll, out)
-    if (K <= 8) PMF_MAP_GRAD_LAUNCH(8);
-    else if (K <= 16) PMF_MAP_GRAD_LAUNCH(16);
-    else if (K <= 24) PMF_MAP_GRAD_LAUNCH(24);
-    else PMF_MAP_GRAD_LAUNCH(32);
+    const Pieces pc{step_off, piece_ptr, piece_row, piece_first, piece_count, other, x};
+#define PMF_MAP_GRAD_LAUNCH(KERNEL)                                           \
+  KERNEL<<<blocks, kWarpsPerBlock * 32, 0, st>>>(self_tab, other_tab, pc, step, K, \
+                                                  lam_floor, with_nll, out, scratch, \
+                                                  counters)
+    if (K <= 8) PMF_MAP_GRAD_LAUNCH(map_grad_kernel<8>);
+    else if (K <= 16) PMF_MAP_GRAD_LAUNCH(map_grad_kernel<16>);
+    else if (K <= 24) PMF_MAP_GRAD_LAUNCH(map_grad_kernel<24>);
+    else if (K <= 32) PMF_MAP_GRAD_LAUNCH(map_grad_kernel<32>);
+    else if (K <= 64) PMF_MAP_GRAD_LAUNCH(map_grad_wide_kernel<2>);
+    else if (K <= 96) PMF_MAP_GRAD_LAUNCH(map_grad_wide_kernel<3>);
+    else PMF_MAP_GRAD_LAUNCH(map_grad_wide_kernel<4>);
 #undef PMF_MAP_GRAD_LAUNCH
   }
   return (int)cudaGetLastError();

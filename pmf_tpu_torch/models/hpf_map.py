@@ -17,9 +17,11 @@ Engines.  "flat": uniformly shuffled batches of ``batch_size`` ratings,
 the last one padded and masked, gradients by autograd on ``batch_loss``.
 "blocked_high": the ratings lie in count-reordered, tile-major order, cut
 into segments of ``batch_size // mix`` ratings; one Adam step takes ``mix``
-segments drawn from the epoch's shuffle of the segments, and its NLL
-gradients come from the CUDA kernel K9 (``ops.map_grad``) on the card, or
-from its plain version on the CPU.  The prior terms, the softplus chain
+segments drawn from the epoch's shuffle of the segments.  Once an epoch
+both directions' edges are regrouped on the device by (step, self row)
+(``ops.map_grad.group_steps``), and each step's NLL gradients come from
+two launches of the CUDA kernel K9 (``ops.map_grad``) on the card, one a
+direction, or from its plain version on the CPU.  The prior terms, the softplus chain
 rule, the loss and Adam are dense row-local tensor code.  The blocked
 batches are unions of tile-band segments instead of uniform draws: the
 same estimator family with another batch composition, so "auto" stays
@@ -39,7 +41,7 @@ from pmf_tpu_torch.data.coo import EvalSet
 from pmf_tpu_torch.eval.metrics import masked_macro_mae, masked_rmse
 from pmf_tpu_torch.models.base import FactorModel, as_triples
 from pmf_tpu_torch.ops.adam import adam_init, adam_update
-from pmf_tpu_torch.ops.map_grad import map_grad_step
+from pmf_tpu_torch.ops.map_grad import PIECE, group_steps, map_grad_grouped
 from pmf_tpu_torch.ops.segment import edge_dot, gather_rows
 from pmf_tpu_torch.utils.device import resolve_device
 
@@ -182,34 +184,16 @@ def train_epoch(params, opt_state, perm, ui_all, x_all, user_scale, item_scale,
 
 
 @dataclasses.dataclass(frozen=True)
-class SegmentCSR:
-    """One direction of the segment layout: per segment a small CSR over
-    the self rows that occur in it.  ``segs[s]`` holds the segment's views
-    (rows, row_ptr, other, x); ``row_ptr`` restarts at 0 in each segment
-    and indexes the segment's own slice of ``other`` / ``x``."""
-
-    rows: torch.Tensor  # (n_runs,) int32 new-space self ids
-    row_ptr: torch.Tensor  # (n_runs + n_segments,) int64
-    other: torch.Tensor  # (nnz,) int32 new-space other ids
-    x: torch.Tensor  # (nnz,) ratings
-    segs: tuple
-
-    @property
-    def n_runs(self) -> int:
-        return self.rows.shape[0]
-
-    def nbytes(self) -> int:
-        return sum(t.nbytes for t in (self.rows, self.row_ptr, self.other, self.x))
-
-
-@dataclasses.dataclass(frozen=True)
 class MapBlockedLayout:
     """The ratings in count-reordered (new) row space and tile-major order,
-    cut into segments, each stored once per direction.  Parameters, scales
-    and eval ids live in new space for the whole blocked fit."""
+    cut into segments: edges ``seg_off[s] .. seg_off[s + 1]`` form segment
+    s.  Parameters, scales and eval ids live in new space for the whole
+    blocked fit.  ``group`` regroups both directions for a segment order."""
 
-    by_user: SegmentCSR  # user rows -> [w * beta | count | nll]
-    by_item: SegmentCSR  # item rows -> [w * theta | count]
+    u: torch.Tensor  # (nnz,) int32 new-space user ids
+    i: torch.Tensor  # (nnz,) int32 new-space item ids
+    x: torch.Tensor  # (nnz,) ratings
+    seg_off: np.ndarray  # (n_segments + 1,) int64 host offsets
     u_old_of_new: torch.Tensor  # (n_users,) int64
     u_new_of_old: torch.Tensor
     i_old_of_new: torch.Tensor  # (n_items,) int64
@@ -222,13 +206,22 @@ class MapBlockedLayout:
     nnz: int
 
     def nbytes(self) -> int:
-        return self.by_user.nbytes() + self.by_item.nbytes()
+        return self.u.nbytes + self.i.nbytes + self.x.nbytes
 
     def segment(self, s: int):
-        """(u_new, i_new, x) of segment ``s`` in its user-sorted order."""
-        rows, row_ptr, other, x = self.by_user.segs[s]
-        u = torch.repeat_interleave(rows.long(), row_ptr[1:] - row_ptr[:-1])
-        return u, other.long(), x
+        """(u_new, i_new, x) of segment ``s`` in its tile-major order."""
+        lo, hi = int(self.seg_off[s]), int(self.seg_off[s + 1])
+        return self.u[lo:hi].long(), self.i[lo:hi].long(), self.x[lo:hi]
+
+    def group(self, seg_order, mix: int, K: int, piece: int = PIECE):
+        """(by user, by item) ``StepGroups`` of the segments ``seg_order``
+        (host ints), ``mix`` a step, runs cut into pieces of at most
+        ``piece`` edges: the user direction's self rows are users, the item
+        direction's items."""
+        return (group_steps(self.u, self.i, self.x, self.seg_off, seg_order, mix,
+                            self.n_users, K, piece),
+                group_steps(self.i, self.u, self.x, self.seg_off, seg_order, mix,
+                            self.n_items, K, piece))
 
     @classmethod
     def from_segments(cls, segments, perms, n_users: int, n_items: int,
@@ -252,51 +245,16 @@ class MapBlockedLayout:
                                   lens, perms, n_users, n_items, mix, device)
 
 
-def _direction_csr(s, o, x, seg, edge_off, n_self: int) -> SegmentCSR:
-    """Per-segment CSR of one direction: the edges (already in segment
-    order, ``seg`` nondecreasing) stably sorted by self row inside each
-    segment.  ``edge_off``: (n_segments + 1,) host offsets of the segments
-    in the edge order."""
-    n_segments = len(edge_off) - 1
-    dev = s.device
-    key, order = torch.sort(seg * n_self + s, stable=True)
-    uniq, counts = torch.unique_consecutive(key, return_counts=True)
-    run_seg = uniq // n_self
-    rows = (uniq % n_self).to(torch.int32)
-    n_runs = rows.shape[0]
-    run_off = np.zeros(n_segments + 1, dtype=np.int64)
-    np.cumsum(torch.bincount(run_seg, minlength=n_segments).cpu().numpy(),
-              out=run_off[1:])
-    # Segment s owns row_ptr[run_off[s] + s : run_off[s + 1] + s + 1]; its
-    # first entry stays 0 and run r's end lands one past its own slot.
-    row_ptr = torch.zeros(n_runs + n_segments, dtype=torch.int64, device=dev)
-    seg_start = torch.as_tensor(edge_off[:-1], device=dev)
-    row_ptr[torch.arange(n_runs, device=dev) + run_seg + 1] = (
-        torch.cumsum(counts, 0) - seg_start[run_seg])
-    other = o[order].to(torch.int32)
-    xs = x[order].contiguous()
-    segs = tuple(
-        (rows[r0:r1], row_ptr[r0 + k : r1 + k + 1], other[e0:e1], xs[e0:e1])
-        for k, (r0, r1, e0, e1) in enumerate(zip(
-            run_off[:-1].tolist(), run_off[1:].tolist(),
-            edge_off[:-1].tolist(), edge_off[1:].tolist())))
-    return SegmentCSR(rows=rows, row_ptr=row_ptr, other=other, x=xs, segs=segs)
-
-
 def _layout_from_edges(nu, ni, x, seg_lens, perms, n_users, n_items, mix,
                        device) -> MapBlockedLayout:
     """``nu``, ``ni`` (int64) and ``x``: the edges on ``device`` in segment
     order; ``seg_lens``: edges per segment."""
-    edge_off = np.zeros(len(seg_lens) + 1, dtype=np.int64)
-    np.cumsum(seg_lens, out=edge_off[1:])
-    seg = torch.repeat_interleave(
-        torch.arange(len(seg_lens), device=device),
-        torch.as_tensor(np.asarray(seg_lens, np.int64), device=device))
+    seg_off = np.zeros(len(seg_lens) + 1, dtype=np.int64)
+    np.cumsum(seg_lens, out=seg_off[1:])
     u_o2n, u_n2o, i_o2n, i_n2o = (
         torch.from_numpy(np.asarray(p, np.int64)).to(device) for p in perms)
     return MapBlockedLayout(
-        by_user=_direction_csr(nu, ni, x, seg, edge_off, n_users),
-        by_item=_direction_csr(ni, nu, x, seg, edge_off, n_items),
+        u=nu.to(torch.int32), i=ni.to(torch.int32), x=x.contiguous(), seg_off=seg_off,
         u_old_of_new=u_o2n, u_new_of_old=u_n2o,
         i_old_of_new=i_o2n, i_new_of_old=i_n2o,
         n_segments=len(seg_lens),
@@ -342,25 +300,35 @@ def train_epoch_blocked(params, opt_state, perm, lay: MapBlockedLayout,
     order ``perm`` (host integers; an epoch passes a permutation of all
     n_segments, a shorter list runs that many whole steps), one Adam step
     per ``mix`` of them.  params, scales and the layout are in new
-    (count-reordered) row space.  On the card the step's tables are
-    float32; on the CPU they keep the parameters' dtype.  Nothing is read
-    to the host inside the loop."""
-    a, a_prime, b_prime, c, c_prime, d_prime = cfg_scalars
-    order = [int(s) for s in np.asarray(perm).reshape(-1)]
+    (count-reordered) row space.  The epoch first regroups both
+    directions' edges by (step, self row) on the device (``lay.group``);
+    then each step takes one gradient launch a direction.  On the card the
+    step's tables are float32; on the CPU they keep the parameters' dtype.
+    Nothing is read to the host inside the loop of steps."""
+    order = np.asarray(perm, dtype=np.int64).reshape(-1)
     if lay.n_segments % mix or len(order) % mix:
         raise ValueError(f"layout n_segments={lay.n_segments} or the {len(order)} "
                          f"segments given are not a multiple of mix={mix} "
                          "(build_map_layout pads to the mix used at build)")
+    groups = lay.group(order, mix, params["user"].shape[1] - 1)
+    return train_steps_grouped(params, opt_state, groups, user_scale, item_scale,
+                               cfg_scalars, lr)
+
+
+def train_steps_grouped(params, opt_state, groups, user_scale, item_scale,
+                        cfg_scalars, lr: float):
+    """Every step of a grouping (``MapBlockedLayout.group``), one Adam
+    step each: two K9 launches and the dense part.  Returns (params,
+    opt_state, sum of the step losses as a 0-d tensor on the device)."""
+    a, a_prime, b_prime, c, c_prime, d_prime = cfg_scalars
     dt = params["user"].dtype
     work = torch.float32 if params["user"].is_cuda else dt
     K = params["user"].shape[1] - 1
     total = torch.zeros((), dtype=work, device=params["user"].device)
-    for step in range(len(order) // mix):
+    for step in range(groups[0].n_steps):
         p_user, p_item = params["user"].to(work), params["item"].to(work)
         u_sp, i_sp = softplus(p_user), softplus(p_item)
-        acc_u, acc_i = map_grad_step(u_sp, i_sp, lay,
-                                     order[step * mix : (step + 1) * mix],
-                                     LAMBDA_FLOOR)
+        acc_u, acc_i = map_grad_grouped(u_sp, i_sp, groups, step, LAMBDA_FLOOR)
         theta, xi = u_sp[:, :K], u_sp[:, K]
         beta, eta = i_sp[:, :K], i_sp[:, K]
 

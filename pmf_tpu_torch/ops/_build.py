@@ -52,9 +52,11 @@ SIGNATURES = {
     "pmf_ext_factor": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P],
     # e_self_new, e_other, s_other, row_ptr, other, n_self, K, out, stream
     "pmf_ext_scalar": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
-    # self_tab, other_tab, rows, row_ptr, other, x, n_rows, K, lam_floor,
-    # with_nll, out, stream
-    "pmf_map_grad": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P],
+    # self_tab, other_tab, step_off, step, max_pieces, piece_ptr, piece_row,
+    # piece_first, piece_count, other, x, K, lam_floor, with_nll, out,
+    # scratch, counters, stream
+    "pmf_map_grad": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _I, _P, _P,
+                     _P, _P],
 }
 
 

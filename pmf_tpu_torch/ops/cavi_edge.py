@@ -33,6 +33,7 @@ RATE_FLOOR = 1e-10
 TAIL_LAUNCHES = _build.LaunchCounter()
 TAIL_RAW_LAUNCHES = _build.LaunchCounter()
 MODES = ("cavi", "raw")
+MAX_K = 128  # ceil(K / 32) <= 4 factors a lane
 
 
 def tail_edge_stats_plain(e_self: torch.Tensor, e_other: torch.Tensor,
@@ -62,8 +63,8 @@ def tail_edge_stats_plain(e_self: torch.Tensor, e_other: torch.Tensor,
 
 def _check_cuda_args(e_self, e_other, row_ptr, other, x):
     K = e_self.shape[1]
-    if not 1 <= K <= 32:
-        raise ValueError(f"tail kernel needs 1 <= K <= 32, got K={K}")
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"tail kernel needs 1 <= K <= {MAX_K}, got K={K}")
     check_tail_args([("e_self", e_self), ("e_other", e_other)], row_ptr, other,
                     x, e_self.shape[0])
     if e_other.shape[1] != K:

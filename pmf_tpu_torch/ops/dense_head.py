@@ -53,6 +53,9 @@ WARPS = 4  # warps a CTA; each owns 16 rows of P
 P_TILE = 16 * WARPS  # rows of P a CTA
 Q_TILE = 32  # rows of Q per tile
 MAX_CTAS_PER_SM = 3  # resident CTAs the kernel's launch bounds keep registers for
+MAX_CTAS_PER_SM_WIDE = 2  # the same past K = 32
+GROUP_BLOCKS = 4  # output blocks of 8 factors a CTA keeps past K = 32 (grid.z)
+MAX_K = 128
 STAGES = 3  # ring of staged tiles: two in flight, one computed
 MAX_SPLITS = 64  # CTAs that may share one reduction axis
 SMEM_PER_CTA = 232_448  # dynamic shared memory one CTA may ask for
@@ -88,17 +91,31 @@ def fused_alloc_tier_plain(theta_h, beta_h, x_hi, m, x_lo=None, *,
     return out
 
 
+def depth_blocks(K: int) -> int:
+    """Blocks of 8 factors in the kernel's depth (``nt_of`` in the
+    source): ceil(K / 8) up to K = 32, then 4 ceil(K / 32), whole groups
+    of GROUP_BLOCKS."""
+    return -(-K // 8) if K <= 32 else GROUP_BLOCKS * -(-K // 32)
+
+
+def output_groups(K: int) -> int:
+    """CTAs (grid.z) that share one P tile, each keeping 4 output blocks."""
+    nt = depth_blocks(K)
+    return nt // GROUP_BLOCKS if nt > GROUP_BLOCKS else 1
+
+
 class LaunchPlan(NamedTuple):
     """How one tier and side is launched."""
 
     p_tile: int  # rows of P a CTA owns
     q_tile: int  # rows of Q per staged tile
-    depth: int  # K padded to a multiple of 8 (columns of the bf16 planes)
+    depth: int  # K padded to 8 depth_blocks(K) (columns of the bf16 planes)
     stages: int  # ring stages (STAGES)
     ctas_per_sm: int  # resident CTAs the shared memory and registers allow
     splits: int  # CTAs sharing the reduction axis (grid.y)
     tiles_per_split: int
     smem_bytes: int  # dynamic shared memory a CTA
+    groups: int  # CTAs sharing a P tile, one a group of output columns (grid.z)
 
 
 def stage_bytes(item_side: bool, m_f32: bool, has_lo: bool, K: int) -> int:
@@ -106,7 +123,7 @@ def stage_bytes(item_side: bool, m_f32: bool, has_lo: bool, K: int) -> int:
     by 16 bytes, a float32 M by 32 on the user side) and the Q tile's hi and
     lo planes (rows of 16 bytes per 8 factors, padded by 16 where that
     count is even)."""
-    blocks = -(-K // 8)
+    blocks = depth_blocks(K)
     q_stride = 16 * blocks + (0 if blocks % 2 else 16)
     cell_rows, cell_cols = (Q_TILE, P_TILE) if item_side else (P_TILE, Q_TILE)
     cs = cell_cols * 2 + 16
@@ -122,14 +139,18 @@ def plan_launch(rows: int, hip: int, K: int, item_side: bool, m_f32: bool,
     resident CTAs the ring's shared memory allows, and the split of the
     reduction axis (columns on the user side, rows on the item side) that
     takes the fewest tile times when the P tiles alone would not fill the
-    card."""
+    card.  Past K = 32 each P tile is ``output_groups(K)`` CTAs."""
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"head kernel needs 1 <= K <= {MAX_K}, got K={K}")
     smem = STAGES * stage_bytes(item_side, m_f32, has_lo, K)
     if smem > SMEM_PER_CTA:
         raise ValueError(f"a ring of {STAGES} stages, {smem} bytes, does not fit "
                          f"{SMEM_PER_CTA} bytes of shared memory")
-    ctas = min(MAX_CTAS_PER_SM, SMEM_PER_SM // (smem + SMEM_RESERVED))
+    groups = output_groups(K)
+    max_ctas = MAX_CTAS_PER_SM if K <= 32 else MAX_CTAS_PER_SM_WIDE
+    ctas = min(max_ctas, SMEM_PER_SM // (smem + SMEM_RESERVED))
     n_p, n_q = (hip, rows) if item_side else (rows, hip)
-    parallel = -(-n_p // P_TILE)
+    parallel = -(-n_p // P_TILE) * groups
     serial = max(-(-n_q // Q_TILE), 1)
     slots = ctas * n_sm
     # Cost in tile times (one tile through every resident CTA): the waves
@@ -146,14 +167,15 @@ def plan_launch(rows: int, hip: int, K: int, item_side: bool, m_f32: bool,
         if best is None or cost < best[0]:
             best = (cost, s, per)
     _, splits, per = best
-    return LaunchPlan(P_TILE, Q_TILE, 8 * -(-K // 8), STAGES, ctas, splits, per, smem)
+    return LaunchPlan(P_TILE, Q_TILE, 8 * depth_blocks(K), STAGES, ctas, splits, per,
+                      smem, groups)
 
 
 def _check_cuda_args(theta_h, beta_h, x_hi, m, x_lo):
     rows, K = theta_h.shape
     hip = m.shape[1]
-    if not 1 <= K <= 32:
-        raise ValueError(f"head kernel needs 1 <= K <= 32, got K={K}")
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"head kernel needs 1 <= K <= {MAX_K}, got K={K}")
     if rows < 1 or hip < 64 or hip % 64:
         raise ValueError(f"head of {rows} rows by {hip} columns: the kernel needs "
                          f"rows >= 1 and a width that is a multiple of 64")

@@ -43,7 +43,7 @@ from pmf_tpu_torch.ops.dense_head import ext_head_stats, ext_head_stats_t
 RATE_FLOOR = 1e-10
 FACTOR_LAUNCHES = _build.LaunchCounter()
 SCALAR_LAUNCHES = _build.LaunchCounter()
-MAX_K = 32  # one lane per factor; the scalars ride their own array
+MAX_K = 128  # ceil(K / 32) <= 4 factors a lane; the scalars ride their own array
 
 
 def ext_factor_tail_plain(e_self, e_other, s_other, row_ptr, other, x,

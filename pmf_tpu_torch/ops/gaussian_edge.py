@@ -42,9 +42,10 @@ from pmf_tpu_torch.ops._tail import (
 FACTOR_LAUNCHES = _build.LaunchCounter()
 BIAS_LAUNCHES = _build.LaunchCounter()
 DIAG_LAUNCHES = _build.LaunchCounter()
-FACTOR_MAX_K = 30  # K + 1 + K(K+1)/2 <= 16 warp-wide loads per record
-BIAS_MAX_K = 31  # [m | b] fits one warp
-DIAG_MAX_K = 32
+# Past K = 30 the factor pass cuts its K + 1 + K(K+1)/2 record floats into
+# chunks of 512 on grid.y; the bias and diag passes hold ceil((K+1) / 32)
+# and ceil(K / 32) floats a lane.
+FACTOR_MAX_K = BIAS_MAX_K = DIAG_MAX_K = 128
 
 
 def tri_size(k: int) -> int:

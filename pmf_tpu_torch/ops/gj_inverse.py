@@ -18,7 +18,7 @@ import torch
 from pmf_tpu_torch.ops import _build
 
 GJ_LAUNCHES = _build.LaunchCounter()
-MAX_K = 32  # one warp per matrix, lane j holds column j
+MAX_K = 128  # a warp a matrix up to K = 32, then a CTA with the matrix in shared memory
 
 
 def batched_psd_inverse_gj_plain(mats: torch.Tensor) -> torch.Tensor:

@@ -4,6 +4,7 @@ and its kernel wrappers launch or raise on a CUDA tensor, never falling
 back to the plain version."""
 
 import ast
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -182,8 +183,8 @@ def test_head_wrapper_raises_instead_of_falling_back(monkeypatch, broken_build):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
-    es = _cuda_looking(torch.rand(4, 40))  # K > 32
-    with pytest.raises(ValueError, match="K <= 32"):
+    es = _cuda_looking(torch.rand(4, 129))  # K > 128
+    with pytest.raises(ValueError, match="K <= 128"):
         cavi_edge.tail_edge_stats(es, es, _cuda_looking(torch.zeros(5, dtype=torch.int64)),
                                   _cuda_looking(torch.zeros(0, dtype=torch.int32)),
                                   _cuda_looking(torch.zeros(0)))
@@ -203,8 +204,8 @@ def _head_args(rows=8, hip=128, K=4, m_dtype=torch.bfloat16, x_lo=False):
 
 
 HEAD_REJECTS = {
-    "K_above_32": (ValueError, "1 <= K <= 32", lambda: _head_args(K=33)),
-    "K_zero": (ValueError, "1 <= K <= 32", lambda: _head_args(K=0)),
+    "K_above_32": (ValueError, "1 <= K <= 128", lambda: _head_args(K=129)),
+    "K_zero": (ValueError, "1 <= K <= 128", lambda: _head_args(K=0)),
     "width_not_64s": (ValueError, "multiple of 64", lambda: _head_args(hip=96)),
     "no_rows": (ValueError, "rows >= 1", lambda: _head_args(rows=0)),
     "m_float64": (TypeError, "m must be", lambda: _head_args(m_dtype=torch.float64)),
@@ -308,28 +309,28 @@ def test_gaussian_wrappers_raise_instead_of_falling_back(monkeypatch, broken_bui
 
 def test_gaussian_wrappers_reject_what_the_kernels_do_not_take():
     csr = _csr(3, 5, 4)
-    with pytest.raises(ValueError, match="K <= 30"):
+    with pytest.raises(ValueError, match="K <= 128"):
         gaussian_edge.factor_tail_stats(
-            _cuda_looking(torch.rand(5, 31 + 1 + 31 * 32 // 2)), *csr, 31)
+            _cuda_looking(torch.rand(5, 129 + 1 + 129 * 130 // 2)), *csr, 129)
     with pytest.raises(ValueError, match="aug must be"):
         gaussian_edge.factor_tail_stats(_cuda_looking(torch.rand(5, 9)), *csr, K)
     with pytest.raises(TypeError, match="aug"):
         gaussian_edge.factor_tail_stats(
             _cuda_looking(torch.rand(5, K + 1 + T, dtype=torch.float64)), *csr, K)
-    with pytest.raises(ValueError, match="K <= 31"):
-        gaussian_edge.bias_tail_stats(_cuda_looking(torch.rand(5, 33)), *csr)
+    with pytest.raises(ValueError, match="K <= 128"):
+        gaussian_edge.bias_tail_stats(_cuda_looking(torch.rand(5, 130)), *csr)
     with pytest.raises(TypeError, match="x must be"):
         gaussian_edge.bias_tail_stats(_cuda_looking(torch.rand(5, K + 1)), *csr[:2],
                                       _cuda_looking(torch.ones(4, dtype=torch.float64)))
-    with pytest.raises(ValueError, match="K <= 32"):
-        gaussian_edge.diag_tail_stats(_cuda_looking(torch.rand(5, 67)),
-                                      _cuda_looking(torch.rand(3, 34)), *csr)
+    with pytest.raises(ValueError, match="K <= 128"):
+        gaussian_edge.diag_tail_stats(_cuda_looking(torch.rand(5, 259)),
+                                      _cuda_looking(torch.rand(3, 130)), *csr)
     with pytest.raises(TypeError, match="self_tab"):
         gaussian_edge.diag_tail_stats(
             _cuda_looking(torch.rand(5, 2 * K + 1)),
             _cuda_looking(torch.rand(3, K + 1, dtype=torch.float64)), *csr)
-    with pytest.raises(ValueError, match="K <= 32"):
-        gj_inverse.batched_psd_inverse_gj(_cuda_looking(torch.rand(2, 33, 33)))
+    with pytest.raises(ValueError, match="K <= 128"):
+        gj_inverse.batched_psd_inverse_gj(_cuda_looking(torch.rand(2, 129, 129)))
     with pytest.raises(TypeError, match="float32"):
         gj_inverse.batched_psd_inverse_gj(
             _cuda_looking(torch.rand(2, 3, 3, dtype=torch.float64)))
@@ -360,9 +361,9 @@ def test_ext_wrappers_reject_what_the_kernels_do_not_take(kernel):
     name, _, args = EXT_WRAPPERS[kernel]
     fn = getattr(ext_edge, name)
     good = args()
-    wide = _cuda_looking(torch.rand(3, 33))  # K > 32
-    with pytest.raises(ValueError, match="K <= 32"):
-        fn(wide, _cuda_looking(torch.rand(5, 33)), *good[2:])
+    wide = _cuda_looking(torch.rand(3, 129))  # K > 128
+    with pytest.raises(ValueError, match="K <= 128"):
+        fn(wide, _cuda_looking(torch.rand(5, 129)), *good[2:])
     with pytest.raises(TypeError, match="e_other"):
         fn(good[0], _cuda_looking(torch.rand(5, K, dtype=torch.float64)), *good[2:])
     with pytest.raises(TypeError, match="s_other"):
@@ -430,88 +431,104 @@ def test_map_entry_points_without_device_raise_without_cuda(monkeypatch, small_s
     assert m.device == torch.device("cpu") and len(m.fit_history) == 1
 
 
+def _map_groups(K=4, n_users=3, n_items=5, seg_ids=(0,)):
+    """CUDA-looking (by user, by item) groupings of a two-segment layout:
+    segment 0 holds four edges over users 0 and 2, segment 1 none."""
+    segs = [(np.array([0, 0, 0, 2]), np.array([0, 1, 4, 2]), np.ones(4)),
+            (np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0))]
+    ident = (np.arange(n_users),) * 2 + (np.arange(n_items),) * 2
+    lay = hpf_map.MapBlockedLayout.from_segments(segs, ident, n_users, n_items, 1,
+                                                 device="cpu")
+    groups = lay.group(list(seg_ids), len(seg_ids), K)
+    out = []
+    for g in groups:
+        # The card's grouping carries its scratch rows; the CPU's none.
+        g = dataclasses.replace(g, scratch=torch.zeros(g.max_step_pieces, K + 2))
+        out.append(dataclasses.replace(g, **{
+            f.name: _cuda_looking(getattr(g, f.name)) for f in dataclasses.fields(g)
+            if isinstance(getattr(g, f.name), torch.Tensor)}))
+    return out
+
+
 def _map_args(K=4, with_nll=True, n_self=3, n_other=5):
-    """CUDA-looking arguments of one K9 launch: two runs over four edges."""
-    rows = _cuda_looking(torch.tensor([0, 2], dtype=torch.int32))
-    row_ptr = _cuda_looking(torch.tensor([0, 3, 4]))
-    other = _cuda_looking(torch.tensor([0, 1, 4, 2], dtype=torch.int32))
+    """CUDA-looking arguments of one K9 launch: the user direction of step
+    0 (two rows over four edges), or the item direction with the sizes
+    swapped."""
+    by_user, by_item = _map_groups(K)
+    g = by_user if with_nll else by_item
+    if not with_nll:
+        n_self, n_other = n_other, n_self
     return [_cuda_looking(torch.rand(n_self, K + 1)),
-            _cuda_looking(torch.rand(n_other, K + 1)), rows, row_ptr, other,
-            _cuda_looking(torch.ones(4)), 1e-6, with_nll,
+            _cuda_looking(torch.rand(n_other, K + 1)), g, 0, 1e-6, with_nll,
             _cuda_looking(torch.zeros(n_self, K + 1 + int(with_nll)))]
 
 
 @pytest.mark.parametrize("with_nll", [True, False], ids=["user", "item"])
 def test_map_grad_wrapper_raises_instead_of_falling_back(monkeypatch, broken_build,
                                                          with_nll):
-    _forbid(monkeypatch, map_grad, "map_grad_rows_plain")
+    _forbid(monkeypatch, map_grad, "map_grad_pieces_plain")
     before = map_grad.MAP_GRAD_LAUNCHES.count
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        map_grad.map_grad_rows(*_map_args(with_nll=with_nll))
+        map_grad.map_grad_pieces(*_map_args(with_nll=with_nll))
     assert map_grad.MAP_GRAD_LAUNCHES.count == before
 
 
 def test_map_grad_step_raises_instead_of_falling_back(monkeypatch, broken_build):
     """The whole step on CUDA-looking tables reaches the kernel, not the
     plain version."""
-    _forbid(monkeypatch, map_grad, "map_grad_rows_plain")
+    _forbid(monkeypatch, map_grad, "map_grad_pieces_plain")
     args = _map_args()
-    seg = tuple(args[2:6])
-
-    class Lay:
-        by_user = type("D", (), {"segs": (seg,)})
-        by_item = by_user
-
-    monkeypatch.setattr(torch, "zeros", lambda *a, **k: args[8])
+    groups = _map_groups()
+    monkeypatch.setattr(torch, "zeros", lambda *a, **k: args[6])
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        map_grad.map_grad_step(args[0], args[0], Lay, [0], 1e-6)
+        map_grad.map_grad_grouped(args[0], args[0], groups, 0, 1e-6)
 
 
 def test_map_grad_wrapper_rejects_what_the_kernel_does_not_take():
     good = _map_args()
 
     def call(**repl):
-        names = ("self_tab", "other_tab", "rows", "row_ptr", "other", "x",
-                 "lam_floor", "with_nll", "out")
+        names = ("self_tab", "other_tab", "g", "step", "lam_floor", "with_nll", "out")
         a = dict(zip(names, good))
         a.update(repl)
-        return map_grad.map_grad_rows(*a.values())
+        return map_grad.map_grad_pieces(*a.values())
 
-    wide = _map_args(K=33)
-    with pytest.raises(ValueError, match="K <= 32"):
-        map_grad.map_grad_rows(*wide)
+    wide = _map_args(K=129)
+    with pytest.raises(ValueError, match="K <= 128"):
+        map_grad.map_grad_pieces(*wide)
     with pytest.raises(TypeError, match="self_tab"):
         call(self_tab=_cuda_looking(torch.rand(3, 5, dtype=torch.float64)))
     with pytest.raises(TypeError, match="other_tab"):
         call(other_tab=_cuda_looking(torch.rand(5, 5, dtype=torch.float64)))
     with pytest.raises(TypeError, match="out"):
         call(out=_cuda_looking(torch.zeros(3, 6, dtype=torch.float64)))
-    with pytest.raises(TypeError, match="rows must be"):
-        call(rows=_cuda_looking(torch.tensor([0, 2])))  # int64
+    g = good[2]
+    with pytest.raises(TypeError, match="piece_row must be"):
+        call(g=dataclasses.replace(g, piece_row=_cuda_looking(g.piece_row.long())))
     with pytest.raises(TypeError, match="other must be"):
-        call(other=_cuda_looking(torch.zeros(4, dtype=torch.int64)))
+        call(g=dataclasses.replace(g, other=_cuda_looking(g.other.long())))
     with pytest.raises(TypeError, match="x must be"):
-        call(x=_cuda_looking(torch.ones(4, dtype=torch.float64)))
+        call(g=dataclasses.replace(g, x=_cuda_looking(g.x.double())))
     with pytest.raises(ValueError, match="differ in K"):
         call(other_tab=_cuda_looking(torch.rand(5, 6)))
     with pytest.raises(ValueError, match="out must be"):
         call(out=_cuda_looking(torch.zeros(3, 5)))  # the item width, with_nll set
-    with pytest.raises(ValueError, match="CSR shapes"):
-        call(rows=_cuda_looking(torch.tensor([0], dtype=torch.int32)))
+    with pytest.raises(ValueError, match="too small"):
+        call(g=dataclasses.replace(g, scratch=_cuda_looking(torch.zeros(0, 6))))
+    with pytest.raises(ValueError, match="outside"):
+        call(step=1)
     with pytest.raises(ValueError, match="is on"):
         call(other_tab=_cuda_looking(torch.rand(5, 5, device="meta")))
 
 
 def test_map_grad_wrapper_skips_an_empty_segment_without_a_build(broken_build):
     args = _map_args()
-    args[2] = _cuda_looking(torch.zeros(0, dtype=torch.int32))
-    args[3] = _cuda_looking(torch.zeros(1, dtype=torch.int64))
-    args[4] = _cuda_looking(torch.zeros(0, dtype=torch.int32))
-    args[5] = _cuda_looking(torch.zeros(0))
+    by_user, _ = _map_groups(seg_ids=(1,))  # the empty segment
+    args[2] = by_user
     before = map_grad.MAP_GRAD_LAUNCHES.count
-    map_grad.map_grad_rows(*args)  # nothing to launch, so nothing to build
+    map_grad.map_grad_pieces(*args)  # nothing to launch, so nothing to build
     assert map_grad.MAP_GRAD_LAUNCHES.count == before
-    assert float(args[8].abs().max()) == 0.0
+    assert float(args[6].abs().max()) == 0.0
 
 
 def test_raw_tail_wrapper_raises_instead_of_falling_back(monkeypatch, broken_build):
@@ -527,9 +544,9 @@ def test_raw_tail_wrapper_raises_instead_of_falling_back(monkeypatch, broken_bui
 
 def test_raw_tail_wrapper_rejects_what_the_kernel_does_not_take():
     row_ptr, other, _ = _csr(3, 5, 4)
-    wide = _cuda_looking(torch.rand(3, 33))
-    with pytest.raises(ValueError, match="K <= 32"):
-        cavi_edge.tail_edge_stats(wide, _cuda_looking(torch.rand(5, 33)), row_ptr,
+    wide = _cuda_looking(torch.rand(3, 129))
+    with pytest.raises(ValueError, match="K <= 128"):
+        cavi_edge.tail_edge_stats(wide, _cuda_looking(torch.rand(5, 129)), row_ptr,
                                   other, None, mode="raw")
     with pytest.raises(TypeError, match="e_other"):
         cavi_edge.tail_edge_stats(_cuda_looking(torch.rand(3, K)),
@@ -545,8 +562,9 @@ def test_map_grad_source_names_what_it_replaces_and_its_entry_point():
     src = (_build.SRC_DIR / "map_grad.cu").read_text()
     assert "Replaces: pmf_tpu/ops/pallas/map_grad.py::_kernel" in src
     assert "__shfl_xor_sync" in src and "atomicAdd" not in src
+    assert "atomicInc(" in src  # the arrival counters are integers
     assert 'extern "C" int pmf_map_grad(' in src
-    assert len(_build.SIGNATURES["pmf_map_grad"]) == 12
+    assert len(_build.SIGNATURES["pmf_map_grad"]) == 18
     raw = (_build.SRC_DIR / "cavi_edge.cu").read_text()
     assert 'extern "C" int pmf_cavi_edge_raw(' in raw
     assert len(_build.SIGNATURES["pmf_cavi_edge_raw"]) == 8

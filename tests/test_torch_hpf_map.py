@@ -306,35 +306,31 @@ def test_build_map_layout_properties(batch_size, mix):
         np.testing.assert_array_equal(n2o[o2n].numpy(), np.arange(n))
         counts = np.bincount(ids, minlength=n)
         np.testing.assert_array_equal(o2n.numpy(), np.argsort(-counts, kind="stable"))
-    # Every edge once, in tile-major order (stable in the input order).
+    # Every edge once, in tile-major order (stable in the input order),
+    # cut into uniform segments; each direction's grouping of one step of
+    # segments holds those edges sorted by its self row.
     nu, ni = lay.u_new_of_old.numpy()[u], lay.i_new_of_old.numpy()[i]
     order = np.lexsort((np.arange(nnz), ni // 512, nu // 512))
     want = np.stack([nu[order], ni[order], x[order]], axis=1)
-    by_user, by_item = [], []
+    assert lay.u.dtype == lay.i.dtype == torch.int32 and lay.x.dtype == torch.float32
+    lo = 0
     for s in range(lay.n_segments):
         su, si, sx = (t.numpy() for t in lay.segment(s))
         assert len(su) == (seg_len if s < lay.n_real_segments - 1
                            else (nnz - seg_len * s if s < lay.n_real_segments else 0))
-        by_user.append(np.stack([su, si, sx], axis=1))
-        rows, row_ptr, other, xs = lay.by_item.segs[s]
-        assert rows.dtype == torch.int32 and row_ptr.dtype == torch.int64
-        assert other.dtype == torch.int32 and xs.dtype == torch.float32
-        assert row_ptr.shape[0] == rows.shape[0] + 1 and int(row_ptr[0]) == 0
-        assert int(row_ptr[-1]) == other.shape[0] == len(su)
-        assert bool((rows[1:] > rows[:-1]).all())  # each row once, ascending
-        it = np.repeat(rows.numpy(), np.diff(row_ptr.numpy()))
-        by_item.append(np.stack([other.numpy(), it, xs.numpy()], axis=1))
-    # Inside a segment both copies hold the tile-major edges, re-sorted by
-    # their self row.
-    lo = 0
-    for s in range(lay.n_segments):
-        seg = want[lo : lo + len(by_user[s])]
+        seg = want[lo : lo + len(su)]
+        np.testing.assert_array_equal(np.stack([su, si, sx], axis=1), seg)
+        by_user, by_item = lay.group([s], 1, 3)
+        for g, self_col in ((by_user, 0), (by_item, 1)):
+            assert g.other.dtype == torch.int32 and g.x.dtype == torch.float32
+            assert g.piece_ptr.dtype == torch.int64 and int(g.piece_ptr[-1]) == len(su)
+            rows = np.repeat(g.piece_row.numpy(), np.diff(g.piece_ptr.numpy()))
+            got = np.stack([rows, g.other.numpy(), g.x.numpy()], axis=1)
+            ref = seg[np.argsort(seg[:, self_col], kind="stable")]
+            np.testing.assert_array_equal(got, ref[:, [self_col, 1 - self_col, 2]])
         lo += len(seg)
-        np.testing.assert_array_equal(by_user[s], seg[np.argsort(seg[:, 0], kind="stable")])
-        np.testing.assert_array_equal(by_item[s], seg[np.argsort(seg[:, 1], kind="stable")])
     assert lo == nnz
-    assert lay.nbytes() == 16 * nnz + 12 * (lay.by_user.n_runs + lay.by_item.n_runs) \
-        + 16 * lay.n_segments
+    assert lay.nbytes() == 12 * nnz
 
 
 def _fit(engine, train, val, epochs, **kw):

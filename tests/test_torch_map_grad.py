@@ -3,7 +3,9 @@
 ``train_epoch_blocked`` drives it, on segments decoded from the JAX layout,
 at the JAX tests' own gate (rtol 2e-4, atol 2e-5, f32); (b) autograd of the
 port's ``batch_loss`` without prior terms, float64, 1e-10; (c) a case
-computed by hand."""
+computed by hand; (d) the per-epoch grouping by (step, self row) that the
+kernel reads: every edge once, rows unique within a step, pieces tiling
+each run, and each step equal to the COO plain version."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -152,7 +154,7 @@ def test_plain_coo_matches_jax_kernel(jax_layout, seg_ids):
 
 @pytest.mark.parametrize("mix", [1, 3, 8])
 def test_step_equals_plain_coo_float64(mix):
-    """The CSR path of a step equals the COO plain version on the same
+    """The grouped path of a step equals the COO plain version on the same
     edges, on the port's own layout."""
     u, i, x, n_users, n_items = map_data(nnz=4000, seed=3)
     lay = t_map.build_map_layout(u, i, x, n_users, n_items, batch_size=mix * 300,
@@ -166,6 +168,66 @@ def test_step_equals_plain_coo_float64(mix):
     assert got_u.dtype == torch.float64
     torch.testing.assert_close(got_u, ref_u, rtol=1e-12, atol=1e-12)
     torch.testing.assert_close(got_i, ref_i, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("piece", [map_grad.PIECE, 3])
+@pytest.mark.parametrize("mix", [1, 3, 8])
+def test_epoch_grouping_holds_every_edge_once_in_pieces(mix, piece):
+    """One epoch's grouping, each direction: every edge of the layout once,
+    each step's rows unique, a row's run tiled by its pieces (all of
+    ``piece`` edges but the last), and each step's pieces holding that
+    step's edges."""
+    u, i, x, n_users, n_items = map_data(nnz=4000, seed=3)
+    lay = t_map.build_map_layout(u, i, x, n_users, n_items, batch_size=mix * 300,
+                                 mix=mix, device="cpu")
+    order = np.random.default_rng(mix).permutation(lay.n_segments)
+    edges = np.stack([lay.u.numpy(), lay.i.numpy(), lay.x.numpy()], axis=1)
+    for g, self_col in zip(lay.group(order, mix, 4, piece), (0, 1)):
+        ptr = g.piece_ptr.numpy()
+        lens = np.diff(ptr)
+        assert ptr[0] == 0 and ptr[-1] == lay.nnz and (lens >= 1).all()
+        assert (lens <= piece).all()
+        rows = np.repeat(g.piece_row.numpy(), lens)
+        got = np.stack([rows, g.other.numpy(), g.x.numpy()], axis=1)
+        want = edges[:, [self_col, 1 - self_col, 2]]
+        np.testing.assert_array_equal(got[np.lexsort(got.T[::-1])],
+                                      want[np.lexsort(want.T[::-1])])
+        first, count = g.piece_first.numpy(), g.piece_count.numpy()
+        step_off = g.step_off.numpy()
+        assert step_off[0] == 0 and step_off[-1] == g.n_pieces
+        for s in range(g.n_steps):
+            p0, p1 = step_off[s], step_off[s + 1]
+            assert lens[p0:p1].sum() == g.step_edges[s]
+            starts = np.flatnonzero(first[p0:p1] == np.arange(p0, p1)) + p0
+            assert len(np.unique(g.piece_row.numpy()[starts])) == len(starts)
+            assert g.max_step_pieces >= p1 - p0
+            for f in starts:
+                run = slice(f, f + count[f])
+                assert (first[run] == f).all() and (count[run] == count[f]).all()
+                assert (g.piece_row.numpy()[run] == g.piece_row.numpy()[f]).all()
+                assert (lens[run][:-1] == piece).all()
+        assert g.n_runs == int((first == np.arange(g.n_pieces)).sum())
+
+
+@pytest.mark.parametrize("mix", [1, 3, 8])
+def test_every_step_of_an_epoch_equals_plain_coo_float64(mix):
+    """Each step of an epoch grouping with runs cut into pieces of 3 edges
+    (so that most rows span several pieces) equals the COO plain version
+    of the step's segments."""
+    u, i, x, n_users, n_items = map_data(nnz=4000, seed=4)
+    lay = t_map.build_map_layout(u, i, x, n_users, n_items, batch_size=mix * 300,
+                                 mix=mix, dtype=np.float64, device="cpu")
+    u_sp, i_sp = (torch.from_numpy(t) for t in
+                  softplus_tables(n_users, n_items, 5, np.float64, seed=5))
+    order = np.random.default_rng(7).permutation(lay.n_segments)
+    groups = lay.group(order, mix, 5, 3)
+    for step in range(groups[0].n_steps):
+        got_u, got_i = map_grad.map_grad_grouped(u_sp, i_sp, groups, step, FLOOR)
+        seg_ids = order[step * mix : (step + 1) * mix]
+        nu, ni, xs = (torch.cat(c) for c in zip(*(lay.segment(s) for s in seg_ids)))
+        ref_u, ref_i = map_grad.map_grad_plain(u_sp, i_sp, nu, ni, xs, FLOOR)
+        torch.testing.assert_close(got_u, ref_u, rtol=1e-12, atol=1e-12)
+        torch.testing.assert_close(got_i, ref_i, rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("K", [1, 7, 32])
@@ -217,7 +279,7 @@ def _hand_layout():
 def test_hand_computed_step():
     lay, u_sp, i_sp = _hand_layout()
     assert lay.n_segments == 3 and lay.n_real_segments == 2
-    assert lay.by_user.segs[1][0].numel() == 0  # the empty segment
+    assert lay.segment(1)[0].numel() == 0  # the empty segment
     acc_u, acc_i = map_grad.map_grad_step(u_sp, i_sp, lay, [0, 1, 2], FLOOR)
     log = np.log
     # edge (0,0): lam = 1, w = 1 - 2/1 = -1, nll = 1 - 2 log 1 = 1
@@ -232,18 +294,22 @@ def test_hand_computed_step():
 
 
 def test_rows_wrapper_adds_into_out_and_launches_nothing_on_cpu():
+    """The step wrapper STORES the rows its step holds and leaves the
+    others as they were; on the CPU it launches nothing."""
     lay, u_sp, i_sp = _hand_layout()
+    by_user, by_item = lay.group([2, 0, 1], 1, 1)  # three steps of one segment
     out = torch.full((2, 3), 10.0, dtype=torch.float64)
     before = map_grad.MAP_GRAD_LAUNCHES.count
-    map_grad.map_grad_rows(u_sp, i_sp, *lay.by_user.segs[2], FLOOR, True, out)
+    map_grad.map_grad_pieces(u_sp, i_sp, by_user, 0, FLOOR, True, out)  # segment 2
     ref = torch.full((2, 3), 10.0, dtype=torch.float64)
-    map_grad.map_grad_rows_plain(u_sp, i_sp, *lay.by_user.segs[2], FLOOR, True, ref)
+    map_grad.map_grad_pieces_plain(u_sp, i_sp, by_user, 0, FLOOR, True, ref)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
     assert out[1].tolist() == [10.0, 10.0, 10.0]  # row 1 is not in segment 2
-    assert out[0, 1].item() == 11.0
-    # The empty segment adds nothing, in either direction.
-    map_grad.map_grad_rows(i_sp, u_sp, *lay.by_item.segs[1], FLOOR, False, out[:, :2])
+    assert out[0, 1].item() == 1.0  # stored, not added
+    # The empty segment's step stores nothing, in either direction.
+    map_grad.map_grad_pieces(i_sp, u_sp, by_item, 2, FLOOR, False, out[:, :2])
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert by_user.step_edges.tolist() == [1, 2, 0]
     assert map_grad.MAP_GRAD_LAUNCHES.count == before
 
 
