@@ -594,23 +594,25 @@ def _bigk_poisson_tail(blocked, k):
 
 
 def _bigk_gauss_tail(blocked, k):
-    """K3 (exact and lagged), K5 and K6 at ``k`` on a small tail, both
-    directions: worst column error of each (signed sums)."""
+    """K3 (exact and lagged, one pass and in three L2 bands), K5 and K6 at
+    ``k`` on a small tail, both directions: worst column error of each
+    (signed sums)."""
     import torch
 
+    from pmf_tpu_torch.data.blocked import band_tail
     from pmf_tpu_torch.ops import gaussian_edge as ge
 
     worst = dict.fromkeys(("K3", "K5", "K6"), 0.0)
     for _, p, (m_s, _, b_s, _), (m_o, V_o, b_o, v_o) in _new_space_gauss(blocked, k):
-        A = (V_o + m_o[:, :, None] * m_o[:, None, :]).reshape(-1, k * k)
-        aug3 = torch.cat([m_o, b_o[:, None], ge.pack_tri(A, k)], dim=1).contiguous()
-        del A
+        aug3 = _k3_table(m_o, V_o, b_o, k)
         aug5 = torch.cat([m_o, b_o[:, None]], dim=1).contiguous()
         aug6 = torch.cat([m_o, v_o + m_o * m_o, b_o[:, None]], dim=1).contiguous()
         self6 = torch.cat([m_s, b_s[:, None]], dim=1).contiguous()
         csr = (p.row_ptr, p.other, p.x)
-        cases = [("K3", ge.factor_tail_stats, ge.factor_tail_stats_plain,
-                  (aug3, *csr, k, wbs)) for wbs in (False, True)]
+        bands = band_tail(p, -(-p.n_other // 3))
+        cases = [("K3", lambda *a, bands=bnd: ge.factor_tail_stats(*a, bands=bands),
+                  ge.factor_tail_stats_plain, (aug3, *csr, k, wbs))
+                 for wbs in (False, True) for bnd in (None, bands)]
         cases += [("K5", ge.bias_tail_stats, ge.bias_tail_stats_plain, (aug5, *csr)),
                   ("K6", ge.diag_tail_stats, ge.diag_tail_stats_plain,
                    (aug6, self6, *csr))]
@@ -619,8 +621,49 @@ def _bigk_gauss_tail(blocked, k):
             _, col, ok = column_check(got, ref)
             if got.shape != ref.shape or not ok:
                 raise AssertionError(f"bigk {name} K={k}: column error {col} > {COL_RTOL}")
+            if not torch.equal(got, kern(*args)):
+                raise AssertionError(f"bigk {name} K={k}: two runs differ in bits")
             worst[name] = max(worst[name], col)
     return worst
+
+
+def _small_k34(blocked, ks=(1, 2, 5, 7, 8, 9, 16, 17, 20, 24, 25, 30, 31, 32, 33, 48,
+                            49, 64, 65, 100, 128)):
+    """K3 (lagged, one pass and three bands) and K4 (1003 matrices: no
+    multiple of any packing) at every K where the kernels' geometry
+    changes, against their plain versions."""
+    import torch
+
+    from pmf_tpu_torch.data.blocked import band_tail
+    from pmf_tpu_torch.ops import gaussian_edge as ge
+    from pmf_tpu_torch.ops.gj_inverse import (
+        batched_psd_inverse_gj, batched_psd_inverse_gj_plain)
+
+    worst3 = worst4 = 0.0
+    for k in ks:
+        for _, p, _, (m_o, V_o, b_o, _) in _new_space_gauss(blocked, k):
+            aug = _k3_table(m_o, V_o, b_o, k)
+            args = (aug, p.row_ptr, p.other, p.x, k, True)
+            ref = ge.factor_tail_stats_plain(*args, max_edges=1 << 13)
+            for bands in (None, band_tail(p, -(-p.n_other // 3))):
+                col, ok = column_check(ge.factor_tail_stats(*args, bands=bands), ref)[1:]
+                if not ok:
+                    raise AssertionError(f"K3 K={k}: column error {col} > {COL_RTOL}")
+                worst3 = max(worst3, col)
+        P = _spd(1003, k, 60 + k)
+        ref = batched_psd_inverse_gj_plain(P)
+        ref64 = torch.linalg.inv(P.double())
+        scale = ref64.abs().amax(dim=(1, 2))
+        for variant in (0, 1):
+            got = batched_psd_inverse_gj(P, variant)
+            err = max(float(((got - ref).abs().amax(dim=(1, 2)) / scale).max()),
+                      float(((got.double() - ref64).abs().amax(dim=(1, 2)) / scale).max()))
+            if not err <= INV_RTOL:
+                raise AssertionError(f"K4 K={k} variant {variant}: error {err} > {INV_RTOL}")
+            worst4 = max(worst4, err)
+    torch.cuda.synchronize()
+    log(f"phase k34small: ok | K in {list(ks)} | K3 worst column error {worst3:.3e} "
+        f"(tol {COL_RTOL}), K4 worst per-matrix error {worst4:.3e} (tol {INV_RTOL})")
 
 
 def _bigk_head(k):
@@ -726,6 +769,7 @@ def phase_bigk():
     blocked = build_blocked(u, i, x, reorder=True, device="cuda")
     gx = np.random.default_rng(2).standard_normal(len(u)).astype(np.float32)
     gblocked = build_blocked(u, i, gx, reorder=True, device="cuda")
+    _small_k34(gblocked)
     for k in BIGK_KS:
         worst = _bigk_poisson_tail(blocked, k)
         worst.update(_bigk_gauss_tail(gblocked, k))
@@ -775,34 +819,44 @@ def phase_wide_poisson(blocked):
 
 
 def phase_wide_gauss(blocked):
-    """Device time at K_WIDE factors of K3 (exact), K5, K6 on the real
-    Gaussian tail and K4 on 162k + 59k matrices (CUDA events)."""
+    """Device time at K_WIDE factors of K3 (exact; against the previous
+    kernel in turns, with its byte reckonings), K5, K6 on the real Gaussian
+    tail and K4 on 162k + 59k matrices (against the previous kernel and
+    torch.linalg.inv, with its bounds), by CUDA events."""
     import torch
 
     from pmf_tpu_torch.ops import gaussian_edge as ge
-    from pmf_tpu_torch.ops.gj_inverse import batched_psd_inverse_gj
 
     k = K_WIDE
     ms = dict.fromkeys(("K3", "K5", "K6", "K4"), 0.0)
-    for _, p, (m_s, _, b_s, _), (m_o, V_o, b_o, v_o) in _new_space_gauss(blocked, k):
-        A = (V_o + m_o[:, :, None] * m_o[:, None, :]).reshape(-1, k * k)
-        aug3 = torch.cat([m_o, b_o[:, None], ge.pack_tri(A, k)], dim=1).contiguous()
-        del A, V_o
+    k3 = phase_k3(blocked, k, f"bigk timing K3 (K={k})", check=False)
+    ms["K3"] = k3["ms"]
+    for _, p, (m_s, _, b_s, _), (m_o, _, b_o, v_o) in _new_space_gauss(blocked, k):
         csr = (p.row_ptr, p.other, p.x)
-        ms["K3"] += cuda_ms(lambda: ge.factor_tail_stats(aug3, *csr, k, False), reps=3)
-        del aug3
         aug5 = torch.cat([m_o, b_o[:, None]], dim=1).contiguous()
         aug6 = torch.cat([m_o, v_o + m_o * m_o, b_o[:, None]], dim=1).contiguous()
         self6 = torch.cat([m_s, b_s[:, None]], dim=1).contiguous()
         ms["K5"] += cuda_ms(lambda: ge.bias_tail_stats(aug5, *csr))
         ms["K6"] += cuda_ms(lambda: ge.diag_tail_stats(aug6, self6, *csr))
+    P = _spd(N_ITEMS, 128, 3)
+    _k4_check(P, f"K=128, {N_ITEMS} matrices", 128, check_plain=False)
+    del P
+    k4 = dict(prev_ms=0.0, library_ms=0.0, n=0)
     for n, seed in ((N_USERS, 1), (N_ITEMS, 2)):
         P = _spd(n, k, seed)
-        ms["K4"] += cuda_ms(lambda: batched_psd_inverse_gj(P), reps=3)
+        r = _k4_check(P, f"K={k}, {n} matrices", k, check_plain=False)
+        ms["K4"] += r["ms"]
+        k4["prev_ms"] += r["prev_ms"]
+        k4["library_ms"] += r["library_ms"]
+        k4["n"] += n
         del P
     torch.cuda.empty_cache()
+    b_bytes, b_ops = _k4_bounds(k4["n"], k)
     log(f"phase bigk timing (Gaussian, real data, K={k}): ok | per sweep "
-        + ", ".join(f"{n} {v:.4f} ms" for n, v in ms.items()))
+        + ", ".join(f"{n} {v:.4f} ms" for n, v in ms.items())
+        + f" | K3 previous {k3['prev_ms']:.4f} ms | K4 previous {k4['prev_ms']:.4f} ms, "
+        f"torch.linalg.inv {k4['library_ms']:.4f} ms, bound: bytes {b_bytes:.4f} ms, "
+        f"FP32 {b_ops:.4f} ms")
     return ms
 
 
@@ -1777,30 +1831,118 @@ def _tail_phase(label, blocked, make_args, kernel, plain, n_bytes_fn,
     return res
 
 
-def phase_k3(blocked):
-    """K3, the factor tail pass; library: CSR-ones @ [m | b | tri] by
-    torch.sparse.mm, the pass's pass-through bulk (not the m * resid or
-    sum x columns)."""
+def _k3_table(m, V, b, k=K):
+    """K3's padded [m | b | tri | 0] table of new-space rows."""
+    from pmf_tpu_torch.ops import gaussian_edge as ge
+
+    return ge.factor_table(m, b, (V + m[:, :, None] * m[:, None, :]).reshape(-1, k * k))
+
+
+L2_BYTES = 50 * 2**20  # H100 SXM
+BAND_L2_SHARE = 0.5  # share of L2 one band of K3's other table may fill
+
+
+def _k3_bands(p, k):
+    """K3's tail cut into bands of other rows that fill at most
+    BAND_L2_SHARE of L2, or None where the table fits."""
+    from pmf_tpu_torch.data.blocked import band_tail
+    from pmf_tpu_torch.ops import gaussian_edge as ge
+
+    n = -(-p.n_other * 4 * ge.factor_stride(k) // int(L2_BYTES * BAND_L2_SHARE))
+    return band_tail(p, -(-p.n_other // n)) if n > 1 else None
+
+
+def phase_k3(blocked, k=K, label="K3", check=True):
+    """K3, the factor tail pass, both directions: the kernel vs its plain
+    version (per-column criterion), one pass as the sweep runs it and in
+    L2 bands (``_k3_bands``, timed where they are at most 8), its three
+    byte reckonings, and the previous kernel, timed in turns (previous,
+    new, new, previous); library: CSR-ones @ [m | b | tri] by
+    torch.sparse.mm, the pass-through bulk.  Without ``check`` (the K = 50
+    timing) no plain version runs."""
     import torch
 
     from pmf_tpu_torch.ops import gaussian_edge as ge
 
-    def make_args(p, s, o):
+    T = ge.tri_size(k)
+    res = dict(ms=0.0, plain_ms=0.0, prev_ms=0.0, library_ms=0.0, max_abs_err=0.0,
+               n_bytes=0.0, n_flops=0.0, per_edge_bytes=0.0, banded_bytes=0.0)
+    for name, p, s, o in _new_space_gauss(blocked, k):
         m, V, b, _ = o
-        A = (V + m[:, :, None] * m[:, None, :]).reshape(-1, K * K)
-        aug = torch.cat([m, b[:, None], ge.pack_tri(A, K)], dim=1).contiguous()
-        return (aug, p.row_ptr, p.other, p.x, K, False)
-
-    def library(p, args):
+        aug = _k3_table(m, V, b, k)
+        del V
+        banded = _k3_bands(p, k)
+        timed_bands = banded if banded is not None and banded.n_bands <= 8 else None
+        args = (aug, p.row_ptr, p.other, p.x, k, False)
+        abs_err = worst = wp = wb = float("nan")
+        if check:
+            got = ge.factor_tail_stats(*args)
+            ref = ge.factor_tail_stats_plain(*args, max_edges=1 << 21)
+            abs_err, worst, ok = column_check(got, ref)
+            if not ok:
+                raise AssertionError(f"{label} {name}: column error {worst} > {COL_RTOL}")
+            if timed_bands is not None:
+                wb, okb = column_check(ge.factor_tail_stats(*args, bands=banded), ref)[1:]
+                if not okb:
+                    raise AssertionError(f"{label} {name} banded: column error {wb}")
+            wp = column_check(ge.factor_tail_stats_prev(
+                aug, p.row_ptr, p.other, p.x, k, False), ref)[1]
+            if not torch.equal(got, ge.factor_tail_stats(*args)):
+                raise AssertionError(f"{label} {name}: two runs differ in bits")
+            del got, ref
+        unpadded = aug[:, : k + 1 + T].contiguous()
+        kern = lambda bands=None: cuda_ms(  # noqa: E731
+            lambda: ge.factor_tail_stats(*args, bands=bands))
+        prev = lambda: cuda_ms(lambda: ge.factor_tail_stats_prev(  # noqa: E731
+            unpadded, p.row_ptr, p.other, p.x, k, False))
+        turns = [prev(), kern(), kern(), prev()]
+        others = ([(f"{banded.n_bands} bands", kern(banded))] if timed_bands is not None
+                  else [])
+        plain_ms = cuda_ms(lambda: ge.factor_tail_stats_plain(*args, max_edges=1 << 21),
+                           reps=3) if check else float("nan")
         csr = _csr_ones(p)
-        return lambda: torch.sparse.mm(csr, args[0])
-
-    T = ge.tri_size(K)
-    return _tail_phase(
-        "K3", blocked, make_args, ge.factor_tail_stats, ge.factor_tail_stats_plain,
-        lambda a: sum(t.nbytes for t in a[:4]),
-        # per edge: 2K for m (x - b), K for sum m, 1 + T pass-through adds
-        3 * K + 1 + T, library)
+        lib_ms = cuda_ms(lambda: torch.sparse.mm(csr, unpadded))
+        del csr
+        r = ge.factor_reckoning(p, k, False)
+        rb = ge.factor_reckoning(p, k, False, banded)
+        ms = (turns[1] + turns[2]) / 2
+        prev_ms = (turns[0] + turns[3]) / 2
+        n_flops = p.nnz * (3 * k + 1 + T)
+        b_ms, b_by = bound(r["table_once"], n_flops)
+        to_ms = lambda n: n / HBM_BYTES_PER_S * 1e3  # noqa: E731
+        log(f"  {label} {name}: nnz {p.nnz} | n_other {p.n_other} | record "
+            f"{4 * (k + 1 + T)} B, stride {4 * ge.factor_stride(k)} B | B 1 (the sweep's)"
+            + (f" | max abs err {abs_err:.3e} | worst column {worst:.3e} (tol {COL_RTOL}; "
+               f"previous kernel {wp:.3e}; {banded.n_bands if banded else 1} bands {wb:.3e})"
+               " | repeat equal in bits" if check else ""))
+        log(f"  {label} {name} bytes: per-edge gather {r['per_edge']:.0f} "
+            f"({to_ms(r['per_edge']):.4f} ms) | table once {r['table_once']:.0f} "
+            f"({to_ms(r['table_once']):.4f} ms) | banded ({banded.n_bands if banded else 1} bands) "
+            f"{rb['banded']:.0f} ({to_ms(rb['banded']):.4f} ms)")
+        log(f"  {label} {name} times: previous {turns[0]:.4f} {turns[3]:.4f} ms | new "
+            f"{turns[1]:.4f} {turns[2]:.4f} ms | "
+            + " | ".join(f"{n_} {t:.4f} ms" for n_, t in others)
+            + f" | plain {plain_ms:.4f} ms | library (torch.sparse.mm, pass-through bulk "
+            f"only) {lib_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
+        res["ms"] += ms
+        res["prev_ms"] += prev_ms
+        res["plain_ms"] += plain_ms
+        res["library_ms"] += lib_ms
+        res["max_abs_err"] = max(res["max_abs_err"], abs_err)
+        res["n_bytes"] += r["table_once"]
+        res["per_edge_bytes"] += r["per_edge"]
+        res["banded_bytes"] += rb["banded"]
+        res["n_flops"] += n_flops
+        del aug, unpadded
+        torch.cuda.empty_cache()
+    res["bound_ms"], res["bound_by"] = bound(res["n_bytes"], res["n_flops"])
+    log(f"phase {label}: ok | per sweep: kernel {res['ms']:.4f} ms (previous "
+        f"{res['prev_ms']:.4f}), plain {res['plain_ms']:.4f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']}, table once; per-edge gather "
+        f"{res['per_edge_bytes'] / HBM_BYTES_PER_S * 1e3:.4f}, banded "
+        f"{res['banded_bytes'] / HBM_BYTES_PER_S * 1e3:.4f}), library "
+        f"{res['library_ms']:.4f} ms")
+    return res
 
 
 def phase_k5(blocked):
@@ -1912,48 +2054,78 @@ def _real_precisions(blocked):
     return out
 
 
-def phase_k4(blocked):
+def _k4_bounds(R, k):
+    """(bytes ms, FP32 ms) of inverting R K x K matrices in place: each
+    matrix read and written once; K pivots x K rows x K multiply-adds."""
+    return (2 * R * 4 * k * k / HBM_BYTES_PER_S * 1e3,
+            R * 2 * k**3 / FP32_FLOPS_PER_S * 1e3)
+
+
+def _k4_check(P, name, k=K, check_plain=True):
+    """K4 on P vs float64 inv (and its plain version), per matrix, and the
+    previous kernel, new kernel and torch.linalg.inv timed in turns."""
     import torch
 
     from pmf_tpu_torch.ops.gj_inverse import (
-        batched_psd_inverse_gj, batched_psd_inverse_gj_plain)
+        batched_psd_inverse_gj, batched_psd_inverse_gj_plain, batched_psd_inverse_gj_prev)
 
-    res = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0,
-               n_bytes=0.0, n_flops=0.0)
-    for name, P in zip(("theta", "beta"), _real_precisions(blocked)):
-        P = P.contiguous()
-        got = batched_psd_inverse_gj(P)
+    got = batched_psd_inverse_gj(P)
+    if not torch.equal(got, batched_psd_inverse_gj(P)):
+        raise AssertionError(f"K4 {name}: two launches differ in bits")
+    ref64 = torch.linalg.inv(P.double())
+    scale = ref64.abs().amax(dim=(1, 2))
+    err64 = float(((got.double() - ref64).abs().amax(dim=(1, 2)) / scale).max())
+    err_plain, abs_err = float("nan"), float("nan")
+    if check_plain:
         ref = batched_psd_inverse_gj_plain(P)
-        ref64 = torch.linalg.inv(P.double())
-        scale = ref64.abs().amax(dim=(1, 2))
         err_plain = float(((got - ref).abs().amax(dim=(1, 2)) / scale).max())
-        err64 = float(((got.double() - ref64).abs().amax(dim=(1, 2)) / scale).max())
-        resid = float((P.double() @ got.double()
-                       - torch.eye(K, device="cuda", dtype=torch.float64)).abs().max())
-        ms = cuda_ms(lambda: batched_psd_inverse_gj(P))
-        plain_ms = cuda_ms(lambda: batched_psd_inverse_gj_plain(P), reps=3)
-        lib_ms = cuda_ms(lambda: torch.linalg.inv(P))
-        R = P.shape[0]
-        n_bytes = 2 * P.nbytes
-        n_flops = R * 4 * K**3  # K pivots x K lanes x 2K multiply-subtracts
-        b_ms, b_by = bound(n_bytes, n_flops)
         abs_err = float((got - ref).abs().max())
-        log(f"  K4 {name}: {R} x {K}x{K} | per-matrix max|err|/max|inv| vs plain "
-            f"{err_plain:.3e}, vs float64 inv {err64:.3e} (tol {INV_RTOL}) | "
-            f"max|P V - I| {resid:.3e} | kernel {ms:.4f} ms | plain {plain_ms:.4f} "
-            f"ms | torch.linalg.inv {lib_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
-        if not (err_plain <= INV_RTOL and err64 <= INV_RTOL):
-            raise AssertionError(f"K4 {name}: error {err_plain} / {err64} > {INV_RTOL}")
-        res["ms"] += ms
-        res["plain_ms"] += plain_ms
-        res["library_ms"] += lib_ms
-        res["max_abs_err"] = max(res["max_abs_err"], abs_err)
-        res["n_bytes"] += n_bytes
-        res["n_flops"] += n_flops
+        del ref
+    err_prev = float(((batched_psd_inverse_gj_prev(P).double() - ref64).abs()
+                      .amax(dim=(1, 2)) / scale).max())
+    resid = float((P.double() @ got.double()
+                   - torch.eye(k, device="cuda", dtype=torch.float64)).abs().max())
+    del ref64
+    reps = 10 if k <= 32 else 3
+    t = [cuda_ms(f, reps) for f in (lambda: batched_psd_inverse_gj_prev(P),
+                                    lambda: batched_psd_inverse_gj(P),
+                                    lambda: batched_psd_inverse_gj(P),
+                                    lambda: batched_psd_inverse_gj_prev(P))]
+    lib_ms = cuda_ms(lambda: torch.linalg.inv(P), reps)
+    if k <= 64:
+        tv = [cuda_ms(lambda: batched_psd_inverse_gj(P, 1), reps) for _ in range(2)]
+        log(f"  K4 {name}: pivot row scaled before it goes out {tv[0]:.4f} {tv[1]:.4f} ms "
+            f"(each lane folding the scale into its multiplier: {t[1]:.4f} {t[2]:.4f} ms)")
+    plain_ms = cuda_ms(lambda: batched_psd_inverse_gj_plain(P), 3) if check_plain \
+        else float("nan")
+    R = P.shape[0]
+    b_bytes, b_ops = _k4_bounds(R, k)
+    log(f"  K4 {name}: {R} x {k}x{k} | per-matrix max|err|/max|inv| vs plain "
+        f"{err_plain:.3e}, vs float64 inv {err64:.3e} (previous kernel {err_prev:.3e}; "
+        f"tol {INV_RTOL}) | max|P V - I| {resid:.3e} | repeat equal in bits | previous "
+        f"{t[0]:.4f} {t[3]:.4f} ms | new {t[1]:.4f} {t[2]:.4f} ms | plain {plain_ms:.4f} "
+        f"ms | torch.linalg.inv {lib_ms:.4f} ms | bound: bytes {b_bytes:.4f} ms, FP32 "
+        f"{b_ops:.4f} ms")
+    if not (err64 <= INV_RTOL and (not check_plain or err_plain <= INV_RTOL)):
+        raise AssertionError(f"K4 {name}: error {err_plain} / {err64} > {INV_RTOL}")
+    return dict(ms=(t[1] + t[2]) / 2, prev_ms=(t[0] + t[3]) / 2, plain_ms=plain_ms,
+                library_ms=lib_ms, max_abs_err=abs_err, n_bytes=2.0 * P.nbytes,
+                n_flops=2.0 * R * k**3)
+
+
+def phase_k4(blocked):
+    res = dict.fromkeys(("ms", "prev_ms", "plain_ms", "library_ms", "max_abs_err",
+                         "n_bytes", "n_flops"), 0.0)
+    for name, P in zip(("theta", "beta"), _real_precisions(blocked)):
+        r = _k4_check(P.contiguous(), name)
+        for key in res:
+            res[key] = max(res[key], r[key]) if key == "max_abs_err" else res[key] + r[key]
     res["bound_ms"], res["bound_by"] = bound(res["n_bytes"], res["n_flops"])
-    log(f"phase K4: ok | per sweep: kernel {res['ms']:.4f} ms, plain "
-        f"{res['plain_ms']:.4f} ms, torch.linalg.inv {res['library_ms']:.4f} ms, "
-        f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+    log(f"phase K4: ok | per sweep: kernel {res['ms']:.4f} ms (previous "
+        f"{res['prev_ms']:.4f}), plain {res['plain_ms']:.4f} ms, torch.linalg.inv "
+        f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}; bytes {res['n_bytes'] / HBM_BYTES_PER_S * 1e3:.4f}, FP32 "
+        f"{res['n_flops'] / FP32_FLOPS_PER_S * 1e3:.4f})")
     return res
 
 
@@ -2031,7 +2203,7 @@ def _run_gfit(train, val, smi, covariance, sweeps, want_of):
             f"{rec['updates_per_sec'] / 1e6:.1f}M updates/s | val RMSE "
             f"{rec['val_rmse']:.6f} | {smi}")
     want = dict.fromkeys(launches, 0)
-    want.update(want_of(model.n_sweeps))
+    want.update(want_of(model))
     if launches != want:
         raise AssertionError(f"gfit {covariance} launches {launches}, expected {want}")
     state = state_to_numpy(model.state)
@@ -2069,10 +2241,10 @@ def phase_gfit(train, val, smi):
     configuration for GDIAG_SWEEPS (K6 and K5 twice a sweep)."""
     full, launches = _run_gfit(
         train, val, smi, "full", GFIT_SWEEPS,
-        lambda n: {"K3": 2 * n, "K4": 2 * n, "K5": 2 * n})
+        lambda m: {"K3": 2 * m.n_sweeps, "K4": 2 * m.n_sweeps, "K5": 2 * m.n_sweeps})
     diag, dlaunches = _run_gfit(
         train, val, smi, "diag", GDIAG_SWEEPS,
-        lambda n: {"K5": 2 * n, "K6": 2 * n})
+        lambda m: {"K5": 2 * m.n_sweeps, "K6": 2 * m.n_sweeps})
     return full, diag, {k: launches[k] + dlaunches[k] for k in launches}
 
 
@@ -2106,7 +2278,7 @@ def phase_gprofile(full, diag, train, smi):
         steady[name] = cuda_ms(one_sweep, reps=5)
         log(f"  steady {name} sweep: {steady[name]:.4f} ms | "
             f"{4 * nnz / steady[name] / 1e3:.1f}M updates/s (4 x nnz) | {smi}")
-    expect = {"::factor_kernel": 2, "gj_inverse_kernel": 2, "bias_kernel": 2}
+    expect = {"::factor_kernel": 2, "gj_inverse": 2, "bias_kernel": 2}
     # Fault F2: a trace without the warm-up kernels, then the trace read.
     rows, _, _ = profile_once(sweeps["full"], expect, warm=False, attempts=1)
     seen = {part: sum(n for _, n, key in rows if part in key) for part in expect}

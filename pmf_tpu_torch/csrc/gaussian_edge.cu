@@ -57,6 +57,8 @@ constexpr int kMaxK = 128;
 // record no longer fits one warp's 16 loads a lane.
 constexpr int kChunkNI = 16;
 constexpr int kWholeRecordMaxK = 30;
+constexpr int kChunkNV = 4;  // float4 loads a lane in a record chunk (512 floats)
+constexpr int kEdges = 4;  // edges in flight a warp
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -66,10 +68,154 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // ---------------------------------------------------------------- K3 --
 
-// One warp per (self row, record chunk blockIdx.y of NI * 32 floats).
+// The register form: one warp per (self row, record chunk blockIdx.y of
+// NV * 128 floats); lane l loads record floats c0 + 128 t + 4 l .. + 3 as
+// one float4 (t < NV), E edges in flight, and keeps one accumulator per
+// loaded float.  Floats < K (all in t = 0, K <= 128) are factors, float K
+// is b (broadcast by a shuffle from the lane that loaded it).
+template <int NV, int E>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+factor_kernel(const float* __restrict__ aug, int stride,
+                  const int64_t* __restrict__ row_ptr, const int32_t* __restrict__ other,
+                  const float* __restrict__ x, int n_self, int K, int with_bias_stats,
+                  int accumulate, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= n_self) return;  // whole warp leaves together
+  const int T = K * (K + 1) / 2;
+  const int w_in = K + 1 + T;
+  const int c0 = blockIdx.y * NV * 128;
+  const bool first = blockIdx.y == 0;  // the chunk with m and b
+  const int tb = K >> 7, lb = (K & 127) >> 2, qb = K & 3;  // where b lands
+  float4 acc[NV];
+#pragma unroll
+  for (int t = 0; t < NV; ++t) acc[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 acc_m = make_float4(0.f, 0.f, 0.f, 0.f);
+  float acc_x = 0.f;
+  const int64_t begin = row_ptr[row];
+  const int64_t end = row_ptr[row + 1];
+  if (accumulate && begin == end) return;
+
+  auto load = [&](int o, float4 (&v)[NV]) {
+    const float* rec = aug + (int64_t)o * stride + c0;
+#pragma unroll
+    for (int t = 0; t < NV; ++t) {
+      const int c = c0 + t * 128 + 4 * lane;
+      v[t] = c < stride ? __ldg(reinterpret_cast<const float4*>(rec + t * 128) + lane)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto add4 = [](float4& a, const float4& v) {
+    a.x += v.x; a.y += v.y; a.z += v.z; a.w += v.w;
+  };
+  auto add = [&](const float4 (&v)[NV], float xv) {
+    if (first) {
+      float4 vb = v[0];
+#pragma unroll
+      for (int t = 1; t < NV; ++t)
+        if (t == tb) vb = v[t];
+      const float bsrc = qb == 0 ? vb.x : qb == 1 ? vb.y : qb == 2 ? vb.z : vb.w;
+      const float b = __shfl_sync(kFull, bsrc, lb);
+      const float r = xv - b;
+      const int c = 4 * lane;
+      float4 a = v[0];
+      if (c < K) { acc_m.x += a.x; a.x *= r; }
+      if (c + 1 < K) { acc_m.y += a.y; a.y *= r; }
+      if (c + 2 < K) { acc_m.z += a.z; a.z *= r; }
+      if (c + 3 < K) { acc_m.w += a.w; a.w *= r; }
+      add4(acc[0], a);
+#pragma unroll
+      for (int t = 1; t < NV; ++t) add4(acc[t], v[t]);
+      acc_x += xv;
+    } else {
+#pragma unroll
+      for (int t = 0; t < NV; ++t) add4(acc[t], v[t]);
+    }
+  };
+
+  for (int64_t base = begin; base < end; base += 32) {
+    const int64_t left = end - base;
+    const int n = left < 32 ? (int)left : 32;
+    int my_o = 0;
+    float my_x = 0.f;
+    if (lane < n) {
+      my_o = __ldcs(other + base + lane);
+      my_x = __ldcs(x + base + lane);
+    }
+    int j = 0;
+    for (; j + E <= n; j += E) {
+      float4 v[E][NV];
+      float xv[E];
+#pragma unroll
+      for (int q = 0; q < E; ++q) {
+        xv[q] = __shfl_sync(kFull, my_x, j + q);
+        load(__shfl_sync(kFull, my_o, j + q), v[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < E; ++q) add(v[q], xv[q]);
+    }
+    for (; j < n; ++j) {
+      float4 v[NV];
+      const float xv = __shfl_sync(kFull, my_x, j);
+      load(__shfl_sync(kFull, my_o, j), v);
+      add(v, xv);
+    }
+  }
+
+  const int w_out = 2 * K + T + (with_bias_stats ? 2 : 0);
+  float* dst = out + (int64_t)row * w_out;
+  auto put = [&](float* p, float v) { __stcs(p, accumulate ? __ldcs(p) + v : v); };
+#pragma unroll
+  for (int t = 0; t < NV; ++t) {
+    const float a4[4] = {acc[t].x, acc[t].y, acc[t].z, acc[t].w};
+    const float m4[4] = {acc_m.x, acc_m.y, acc_m.z, acc_m.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = c0 + t * 128 + 4 * lane + q;
+      if (c >= w_in) continue;
+      if (c < K) {
+        put(dst + c, a4[q]);
+        put(dst + K + c, m4[q]);  // c < K holds only in t = 0 of the first chunk
+      } else if (c == K) {
+        if (with_bias_stats) put(dst + 2 * K + T + 1, a4[q]);
+      } else {
+        put(dst + 2 * K + (c - K - 1), a4[q]);
+      }
+    }
+  }
+  if (with_bias_stats && first && lane == 0) put(dst + 2 * K + T, acc_x);
+}
+
+template <int NV, int E>
+cudaError_t launch_factor_vec(const float* aug, int stride, const int64_t* row_ptr,
+                              const int32_t* other, const float* x, int n_self, int K,
+                              int wbs, int acc, float* out, cudaStream_t stream) {
+  const dim3 grid((n_self + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                  (stride + NV * 128 - 1) / (NV * 128));
+  factor_kernel<NV, E><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+      aug, stride, row_ptr, other, x, n_self, K, wbs, acc, out);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_factor_vec_nv(const float* aug, int stride, const int64_t* row_ptr,
+                                 const int32_t* other, const float* x, int n_self,
+                                 int K, int wbs, int acc, float* out, cudaStream_t s) {
+  const int nv = K <= kWholeRecordMaxK ? (stride + 127) / 128 : kChunkNV;
+  switch (nv) {
+    case 1: return launch_factor_vec<1, kEdges>(aug, stride, row_ptr, other, x, n_self, K, wbs, acc, out, s);
+    case 2: return launch_factor_vec<2, kEdges>(aug, stride, row_ptr, other, x, n_self, K, wbs, acc, out, s);
+    case 3: return launch_factor_vec<3, kEdges>(aug, stride, row_ptr, other, x, n_self, K, wbs, acc, out, s);
+    case 4: return launch_factor_vec<4, kEdges>(aug, stride, row_ptr, other, x, n_self, K, wbs, acc, out, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The previous design, kept beside the new one for one A/B on the card:
+// one warp per (self row, record chunk blockIdx.y of NI * 32 floats),
+// 4-byte loads straight from the unpadded table, two edges in flight.
 template <int NI, int MT>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-factor_kernel(const float* __restrict__ aug, const int64_t* __restrict__ row_ptr,
+factor_prev_kernel(const float* __restrict__ aug, const int64_t* __restrict__ row_ptr,
               const int32_t* __restrict__ other, const float* __restrict__ x,
               int n_self, int K, int with_bias_stats, float* __restrict__ out) {
   const int lane = threadIdx.x & 31;
@@ -169,13 +315,13 @@ factor_kernel(const float* __restrict__ aug, const int64_t* __restrict__ row_ptr
 }
 
 template <int NI, int MT>
-void launch_factor(const float* aug, const int64_t* row_ptr, const int32_t* other,
+void launch_factor_prev(const float* aug, const int64_t* row_ptr, const int32_t* other,
                    const float* x, int n_self, int K, int with_bias_stats,
                    float* out, cudaStream_t stream) {
   const int w_in = K + 1 + K * (K + 1) / 2;
   const dim3 grid((n_self + kWarpsPerBlock - 1) / kWarpsPerBlock,
                   (w_in + NI * 32 - 1) / (NI * 32));
-  factor_kernel<NI, MT><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+  factor_prev_kernel<NI, MT><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
       aug, row_ptr, other, x, n_self, K, with_bias_stats, out);
 }
 
@@ -342,7 +488,19 @@ int blocks_for(int n_self) { return (n_self + kWarpsPerBlock - 1) / kWarpsPerBlo
 
 }  // namespace
 
-extern "C" int pmf_gauss_factor(const float* aug, const int64_t* row_ptr,
+extern "C" int pmf_gauss_factor(const float* aug, int stride, const int64_t* row_ptr,
+                                const int32_t* other, const float* x, int n_self,
+                                int K, int with_bias_stats, int accumulate, float* out,
+                                void* stream) {
+  if (K < 1 || K > kMaxK || stride % 4 != 0 || stride < K + 1 + K * (K + 1) / 2)
+    return (int)cudaErrorInvalidValue;
+  if (n_self <= 0) return (int)cudaGetLastError();
+  return (int)launch_factor_vec_nv(aug, stride, row_ptr, other, x, n_self, K,
+                                   with_bias_stats, accumulate, out,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int pmf_gauss_factor_prev(const float* aug, const int64_t* row_ptr,
                                 const int32_t* other, const float* x, int n_self,
                                 int K, int with_bias_stats, float* out,
                                 void* stream) {
@@ -354,7 +512,7 @@ extern "C" int pmf_gauss_factor(const float* aug, const int64_t* row_ptr,
     switch (ni) {
 #define PMF_NI_CASE(N)                                                     \
   case N:                                                                  \
-    launch_factor<N, 1>(aug, row_ptr, other, x, n_self, K, with_bias_stats, \
+    launch_factor_prev<N, 1>(aug, row_ptr, other, x, n_self, K, with_bias_stats, \
                         out, s);                                           \
     break;
       PMF_NI_CASE(1) PMF_NI_CASE(2) PMF_NI_CASE(3) PMF_NI_CASE(4)
@@ -366,7 +524,7 @@ extern "C" int pmf_gauss_factor(const float* aug, const int64_t* row_ptr,
         switch ((K + 31) / 32) {
 #define PMF_MT_CASE(M)                                                          \
   case M:                                                                       \
-    launch_factor<kChunkNI, M>(aug, row_ptr, other, x, n_self, K, with_bias_stats, \
+    launch_factor_prev<kChunkNI, M>(aug, row_ptr, other, x, n_self, K, with_bias_stats, \
                                out, s);                                         \
     break;
           PMF_MT_CASE(1) PMF_MT_CASE(2) PMF_MT_CASE(3) PMF_MT_CASE(4)

@@ -3,92 +3,242 @@
 // Replaces: pmf_tpu/ops/pallas/gj_inverse.py::_gj_kernel.
 //
 // Computes, for each of R row-major (K, K) float32 matrices A, its inverse
-// by Gauss-Jordan elimination over [A | I] without pivoting (valid for
-// positive-definite A: every step leaves a positive-definite trailing
-// block, so each pivot is positive).
+// by Gauss-Jordan elimination without pivoting (valid for positive-definite
+// A: every step leaves a positive-definite trailing block, so each pivot
+// is positive).  The elimination runs in place: column p of A is no longer
+// needed once pivot p is taken, so it becomes column p of the inverse.  At
+// pivot p, with r = [A's row p, the 1 of I's column p in place of A's
+// entry p] / a[p][p]:
+//   a[p][j] = r[j];   a[i][j] = (j == p ? 0 : a[i][j]) - a[i][p] * r[j], i != p.
+// These are the operations of the [A | I] form on the same values (A's
+// column p is dropped there instead), at K^3 multiply-adds a matrix in
+// place of 2 K^3.
 //
-// What bounds it on an H100: memory.  Each matrix is read once and its
-// inverse written once (2 * 4K^2 bytes); the elimination does ~4K^3
-// flops, ~6 flops per byte at K=20, below the FP32 line's ~20.  At K = 50
-// it is 25 flops a byte and at K = 128 64: there the FP32 operations
-// bound it, and in the CTA form below the shared-memory traffic of the
-// per-pivot update (a read and a write a matrix entry a pivot).
+// What bounds it on an H100: memory at K <= 32.  Each matrix is read once
+// and its inverse written once (2 * 4K^2 bytes); the elimination does
+// 2K^3 flops, 5 flops a byte at K = 20, below the FP32 line's 20.  At K = 50
+// it is 12.5 flops a byte, at K = 128 32: there the FP32 operations bound
+// it.
 //
-// Design, K <= 32: one warp per matrix.  Lane j < K holds column j of A
-// and column j of the running inverse in registers (the arrays are sized
-// by a compile-time bound KMAX >= K, so every index is static after
-// unrolling).  At pivot p the warp reads column p of A from lane p with
-// K __shfl_sync broadcasts; each lane then scales its own row-p entries
-// and eliminates its column.  Loads and stores are coalesced: for each
-// row i, lanes j = 0..K-1 touch consecutive floats.  The TPU kernel's
-// lane-major (K, K, R) transpose and 128-matrix padding were for VMEM
-// tiles and are not needed here.
+// Design, K <= 64 (gj_inverse_rows_kernel): the matrices a CTA inverts are
+// contiguous in memory (8 x 1600 B at K = 20).  The CTA copies them with
+// 4-byte cp.async, every thread on consecutive floats, into shared memory
+// at a padded row stride S (a multiple of 4 and 4 mod 8, so a float4 read
+// of rows i..i+7 at one column touches 32 distinct banks), then each warp
+// takes PPW matrices: lane l holds row l % (32 / PPW) (and row l + 32 past
+// K = 32) of matrix l / (32 / PPW) in registers, read with float4 loads.
+// At pivot p the lane that holds row p scales it by one reciprocal and
+// writes it to a per-matrix row buffer in shared memory (two buffers,
+// alternating, so one __syncwarp a pivot orders the write before the
+// reads and the reads before the next write two pivots on); every lane
+// reads it back with K/4 broadcast float4 loads and updates its row.  The
+// pivot index is a compile-time constant after unrolling, so a[i][p] is a
+// register.  The rows go back to the same shared tile and out with
+// coalesced stores.  Two matrices a warp for K <= 16, four for K <= 8.
 //
-// Design, 32 < K <= 128: one CTA of 256 threads per matrix, held in
-// shared memory (K x (K + 1) floats, 66 KB at K = 128; the odd row stride
-// keeps a column read free of bank conflicts).  The elimination runs in
-// place: column p of A is no longer needed once pivot p is taken, so it
-// becomes column p of the inverse.  Per pivot the CTA first copies the
-// scaled pivot row ([A | I]'s row p over the pivot, with the 1 of I's
-// column p in place of A's) and the old column p into two K-float
-// buffers, syncs, then updates every entry from the buffers and syncs
-// again: a[i][j] = (j == p ? 0 : a[i][j]) - col[i] * row[j] for i != p,
-// row[j] for i == p.  These are the same operations, on the same values,
-// as the [A | I] form (A's column p is dropped there instead).
+// Design, 64 < K <= 128 (gj_inverse_cta_kernel): one CTA of 256 threads per
+// matrix, held in shared memory (K x (K + 1) floats, 66 KB at K = 128; the
+// odd row stride keeps a column read free of bank conflicts), in place.
+// Per pivot the CTA copies the scaled pivot row and the old column p into
+// two K-float buffers, syncs, updates every entry from the buffers and
+// syncs again.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxK = 128;
+constexpr int kRowsMaxK = 64;  // the row-per-lane form; past it the CTA form
 
-template <int KMAX>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-gj_inverse_kernel(const float* __restrict__ mats, int R, int K,
-                  float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int64_t r = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (r >= R) return;  // whole warp leaves together
-  const bool active = lane < K;
-  const float* src = mats + r * K * K;
-  float a[KMAX], v[KMAX];
-#pragma unroll
-  for (int i = 0; i < KMAX; ++i) {
-    a[i] = (active && i < K) ? src[i * K + lane] : 0.f;
-    v[i] = (i == lane) ? 1.f : 0.f;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// Row stride in shared memory: K rounded up to 4 floats, then made 4 mod 8.
+__host__ __device__ inline int row_stride(int K) {
+  const int s = (K + 3) / 4 * 4;
+  return s % 8 == 0 ? s + 4 : s;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// e / K for e < 2^32 / K: (e * ceil(2^32 / K)) >> 32, and e itself at K = 1.
+__device__ __forceinline__ int div_k(int e, uint32_t magic) {
+  return magic ? (int)__umulhi((uint32_t)e, magic) : e;
+}
+
+// KMAX: registers a row (K <= KMAX); PPW: matrices a warp; WPM: warps a
+// matrix (1, or 2 and 4 for K past 32, each warp 32 of its rows, meeting at
+// a named barrier a pivot); WARPS: warps a CTA.  `vec`: K % 4 == 0 and
+// both tables 16-byte aligned, so the tile moves in float4s.
+template <int KMAX, int PPW, int WPM, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
+gj_inverse_rows_kernel(const float* __restrict__ mats, int R, int K, int S,
+                       uint32_t magic, int vec, int scaled, float* __restrict__ out) {
+  extern __shared__ __align__(16) float sm[];
+  constexpr int G = 32 / PPW;  // lanes a matrix within one warp
+  constexpr int MPC = WARPS * PPW / WPM;  // matrices a CTA
+  static_assert(KMAX % 4 == 0 && KMAX <= G * WPM, "rows must fit the lanes");
+  static_assert(WPM == 1 || PPW == 1, "a matrix spans warps or shares one");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t m0 = (int64_t)blockIdx.x * MPC;
+  const int nm = (int)(R - m0 < MPC ? R - m0 : MPC);  // matrices in this CTA
+  float* tile = sm;  // MPC * K rows of stride S
+  float* rowbuf = sm + MPC * K * S;  // 2 x (KMAX + 4) floats per matrix
+  const int n_el = nm * K * K;
+  const float* src = mats + m0 * K * K;
+  if (vec) {
+    for (int e = 4 * threadIdx.x; e < n_el; e += 4 * WARPS * 32) {
+      const int q = div_k(e, magic);
+      cp_async16(tile + q * S + (e - q * K), src + e);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n_el; e += WARPS * 32) {
+      const int q = div_k(e, magic);
+      cp_async4(tile + q * S + (e - q * K), src + e);
+    }
   }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  const int g = lane / G, li = lane % G;
+  const int wm = warp % WPM;  // which of the matrix's warps
+  const int mat = (warp / WPM) * PPW + g;
+  const int i = wm * G + li;  // this lane's row
+  const bool live = mat < nm;
+  float a[KMAX];
+  {
+    const float* rp = tile + (mat * K + i) * S;
+#pragma unroll
+    for (int j4 = 0; j4 < KMAX / 4; ++j4) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (4 * j4 < K && live && i < K) v = *reinterpret_cast<const float4*>(rp + 4 * j4);
+      a[4 * j4] = v.x;
+      a[4 * j4 + 1] = 4 * j4 + 1 < K ? v.y : 0.f;
+      a[4 * j4 + 2] = 4 * j4 + 2 < K ? v.z : 0.f;
+      a[4 * j4 + 3] = 4 * j4 + 3 < K ? v.w : 0.f;
+    }
+  }
+
+  float* rb = rowbuf + ((warp / WPM) * PPW + g) * 2 * (KMAX + 4);
 #pragma unroll
   for (int p = 0; p < KMAX; ++p) {
-    if (p < K) {  // uniform across the warp
-      float col[KMAX];
+    if (p < K) {  // uniform across the CTA
+      const bool me = wm == p / G && li == p % G;  // this lane holds row p
+      float* buf = rb + (p & 1) * (KMAX + 4);  // row p, then 1 / a[p][p]
+      if (me) {
+        const float inv = 1.f / a[p];
 #pragma unroll
-      for (int i = 0; i < KMAX; ++i) col[i] = __shfl_sync(kFull, a[i], p);
-      const float ar = a[p] / col[p];
-      const float vr = v[p] / col[p];
+        for (int j4 = 0; j4 < KMAX / 4; ++j4) {
+          if (4 * j4 < K) {
+            float4 v;
+            v.x = 4 * j4 == p ? 1.f : a[4 * j4];
+            v.y = 4 * j4 + 1 == p ? 1.f : a[4 * j4 + 1];
+            v.z = 4 * j4 + 2 == p ? 1.f : a[4 * j4 + 2];
+            v.w = 4 * j4 + 3 == p ? 1.f : a[4 * j4 + 3];
+            if (scaled) {
+              v.x *= inv; v.y *= inv; v.z *= inv; v.w *= inv;
+            }
+            *reinterpret_cast<float4*>(buf + 4 * j4) = v;
+          }
+        }
+        buf[KMAX] = inv;
+      }
+      if (WPM == 1) {
+        __syncwarp();
+      } else {
+        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + warp / WPM), "n"(WPM * 32)
+                     : "memory");
+      }
+      if (scaled) {  // r = row p / a[p][p] in the buffer
+        const float c = a[p];
 #pragma unroll
-      for (int i = 0; i < KMAX; ++i) {
-        if (i == p) {
-          a[i] = ar;
-          v[i] = vr;
-        } else {
-          a[i] -= col[i] * ar;
-          v[i] -= col[i] * vr;
+        for (int j4 = 0; j4 < KMAX / 4; ++j4) {
+          if (4 * j4 < K) {
+            const float4 r = *reinterpret_cast<const float4*>(buf + 4 * j4);
+            const float rv[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int j = 4 * j4 + q;
+              const float keep = j == p ? 0.f : a[j];
+              a[j] = me ? rv[q] : keep - c * rv[q];
+            }
+          }
+        }
+      } else if (me) {  // row p scaled in place
+        const float inv = buf[KMAX];
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j)
+          if (j < K) a[j] = (j == p ? 1.f : a[j]) * inv;
+      } else {  // a[i][j] -= (a[i][p] / a[p][p]) * row p
+        const float c = a[p] * buf[KMAX];
+#pragma unroll
+        for (int j4 = 0; j4 < KMAX / 4; ++j4) {
+          if (4 * j4 < K) {
+            const float4 r = *reinterpret_cast<const float4*>(buf + 4 * j4);
+            const float rv[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int j = 4 * j4 + q;
+              a[j] = (j == p ? 0.f : a[j]) - c * rv[q];
+            }
+          }
         }
       }
     }
   }
-  if (active) {
-    float* dst = out + r * K * K;
+
+  if (live && i < K) {
+    float* rp = tile + (mat * K + i) * S;
 #pragma unroll
-    for (int i = 0; i < KMAX; ++i)
-      if (i < K) dst[i * K + lane] = v[i];
+    for (int j4 = 0; j4 < KMAX / 4; ++j4)
+      if (4 * j4 < K)
+        *reinterpret_cast<float4*>(rp + 4 * j4) =
+            make_float4(a[4 * j4], a[4 * j4 + 1], a[4 * j4 + 2], a[4 * j4 + 3]);
+  }
+  __syncthreads();
+  float* dst = out + m0 * K * K;
+  if (vec) {
+    for (int e = 4 * threadIdx.x; e < n_el; e += 4 * WARPS * 32) {
+      const int q = div_k(e, magic);
+      __stcs(reinterpret_cast<float4*>(dst + e),
+             *reinterpret_cast<const float4*>(tile + q * S + (e - q * K)));
+    }
+  } else {
+    for (int e = threadIdx.x; e < n_el; e += WARPS * 32) {
+      const int q = div_k(e, magic);
+      __stcs(dst + e, tile[q * S + (e - q * K)]);
+    }
   }
 }
 
+template <int KMAX, int PPW, int WPM, int WARPS>
+cudaError_t launch_rows(const float* mats, int R, int K, int scaled, float* out,
+                        cudaStream_t stream) {
+  auto kernel = gj_inverse_rows_kernel<KMAX, PPW, WPM, WARPS>;
+  const int S = row_stride(K);
+  const int mpc = WARPS * PPW / WPM;
+  const int smem = (mpc * K * S + mpc * 2 * (KMAX + 4)) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const uint32_t magic = K == 1 ? 0u : (uint32_t)(((1ull << 32) + K - 1) / K);
+  const int vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(mats) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  kernel<<<(R + mpc - 1) / mpc, WARPS * 32, smem, stream>>>(mats, R, K, S, magic, vec,
+                                                           scaled, out);
+  return cudaGetLastError();
+}
+
 constexpr int kCtaThreads = 256;
-constexpr int kMaxK = 128;
 
 __global__ void __launch_bounds__(kCtaThreads)
 gj_inverse_cta_kernel(const float* __restrict__ mats, int K, float* __restrict__ out) {
@@ -128,13 +278,6 @@ gj_inverse_cta_kernel(const float* __restrict__ mats, int K, float* __restrict__
     for (int j = lane; j < K; j += 32) dst[(int64_t)i * K + j] = a[i * S + j];
 }
 
-template <int KMAX>
-void launch(const float* mats, int R, int K, float* out, cudaStream_t stream) {
-  const int blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  gj_inverse_kernel<KMAX><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-      mats, R, K, out);
-}
-
 cudaError_t launch_cta(const float* mats, int R, int K, float* out, cudaStream_t stream) {
   const int smem = (K * (K + 1) + 2 * K) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -144,24 +287,94 @@ cudaError_t launch_cta(const float* mats, int R, int K, float* out, cudaStream_t
   return cudaGetLastError();
 }
 
-}  // namespace
+// The previous K <= 32 design, kept beside the new one for one A/B on the
+// card: one warp per matrix, lane j holding column j of A and of the
+// running inverse ([A | I], 2K registers), pivot column p broadcast by K
+// __shfl_sync and two divisions a lane.  Past K = 32 it used the CTA form.
+constexpr int kPrevWarps = 8;
+constexpr unsigned kFull = 0xffffffffu;
 
-extern "C" int pmf_gj_inverse(const float* mats, int R, int K, float* out,
-                              void* stream) {
-  if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
-  if (R > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (K <= 8) {
-      launch<8>(mats, R, K, out, s);
-    } else if (K <= 16) {
-      launch<16>(mats, R, K, out, s);
-    } else if (K <= 24) {
-      launch<24>(mats, R, K, out, s);
-    } else if (K <= 32) {
-      launch<32>(mats, R, K, out, s);
-    } else {
-      return (int)launch_cta(mats, R, K, out, s);
+template <int KMAX>
+__global__ void __launch_bounds__(kPrevWarps * 32)
+gj_inverse_prev_kernel(const float* __restrict__ mats, int R, int K,
+                       float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int64_t r = (int64_t)blockIdx.x * kPrevWarps + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const bool active = lane < K;
+  const float* src = mats + r * K * K;
+  float a[KMAX], v[KMAX];
+#pragma unroll
+  for (int i = 0; i < KMAX; ++i) {
+    a[i] = (active && i < K) ? src[i * K + lane] : 0.f;
+    v[i] = (i == lane) ? 1.f : 0.f;
+  }
+#pragma unroll
+  for (int p = 0; p < KMAX; ++p) {
+    if (p < K) {
+      float col[KMAX];
+#pragma unroll
+      for (int i = 0; i < KMAX; ++i) col[i] = __shfl_sync(kFull, a[i], p);
+      const float ar = a[p] / col[p];
+      const float vr = v[p] / col[p];
+#pragma unroll
+      for (int i = 0; i < KMAX; ++i) {
+        if (i == p) {
+          a[i] = ar;
+          v[i] = vr;
+        } else {
+          a[i] -= col[i] * ar;
+          v[i] -= col[i] * vr;
+        }
+      }
     }
   }
+  if (active) {
+    float* dst = out + r * K * K;
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i)
+      if (i < K) dst[i * K + lane] = v[i];
+  }
+}
+
+template <int KMAX>
+void launch_prev(const float* mats, int R, int K, float* out, cudaStream_t stream) {
+  gj_inverse_prev_kernel<KMAX><<<(R + kPrevWarps - 1) / kPrevWarps, kPrevWarps * 32,
+                                  0, stream>>>(mats, R, K, out);
+}
+
+}  // namespace
+
+extern "C" int pmf_gj_inverse(const float* mats, int R, int K, int variant, float* out,
+                              void* stream) {
+  if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
+  if (R <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // Keep in step with ops/gj_inverse.py::launch_plan.  `variant` 1 scales
+  // the pivot row before it goes out (0: each lane folds 1 / a[p][p] into
+  // its multiplier).
+  const int sc = variant == 1;
+  if (K <= 8) return (int)launch_rows<8, 4, 1, 8>(mats, R, K, sc, out, s);
+  if (K <= 16) return (int)launch_rows<16, 2, 1, 8>(mats, R, K, sc, out, s);
+  if (K <= 24) return (int)launch_rows<24, 1, 1, 8>(mats, R, K, sc, out, s);
+  if (K <= 32) return (int)launch_rows<32, 1, 1, 8>(mats, R, K, sc, out, s);
+  if (K <= 40) return (int)launch_rows<40, 1, 2, 4>(mats, R, K, sc, out, s);
+  if (K <= 48) return (int)launch_rows<48, 1, 2, 4>(mats, R, K, sc, out, s);
+  if (K <= 52) return (int)launch_rows<52, 1, 2, 4>(mats, R, K, sc, out, s);
+  if (K <= 56) return (int)launch_rows<56, 1, 2, 4>(mats, R, K, sc, out, s);
+  if (K <= kRowsMaxK) return (int)launch_rows<64, 1, 2, 4>(mats, R, K, sc, out, s);
+  return (int)launch_cta(mats, R, K, out, s);
+}
+
+extern "C" int pmf_gj_inverse_prev(const float* mats, int R, int K, float* out,
+                                   void* stream) {
+  if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
+  if (R <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (K <= 8) launch_prev<8>(mats, R, K, out, s);
+  else if (K <= 16) launch_prev<16>(mats, R, K, out, s);
+  else if (K <= 24) launch_prev<24>(mats, R, K, out, s);
+  else if (K <= 32) launch_prev<32>(mats, R, K, out, s);
+  else return (int)launch_cta(mats, R, K, out, s);
   return (int)cudaGetLastError();
 }

@@ -27,7 +27,7 @@ import functools
 
 import torch
 
-from pmf_tpu_torch.data.blocked import TailCSR
+from pmf_tpu_torch.data.blocked import TailBands, TailCSR
 from pmf_tpu_torch.ops import _build
 from pmf_tpu_torch.ops._tail import (
     add_heads as _add_heads,
@@ -81,12 +81,39 @@ def unpack_tri(S_tri: torch.Tensor, k: int) -> torch.Tensor:
 
 # ------------------------------------------------------------------ K3 --
 
+def factor_stride(k: int) -> int:
+    """K3's record width in the table: K + 1 + K(K+1)/2 floats rounded up
+    to 4, so that every record starts on 16 bytes (the bulk copies' unit)."""
+    return -(-(k + 1 + tri_size(k)) // 4) * 4
+
+
+def factor_reckoning(p: TailCSR, K: int, with_bias_stats: bool = False,
+                     bands: TailBands | None = None) -> dict:
+    """K3's bytes three ways, each with the edges' ids and ratings read and
+    the output written once: ``per_edge`` gathers a record an edge (the
+    32-byte sectors it spans), ``table_once`` reads the table once,
+    ``banded`` reads it once and the output rows a band after the first
+    touches once more each way.  Needs the tail's ids on the host's
+    reach (a reduction over the edges)."""
+    T = tri_size(K)
+    rec = 4 * (K + 1 + T)
+    row_out = 4 * (2 * K + T + (2 if with_bias_stats else 0))
+    fixed = p.nnz * (4 + p.x.element_size()) + p.n_self * row_out
+    off = (p.other.long() * (4 * factor_stride(K))) % 32
+    sectors = int(torch.sum((off + rec + 31) // 32))
+    touched = sum(bands.rows_touched[1:]) if bands is not None else 0
+    return {"per_edge": fixed + 32 * sectors,
+            "table_once": fixed + p.n_other * rec,
+            "banded": fixed + p.n_other * rec + 2 * touched * row_out}
+
+
 def factor_tail_stats_plain(aug, row_ptr, other, x, K: int,
                             with_bias_stats: bool = False,
                             max_edges: int | None = None) -> torch.Tensor:
-    """Plain K3: aug (n_other, K+1+T) = [m | b | tri] -> (n_self, 2K+T(+2))
-    [sum m(x-b) | sum m | sum tri (| sum x | sum b)] in aug's dtype.
-    ``max_edges`` bounds the edges whose temporaries exist at once."""
+    """Plain K3: aug (n_other, >= K+1+T) = [m | b | tri | pad] -> (n_self,
+    2K+T(+2)) [sum m(x-b) | sum m | sum tri (| sum x | sum b)] in aug's
+    dtype; pad columns past K+1+T are ignored.  ``max_edges`` bounds the
+    edges whose temporaries exist at once."""
     T = tri_size(K)
     n_self = row_ptr.shape[0] - 1
     w_out = 2 * K + T + (2 if with_bias_stats else 0)
@@ -96,7 +123,7 @@ def factor_tail_stats_plain(aug, row_ptr, other, x, K: int,
         g = aug[o]
         xv = x[sl].to(aug.dtype)
         m, b = g[:, :K], g[:, K]
-        cols = [m * (xv - b)[:, None], m, g[:, K + 1 :]]
+        cols = [m * (xv - b)[:, None], m, g[:, K + 1 : K + 1 + T]]
         if with_bias_stats:
             cols += [xv[:, None], b[:, None]]
         out[r0:r1].index_add_(0, local, torch.cat(cols, dim=1))
@@ -104,22 +131,61 @@ def factor_tail_stats_plain(aug, row_ptr, other, x, K: int,
 
 
 def factor_tail_stats(aug, row_ptr, other, x, K: int,
-                      with_bias_stats: bool = False) -> torch.Tensor:
+                      with_bias_stats: bool = False,
+                      bands: TailBands | None = None) -> torch.Tensor:
     """K3: the factor tail pass.  CUDA tensors launch the kernel; CPU
-    tensors run the plain version."""
+    tensors run the plain version.  With ``bands`` (``data.blocked.
+    band_tail``) the pass runs band by band over ``bands``' regrouped edges
+    in place of (row_ptr, other, x), one launch a band: the first writes
+    the output, the later ones add to it, so each row's sum is taken band
+    by band (another order of summation than one pass).  ``aug`` is best
+    given padded to ``factor_stride(K)`` columns (``factor_table``); an
+    unpadded table is padded here (a copy)."""
+    passes = ([(bands.row_ptr[b], bands.other, bands.x) for b in range(bands.n_bands)]
+              if bands is not None else [(row_ptr, other, x)])
     if not aug.is_cuda:
-        return factor_tail_stats_plain(aug, row_ptr, other, x, K, with_bias_stats)
+        out = factor_tail_stats_plain(aug, *passes[0], K, with_bias_stats)
+        for rp, o, xv in passes[1:]:
+            out += factor_tail_stats_plain(aug, rp, o, xv, K, with_bias_stats)
+        return out
     if not 1 <= K <= FACTOR_MAX_K:
         raise ValueError(f"factor kernel needs 1 <= K <= {FACTOR_MAX_K}, got K={K}")
-    if aug.dim() != 2 or aug.shape[1] != K + 1 + tri_size(K):
-        raise ValueError(f"aug must be (n_other, {K + 1 + tri_size(K)})")
-    n_self = row_ptr.shape[0] - 1
-    _check_tail_args([("aug", aug)], row_ptr, other, x, n_self)
     T = tri_size(K)
+    stride = factor_stride(K)
+    if aug.dim() != 2 or aug.shape[1] not in (K + 1 + T, stride):
+        raise ValueError(f"aug must be (n_other, {K + 1 + T}) or padded to "
+                         f"(n_other, {stride})")
+    n_self = row_ptr.shape[0] - 1
+    for rp, o, xv in passes:
+        _check_tail_args([("aug", aug)], rp, o, xv, n_self)
+    if aug.shape[1] != stride:
+        aug = torch.nn.functional.pad(aug, (0, stride - aug.shape[1]))
+    if aug.data_ptr() % 16:
+        raise ValueError("aug must start on 16 bytes")
     out = torch.empty((n_self, 2 * K + T + (2 if with_bias_stats else 0)),
                       dtype=torch.float32, device=aug.device)
-    _build.launch("pmf_gauss_factor", FACTOR_LAUNCHES, aug.device, aug, row_ptr,
-                  other, x, n_self, K, int(with_bias_stats), out)
+    for b, (rp, o, xv) in enumerate(passes):
+        _build.launch("pmf_gauss_factor", FACTOR_LAUNCHES, aug.device, aug, stride, rp,
+                      o, xv, n_self, K, int(with_bias_stats), int(b > 0), out)
+    return out
+
+
+FACTOR_PREV_LAUNCHES = _build.LaunchCounter()
+
+
+def factor_tail_stats_prev(aug, row_ptr, other, x, K: int,
+                           with_bias_stats: bool = False) -> torch.Tensor:
+    """The previous K3 design (4-byte loads from an unpadded table, two
+    edges in flight), kept for an A/B on the card; CUDA tensors only."""
+    T = tri_size(K)
+    n_self = row_ptr.shape[0] - 1
+    if aug.shape[1] != K + 1 + T:
+        aug = aug[:, : K + 1 + T].contiguous()
+    _check_tail_args([("aug", aug)], row_ptr, other, x, n_self)
+    out = torch.empty((n_self, 2 * K + T + (2 if with_bias_stats else 0)),
+                      dtype=torch.float32, device=aug.device)
+    _build.launch("pmf_gauss_factor_prev", FACTOR_PREV_LAUNCHES, aug.device, aug,
+                  row_ptr, other, x, n_self, K, int(with_bias_stats), out)
     return out
 
 
@@ -211,7 +277,7 @@ def _gauss_head_out(tier, aug, K, T, with_bias_stats, head_side):
     the kernel).  ``aug`` is the new-space [m | b | tri] table (b zero
     without biases)."""
     a = _head_rows(aug, tier, head_side)
-    m_h, b_h, tri_h = a[:, :K], a[:, K : K + 1], a[:, K + 1 :]
+    m_h, b_h, tri_h = a[:, :K], a[:, K : K + 1], a[:, K + 1 : K + 1 + T]
     tab = torch.cat([m_h, b_h * m_h, tri_h, b_h], dim=1)
     start, mp, xp = _products(tier, tab, m_h, head_side)
     cols = [xp - mp[:, K : 2 * K], mp[:, :K], mp[:, 2 * K : 2 * K + T]]
@@ -220,28 +286,45 @@ def _gauss_head_out(tier, aug, K, T, with_bias_stats, head_side):
     return start, torch.cat(cols, dim=1)
 
 
+def factor_table(m, b, A_flat, rows=None) -> torch.Tensor:
+    """K3's table [m | b | triu(A) | 0 pad], ``factor_stride(K)`` columns,
+    of rows ``rows`` of the inputs (all when None): the upper triangle is
+    packed and the rows permuted by one gather."""
+    K = m.shape[1]
+    T = tri_size(K)
+    flat, _ = _tri_indices(K, A_flat.device)
+    if rows is None:
+        tri = A_flat.index_select(1, flat)
+    else:
+        tri = A_flat[rows[:, None], flat[None, :]]
+        m, b = m[rows], b[rows]
+    pad = m.new_zeros(m.shape[0], factor_stride(K) - K - 1 - T)
+    return torch.cat([m, b[:, None], tri, pad], dim=1)
+
+
 def gaussian_factor_stats(m_other, V_other, b_self, b_other, p: TailCSR,
                           use_bias: bool = True, with_bias_stats: bool = False,
-                          head=None, head_side: str = "user"):
+                          head=None, head_side: str = "user", bands=None):
     """(S_w (n_self, K), S_A (n_self, K, K)) for one factor block, with
     S_w = sum m_o (x [- b_s - b_o]) and S_A = sum (V_o + m_o m_o^T).  With
     ``with_bias_stats`` also (S_m, S_x, S_b): the per-row sums of m_o, x
     and b_o that the lagged bias block reads.  ``head``: the layout's
     DenseHead tiers (their edges are not in ``p``); ``head_side`` says
-    whether self rows are the head's user axis ("user") or item axis."""
+    whether self rows are the head's user axis ("user") or item axis.
+    ``bands``: the tail regrouped by bands of other rows for K3
+    (``data.blocked.band_tail``), or None for one pass."""
     if with_bias_stats and not use_bias:
         raise ValueError("with_bias_stats requires use_bias=True")
     K = m_other.shape[1]
     T = tri_size(K)
     A_flat = (V_other + m_other[:, :, None] * m_other[:, None, :]).reshape(-1, K * K)
     b_col = b_other if use_bias else torch.zeros_like(b_other)
-    aug = torch.cat([m_other, b_col[:, None], pack_tri(A_flat, K)], dim=1)
+    aug = factor_table(m_other, b_col, A_flat,
+                       p.other_old_of_new if p.reordered else None)
     del A_flat
     heads = _check_head(p, head)
-    if p.reordered:
-        aug = aug[p.other_old_of_new]
-    out = factor_tail_stats(aug.contiguous(), p.row_ptr, p.other, p.x, K,
-                            with_bias_stats)
+    out = factor_tail_stats(aug, p.row_ptr, p.other, p.x, K, with_bias_stats,
+                            bands=bands)
     out = _add_heads(out, [_gauss_head_out(t, aug, K, T, with_bias_stats,
                                            head_side) for t in heads])
     if p.reordered:

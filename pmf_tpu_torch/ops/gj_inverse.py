@@ -9,6 +9,10 @@ launches the kernel (or raises), on a CPU tensor it runs
 PyTorch.  No pivoting: every elimination step of a positive-definite
 matrix leaves a positive-definite trailing block, so pivots stay
 positive.
+
+K4 inverts in place (column p of A becomes column p of the inverse at
+pivot p), one row a lane, scaling the pivot row by one reciprocal;
+``launch_plan`` gives the geometry the kernel picks for a K.
 """
 
 from __future__ import annotations
@@ -18,7 +22,29 @@ import torch
 from pmf_tpu_torch.ops import _build
 
 GJ_LAUNCHES = _build.LaunchCounter()
-MAX_K = 128  # a warp a matrix up to K = 32, then a CTA with the matrix in shared memory
+MAX_K = 128
+
+
+def row_stride(k: int) -> int:
+    """The kernel's shared-memory row stride: K rounded up to 4 floats,
+    made 4 mod 8 so that float4 reads of eight rows hit distinct banks."""
+    s = -(-k // 4) * 4
+    return s + 4 if s % 8 == 0 else s
+
+
+def launch_plan(k: int) -> dict:
+    """The row-per-lane geometry for ``k`` (``csrc/gj_inverse.cu``'s
+    dispatch): registers a row ``kmax``, matrices a warp ``ppw``, warps a
+    matrix ``wpm``, warps a CTA ``warps``, shared row ``stride``; None past
+    K = 64, where a CTA inverts one matrix in shared memory."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"Gauss-Jordan kernel needs 1 <= K <= {MAX_K}, got K={k}")
+    for kmax, ppw, wpm, warps in ((8, 4, 1, 8), (16, 2, 1, 8), (24, 1, 1, 8),
+                                  (32, 1, 1, 8), (40, 1, 2, 4), (48, 1, 2, 4),
+                                  (52, 1, 2, 4), (56, 1, 2, 4), (64, 1, 2, 4)):
+        if k <= kmax:
+            return dict(kmax=kmax, ppw=ppw, wpm=wpm, warps=warps, stride=row_stride(k))
+    return None
 
 
 def batched_psd_inverse_gj_plain(mats: torch.Tensor) -> torch.Tensor:
@@ -47,7 +73,7 @@ def _check_cuda_args(mats: torch.Tensor) -> None:
         raise ValueError("too many matrices for one launch")
 
 
-def batched_psd_inverse_gj(mats: torch.Tensor) -> torch.Tensor:
+def batched_psd_inverse_gj(mats: torch.Tensor, variant: int = 0) -> torch.Tensor:
     """K4: invert (R, K, K) positive-definite matrices.  CUDA tensors
     launch the kernel; CPU tensors run the plain version."""
     if not mats.is_cuda:
@@ -56,5 +82,20 @@ def batched_psd_inverse_gj(mats: torch.Tensor) -> torch.Tensor:
     mats = mats.contiguous()
     R, K, _ = mats.shape
     out = torch.empty_like(mats)
-    _build.launch("pmf_gj_inverse", GJ_LAUNCHES, mats.device, mats, R, K, out)
+    _build.launch("pmf_gj_inverse", GJ_LAUNCHES, mats.device, mats, R, K, variant, out)
+    return out
+
+
+GJ_PREV_LAUNCHES = _build.LaunchCounter()
+
+
+def batched_psd_inverse_gj_prev(mats: torch.Tensor) -> torch.Tensor:
+    """The previous K4 design (a warp a matrix over [A | I], lane =
+    column), kept for an A/B on the card; CUDA tensors only."""
+    _check_cuda_args(mats)
+    mats = mats.contiguous()
+    R, K, _ = mats.shape
+    out = torch.empty_like(mats)
+    _build.launch("pmf_gj_inverse_prev", GJ_PREV_LAUNCHES, mats.device, mats, R, K,
+                  out)
     return out
