@@ -654,13 +654,12 @@ def _small_k34(blocked, ks=(1, 2, 5, 7, 8, 9, 16, 17, 20, 24, 25, 30, 31, 32, 33
         ref = batched_psd_inverse_gj_plain(P)
         ref64 = torch.linalg.inv(P.double())
         scale = ref64.abs().amax(dim=(1, 2))
-        for variant in (0, 1):
-            got = batched_psd_inverse_gj(P, variant)
-            err = max(float(((got - ref).abs().amax(dim=(1, 2)) / scale).max()),
-                      float(((got.double() - ref64).abs().amax(dim=(1, 2)) / scale).max()))
-            if not err <= INV_RTOL:
-                raise AssertionError(f"K4 K={k} variant {variant}: error {err} > {INV_RTOL}")
-            worst4 = max(worst4, err)
+        got = batched_psd_inverse_gj(P)
+        err = max(float(((got - ref).abs().amax(dim=(1, 2)) / scale).max()),
+                  float(((got.double() - ref64).abs().amax(dim=(1, 2)) / scale).max()))
+        if not err <= INV_RTOL:
+            raise AssertionError(f"K4 K={k}: error {err} > {INV_RTOL}")
+        worst4 = max(worst4, err)
     torch.cuda.synchronize()
     log(f"phase k34small: ok | K in {list(ks)} | K3 worst column error {worst3:.3e} "
         f"(tol {COL_RTOL}), K4 worst per-matrix error {worst4:.3e} (tol {INV_RTOL})")
@@ -2092,10 +2091,6 @@ def _k4_check(P, name, k=K, check_plain=True):
                                     lambda: batched_psd_inverse_gj(P),
                                     lambda: batched_psd_inverse_gj_prev(P))]
     lib_ms = cuda_ms(lambda: torch.linalg.inv(P), reps)
-    if k <= 64:
-        tv = [cuda_ms(lambda: batched_psd_inverse_gj(P, 1), reps) for _ in range(2)]
-        log(f"  K4 {name}: pivot row scaled before it goes out {tv[0]:.4f} {tv[1]:.4f} ms "
-            f"(each lane folding the scale into its multiplier: {t[1]:.4f} {t[2]:.4f} ms)")
     plain_ms = cuda_ms(lambda: batched_psd_inverse_gj_plain(P), 3) if check_plain \
         else float("nan")
     R = P.shape[0]

@@ -74,33 +74,30 @@ __device__ __forceinline__ int div_k(int e, uint32_t magic) {
   return magic ? (int)__umulhi((uint32_t)e, magic) : e;
 }
 
-// KMAX: registers a row (K <= KMAX); PPW: matrices a warp; WPM: warps a
-// matrix (1, or 2 and 4 for K past 32, each warp 32 of its rows, meeting at
-// a named barrier a pivot); WARPS: warps a CTA.  `vec`: K % 4 == 0 and
-// both tables 16-byte aligned, so the tile moves in float4s.
-template <int KMAX, int PPW, int WPM, int WARPS>
-__global__ void __launch_bounds__(WARPS * 32)
-gj_inverse_rows_kernel(const float* __restrict__ mats, int R, int K, int S,
-                       uint32_t magic, int vec, int scaled, float* __restrict__ out) {
+// KMAX: registers a row (K <= KMAX); WMAX: warps a CTA at most.  The CTA
+// holds M matrices, thread t row t % K of matrix t / K (threads past M * K
+// idle); `magic` = ceil(2^32 / K).  `vec`: K % 4 == 0 and both tables
+// 16-byte aligned, so the tile moves in float4s.
+template <int KMAX, int WMAX>
+__global__ void __launch_bounds__(WMAX * 32)
+gj_inverse_rows_kernel(const float* __restrict__ mats, int R, int K, int M, int S,
+                       uint32_t magic, int vec, float* __restrict__ out) {
   extern __shared__ __align__(16) float sm[];
-  constexpr int G = 32 / PPW;  // lanes a matrix within one warp
-  constexpr int MPC = WARPS * PPW / WPM;  // matrices a CTA
-  static_assert(KMAX % 4 == 0 && KMAX <= G * WPM, "rows must fit the lanes");
-  static_assert(WPM == 1 || PPW == 1, "a matrix spans warps or shares one");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t m0 = (int64_t)blockIdx.x * MPC;
-  const int nm = (int)(R - m0 < MPC ? R - m0 : MPC);  // matrices in this CTA
-  float* tile = sm;  // MPC * K rows of stride S
-  float* rowbuf = sm + MPC * K * S;  // 2 x (KMAX + 4) floats per matrix
+  static_assert(KMAX % 4 == 0, "rows are read as float4s");
+  const int t = threadIdx.x, nt = blockDim.x;
+  const int64_t m0 = (int64_t)blockIdx.x * M;
+  const int nm = (int)(R - m0 < M ? R - m0 : M);  // matrices in this CTA
+  float* tile = sm;  // M * K rows of stride S; row t is thread t's
+  float* rowbuf = sm + M * K * S;  // 2 x KMAX floats per matrix
   const int n_el = nm * K * K;
   const float* src = mats + m0 * K * K;
   if (vec) {
-    for (int e = 4 * threadIdx.x; e < n_el; e += 4 * WARPS * 32) {
+    for (int e = 4 * t; e < n_el; e += 4 * nt) {
       const int q = div_k(e, magic);
       cp_async16(tile + q * S + (e - q * K), src + e);
     }
   } else {
-    for (int e = threadIdx.x; e < n_el; e += WARPS * 32) {
+    for (int e = t; e < n_el; e += nt) {
       const int q = div_k(e, magic);
       cp_async4(tile + q * S + (e - q * K), src + e);
     }
@@ -109,132 +106,108 @@ gj_inverse_rows_kernel(const float* __restrict__ mats, int R, int K, int S,
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
 
-  const int g = lane / G, li = lane % G;
-  const int wm = warp % WPM;  // which of the matrix's warps
-  const int mat = (warp / WPM) * PPW + g;
-  const int i = wm * G + li;  // this lane's row
+  const int mat = div_k(t, magic);
+  const int i = t - mat * K;  // this thread's row
   const bool live = mat < nm;
   float a[KMAX];
-  {
-    const float* rp = tile + (mat * K + i) * S;
 #pragma unroll
-    for (int j4 = 0; j4 < KMAX / 4; ++j4) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (4 * j4 < K && live && i < K) v = *reinterpret_cast<const float4*>(rp + 4 * j4);
-      a[4 * j4] = v.x;
-      a[4 * j4 + 1] = 4 * j4 + 1 < K ? v.y : 0.f;
-      a[4 * j4 + 2] = 4 * j4 + 2 < K ? v.z : 0.f;
-      a[4 * j4 + 3] = 4 * j4 + 3 < K ? v.w : 0.f;
-    }
+  for (int j4 = 0; j4 < KMAX / 4; ++j4) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (4 * j4 < K && live) v = *reinterpret_cast<const float4*>(tile + t * S + 4 * j4);
+    a[4 * j4] = v.x;
+    a[4 * j4 + 1] = 4 * j4 + 1 < K ? v.y : 0.f;
+    a[4 * j4 + 2] = 4 * j4 + 2 < K ? v.z : 0.f;
+    a[4 * j4 + 3] = 4 * j4 + 3 < K ? v.w : 0.f;
   }
 
-  float* rb = rowbuf + ((warp / WPM) * PPW + g) * 2 * (KMAX + 4);
+  const float* rb = rowbuf + (mat < M ? mat : M - 1) * 2 * KMAX;
 #pragma unroll
   for (int p = 0; p < KMAX; ++p) {
     if (p < K) {  // uniform across the CTA
-      const bool me = wm == p / G && li == p % G;  // this lane holds row p
-      float* buf = rb + (p & 1) * (KMAX + 4);  // row p, then 1 / a[p][p]
-      if (me) {
+      const bool me = live && i == p;  // this thread holds row p
+      float* buf = rowbuf + mat * 2 * KMAX + (p & 1) * KMAX;
+      if (me) {  // r = [row p with the 1 of I's column p] / a[p][p]
         const float inv = 1.f / a[p];
 #pragma unroll
         for (int j4 = 0; j4 < KMAX / 4; ++j4) {
           if (4 * j4 < K) {
             float4 v;
-            v.x = 4 * j4 == p ? 1.f : a[4 * j4];
-            v.y = 4 * j4 + 1 == p ? 1.f : a[4 * j4 + 1];
-            v.z = 4 * j4 + 2 == p ? 1.f : a[4 * j4 + 2];
-            v.w = 4 * j4 + 3 == p ? 1.f : a[4 * j4 + 3];
-            if (scaled) {
-              v.x *= inv; v.y *= inv; v.z *= inv; v.w *= inv;
-            }
+            v.x = (4 * j4 == p ? 1.f : a[4 * j4]) * inv;
+            v.y = (4 * j4 + 1 == p ? 1.f : a[4 * j4 + 1]) * inv;
+            v.z = (4 * j4 + 2 == p ? 1.f : a[4 * j4 + 2]) * inv;
+            v.w = (4 * j4 + 3 == p ? 1.f : a[4 * j4 + 3]) * inv;
             *reinterpret_cast<float4*>(buf + 4 * j4) = v;
           }
         }
-        buf[KMAX] = inv;
       }
-      if (WPM == 1) {
-        __syncwarp();
-      } else {
-        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + warp / WPM), "n"(WPM * 32)
-                     : "memory");
-      }
-      if (scaled) {  // r = row p / a[p][p] in the buffer
-        const float c = a[p];
+      __syncthreads();
+      // a[i][j] = (j == p ? 0 : a[i][j]) - a[i][p] * r[j] for i != p; r
+      // for i == p.  The other buffer, written at the next pivot, was read
+      // before this barrier.
+      const float* rp = rb + (p & 1) * KMAX;
+      const float c = a[p];
 #pragma unroll
-        for (int j4 = 0; j4 < KMAX / 4; ++j4) {
-          if (4 * j4 < K) {
-            const float4 r = *reinterpret_cast<const float4*>(buf + 4 * j4);
-            const float rv[4] = {r.x, r.y, r.z, r.w};
+      for (int j4 = 0; j4 < KMAX / 4; ++j4) {
+        if (4 * j4 < K) {
+          const float4 r = *reinterpret_cast<const float4*>(rp + 4 * j4);
+          const float rv[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const int j = 4 * j4 + q;
-              const float keep = j == p ? 0.f : a[j];
-              a[j] = me ? rv[q] : keep - c * rv[q];
-            }
-          }
-        }
-      } else if (me) {  // row p scaled in place
-        const float inv = buf[KMAX];
-#pragma unroll
-        for (int j = 0; j < KMAX; ++j)
-          if (j < K) a[j] = (j == p ? 1.f : a[j]) * inv;
-      } else {  // a[i][j] -= (a[i][p] / a[p][p]) * row p
-        const float c = a[p] * buf[KMAX];
-#pragma unroll
-        for (int j4 = 0; j4 < KMAX / 4; ++j4) {
-          if (4 * j4 < K) {
-            const float4 r = *reinterpret_cast<const float4*>(buf + 4 * j4);
-            const float rv[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const int j = 4 * j4 + q;
-              a[j] = (j == p ? 0.f : a[j]) - c * rv[q];
-            }
+          for (int q = 0; q < 4; ++q) {
+            const int j = 4 * j4 + q;
+            a[j] = me ? rv[q] : (j == p ? 0.f : a[j]) - c * rv[q];
           }
         }
       }
     }
   }
 
-  if (live && i < K) {
-    float* rp = tile + (mat * K + i) * S;
+  if (live) {
 #pragma unroll
     for (int j4 = 0; j4 < KMAX / 4; ++j4)
       if (4 * j4 < K)
-        *reinterpret_cast<float4*>(rp + 4 * j4) =
+        *reinterpret_cast<float4*>(tile + t * S + 4 * j4) =
             make_float4(a[4 * j4], a[4 * j4 + 1], a[4 * j4 + 2], a[4 * j4 + 3]);
   }
   __syncthreads();
   float* dst = out + m0 * K * K;
   if (vec) {
-    for (int e = 4 * threadIdx.x; e < n_el; e += 4 * WARPS * 32) {
+    for (int e = 4 * t; e < n_el; e += 4 * nt) {
       const int q = div_k(e, magic);
       __stcs(reinterpret_cast<float4*>(dst + e),
              *reinterpret_cast<const float4*>(tile + q * S + (e - q * K)));
     }
   } else {
-    for (int e = threadIdx.x; e < n_el; e += WARPS * 32) {
+    for (int e = t; e < n_el; e += nt) {
       const int q = div_k(e, magic);
       __stcs(dst + e, tile[q * S + (e - q * K)]);
     }
   }
 }
 
-template <int KMAX, int PPW, int WPM, int WARPS>
-cudaError_t launch_rows(const float* mats, int R, int K, int scaled, float* out,
+// Warps a CTA for K: the fewest of 1..wmax that leave the smallest share
+// of threads idle (32 w / K matrices of K rows each).
+int rows_warps(int K, int wmax) {
+  int best = 1;
+  for (int w = 2; w <= wmax; ++w)
+    if ((32 * w / K) * K * 32 * best > (32 * best / K) * K * 32 * w) best = w;
+  return best;
+}
+
+template <int KMAX, int WMAX>
+cudaError_t launch_rows(const float* mats, int R, int K, float* out,
                         cudaStream_t stream) {
-  auto kernel = gj_inverse_rows_kernel<KMAX, PPW, WPM, WARPS>;
+  auto kernel = gj_inverse_rows_kernel<KMAX, WMAX>;
+  const int w = rows_warps(K, WMAX);
+  const int M = 32 * w / K;
   const int S = row_stride(K);
-  const int mpc = WARPS * PPW / WPM;
-  const int smem = (mpc * K * S + mpc * 2 * (KMAX + 4)) * (int)sizeof(float);
+  const int smem = (M * K * S + M * 2 * KMAX) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const uint32_t magic = K == 1 ? 0u : (uint32_t)(((1ull << 32) + K - 1) / K);
   const int vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(mats) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  kernel<<<(R + mpc - 1) / mpc, WARPS * 32, smem, stream>>>(mats, R, K, S, magic, vec,
-                                                           scaled, out);
+  kernel<<<(R + M - 1) / M, 32 * w, smem, stream>>>(mats, R, K, M, S, magic, vec, out);
   return cudaGetLastError();
 }
 
@@ -345,24 +318,21 @@ void launch_prev(const float* mats, int R, int K, float* out, cudaStream_t strea
 
 }  // namespace
 
-extern "C" int pmf_gj_inverse(const float* mats, int R, int K, int variant, float* out,
+extern "C" int pmf_gj_inverse(const float* mats, int R, int K, float* out,
                               void* stream) {
   if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
   if (R <= 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // Keep in step with ops/gj_inverse.py::launch_plan.  `variant` 1 scales
-  // the pivot row before it goes out (0: each lane folds 1 / a[p][p] into
-  // its multiplier).
-  const int sc = variant == 1;
-  if (K <= 8) return (int)launch_rows<8, 4, 1, 8>(mats, R, K, sc, out, s);
-  if (K <= 16) return (int)launch_rows<16, 2, 1, 8>(mats, R, K, sc, out, s);
-  if (K <= 24) return (int)launch_rows<24, 1, 1, 8>(mats, R, K, sc, out, s);
-  if (K <= 32) return (int)launch_rows<32, 1, 1, 8>(mats, R, K, sc, out, s);
-  if (K <= 40) return (int)launch_rows<40, 1, 2, 4>(mats, R, K, sc, out, s);
-  if (K <= 48) return (int)launch_rows<48, 1, 2, 4>(mats, R, K, sc, out, s);
-  if (K <= 52) return (int)launch_rows<52, 1, 2, 4>(mats, R, K, sc, out, s);
-  if (K <= 56) return (int)launch_rows<56, 1, 2, 4>(mats, R, K, sc, out, s);
-  if (K <= kRowsMaxK) return (int)launch_rows<64, 1, 2, 4>(mats, R, K, sc, out, s);
+  // Keep in step with ops/gj_inverse.py::launch_plan.
+  if (K <= 8) return (int)launch_rows<8, 8>(mats, R, K, out, s);
+  if (K <= 16) return (int)launch_rows<16, 8>(mats, R, K, out, s);
+  if (K <= 24) return (int)launch_rows<24, 8>(mats, R, K, out, s);
+  if (K <= 32) return (int)launch_rows<32, 8>(mats, R, K, out, s);
+  if (K <= 40) return (int)launch_rows<40, 4>(mats, R, K, out, s);
+  if (K <= 48) return (int)launch_rows<48, 4>(mats, R, K, out, s);
+  if (K <= 52) return (int)launch_rows<52, 4>(mats, R, K, out, s);
+  if (K <= 56) return (int)launch_rows<56, 4>(mats, R, K, out, s);
+  if (K <= kRowsMaxK) return (int)launch_rows<64, 4>(mats, R, K, out, s);
   return (int)launch_cta(mats, R, K, out, s);
 }
 

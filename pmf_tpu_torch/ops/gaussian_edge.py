@@ -288,18 +288,25 @@ def _gauss_head_out(tier, aug, K, T, with_bias_stats, head_side):
 
 def factor_table(m, b, A_flat, rows=None) -> torch.Tensor:
     """K3's table [m | b | triu(A) | 0 pad], ``factor_stride(K)`` columns,
-    of rows ``rows`` of the inputs (all when None): the upper triangle is
-    packed and the rows permuted by one gather."""
+    of rows ``rows`` of the inputs (all when None).  The packed triangle
+    is gathered by rows straight into its columns of the padded table:
+    two copies of the wide part (pack, permute), where packing, joining
+    and permuting took three."""
     K = m.shape[1]
     T = tri_size(K)
     flat, _ = _tri_indices(K, A_flat.device)
+    n = m.shape[0] if rows is None else rows.shape[0]
+    out = m.new_empty((n, factor_stride(K)))
     if rows is None:
-        tri = A_flat.index_select(1, flat)
+        torch.index_select(A_flat, 1, flat, out=out[:, K + 1 : K + 1 + T])
     else:
-        tri = A_flat[rows[:, None], flat[None, :]]
-        m, b = m[rows], b[rows]
-    pad = m.new_zeros(m.shape[0], factor_stride(K) - K - 1 - T)
-    return torch.cat([m, b[:, None], tri, pad], dim=1)
+        m, b = m.index_select(0, rows), b.index_select(0, rows)
+        torch.index_select(A_flat.index_select(1, flat), 0, rows,
+                           out=out[:, K + 1 : K + 1 + T])
+    out[:, :K] = m
+    out[:, K] = b
+    out[:, K + 1 + T :] = 0
+    return out
 
 
 def gaussian_factor_stats(m_other, V_other, b_self, b_other, p: TailCSR,

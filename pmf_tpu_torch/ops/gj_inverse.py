@@ -11,8 +11,9 @@ matrix leaves a positive-definite trailing block, so pivots stay
 positive.
 
 K4 inverts in place (column p of A becomes column p of the inverse at
-pivot p), one row a lane, scaling the pivot row by one reciprocal;
-``launch_plan`` gives the geometry the kernel picks for a K.
+pivot p), one row a thread, the matrices of a CTA packed across its
+threads, scaling the pivot row by one reciprocal; ``launch_plan`` gives
+the geometry the kernel picks for a K.
 """
 
 from __future__ import annotations
@@ -32,18 +33,29 @@ def row_stride(k: int) -> int:
     return s + 4 if s % 8 == 0 else s
 
 
-def launch_plan(k: int) -> dict:
-    """The row-per-lane geometry for ``k`` (``csrc/gj_inverse.cu``'s
-    dispatch): registers a row ``kmax``, matrices a warp ``ppw``, warps a
-    matrix ``wpm``, warps a CTA ``warps``, shared row ``stride``; None past
-    K = 64, where a CTA inverts one matrix in shared memory."""
+def rows_warps(k: int, wmax: int) -> int:
+    """Warps a CTA: the fewest of 1..wmax that leave the smallest share of
+    threads idle (32 w // K matrices of K rows each)."""
+    best = 1
+    for w in range(2, wmax + 1):
+        if (32 * w // k) * k * 32 * best > (32 * best // k) * k * 32 * w:
+            best = w
+    return best
+
+
+def launch_plan(k: int) -> dict | None:
+    """The row-per-thread geometry for ``k`` (``csrc/gj_inverse.cu``'s
+    dispatch): registers a row ``kmax``, ``warps`` a CTA holding
+    ``matrices`` matrices (thread t row t % K of matrix t // K), shared row
+    ``stride``; None past K = 64, where a CTA inverts one matrix in shared
+    memory."""
     if not 1 <= k <= MAX_K:
         raise ValueError(f"Gauss-Jordan kernel needs 1 <= K <= {MAX_K}, got K={k}")
-    for kmax, ppw, wpm, warps in ((8, 4, 1, 8), (16, 2, 1, 8), (24, 1, 1, 8),
-                                  (32, 1, 1, 8), (40, 1, 2, 4), (48, 1, 2, 4),
-                                  (52, 1, 2, 4), (56, 1, 2, 4), (64, 1, 2, 4)):
+    for kmax, wmax in ((8, 8), (16, 8), (24, 8), (32, 8), (40, 4), (48, 4), (52, 4),
+                       (56, 4), (64, 4)):
         if k <= kmax:
-            return dict(kmax=kmax, ppw=ppw, wpm=wpm, warps=warps, stride=row_stride(k))
+            w = rows_warps(k, wmax)
+            return dict(kmax=kmax, warps=w, matrices=32 * w // k, stride=row_stride(k))
     return None
 
 
@@ -73,7 +85,7 @@ def _check_cuda_args(mats: torch.Tensor) -> None:
         raise ValueError("too many matrices for one launch")
 
 
-def batched_psd_inverse_gj(mats: torch.Tensor, variant: int = 0) -> torch.Tensor:
+def batched_psd_inverse_gj(mats: torch.Tensor) -> torch.Tensor:
     """K4: invert (R, K, K) positive-definite matrices.  CUDA tensors
     launch the kernel; CPU tensors run the plain version."""
     if not mats.is_cuda:
@@ -82,7 +94,7 @@ def batched_psd_inverse_gj(mats: torch.Tensor, variant: int = 0) -> torch.Tensor
     mats = mats.contiguous()
     R, K, _ = mats.shape
     out = torch.empty_like(mats)
-    _build.launch("pmf_gj_inverse", GJ_LAUNCHES, mats.device, mats, R, K, variant, out)
+    _build.launch("pmf_gj_inverse", GJ_LAUNCHES, mats.device, mats, R, K, out)
     return out
 
 

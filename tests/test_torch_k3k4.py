@@ -3,9 +3,9 @@ the CPU.
 
 K4: a numpy float32 emulation of the kernel (``csrc/gj_inverse.cu``) as
 ``ops/gj_inverse.py::launch_plan`` lays it out (the CTA's matrices copied
-into a padded shared tile by the kernel's multiply-shift division, rows
-dealt to lanes with two or four matrices a warp, the elimination in place
-with one reciprocal a pivot) against float64 ``linalg.inv`` and the JAX
+into a padded shared tile by the kernel's multiply-shift division, thread
+t holding row t % K of matrix t // K, the elimination in place with one
+reciprocal a pivot) against float64 ``linalg.inv`` and the JAX
 Pallas kernel in interpret mode, per matrix at 1e-4 of its largest entry.
 
 K3: the band regrouping of a tail (every edge once, per-band CSRs that
@@ -47,19 +47,6 @@ def _pd(R, K, seed):
     return (np.eye(K) / 0.4 + A @ np.transpose(A, (0, 2, 1)) / 0.5).astype(np.float32)
 
 
-def _lanes(plan, K):
-    """(warp, lane) -> (matrix within the CTA, row) for the rows a CTA's
-    lanes hold, as the kernel deals them."""
-    G, wpm = 32 // plan["ppw"], plan["wpm"]
-    held = {}
-    for w in range(plan["warps"]):
-        for lane in range(32):
-            i = (w % wpm) * G + lane % G
-            if i < K:
-                held[(w, lane)] = ((w // wpm) * plan["ppw"] + lane // G, i)
-    return held
-
-
 def _emulate_k4(mats):
     """K4 in numpy float32, CTA by CTA, as the kernel computes it."""
     R, K, _ = mats.shape
@@ -75,10 +62,12 @@ def _emulate_k4(mats):
             a = a - col[:, :, None] * row[:, None, :]
             a[:, p, :] = row
         return a
-    S, mpc = plan["stride"], plan["warps"] * plan["ppw"] // plan["wpm"]
+    S, mpc = plan["stride"], plan["matrices"]
     magic = ((1 << 32) + K - 1) // K  # the kernel takes e itself at K = 1
-    held = _lanes(plan, K)
     flat, out = mats.reshape(-1), np.full(R * K * K, np.nan, np.float32)
+    threads = np.arange(32 * plan["warps"])
+    rows = threads // K  # thread t holds row t % K of matrix t // K: tile row t
+    assert np.array_equal(rows * K + threads % K, threads)
     for m0 in range(0, R, mpc):
         nm = min(mpc, R - m0)
         e = np.arange(nm * K * K, dtype=np.uint64)
@@ -87,18 +76,19 @@ def _emulate_k4(mats):
         assert np.array_equal(q, e.astype(np.int64) // K)
         tile = np.full(mpc * K * S, np.nan, np.float32)  # pads never read
         tile[q * S + (e.astype(np.int64) - q * K)] = flat[m0 * K * K + e.astype(np.int64)]
-        live = sorted(v for v in held.values() if v[0] < nm)
-        assert live == [(m, i) for m in range(nm) for i in range(K)]  # each row once
+        live = threads[rows < nm]
+        assert len(live) == nm * K  # each row of each matrix once
         a = tile[: nm * K * S].reshape(nm, K, S)[:, :, :K].copy()
         for p in range(K):
-            inv = np.float32(1.0) / a[:, p, p]
-            raw = a[:, p, :].copy()  # row p with the 1 of I's column p
-            raw[:, p] = 1.0
-            c = a[:, :, p] * inv[:, None]  # each lane's multiplier
+            inv = np.float32(1.0) / a[:, p, p]  # one reciprocal, then products
+            r = a[:, p, :].copy()  # row p with the 1 of I's column p, scaled
+            r[:, p] = 1.0
+            r = r * inv[:, None]
+            c = a[:, :, p].copy()  # each thread's multiplier a[i][p]
             keep = a.copy()
             keep[:, :, p] = 0.0
-            a = keep - c[:, :, None] * raw[:, None, :]
-            a[:, p, :] = raw * inv[:, None]
+            a = keep - c[:, :, None] * r[:, None, :]
+            a[:, p, :] = r  # the pivot row's thread takes r
         t = tile[: nm * K * S].reshape(nm, K, S)
         t[:, :, :K] = a
         out[m0 * K * K : (m0 + nm) * K * K] = tile[q * S + (e.astype(np.int64) - q * K)]
@@ -114,7 +104,7 @@ def _per_matrix_err(got, ref):
 @pytest.mark.parametrize("K", [1, 8, 16, 20, 33, 50, 64, 128])
 def test_k4_emulation_matches_float64_inv_and_the_jax_kernel(K):
     plan = gj_inverse.launch_plan(K)
-    mpc = plan["warps"] * plan["ppw"] // plan["wpm"] if plan else 1
+    mpc = plan["matrices"] if plan else 1
     R = 2 * mpc + 3 if K < 128 else 5  # a ragged last CTA
     mats = _pd(R, K, seed=K)
     got = _emulate_k4(mats)
@@ -125,10 +115,11 @@ def test_k4_emulation_matches_float64_inv_and_the_jax_kernel(K):
 
 
 @pytest.mark.parametrize("K,R", [(5, 1), (5, 31), (5, 33), (8, 97), (12, 15), (16, 17),
-                                 (16, 47)])
+                                 (16, 47), (20, 13), (30, 3)])
 def test_k4_emulation_covers_the_packing_edges(K, R):
-    """Two matrices a warp to K = 16 and four to K = 8: R not a multiple of
-    the packing or of a CTA's matrices."""
+    """Several matrices a warp (two to K = 16, four to K = 8) and matrices
+    across warps (K = 20: eight in five): R not a multiple of a CTA's
+    matrices."""
     mats = _pd(R, K, seed=100 + R)
     got = _emulate_k4(mats)
     assert np.all(np.isfinite(got))
@@ -138,18 +129,18 @@ def test_k4_emulation_covers_the_packing_edges(K, R):
         atol=1e-4 * float(np.abs(got).max()))
 
 
-@pytest.mark.parametrize("K,ppw,wpm", [(1, 4, 1), (8, 4, 1), (9, 2, 1), (16, 2, 1),
-                                       (17, 1, 1), (32, 1, 1), (33, 1, 2), (50, 1, 2),
-                                       (64, 1, 2)])
-def test_k4_launch_plan(K, ppw, wpm):
+@pytest.mark.parametrize("K,warps,matrices", [(1, 1, 32), (8, 1, 4), (9, 2, 7),
+                                               (16, 1, 2), (17, 8, 15), (20, 5, 8),
+                                               (24, 3, 4), (32, 1, 1), (33, 4, 3),
+                                               (50, 2, 1), (64, 2, 1)])
+def test_k4_launch_plan(K, warps, matrices):
     plan = gj_inverse.launch_plan(K)
-    assert (plan["ppw"], plan["wpm"]) == (ppw, wpm)
-    assert K <= plan["kmax"] <= 32 // ppw * wpm and plan["kmax"] % 4 == 0
-    assert plan["warps"] % wpm == 0
+    assert (plan["warps"], plan["matrices"]) == (warps, matrices)
+    assert K <= plan["kmax"] and plan["kmax"] % 4 == 0
+    assert matrices * K <= 32 * warps
     S = plan["stride"]
     assert S >= K and S % 4 == 0 and S % 8 == 4  # float4 rows, distinct banks
-    mpc = plan["warps"] * plan["ppw"] // wpm
-    assert (mpc * K * S + mpc * 2 * (plan["kmax"] + 4)) * 4 <= 227 * 1024
+    assert (matrices * K * S + matrices * 2 * plan["kmax"]) * 4 <= 227 * 1024
 
 
 def test_k4_cta_form_past_64_and_the_bound():
