@@ -43,8 +43,10 @@ launches, 2 a step, timed by CUDA events and by the profiler), msmall
 (``HPFMap.fit`` for 3 epochs, engine "blocked_high" then "flat", with
 launch counters) and mprofile (20 steady blocked steps under the profiler).
 
-Before the data, phase bigk: every kernel at K = 50 and K = 128 vs its
-plain version on small shapes (K2 on both sides with both M types), then
+Before the data, phase bigk: K3 (one pass and in bands) and K4 at every
+K where their geometry changes (phase k34small), every kernel at K = 50
+and K = 128 vs its plain version on small shapes (K2 on both sides with
+both M types), then
 at K = 50 the small, psmall, gsmall and msmall card-vs-host runs.  Beside
 the real-data phases, "bigk timing": every kernel's time at K = 50 on the
 real tail, tiers, matrices and steps.
@@ -56,10 +58,13 @@ Those are freed, then the Gaussian-MF CAVI path:
 10. K3/K5/K6 -- the factor, bias and diag tail kernels vs their plain
                 versions, both directions, under a per-column criterion
                 fit for signed sums; ``torch.sparse.mm`` as the library
-                reference of K3's and K5's pass-through bulk.
+                reference of K3's and K5's pass-through bulk.  K3 also in
+                L2 bands of the other table, with its bytes reckoned three
+                ways (per-edge gather, table once, banded).
 11. ghead    -- the head tiers' linear products (library matmuls), timed.
 12. K4       -- the Gauss-Jordan inverse on the real theta/beta precision
-                matrices vs its plain version and float64 ``linalg.inv``.
+                matrices vs its plain version and float64 ``linalg.inv``,
+                equal bits on a second launch, bytes and FP32 bounds.
 13. gsmall   -- three blocked sweeps on the card vs the host, exact, lagged
                 and diag, on a small input with a two-tier head.
 14. gfit     -- ``GaussianMF.fit(engine="blocked_high")`` at K=20: 4 sweeps
@@ -818,10 +823,10 @@ def phase_wide_poisson(blocked):
 
 
 def phase_wide_gauss(blocked):
-    """Device time at K_WIDE factors of K3 (exact; against the previous
-    kernel in turns, with its byte reckonings), K5, K6 on the real Gaussian
-    tail and K4 on 162k + 59k matrices (against the previous kernel and
-    torch.linalg.inv, with its bounds), by CUDA events."""
+    """Device time at K_WIDE factors of K3 (exact, with its byte
+    reckonings), K5, K6 on the real Gaussian tail and K4 on 162k + 59k
+    matrices (beside torch.linalg.inv, with its bounds), by CUDA events;
+    and K4 at K = 128 on 59k matrices."""
     import torch
 
     from pmf_tpu_torch.ops import gaussian_edge as ge
@@ -840,12 +845,11 @@ def phase_wide_gauss(blocked):
     P = _spd(N_ITEMS, 128, 3)
     _k4_check(P, f"K=128, {N_ITEMS} matrices", 128, check_plain=False)
     del P
-    k4 = dict(prev_ms=0.0, library_ms=0.0, n=0)
+    k4 = dict(library_ms=0.0, n=0)
     for n, seed in ((N_USERS, 1), (N_ITEMS, 2)):
         P = _spd(n, k, seed)
         r = _k4_check(P, f"K={k}, {n} matrices", k, check_plain=False)
         ms["K4"] += r["ms"]
-        k4["prev_ms"] += r["prev_ms"]
         k4["library_ms"] += r["library_ms"]
         k4["n"] += n
         del P
@@ -853,8 +857,7 @@ def phase_wide_gauss(blocked):
     b_bytes, b_ops = _k4_bounds(k4["n"], k)
     log(f"phase bigk timing (Gaussian, real data, K={k}): ok | per sweep "
         + ", ".join(f"{n} {v:.4f} ms" for n, v in ms.items())
-        + f" | K3 previous {k3['prev_ms']:.4f} ms | K4 previous {k4['prev_ms']:.4f} ms, "
-        f"torch.linalg.inv {k4['library_ms']:.4f} ms, bound: bytes {b_bytes:.4f} ms, "
+        + f" | K4 beside torch.linalg.inv {k4['library_ms']:.4f} ms, bound: bytes {b_bytes:.4f} ms, "
         f"FP32 {b_ops:.4f} ms")
     return ms
 
@@ -1855,8 +1858,7 @@ def phase_k3(blocked, k=K, label="K3", check=True):
     """K3, the factor tail pass, both directions: the kernel vs its plain
     version (per-column criterion), one pass as the sweep runs it and in
     L2 bands (``_k3_bands``, timed where they are at most 8), its three
-    byte reckonings, and the previous kernel, timed in turns (previous,
-    new, new, previous); library: CSR-ones @ [m | b | tri] by
+    byte reckonings; library: CSR-ones @ [m | b | tri] by
     torch.sparse.mm, the pass-through bulk.  Without ``check`` (the K = 50
     timing) no plain version runs."""
     import torch
@@ -1864,7 +1866,7 @@ def phase_k3(blocked, k=K, label="K3", check=True):
     from pmf_tpu_torch.ops import gaussian_edge as ge
 
     T = ge.tri_size(k)
-    res = dict(ms=0.0, plain_ms=0.0, prev_ms=0.0, library_ms=0.0, max_abs_err=0.0,
+    res = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0,
                n_bytes=0.0, n_flops=0.0, per_edge_bytes=0.0, banded_bytes=0.0)
     for name, p, s, o in _new_space_gauss(blocked, k):
         m, V, b, _ = o
@@ -1873,7 +1875,7 @@ def phase_k3(blocked, k=K, label="K3", check=True):
         banded = _k3_bands(p, k)
         timed_bands = banded if banded is not None and banded.n_bands <= 8 else None
         args = (aug, p.row_ptr, p.other, p.x, k, False)
-        abs_err = worst = wp = wb = float("nan")
+        abs_err = worst = wb = float("nan")
         if check:
             got = ge.factor_tail_stats(*args)
             ref = ge.factor_tail_stats_plain(*args, max_edges=1 << 21)
@@ -1884,17 +1886,13 @@ def phase_k3(blocked, k=K, label="K3", check=True):
                 wb, okb = column_check(ge.factor_tail_stats(*args, bands=banded), ref)[1:]
                 if not okb:
                     raise AssertionError(f"{label} {name} banded: column error {wb}")
-            wp = column_check(ge.factor_tail_stats_prev(
-                aug, p.row_ptr, p.other, p.x, k, False), ref)[1]
             if not torch.equal(got, ge.factor_tail_stats(*args)):
                 raise AssertionError(f"{label} {name}: two runs differ in bits")
             del got, ref
         unpadded = aug[:, : k + 1 + T].contiguous()
         kern = lambda bands=None: cuda_ms(  # noqa: E731
             lambda: ge.factor_tail_stats(*args, bands=bands))
-        prev = lambda: cuda_ms(lambda: ge.factor_tail_stats_prev(  # noqa: E731
-            unpadded, p.row_ptr, p.other, p.x, k, False))
-        turns = [prev(), kern(), kern(), prev()]
+        turns = [kern(), kern()]
         others = ([(f"{banded.n_bands} bands", kern(banded))] if timed_bands is not None
                   else [])
         plain_ms = cuda_ms(lambda: ge.factor_tail_stats_plain(*args, max_edges=1 << 21),
@@ -1904,27 +1902,24 @@ def phase_k3(blocked, k=K, label="K3", check=True):
         del csr
         r = ge.factor_reckoning(p, k, False)
         rb = ge.factor_reckoning(p, k, False, banded)
-        ms = (turns[1] + turns[2]) / 2
-        prev_ms = (turns[0] + turns[3]) / 2
+        ms = (turns[0] + turns[1]) / 2
         n_flops = p.nnz * (3 * k + 1 + T)
         b_ms, b_by = bound(r["table_once"], n_flops)
         to_ms = lambda n: n / HBM_BYTES_PER_S * 1e3  # noqa: E731
         log(f"  {label} {name}: nnz {p.nnz} | n_other {p.n_other} | record "
             f"{4 * (k + 1 + T)} B, stride {4 * ge.factor_stride(k)} B | B 1 (the sweep's)"
             + (f" | max abs err {abs_err:.3e} | worst column {worst:.3e} (tol {COL_RTOL}; "
-               f"previous kernel {wp:.3e}; {banded.n_bands if banded else 1} bands {wb:.3e})"
+               f"{banded.n_bands if banded else 1} bands {wb:.3e})"
                " | repeat equal in bits" if check else ""))
         log(f"  {label} {name} bytes: per-edge gather {r['per_edge']:.0f} "
             f"({to_ms(r['per_edge']):.4f} ms) | table once {r['table_once']:.0f} "
             f"({to_ms(r['table_once']):.4f} ms) | banded ({banded.n_bands if banded else 1} bands) "
             f"{rb['banded']:.0f} ({to_ms(rb['banded']):.4f} ms)")
-        log(f"  {label} {name} times: previous {turns[0]:.4f} {turns[3]:.4f} ms | new "
-            f"{turns[1]:.4f} {turns[2]:.4f} ms | "
+        log(f"  {label} {name} times: one pass {turns[0]:.4f} {turns[1]:.4f} ms | "
             + " | ".join(f"{n_} {t:.4f} ms" for n_, t in others)
             + f" | plain {plain_ms:.4f} ms | library (torch.sparse.mm, pass-through bulk "
             f"only) {lib_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
         res["ms"] += ms
-        res["prev_ms"] += prev_ms
         res["plain_ms"] += plain_ms
         res["library_ms"] += lib_ms
         res["max_abs_err"] = max(res["max_abs_err"], abs_err)
@@ -1935,8 +1930,8 @@ def phase_k3(blocked, k=K, label="K3", check=True):
         del aug, unpadded
         torch.cuda.empty_cache()
     res["bound_ms"], res["bound_by"] = bound(res["n_bytes"], res["n_flops"])
-    log(f"phase {label}: ok | per sweep: kernel {res['ms']:.4f} ms (previous "
-        f"{res['prev_ms']:.4f}), plain {res['plain_ms']:.4f} ms, bound "
+    log(f"phase {label}: ok | per sweep: kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, bound "
         f"{res['bound_ms']:.4f} ms ({res['bound_by']}, table once; per-edge gather "
         f"{res['per_edge_bytes'] / HBM_BYTES_PER_S * 1e3:.4f}, banded "
         f"{res['banded_bytes'] / HBM_BYTES_PER_S * 1e3:.4f}), library "
@@ -2062,11 +2057,11 @@ def _k4_bounds(R, k):
 
 def _k4_check(P, name, k=K, check_plain=True):
     """K4 on P vs float64 inv (and its plain version), per matrix, and the
-    previous kernel, new kernel and torch.linalg.inv timed in turns."""
+    kernel and torch.linalg.inv timed."""
     import torch
 
     from pmf_tpu_torch.ops.gj_inverse import (
-        batched_psd_inverse_gj, batched_psd_inverse_gj_plain, batched_psd_inverse_gj_prev)
+        batched_psd_inverse_gj, batched_psd_inverse_gj_plain)
 
     got = batched_psd_inverse_gj(P)
     if not torch.equal(got, batched_psd_inverse_gj(P)):
@@ -2080,44 +2075,39 @@ def _k4_check(P, name, k=K, check_plain=True):
         err_plain = float(((got - ref).abs().amax(dim=(1, 2)) / scale).max())
         abs_err = float((got - ref).abs().max())
         del ref
-    err_prev = float(((batched_psd_inverse_gj_prev(P).double() - ref64).abs()
-                      .amax(dim=(1, 2)) / scale).max())
     resid = float((P.double() @ got.double()
                    - torch.eye(k, device="cuda", dtype=torch.float64)).abs().max())
     del ref64
     reps = 10 if k <= 32 else 3
-    t = [cuda_ms(f, reps) for f in (lambda: batched_psd_inverse_gj_prev(P),
-                                    lambda: batched_psd_inverse_gj(P),
-                                    lambda: batched_psd_inverse_gj(P),
-                                    lambda: batched_psd_inverse_gj_prev(P))]
+    t = [cuda_ms(lambda: batched_psd_inverse_gj(P), reps) for _ in range(2)]
     lib_ms = cuda_ms(lambda: torch.linalg.inv(P), reps)
     plain_ms = cuda_ms(lambda: batched_psd_inverse_gj_plain(P), 3) if check_plain \
         else float("nan")
     R = P.shape[0]
     b_bytes, b_ops = _k4_bounds(R, k)
     log(f"  K4 {name}: {R} x {k}x{k} | per-matrix max|err|/max|inv| vs plain "
-        f"{err_plain:.3e}, vs float64 inv {err64:.3e} (previous kernel {err_prev:.3e}; "
-        f"tol {INV_RTOL}) | max|P V - I| {resid:.3e} | repeat equal in bits | previous "
-        f"{t[0]:.4f} {t[3]:.4f} ms | new {t[1]:.4f} {t[2]:.4f} ms | plain {plain_ms:.4f} "
+        f"{err_plain:.3e}, vs float64 inv {err64:.3e} (tol {INV_RTOL}) | max|P V - I| "
+        f"{resid:.3e} | repeat equal in bits | kernel {t[0]:.4f} {t[1]:.4f} ms | plain "
+        f"{plain_ms:.4f} "
         f"ms | torch.linalg.inv {lib_ms:.4f} ms | bound: bytes {b_bytes:.4f} ms, FP32 "
         f"{b_ops:.4f} ms")
     if not (err64 <= INV_RTOL and (not check_plain or err_plain <= INV_RTOL)):
         raise AssertionError(f"K4 {name}: error {err_plain} / {err64} > {INV_RTOL}")
-    return dict(ms=(t[1] + t[2]) / 2, prev_ms=(t[0] + t[3]) / 2, plain_ms=plain_ms,
+    return dict(ms=(t[0] + t[1]) / 2, plain_ms=plain_ms,
                 library_ms=lib_ms, max_abs_err=abs_err, n_bytes=2.0 * P.nbytes,
                 n_flops=2.0 * R * k**3)
 
 
 def phase_k4(blocked):
-    res = dict.fromkeys(("ms", "prev_ms", "plain_ms", "library_ms", "max_abs_err",
+    res = dict.fromkeys(("ms", "plain_ms", "library_ms", "max_abs_err",
                          "n_bytes", "n_flops"), 0.0)
     for name, P in zip(("theta", "beta"), _real_precisions(blocked)):
         r = _k4_check(P.contiguous(), name)
         for key in res:
             res[key] = max(res[key], r[key]) if key == "max_abs_err" else res[key] + r[key]
     res["bound_ms"], res["bound_by"] = bound(res["n_bytes"], res["n_flops"])
-    log(f"phase K4: ok | per sweep: kernel {res['ms']:.4f} ms (previous "
-        f"{res['prev_ms']:.4f}), plain {res['plain_ms']:.4f} ms, torch.linalg.inv "
+    log(f"phase K4: ok | per sweep: kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, torch.linalg.inv "
         f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
         f"({res['bound_by']}; bytes {res['n_bytes'] / HBM_BYTES_PER_S * 1e3:.4f}, FP32 "
         f"{res['n_flops'] / FP32_FLOPS_PER_S * 1e3:.4f})")
@@ -2385,9 +2375,15 @@ def main() -> int:
         entry("dense_head_tier", "pmf_tpu_torch/csrc/dense_head.cu",
               "pmf_tpu/ops/dense_head.py:85", k2, launches["K2"], "K2"),
         entry("gaussian_factor_tail", gsrc,
-              "pmf_tpu/ops/pallas/gaussian_edge.py:90", k3, glaunches["K3"], "K3"),
+              "pmf_tpu/ops/pallas/gaussian_edge.py:90", k3, glaunches["K3"], "K3",
+              per_edge_gather_ms=k3["per_edge_bytes"] / HBM_BYTES_PER_S * 1e3,
+              banded_ms=k3["banded_bytes"] / HBM_BYTES_PER_S * 1e3,
+              note="bound_ms reads each table once; per_edge_gather_ms counts "
+                   "the 32-byte sectors of a record an edge, banded_ms the "
+                   "table once and the output once more a band"),
         entry("gj_inverse", "pmf_tpu_torch/csrc/gj_inverse.cu",
-              "pmf_tpu/ops/pallas/gj_inverse.py:25", k4, glaunches["K4"], "K4"),
+              "pmf_tpu/ops/pallas/gj_inverse.py:25", k4, glaunches["K4"], "K4",
+              fp32_ms=k4["n_flops"] / FP32_FLOPS_PER_S * 1e3),
         entry("gaussian_bias_tail", gsrc,
               "pmf_tpu/ops/pallas/gaussian_edge.py:175", k5, glaunches["K5"], "K5"),
         entry("gaussian_diag_tail", gsrc,

@@ -20,26 +20,39 @@
 //      [m | b]; output [sum m_o (x - b_s - b_o - <m_s, m_o>) |
 //      sum (v_o + m_o^2) | sum m_o^2], 3K columns.
 //
-// What bounds them on an H100: memory.  K3 reads a 924-byte record per
-// edge at K=20; the tables (59k x 924 B = 55 MB by user, 162k x 924 B =
-// 150 MB by item) do not fit the 50 MB L2, so record gathers come from
-// HBM, ~5 flops per 4 bytes read.  K5 and K6 read 84 and 164 bytes per
-// edge from tables that do fit L2, and are latency-bound on the gathers
-// like K1.
+// The table is padded to a multiple of 4 floats a record (stride), so
+// that every record starts on 16 bytes.
 //
-// Design: in K3, lane l reads record floats c0 + l, c0 + l + 32, ... (one
-// coalesced 128-byte pass per 32 floats, NI loads a lane, all in flight
-// together) and keeps one accumulator per loaded float, so the record's
-// layout is the accumulator layout: floats < K are factors (also summed
-// into sum m_o), float K sums b_o, the rest sum triangle entries.  b_o is
-// broadcast with one shuffle from the lane that loaded it.  Two edges are
-// in flight at a time.  Up to K = 30 the whole record fits NI <= 16 loads
-// a lane, one warp a row (c0 = 0).  Past that (K + 1 + T up to 8,385
-// floats at K = 128) the record is cut into chunks of 16 * 32 floats on
-// grid.y: each chunk's warp walks the row's edges again, rereading the 8
-// bytes of id and rating an edge, and keeps 16 accumulators a lane; the
-// first chunk holds all of m and b (K + 1 <= 512), so it alone computes
-// m (x - b), sum m and sum x.  MT = ceil(K / 32) loads hold the factors.
+// What bounds them on an H100: memory.  K3 gathers a 924-byte record (29
+// sectors of 32 bytes) per edge at K=20; the tables (59k x 928 B = 55 MB
+// by user, 162k x 928 B = 150 MB by item) do not fit the 50 MB L2, and
+// one pass gathers 4.5 GB a direction: 1.34 ms at 3.35 TB/s if every
+// sector came from HBM, against 0.07 ms to read each table once.  The item
+// pass runs at that per-edge gather bound, the user pass below it (about
+// half its sectors hit L2); at K=50 (5.3 KB records) both passes do.  K5
+// and K6 read 84 and 164 bytes per edge from tables that do fit L2, and
+// are latency-bound on the gathers like K1.
+//
+// Design: in K3, lane l reads record floats c0 + 128 t + 4 l .. + 3 as one
+// float4 (t < NV, one coalesced 512-byte load a warp), four edges in
+// flight, and keeps one accumulator per loaded float, so the record's
+// layout is the accumulator layout: floats < K (all in t = 0) are factors
+// (also summed into sum m_o), float K sums b_o, the rest sum triangle
+// entries.  b_o is broadcast with one shuffle from the lane that loaded
+// it.  Up to K = 30 the whole record fits NV <= 4 loads a lane, one warp a
+// row (c0 = 0).  Past that (K + 1 + T up to 8,385 floats at K = 128) the
+// record is cut into chunks of 512 floats on grid.y: each chunk's warp
+// walks the row's edges again, rereading the 8 bytes of id and rating an
+// edge; the first chunk holds all of m and b (K + 1 <= 512), so it alone
+// computes m (x - b), sum m and sum x.  With `accumulate` the sums are
+// added to the output (the wrapper's later L2 bands) and rows without
+// edges are left alone.  A ring of whole records a warp in shared memory,
+// filled by TMA bulk copies, measured 1.3-1.6 times slower at K=20 and no
+// faster at K=50, so it is not kept; one pass is no slower than bands of
+// the other table sized to L2 by item and faster by user, since the
+// gathers still move 4.5 GB a direction and each band launch walks every
+// self row again (PERF.md, PR 7).
+//
 // K5 is the narrow pass: lanes hold the K + 1 record floats, F =
 // ceil((K + 1) / 32) a lane.  K6 loads the self row's [m | b] once per
 // warp, F = ceil(K / 32) factors a lane, and reduces <m_s, m_o> with one
@@ -53,12 +66,11 @@ namespace {
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxK = 128;
-// Record floats a K3 chunk loads (16 a lane) past K = 30, where the whole
-// record no longer fits one warp's 16 loads a lane.
-constexpr int kChunkNI = 16;
+// Past K = 30 a K3 warp takes a chunk of 512 record floats (4 float4
+// loads a lane), where the whole record no longer fits 16 floats a lane.
 constexpr int kWholeRecordMaxK = 30;
-constexpr int kChunkNV = 4;  // float4 loads a lane in a record chunk (512 floats)
-constexpr int kEdges = 4;  // edges in flight a warp
+constexpr int kChunkNV = 4;
+constexpr int kEdges = 4;  // K3 edges in flight a warp
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -208,121 +220,6 @@ cudaError_t launch_factor_vec_nv(const float* aug, int stride, const int64_t* ro
     case 4: return launch_factor_vec<4, kEdges>(aug, stride, row_ptr, other, x, n_self, K, wbs, acc, out, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// The previous design, kept beside the new one for one A/B on the card:
-// one warp per (self row, record chunk blockIdx.y of NI * 32 floats),
-// 4-byte loads straight from the unpadded table, two edges in flight.
-template <int NI, int MT>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-factor_prev_kernel(const float* __restrict__ aug, const int64_t* __restrict__ row_ptr,
-              const int32_t* __restrict__ other, const float* __restrict__ x,
-              int n_self, int K, int with_bias_stats, float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_self) return;  // whole warp leaves together
-  const int T = K * (K + 1) / 2;
-  const int w_in = K + 1 + T;
-  const int c0 = blockIdx.y * NI * 32;
-  const bool first = blockIdx.y == 0;  // the chunk with m and b
-  const int tb = K >> 5;  // b is load tb of lane K & 31
-  float acc[NI];
-#pragma unroll
-  for (int t = 0; t < NI; ++t) acc[t] = 0.f;
-  float acc_m[MT];
-#pragma unroll
-  for (int t = 0; t < MT; ++t) acc_m[t] = 0.f;
-  float acc_x = 0.f;
-
-  auto load = [&](int o, float (&val)[NI]) {
-    const float* rec = aug + (int64_t)o * w_in + c0;
-#pragma unroll
-    for (int t = 0; t < NI; ++t) {
-      const int c = c0 + t * 32 + lane;
-      val[t] = c < w_in ? __ldg(rec + t * 32 + lane) : 0.f;
-    }
-  };
-  auto add = [&](const float (&val)[NI], float xv) {
-    if (first) {
-      float bsrc = val[0];
-#pragma unroll
-      for (int t = 1; t <= MT && t < NI; ++t)
-        if (t == tb) bsrc = val[t];
-      const float b = __shfl_sync(kFull, bsrc, K & 31);
-#pragma unroll
-      for (int t = 0; t < MT; ++t) {
-        const bool is_m = t * 32 + lane < K;
-        acc[t] += is_m ? val[t] * (xv - b) : val[t];
-        acc_m[t] += is_m ? val[t] : 0.f;
-      }
-#pragma unroll
-      for (int t = MT; t < NI; ++t) acc[t] += val[t];
-      acc_x += xv;
-    } else {
-#pragma unroll
-      for (int t = 0; t < NI; ++t) acc[t] += val[t];
-    }
-  };
-
-  const int64_t begin = row_ptr[row];
-  const int64_t end = row_ptr[row + 1];
-  for (int64_t base = begin; base < end; base += 32) {
-    const int64_t left = end - base;
-    const int n = left < 32 ? (int)left : 32;
-    int my_o = 0;
-    float my_x = 0.f;
-    if (lane < n) {
-      my_o = other[base + lane];
-      my_x = x[base + lane];
-    }
-    int j = 0;
-    for (; j + 2 <= n; j += 2) {
-      float v0[NI], v1[NI];
-      const int o0 = __shfl_sync(kFull, my_o, j);
-      const int o1 = __shfl_sync(kFull, my_o, j + 1);
-      const float x0 = __shfl_sync(kFull, my_x, j);
-      const float x1 = __shfl_sync(kFull, my_x, j + 1);
-      load(o0, v0);
-      load(o1, v1);
-      add(v0, x0);
-      add(v1, x1);
-    }
-    if (j < n) {
-      float v0[NI];
-      const int o0 = __shfl_sync(kFull, my_o, j);
-      const float x0 = __shfl_sync(kFull, my_x, j);
-      load(o0, v0);
-      add(v0, x0);
-    }
-  }
-
-  const int w_out = 2 * K + T + (with_bias_stats ? 2 : 0);
-  float* dst = out + (int64_t)row * w_out;
-#pragma unroll
-  for (int t = 0; t < NI; ++t) {
-    const int c = c0 + t * 32 + lane;
-    if (c >= w_in) continue;
-    if (c < K) {
-      dst[c] = acc[t];
-      dst[K + c] = acc_m[t < MT ? t : 0];  // c < K holds only in the first MT loads
-    } else if (c == K) {
-      if (with_bias_stats) dst[2 * K + T + 1] = acc[t];
-    } else {
-      dst[2 * K + (c - K - 1)] = acc[t];
-    }
-  }
-  if (with_bias_stats && first && lane == 0) dst[2 * K + T] = acc_x;
-}
-
-template <int NI, int MT>
-void launch_factor_prev(const float* aug, const int64_t* row_ptr, const int32_t* other,
-                   const float* x, int n_self, int K, int with_bias_stats,
-                   float* out, cudaStream_t stream) {
-  const int w_in = K + 1 + K * (K + 1) / 2;
-  const dim3 grid((n_self + kWarpsPerBlock - 1) / kWarpsPerBlock,
-                  (w_in + NI * 32 - 1) / (NI * 32));
-  factor_prev_kernel<NI, MT><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-      aug, row_ptr, other, x, n_self, K, with_bias_stats, out);
 }
 
 // ---------------------------------------------------------------- K5 --
@@ -498,43 +395,6 @@ extern "C" int pmf_gauss_factor(const float* aug, int stride, const int64_t* row
   return (int)launch_factor_vec_nv(aug, stride, row_ptr, other, x, n_self, K,
                                    with_bias_stats, accumulate, out,
                                    static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int pmf_gauss_factor_prev(const float* aug, const int64_t* row_ptr,
-                                const int32_t* other, const float* x, int n_self,
-                                int K, int with_bias_stats, float* out,
-                                void* stream) {
-  if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
-  if (n_self > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    // Whole records: NI = ceil(w_in / 32) loads a lane; chunks of 16 past K = 30.
-    const int ni = K <= kWholeRecordMaxK ? (K + 1 + K * (K + 1) / 2 + 31) / 32 : 0;
-    switch (ni) {
-#define PMF_NI_CASE(N)                                                     \
-  case N:                                                                  \
-    launch_factor_prev<N, 1>(aug, row_ptr, other, x, n_self, K, with_bias_stats, \
-                        out, s);                                           \
-    break;
-      PMF_NI_CASE(1) PMF_NI_CASE(2) PMF_NI_CASE(3) PMF_NI_CASE(4)
-      PMF_NI_CASE(5) PMF_NI_CASE(6) PMF_NI_CASE(7) PMF_NI_CASE(8)
-      PMF_NI_CASE(9) PMF_NI_CASE(10) PMF_NI_CASE(11) PMF_NI_CASE(12)
-      PMF_NI_CASE(13) PMF_NI_CASE(14) PMF_NI_CASE(15) PMF_NI_CASE(16)
-#undef PMF_NI_CASE
-      default:
-        switch ((K + 31) / 32) {
-#define PMF_MT_CASE(M)                                                          \
-  case M:                                                                       \
-    launch_factor_prev<kChunkNI, M>(aug, row_ptr, other, x, n_self, K, with_bias_stats, \
-                               out, s);                                         \
-    break;
-          PMF_MT_CASE(1) PMF_MT_CASE(2) PMF_MT_CASE(3) PMF_MT_CASE(4)
-#undef PMF_MT_CASE
-          default:
-            return (int)cudaErrorInvalidValue;
-        }
-    }
-  }
-  return (int)cudaGetLastError();
 }
 
 // Launch KERNEL<F> for F = 1..5 (5 covers K5's K + 1 <= 129 record floats).

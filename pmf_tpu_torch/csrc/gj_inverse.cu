@@ -18,30 +18,33 @@
 // and its inverse written once (2 * 4K^2 bytes); the elimination does
 // 2K^3 flops, 5 flops a byte at K = 20, below the FP32 line's 20.  At K = 50
 // it is 12.5 flops a byte, at K = 128 32: there the FP32 operations bound
-// it.
+// it.  In practice the row form issues about 3 instructions a multiply-add
+// (the product, a select, a share of the row's broadcast loads), so it
+// runs at several times these bounds.
 //
-// Design, K <= 64 (gj_inverse_rows_kernel): the matrices a CTA inverts are
-// contiguous in memory (8 x 1600 B at K = 20).  The CTA copies them with
-// 4-byte cp.async, every thread on consecutive floats, into shared memory
-// at a padded row stride S (a multiple of 4 and 4 mod 8, so a float4 read
-// of rows i..i+7 at one column touches 32 distinct banks), then each warp
-// takes PPW matrices: lane l holds row l % (32 / PPW) (and row l + 32 past
-// K = 32) of matrix l / (32 / PPW) in registers, read with float4 loads.
-// At pivot p the lane that holds row p scales it by one reciprocal and
-// writes it to a per-matrix row buffer in shared memory (two buffers,
-// alternating, so one __syncwarp a pivot orders the write before the
-// reads and the reads before the next write two pivots on); every lane
-// reads it back with K/4 broadcast float4 loads and updates its row.  The
-// pivot index is a compile-time constant after unrolling, so a[i][p] is a
-// register.  The rows go back to the same shared tile and out with
-// coalesced stores.  Two matrices a warp for K <= 16, four for K <= 8.
+// Design, K <= 64 (gj_inverse_rows_kernel): a CTA inverts M matrices that
+// are contiguous in memory, thread t holding row t % K of matrix t / K in
+// registers, so the rows of several matrices fill the warps (K = 20: eight
+// matrices in five warps; K = 8: four a warp).  The CTA copies its
+// matrices with cp.async (16 bytes where K % 4 == 0), every thread on
+// consecutive bytes, into shared memory at a padded row stride S (a
+// multiple of 4 and 4 mod 8, so float4 reads of eight rows at one column
+// touch 32 distinct banks); each thread reads its row with float4 loads.
+// At pivot p the thread that holds row p scales it by one reciprocal into
+// its matrix's row buffer in shared memory (two buffers, alternating, so
+// one __syncthreads a pivot orders the write before the reads and the
+// reads before the next write two pivots on); every thread reads it back
+// with K/4 broadcast float4 loads and updates its row.  The pivot index is
+// a compile-time constant after unrolling, so a[i][p] is a register.  The
+// rows go back to the same shared tile and out with coalesced stores.
 //
 // Design, 64 < K <= 128 (gj_inverse_cta_kernel): one CTA of 256 threads per
 // matrix, held in shared memory (K x (K + 1) floats, 66 KB at K = 128; the
 // odd row stride keeps a column read free of bank conflicts), in place.
 // Per pivot the CTA copies the scaled pivot row and the old column p into
 // two K-float buffers, syncs, updates every entry from the buffers and
-// syncs again.
+// syncs again.  (A row form there would keep up to 128 floats a thread,
+// more registers than its unrolled elimination can hold.)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,7 +52,7 @@
 namespace {
 
 constexpr int kMaxK = 128;
-constexpr int kRowsMaxK = 64;  // the row-per-lane form; past it the CTA form
+constexpr int kRowsMaxK = 64;  // the row form; past it the CTA form
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -260,62 +263,6 @@ cudaError_t launch_cta(const float* mats, int R, int K, float* out, cudaStream_t
   return cudaGetLastError();
 }
 
-// The previous K <= 32 design, kept beside the new one for one A/B on the
-// card: one warp per matrix, lane j holding column j of A and of the
-// running inverse ([A | I], 2K registers), pivot column p broadcast by K
-// __shfl_sync and two divisions a lane.  Past K = 32 it used the CTA form.
-constexpr int kPrevWarps = 8;
-constexpr unsigned kFull = 0xffffffffu;
-
-template <int KMAX>
-__global__ void __launch_bounds__(kPrevWarps * 32)
-gj_inverse_prev_kernel(const float* __restrict__ mats, int R, int K,
-                       float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int64_t r = (int64_t)blockIdx.x * kPrevWarps + (threadIdx.x >> 5);
-  if (r >= R) return;
-  const bool active = lane < K;
-  const float* src = mats + r * K * K;
-  float a[KMAX], v[KMAX];
-#pragma unroll
-  for (int i = 0; i < KMAX; ++i) {
-    a[i] = (active && i < K) ? src[i * K + lane] : 0.f;
-    v[i] = (i == lane) ? 1.f : 0.f;
-  }
-#pragma unroll
-  for (int p = 0; p < KMAX; ++p) {
-    if (p < K) {
-      float col[KMAX];
-#pragma unroll
-      for (int i = 0; i < KMAX; ++i) col[i] = __shfl_sync(kFull, a[i], p);
-      const float ar = a[p] / col[p];
-      const float vr = v[p] / col[p];
-#pragma unroll
-      for (int i = 0; i < KMAX; ++i) {
-        if (i == p) {
-          a[i] = ar;
-          v[i] = vr;
-        } else {
-          a[i] -= col[i] * ar;
-          v[i] -= col[i] * vr;
-        }
-      }
-    }
-  }
-  if (active) {
-    float* dst = out + r * K * K;
-#pragma unroll
-    for (int i = 0; i < KMAX; ++i)
-      if (i < K) dst[i * K + lane] = v[i];
-  }
-}
-
-template <int KMAX>
-void launch_prev(const float* mats, int R, int K, float* out, cudaStream_t stream) {
-  gj_inverse_prev_kernel<KMAX><<<(R + kPrevWarps - 1) / kPrevWarps, kPrevWarps * 32,
-                                  0, stream>>>(mats, R, K, out);
-}
-
 }  // namespace
 
 extern "C" int pmf_gj_inverse(const float* mats, int R, int K, float* out,
@@ -334,17 +281,4 @@ extern "C" int pmf_gj_inverse(const float* mats, int R, int K, float* out,
   if (K <= 56) return (int)launch_rows<56, 4>(mats, R, K, out, s);
   if (K <= kRowsMaxK) return (int)launch_rows<64, 4>(mats, R, K, out, s);
   return (int)launch_cta(mats, R, K, out, s);
-}
-
-extern "C" int pmf_gj_inverse_prev(const float* mats, int R, int K, float* out,
-                                   void* stream) {
-  if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
-  if (R <= 0) return (int)cudaGetLastError();
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K <= 8) launch_prev<8>(mats, R, K, out, s);
-  else if (K <= 16) launch_prev<16>(mats, R, K, out, s);
-  else if (K <= 24) launch_prev<24>(mats, R, K, out, s);
-  else if (K <= 32) launch_prev<32>(mats, R, K, out, s);
-  else return (int)launch_cta(mats, R, K, out, s);
-  return (int)cudaGetLastError();
 }

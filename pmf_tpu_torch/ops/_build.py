@@ -42,16 +42,12 @@ SIGNATURES = {
     # aug, stride, row_ptr, other, x, n_self, K, with_bias_stats, accumulate,
     # out, stream
     "pmf_gauss_factor": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    # aug, row_ptr, other, x, n_self, K, with_bias_stats, out, stream
-    "pmf_gauss_factor_prev": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     # aug, row_ptr, other, x, n_self, K, out, stream
     "pmf_gauss_bias": [_P, _P, _P, _P, _I, _I, _P, _P],
     # aug, self_tab, row_ptr, other, x, n_self, K, out, stream
     "pmf_gauss_diag": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
     # mats, R, K, out, stream
     "pmf_gj_inverse": [_P, _I, _I, _P, _P],
-    # mats, R, K, out, stream
-    "pmf_gj_inverse_prev": [_P, _I, _I, _P, _P],
     # e_self, e_other, s_other, row_ptr, other, x, n_self, K, rate_floor,
     # out, stream
     "pmf_ext_factor": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P],

@@ -83,7 +83,8 @@ def unpack_tri(S_tri: torch.Tensor, k: int) -> torch.Tensor:
 
 def factor_stride(k: int) -> int:
     """K3's record width in the table: K + 1 + K(K+1)/2 floats rounded up
-    to 4, so that every record starts on 16 bytes (the bulk copies' unit)."""
+    to 4, so that every record starts on 16 bytes (the kernel's float4
+    loads); the plain version ignores the pad columns."""
     return -(-(k + 1 + tri_size(k)) // 4) * 4
 
 
@@ -93,8 +94,8 @@ def factor_reckoning(p: TailCSR, K: int, with_bias_stats: bool = False,
     the output written once: ``per_edge`` gathers a record an edge (the
     32-byte sectors it spans), ``table_once`` reads the table once,
     ``banded`` reads it once and the output rows a band after the first
-    touches once more each way.  Needs the tail's ids on the host's
-    reach (a reduction over the edges)."""
+    touches once more each way.  One reduction over the edges, on their
+    device."""
     T = tri_size(K)
     rec = 4 * (K + 1 + T)
     row_out = 4 * (2 * K + T + (2 if with_bias_stats else 0))
@@ -167,25 +168,6 @@ def factor_tail_stats(aug, row_ptr, other, x, K: int,
     for b, (rp, o, xv) in enumerate(passes):
         _build.launch("pmf_gauss_factor", FACTOR_LAUNCHES, aug.device, aug, stride, rp,
                       o, xv, n_self, K, int(with_bias_stats), int(b > 0), out)
-    return out
-
-
-FACTOR_PREV_LAUNCHES = _build.LaunchCounter()
-
-
-def factor_tail_stats_prev(aug, row_ptr, other, x, K: int,
-                           with_bias_stats: bool = False) -> torch.Tensor:
-    """The previous K3 design (4-byte loads from an unpadded table, two
-    edges in flight), kept for an A/B on the card; CUDA tensors only."""
-    T = tri_size(K)
-    n_self = row_ptr.shape[0] - 1
-    if aug.shape[1] != K + 1 + T:
-        aug = aug[:, : K + 1 + T].contiguous()
-    _check_tail_args([("aug", aug)], row_ptr, other, x, n_self)
-    out = torch.empty((n_self, 2 * K + T + (2 if with_bias_stats else 0)),
-                      dtype=torch.float32, device=aug.device)
-    _build.launch("pmf_gauss_factor_prev", FACTOR_PREV_LAUNCHES, aug.device, aug,
-                  row_ptr, other, x, n_self, K, int(with_bias_stats), out)
     return out
 
 

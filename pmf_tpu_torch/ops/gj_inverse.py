@@ -96,18 +96,3 @@ def batched_psd_inverse_gj(mats: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(mats)
     _build.launch("pmf_gj_inverse", GJ_LAUNCHES, mats.device, mats, R, K, out)
     return out
-
-
-GJ_PREV_LAUNCHES = _build.LaunchCounter()
-
-
-def batched_psd_inverse_gj_prev(mats: torch.Tensor) -> torch.Tensor:
-    """The previous K4 design (a warp a matrix over [A | I], lane =
-    column), kept for an A/B on the card; CUDA tensors only."""
-    _check_cuda_args(mats)
-    mats = mats.contiguous()
-    R, K, _ = mats.shape
-    out = torch.empty_like(mats)
-    _build.launch("pmf_gj_inverse_prev", GJ_PREV_LAUNCHES, mats.device, mats, R, K,
-                  out)
-    return out
