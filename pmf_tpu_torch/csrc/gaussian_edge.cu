@@ -47,11 +47,11 @@
 // computes m (x - b), sum m and sum x.  With `accumulate` the sums are
 // added to the output (the wrapper's later L2 bands) and rows without
 // edges are left alone.  A ring of whole records a warp in shared memory,
-// filled by TMA bulk copies, measured 1.3-1.6 times slower at K=20 and no
-// faster at K=50, so it is not kept; one pass is no slower than bands of
-// the other table sized to L2 by item and faster by user, since the
-// gathers still move 4.5 GB a direction and each band launch walks every
-// self row again (PERF.md, PR 7).
+// filled by TMA bulk copies, measured slower at K=20 and no faster at
+// K=50, so it is not kept; one pass is no slower than bands of the other
+// table sized to L2 by item and faster by user, since the gathers still
+// move 4.5 GB a direction and each band launch walks every self row again
+// (PERF.md).
 //
 // K5 is the narrow pass: lanes hold the K + 1 record floats, F =
 // ceil((K + 1) / 32) a lane.  K6 loads the self row's [m | b] once per

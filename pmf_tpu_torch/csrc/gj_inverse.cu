@@ -18,9 +18,9 @@
 // and its inverse written once (2 * 4K^2 bytes); the elimination does
 // 2K^3 flops, 5 flops a byte at K = 20, below the FP32 line's 20.  At K = 50
 // it is 12.5 flops a byte, at K = 128 32: there the FP32 operations bound
-// it.  In practice the row form issues about 3 instructions a multiply-add
-// (the product, a select, a share of the row's broadcast loads), so it
-// runs at several times these bounds.
+// it.  Beside each multiply-add the row form spends a select and a share
+// of the pivot row's broadcast loads, so it runs at several times these
+// bounds.
 //
 // Design, K <= 64 (gj_inverse_rows_kernel): a CTA inverts M matrices that
 // are contiguous in memory, thread t holding row t % K of matrix t / K in
