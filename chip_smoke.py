@@ -43,8 +43,7 @@ launches, 2 a step, timed by CUDA events and by the profiler), msmall
 (``HPFMap.fit`` for 3 epochs, engine "blocked_high" then "flat", with
 launch counters) and mprofile (20 steady blocked steps under the profiler).
 
-Before the data, phase bigk: K3 (one pass and in bands) and K4 at every
-K where their geometry changes (phase k34small), every kernel at K = 50
+Before the data, phase bigk: K3 and K4 at every K where their geometry changes (phase k34small), every kernel at K = 50
 and K = 128 vs its plain version on small shapes (K2 on both sides with
 both M types), then
 at K = 50 the small, psmall, gsmall and msmall card-vs-host runs.  Beside
@@ -58,9 +57,9 @@ Those are freed, then the Gaussian-MF CAVI path:
 10. K3/K5/K6 -- the factor, bias and diag tail kernels vs their plain
                 versions, both directions, under a per-column criterion
                 fit for signed sums; ``torch.sparse.mm`` as the library
-                reference of K3's and K5's pass-through bulk.  K3 also in
-                L2 bands of the other table, with its bytes reckoned three
-                ways (per-edge gather, table once, banded).
+                reference of K3's and K5's pass-through bulk.  K3's bytes
+                reckoned three ways (per-edge gather, table once, and
+                banded: the table in bands of other rows sized to L2).
 11. ghead    -- the head tiers' linear products (library matmuls), timed.
 12. K4       -- the Gauss-Jordan inverse on the real theta/beta precision
                 matrices vs its plain version and float64 ``linalg.inv``,
@@ -599,12 +598,10 @@ def _bigk_poisson_tail(blocked, k):
 
 
 def _bigk_gauss_tail(blocked, k):
-    """K3 (exact and lagged, one pass and in three L2 bands), K5 and K6 at
-    ``k`` on a small tail, both directions: worst column error of each
-    (signed sums)."""
+    """K3 (exact and lagged), K5 and K6 at ``k`` on a small tail, both
+    directions: worst column error of each (signed sums)."""
     import torch
 
-    from pmf_tpu_torch.data.blocked import band_tail
     from pmf_tpu_torch.ops import gaussian_edge as ge
 
     worst = dict.fromkeys(("K3", "K5", "K6"), 0.0)
@@ -614,10 +611,8 @@ def _bigk_gauss_tail(blocked, k):
         aug6 = torch.cat([m_o, v_o + m_o * m_o, b_o[:, None]], dim=1).contiguous()
         self6 = torch.cat([m_s, b_s[:, None]], dim=1).contiguous()
         csr = (p.row_ptr, p.other, p.x)
-        bands = band_tail(p, -(-p.n_other // 3))
-        cases = [("K3", lambda *a, bands=bnd: ge.factor_tail_stats(*a, bands=bands),
-                  ge.factor_tail_stats_plain, (aug3, *csr, k, wbs))
-                 for wbs in (False, True) for bnd in (None, bands)]
+        cases = [("K3", ge.factor_tail_stats, ge.factor_tail_stats_plain,
+                  (aug3, *csr, k, wbs)) for wbs in (False, True)]
         cases += [("K5", ge.bias_tail_stats, ge.bias_tail_stats_plain, (aug5, *csr)),
                   ("K6", ge.diag_tail_stats, ge.diag_tail_stats_plain,
                    (aug6, self6, *csr))]
@@ -634,12 +629,11 @@ def _bigk_gauss_tail(blocked, k):
 
 def _small_k34(blocked, ks=(1, 2, 5, 7, 8, 9, 16, 17, 20, 24, 25, 30, 31, 32, 33, 48,
                             49, 64, 65, 100, 128)):
-    """K3 (lagged, one pass and three bands) and K4 (1003 matrices: no
-    multiple of any packing) at every K where the kernels' geometry
-    changes, against their plain versions."""
+    """K3 (lagged) and K4 (1003 matrices: no multiple of any packing) at
+    every K where the kernels' geometry changes, against their plain
+    versions."""
     import torch
 
-    from pmf_tpu_torch.data.blocked import band_tail
     from pmf_tpu_torch.ops import gaussian_edge as ge
     from pmf_tpu_torch.ops.gj_inverse import (
         batched_psd_inverse_gj, batched_psd_inverse_gj_plain)
@@ -650,11 +644,10 @@ def _small_k34(blocked, ks=(1, 2, 5, 7, 8, 9, 16, 17, 20, 24, 25, 30, 31, 32, 33
             aug = _k3_table(m_o, V_o, b_o, k)
             args = (aug, p.row_ptr, p.other, p.x, k, True)
             ref = ge.factor_tail_stats_plain(*args, max_edges=1 << 13)
-            for bands in (None, band_tail(p, -(-p.n_other // 3))):
-                col, ok = column_check(ge.factor_tail_stats(*args, bands=bands), ref)[1:]
-                if not ok:
-                    raise AssertionError(f"K3 K={k}: column error {col} > {COL_RTOL}")
-                worst3 = max(worst3, col)
+            col, ok = column_check(ge.factor_tail_stats(*args), ref)[1:]
+            if not ok:
+                raise AssertionError(f"K3 K={k}: column error {col} > {COL_RTOL}")
+            worst3 = max(worst3, col)
         P = _spd(1003, k, 60 + k)
         ref = batched_psd_inverse_gj_plain(P)
         ref64 = torch.linalg.inv(P.double())
@@ -1840,27 +1833,35 @@ def _k3_table(m, V, b, k=K):
     return ge.factor_table(m, b, (V + m[:, :, None] * m[:, None, :]).reshape(-1, k * k))
 
 
-L2_BYTES = 50 * 2**20  # H100 SXM
 BAND_L2_SHARE = 0.5  # share of L2 one band of K3's other table may fill
 
 
-def _k3_bands(p, k):
-    """K3's tail cut into bands of other rows that fill at most
-    BAND_L2_SHARE of L2, or None where the table fits."""
-    from pmf_tpu_torch.data.blocked import band_tail
+def _k3_banded(p, k, table_once):
+    """K3's banded reckoning: the bands of other rows whose records fill
+    at most BAND_L2_SHARE of the card's L2, and the bytes of a pass band by
+    band (the table once, the ids and ratings once, and the output rows
+    that a band after the first touches read and written once more)."""
+    import torch
+
     from pmf_tpu_torch.ops import gaussian_edge as ge
 
-    n = -(-p.n_other * 4 * ge.factor_stride(k) // int(L2_BYTES * BAND_L2_SHARE))
-    return band_tail(p, -(-p.n_other // n)) if n > 1 else None
+    l2 = torch.cuda.get_device_properties(p.row_ptr.device).L2_cache_size
+    n = max(-(-p.n_other * 4 * ge.factor_stride(k) // int(l2 * BAND_L2_SHARE)), 1)
+    rows = -(-p.n_other // n)
+    self_of_edge = torch.repeat_interleave(
+        torch.arange(p.n_self, device=p.row_ptr.device), p.row_ptr[1:] - p.row_ptr[:-1])
+    touched = torch.bincount((p.other.long() // rows) * p.n_self + self_of_edge,
+                             minlength=n * p.n_self).view(n, p.n_self) > 0
+    row_out = 4 * (2 * k + ge.tri_size(k))
+    return n, table_once + 2 * int(touched[1:].sum()) * row_out
 
 
 def phase_k3(blocked, k=K, label="K3", check=True):
     """K3, the factor tail pass, both directions: the kernel vs its plain
-    version (per-column criterion), one pass as the sweep runs it and in
-    L2 bands (``_k3_bands``, timed where they are at most 8), its three
-    byte reckonings; library: CSR-ones @ [m | b | tri] by
-    torch.sparse.mm, the pass-through bulk.  Without ``check`` (the K = 50
-    timing) no plain version runs."""
+    version (per-column criterion), equal bits on a repeat, its three byte
+    reckonings (per-edge gather, table once, banded by ``_k3_banded``);
+    library: CSR-ones @ [m | b | tri] by torch.sparse.mm, the pass-through
+    bulk.  Without ``check`` (the K = 50 timing) no plain version runs."""
     import torch
 
     from pmf_tpu_torch.ops import gaussian_edge as ge
@@ -1872,60 +1873,48 @@ def phase_k3(blocked, k=K, label="K3", check=True):
         m, V, b, _ = o
         aug = _k3_table(m, V, b, k)
         del V
-        banded = _k3_bands(p, k)
-        timed_bands = banded if banded is not None and banded.n_bands <= 8 else None
         args = (aug, p.row_ptr, p.other, p.x, k, False)
-        abs_err = worst = wb = float("nan")
+        abs_err = worst = float("nan")
         if check:
             got = ge.factor_tail_stats(*args)
             ref = ge.factor_tail_stats_plain(*args, max_edges=1 << 21)
             abs_err, worst, ok = column_check(got, ref)
             if not ok:
                 raise AssertionError(f"{label} {name}: column error {worst} > {COL_RTOL}")
-            if timed_bands is not None:
-                wb, okb = column_check(ge.factor_tail_stats(*args, bands=banded), ref)[1:]
-                if not okb:
-                    raise AssertionError(f"{label} {name} banded: column error {wb}")
             if not torch.equal(got, ge.factor_tail_stats(*args)):
                 raise AssertionError(f"{label} {name}: two runs differ in bits")
             del got, ref
         unpadded = aug[:, : k + 1 + T].contiguous()
-        kern = lambda bands=None: cuda_ms(  # noqa: E731
-            lambda: ge.factor_tail_stats(*args, bands=bands))
-        turns = [kern(), kern()]
-        others = ([(f"{banded.n_bands} bands", kern(banded))] if timed_bands is not None
-                  else [])
+        turns = [cuda_ms(lambda: ge.factor_tail_stats(*args)) for _ in range(2)]
         plain_ms = cuda_ms(lambda: ge.factor_tail_stats_plain(*args, max_edges=1 << 21),
                            reps=3) if check else float("nan")
         csr = _csr_ones(p)
         lib_ms = cuda_ms(lambda: torch.sparse.mm(csr, unpadded))
         del csr
         r = ge.factor_reckoning(p, k, False)
-        rb = ge.factor_reckoning(p, k, False, banded)
+        n_bands, banded = _k3_banded(p, k, r["table_once"])
         ms = (turns[0] + turns[1]) / 2
         n_flops = p.nnz * (3 * k + 1 + T)
         b_ms, b_by = bound(r["table_once"], n_flops)
         to_ms = lambda n: n / HBM_BYTES_PER_S * 1e3  # noqa: E731
         log(f"  {label} {name}: nnz {p.nnz} | n_other {p.n_other} | record "
-            f"{4 * (k + 1 + T)} B, stride {4 * ge.factor_stride(k)} B | B 1 (the sweep's)"
-            + (f" | max abs err {abs_err:.3e} | worst column {worst:.3e} (tol {COL_RTOL}; "
-               f"{banded.n_bands if banded else 1} bands {wb:.3e})"
+            f"{4 * (k + 1 + T)} B, stride {4 * ge.factor_stride(k)} B | one pass (B 1)"
+            + (f" | max abs err {abs_err:.3e} | worst column {worst:.3e} (tol {COL_RTOL})"
                " | repeat equal in bits" if check else ""))
         log(f"  {label} {name} bytes: per-edge gather {r['per_edge']:.0f} "
             f"({to_ms(r['per_edge']):.4f} ms) | table once {r['table_once']:.0f} "
-            f"({to_ms(r['table_once']):.4f} ms) | banded ({banded.n_bands if banded else 1} bands) "
-            f"{rb['banded']:.0f} ({to_ms(rb['banded']):.4f} ms)")
-        log(f"  {label} {name} times: one pass {turns[0]:.4f} {turns[1]:.4f} ms | "
-            + " | ".join(f"{n_} {t:.4f} ms" for n_, t in others)
-            + f" | plain {plain_ms:.4f} ms | library (torch.sparse.mm, pass-through bulk "
-            f"only) {lib_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
+            f"({to_ms(r['table_once']):.4f} ms) | banded (B {n_bands}, L2 share "
+            f"{BAND_L2_SHARE}) {banded:.0f} ({to_ms(banded):.4f} ms)")
+        log(f"  {label} {name} times: kernel {turns[0]:.4f} {turns[1]:.4f} ms | plain "
+            f"{plain_ms:.4f} ms | library (torch.sparse.mm, pass-through bulk only) "
+            f"{lib_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
         res["ms"] += ms
         res["plain_ms"] += plain_ms
         res["library_ms"] += lib_ms
         res["max_abs_err"] = max(res["max_abs_err"], abs_err)
         res["n_bytes"] += r["table_once"]
         res["per_edge_bytes"] += r["per_edge"]
-        res["banded_bytes"] += rb["banded"]
+        res["banded_bytes"] += banded
         res["n_flops"] += n_flops
         del aug, unpadded
         torch.cuda.empty_cache()
@@ -2375,15 +2364,9 @@ def main() -> int:
         entry("dense_head_tier", "pmf_tpu_torch/csrc/dense_head.cu",
               "pmf_tpu/ops/dense_head.py:85", k2, launches["K2"], "K2"),
         entry("gaussian_factor_tail", gsrc,
-              "pmf_tpu/ops/pallas/gaussian_edge.py:90", k3, glaunches["K3"], "K3",
-              per_edge_gather_ms=k3["per_edge_bytes"] / HBM_BYTES_PER_S * 1e3,
-              banded_ms=k3["banded_bytes"] / HBM_BYTES_PER_S * 1e3,
-              note="bound_ms reads each table once; per_edge_gather_ms counts "
-                   "the 32-byte sectors of a record an edge, banded_ms the "
-                   "table once and the output once more a band"),
+              "pmf_tpu/ops/pallas/gaussian_edge.py:90", k3, glaunches["K3"], "K3"),
         entry("gj_inverse", "pmf_tpu_torch/csrc/gj_inverse.cu",
-              "pmf_tpu/ops/pallas/gj_inverse.py:25", k4, glaunches["K4"], "K4",
-              fp32_ms=k4["n_flops"] / FP32_FLOPS_PER_S * 1e3),
+              "pmf_tpu/ops/pallas/gj_inverse.py:25", k4, glaunches["K4"], "K4"),
         entry("gaussian_bias_tail", gsrc,
               "pmf_tpu/ops/pallas/gaussian_edge.py:175", k5, glaunches["K5"], "K5"),
         entry("gaussian_diag_tail", gsrc,

@@ -44,14 +44,10 @@
 // record is cut into chunks of 512 floats on grid.y: each chunk's warp
 // walks the row's edges again, rereading the 8 bytes of id and rating an
 // edge; the first chunk holds all of m and b (K + 1 <= 512), so it alone
-// computes m (x - b), sum m and sum x.  With `accumulate` the sums are
-// added to the output (the wrapper's later L2 bands) and rows without
-// edges are left alone.  A ring of whole records a warp in shared memory,
-// filled by TMA bulk copies, measured slower at K=20 and no faster at
-// K=50, so it is not kept; one pass is no slower than bands of the other
-// table sized to L2 by item and faster by user, since the gathers still
-// move 4.5 GB a direction and each band launch walks every self row again
-// (PERF.md).
+// computes m (x - b), sum m and sum x.  One pass is no slower than bands
+// of the other table sized to L2 by item and faster by user, since the
+// gathers still move 4.5 GB a direction and each band launch walks every
+// self row again (PERF.md).
 //
 // K5 is the narrow pass: lanes hold the K + 1 record floats, F =
 // ceil((K + 1) / 32) a lane.  K6 loads the self row's [m | b] once per
@@ -90,7 +86,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 factor_kernel(const float* __restrict__ aug, int stride,
                   const int64_t* __restrict__ row_ptr, const int32_t* __restrict__ other,
                   const float* __restrict__ x, int n_self, int K, int with_bias_stats,
-                  int accumulate, float* __restrict__ out) {
+                  float* __restrict__ out) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= n_self) return;  // whole warp leaves together
@@ -106,7 +102,6 @@ factor_kernel(const float* __restrict__ aug, int stride,
   float acc_x = 0.f;
   const int64_t begin = row_ptr[row];
   const int64_t end = row_ptr[row + 1];
-  if (accumulate && begin == end) return;
 
   auto load = [&](int o, float4 (&v)[NV]) {
     const float* rec = aug + (int64_t)o * stride + c0;
@@ -176,7 +171,6 @@ factor_kernel(const float* __restrict__ aug, int stride,
 
   const int w_out = 2 * K + T + (with_bias_stats ? 2 : 0);
   float* dst = out + (int64_t)row * w_out;
-  auto put = [&](float* p, float v) { __stcs(p, accumulate ? __ldcs(p) + v : v); };
 #pragma unroll
   for (int t = 0; t < NV; ++t) {
     const float a4[4] = {acc[t].x, acc[t].y, acc[t].z, acc[t].w};
@@ -186,38 +180,38 @@ factor_kernel(const float* __restrict__ aug, int stride,
       const int c = c0 + t * 128 + 4 * lane + q;
       if (c >= w_in) continue;
       if (c < K) {
-        put(dst + c, a4[q]);
-        put(dst + K + c, m4[q]);  // c < K holds only in t = 0 of the first chunk
+        __stcs(dst + c, a4[q]);
+        __stcs(dst + K + c, m4[q]);  // c < K holds only in t = 0 of the first chunk
       } else if (c == K) {
-        if (with_bias_stats) put(dst + 2 * K + T + 1, a4[q]);
+        if (with_bias_stats) __stcs(dst + 2 * K + T + 1, a4[q]);
       } else {
-        put(dst + 2 * K + (c - K - 1), a4[q]);
+        __stcs(dst + 2 * K + (c - K - 1), a4[q]);
       }
     }
   }
-  if (with_bias_stats && first && lane == 0) put(dst + 2 * K + T, acc_x);
+  if (with_bias_stats && first && lane == 0) __stcs(dst + 2 * K + T, acc_x);
 }
 
 template <int NV, int E>
 cudaError_t launch_factor_vec(const float* aug, int stride, const int64_t* row_ptr,
                               const int32_t* other, const float* x, int n_self, int K,
-                              int wbs, int acc, float* out, cudaStream_t stream) {
+                              int wbs, float* out, cudaStream_t stream) {
   const dim3 grid((n_self + kWarpsPerBlock - 1) / kWarpsPerBlock,
                   (stride + NV * 128 - 1) / (NV * 128));
   factor_kernel<NV, E><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-      aug, stride, row_ptr, other, x, n_self, K, wbs, acc, out);
+      aug, stride, row_ptr, other, x, n_self, K, wbs, out);
   return cudaGetLastError();
 }
 
 cudaError_t launch_factor_vec_nv(const float* aug, int stride, const int64_t* row_ptr,
                                  const int32_t* other, const float* x, int n_self,
-                                 int K, int wbs, int acc, float* out, cudaStream_t s) {
+                                 int K, int wbs, float* out, cudaStream_t s) {
   const int nv = K <= kWholeRecordMaxK ? (stride + 127) / 128 : kChunkNV;
   switch (nv) {
-    case 1: return launch_factor_vec<1, kEdges>(aug, stride, row_ptr, other, x, n_self, K, wbs, acc, out, s);
-    case 2: return launch_factor_vec<2, kEdges>(aug, stride, row_ptr, other, x, n_self, K, wbs, acc, out, s);
-    case 3: return launch_factor_vec<3, kEdges>(aug, stride, row_ptr, other, x, n_self, K, wbs, acc, out, s);
-    case 4: return launch_factor_vec<4, kEdges>(aug, stride, row_ptr, other, x, n_self, K, wbs, acc, out, s);
+    case 1: return launch_factor_vec<1, kEdges>(aug, stride, row_ptr, other, x, n_self, K, wbs, out, s);
+    case 2: return launch_factor_vec<2, kEdges>(aug, stride, row_ptr, other, x, n_self, K, wbs, out, s);
+    case 3: return launch_factor_vec<3, kEdges>(aug, stride, row_ptr, other, x, n_self, K, wbs, out, s);
+    case 4: return launch_factor_vec<4, kEdges>(aug, stride, row_ptr, other, x, n_self, K, wbs, out, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -387,14 +381,12 @@ int blocks_for(int n_self) { return (n_self + kWarpsPerBlock - 1) / kWarpsPerBlo
 
 extern "C" int pmf_gauss_factor(const float* aug, int stride, const int64_t* row_ptr,
                                 const int32_t* other, const float* x, int n_self,
-                                int K, int with_bias_stats, int accumulate, float* out,
-                                void* stream) {
+                                int K, int with_bias_stats, float* out, void* stream) {
   if (K < 1 || K > kMaxK || stride % 4 != 0 || stride < K + 1 + K * (K + 1) / 2)
     return (int)cudaErrorInvalidValue;
   if (n_self <= 0) return (int)cudaGetLastError();
   return (int)launch_factor_vec_nv(aug, stride, row_ptr, other, x, n_self, K,
-                                   with_bias_stats, accumulate, out,
-                                   static_cast<cudaStream_t>(stream));
+                                   with_bias_stats, out, static_cast<cudaStream_t>(stream));
 }
 
 // Launch KERNEL<F> for F = 1..5 (5 covers K5's K + 1 <= 129 record floats).

@@ -42,56 +42,11 @@ class TailCSR:
     n_other: int
     nnz: int
     reordered: bool
-    # TailBands by band width, made at first use and kept with the layout
-    # (``band_tail``): a sweep never rebuilds them.
-    _bands: dict = dataclasses.field(default_factory=dict, repr=False,
-                                     compare=False)
 
     def max_row_len(self) -> int:
         if self.n_self == 0:
             return 0
         return int((self.row_ptr[1:] - self.row_ptr[:-1]).max())
-
-
-@dataclasses.dataclass(frozen=True)
-class TailBands:
-    """One direction's tail edges regrouped by bands of ``band_rows``
-    new-space other rows: band b holds the edges whose other id lies in
-    [b * band_rows, (b + 1) * band_rows), and is itself a CSR over the self
-    rows (``row_ptr[b]``, positions into ``other`` and ``x``).  Edges are
-    ordered by (band, self row), stably, so within a band and row they keep
-    the tail's order; one band alone gives the tail's own CSR."""
-
-    n_bands: int
-    band_rows: int
-    row_ptr: torch.Tensor  # (n_bands, n_self + 1) int64
-    other: torch.Tensor  # (nnz,) int32
-    x: torch.Tensor  # (nnz,)
-    rows_touched: tuple  # per band, the self rows with at least one edge in it
-
-
-def band_tail(p: TailCSR, band_rows: int) -> TailBands:
-    """The tail regrouped by bands of ``band_rows`` other rows, made on the
-    tail's device (one stable sort) and cached with ``p``."""
-    band_rows = max(int(band_rows), 1)
-    if band_rows in p._bands:
-        return p._bands[band_rows]
-    n_bands = max(-(-p.n_other // band_rows), 1)
-    dev = p.row_ptr.device
-    counts = p.row_ptr[1:] - p.row_ptr[:-1]
-    self_of_edge = torch.repeat_interleave(torch.arange(p.n_self, device=dev), counts)
-    key = (p.other.long() // band_rows) * p.n_self + self_of_edge
-    order = torch.sort(key, stable=True).indices
-    per = torch.bincount(key, minlength=n_bands * p.n_self).view(n_bands, p.n_self)
-    flat = torch.zeros(n_bands * p.n_self + 1, dtype=torch.int64, device=dev)
-    flat[1:] = torch.cumsum(per.view(-1), 0)
-    row_ptr = torch.stack([flat[b * p.n_self : (b + 1) * p.n_self + 1]
-                           for b in range(n_bands)])
-    bands = TailBands(n_bands=n_bands, band_rows=band_rows, row_ptr=row_ptr,
-                      other=p.other[order].contiguous(), x=p.x[order].contiguous(),
-                      rows_touched=tuple(int(v) for v in (per > 0).sum(1).tolist()))
-    p._bands[band_rows] = bands
-    return bands
 
 
 @dataclasses.dataclass(frozen=True)

@@ -39,9 +39,8 @@ SIGNATURES = {
     # item_side, n_splits, planes, partial, out, stream
     "pmf_dense_head_tier": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                             _P, _P, _P, _P],
-    # aug, stride, row_ptr, other, x, n_self, K, with_bias_stats, accumulate,
-    # out, stream
-    "pmf_gauss_factor": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # aug, stride, row_ptr, other, x, n_self, K, with_bias_stats, out, stream
+    "pmf_gauss_factor": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     # aug, row_ptr, other, x, n_self, K, out, stream
     "pmf_gauss_bias": [_P, _P, _P, _P, _I, _I, _P, _P],
     # aug, self_tab, row_ptr, other, x, n_self, K, out, stream

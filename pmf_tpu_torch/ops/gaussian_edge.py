@@ -27,7 +27,7 @@ import functools
 
 import torch
 
-from pmf_tpu_torch.data.blocked import TailBands, TailCSR
+from pmf_tpu_torch.data.blocked import TailCSR
 from pmf_tpu_torch.ops import _build
 from pmf_tpu_torch.ops._tail import (
     add_heads as _add_heads,
@@ -88,24 +88,18 @@ def factor_stride(k: int) -> int:
     return -(-(k + 1 + tri_size(k)) // 4) * 4
 
 
-def factor_reckoning(p: TailCSR, K: int, with_bias_stats: bool = False,
-                     bands: TailBands | None = None) -> dict:
-    """K3's bytes three ways, each with the edges' ids and ratings read and
+def factor_reckoning(p: TailCSR, K: int, with_bias_stats: bool = False) -> dict:
+    """K3's bytes two ways, each with the edges' ids and ratings read and
     the output written once: ``per_edge`` gathers a record an edge (the
-    32-byte sectors it spans), ``table_once`` reads the table once,
-    ``banded`` reads it once and the output rows a band after the first
-    touches once more each way.  One reduction over the edges, on their
-    device."""
+    32-byte sectors it spans), ``table_once`` reads the table once.  One
+    reduction over the edges, on their device."""
     T = tri_size(K)
     rec = 4 * (K + 1 + T)
     row_out = 4 * (2 * K + T + (2 if with_bias_stats else 0))
     fixed = p.nnz * (4 + p.x.element_size()) + p.n_self * row_out
     off = (p.other.long() * (4 * factor_stride(K))) % 32
     sectors = int(torch.sum((off + rec + 31) // 32))
-    touched = sum(bands.rows_touched[1:]) if bands is not None else 0
-    return {"per_edge": fixed + 32 * sectors,
-            "table_once": fixed + p.n_other * rec,
-            "banded": fixed + p.n_other * rec + 2 * touched * row_out}
+    return {"per_edge": fixed + 32 * sectors, "table_once": fixed + p.n_other * rec}
 
 
 def factor_tail_stats_plain(aug, row_ptr, other, x, K: int,
@@ -132,42 +126,27 @@ def factor_tail_stats_plain(aug, row_ptr, other, x, K: int,
 
 
 def factor_tail_stats(aug, row_ptr, other, x, K: int,
-                      with_bias_stats: bool = False,
-                      bands: TailBands | None = None) -> torch.Tensor:
-    """K3: the factor tail pass.  CUDA tensors launch the kernel; CPU
-    tensors run the plain version.  With ``bands`` (``data.blocked.
-    band_tail``) the pass runs band by band over ``bands``' regrouped edges
-    in place of (row_ptr, other, x), one launch a band: the first writes
-    the output, the later ones add to it, so each row's sum is taken band
-    by band (another order of summation than one pass).  ``aug`` is best
-    given padded to ``factor_stride(K)`` columns (``factor_table``); an
-    unpadded table is padded here (a copy)."""
-    passes = ([(bands.row_ptr[b], bands.other, bands.x) for b in range(bands.n_bands)]
-              if bands is not None else [(row_ptr, other, x)])
+                      with_bias_stats: bool = False) -> torch.Tensor:
+    """K3: the factor tail pass.  CUDA tensors launch the kernel, on a
+    table padded to ``factor_stride(K)`` columns (``factor_table``); CPU
+    tensors run the plain version, which also takes an unpadded table."""
     if not aug.is_cuda:
-        out = factor_tail_stats_plain(aug, *passes[0], K, with_bias_stats)
-        for rp, o, xv in passes[1:]:
-            out += factor_tail_stats_plain(aug, rp, o, xv, K, with_bias_stats)
-        return out
+        return factor_tail_stats_plain(aug, row_ptr, other, x, K, with_bias_stats)
     if not 1 <= K <= FACTOR_MAX_K:
         raise ValueError(f"factor kernel needs 1 <= K <= {FACTOR_MAX_K}, got K={K}")
     T = tri_size(K)
     stride = factor_stride(K)
-    if aug.dim() != 2 or aug.shape[1] not in (K + 1 + T, stride):
-        raise ValueError(f"aug must be (n_other, {K + 1 + T}) or padded to "
-                         f"(n_other, {stride})")
+    if aug.dim() != 2 or aug.shape[1] != stride:
+        raise ValueError(f"aug must be (n_other, {stride}): [m | b | tri] padded to "
+                         f"factor_stride(K)")
     n_self = row_ptr.shape[0] - 1
-    for rp, o, xv in passes:
-        _check_tail_args([("aug", aug)], rp, o, xv, n_self)
-    if aug.shape[1] != stride:
-        aug = torch.nn.functional.pad(aug, (0, stride - aug.shape[1]))
+    _check_tail_args([("aug", aug)], row_ptr, other, x, n_self)
     if aug.data_ptr() % 16:
         raise ValueError("aug must start on 16 bytes")
     out = torch.empty((n_self, 2 * K + T + (2 if with_bias_stats else 0)),
                       dtype=torch.float32, device=aug.device)
-    for b, (rp, o, xv) in enumerate(passes):
-        _build.launch("pmf_gauss_factor", FACTOR_LAUNCHES, aug.device, aug, stride, rp,
-                      o, xv, n_self, K, int(with_bias_stats), int(b > 0), out)
+    _build.launch("pmf_gauss_factor", FACTOR_LAUNCHES, aug.device, aug, stride, row_ptr,
+                  other, x, n_self, K, int(with_bias_stats), out)
     return out
 
 
@@ -293,15 +272,13 @@ def factor_table(m, b, A_flat, rows=None) -> torch.Tensor:
 
 def gaussian_factor_stats(m_other, V_other, b_self, b_other, p: TailCSR,
                           use_bias: bool = True, with_bias_stats: bool = False,
-                          head=None, head_side: str = "user", bands=None):
+                          head=None, head_side: str = "user"):
     """(S_w (n_self, K), S_A (n_self, K, K)) for one factor block, with
     S_w = sum m_o (x [- b_s - b_o]) and S_A = sum (V_o + m_o m_o^T).  With
     ``with_bias_stats`` also (S_m, S_x, S_b): the per-row sums of m_o, x
     and b_o that the lagged bias block reads.  ``head``: the layout's
     DenseHead tiers (their edges are not in ``p``); ``head_side`` says
-    whether self rows are the head's user axis ("user") or item axis.
-    ``bands``: the tail regrouped by bands of other rows for K3
-    (``data.blocked.band_tail``), or None for one pass."""
+    whether self rows are the head's user axis ("user") or item axis."""
     if with_bias_stats and not use_bias:
         raise ValueError("with_bias_stats requires use_bias=True")
     K = m_other.shape[1]
@@ -312,8 +289,7 @@ def gaussian_factor_stats(m_other, V_other, b_self, b_other, p: TailCSR,
                        p.other_old_of_new if p.reordered else None)
     del A_flat
     heads = _check_head(p, head)
-    out = factor_tail_stats(aug, p.row_ptr, p.other, p.x, K, with_bias_stats,
-                            bands=bands)
+    out = factor_tail_stats(aug, p.row_ptr, p.other, p.x, K, with_bias_stats)
     out = _add_heads(out, [_gauss_head_out(t, aug, K, T, with_bias_stats,
                                            head_side) for t in heads])
     if p.reordered:

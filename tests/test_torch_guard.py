@@ -282,10 +282,10 @@ def _csr(n_self, n_other, nnz):
 
 
 K = 4
-T = K * (K + 1) // 2
 GAUSSIAN_WRAPPERS = {
     "K3": (gaussian_edge, "factor_tail_stats", "FACTOR_LAUNCHES",
-           lambda: (_cuda_looking(torch.rand(5, K + 1 + T)), *_csr(3, 5, 4), K)),
+           lambda: (_cuda_looking(torch.rand(5, gaussian_edge.factor_stride(K))),
+                    *_csr(3, 5, 4), K)),
     "K5": (gaussian_edge, "bias_tail_stats", "BIAS_LAUNCHES",
            lambda: (_cuda_looking(torch.rand(5, K + 1)), *_csr(3, 5, 4))),
     "K6": (gaussian_edge, "diag_tail_stats", "DIAG_LAUNCHES",
@@ -316,7 +316,8 @@ def test_gaussian_wrappers_reject_what_the_kernels_do_not_take():
         gaussian_edge.factor_tail_stats(_cuda_looking(torch.rand(5, 9)), *csr, K)
     with pytest.raises(TypeError, match="aug"):
         gaussian_edge.factor_tail_stats(
-            _cuda_looking(torch.rand(5, K + 1 + T, dtype=torch.float64)), *csr, K)
+            _cuda_looking(torch.rand(5, gaussian_edge.factor_stride(K),
+                                     dtype=torch.float64)), *csr, K)
     with pytest.raises(ValueError, match="K <= 128"):
         gaussian_edge.bias_tail_stats(_cuda_looking(torch.rand(5, 130)), *csr)
     with pytest.raises(TypeError, match="x must be"):

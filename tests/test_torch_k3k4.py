@@ -1,5 +1,4 @@
-"""K3's L2 bands and padded table, and K4's row-per-lane arithmetic, on
-the CPU.
+"""K3's padded table and K4's row-per-lane arithmetic, on the CPU.
 
 K4: a numpy float32 emulation of the kernel (``csrc/gj_inverse.cu``) as
 ``ops/gj_inverse.py::launch_plan`` lays it out (the CTA's matrices copied
@@ -8,12 +7,10 @@ t holding row t % K of matrix t // K, the elimination in place with one
 reciprocal a pivot) against float64 ``linalg.inv`` and the JAX
 Pallas kernel in interpret mode, per matrix at 1e-4 of its largest entry.
 
-K3: the band regrouping of a tail (every edge once, per-band CSRs that
-partition each row, one band = the tail's CSR), the banded sum against the
-one-pass plain version (1e-5) and the JAX factor pass (the precision-tier
-gate), the padded table's pad columns ignored, and the wrappers' bounds."""
-
-import dataclasses
+K3: the padded table (its pad columns ignored by the plain version, the
+only table the kernel takes, no record paying a sector more for its
+16-byte start), the factor statistics on it against the JAX factor pass
+(the precision-tier gate), the byte reckoning and the wrapper's bounds."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +20,6 @@ import torch
 from pmf_tpu.data.blocked import build_blocked as j_build_blocked
 from pmf_tpu.ops.pallas import gaussian_edge as jge
 from pmf_tpu.ops.pallas.gj_inverse import batched_psd_inverse_pallas
-from pmf_tpu_torch.data.blocked import band_tail
 from pmf_tpu_torch.data.blocked import build_blocked as t_build_blocked
 from pmf_tpu_torch.ops import gaussian_edge as ge
 from pmf_tpu_torch.ops import gj_inverse
@@ -165,47 +161,6 @@ def tail(small_ratings):
     return jb, tb
 
 
-def _edges(row_ptr, other, x):
-    rows = np.repeat(np.arange(len(row_ptr) - 1), np.diff(row_ptr.numpy()))
-    return sorted(zip(rows.tolist(), other.tolist(), x.tolist()))
-
-
-@pytest.mark.parametrize("band_rows", [1, 7, 16, 33, 10_000])
-@pytest.mark.parametrize("side", ["by_user", "by_item"])
-def test_band_regrouping_keeps_every_edge_once(tail, side, band_rows):
-    p = getattr(tail[1], side)
-    bands = band_tail(p, band_rows)
-    assert bands.n_bands == max(-(-p.n_other // band_rows), 1)
-    assert bands.row_ptr.shape == (bands.n_bands, p.n_self + 1)
-    assert bands.other.shape == p.other.shape and bands.x.shape == p.x.shape
-    whole = _edges(p.row_ptr, p.other, p.x)
-    per_band = []
-    for b in range(bands.n_bands):
-        rp = bands.row_ptr[b]
-        assert bool(torch.all(rp[1:] >= rp[:-1]))  # monotone
-        sl = slice(int(rp[0]), int(rp[-1]))
-        o = bands.other[sl]
-        assert bool(torch.all(o // band_rows == b))  # only band b's other rows
-        local = _edges(rp - rp[0], o, bands.x[sl])
-        per_band += local
-        touched = int(torch.count_nonzero(rp[1:] - rp[:-1]))
-        assert touched == bands.rows_touched[b]
-    assert sorted(per_band) == whole  # every edge exactly once
-    # Per row, the bands' lengths add up to the row's length.
-    lengths = sum(bands.row_ptr[b, 1:] - bands.row_ptr[b, :-1] for b in range(bands.n_bands))
-    assert torch.equal(lengths, p.row_ptr[1:] - p.row_ptr[:-1])
-    assert band_tail(p, band_rows) is bands  # cached with the layout
-
-
-@pytest.mark.parametrize("side", ["by_user", "by_item"])
-def test_one_band_is_the_tail_csr(tail, side):
-    p = getattr(tail[1], side)
-    bands = band_tail(p, p.n_other)
-    assert bands.n_bands == 1
-    assert torch.equal(bands.row_ptr[0], p.row_ptr)
-    assert torch.equal(bands.other, p.other) and torch.equal(bands.x, p.x)
-
-
 def _gauss_tables(n, K, seed):
     rng = np.random.default_rng(seed)
     m = rng.standard_normal((n, K)) * 0.3
@@ -217,27 +172,23 @@ def _gauss_tables(n, K, seed):
 
 @pytest.mark.parametrize("with_bias_stats", [False, True], ids=["exact", "lagged"])
 @pytest.mark.parametrize("K", [20, 50])
-def test_banded_factor_sum_matches_one_pass_and_jax(tail, K, with_bias_stats):
+def test_factor_stats_on_the_padded_table_match_jax(tail, K, with_bias_stats):
+    """``gaussian_factor_stats`` (the padded table of ``factor_table``, the
+    tail pass and the head tiers) against the JAX factor pass at the
+    precision-tier gate, both directions."""
     jb, tb = tail
     users, items = _gauss_tables(N_USERS, K, 3), _gauss_tables(N_ITEMS, K, 4)
     for side, (_, _, b_s), (m_o, V_o, b_o), jp, tp in (
             ("user", users, items, jb.by_user, tb.by_user),
             ("item", items, users, jb.by_item, tb.by_item)):
-        bands = band_tail(tp, -(-tp.n_other // 3))
-        assert bands.n_bands == 3
-        args = (_t(m_o), _t(V_o), _t(b_s), _t(b_o), tp)
-        kw = dict(use_bias=True, with_bias_stats=with_bias_stats, head=tb.head,
-                  head_side=side)
-        got = ge.gaussian_factor_stats(*args, bands=bands, **kw)
-        one = ge.gaussian_factor_stats(*args, bands=None, **kw)
+        got = ge.gaussian_factor_stats(_t(m_o), _t(V_o), _t(b_s), _t(b_o), tp,
+                                       use_bias=True, with_bias_stats=with_bias_stats,
+                                       head=tb.head, head_side=side)
         ref = jge.gaussian_factor_stats(
             m_o, V_o, b_s, b_o, jp, use_bias=True, precision="high", interpret=True,
             with_bias_stats=with_bias_stats, head=jb.head, head_side=side)
-        assert len(got) == len(one) == len(ref)
-        for n, (g, o, r) in enumerate(zip(got, one, ref)):
-            scale = float(o.abs().max()) + 1e-6
-            np.testing.assert_allclose(g.numpy() / scale, o.numpy() / scale, rtol=0,
-                                       atol=1e-5, err_msg=f"{side} stat {n}")
+        assert len(got) == len(ref) == (5 if with_bias_stats else 2)
+        for n, (g, r) in enumerate(zip(got, ref)):
             r = np.asarray(r, np.float64)
             rs = np.abs(r).max() + 1e-6
             np.testing.assert_allclose(g.numpy() / rs, r / rs, rtol=0, atol=1e-4,
@@ -278,26 +229,6 @@ def test_factor_table_packs_and_permutes_in_one_gather(K, permuted):
     assert not bool(got[:, K + 1 + T :].any())
 
 
-@pytest.mark.parametrize("band_rows", [1, 5, 40])
-def test_banded_wrapper_sums_band_by_band(tail, band_rows):
-    """On the CPU the wrapper with bands adds the bands' plain sums in band
-    order, as the kernel's launches do."""
-    p = tail[1].by_user
-    K = 6
-    rng = np.random.default_rng(band_rows)
-    aug = _t(rng.standard_normal((p.n_other, ge.factor_stride(K))).astype(np.float32))
-    bands = band_tail(p, band_rows)
-    got = ge.factor_tail_stats(aug, p.row_ptr, p.other, p.x, K, True, bands=bands)
-    want = torch.zeros_like(got)
-    for b in range(bands.n_bands):
-        want += ge.factor_tail_stats_plain(aug, bands.row_ptr[b], bands.other, bands.x,
-                                           K, True)
-    assert torch.equal(got, want)
-    one = ge.factor_tail_stats_plain(aug, p.row_ptr, p.other, p.x, K, True)
-    scale = one.abs().amax(dim=0) + 1e-6
-    assert float(((got - one).abs().amax(dim=0) / scale).max()) <= 1e-5
-
-
 def test_factor_reckoning_counts_sectors():
     """Records of 924 bytes on a 928-byte stride span 29 sectors each."""
     K = 20
@@ -311,7 +242,18 @@ def test_factor_reckoning_counts_sectors():
     T = ge.tri_size(K)
     fixed = 3 * 8 + 2 * 4 * (2 * K + T)
     assert r["per_edge"] == fixed + 3 * 29 * 32
-    assert r["table_once"] == r["banded"] == fixed + 6 * 4 * (K + 1 + T)
+    assert r["table_once"] == fixed + 6 * 4 * (K + 1 + T)
+
+
+def test_padded_records_cost_no_extra_sector():
+    """With the stride rounded up to 4 floats, a record that starts 16
+    bytes into a sector spans no more sectors than one that starts on a
+    sector, at every K the kernel takes."""
+    for K in range(1, 129):
+        rec, stride = 4 * (K + 1 + ge.tri_size(K)), 4 * ge.factor_stride(K)
+        assert stride % 16 == 0
+        if stride % 32:
+            assert (16 + rec + 31) // 32 == (rec + 31) // 32, K
 
 
 def test_factor_wrapper_bounds():
@@ -324,10 +266,16 @@ def test_factor_wrapper_bounds():
     with pytest.raises(ValueError, match="aug must be"):
         ge.factor_tail_stats(_cuda_looking(torch.rand(5, ge.factor_stride(4) + 4)), *csr,
                              4)
-    other_rows = band_tail(t_build_blocked(np.array([0, 1, 4]), np.array([0, 1, 2]),
-                                           np.ones(3, np.float32), device="cpu").by_user, 2)
-    with pytest.raises(ValueError, match="CSR shapes"):  # bands of another tail
-        ge.factor_tail_stats(_cuda_looking(torch.rand(5, ge.factor_stride(4))), *csr, 4,
-                             bands=dataclasses.replace(other_rows, **{
-                                 f: _cuda_looking(getattr(other_rows, f))
-                                 for f in ("row_ptr", "other", "x")}))
+
+
+@pytest.mark.parametrize("K", [1, 2, 4, 20, 50, 128])
+def test_factor_kernel_wants_the_padded_table(K):
+    """On CUDA tensors the wrapper takes only the table padded to
+    ``factor_stride(K)`` columns, as ``factor_table`` makes it."""
+    csr = tuple(_cuda_looking(t) for t in (torch.tensor([0, 1, 1, 2]),
+                                           torch.tensor([0, 4], dtype=torch.int32),
+                                           torch.ones(2)))
+    width = K + 1 + ge.tri_size(K)
+    for bad in {width, ge.factor_stride(K) + 4} - {ge.factor_stride(K)}:
+        with pytest.raises(ValueError, match="aug must be"):
+            ge.factor_tail_stats(_cuda_looking(torch.rand(5, bad)), *csr, K)
