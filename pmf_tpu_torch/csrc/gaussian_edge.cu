@@ -203,10 +203,21 @@ factor_kernel(const float* __restrict__ aug, int stride,
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
     __syncwarp();
-    auto issue = [&](int64_t e, int slot) {  // lane 0 only
-      const int o = __ldcs(other + e);
+    // Ids and ratings ride in registers a window of 32 edges at a time,
+    // the next window loaded one window ahead, so that lane 0 finds the
+    // id of the edge D ahead by a shuffle, not a load.
+    const int n_edges = (int)(end - begin);
+    auto window = [&](int w, int& o, float& xv) {
+      const int j = 32 * w + lane;
+      o = j < n_edges ? __ldcs(other + begin + j) : 0;
+      xv = j < n_edges ? __ldcs(x + begin + j) : 0.f;
+    };
+    int cur_o, nxt_o;
+    float cur_x, nxt_x;
+    window(0, cur_o, cur_x);
+    window(1, nxt_o, nxt_x);
+    auto issue = [&](int o, int slot) {  // lane 0 only
       const uint32_t bar = bar0 + 8 * slot;
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
                    :: "r"(bar), "r"(nbytes) : "memory");
       asm volatile(
@@ -216,11 +227,22 @@ factor_kernel(const float* __restrict__ aug, int stride,
              "l"(aug + (int64_t)o * stride + c0), "r"(nbytes), "r"(bar)
           : "memory");
     };
-    if (lane == 0)
-      for (int q = 0; q < D && begin + q < end; ++q) issue(begin + q, q);
-    for (int64_t e = begin; e < end; ++e) {
-      const int64_t i = e - begin;
-      const int slot = (int)(i % D);
+#pragma unroll
+    for (int q = 0; q < D; ++q) {
+      const int o = __shfl_sync(kFull, cur_o, q);
+      if (lane == 0 && q < n_edges) issue(o, q);
+    }
+    for (int i = 0; i < n_edges; ++i) {
+      if (i > 0 && (i & 31) == 0) {
+        cur_o = nxt_o;
+        cur_x = nxt_x;
+        window((i >> 5) + 1, nxt_o, nxt_x);
+      }
+      const int slot = i % D;
+      const float xv = __shfl_sync(kFull, cur_x, i & 31);
+      const int j = i + D;  // the edge whose record refills this slot
+      const int o = (j >> 5) == (i >> 5) ? __shfl_sync(kFull, cur_o, j & 31)
+                                         : __shfl_sync(kFull, nxt_o, j & 31);
       mbar_wait(bar0 + 8 * slot, (uint32_t)(i / D) & 1u);
       float4 v[NV];
       const float* src = ring + slot * kSlot;
@@ -230,10 +252,9 @@ factor_kernel(const float* __restrict__ aug, int stride,
         v[t] = c0 + c < stride ? reinterpret_cast<const float4*>(src + t * 128)[lane]
                                : make_float4(0.f, 0.f, 0.f, 0.f);
       }
-      const float xv = __ldg(x + e);
-      __syncwarp();  // every lane holds its floats: the slot may be refilled
-      if (lane == 0 && e + D < end) issue(e + D, slot);
-      add(v, xv);
+      add(v, xv);  // the slot's floats are used before it is refilled
+      __syncwarp();
+      if (lane == 0 && j < n_edges) issue(o, slot);
     }
   }
 
@@ -267,7 +288,7 @@ cudaError_t launch_factor_vec(const float* aug, int stride, const int64_t* row_p
   const dim3 grid((n_self + kWarpsPerBlock - 1) / kWarpsPerBlock,
                   (stride + NV * 128 - 1) / (NV * 128));
   const int smem = D * kWarpsPerBlock * NV * 128 * 4;
-  if (smem > 48 * 1024) {
+  if (D > 0) {  // the ring beside the static barriers may pass the default 48 KB
     const cudaError_t err = cudaFuncSetAttribute(
         factor_kernel<NV, E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
