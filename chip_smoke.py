@@ -644,14 +644,9 @@ def _small_k34(blocked, ks=(1, 2, 5, 7, 8, 9, 16, 17, 20, 24, 25, 30, 31, 32, 33
             aug = _k3_table(m_o, V_o, b_o, k)
             args = (aug, p.row_ptr, p.other, p.x, k, True)
             ref = ge.factor_tail_stats_plain(*args, max_edges=1 << 13)
-            got = ge.factor_tail_stats(*args)
-            col, ok = column_check(got, ref)[1:]
+            col, ok = column_check(ge.factor_tail_stats(*args), ref)[1:]
             if not ok:
                 raise AssertionError(f"K3 K={k}: column error {col} > {COL_RTOL}")
-            for depth in RING_DEPTHS:
-                if not torch.equal(ge.factor_tail_stats_ring(*args, depth=depth), got):
-                    raise AssertionError(f"K3 ring {depth} K={k}: differs from the "
-                                         "register form")
             worst3 = max(worst3, col)
         P = _spd(1003, k, 60 + k)
         ref = batched_psd_inverse_gj_plain(P)
@@ -665,7 +660,7 @@ def _small_k34(blocked, ks=(1, 2, 5, 7, 8, 9, 16, 17, 20, 24, 25, 30, 31, 32, 33
         worst4 = max(worst4, err)
     torch.cuda.synchronize()
     log(f"phase k34small: ok | K in {list(ks)} | K3 worst column error {worst3:.3e} "
-        f"(tol {COL_RTOL}; ring forms {RING_DEPTHS} equal in bits), K4 worst per-matrix error {worst4:.3e} (tol {INV_RTOL})")
+        f"(tol {COL_RTOL}), K4 worst per-matrix error {worst4:.3e} (tol {INV_RTOL})")
 
 
 def _bigk_head(k):
@@ -1839,7 +1834,6 @@ def _k3_table(m, V, b, k=K):
 
 
 BAND_L2_SHARE = 0.5  # share of L2 one band of K3's other table may fill
-RING_DEPTHS = (4, 8)  # K3's ring form, timed beside the register form
 
 
 def _k3_banded(p, k, table_once):
@@ -1866,18 +1860,15 @@ def phase_k3(blocked, k=K, label="K3", check=True):
     """K3, the factor tail pass, both directions: the kernel vs its plain
     version (per-column criterion), equal bits on a repeat, its three byte
     reckonings (per-edge gather, table once, banded by ``_k3_banded``);
-    the ring form at each of RING_DEPTHS, equal in bits to the register
-    form and timed in turns with it (register, ring 4, ring 8, ring 8,
-    ring 4, register); library: CSR-ones @ [m | b | tri] by
-    torch.sparse.mm, the pass-through bulk.  Without ``check`` (the K = 50 timing) no plain version runs."""
+    library: CSR-ones @ [m | b | tri] by torch.sparse.mm, the pass-through
+    bulk.  Without ``check`` (the K = 50 timing) no plain version runs."""
     import torch
 
     from pmf_tpu_torch.ops import gaussian_edge as ge
 
     T = ge.tri_size(k)
     res = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0,
-               n_bytes=0.0, n_flops=0.0, per_edge_bytes=0.0, banded_bytes=0.0,
-               **{f"ring{d}_ms": 0.0 for d in RING_DEPTHS})
+               n_bytes=0.0, n_flops=0.0, per_edge_bytes=0.0, banded_bytes=0.0)
     for name, p, s, o in _new_space_gauss(blocked, k):
         m, V, b, _ = o
         aug = _k3_table(m, V, b, k)
@@ -1892,23 +1883,9 @@ def phase_k3(blocked, k=K, label="K3", check=True):
                 raise AssertionError(f"{label} {name}: column error {worst} > {COL_RTOL}")
             if not torch.equal(got, ge.factor_tail_stats(*args)):
                 raise AssertionError(f"{label} {name}: two runs differ in bits")
-            del ref
-        else:
-            got = ge.factor_tail_stats(*args)
-        for d in RING_DEPTHS:
-            if not torch.equal(ge.factor_tail_stats_ring(*args, depth=d), got):
-                raise AssertionError(f"{label} {name}: ring {d} differs from the "
-                                     "register form")
-        del got
+            del got, ref
         unpadded = aug[:, : k + 1 + T].contiguous()
-        reg = lambda: cuda_ms(lambda: ge.factor_tail_stats(*args))  # noqa: E731
-        ring = lambda d: cuda_ms(  # noqa: E731
-            lambda: ge.factor_tail_stats_ring(*args, depth=d))
-        turns = [reg()]
-        rings = {d: [ring(d)] for d in RING_DEPTHS}
-        for d in reversed(RING_DEPTHS):
-            rings[d].append(ring(d))
-        turns.append(reg())
+        turns = [cuda_ms(lambda: ge.factor_tail_stats(*args)) for _ in range(2)]
         plain_ms = cuda_ms(lambda: ge.factor_tail_stats_plain(*args, max_edges=1 << 21),
                            reps=3) if check else float("nan")
         csr = _csr_ones(p)
@@ -1923,20 +1900,15 @@ def phase_k3(blocked, k=K, label="K3", check=True):
         log(f"  {label} {name}: nnz {p.nnz} | n_other {p.n_other} | record "
             f"{4 * (k + 1 + T)} B, stride {4 * ge.factor_stride(k)} B | one pass (B 1)"
             + (f" | max abs err {abs_err:.3e} | worst column {worst:.3e} (tol {COL_RTOL})"
-               " | repeat equal in bits" if check else "")
-            + f" | ring depths {list(RING_DEPTHS)} equal in bits to the register form")
+               " | repeat equal in bits" if check else ""))
         log(f"  {label} {name} bytes: per-edge gather {r['per_edge']:.0f} "
             f"({to_ms(r['per_edge']):.4f} ms) | table once {r['table_once']:.0f} "
             f"({to_ms(r['table_once']):.4f} ms) | banded (B {n_bands}, L2 share "
             f"{BAND_L2_SHARE}) {banded:.0f} ({to_ms(banded):.4f} ms)")
-        log(f"  {label} {name} times: register {turns[0]:.4f} {turns[1]:.4f} ms | "
-            + " | ".join(f"ring {d} {t[0]:.4f} {t[1]:.4f} ms" for d, t in rings.items())
-            + " | plain "
+        log(f"  {label} {name} times: kernel {turns[0]:.4f} {turns[1]:.4f} ms | plain "
             f"{plain_ms:.4f} ms | library (torch.sparse.mm, pass-through bulk only) "
             f"{lib_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
         res["ms"] += ms
-        for d, t in rings.items():
-            res[f"ring{d}_ms"] += (t[0] + t[1]) / 2
         res["plain_ms"] += plain_ms
         res["library_ms"] += lib_ms
         res["max_abs_err"] = max(res["max_abs_err"], abs_err)
@@ -1947,9 +1919,8 @@ def phase_k3(blocked, k=K, label="K3", check=True):
         del aug, unpadded
         torch.cuda.empty_cache()
     res["bound_ms"], res["bound_by"] = bound(res["n_bytes"], res["n_flops"])
-    log(f"phase {label}: ok | per sweep: kernel {res['ms']:.4f} ms, "
-        + ", ".join(f"ring {d} {res[f'ring{d}_ms']:.4f} ms" for d in RING_DEPTHS)
-        + f", plain {res['plain_ms']:.4f} ms, bound "
+    log(f"phase {label}: ok | per sweep: kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, bound "
         f"{res['bound_ms']:.4f} ms ({res['bound_by']}, table once; per-edge gather "
         f"{res['per_edge_bytes'] / HBM_BYTES_PER_S * 1e3:.4f}, banded "
         f"{res['banded_bytes'] / HBM_BYTES_PER_S * 1e3:.4f}), library "

@@ -44,10 +44,13 @@
 // record is cut into chunks of 512 floats on grid.y: each chunk's warp
 // walks the row's edges again, rereading the 8 bytes of id and rating an
 // edge; the first chunk holds all of m and b (K + 1 <= 512), so it alone
-// computes m (x - b), sum m and sum x.  One pass is no slower than bands
-// of the other table sized to L2 by item and faster by user, since the
-// gathers still move 4.5 GB a direction and each band launch walks every
-// self row again (PERF.md).
+// computes m (x - b), sum m and sum x.  Two other designs were timed
+// against this one on the real tail (PERF.md): bands of the other table
+// sized to L2, no faster by item and slower by user, since the gathers
+// still move 4.5 GB a direction and each band launch walks every self row
+// again; and a ring of 4 or 8 record slots a warp in shared memory filled
+// by TMA bulk copies, 1.3-1.8x slower at K=20 and at best as fast at
+// K=50 (2 KB chunks).
 //
 // K5 is the narrow pass: lanes hold the K + 1 record floats, F =
 // ceil((K + 1) / 32) a lane.  K6 loads the self row's [m | b] once per
@@ -76,29 +79,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // ---------------------------------------------------------------- K3 --
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "WAIT:\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
-      "@!p bra WAIT;\n\t}"
-      :: "r"(bar), "r"(parity) : "memory");
-}
-
-// One warp per (self row, record chunk blockIdx.y of NV * 128 floats);
-// lane l takes record floats c0 + 128 t + 4 l .. + 3 as one float4
-// (t < NV) and keeps one accumulator per float.  Floats < K (all in t = 0,
-// K <= 128) are factors, float K is b (broadcast by a shuffle from the
-// lane that holds it).  With D = 0 (the register form) each lane loads
-// its float4s from global memory, E edges in flight.  With D > 0 (the
-// ring form) lane 0 of the warp copies each edge's record chunk into a
-// ring of D slots of the warp's shared memory by TMA bulk copies, D edges
-// ahead, and the lanes read their float4s from the slot.
-template <int NV, int E, int D>
+// The register form: one warp per (self row, record chunk blockIdx.y of
+// NV * 128 floats); lane l loads record floats c0 + 128 t + 4 l .. + 3 as
+// one float4 (t < NV), E edges in flight, and keeps one accumulator per
+// loaded float.  Floats < K (all in t = 0, K <= 128) are factors, float K
+// is b (broadcast by a shuffle from the lane that loaded it).
+template <int NV, int E>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 factor_kernel(const float* __restrict__ aug, int stride,
                   const int64_t* __restrict__ row_ptr, const int32_t* __restrict__ other,
@@ -157,104 +143,32 @@ factor_kernel(const float* __restrict__ aug, int stride,
     }
   };
 
-  if constexpr (D == 0) {
-    for (int64_t base = begin; base < end; base += 32) {
-      const int64_t left = end - base;
-      const int n = left < 32 ? (int)left : 32;
-      int my_o = 0;
-      float my_x = 0.f;
-      if (lane < n) {
-        my_o = __ldcs(other + base + lane);
-        my_x = __ldcs(x + base + lane);
-      }
-      int j = 0;
-      for (; j + E <= n; j += E) {
-        float4 v[E][NV];
-        float xv[E];
-#pragma unroll
-        for (int q = 0; q < E; ++q) {
-          xv[q] = __shfl_sync(kFull, my_x, j + q);
-          load(__shfl_sync(kFull, my_o, j + q), v[q]);
-        }
-#pragma unroll
-        for (int q = 0; q < E; ++q) add(v[q], xv[q]);
-      }
-      for (; j < n; ++j) {
-        float4 v[NV];
-        const float xv = __shfl_sync(kFull, my_x, j);
-        load(__shfl_sync(kFull, my_o, j), v);
-        add(v, xv);
-      }
+  for (int64_t base = begin; base < end; base += 32) {
+    const int64_t left = end - base;
+    const int n = left < 32 ? (int)left : 32;
+    int my_o = 0;
+    float my_x = 0.f;
+    if (lane < n) {
+      my_o = __ldcs(other + base + lane);
+      my_x = __ldcs(x + base + lane);
     }
-  } else {
-    constexpr int kSlot = NV * 128;  // floats a slot
-    extern __shared__ __align__(16) float ring_smem[];
-    __shared__ __align__(8) uint64_t bars[kWarpsPerBlock * D];
-    const int warp = threadIdx.x >> 5;
-    float* ring = ring_smem + warp * D * kSlot;
-    const uint32_t bar0 = smem_u32(bars + warp * D);
-    const int rest = stride - c0;
-    const uint32_t nbytes = 4u * (rest < kSlot ? rest : kSlot);  // a multiple of 16
-    if (lane == 0) {
+    int j = 0;
+    for (; j + E <= n; j += E) {
+      float4 v[E][NV];
+      float xv[E];
 #pragma unroll
-      for (int d = 0; d < D; ++d)
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-                     :: "r"(bar0 + 8 * d), "r"(1) : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    }
-    __syncwarp();
-    // Ids and ratings ride in registers a window of 32 edges at a time,
-    // the next window loaded one window ahead, so that lane 0 finds the
-    // id of the edge D ahead by a shuffle, not a load.
-    const int n_edges = (int)(end - begin);
-    auto window = [&](int w, int& o, float& xv) {
-      const int j = 32 * w + lane;
-      o = j < n_edges ? __ldcs(other + begin + j) : 0;
-      xv = j < n_edges ? __ldcs(x + begin + j) : 0.f;
-    };
-    int cur_o, nxt_o;
-    float cur_x, nxt_x;
-    window(0, cur_o, cur_x);
-    window(1, nxt_o, nxt_x);
-    auto issue = [&](int o, int slot) {  // lane 0 only
-      const uint32_t bar = bar0 + 8 * slot;
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                   :: "r"(bar), "r"(nbytes) : "memory");
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-          "[%0], [%1], %2, [%3];"
-          :: "r"(smem_u32(ring + slot * kSlot)),
-             "l"(aug + (int64_t)o * stride + c0), "r"(nbytes), "r"(bar)
-          : "memory");
-    };
-#pragma unroll
-    for (int q = 0; q < D; ++q) {
-      const int o = __shfl_sync(kFull, cur_o, q);
-      if (lane == 0 && q < n_edges) issue(o, q);
-    }
-    for (int i = 0; i < n_edges; ++i) {
-      if (i > 0 && (i & 31) == 0) {
-        cur_o = nxt_o;
-        cur_x = nxt_x;
-        window((i >> 5) + 1, nxt_o, nxt_x);
+      for (int q = 0; q < E; ++q) {
+        xv[q] = __shfl_sync(kFull, my_x, j + q);
+        load(__shfl_sync(kFull, my_o, j + q), v[q]);
       }
-      const int slot = i % D;
-      const float xv = __shfl_sync(kFull, cur_x, i & 31);
-      const int j = i + D;  // the edge whose record refills this slot
-      const int o = (j >> 5) == (i >> 5) ? __shfl_sync(kFull, cur_o, j & 31)
-                                         : __shfl_sync(kFull, nxt_o, j & 31);
-      mbar_wait(bar0 + 8 * slot, (uint32_t)(i / D) & 1u);
+#pragma unroll
+      for (int q = 0; q < E; ++q) add(v[q], xv[q]);
+    }
+    for (; j < n; ++j) {
       float4 v[NV];
-      const float* src = ring + slot * kSlot;
-#pragma unroll
-      for (int t = 0; t < NV; ++t) {
-        const int c = t * 128 + 4 * lane;
-        v[t] = c0 + c < stride ? reinterpret_cast<const float4*>(src + t * 128)[lane]
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-      add(v, xv);  // the slot's floats are used before it is refilled
-      __syncwarp();
-      if (lane == 0 && j < n_edges) issue(o, slot);
+      const float xv = __shfl_sync(kFull, my_x, j);
+      load(__shfl_sync(kFull, my_o, j), v);
+      add(v, xv);
     }
   }
 
@@ -281,33 +195,26 @@ factor_kernel(const float* __restrict__ aug, int stride,
   if (with_bias_stats && first && lane == 0) __stcs(dst + 2 * K + T, acc_x);
 }
 
-template <int NV, int E, int D>
+template <int NV, int E>
 cudaError_t launch_factor_vec(const float* aug, int stride, const int64_t* row_ptr,
                               const int32_t* other, const float* x, int n_self, int K,
                               int wbs, float* out, cudaStream_t stream) {
   const dim3 grid((n_self + kWarpsPerBlock - 1) / kWarpsPerBlock,
                   (stride + NV * 128 - 1) / (NV * 128));
-  const int smem = D * kWarpsPerBlock * NV * 128 * 4;
-  if (D > 0) {  // the ring beside the static barriers may pass the default 48 KB
-    const cudaError_t err = cudaFuncSetAttribute(
-        factor_kernel<NV, E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
-  factor_kernel<NV, E, D><<<grid, kWarpsPerBlock * 32, smem, stream>>>(
+  factor_kernel<NV, E><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
       aug, stride, row_ptr, other, x, n_self, K, wbs, out);
   return cudaGetLastError();
 }
 
-template <int D>
 cudaError_t launch_factor_vec_nv(const float* aug, int stride, const int64_t* row_ptr,
                                  const int32_t* other, const float* x, int n_self,
                                  int K, int wbs, float* out, cudaStream_t s) {
   const int nv = K <= kWholeRecordMaxK ? (stride + 127) / 128 : kChunkNV;
   switch (nv) {
-    case 1: return launch_factor_vec<1, kEdges, D>(aug, stride, row_ptr, other, x, n_self, K, wbs, out, s);
-    case 2: return launch_factor_vec<2, kEdges, D>(aug, stride, row_ptr, other, x, n_self, K, wbs, out, s);
-    case 3: return launch_factor_vec<3, kEdges, D>(aug, stride, row_ptr, other, x, n_self, K, wbs, out, s);
-    case 4: return launch_factor_vec<4, kEdges, D>(aug, stride, row_ptr, other, x, n_self, K, wbs, out, s);
+    case 1: return launch_factor_vec<1, kEdges>(aug, stride, row_ptr, other, x, n_self, K, wbs, out, s);
+    case 2: return launch_factor_vec<2, kEdges>(aug, stride, row_ptr, other, x, n_self, K, wbs, out, s);
+    case 3: return launch_factor_vec<3, kEdges>(aug, stride, row_ptr, other, x, n_self, K, wbs, out, s);
+    case 4: return launch_factor_vec<4, kEdges>(aug, stride, row_ptr, other, x, n_self, K, wbs, out, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -481,27 +388,8 @@ extern "C" int pmf_gauss_factor(const float* aug, int stride, const int64_t* row
   if (K < 1 || K > kMaxK || stride % 4 != 0 || stride < K + 1 + K * (K + 1) / 2)
     return (int)cudaErrorInvalidValue;
   if (n_self <= 0) return (int)cudaGetLastError();
-  return (int)launch_factor_vec_nv<0>(aug, stride, row_ptr, other, x, n_self, K,
-                                      with_bias_stats, out, static_cast<cudaStream_t>(stream));
-}
-
-// The ring form of K3, D = depth slots a warp (4 or 8): timed beside the
-// register form, not on the sweep's path.
-extern "C" int pmf_gauss_factor_ring(const float* aug, int stride, const int64_t* row_ptr,
-                                     const int32_t* other, const float* x, int n_self,
-                                     int K, int with_bias_stats, int depth, float* out,
-                                     void* stream) {
-  if (K < 1 || K > kMaxK || stride % 4 != 0 || stride < K + 1 + K * (K + 1) / 2)
-    return (int)cudaErrorInvalidValue;
-  if (n_self <= 0) return (int)cudaGetLastError();
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (depth) {
-    case 4: return (int)launch_factor_vec_nv<4>(aug, stride, row_ptr, other, x, n_self, K,
-                                                with_bias_stats, out, s);
-    case 8: return (int)launch_factor_vec_nv<8>(aug, stride, row_ptr, other, x, n_self, K,
-                                                with_bias_stats, out, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)launch_factor_vec_nv(aug, stride, row_ptr, other, x, n_self, K,
+                                   with_bias_stats, out, static_cast<cudaStream_t>(stream));
 }
 
 // Launch KERNEL<F> for F = 1..5 (5 covers K5's K + 1 <= 129 record floats).

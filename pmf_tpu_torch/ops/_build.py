@@ -41,9 +41,6 @@ SIGNATURES = {
                             _P, _P, _P, _P],
     # aug, stride, row_ptr, other, x, n_self, K, with_bias_stats, out, stream
     "pmf_gauss_factor": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P],
-    # aug, stride, row_ptr, other, x, n_self, K, with_bias_stats, depth, out,
-    # stream
-    "pmf_gauss_factor_ring": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # aug, row_ptr, other, x, n_self, K, out, stream
     "pmf_gauss_bias": [_P, _P, _P, _P, _I, _I, _P, _P],
     # aug, self_tab, row_ptr, other, x, n_self, K, out, stream

@@ -40,7 +40,6 @@ from pmf_tpu_torch.ops._tail import (
 )
 
 FACTOR_LAUNCHES = _build.LaunchCounter()
-FACTOR_RING_LAUNCHES = _build.LaunchCounter()
 BIAS_LAUNCHES = _build.LaunchCounter()
 DIAG_LAUNCHES = _build.LaunchCounter()
 # Past K = 30 the factor pass cuts its K + 1 + K(K+1)/2 record floats into
@@ -148,30 +147,6 @@ def factor_tail_stats(aug, row_ptr, other, x, K: int,
                       dtype=torch.float32, device=aug.device)
     _build.launch("pmf_gauss_factor", FACTOR_LAUNCHES, aug.device, aug, stride, row_ptr,
                   other, x, n_self, K, int(with_bias_stats), out)
-    return out
-
-
-def factor_tail_stats_ring(aug, row_ptr, other, x, K: int,
-                           with_bias_stats: bool = False, depth: int = 8) -> torch.Tensor:
-    """K3's ring form, on CUDA tensors only: each warp copies its edges'
-    records into a ring of ``depth`` (4 or 8) shared-memory slots by TMA
-    bulk copies.  Same arguments and result as ``factor_tail_stats``; it
-    is timed beside the register form and is not on the sweep's path."""
-    if not aug.is_cuda:
-        raise ValueError("the ring form of K3 runs on CUDA tensors only")
-    if not 1 <= K <= FACTOR_MAX_K or depth not in (4, 8):
-        raise ValueError(f"ring form needs 1 <= K <= {FACTOR_MAX_K} and depth 4 or 8")
-    stride = factor_stride(K)
-    if aug.dim() != 2 or aug.shape[1] != stride:
-        raise ValueError(f"aug must be (n_other, {stride})")
-    n_self = row_ptr.shape[0] - 1
-    _check_tail_args([("aug", aug)], row_ptr, other, x, n_self)
-    if aug.data_ptr() % 16:
-        raise ValueError("aug must start on 16 bytes")
-    out = torch.empty((n_self, 2 * K + tri_size(K) + (2 if with_bias_stats else 0)),
-                      dtype=torch.float32, device=aug.device)
-    _build.launch("pmf_gauss_factor_ring", FACTOR_RING_LAUNCHES, aug.device, aug, stride,
-                  row_ptr, other, x, n_self, K, int(with_bias_stats), depth, out)
     return out
 
 
