@@ -10,7 +10,8 @@ result line:
 2. build   -- compile the CUDA kernels from ``pmf_tpu_torch/csrc``.
 3. data    -- the benchmark's Zipf data (162k users x 59k items x 25M
               ratings, seed 0) and the hybrid layout the fit builds.
-4. K1      -- sparse-tail edge kernel vs its plain version, both directions.
+4. K1      -- sparse-tail edge kernel vs its plain version, both directions,
+              with its per-edge sector reckoning and its long rows alone.
 5. K2      -- dense-head tier kernel vs its plain version, every tier and
               side, with its bound's three lines and the share of the
               card's memory rate; before the data, K2small: the same
@@ -43,7 +44,9 @@ launches, 2 a step, timed by CUDA events and by the profiler), msmall
 (``HPFMap.fit`` for 3 epochs, engine "blocked_high" then "flat", with
 launch counters) and mprofile (20 steady blocked steps under the profiler).
 
-Before the data, phase bigk: K3 and K4 at every K where their geometry changes (phase k34small), every kernel at K = 50
+Before the data, phase bigk: K1 (both modes) and K7 at every K where
+their row-group geometry changes, equal bits on a repeat (phase
+k17small), K3 and K4 at every K where their geometry changes (phase k34small), every kernel at K = 50
 and K = 128 vs its plain version on small shapes (K2 on both sides with
 both M types), then
 at K = 50 the small, psmall, gsmall and msmall card-vs-host runs.  Beside
@@ -324,10 +327,10 @@ def phase_k1(blocked):
     for name, p, es, eo in (("user", blocked.by_user, e_user, e_item),
                             ("item", blocked.by_item, e_item, e_user)):
         args = (es, eo, p.row_ptr, p.other, p.x, RATE_FLOOR)
-        got = tail_edge_stats(*args)
+        got = tail_edge_stats(*args, long_rows=p.long_rows)
         ref = tail_edge_stats_plain(*args)
         abs_err, rel_err = compare(got, ref)
-        ms = cuda_ms(lambda: tail_edge_stats(*args))
+        ms, _ = _tail_ab("K1", name, es, eo, None, p, K, ref)
         plain_ms = cuda_ms(lambda: tail_edge_stats_plain(*args), reps=3)
         n_bytes = (es.nbytes + eo.nbytes + p.row_ptr.nbytes + p.other.nbytes
                    + p.x.nbytes + got.nbytes)
@@ -336,6 +339,7 @@ def phase_k1(blocked):
         log(f"  K1 {name}: nnz {p.nnz} | max abs err {abs_err:.3e} rel "
             f"{rel_err:.3e} (tol {RTOL}) | kernel {ms:.4f} ms | plain "
             f"{plain_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
+        _tail_notes("K1", name, es, eo, None, p, K, ms, got.nbytes)
         if not rel_err <= RTOL:
             raise AssertionError(f"K1 {name}: relative error {rel_err} > {RTOL}")
         res["ms"] += ms
@@ -365,7 +369,7 @@ def phase_k1raw(blocked):
     for name, p, es, eo in (("user", blocked.by_user, e_user, e_item),
                             ("item", blocked.by_item, e_item, e_user)):
         args = (es, eo, p.row_ptr, p.other, None)
-        got = tail_edge_stats(*args, mode="raw")
+        got = tail_edge_stats(*args, mode="raw", long_rows=p.long_rows)
         ref = tail_edge_stats_plain(*args, mode="raw")
         abs_err, rel_err = compare(got, ref)
         pattern = _csr_ones(p)
@@ -375,7 +379,7 @@ def phase_k1raw(blocked):
             return torch.cat([es * s_other, s_other], dim=1)
 
         _, lib_rel = compare(library(), ref)
-        ms = cuda_ms(lambda: tail_edge_stats(*args, mode="raw"))
+        ms, _ = _tail_ab("K1raw", name, es, eo, None, p, K, ref)
         plain_ms = cuda_ms(lambda: tail_edge_stats_plain(*args, mode="raw"), reps=3)
         lib_ms = cuda_ms(library)
         n_bytes = (es.nbytes + eo.nbytes + p.row_ptr.nbytes + p.other.nbytes
@@ -572,21 +576,26 @@ def _bigk_poisson_tail(blocked, k):
 
     from pmf_tpu_torch.ops import cavi_edge as ce
     from pmf_tpu_torch.ops import ext_edge as ee
+    from pmf_tpu_torch.ops._tail import padded_rows
 
     gen = torch.Generator(device="cuda").manual_seed(31 + k)
     worst = dict.fromkeys(("K1", "K1raw", "K7", "K8"), 0.0)
     for p in (blocked.by_user, blocked.by_item):
         es, es_new, eo, so = (_pos(gen, p.n_self, k), _pos(gen, p.n_self, k),
                               _pos(gen, p.n_other, k), _pos(gen, p.n_other))
+        es_p, eo_p = padded_rows(es), padded_rows(eo)  # K1's and K7's tables
         csr = (p.row_ptr, p.other)
         for name, kern, plain, args in (
-                ("K1", ce.tail_edge_stats, ce.tail_edge_stats_plain,
-                 (es, eo, *csr, p.x)),
-                ("K1raw", lambda *a: ce.tail_edge_stats(*a, mode="raw"),
-                 lambda *a: ce.tail_edge_stats_plain(*a, mode="raw"),
-                 (es, eo, *csr, None)),
-                ("K7", ee.ext_factor_tail, ee.ext_factor_tail_plain,
-                 (es, eo, so, *csr, p.x)),
+                ("K1", lambda *a: ce.tail_edge_stats(*a, K=k, long_rows=p.long_rows),
+                 lambda *a: ce.tail_edge_stats_plain(*a, K=k),
+                 (es_p, eo_p, *csr, p.x)),
+                ("K1raw", lambda *a: ce.tail_edge_stats(*a, mode="raw", K=k,
+                                                        long_rows=p.long_rows),
+                 lambda *a: ce.tail_edge_stats_plain(*a, mode="raw", K=k),
+                 (es_p, eo_p, *csr, None)),
+                ("K7", lambda *a: ee.ext_factor_tail(*a, K=k, long_rows=p.long_rows),
+                 lambda *a: ee.ext_factor_tail_plain(*a, K=k),
+                 (es_p, eo_p, so, *csr, p.x)),
                 ("K8", ee.ext_scalar_tail, ee.ext_scalar_tail_plain,
                  (es_new, eo, so, *csr))):
             got, ref = kern(*args), plain(*args)
@@ -595,6 +604,227 @@ def _bigk_poisson_tail(blocked, k):
                 raise AssertionError(f"bigk {name} K={k}: relative error {rel} > {RTOL}")
             worst[name] = max(worst[name], rel)
     return worst
+
+
+# ------------------------------------------------- K1 and K7 row groups --
+
+TAIL_KERNELS = ("K1", "K1raw", "K7")
+TAIL_MODE = {"K1": 0, "K1raw": 1, "K7": 2}  # csrc/tail_groups.cuh's Mode
+# Other forms timed beside the kept plan, by K: (G lanes, V words, D edges
+# in flight, rows of at least L edges given a whole warp; None: none).
+AB_FORMS = {
+    20: [(8, 1, 4, None), (8, 1, 4, 64), (8, 1, 4, 256), (4, 2, 4, 128)],
+    50: [(8, 2, 4, None), (8, 2, 4, 64), (8, 2, 4, 256), (16, 1, 4, 128)],
+}
+
+
+def _tail_tabs(n_self, n_other, k, seed):
+    """Positive self and other tables padded for K1 and K7, and scalars."""
+    import torch
+
+    from pmf_tpu_torch.ops._tail import padded_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (padded_rows(_pos(gen, n_self, k)), padded_rows(_pos(gen, n_other, k)),
+            _pos(gen, n_other))
+
+
+def _tail_kernel(kid, es, eo, so, p, k):
+    """The kept K1 ("K1", "K1raw") or K7 wrapper on padded tables, as the
+    fits call it (``p.long_rows`` rows a warp each)."""
+    from pmf_tpu_torch.ops import cavi_edge as ce
+    from pmf_tpu_torch.ops import ext_edge as ee
+
+    if kid == "K7":
+        return ee.ext_factor_tail(es, eo, so, p.row_ptr, p.other, p.x, K=k,
+                                  long_rows=p.long_rows)
+    raw = kid == "K1raw"
+    return ce.tail_edge_stats(es, eo, p.row_ptr, p.other, None if raw else p.x,
+                              mode="raw" if raw else "cavi", K=k, long_rows=p.long_rows)
+
+
+def _tail_plain(kid, es, eo, so, p, k):
+    from pmf_tpu_torch.ops import cavi_edge as ce
+    from pmf_tpu_torch.ops import ext_edge as ee
+
+    if kid == "K7":
+        return ee.ext_factor_tail_plain(es, eo, so, p.row_ptr, p.other, p.x,
+                                        max_edges=1 << 22, K=k)
+    raw = kid == "K1raw"
+    return ce.tail_edge_stats_plain(es, eo, p.row_ptr, p.other, None if raw else p.x,
+                                    mode="raw" if raw else "cavi", K=k)
+
+
+def _n_long(p, long_row):
+    from pmf_tpu_torch.data.blocked import long_rows
+
+    if long_row is None:
+        return 0
+    return long_rows((p.row_ptr[1:] - p.row_ptr[:-1]).cpu().numpy(), long_row)
+
+
+def _tail_form(kid, form, es, eo, so, p, k):
+    """One launch of another form of K1 / K7, counted nowhere: ``form`` is
+    "previous" (a warp a row, on unpadded tables) or (G, V, D, n_long)."""
+    import torch
+
+    from pmf_tpu_torch.ops import _build
+    from pmf_tpu_torch.ops.cavi_edge import RATE_FLOOR
+
+    out = torch.empty((p.n_self, 2 * k), device="cuda")
+    scratch = _build.LaunchCounter()
+    if form != "previous":
+        g, v, d, n_long = form
+        _build.launch("pmf_tail_plan", scratch, es.device, TAIL_MODE[kid], g, v, d,
+                      es, eo, so, p.row_ptr, p.other, None if kid == "K1raw" else p.x,
+                      p.n_self, n_long, k, RATE_FLOOR, out)
+        return out
+    es, eo = es[:, :k].contiguous(), eo[:, :k].contiguous()
+    if kid == "K1":
+        _build.launch("pmf_cavi_edge_prev", scratch, es.device, es, eo, p.row_ptr,
+                      p.other, p.x, p.n_self, k, RATE_FLOOR, out)
+    elif kid == "K1raw":
+        _build.launch("pmf_cavi_edge_raw_prev", scratch, es.device, es, eo, p.row_ptr,
+                      p.other, p.n_self, k, out)
+    else:
+        _build.launch("pmf_ext_factor_prev", scratch, es.device, es, eo, so, p.row_ptr,
+                      p.other, p.x, p.n_self, k, RATE_FLOOR, out)
+    return out
+
+
+def _tail_forms(k):
+    """The forms beside the kept plan at ``k``: the previous kernel and the
+    other forms of AB_FORMS."""
+    from pmf_tpu_torch.data.blocked import LONG_ROW
+    from pmf_tpu_torch.ops._tail import launch_plan
+
+    plan = launch_plan(k)
+    kept = (plan["lanes"], plan["vec"], plan["in_flight"], LONG_ROW)
+    return ["previous"] + [f for f in AB_FORMS.get(k, []) if f != kept]
+
+
+def _form_name(form):
+    return form if form == "previous" else "G{} V{} D{} L{}".format(*form)
+
+
+def _tail_ab(kid, name, es, eo, so, p, k, ref):
+    """Kept kernel and every other form, each checked against ``ref``
+    (RTOL per element), timed in turns: previous, kept, the others, then
+    the same backwards.  Returns (kept ms, {form: [ms, ms]}), and logs."""
+    from pmf_tpu_torch.data.blocked import LONG_ROW
+    from pmf_tpu_torch.ops._tail import launch_plan
+
+    plan = launch_plan(k)
+    others = _tail_forms(k)  # "previous" first
+    launched = [f if f == "previous" else (*f[:3], _n_long(p, f[3])) for f in others]
+    for f, fl in zip(others, launched):
+        _, rel = compare(_tail_form(kid, fl, es, eo, so, p, k), ref)
+        if not rel <= RTOL:
+            raise AssertionError(f"{kid} {name} K={k} {_form_name(f)}: relative error "
+                                 f"{rel} > {RTOL}")
+    forms = [(_form_name(f), lambda fl=fl: _tail_form(kid, fl, es, eo, so, p, k))
+             for f, fl in zip(others, launched)]
+    forms.insert(1, ("kept", lambda: _tail_kernel(kid, es, eo, so, p, k)))
+    times = {n: [] for n, _ in forms}
+    for n, fn in forms + forms[::-1]:
+        times[n].append(cuda_ms(fn))
+    kept_ms = sum(times["kept"]) / 2
+    log(f"  {kid} {name} K={k} A/B in turns (kept G{plan['lanes']} V{plan['vec']} "
+        f"D{plan['in_flight']} L{LONG_ROW}: {p.long_rows} rows a warp; L64 "
+        f"{_n_long(p, 64)}, L256 {_n_long(p, 256)}): "
+        + " | ".join(f"{n} {t[0]:.4f} {t[1]:.4f} ms" for n, t in times.items()))
+    return kept_ms, times
+
+
+def _tail_reckoning(kid, p, k, self_bytes, out_bytes):
+    """Bytes of one K1 / K7 pass if every gather came from HBM: each
+    edge's id (and rating) once, the 32-byte sectors of its other row at
+    ``tail_stride(k)`` floats a row, K7's scalar sector, and the self
+    table, row pointers and output once."""
+    import torch
+
+    from pmf_tpu_torch.ops._tail import tail_stride
+
+    S = 4 * tail_stride(k)
+    off = (p.other.long() * S) % 32
+    sectors = int(torch.sum((off + S + 31) // 32))
+    per_edge = 4 + (0 if kid == "K1raw" else 4) + (32 if kid == "K7" else 0)
+    return p.nnz * per_edge + 32 * sectors + self_bytes + p.row_ptr.nbytes + out_bytes
+
+
+def _tail_notes(kid, name, es, eo, so, p, k, ms, out_bytes):
+    """Log the per-edge sector reckoning of a K1 / K7 pass and the time of
+    its long rows alone: the first rows of new space up to the last row
+    above 4x the mean length, launched as a pass of their own."""
+    import types
+
+    import torch
+
+    per_edge = _tail_reckoning(kid, p, k, es.nbytes, out_bytes)
+    lens = p.row_ptr[1:] - p.row_ptr[:-1]
+    cut = 4 * p.nnz / max(p.n_self, 1)
+    above = torch.nonzero(lens > cut)
+    n_long = int(above.max()) + 1 if above.numel() else 0
+    line = (f"  {kid} {name} K={k}: per-edge sectors {per_edge:.0f} B "
+            f"({per_edge / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s) | longest row "
+            f"{int(lens.max())}")
+    if n_long:
+        sub = types.SimpleNamespace(row_ptr=p.row_ptr[: n_long + 1], other=p.other,
+                                    x=p.x, n_self=n_long,
+                                    long_rows=min(p.long_rows, n_long))
+        long_ms = cuda_ms(lambda: _tail_kernel(kid, es[:n_long], eo, so, sub, k))
+        edges = int(p.row_ptr[n_long])
+        line += (f" | rows 0..{n_long - 1} hold every row above {cut:.0f} edges "
+                 f"({edges} edges, {edges / p.nnz:.1%}): alone {long_ms:.4f} ms, the "
+                 f"pass {ms:.4f} ms")
+    log(line)
+
+
+def _tail_geometry_ks():
+    """Every K where the row-group plan changes (its first and last K), and
+    K = 3, 7, 20, 50, 70, 127 (padded strides and the timed K)."""
+    from pmf_tpu_torch.ops._tail import GROUP_MAX_K, launch_plan
+
+    plans = [(launch_plan(k)["lanes"], launch_plan(k)["vec"])
+             for k in range(1, GROUP_MAX_K + 1)]
+    edges = {k + 1 for k in range(len(plans))
+             if k == 0 or k == len(plans) - 1 or plans[k] != plans[k - 1]
+             or plans[k] != plans[k + 1]}
+    return sorted(edges | {3, 7, 20, 50, 70, 127})
+
+
+def phase_k17small(blocked):
+    """K1 (both modes) and K7 against their plain versions at every K where
+    the row-group geometry changes, both directions of a small tail, equal
+    bits on a repeat; at K = 20 and 50 also every other form of the A/B."""
+    import torch
+
+    ks = _tail_geometry_ks()
+    worst = dict.fromkeys(TAIL_KERNELS, 0.0)
+    for k in ks:
+        for seed, p in enumerate((blocked.by_user, blocked.by_item)):
+            es, eo, so = _tail_tabs(p.n_self, p.n_other, k, 90 + 2 * k + seed)
+            for kid in TAIL_KERNELS:
+                got = _tail_kernel(kid, es, eo, so, p, k)
+                ref = _tail_plain(kid, es, eo, so, p, k)
+                _, rel = compare(got, ref)
+                tag = f"k17small {kid} K={k} {'user' if seed == 0 else 'item'}"
+                if got.shape != ref.shape or not rel <= RTOL:
+                    raise AssertionError(f"{tag}: relative error {rel} > {RTOL}")
+                if not torch.equal(got, _tail_kernel(kid, es, eo, so, p, k)):
+                    raise AssertionError(f"{tag}: two launches differ in bits")
+                worst[kid] = max(worst[kid], rel)
+                if k in AB_FORMS:
+                    for f in _tail_forms(k):
+                        fl = f if f == "previous" else (*f[:3], _n_long(p, f[3]))
+                        _, rel = compare(_tail_form(kid, fl, es, eo, so, p, k), ref)
+                        if not rel <= RTOL:
+                            raise AssertionError(f"{tag} {_form_name(f)}: relative "
+                                                 f"error {rel} > {RTOL}")
+    torch.cuda.synchronize()
+    log(f"phase k17small: ok | K in {ks} | worst relative error vs plain: "
+        + ", ".join(f"{n} {v:.3e}" for n, v in worst.items())
+        + f" (tol {RTOL}) | repeats equal in bits")
 
 
 def _bigk_gauss_tail(blocked, k):
@@ -766,6 +996,7 @@ def phase_bigk():
     blocked = build_blocked(u, i, x, reorder=True, device="cuda")
     gx = np.random.default_rng(2).standard_normal(len(u)).astype(np.float32)
     gblocked = build_blocked(u, i, gx, reorder=True, device="cuda")
+    phase_k17small(blocked)
     _small_k34(gblocked)
     for k in BIGK_KS:
         worst = _bigk_poisson_tail(blocked, k)
@@ -790,20 +1021,20 @@ def phase_wide_poisson(blocked):
     and of K2 on the real tiers, both directions (CUDA events)."""
     import torch
 
-    from pmf_tpu_torch.ops import cavi_edge as ce
     from pmf_tpu_torch.ops import ext_edge as ee
+    from pmf_tpu_torch.ops._tail import padded_rows
     from pmf_tpu_torch.ops.dense_head import fused_alloc_tier
 
     k = K_WIDE
     gen = torch.Generator(device="cuda").manual_seed(5)
     ms = dict.fromkeys(("K1", "K1raw", "K2", "K7", "K8"), 0.0)
-    for p in (blocked.by_user, blocked.by_item):
+    for name, p in (("user", blocked.by_user), ("item", blocked.by_item)):
         es, eo, so = _pos(gen, p.n_self, k), _pos(gen, p.n_other, k), _pos(gen, p.n_other)
-        csr = (p.row_ptr, p.other)
-        ms["K1"] += cuda_ms(lambda: ce.tail_edge_stats(es, eo, *csr, p.x))
-        ms["K1raw"] += cuda_ms(lambda: ce.tail_edge_stats(es, eo, *csr, None, mode="raw"))
-        ms["K7"] += cuda_ms(lambda: ee.ext_factor_tail(es, eo, so, *csr, p.x))
-        ms["K8"] += cuda_ms(lambda: ee.ext_scalar_tail(es, eo, so, *csr))
+        es_p, eo_p = padded_rows(es), padded_rows(eo)
+        for kid in TAIL_KERNELS:
+            ref = _tail_kernel(kid, es_p, eo_p, so, p, k)
+            ms[kid] += _tail_ab(kid, name, es_p, eo_p, so, p, k, ref)[0]
+        ms["K8"] += cuda_ms(lambda: ee.ext_scalar_tail(es, eo, so, p.row_ptr, p.other))
     for h in blocked.head or ():
         theta = _pos(gen, h.hu, k)
         beta = torch.nn.functional.pad(_pos(gen, h.hi, k), (0, 0, 0, h.hip - h.hi))
@@ -1003,7 +1234,7 @@ def phase_k7k8(blocked):
         csr = (p.row_ptr, p.other)
         args7 = (es, eo, so, *csr, p.x, ee.RATE_FLOOR)
         args8 = (es_new, eo, so, *csr)
-        got7 = ee.ext_factor_tail(*args7)
+        got7 = ee.ext_factor_tail(*args7, long_rows=p.long_rows)
         ref7 = ee.ext_factor_tail_plain(*args7, max_edges=1 << 22)
         got8 = ee.ext_scalar_tail(*args8)
         ref8 = ee.ext_scalar_tail_plain(*args8, max_edges=1 << 22)
@@ -1024,7 +1255,8 @@ def phase_k7k8(blocked):
                  ee.ext_scalar_tail_plain, args8,
                  sum(t.nbytes for t in args8), 3 * K)):
             abs_err, rel_err = compare(got, ref)
-            ms = cuda_ms(lambda: kern(*a))
+            ms = (cuda_ms(lambda: kern(*a)) if label == "K8"
+                  else _tail_ab("K7", name, es, eo, so, p, K, ref)[0])
             plain_ms = cuda_ms(lambda: plain(*a, max_edges=1 << 22), reps=3)
             n_bytes += got.nbytes
             b_ms, b_by = bound(n_bytes, p.nnz * flops)
@@ -1034,6 +1266,8 @@ def phase_k7k8(blocked):
             if not rel_err <= RTOL:
                 raise AssertionError(f"{label} {name}: relative error {rel_err} "
                                      f"> {RTOL}")
+            if label == "K7":
+                _tail_notes("K7", name, es, eo, so, p, K, ms, got.nbytes)
             res["ms"] += ms
             res["plain_ms"] += plain_ms
             res["max_abs_err"] = max(res["max_abs_err"], abs_err)

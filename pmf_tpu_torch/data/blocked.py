@@ -42,6 +42,10 @@ class TailCSR:
     n_other: int
     nnz: int
     reordered: bool
+    # Rows [0, long_rows) hold every row of at least LONG_ROW edges: K1 and
+    # K7 give each of them a whole warp (a schedule; results do not depend
+    # on it).
+    long_rows: int = 0
 
     def max_row_len(self) -> int:
         if self.n_self == 0:
@@ -207,6 +211,18 @@ def _scatter_head(idx: np.ndarray, x: np.ndarray, hu: int, hi: int, r0: int,
     return head
 
 
+# Rows this long get a whole warp in K1 and K7: a group of lanes walking one
+# alone would set the end of the pass (PERF.md, PR 8).
+LONG_ROW = 128
+
+
+def long_rows(counts: np.ndarray, long_row: int = LONG_ROW) -> int:
+    """The fewest leading rows that hold every row of at least ``long_row``
+    edges."""
+    at = np.flatnonzero(counts >= long_row)
+    return int(at[-1]) + 1 if at.size else 0
+
+
 def _tail_csr(s: np.ndarray, o: np.ndarray, x: np.ndarray, n_self: int,
               n_other: int, perms: tuple, reordered: bool, dtype,
               device) -> TailCSR:
@@ -228,6 +244,7 @@ def _tail_csr(s: np.ndarray, o: np.ndarray, x: np.ndarray, n_self: int,
         n_other=int(n_other),
         nnz=int(len(s)),
         reordered=reordered,
+        long_rows=long_rows(counts),
     )
 
 

@@ -12,6 +12,9 @@ kernel (or raises); on a CPU tensor it runs ``tail_edge_stats_plain``,
 the same function in plain PyTorch.  Its ``mode="raw"`` (the reference
 kernel's second mode, which the tensor-parallel extended-Poisson scalar
 pass reads) drops the rating and the rate: ``[sum e_s*e_o | sum e_o]``.
+On the card K1 takes its tables padded to ``_tail.tail_stride(K)``
+columns (``_tail.tail_tables`` builds them inside the permutation) and K
+given apart; its row-group geometry is ``_tail.launch_plan``.
 """
 
 from __future__ import annotations
@@ -21,11 +24,15 @@ import torch
 from pmf_tpu_torch.data.blocked import TailCSR
 from pmf_tpu_torch.ops import _build
 from pmf_tpu_torch.ops._tail import (
+    GROUP_MAX_K,
     add_heads,
     check_head,
+    check_long_rows,
+    check_padded_tables,
     check_tail_args,
     head_out,
     head_tables,
+    tail_tables,
 )
 from pmf_tpu_torch.ops.dense_head import poisson_head_stats, poisson_head_stats_t
 
@@ -33,20 +40,23 @@ RATE_FLOOR = 1e-10
 TAIL_LAUNCHES = _build.LaunchCounter()
 TAIL_RAW_LAUNCHES = _build.LaunchCounter()
 MODES = ("cavi", "raw")
-MAX_K = 128  # ceil(K / 32) <= 4 factors a lane
+MAX_K = GROUP_MAX_K  # at most 32 float4 words a row
 
 
 def tail_edge_stats_plain(e_self: torch.Tensor, e_other: torch.Tensor,
                           row_ptr: torch.Tensor, other: torch.Tensor,
                           x: torch.Tensor | None,
-                          rate_floor: float = RATE_FLOOR, mode: str = "cavi"
-                          ) -> torch.Tensor:
+                          rate_floor: float = RATE_FLOOR, mode: str = "cavi",
+                          K: int | None = None) -> torch.Tensor:
     """(n_self, 2K) [sum x e_s*e_o / max(<e_s, e_o>, floor) | sum e_o] per
     self row of the CSR tail, in the tables' dtype.  ``mode="raw"``:
-    [sum e_s*e_o | sum e_o], and ``x`` may be None."""
+    [sum e_s*e_o | sum e_o], and ``x`` may be None.  Columns of the tables
+    past ``K`` (their width when None) are ignored."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r} {MODES}")
-    n_self, K = e_self.shape
+    K = e_self.shape[1] if K is None else K
+    e_self, e_other = e_self[:, :K], e_other[:, :K]
+    n_self = e_self.shape[0]
     counts = row_ptr[1:] - row_ptr[:-1]
     self_ids = torch.repeat_interleave(
         torch.arange(n_self, device=e_self.device), counts)
@@ -61,38 +71,39 @@ def tail_edge_stats_plain(e_self: torch.Tensor, e_other: torch.Tensor,
     return out
 
 
-def _check_cuda_args(e_self, e_other, row_ptr, other, x):
-    K = e_self.shape[1]
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"tail kernel needs 1 <= K <= {MAX_K}, got K={K}")
-    check_tail_args([("e_self", e_self), ("e_other", e_other)], row_ptr, other,
-                    x, e_self.shape[0])
-    if e_other.shape[1] != K:
-        raise ValueError("e_self and e_other differ in K")
-
-
 def tail_edge_stats(e_self: torch.Tensor, e_other: torch.Tensor,
                     row_ptr: torch.Tensor, other: torch.Tensor,
                     x: torch.Tensor | None, rate_floor: float = RATE_FLOOR,
-                    mode: str = "cavi") -> torch.Tensor:
-    """K1: the tail pass.  CUDA tensors launch the kernel; CPU tensors run
-    the plain version.  ``mode="raw"`` reads no ratings (``x`` may be
+                    mode: str = "cavi", K: int | None = None,
+                    long_rows: int = 0) -> torch.Tensor:
+    """K1: the tail pass at ``K`` factors (the tables' width when None).
+    CUDA tensors launch the kernel, on tables of ``tail_stride(K)``
+    columns, giving each of the first ``long_rows`` rows a whole warp
+    (``TailCSR.long_rows``); CPU tensors run the plain version, which
+    ignores columns past K.  ``mode="raw"`` reads no ratings (``x`` may be
     None) and counts its launches in ``TAIL_RAW_LAUNCHES``."""
     if not e_self.is_cuda:
         return tail_edge_stats_plain(e_self, e_other, row_ptr, other, x,
-                                     rate_floor, mode)
+                                     rate_floor, mode, K)
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r} {MODES}")
     raw = mode == "raw"
-    _check_cuda_args(e_self, e_other, row_ptr, other, None if raw else x)
-    n_self, K = e_self.shape
+    K = e_self.shape[1] if K is None else K
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"tail kernel needs 1 <= K <= {MAX_K}, got K={K}")
+    check_tail_args([("e_self", e_self), ("e_other", e_other)], row_ptr, other,
+                    None if raw else x, e_self.shape[0])
+    check_padded_tables(K, [("e_self", e_self), ("e_other", e_other)])
+    n_self = e_self.shape[0]
+    check_long_rows(long_rows, n_self)
     out = torch.empty((n_self, 2 * K), dtype=torch.float32, device=e_self.device)
     if raw:
         _build.launch("pmf_cavi_edge_raw", TAIL_RAW_LAUNCHES, e_self.device,
-                      e_self, e_other, row_ptr, other, n_self, K, out)
+                      e_self, e_other, row_ptr, other, n_self, long_rows, K, out)
     else:
         _build.launch("pmf_cavi_edge", TAIL_LAUNCHES, e_self.device, e_self,
-                      e_other, row_ptr, other, x, n_self, K, rate_floor, out)
+                      e_other, row_ptr, other, x, n_self, long_rows, K, rate_floor,
+                      out)
     return out
 
 
@@ -106,11 +117,10 @@ def poisson_edge_stats(e_self: torch.Tensor, e_other: torch.Tensor,
     are the head's user axis ("user", by_user pass) or item axis."""
     K = e_self.shape[1]
     heads = check_head(p, head)
-    if p.reordered:
-        e_self = e_self[p.self_old_of_new]
-        e_other = e_other[p.other_old_of_new]
-    acc = tail_edge_stats(e_self.contiguous(), e_other.contiguous(),
-                          p.row_ptr, p.other, p.x, rate_floor)
+    t_self, t_other = tail_tables(e_self, e_other, p)
+    acc = tail_edge_stats(t_self, t_other, p.row_ptr, p.other, p.x, rate_floor, K=K,
+                          long_rows=p.long_rows)
+    e_self, e_other = t_self[:, :K], t_other[:, :K]
     fn = poisson_head_stats if head_side == "user" else poisson_head_stats_t
     acc = add_heads(acc, [
         head_out(tier, head_side, fn(*head_tables(e_self, e_other, tier, head_side),

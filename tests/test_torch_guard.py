@@ -159,14 +159,14 @@ def _forbid(monkeypatch, module, name):
 
 def test_tail_wrapper_raises_instead_of_falling_back(monkeypatch, broken_build):
     _forbid(monkeypatch, cavi_edge, "tail_edge_stats_plain")
-    es = _cuda_looking(torch.rand(4, 3))
-    eo = _cuda_looking(torch.rand(5, 3))
+    es = _cuda_looking(torch.rand(4, 4))  # K = 3, padded to tail_stride(3) = 4
+    eo = _cuda_looking(torch.rand(5, 4))
     row_ptr = _cuda_looking(torch.tensor([0, 1, 1, 2, 3]))
     other = _cuda_looking(torch.tensor([0, 4, 2], dtype=torch.int32))
     x = _cuda_looking(torch.ones(3))
     before = cavi_edge.TAIL_LAUNCHES.count
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        cavi_edge.tail_edge_stats(es, eo, row_ptr, other, x)
+        cavi_edge.tail_edge_stats(es, eo, row_ptr, other, x, K=3)
     assert cavi_edge.TAIL_LAUNCHES.count == before
 
 
@@ -381,6 +381,48 @@ def test_ext_wrappers_reject_what_the_kernels_do_not_take(kernel):
         fn(_cuda_looking(torch.rand(2, K)), *good[1:])  # row_ptr has 4 entries
 
 
+def _tail_call(kernel, es, eo, **kw):
+    """K1 ("K1", "K1raw") or K7 on CUDA-looking tables over a 4-edge tail."""
+    row_ptr, other, x = _csr(3, 5, 4)
+    if kernel == "K7":
+        return ext_edge.ext_factor_tail(es, eo, _cuda_looking(torch.rand(5)), row_ptr,
+                                        other, x, **kw)
+    raw = kernel == "K1raw"
+    return cavi_edge.tail_edge_stats(es, eo, row_ptr, other, None if raw else x,
+                                     mode="raw" if raw else "cavi", **kw)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K1raw", "K7"])
+def test_tail_group_wrappers_take_only_padded_tables(monkeypatch, broken_build, kernel):
+    """On the card K1 and K7 take only tables of tail_stride(K) columns
+    that start on 16 bytes, and 1 <= K <= 128: anything else raises before
+    the build, never pads quietly and never runs the plain version."""
+    module, plain = ((ext_edge, "ext_factor_tail_plain") if kernel == "K7"
+                     else (cavi_edge, "tail_edge_stats_plain"))
+    _forbid(monkeypatch, module, plain)
+    counters = (cavi_edge.TAIL_LAUNCHES, cavi_edge.TAIL_RAW_LAUNCHES,
+                ext_edge.FACTOR_LAUNCHES)
+    before = [c.count for c in counters]
+
+    def tab(n, w):
+        return _cuda_looking(torch.rand(n, w))
+
+    with pytest.raises(ValueError, match="padded to tail_stride"):
+        _tail_call(kernel, tab(3, 5), tab(5, 5))  # K = 5, unpadded
+    with pytest.raises(ValueError, match="padded to tail_stride"):
+        _tail_call(kernel, tab(3, 8), tab(5, 8), K=3)  # padded for another K
+    with pytest.raises(ValueError, match="1 <= K <= 128"):
+        _tail_call(kernel, tab(3, 132), tab(5, 132), K=129)
+    with pytest.raises(ValueError, match="differ in K"):
+        _tail_call(kernel, tab(3, 8), tab(5, 5), K=5)
+    misaligned = torch.rand(5 * 8 + 1)[1:].view(5, 8).as_subclass(_CudaLooking)
+    with pytest.raises(ValueError, match="start on 16 bytes"):
+        _tail_call(kernel, tab(3, 8), misaligned, K=5)
+    with pytest.raises(RuntimeError, match="nvcc not found"):  # reaches the build
+        _tail_call(kernel, tab(3, 8), tab(5, 8), K=5)
+    assert [c.count for c in counters] == before
+
+
 def test_kernel_sources_name_what_they_replace():
     srcs = {p.name: p.read_text() for p in _build.sources()}
     replaces = {
@@ -394,6 +436,8 @@ def test_kernel_sources_name_what_they_replace():
         "ext_edge.cu": ["pmf_tpu/ops/pallas/ext_edge.py::_factor_kernel",
                         "pmf_tpu/ops/pallas/ext_edge.py::_scalar_kernel"],
         "map_grad.cu": ["pmf_tpu/ops/pallas/map_grad.py::_kernel"],
+        "tail_groups.cuh": ["pmf_tpu/ops/pallas/cavi_edge.py::_kernel",
+                            "pmf_tpu/ops/pallas/ext_edge.py::_factor_kernel"],
     }
     assert set(srcs) == set(replaces)
     for name, funcs in replaces.items():
@@ -568,4 +612,4 @@ def test_map_grad_source_names_what_it_replaces_and_its_entry_point():
     assert len(_build.SIGNATURES["pmf_map_grad"]) == 18
     raw = (_build.SRC_DIR / "cavi_edge.cu").read_text()
     assert 'extern "C" int pmf_cavi_edge_raw(' in raw
-    assert len(_build.SIGNATURES["pmf_cavi_edge_raw"]) == 8
+    assert len(_build.SIGNATURES["pmf_cavi_edge_raw"]) == 9  # with the long-row count
