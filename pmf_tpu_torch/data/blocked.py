@@ -212,7 +212,7 @@ def _scatter_head(idx: np.ndarray, x: np.ndarray, hu: int, hi: int, r0: int,
 
 
 # Rows this long get a whole warp in K1 and K7: a group of lanes walking one
-# alone would set the end of the pass (PERF.md, PR 8).
+# alone would set the end of the pass (PERF.md, the K1 and K7 findings).
 LONG_ROW = 128
 
 
