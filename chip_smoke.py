@@ -46,7 +46,8 @@ launch counters) and mprofile (20 steady blocked steps under the profiler).
 
 Before the data, phase bigk: K1 (both modes) and K7 at every K where
 their row-group geometry changes, equal bits on a repeat (phase
-k17small), K3 and K4 at every K where their geometry changes (phase k34small), every kernel at K = 50
+k17small), K3 and K4 at every K where their geometry changes (phase
+k34small), every kernel at K = 50
 and K = 128 vs its plain version on small shapes (K2 on both sides with
 both M types), then
 at K = 50 the small, psmall, gsmall and msmall card-vs-host runs.  Beside
@@ -330,7 +331,7 @@ def phase_k1(blocked):
         got = tail_edge_stats(*args, long_rows=p.long_rows)
         ref = tail_edge_stats_plain(*args)
         abs_err, rel_err = compare(got, ref)
-        ms, _ = _tail_ab("K1", name, es, eo, None, p, K, ref)
+        ms = cuda_ms(lambda: tail_edge_stats(*args, long_rows=p.long_rows))
         plain_ms = cuda_ms(lambda: tail_edge_stats_plain(*args), reps=3)
         n_bytes = (es.nbytes + eo.nbytes + p.row_ptr.nbytes + p.other.nbytes
                    + p.x.nbytes + got.nbytes)
@@ -379,7 +380,7 @@ def phase_k1raw(blocked):
             return torch.cat([es * s_other, s_other], dim=1)
 
         _, lib_rel = compare(library(), ref)
-        ms, _ = _tail_ab("K1raw", name, es, eo, None, p, K, ref)
+        ms = cuda_ms(lambda: tail_edge_stats(*args, mode="raw", long_rows=p.long_rows))
         plain_ms = cuda_ms(lambda: tail_edge_stats_plain(*args, mode="raw"), reps=3)
         lib_ms = cuda_ms(library)
         n_bytes = (es.nbytes + eo.nbytes + p.row_ptr.nbytes + p.other.nbytes
@@ -609,16 +610,6 @@ def _bigk_poisson_tail(blocked, k):
 # ------------------------------------------------- K1 and K7 row groups --
 
 TAIL_KERNELS = ("K1", "K1raw", "K7")
-TAIL_MODE = {"K1": 0, "K1raw": 1, "K7": 2}  # csrc/tail_groups.cuh's Mode
-# Other forms timed beside the kept plan, by K: (G lanes, V words, D edges
-# in flight, rows of at least L edges given a whole warp; None: none).
-AB_FORMS = {
-    20: [(8, 1, 4, None), (8, 1, 4, 64), (8, 1, 4, 256), (8, 1, 4, 512), (4, 2, 4, 128),
-         (2, 4, 4, 128), (8, 1, 8, 128), (4, 2, 8, 128)],
-    50: [(8, 2, 4, None), (8, 2, 4, 64), (8, 2, 4, 256), (8, 2, 4, 512), (16, 1, 4, 128),
-         (4, 4, 4, 128), (8, 2, 8, 128), (16, 1, 8, 128)],
-}
-
 
 def _tail_tabs(n_self, n_other, k, seed):
     """Positive self and other tables padded for K1 and K7, and scalars."""
@@ -655,87 +646,6 @@ def _tail_plain(kid, es, eo, so, p, k):
     raw = kid == "K1raw"
     return ce.tail_edge_stats_plain(es, eo, p.row_ptr, p.other, None if raw else p.x,
                                     mode="raw" if raw else "cavi", K=k)
-
-
-def _n_long(p, long_row):
-    from pmf_tpu_torch.data.blocked import long_rows
-
-    if long_row is None:
-        return 0
-    return long_rows((p.row_ptr[1:] - p.row_ptr[:-1]).cpu().numpy(), long_row)
-
-
-def _tail_form(kid, form, es, eo, so, p, k):
-    """One launch of another form of K1 / K7, counted nowhere: ``form`` is
-    "previous" (a warp a row, on unpadded tables) or (G, V, D, n_long)."""
-    import torch
-
-    from pmf_tpu_torch.ops import _build
-    from pmf_tpu_torch.ops.cavi_edge import RATE_FLOOR
-
-    out = torch.empty((p.n_self, 2 * k), device="cuda")
-    scratch = _build.LaunchCounter()
-    if form != "previous":
-        g, v, d, n_long = form
-        _build.launch("pmf_tail_plan", scratch, es.device, TAIL_MODE[kid], g, v, d,
-                      es, eo, so, p.row_ptr, p.other, None if kid == "K1raw" else p.x,
-                      p.n_self, n_long, k, RATE_FLOOR, out)
-        return out
-    es, eo = es[:, :k].contiguous(), eo[:, :k].contiguous()
-    if kid == "K1":
-        _build.launch("pmf_cavi_edge_prev", scratch, es.device, es, eo, p.row_ptr,
-                      p.other, p.x, p.n_self, k, RATE_FLOOR, out)
-    elif kid == "K1raw":
-        _build.launch("pmf_cavi_edge_raw_prev", scratch, es.device, es, eo, p.row_ptr,
-                      p.other, p.n_self, k, out)
-    else:
-        _build.launch("pmf_ext_factor_prev", scratch, es.device, es, eo, so, p.row_ptr,
-                      p.other, p.x, p.n_self, k, RATE_FLOOR, out)
-    return out
-
-
-def _tail_forms(k):
-    """The forms beside the kept plan at ``k``: the previous kernel and the
-    other forms of AB_FORMS."""
-    from pmf_tpu_torch.data.blocked import LONG_ROW
-    from pmf_tpu_torch.ops._tail import launch_plan
-
-    plan = launch_plan(k)
-    kept = (plan["lanes"], plan["vec"], plan["in_flight"], LONG_ROW)
-    return ["previous"] + [f for f in AB_FORMS.get(k, []) if f != kept]
-
-
-def _form_name(form):
-    return form if form == "previous" else "G{} V{} D{} L{}".format(*form)
-
-
-def _tail_ab(kid, name, es, eo, so, p, k, ref):
-    """Kept kernel and every other form, each checked against ``ref``
-    (RTOL per element), timed in turns: previous, kept, the others, then
-    the same backwards.  Returns (kept ms, {form: [ms, ms]}), and logs."""
-    from pmf_tpu_torch.data.blocked import LONG_ROW
-    from pmf_tpu_torch.ops._tail import launch_plan
-
-    plan = launch_plan(k)
-    others = _tail_forms(k)  # "previous" first
-    launched = [f if f == "previous" else (*f[:3], _n_long(p, f[3])) for f in others]
-    for f, fl in zip(others, launched):
-        _, rel = compare(_tail_form(kid, fl, es, eo, so, p, k), ref)
-        if not rel <= RTOL:
-            raise AssertionError(f"{kid} {name} K={k} {_form_name(f)}: relative error "
-                                 f"{rel} > {RTOL}")
-    forms = [(_form_name(f), lambda fl=fl: _tail_form(kid, fl, es, eo, so, p, k))
-             for f, fl in zip(others, launched)]
-    forms.insert(1, ("kept", lambda: _tail_kernel(kid, es, eo, so, p, k)))
-    times = {n: [] for n, _ in forms}
-    for n, fn in forms + forms[::-1]:
-        times[n].append(cuda_ms(fn))
-    kept_ms = sum(times["kept"]) / 2
-    log(f"  {kid} {name} K={k} A/B in turns (kept G{plan['lanes']} V{plan['vec']} "
-        f"D{plan['in_flight']} L{LONG_ROW}: {p.long_rows} rows a warp; L64 "
-        f"{_n_long(p, 64)}, L256 {_n_long(p, 256)}, L512 {_n_long(p, 512)}): "
-        + " | ".join(f"{n} {t[0]:.4f} {t[1]:.4f} ms" for n, t in times.items()))
-    return kept_ms, times
 
 
 def _tail_reckoning(kid, p, k, self_bytes, out_bytes):
@@ -797,8 +707,8 @@ def _tail_geometry_ks():
 
 def phase_k17small(blocked):
     """K1 (both modes) and K7 against their plain versions at every K where
-    the row-group geometry changes, both directions of a small tail, equal
-    bits on a repeat; at K = 20 and 50 also every other form of the A/B."""
+    the row-group geometry changes, both directions of a small tail (with
+    rows long enough for a warp each), equal bits on a repeat."""
     import torch
 
     ks = _tail_geometry_ks()
@@ -816,13 +726,6 @@ def phase_k17small(blocked):
                 if not torch.equal(got, _tail_kernel(kid, es, eo, so, p, k)):
                     raise AssertionError(f"{tag}: two launches differ in bits")
                 worst[kid] = max(worst[kid], rel)
-                if k in AB_FORMS:
-                    for f in _tail_forms(k):
-                        fl = f if f == "previous" else (*f[:3], _n_long(p, f[3]))
-                        _, rel = compare(_tail_form(kid, fl, es, eo, so, p, k), ref)
-                        if not rel <= RTOL:
-                            raise AssertionError(f"{tag} {_form_name(f)}: relative "
-                                                 f"error {rel} > {RTOL}")
     torch.cuda.synchronize()
     log(f"phase k17small: ok | K in {ks} | worst relative error vs plain: "
         + ", ".join(f"{n} {v:.3e}" for n, v in worst.items())
@@ -1030,12 +933,11 @@ def phase_wide_poisson(blocked):
     k = K_WIDE
     gen = torch.Generator(device="cuda").manual_seed(5)
     ms = dict.fromkeys(("K1", "K1raw", "K2", "K7", "K8"), 0.0)
-    for name, p in (("user", blocked.by_user), ("item", blocked.by_item)):
+    for p in (blocked.by_user, blocked.by_item):
         es, eo, so = _pos(gen, p.n_self, k), _pos(gen, p.n_other, k), _pos(gen, p.n_other)
         es_p, eo_p = padded_rows(es), padded_rows(eo)
         for kid in TAIL_KERNELS:
-            ref = _tail_kernel(kid, es_p, eo_p, so, p, k)
-            ms[kid] += _tail_ab(kid, name, es_p, eo_p, so, p, k, ref)[0]
+            ms[kid] += cuda_ms(lambda: _tail_kernel(kid, es_p, eo_p, so, p, k))
         ms["K8"] += cuda_ms(lambda: ee.ext_scalar_tail(es, eo, so, p.row_ptr, p.other))
     for h in blocked.head or ():
         theta = _pos(gen, h.hu, k)
@@ -1164,8 +1066,8 @@ def phase_fit(train, val, smi):
 
 K2_KERNELS = ("head_user_kernel", "head_item_kernel", "sum_partials_kernel",
               "split_planes_kernel")
-# K1's and K7's kernel in a trace: tail_group_kernel<mode, G, V, ...>, mode
-# 0 ("cavi") or 2 (K7).
+# K1's and K7's kernel in a trace: tail_group_kernel<mode, G, V>, mode 0
+# ("cavi") or 2 (K7).
 K1_TRACE, K7_TRACE = "tail_group_kernel<0,", "tail_group_kernel<2,"
 
 
@@ -1252,16 +1154,15 @@ def phase_k7k8(blocked):
             if not rel <= RTOL:
                 raise AssertionError(f"K8 {name}: library form {label} differs "
                                      f"from the plain version by {rel}")
-        for label, res, got, ref, kern, plain, a, n_bytes, flops in (
+        for label, res, got, ref, kern, plain, a, kw, n_bytes, flops in (
                 ("K7", res7, got7, ref7, ee.ext_factor_tail,
-                 ee.ext_factor_tail_plain, args7,
+                 ee.ext_factor_tail_plain, args7, dict(long_rows=p.long_rows),
                  sum(t.nbytes for t in args7[:6]), 6 * K + 1),
                 ("K8", res8, got8, ref8, ee.ext_scalar_tail,
-                 ee.ext_scalar_tail_plain, args8,
+                 ee.ext_scalar_tail_plain, args8, {},
                  sum(t.nbytes for t in args8), 3 * K)):
             abs_err, rel_err = compare(got, ref)
-            ms = (cuda_ms(lambda: kern(*a)) if label == "K8"
-                  else _tail_ab("K7", name, es, eo, so, p, K, ref)[0])
+            ms = cuda_ms(lambda: kern(*a, **kw))
             plain_ms = cuda_ms(lambda: plain(*a, max_edges=1 << 22), reps=3)
             n_bytes += got.nbytes
             b_ms, b_by = bound(n_bytes, p.nnz * flops)

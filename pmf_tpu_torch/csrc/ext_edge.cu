@@ -14,29 +14,34 @@
 // K8 runs after the row update with the refreshed self rows and has no
 // floor.  Rows without tail edges get zeros.
 //
-// What bounds them on an H100: memory, as K1.  Per edge they move a 4-byte
-// other id (K7 also a 4-byte rating) from HBM, one K-float row of the
-// other table and one scalar; the tables and the scalar vector (<= ~14 MB
-// at 162k x 20 f32) stay resident in the 50 MB L2, so HBM traffic is the
-// CSR arrays plus one read of each table and one write of each output
-// row.  The arithmetic (~6K flops per edge for K7, 3K for K8) is far below
-// the FP32 line; in practice the L2 row gathers' latency sets the time.
+// What bounds them on an H100: instruction issue and L2 gather latency, not
+// bytes.  Per edge they move a 4-byte other id (K7 also a 4-byte rating)
+// from HBM, one K-float row of the other table and one scalar; the tables
+// and the scalar vector (<= ~14 MB at 162k x 20 f32) stay resident in the
+// 50 MB L2, so HBM traffic is the CSR arrays plus one read of each table and
+// one write of each output row.  The arithmetic (~6K flops per edge for K7,
+// 3K for K8) is far below the FP32 line.
 //
-// Design: K1's skeleton.  One warp per self row; lane l holds factors l,
-// l + 32, ... (F = ceil(K / 32) a lane, a template parameter, F <= 4 for
-// K <= 128; factors >= K hold 0).  The scalars are their own array, not a
-// K+1-th table column, so the other rows stay K floats wide: the warp
-// loads 32 edges' ids (and ratings) with one coalesced load, each lane
-// gathers ITS edge's scalar, and the walk over the batch shares id, rating
-// and scalar by __shfl_sync.  Each other row is F coalesced 32-float
-// reads; four edges are in flight at once.  K7 reduces the dot with one
-// __shfl_xor_sync butterfly per edge (the division needs it); K8 is linear
-// in the dot, so each lane sums s * e_self[k] * e_other[k] over the row's
-// edges and the warp reduces once at the end.  Sums run in edge order in
-// registers: no atomics, deterministic results.
+// K7 is the mode kExt instance of tail_groups.cuh (K1's row groups: G lanes
+// a self row, float4 words of tables padded to 4 * ceil(K / 4) floats, a
+// log2(G)-step butterfly an edge, s_o read by every lane of the group from
+// one address beside the row gather); the header holds its design and
+// reckoning.
+//
+// K8 takes a warp a row: one warp per self row; lane l holds
+// factors l, l + 32, ... (F = ceil(K / 32) a lane, a template parameter,
+// F <= 4 for K <= 128; factors >= K hold 0), on unpadded tables.  The warp
+// loads 32 edges' ids with one coalesced load, each lane gathers ITS edge's
+// scalar, and the walk over the batch shares id and scalar by __shfl_sync.
+// Each other row is F coalesced 32-float reads; four edges are in flight at
+// once.  K8 is linear in the dot, so each lane sums s * e_self[k] *
+// e_other[k] over the row's edges and the warp reduces once at the end.
+// Sums run in edge order in registers: no atomics, deterministic results.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tail_groups.cuh"
 
 namespace {
 
@@ -57,88 +62,6 @@ __device__ __forceinline__ void gather_row(const float* __restrict__ tab, int o,
   for (int f = 0; f < F; ++f) {
     const int k = 32 * f + lane;
     eo[f] = k < K ? __ldg(tab + (int64_t)o * K + k) : 0.f;
-  }
-}
-
-template <int F>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-ext_factor_kernel(const float* __restrict__ e_self,
-                  const float* __restrict__ e_other,
-                  const float* __restrict__ s_other,
-                  const int64_t* __restrict__ row_ptr,
-                  const int32_t* __restrict__ other,
-                  const float* __restrict__ x,
-                  int n_self, int K, float rate_floor,
-                  float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_self) return;  // whole warp leaves together
-  float es[F], acc_a[F], acc_w[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) {
-    const int k = 32 * f + lane;
-    es[f] = k < K ? e_self[(int64_t)row * K + k] : 0.f;
-    acc_a[f] = 0.f;
-    acc_w[f] = 0.f;
-  }
-  auto edge = [&](const float (&eo)[F], float xv, float sv) {
-    float p[F];
-    float part = es[0] * eo[0];
-    p[0] = part;
-#pragma unroll
-    for (int f = 1; f < F; ++f) {
-      p[f] = es[f] * eo[f];
-      part += p[f];
-    }
-    const float dot = fmaxf(warp_sum(part), rate_floor);
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      acc_a[f] += (xv / dot) * p[f];
-      acc_w[f] += sv * eo[f];
-    }
-  };
-  const int64_t begin = row_ptr[row];
-  const int64_t end = row_ptr[row + 1];
-  for (int64_t base = begin; base < end; base += 32) {
-    const int64_t left = end - base;
-    const int n = left < 32 ? (int)left : 32;
-    int my_o = 0;
-    float my_x = 0.f, my_s = 0.f;
-    if (lane < n) {
-      my_o = other[base + lane];
-      my_x = x[base + lane];
-      my_s = __ldg(s_other + my_o);
-    }
-    int j = 0;
-    for (; j + 4 <= n; j += 4) {
-      float eo[4][F], xv[4], sv[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int o = __shfl_sync(kFull, my_o, j + q);
-        xv[q] = __shfl_sync(kFull, my_x, j + q);
-        sv[q] = __shfl_sync(kFull, my_s, j + q);
-        gather_row(e_other, o, K, lane, eo[q]);
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) edge(eo[q], xv[q], sv[q]);
-    }
-    for (; j < n; ++j) {
-      const int o = __shfl_sync(kFull, my_o, j);
-      const float xv = __shfl_sync(kFull, my_x, j);
-      const float sv = __shfl_sync(kFull, my_s, j);
-      float eo[F];
-      gather_row(e_other, o, K, lane, eo);
-      edge(eo, xv, sv);
-    }
-  }
-  float* dst = out + (int64_t)row * 2 * K;
-#pragma unroll
-  for (int f = 0; f < F; ++f) {
-    const int k = 32 * f + lane;
-    if (k < K) {
-      dst[k] = acc_a[f];
-      dst[K + k] = acc_w[f];
-    }
   }
 }
 
@@ -219,16 +142,11 @@ ext_scalar_kernel(const float* __restrict__ e_self_new,
 extern "C" int pmf_ext_factor(const float* e_self, const float* e_other,
                               const float* s_other, const int64_t* row_ptr,
                               const int32_t* other, const float* x, int n_self,
-                              int K, float rate_floor, float* out,
+                              int n_long, int K, float rate_floor, float* out,
                               void* stream) {
-  if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
-  if (n_self > 0) {
-    const int blocks = (n_self + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    PMF_LAUNCH_F(ext_factor_kernel, K, blocks, static_cast<cudaStream_t>(stream),
-                 e_self, e_other, s_other, row_ptr, other, x, n_self, K, rate_floor,
-                 out);
-  }
-  return (int)cudaGetLastError();
+  return tail_groups::launch<tail_groups::kExt>(
+      e_self, e_other, s_other, row_ptr, other, x, n_self, n_long, K, rate_floor,
+      out, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int pmf_ext_scalar(const float* e_self_new, const float* e_other,

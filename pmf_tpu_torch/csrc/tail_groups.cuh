@@ -93,13 +93,12 @@ __device__ __forceinline__ float comp(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-// One launch: G lanes a row, V float4 words a lane (G * V >= ceil(K / 4)),
-// D edges in flight a group.  Warps [0, n_long) take rows [0, n_long), one
+// One launch: G lanes a row, V float4 words a lane (G * V >= ceil(K / 4)).  Warps [0, n_long) take rows [0, n_long), one
 // a warp, their 32/G groups each walking a contiguous share of the row's
 // edges; the later warps take 32/G rows each from row n_long on.  e_self
 // and e_other are padded to 4 * ceil(K / 4) floats a row and start on 16
 // bytes; s_other is read in mode kExt only, x in modes kCavi and kExt.
-template <int kMode, int G, int V, int D>
+template <int kMode, int G, int V>
 __global__ void __launch_bounds__(kThreads)
 tail_group_kernel(const float* __restrict__ e_self,
                   const float* __restrict__ e_other,
@@ -112,6 +111,7 @@ tail_group_kernel(const float* __restrict__ e_self,
   constexpr int R = 32 / G;  // groups a warp
   constexpr int B = batch_of(G);
   constexpr int P = B / G;
+  constexpr int D = kInFlight;
   static_assert(B % D == 0 && B % G == 0, "batch must hold whole gathers");
   const int lane = threadIdx.x & 31;
   const int gl = lane & (G - 1);
@@ -285,58 +285,40 @@ tail_group_kernel(const float* __restrict__ e_self,
   }
 }
 
-// One launch of the (G, V, D) instance, or cudaErrorInvalidValue if it is
-// not built, does not cover ceil(K / 4) words or n_long is out of range.
-template <int kMode>
-int launch_gvd(int G, int V, int D, const float* e_self, const float* e_other,
-               const float* s_other, const int64_t* row_ptr, const int32_t* other,
-               const float* x, int n_self, int n_long, int K, float rate_floor,
-               float* out, cudaStream_t stream) {
-  if (K < 1 || K > kMaxK || G * V < (K + 3) / 4 || n_long < 0 || n_long > n_self)
-    return (int)cudaErrorInvalidValue;
-  if (n_self <= 0) return (int)cudaGetLastError();
-  const int64_t warps = n_long + ((int64_t)(n_self - n_long) * G + 31) / 32;
-  const int blocks = (int)((warps + kWarps - 1) / kWarps);
-#define PMF_TAIL_PLAN(G_, V_, D_)                                                  \
-  if (G == G_ && V == V_ && D == D_) {                                             \
-    tail_group_kernel<kMode, G_, V_, D_><<<blocks, kThreads, 0, stream>>>(         \
-        e_self, e_other, s_other, row_ptr, other, x, n_self, n_long, K, rate_floor,\
-        out);                                                                      \
-    return (int)cudaGetLastError();                                                \
-  }
-  PMF_TAIL_PLAN(1, 1, 4)
-  PMF_TAIL_PLAN(2, 1, 4)
-  PMF_TAIL_PLAN(4, 1, 4)
-  PMF_TAIL_PLAN(8, 1, 4)
-  PMF_TAIL_PLAN(8, 2, 4)
-  PMF_TAIL_PLAN(16, 2, 4)
-  PMF_TAIL_PLAN(4, 2, 4)
-  PMF_TAIL_PLAN(16, 1, 4)
-  PMF_TAIL_PLAN(2, 4, 4)
-  PMF_TAIL_PLAN(4, 4, 4)
-  PMF_TAIL_PLAN(8, 1, 8)
-  PMF_TAIL_PLAN(4, 2, 8)
-  PMF_TAIL_PLAN(8, 2, 8)
-  PMF_TAIL_PLAN(16, 1, 8)
-#undef PMF_TAIL_PLAN
-  return (int)cudaErrorInvalidValue;
-}
-
 // The plan for K: W = ceil(K / 4) words a row, span = the power of two at
 // or above W, V = 1 word a lane up to a span of kOneWord and 2 past it, G =
-// span / V lanes a row (ops/_tail.py::launch_plan mirrors it).
+// span / V lanes a row (ops/_tail.py::launch_plan mirrors it).  Warps
+// [0, n_long) take a row each.
 template <int kMode>
 int launch(const float* e_self, const float* e_other, const float* s_other,
            const int64_t* row_ptr, const int32_t* other, const float* x,
            int n_self, int n_long, int K, float rate_floor, float* out,
            cudaStream_t stream) {
-  if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
+  if (K < 1 || K > kMaxK || n_long < 0 || n_long > n_self)
+    return (int)cudaErrorInvalidValue;
+  if (n_self == 0) return (int)cudaGetLastError();
   const int W = (K + 3) / 4;
   int span = 1;
   while (span < W) span *= 2;
   const int V = span <= kOneWord ? 1 : 2;
-  return launch_gvd<kMode>(span / V, V, kInFlight, e_self, e_other, s_other, row_ptr,
-                           other, x, n_self, n_long, K, rate_floor, out, stream);
+  const int G = span / V;
+  const int64_t warps = n_long + ((int64_t)(n_self - n_long) * G + 31) / 32;
+  const int blocks = (int)((warps + kWarps - 1) / kWarps);
+#define PMF_TAIL_PLAN(G_, V_)                                                      \
+  if (G == G_ && V == V_) {                                                        \
+    tail_group_kernel<kMode, G_, V_><<<blocks, kThreads, 0, stream>>>(             \
+        e_self, e_other, s_other, row_ptr, other, x, n_self, n_long, K, rate_floor,\
+        out);                                                                      \
+    return (int)cudaGetLastError();                                                \
+  }
+  PMF_TAIL_PLAN(1, 1)
+  PMF_TAIL_PLAN(2, 1)
+  PMF_TAIL_PLAN(4, 1)
+  PMF_TAIL_PLAN(8, 1)
+  PMF_TAIL_PLAN(8, 2)
+  PMF_TAIL_PLAN(16, 2)
+#undef PMF_TAIL_PLAN
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace tail_groups

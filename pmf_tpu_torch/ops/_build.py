@@ -31,10 +31,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes (every entry returns cudaError_t as int).
 SIGNATURES = {
-    # e_self, e_other, row_ptr, other, x, n_self, K, rate_floor, out, stream
-    "pmf_cavi_edge": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _P],
-    # e_self, e_other, row_ptr, other, n_self, K, out, stream
-    "pmf_cavi_edge_raw": [_P, _P, _P, _P, _I, _I, _P, _P],
+    # e_self, e_other, row_ptr, other, x, n_self, n_long, K, rate_floor, out,
+    # stream
+    "pmf_cavi_edge": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
+    # e_self, e_other, row_ptr, other, n_self, n_long, K, out, stream
+    "pmf_cavi_edge_raw": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     # theta, beta, x_hi, x_lo, m, m_is_f32, rows, hip, K, rate_floor,
     # item_side, n_splits, planes, partial, out, stream
     "pmf_dense_head_tier": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
@@ -47,9 +48,9 @@ SIGNATURES = {
     "pmf_gauss_diag": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
     # mats, R, K, out, stream
     "pmf_gj_inverse": [_P, _I, _I, _P, _P],
-    # e_self, e_other, s_other, row_ptr, other, x, n_self, K, rate_floor,
-    # out, stream
-    "pmf_ext_factor": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P],
+    # e_self, e_other, s_other, row_ptr, other, x, n_self, n_long, K,
+    # rate_floor, out, stream
+    "pmf_ext_factor": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
     # e_self_new, e_other, s_other, row_ptr, other, n_self, K, out, stream
     "pmf_ext_scalar": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
     # self_tab, other_tab, step_off, step, max_pieces, piece_ptr, piece_row,

@@ -1,6 +1,8 @@
 """What the CSR tail passes share: row chunking for the plain versions,
-the argument checks of the kernel wrappers, and the head-tier slices and
-adds of the ``*_stats`` frames (permute, tail, head adds, permute back)."""
+the argument checks of the kernel wrappers, the head-tier slices and adds
+of the ``*_stats`` frames (permute, tail, head adds, permute back), and
+the row-group geometry and padded tables of K1 and K7
+(``csrc/tail_groups.cuh``)."""
 
 from __future__ import annotations
 
@@ -8,6 +10,85 @@ import torch
 
 from pmf_tpu_torch.data.blocked import TailCSR
 from pmf_tpu_torch.ops.dense_head import head_products, head_products_t
+
+# csrc/tail_groups.cuh: kWarps, kInFlight, kMaxK, kOneWord, batch_of.
+GROUP_WARPS = 8
+GROUP_IN_FLIGHT = 4
+GROUP_MAX_K = 128
+GROUP_ONE_WORD = 8
+
+
+def tail_stride(k: int) -> int:
+    """Row width, in floats, of the tables K1 and K7 take on the card:
+    K rounded up to 4, so that every row starts on 16 bytes."""
+    return -(-k // 4) * 4
+
+
+def launch_plan(k: int) -> dict:
+    """The row-group geometry of K1 and K7 at ``k`` factors, as
+    ``tail_groups::launch`` chooses it: ``words`` W = ceil(K / 4) float4
+    words a row; ``lanes`` G a row and ``vec`` V words a lane, V = 1 up
+    to a span of GROUP_ONE_WORD words and 2 past it, G = span / V, for span
+    the power of two at or above W; lane l of a group holds words l, l + G,
+    ...; each lane loads ``batch`` / G edges' ids a batch; ``in_flight``
+    edges a group gathers at once; ``rows_per_warp`` and ``rows_per_cta``
+    (warps past TailCSR.long_rows)."""
+    if not 1 <= k <= GROUP_MAX_K:
+        raise ValueError(f"tail kernel needs 1 <= K <= {GROUP_MAX_K}, got K={k}")
+    words = -(-k // 4)
+    span = 1 << (words - 1).bit_length()
+    vec = 1 if span <= GROUP_ONE_WORD else 2
+    lanes = span // vec
+    return dict(lanes=lanes, vec=vec, words=words, stride=tail_stride(k),
+                batch=max(lanes, 8), in_flight=GROUP_IN_FLIGHT,
+                rows_per_warp=32 // lanes, rows_per_cta=32 * GROUP_WARPS // lanes)
+
+
+def padded_rows(tab: torch.Tensor, rows: torch.Tensor | None = None) -> torch.Tensor:
+    """Rows ``rows`` of ``tab`` (all when None) in a table of
+    ``tail_stride(K)`` columns, zero past K: the rows are gathered straight
+    into the padded table, so padding adds no copy to the permutation."""
+    n, K = tab.shape
+    S = tail_stride(K)
+    if S == K:
+        return tab.contiguous() if rows is None else tab[rows]
+    out = tab.new_empty((n if rows is None else rows.shape[0], S))
+    out[:, K:] = 0
+    if rows is None:
+        out[:, :K] = tab
+    else:
+        torch.index_select(tab, 0, rows, out=out[:, :K])
+    return out
+
+
+def tail_tables(e_self: torch.Tensor, e_other: torch.Tensor, p: TailCSR):
+    """A pass's self and other tables in new space, padded for K1 and K7."""
+    if not p.reordered:
+        return padded_rows(e_self), padded_rows(e_other)
+    return (padded_rows(e_self, p.self_old_of_new),
+            padded_rows(e_other, p.other_old_of_new))
+
+
+def check_padded_tables(K: int, tables) -> None:
+    """Raise unless the (name, tensor) ``tables`` are the padded tables K1
+    and K7 take on the card: 2-D, of one width, ``tail_stride(K)`` columns,
+    starting on 16 bytes."""
+    (name0, t0), *rest = tables
+    for name, t in rest:
+        if t.dim() != 2 or t.shape[1] != t0.shape[1]:
+            raise ValueError(f"{name0} and {name} differ in K")
+    S = tail_stride(K)
+    if t0.shape[1] != S:
+        raise ValueError(f"the tables must be padded to tail_stride(K) = {S} columns "
+                         f"for K={K}, got {t0.shape[1]}")
+    for name, t in tables:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on 16 bytes")
+
+
+def check_long_rows(long_rows: int, n_self: int) -> None:
+    if not 0 <= long_rows <= n_self:
+        raise ValueError(f"long_rows must lie in [0, {n_self}], got {long_rows}")
 
 
 def row_chunks(row_ptr: torch.Tensor, max_edges: int | None):

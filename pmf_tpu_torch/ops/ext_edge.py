@@ -11,14 +11,19 @@ other side's scalar expectations:
 
 Two passes per block: ``ext_factor_stats`` gives (S_alloc, S_wother), the
 rows update, then ``ext_scalar_stats`` gives S_sdot -- the same functions
-as the JAX package's ``pmf_tpu/ops/pallas/ext_edge.py``.  Each permutes
-its tables into count-reordered space, runs its tail kernel over the
-direction's CSR tail, adds each dense head tier's statistics
-(``ops.dense_head``) and maps the result back to the original row order.
+as the JAX package's ``pmf_tpu/ops/pallas/ext_edge.py``.  Each runs its
+tail kernel over the direction's CSR tail in count-reordered space, adds
+each dense head tier's statistics (``ops.dense_head``) and maps the result
+back to the original row order.  ``ext_factor_stats`` gathers the self
+and other factor tables into new space padded to ``_tail.tail_stride(K)``
+columns (``_tail.tail_tables``) and the scalars unpadded;
+``ext_scalar_stats`` permutes its three tables unpadded.
 
 ``ext_factor_tail`` (K7) and ``ext_scalar_tail`` (K8) wrap the kernels of
 ``csrc/ext_edge.cu``: on CUDA tensors they launch (or raise), on CPU
-tensors they run their ``*_plain`` versions.
+tensors they run their ``*_plain`` versions.  K7 is K1's row-group kernel
+(``csrc/tail_groups.cuh``, geometry ``_tail.launch_plan``) and takes the
+padded tables and K given apart.
 """
 
 from __future__ import annotations
@@ -28,8 +33,11 @@ import torch
 from pmf_tpu_torch.data.blocked import TailCSR
 from pmf_tpu_torch.ops import _build
 from pmf_tpu_torch.ops._tail import (
+    GROUP_MAX_K,
     add_heads,
     check_head,
+    check_long_rows,
+    check_padded_tables,
     check_tail_args,
     edges,
     head_out,
@@ -37,22 +45,27 @@ from pmf_tpu_torch.ops._tail import (
     head_tables,
     products,
     row_chunks,
+    tail_tables,
 )
 from pmf_tpu_torch.ops.dense_head import ext_head_stats, ext_head_stats_t
 
 RATE_FLOOR = 1e-10
 FACTOR_LAUNCHES = _build.LaunchCounter()
 SCALAR_LAUNCHES = _build.LaunchCounter()
-MAX_K = 128  # ceil(K / 32) <= 4 factors a lane; the scalars ride their own array
+MAX_K = GROUP_MAX_K  # K8: ceil(K / 32) <= 4 factors a lane
 
 
 def ext_factor_tail_plain(e_self, e_other, s_other, row_ptr, other, x,
                           rate_floor: float = RATE_FLOOR,
-                          max_edges: int | None = None) -> torch.Tensor:
+                          max_edges: int | None = None,
+                          K: int | None = None) -> torch.Tensor:
     """Plain K7: (n_self, 2K) [sum x e_s*e_o / max(<e_s, e_o>, floor) |
     sum s_o e_o] per self row of the CSR tail, in the tables' dtype.
-    ``max_edges`` bounds the edges whose temporaries exist at once."""
-    n_self, K = e_self.shape
+    ``max_edges`` bounds the edges whose temporaries exist at once; columns
+    of the tables past ``K`` (their width when None) are ignored."""
+    K = e_self.shape[1] if K is None else K
+    e_self, e_other = e_self[:, :K], e_other[:, :K]
+    n_self = e_self.shape[0]
     out = torch.zeros((n_self, 2 * K), dtype=e_self.dtype, device=e_self.device)
     for r0, r1 in row_chunks(row_ptr, max_edges):
         local, o, sl = edges(row_ptr, other, r0, r1)
@@ -92,17 +105,27 @@ def _check_cuda_args(e_self, e_other, s_other, row_ptr, other, x):
 
 
 def ext_factor_tail(e_self, e_other, s_other, row_ptr, other, x,
-                    rate_floor: float = RATE_FLOOR) -> torch.Tensor:
-    """K7: the extended factor tail pass.  CUDA tensors launch the kernel;
-    CPU tensors run the plain version."""
+                    rate_floor: float = RATE_FLOOR, K: int | None = None,
+                    long_rows: int = 0) -> torch.Tensor:
+    """K7: the extended factor tail pass at ``K`` factors (the tables'
+    width when None).  CUDA tensors launch the kernel, on tables of
+    ``tail_stride(K)`` columns, giving each of the first ``long_rows`` rows
+    a whole warp (``TailCSR.long_rows``); CPU tensors run the plain
+    version, which ignores columns past K."""
     if not e_self.is_cuda:
         return ext_factor_tail_plain(e_self, e_other, s_other, row_ptr, other,
-                                     x, rate_floor)
+                                     x, rate_floor, K=K)
+    K = e_self.shape[1] if K is None else K
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"extended tail kernels need 1 <= K <= {MAX_K}, got K={K}")
     _check_cuda_args(e_self, e_other, s_other, row_ptr, other, x)
-    n_self, K = e_self.shape
+    check_padded_tables(K, [("e_self", e_self), ("e_other", e_other)])
+    n_self = e_self.shape[0]
+    check_long_rows(long_rows, n_self)
     out = torch.empty((n_self, 2 * K), dtype=torch.float32, device=e_self.device)
     _build.launch("pmf_ext_factor", FACTOR_LAUNCHES, e_self.device, e_self,
-                  e_other, s_other, row_ptr, other, x, n_self, K, rate_floor, out)
+                  e_other, s_other, row_ptr, other, x, n_self, long_rows, K,
+                  rate_floor, out)
     return out
 
 
@@ -135,8 +158,11 @@ def ext_factor_stats(E_self, E_other, s_other, p: TailCSR,
     by_user pass) or item axis.  The scalars follow the pass's other axis."""
     K = E_self.shape[1]
     heads = check_head(p, head)
-    e_self, e_other, s_o = _to_new_space(E_self, E_other, s_other, p)
-    acc = ext_factor_tail(e_self, e_other, s_o, p.row_ptr, p.other, p.x, rate_floor)
+    t_self, t_other = tail_tables(E_self, E_other, p)
+    s_o = s_other[p.other_old_of_new] if p.reordered else s_other.contiguous()
+    acc = ext_factor_tail(t_self, t_other, s_o, p.row_ptr, p.other, p.x, rate_floor,
+                          K=K, long_rows=p.long_rows)
+    e_self, e_other = t_self[:, :K], t_other[:, :K]
     fn = ext_head_stats if head_side == "user" else ext_head_stats_t
     head_outs = []
     for tier in heads:
