@@ -40,15 +40,16 @@
 // shuffle names the full warp; rows are in descending-count order in new
 // space, so a warp's rows have nearly equal lengths.
 //
-// Long rows: a group walking one row alone takes about 0.3 us an edge on
-// the card (the gathers' round trips, not the issue rate), so the item
-// pass's 757-edge rows set its end (0.23 of 0.28 ms at K=20).  The first
-// n_long rows of new space (TailCSR.long_rows: every row of at least
-// LONG_ROW edges lies among them) therefore take a whole warp each: group j
-// walks the j-th contiguous share of the row, and the groups' sums meet by
-// a butterfly over lane offsets G, 2G, ..., 16.  Sums accumulate in
-// registers in a fixed order (edge order within a group): no atomics, equal
-// bits on a repeat.
+// Long rows: a group walks its row one gather round trip at a time, so
+// the item pass's 757-edge rows set its end (on an H100 at K=20 the item
+// pass took 0.26 ms unsplit against the user pass's 0.14 on as many
+// edges, whose rows stop at 112).  The first n_long rows of new space
+// (TailCSR.long_rows: every row of at least LONG_ROW edges lies among
+// them) therefore take a whole warp each: group j walks the j-th
+// contiguous share of the row, and the groups' sums meet by a butterfly
+// over lane offsets G, 2G, ..., 16.  Sums accumulate in registers in a
+// fixed order (edge order within a group): no atomics, equal bits on a
+// repeat.
 
 #pragma once
 
