@@ -340,7 +340,7 @@ def phase_k1(blocked):
         log(f"  K1 {name}: nnz {p.nnz} | max abs err {abs_err:.3e} rel "
             f"{rel_err:.3e} (tol {RTOL}) | kernel {ms:.4f} ms | plain "
             f"{plain_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
-        _tail_notes("K1", name, es, eo, None, p, K, ms, got.nbytes)
+        _tail_notes("K1", name, (es, eo), p, K, ms, got.nbytes)
         if not rel_err <= RTOL:
             raise AssertionError(f"K1 {name}: relative error {rel_err} > {RTOL}")
         res["ms"] += ms
@@ -607,72 +607,111 @@ def _bigk_poisson_tail(blocked, k):
     return worst
 
 
-# ------------------------------------------------- K1 and K7 row groups --
+# ------------------------------------- row groups: K1, K7, K5 and K6 --
 
-TAIL_KERNELS = ("K1", "K1raw", "K7")
+TAIL_KERNELS = ("K1", "K1raw", "K7", "K5", "K6")
+GAUSS_TAIL = ("K5", "K6")  # signed sums: held per column (COL_RTOL)
+# Positions of the self-row tables in a kernel's tables (cut to the long
+# rows in _tail_notes).
+SELF_TABS = {"K1": (0,), "K1raw": (0,), "K7": (0,), "K5": (), "K6": (0, 1)}
 
-def _tail_tabs(n_self, n_other, k, seed):
-    """Positive self and other tables padded for K1 and K7, and scalars."""
+
+def _tail_tabs(kid, n_self, n_other, k, seed):
+    """A kernel's tables in the wrapper's order, padded to tail_stride(k):
+    positive (e_self, e_other[, s_other]) for K1 and K7; Gaussian-state
+    (m_other, b_other) for K5, (m_self, b_self, m_other, sq_other,
+    b_other) for K6, sq = v + m^2."""
     import torch
 
     from pmf_tpu_torch.ops._tail import padded_rows
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return (padded_rows(_pos(gen, n_self, k)), padded_rows(_pos(gen, n_other, k)),
-            _pos(gen, n_other))
+    if kid not in GAUSS_TAIL:
+        es, eo = padded_rows(_pos(gen, n_self, k)), padded_rows(_pos(gen, n_other, k))
+        return (es, eo, _pos(gen, n_other)) if kid == "K7" else (es, eo)
+    m_s, m_o = (0.1 * torch.randn(n, k, generator=gen, device="cuda")
+                for n in (n_self, n_other))
+    b_s, b_o = (0.1 * torch.randn(n, generator=gen, device="cuda")
+                for n in (n_self, n_other))
+    sq_o = 0.1 + 0.5 * torch.rand(n_other, k, generator=gen, device="cuda") + m_o * m_o
+    if kid == "K5":
+        return padded_rows(m_o), b_o
+    return padded_rows(m_s), b_s, padded_rows(m_o), padded_rows(sq_o), b_o
 
 
-def _tail_kernel(kid, es, eo, so, p, k):
-    """The kept K1 ("K1", "K1raw") or K7 wrapper on padded tables, as the
-    fits call it (``p.long_rows`` rows a warp each)."""
+def _tail_kernel(kid, tabs, p, k):
+    """The kept K1 ("K1", "K1raw"), K7, K5 or K6 wrapper on padded tables,
+    as the fits call it (``p.long_rows`` rows a warp each)."""
     from pmf_tpu_torch.ops import cavi_edge as ce
     from pmf_tpu_torch.ops import ext_edge as ee
+    from pmf_tpu_torch.ops import gaussian_edge as ge
 
-    if kid == "K7":
-        return ee.ext_factor_tail(es, eo, so, p.row_ptr, p.other, p.x, K=k,
-                                  long_rows=p.long_rows)
-    raw = kid == "K1raw"
-    return ce.tail_edge_stats(es, eo, p.row_ptr, p.other, None if raw else p.x,
-                              mode="raw" if raw else "cavi", K=k, long_rows=p.long_rows)
+    kw = dict(K=k, long_rows=p.long_rows)
+    if kid == "K1raw":
+        return ce.tail_edge_stats(*tabs, p.row_ptr, p.other, None, mode="raw", **kw)
+    fn = {"K1": ce.tail_edge_stats, "K7": ee.ext_factor_tail,
+          "K5": ge.bias_tail_stats, "K6": ge.diag_tail_stats}[kid]
+    return fn(*tabs, p.row_ptr, p.other, p.x, **kw)
 
 
-def _tail_plain(kid, es, eo, so, p, k):
+def _tail_plain(kid, tabs, p, k):
     from pmf_tpu_torch.ops import cavi_edge as ce
     from pmf_tpu_torch.ops import ext_edge as ee
+    from pmf_tpu_torch.ops import gaussian_edge as ge
 
-    if kid == "K7":
-        return ee.ext_factor_tail_plain(es, eo, so, p.row_ptr, p.other, p.x,
-                                        max_edges=1 << 22, K=k)
-    raw = kid == "K1raw"
-    return ce.tail_edge_stats_plain(es, eo, p.row_ptr, p.other, None if raw else p.x,
-                                    mode="raw" if raw else "cavi", K=k)
+    if kid in ("K1", "K1raw"):
+        raw = kid == "K1raw"
+        return ce.tail_edge_stats_plain(*tabs, p.row_ptr, p.other, None if raw else p.x,
+                                        mode="raw" if raw else "cavi", K=k)
+    fn = {"K7": ee.ext_factor_tail_plain, "K5": ge.bias_tail_stats_plain,
+          "K6": ge.diag_tail_stats_plain}[kid]
+    return fn(*tabs, p.row_ptr, p.other, p.x, max_edges=1 << 22, K=k)
+
+
+def _tail_error(kid, got, ref):
+    """(error, ok): relative per element for K1 and K7's positive sums, per
+    column for K5 and K6's signed ones."""
+    if kid in GAUSS_TAIL:
+        _, col, ok = column_check(got, ref)
+        return col, ok and got.shape == ref.shape
+    _, rel = compare(got, ref)
+    return rel, rel <= RTOL and got.shape == ref.shape
+
+
+def _row_sectors(p, stride_floats, width_floats):
+    """32-byte sectors the tail's edges touch gathering an other row of
+    ``width_floats`` at ``stride_floats`` a row."""
+    import torch
+
+    off = (p.other.long() * (4 * stride_floats)) % 32
+    return int(torch.sum((off + 4 * width_floats + 31) // 32))
 
 
 def _tail_reckoning(kid, p, k, self_bytes, out_bytes):
-    """Bytes of one K1 / K7 pass if every gather came from HBM: each
-    edge's id (and rating) once, the 32-byte sectors of its other row at
-    ``tail_stride(k)`` floats a row, K7's scalar sector, and the self
-    table, row pointers and output once."""
-    import torch
-
+    """Bytes of one tail pass if every gather came from HBM: each edge's id
+    (and rating) once, the 32-byte sectors of its other row at
+    ``tail_stride(k)`` floats a row (K6 two rows: m and v + m^2), a sector
+    for the other row's scalar (K7's s_o, K5's and K6's b_o), and the self
+    tables, row pointers and output once."""
     from pmf_tpu_torch.ops._tail import tail_stride
 
-    S = 4 * tail_stride(k)
-    off = (p.other.long() * S) % 32
-    sectors = int(torch.sum((off + S + 31) // 32))
-    per_edge = 4 + (0 if kid == "K1raw" else 4) + (32 if kid == "K7" else 0)
-    return p.nnz * per_edge + 32 * sectors + self_bytes + p.row_ptr.nbytes + out_bytes
+    S = tail_stride(k)
+    rows = 2 if kid == "K6" else 1
+    per_edge = 4 + (0 if kid == "K1raw" else 4) + (32 if kid in ("K7", "K5", "K6") else 0)
+    return (p.nnz * per_edge + 32 * rows * _row_sectors(p, S, S) + self_bytes
+            + p.row_ptr.nbytes + out_bytes)
 
 
-def _tail_notes(kid, name, es, eo, so, p, k, ms, out_bytes):
-    """Log the per-edge sector reckoning of a K1 / K7 pass and the time of
-    its long rows alone: the first rows of new space up to the last row
+def _tail_notes(kid, name, tabs, p, k, ms, out_bytes):
+    """Log the per-edge sector reckoning of a row-group pass and the time
+    of its long rows alone: the first rows of new space up to the last row
     above 4x the mean length, launched as a pass of their own."""
     import types
 
     import torch
 
-    per_edge = _tail_reckoning(kid, p, k, es.nbytes, out_bytes)
+    self_bytes = sum(tabs[i].nbytes for i in SELF_TABS[kid])
+    per_edge = _tail_reckoning(kid, p, k, self_bytes, out_bytes)
     lens = p.row_ptr[1:] - p.row_ptr[:-1]
     cut = 4 * p.nnz / max(p.n_self, 1)
     above = torch.nonzero(lens > cut)
@@ -684,7 +723,9 @@ def _tail_notes(kid, name, es, eo, so, p, k, ms, out_bytes):
         sub = types.SimpleNamespace(row_ptr=p.row_ptr[: n_long + 1], other=p.other,
                                     x=p.x, n_self=n_long,
                                     long_rows=min(p.long_rows, n_long))
-        long_ms = cuda_ms(lambda: _tail_kernel(kid, es[:n_long], eo, so, sub, k))
+        cut_tabs = tuple(t[:n_long] if i in SELF_TABS[kid] else t
+                         for i, t in enumerate(tabs))
+        long_ms = cuda_ms(lambda: _tail_kernel(kid, cut_tabs, sub, k))
         edges = int(p.row_ptr[n_long])
         line += (f" | rows 0..{n_long - 1} hold every row above {cut:.0f} edges "
                  f"({edges} edges, {edges / p.nnz:.1%}): alone {long_ms:.4f} ms, the "
@@ -693,7 +734,7 @@ def _tail_notes(kid, name, es, eo, so, p, k, ms, out_bytes):
 
 
 def _tail_geometry_ks():
-    """Every K where the row-group plan changes (its first and last K), and
+    """Every K where a row-group plan changes (its first and last K), and
     K = 3, 7, 20, 50, 70, 127 (padded strides and the timed K)."""
     from pmf_tpu_torch.ops._tail import GROUP_MAX_K, launch_plan
 
@@ -705,31 +746,33 @@ def _tail_geometry_ks():
     return sorted(edges | {3, 7, 20, 50, 70, 127})
 
 
-def phase_k17small(blocked):
-    """K1 (both modes) and K7 against their plain versions at every K where
-    the row-group geometry changes, both directions of a small tail (with
-    rows long enough for a warp each), equal bits on a repeat."""
+def phase_k17small(blocked, gblocked):
+    """K1 (both modes), K7, K5 and K6 against their plain versions at every
+    K where a row-group plan changes, both directions of a small tail (with
+    rows long enough for a warp each; the Gaussian ratings for K5 and K6),
+    equal bits on a repeat."""
     import torch
 
     ks = _tail_geometry_ks()
     worst = dict.fromkeys(TAIL_KERNELS, 0.0)
     for k in ks:
-        for seed, p in enumerate((blocked.by_user, blocked.by_item)):
-            es, eo, so = _tail_tabs(p.n_self, p.n_other, k, 90 + 2 * k + seed)
-            for kid in TAIL_KERNELS:
-                got = _tail_kernel(kid, es, eo, so, p, k)
-                ref = _tail_plain(kid, es, eo, so, p, k)
-                _, rel = compare(got, ref)
+        for kid in TAIL_KERNELS:
+            lay = gblocked if kid in GAUSS_TAIL else blocked
+            for seed, p in enumerate((lay.by_user, lay.by_item)):
+                tabs = _tail_tabs(kid, p.n_self, p.n_other, k, 90 + 2 * k + seed)
+                got = _tail_kernel(kid, tabs, p, k)
+                err, ok = _tail_error(kid, got, _tail_plain(kid, tabs, p, k))
                 tag = f"k17small {kid} K={k} {'user' if seed == 0 else 'item'}"
-                if got.shape != ref.shape or not rel <= RTOL:
-                    raise AssertionError(f"{tag}: relative error {rel} > {RTOL}")
-                if not torch.equal(got, _tail_kernel(kid, es, eo, so, p, k)):
+                if not ok:
+                    raise AssertionError(f"{tag}: error {err} over tolerance")
+                if not torch.equal(got, _tail_kernel(kid, tabs, p, k)):
                     raise AssertionError(f"{tag}: two launches differ in bits")
-                worst[kid] = max(worst[kid], rel)
+                worst[kid] = max(worst[kid], err)
     torch.cuda.synchronize()
-    log(f"phase k17small: ok | K in {ks} | worst relative error vs plain: "
+    log(f"phase k17small: ok | K in {ks} | worst error vs plain: "
         + ", ".join(f"{n} {v:.3e}" for n, v in worst.items())
-        + f" (tol {RTOL}) | repeats equal in bits")
+        + f" (K1, K1raw, K7 relative, tol {RTOL}; K5, K6 per column, tol {COL_RTOL}) "
+        "| repeats equal in bits")
 
 
 def _bigk_gauss_tail(blocked, k):
@@ -742,15 +785,12 @@ def _bigk_gauss_tail(blocked, k):
     worst = dict.fromkeys(("K3", "K5", "K6"), 0.0)
     for _, p, (m_s, _, b_s, _), (m_o, V_o, b_o, v_o) in _new_space_gauss(blocked, k):
         aug3 = _k3_table(m_o, V_o, b_o, k)
-        aug5 = torch.cat([m_o, b_o[:, None]], dim=1).contiguous()
-        aug6 = torch.cat([m_o, v_o + m_o * m_o, b_o[:, None]], dim=1).contiguous()
-        self6 = torch.cat([m_s, b_s[:, None]], dim=1).contiguous()
         csr = (p.row_ptr, p.other, p.x)
         cases = [("K3", ge.factor_tail_stats, ge.factor_tail_stats_plain,
                   (aug3, *csr, k, wbs)) for wbs in (False, True)]
-        cases += [("K5", ge.bias_tail_stats, ge.bias_tail_stats_plain, (aug5, *csr)),
-                  ("K6", ge.diag_tail_stats, ge.diag_tail_stats_plain,
-                   (aug6, self6, *csr))]
+        cases += [(kid, *_gauss_tail_fns(kid, p, k),
+                   (*_gauss_tail_tabs(kid, m_s, b_s, m_o, v_o, b_o), *csr))
+                  for kid in GAUSS_TAIL]
         for name, kern, plain, args in cases:
             got, ref = kern(*args), plain(*args, max_edges=1 << 13)
             _, col, ok = column_check(got, ref)
@@ -760,6 +800,28 @@ def _bigk_gauss_tail(blocked, k):
                 raise AssertionError(f"bigk {name} K={k}: two runs differ in bits")
             worst[name] = max(worst[name], col)
     return worst
+
+
+def _gauss_tail_tabs(kid, m_s, b_s, m_o, v_o, b_o):
+    """K5's or K6's tables in new space, padded as gaussian_bias_stats and
+    gaussian_diag_stats build them."""
+    from pmf_tpu_torch.ops._tail import padded_rows
+
+    if kid == "K5":
+        return padded_rows(m_o), b_o.contiguous()
+    return (padded_rows(m_s), b_s.contiguous(), padded_rows(m_o),
+            padded_rows(v_o + m_o * m_o), b_o.contiguous())
+
+
+def _gauss_tail_fns(kid, p, k):
+    """(kernel, plain) of K5 or K6 at ``k``, the kernel giving ``p``'s long
+    rows a warp each; both take the tables and the CSR."""
+    from pmf_tpu_torch.ops import gaussian_edge as ge
+
+    kern, plain = ((ge.bias_tail_stats, ge.bias_tail_stats_plain) if kid == "K5"
+                   else (ge.diag_tail_stats, ge.diag_tail_stats_plain))
+    return (lambda *a: kern(*a, K=k, long_rows=p.long_rows),
+            lambda *a, max_edges=None: plain(*a, K=k, max_edges=max_edges))
 
 
 def _small_k34(blocked, ks=(1, 2, 5, 7, 8, 9, 16, 17, 20, 24, 25, 30, 31, 32, 33, 48,
@@ -901,7 +963,7 @@ def phase_bigk():
     blocked = build_blocked(u, i, x, reorder=True, device="cuda")
     gx = np.random.default_rng(2).standard_normal(len(u)).astype(np.float32)
     gblocked = build_blocked(u, i, gx, reorder=True, device="cuda")
-    phase_k17small(blocked)
+    phase_k17small(blocked, gblocked)
     _small_k34(gblocked)
     for k in BIGK_KS:
         worst = _bigk_poisson_tail(blocked, k)
@@ -936,8 +998,9 @@ def phase_wide_poisson(blocked):
     for p in (blocked.by_user, blocked.by_item):
         es, eo, so = _pos(gen, p.n_self, k), _pos(gen, p.n_other, k), _pos(gen, p.n_other)
         es_p, eo_p = padded_rows(es), padded_rows(eo)
-        for kid in TAIL_KERNELS:
-            ms[kid] += cuda_ms(lambda: _tail_kernel(kid, es_p, eo_p, so, p, k))
+        for kid, tabs in (("K1", (es_p, eo_p)), ("K1raw", (es_p, eo_p)),
+                          ("K7", (es_p, eo_p, so))):
+            ms[kid] += cuda_ms(lambda: _tail_kernel(kid, tabs, p, k))
         ms["K8"] += cuda_ms(lambda: ee.ext_scalar_tail(es, eo, so, p.row_ptr, p.other))
     for h in blocked.head or ():
         theta = _pos(gen, h.hu, k)
@@ -964,12 +1027,9 @@ def phase_wide_gauss(blocked):
     k3 = phase_k3(blocked, k, f"bigk timing K3 (K={k})", check=False)
     ms["K3"] = k3["ms"]
     for _, p, (m_s, _, b_s, _), (m_o, _, b_o, v_o) in _new_space_gauss(blocked, k):
-        csr = (p.row_ptr, p.other, p.x)
-        aug5 = torch.cat([m_o, b_o[:, None]], dim=1).contiguous()
-        aug6 = torch.cat([m_o, v_o + m_o * m_o, b_o[:, None]], dim=1).contiguous()
-        self6 = torch.cat([m_s, b_s[:, None]], dim=1).contiguous()
-        ms["K5"] += cuda_ms(lambda: ge.bias_tail_stats(aug5, *csr))
-        ms["K6"] += cuda_ms(lambda: ge.diag_tail_stats(aug6, self6, *csr))
+        for kid in GAUSS_TAIL:
+            tabs = _gauss_tail_tabs(kid, m_s, b_s, m_o, v_o, b_o)
+            ms[kid] += cuda_ms(lambda: _tail_kernel(kid, tabs, p, k))
     P = _spd(N_ITEMS, 128, 3)
     _k4_check(P, f"K=128, {N_ITEMS} matrices", 128, check_plain=False)
     del P
@@ -1066,9 +1126,10 @@ def phase_fit(train, val, smi):
 
 K2_KERNELS = ("head_user_kernel", "head_item_kernel", "sum_partials_kernel",
               "split_planes_kernel")
-# K1's and K7's kernel in a trace: tail_group_kernel<mode, G, V>, mode 0
-# ("cavi") or 2 (K7).
+# The row-group kernels in a trace: tail_group_kernel<mode, G, V>, mode 0
+# (K1 "cavi"), 2 (K7), 3 (K5) or 4 (K6).
 K1_TRACE, K7_TRACE = "tail_group_kernel<0,", "tail_group_kernel<2,"
+K5_TRACE, K6_TRACE = "tail_group_kernel<3,", "tail_group_kernel<4,"
 
 
 def phase_profile(model, train, smi):
@@ -1173,7 +1234,7 @@ def phase_k7k8(blocked):
                 raise AssertionError(f"{label} {name}: relative error {rel_err} "
                                      f"> {RTOL}")
             if label == "K7":
-                _tail_notes("K7", name, es, eo, so, p, K, ms, got.nbytes)
+                _tail_notes("K7", name, (es, eo, so), p, K, ms, got.nbytes)
             res["ms"] += ms
             res["plain_ms"] += plain_ms
             res["max_abs_err"] = max(res["max_abs_err"], abs_err)
@@ -1191,7 +1252,9 @@ def phase_k7k8(blocked):
     for res in (res7, res8):
         res["bound_ms"], res["bound_by"] = bound(res["n_bytes"], res["n_flops"])
     res7["library_ms"] = None  # a per-edge x / max(<.,.>, floor) inside the sums
-    res8["library_ms"] = min(res8["identity_ms"], res8["sparse_ms"])
+    # K8's library time is the call on K8's own inputs; the identity form
+    # reads K7's output and stays on its log line.
+    res8["library_ms"] = res8["sparse_ms"]
     log(f"phase K7: ok | per sweep: kernel {res7['ms']:.4f} ms, plain "
         f"{res7['plain_ms']:.4f} ms, bound {res7['bound_ms']:.4f} ms "
         f"({res7['bound_by']}), library: none for the allocation half; the "
@@ -1924,45 +1987,51 @@ def _csr_ones(p):
                                        size=(p.n_self, p.n_other))
 
 
-def _tail_phase(label, blocked, make_args, kernel, plain, n_bytes_fn,
-                n_flops_per_edge, library_fn=None, no_library=""):
-    """Kernel vs plain version (column criterion), times and bound, both
-    directions; returns the per-sweep sums.  ``library_fn`` times
-    torch.sparse.mm over the pass-through bulk; ``no_library`` says why a
-    pass has none."""
+def _tail_phase(kid, blocked, n_flops_per_edge, library=None, no_library=""):
+    """K5 or K6 vs its plain version (column criterion) on the tables the
+    fits build, equal bits on a repeat, times and bound, the per-edge
+    sector reckoning and the long rows alone, both directions; returns the
+    per-sweep sums.  ``library`` times torch.sparse.mm over the
+    pass-through bulk; ``no_library`` says why a pass has none."""
+    import torch
+
     res = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, n_bytes=0.0, n_flops=0.0,
-               library_ms=0.0 if library_fn else None)
-    for name, p, s, o in _new_space_gauss(blocked):
-        args = make_args(p, s, o)
-        got = kernel(*args)
-        ref = plain(*args, max_edges=1 << 21)
+               library_ms=0.0 if library else None)
+    for name, p, (m_s, _, b_s, _), (m_o, _, b_o, v_o) in _new_space_gauss(blocked):
+        tabs = _gauss_tail_tabs(kid, m_s, b_s, m_o, v_o, b_o)
+        got = _tail_kernel(kid, tabs, p, K)
+        ref = _tail_plain(kid, tabs, p, K)
         abs_err, worst, ok = column_check(got, ref)
-        ms = cuda_ms(lambda: kernel(*args))
-        plain_ms = cuda_ms(lambda: plain(*args, max_edges=1 << 21), reps=3)
-        n_bytes = n_bytes_fn(args) + got.nbytes
+        if not ok:
+            raise AssertionError(f"{kid} {name}: column error {worst} > {COL_RTOL}")
+        if not torch.equal(got, _tail_kernel(kid, tabs, p, K)):
+            raise AssertionError(f"{kid} {name}: two runs differ in bits")
+        ms = cuda_ms(lambda: _tail_kernel(kid, tabs, p, K))
+        plain_ms = cuda_ms(lambda: _tail_plain(kid, tabs, p, K), reps=3)
+        n_bytes = (sum(t.nbytes for t in tabs) + p.row_ptr.nbytes + p.other.nbytes
+                   + p.x.nbytes + got.nbytes)
         n_flops = p.nnz * n_flops_per_edge
         b_ms, b_by = bound(n_bytes, n_flops)
         lib = f" | library: none ({no_library})"
-        if library_fn:
-            lib_ms = cuda_ms(library_fn(p, args))
+        if library:
+            lib_ms = cuda_ms(library(p, m_o, b_o))
             res["library_ms"] += lib_ms
             lib = f" | library (torch.sparse.mm, pass-through bulk only) {lib_ms:.4f} ms"
-        log(f"  {label} {name}: nnz {p.nnz} | max abs err {abs_err:.3e} | worst "
-            f"column max|err|/max|plain| {worst:.3e} (tol {COL_RTOL}) | kernel "
-            f"{ms:.4f} ms | plain {plain_ms:.4f} ms{lib} | bound {b_ms:.4f} ms "
-            f"({b_by})")
-        if not ok:
-            raise AssertionError(f"{label} {name}: column error {worst} > {COL_RTOL}")
+        log(f"  {kid} {name}: nnz {p.nnz} | max abs err {abs_err:.3e} | worst "
+            f"column max|err|/max|plain| {worst:.3e} (tol {COL_RTOL}) | repeat equal in "
+            f"bits | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms{lib} | bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        _tail_notes(kid, name, tabs, p, K, ms, got.nbytes)
         res["ms"] += ms
         res["plain_ms"] += plain_ms
         res["max_abs_err"] = max(res["max_abs_err"], abs_err)
         res["n_bytes"] += n_bytes
         res["n_flops"] += n_flops
     res["bound_ms"], res["bound_by"] = bound(res["n_bytes"], res["n_flops"])
-    log(f"phase {label}: ok | per sweep: kernel {res['ms']:.4f} ms, plain "
+    log(f"phase {kid}: ok | per sweep: kernel {res['ms']:.4f} ms, plain "
         f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
         f"({res['bound_by']})" + (f", library {res['library_ms']:.4f} ms"
-                                  if library_fn else ""))
+                                  if library else ""))
     return res
 
 
@@ -2072,41 +2141,132 @@ def phase_k5(blocked):
     """K5, the bias tail pass; library: CSR-ones @ [m | b] (all but sum x)."""
     import torch
 
-    from pmf_tpu_torch.ops import gaussian_edge as ge
+    def library(p, m_o, b_o):
+        csr, mb = _csr_ones(p), torch.cat([m_o, b_o[:, None]], dim=1)
+        return lambda: torch.sparse.mm(csr, mb)
 
-    def make_args(p, s, o):
-        m, _, b, _ = o
-        return (torch.cat([m, b[:, None]], dim=1).contiguous(), p.row_ptr,
-                p.other, p.x)
-
-    def library(p, args):
-        csr = _csr_ones(p)
-        return lambda: torch.sparse.mm(csr, args[0])
-
-    return _tail_phase(
-        "K5", blocked, make_args, ge.bias_tail_stats, ge.bias_tail_stats_plain,
-        lambda a: sum(t.nbytes for t in a), K + 2, library)
+    return _tail_phase("K5", blocked, K + 2, library)
 
 
 def phase_k6(blocked):
     """K6, the diag tail pass; no library call computes it (a per-edge
     dot with the self row weights every term)."""
+    # per edge: dot 2K, resid 2, m * (resid - pred) 2K, sq K, m^2 2K
+    return _tail_phase("K6", blocked, 7 * K + 2,
+                       no_library="a per-edge dot with the self row weights every term")
+
+
+AB_KS = (20, 50)  # the K of the K5 / K6 form A/B
+
+
+def _ab_forms(k):
+    """The forms timed in turns at ``k``: (kernel, label, mode, (G, V, D));
+    "previous" is the warp-a-row kernel, "plan" the kept plan, "record" K5
+    on one [m | b] record a row of tail_stride(K + 1) floats."""
+    from pmf_tpu_torch.ops._tail import launch_plan
+
+    plan = launch_plan(k)
+    G, V = plan["lanes"], plan["vec"]
+    rec = launch_plan(k + 1)
+    other = (16, 1) if V == 2 else None
+    forms = [("K5", "previous", None, None), ("K5", f"plan G{G} V{V}", 3, (G, V, 4)),
+             ("K5", f"record G{rec['lanes']} V{rec['vec']}", 5,
+              (rec["lanes"], rec["vec"], 4)),
+             ("K6", "previous", None, None), ("K6", f"plan G{G} V{V}", 4, (G, V, 4)),
+             ("K6", f"G{G} V{V} D2", 4, (G, V, 2))]
+    if other:
+        forms += [("K5", "G16 V1", 3, (16, 1, 4)), ("K6", "G16 V1", 4, (16, 1, 4)),
+                  ("K6", "G16 V1 D2", 4, (16, 1, 2))]
+    return forms
+
+
+def phase_k56ab(blocked):
+    """The previous K5 and K6 (a warp a row) beside the row-group forms, in
+    turns on the real tail at K = 20 and 50, per direction; each form
+    checked against the plain version first."""
     import torch
 
+    from pmf_tpu_torch.ops import _build
     from pmf_tpu_torch.ops import gaussian_edge as ge
+    from pmf_tpu_torch.ops._tail import padded_rows, tail_stride
 
-    def make_args(p, s, o):
-        m_o, _, b_o, v_o = o
-        m_s, _, b_s, _ = s
-        aug = torch.cat([m_o, v_o + m_o * m_o, b_o[:, None]], dim=1).contiguous()
-        self_tab = torch.cat([m_s, b_s[:, None]], dim=1).contiguous()
-        return (aug, self_tab, p.row_ptr, p.other, p.x)
+    counter = _build.LaunchCounter()
+    for k in AB_KS:
+        forms = _ab_forms(k)
+        for name, p in (("user", blocked.by_user), ("item", blocked.by_item)):
+            gen = torch.Generator(device="cuda").manual_seed(7 + k)
+            m_s, m_o = (0.1 * torch.randn(n, k, generator=gen, device="cuda")
+                        for n in (p.n_self, p.n_other))
+            b_s, b_o = (0.1 * torch.randn(n, generator=gen, device="cuda")
+                        for n in (p.n_self, p.n_other))
+            sq_o = 0.1 + 0.5 * torch.rand(p.n_other, k, generator=gen, device="cuda")
+            sq_o += m_o * m_o
+            tabs = {"K5": (padded_rows(m_o), b_o),
+                    "K6": (padded_rows(m_s), b_s, padded_rows(m_o), padded_rows(sq_o),
+                           b_o)}
+            aug5 = torch.cat([m_o, b_o[:, None]], dim=1).contiguous()
+            aug6 = torch.cat([m_o, sq_o, b_o[:, None]], dim=1).contiguous()
+            self6 = torch.cat([m_s, b_s[:, None]], dim=1).contiguous()
+            rec = padded_rows(aug5)
+            refs = {kid: _tail_plain(kid, tabs[kid], p, k) for kid in GAUSS_TAIL}
+            csr = (p.row_ptr, p.other, p.x)
 
-    # per edge: dot 2K, resid 2, m * (resid - pred) 2K, sq K, m^2 2K
-    return _tail_phase(
-        "K6", blocked, make_args, ge.diag_tail_stats, ge.diag_tail_stats_plain,
-        lambda a: sum(t.nbytes for t in a), 7 * K + 2,
-        no_library="a per-edge dot with the self row weights every term")
+            def run(kid, mode, geo, tabs=tabs, aug5=aug5, aug6=aug6, self6=self6,
+                    rec=rec, csr=csr, p=p):
+                dev = p.row_ptr.device
+                if mode is None:  # the previous kernel
+                    out = torch.empty((p.n_self, k + 2 if kid == "K5" else 3 * k),
+                                      device=dev)
+                    if kid == "K5":
+                        _build.launch("pmf_gauss_bias_prev", counter, dev, aug5, *csr,
+                                      p.n_self, k, out)
+                    else:
+                        _build.launch("pmf_gauss_diag_prev", counter, dev, aug6, self6,
+                                      *csr, p.n_self, k, out)
+                    return out
+                if mode == 5:
+                    out = torch.empty((p.n_self, k + 2), device=dev)
+                    _build.launch("pmf_gauss_tail_form", counter, dev, mode, *geo, None,
+                                  None, rec, None, None, *csr, p.n_self, p.long_rows,
+                                  k + 1, out)
+                    return out
+                if kid == "K5":
+                    m_self = b_self = sq = None
+                    m_oth, b_oth = tabs["K5"]
+                    width = k + 2
+                else:
+                    m_self, b_self, m_oth, sq, b_oth = tabs["K6"]
+                    width = 3 * k
+                out = torch.empty((p.n_self, width), device=dev)
+                _build.launch("pmf_gauss_tail_form", counter, dev, mode, *geo, m_self,
+                              b_self, m_oth, sq, b_oth, *csr, p.n_self, p.long_rows, k,
+                              out)
+                return out
+
+            for kid, label, mode, geo in forms:
+                _, col, ok = column_check(run(kid, mode, geo), refs[kid])
+                if not ok:
+                    raise AssertionError(f"k56ab {kid} {label} K={k} {name}: column "
+                                         f"error {col} > {COL_RTOL}")
+            turns = {i: [] for i in range(len(forms))}
+            for order in (range(len(forms)), reversed(range(len(forms)))):
+                for i in order:
+                    kid, _, mode, geo = forms[i]
+                    turns[i].append(cuda_ms(lambda: run(kid, mode, geo)))
+            S = 4 * tail_stride(k)
+            rec_sectors = _row_sectors(p, tail_stride(k + 1), k + 1)
+            m_sectors = _row_sectors(p, tail_stride(k), tail_stride(k))
+            log(f"  k56ab K={k} {name}: K5 sectors an edge: m rows {m_sectors / p.nnz:.3f} "
+                f"+ b 1 (stride {S} B) against [m | b] records "
+                f"{rec_sectors / p.nnz:.3f} (stride {4 * tail_stride(k + 1)} B)")
+            for i, (kid, label, _, _) in enumerate(forms):
+                t = turns[i]
+                log(f"  k56ab K={k} {name}: {kid} {label}: {t[0]:.4f} {t[1]:.4f} ms "
+                    f"(mean {(t[0] + t[1]) / 2:.4f})")
+    del counter
+    torch.cuda.synchronize()
+    log(f"phase k56ab: ok | K in {list(AB_KS)}, both directions, every form within "
+        f"{COL_RTOL} per column of the plain version")
 
 
 def phase_ghead(blocked):
@@ -2364,7 +2524,9 @@ def phase_gfit(train, val, smi):
 
 def phase_gprofile(full, diag, train, smi):
     """Steady sweep times (CUDA events over chained sweeps) of both
-    configurations and one exact sweep under torch.profiler."""
+    configurations, and one exact and one diag sweep under torch.profiler:
+    busy time, idle share and parts.  The diag sweep's steady time is paced
+    by the host; its busy time shows K6."""
     import torch
 
     from pmf_tpu_torch.models.gaussian_mf import sweep_blocked
@@ -2392,34 +2554,35 @@ def phase_gprofile(full, diag, train, smi):
         steady[name] = cuda_ms(one_sweep, reps=5)
         log(f"  steady {name} sweep: {steady[name]:.4f} ms | "
             f"{4 * nnz / steady[name] / 1e3:.1f}M updates/s (4 x nnz) | {smi}")
-    expect = {"::factor_kernel": 2, "gj_inverse": 2, "bias_kernel": 2}
+    expect = {"::factor_kernel": 2, "gj_inverse": 2, K5_TRACE: 2}
     # Fault F2: a trace without the warm-up kernels, then the trace read.
     rows, _, _ = profile_once(sweeps["full"], expect, warm=False, attempts=1)
     seen = {part: sum(n for _, n, key in rows if part in key) for part in expect}
     log(f"  F2 probe: a trace without warm-up holds launches {seen}")
-    rows, busy, wall_ms = profile_once(sweeps["full"], expect)
-    groups = {"K3 factor_kernel": 0.0, "K5 bias_kernel": 0.0,
-              "K4 gj_inverse_kernel": 0.0, "head products (gemm)": 0.0,
-              "other": 0.0}
-    for dev_ms, _, key in rows:
-        k = key.lower()
-        if "factor_kernel" in k:
-            groups["K3 factor_kernel"] += dev_ms
-        elif "bias_kernel" in k:
-            groups["K5 bias_kernel"] += dev_ms
-        elif "gj_inverse" in k:
-            groups["K4 gj_inverse_kernel"] += dev_ms
-        elif "gemm" in k or "cutlass" in k or "sm90_xmma" in k or "nvjet" in k:
-            groups["head products (gemm)"] += dev_ms
-        else:
-            groups["other"] += dev_ms
-    log(f"phase gprofile: ok | one exact sweep: device busy {busy:.4f} ms of "
-        f"{wall_ms:.4f} ms window (idle share {1 - busy / wall_ms:.1%})")
-    if busy > 0:
-        log("  by part: " + ", ".join(f"{k} {v:.4f} ms ({v / busy:.1%})"
-                                       for k, v in groups.items()))
-    for dev_ms, n, key in rows[:12]:
-        log(f"  {dev_ms:9.4f} ms  {n:3d}x  {key[:90]}")
+    parts = {"full": (("K3 factor_kernel", "::factor_kernel"),
+                      ("K5 tail_group_kernel<3>", K5_TRACE),
+                      ("K4 gj_inverse_kernel", "gj_inverse")),
+             "diag": (("K6 tail_group_kernel<4>", K6_TRACE),
+                      ("K5 tail_group_kernel<3>", K5_TRACE))}
+    expects = {"full": expect, "diag": {K6_TRACE: 2, K5_TRACE: 2}}
+    for name, label in (("full", "exact"), ("diag", "diag")):
+        rows, busy, wall_ms = profile_once(sweeps[name], expects[name])
+        groups = dict.fromkeys([g for g, _ in parts[name]]
+                               + ["head products (gemm)", "other"], 0.0)
+        for dev_ms, _, key in rows:
+            k = key.lower()
+            group = next((g for g, part in parts[name] if part.lower() in k), None)
+            if group is None:
+                gemm = "gemm" in k or "cutlass" in k or "sm90_xmma" in k or "nvjet" in k
+                group = "head products (gemm)" if gemm else "other"
+            groups[group] += dev_ms
+        log(f"phase gprofile: ok | one {label} sweep: device busy {busy:.4f} ms of "
+            f"{wall_ms:.4f} ms window (idle share {1 - busy / wall_ms:.1%})")
+        if busy > 0:
+            log("  by part: " + ", ".join(f"{k} {v:.4f} ms ({v / busy:.1%})"
+                                           for k, v in groups.items()))
+        for dev_ms, n, key in rows[:12]:
+            log(f"  {dev_ms:9.4f} ms  {n:3d}x  {key[:90]}")
     return steady
 
 
@@ -2477,6 +2640,7 @@ def main() -> int:
     k3 = phase_k3(gblocked)
     k5 = phase_k5(gblocked)
     k6 = phase_k6(gblocked)
+    phase_k56ab(gblocked)
     phase_ghead(gblocked)
     k4 = phase_k4(gblocked)
     wide.update(phase_wide_gauss(gblocked))

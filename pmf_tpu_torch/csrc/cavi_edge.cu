@@ -28,18 +28,20 @@ extern "C" int pmf_cavi_edge_raw(const float* e_self, const float* e_other,
                                  const int64_t* row_ptr, const int32_t* other,
                                  int n_self, int n_long, int K, float* out,
                                  void* stream) {
-  return tail_groups::launch<tail_groups::kRaw>(
-      e_self, e_other, nullptr, row_ptr, other, nullptr, n_self, n_long, K, 0.f,
-      out, static_cast<cudaStream_t>(stream));
+  const tail_groups::Tables t{e_self, e_other, nullptr, nullptr, nullptr,
+                              row_ptr, other, nullptr};
+  return tail_groups::launch<tail_groups::kRaw>(t, n_self, n_long, K, 0.f, out,
+                                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int pmf_cavi_edge(const float* e_self, const float* e_other,
                              const int64_t* row_ptr, const int32_t* other,
                              const float* x, int n_self, int n_long, int K,
                              float rate_floor, float* out, void* stream) {
-  return tail_groups::launch<tail_groups::kCavi>(
-      e_self, e_other, nullptr, row_ptr, other, x, n_self, n_long, K, rate_floor,
-      out, static_cast<cudaStream_t>(stream));
+  const tail_groups::Tables t{e_self, e_other, nullptr, nullptr, nullptr,
+                              row_ptr, other, x};
+  return tail_groups::launch<tail_groups::kCavi>(t, n_self, n_long, K, rate_floor, out,
+                                                 static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* pmf_error_string(int err) {

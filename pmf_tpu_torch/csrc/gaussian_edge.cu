@@ -5,33 +5,36 @@
 //          pmf_tpu/ops/pallas/gaussian_edge.py::_diag_kernel (K6).
 //
 // All three walk the direction's CSR tail (row_ptr, other, x over
-// new-space self rows) with one warp per self row, as K1 does, and write
-// per-row sums in edge order: no atomics, deterministic.  Rows without
-// tail edges get zeros.  Other-row records are read from a table that
-// the wrapper builds once per pass (permuted into new space):
+// new-space self rows) and write per-row sums in edge order: no atomics,
+// deterministic.  Rows without tail edges get zeros.
 //
 //   K3 factor pass, record [m | b | triu(V + m m^T)] (K + 1 + T floats,
-//      T = K(K+1)/2); output per self row
+//      T = K(K+1)/2) from a table the wrapper builds once per pass
+//      (permuted into new space); output per self row
 //      [sum m_o (x - b_o) | sum m_o | sum tri_o (| sum x | sum b_o)],
 //      2K + T (+ 2) columns.  The wrapper applies the -b_self * sum m_o
 //      correction and unpacks the triangle.
-//   K5 bias pass, record [m | b] (K + 1); output [sum m_o | sum b_o | sum x].
-//   K6 diag pass, record [m | v + m^2 | b] (2K + 1) and the self row's
-//      [m | b]; output [sum m_o (x - b_s - b_o - <m_s, m_o>) |
-//      sum (v_o + m_o^2) | sum m_o^2], 3K columns.
+//   K5 bias pass: [sum m_o | sum b_o | sum x], K + 2 columns.
+//   K6 diag pass: [sum m_o (x - b_s - b_o - <m_s, m_o>) | sum (v_o + m_o^2) |
+//      sum m_o^2], 3K columns.
 //
-// The table is padded to a multiple of 4 floats a record (stride), so
-// that every record starts on 16 bytes.
+// K5 and K6 are the modes kBias and kDiag of tail_groups.cuh, the
+// row-group skeleton of K1 and K7, which holds their design and reckoning:
+// a group of G lanes a self row, m (and K6's v + m^2) in tables padded to
+// 4 * ceil(K / 4) floats read as float4 words, b_o a scalar every lane of
+// the group reads from one address, the self row's m words in registers and
+// b_s a scalar; K6's dot is the group's log2(G)-step butterfly.  This file
+// holds their entry points.
 //
-// What bounds them on an H100: memory.  K3 gathers a 924-byte record (29
-// sectors of 32 bytes) per edge at K=20; the tables (59k x 928 B = 55 MB
-// by user, 162k x 928 B = 150 MB by item) do not fit the 50 MB L2, and
-// one pass gathers 4.5 GB a direction: 1.34 ms at 3.35 TB/s if every
-// sector came from HBM, against 0.07 ms to read each table once.  The item
-// pass runs at that per-edge gather bound, the user pass below it (about
-// half its sectors hit L2); at K=50 (5.3 KB records) both passes do.  K5
-// and K6 read 84 and 164 bytes per edge from tables that do fit L2, and
-// are latency-bound on the gathers like K1.
+// K3's table is padded to a multiple of 4 floats a record (stride), so
+// that every record starts on 16 bytes.  What bounds it on an H100:
+// memory.  K3 gathers a 924-byte record (29 sectors of 32 bytes) per edge
+// at K=20; the tables (59k x 928 B = 55 MB by user, 162k x 928 B = 150 MB
+// by item) do not fit the 50 MB L2, and one pass gathers 4.5 GB a
+// direction: 1.34 ms at 3.35 TB/s if every sector came from HBM, against
+// 0.07 ms to read each table once.  The item pass runs at that per-edge
+// gather bound, the user pass below it (about half its sectors hit L2); at
+// K=50 (5.3 KB records) both passes do.
 //
 // Design: in K3, lane l reads record floats c0 + 128 t + 4 l .. + 3 as one
 // float4 (t < NV, one coalesced 512-byte load a warp), four edges in
@@ -51,14 +54,11 @@
 // again; and a ring of 4 or 8 record slots a warp in shared memory filled
 // by TMA bulk copies, 1.3-1.8x slower at K=20 and at best as fast at
 // K=50 (2 KB chunks).
-//
-// K5 is the narrow pass: lanes hold the K + 1 record floats, F =
-// ceil((K + 1) / 32) a lane.  K6 loads the self row's [m | b] once per
-// warp, F = ceil(K / 32) factors a lane, and reduces <m_s, m_o> with one
-// __shfl_xor_sync butterfly an edge, as K1 does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tail_groups.cuh"
 
 namespace {
 
@@ -403,7 +403,7 @@ extern "C" int pmf_gauss_factor(const float* aug, int stride, const int64_t* row
     default: return (int)cudaErrorInvalidValue;                              \
   }
 
-extern "C" int pmf_gauss_bias(const float* aug, const int64_t* row_ptr,
+extern "C" int pmf_gauss_bias_prev(const float* aug, const int64_t* row_ptr,
                               const int32_t* other, const float* x, int n_self,
                               int K, float* out, void* stream) {
   if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
@@ -415,7 +415,7 @@ extern "C" int pmf_gauss_bias(const float* aug, const int64_t* row_ptr,
   return (int)cudaGetLastError();
 }
 
-extern "C" int pmf_gauss_diag(const float* aug, const float* self_tab,
+extern "C" int pmf_gauss_diag_prev(const float* aug, const float* self_tab,
                               const int64_t* row_ptr, const int32_t* other,
                               const float* x, int n_self, int K, float* out,
                               void* stream) {
@@ -426,4 +426,48 @@ extern "C" int pmf_gauss_diag(const float* aug, const float* self_tab,
                  n_self, K, out);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int pmf_gauss_bias(const float* m_other, const float* b_other,
+                              const int64_t* row_ptr, const int32_t* other,
+                              const float* x, int n_self, int n_long, int K, float* out,
+                              void* stream) {
+  const tail_groups::Tables t{nullptr, m_other, nullptr, b_other, nullptr,
+                              row_ptr, other, x};
+  return tail_groups::launch<tail_groups::kBias>(t, n_self, n_long, K, 0.f, out,
+                                                 static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int pmf_gauss_diag(const float* m_self, const float* b_self,
+                              const float* m_other, const float* sq_other,
+                              const float* b_other, const int64_t* row_ptr,
+                              const int32_t* other, const float* x, int n_self,
+                              int n_long, int K, float* out, void* stream) {
+  const tail_groups::Tables t{m_self, m_other, sq_other, b_other, b_self,
+                              row_ptr, other, x};
+  return tail_groups::launch<tail_groups::kDiag>(t, n_self, n_long, K, 0.f, out,
+                                                 static_cast<cudaStream_t>(stream));
+}
+
+// A/B only: K5 (mode 3), K6 (mode 4) or K5 on one [m | b] record (mode 5,
+// K the record's K + 1 columns) at the instance (G, V, D) named.
+extern "C" int pmf_gauss_tail_form(int mode, int G, int V, int D, const float* m_self,
+                                   const float* b_self, const float* m_other,
+                                   const float* sq_other, const float* b_other,
+                                   const int64_t* row_ptr, const int32_t* other,
+                                   const float* x, int n_self, int n_long, int K,
+                                   float* out, void* stream) {
+  const tail_groups::Tables t{m_self, m_other, sq_other, b_other, b_self,
+                              row_ptr, other, x};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case tail_groups::kBias:
+      return tail_groups::launch_form<tail_groups::kBias>(t, n_self, n_long, K, G, V, D, out, s);
+    case tail_groups::kDiag:
+      return tail_groups::launch_form<tail_groups::kDiag>(t, n_self, n_long, K, G, V, D, out, s);
+    case tail_groups::kBiasRec:
+      return tail_groups::launch_form<tail_groups::kBiasRec>(t, n_self, n_long, K, G, V, D, out, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,25 +1,32 @@
-// The row-group skeleton of K1 (modes "cavi" and "raw") and K7, the
-// Poisson-family sparse-tail edge passes.
+// The row-group skeleton of the sparse-tail edge passes K1 (modes "cavi"
+// and "raw"), K7, K5 and K6.
 //
 // Replaces: pmf_tpu/ops/pallas/cavi_edge.py::_kernel (K1, modes "cavi" and
-//           "raw") and pmf_tpu/ops/pallas/ext_edge.py::_factor_kernel (K7);
-// included by cavi_edge.cu and ext_edge.cu, which hold the entry points.
+//           "raw"), pmf_tpu/ops/pallas/ext_edge.py::_factor_kernel (K7),
+//           pmf_tpu/ops/pallas/gaussian_edge.py::_bias_kernel (K5) and
+//           ::_diag_kernel (K6); included by cavi_edge.cu, ext_edge.cu and
+//           gaussian_edge.cu, which hold the entry points.
 //
 // Per new-space self row r with tail edges (r, o, x) in CSR:
 //   cavi  out[r, 0:K] = sum_e x * e_s * e_o / max(<e_s, e_o>, floor),  out[r, K:2K] = sum_e e_o
 //   raw   out[r, 0:K] = sum_e e_s * e_o,                               out[r, K:2K] = sum_e e_o
 //   ext   out[r, 0:K] = as cavi,                                       out[r, K:2K] = sum_e s_o * e_o
-// Rows without tail edges get zeros.
+//   bias  out[r] = [sum_e m_o | sum_e b_o | sum_e x]                   (K + 2 columns)
+//   diag  out[r] = [sum_e m_o (x - b_s - b_o - <m_s, m_o>) | sum_e sq_o | sum_e m_o^2]
+//                                                                      (3K columns)
+// with sq_o = v_o + m_o^2 (K6's other-row second moment).  Rows without
+// tail edges get zeros.
 //
 // What bounds them on an H100: instruction issue and the latency of the L2
 // row gathers, not bytes.  At K=20 the other table is 4.7 MB (by user) or
 // 13.0 MB (by item), resident in the 50 MB L2; per edge the kernel reads an
 // 8-byte (id, rating) pair from HBM and an 80-byte row (3 sectors) from
-// L2.  The previous design (a warp a row, lane l factor l) spent seven warp
-// shuffles an edge: two broadcasts and a five-step dot butterfly.  At one
-// warp shuffle a clock per SM (cc 9.0) that is 7 x 4.74M edges / 132 SMs,
-// about 0.13 ms a direction, beside a bytes bound of 0.02 ms; it also left
-// 12 of 32 lanes idle at K=20 and kept four edges in flight a warp.
+// L2 (K6 two rows, K5 and K7 also a scalar's sector).  The previous design
+// (a warp a row, lane l factor l) spent seven warp shuffles an edge: two
+// broadcasts and a five-step dot butterfly.  At one warp shuffle a clock
+// per SM (cc 9.0) that is 7 x 4.74M edges / 132 SMs, about 0.13 ms a
+// direction, beside a bytes bound of 0.02 ms; it also left 12 of 32 lanes
+// idle at K=20 and kept four edges in flight a warp.
 //
 // Design: a group of G lanes (a power of two) takes one self row, so a warp
 // holds 32/G rows; ops/_tail.py::launch_plan mirrors the choice of G and V
@@ -27,18 +34,21 @@
 // Tables are padded to a stride of 4 * ceil(K / 4) floats, so every row
 // starts on 16 bytes, and lane l of a group holds the float4 words l, l + G,
 // ..., l + (V - 1) G of a row (words past the row hold 0; the self row's pad
-// columns are zeroed, so finite pad columns of the other table add nothing;
-// the builders write zeros there).  The dot of an edge is a log2(G)-step
-// __shfl_xor_sync butterfly inside the group, one warp instruction for 32/G
-// edges.  Each lane loads the (id, rating) of every G-th edge of a batch of
-// B = max(G, 8) edges, coalesced within the group, one batch ahead, and the
-// group shares them by __shfl_sync of width G; K7's scalar s_o is read by
-// every lane of the group from the same address beside the row gather.  A
-// group gathers 4 edges at once, so a warp has 4 * 32/G in flight (8 in
-// flight measured slower).  The warp walks its longest row's batches
-// together (edges past a row's end read nothing and add zeros), so every
-// shuffle names the full warp; rows are in descending-count order in new
-// space, so a warp's rows have nearly equal lengths.
+// columns are zeroed, so finite pad columns of the other tables add nothing
+// to a dot; the builders write zeros there).  The dot of an edge (cavi, ext,
+// diag) is a log2(G)-step __shfl_xor_sync butterfly inside the group, one
+// warp instruction for 32/G edges.  Each lane loads the (id, rating) of
+// every G-th edge of a batch of B = max(G, 8) edges, coalesced within the
+// group, one batch ahead, and the group shares them by __shfl_sync of width
+// G; a scalar of the other row (K7's s_o, K5's and K6's b_o) is read by every
+// lane of the group from the same address beside the row gather, and K6's
+// b_s once a row.  K6 gathers m_o and sq_o into the same lanes' words, so
+// its three sums line up with m.  A group gathers 4 edges at once, so a
+// warp has 4 * 32/G in flight (8 in flight measured slower).  The warp
+// walks its longest row's batches together (edges past a row's end read
+// nothing and add zeros), so every shuffle names the full warp; rows are in
+// descending-count order in new space, so a warp's rows have nearly equal
+// lengths.
 //
 // Long rows: a group walks its row one gather round trip at a time, so
 // the item pass's 757-edge rows set its end (on an H100 at K=20 the item
@@ -65,7 +75,31 @@ constexpr int kInFlight = 4;  // edges a group gathers at once
 constexpr int kMaxK = 128;    // at most 32 float4 words a row
 constexpr int kOneWord = 8;   // spans up to 8 words take one word a lane, wider two
 
-enum Mode { kCavi = 0, kRaw = 1, kExt = 2 };
+enum Mode { kCavi = 0, kRaw = 1, kExt = 2, kBias = 3, kDiag = 4, kBiasRec = 5 };
+
+// What a pass reads.  Tables of rows are padded to 4 * ceil(K / 4) floats
+// and start on 16 bytes; a pointer a mode does not read may be null.
+struct Tables {
+  const float* e_self;    // self rows: K1, K7 e_self; K6 m_self
+  const float* e_other;   // other rows: K1, K7 e_other; K5, K6 m_other
+  const float* sq_other;  // K6: v_other + m_other^2
+  const float* s_other;   // a scalar an other row: K7 s_other; K5, K6 b_other
+  const float* s_self;    // a scalar a self row: K6 b_self
+  const int64_t* row_ptr;
+  const int32_t* other;
+  const float* x;         // ratings: every mode but kRaw
+};
+
+__host__ __device__ constexpr bool reads_x(int mode) { return mode != kRaw; }
+__host__ __device__ constexpr bool reads_self(int mode) {
+  return mode != kBias && mode != kBiasRec;
+}
+__host__ __device__ constexpr bool reads_s_other(int mode) {
+  return mode == kExt || mode == kBias || mode == kDiag;
+}
+__host__ __device__ constexpr int out_width(int mode, int K) {
+  return mode == kBias ? K + 2 : mode == kBiasRec ? K + 1 : mode == kDiag ? 3 * K : 2 * K;
+}
 
 // Edges a group takes a batch: each lane loads B / G of their ids.
 __host__ __device__ constexpr int batch_of(int g) { return g < 8 ? 8 : g; }
@@ -90,29 +124,33 @@ __device__ __forceinline__ float4 mul4(float4 a, float4 b) {
   return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
 }
 
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
 __device__ __forceinline__ float comp(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-// One launch: G lanes a row, V float4 words a lane (G * V >= ceil(K / 4)).  Warps [0, n_long) take rows [0, n_long), one
+__device__ __forceinline__ float4 shfl_xor4(float4 v, int off) {
+  return make_float4(__shfl_xor_sync(kFull, v.x, off), __shfl_xor_sync(kFull, v.y, off),
+                     __shfl_xor_sync(kFull, v.z, off), __shfl_xor_sync(kFull, v.w, off));
+}
+
+// One launch: G lanes a row, V float4 words a lane (G * V >= ceil(K / 4)),
+// D edges in flight a group.  Warps [0, n_long) take rows [0, n_long), one
 // a warp, their 32/G groups each walking a contiguous share of the row's
-// edges; the later warps take 32/G rows each from row n_long on.  e_self
-// and e_other are padded to 4 * ceil(K / 4) floats a row and start on 16
-// bytes; s_other is read in mode kExt only, x in modes kCavi and kExt.
-template <int kMode, int G, int V>
+// edges; the later warps take 32/G rows each from row n_long on.
+template <int kMode, int G, int V, int D = kInFlight>
 __global__ void __launch_bounds__(kThreads)
-tail_group_kernel(const float* __restrict__ e_self,
-                  const float* __restrict__ e_other,
-                  const float* __restrict__ s_other,
-                  const int64_t* __restrict__ row_ptr,
-                  const int32_t* __restrict__ other,
-                  const float* __restrict__ x,
-                  int n_self, int n_long, int K, float rate_floor,
+tail_group_kernel(Tables t, int n_self, int n_long, int K, float rate_floor,
                   float* __restrict__ out) {
   constexpr int R = 32 / G;  // groups a warp
   constexpr int B = batch_of(G);
   constexpr int P = B / G;
-  constexpr int D = kInFlight;
   static_assert(B % D == 0 && B % G == 0, "batch must hold whole gathers");
   const int lane = threadIdx.x & 31;
   const int gl = lane & (G - 1);
@@ -124,8 +162,8 @@ tail_group_kernel(const float* __restrict__ e_self,
   int len = 0;
   if (split) {
     row = warp;
-    begin = row_ptr[row];
-    const int n = (int)(row_ptr[row + 1] - begin);
+    begin = t.row_ptr[row];
+    const int n = (int)(t.row_ptr[row + 1] - begin);
     const int share = (n + R - 1) / R;
     const int lo = min(group * share, n);
     begin += lo;
@@ -135,35 +173,47 @@ tail_group_kernel(const float* __restrict__ e_self,
     if (row0 >= n_self) return;  // whole warp leaves together
     row = row0 + group;
     if (row < n_self) {
-      begin = row_ptr[row];
-      len = (int)(row_ptr[row + 1] - begin);
+      begin = t.row_ptr[row];
+      len = (int)(t.row_ptr[row + 1] - begin);
     }
   }
   const bool has_row = row < n_self;
   const int W = (K + 3) >> 2;  // float4 words a row
   const int span = (int)__reduce_max_sync(kFull, (unsigned)len);
 
-  const float4* __restrict__ eo4 = reinterpret_cast<const float4*>(e_other);
+  const float4* __restrict__ eo4 = reinterpret_cast<const float4*>(t.e_other);
+  const float4* __restrict__ sq4 = reinterpret_cast<const float4*>(t.sq_other);
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 es[V], acc_a[V], acc_o[V];
+  // cavi, raw, ext: acc_a the first K columns, acc_o the second; bias:
+  // acc_o sums m_o; diag: acc_a, acc_o, acc_c its three column blocks.
+  float4 es[V], acc_a[V], acc_o[V], acc_c[V];
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     const int w = v * G + gl;
     float4 e = zero;
-    if (has_row && w < W) {
-      e = reinterpret_cast<const float4*>(e_self)[(int64_t)row * W + w];
-      const int k = 4 * w;
-      if (k + 1 >= K) e.y = 0.f;
-      if (k + 2 >= K) e.z = 0.f;
-      if (k + 3 >= K) e.w = 0.f;
+    if constexpr (reads_self(kMode)) {
+      if (has_row && w < W) {
+        e = reinterpret_cast<const float4*>(t.e_self)[(int64_t)row * W + w];
+        const int k = 4 * w;
+        if (k + 1 >= K) e.y = 0.f;
+        if (k + 2 >= K) e.z = 0.f;
+        if (k + 3 >= K) e.w = 0.f;
+      }
     }
     es[v] = e;
     acc_a[v] = zero;
     acc_o[v] = zero;
+    acc_c[v] = zero;
+  }
+  float acc_s = 0.f, acc_x = 0.f;  // bias: sum b_o, sum x
+  float bs = 0.f;                  // diag: b_s
+  if constexpr (kMode == kDiag) {
+    if (has_row) bs = t.s_self[row];
   }
 
-  // One edge: the rate from the group's dot, then the lane's words.
-  auto edge = [&](const float4 (&eo)[V], float xv, float sv) {
+  // One edge: the group's dot where the mode needs one, then the lane's
+  // words.
+  auto edge = [&](const float4 (&eo)[V], const float4 (&sq)[V], float xv, float sv) {
     if constexpr (kMode == kRaw) {
 #pragma unroll
       for (int v = 0; v < V; ++v) {
@@ -171,11 +221,13 @@ tail_group_kernel(const float* __restrict__ e_self,
         acc_a[v].y += es[v].y * eo[v].y;
         acc_a[v].z += es[v].z * eo[v].z;
         acc_a[v].w += es[v].w * eo[v].w;
-        acc_o[v].x += eo[v].x;
-        acc_o[v].y += eo[v].y;
-        acc_o[v].z += eo[v].z;
-        acc_o[v].w += eo[v].w;
+        add4(acc_o[v], eo[v]);
       }
+    } else if constexpr (kMode == kBias || kMode == kBiasRec) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) add4(acc_o[v], eo[v]);
+      if constexpr (kMode == kBias) acc_s += sv;
+      acc_x += xv;
     } else {
       float4 p[V];
       float part = 0.f;
@@ -187,23 +239,36 @@ tail_group_kernel(const float* __restrict__ e_self,
         part += p[v].z;
         part += p[v].w;
       }
-      const float coef = xv / fmaxf(group_sum<G>(part), rate_floor);
+      if constexpr (kMode == kDiag) {
+        const float coef = ((xv - bs) - sv) - group_sum<G>(part);
 #pragma unroll
-      for (int v = 0; v < V; ++v) {
-        acc_a[v].x += coef * p[v].x;
-        acc_a[v].y += coef * p[v].y;
-        acc_a[v].z += coef * p[v].z;
-        acc_a[v].w += coef * p[v].w;
-        if constexpr (kMode == kExt) {
-          acc_o[v].x += sv * eo[v].x;
-          acc_o[v].y += sv * eo[v].y;
-          acc_o[v].z += sv * eo[v].z;
-          acc_o[v].w += sv * eo[v].w;
-        } else {
-          acc_o[v].x += eo[v].x;
-          acc_o[v].y += eo[v].y;
-          acc_o[v].z += eo[v].z;
-          acc_o[v].w += eo[v].w;
+        for (int v = 0; v < V; ++v) {
+          acc_a[v].x += coef * eo[v].x;
+          acc_a[v].y += coef * eo[v].y;
+          acc_a[v].z += coef * eo[v].z;
+          acc_a[v].w += coef * eo[v].w;
+          add4(acc_o[v], sq[v]);
+          acc_c[v].x += eo[v].x * eo[v].x;
+          acc_c[v].y += eo[v].y * eo[v].y;
+          acc_c[v].z += eo[v].z * eo[v].z;
+          acc_c[v].w += eo[v].w * eo[v].w;
+        }
+      } else {
+        const float coef = xv / fmaxf(group_sum<G>(part), rate_floor);
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          acc_a[v].x += coef * p[v].x;
+          acc_a[v].y += coef * p[v].y;
+          acc_a[v].z += coef * p[v].z;
+          acc_a[v].w += coef * p[v].w;
+          if constexpr (kMode == kExt) {
+            acc_o[v].x += sv * eo[v].x;
+            acc_o[v].y += sv * eo[v].y;
+            acc_o[v].z += sv * eo[v].z;
+            acc_o[v].w += sv * eo[v].w;
+          } else {
+            add4(acc_o[v], eo[v]);
+          }
         }
       }
     }
@@ -215,8 +280,8 @@ tail_group_kernel(const float* __restrict__ e_self,
     for (int q = 0; q < P; ++q) {
       const int e = base + gl + G * q;
       const bool ok = e < len;
-      ids[q] = ok ? other[begin + e] : 0;
-      if constexpr (kMode != kRaw) xs[q] = ok ? x[begin + e] : 0.f;
+      ids[q] = ok ? t.other[begin + e] : 0;
+      if constexpr (reads_x(kMode)) xs[q] = ok ? t.x[begin + e] : 0.f;
     }
   };
 
@@ -227,7 +292,7 @@ tail_group_kernel(const float* __restrict__ e_self,
     if (base + B < span) load_batch(base + B, nids, nxs);  // warp-uniform
 #pragma unroll
     for (int c = 0; c < B; c += D) {
-      float4 eo[D][V];
+      float4 eo[D][V], sq[D][V];
       float xv[D], sv[D];
 #pragma unroll
       for (int d = 0; d < D; ++d) {
@@ -235,17 +300,19 @@ tail_group_kernel(const float* __restrict__ e_self,
         const int o = group_bcast<G>(ids[e / G], e % G);
         xv[d] = 0.f;
         sv[d] = 0.f;
-        if constexpr (kMode != kRaw) xv[d] = group_bcast<G>(xs[e / G], e % G);
+        if constexpr (reads_x(kMode)) xv[d] = group_bcast<G>(xs[e / G], e % G);
         const bool ok = base + e < len;
 #pragma unroll
         for (int v = 0; v < V; ++v) {
           const int w = v * G + gl;
           eo[d][v] = (ok && w < W) ? __ldg(eo4 + (int64_t)o * W + w) : zero;
+          if constexpr (kMode == kDiag)
+            sq[d][v] = (ok && w < W) ? __ldg(sq4 + (int64_t)o * W + w) : zero;
         }
-        if constexpr (kMode == kExt) sv[d] = ok ? __ldg(s_other + o) : 0.f;
+        if constexpr (reads_s_other(kMode)) sv[d] = ok ? __ldg(t.s_other + o) : 0.f;
       }
 #pragma unroll
-      for (int d = 0; d < D; ++d) edge(eo[d], xv[d], sv[d]);
+      for (int d = 0; d < D; ++d) edge(eo[d], sq[d], xv[d], sv[d]);
     }
 #pragma unroll
     for (int q = 0; q < P; ++q) {
@@ -259,19 +326,21 @@ tail_group_kernel(const float* __restrict__ e_self,
     for (int v = 0; v < V; ++v) {
 #pragma unroll
       for (int off = G; off < 32; off <<= 1) {
-        acc_a[v].x += __shfl_xor_sync(kFull, acc_a[v].x, off);
-        acc_a[v].y += __shfl_xor_sync(kFull, acc_a[v].y, off);
-        acc_a[v].z += __shfl_xor_sync(kFull, acc_a[v].z, off);
-        acc_a[v].w += __shfl_xor_sync(kFull, acc_a[v].w, off);
-        acc_o[v].x += __shfl_xor_sync(kFull, acc_o[v].x, off);
-        acc_o[v].y += __shfl_xor_sync(kFull, acc_o[v].y, off);
-        acc_o[v].z += __shfl_xor_sync(kFull, acc_o[v].z, off);
-        acc_o[v].w += __shfl_xor_sync(kFull, acc_o[v].w, off);
+        if constexpr (kMode != kBias && kMode != kBiasRec) add4(acc_a[v], shfl_xor4(acc_a[v], off));
+        add4(acc_o[v], shfl_xor4(acc_o[v], off));
+        if constexpr (kMode == kDiag) add4(acc_c[v], shfl_xor4(acc_c[v], off));
+      }
+    }
+    if constexpr (kMode == kBias || kMode == kBiasRec) {
+#pragma unroll
+      for (int off = G; off < 32; off <<= 1) {
+        acc_s += __shfl_xor_sync(kFull, acc_s, off);
+        acc_x += __shfl_xor_sync(kFull, acc_x, off);
       }
     }
   }
   if (!has_row || (split && group != 0)) return;
-  float* dst = out + (int64_t)row * 2 * K;
+  float* dst = out + (int64_t)row * out_width(kMode, K);
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     const int w = v * G + gl;
@@ -279,37 +348,59 @@ tail_group_kernel(const float* __restrict__ e_self,
     for (int j = 0; j < 4; ++j) {
       const int k = 4 * w + j;
       if (w < W && k < K) {
-        dst[k] = comp(acc_a[v], j);
-        dst[K + k] = comp(acc_o[v], j);
+        if constexpr (kMode == kBias || kMode == kBiasRec) {
+          dst[k] = comp(acc_o[v], j);
+        } else {
+          dst[k] = comp(acc_a[v], j);
+          dst[K + k] = comp(acc_o[v], j);
+          if constexpr (kMode == kDiag) dst[2 * K + k] = comp(acc_c[v], j);
+        }
       }
     }
+  }
+  if constexpr (kMode == kBias) {
+    if (gl == 0) {
+      dst[K] = acc_s;
+      dst[K + 1] = acc_x;
+    }
+  } else if constexpr (kMode == kBiasRec) {
+    if (gl == 0) dst[K] = acc_x;
   }
 }
 
 // The plan for K: W = ceil(K / 4) words a row, span = the power of two at
 // or above W, V = 1 word a lane up to a span of kOneWord and 2 past it, G =
-// span / V lanes a row (ops/_tail.py::launch_plan mirrors it).  Warps
-// [0, n_long) take a row each.
-template <int kMode>
-int launch(const float* e_self, const float* e_other, const float* s_other,
-           const int64_t* row_ptr, const int32_t* other, const float* x,
-           int n_self, int n_long, int K, float rate_floor, float* out,
-           cudaStream_t stream) {
-  if (K < 1 || K > kMaxK || n_long < 0 || n_long > n_self)
-    return (int)cudaErrorInvalidValue;
-  if (n_self == 0) return (int)cudaGetLastError();
+// span / V lanes a row (ops/_tail.py::launch_plan mirrors it).
+inline void plan(int K, int& G, int& V) {
   const int W = (K + 3) / 4;
   int span = 1;
   while (span < W) span *= 2;
-  const int V = span <= kOneWord ? 1 : 2;
-  const int G = span / V;
+  V = span <= kOneWord ? 1 : 2;
+  G = span / V;
+}
+
+inline int blocks_of(int n_self, int n_long, int G) {
   const int64_t warps = n_long + ((int64_t)(n_self - n_long) * G + 31) / 32;
-  const int blocks = (int)((warps + kWarps - 1) / kWarps);
+  return (int)((warps + kWarps - 1) / kWarps);
+}
+
+inline bool bad_args(int n_self, int n_long, int K) {
+  return K < 1 || K > kMaxK || n_long < 0 || n_long > n_self;
+}
+
+// Warps [0, n_long) take a row each.
+template <int kMode>
+int launch(const Tables& t, int n_self, int n_long, int K, float rate_floor, float* out,
+           cudaStream_t stream) {
+  if (bad_args(n_self, n_long, K)) return (int)cudaErrorInvalidValue;
+  if (n_self == 0) return (int)cudaGetLastError();
+  int G, V;
+  plan(K, G, V);
+  const int blocks = blocks_of(n_self, n_long, G);
 #define PMF_TAIL_PLAN(G_, V_)                                                      \
   if (G == G_ && V == V_) {                                                        \
     tail_group_kernel<kMode, G_, V_><<<blocks, kThreads, 0, stream>>>(             \
-        e_self, e_other, s_other, row_ptr, other, x, n_self, n_long, K, rate_floor,\
-        out);                                                                      \
+        t, n_self, n_long, K, rate_floor, out);                                    \
     return (int)cudaGetLastError();                                                \
   }
   PMF_TAIL_PLAN(1, 1)
@@ -319,6 +410,30 @@ int launch(const float* e_self, const float* e_other, const float* s_other,
   PMF_TAIL_PLAN(8, 2)
   PMF_TAIL_PLAN(16, 2)
 #undef PMF_TAIL_PLAN
+  return (int)cudaErrorInvalidValue;
+}
+
+// A/B only: the instance (kMode, G, V, D) the caller names, for timing
+// forms beside the plan's.
+template <int kMode>
+int launch_form(const Tables& t, int n_self, int n_long, int K, int G, int V, int D,
+                float* out, cudaStream_t stream) {
+  if (bad_args(n_self, n_long, K) || (K + 3) / 4 > G * V) return (int)cudaErrorInvalidValue;
+  if (n_self == 0) return (int)cudaGetLastError();
+  const int blocks = blocks_of(n_self, n_long, G);
+#define PMF_TAIL_FORM(G_, V_, D_)                                                  \
+  if (G == G_ && V == V_ && D == D_) {                                             \
+    tail_group_kernel<kMode, G_, V_, D_><<<blocks, kThreads, 0, stream>>>(         \
+        t, n_self, n_long, K, 0.f, out);                                           \
+    return (int)cudaGetLastError();                                                \
+  }
+  PMF_TAIL_FORM(8, 1, 4)
+  PMF_TAIL_FORM(8, 1, 2)
+  PMF_TAIL_FORM(8, 2, 4)
+  PMF_TAIL_FORM(8, 2, 2)
+  PMF_TAIL_FORM(16, 1, 4)
+  PMF_TAIL_FORM(16, 1, 2)
+#undef PMF_TAIL_FORM
   return (int)cudaErrorInvalidValue;
 }
 

@@ -30,11 +30,15 @@ import torch
 from pmf_tpu_torch.data.blocked import TailCSR
 from pmf_tpu_torch.ops import _build
 from pmf_tpu_torch.ops._tail import (
+    GROUP_MAX_K,
     add_heads as _add_heads,
     check_head as _check_head,
+    check_long_rows as _check_long_rows,
+    check_padded_tables as _check_padded_tables,
     check_tail_args as _check_tail_args,
     edges as _edges,
     head_rows as _head_rows,
+    padded_rows as _padded_rows,
     products as _products,
     row_chunks as _row_chunks,
 )
@@ -43,9 +47,10 @@ FACTOR_LAUNCHES = _build.LaunchCounter()
 BIAS_LAUNCHES = _build.LaunchCounter()
 DIAG_LAUNCHES = _build.LaunchCounter()
 # Past K = 30 the factor pass cuts its K + 1 + K(K+1)/2 record floats into
-# chunks of 512 on grid.y; the bias and diag passes hold ceil((K+1) / 32)
-# and ceil(K / 32) floats a lane.
-FACTOR_MAX_K = BIAS_MAX_K = DIAG_MAX_K = 128
+# chunks of 512 on grid.y; the bias and diag passes are row-group kernels
+# (csrc/tail_groups.cuh), at most 32 float4 words a row.
+FACTOR_MAX_K = 128
+BIAS_MAX_K = DIAG_MAX_K = GROUP_MAX_K
 
 
 def tri_size(k: int) -> int:
@@ -152,78 +157,105 @@ def factor_tail_stats(aug, row_ptr, other, x, K: int,
 
 # ------------------------------------------------------------------ K5 --
 
-def bias_tail_stats_plain(aug, row_ptr, other, x,
+def bias_tail_stats_plain(m_other, b_other, row_ptr, other, x, K: int | None = None,
                           max_edges: int | None = None) -> torch.Tensor:
-    """Plain K5: aug (n_other, K+1) = [m | b] -> (n_self, K+2)
-    [sum m | sum b | sum x] in aug's dtype."""
+    """Plain K5: (n_self, K+2) [sum m_o | sum b_o | sum x] per self row of
+    the CSR tail, in m_other's dtype; columns of m_other past ``K`` (its
+    width when None) are ignored."""
+    K = m_other.shape[1] if K is None else K
+    m_other = m_other[:, :K]
     n_self = row_ptr.shape[0] - 1
-    out = torch.zeros((n_self, aug.shape[1] + 1), dtype=aug.dtype,
-                      device=aug.device)
+    out = torch.zeros((n_self, K + 2), dtype=m_other.dtype, device=m_other.device)
     for r0, r1 in _row_chunks(row_ptr, max_edges):
         local, o, sl = _edges(row_ptr, other, r0, r1)
-        payload = torch.cat([aug[o], x[sl].to(aug.dtype)[:, None]], dim=1)
+        payload = torch.cat([m_other[o], b_other[o][:, None].to(m_other.dtype),
+                             x[sl].to(m_other.dtype)[:, None]], dim=1)
         out[r0:r1].index_add_(0, local, payload)
     return out
 
 
-def bias_tail_stats(aug, row_ptr, other, x) -> torch.Tensor:
-    """K5: the bias tail pass.  CUDA tensors launch the kernel; CPU
-    tensors run the plain version."""
-    if not aug.is_cuda:
-        return bias_tail_stats_plain(aug, row_ptr, other, x)
-    K = aug.shape[1] - 1
+def bias_tail_stats(m_other, b_other, row_ptr, other, x, K: int | None = None,
+                    long_rows: int = 0) -> torch.Tensor:
+    """K5: the bias tail pass at ``K`` factors (m_other's width when None).
+    CUDA tensors launch the kernel, on m_other padded to ``tail_stride(K)``
+    columns and b_other (n_other,), giving each of the first ``long_rows``
+    rows a whole warp (``TailCSR.long_rows``); CPU tensors run the plain
+    version, which ignores columns past K."""
+    if not m_other.is_cuda:
+        return bias_tail_stats_plain(m_other, b_other, row_ptr, other, x, K)
+    K = m_other.shape[1] if K is None else K
     if not 1 <= K <= BIAS_MAX_K:
         raise ValueError(f"bias kernel needs 1 <= K <= {BIAS_MAX_K}, got K={K}")
     n_self = row_ptr.shape[0] - 1
-    _check_tail_args([("aug", aug)], row_ptr, other, x, n_self)
-    out = torch.empty((n_self, K + 2), dtype=torch.float32, device=aug.device)
-    _build.launch("pmf_gauss_bias", BIAS_LAUNCHES, aug.device, aug, row_ptr, other,
-                  x, n_self, K, out)
+    _check_tail_args([("m_other", m_other), ("b_other", b_other)], row_ptr, other, x,
+                     n_self)
+    _check_padded_tables(K, [("m_other", m_other)])
+    _check_scalars(("b_other", b_other, m_other.shape[0]))
+    _check_long_rows(long_rows, n_self)
+    out = torch.empty((n_self, K + 2), dtype=torch.float32, device=m_other.device)
+    _build.launch("pmf_gauss_bias", BIAS_LAUNCHES, m_other.device, m_other, b_other,
+                  row_ptr, other, x, n_self, long_rows, K, out)
     return out
 
 
 # ------------------------------------------------------------------ K6 --
 
-def diag_tail_stats_plain(aug, self_tab, row_ptr, other, x,
+def diag_tail_stats_plain(m_self, b_self, m_other, sq_other, b_other, row_ptr, other,
+                          x, K: int | None = None,
                           max_edges: int | None = None) -> torch.Tensor:
-    """Plain K6: aug (n_other, 2K+1) = [m | v + m^2 | b], self_tab
-    (n_self, K+1) = [m | b] -> (n_self, 3K)
-    [sum m_o (x - b_s - b_o - <m_s, m_o>) | sum sq_o | sum m_o^2]."""
-    K = self_tab.shape[1] - 1
+    """Plain K6: (n_self, 3K) [sum m_o (x - b_s - b_o - <m_s, m_o>) |
+    sum sq_o | sum m_o^2] per self row of the CSR tail, sq_o = v_o + m_o^2,
+    in m_other's dtype; columns of the tables past ``K`` (m_self's width
+    when None) are ignored."""
+    K = m_self.shape[1] if K is None else K
+    m_self, m_other, sq_other = m_self[:, :K], m_other[:, :K], sq_other[:, :K]
     n_self = row_ptr.shape[0] - 1
-    out = torch.zeros((n_self, 3 * K), dtype=aug.dtype, device=aug.device)
+    out = torch.zeros((n_self, 3 * K), dtype=m_other.dtype, device=m_other.device)
     for r0, r1 in _row_chunks(row_ptr, max_edges):
         local, o, sl = _edges(row_ptr, other, r0, r1)
-        g = aug[o]
-        s = self_tab[r0:r1][local]
-        m_o = g[:, :K]
-        pred = torch.sum(s[:, :K] * m_o, dim=1)
-        resid = x[sl].to(aug.dtype) - s[:, K] - g[:, 2 * K]
-        payload = torch.cat([m_o * (resid - pred)[:, None], g[:, K : 2 * K],
-                             m_o * m_o], dim=1)
+        m_o = m_other[o]
+        pred = torch.sum(m_self[r0:r1][local] * m_o, dim=1)
+        resid = x[sl].to(m_o.dtype) - b_self[r0:r1][local] - b_other[o]
+        payload = torch.cat([m_o * (resid - pred)[:, None], sq_other[o], m_o * m_o],
+                            dim=1)
         out[r0:r1].index_add_(0, local, payload)
     return out
 
 
-def diag_tail_stats(aug, self_tab, row_ptr, other, x) -> torch.Tensor:
-    """K6: the diag tail pass.  CUDA tensors launch the kernel; CPU
-    tensors run the plain version."""
-    if not aug.is_cuda:
-        return diag_tail_stats_plain(aug, self_tab, row_ptr, other, x)
-    K = self_tab.shape[1] - 1
+def diag_tail_stats(m_self, b_self, m_other, sq_other, b_other, row_ptr, other, x,
+                    K: int | None = None, long_rows: int = 0) -> torch.Tensor:
+    """K6: the diag tail pass at ``K`` factors (m_self's width when None).
+    CUDA tensors launch the kernel, on m_self, m_other and sq_other padded
+    to ``tail_stride(K)`` columns and the biases as vectors, giving each of
+    the first ``long_rows`` rows a whole warp; CPU tensors run the plain
+    version, which ignores columns past K."""
+    if not m_self.is_cuda:
+        return diag_tail_stats_plain(m_self, b_self, m_other, sq_other, b_other,
+                                     row_ptr, other, x, K)
+    K = m_self.shape[1] if K is None else K
     if not 1 <= K <= DIAG_MAX_K:
         raise ValueError(f"diag kernel needs 1 <= K <= {DIAG_MAX_K}, got K={K}")
-    if aug.dim() != 2 or aug.shape[1] != 2 * K + 1:
-        raise ValueError(f"aug must be (n_other, {2 * K + 1})")
     n_self = row_ptr.shape[0] - 1
-    if self_tab.shape[0] != n_self:
-        raise ValueError("self_tab rows do not match the CSR")
-    _check_tail_args([("aug", aug), ("self_tab", self_tab)], row_ptr, other, x,
-                     n_self)
-    out = torch.empty((n_self, 3 * K), dtype=torch.float32, device=aug.device)
-    _build.launch("pmf_gauss_diag", DIAG_LAUNCHES, aug.device, aug, self_tab,
-                  row_ptr, other, x, n_self, K, out)
+    tables = [("m_self", m_self), ("m_other", m_other), ("sq_other", sq_other)]
+    _check_tail_args(tables + [("b_self", b_self), ("b_other", b_other)], row_ptr,
+                     other, x, n_self)
+    _check_padded_tables(K, tables)
+    if m_self.shape[0] != n_self or sq_other.shape[0] != m_other.shape[0]:
+        raise ValueError("m_self rows must match the CSR, sq_other rows m_other's")
+    _check_scalars(("b_self", b_self, n_self), ("b_other", b_other, m_other.shape[0]))
+    _check_long_rows(long_rows, n_self)
+    out = torch.empty((n_self, 3 * K), dtype=torch.float32, device=m_other.device)
+    _build.launch("pmf_gauss_diag", DIAG_LAUNCHES, m_other.device, m_self, b_self,
+                  m_other, sq_other, b_other, row_ptr, other, x, n_self, long_rows, K,
+                  out)
     return out
+
+
+def _check_scalars(*vectors) -> None:
+    """Raise unless each (name, tensor, rows) is a vector of ``rows``."""
+    for name, t, n in vectors:
+        if t.shape != (n,):
+            raise ValueError(f"{name} must be ({n},), got {tuple(t.shape)}")
 
 
 # ------------------------------------------------------- head + wrappers --
@@ -305,22 +337,29 @@ def gaussian_factor_stats(m_other, V_other, b_self, b_other, p: TailCSR,
     return S_w, S_A
 
 
+def _new_space(t: torch.Tensor, rows: torch.Tensor | None) -> torch.Tensor:
+    return t.contiguous() if rows is None else t[rows]
+
+
 def gaussian_bias_stats(m_self, m_other, b_other, p: TailCSR, head=None,
                         head_side: str = "user") -> torch.Tensor:
     """s (n_self,): per-row sums of bias residuals
     sum (x - b_o - <m_s, m_o>), assembled from the pass-through sums
     [sum m_o | sum b_o | sum x] (K5 on the tail, linear products on the
-    head)."""
+    head).  K5 reads m_other gathered into new space straight into a table
+    of ``tail_stride(K)`` columns and b_other as a vector; the head
+    products see the real columns only."""
     K = m_self.shape[1]
-    aug = torch.cat([m_other, b_other[:, None]], dim=1)
     heads = _check_head(p, head)
-    if p.reordered:
-        aug = aug[p.other_old_of_new]
-    out = bias_tail_stats(aug.contiguous(), p.row_ptr, p.other, p.x)
+    rows = p.other_old_of_new if p.reordered else None
+    m_o, b_o = _padded_rows(m_other, rows), _new_space(b_other, rows)
+    out = bias_tail_stats(m_o, b_o, p.row_ptr, p.other, p.x, K=K,
+                          long_rows=p.long_rows)
     head_outs = []
     for tier in heads:
-        start, mp, _ = _products(tier, _head_rows(aug, tier, head_side), None,
-                                 head_side)
+        tab = torch.cat([_head_rows(m_o[:, :K], tier, head_side),
+                         _head_rows(b_o[:, None], tier, head_side)], dim=1)
+        start, mp, _ = _products(tier, tab, None, head_side)
         head_outs.append((start, torch.cat(
             [mp, _x_sum(tier, head_side)[:, None].to(mp.dtype)], dim=1)))
     out = _add_heads(out, head_outs)
@@ -330,17 +369,18 @@ def gaussian_bias_stats(m_self, m_other, b_other, p: TailCSR, head=None,
     return S_x - S_b - torch.sum(m_self * S_m, dim=1)
 
 
-def _diag_head_out(tier, aug, self_tab, K, head_side):
-    """One tier's [S_mr | S_sq | S_mm] (b columns zero without biases).
-    The cross term sum m_o <m_s, m_o> is unpack(M @ tri(m_o m_o^T)) @ m_s,
-    linear in per-other payloads."""
-    a = _head_rows(aug, tier, head_side)
-    m_o, sq_o, b_o = a[:, :K], a[:, K : 2 * K], a[:, 2 * K : 2 * K + 1]
-    tri_mm = pack_tri((m_o[:, :, None] * m_o[:, None, :]).reshape(-1, K * K), K)
-    tab = torch.cat([m_o, b_o * m_o, sq_o, m_o * m_o, tri_mm], dim=1)
-    start, mp, xp = _products(tier, tab, m_o, head_side)
-    s = self_tab[start : start + mp.shape[0]].to(mp.dtype)
-    m_s, b_s = s[:, :K], s[:, K]
+def _diag_head_out(tier, m_o, sq_o, b_o, m_s, b_s, head_side):
+    """One tier's [S_mr | S_sq | S_mm] from the new-space tables' real
+    columns (b zero without biases).  The cross term sum m_o <m_s, m_o> is
+    unpack(M @ tri(m_o m_o^T)) @ m_s, linear in per-other payloads."""
+    K = m_o.shape[1]
+    m_h, sq_h = _head_rows(m_o, tier, head_side), _head_rows(sq_o, tier, head_side)
+    b_h = _head_rows(b_o[:, None], tier, head_side)
+    tri_mm = pack_tri((m_h[:, :, None] * m_h[:, None, :]).reshape(-1, K * K), K)
+    tab = torch.cat([m_h, b_h * m_h, sq_h, m_h * m_h, tri_mm], dim=1)
+    start, mp, xp = _products(tier, tab, m_h, head_side)
+    rows = slice(start, start + mp.shape[0])
+    m_s, b_s = m_s[rows].to(mp.dtype), b_s[rows].to(mp.dtype)
     pred_term = torch.einsum("rkl,rl->rk", unpack_tri(mp[:, 4 * K :], K), m_s)
     S_mr = xp - pred_term - b_s[:, None] * mp[:, :K] - mp[:, K : 2 * K]
     return start, torch.cat([S_mr, mp[:, 2 * K : 3 * K], mp[:, 3 * K : 4 * K]],
@@ -352,20 +392,27 @@ def gaussian_diag_stats(m_other, v_other, m_self, b_self, b_other, p: TailCSR,
                         head_side: str = "user"):
     """(S_mr, S_sq, S_mm), each (n_self, K), for one diag-covariance
     factor block: S_mr = sum m_o (resid - <m_s, m_o>) with resid =
-    x [- b_s - b_o], S_sq = sum (v_o + m_o^2), S_mm = sum m_o^2."""
+    x [- b_s - b_o], S_sq = sum (v_o + m_o^2), S_mm = sum m_o^2.  K6 reads
+    m_self, m_other and sq_other = v_other + m_other^2 in new space, each
+    gathered straight into a table of ``tail_stride(K)`` columns, and the
+    biases as vectors; the head products see the real columns only."""
     K = m_other.shape[1]
-    if not use_bias:
-        b_self, b_other = torch.zeros_like(b_self), torch.zeros_like(b_other)
-    aug = torch.cat([m_other, v_other + m_other * m_other, b_other[:, None]], dim=1)
-    self_tab = torch.cat([m_self, b_self[:, None]], dim=1)
     heads = _check_head(p, head)
-    if p.reordered:
-        aug = aug[p.other_old_of_new]
-        self_tab = self_tab[p.self_old_of_new]
-    out = diag_tail_stats(aug.contiguous(), self_tab.contiguous(), p.row_ptr,
-                          p.other, p.x)
-    out = _add_heads(out, [_diag_head_out(t, aug, self_tab, K, head_side)
-                           for t in heads])
+    rows_s = p.self_old_of_new if p.reordered else None
+    rows_o = p.other_old_of_new if p.reordered else None
+    m_s, m_o = _padded_rows(m_self, rows_s), _padded_rows(m_other, rows_o)
+    if rows_o is None:  # padded_rows may hand back v_other itself
+        sq_o = _padded_rows(torch.addcmul(v_other, m_other, m_other))
+    else:  # a fresh table: add m^2 in place, pad columns stay 0
+        sq_o = _padded_rows(v_other, rows_o).addcmul_(m_o, m_o)
+    if use_bias:
+        b_s, b_o = _new_space(b_self, rows_s), _new_space(b_other, rows_o)
+    else:
+        b_s, b_o = b_self.new_zeros(m_s.shape[0]), b_other.new_zeros(m_o.shape[0])
+    out = diag_tail_stats(m_s, b_s, m_o, sq_o, b_o, p.row_ptr, p.other, p.x, K=K,
+                          long_rows=p.long_rows)
+    out = _add_heads(out, [_diag_head_out(t, m_o[:, :K], sq_o[:, :K], b_o, m_s[:, :K],
+                                          b_s, head_side) for t in heads])
     if p.reordered:
         out = out[p.self_new_of_old]
     return out[:, :K], out[:, K : 2 * K], out[:, 2 * K :]

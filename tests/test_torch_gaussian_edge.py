@@ -318,9 +318,9 @@ def test_tail_wrappers_on_cpu_are_the_plain_versions_and_chunk(small_ratings):
     rng = np.random.default_rng(14)
     T = tge.tri_size(K)
     aug3 = _t(rng.standard_normal((N_USERS, K + 1 + T)))
-    aug5 = _t(rng.standard_normal((N_USERS, K + 1)))
-    aug6 = _t(rng.standard_normal((N_USERS, 2 * K + 1)))
-    self6 = _t(rng.standard_normal((N_ITEMS, K + 1)))
+    m_o, sq_o = (_t(rng.standard_normal((N_USERS, K))) for _ in range(2))
+    b_o = _t(rng.standard_normal(N_USERS))
+    m_s, b_s = _t(rng.standard_normal((N_ITEMS, K))), _t(rng.standard_normal(N_ITEMS))
     args = (p.row_ptr, p.other, p.x)
     before = (tge.FACTOR_LAUNCHES.count, tge.BIAS_LAUNCHES.count,
               tge.DIAG_LAUNCHES.count)
@@ -332,12 +332,12 @@ def test_tail_wrappers_on_cpu_are_the_plain_versions_and_chunk(small_ratings):
         np.testing.assert_allclose(
             tge.factor_tail_stats_plain(aug3, *args, K, wbs, max_edges=7).numpy(),
             whole.numpy(), rtol=1e-12, atol=1e-12)
-    whole = tge.bias_tail_stats(aug5, *args)
-    np.testing.assert_allclose(tge.bias_tail_stats_plain(aug5, *args, max_edges=7),
+    whole = tge.bias_tail_stats(m_o, b_o, *args)
+    np.testing.assert_allclose(tge.bias_tail_stats_plain(m_o, b_o, *args, max_edges=7),
                                whole, rtol=1e-12, atol=1e-12)
-    whole = tge.diag_tail_stats(aug6, self6, *args)
-    np.testing.assert_allclose(tge.diag_tail_stats_plain(aug6, self6, *args,
-                                                         max_edges=7),
+    whole = tge.diag_tail_stats(m_s, b_s, m_o, sq_o, b_o, *args)
+    np.testing.assert_allclose(tge.diag_tail_stats_plain(m_s, b_s, m_o, sq_o, b_o,
+                                                         *args, max_edges=7),
                                whole, rtol=1e-12, atol=1e-12)
     assert (tge.FACTOR_LAUNCHES.count, tge.BIAS_LAUNCHES.count,
             tge.DIAG_LAUNCHES.count) == before

@@ -287,10 +287,12 @@ GAUSSIAN_WRAPPERS = {
            lambda: (_cuda_looking(torch.rand(5, gaussian_edge.factor_stride(K))),
                     *_csr(3, 5, 4), K)),
     "K5": (gaussian_edge, "bias_tail_stats", "BIAS_LAUNCHES",
-           lambda: (_cuda_looking(torch.rand(5, K + 1)), *_csr(3, 5, 4))),
+           lambda: (_cuda_looking(torch.rand(5, K)), _cuda_looking(torch.rand(5)),
+                    *_csr(3, 5, 4))),
     "K6": (gaussian_edge, "diag_tail_stats", "DIAG_LAUNCHES",
-           lambda: (_cuda_looking(torch.rand(5, 2 * K + 1)),
-                    _cuda_looking(torch.rand(3, K + 1)), *_csr(3, 5, 4))),
+           lambda: (_cuda_looking(torch.rand(3, K)), _cuda_looking(torch.rand(3)),
+                    _cuda_looking(torch.rand(5, K)), _cuda_looking(torch.rand(5, K)),
+                    _cuda_looking(torch.rand(5)), *_csr(3, 5, 4))),
     "K4": (gj_inverse, "batched_psd_inverse_gj", "GJ_LAUNCHES",
            lambda: (_cuda_looking(torch.eye(K).expand(6, K, K)),)),
 }
@@ -318,18 +320,28 @@ def test_gaussian_wrappers_reject_what_the_kernels_do_not_take():
         gaussian_edge.factor_tail_stats(
             _cuda_looking(torch.rand(5, gaussian_edge.factor_stride(K),
                                      dtype=torch.float64)), *csr, K)
+    b5, b3 = _cuda_looking(torch.rand(5)), _cuda_looking(torch.rand(3))
     with pytest.raises(ValueError, match="K <= 128"):
-        gaussian_edge.bias_tail_stats(_cuda_looking(torch.rand(5, 130)), *csr)
+        gaussian_edge.bias_tail_stats(_cuda_looking(torch.rand(5, 132)), b5, *csr)
     with pytest.raises(TypeError, match="x must be"):
-        gaussian_edge.bias_tail_stats(_cuda_looking(torch.rand(5, K + 1)), *csr[:2],
+        gaussian_edge.bias_tail_stats(_cuda_looking(torch.rand(5, K)), b5, *csr[:2],
                                       _cuda_looking(torch.ones(4, dtype=torch.float64)))
+    with pytest.raises(ValueError, match="b_other must be"):
+        gaussian_edge.bias_tail_stats(_cuda_looking(torch.rand(5, K)), b3, *csr)
     with pytest.raises(ValueError, match="K <= 128"):
-        gaussian_edge.diag_tail_stats(_cuda_looking(torch.rand(5, 259)),
-                                      _cuda_looking(torch.rand(3, 130)), *csr)
-    with pytest.raises(TypeError, match="self_tab"):
+        wide = _cuda_looking(torch.rand(5, 132))
+        gaussian_edge.diag_tail_stats(_cuda_looking(torch.rand(3, 132)), b3, wide, wide,
+                                      b5, *csr)
+    m4 = _cuda_looking(torch.rand(5, K))
+    with pytest.raises(TypeError, match="m_self"):
         gaussian_edge.diag_tail_stats(
-            _cuda_looking(torch.rand(5, 2 * K + 1)),
-            _cuda_looking(torch.rand(3, K + 1, dtype=torch.float64)), *csr)
+            _cuda_looking(torch.rand(3, K, dtype=torch.float64)), b3, m4, m4, b5, *csr)
+    with pytest.raises(ValueError, match="b_self must be"):
+        gaussian_edge.diag_tail_stats(_cuda_looking(torch.rand(3, K)), b5, m4, m4, b5,
+                                      *csr)
+    with pytest.raises(ValueError, match="long_rows"):
+        gaussian_edge.diag_tail_stats(_cuda_looking(torch.rand(3, K)), b3, m4, m4, b5,
+                                      *csr, long_rows=4)
     with pytest.raises(ValueError, match="K <= 128"):
         gj_inverse.batched_psd_inverse_gj(_cuda_looking(torch.rand(2, 129, 129)))
     with pytest.raises(TypeError, match="float32"):
@@ -382,8 +394,16 @@ def test_ext_wrappers_reject_what_the_kernels_do_not_take(kernel):
 
 
 def _tail_call(kernel, es, eo, **kw):
-    """K1 ("K1", "K1raw") or K7 on CUDA-looking tables over a 4-edge tail."""
+    """K1 ("K1", "K1raw"), K7, K5 (other table ``eo``) or K6 (self table
+    ``es``, both other tables ``eo``) on CUDA-looking tables over a 4-edge
+    tail."""
     row_ptr, other, x = _csr(3, 5, 4)
+    b_self, b_other = _cuda_looking(torch.rand(3)), _cuda_looking(torch.rand(5))
+    if kernel == "K5":
+        return gaussian_edge.bias_tail_stats(eo, b_other, row_ptr, other, x, **kw)
+    if kernel == "K6":
+        return gaussian_edge.diag_tail_stats(es, b_self, eo, eo, b_other, row_ptr, other,
+                                             x, **kw)
     if kernel == "K7":
         return ext_edge.ext_factor_tail(es, eo, _cuda_looking(torch.rand(5)), row_ptr,
                                         other, x, **kw)
@@ -392,16 +412,19 @@ def _tail_call(kernel, es, eo, **kw):
                                      mode="raw" if raw else "cavi", **kw)
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K1raw", "K7"])
+@pytest.mark.parametrize("kernel", ["K1", "K1raw", "K7", "K5", "K6"])
 def test_tail_group_wrappers_take_only_padded_tables(monkeypatch, broken_build, kernel):
-    """On the card K1 and K7 take only tables of tail_stride(K) columns
-    that start on 16 bytes, and 1 <= K <= 128: anything else raises before
-    the build, never pads quietly and never runs the plain version."""
-    module, plain = ((ext_edge, "ext_factor_tail_plain") if kernel == "K7"
-                     else (cavi_edge, "tail_edge_stats_plain"))
+    """On the card K1, K7, K5 and K6 take only tables of tail_stride(K)
+    columns that start on 16 bytes, and 1 <= K <= 128: anything else raises
+    before the build, never pads quietly and never runs the plain version."""
+    module, plain = {"K7": (ext_edge, "ext_factor_tail_plain"),
+                     "K5": (gaussian_edge, "bias_tail_stats_plain"),
+                     "K6": (gaussian_edge, "diag_tail_stats_plain")}.get(
+                         kernel, (cavi_edge, "tail_edge_stats_plain"))
     _forbid(monkeypatch, module, plain)
     counters = (cavi_edge.TAIL_LAUNCHES, cavi_edge.TAIL_RAW_LAUNCHES,
-                ext_edge.FACTOR_LAUNCHES)
+                ext_edge.FACTOR_LAUNCHES, gaussian_edge.BIAS_LAUNCHES,
+                gaussian_edge.DIAG_LAUNCHES)
     before = [c.count for c in counters]
 
     def tab(n, w):
@@ -413,7 +436,8 @@ def test_tail_group_wrappers_take_only_padded_tables(monkeypatch, broken_build, 
         _tail_call(kernel, tab(3, 8), tab(5, 8), K=3)  # padded for another K
     with pytest.raises(ValueError, match="1 <= K <= 128"):
         _tail_call(kernel, tab(3, 132), tab(5, 132), K=129)
-    with pytest.raises(ValueError, match="differ in K"):
+    with pytest.raises(ValueError, match="padded to tail_stride" if kernel == "K5"
+                       else "differ in K"):  # K5 reads no self table
         _tail_call(kernel, tab(3, 8), tab(5, 5), K=5)
     misaligned = torch.rand(5 * 8 + 1)[1:].view(5, 8).as_subclass(_CudaLooking)
     with pytest.raises(ValueError, match="start on 16 bytes"):
@@ -437,7 +461,9 @@ def test_kernel_sources_name_what_they_replace():
                         "pmf_tpu/ops/pallas/ext_edge.py::_scalar_kernel"],
         "map_grad.cu": ["pmf_tpu/ops/pallas/map_grad.py::_kernel"],
         "tail_groups.cuh": ["pmf_tpu/ops/pallas/cavi_edge.py::_kernel",
-                            "pmf_tpu/ops/pallas/ext_edge.py::_factor_kernel"],
+                            "pmf_tpu/ops/pallas/ext_edge.py::_factor_kernel",
+                            "pmf_tpu/ops/pallas/gaussian_edge.py::_bias_kernel",
+                            "::_diag_kernel"],
     }
     assert set(srcs) == set(replaces)
     for name, funcs in replaces.items():
