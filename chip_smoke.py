@@ -44,8 +44,8 @@ launches, 2 a step, timed by CUDA events and by the profiler), msmall
 (``HPFMap.fit`` for 3 epochs, engine "blocked_high" then "flat", with
 launch counters) and mprofile (20 steady blocked steps under the profiler).
 
-Before the data, phase bigk: K1 (both modes) and K7 at every K where
-their row-group geometry changes, equal bits on a repeat (phase
+Before the data, phase bigk: K1 (both modes), K7, K5 and K6 at every K
+where their row-group plan changes, equal bits on a repeat (phase
 k17small), K3 and K4 at every K where their geometry changes (phase
 k34small), every kernel at K = 50
 and K = 128 vs its plain version on small shapes (K2 on both sides with
@@ -60,10 +60,12 @@ Those are freed, then the Gaussian-MF CAVI path:
                 and the layout ``GaussianMF.fit`` builds (3.75 GiB head).
 10. K3/K5/K6 -- the factor, bias and diag tail kernels vs their plain
                 versions, both directions, under a per-column criterion
-                fit for signed sums; ``torch.sparse.mm`` as the library
-                reference of K3's and K5's pass-through bulk.  K3's bytes
-                reckoned three ways (per-edge gather, table once, and
-                banded: the table in bands of other rows sized to L2).
+                fit for signed sums, equal bits on a repeat;
+                ``torch.sparse.mm`` as the library reference of K3's and
+                K5's pass-through bulk.  K3's bytes reckoned three ways
+                (per-edge gather, table once, and banded: the table in
+                bands of other rows sized to L2); K5's and K6's per-edge
+                sectors and their long rows' time alone.
 11. ghead    -- the head tiers' linear products (library matmuls), timed.
 12. K4       -- the Gauss-Jordan inverse on the real theta/beta precision
                 matrices vs its plain version and float64 ``linalg.inv``,
@@ -72,7 +74,8 @@ Those are freed, then the Gaussian-MF CAVI path:
                 and diag, on a small input with a two-tier head.
 14. gfit     -- ``GaussianMF.fit(engine="blocked_high")`` at K=20: 4 sweeps
                 exact full covariance, then 2 diag, with launch counters.
-15. gprofile -- steady sweep times, and one exact sweep under the profiler.
+15. gprofile -- steady sweep times, and one exact and one diag sweep under
+                the profiler (busy time, idle share, parts).
 
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.
@@ -617,13 +620,14 @@ SELF_TABS = {"K1": (0,), "K1raw": (0,), "K7": (0,), "K5": (), "K6": (0, 1)}
 
 
 def _tail_tabs(kid, n_self, n_other, k, seed):
-    """A kernel's tables in the wrapper's order, padded to tail_stride(k):
-    positive (e_self, e_other[, s_other]) for K1 and K7; Gaussian-state
-    (m_other, b_other) for K5, (m_self, b_self, m_other, sq_other,
-    b_other) for K6, sq = v + m^2."""
+    """A kernel's tables in the wrapper's order, padded as the kernel takes
+    them: positive (e_self, e_other[, s_other]) for K1 and K7;
+    Gaussian-state ([m_other | b_other],) for K5, (m_self, b_self, m_other,
+    sq_other, b_other) for K6, sq = v + m^2."""
     import torch
 
     from pmf_tpu_torch.ops._tail import padded_rows
+    from pmf_tpu_torch.ops.gaussian_edge import bias_table
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     if kid not in GAUSS_TAIL:
@@ -635,7 +639,7 @@ def _tail_tabs(kid, n_self, n_other, k, seed):
                 for n in (n_self, n_other))
     sq_o = 0.1 + 0.5 * torch.rand(n_other, k, generator=gen, device="cuda") + m_o * m_o
     if kid == "K5":
-        return padded_rows(m_o), b_o
+        return (bias_table(m_o, b_o),)
     return padded_rows(m_s), b_s, padded_rows(m_o), padded_rows(sq_o), b_o
 
 
@@ -690,14 +694,14 @@ def _row_sectors(p, stride_floats, width_floats):
 def _tail_reckoning(kid, p, k, self_bytes, out_bytes):
     """Bytes of one tail pass if every gather came from HBM: each edge's id
     (and rating) once, the 32-byte sectors of its other row at
-    ``tail_stride(k)`` floats a row (K6 two rows: m and v + m^2), a sector
-    for the other row's scalar (K7's s_o, K5's and K6's b_o), and the self
-    tables, row pointers and output once."""
-    from pmf_tpu_torch.ops._tail import tail_stride
+    ``tail_stride`` of its columns (K5's [m | b] record, K + 1; K6 two rows:
+    m and v + m^2), a sector for the other row's scalar (K7's s_o, K6's
+    b_o), and the self tables, row pointers and output once."""
+    from pmf_tpu_torch.ops._tail import columns, tail_stride
 
-    S = tail_stride(k)
+    S = tail_stride(columns(k, kid))
     rows = 2 if kid == "K6" else 1
-    per_edge = 4 + (0 if kid == "K1raw" else 4) + (32 if kid in ("K7", "K5", "K6") else 0)
+    per_edge = 4 + (0 if kid == "K1raw" else 4) + (32 if kid in ("K7", "K6") else 0)
     return (p.nnz * per_edge + 32 * rows * _row_sectors(p, S, S) + self_bytes
             + p.row_ptr.nbytes + out_bytes)
 
@@ -734,11 +738,11 @@ def _tail_notes(kid, name, tabs, p, k, ms, out_bytes):
 
 
 def _tail_geometry_ks():
-    """Every K where a row-group plan changes (its first and last K), and
-    K = 3, 7, 20, 50, 70, 127 (padded strides and the timed K)."""
+    """Every K where a row-group kernel's plan changes (its first and last
+    K), and K = 3, 7, 20, 50, 70, 127 (padded strides and the timed K)."""
     from pmf_tpu_torch.ops._tail import GROUP_MAX_K, launch_plan
 
-    plans = [(launch_plan(k)["lanes"], launch_plan(k)["vec"])
+    plans = [tuple(launch_plan(k, kid)[f] for kid in TAIL_KERNELS for f in ("lanes", "vec"))
              for k in range(1, GROUP_MAX_K + 1)]
     edges = {k + 1 for k in range(len(plans))
              if k == 0 or k == len(plans) - 1 or plans[k] != plans[k - 1]
@@ -806,9 +810,10 @@ def _gauss_tail_tabs(kid, m_s, b_s, m_o, v_o, b_o):
     """K5's or K6's tables in new space, padded as gaussian_bias_stats and
     gaussian_diag_stats build them."""
     from pmf_tpu_torch.ops._tail import padded_rows
+    from pmf_tpu_torch.ops.gaussian_edge import bias_table
 
     if kid == "K5":
-        return padded_rows(m_o), b_o.contiguous()
+        return (bias_table(m_o, b_o),)
     return (padded_rows(m_s), b_s.contiguous(), padded_rows(m_o),
             padded_rows(v_o + m_o * m_o), b_o.contiguous())
 
@@ -2161,22 +2166,30 @@ AB_KS = (20, 50)  # the K of the K5 / K6 form A/B
 
 def _ab_forms(k):
     """The forms timed in turns at ``k``: (kernel, label, mode, (G, V, D));
-    "previous" is the warp-a-row kernel, "plan" the kept plan, "record" K5
-    on one [m | b] record a row of tail_stride(K + 1) floats."""
+    "previous" is the warp-a-row kernel, "plan" the plan's instance; K5
+    reads one [m | b] record a row (mode 3); K6 reads b_o as a scalar (mode
+    4) or from column K of an [m | b] record a row, and b_s from the self
+    row's (mode 5, "record")."""
     from pmf_tpu_torch.ops._tail import launch_plan
 
-    plan = launch_plan(k)
-    G, V = plan["lanes"], plan["vec"]
-    rec = launch_plan(k + 1)
-    other = (16, 1) if V == 2 else None
-    forms = [("K5", "previous", None, None), ("K5", f"plan G{G} V{V}", 3, (G, V, 4)),
-             ("K5", f"record G{rec['lanes']} V{rec['vec']}", 5,
-              (rec["lanes"], rec["vec"], 4)),
-             ("K6", "previous", None, None), ("K6", f"plan G{G} V{V}", 4, (G, V, 4)),
-             ("K6", f"G{G} V{V} D2", 4, (G, V, 2))]
-    if other:
-        forms += [("K5", "G16 V1", 3, (16, 1, 4)), ("K6", "G16 V1", 4, (16, 1, 4)),
-                  ("K6", "G16 V1 D2", 4, (16, 1, 2))]
+    p5, p6 = launch_plan(k, "K5"), launch_plan(k, "K6")
+    g5, g6 = (p5["lanes"], p5["vec"]), (p6["lanes"], p6["vec"])
+    forms = [("K5", "previous", None, None),
+             ("K5", f"plan G{g5[0]} V{g5[1]} D{p5['in_flight']}", 3,
+              (*g5, p5["in_flight"])),
+             ("K6", "previous", None, None),
+             ("K6", f"plan G{g6[0]} V{g6[1]} D{p6['in_flight']}", 4,
+              (*g6, p6["in_flight"]))]
+    if k <= 28:  # one word a lane in both
+        forms += [("K5", "G8 V1 D8", 3, (8, 1, 8)), ("K5", "G8 V1 D2", 3, (8, 1, 2)),
+                  ("K6", "G8 V1 D4", 4, (8, 1, 4)),
+                  ("K6", "record G8 V1 D2", 5, (8, 1, 2)),
+                  ("K6", "record G8 V1 D4", 5, (8, 1, 4))]
+    else:
+        forms += [("K5", "G16 V1 D4", 3, (16, 1, 4)), ("K5", "G16 V1 D8", 3, (16, 1, 8)),
+                  ("K6", "G16 V1 D4", 4, (16, 1, 4)), ("K6", "G8 V2 D4", 4, (8, 2, 4)),
+                  ("K6", "record G16 V1 D2", 5, (16, 1, 2)),
+                  ("K6", "record G16 V1 D4", 5, (16, 1, 4))]
     return forms
 
 
@@ -2201,13 +2214,13 @@ def phase_k56ab(blocked):
                         for n in (p.n_self, p.n_other))
             sq_o = 0.1 + 0.5 * torch.rand(p.n_other, k, generator=gen, device="cuda")
             sq_o += m_o * m_o
-            tabs = {"K5": (padded_rows(m_o), b_o),
+            tabs = {"K5": (ge.bias_table(m_o, b_o),),
                     "K6": (padded_rows(m_s), b_s, padded_rows(m_o), padded_rows(sq_o),
                            b_o)}
             aug5 = torch.cat([m_o, b_o[:, None]], dim=1).contiguous()
             aug6 = torch.cat([m_o, sq_o, b_o[:, None]], dim=1).contiguous()
             self6 = torch.cat([m_s, b_s[:, None]], dim=1).contiguous()
-            rec = padded_rows(aug5)
+            rec = (ge.bias_table(m_s, b_s), tabs["K5"][0])  # [m | b] self, other
             refs = {kid: _tail_plain(kid, tabs[kid], p, k) for kid in GAUSS_TAIL}
             csr = (p.row_ptr, p.other, p.x)
 
@@ -2224,16 +2237,15 @@ def phase_k56ab(blocked):
                         _build.launch("pmf_gauss_diag_prev", counter, dev, aug6, self6,
                                       *csr, p.n_self, k, out)
                     return out
-                if mode == 5:
-                    out = torch.empty((p.n_self, k + 2), device=dev)
-                    _build.launch("pmf_gauss_tail_form", counter, dev, mode, *geo, None,
-                                  None, rec, None, None, *csr, p.n_self, p.long_rows,
-                                  k + 1, out)
-                    return out
                 if kid == "K5":
-                    m_self = b_self = sq = None
-                    m_oth, b_oth = tabs["K5"]
+                    m_self = b_self = sq = b_oth = None
+                    m_oth, = tabs["K5"]
                     width = k + 2
+                elif mode == 5:
+                    m_self, m_oth = rec
+                    sq = tabs["K6"][3]
+                    b_self = b_oth = None
+                    width = 3 * k
                 else:
                     m_self, b_self, m_oth, sq, b_oth = tabs["K6"]
                     width = 3 * k
@@ -2253,12 +2265,13 @@ def phase_k56ab(blocked):
                 for i in order:
                     kid, _, mode, geo = forms[i]
                     turns[i].append(cuda_ms(lambda: run(kid, mode, geo)))
-            S = 4 * tail_stride(k)
-            rec_sectors = _row_sectors(p, tail_stride(k + 1), k + 1)
-            m_sectors = _row_sectors(p, tail_stride(k), tail_stride(k))
-            log(f"  k56ab K={k} {name}: K5 sectors an edge: m rows {m_sectors / p.nnz:.3f} "
-                f"+ b 1 (stride {S} B) against [m | b] records "
-                f"{rec_sectors / p.nnz:.3f} (stride {4 * tail_stride(k + 1)} B)")
+            S, S1 = tail_stride(k), tail_stride(k + 1)
+            rec_sectors = _row_sectors(p, S1, S1)
+            m_sectors = _row_sectors(p, S, S)
+            log(f"  k56ab K={k} {name}: sectors an edge: m rows {m_sectors / p.nnz:.3f} "
+                f"+ b 1 (stride {4 * S} B) against [m | b] records "
+                f"{rec_sectors / p.nnz:.3f} (stride {4 * S1} B); K6 adds v + m^2 rows "
+                f"{m_sectors / p.nnz:.3f}")
             for i, (kid, label, _, _) in enumerate(forms):
                 t = turns[i]
                 log(f"  k56ab K={k} {name}: {kid} {label}: {t[0]:.4f} {t[1]:.4f} ms "

@@ -428,11 +428,10 @@ extern "C" int pmf_gauss_diag_prev(const float* aug, const float* self_tab,
   return (int)cudaGetLastError();
 }
 
-extern "C" int pmf_gauss_bias(const float* m_other, const float* b_other,
-                              const int64_t* row_ptr, const int32_t* other,
-                              const float* x, int n_self, int n_long, int K, float* out,
-                              void* stream) {
-  const tail_groups::Tables t{nullptr, m_other, nullptr, b_other, nullptr,
+extern "C" int pmf_gauss_bias(const float* mb_other, const int64_t* row_ptr,
+                              const int32_t* other, const float* x, int n_self,
+                              int n_long, int K, float* out, void* stream) {
+  const tail_groups::Tables t{nullptr, mb_other, nullptr, nullptr, nullptr,
                               row_ptr, other, x};
   return tail_groups::launch<tail_groups::kBias>(t, n_self, n_long, K, 0.f, out,
                                                  static_cast<cudaStream_t>(stream));
@@ -449,8 +448,8 @@ extern "C" int pmf_gauss_diag(const float* m_self, const float* b_self,
                                                  static_cast<cudaStream_t>(stream));
 }
 
-// A/B only: K5 (mode 3), K6 (mode 4) or K5 on one [m | b] record (mode 5,
-// K the record's K + 1 columns) at the instance (G, V, D) named.
+// A/B only: K5 (mode 3), K6 (mode 4) or K6 with b in the [m | b] records
+// (mode 5) at the instance (G, V, D) named.
 extern "C" int pmf_gauss_tail_form(int mode, int G, int V, int D, const float* m_self,
                                    const float* b_self, const float* m_other,
                                    const float* sq_other, const float* b_other,
@@ -465,8 +464,8 @@ extern "C" int pmf_gauss_tail_form(int mode, int G, int V, int D, const float* m
       return tail_groups::launch_form<tail_groups::kBias>(t, n_self, n_long, K, G, V, D, out, s);
     case tail_groups::kDiag:
       return tail_groups::launch_form<tail_groups::kDiag>(t, n_self, n_long, K, G, V, D, out, s);
-    case tail_groups::kBiasRec:
-      return tail_groups::launch_form<tail_groups::kBiasRec>(t, n_self, n_long, K, G, V, D, out, s);
+    case tail_groups::kDiagRec:
+      return tail_groups::launch_form<tail_groups::kDiagRec>(t, n_self, n_long, K, G, V, D, out, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -71,19 +71,23 @@ namespace tail_groups {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 8;     // warps a CTA
 constexpr int kThreads = 32 * kWarps;
-constexpr int kInFlight = 4;  // edges a group gathers at once
-constexpr int kMaxK = 128;    // at most 32 float4 words a row
-constexpr int kOneWord = 8;   // spans up to 8 words take one word a lane, wider two
+constexpr int kInFlight = 4;      // edges a group gathers at once (K1, K7, K5)
+constexpr int kDiagInFlight = 2;  // K6
+constexpr int kMaxK = 128;
+constexpr int kOneWord = 8;       // spans up to 8 words take one word a lane, wider two
+constexpr int kDiagOneWord = 16;  // K6: up to 16 words
 
-enum Mode { kCavi = 0, kRaw = 1, kExt = 2, kBias = 3, kDiag = 4, kBiasRec = 5 };
+// kDiagRec: K6 with b_o read from column K of the [m | b] record (and b_s
+// from the self record), for the A/B only.
+enum Mode { kCavi = 0, kRaw = 1, kExt = 2, kBias = 3, kDiag = 4, kDiagRec = 5 };
 
-// What a pass reads.  Tables of rows are padded to 4 * ceil(K / 4) floats
-// and start on 16 bytes; a pointer a mode does not read may be null.
+// What a pass reads.  Tables of rows are padded to 4 * ceil(columns / 4)
+// floats and start on 16 bytes; a pointer a mode does not read may be null.
 struct Tables {
   const float* e_self;    // self rows: K1, K7 e_self; K6 m_self
-  const float* e_other;   // other rows: K1, K7 e_other; K5, K6 m_other
+  const float* e_other;   // other rows: K1, K7 e_other; K5 [m_other | b_other]; K6 m_other
   const float* sq_other;  // K6: v_other + m_other^2
-  const float* s_other;   // a scalar an other row: K7 s_other; K5, K6 b_other
+  const float* s_other;   // a scalar an other row: K7 s_other; K6 b_other
   const float* s_self;    // a scalar a self row: K6 b_self
   const int64_t* row_ptr;
   const int32_t* other;
@@ -91,14 +95,24 @@ struct Tables {
 };
 
 __host__ __device__ constexpr bool reads_x(int mode) { return mode != kRaw; }
-__host__ __device__ constexpr bool reads_self(int mode) {
-  return mode != kBias && mode != kBiasRec;
-}
+__host__ __device__ constexpr bool reads_self(int mode) { return mode != kBias; }
 __host__ __device__ constexpr bool reads_s_other(int mode) {
-  return mode == kExt || mode == kBias || mode == kDiag;
+  return mode == kExt || mode == kDiag;
+}
+__host__ __device__ constexpr bool is_diag(int mode) { return mode == kDiag || mode == kDiagRec; }
+// Columns of a row of e_other (and e_self): K factors, and b beside m in
+// K5's record.
+__host__ __device__ constexpr int columns(int mode, int K) {
+  return mode == kBias || mode == kDiagRec ? K + 1 : K;
 }
 __host__ __device__ constexpr int out_width(int mode, int K) {
-  return mode == kBias ? K + 2 : mode == kBiasRec ? K + 1 : mode == kDiag ? 3 * K : 2 * K;
+  return mode == kBias ? K + 2 : is_diag(mode) ? 3 * K : 2 * K;
+}
+__host__ __device__ constexpr int in_flight(int mode) {
+  return is_diag(mode) ? kDiagInFlight : kInFlight;
+}
+__host__ __device__ constexpr int one_word(int mode) {
+  return is_diag(mode) ? kDiagOneWord : kOneWord;
 }
 
 // Edges a group takes a batch: each lane loads B / G of their ids.
@@ -124,29 +138,26 @@ __device__ __forceinline__ float4 mul4(float4 a, float4 b) {
   return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
 }
 
-__device__ __forceinline__ void add4(float4& a, const float4& b) {
-  a.x += b.x;
-  a.y += b.y;
-  a.z += b.z;
-  a.w += b.w;
-}
-
 __device__ __forceinline__ float comp(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-__device__ __forceinline__ float4 shfl_xor4(float4 v, int off) {
-  return make_float4(__shfl_xor_sync(kFull, v.x, off), __shfl_xor_sync(kFull, v.y, off),
-                     __shfl_xor_sync(kFull, v.z, off), __shfl_xor_sync(kFull, v.w, off));
-}
-
-// One launch: G lanes a row, V float4 words a lane (G * V >= ceil(K / 4)),
-// D edges in flight a group.  Warps [0, n_long) take rows [0, n_long), one
-// a warp, their 32/G groups each walking a contiguous share of the row's
-// edges; the later warps take 32/G rows each from row n_long on.
-template <int kMode, int G, int V, int D = kInFlight>
+// One launch: G lanes a row, V float4 words a lane (G * V >= the row's
+// words), D edges in flight a group.  Warps [0, n_long) take rows
+// [0, n_long), one a warp, their 32/G groups each walking a contiguous
+// share of the row's edges; the later warps take 32/G rows each from row
+// n_long on.
+template <int kMode, int G, int V, int D>
 __global__ void __launch_bounds__(kThreads)
-tail_group_kernel(Tables t, int n_self, int n_long, int K, float rate_floor,
+tail_group_kernel(const float* __restrict__ e_self,
+                  const float* __restrict__ e_other,
+                  const float* __restrict__ sq_other,
+                  const float* __restrict__ s_other,
+                  const float* __restrict__ s_self,
+                  const int64_t* __restrict__ row_ptr,
+                  const int32_t* __restrict__ other,
+                  const float* __restrict__ x,
+                  int n_self, int n_long, int K, float rate_floor,
                   float* __restrict__ out) {
   constexpr int R = 32 / G;  // groups a warp
   constexpr int B = batch_of(G);
@@ -162,8 +173,8 @@ tail_group_kernel(Tables t, int n_self, int n_long, int K, float rate_floor,
   int len = 0;
   if (split) {
     row = warp;
-    begin = t.row_ptr[row];
-    const int n = (int)(t.row_ptr[row + 1] - begin);
+    begin = row_ptr[row];
+    const int n = (int)(row_ptr[row + 1] - begin);
     const int share = (n + R - 1) / R;
     const int lo = min(group * share, n);
     begin += lo;
@@ -173,19 +184,22 @@ tail_group_kernel(Tables t, int n_self, int n_long, int K, float rate_floor,
     if (row0 >= n_self) return;  // whole warp leaves together
     row = row0 + group;
     if (row < n_self) {
-      begin = t.row_ptr[row];
-      len = (int)(t.row_ptr[row + 1] - begin);
+      begin = row_ptr[row];
+      len = (int)(row_ptr[row + 1] - begin);
     }
   }
   const bool has_row = row < n_self;
-  const int W = (K + 3) >> 2;  // float4 words a row
+  const int C = columns(kMode, K);
+  const int W = (C + 3) >> 2;  // float4 words a row of e_other (and e_self)
+  const int Wq = (K + 3) >> 2;  // of sq_other
   const int span = (int)__reduce_max_sync(kFull, (unsigned)len);
 
-  const float4* __restrict__ eo4 = reinterpret_cast<const float4*>(t.e_other);
-  const float4* __restrict__ sq4 = reinterpret_cast<const float4*>(t.sq_other);
+  const float4* __restrict__ eo4 = reinterpret_cast<const float4*>(e_other);
+  const float4* __restrict__ sq4 = reinterpret_cast<const float4*>(sq_other);
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   // cavi, raw, ext: acc_a the first K columns, acc_o the second; bias:
-  // acc_o sums m_o; diag: acc_a, acc_o, acc_c its three column blocks.
+  // acc_o sums the [m | b] record; diag: acc_a, acc_o, acc_c its three
+  // column blocks.
   float4 es[V], acc_a[V], acc_o[V], acc_c[V];
 #pragma unroll
   for (int v = 0; v < V; ++v) {
@@ -193,7 +207,7 @@ tail_group_kernel(Tables t, int n_self, int n_long, int K, float rate_floor,
     float4 e = zero;
     if constexpr (reads_self(kMode)) {
       if (has_row && w < W) {
-        e = reinterpret_cast<const float4*>(t.e_self)[(int64_t)row * W + w];
+        e = reinterpret_cast<const float4*>(e_self)[(int64_t)row * W + w];
         const int k = 4 * w;
         if (k + 1 >= K) e.y = 0.f;
         if (k + 2 >= K) e.z = 0.f;
@@ -205,10 +219,12 @@ tail_group_kernel(Tables t, int n_self, int n_long, int K, float rate_floor,
     acc_o[v] = zero;
     acc_c[v] = zero;
   }
-  float acc_s = 0.f, acc_x = 0.f;  // bias: sum b_o, sum x
-  float bs = 0.f;                  // diag: b_s
+  float acc_x = 0.f;  // bias: sum x
+  float bs = 0.f;     // diag: b_s
   if constexpr (kMode == kDiag) {
-    if (has_row) bs = t.s_self[row];
+    if (has_row) bs = s_self[row];
+  } else if constexpr (kMode == kDiagRec) {
+    if (has_row) bs = e_self[(int64_t)row * 4 * W + K];
   }
 
   // One edge: the group's dot where the mode needs one, then the lane's
@@ -221,12 +237,19 @@ tail_group_kernel(Tables t, int n_self, int n_long, int K, float rate_floor,
         acc_a[v].y += es[v].y * eo[v].y;
         acc_a[v].z += es[v].z * eo[v].z;
         acc_a[v].w += es[v].w * eo[v].w;
-        add4(acc_o[v], eo[v]);
+        acc_o[v].x += eo[v].x;
+        acc_o[v].y += eo[v].y;
+        acc_o[v].z += eo[v].z;
+        acc_o[v].w += eo[v].w;
       }
-    } else if constexpr (kMode == kBias || kMode == kBiasRec) {
+    } else if constexpr (kMode == kBias) {
 #pragma unroll
-      for (int v = 0; v < V; ++v) add4(acc_o[v], eo[v]);
-      if constexpr (kMode == kBias) acc_s += sv;
+      for (int v = 0; v < V; ++v) {
+        acc_o[v].x += eo[v].x;
+        acc_o[v].y += eo[v].y;
+        acc_o[v].z += eo[v].z;
+        acc_o[v].w += eo[v].w;
+      }
       acc_x += xv;
     } else {
       float4 p[V];
@@ -239,7 +262,7 @@ tail_group_kernel(Tables t, int n_self, int n_long, int K, float rate_floor,
         part += p[v].z;
         part += p[v].w;
       }
-      if constexpr (kMode == kDiag) {
+      if constexpr (is_diag(kMode)) {
         const float coef = ((xv - bs) - sv) - group_sum<G>(part);
 #pragma unroll
         for (int v = 0; v < V; ++v) {
@@ -247,7 +270,10 @@ tail_group_kernel(Tables t, int n_self, int n_long, int K, float rate_floor,
           acc_a[v].y += coef * eo[v].y;
           acc_a[v].z += coef * eo[v].z;
           acc_a[v].w += coef * eo[v].w;
-          add4(acc_o[v], sq[v]);
+          acc_o[v].x += sq[v].x;
+          acc_o[v].y += sq[v].y;
+          acc_o[v].z += sq[v].z;
+          acc_o[v].w += sq[v].w;
           acc_c[v].x += eo[v].x * eo[v].x;
           acc_c[v].y += eo[v].y * eo[v].y;
           acc_c[v].z += eo[v].z * eo[v].z;
@@ -267,7 +293,10 @@ tail_group_kernel(Tables t, int n_self, int n_long, int K, float rate_floor,
             acc_o[v].z += sv * eo[v].z;
             acc_o[v].w += sv * eo[v].w;
           } else {
-            add4(acc_o[v], eo[v]);
+            acc_o[v].x += eo[v].x;
+            acc_o[v].y += eo[v].y;
+            acc_o[v].z += eo[v].z;
+            acc_o[v].w += eo[v].w;
           }
         }
       }
@@ -280,8 +309,8 @@ tail_group_kernel(Tables t, int n_self, int n_long, int K, float rate_floor,
     for (int q = 0; q < P; ++q) {
       const int e = base + gl + G * q;
       const bool ok = e < len;
-      ids[q] = ok ? t.other[begin + e] : 0;
-      if constexpr (reads_x(kMode)) xs[q] = ok ? t.x[begin + e] : 0.f;
+      ids[q] = ok ? other[begin + e] : 0;
+      if constexpr (reads_x(kMode)) xs[q] = ok ? x[begin + e] : 0.f;
     }
   };
 
@@ -306,10 +335,23 @@ tail_group_kernel(Tables t, int n_self, int n_long, int K, float rate_floor,
         for (int v = 0; v < V; ++v) {
           const int w = v * G + gl;
           eo[d][v] = (ok && w < W) ? __ldg(eo4 + (int64_t)o * W + w) : zero;
-          if constexpr (kMode == kDiag)
-            sq[d][v] = (ok && w < W) ? __ldg(sq4 + (int64_t)o * W + w) : zero;
+          if constexpr (is_diag(kMode))
+            sq[d][v] = (ok && w < Wq) ? __ldg(sq4 + (int64_t)o * Wq + w) : zero;
         }
-        if constexpr (reads_s_other(kMode)) sv[d] = ok ? __ldg(t.s_other + o) : 0.f;
+        if constexpr (reads_s_other(kMode)) sv[d] = ok ? __ldg(s_other + o) : 0.f;
+      }
+      if constexpr (kMode == kDiagRec) {
+        // b_o: column K of the record, word K / 4 (lane (K / 4) % G, slot
+        // (K / 4) / G), from that lane to the group.
+        const int wb = K >> 2;
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          float4 src = eo[d][0];
+          if constexpr (V > 1) {
+            if (wb >= G) src = eo[d][1];
+          }
+          sv[d] = group_bcast<G>(comp(src, K & 3), wb & (G - 1));
+        }
       }
 #pragma unroll
       for (int d = 0; d < D; ++d) edge(eo[d], sq[d], xv[d], sv[d]);
@@ -326,17 +368,27 @@ tail_group_kernel(Tables t, int n_self, int n_long, int K, float rate_floor,
     for (int v = 0; v < V; ++v) {
 #pragma unroll
       for (int off = G; off < 32; off <<= 1) {
-        if constexpr (kMode != kBias && kMode != kBiasRec) add4(acc_a[v], shfl_xor4(acc_a[v], off));
-        add4(acc_o[v], shfl_xor4(acc_o[v], off));
-        if constexpr (kMode == kDiag) add4(acc_c[v], shfl_xor4(acc_c[v], off));
+        if constexpr (kMode != kBias) {
+          acc_a[v].x += __shfl_xor_sync(kFull, acc_a[v].x, off);
+          acc_a[v].y += __shfl_xor_sync(kFull, acc_a[v].y, off);
+          acc_a[v].z += __shfl_xor_sync(kFull, acc_a[v].z, off);
+          acc_a[v].w += __shfl_xor_sync(kFull, acc_a[v].w, off);
+        }
+        acc_o[v].x += __shfl_xor_sync(kFull, acc_o[v].x, off);
+        acc_o[v].y += __shfl_xor_sync(kFull, acc_o[v].y, off);
+        acc_o[v].z += __shfl_xor_sync(kFull, acc_o[v].z, off);
+        acc_o[v].w += __shfl_xor_sync(kFull, acc_o[v].w, off);
+        if constexpr (is_diag(kMode)) {
+          acc_c[v].x += __shfl_xor_sync(kFull, acc_c[v].x, off);
+          acc_c[v].y += __shfl_xor_sync(kFull, acc_c[v].y, off);
+          acc_c[v].z += __shfl_xor_sync(kFull, acc_c[v].z, off);
+          acc_c[v].w += __shfl_xor_sync(kFull, acc_c[v].w, off);
+        }
       }
     }
-    if constexpr (kMode == kBias || kMode == kBiasRec) {
+    if constexpr (kMode == kBias) {
 #pragma unroll
-      for (int off = G; off < 32; off <<= 1) {
-        acc_s += __shfl_xor_sync(kFull, acc_s, off);
-        acc_x += __shfl_xor_sync(kFull, acc_x, off);
-      }
+      for (int off = G; off < 32; off <<= 1) acc_x += __shfl_xor_sync(kFull, acc_x, off);
     }
   }
   if (!has_row || (split && group != 0)) return;
@@ -347,36 +399,41 @@ tail_group_kernel(Tables t, int n_self, int n_long, int K, float rate_floor,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int k = 4 * w + j;
-      if (w < W && k < K) {
-        if constexpr (kMode == kBias || kMode == kBiasRec) {
-          dst[k] = comp(acc_o[v], j);
-        } else {
-          dst[k] = comp(acc_a[v], j);
-          dst[K + k] = comp(acc_o[v], j);
-          if constexpr (kMode == kDiag) dst[2 * K + k] = comp(acc_c[v], j);
-        }
+      if constexpr (kMode == kBias) {
+        if (w < W && k < C) dst[k] = comp(acc_o[v], j);  // [sum m | sum b]
+      } else if (w < W && k < K) {
+        dst[k] = comp(acc_a[v], j);
+        dst[K + k] = comp(acc_o[v], j);
+        if constexpr (is_diag(kMode)) dst[2 * K + k] = comp(acc_c[v], j);
       }
     }
   }
   if constexpr (kMode == kBias) {
-    if (gl == 0) {
-      dst[K] = acc_s;
-      dst[K + 1] = acc_x;
-    }
-  } else if constexpr (kMode == kBiasRec) {
-    if (gl == 0) dst[K] = acc_x;
+    if (gl == 0) dst[K + 1] = acc_x;
   }
 }
 
-// The plan for K: W = ceil(K / 4) words a row, span = the power of two at
-// or above W, V = 1 word a lane up to a span of kOneWord and 2 past it, G =
-// span / V lanes a row (ops/_tail.py::launch_plan mirrors it).
-inline void plan(int K, int& G, int& V) {
-  const int W = (K + 3) / 4;
+// The plan for K: W = ceil(columns / 4) words a row, span = the power of
+// two at or above W, V = 1 word a lane up to a span of one_word(mode) and 2
+// past it, G = span / V lanes a row, in_flight(mode) edges in flight a
+// group (ops/_tail.py::launch_plan mirrors it).
+__host__ __device__ constexpr int plan_span(int mode, int K) {
   int span = 1;
-  while (span < W) span *= 2;
-  V = span <= kOneWord ? 1 : 2;
-  G = span / V;
+  while (span < (columns(mode, K) + 3) / 4) span *= 2;
+  return span;
+}
+__host__ __device__ constexpr int plan_vec(int mode, int K) {
+  return plan_span(mode, K) <= one_word(mode) ? 1 : 2;
+}
+__host__ __device__ constexpr int plan_lanes(int mode, int K) {
+  return plan_span(mode, K) / plan_vec(mode, K);
+}
+// Whether some K in [1, kMaxK] takes the plan (G, V) in this mode: only
+// those instances are built.
+__host__ __device__ constexpr bool reachable(int mode, int G, int V) {
+  for (int K = 1; K <= kMaxK; ++K)
+    if (plan_lanes(mode, K) == G && plan_vec(mode, K) == V) return true;
+  return false;
 }
 
 inline int blocks_of(int n_self, int n_long, int G) {
@@ -388,27 +445,37 @@ inline bool bad_args(int n_self, int n_long, int K) {
   return K < 1 || K > kMaxK || n_long < 0 || n_long > n_self;
 }
 
+template <int kMode, int G, int V, int D>
+int launch_instance(const Tables& t, int n_self, int n_long, int K, float rate_floor,
+                    float* out, cudaStream_t stream) {
+  tail_group_kernel<kMode, G, V, D><<<blocks_of(n_self, n_long, G), kThreads, 0, stream>>>(
+      t.e_self, t.e_other, t.sq_other, t.s_other, t.s_self, t.row_ptr, t.other, t.x,
+      n_self, n_long, K, rate_floor, out);
+  return (int)cudaGetLastError();
+}
+
 // Warps [0, n_long) take a row each.
 template <int kMode>
 int launch(const Tables& t, int n_self, int n_long, int K, float rate_floor, float* out,
            cudaStream_t stream) {
   if (bad_args(n_self, n_long, K)) return (int)cudaErrorInvalidValue;
   if (n_self == 0) return (int)cudaGetLastError();
-  int G, V;
-  plan(K, G, V);
-  const int blocks = blocks_of(n_self, n_long, G);
+  const int G = plan_lanes(kMode, K), V = plan_vec(kMode, K);
+  constexpr int D = in_flight(kMode);
 #define PMF_TAIL_PLAN(G_, V_)                                                      \
-  if (G == G_ && V == V_) {                                                        \
-    tail_group_kernel<kMode, G_, V_><<<blocks, kThreads, 0, stream>>>(             \
-        t, n_self, n_long, K, rate_floor, out);                                    \
-    return (int)cudaGetLastError();                                                \
+  if constexpr (reachable(kMode, G_, V_)) {                                        \
+    if (G == G_ && V == V_)                                                        \
+      return launch_instance<kMode, G_, V_, D>(t, n_self, n_long, K, rate_floor, out, \
+                                               stream);                           \
   }
   PMF_TAIL_PLAN(1, 1)
   PMF_TAIL_PLAN(2, 1)
   PMF_TAIL_PLAN(4, 1)
   PMF_TAIL_PLAN(8, 1)
+  PMF_TAIL_PLAN(16, 1)
   PMF_TAIL_PLAN(8, 2)
   PMF_TAIL_PLAN(16, 2)
+  PMF_TAIL_PLAN(32, 2)
 #undef PMF_TAIL_PLAN
   return (int)cudaErrorInvalidValue;
 }
@@ -418,21 +485,19 @@ int launch(const Tables& t, int n_self, int n_long, int K, float rate_floor, flo
 template <int kMode>
 int launch_form(const Tables& t, int n_self, int n_long, int K, int G, int V, int D,
                 float* out, cudaStream_t stream) {
-  if (bad_args(n_self, n_long, K) || (K + 3) / 4 > G * V) return (int)cudaErrorInvalidValue;
+  if (bad_args(n_self, n_long, K) || (columns(kMode, K) + 3) / 4 > G * V)
+    return (int)cudaErrorInvalidValue;
   if (n_self == 0) return (int)cudaGetLastError();
-  const int blocks = blocks_of(n_self, n_long, G);
 #define PMF_TAIL_FORM(G_, V_, D_)                                                  \
-  if (G == G_ && V == V_ && D == D_) {                                             \
-    tail_group_kernel<kMode, G_, V_, D_><<<blocks, kThreads, 0, stream>>>(         \
-        t, n_self, n_long, K, 0.f, out);                                           \
-    return (int)cudaGetLastError();                                                \
-  }
-  PMF_TAIL_FORM(8, 1, 4)
+  if (G == G_ && V == V_ && D == D_)                                               \
+    return launch_instance<kMode, G_, V_, D_>(t, n_self, n_long, K, 0.f, out, stream);
   PMF_TAIL_FORM(8, 1, 2)
+  PMF_TAIL_FORM(8, 1, 4)
+  PMF_TAIL_FORM(8, 1, 8)
   PMF_TAIL_FORM(8, 2, 4)
-  PMF_TAIL_FORM(8, 2, 2)
-  PMF_TAIL_FORM(16, 1, 4)
   PMF_TAIL_FORM(16, 1, 2)
+  PMF_TAIL_FORM(16, 1, 4)
+  PMF_TAIL_FORM(16, 1, 8)
 #undef PMF_TAIL_FORM
   return (int)cudaErrorInvalidValue;
 }

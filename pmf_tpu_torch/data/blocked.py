@@ -42,9 +42,9 @@ class TailCSR:
     n_other: int
     nnz: int
     reordered: bool
-    # Rows [0, long_rows) hold every row of at least LONG_ROW edges: K1 and
-    # K7 give each of them a whole warp (a schedule; results do not depend
-    # on it).
+    # Rows [0, long_rows) hold every row of at least LONG_ROW edges: the
+    # row-group tail kernels (K1, K7, K5, K6) give each of them a whole warp
+    # (a schedule; results do not depend on it).
     long_rows: int = 0
 
     def max_row_len(self) -> int:
@@ -211,8 +211,9 @@ def _scatter_head(idx: np.ndarray, x: np.ndarray, hu: int, hi: int, r0: int,
     return head
 
 
-# Rows this long get a whole warp in K1 and K7: a group of lanes walking one
-# alone would set the end of the pass (PERF.md, the K1 and K7 findings).
+# Rows this long get a whole warp in the row-group tail kernels (K1, K7,
+# K5, K6): a group of lanes walking one alone would set the end of the pass
+# (PERF.md, the K1 and K7 findings).
 LONG_ROW = 128
 
 

@@ -42,8 +42,8 @@ SIGNATURES = {
                             _P, _P, _P, _P],
     # aug, stride, row_ptr, other, x, n_self, K, with_bias_stats, out, stream
     "pmf_gauss_factor": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P],
-    # m_other, b_other, row_ptr, other, x, n_self, n_long, K, out, stream
-    "pmf_gauss_bias": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # mb_other, row_ptr, other, x, n_self, n_long, K, out, stream
+    "pmf_gauss_bias": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     # m_self, b_self, m_other, sq_other, b_other, row_ptr, other, x, n_self,
     # n_long, K, out, stream
     "pmf_gauss_diag": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],

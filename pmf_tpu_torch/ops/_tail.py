@@ -1,7 +1,7 @@
 """What the CSR tail passes share: row chunking for the plain versions,
 the argument checks of the kernel wrappers, the head-tier slices and adds
 of the ``*_stats`` frames (permute, tail, head adds, permute back), and
-the row-group geometry and padded tables of K1 and K7
+the row-group geometry and padded tables of K1, K7, K5 and K6
 (``csrc/tail_groups.cuh``)."""
 
 from __future__ import annotations
@@ -11,36 +11,53 @@ import torch
 from pmf_tpu_torch.data.blocked import TailCSR
 from pmf_tpu_torch.ops.dense_head import head_products, head_products_t
 
-# csrc/tail_groups.cuh: kWarps, kInFlight, kMaxK, kOneWord, batch_of.
+# csrc/tail_groups.cuh: kWarps, kInFlight, kDiagInFlight, kMaxK, kOneWord,
+# kDiagOneWord, batch_of.
 GROUP_WARPS = 8
 GROUP_IN_FLIGHT = 4
+DIAG_IN_FLIGHT = 2
 GROUP_MAX_K = 128
 GROUP_ONE_WORD = 8
+DIAG_ONE_WORD = 16
+# The row-group kernels: K1 (modes "cavi", "raw"), K7, K5 and K6.
+PLAN_KERNELS = ("K1", "K1raw", "K7", "K5", "K6")
 
 
 def tail_stride(k: int) -> int:
-    """Row width, in floats, of the tables K1 and K7 take on the card:
-    K rounded up to 4, so that every row starts on 16 bytes."""
+    """Row width, in floats, of the tables the row-group kernels (K1, K7,
+    K5, K6) take on the card: K rounded up to 4, so that every row starts
+    on 16 bytes."""
     return -(-k // 4) * 4
 
 
-def launch_plan(k: int) -> dict:
-    """The row-group geometry of K1 and K7 at ``k`` factors, as
-    ``tail_groups::launch`` chooses it: ``words`` W = ceil(K / 4) float4
-    words a row; ``lanes`` G a row and ``vec`` V words a lane, V = 1 up
-    to a span of GROUP_ONE_WORD words and 2 past it, G = span / V, for span
-    the power of two at or above W; lane l of a group holds words l, l + G,
-    ...; each lane loads ``batch`` / G edges' ids a batch; ``in_flight``
-    edges a group gathers at once; ``rows_per_warp`` and ``rows_per_cta``
+def columns(k: int, kernel: str = "K1") -> int:
+    """Columns of a row of the tables a row-group kernel gathers: K
+    factors, and b beside m in K5's [m | b] record."""
+    return k + 1 if kernel == "K5" else k
+
+
+def launch_plan(k: int, kernel: str = "K1") -> dict:
+    """The row-group geometry of ``kernel`` (one of PLAN_KERNELS) at ``k``
+    factors, as ``tail_groups::launch`` chooses it: ``words`` W =
+    ceil(columns / 4) float4 words a row; ``lanes`` G a row and ``vec`` V
+    words a lane, V = 1 up to a span of GROUP_ONE_WORD words (K6:
+    DIAG_ONE_WORD) and 2 past it, G = span / V, for span the power of two at
+    or above W; lane l of a group holds words l, l + G, ...; each lane loads
+    ``batch`` / G edges' ids a batch; ``in_flight`` edges a group gathers at
+    once (K6: DIAG_IN_FLIGHT); ``rows_per_warp`` and ``rows_per_cta``
     (warps past TailCSR.long_rows)."""
     if not 1 <= k <= GROUP_MAX_K:
         raise ValueError(f"tail kernel needs 1 <= K <= {GROUP_MAX_K}, got K={k}")
-    words = -(-k // 4)
+    if kernel not in PLAN_KERNELS:
+        raise ValueError(f"unknown row-group kernel {kernel!r} {PLAN_KERNELS}")
+    diag = kernel == "K6"
+    cols = columns(k, kernel)
+    words = -(-cols // 4)
     span = 1 << (words - 1).bit_length()
-    vec = 1 if span <= GROUP_ONE_WORD else 2
+    vec = 1 if span <= (DIAG_ONE_WORD if diag else GROUP_ONE_WORD) else 2
     lanes = span // vec
-    return dict(lanes=lanes, vec=vec, words=words, stride=tail_stride(k),
-                batch=max(lanes, 8), in_flight=GROUP_IN_FLIGHT,
+    return dict(lanes=lanes, vec=vec, words=words, stride=tail_stride(cols),
+                batch=max(lanes, 8), in_flight=DIAG_IN_FLIGHT if diag else GROUP_IN_FLIGHT,
                 rows_per_warp=32 // lanes, rows_per_cta=32 * GROUP_WARPS // lanes)
 
 
@@ -62,25 +79,28 @@ def padded_rows(tab: torch.Tensor, rows: torch.Tensor | None = None) -> torch.Te
 
 
 def tail_tables(e_self: torch.Tensor, e_other: torch.Tensor, p: TailCSR):
-    """A pass's self and other tables in new space, padded for K1 and K7."""
+    """A pass's self and other tables in new space, padded for the
+    row-group kernels."""
     if not p.reordered:
         return padded_rows(e_self), padded_rows(e_other)
     return (padded_rows(e_self, p.self_old_of_new),
             padded_rows(e_other, p.other_old_of_new))
 
 
-def check_padded_tables(K: int, tables) -> None:
-    """Raise unless the (name, tensor) ``tables`` are the padded tables K1
-    and K7 take on the card: 2-D, of one width, ``tail_stride(K)`` columns,
-    starting on 16 bytes."""
+def check_padded_tables(K: int, tables, kernel: str = "K1") -> None:
+    """Raise unless the (name, tensor) ``tables`` are the padded tables the
+    row-group ``kernel`` takes on the card: 2-D, of one width,
+    ``tail_stride(columns(K, kernel))`` columns, starting on 16 bytes."""
     (name0, t0), *rest = tables
     for name, t in rest:
         if t.dim() != 2 or t.shape[1] != t0.shape[1]:
             raise ValueError(f"{name0} and {name} differ in K")
-    S = tail_stride(K)
-    if t0.shape[1] != S:
-        raise ValueError(f"the tables must be padded to tail_stride(K) = {S} columns "
-                         f"for K={K}, got {t0.shape[1]}")
+    cols = columns(K, kernel)
+    S = tail_stride(cols)
+    if t0.dim() != 2 or t0.shape[1] != S:
+        what = "K" if cols == K else f"K + {cols - K}"
+        raise ValueError(f"the tables must be padded to tail_stride({what}) = {S} "
+                         f"columns for K={K}, got {tuple(t0.shape)}")
     for name, t in tables:
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on 16 bytes")

@@ -41,6 +41,7 @@ from pmf_tpu_torch.ops._tail import (
     padded_rows as _padded_rows,
     products as _products,
     row_chunks as _row_chunks,
+    tail_stride as _tail_stride,
 )
 
 FACTOR_LAUNCHES = _build.LaunchCounter()
@@ -157,44 +158,58 @@ def factor_tail_stats(aug, row_ptr, other, x, K: int,
 
 # ------------------------------------------------------------------ K5 --
 
-def bias_tail_stats_plain(m_other, b_other, row_ptr, other, x, K: int | None = None,
+def bias_table(m, b, rows=None) -> torch.Tensor:
+    """K5's table [m | b | 0 pad] of ``tail_stride(K + 1)`` columns, of
+    rows ``rows`` of the inputs (all when None), gathered straight into the
+    padded table: one copy, where joining and permuting took two."""
+    K = m.shape[1]
+    n = m.shape[0] if rows is None else rows.shape[0]
+    out = m.new_empty((n, _tail_stride(K + 1)))
+    if rows is None:
+        out[:, :K] = m
+        out[:, K] = b
+    else:
+        torch.index_select(m, 0, rows, out=out[:, :K])
+        out[:, K] = b.index_select(0, rows)
+    out[:, K + 1 :] = 0
+    return out
+
+
+def bias_tail_stats_plain(mb_other, row_ptr, other, x, K: int | None = None,
                           max_edges: int | None = None) -> torch.Tensor:
     """Plain K5: (n_self, K+2) [sum m_o | sum b_o | sum x] per self row of
-    the CSR tail, in m_other's dtype; columns of m_other past ``K`` (its
-    width when None) are ignored."""
-    K = m_other.shape[1] if K is None else K
-    m_other = m_other[:, :K]
+    the CSR tail from the [m | b] table, in its dtype; columns past K + 1
+    (K = its width less one when None) are ignored."""
+    K = mb_other.shape[1] - 1 if K is None else K
+    mb_other = mb_other[:, : K + 1]
     n_self = row_ptr.shape[0] - 1
-    out = torch.zeros((n_self, K + 2), dtype=m_other.dtype, device=m_other.device)
+    out = torch.zeros((n_self, K + 2), dtype=mb_other.dtype, device=mb_other.device)
     for r0, r1 in _row_chunks(row_ptr, max_edges):
         local, o, sl = _edges(row_ptr, other, r0, r1)
-        payload = torch.cat([m_other[o], b_other[o][:, None].to(m_other.dtype),
-                             x[sl].to(m_other.dtype)[:, None]], dim=1)
+        payload = torch.cat([mb_other[o], x[sl].to(mb_other.dtype)[:, None]], dim=1)
         out[r0:r1].index_add_(0, local, payload)
     return out
 
 
-def bias_tail_stats(m_other, b_other, row_ptr, other, x, K: int | None = None,
+def bias_tail_stats(mb_other, row_ptr, other, x, K: int | None = None,
                     long_rows: int = 0) -> torch.Tensor:
-    """K5: the bias tail pass at ``K`` factors (m_other's width when None).
-    CUDA tensors launch the kernel, on m_other padded to ``tail_stride(K)``
-    columns and b_other (n_other,), giving each of the first ``long_rows``
-    rows a whole warp (``TailCSR.long_rows``); CPU tensors run the plain
-    version, which ignores columns past K."""
-    if not m_other.is_cuda:
-        return bias_tail_stats_plain(m_other, b_other, row_ptr, other, x, K)
-    K = m_other.shape[1] if K is None else K
+    """K5: the bias tail pass at ``K`` factors (the table's width less one
+    when None).  CUDA tensors launch the kernel, on the [m | b] table padded
+    to ``tail_stride(K + 1)`` columns (``bias_table``), giving each of the
+    first ``long_rows`` rows a whole warp (``TailCSR.long_rows``); CPU
+    tensors run the plain version, which ignores columns past K + 1."""
+    if not mb_other.is_cuda:
+        return bias_tail_stats_plain(mb_other, row_ptr, other, x, K)
+    K = mb_other.shape[1] - 1 if K is None else K
     if not 1 <= K <= BIAS_MAX_K:
         raise ValueError(f"bias kernel needs 1 <= K <= {BIAS_MAX_K}, got K={K}")
     n_self = row_ptr.shape[0] - 1
-    _check_tail_args([("m_other", m_other), ("b_other", b_other)], row_ptr, other, x,
-                     n_self)
-    _check_padded_tables(K, [("m_other", m_other)])
-    _check_scalars(("b_other", b_other, m_other.shape[0]))
+    _check_tail_args([("mb_other", mb_other)], row_ptr, other, x, n_self)
+    _check_padded_tables(K, [("mb_other", mb_other)], "K5")
     _check_long_rows(long_rows, n_self)
-    out = torch.empty((n_self, K + 2), dtype=torch.float32, device=m_other.device)
-    _build.launch("pmf_gauss_bias", BIAS_LAUNCHES, m_other.device, m_other, b_other,
-                  row_ptr, other, x, n_self, long_rows, K, out)
+    out = torch.empty((n_self, K + 2), dtype=torch.float32, device=mb_other.device)
+    _build.launch("pmf_gauss_bias", BIAS_LAUNCHES, mb_other.device, mb_other, row_ptr,
+                  other, x, n_self, long_rows, K, out)
     return out
 
 
@@ -346,20 +361,17 @@ def gaussian_bias_stats(m_self, m_other, b_other, p: TailCSR, head=None,
     """s (n_self,): per-row sums of bias residuals
     sum (x - b_o - <m_s, m_o>), assembled from the pass-through sums
     [sum m_o | sum b_o | sum x] (K5 on the tail, linear products on the
-    head).  K5 reads m_other gathered into new space straight into a table
-    of ``tail_stride(K)`` columns and b_other as a vector; the head
-    products see the real columns only."""
+    head).  K5 reads [m_other | b_other] gathered into new space straight
+    into a table of ``tail_stride(K + 1)`` columns (``bias_table``); the
+    head products see its K + 1 real columns only."""
     K = m_self.shape[1]
     heads = _check_head(p, head)
-    rows = p.other_old_of_new if p.reordered else None
-    m_o, b_o = _padded_rows(m_other, rows), _new_space(b_other, rows)
-    out = bias_tail_stats(m_o, b_o, p.row_ptr, p.other, p.x, K=K,
-                          long_rows=p.long_rows)
+    mb = bias_table(m_other, b_other, p.other_old_of_new if p.reordered else None)
+    out = bias_tail_stats(mb, p.row_ptr, p.other, p.x, K=K, long_rows=p.long_rows)
     head_outs = []
     for tier in heads:
-        tab = torch.cat([_head_rows(m_o[:, :K], tier, head_side),
-                         _head_rows(b_o[:, None], tier, head_side)], dim=1)
-        start, mp, _ = _products(tier, tab, None, head_side)
+        start, mp, _ = _products(tier, _head_rows(mb[:, : K + 1], tier, head_side),
+                                 None, head_side)
         head_outs.append((start, torch.cat(
             [mp, _x_sum(tier, head_side)[:, None].to(mp.dtype)], dim=1)))
     out = _add_heads(out, head_outs)

@@ -493,8 +493,7 @@ WRAPPERS = {
     "K3": lambda: gaussian_edge.factor_tail_stats(
         _wide(5, K9 + 1 + K9 * (K9 + 1) // 2), *_csr(3, 5, 4), K9),
     "K4": lambda: gj_inverse.batched_psd_inverse_gj(_wide(2, K9, K9)),
-    "K5": lambda: gaussian_edge.bias_tail_stats(_wide(5, 132), _wide(5), *_csr(3, 5, 4),
-                                                K=K9),
+    "K5": lambda: gaussian_edge.bias_tail_stats(_wide(5, 132), *_csr(3, 5, 4), K=K9),
     "K6": lambda: gaussian_edge.diag_tail_stats(_wide(3, 132), _wide(3), _wide(5, 132),
                                                 _wide(5, 132), _wide(5), *_csr(3, 5, 4),
                                                 K=K9),
@@ -534,7 +533,7 @@ def test_every_wrapper_takes_k128_on_the_cpu(kernel):
         "K4": lambda: gj_inverse.batched_psd_inverse_gj(
             torch.eye(k).expand(2, k, k) * 2.0),
         "K5": lambda: gaussian_edge.bias_tail_stats(
-            torch.rand(5, k), torch.rand(5), torch.tensor([0, 2, 2, 4]),
+            torch.rand(5, k + 1), torch.tensor([0, 2, 2, 4]),
             torch.tensor([0, 4, 1, 2], dtype=torch.int32), torch.ones(4)),
         "K6": lambda: gaussian_edge.diag_tail_stats(
             torch.rand(3, k), torch.rand(3), torch.rand(5, k), torch.rand(5, k),

@@ -287,8 +287,7 @@ GAUSSIAN_WRAPPERS = {
            lambda: (_cuda_looking(torch.rand(5, gaussian_edge.factor_stride(K))),
                     *_csr(3, 5, 4), K)),
     "K5": (gaussian_edge, "bias_tail_stats", "BIAS_LAUNCHES",
-           lambda: (_cuda_looking(torch.rand(5, K)), _cuda_looking(torch.rand(5)),
-                    *_csr(3, 5, 4))),
+           lambda: (_cuda_looking(torch.rand(5, 8)), *_csr(3, 5, 4))),  # K = 7
     "K6": (gaussian_edge, "diag_tail_stats", "DIAG_LAUNCHES",
            lambda: (_cuda_looking(torch.rand(3, K)), _cuda_looking(torch.rand(3)),
                     _cuda_looking(torch.rand(5, K)), _cuda_looking(torch.rand(5, K)),
@@ -322,12 +321,12 @@ def test_gaussian_wrappers_reject_what_the_kernels_do_not_take():
                                      dtype=torch.float64)), *csr, K)
     b5, b3 = _cuda_looking(torch.rand(5)), _cuda_looking(torch.rand(3))
     with pytest.raises(ValueError, match="K <= 128"):
-        gaussian_edge.bias_tail_stats(_cuda_looking(torch.rand(5, 132)), b5, *csr)
+        gaussian_edge.bias_tail_stats(_cuda_looking(torch.rand(5, 132)), *csr)
     with pytest.raises(TypeError, match="x must be"):
-        gaussian_edge.bias_tail_stats(_cuda_looking(torch.rand(5, K)), b5, *csr[:2],
+        gaussian_edge.bias_tail_stats(_cuda_looking(torch.rand(5, 8)), *csr[:2],
                                       _cuda_looking(torch.ones(4, dtype=torch.float64)))
-    with pytest.raises(ValueError, match="b_other must be"):
-        gaussian_edge.bias_tail_stats(_cuda_looking(torch.rand(5, K)), b3, *csr)
+    with pytest.raises(ValueError, match=r"tail_stride\(K \+ 1\) = 8"):
+        gaussian_edge.bias_tail_stats(_cuda_looking(torch.rand(5, K + 1)), *csr, K=K)
     with pytest.raises(ValueError, match="K <= 128"):
         wide = _cuda_looking(torch.rand(5, 132))
         gaussian_edge.diag_tail_stats(_cuda_looking(torch.rand(3, 132)), b3, wide, wide,
@@ -394,13 +393,13 @@ def test_ext_wrappers_reject_what_the_kernels_do_not_take(kernel):
 
 
 def _tail_call(kernel, es, eo, **kw):
-    """K1 ("K1", "K1raw"), K7, K5 (other table ``eo``) or K6 (self table
-    ``es``, both other tables ``eo``) on CUDA-looking tables over a 4-edge
-    tail."""
+    """K1 ("K1", "K1raw"), K7, K5 (its [m | b] table ``eo``) or K6 (self
+    table ``es``, both other tables ``eo``) on CUDA-looking tables over a
+    4-edge tail."""
     row_ptr, other, x = _csr(3, 5, 4)
     b_self, b_other = _cuda_looking(torch.rand(3)), _cuda_looking(torch.rand(5))
     if kernel == "K5":
-        return gaussian_edge.bias_tail_stats(eo, b_other, row_ptr, other, x, **kw)
+        return gaussian_edge.bias_tail_stats(eo, row_ptr, other, x, **kw)
     if kernel == "K6":
         return gaussian_edge.diag_tail_stats(es, b_self, eo, eo, b_other, row_ptr, other,
                                              x, **kw)

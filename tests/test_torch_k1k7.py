@@ -62,9 +62,9 @@ def test_launch_plan_mirrors_the_kernel_source():
     assert const("kOneWord") == _tail.GROUP_ONE_WORD
     assert "return g < 8 ? 8 : g;" in src  # batch_of
     built = set(re.findall(r"PMF_TAIL_PLAN\((\d+), (\d+)\)\n", src))
-    plans = {(str(_tail.launch_plan(K)["lanes"]), str(_tail.launch_plan(K)["vec"]))
-             for K in range(1, _tail.GROUP_MAX_K + 1)}
-    assert plans == built  # every plan built, and nothing else
+    plans = {(str(_tail.launch_plan(K, kid)["lanes"]), str(_tail.launch_plan(K, kid)["vec"]))
+             for K in range(1, _tail.GROUP_MAX_K + 1) for kid in _tail.PLAN_KERNELS}
+    assert plans == built  # every plan of a row-group kernel built, and nothing else
     with pytest.raises(ValueError, match="1 <= K <= 128"):
         _tail.launch_plan(129)
 

@@ -42,30 +42,52 @@ KERNELS = ["K5", "K6"]
 
 # ---------------------------------------------------------------- plan --
 
+@pytest.mark.parametrize("kid", KERNELS)
 @pytest.mark.parametrize("K", PLAN_KS)
-def test_k5_k6_plan_covers_every_factor_once(K):
-    plan = _tail.launch_plan(K)
+def test_k5_k6_plan_covers_every_column_once(K, kid):
+    """Every column of the rows the kernel gathers (K5: the K + 1 of
+    [m | b]; K6: the K of m and of v + m^2) is held by exactly one (lane,
+    word, component)."""
+    plan = _tail.launch_plan(K, kid)
     G, V, W = plan["lanes"], plan["vec"], plan["words"]
-    assert plan["stride"] == _tail.tail_stride(K) == 4 * W
+    cols = K + 1 if kid == "K5" else K
+    assert plan["stride"] == _tail.tail_stride(cols) == 4 * W
+    assert G in (1, 2, 4, 8, 16, 32) and plan["rows_per_warp"] * G == 32
+    assert G * V < 2 * W or G * V == 1  # the power of two at or above W
+    assert plan["batch"] % G == 0 and plan["batch"] % plan["in_flight"] == 0
     held = [4 * (v * G + lane) + j for lane in range(G) for v in range(V)
-            for j in range(4) if v * G + lane < W and 4 * (v * G + lane) + j < K]
-    assert sorted(held) == list(range(K))
+            for j in range(4) if v * G + lane < W and 4 * (v * G + lane) + j < cols]
+    assert sorted(held) == list(range(cols))
     assert ge.BIAS_MAX_K == ge.DIAG_MAX_K == _tail.GROUP_MAX_K == 128
 
 
-def test_k5_k6_launch_through_the_headers_plan():
+def test_k5_k6_plans_mirror_the_kernel_source():
     """The entry points launch modes kBias and kDiag through
-    ``tail_groups::launch``, whose plan ``launch_plan`` mirrors, and the
-    kernel writes the wrappers' output widths."""
+    ``tail_groups::launch``; K6's own constants (one word a lane up to
+    kDiagOneWord words, kDiagInFlight edges in flight) and K5's K + 1
+    columns equal ``launch_plan``'s; every plan of K5 and K6 is among the
+    built instances."""
     src = (_build.SRC_DIR / "gaussian_edge.cu").read_text()
     hdr = (_build.SRC_DIR / "tail_groups.cuh").read_text()
     for entry, mode in (("pmf_gauss_bias", "kBias"), ("pmf_gauss_diag", "kDiag")):
         body = src[src.index(f'extern "C" int {entry}('):]
         body = body[: body.index("\n}\n")]
         assert f"tail_groups::launch<tail_groups::{mode}>" in body, entry
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", hdr).group(1))
+
+    assert const("kDiagOneWord") == _tail.DIAG_ONE_WORD
+    assert const("kDiagInFlight") == _tail.DIAG_IN_FLIGHT
+    assert "return mode == kBias" in hdr and "? K + 1 : K;" in hdr  # columns()
     assert re.search(r"mode == kBias \? K \+ 2 :", hdr)
-    assert re.search(r"mode == kDiag \? 3 \* K :", hdr)
-    assert f"constexpr int kMaxK = {_tail.GROUP_MAX_K};" in hdr
+    built = set(re.findall(r"PMF_TAIL_PLAN\((\d+), (\d+)\)\n", hdr))
+    for kid in KERNELS:
+        plans = {(str(_tail.launch_plan(K, kid)["lanes"]), str(_tail.launch_plan(K, kid)["vec"]))
+                 for K in range(1, _tail.GROUP_MAX_K + 1)}
+        assert plans <= built, kid
+    with pytest.raises(ValueError, match="unknown row-group kernel"):
+        _tail.launch_plan(20, "K3")
 
 
 # ------------------------------------------------------------ emulation --
@@ -83,21 +105,21 @@ def _group_sums(kid, K, self_row, tabs, edges, span):
     """One group's sums over ``edges`` (other id, rating) as the kernel
     walks them: batches of B edges, lane gl loading edges base + gl + G q
     and edge e broadcast from lane e % G, ``span`` edges walked (past the
-    group's own, zeros), in float32.  Returns (acc_a, acc_o, acc_c, acc_s,
-    acc_x): K5 fills acc_o (sum m_o), acc_s (sum b_o) and acc_x (sum x);
-    K6 acc_a, acc_o and acc_c (its three column blocks)."""
-    plan = _tail.launch_plan(K)
+    group's own, zeros), in float32.  Returns (acc_a, acc_o, acc_c, acc_x):
+    K5 fills acc_o (the sums of its [m | b] records) and acc_x (sum x); K6
+    acc_a, acc_o and acc_c (its three column blocks)."""
+    plan = _tail.launch_plan(K, kid)
     G, V, W, B = plan["lanes"], plan["vec"], plan["words"], plan["batch"]
     f32 = np.float32
     lane_w = np.array([[v * G + gl for v in range(V)] for gl in range(G)])
     valid = lane_w < W
-    m_o, sq_o, b_o = tabs
+    m_o, sq_o, b_o = tabs  # K5: m_o is the [m | b] record table
     m_s, b_s = self_row
     es = np.zeros(4 * W, f32)
     es[:K] = m_s[:K]  # the kernel zeroes the self row's pad columns
     es = _words(es[None], 0, lane_w, valid)
     acc_a, acc_o, acc_c = (np.zeros((G, V, 4), f32) for _ in range(3))
-    acc_s = acc_x = f32(0)
+    acc_x = f32(0)
     for base in range(0, span, B):
         loaded = {(gl, q): (edges[base + gl + G * q] if base + gl + G * q < len(edges)
                             else (0, 0.0)) for gl in range(G) for q in range(B // G)}
@@ -106,12 +128,12 @@ def _group_sums(kid, K, self_row, tabs, edges, span):
             ok = base + e < len(edges)
             zero = np.zeros((G, V, 4), f32)
             eo = _words(m_o, o, lane_w, valid) if ok else zero
-            xv, sv = f32(xv if ok else 0.0), f32(b_o[o] if ok else 0.0)
+            xv = f32(xv if ok else 0.0)
             if kid == "K5":
                 acc_o += eo
-                acc_s += sv
                 acc_x += xv
                 continue
+            sv = f32(b_o[o] if ok else 0.0)
             sq = _words(sq_o, o, lane_w, valid) if ok else zero
             p = es * eo
             part = np.zeros(G, f32)
@@ -127,28 +149,29 @@ def _group_sums(kid, K, self_row, tabs, edges, span):
             acc_a += coef * eo
             acc_o += sq
             acc_c += eo * eo
-    return acc_a, acc_o, acc_c, acc_s, acc_x
+    return acc_a, acc_o, acc_c, acc_x
 
 
 def _row_out(kid, K, sums):
     """The output row the group's lanes write: (K + 2,) for K5, (3K,) for
     K6."""
-    acc_a, acc_o, acc_c, acc_s, acc_x = sums
+    acc_a, acc_o, acc_c, acc_x = sums
     G, V, _ = acc_a.shape
-    W = -(-K // 4)
+    cols = K + 1 if kid == "K5" else K
+    W = -(-cols // 4)
     out = np.zeros(K + 2 if kid == "K5" else 3 * K, np.float32)
     for gl in range(G):
         for v in range(V):
             for j in range(4):
                 k = 4 * (v * G + gl) + j
-                if v * G + gl < W and k < K:
+                if v * G + gl < W and k < cols:
                     if kid == "K5":
-                        out[k] = acc_o[gl, v, j]
+                        out[k] = acc_o[gl, v, j]  # [sum m | sum b]
                     else:
                         out[k], out[K + k], out[2 * K + k] = (
                             acc_a[gl, v, j], acc_o[gl, v, j], acc_c[gl, v, j])
     if kid == "K5":
-        out[K], out[K + 1] = acc_s, acc_x
+        out[K + 1] = acc_x
     return out
 
 
@@ -163,12 +186,12 @@ def _emulate_split(kid, K, self_row, tabs, edges):
     """One long row given a whole warp: group j walks the j-th contiguous
     share of ceil(n / R) edges, then the groups' sums meet by a butterfly
     over lane offsets G, 2G, ..., 16."""
-    R = _tail.launch_plan(K)["rows_per_warp"]
+    R = _tail.launch_plan(K, kid)["rows_per_warp"]
     share = -(-len(edges) // R)
     parts = [edges[min(j * share, len(edges)):(j + 1) * share] for j in range(R)]
     span = max(len(pt) for pt in parts)
     sums = [_group_sums(kid, K, self_row, tabs, pt, span) for pt in parts]
-    acc = [np.stack([s[i] for s in sums]) for i in range(5)]
+    acc = [np.stack([s[i] for s in sums]) for i in range(4)]
     step = 1
     while step < R:  # lane offset G * step: group j adds group j ^ step
         acc = [a + a[np.arange(R) ^ step] for a in acc]
@@ -179,9 +202,9 @@ def _emulate_split(kid, K, self_row, tabs, edges):
 def _case(kid, K, signed, seed):
     """A warp's rows (lengths 0, 1, G - 1, G, 757 and short ones), padded
     tables, and the emulations against the float64 plain version."""
-    plan = _tail.launch_plan(K)
+    plan = _tail.launch_plan(K, kid)
     rng = np.random.default_rng(seed)
-    n_other, S = 300, plan["stride"]
+    n_other, S = 300, _tail.tail_stride(K)
     rows = _warp_rows(plan["lanes"], plan["rows_per_warp"], n_other, rng)
     n_rows = len(rows)
     if signed:  # Gaussian state and centred ratings
@@ -196,7 +219,9 @@ def _case(kid, K, signed, seed):
     pad = lambda a: np.pad(a, ((0, 0), (0, S - K))).astype(np.float32)  # noqa: E731
     m_s, m_o, sq_o = pad(m_s), pad(m_o), pad(sq_o)
     b_s, b_o = b_s.astype(np.float32), b_o.astype(np.float32)
-    tabs, selfs = (m_o, sq_o, b_o), list(zip(m_s, b_s))
+    mb_o = ge.bias_table(torch.from_numpy(m_o[:, :K]), torch.from_numpy(b_o)).numpy()
+    tabs = (mb_o if kid == "K5" else m_o, sq_o, b_o)
+    selfs = list(zip(m_s, b_s))
     rpw = plan["rows_per_warp"]
     got = np.concatenate([_emulate_warp(kid, K, selfs[w0:w0 + rpw], tabs,
                                         rows[w0:w0 + rpw])
@@ -208,7 +233,7 @@ def _case(kid, K, signed, seed):
            torch.tensor([x for r in rows for _, x in r], dtype=torch.float64))
     t64 = lambda a: torch.from_numpy(a).double()  # noqa: E731
     if kid == "K5":
-        ref = ge.bias_tail_stats_plain(t64(m_o), t64(b_o), *csr, K=K)
+        ref = ge.bias_tail_stats_plain(t64(mb_o), *csr, K=K)
     else:
         ref = ge.diag_tail_stats_plain(t64(m_s), t64(b_s), t64(m_o), t64(sq_o),
                                        t64(b_o), *csr, K=K)
@@ -256,9 +281,16 @@ def test_plain_versions_ignore_pad_columns(small_ratings, K):
                 for n in (120, 80))
     S = _tail.tail_stride(K) + 4  # garbage past K, beyond the stride too
     csr = (p.row_ptr, p.other, p.x)
-    want = ge.bias_tail_stats(m_o, b_o, *csr)
-    got = ge.bias_tail_stats(_nan_padded(m_o, S), b_o, *csr, K=K)
+    mb = torch.cat([m_o, b_o[:, None]], dim=1)
+    want = ge.bias_tail_stats(mb, *csr)
+    got = ge.bias_tail_stats(_nan_padded(mb, _tail.tail_stride(K + 1) + 4), *csr, K=K)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+    padded = ge.bias_table(m_o, b_o)
+    assert padded.shape == (80, _tail.tail_stride(K + 1)) and padded.data_ptr() % 16 == 0
+    assert torch.all(padded[:, K + 1 :] == 0)
+    torch.testing.assert_close(ge.bias_tail_stats(padded, *csr, K=K), want, rtol=0, atol=0)
+    rows = torch.tensor([4, 0, 79, 79, 2])
+    torch.testing.assert_close(ge.bias_table(m_o, b_o, rows), padded[rows], rtol=0, atol=0)
     want = ge.diag_tail_stats(m_s, b_s, m_o, sq_o, b_o, *csr)
     got = ge.diag_tail_stats(_nan_padded(m_s, S), b_s, _nan_padded(m_o, S),
                              _nan_padded(sq_o, S), b_o, *csr, K=K)
@@ -317,7 +349,7 @@ def test_bias_stats_on_padded_tables_match_jax(small_ratings, monkeypatch, K, he
                                      head_side=side)
         assert got.shape == ref.shape
         _assert_tier_gate(got.numpy(), ref, side)
-    S = _tail.tail_stride(K)
+    S = _tail.tail_stride(K + 1)  # the [m | b] record
     assert seen == [([S], K, tb.by_user.long_rows), ([S], K, tb.by_item.long_rows)]
 
 
