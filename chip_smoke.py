@@ -2169,7 +2169,8 @@ def _ab_forms(k):
     "previous" is the warp-a-row kernel, "plan" the plan's instance; K5
     reads one [m | b] record a row (mode 3); K6 reads b_o as a scalar (mode
     4) or from column K of an [m | b] record a row, and b_s from the self
-    row's (mode 5, "record")."""
+    row's, shared from its lane by a shuffle (mode 5, "record") or loaded
+    by every lane (mode 6, "record-load")."""
     from pmf_tpu_torch.ops._tail import launch_plan
 
     p5, p6 = launch_plan(k, "K5"), launch_plan(k, "K6")
@@ -2184,12 +2185,16 @@ def _ab_forms(k):
         forms += [("K5", "G8 V1 D8", 3, (8, 1, 8)), ("K5", "G8 V1 D2", 3, (8, 1, 2)),
                   ("K6", "G8 V1 D4", 4, (8, 1, 4)),
                   ("K6", "record G8 V1 D2", 5, (8, 1, 2)),
-                  ("K6", "record G8 V1 D4", 5, (8, 1, 4))]
+                  ("K6", "record G8 V1 D4", 5, (8, 1, 4)),
+                  ("K6", "record-load G8 V1 D2", 6, (8, 1, 2)),
+                  ("K6", "record-load G8 V1 D4", 6, (8, 1, 4))]
     else:
         forms += [("K5", "G16 V1 D4", 3, (16, 1, 4)), ("K5", "G16 V1 D8", 3, (16, 1, 8)),
                   ("K6", "G16 V1 D4", 4, (16, 1, 4)), ("K6", "G8 V2 D4", 4, (8, 2, 4)),
                   ("K6", "record G16 V1 D2", 5, (16, 1, 2)),
-                  ("K6", "record G16 V1 D4", 5, (16, 1, 4))]
+                  ("K6", "record G16 V1 D4", 5, (16, 1, 4)),
+                  ("K6", "record-load G16 V1 D2", 6, (16, 1, 2)),
+                  ("K6", "record-load G16 V1 D4", 6, (16, 1, 4))]
     return forms
 
 
@@ -2241,7 +2246,7 @@ def phase_k56ab(blocked):
                     m_self = b_self = sq = b_oth = None
                     m_oth, = tabs["K5"]
                     width = k + 2
-                elif mode == 5:
+                elif mode in (5, 6):
                     m_self, m_oth = rec
                     sq = tabs["K6"][3]
                     b_self = b_oth = None

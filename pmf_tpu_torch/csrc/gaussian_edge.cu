@@ -449,7 +449,7 @@ extern "C" int pmf_gauss_diag(const float* m_self, const float* b_self,
 }
 
 // A/B only: K5 (mode 3), K6 (mode 4) or K6 with b in the [m | b] records
-// (mode 5) at the instance (G, V, D) named.
+// (modes 5 and 6) at the instance (G, V, D) named.
 extern "C" int pmf_gauss_tail_form(int mode, int G, int V, int D, const float* m_self,
                                    const float* b_self, const float* m_other,
                                    const float* sq_other, const float* b_other,
@@ -466,6 +466,9 @@ extern "C" int pmf_gauss_tail_form(int mode, int G, int V, int D, const float* m
       return tail_groups::launch_form<tail_groups::kDiag>(t, n_self, n_long, K, G, V, D, out, s);
     case tail_groups::kDiagRec:
       return tail_groups::launch_form<tail_groups::kDiagRec>(t, n_self, n_long, K, G, V, D, out, s);
+    case tail_groups::kDiagRecLd:
+      return tail_groups::launch_form<tail_groups::kDiagRecLd>(t, n_self, n_long, K, G, V, D,
+                                                               out, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -77,9 +77,11 @@ constexpr int kMaxK = 128;
 constexpr int kOneWord = 8;       // spans up to 8 words take one word a lane, wider two
 constexpr int kDiagOneWord = 16;  // K6: up to 16 words
 
-// kDiagRec: K6 with b_o read from column K of the [m | b] record (and b_s
-// from the self record), for the A/B only.
-enum Mode { kCavi = 0, kRaw = 1, kExt = 2, kBias = 3, kDiag = 4, kDiagRec = 5 };
+// kDiagRec, kDiagRecLd: K6 with b_o from column K of the [m | b] record
+// (shared from its lane by a shuffle, or loaded by every lane), and b_s
+// from the self record, for the A/B only.
+enum Mode { kCavi = 0, kRaw = 1, kExt = 2, kBias = 3, kDiag = 4, kDiagRec = 5,
+            kDiagRecLd = 6 };
 
 // What a pass reads.  Tables of rows are padded to 4 * ceil(columns / 4)
 // floats and start on 16 bytes; a pointer a mode does not read may be null.
@@ -99,11 +101,14 @@ __host__ __device__ constexpr bool reads_self(int mode) { return mode != kBias; 
 __host__ __device__ constexpr bool reads_s_other(int mode) {
   return mode == kExt || mode == kDiag;
 }
-__host__ __device__ constexpr bool is_diag(int mode) { return mode == kDiag || mode == kDiagRec; }
+__host__ __device__ constexpr bool is_rec_diag(int mode) {
+  return mode == kDiagRec || mode == kDiagRecLd;
+}
+__host__ __device__ constexpr bool is_diag(int mode) { return mode == kDiag || is_rec_diag(mode); }
 // Columns of a row of e_other (and e_self): K factors, and b beside m in
 // K5's record.
 __host__ __device__ constexpr int columns(int mode, int K) {
-  return mode == kBias || mode == kDiagRec ? K + 1 : K;
+  return mode == kBias || is_rec_diag(mode) ? K + 1 : K;
 }
 __host__ __device__ constexpr int out_width(int mode, int K) {
   return mode == kBias ? K + 2 : is_diag(mode) ? 3 * K : 2 * K;
@@ -209,6 +214,9 @@ tail_group_kernel(const float* __restrict__ e_self,
       if (has_row && w < W) {
         e = reinterpret_cast<const float4*>(e_self)[(int64_t)row * W + w];
         const int k = 4 * w;
+        if constexpr (is_rec_diag(kMode)) {
+          if (k >= K) e.x = 0.f;  // b_s
+        }
         if (k + 1 >= K) e.y = 0.f;
         if (k + 2 >= K) e.z = 0.f;
         if (k + 3 >= K) e.w = 0.f;
@@ -223,7 +231,7 @@ tail_group_kernel(const float* __restrict__ e_self,
   float bs = 0.f;     // diag: b_s
   if constexpr (kMode == kDiag) {
     if (has_row) bs = s_self[row];
-  } else if constexpr (kMode == kDiagRec) {
+  } else if constexpr (is_rec_diag(kMode)) {
     if (has_row) bs = e_self[(int64_t)row * 4 * W + K];
   }
 
@@ -339,6 +347,8 @@ tail_group_kernel(const float* __restrict__ e_self,
             sq[d][v] = (ok && w < Wq) ? __ldg(sq4 + (int64_t)o * Wq + w) : zero;
         }
         if constexpr (reads_s_other(kMode)) sv[d] = ok ? __ldg(s_other + o) : 0.f;
+        if constexpr (kMode == kDiagRecLd)
+          sv[d] = ok ? __ldg(e_other + (int64_t)o * 4 * W + K) : 0.f;
       }
       if constexpr (kMode == kDiagRec) {
         // b_o: column K of the record, word K / 4 (lane (K / 4) % G, slot
