@@ -616,18 +616,18 @@ TAIL_KERNELS = ("K1", "K1raw", "K7", "K5", "K6")
 GAUSS_TAIL = ("K5", "K6")  # signed sums: held per column (COL_RTOL)
 # Positions of the self-row tables in a kernel's tables (cut to the long
 # rows in _tail_notes).
-SELF_TABS = {"K1": (0,), "K1raw": (0,), "K7": (0,), "K5": (), "K6": (0, 1)}
+SELF_TABS = {"K1": (0,), "K1raw": (0,), "K7": (0,), "K5": (), "K6": (0,)}
 
 
 def _tail_tabs(kid, n_self, n_other, k, seed):
     """A kernel's tables in the wrapper's order, padded as the kernel takes
     them: positive (e_self, e_other[, s_other]) for K1 and K7;
-    Gaussian-state ([m_other | b_other],) for K5, (m_self, b_self, m_other,
-    sq_other, b_other) for K6, sq = v + m^2."""
+    Gaussian-state ([m_other | b_other],) for K5, ([m_self | b_self],
+    [m_other | b_other], sq_other) for K6, sq = v + m^2."""
     import torch
 
     from pmf_tpu_torch.ops._tail import padded_rows
-    from pmf_tpu_torch.ops.gaussian_edge import bias_table
+    from pmf_tpu_torch.ops.gaussian_edge import record_table
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     if kid not in GAUSS_TAIL:
@@ -638,9 +638,8 @@ def _tail_tabs(kid, n_self, n_other, k, seed):
     b_s, b_o = (0.1 * torch.randn(n, generator=gen, device="cuda")
                 for n in (n_self, n_other))
     sq_o = 0.1 + 0.5 * torch.rand(n_other, k, generator=gen, device="cuda") + m_o * m_o
-    if kid == "K5":
-        return (bias_table(m_o, b_o),)
-    return padded_rows(m_s), b_s, padded_rows(m_o), padded_rows(sq_o), b_o
+    mb_o = record_table(m_o, b_o)
+    return (mb_o,) if kid == "K5" else (record_table(m_s, b_s), mb_o, padded_rows(sq_o))
 
 
 def _tail_kernel(kid, tabs, p, k):
@@ -694,16 +693,15 @@ def _row_sectors(p, stride_floats, width_floats):
 def _tail_reckoning(kid, p, k, self_bytes, out_bytes):
     """Bytes of one tail pass if every gather came from HBM: each edge's id
     (and rating) once, the 32-byte sectors of its other row at
-    ``tail_stride`` of its columns (K5's [m | b] record, K + 1; K6 two rows:
-    m and v + m^2), a sector for the other row's scalar (K7's s_o, K6's
-    b_o), and the self tables, row pointers and output once."""
+    ``tail_stride`` of its columns (K5's and K6's [m | b] records, K + 1; K6
+    also its v + m^2 row, K), K7's sector for s_o, and the self table, row
+    pointers and output once."""
     from pmf_tpu_torch.ops._tail import columns, tail_stride
 
-    S = tail_stride(columns(k, kid))
-    rows = 2 if kid == "K6" else 1
-    per_edge = 4 + (0 if kid == "K1raw" else 4) + (32 if kid in ("K7", "K6") else 0)
-    return (p.nnz * per_edge + 32 * rows * _row_sectors(p, S, S) + self_bytes
-            + p.row_ptr.nbytes + out_bytes)
+    S, Sq = tail_stride(columns(k, kid)), tail_stride(k)
+    sectors = _row_sectors(p, S, S) + (_row_sectors(p, Sq, Sq) if kid == "K6" else 0)
+    per_edge = 4 + (0 if kid == "K1raw" else 4) + (32 if kid == "K7" else 0)
+    return p.nnz * per_edge + 32 * sectors + self_bytes + p.row_ptr.nbytes + out_bytes
 
 
 def _tail_notes(kid, name, tabs, p, k, ms, out_bytes):
@@ -790,17 +788,20 @@ def _bigk_gauss_tail(blocked, k):
     for _, p, (m_s, _, b_s, _), (m_o, V_o, b_o, v_o) in _new_space_gauss(blocked, k):
         aug3 = _k3_table(m_o, V_o, b_o, k)
         csr = (p.row_ptr, p.other, p.x)
-        cases = [("K3", ge.factor_tail_stats, ge.factor_tail_stats_plain,
-                  (aug3, *csr, k, wbs)) for wbs in (False, True)]
-        cases += [(kid, *_gauss_tail_fns(kid, p, k),
-                   (*_gauss_tail_tabs(kid, m_s, b_s, m_o, v_o, b_o), *csr))
-                  for kid in GAUSS_TAIL]
-        for name, kern, plain, args in cases:
-            got, ref = kern(*args), plain(*args, max_edges=1 << 13)
+        cases = [("K3", lambda wbs=wbs: ge.factor_tail_stats(aug3, *csr, k, wbs),
+                  lambda wbs=wbs: ge.factor_tail_stats_plain(aug3, *csr, k, wbs,
+                                                             max_edges=1 << 13))
+                 for wbs in (False, True)]
+        for kid in GAUSS_TAIL:
+            tabs = _gauss_tail_tabs(kid, m_s, b_s, m_o, v_o, b_o)
+            cases.append((kid, lambda kid=kid, tabs=tabs: _tail_kernel(kid, tabs, p, k),
+                          lambda kid=kid, tabs=tabs: _tail_plain(kid, tabs, p, k)))
+        for name, kern, plain in cases:
+            got, ref = kern(), plain()
             _, col, ok = column_check(got, ref)
             if got.shape != ref.shape or not ok:
                 raise AssertionError(f"bigk {name} K={k}: column error {col} > {COL_RTOL}")
-            if not torch.equal(got, kern(*args)):
+            if not torch.equal(got, kern()):
                 raise AssertionError(f"bigk {name} K={k}: two runs differ in bits")
             worst[name] = max(worst[name], col)
     return worst
@@ -810,23 +811,12 @@ def _gauss_tail_tabs(kid, m_s, b_s, m_o, v_o, b_o):
     """K5's or K6's tables in new space, padded as gaussian_bias_stats and
     gaussian_diag_stats build them."""
     from pmf_tpu_torch.ops._tail import padded_rows
-    from pmf_tpu_torch.ops.gaussian_edge import bias_table
+    from pmf_tpu_torch.ops.gaussian_edge import record_table
 
+    mb_o = record_table(m_o, b_o)
     if kid == "K5":
-        return (bias_table(m_o, b_o),)
-    return (padded_rows(m_s), b_s.contiguous(), padded_rows(m_o),
-            padded_rows(v_o + m_o * m_o), b_o.contiguous())
-
-
-def _gauss_tail_fns(kid, p, k):
-    """(kernel, plain) of K5 or K6 at ``k``, the kernel giving ``p``'s long
-    rows a warp each; both take the tables and the CSR."""
-    from pmf_tpu_torch.ops import gaussian_edge as ge
-
-    kern, plain = ((ge.bias_tail_stats, ge.bias_tail_stats_plain) if kid == "K5"
-                   else (ge.diag_tail_stats, ge.diag_tail_stats_plain))
-    return (lambda *a: kern(*a, K=k, long_rows=p.long_rows),
-            lambda *a, max_edges=None: plain(*a, K=k, max_edges=max_edges))
+        return (mb_o,)
+    return record_table(m_s, b_s), mb_o, padded_rows(v_o + m_o * m_o)
 
 
 def _small_k34(blocked, ks=(1, 2, 5, 7, 8, 9, 16, 17, 20, 24, 25, 30, 31, 32, 33, 48,
@@ -1024,8 +1014,6 @@ def phase_wide_gauss(blocked):
     matrices (beside torch.linalg.inv, with its bounds), by CUDA events;
     and K4 at K = 128 on 59k matrices."""
     import torch
-
-    from pmf_tpu_torch.ops import gaussian_edge as ge
 
     k = K_WIDE
     ms = dict.fromkeys(("K3", "K5", "K6", "K4"), 0.0)
@@ -2013,7 +2001,9 @@ def _tail_phase(kid, blocked, n_flops_per_edge, library=None, no_library=""):
             raise AssertionError(f"{kid} {name}: two runs differ in bits")
         ms = cuda_ms(lambda: _tail_kernel(kid, tabs, p, K))
         plain_ms = cuda_ms(lambda: _tail_plain(kid, tabs, p, K), reps=3)
-        n_bytes = (sum(t.nbytes for t in tabs) + p.row_ptr.nbytes + p.other.nbytes
+        # the function's inputs once (their real columns, not the padding)
+        inputs = (m_o, b_o) if kid == "K5" else (m_s, b_s, m_o, b_o, v_o)
+        n_bytes = (sum(t.nbytes for t in inputs) + p.row_ptr.nbytes + p.other.nbytes
                    + p.x.nbytes + got.nbytes)
         n_flops = p.nnz * n_flops_per_edge
         b_ms, b_by = bound(n_bytes, n_flops)
@@ -2159,132 +2149,6 @@ def phase_k6(blocked):
     # per edge: dot 2K, resid 2, m * (resid - pred) 2K, sq K, m^2 2K
     return _tail_phase("K6", blocked, 7 * K + 2,
                        no_library="a per-edge dot with the self row weights every term")
-
-
-AB_KS = (20, 50)  # the K of the K5 / K6 form A/B
-
-
-def _ab_forms(k):
-    """The forms timed in turns at ``k``: (kernel, label, mode, (G, V, D));
-    "previous" is the warp-a-row kernel, "plan" the plan's instance; K5
-    reads one [m | b] record a row (mode 3); K6 reads b_o as a scalar (mode
-    4) or from column K of an [m | b] record a row, and b_s from the self
-    row's, shared from its lane by a shuffle (mode 5, "record") or loaded
-    by every lane (mode 6, "record-load")."""
-    from pmf_tpu_torch.ops._tail import launch_plan
-
-    p5, p6 = launch_plan(k, "K5"), launch_plan(k, "K6")
-    g5, g6 = (p5["lanes"], p5["vec"]), (p6["lanes"], p6["vec"])
-    forms = [("K5", "previous", None, None),
-             ("K5", f"plan G{g5[0]} V{g5[1]} D{p5['in_flight']}", 3,
-              (*g5, p5["in_flight"])),
-             ("K6", "previous", None, None),
-             ("K6", f"plan G{g6[0]} V{g6[1]} D{p6['in_flight']}", 4,
-              (*g6, p6["in_flight"]))]
-    if k <= 28:  # one word a lane in both
-        forms += [("K5", "G8 V1 D8", 3, (8, 1, 8)), ("K5", "G8 V1 D2", 3, (8, 1, 2)),
-                  ("K6", "G8 V1 D4", 4, (8, 1, 4)),
-                  ("K6", "record G8 V1 D2", 5, (8, 1, 2)),
-                  ("K6", "record G8 V1 D4", 5, (8, 1, 4)),
-                  ("K6", "record-load G8 V1 D2", 6, (8, 1, 2)),
-                  ("K6", "record-load G8 V1 D4", 6, (8, 1, 4))]
-    else:
-        forms += [("K5", "G16 V1 D4", 3, (16, 1, 4)), ("K5", "G16 V1 D8", 3, (16, 1, 8)),
-                  ("K6", "G16 V1 D4", 4, (16, 1, 4)), ("K6", "G8 V2 D4", 4, (8, 2, 4)),
-                  ("K6", "record G16 V1 D2", 5, (16, 1, 2)),
-                  ("K6", "record G16 V1 D4", 5, (16, 1, 4)),
-                  ("K6", "record-load G16 V1 D2", 6, (16, 1, 2)),
-                  ("K6", "record-load G16 V1 D4", 6, (16, 1, 4))]
-    return forms
-
-
-def phase_k56ab(blocked):
-    """The previous K5 and K6 (a warp a row) beside the row-group forms, in
-    turns on the real tail at K = 20 and 50, per direction; each form
-    checked against the plain version first."""
-    import torch
-
-    from pmf_tpu_torch.ops import _build
-    from pmf_tpu_torch.ops import gaussian_edge as ge
-    from pmf_tpu_torch.ops._tail import padded_rows, tail_stride
-
-    counter = _build.LaunchCounter()
-    for k in AB_KS:
-        forms = _ab_forms(k)
-        for name, p in (("user", blocked.by_user), ("item", blocked.by_item)):
-            gen = torch.Generator(device="cuda").manual_seed(7 + k)
-            m_s, m_o = (0.1 * torch.randn(n, k, generator=gen, device="cuda")
-                        for n in (p.n_self, p.n_other))
-            b_s, b_o = (0.1 * torch.randn(n, generator=gen, device="cuda")
-                        for n in (p.n_self, p.n_other))
-            sq_o = 0.1 + 0.5 * torch.rand(p.n_other, k, generator=gen, device="cuda")
-            sq_o += m_o * m_o
-            tabs = {"K5": (ge.bias_table(m_o, b_o),),
-                    "K6": (padded_rows(m_s), b_s, padded_rows(m_o), padded_rows(sq_o),
-                           b_o)}
-            aug5 = torch.cat([m_o, b_o[:, None]], dim=1).contiguous()
-            aug6 = torch.cat([m_o, sq_o, b_o[:, None]], dim=1).contiguous()
-            self6 = torch.cat([m_s, b_s[:, None]], dim=1).contiguous()
-            rec = (ge.bias_table(m_s, b_s), tabs["K5"][0])  # [m | b] self, other
-            refs = {kid: _tail_plain(kid, tabs[kid], p, k) for kid in GAUSS_TAIL}
-            csr = (p.row_ptr, p.other, p.x)
-
-            def run(kid, mode, geo, tabs=tabs, aug5=aug5, aug6=aug6, self6=self6,
-                    rec=rec, csr=csr, p=p):
-                dev = p.row_ptr.device
-                if mode is None:  # the previous kernel
-                    out = torch.empty((p.n_self, k + 2 if kid == "K5" else 3 * k),
-                                      device=dev)
-                    if kid == "K5":
-                        _build.launch("pmf_gauss_bias_prev", counter, dev, aug5, *csr,
-                                      p.n_self, k, out)
-                    else:
-                        _build.launch("pmf_gauss_diag_prev", counter, dev, aug6, self6,
-                                      *csr, p.n_self, k, out)
-                    return out
-                if kid == "K5":
-                    m_self = b_self = sq = b_oth = None
-                    m_oth, = tabs["K5"]
-                    width = k + 2
-                elif mode in (5, 6):
-                    m_self, m_oth = rec
-                    sq = tabs["K6"][3]
-                    b_self = b_oth = None
-                    width = 3 * k
-                else:
-                    m_self, b_self, m_oth, sq, b_oth = tabs["K6"]
-                    width = 3 * k
-                out = torch.empty((p.n_self, width), device=dev)
-                _build.launch("pmf_gauss_tail_form", counter, dev, mode, *geo, m_self,
-                              b_self, m_oth, sq, b_oth, *csr, p.n_self, p.long_rows, k,
-                              out)
-                return out
-
-            for kid, label, mode, geo in forms:
-                _, col, ok = column_check(run(kid, mode, geo), refs[kid])
-                if not ok:
-                    raise AssertionError(f"k56ab {kid} {label} K={k} {name}: column "
-                                         f"error {col} > {COL_RTOL}")
-            turns = {i: [] for i in range(len(forms))}
-            for order in (range(len(forms)), reversed(range(len(forms)))):
-                for i in order:
-                    kid, _, mode, geo = forms[i]
-                    turns[i].append(cuda_ms(lambda: run(kid, mode, geo)))
-            S, S1 = tail_stride(k), tail_stride(k + 1)
-            rec_sectors = _row_sectors(p, S1, S1)
-            m_sectors = _row_sectors(p, S, S)
-            log(f"  k56ab K={k} {name}: sectors an edge: m rows {m_sectors / p.nnz:.3f} "
-                f"+ b 1 (stride {4 * S} B) against [m | b] records "
-                f"{rec_sectors / p.nnz:.3f} (stride {4 * S1} B); K6 adds v + m^2 rows "
-                f"{m_sectors / p.nnz:.3f}")
-            for i, (kid, label, _, _) in enumerate(forms):
-                t = turns[i]
-                log(f"  k56ab K={k} {name}: {kid} {label}: {t[0]:.4f} {t[1]:.4f} ms "
-                    f"(mean {(t[0] + t[1]) / 2:.4f})")
-    del counter
-    torch.cuda.synchronize()
-    log(f"phase k56ab: ok | K in {list(AB_KS)}, both directions, every form within "
-        f"{COL_RTOL} per column of the plain version")
 
 
 def phase_ghead(blocked):
@@ -2658,7 +2522,6 @@ def main() -> int:
     k3 = phase_k3(gblocked)
     k5 = phase_k5(gblocked)
     k6 = phase_k6(gblocked)
-    phase_k56ab(gblocked)
     phase_ghead(gblocked)
     k4 = phase_k4(gblocked)
     wide.update(phase_wide_gauss(gblocked))

@@ -144,8 +144,7 @@ extern "C" int pmf_ext_factor(const float* e_self, const float* e_other,
                               const int32_t* other, const float* x, int n_self,
                               int n_long, int K, float rate_floor, float* out,
                               void* stream) {
-  const tail_groups::Tables t{e_self, e_other, nullptr, s_other, nullptr,
-                              row_ptr, other, x};
+  const tail_groups::Tables t{e_self, e_other, nullptr, s_other, row_ptr, other, x};
   return tail_groups::launch<tail_groups::kExt>(t, n_self, n_long, K, rate_floor, out,
                                                 static_cast<cudaStream_t>(stream));
 }

@@ -20,11 +20,11 @@
 //
 // K5 and K6 are the modes kBias and kDiag of tail_groups.cuh, the
 // row-group skeleton of K1 and K7, which holds their design and reckoning:
-// a group of G lanes a self row, m (and K6's v + m^2) in tables padded to
-// 4 * ceil(K / 4) floats read as float4 words, b_o a scalar every lane of
-// the group reads from one address, the self row's m words in registers and
-// b_s a scalar; K6's dot is the group's log2(G)-step butterfly.  This file
-// holds their entry points.
+// a group of G lanes a self row, the rows [m | b] read as records of
+// 4 * ceil((K + 1) / 4) floats in float4 words (K6 also v + m^2, padded to
+// 4 * ceil(K / 4)), K6's b_o shared from the lane that holds column K and
+// its dot the group's log2(G)-step butterfly.  This file holds their entry
+// points.
 //
 // K3's table is padded to a multiple of 4 floats a record (stride), so
 // that every record starts on 16 bytes.  What bounds it on an H100:
@@ -70,12 +70,6 @@ constexpr int kMaxK = 128;
 constexpr int kWholeRecordMaxK = 30;
 constexpr int kChunkNV = 4;
 constexpr int kEdges = 4;  // K3 edges in flight a warp
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
 
 // ---------------------------------------------------------------- K3 --
 
@@ -219,167 +213,6 @@ cudaError_t launch_factor_vec_nv(const float* aug, int stride, const int64_t* ro
   }
 }
 
-// ---------------------------------------------------------------- K5 --
-
-// Lane l holds record floats l, l + 32, ... of [m | b] (F a lane).
-template <int F>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-bias_kernel(const float* __restrict__ aug, const int64_t* __restrict__ row_ptr,
-            const int32_t* __restrict__ other, const float* __restrict__ x,
-            int n_self, int K, float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_self) return;
-  const int w_in = K + 1;
-  float acc[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.f;
-  float acc_x = 0.f;
-  const int64_t begin = row_ptr[row];
-  const int64_t end = row_ptr[row + 1];
-  for (int64_t base = begin; base < end; base += 32) {
-    const int64_t left = end - base;
-    const int n = left < 32 ? (int)left : 32;
-    int my_o = 0;
-    float my_x = 0.f;
-    if (lane < n) {
-      my_o = other[base + lane];
-      my_x = x[base + lane];
-    }
-    int j = 0;
-    for (; j + 4 <= n; j += 4) {
-      float v[4][F], xv[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int o = __shfl_sync(kFull, my_o, j + q);
-        xv[q] = __shfl_sync(kFull, my_x, j + q);
-        const float* rec = aug + (int64_t)o * w_in;
-#pragma unroll
-        for (int f = 0; f < F; ++f) {
-          const int c = 32 * f + lane;
-          v[q][f] = c < w_in ? __ldg(rec + c) : 0.f;
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-#pragma unroll
-        for (int f = 0; f < F; ++f) acc[f] += v[q][f];
-        acc_x += xv[q];
-      }
-    }
-    for (; j < n; ++j) {
-      const int o = __shfl_sync(kFull, my_o, j);
-      acc_x += __shfl_sync(kFull, my_x, j);
-      const float* rec = aug + (int64_t)o * w_in;
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        const int c = 32 * f + lane;
-        acc[f] += c < w_in ? __ldg(rec + c) : 0.f;
-      }
-    }
-  }
-  float* dst = out + (int64_t)row * (K + 2);
-#pragma unroll
-  for (int f = 0; f < F; ++f) {
-    const int c = 32 * f + lane;
-    if (c < w_in) dst[c] = acc[f];
-  }
-  if (lane == 0) dst[K + 1] = acc_x;
-}
-
-// ---------------------------------------------------------------- K6 --
-
-// Lane l holds factors l, l + 32, ... (F a lane).
-template <int F>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-diag_kernel(const float* __restrict__ aug, const float* __restrict__ self_tab,
-            const int64_t* __restrict__ row_ptr, const int32_t* __restrict__ other,
-            const float* __restrict__ x, int n_self, int K,
-            float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_self) return;
-  const int w_in = 2 * K + 1;
-  const float* self_rec = self_tab + (int64_t)row * (K + 1);
-  float ms[F], acc_mr[F], acc_sq[F], acc_mm[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) {
-    const int k = 32 * f + lane;
-    ms[f] = k < K ? self_rec[k] : 0.f;
-    acc_mr[f] = 0.f;
-    acc_sq[f] = 0.f;
-    acc_mm[f] = 0.f;
-  }
-  const float bs = self_rec[K];
-
-  auto gather = [&](int o, float (&m)[F], float (&sq)[F], float& bo) {
-    const float* rec = aug + (int64_t)o * w_in;
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      const int k = 32 * f + lane;
-      m[f] = k < K ? __ldg(rec + k) : 0.f;
-      sq[f] = k < K ? __ldg(rec + K + k) : 0.f;
-    }
-    bo = __ldg(rec + 2 * K);
-  };
-  auto edge = [&](const float (&m)[F], const float (&sq)[F], float bo, float xv) {
-    float part = ms[0] * m[0];
-#pragma unroll
-    for (int f = 1; f < F; ++f) part += ms[f] * m[f];
-    const float pred = warp_sum(part);
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      acc_mr[f] += m[f] * ((xv - bs - bo) - pred);
-      acc_sq[f] += sq[f];
-      acc_mm[f] += m[f] * m[f];
-    }
-  };
-
-  const int64_t begin = row_ptr[row];
-  const int64_t end = row_ptr[row + 1];
-  for (int64_t base = begin; base < end; base += 32) {
-    const int64_t left = end - base;
-    const int n = left < 32 ? (int)left : 32;
-    int my_o = 0;
-    float my_x = 0.f;
-    if (lane < n) {
-      my_o = other[base + lane];
-      my_x = x[base + lane];
-    }
-    int j = 0;
-    for (; j + 4 <= n; j += 4) {
-      float m[4][F], sq[4][F], bo[4], xv[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int o = __shfl_sync(kFull, my_o, j + q);
-        xv[q] = __shfl_sync(kFull, my_x, j + q);
-        gather(o, m[q], sq[q], bo[q]);
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) edge(m[q], sq[q], bo[q], xv[q]);
-    }
-    for (; j < n; ++j) {
-      const int o = __shfl_sync(kFull, my_o, j);
-      const float xv = __shfl_sync(kFull, my_x, j);
-      float m[F], sq[F], bo;
-      gather(o, m, sq, bo);
-      edge(m, sq, bo, xv);
-    }
-  }
-  float* dst = out + (int64_t)row * 3 * K;
-#pragma unroll
-  for (int f = 0; f < F; ++f) {
-    const int k = 32 * f + lane;
-    if (k < K) {
-      dst[k] = acc_mr[f];
-      dst[K + k] = acc_sq[f];
-      dst[2 * K + k] = acc_mm[f];
-    }
-  }
-}
-
-int blocks_for(int n_self) { return (n_self + kWarpsPerBlock - 1) / kWarpsPerBlock; }
-
 }  // namespace
 
 extern "C" int pmf_gauss_factor(const float* aug, int stride, const int64_t* row_ptr,
@@ -392,84 +225,19 @@ extern "C" int pmf_gauss_factor(const float* aug, int stride, const int64_t* row
                                    with_bias_stats, out, static_cast<cudaStream_t>(stream));
 }
 
-// Launch KERNEL<F> for F = 1..5 (5 covers K5's K + 1 <= 129 record floats).
-#define PMF_LAUNCH_F(KERNEL, F, GRID, STREAM, ...)                          \
-  switch (F) {                                                               \
-    case 1: KERNEL<1><<<GRID, kWarpsPerBlock * 32, 0, STREAM>>>(__VA_ARGS__); break; \
-    case 2: KERNEL<2><<<GRID, kWarpsPerBlock * 32, 0, STREAM>>>(__VA_ARGS__); break; \
-    case 3: KERNEL<3><<<GRID, kWarpsPerBlock * 32, 0, STREAM>>>(__VA_ARGS__); break; \
-    case 4: KERNEL<4><<<GRID, kWarpsPerBlock * 32, 0, STREAM>>>(__VA_ARGS__); break; \
-    case 5: KERNEL<5><<<GRID, kWarpsPerBlock * 32, 0, STREAM>>>(__VA_ARGS__); break; \
-    default: return (int)cudaErrorInvalidValue;                              \
-  }
-
-extern "C" int pmf_gauss_bias_prev(const float* aug, const int64_t* row_ptr,
-                              const int32_t* other, const float* x, int n_self,
-                              int K, float* out, void* stream) {
-  if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
-  if (n_self > 0) {
-    PMF_LAUNCH_F(bias_kernel, (K + 1 + 31) / 32, blocks_for(n_self),
-                 static_cast<cudaStream_t>(stream), aug, row_ptr, other, x, n_self,
-                 K, out);
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int pmf_gauss_diag_prev(const float* aug, const float* self_tab,
-                              const int64_t* row_ptr, const int32_t* other,
-                              const float* x, int n_self, int K, float* out,
-                              void* stream) {
-  if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
-  if (n_self > 0) {
-    PMF_LAUNCH_F(diag_kernel, (K + 31) / 32, blocks_for(n_self),
-                 static_cast<cudaStream_t>(stream), aug, self_tab, row_ptr, other, x,
-                 n_self, K, out);
-  }
-  return (int)cudaGetLastError();
-}
-
 extern "C" int pmf_gauss_bias(const float* mb_other, const int64_t* row_ptr,
                               const int32_t* other, const float* x, int n_self,
                               int n_long, int K, float* out, void* stream) {
-  const tail_groups::Tables t{nullptr, mb_other, nullptr, nullptr, nullptr,
-                              row_ptr, other, x};
+  const tail_groups::Tables t{nullptr, mb_other, nullptr, nullptr, row_ptr, other, x};
   return tail_groups::launch<tail_groups::kBias>(t, n_self, n_long, K, 0.f, out,
                                                  static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int pmf_gauss_diag(const float* m_self, const float* b_self,
-                              const float* m_other, const float* sq_other,
-                              const float* b_other, const int64_t* row_ptr,
-                              const int32_t* other, const float* x, int n_self,
-                              int n_long, int K, float* out, void* stream) {
-  const tail_groups::Tables t{m_self, m_other, sq_other, b_other, b_self,
-                              row_ptr, other, x};
+extern "C" int pmf_gauss_diag(const float* mb_self, const float* mb_other,
+                              const float* sq_other, const int64_t* row_ptr,
+                              const int32_t* other, const float* x, int n_self, int n_long,
+                              int K, float* out, void* stream) {
+  const tail_groups::Tables t{mb_self, mb_other, sq_other, nullptr, row_ptr, other, x};
   return tail_groups::launch<tail_groups::kDiag>(t, n_self, n_long, K, 0.f, out,
                                                  static_cast<cudaStream_t>(stream));
-}
-
-// A/B only: K5 (mode 3), K6 (mode 4) or K6 with b in the [m | b] records
-// (modes 5 and 6) at the instance (G, V, D) named.
-extern "C" int pmf_gauss_tail_form(int mode, int G, int V, int D, const float* m_self,
-                                   const float* b_self, const float* m_other,
-                                   const float* sq_other, const float* b_other,
-                                   const int64_t* row_ptr, const int32_t* other,
-                                   const float* x, int n_self, int n_long, int K,
-                                   float* out, void* stream) {
-  const tail_groups::Tables t{m_self, m_other, sq_other, b_other, b_self,
-                              row_ptr, other, x};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case tail_groups::kBias:
-      return tail_groups::launch_form<tail_groups::kBias>(t, n_self, n_long, K, G, V, D, out, s);
-    case tail_groups::kDiag:
-      return tail_groups::launch_form<tail_groups::kDiag>(t, n_self, n_long, K, G, V, D, out, s);
-    case tail_groups::kDiagRec:
-      return tail_groups::launch_form<tail_groups::kDiagRec>(t, n_self, n_long, K, G, V, D, out, s);
-    case tail_groups::kDiagRecLd:
-      return tail_groups::launch_form<tail_groups::kDiagRecLd>(t, n_self, n_long, K, G, V, D,
-                                                               out, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }

@@ -21,34 +21,40 @@
 // row gathers, not bytes.  At K=20 the other table is 4.7 MB (by user) or
 // 13.0 MB (by item), resident in the 50 MB L2; per edge the kernel reads an
 // 8-byte (id, rating) pair from HBM and an 80-byte row (3 sectors) from
-// L2 (K6 two rows, K5 and K7 also a scalar's sector).  The previous design
-// (a warp a row, lane l factor l) spent seven warp shuffles an edge: two
+// L2 (K5 a 96-byte [m | b] record, 3 sectors; K6 that record and an 80-byte
+// v + m^2 row; K7 also a scalar's sector).  The previous design (a warp a
+// row, lane l factor l) spent seven warp shuffles an edge in K1: two
 // broadcasts and a five-step dot butterfly.  At one warp shuffle a clock
 // per SM (cc 9.0) that is 7 x 4.74M edges / 132 SMs, about 0.13 ms a
 // direction, beside a bytes bound of 0.02 ms; it also left 12 of 32 lanes
 // idle at K=20 and kept four edges in flight a warp.
 //
 // Design: a group of G lanes (a power of two) takes one self row, so a warp
-// holds 32/G rows; ops/_tail.py::launch_plan mirrors the choice of G and V
-// from K below (K=20: G=8, V=1, 5 of 8 lanes loading; K=50: G=8, V=2).
-// Tables are padded to a stride of 4 * ceil(K / 4) floats, so every row
-// starts on 16 bytes, and lane l of a group holds the float4 words l, l + G,
-// ..., l + (V - 1) G of a row (words past the row hold 0; the self row's pad
-// columns are zeroed, so finite pad columns of the other tables add nothing
-// to a dot; the builders write zeros there).  The dot of an edge (cavi, ext,
-// diag) is a log2(G)-step __shfl_xor_sync butterfly inside the group, one
-// warp instruction for 32/G edges.  Each lane loads the (id, rating) of
-// every G-th edge of a batch of B = max(G, 8) edges, coalesced within the
-// group, one batch ahead, and the group shares them by __shfl_sync of width
-// G; a scalar of the other row (K7's s_o, K5's and K6's b_o) is read by every
-// lane of the group from the same address beside the row gather, and K6's
-// b_s once a row.  K6 gathers m_o and sq_o into the same lanes' words, so
-// its three sums line up with m.  A group gathers 4 edges at once, so a
-// warp has 4 * 32/G in flight (8 in flight measured slower).  The warp
-// walks its longest row's batches together (edges past a row's end read
-// nothing and add zeros), so every shuffle names the full warp; rows are in
-// descending-count order in new space, so a warp's rows have nearly equal
-// lengths.
+// holds 32/G rows; ops/_tail.py::launch_plan mirrors the choice of G, V and
+// D below (K=20: G=8, V=1, 5 of 8 lanes loading; K=50: G=8, V=2 for K1 and
+// K7, G=16, V=1 for K5 and K6).  Tables are padded to a stride of
+// 4 * ceil(columns / 4) floats, so every row starts on 16 bytes, and lane l
+// of a group holds the float4 words l, l + G, ..., l + (V - 1) G of a row
+// (words past the row hold 0; the self row's pad columns are zeroed, so
+// finite pad columns of the other tables add nothing to a dot; the builders
+// write zeros there).  K5 and K6 read m and b as one record [m | b] of
+// K + 1 columns: K5 sums the whole record (sum m | sum b); K6 takes b_o
+// from the lane holding column K by one shuffle an edge and b_s once a
+// row, and gathers v + m^2 into the same lanes' words, so its three sums
+// line up with m.  (b read as a scalar of its own, a load and a sector an
+// edge, was 14-29% slower in both; loaded by every lane from the record,
+// 12-15% slower in K6.)  The dot of an edge (cavi, ext, diag) is a
+// log2(G)-step __shfl_xor_sync butterfly inside the group, one warp
+// instruction for 32/G edges.  Each lane loads the (id, rating) of every
+// G-th edge of a batch of B = max(G, 8) edges, coalesced within the group,
+// one batch ahead, and the group shares them by __shfl_sync of width G;
+// K7's scalar s_o is read by every lane of the group from the same address
+// beside the row gather.  A group gathers D edges at once (D = 4; K6, two
+// rows an edge, 2), so a warp has D * 32/G in flight (8 in flight measured
+// slower).  The warp walks its longest row's batches together (edges past
+// a row's end read nothing and add zeros), so every shuffle names the full
+// warp; rows are in descending-count order in new space, so a warp's rows
+// have nearly equal lengths.
 //
 // Long rows: a group walks its row one gather round trip at a time, so
 // the item pass's 757-edge rows set its end (on an H100 at K=20 the item
@@ -71,53 +77,37 @@ namespace tail_groups {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 8;     // warps a CTA
 constexpr int kThreads = 32 * kWarps;
-constexpr int kInFlight = 4;      // edges a group gathers at once (K1, K7, K5)
-constexpr int kDiagInFlight = 2;  // K6
+constexpr int kInFlight = 4;       // edges a group gathers at once (K1, K7, K5)
+constexpr int kDiagInFlight = 2;   // K6
 constexpr int kMaxK = 128;
-constexpr int kOneWord = 8;       // spans up to 8 words take one word a lane, wider two
-constexpr int kDiagOneWord = 16;  // K6: up to 16 words
+constexpr int kOneWord = 8;        // K1, K7: spans up to 8 words take one word a lane, wider two
+constexpr int kRecordOneWord = 16;  // K5, K6 ([m | b] records): up to 16 words
 
-// kDiagRec, kDiagRecLd: K6 with b_o from column K of the [m | b] record
-// (shared from its lane by a shuffle, or loaded by every lane), and b_s
-// from the self record, for the A/B only.
-enum Mode { kCavi = 0, kRaw = 1, kExt = 2, kBias = 3, kDiag = 4, kDiagRec = 5,
-            kDiagRecLd = 6 };
+enum Mode { kCavi = 0, kRaw = 1, kExt = 2, kBias = 3, kDiag = 4 };
 
 // What a pass reads.  Tables of rows are padded to 4 * ceil(columns / 4)
 // floats and start on 16 bytes; a pointer a mode does not read may be null.
 struct Tables {
-  const float* e_self;    // self rows: K1, K7 e_self; K6 m_self
-  const float* e_other;   // other rows: K1, K7 e_other; K5 [m_other | b_other]; K6 m_other
-  const float* sq_other;  // K6: v_other + m_other^2
-  const float* s_other;   // a scalar an other row: K7 s_other; K6 b_other
-  const float* s_self;    // a scalar a self row: K6 b_self
+  const float* e_self;    // self rows: K1, K7 e_self; K6 [m_self | b_self]
+  const float* e_other;   // other rows: K1, K7 e_other; K5, K6 [m_other | b_other]
+  const float* sq_other;  // K6: v_other + m_other^2, K columns
+  const float* s_other;   // K7: s_other, a scalar an other row
   const int64_t* row_ptr;
   const int32_t* other;
   const float* x;         // ratings: every mode but kRaw
 };
 
-__host__ __device__ constexpr bool reads_x(int mode) { return mode != kRaw; }
-__host__ __device__ constexpr bool reads_self(int mode) { return mode != kBias; }
-__host__ __device__ constexpr bool reads_s_other(int mode) {
-  return mode == kExt || mode == kDiag;
-}
-__host__ __device__ constexpr bool is_rec_diag(int mode) {
-  return mode == kDiagRec || mode == kDiagRecLd;
-}
-__host__ __device__ constexpr bool is_diag(int mode) { return mode == kDiag || is_rec_diag(mode); }
-// Columns of a row of e_other (and e_self): K factors, and b beside m in
-// K5's record.
-__host__ __device__ constexpr int columns(int mode, int K) {
-  return mode == kBias || is_rec_diag(mode) ? K + 1 : K;
-}
+// K5 and K6 gather [m | b] records: K + 1 columns, b in column K.
+__host__ __device__ constexpr bool is_record(int mode) { return mode == kBias || mode == kDiag; }
+__host__ __device__ constexpr int columns(int mode, int K) { return is_record(mode) ? K + 1 : K; }
 __host__ __device__ constexpr int out_width(int mode, int K) {
-  return mode == kBias ? K + 2 : is_diag(mode) ? 3 * K : 2 * K;
+  return mode == kBias ? K + 2 : mode == kDiag ? 3 * K : 2 * K;
 }
 __host__ __device__ constexpr int in_flight(int mode) {
-  return is_diag(mode) ? kDiagInFlight : kInFlight;
+  return mode == kDiag ? kDiagInFlight : kInFlight;
 }
 __host__ __device__ constexpr int one_word(int mode) {
-  return is_diag(mode) ? kDiagOneWord : kOneWord;
+  return is_record(mode) ? kRecordOneWord : kOneWord;
 }
 
 // Edges a group takes a batch: each lane loads B / G of their ids.
@@ -158,7 +148,6 @@ tail_group_kernel(const float* __restrict__ e_self,
                   const float* __restrict__ e_other,
                   const float* __restrict__ sq_other,
                   const float* __restrict__ s_other,
-                  const float* __restrict__ s_self,
                   const int64_t* __restrict__ row_ptr,
                   const int32_t* __restrict__ other,
                   const float* __restrict__ x,
@@ -210,12 +199,12 @@ tail_group_kernel(const float* __restrict__ e_self,
   for (int v = 0; v < V; ++v) {
     const int w = v * G + gl;
     float4 e = zero;
-    if constexpr (reads_self(kMode)) {
+    if constexpr (kMode != kBias) {  // K5 reads no self row
       if (has_row && w < W) {
         e = reinterpret_cast<const float4*>(e_self)[(int64_t)row * W + w];
         const int k = 4 * w;
-        if constexpr (is_rec_diag(kMode)) {
-          if (k >= K) e.x = 0.f;  // b_s
+        if constexpr (is_record(kMode)) {
+          if (k >= K) e.x = 0.f;  // b_s, column K of the record
         }
         if (k + 1 >= K) e.y = 0.f;
         if (k + 2 >= K) e.z = 0.f;
@@ -230,8 +219,6 @@ tail_group_kernel(const float* __restrict__ e_self,
   float acc_x = 0.f;  // bias: sum x
   float bs = 0.f;     // diag: b_s
   if constexpr (kMode == kDiag) {
-    if (has_row) bs = s_self[row];
-  } else if constexpr (is_rec_diag(kMode)) {
     if (has_row) bs = e_self[(int64_t)row * 4 * W + K];
   }
 
@@ -270,7 +257,7 @@ tail_group_kernel(const float* __restrict__ e_self,
         part += p[v].z;
         part += p[v].w;
       }
-      if constexpr (is_diag(kMode)) {
+      if constexpr (kMode == kDiag) {
         const float coef = ((xv - bs) - sv) - group_sum<G>(part);
 #pragma unroll
         for (int v = 0; v < V; ++v) {
@@ -318,7 +305,7 @@ tail_group_kernel(const float* __restrict__ e_self,
       const int e = base + gl + G * q;
       const bool ok = e < len;
       ids[q] = ok ? other[begin + e] : 0;
-      if constexpr (reads_x(kMode)) xs[q] = ok ? x[begin + e] : 0.f;
+      if constexpr (kMode != kRaw) xs[q] = ok ? x[begin + e] : 0.f;
     }
   };
 
@@ -337,22 +324,21 @@ tail_group_kernel(const float* __restrict__ e_self,
         const int o = group_bcast<G>(ids[e / G], e % G);
         xv[d] = 0.f;
         sv[d] = 0.f;
-        if constexpr (reads_x(kMode)) xv[d] = group_bcast<G>(xs[e / G], e % G);
+        if constexpr (kMode != kRaw) xv[d] = group_bcast<G>(xs[e / G], e % G);
         const bool ok = base + e < len;
 #pragma unroll
         for (int v = 0; v < V; ++v) {
           const int w = v * G + gl;
           eo[d][v] = (ok && w < W) ? __ldg(eo4 + (int64_t)o * W + w) : zero;
-          if constexpr (is_diag(kMode))
+          if constexpr (kMode == kDiag)
             sq[d][v] = (ok && w < Wq) ? __ldg(sq4 + (int64_t)o * Wq + w) : zero;
         }
-        if constexpr (reads_s_other(kMode)) sv[d] = ok ? __ldg(s_other + o) : 0.f;
-        if constexpr (kMode == kDiagRecLd)
-          sv[d] = ok ? __ldg(e_other + (int64_t)o * 4 * W + K) : 0.f;
+        if constexpr (kMode == kExt) sv[d] = ok ? __ldg(s_other + o) : 0.f;
       }
-      if constexpr (kMode == kDiagRec) {
+      if constexpr (kMode == kDiag) {
         // b_o: column K of the record, word K / 4 (lane (K / 4) % G, slot
-        // (K / 4) / G), from that lane to the group.
+        // (K / 4) / G), from that lane to the group (a shuffle an edge
+        // measured faster than a load of it by every lane).
         const int wb = K >> 2;
 #pragma unroll
         for (int d = 0; d < D; ++d) {
@@ -388,7 +374,7 @@ tail_group_kernel(const float* __restrict__ e_self,
         acc_o[v].y += __shfl_xor_sync(kFull, acc_o[v].y, off);
         acc_o[v].z += __shfl_xor_sync(kFull, acc_o[v].z, off);
         acc_o[v].w += __shfl_xor_sync(kFull, acc_o[v].w, off);
-        if constexpr (is_diag(kMode)) {
+        if constexpr (kMode == kDiag) {
           acc_c[v].x += __shfl_xor_sync(kFull, acc_c[v].x, off);
           acc_c[v].y += __shfl_xor_sync(kFull, acc_c[v].y, off);
           acc_c[v].z += __shfl_xor_sync(kFull, acc_c[v].z, off);
@@ -414,7 +400,7 @@ tail_group_kernel(const float* __restrict__ e_self,
       } else if (w < W && k < K) {
         dst[k] = comp(acc_a[v], j);
         dst[K + k] = comp(acc_o[v], j);
-        if constexpr (is_diag(kMode)) dst[2 * K + k] = comp(acc_c[v], j);
+        if constexpr (kMode == kDiag) dst[2 * K + k] = comp(acc_c[v], j);
       }
     }
   }
@@ -459,8 +445,8 @@ template <int kMode, int G, int V, int D>
 int launch_instance(const Tables& t, int n_self, int n_long, int K, float rate_floor,
                     float* out, cudaStream_t stream) {
   tail_group_kernel<kMode, G, V, D><<<blocks_of(n_self, n_long, G), kThreads, 0, stream>>>(
-      t.e_self, t.e_other, t.sq_other, t.s_other, t.s_self, t.row_ptr, t.other, t.x,
-      n_self, n_long, K, rate_floor, out);
+      t.e_self, t.e_other, t.sq_other, t.s_other, t.row_ptr, t.other, t.x, n_self, n_long,
+      K, rate_floor, out);
   return (int)cudaGetLastError();
 }
 
@@ -487,28 +473,6 @@ int launch(const Tables& t, int n_self, int n_long, int K, float rate_floor, flo
   PMF_TAIL_PLAN(16, 2)
   PMF_TAIL_PLAN(32, 2)
 #undef PMF_TAIL_PLAN
-  return (int)cudaErrorInvalidValue;
-}
-
-// A/B only: the instance (kMode, G, V, D) the caller names, for timing
-// forms beside the plan's.
-template <int kMode>
-int launch_form(const Tables& t, int n_self, int n_long, int K, int G, int V, int D,
-                float* out, cudaStream_t stream) {
-  if (bad_args(n_self, n_long, K) || (columns(kMode, K) + 3) / 4 > G * V)
-    return (int)cudaErrorInvalidValue;
-  if (n_self == 0) return (int)cudaGetLastError();
-#define PMF_TAIL_FORM(G_, V_, D_)                                                  \
-  if (G == G_ && V == V_ && D == D_)                                               \
-    return launch_instance<kMode, G_, V_, D_>(t, n_self, n_long, K, 0.f, out, stream);
-  PMF_TAIL_FORM(8, 1, 2)
-  PMF_TAIL_FORM(8, 1, 4)
-  PMF_TAIL_FORM(8, 1, 8)
-  PMF_TAIL_FORM(8, 2, 4)
-  PMF_TAIL_FORM(16, 1, 2)
-  PMF_TAIL_FORM(16, 1, 4)
-  PMF_TAIL_FORM(16, 1, 8)
-#undef PMF_TAIL_FORM
   return (int)cudaErrorInvalidValue;
 }
 

@@ -44,16 +44,9 @@ SIGNATURES = {
     "pmf_gauss_factor": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     # mb_other, row_ptr, other, x, n_self, n_long, K, out, stream
     "pmf_gauss_bias": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
-    # m_self, b_self, m_other, sq_other, b_other, row_ptr, other, x, n_self,
-    # n_long, K, out, stream
-    "pmf_gauss_diag": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    # A/B only: the previous K5 and K6 (aug, row_ptr, other, x, n_self, K,
-    # out / aug, self_tab, row_ptr, other, x, n_self, K, out) and any
-    # (mode, G, V, D) instance of the row-group K5 and K6.
-    "pmf_gauss_bias_prev": [_P, _P, _P, _P, _I, _I, _P, _P],
-    "pmf_gauss_diag_prev": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
-    "pmf_gauss_tail_form": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                            _I, _P, _P],
+    # mb_self, mb_other, sq_other, row_ptr, other, x, n_self, n_long, K, out,
+    # stream
+    "pmf_gauss_diag": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     # mats, R, K, out, stream
     "pmf_gj_inverse": [_P, _I, _I, _P, _P],
     # e_self, e_other, s_other, row_ptr, other, x, n_self, n_long, K,

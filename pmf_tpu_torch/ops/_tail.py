@@ -12,13 +12,15 @@ from pmf_tpu_torch.data.blocked import TailCSR
 from pmf_tpu_torch.ops.dense_head import head_products, head_products_t
 
 # csrc/tail_groups.cuh: kWarps, kInFlight, kDiagInFlight, kMaxK, kOneWord,
-# kDiagOneWord, batch_of.
+# kRecordOneWord, batch_of.
 GROUP_WARPS = 8
 GROUP_IN_FLIGHT = 4
 DIAG_IN_FLIGHT = 2
 GROUP_MAX_K = 128
 GROUP_ONE_WORD = 8
-DIAG_ONE_WORD = 16
+RECORD_ONE_WORD = 16
+# The kernels that gather [m | b] records of K + 1 columns.
+RECORD_KERNELS = ("K5", "K6")
 # The row-group kernels: K1 (modes "cavi", "raw"), K7, K5 and K6.
 PLAN_KERNELS = ("K1", "K1raw", "K7", "K5", "K6")
 
@@ -32,32 +34,34 @@ def tail_stride(k: int) -> int:
 
 def columns(k: int, kernel: str = "K1") -> int:
     """Columns of a row of the tables a row-group kernel gathers: K
-    factors, and b beside m in K5's [m | b] record."""
-    return k + 1 if kernel == "K5" else k
+    factors, and b beside m in K5's and K6's [m | b] records."""
+    return k + 1 if kernel in RECORD_KERNELS else k
 
 
 def launch_plan(k: int, kernel: str = "K1") -> dict:
     """The row-group geometry of ``kernel`` (one of PLAN_KERNELS) at ``k``
     factors, as ``tail_groups::launch`` chooses it: ``words`` W =
     ceil(columns / 4) float4 words a row; ``lanes`` G a row and ``vec`` V
-    words a lane, V = 1 up to a span of GROUP_ONE_WORD words (K6:
-    DIAG_ONE_WORD) and 2 past it, G = span / V, for span the power of two at
-    or above W; lane l of a group holds words l, l + G, ...; each lane loads
-    ``batch`` / G edges' ids a batch; ``in_flight`` edges a group gathers at
-    once (K6: DIAG_IN_FLIGHT); ``rows_per_warp`` and ``rows_per_cta``
-    (warps past TailCSR.long_rows)."""
+    words a lane, V = 1 up to a span of GROUP_ONE_WORD words (K5, K6:
+    RECORD_ONE_WORD) and 2 past it, G = span / V, for span the power of two
+    at or above W; lane l of a group holds words l, l + G, ...; each lane
+    loads ``batch`` / G edges' ids a batch; ``in_flight`` edges a group
+    gathers at once (K6: DIAG_IN_FLIGHT); ``rows_per_warp`` and
+    ``rows_per_cta`` (warps past TailCSR.long_rows); ``stride`` the padded
+    width of the gathered rows."""
     if not 1 <= k <= GROUP_MAX_K:
         raise ValueError(f"tail kernel needs 1 <= K <= {GROUP_MAX_K}, got K={k}")
     if kernel not in PLAN_KERNELS:
         raise ValueError(f"unknown row-group kernel {kernel!r} {PLAN_KERNELS}")
-    diag = kernel == "K6"
     cols = columns(k, kernel)
     words = -(-cols // 4)
     span = 1 << (words - 1).bit_length()
-    vec = 1 if span <= (DIAG_ONE_WORD if diag else GROUP_ONE_WORD) else 2
+    one_word = RECORD_ONE_WORD if kernel in RECORD_KERNELS else GROUP_ONE_WORD
+    vec = 1 if span <= one_word else 2
     lanes = span // vec
     return dict(lanes=lanes, vec=vec, words=words, stride=tail_stride(cols),
-                batch=max(lanes, 8), in_flight=DIAG_IN_FLIGHT if diag else GROUP_IN_FLIGHT,
+                batch=max(lanes, 8),
+                in_flight=DIAG_IN_FLIGHT if kernel == "K6" else GROUP_IN_FLIGHT,
                 rows_per_warp=32 // lanes, rows_per_cta=32 * GROUP_WARPS // lanes)
 
 

@@ -158,10 +158,11 @@ def factor_tail_stats(aug, row_ptr, other, x, K: int,
 
 # ------------------------------------------------------------------ K5 --
 
-def bias_table(m, b, rows=None) -> torch.Tensor:
-    """K5's table [m | b | 0 pad] of ``tail_stride(K + 1)`` columns, of
-    rows ``rows`` of the inputs (all when None), gathered straight into the
-    padded table: one copy, where joining and permuting took two."""
+def record_table(m, b, rows=None) -> torch.Tensor:
+    """The [m | b | 0 pad] records K5 and K6 gather, ``tail_stride(K + 1)``
+    columns, of rows ``rows`` of the inputs (all when None), gathered
+    straight into the padded table: one copy, where joining and permuting
+    took two."""
     K = m.shape[1]
     n = m.shape[0] if rows is None else rows.shape[0]
     out = m.new_empty((n, _tail_stride(K + 1)))
@@ -195,7 +196,7 @@ def bias_tail_stats(mb_other, row_ptr, other, x, K: int | None = None,
                     long_rows: int = 0) -> torch.Tensor:
     """K5: the bias tail pass at ``K`` factors (the table's width less one
     when None).  CUDA tensors launch the kernel, on the [m | b] table padded
-    to ``tail_stride(K + 1)`` columns (``bias_table``), giving each of the
+    to ``tail_stride(K + 1)`` columns (``record_table``), giving each of the
     first ``long_rows`` rows a whole warp (``TailCSR.long_rows``); CPU
     tensors run the plain version, which ignores columns past K + 1."""
     if not mb_other.is_cuda:
@@ -215,62 +216,54 @@ def bias_tail_stats(mb_other, row_ptr, other, x, K: int | None = None,
 
 # ------------------------------------------------------------------ K6 --
 
-def diag_tail_stats_plain(m_self, b_self, m_other, sq_other, b_other, row_ptr, other,
-                          x, K: int | None = None,
+def diag_tail_stats_plain(mb_self, mb_other, sq_other, row_ptr, other, x,
+                          K: int | None = None,
                           max_edges: int | None = None) -> torch.Tensor:
     """Plain K6: (n_self, 3K) [sum m_o (x - b_s - b_o - <m_s, m_o>) |
-    sum sq_o | sum m_o^2] per self row of the CSR tail, sq_o = v_o + m_o^2,
-    in m_other's dtype; columns of the tables past ``K`` (m_self's width
-    when None) are ignored."""
-    K = m_self.shape[1] if K is None else K
-    m_self, m_other, sq_other = m_self[:, :K], m_other[:, :K], sq_other[:, :K]
+    sum sq_o | sum m_o^2] per self row of the CSR tail, from the [m | b]
+    tables and sq_o = v_o + m_o^2, in mb_other's dtype; columns past K + 1
+    (K + 1 = mb_self's width when None; sq_other's past K) are ignored."""
+    K = mb_self.shape[1] - 1 if K is None else K
+    m_s, b_s = mb_self[:, :K], mb_self[:, K]
+    m_other, b_other, sq_other = mb_other[:, :K], mb_other[:, K], sq_other[:, :K]
     n_self = row_ptr.shape[0] - 1
-    out = torch.zeros((n_self, 3 * K), dtype=m_other.dtype, device=m_other.device)
+    out = torch.zeros((n_self, 3 * K), dtype=mb_other.dtype, device=mb_other.device)
     for r0, r1 in _row_chunks(row_ptr, max_edges):
         local, o, sl = _edges(row_ptr, other, r0, r1)
         m_o = m_other[o]
-        pred = torch.sum(m_self[r0:r1][local] * m_o, dim=1)
-        resid = x[sl].to(m_o.dtype) - b_self[r0:r1][local] - b_other[o]
+        pred = torch.sum(m_s[r0:r1][local] * m_o, dim=1)
+        resid = x[sl].to(m_o.dtype) - b_s[r0:r1][local] - b_other[o]
         payload = torch.cat([m_o * (resid - pred)[:, None], sq_other[o], m_o * m_o],
                             dim=1)
         out[r0:r1].index_add_(0, local, payload)
     return out
 
 
-def diag_tail_stats(m_self, b_self, m_other, sq_other, b_other, row_ptr, other, x,
+def diag_tail_stats(mb_self, mb_other, sq_other, row_ptr, other, x,
                     K: int | None = None, long_rows: int = 0) -> torch.Tensor:
-    """K6: the diag tail pass at ``K`` factors (m_self's width when None).
-    CUDA tensors launch the kernel, on m_self, m_other and sq_other padded
-    to ``tail_stride(K)`` columns and the biases as vectors, giving each of
-    the first ``long_rows`` rows a whole warp; CPU tensors run the plain
-    version, which ignores columns past K."""
-    if not m_self.is_cuda:
-        return diag_tail_stats_plain(m_self, b_self, m_other, sq_other, b_other,
-                                     row_ptr, other, x, K)
-    K = m_self.shape[1] if K is None else K
+    """K6: the diag tail pass at ``K`` factors (mb_self's width less one
+    when None).  CUDA tensors launch the kernel, on the [m | b] tables
+    padded to ``tail_stride(K + 1)`` columns (``record_table``) and sq_other
+    padded to ``tail_stride(K)``, giving each of the first ``long_rows``
+    rows a whole warp; CPU tensors run the plain version, which ignores pad
+    columns."""
+    if not mb_self.is_cuda:
+        return diag_tail_stats_plain(mb_self, mb_other, sq_other, row_ptr, other, x, K)
+    K = mb_self.shape[1] - 1 if K is None else K
     if not 1 <= K <= DIAG_MAX_K:
         raise ValueError(f"diag kernel needs 1 <= K <= {DIAG_MAX_K}, got K={K}")
     n_self = row_ptr.shape[0] - 1
-    tables = [("m_self", m_self), ("m_other", m_other), ("sq_other", sq_other)]
-    _check_tail_args(tables + [("b_self", b_self), ("b_other", b_other)], row_ptr,
-                     other, x, n_self)
-    _check_padded_tables(K, tables)
-    if m_self.shape[0] != n_self or sq_other.shape[0] != m_other.shape[0]:
-        raise ValueError("m_self rows must match the CSR, sq_other rows m_other's")
-    _check_scalars(("b_self", b_self, n_self), ("b_other", b_other, m_other.shape[0]))
+    _check_tail_args([("mb_self", mb_self), ("mb_other", mb_other),
+                      ("sq_other", sq_other)], row_ptr, other, x, n_self)
+    _check_padded_tables(K, [("mb_self", mb_self), ("mb_other", mb_other)], "K6")
+    _check_padded_tables(K, [("sq_other", sq_other)])
+    if mb_self.shape[0] != n_self or sq_other.shape[0] != mb_other.shape[0]:
+        raise ValueError("mb_self rows must match the CSR, sq_other rows mb_other's")
     _check_long_rows(long_rows, n_self)
-    out = torch.empty((n_self, 3 * K), dtype=torch.float32, device=m_other.device)
-    _build.launch("pmf_gauss_diag", DIAG_LAUNCHES, m_other.device, m_self, b_self,
-                  m_other, sq_other, b_other, row_ptr, other, x, n_self, long_rows, K,
-                  out)
+    out = torch.empty((n_self, 3 * K), dtype=torch.float32, device=mb_other.device)
+    _build.launch("pmf_gauss_diag", DIAG_LAUNCHES, mb_other.device, mb_self, mb_other,
+                  sq_other, row_ptr, other, x, n_self, long_rows, K, out)
     return out
-
-
-def _check_scalars(*vectors) -> None:
-    """Raise unless each (name, tensor, rows) is a vector of ``rows``."""
-    for name, t, n in vectors:
-        if t.shape != (n,):
-            raise ValueError(f"{name} must be ({n},), got {tuple(t.shape)}")
 
 
 # ------------------------------------------------------- head + wrappers --
@@ -352,21 +345,17 @@ def gaussian_factor_stats(m_other, V_other, b_self, b_other, p: TailCSR,
     return S_w, S_A
 
 
-def _new_space(t: torch.Tensor, rows: torch.Tensor | None) -> torch.Tensor:
-    return t.contiguous() if rows is None else t[rows]
-
-
 def gaussian_bias_stats(m_self, m_other, b_other, p: TailCSR, head=None,
                         head_side: str = "user") -> torch.Tensor:
     """s (n_self,): per-row sums of bias residuals
     sum (x - b_o - <m_s, m_o>), assembled from the pass-through sums
     [sum m_o | sum b_o | sum x] (K5 on the tail, linear products on the
     head).  K5 reads [m_other | b_other] gathered into new space straight
-    into a table of ``tail_stride(K + 1)`` columns (``bias_table``); the
+    into a table of ``tail_stride(K + 1)`` columns (``record_table``); the
     head products see its K + 1 real columns only."""
     K = m_self.shape[1]
     heads = _check_head(p, head)
-    mb = bias_table(m_other, b_other, p.other_old_of_new if p.reordered else None)
+    mb = record_table(m_other, b_other, p.other_old_of_new if p.reordered else None)
     out = bias_tail_stats(mb, p.row_ptr, p.other, p.x, K=K, long_rows=p.long_rows)
     head_outs = []
     for tier in heads:
@@ -405,26 +394,27 @@ def gaussian_diag_stats(m_other, v_other, m_self, b_self, b_other, p: TailCSR,
     """(S_mr, S_sq, S_mm), each (n_self, K), for one diag-covariance
     factor block: S_mr = sum m_o (resid - <m_s, m_o>) with resid =
     x [- b_s - b_o], S_sq = sum (v_o + m_o^2), S_mm = sum m_o^2.  K6 reads
-    m_self, m_other and sq_other = v_other + m_other^2 in new space, each
-    gathered straight into a table of ``tail_stride(K)`` columns, and the
-    biases as vectors; the head products see the real columns only."""
+    the [m | b] records of both sides (``record_table``) and sq_other =
+    v_other + m_other^2, each gathered into new space straight into its
+    padded table; the head products see the real columns only."""
     K = m_other.shape[1]
     heads = _check_head(p, head)
+    if not use_bias:
+        b_self, b_other = b_self.new_zeros(b_self.shape), b_other.new_zeros(b_other.shape)
     rows_s = p.self_old_of_new if p.reordered else None
     rows_o = p.other_old_of_new if p.reordered else None
-    m_s, m_o = _padded_rows(m_self, rows_s), _padded_rows(m_other, rows_o)
+    mb_s, mb_o = record_table(m_self, b_self, rows_s), record_table(m_other, b_other, rows_o)
     if rows_o is None:  # padded_rows may hand back v_other itself
         sq_o = _padded_rows(torch.addcmul(v_other, m_other, m_other))
     else:  # a fresh table: add m^2 in place, pad columns stay 0
-        sq_o = _padded_rows(v_other, rows_o).addcmul_(m_o, m_o)
-    if use_bias:
-        b_s, b_o = _new_space(b_self, rows_s), _new_space(b_other, rows_o)
-    else:
-        b_s, b_o = b_self.new_zeros(m_s.shape[0]), b_other.new_zeros(m_o.shape[0])
-    out = diag_tail_stats(m_s, b_s, m_o, sq_o, b_o, p.row_ptr, p.other, p.x, K=K,
+        m_o = mb_o[:, :K]
+        sq_o = _padded_rows(v_other, rows_o)
+        sq_o[:, :K].addcmul_(m_o, m_o)
+    out = diag_tail_stats(mb_s, mb_o, sq_o, p.row_ptr, p.other, p.x, K=K,
                           long_rows=p.long_rows)
-    out = _add_heads(out, [_diag_head_out(t, m_o[:, :K], sq_o[:, :K], b_o, m_s[:, :K],
-                                          b_s, head_side) for t in heads])
+    out = _add_heads(out, [_diag_head_out(t, mb_o[:, :K], sq_o[:, :K], mb_o[:, K],
+                                          mb_s[:, :K], mb_s[:, K], head_side)
+                           for t in heads])
     if p.reordered:
         out = out[p.self_new_of_old]
     return out[:, :K], out[:, K : 2 * K], out[:, 2 * K :]

@@ -494,9 +494,8 @@ WRAPPERS = {
         _wide(5, K9 + 1 + K9 * (K9 + 1) // 2), *_csr(3, 5, 4), K9),
     "K4": lambda: gj_inverse.batched_psd_inverse_gj(_wide(2, K9, K9)),
     "K5": lambda: gaussian_edge.bias_tail_stats(_wide(5, 132), *_csr(3, 5, 4), K=K9),
-    "K6": lambda: gaussian_edge.diag_tail_stats(_wide(3, 132), _wide(3), _wide(5, 132),
-                                                _wide(5, 132), _wide(5), *_csr(3, 5, 4),
-                                                K=K9),
+    "K6": lambda: gaussian_edge.diag_tail_stats(_wide(3, 132), _wide(5, 132),
+                                                _wide(5, 132), *_csr(3, 5, 4), K=K9),
     "K7": lambda: ext_edge.ext_factor_tail(_wide(3, K9), _wide(5, K9), _wide(5),
                                            *_csr(3, 5, 4)),
     "K8": lambda: ext_edge.ext_scalar_tail(_wide(3, K9), _wide(5, K9), _wide(5),
@@ -536,8 +535,8 @@ def test_every_wrapper_takes_k128_on_the_cpu(kernel):
             torch.rand(5, k + 1), torch.tensor([0, 2, 2, 4]),
             torch.tensor([0, 4, 1, 2], dtype=torch.int32), torch.ones(4)),
         "K6": lambda: gaussian_edge.diag_tail_stats(
-            torch.rand(3, k), torch.rand(3), torch.rand(5, k), torch.rand(5, k),
-            torch.rand(5), torch.tensor([0, 2, 2, 4]),
+            torch.rand(3, k + 1), torch.rand(5, k + 1), torch.rand(5, k),
+            torch.tensor([0, 2, 2, 4]),
             torch.tensor([0, 4, 1, 2], dtype=torch.int32), torch.ones(4)),
         "K7": lambda: ext_edge.ext_factor_tail(
             torch.rand(3, k), torch.rand(5, k), torch.rand(5), torch.tensor([0, 2, 2, 4]),

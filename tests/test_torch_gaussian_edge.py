@@ -332,13 +332,15 @@ def test_tail_wrappers_on_cpu_are_the_plain_versions_and_chunk(small_ratings):
         np.testing.assert_allclose(
             tge.factor_tail_stats_plain(aug3, *args, K, wbs, max_edges=7).numpy(),
             whole.numpy(), rtol=1e-12, atol=1e-12)
-    mb = tge.bias_table(m_o, b_o)
-    whole = tge.bias_tail_stats(mb, *args)
-    np.testing.assert_allclose(tge.bias_tail_stats_plain(mb, *args, max_edges=7),
+    mb_o, mb_s = tge.record_table(m_o, b_o), tge.record_table(m_s, b_s)
+    whole = tge.bias_tail_stats(mb_o, *args, K=K)
+    assert whole.shape == (N_ITEMS, K + 2)
+    np.testing.assert_allclose(tge.bias_tail_stats_plain(mb_o, *args, K=K, max_edges=7),
                                whole, rtol=1e-12, atol=1e-12)
-    whole = tge.diag_tail_stats(m_s, b_s, m_o, sq_o, b_o, *args)
-    np.testing.assert_allclose(tge.diag_tail_stats_plain(m_s, b_s, m_o, sq_o, b_o,
-                                                         *args, max_edges=7),
+    whole = tge.diag_tail_stats(mb_s, mb_o, sq_o, *args, K=K)
+    assert whole.shape == (N_ITEMS, 3 * K)
+    np.testing.assert_allclose(tge.diag_tail_stats_plain(mb_s, mb_o, sq_o, *args, K=K,
+                                                         max_edges=7),
                                whole, rtol=1e-12, atol=1e-12)
     assert (tge.FACTOR_LAUNCHES.count, tge.BIAS_LAUNCHES.count,
             tge.DIAG_LAUNCHES.count) == before

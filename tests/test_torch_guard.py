@@ -16,6 +16,7 @@ from pmf_tpu_torch.models import gaussian_mf, hpf_map, poisson_mf
 from pmf_tpu_torch.models.hpf import HPF, HPFConfig
 from pmf_tpu_torch.ops import (
     _build,
+    _tail,
     cavi_edge,
     dense_head,
     ext_edge,
@@ -289,9 +290,8 @@ GAUSSIAN_WRAPPERS = {
     "K5": (gaussian_edge, "bias_tail_stats", "BIAS_LAUNCHES",
            lambda: (_cuda_looking(torch.rand(5, 8)), *_csr(3, 5, 4))),  # K = 7
     "K6": (gaussian_edge, "diag_tail_stats", "DIAG_LAUNCHES",
-           lambda: (_cuda_looking(torch.rand(3, K)), _cuda_looking(torch.rand(3)),
-                    _cuda_looking(torch.rand(5, K)), _cuda_looking(torch.rand(5, K)),
-                    _cuda_looking(torch.rand(5)), *_csr(3, 5, 4))),
+           lambda: (_cuda_looking(torch.rand(3, 8)), _cuda_looking(torch.rand(5, 8)),
+                    _cuda_looking(torch.rand(5, K)), *_csr(3, 5, 4), K)),
     "K4": (gj_inverse, "batched_psd_inverse_gj", "GJ_LAUNCHES",
            lambda: (_cuda_looking(torch.eye(K).expand(6, K, K)),)),
 }
@@ -319,7 +319,6 @@ def test_gaussian_wrappers_reject_what_the_kernels_do_not_take():
         gaussian_edge.factor_tail_stats(
             _cuda_looking(torch.rand(5, gaussian_edge.factor_stride(K),
                                      dtype=torch.float64)), *csr, K)
-    b5, b3 = _cuda_looking(torch.rand(5)), _cuda_looking(torch.rand(3))
     with pytest.raises(ValueError, match="K <= 128"):
         gaussian_edge.bias_tail_stats(_cuda_looking(torch.rand(5, 132)), *csr)
     with pytest.raises(TypeError, match="x must be"):
@@ -329,18 +328,18 @@ def test_gaussian_wrappers_reject_what_the_kernels_do_not_take():
         gaussian_edge.bias_tail_stats(_cuda_looking(torch.rand(5, K + 1)), *csr, K=K)
     with pytest.raises(ValueError, match="K <= 128"):
         wide = _cuda_looking(torch.rand(5, 132))
-        gaussian_edge.diag_tail_stats(_cuda_looking(torch.rand(3, 132)), b3, wide, wide,
-                                      b5, *csr)
-    m4 = _cuda_looking(torch.rand(5, K))
-    with pytest.raises(TypeError, match="m_self"):
+        gaussian_edge.diag_tail_stats(_cuda_looking(torch.rand(3, 132)), wide, wide, *csr)
+    mb5, sq5 = _cuda_looking(torch.rand(5, 8)), _cuda_looking(torch.rand(5, K))
+    with pytest.raises(TypeError, match="mb_self"):
         gaussian_edge.diag_tail_stats(
-            _cuda_looking(torch.rand(3, K, dtype=torch.float64)), b3, m4, m4, b5, *csr)
-    with pytest.raises(ValueError, match="b_self must be"):
-        gaussian_edge.diag_tail_stats(_cuda_looking(torch.rand(3, K)), b5, m4, m4, b5,
-                                      *csr)
+            _cuda_looking(torch.rand(3, 8, dtype=torch.float64)), mb5, sq5, *csr, K=K)
+    with pytest.raises(ValueError, match=r"tail_stride\(K\) = 4"):
+        gaussian_edge.diag_tail_stats(_cuda_looking(torch.rand(3, 8)), mb5, mb5, *csr, K=K)
+    with pytest.raises(ValueError, match="mb_self rows"):
+        gaussian_edge.diag_tail_stats(mb5, mb5, sq5, *csr, K=K)
     with pytest.raises(ValueError, match="long_rows"):
-        gaussian_edge.diag_tail_stats(_cuda_looking(torch.rand(3, K)), b3, m4, m4, b5,
-                                      *csr, long_rows=4)
+        gaussian_edge.diag_tail_stats(_cuda_looking(torch.rand(3, 8)), mb5, sq5, *csr, K=K,
+                                      long_rows=4)
     with pytest.raises(ValueError, match="K <= 128"):
         gj_inverse.batched_psd_inverse_gj(_cuda_looking(torch.rand(2, 129, 129)))
     with pytest.raises(TypeError, match="float32"):
@@ -393,16 +392,16 @@ def test_ext_wrappers_reject_what_the_kernels_do_not_take(kernel):
 
 
 def _tail_call(kernel, es, eo, **kw):
-    """K1 ("K1", "K1raw"), K7, K5 (its [m | b] table ``eo``) or K6 (self
-    table ``es``, both other tables ``eo``) on CUDA-looking tables over a
-    4-edge tail."""
+    """K1 ("K1", "K1raw"), K7, K5 (its [m | b] table ``eo``) or K6 (the
+    [m | b] tables ``es`` and ``eo``) on CUDA-looking tables over a 4-edge
+    tail."""
     row_ptr, other, x = _csr(3, 5, 4)
-    b_self, b_other = _cuda_looking(torch.rand(3)), _cuda_looking(torch.rand(5))
     if kernel == "K5":
         return gaussian_edge.bias_tail_stats(eo, row_ptr, other, x, **kw)
-    if kernel == "K6":
-        return gaussian_edge.diag_tail_stats(es, b_self, eo, eo, b_other, row_ptr, other,
-                                             x, **kw)
+    if kernel == "K6":  # v + m^2 padded for the K named
+        K = kw.get("K")
+        sq = eo if K is None else _cuda_looking(torch.rand(5, _tail.tail_stride(K)))
+        return gaussian_edge.diag_tail_stats(es, eo, sq, row_ptr, other, x, **kw)
     if kernel == "K7":
         return ext_edge.ext_factor_tail(es, eo, _cuda_looking(torch.rand(5)), row_ptr,
                                         other, x, **kw)
@@ -414,8 +413,9 @@ def _tail_call(kernel, es, eo, **kw):
 @pytest.mark.parametrize("kernel", ["K1", "K1raw", "K7", "K5", "K6"])
 def test_tail_group_wrappers_take_only_padded_tables(monkeypatch, broken_build, kernel):
     """On the card K1, K7, K5 and K6 take only tables of tail_stride(K)
-    columns that start on 16 bytes, and 1 <= K <= 128: anything else raises
-    before the build, never pads quietly and never runs the plain version."""
+    columns (K5's and K6's [m | b] records tail_stride(K + 1)) that start on
+    16 bytes, and 1 <= K <= 128: anything else raises before the build,
+    never pads quietly and never runs the plain version."""
     module, plain = {"K7": (ext_edge, "ext_factor_tail_plain"),
                      "K5": (gaussian_edge, "bias_tail_stats_plain"),
                      "K6": (gaussian_edge, "diag_tail_stats_plain")}.get(

@@ -1,19 +1,21 @@
 """K5's and K6's row groups (modes kBias and kDiag of
 ``csrc/tail_groups.cuh``), on the CPU.
 
-The launch plan the two kernels take (``ops/_tail.py::launch_plan``):
-every factor held by exactly one (lane, word, component), and the entry
-points routed through the header's plan.  A numpy float32 emulation of a
-warp of K5 and K6 row groups as the kernel computes it (m_o, and K6's
-sq_o = v_o + m_o^2, in the lanes' float4 words; b_o read by every lane of
-the group; K6's dot by the in-group butterfly and its coefficient
+The launch plans the two kernels take (``ops/_tail.py::launch_plan``):
+every column of their [m | b] records held by exactly one (lane, word,
+component), and the entry points routed through the header's plans.  A
+numpy float32 emulation of a warp of K5 and K6 row groups as the kernel
+computes it (the [m | b] records, and K6's sq_o = v_o + m_o^2, in the
+lanes' float4 words; K6's b_o from the lane holding column K, b_s from the
+self record, its dot by the in-group butterfly and its coefficient
 ((x - b_s) - b_o) - dot; the batch loads and their broadcasts; edges past
 a row's end adding zeros; sums in edge order), and of a long row given a
 whole warp (contiguous shares met by a butterfly), against the float64
 plain version: per element at 1e-4 relative on positive data, where no
 sum cancels, and per column at 1e-4 of the column's largest magnitude on
 signed Gaussian data (the card's criterion for these signed sums).  The
-padded-table builders, the plain versions ignoring pad columns, and
+padded-table builders (``record_table``), the plain versions ignoring pad
+columns, and
 ``gaussian_bias_stats`` / ``gaussian_diag_stats`` on the padded tables
 against the JAX package's Pallas passes in interpret mode at the
 reference's precision-tier gate (1e-4 of the largest magnitude per
@@ -45,12 +47,12 @@ KERNELS = ["K5", "K6"]
 @pytest.mark.parametrize("kid", KERNELS)
 @pytest.mark.parametrize("K", PLAN_KS)
 def test_k5_k6_plan_covers_every_column_once(K, kid):
-    """Every column of the rows the kernel gathers (K5: the K + 1 of
-    [m | b]; K6: the K of m and of v + m^2) is held by exactly one (lane,
-    word, component)."""
+    """Every column of the [m | b] records the kernel gathers (K + 1;
+    K6's v + m^2 rows, K columns, in the same lanes' words) is held by
+    exactly one (lane, word, component)."""
     plan = _tail.launch_plan(K, kid)
     G, V, W = plan["lanes"], plan["vec"], plan["words"]
-    cols = K + 1 if kid == "K5" else K
+    cols = K + 1
     assert plan["stride"] == _tail.tail_stride(cols) == 4 * W
     assert G in (1, 2, 4, 8, 16, 32) and plan["rows_per_warp"] * G == 32
     assert G * V < 2 * W or G * V == 1  # the power of two at or above W
@@ -63,10 +65,10 @@ def test_k5_k6_plan_covers_every_column_once(K, kid):
 
 def test_k5_k6_plans_mirror_the_kernel_source():
     """The entry points launch modes kBias and kDiag through
-    ``tail_groups::launch``; K6's own constants (one word a lane up to
-    kDiagOneWord words, kDiagInFlight edges in flight) and K5's K + 1
-    columns equal ``launch_plan``'s; every plan of K5 and K6 is among the
-    built instances."""
+    ``tail_groups::launch``; the record kernels' constants (one word a lane
+    up to kRecordOneWord words, K6's kDiagInFlight edges in flight) and
+    their K + 1 columns equal ``launch_plan``'s; every plan of K5 and K6 is
+    among the built instances."""
     src = (_build.SRC_DIR / "gaussian_edge.cu").read_text()
     hdr = (_build.SRC_DIR / "tail_groups.cuh").read_text()
     for entry, mode in (("pmf_gauss_bias", "kBias"), ("pmf_gauss_diag", "kDiag")):
@@ -77,9 +79,11 @@ def test_k5_k6_plans_mirror_the_kernel_source():
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", hdr).group(1))
 
-    assert const("kDiagOneWord") == _tail.DIAG_ONE_WORD
+    assert const("kRecordOneWord") == _tail.RECORD_ONE_WORD
     assert const("kDiagInFlight") == _tail.DIAG_IN_FLIGHT
-    assert "return mode == kBias" in hdr and "? K + 1 : K;" in hdr  # columns()
+    assert "return mode == kBias || mode == kDiag;" in hdr  # is_record()
+    assert "return is_record(mode) ? K + 1 : K;" in hdr  # columns()
+    assert _tail.RECORD_KERNELS == tuple(KERNELS)
     assert re.search(r"mode == kBias \? K \+ 2 :", hdr)
     built = set(re.findall(r"PMF_TAIL_PLAN\((\d+), (\d+)\)\n", hdr))
     for kid in KERNELS:
@@ -113,10 +117,12 @@ def _group_sums(kid, K, self_row, tabs, edges, span):
     f32 = np.float32
     lane_w = np.array([[v * G + gl for v in range(V)] for gl in range(G)])
     valid = lane_w < W
-    m_o, sq_o, b_o = tabs  # K5: m_o is the [m | b] record table
-    m_s, b_s = self_row
+    mb_o, sq_o = tabs  # the [m | b] records, and K6's v + m^2 rows
+    Wq = -(-K // 4)  # words of a v + m^2 row
+    valid_q = lane_w < Wq
     es = np.zeros(4 * W, f32)
-    es[:K] = m_s[:K]  # the kernel zeroes the self row's pad columns
+    es[:K] = self_row[:K]  # the kernel zeroes the self row's b and pad columns
+    b_s = f32(self_row[K])
     es = _words(es[None], 0, lane_w, valid)
     acc_a, acc_o, acc_c = (np.zeros((G, V, 4), f32) for _ in range(3))
     acc_x = f32(0)
@@ -127,14 +133,15 @@ def _group_sums(kid, K, self_row, tabs, edges, span):
             o, xv = loaded[(e % G, e // G)]
             ok = base + e < len(edges)
             zero = np.zeros((G, V, 4), f32)
-            eo = _words(m_o, o, lane_w, valid) if ok else zero
+            eo = _words(mb_o, o, lane_w, valid) if ok else zero
             xv = f32(xv if ok else 0.0)
             if kid == "K5":
                 acc_o += eo
                 acc_x += xv
                 continue
-            sv = f32(b_o[o] if ok else 0.0)
-            sq = _words(sq_o, o, lane_w, valid) if ok else zero
+            # b_o: column K, from the lane holding word K // 4
+            sv = eo[(K // 4) % G, (K // 4) // G, K % 4]
+            sq = _words(sq_o, o, lane_w, valid_q) if ok else zero
             p = es * eo
             part = np.zeros(G, f32)
             for v in range(V):
@@ -145,7 +152,7 @@ def _group_sums(kid, K, self_row, tabs, edges, span):
                 part = part + part[np.arange(G) ^ off]
                 off //= 2
             assert np.all(part == part[0])  # every lane holds one dot
-            coef = ((xv - f32(b_s)) - sv) - part[0]
+            coef = ((xv - b_s) - sv) - part[0]
             acc_a += coef * eo
             acc_o += sq
             acc_c += eo * eo
@@ -157,17 +164,16 @@ def _row_out(kid, K, sums):
     K6."""
     acc_a, acc_o, acc_c, acc_x = sums
     G, V, _ = acc_a.shape
-    cols = K + 1 if kid == "K5" else K
-    W = -(-cols // 4)
+    W = -(-(K + 1) // 4)
     out = np.zeros(K + 2 if kid == "K5" else 3 * K, np.float32)
     for gl in range(G):
         for v in range(V):
             for j in range(4):
                 k = 4 * (v * G + gl) + j
-                if v * G + gl < W and k < cols:
+                if v * G + gl < W and k < K + 1:
                     if kid == "K5":
                         out[k] = acc_o[gl, v, j]  # [sum m | sum b]
-                    else:
+                    elif k < K:
                         out[k], out[K + k], out[2 * K + k] = (
                             acc_a[gl, v, j], acc_o[gl, v, j], acc_c[gl, v, j])
     if kid == "K5":
@@ -216,12 +222,14 @@ def _case(kid, K, signed, seed):
         b_s, b_o = (rng.uniform(0, 0.25, n) for n in (n_rows, n_other))
         rows = [[(o, x + 1.0) for o, x in r] for r in rows]
     sq_o = rng.uniform(0.1, 0.6, (n_other, K)) + m_o * m_o
-    pad = lambda a: np.pad(a, ((0, 0), (0, S - K))).astype(np.float32)  # noqa: E731
-    m_s, m_o, sq_o = pad(m_s), pad(m_o), pad(sq_o)
-    b_s, b_o = b_s.astype(np.float32), b_o.astype(np.float32)
-    mb_o = ge.bias_table(torch.from_numpy(m_o[:, :K]), torch.from_numpy(b_o)).numpy()
-    tabs = (mb_o if kid == "K5" else m_o, sq_o, b_o)
-    selfs = list(zip(m_s, b_s))
+    sq_o = np.pad(sq_o, ((0, 0), (0, S - K))).astype(np.float32)
+
+    def records(m, b):
+        return ge.record_table(torch.from_numpy(m.astype(np.float32)),
+                               torch.from_numpy(b.astype(np.float32))).numpy()
+
+    mb_s, mb_o = records(m_s, b_s), records(m_o, b_o)
+    tabs, selfs = (mb_o, sq_o), list(mb_s)
     rpw = plan["rows_per_warp"]
     got = np.concatenate([_emulate_warp(kid, K, selfs[w0:w0 + rpw], tabs,
                                         rows[w0:w0 + rpw])
@@ -235,8 +243,7 @@ def _case(kid, K, signed, seed):
     if kid == "K5":
         ref = ge.bias_tail_stats_plain(t64(mb_o), *csr, K=K)
     else:
-        ref = ge.diag_tail_stats_plain(t64(m_s), t64(b_s), t64(m_o), t64(sq_o),
-                                       t64(b_o), *csr, K=K)
+        ref = ge.diag_tail_stats_plain(t64(mb_s), t64(mb_o), t64(sq_o), *csr, K=K)
     empty = [i for i, r in enumerate(rows) if not r]
     assert np.all(got[empty] == 0) and np.all(split[empty] == 0)
     return got, split, ref.numpy()
@@ -285,15 +292,17 @@ def test_plain_versions_ignore_pad_columns(small_ratings, K):
     want = ge.bias_tail_stats(mb, *csr)
     got = ge.bias_tail_stats(_nan_padded(mb, _tail.tail_stride(K + 1) + 4), *csr, K=K)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    padded = ge.bias_table(m_o, b_o)
+    padded = ge.record_table(m_o, b_o)
     assert padded.shape == (80, _tail.tail_stride(K + 1)) and padded.data_ptr() % 16 == 0
     assert torch.all(padded[:, K + 1 :] == 0)
     torch.testing.assert_close(ge.bias_tail_stats(padded, *csr, K=K), want, rtol=0, atol=0)
     rows = torch.tensor([4, 0, 79, 79, 2])
-    torch.testing.assert_close(ge.bias_table(m_o, b_o, rows), padded[rows], rtol=0, atol=0)
-    want = ge.diag_tail_stats(m_s, b_s, m_o, sq_o, b_o, *csr)
-    got = ge.diag_tail_stats(_nan_padded(m_s, S), b_s, _nan_padded(m_o, S),
-                             _nan_padded(sq_o, S), b_o, *csr, K=K)
+    torch.testing.assert_close(ge.record_table(m_o, b_o, rows), padded[rows], rtol=0, atol=0)
+    mb_s = torch.cat([m_s, b_s[:, None]], dim=1)
+    S1 = _tail.tail_stride(K + 1) + 4
+    want = ge.diag_tail_stats(mb_s, mb, sq_o, *csr)
+    got = ge.diag_tail_stats(_nan_padded(mb_s, S1), _nan_padded(mb, S1),
+                             _nan_padded(sq_o, S), *csr, K=K)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
@@ -370,8 +379,9 @@ def test_diag_stats_on_padded_tables_match_jax(small_ratings, monkeypatch, K, he
         for n, (g, r) in enumerate(zip(got, ref)):
             assert g.shape == r.shape
             _assert_tier_gate(g.numpy(), r, f"{side} stat {n}")
-    S = _tail.tail_stride(K)
-    assert seen == [([S] * 3, K, tb.by_user.long_rows), ([S] * 3, K, tb.by_item.long_rows)]
+    S, S1 = _tail.tail_stride(K), _tail.tail_stride(K + 1)
+    assert seen == [([S1, S1, S], K, tb.by_user.long_rows),
+                    ([S1, S1, S], K, tb.by_item.long_rows)]
 
 
 def test_diag_table_builder_leaves_the_inputs_alone(small_ratings):
