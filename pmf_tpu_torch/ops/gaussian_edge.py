@@ -160,20 +160,12 @@ def factor_tail_stats(aug, row_ptr, other, x, K: int,
 
 def record_table(m, b, rows=None) -> torch.Tensor:
     """The [m | b | 0 pad] records K5 and K6 gather, ``tail_stride(K + 1)``
-    columns, of rows ``rows`` of the inputs (all when None), gathered
-    straight into the padded table: one copy, where joining and permuting
-    took two."""
+    columns, of rows ``rows`` of the inputs (all when None): joined by one
+    cat and permuted by one contiguous gather."""
     K = m.shape[1]
-    n = m.shape[0] if rows is None else rows.shape[0]
-    out = m.new_empty((n, _tail_stride(K + 1)))
-    if rows is None:
-        out[:, :K] = m
-        out[:, K] = b
-    else:
-        torch.index_select(m, 0, rows, out=out[:, :K])
-        out[:, K] = b.index_select(0, rows)
-    out[:, K + 1 :] = 0
-    return out
+    pad = m.new_zeros((1, _tail_stride(K + 1) - K - 1)).expand(m.shape[0], -1)
+    tab = torch.cat([m, b[:, None].to(m.dtype), pad], dim=1)
+    return tab if rows is None else tab.index_select(0, rows)
 
 
 def bias_tail_stats_plain(mb_other, row_ptr, other, x, K: int | None = None,
@@ -350,9 +342,9 @@ def gaussian_bias_stats(m_self, m_other, b_other, p: TailCSR, head=None,
     """s (n_self,): per-row sums of bias residuals
     sum (x - b_o - <m_s, m_o>), assembled from the pass-through sums
     [sum m_o | sum b_o | sum x] (K5 on the tail, linear products on the
-    head).  K5 reads [m_other | b_other] gathered into new space straight
-    into a table of ``tail_stride(K + 1)`` columns (``record_table``); the
-    head products see its K + 1 real columns only."""
+    head).  K5 reads [m_other | b_other] permuted into new space as a table
+    of ``tail_stride(K + 1)`` columns (``record_table``); the head products
+    see its K + 1 real columns only."""
     K = m_self.shape[1]
     heads = _check_head(p, head)
     mb = record_table(m_other, b_other, p.other_old_of_new if p.reordered else None)
@@ -395,8 +387,9 @@ def gaussian_diag_stats(m_other, v_other, m_self, b_self, b_other, p: TailCSR,
     factor block: S_mr = sum m_o (resid - <m_s, m_o>) with resid =
     x [- b_s - b_o], S_sq = sum (v_o + m_o^2), S_mm = sum m_o^2.  K6 reads
     the [m | b] records of both sides (``record_table``) and sq_other =
-    v_other + m_other^2, each gathered into new space straight into its
-    padded table; the head products see the real columns only."""
+    v_other + m_other^2 (``tail_stride(K)`` columns), each permuted into
+    new space as its padded table; the head products see the real columns
+    only."""
     K = m_other.shape[1]
     heads = _check_head(p, head)
     if not use_bias:
@@ -404,12 +397,7 @@ def gaussian_diag_stats(m_other, v_other, m_self, b_self, b_other, p: TailCSR,
     rows_s = p.self_old_of_new if p.reordered else None
     rows_o = p.other_old_of_new if p.reordered else None
     mb_s, mb_o = record_table(m_self, b_self, rows_s), record_table(m_other, b_other, rows_o)
-    if rows_o is None:  # padded_rows may hand back v_other itself
-        sq_o = _padded_rows(torch.addcmul(v_other, m_other, m_other))
-    else:  # a fresh table: add m^2 in place, pad columns stay 0
-        m_o = mb_o[:, :K]
-        sq_o = _padded_rows(v_other, rows_o)
-        sq_o[:, :K].addcmul_(m_o, m_o)
+    sq_o = _padded_rows(torch.addcmul(v_other, m_other, m_other), rows_o)
     out = diag_tail_stats(mb_s, mb_o, sq_o, p.row_ptr, p.other, p.x, K=K,
                           long_rows=p.long_rows)
     out = _add_heads(out, [_diag_head_out(t, mb_o[:, :K], sq_o[:, :K], mb_o[:, K],
