@@ -2017,6 +2017,8 @@ def _tail_phase(kid, blocked, n_flops_per_edge, library=None, no_library=""):
             f"bits | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms{lib} | bound "
             f"{b_ms:.4f} ms ({b_by})")
         _tail_notes(kid, name, tabs, p, K, ms, got.nbytes)
+        if kid == "K5":  # the other side's [m | b] table, scattered or gathered
+            _log_permutation(name, p)
         res["ms"] += ms
         res["plain_ms"] += plain_ms
         res["max_abs_err"] = max(res["max_abs_err"], abs_err)
@@ -2028,6 +2030,22 @@ def _tail_phase(kid, blocked, n_flops_per_edge, library=None, no_library=""):
         f"({res['bound_by']})" + (f", library {res['library_ms']:.4f} ms"
                                   if library else ""))
     return res
+
+
+def _log_permutation(name, p):
+    """Log the time of building an [m | b] record table into new space by
+    scattering with ``other_new_of_old`` (as the frames do) and by
+    gathering with ``other_old_of_new``."""
+    import torch
+
+    from pmf_tpu_torch.ops.gaussian_edge import record_table
+
+    m = torch.rand(p.n_other, K, device="cuda")
+    b = torch.rand(p.n_other, device="cuda")
+    scatter_ms = cuda_ms(lambda: record_table(m, b, p.other_new_of_old))
+    gather_ms = cuda_ms(lambda: record_table(m, b)[p.other_old_of_new])
+    log(f"  K5 {name} record table of {p.n_other} rows into new space: scattered "
+        f"{scatter_ms:.4f} ms, gathered {gather_ms:.4f} ms")
 
 
 def _k3_table(m, V, b, k=K):

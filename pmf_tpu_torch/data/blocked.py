@@ -29,8 +29,9 @@ from pmf_tpu_torch.utils.device import resolve_device
 @dataclasses.dataclass(frozen=True)
 class TailCSR:
     """One direction of the sparse tail, with the permutations its pass
-    needs: tables are permuted into new space with ``*_old_of_new`` and
-    statistics mapped back with ``self_new_of_old``."""
+    needs: tables are permuted into new space by gathering with
+    ``*_old_of_new`` or scattering with ``*_new_of_old``, and statistics
+    mapped back with ``self_new_of_old``."""
 
     row_ptr: torch.Tensor  # (n_self + 1,) int64
     other: torch.Tensor  # (nnz,) int32, new-space other ids
@@ -38,6 +39,7 @@ class TailCSR:
     self_old_of_new: torch.Tensor  # (n_self,) int64
     other_old_of_new: torch.Tensor  # (n_other,) int64
     self_new_of_old: torch.Tensor  # (n_self,) int64
+    other_new_of_old: torch.Tensor  # (n_other,) int64
     n_self: int
     n_other: int
     nnz: int
@@ -232,7 +234,7 @@ def _tail_csr(s: np.ndarray, o: np.ndarray, x: np.ndarray, n_self: int,
     counts = np.bincount(s, minlength=n_self)
     row_ptr = np.zeros(n_self + 1, dtype=np.int64)
     np.cumsum(counts, out=row_ptr[1:])
-    self_old_of_new, other_old_of_new, self_new_of_old = (
+    self_old_of_new, other_old_of_new, self_new_of_old, other_new_of_old = (
         torch.from_numpy(np.asarray(p, np.int64)).to(device) for p in perms)
     return TailCSR(
         row_ptr=torch.from_numpy(row_ptr).to(device),
@@ -241,6 +243,7 @@ def _tail_csr(s: np.ndarray, o: np.ndarray, x: np.ndarray, n_self: int,
         self_old_of_new=self_old_of_new,
         other_old_of_new=other_old_of_new,
         self_new_of_old=self_new_of_old,
+        other_new_of_old=other_new_of_old,
         n_self=int(n_self),
         n_other=int(n_other),
         nnz=int(len(s)),
@@ -340,10 +343,12 @@ def build_blocked(
     else:
         tu, ti, tx = nu, ni, x
     by_user = _tail_csr(tu, ti, tx, n_users, n_items,
-                        (user_old_of_new, item_old_of_new, user_new_of_old),
+                        (user_old_of_new, item_old_of_new, user_new_of_old,
+                         item_new_of_old),
                         reorder, dtype, device)
     by_item = _tail_csr(ti, tu, tx, n_items, n_users,
-                        (item_old_of_new, user_old_of_new, item_new_of_old),
+                        (item_old_of_new, user_old_of_new, item_new_of_old,
+                         user_new_of_old),
                         reorder, dtype, device)
     return BlockedCOO(by_user=by_user, by_item=by_item,
                       head=tuple(heads) if heads else None)

@@ -82,6 +82,16 @@ def padded_rows(tab: torch.Tensor, rows: torch.Tensor | None = None) -> torch.Te
     return out
 
 
+def scattered_rows(tab: torch.Tensor, new_of_old: torch.Tensor) -> torch.Tensor:
+    """``tab`` permuted into new space by scattering each row to its new
+    place (one ``index_put_``).  On the card a gather of narrow rows whose
+    width is a multiple of 16 bytes (``tab[old_of_new]``) takes PyTorch's
+    one-block-a-row kernel, several times slower (PERF.md, PR 9)."""
+    out = torch.empty_like(tab)
+    out[new_of_old] = tab
+    return out
+
+
 def tail_tables(e_self: torch.Tensor, e_other: torch.Tensor, p: TailCSR):
     """A pass's self and other tables in new space, padded for the
     row-group kernels."""

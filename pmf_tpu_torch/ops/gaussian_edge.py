@@ -41,6 +41,7 @@ from pmf_tpu_torch.ops._tail import (
     padded_rows as _padded_rows,
     products as _products,
     row_chunks as _row_chunks,
+    scattered_rows as _scattered_rows,
     tail_stride as _tail_stride,
 )
 
@@ -158,14 +159,14 @@ def factor_tail_stats(aug, row_ptr, other, x, K: int,
 
 # ------------------------------------------------------------------ K5 --
 
-def record_table(m, b, rows=None) -> torch.Tensor:
+def record_table(m, b, new_of_old=None) -> torch.Tensor:
     """The [m | b | 0 pad] records K5 and K6 gather, ``tail_stride(K + 1)``
-    columns, of rows ``rows`` of the inputs (all when None): joined by one
-    cat and permuted by one contiguous gather."""
+    columns: joined by one cat and, with ``new_of_old``, permuted into new
+    space by one scatter (``_tail.scattered_rows``)."""
     K = m.shape[1]
     pad = m.new_zeros((1, _tail_stride(K + 1) - K - 1)).expand(m.shape[0], -1)
     tab = torch.cat([m, b[:, None].to(m.dtype), pad], dim=1)
-    return tab if rows is None else tab.index_select(0, rows)
+    return tab if new_of_old is None else _scattered_rows(tab, new_of_old)
 
 
 def bias_tail_stats_plain(mb_other, row_ptr, other, x, K: int | None = None,
@@ -342,12 +343,12 @@ def gaussian_bias_stats(m_self, m_other, b_other, p: TailCSR, head=None,
     """s (n_self,): per-row sums of bias residuals
     sum (x - b_o - <m_s, m_o>), assembled from the pass-through sums
     [sum m_o | sum b_o | sum x] (K5 on the tail, linear products on the
-    head).  K5 reads [m_other | b_other] permuted into new space as a table
-    of ``tail_stride(K + 1)`` columns (``record_table``); the head products
-    see its K + 1 real columns only."""
+    head).  K5 reads [m_other | b_other] scattered into new space as a
+    table of ``tail_stride(K + 1)`` columns (``record_table``); the head
+    products see its K + 1 real columns only."""
     K = m_self.shape[1]
     heads = _check_head(p, head)
-    mb = record_table(m_other, b_other, p.other_old_of_new if p.reordered else None)
+    mb = record_table(m_other, b_other, p.other_new_of_old if p.reordered else None)
     out = bias_tail_stats(mb, p.row_ptr, p.other, p.x, K=K, long_rows=p.long_rows)
     head_outs = []
     for tier in heads:
@@ -387,17 +388,18 @@ def gaussian_diag_stats(m_other, v_other, m_self, b_self, b_other, p: TailCSR,
     factor block: S_mr = sum m_o (resid - <m_s, m_o>) with resid =
     x [- b_s - b_o], S_sq = sum (v_o + m_o^2), S_mm = sum m_o^2.  K6 reads
     the [m | b] records of both sides (``record_table``) and sq_other =
-    v_other + m_other^2 (``tail_stride(K)`` columns), each permuted into
+    v_other + m_other^2 (``tail_stride(K)`` columns), each scattered into
     new space as its padded table; the head products see the real columns
     only."""
     K = m_other.shape[1]
     heads = _check_head(p, head)
     if not use_bias:
         b_self, b_other = b_self.new_zeros(b_self.shape), b_other.new_zeros(b_other.shape)
-    rows_s = p.self_old_of_new if p.reordered else None
-    rows_o = p.other_old_of_new if p.reordered else None
-    mb_s, mb_o = record_table(m_self, b_self, rows_s), record_table(m_other, b_other, rows_o)
-    sq_o = _padded_rows(torch.addcmul(v_other, m_other, m_other), rows_o)
+    mb_s = record_table(m_self, b_self, p.self_new_of_old if p.reordered else None)
+    mb_o = record_table(m_other, b_other, p.other_new_of_old if p.reordered else None)
+    sq_o = _padded_rows(torch.addcmul(v_other, m_other, m_other))
+    if p.reordered:
+        sq_o = _scattered_rows(sq_o, p.other_new_of_old)
     out = diag_tail_stats(mb_s, mb_o, sq_o, p.row_ptr, p.other, p.x, K=K,
                           long_rows=p.long_rows)
     out = _add_heads(out, [_diag_head_out(t, mb_o[:, :K], sq_o[:, :K], mb_o[:, K],

@@ -296,8 +296,11 @@ def test_plain_versions_ignore_pad_columns(small_ratings, K):
     assert padded.shape == (80, _tail.tail_stride(K + 1)) and padded.data_ptr() % 16 == 0
     assert torch.all(padded[:, K + 1 :] == 0)
     torch.testing.assert_close(ge.bias_tail_stats(padded, *csr, K=K), want, rtol=0, atol=0)
-    rows = torch.tensor([4, 0, 79, 79, 2])
-    torch.testing.assert_close(ge.record_table(m_o, b_o, rows), padded[rows], rtol=0, atol=0)
+    old_of_new = torch.from_numpy(rng.permutation(80))
+    new_of_old = torch.empty_like(old_of_new)
+    new_of_old[old_of_new] = torch.arange(80)
+    torch.testing.assert_close(ge.record_table(m_o, b_o, new_of_old), padded[old_of_new],
+                               rtol=0, atol=0)
     mb_s = torch.cat([m_s, b_s[:, None]], dim=1)
     S1 = _tail.tail_stride(K + 1) + 4
     want = ge.diag_tail_stats(mb_s, mb, sq_o, *csr)
@@ -382,6 +385,21 @@ def test_diag_stats_on_padded_tables_match_jax(small_ratings, monkeypatch, K, he
     S, S1 = _tail.tail_stride(K), _tail.tail_stride(K + 1)
     assert seen == [([S1, S1, S], K, tb.by_user.long_rows),
                     ([S1, S1, S], K, tb.by_item.long_rows)]
+
+
+def test_layout_holds_both_inverse_permutations(small_ratings):
+    """``other_new_of_old`` inverts ``other_old_of_new`` (the K5 and K6
+    tables are scattered with it), and equals the other pass's
+    ``self_new_of_old``."""
+    u, i, x = small_ratings
+    tb = t_build_blocked(u, i, x, n_users=120, n_items=80, reorder=True, device="cpu")
+    for p, q in ((tb.by_user, tb.by_item), (tb.by_item, tb.by_user)):
+        n = p.n_other
+        assert torch.equal(p.other_new_of_old[p.other_old_of_new], torch.arange(n))
+        assert torch.equal(p.other_new_of_old, q.self_new_of_old)
+        tab = torch.rand(n, 8)
+        torch.testing.assert_close(_tail.scattered_rows(tab, p.other_new_of_old),
+                                   tab[p.other_old_of_new], rtol=0, atol=0)
 
 
 def test_diag_table_builder_leaves_the_inputs_alone(small_ratings):
