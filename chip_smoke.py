@@ -65,7 +65,8 @@ Those are freed, then the Gaussian-MF CAVI path:
                 K5's pass-through bulk.  K3's bytes reckoned three ways
                 (per-edge gather, table once, and banded: the table in
                 bands of other rows sized to L2); K5's and K6's per-edge
-                sectors and their long rows' time alone.
+                sectors and their long rows' time alone; K5's record
+                table built into new space by scatter and by gather.
 11. ghead    -- the head tiers' linear products (library matmuls), timed.
 12. K4       -- the Gauss-Jordan inverse on the real theta/beta precision
                 matrices vs its plain version and float64 ``linalg.inv``,

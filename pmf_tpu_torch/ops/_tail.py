@@ -86,7 +86,8 @@ def scattered_rows(tab: torch.Tensor, new_of_old: torch.Tensor) -> torch.Tensor:
     """``tab`` permuted into new space by scattering each row to its new
     place (one ``index_put_``).  On the card a gather of narrow rows whose
     width is a multiple of 16 bytes (``tab[old_of_new]``) takes PyTorch's
-    one-block-a-row kernel, several times slower (PERF.md, PR 9)."""
+    one-block-a-row kernel, several times slower (PERF.md, the K5 and K6
+    findings)."""
     out = torch.empty_like(tab)
     out[new_of_old] = tab
     return out
