@@ -258,12 +258,36 @@ def _ptxas_report(text: str) -> list:
     return out
 
 
+# With ``--parent DIR`` (a checkout of another commit, e.g. by git archive
+# into a git-ignored directory): that tree's build module, whose kernels
+# build into DIR's own _build/, and a launch counter of its own.  Phase K8
+# then times that tree's K8 in turns beside this one's.
+PARENT: dict = {}
+
+
+def _load_parent(parent_dir):
+    import importlib.util
+
+    path = os.path.join(os.path.abspath(parent_dir), "pmf_tpu_torch", "ops", "_build.py")
+    spec = importlib.util.spec_from_file_location("parent_build", path)
+    build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(build)
+    PARENT.update(dir=parent_dir, build=build, launches=build.LaunchCounter())
+
+
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from pmf_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    path = _build.build()
-    secs = time.perf_counter() - t0
+    with ThreadPoolExecutor(2) as pool:  # the parent's nvcc processes alongside
+        parent = pool.submit(PARENT["build"].build) if PARENT else None
+        path = _build.build()
+        secs = time.perf_counter() - t0
+        if parent:
+            log(f"  parent {PARENT['dir']}: {parent.result().name} built "
+                f"{time.perf_counter() - t0:.1f}s")
     _build.load_library()
     log_path = str(path) + ".log"
     report = _ptxas_report(open(log_path).read()) if os.path.exists(log_path) else []
@@ -345,6 +369,7 @@ def phase_k1(blocked):
             f"{rel_err:.3e} (tol {RTOL}) | kernel {ms:.4f} ms | plain "
             f"{plain_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
         _tail_notes("K1", name, (es, eo), p, K, ms, got.nbytes)
+        _log_tail_tables("K1", name, p)
         if not rel_err <= RTOL:
             raise AssertionError(f"K1 {name}: relative error {rel_err} > {RTOL}")
         res["ms"] += ms
@@ -588,7 +613,8 @@ def _bigk_poisson_tail(blocked, k):
     for p in (blocked.by_user, blocked.by_item):
         es, es_new, eo, so = (_pos(gen, p.n_self, k), _pos(gen, p.n_self, k),
                               _pos(gen, p.n_other, k), _pos(gen, p.n_other))
-        es_p, eo_p = padded_rows(es), padded_rows(eo)  # K1's and K7's tables
+        # K1's, K7's and K8's tables
+        es_p, esn_p, eo_p = padded_rows(es), padded_rows(es_new), padded_rows(eo)
         csr = (p.row_ptr, p.other)
         for name, kern, plain, args in (
                 ("K1", lambda *a: ce.tail_edge_stats(*a, K=k, long_rows=p.long_rows),
@@ -601,8 +627,9 @@ def _bigk_poisson_tail(blocked, k):
                 ("K7", lambda *a: ee.ext_factor_tail(*a, K=k, long_rows=p.long_rows),
                  lambda *a: ee.ext_factor_tail_plain(*a, K=k),
                  (es_p, eo_p, so, *csr, p.x)),
-                ("K8", ee.ext_scalar_tail, ee.ext_scalar_tail_plain,
-                 (es_new, eo, so, *csr))):
+                ("K8", lambda *a: ee.ext_scalar_tail(*a, K=k, long_rows=p.long_rows),
+                 lambda *a: ee.ext_scalar_tail_plain(*a, K=k),
+                 (esn_p, eo_p, so, *csr))):
             got, ref = kern(*args), plain(*args)
             _, rel = compare(got, ref)
             if got.shape != ref.shape or not rel <= RTOL:
@@ -611,29 +638,36 @@ def _bigk_poisson_tail(blocked, k):
     return worst
 
 
-# ------------------------------------- row groups: K1, K7, K5 and K6 --
+# --------------------------------- row groups: K1, K7, K5, K6 and K8 --
 
-TAIL_KERNELS = ("K1", "K1raw", "K7", "K5", "K6")
+TAIL_KERNELS = ("K1", "K1raw", "K7", "K5", "K6", "K8", "K7rec", "K8rec")
 GAUSS_TAIL = ("K5", "K6")  # signed sums: held per column (COL_RTOL)
 # Positions of the self-row tables in a kernel's tables (cut to the long
 # rows in _tail_notes).
-SELF_TABS = {"K1": (0,), "K1raw": (0,), "K7": (0,), "K5": (), "K6": (0,)}
+SELF_TABS = {"K1": (0,), "K1raw": (0,), "K7": (0,), "K5": (), "K6": (0,), "K8": (0,),
+             "K7rec": (0,), "K8rec": (0,)}
 
 
 def _tail_tabs(kid, n_self, n_other, k, seed):
     """A kernel's tables in the wrapper's order, padded as the kernel takes
-    them: positive (e_self, e_other[, s_other]) for K1 and K7;
+    them: positive (e_self, e_other[, s_other]) for K1, K7 and K8, (e_self,
+    [e_other | s_other]) for the record forms K7rec and K8rec;
     Gaussian-state ([m_other | b_other],) for K5, ([m_self | b_self],
     [m_other | b_other], sq_other) for K6, sq = v + m^2."""
     import torch
 
     from pmf_tpu_torch.ops._tail import padded_rows
+    from pmf_tpu_torch.ops.ext_edge import es_record
     from pmf_tpu_torch.ops.gaussian_edge import record_table
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     if kid not in GAUSS_TAIL:
-        es, eo = padded_rows(_pos(gen, n_self, k)), padded_rows(_pos(gen, n_other, k))
-        return (es, eo, _pos(gen, n_other)) if kid == "K7" else (es, eo)
+        es, eo = padded_rows(_pos(gen, n_self, k)), _pos(gen, n_other, k)
+        if kid in ("K7", "K8"):
+            return es, padded_rows(eo), _pos(gen, n_other)
+        if kid in ("K7rec", "K8rec"):
+            return es, es_record(eo, _pos(gen, n_other))
+        return es, padded_rows(eo)
     m_s, m_o = (0.1 * torch.randn(n, k, generator=gen, device="cuda")
                 for n in (n_self, n_other))
     b_s, b_o = (0.1 * torch.randn(n, generator=gen, device="cuda")
@@ -644,8 +678,8 @@ def _tail_tabs(kid, n_self, n_other, k, seed):
 
 
 def _tail_kernel(kid, tabs, p, k):
-    """The kept K1 ("K1", "K1raw"), K7, K5 or K6 wrapper on padded tables,
-    as the fits call it (``p.long_rows`` rows a warp each)."""
+    """The kept K1 ("K1", "K1raw"), K7, K5, K6 or K8 wrapper on padded
+    tables, as the fits call it (``p.long_rows`` rows a warp each)."""
     from pmf_tpu_torch.ops import cavi_edge as ce
     from pmf_tpu_torch.ops import ext_edge as ee
     from pmf_tpu_torch.ops import gaussian_edge as ge
@@ -653,6 +687,11 @@ def _tail_kernel(kid, tabs, p, k):
     kw = dict(K=k, long_rows=p.long_rows)
     if kid == "K1raw":
         return ce.tail_edge_stats(*tabs, p.row_ptr, p.other, None, mode="raw", **kw)
+    if kid in ("K8", "K8rec"):
+        fn = ee.ext_scalar_tail if kid == "K8" else ee.ext_scalar_tail_rec
+        return fn(*tabs, p.row_ptr, p.other, **kw)
+    if kid == "K7rec":
+        return ee.ext_factor_tail_rec(*tabs, p.row_ptr, p.other, p.x, **kw)
     fn = {"K1": ce.tail_edge_stats, "K7": ee.ext_factor_tail,
           "K5": ge.bias_tail_stats, "K6": ge.diag_tail_stats}[kid]
     return fn(*tabs, p.row_ptr, p.other, p.x, **kw)
@@ -667,6 +706,14 @@ def _tail_plain(kid, tabs, p, k):
         raw = kid == "K1raw"
         return ce.tail_edge_stats_plain(*tabs, p.row_ptr, p.other, None if raw else p.x,
                                         mode="raw" if raw else "cavi", K=k)
+    if kid in ("K7rec", "K8rec"):  # s_o in column K of the record
+        tabs = (tabs[0], tabs[1], tabs[1][:, k].contiguous())
+    if kid in ("K8", "K8rec"):
+        return ee.ext_scalar_tail_plain(*tabs, p.row_ptr, p.other, max_edges=1 << 22,
+                                        K=k)
+    if kid == "K7rec":
+        return ee.ext_factor_tail_plain(*tabs, p.row_ptr, p.other, p.x,
+                                        max_edges=1 << 22, K=k)
     fn = {"K7": ee.ext_factor_tail_plain, "K5": ge.bias_tail_stats_plain,
           "K6": ge.diag_tail_stats_plain}[kid]
     return fn(*tabs, p.row_ptr, p.other, p.x, max_edges=1 << 22, K=k)
@@ -694,14 +741,16 @@ def _row_sectors(p, stride_floats, width_floats):
 def _tail_reckoning(kid, p, k, self_bytes, out_bytes):
     """Bytes of one tail pass if every gather came from HBM: each edge's id
     (and rating) once, the 32-byte sectors of its other row at
-    ``tail_stride`` of its columns (K5's and K6's [m | b] records, K + 1; K6
-    also its v + m^2 row, K), K7's sector for s_o, and the self table, row
-    pointers and output once."""
+    ``tail_stride`` of its columns (K5's and K6's [m | b] records and the
+    [e | s] records of K7rec and K8rec, K + 1; K6 also its v + m^2 row, K),
+    K7's and K8's sector for s_o, and the self table, row pointers and
+    output once."""
     from pmf_tpu_torch.ops._tail import columns, tail_stride
 
     S, Sq = tail_stride(columns(k, kid)), tail_stride(k)
     sectors = _row_sectors(p, S, S) + (_row_sectors(p, Sq, Sq) if kid == "K6" else 0)
-    per_edge = 4 + (0 if kid == "K1raw" else 4) + (32 if kid == "K7" else 0)
+    per_edge = (4 + (0 if kid in ("K1raw", "K8", "K8rec") else 4)
+                + (32 if kid in ("K7", "K8") else 0))
     return p.nnz * per_edge + 32 * sectors + self_bytes + p.row_ptr.nbytes + out_bytes
 
 
@@ -750,7 +799,8 @@ def _tail_geometry_ks():
 
 
 def phase_k17small(blocked, gblocked):
-    """K1 (both modes), K7, K5 and K6 against their plain versions at every
+    """K1 (both modes), K7, K5, K6 and K8 (K7 and K8 in both record forms)
+    against their plain versions at every
     K where a row-group plan changes, both directions of a small tail (with
     rows long enough for a warp each; the Gaussian ratings for K5 and K6),
     equal bits on a repeat."""
@@ -774,7 +824,7 @@ def phase_k17small(blocked, gblocked):
     torch.cuda.synchronize()
     log(f"phase k17small: ok | K in {ks} | worst error vs plain: "
         + ", ".join(f"{n} {v:.3e}" for n, v in worst.items())
-        + f" (K1, K1raw, K7 relative, tol {RTOL}; K5, K6 per column, tol {COL_RTOL}) "
+        + f" (K1, K1raw, K7, K8 relative, tol {RTOL}; K5, K6 per column, tol {COL_RTOL}) "
         "| repeats equal in bits")
 
 
@@ -984,7 +1034,6 @@ def phase_wide_poisson(blocked):
     and of K2 on the real tiers, both directions (CUDA events)."""
     import torch
 
-    from pmf_tpu_torch.ops import ext_edge as ee
     from pmf_tpu_torch.ops._tail import padded_rows
     from pmf_tpu_torch.ops.dense_head import fused_alloc_tier
 
@@ -995,9 +1044,11 @@ def phase_wide_poisson(blocked):
         es, eo, so = _pos(gen, p.n_self, k), _pos(gen, p.n_other, k), _pos(gen, p.n_other)
         es_p, eo_p = padded_rows(es), padded_rows(eo)
         for kid, tabs in (("K1", (es_p, eo_p)), ("K1raw", (es_p, eo_p)),
-                          ("K7", (es_p, eo_p, so))):
+                          ("K7", (es_p, eo_p, so)), ("K8", (es_p, eo_p, so))):
             ms[kid] += cuda_ms(lambda: _tail_kernel(kid, tabs, p, k))
-        ms["K8"] += cuda_ms(lambda: ee.ext_scalar_tail(es, eo, so, p.row_ptr, p.other))
+        if PARENT:
+            ms["K8 parent"] = ms.get("K8 parent", 0.0) + cuda_ms(
+                lambda: _parent_k8(es_p, eo_p, so, p, k))
     for h in blocked.head or ():
         theta = _pos(gen, h.hu, k)
         beta = torch.nn.functional.pad(_pos(gen, h.hi, k), (0, 0, 0, h.hip - h.hi))
@@ -1124,6 +1175,34 @@ K2_KERNELS = ("head_user_kernel", "head_item_kernel", "sum_partials_kernel",
 # (K1 "cavi"), 2 (K7), 3 (K5) or 4 (K6).
 K1_TRACE, K7_TRACE = "tail_group_kernel<0,", "tail_group_kernel<2,"
 K5_TRACE, K6_TRACE = "tail_group_kernel<3,", "tail_group_kernel<4,"
+# K8 (mode 5), and K7 and K8 in the record form (modes 6, 7)
+K8_TRACE, K7REC_TRACE, K8REC_TRACE = ("tail_group_kernel<5,", "tail_group_kernel<6,",
+                                      "tail_group_kernel<7,")
+GEMM_PARTS = ("gemm", "cutlass", "sm90_xmma", "nvjet")
+
+
+def trace_parts(rows, parts):
+    """Device ms of a trace's rows by part: ``parts`` maps a part's label
+    to the kernel-name pieces it takes; then "head products (gemm)" (the
+    library matmuls) and "other".  Also the matmuls' launches."""
+    groups = dict.fromkeys(list(parts) + ["head products (gemm)", "other"], 0.0)
+    gemm_launches = 0
+    for dev_ms, n, key in rows:
+        k = key.lower()
+        group = next((g for g, pieces in parts.items()
+                      if any(piece.lower() in k for piece in pieces)), None)
+        if group is None:
+            gemm = any(piece in k for piece in GEMM_PARTS)
+            group = "head products (gemm)" if gemm else "other"
+            gemm_launches += n if gemm else 0
+        groups[group] += dev_ms
+    return groups, gemm_launches
+
+
+def log_parts(groups, busy):
+    if busy > 0:
+        log("  by part: " + ", ".join(f"{k} {v:.4f} ms ({v / busy:.1%})"
+                                       for k, v in groups.items()))
 
 
 def phase_profile(model, train, smi):
@@ -1155,6 +1234,8 @@ def phase_profile(model, train, smi):
     log(f"phase profile: ok | one sweep: device busy {busy:.4f} ms of "
         f"{wall_ms:.4f} ms window (idle share {1 - busy / wall_ms:.1%}) | K2 "
         f"{k2_ms:.4f} ms ({k2_ms / busy:.1%} of busy)")
+    log_parts(trace_parts(rows, {"K2 head kernels": K2_KERNELS,
+                                 "K1 tail_group_kernel<0>": (K1_TRACE,)})[0], busy)
     for dev_ms, n, key in rows[:8]:
         log(f"  {dev_ms:9.4f} ms  {n:3d}x  {key[:90]}")
 
@@ -1178,62 +1259,128 @@ def _ext_tables(n_self, n_other, seed):
     return pos(n_self, K), pos(n_self, K), pos(n_other, K), pos(n_other)
 
 
+def _parent_k8(es_new, eo, so, p, k=K):
+    """The parent checkout's K8 (``--parent``) on unpadded tables: its
+    C entry point through its own build module."""
+    import torch
+
+    out = torch.empty((p.n_self,), device="cuda")
+    es_new, eo = es_new[:, :k].contiguous(), eo[:, :k].contiguous()
+    PARENT["build"].launch("pmf_ext_scalar", PARENT["launches"], es_new.device, es_new,
+                           eo, so, p.row_ptr, p.other, p.n_self, k, out)
+    return out
+
+
+def _log_tail_tables(kid, name, p):
+    """Log the time of building a pass's self and other tables of K
+    columns into new space, padded: gathered by ``*_old_of_new`` into the
+    padded rows, and scattered by ``*_new_of_old`` after one padding cat
+    (``_tail.tail_tables``)."""
+    import torch
+
+    from pmf_tpu_torch.ops._tail import padded_rows, tail_tables
+
+    es, eo = torch.rand(p.n_self, K, device="cuda"), torch.rand(p.n_other, K, device="cuda")
+    gathered = (padded_rows(es, p.self_old_of_new), padded_rows(eo, p.other_old_of_new))
+    if not all(torch.equal(a, b) for a, b in zip(gathered, tail_tables(es, eo, p))):
+        raise AssertionError(f"{kid} {name}: scattered tables differ from gathered ones")
+    gather_ms = cuda_ms(lambda: (padded_rows(es, p.self_old_of_new),
+                                 padded_rows(eo, p.other_old_of_new)))
+    scatter_ms = cuda_ms(lambda: tail_tables(es, eo, p))
+    log(f"  {kid} {name} tables of {p.n_self} + {p.n_other} rows into new space: "
+        f"gathered {gather_ms:.4f} ms, scattered {scatter_ms:.4f} ms (equal in bits)")
+
+
+# K7 and K8 in each form: (K7's id, K8's id); the record form reads one
+# [e | s] record a other row.
+EXT_FORMS = (("K7", "K8"), ("K7rec", "K8rec"))
+
+
 def phase_k7k8(blocked):
-    """K7 and K8 vs their plain versions on the real tail, both directions.
-    K8 is linear, so two library forms compute it: the row dot of the
-    refreshed rows with K7's second output, and torch.sparse.mm of the
-    tail's pattern by s * E_other followed by that row dot."""
+    """K7 and K8 vs their plain versions on the real tail, both directions,
+    in both forms (s_o beside the row, and [e | s] records), equal in bits
+    to each other and on a repeat; the forms timed in turns, and with
+    ``--parent`` the parent's K8 beside them.  The kept form (the frames'
+    ``ext_edge.RECORD_FORM``) fills the JSON line.  K8 is linear, so two
+    library forms compute it: the row dot of the refreshed rows with K7's
+    second output, and torch.sparse.mm of the tail's pattern by
+    s * E_other followed by that row dot."""
     import torch
 
     from pmf_tpu_torch.ops import ext_edge as ee
 
+    kept = EXT_FORMS[1] if ee.RECORD_FORM else EXT_FORMS[0]
     res7 = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, n_bytes=0.0, n_flops=0.0)
     res8 = dict(res7, identity_ms=0.0, sparse_ms=0.0)
+    turns = {}
     half_ms = 0.0
     for seed, (name, p) in enumerate((("user", blocked.by_user),
                                       ("item", blocked.by_item))):
         es, es_new, eo, so = _ext_tables(p.n_self, p.n_other, 21 + seed)
+        rec = ee.es_record(eo, so)
+        tabs = {"K7": (es, eo, so), "K8": (es_new, eo, so), "K7rec": (es, rec),
+                "K8rec": (es_new, rec)}
         csr = (p.row_ptr, p.other)
         args7 = (es, eo, so, *csr, p.x, ee.RATE_FLOOR)
         args8 = (es_new, eo, so, *csr)
-        got7 = ee.ext_factor_tail(*args7, long_rows=p.long_rows)
         ref7 = ee.ext_factor_tail_plain(*args7, max_edges=1 << 22)
-        got8 = ee.ext_scalar_tail(*args8)
         ref8 = ee.ext_scalar_tail_plain(*args8, max_edges=1 << 22)
+        runs = {kid: (lambda kid=kid: _tail_kernel(kid, tabs[kid], p, K))
+                for pair in EXT_FORMS for kid in pair}
+        if PARENT:
+            runs["K8parent"] = lambda: _parent_k8(es_new, eo, so, p)
+        got = {}
+        for kid, run in runs.items():
+            got[kid] = run()
+            _, rel = compare(got[kid], ref7 if kid.startswith("K7") else ref8)
+            if not rel <= RTOL:
+                raise AssertionError(f"{kid} {name}: relative error {rel} > {RTOL}")
+            if kid != "K8parent" and not torch.equal(got[kid], run()):
+                raise AssertionError(f"{kid} {name}: two launches differ in bits")
+        for a, b in zip(*EXT_FORMS):
+            if not torch.equal(got[a], got[b]):
+                raise AssertionError(f"{a} and {b} {name} differ in bits")
+        # every form timed in turns, the order reversed in the second
+        order = list(runs)
+        side = {kid: [0.0, 0.0] for kid in order}
+        for turn in range(2):
+            for kid in order if turn == 0 else order[::-1]:
+                side[kid][turn] = cuda_ms(runs[kid])
+        for kid, (a, b) in side.items():
+            turns.setdefault(kid, [0.0, 0.0])
+            turns[kid] = [turns[kid][0] + a, turns[kid][1] + b]
+        log(f"  K7/K8 {name} forms in turns (kernel ms, turn 1 / turn 2): "
+            + ", ".join(f"{kid} {a:.4f} / {b:.4f}" for kid, (a, b) in side.items()))
         pattern = _csr_ones(p)
         sparse8 = lambda: torch.sum(  # noqa: E731
             es_new * torch.sparse.mm(pattern, so[:, None] * eo), dim=1)
-        identity8 = lambda: torch.sum(es_new * got7[:, K:], dim=1)  # noqa: E731
+        identity8 = lambda: torch.sum(es_new * got[kept[0]][:, K:], dim=1)  # noqa: E731
         for label, form in (("identity", identity8), ("sparse.mm", sparse8)):
             _, rel = compare(form(), ref8)
             if not rel <= RTOL:
                 raise AssertionError(f"K8 {name}: library form {label} differs "
                                      f"from the plain version by {rel}")
-        for label, res, got, ref, kern, plain, a, kw, n_bytes, flops in (
-                ("K7", res7, got7, ref7, ee.ext_factor_tail,
-                 ee.ext_factor_tail_plain, args7, dict(long_rows=p.long_rows),
+        for label, res, kid, ref, plain, a, n_bytes, flops in (
+                ("K7", res7, kept[0], ref7, ee.ext_factor_tail_plain, args7,
                  sum(t.nbytes for t in args7[:6]), 6 * K + 1),
-                ("K8", res8, got8, ref8, ee.ext_scalar_tail,
-                 ee.ext_scalar_tail_plain, args8, {},
-                 sum(t.nbytes for t in args8), 3 * K)):
-            abs_err, rel_err = compare(got, ref)
-            ms = cuda_ms(lambda: kern(*a, **kw))
+                ("K8", res8, kept[1], ref8, ee.ext_scalar_tail_plain, args8,
+                 sum(t.nbytes for t in args8), 2 * K + 1)):
+            abs_err, rel_err = compare(got[kid], ref)
+            ms = cuda_ms(runs[kid])
             plain_ms = cuda_ms(lambda: plain(*a, max_edges=1 << 22), reps=3)
-            n_bytes += got.nbytes
+            n_bytes += got[kid].nbytes
             b_ms, b_by = bound(n_bytes, p.nnz * flops)
-            log(f"  {label} {name}: nnz {p.nnz} | max abs err {abs_err:.3e} rel "
-                f"{rel_err:.3e} (tol {RTOL}) | kernel {ms:.4f} ms | plain "
-                f"{plain_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
-            if not rel_err <= RTOL:
-                raise AssertionError(f"{label} {name}: relative error {rel_err} "
-                                     f"> {RTOL}")
-            if label == "K7":
-                _tail_notes("K7", name, (es, eo, so), p, K, ms, got.nbytes)
+            log(f"  {label} {name} ({kid}): nnz {p.nnz} | max abs err {abs_err:.3e} rel "
+                f"{rel_err:.3e} (tol {RTOL}) | repeat equal in bits | kernel {ms:.4f} ms "
+                f"| plain {plain_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
             res["ms"] += ms
             res["plain_ms"] += plain_ms
             res["max_abs_err"] = max(res["max_abs_err"], abs_err)
             res["n_bytes"] += n_bytes
             res["n_flops"] += p.nnz * flops
+        for kid in (k for pair in EXT_FORMS for k in pair):
+            _tail_notes(kid, name, tabs[kid], p, K, side[kid][1], got[kid].nbytes)
+        _log_tail_tables("K7", name, p)
         ident_ms, sparse_ms = cuda_ms(identity8), cuda_ms(sparse8)
         side_half = cuda_ms(lambda: torch.sparse.mm(pattern, so[:, None] * eo))
         half_ms += side_half
@@ -1249,14 +1396,15 @@ def phase_k7k8(blocked):
     # K8's library time is the call on K8's own inputs; the identity form
     # reads K7's output and stays on its log line.
     res8["library_ms"] = res8["sparse_ms"]
-    log(f"phase K7: ok | per sweep: kernel {res7['ms']:.4f} ms, plain "
-        f"{res7['plain_ms']:.4f} ms, bound {res7['bound_ms']:.4f} ms "
+    log(f"phase K7: ok | kept form {kept[0]} | per sweep: kernel {res7['ms']:.4f} ms, "
+        f"plain {res7['plain_ms']:.4f} ms, bound {res7['bound_ms']:.4f} ms "
         f"({res7['bound_by']}), library: none for the allocation half; the "
         f"S_wother half alone by torch.sparse.mm {half_ms:.4f} ms")
-    log(f"phase K8: ok | per sweep: kernel {res8['ms']:.4f} ms, plain "
-        f"{res8['plain_ms']:.4f} ms, bound {res8['bound_ms']:.4f} ms "
+    log(f"phase K8: ok | kept form {kept[1]} | per sweep: kernel {res8['ms']:.4f} ms, "
+        f"plain {res8['plain_ms']:.4f} ms, bound {res8['bound_ms']:.4f} ms "
         f"({res8['bound_by']}), library: identity {res8['identity_ms']:.4f} ms, "
-        f"sparse.mm {res8['sparse_ms']:.4f} ms")
+        f"sparse.mm {res8['sparse_ms']:.4f} ms | in turns, per sweep: "
+        + ", ".join(f"{kid} {a:.4f} / {b:.4f}" for kid, (a, b) in turns.items()))
     return res7, res8
 
 
@@ -1393,9 +1541,34 @@ def phase_pfit(train, val, smi):
     return out
 
 
+def _scalar_pass_products(model):
+    """Matmul launches of one user-side ``ext_scalar_stats`` of the fitted
+    extended model's state, without and with the factor pass's tables:
+    (without, with)."""
+    from pmf_tpu_torch.ops import ext_edge as ee
+
+    st, lay = model.state, model.blocked
+    E_theta, E_beta = st["a_theta"] / st["b_theta"], st["a_beta"] / st["b_beta"]
+    E_psi = st["a_psi"] / st["b_psi"]
+    args = (E_beta, E_psi, lay.by_user)
+    kw = dict(head=lay.head, head_side="user")
+    _, _, tables = ee.ext_factor_stats(E_theta, *args, keep_tables=True, **kw)
+    counts = []
+    for factor in (None, tables):
+        rows, _, _ = profile_once(lambda: ee.ext_scalar_stats(E_theta, *args, factor=factor,
+                                                             **kw), {})
+        counts.append(trace_parts(rows, {})[1])
+    return tuple(counts)
+
+
 def phase_pprofile(models, train, smi):
     """Steady sweep times (CUDA events over chained sweeps) of the plain and
-    extended Poisson sweeps, and one extended sweep under torch.profiler."""
+    extended Poisson sweeps; one plain sweep under torch.profiler, and one
+    extended sweep in each K7/K8 form, in turns (busy time, idle share,
+    parts, matmul launches); the matmul launches of one scalar pass with
+    and without the factor pass's tables."""
+    from pmf_tpu_torch.ops import ext_edge as ee
+
     nnz = len(train[0])
     sweeps = {}
     for name, (model, _) in models.items():
@@ -1414,30 +1587,46 @@ def phase_pprofile(models, train, smi):
         log(f"  steady {name} sweep: {steady[name]:.4f} ms | "
             f"{visits * nnz / steady[name] / 1e3:.1f}M updates/s ({visits} x nnz) "
             f"| {smi}")
-    rows, busy, wall_ms = profile_once(
-        sweeps["extended"], {K7_TRACE: 2, "ext_scalar_kernel": 2,
-                             **_head_launches(models["extended"][0])})
-    groups = {"K2 head kernels": 0.0, "K7 tail_group_kernel": 0.0,
-              "K8 ext_scalar_kernel": 0.0, "head products (gemm)": 0.0, "other": 0.0}
-    for dev_ms, _, key in rows:
-        k = key.lower()
-        if K7_TRACE in k:
-            groups["K7 tail_group_kernel"] += dev_ms
-        elif "ext_scalar_kernel" in k:
-            groups["K8 ext_scalar_kernel"] += dev_ms
-        elif any(name in k for name in K2_KERNELS):
-            groups["K2 head kernels"] += dev_ms
-        elif "gemm" in k or "cutlass" in k or "sm90_xmma" in k or "nvjet" in k:
-            groups["head products (gemm)"] += dev_ms
-        else:
-            groups["other"] += dev_ms
-    log(f"phase pprofile: ok | one extended sweep: device busy {busy:.4f} ms of "
-        f"{wall_ms:.4f} ms window (idle share {1 - busy / wall_ms:.1%})")
-    if busy > 0:
-        log("  by part: " + ", ".join(f"{k} {v:.4f} ms ({v / busy:.1%})"
-                                       for k, v in groups.items()))
-    for dev_ms, n, key in rows[:12]:
-        log(f"  {dev_ms:9.4f} ms  {n:3d}x  {key[:90]}")
+    heads = _head_launches(models["extended"][0])
+    rows, busy, wall_ms = profile_once(sweeps["plain"], {K1_TRACE: 2, **heads})
+    log(f"  one plain sweep: device busy {busy:.4f} ms of {wall_ms:.4f} ms window "
+        f"(idle share {1 - busy / wall_ms:.1%})")
+    log_parts(trace_parts(rows, {"K2 head kernels": K2_KERNELS,
+                                 "K1 tail_group_kernel<0>": (K1_TRACE,)})[0], busy)
+    kept = ee.RECORD_FORM
+    busy_of = {False: [], True: []}
+    forms = {False: ("K7 tail_group_kernel<2>", K7_TRACE, "K8 tail_group_kernel<5>",
+                     K8_TRACE),
+             True: ("K7 tail_group_kernel<6>", K7REC_TRACE, "K8 tail_group_kernel<7>",
+                    K8REC_TRACE)}
+    for turn, order in enumerate(((kept, not kept), (not kept, kept), (kept, not kept),
+                                  (not kept, kept))):
+        for record in order:
+            ee.RECORD_FORM = record
+            k7, k7_trace, k8, k8_trace = forms[record]
+            rows, busy, wall_ms = profile_once(
+                sweeps["extended"], {k7_trace: 2, k8_trace: 2, **heads})
+            groups, gemm_n = trace_parts(rows, {"K2 head kernels": K2_KERNELS,
+                                                k7: (k7_trace,), k8: (k8_trace,)})
+            form = "record" if record else "scalar-beside"
+            busy_of[record].append((busy, sum(v for g, v in groups.items()
+                                              if g in (k7, k8, "other"))))
+            log(f"phase pprofile: ok | one extended sweep, {form} form (turn "
+                f"{turn + 1}): device busy {busy:.4f} ms of {wall_ms:.4f} ms window "
+                f"(idle share {1 - busy / wall_ms:.1%}) | head-product launches "
+                f"{gemm_n}")
+            log_parts(groups, busy)
+            if record == kept and turn == 1:
+                for dev_ms, n, key in rows[:12]:
+                    log(f"  {dev_ms:9.4f} ms  {n:3d}x  {key[:90]}")
+    ee.RECORD_FORM = kept
+    for record, vals in busy_of.items():
+        log(f"  {'record' if record else 'scalar-beside'} form over {len(vals)} turns: "
+            f"busy mean {np.mean([b for b, _ in vals]):.4f} ms, K7 + K8 + other mean "
+            f"{np.mean([o for _, o in vals]):.4f} ms")
+    without, with_tables = _scalar_pass_products(models["extended"][0])
+    log(f"  head-product launches of one user-side scalar pass: {without} building "
+        f"its own, {with_tables} on the factor pass's tables")
     return steady
 
 
@@ -2460,34 +2649,29 @@ def phase_gprofile(full, diag, train, smi):
     rows, _, _ = profile_once(sweeps["full"], expect, warm=False, attempts=1)
     seen = {part: sum(n for _, n, key in rows if part in key) for part in expect}
     log(f"  F2 probe: a trace without warm-up holds launches {seen}")
-    parts = {"full": (("K3 factor_kernel", "::factor_kernel"),
-                      ("K5 tail_group_kernel<3>", K5_TRACE),
-                      ("K4 gj_inverse_kernel", "gj_inverse")),
-             "diag": (("K6 tail_group_kernel<4>", K6_TRACE),
-                      ("K5 tail_group_kernel<3>", K5_TRACE))}
+    parts = {"full": {"K3 factor_kernel": ("::factor_kernel",),
+                      "K5 tail_group_kernel<3>": (K5_TRACE,),
+                      "K4 gj_inverse_kernel": ("gj_inverse",)},
+             "diag": {"K6 tail_group_kernel<4>": (K6_TRACE,),
+                      "K5 tail_group_kernel<3>": (K5_TRACE,)}}
     expects = {"full": expect, "diag": {K6_TRACE: 2, K5_TRACE: 2}}
     for name, label in (("full", "exact"), ("diag", "diag")):
         rows, busy, wall_ms = profile_once(sweeps[name], expects[name])
-        groups = dict.fromkeys([g for g, _ in parts[name]]
-                               + ["head products (gemm)", "other"], 0.0)
-        for dev_ms, _, key in rows:
-            k = key.lower()
-            group = next((g for g, part in parts[name] if part.lower() in k), None)
-            if group is None:
-                gemm = "gemm" in k or "cutlass" in k or "sm90_xmma" in k or "nvjet" in k
-                group = "head products (gemm)" if gemm else "other"
-            groups[group] += dev_ms
         log(f"phase gprofile: ok | one {label} sweep: device busy {busy:.4f} ms of "
             f"{wall_ms:.4f} ms window (idle share {1 - busy / wall_ms:.1%})")
-        if busy > 0:
-            log("  by part: " + ", ".join(f"{k} {v:.4f} ms ({v / busy:.1%})"
-                                           for k, v in groups.items()))
+        log_parts(trace_parts(rows, parts[name])[0], busy)
         for dev_ms, n, key in rows[:12]:
             log(f"  {dev_ms:9.4f} ms  {n:3d}x  {key[:90]}")
     return steady
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port on one CUDA card.")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of another commit whose K8 phase K8 times in turns")
+    args = ap.parse_args(argv)
     t_start = time.perf_counter()
     smi = phase_device()
     import gc
@@ -2495,6 +2679,8 @@ def main() -> int:
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.parent:
+        _load_parent(args.parent)
     phase_build()
     phase_k2small()
     phase_bigk()

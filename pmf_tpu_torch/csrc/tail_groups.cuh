@@ -83,7 +83,11 @@ constexpr int kMaxK = 128;
 constexpr int kOneWord = 8;        // K1, K7: spans up to 8 words take one word a lane, wider two
 constexpr int kRecordOneWord = 16;  // K5, K6 ([m | b] records): up to 16 words
 
-enum Mode { kCavi = 0, kRaw = 1, kExt = 2, kBias = 3, kDiag = 4 };
+// kScalar: K8.  kExtRec and kScalarRec: K7 and K8 on [e | s] records of
+// K + 1 columns, s_o in column K (record form (b), timed against the
+// scalar-beside form).
+enum Mode { kCavi = 0, kRaw = 1, kExt = 2, kBias = 3, kDiag = 4, kScalar = 5,
+            kExtRec = 6, kScalarRec = 7 };
 
 // What a pass reads.  Tables of rows are padded to 4 * ceil(columns / 4)
 // floats and start on 16 bytes; a pointer a mode does not read may be null.
@@ -94,20 +98,36 @@ struct Tables {
   const float* s_other;   // K7: s_other, a scalar an other row
   const int64_t* row_ptr;
   const int32_t* other;
-  const float* x;         // ratings: every mode but kRaw
+  const float* x;         // ratings: every mode but kRaw and K8
 };
 
-// K5 and K6 gather [m | b] records: K + 1 columns, b in column K.
-__host__ __device__ constexpr bool is_record(int mode) { return mode == kBias || mode == kDiag; }
+// K5 and K6 gather [m | b] records: K + 1 columns, b in column K; the
+// record forms of K7 and K8 [e | s] records, s in column K.
+__host__ __device__ constexpr bool is_record(int mode) {
+  return mode == kBias || mode == kDiag || mode == kExtRec || mode == kScalarRec;
+}
+// The modes that read a scalar of the other row beside its factors: s_o
+// (K7, K8) or b_o (K6).
+__host__ __device__ constexpr bool reads_scalar(int mode) {
+  return mode == kExt || mode == kDiag || mode >= kScalar;
+}
+// K8: one output a row, linear in e_o.
+__host__ __device__ constexpr bool is_scalar(int mode) {
+  return mode == kScalar || mode == kScalarRec;
+}
+// The modes that read the ratings: all but kRaw and K8.
+__host__ __device__ constexpr bool reads_x(int mode) {
+  return mode != kRaw && !is_scalar(mode);
+}
 __host__ __device__ constexpr int columns(int mode, int K) { return is_record(mode) ? K + 1 : K; }
 __host__ __device__ constexpr int out_width(int mode, int K) {
-  return mode == kBias ? K + 2 : mode == kDiag ? 3 * K : 2 * K;
+  return mode == kBias ? K + 2 : mode == kDiag ? 3 * K : is_scalar(mode) ? 1 : 2 * K;
 }
 __host__ __device__ constexpr int in_flight(int mode) {
   return mode == kDiag ? kDiagInFlight : kInFlight;
 }
 __host__ __device__ constexpr int one_word(int mode) {
-  return is_record(mode) ? kRecordOneWord : kOneWord;
+  return mode == kBias || mode == kDiag ? kRecordOneWord : kOneWord;
 }
 
 // Edges a group takes a batch: each lane loads B / G of their ids.
@@ -184,8 +204,9 @@ tail_group_kernel(const float* __restrict__ e_self,
   }
   const bool has_row = row < n_self;
   const int C = columns(kMode, K);
-  const int W = (C + 3) >> 2;  // float4 words a row of e_other (and e_self)
+  const int W = (C + 3) >> 2;  // float4 words a row of e_other
   const int Wq = (K + 3) >> 2;  // of sq_other
+  const int Ws = kMode == kDiag ? W : Wq;  // of e_self (K6: a record)
   const int span = (int)__reduce_max_sync(kFull, (unsigned)len);
 
   const float4* __restrict__ eo4 = reinterpret_cast<const float4*>(e_other);
@@ -200,12 +221,10 @@ tail_group_kernel(const float* __restrict__ e_self,
     const int w = v * G + gl;
     float4 e = zero;
     if constexpr (kMode != kBias) {  // K5 reads no self row
-      if (has_row && w < W) {
-        e = reinterpret_cast<const float4*>(e_self)[(int64_t)row * W + w];
+      if (has_row && w < Ws) {
+        e = reinterpret_cast<const float4*>(e_self)[(int64_t)row * Ws + w];
         const int k = 4 * w;
-        if constexpr (is_record(kMode)) {
-          if (k >= K) e.x = 0.f;  // b_s, column K of the record
-        }
+        if (k >= K) e.x = 0.f;  // K6: b_s, column K of the record
         if (k + 1 >= K) e.y = 0.f;
         if (k + 2 >= K) e.z = 0.f;
         if (k + 3 >= K) e.w = 0.f;
@@ -225,7 +244,15 @@ tail_group_kernel(const float* __restrict__ e_self,
   // One edge: the group's dot where the mode needs one, then the lane's
   // words.
   auto edge = [&](const float4 (&eo)[V], const float4 (&sq)[V], float xv, float sv) {
-    if constexpr (kMode == kRaw) {
+    if constexpr (is_scalar(kMode)) {  // K8: s_o e_o, dotted with e_s at the end
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        acc_o[v].x += sv * eo[v].x;
+        acc_o[v].y += sv * eo[v].y;
+        acc_o[v].z += sv * eo[v].z;
+        acc_o[v].w += sv * eo[v].w;
+      }
+    } else if constexpr (kMode == kRaw) {
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         acc_a[v].x += es[v].x * eo[v].x;
@@ -282,7 +309,7 @@ tail_group_kernel(const float* __restrict__ e_self,
           acc_a[v].y += coef * p[v].y;
           acc_a[v].z += coef * p[v].z;
           acc_a[v].w += coef * p[v].w;
-          if constexpr (kMode == kExt) {
+          if constexpr (kMode == kExt || kMode == kExtRec) {
             acc_o[v].x += sv * eo[v].x;
             acc_o[v].y += sv * eo[v].y;
             acc_o[v].z += sv * eo[v].z;
@@ -305,7 +332,7 @@ tail_group_kernel(const float* __restrict__ e_self,
       const int e = base + gl + G * q;
       const bool ok = e < len;
       ids[q] = ok ? other[begin + e] : 0;
-      if constexpr (kMode != kRaw) xs[q] = ok ? x[begin + e] : 0.f;
+      if constexpr (reads_x(kMode)) xs[q] = ok ? x[begin + e] : 0.f;
     }
   };
 
@@ -324,7 +351,7 @@ tail_group_kernel(const float* __restrict__ e_self,
         const int o = group_bcast<G>(ids[e / G], e % G);
         xv[d] = 0.f;
         sv[d] = 0.f;
-        if constexpr (kMode != kRaw) xv[d] = group_bcast<G>(xs[e / G], e % G);
+        if constexpr (reads_x(kMode)) xv[d] = group_bcast<G>(xs[e / G], e % G);
         const bool ok = base + e < len;
 #pragma unroll
         for (int v = 0; v < V; ++v) {
@@ -333,12 +360,13 @@ tail_group_kernel(const float* __restrict__ e_self,
           if constexpr (kMode == kDiag)
             sq[d][v] = (ok && w < Wq) ? __ldg(sq4 + (int64_t)o * Wq + w) : zero;
         }
-        if constexpr (kMode == kExt) sv[d] = ok ? __ldg(s_other + o) : 0.f;
+        if constexpr (reads_scalar(kMode) && !is_record(kMode))
+          sv[d] = ok ? __ldg(s_other + o) : 0.f;
       }
-      if constexpr (kMode == kDiag) {
-        // b_o: column K of the record, word K / 4 (lane (K / 4) % G, slot
-        // (K / 4) / G), from that lane to the group (a shuffle an edge
-        // measured faster than a load of it by every lane).
+      if constexpr (reads_scalar(kMode) && is_record(kMode)) {
+        // b_o (K6) or s_o: column K of the record, word K / 4 (lane
+        // (K / 4) % G, slot (K / 4) / G), from that lane to the group (a
+        // shuffle an edge measured faster than a load of it by every lane).
         const int wb = K >> 2;
 #pragma unroll
         for (int d = 0; d < D; ++d) {
@@ -357,6 +385,24 @@ tail_group_kernel(const float* __restrict__ e_self,
       ids[q] = nids[q];
       xs[q] = nxs[q];
     }
+  }
+
+  if constexpr (is_scalar(kMode)) {  // K8: <e_s, sum s_o e_o>, one group_sum a row
+    float part = 0.f;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      part += es[v].x * acc_o[v].x;
+      part += es[v].y * acc_o[v].y;
+      part += es[v].z * acc_o[v].z;
+      part += es[v].w * acc_o[v].w;
+    }
+    part = group_sum<G>(part);
+    if (split) {  // the groups' shares of the row, by a fixed butterfly
+#pragma unroll
+      for (int off = G; off < 32; off <<= 1) part += __shfl_xor_sync(kFull, part, off);
+    }
+    if (has_row && !(split && group != 0) && gl == 0) out[row] = part;
+    return;
   }
 
   if (split) {  // the groups' shares of the row, by a fixed butterfly

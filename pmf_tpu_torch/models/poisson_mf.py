@@ -218,7 +218,8 @@ def sweep_blocked_extended(state: dict, blocked, user_counts: torch.Tensor,
                            sx_item: torch.Tensor, a0: float, b0: float) -> dict:
     """The extended iteration of :func:`sweep` over the hybrid layout: per
     block the factor pass (K7 on the tail, K2 and linear products on the
-    head), the row update, then the scalar pass (K8) with the NEW rows.
+    head), the row update, then the scalar pass (K8) with the NEW rows, on
+    the other table and head products the factor pass made.
     ``sx_user`` / ``sx_item`` are the per-row rating sums (constant across
     iterations, made once)."""
     from pmf_tpu_torch.ops.ext_edge import ext_factor_stats, ext_scalar_stats
@@ -228,12 +229,13 @@ def sweep_blocked_extended(state: dict, blocked, user_counts: torch.Tensor,
     def block(E_self, E_other, s_other, p, counts, sx, head_side):
         has1 = counts > 0
         has = has1[:, None]
-        S_alloc, S_wother = ext_factor_stats(E_self, E_other, s_other, p,
-                                             head=head, head_side=head_side)
+        S_alloc, S_wother, tables = ext_factor_stats(
+            E_self, E_other, s_other, p, head=head, head_side=head_side,
+            keep_tables=True)
         a_fac = _prior_where(has, S_alloc, a0)
         b_fac = _prior_where(has, S_wother, b0)
         S_sdot = ext_scalar_stats(a_fac / b_fac, E_other, s_other, p, head=head,
-                                  head_side=head_side)
+                                  head_side=head_side, factor=tables)
         return (a_fac, b_fac, _prior_where(has1, sx, a0),
                 _prior_where(has1, S_sdot, b0))
 

@@ -19,10 +19,13 @@ DIAG_IN_FLIGHT = 2
 GROUP_MAX_K = 128
 GROUP_ONE_WORD = 8
 RECORD_ONE_WORD = 16
-# The kernels that gather [m | b] records of K + 1 columns.
-RECORD_KERNELS = ("K5", "K6")
-# The row-group kernels: K1 (modes "cavi", "raw"), K7, K5 and K6.
-PLAN_KERNELS = ("K1", "K1raw", "K7", "K5", "K6")
+# The kernels that gather records of K + 1 columns: K5's and K6's [m | b],
+# and the record forms of K7 and K8, [e | s].
+RECORD_KERNELS = ("K5", "K6", "K7rec", "K8rec")
+# The kernels that take one word a lane up to RECORD_ONE_WORD words.
+WIDE_KERNELS = ("K5", "K6")
+# The row-group kernels: K1 (modes "cavi", "raw"), K7, K5, K6 and K8.
+PLAN_KERNELS = ("K1", "K1raw", "K7", "K5", "K6", "K8", "K7rec", "K8rec")
 
 
 def tail_stride(k: int) -> int:
@@ -34,7 +37,8 @@ def tail_stride(k: int) -> int:
 
 def columns(k: int, kernel: str = "K1") -> int:
     """Columns of a row of the tables a row-group kernel gathers: K
-    factors, and b beside m in K5's and K6's [m | b] records."""
+    factors, and b beside m in K5's and K6's [m | b] records (s beside e in
+    the [e | s] records of K7's and K8's record form)."""
     return k + 1 if kernel in RECORD_KERNELS else k
 
 
@@ -56,7 +60,7 @@ def launch_plan(k: int, kernel: str = "K1") -> dict:
     cols = columns(k, kernel)
     words = -(-cols // 4)
     span = 1 << (words - 1).bit_length()
-    one_word = RECORD_ONE_WORD if kernel in RECORD_KERNELS else GROUP_ONE_WORD
+    one_word = RECORD_ONE_WORD if kernel in WIDE_KERNELS else GROUP_ONE_WORD
     vec = 1 if span <= one_word else 2
     lanes = span // vec
     return dict(lanes=lanes, vec=vec, words=words, stride=tail_stride(cols),
@@ -73,12 +77,11 @@ def padded_rows(tab: torch.Tensor, rows: torch.Tensor | None = None) -> torch.Te
     S = tail_stride(K)
     if S == K:
         return tab.contiguous() if rows is None else tab[rows]
-    out = tab.new_empty((n if rows is None else rows.shape[0], S))
+    if rows is None:  # one cat with a zero pad
+        return torch.cat([tab, tab.new_zeros((1, S - K)).expand(n, -1)], dim=1)
+    out = tab.new_empty((rows.shape[0], S))
     out[:, K:] = 0
-    if rows is None:
-        out[:, :K] = tab
-    else:
-        torch.index_select(tab, 0, rows, out=out[:, :K])
+    torch.index_select(tab, 0, rows, out=out[:, :K])
     return out
 
 
@@ -93,13 +96,20 @@ def scattered_rows(tab: torch.Tensor, new_of_old: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def new_space_rows(tab: torch.Tensor, new_of_old: torch.Tensor | None) -> torch.Tensor:
+    """``tab`` padded to ``tail_stride(K)`` columns (``padded_rows``) and,
+    with ``new_of_old``, scattered into new space (``scattered_rows``)."""
+    out = padded_rows(tab)
+    return out if new_of_old is None else scattered_rows(out, new_of_old)
+
+
 def tail_tables(e_self: torch.Tensor, e_other: torch.Tensor, p: TailCSR):
     """A pass's self and other tables in new space, padded for the
-    row-group kernels."""
+    row-group kernels: each scattered by ``TailCSR.*_new_of_old``."""
     if not p.reordered:
         return padded_rows(e_self), padded_rows(e_other)
-    return (padded_rows(e_self, p.self_old_of_new),
-            padded_rows(e_other, p.other_old_of_new))
+    return (new_space_rows(e_self, p.self_new_of_old),
+            new_space_rows(e_other, p.other_new_of_old))
 
 
 def check_padded_tables(K: int, tables, kernel: str = "K1") -> None:

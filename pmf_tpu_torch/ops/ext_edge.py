@@ -28,6 +28,8 @@ padded tables and K given apart.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from pmf_tpu_torch.data.blocked import TailCSR
@@ -44,8 +46,10 @@ from pmf_tpu_torch.ops._tail import (
     head_rows,
     head_tables,
     products,
+    new_space_rows,
     row_chunks,
-    tail_tables,
+    scattered_rows,
+    tail_stride,
 )
 from pmf_tpu_torch.ops.dense_head import ext_head_stats, ext_head_stats_t
 
@@ -79,9 +83,13 @@ def ext_factor_tail_plain(e_self, e_other, s_other, row_ptr, other, x,
 
 
 def ext_scalar_tail_plain(e_self_new, e_other, s_other, row_ptr, other,
-                          max_edges: int | None = None) -> torch.Tensor:
+                          max_edges: int | None = None,
+                          K: int | None = None) -> torch.Tensor:
     """Plain K8: (n_self,) sum s_o <e_self_new, e_o> per self row of the
-    CSR tail, in the tables' dtype (no floor)."""
+    CSR tail, in the tables' dtype (no floor); columns of the tables past
+    ``K`` (e_self_new's width when None) are ignored."""
+    K = e_self_new.shape[1] if K is None else K
+    e_self_new, e_other = e_self_new[:, :K], e_other[:, :K]
     n_self = e_self_new.shape[0]
     out = torch.zeros((n_self,), dtype=e_self_new.dtype, device=e_self_new.device)
     for r0, r1 in row_chunks(row_ptr, max_edges):
@@ -129,70 +137,176 @@ def ext_factor_tail(e_self, e_other, s_other, row_ptr, other, x,
     return out
 
 
-def ext_scalar_tail(e_self_new, e_other, s_other, row_ptr, other) -> torch.Tensor:
-    """K8: the scalar-rate tail pass.  CUDA tensors launch the kernel; CPU
-    tensors run the plain version."""
+def ext_scalar_tail(e_self_new, e_other, s_other, row_ptr, other,
+                    K: int | None = None, long_rows: int = 0) -> torch.Tensor:
+    """K8: the scalar-rate tail pass at ``K`` factors (the tables' width
+    when None).  CUDA tensors launch the kernel, on tables of
+    ``tail_stride(K)`` columns, giving each of the first ``long_rows`` rows
+    a whole warp; CPU tensors run the plain version, which ignores columns
+    past K."""
     if not e_self_new.is_cuda:
-        return ext_scalar_tail_plain(e_self_new, e_other, s_other, row_ptr, other)
+        return ext_scalar_tail_plain(e_self_new, e_other, s_other, row_ptr, other, K=K)
+    K = e_self_new.shape[1] if K is None else K
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"extended tail kernels need 1 <= K <= {MAX_K}, got K={K}")
     _check_cuda_args(e_self_new, e_other, s_other, row_ptr, other, None)
-    n_self, K = e_self_new.shape
+    check_padded_tables(K, [("e_self_new", e_self_new), ("e_other", e_other)])
+    n_self = e_self_new.shape[0]
+    check_long_rows(long_rows, n_self)
     out = torch.empty((n_self,), dtype=torch.float32, device=e_self_new.device)
-    _build.launch("pmf_ext_scalar", SCALAR_LAUNCHES, e_self_new.device,
-                  e_self_new, e_other, s_other, row_ptr, other, n_self, K, out)
+    _build.launch("pmf_ext_scalar", SCALAR_LAUNCHES, e_self_new.device, e_self_new,
+                  e_other, s_other, row_ptr, other, n_self, long_rows, K, out)
     return out
 
 
-def _to_new_space(e_self, e_other, s_other, p: TailCSR):
-    if not p.reordered:
-        return e_self.contiguous(), e_other.contiguous(), s_other.contiguous()
-    return (e_self[p.self_old_of_new], e_other[p.other_old_of_new],
-            s_other[p.other_old_of_new])
+# Record form (b): K7 and K8 read one [e | s] record of K + 1 columns a
+# other row, padded to tail_stride(K + 1) (``es_record``); the self tables
+# stay at tail_stride(K).  RECORD_FORM picks it in the frames.
+RECORD_FORM = False
+
+
+def es_record(e, s, new_of_old=None) -> torch.Tensor:
+    """The [e | s | 0 pad] records of the record form, ``tail_stride(K +
+    1)`` columns, scattered into new space with ``new_of_old``."""
+    K = e.shape[1]
+    pad = e.new_zeros((1, tail_stride(K + 1) - K - 1)).expand(e.shape[0], -1)
+    tab = torch.cat([e, s[:, None].to(e.dtype), pad], dim=1)
+    return tab if new_of_old is None else scattered_rows(tab, new_of_old)
+
+
+def _check_record_args(e_self, es_other, row_ptr, other, x, K, long_rows):
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"extended tail kernels need 1 <= K <= {MAX_K}, got K={K}")
+    check_tail_args([("e_self", e_self), ("es_other", es_other)], row_ptr, other, x,
+                    e_self.shape[0])
+    check_padded_tables(K, [("e_self", e_self)])
+    check_padded_tables(K, [("es_other", es_other)], "K7rec")
+    check_long_rows(long_rows, e_self.shape[0])
+
+
+def ext_factor_tail_rec(e_self, es_other, row_ptr, other, x,
+                        rate_floor: float = RATE_FLOOR, K: int | None = None,
+                        long_rows: int = 0) -> torch.Tensor:
+    """K7 in the record form: ``es_other`` the [e | s] records."""
+    K = es_other.shape[1] - 1 if K is None else K
+    if not e_self.is_cuda:
+        return ext_factor_tail_plain(e_self, es_other, es_other[:, K], row_ptr, other,
+                                     x, rate_floor, K=K)
+    _check_record_args(e_self, es_other, row_ptr, other, x, K, long_rows)
+    n_self = e_self.shape[0]
+    out = torch.empty((n_self, 2 * K), dtype=torch.float32, device=e_self.device)
+    _build.launch("pmf_ext_factor_rec", FACTOR_LAUNCHES, e_self.device, e_self,
+                  es_other, row_ptr, other, x, n_self, long_rows, K, rate_floor, out)
+    return out
+
+
+def ext_scalar_tail_rec(e_self_new, es_other, row_ptr, other, K: int | None = None,
+                        long_rows: int = 0) -> torch.Tensor:
+    """K8 in the record form: ``es_other`` the [e | s] records."""
+    K = es_other.shape[1] - 1 if K is None else K
+    if not e_self_new.is_cuda:
+        return ext_scalar_tail_plain(e_self_new, es_other, es_other[:, K], row_ptr,
+                                     other, K=K)
+    _check_record_args(e_self_new, es_other, row_ptr, other, None, K, long_rows)
+    n_self = e_self_new.shape[0]
+    out = torch.empty((n_self,), dtype=torch.float32, device=e_self_new.device)
+    _build.launch("pmf_ext_scalar_rec", SCALAR_LAUNCHES, e_self_new.device, e_self_new,
+                  es_other, row_ptr, other, n_self, long_rows, K, out)
+    return out
+
+
+@dataclass
+class FactorTables:
+    """What ``ext_factor_stats`` built in new space, which the scalar pass
+    of the same block reads again: ``other``, K7's other table (padded to
+    ``tail_stride(K)``, or the [e | s] records in the record form), ``s``
+    the other side's scalars (a column of the records in that form), and
+    ``sw``, each head tier's (start row, M-product of s * E_other cut to
+    the self rows), the ``S_wother`` head statistic."""
+    other: torch.Tensor
+    s: torch.Tensor
+    sw: list
+
+
+def _other_tables(E_other, s_other, p: TailCSR, K: int):
+    """(K7's and K8's other table, s_o, e_other's real columns) in new
+    space: scattered by ``other_new_of_old``, padded."""
+    new_of_old = p.other_new_of_old if p.reordered else None
+    if RECORD_FORM:
+        rec = es_record(E_other, s_other, new_of_old)
+        return rec, rec[:, K], rec[:, :K]
+    t_other = new_space_rows(E_other, new_of_old)
+    s_o = scattered_rows(s_other, new_of_old) if p.reordered else s_other.contiguous()
+    return t_other, s_o, t_other[:, :K]
+
+
+def _s_tab(s_o, e_other, tier, head_side):
+    """s * E_other over the tier's other rows, as the head product takes it."""
+    return head_rows(s_o, tier, head_side)[:, None] * head_rows(e_other, tier, head_side)
 
 
 def ext_factor_stats(E_self, E_other, s_other, p: TailCSR,
                      rate_floor: float = RATE_FLOOR, head=None,
-                     head_side: str = "user"):
+                     head_side: str = "user", keep_tables: bool = False):
     """(S_alloc, S_wother), both (n_self, K), in the original row order.
     ``head``: the layout's DenseHead tiers (their edges are not in ``p``);
     ``head_side`` says whether self rows are the head's user axis ("user",
-    by_user pass) or item axis.  The scalars follow the pass's other axis."""
+    by_user pass) or item axis.  The scalars follow the pass's other axis.
+    With ``keep_tables``, also the ``FactorTables`` that
+    ``ext_scalar_stats`` of the same block takes as ``factor``."""
     K = E_self.shape[1]
     heads = check_head(p, head)
-    t_self, t_other = tail_tables(E_self, E_other, p)
-    s_o = s_other[p.other_old_of_new] if p.reordered else s_other.contiguous()
-    acc = ext_factor_tail(t_self, t_other, s_o, p.row_ptr, p.other, p.x, rate_floor,
-                          K=K, long_rows=p.long_rows)
-    e_self, e_other = t_self[:, :K], t_other[:, :K]
+    t_self = new_space_rows(E_self, p.self_new_of_old if p.reordered else None)
+    t_other, s_o, e_other = _other_tables(E_other, s_other, p, K)
+    if RECORD_FORM:
+        acc = ext_factor_tail_rec(t_self, t_other, p.row_ptr, p.other, p.x, rate_floor,
+                                  K=K, long_rows=p.long_rows)
+    else:
+        acc = ext_factor_tail(t_self, t_other, s_o, p.row_ptr, p.other, p.x,
+                              rate_floor, K=K, long_rows=p.long_rows)
+    e_self = t_self[:, :K]
     fn = ext_head_stats if head_side == "user" else ext_head_stats_t
-    head_outs = []
+    head_outs, sw = [], []
     for tier in heads:
         theta_h, beta_h = head_tables(e_self, e_other, tier, head_side)
-        s_tab = (head_rows(s_o, tier, head_side)[:, None]
-                 * (beta_h if head_side == "user" else theta_h))
-        head_outs.append(head_out(
-            tier, head_side, fn(theta_h, beta_h, s_tab, tier, rate_floor)))
+        s_alloc, sw_h = fn(theta_h, beta_h, _s_tab(s_o, e_other, tier, head_side), tier,
+                           rate_floor)
+        head_outs.append(head_out(tier, head_side, (s_alloc, sw_h)))
+        sw.append((tier.row_start, sw_h) if head_side == "user" else (0, sw_h[: tier.hi]))
     acc = add_heads(acc, head_outs)
     if p.reordered:
         acc = acc[p.self_new_of_old]
+    if keep_tables:
+        return acc[:, :K], acc[:, K:], FactorTables(t_other, s_o, sw)
     return acc[:, :K], acc[:, K:]
 
 
 def ext_scalar_stats(E_self_new, E_other, s_other, p: TailCSR, head=None,
-                     head_side: str = "user") -> torch.Tensor:
+                     head_side: str = "user",
+                     factor: FactorTables | None = None) -> torch.Tensor:
     """S_sdot (n_self,): sum_e s_other_e * <E_self_new, E_other>, in the
     original row order.  The head part reuses the linear product:
-    rowsum(E_self_new * (M @ (s * E_other)))."""
+    rowsum(E_self_new * (M @ (s * E_other))).  ``factor``: what
+    ``ext_factor_stats(..., keep_tables=True)`` of the same block built
+    from the same ``E_other`` and ``s_other`` (then neither is permuted
+    again and no head product is made); without it, built here."""
+    K = E_self_new.shape[1]
     heads = check_head(p, head)
-    e_self, e_other, s_o = _to_new_space(E_self_new, E_other, s_other, p)
-    acc = ext_scalar_tail(e_self, e_other, s_o, p.row_ptr, p.other)
-    head_outs = []
-    for tier in heads:
-        s_tab = (head_rows(s_o, tier, head_side)[:, None]
-                 * head_rows(e_other, tier, head_side))
-        start, mp, _ = products(tier, s_tab, None, head_side)
-        self_h = e_self[start : start + mp.shape[0]]
-        head_outs.append((start, torch.sum(self_h * mp, dim=1)))
-    acc = add_heads(acc, head_outs)
+    if factor is None:
+        t_other, s_o, e_other = _other_tables(E_other, s_other, p, K)
+        factor = FactorTables(t_other, s_o, [
+            products(tier, _s_tab(s_o, e_other, tier, head_side), None, head_side)[:2]
+            for tier in heads])
+    e_self = new_space_rows(E_self_new, p.self_new_of_old if p.reordered else None)
+    if RECORD_FORM:
+        acc = ext_scalar_tail_rec(e_self, factor.other, p.row_ptr, p.other, K=K,
+                                  long_rows=p.long_rows)
+    else:
+        acc = ext_scalar_tail(e_self, factor.other, factor.s, p.row_ptr, p.other, K=K,
+                              long_rows=p.long_rows)
+    acc = add_heads(acc, [
+        (start, torch.sum(e_self[start : start + sw.shape[0], :K] * sw, dim=1))
+        for start, sw in factor.sw])
     if p.reordered:
         acc = acc[p.self_new_of_old]
     return acc

@@ -81,9 +81,11 @@ def test_k5_k6_plans_mirror_the_kernel_source():
 
     assert const("kRecordOneWord") == _tail.RECORD_ONE_WORD
     assert const("kDiagInFlight") == _tail.DIAG_IN_FLIGHT
-    assert "return mode == kBias || mode == kDiag;" in hdr  # is_record()
+    # is_record(): K5, K6 and the record forms of K7 and K8
+    assert ("return mode == kBias || mode == kDiag || mode == kExtRec || "
+            "mode == kScalarRec;") in hdr
     assert "return is_record(mode) ? K + 1 : K;" in hdr  # columns()
-    assert _tail.RECORD_KERNELS == tuple(KERNELS)
+    assert _tail.RECORD_KERNELS == (*KERNELS, "K7rec", "K8rec")
     assert re.search(r"mode == kBias \? K \+ 2 :", hdr)
     built = set(re.findall(r"PMF_TAIL_PLAN\((\d+), (\d+)\)\n", hdr))
     for kid in KERNELS:
