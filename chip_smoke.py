@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``pmf_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent DIR``: a checkout of another commit (for instance the parent,
+unpacked by ``git archive`` into a git-ignored directory); its kernels
+build beside this tree's, and phase K8 times its K8 and this one in turns.
 
 Phases, one status line each; any failure exits non-zero and prints no
 result line:
@@ -11,7 +15,8 @@ result line:
 3. data    -- the benchmark's Zipf data (162k users x 59k items x 25M
               ratings, seed 0) and the hybrid layout the fit builds.
 4. K1      -- sparse-tail edge kernel vs its plain version, both directions,
-              with its per-edge sector reckoning and its long rows alone.
+              with its per-edge sector reckoning and its long rows alone,
+              and its tables built into new space by gather and by scatter.
 5. K2      -- dense-head tier kernel vs its plain version, every tier and
               side, with its bound's three lines and the share of the
               card's memory rate; before the data, K2small: the same
@@ -25,12 +30,15 @@ result line:
 
 Between phases 5 and 6, on the same layout's tail: K7 and K8, the
 extended-Poisson factor and scalar-rate tail kernels vs their plain
-versions, both directions, with the linear library forms of K8.  After
+versions on [e | s] records, both directions, with their per-edge sector
+reckonings, long rows alone and the linear library forms of K8 (and with
+``--parent`` the parent's K8 in turns).  After
 phase 8 the HPF model is freed, then the Poisson-MF CAVI path on the same
 ratings: psmall (three blocked sweeps card vs host, plain and extended),
 pfit (``PoissonMF.fit(engine="blocked_high")``, 4 sweeps plain then 4
 extended, with launch counters), pprofile (steady sweep times of both, one
-extended sweep under the profiler) and pelbo (a 2-sweep plain fit with
+plain and one extended sweep under the profiler, the head-product launches
+of a sweep and of its scalar passes) and pelbo (a 2-sweep plain fit with
 ``elbo_every=1``).
 
 Beside K1, on the same tail: K1raw, the tail kernel's mode "raw" vs its
@@ -44,7 +52,7 @@ launches, 2 a step, timed by CUDA events and by the profiler), msmall
 (``HPFMap.fit`` for 3 epochs, engine "blocked_high" then "flat", with
 launch counters) and mprofile (20 steady blocked steps under the profiler).
 
-Before the data, phase bigk: K1 (both modes), K7, K5 and K6 at every K
+Before the data, phase bigk: K1 (both modes), K7, K5, K6 and K8 at every K
 where their row-group plan changes, equal bits on a repeat (phase
 k17small), K3 and K4 at every K where their geometry changes (phase
 k34small), every kernel at K = 50
@@ -613,8 +621,9 @@ def _bigk_poisson_tail(blocked, k):
     for p in (blocked.by_user, blocked.by_item):
         es, es_new, eo, so = (_pos(gen, p.n_self, k), _pos(gen, p.n_self, k),
                               _pos(gen, p.n_other, k), _pos(gen, p.n_other))
-        # K1's, K7's and K8's tables
+        # K1's tables, K7's and K8's self rows and [e | s] records
         es_p, esn_p, eo_p = padded_rows(es), padded_rows(es_new), padded_rows(eo)
+        rec = ee.es_record(eo, so)
         csr = (p.row_ptr, p.other)
         for name, kern, plain, args in (
                 ("K1", lambda *a: ce.tail_edge_stats(*a, K=k, long_rows=p.long_rows),
@@ -626,10 +635,10 @@ def _bigk_poisson_tail(blocked, k):
                  (es_p, eo_p, *csr, None)),
                 ("K7", lambda *a: ee.ext_factor_tail(*a, K=k, long_rows=p.long_rows),
                  lambda *a: ee.ext_factor_tail_plain(*a, K=k),
-                 (es_p, eo_p, so, *csr, p.x)),
+                 (es_p, rec, *csr, p.x)),
                 ("K8", lambda *a: ee.ext_scalar_tail(*a, K=k, long_rows=p.long_rows),
                  lambda *a: ee.ext_scalar_tail_plain(*a, K=k),
-                 (esn_p, eo_p, so, *csr))):
+                 (esn_p, rec, *csr))):
             got, ref = kern(*args), plain(*args)
             _, rel = compare(got, ref)
             if got.shape != ref.shape or not rel <= RTOL:
@@ -640,19 +649,17 @@ def _bigk_poisson_tail(blocked, k):
 
 # --------------------------------- row groups: K1, K7, K5, K6 and K8 --
 
-TAIL_KERNELS = ("K1", "K1raw", "K7", "K5", "K6", "K8", "K7rec", "K8rec")
+TAIL_KERNELS = ("K1", "K1raw", "K7", "K5", "K6", "K8")
 GAUSS_TAIL = ("K5", "K6")  # signed sums: held per column (COL_RTOL)
 # Positions of the self-row tables in a kernel's tables (cut to the long
 # rows in _tail_notes).
-SELF_TABS = {"K1": (0,), "K1raw": (0,), "K7": (0,), "K5": (), "K6": (0,), "K8": (0,),
-             "K7rec": (0,), "K8rec": (0,)}
+SELF_TABS = {"K1": (0,), "K1raw": (0,), "K7": (0,), "K5": (), "K6": (0,), "K8": (0,)}
 
 
 def _tail_tabs(kid, n_self, n_other, k, seed):
     """A kernel's tables in the wrapper's order, padded as the kernel takes
-    them: positive (e_self, e_other[, s_other]) for K1, K7 and K8, (e_self,
-    [e_other | s_other]) for the record forms K7rec and K8rec;
-    Gaussian-state ([m_other | b_other],) for K5, ([m_self | b_self],
+    them: positive (e_self, e_other) for K1, (e_self, [e_other | s_other])
+    for K7 and K8; Gaussian-state ([m_other | b_other],) for K5, ([m_self | b_self],
     [m_other | b_other], sq_other) for K6, sq = v + m^2."""
     import torch
 
@@ -664,8 +671,6 @@ def _tail_tabs(kid, n_self, n_other, k, seed):
     if kid not in GAUSS_TAIL:
         es, eo = padded_rows(_pos(gen, n_self, k)), _pos(gen, n_other, k)
         if kid in ("K7", "K8"):
-            return es, padded_rows(eo), _pos(gen, n_other)
-        if kid in ("K7rec", "K8rec"):
             return es, es_record(eo, _pos(gen, n_other))
         return es, padded_rows(eo)
     m_s, m_o = (0.1 * torch.randn(n, k, generator=gen, device="cuda")
@@ -687,11 +692,8 @@ def _tail_kernel(kid, tabs, p, k):
     kw = dict(K=k, long_rows=p.long_rows)
     if kid == "K1raw":
         return ce.tail_edge_stats(*tabs, p.row_ptr, p.other, None, mode="raw", **kw)
-    if kid in ("K8", "K8rec"):
-        fn = ee.ext_scalar_tail if kid == "K8" else ee.ext_scalar_tail_rec
-        return fn(*tabs, p.row_ptr, p.other, **kw)
-    if kid == "K7rec":
-        return ee.ext_factor_tail_rec(*tabs, p.row_ptr, p.other, p.x, **kw)
+    if kid == "K8":
+        return ee.ext_scalar_tail(*tabs, p.row_ptr, p.other, **kw)
     fn = {"K1": ce.tail_edge_stats, "K7": ee.ext_factor_tail,
           "K5": ge.bias_tail_stats, "K6": ge.diag_tail_stats}[kid]
     return fn(*tabs, p.row_ptr, p.other, p.x, **kw)
@@ -706,14 +708,9 @@ def _tail_plain(kid, tabs, p, k):
         raw = kid == "K1raw"
         return ce.tail_edge_stats_plain(*tabs, p.row_ptr, p.other, None if raw else p.x,
                                         mode="raw" if raw else "cavi", K=k)
-    if kid in ("K7rec", "K8rec"):  # s_o in column K of the record
-        tabs = (tabs[0], tabs[1], tabs[1][:, k].contiguous())
-    if kid in ("K8", "K8rec"):
+    if kid == "K8":
         return ee.ext_scalar_tail_plain(*tabs, p.row_ptr, p.other, max_edges=1 << 22,
                                         K=k)
-    if kid == "K7rec":
-        return ee.ext_factor_tail_plain(*tabs, p.row_ptr, p.other, p.x,
-                                        max_edges=1 << 22, K=k)
     fn = {"K7": ee.ext_factor_tail_plain, "K5": ge.bias_tail_stats_plain,
           "K6": ge.diag_tail_stats_plain}[kid]
     return fn(*tabs, p.row_ptr, p.other, p.x, max_edges=1 << 22, K=k)
@@ -741,16 +738,14 @@ def _row_sectors(p, stride_floats, width_floats):
 def _tail_reckoning(kid, p, k, self_bytes, out_bytes):
     """Bytes of one tail pass if every gather came from HBM: each edge's id
     (and rating) once, the 32-byte sectors of its other row at
-    ``tail_stride`` of its columns (K5's and K6's [m | b] records and the
-    [e | s] records of K7rec and K8rec, K + 1; K6 also its v + m^2 row, K),
-    K7's and K8's sector for s_o, and the self table, row pointers and
-    output once."""
+    ``tail_stride`` of its columns (K5's and K6's [m | b] records and K7's
+    and K8's [e | s] records, K + 1; K6 also its v + m^2 row, K), and the
+    self table, row pointers and output once."""
     from pmf_tpu_torch.ops._tail import columns, tail_stride
 
     S, Sq = tail_stride(columns(k, kid)), tail_stride(k)
     sectors = _row_sectors(p, S, S) + (_row_sectors(p, Sq, Sq) if kid == "K6" else 0)
-    per_edge = (4 + (0 if kid in ("K1raw", "K8", "K8rec") else 4)
-                + (32 if kid in ("K7", "K8") else 0))
+    per_edge = 4 + (0 if kid in ("K1raw", "K8") else 4)
     return p.nnz * per_edge + 32 * sectors + self_bytes + p.row_ptr.nbytes + out_bytes
 
 
@@ -799,9 +794,8 @@ def _tail_geometry_ks():
 
 
 def phase_k17small(blocked, gblocked):
-    """K1 (both modes), K7, K5, K6 and K8 (K7 and K8 in both record forms)
-    against their plain versions at every
-    K where a row-group plan changes, both directions of a small tail (with
+    """K1 (both modes), K7, K5, K6 and K8 against their plain versions at
+    every K where a row-group plan changes, both directions of a small tail (with
     rows long enough for a warp each; the Gaussian ratings for K5 and K6),
     equal bits on a repeat."""
     import torch
@@ -1036,19 +1030,20 @@ def phase_wide_poisson(blocked):
 
     from pmf_tpu_torch.ops._tail import padded_rows
     from pmf_tpu_torch.ops.dense_head import fused_alloc_tier
+    from pmf_tpu_torch.ops.ext_edge import es_record
 
     k = K_WIDE
     gen = torch.Generator(device="cuda").manual_seed(5)
     ms = dict.fromkeys(("K1", "K1raw", "K2", "K7", "K8"), 0.0)
     for p in (blocked.by_user, blocked.by_item):
         es, eo, so = _pos(gen, p.n_self, k), _pos(gen, p.n_other, k), _pos(gen, p.n_other)
-        es_p, eo_p = padded_rows(es), padded_rows(eo)
+        es_p, eo_p, rec = padded_rows(es), padded_rows(eo), es_record(eo, so)
         for kid, tabs in (("K1", (es_p, eo_p)), ("K1raw", (es_p, eo_p)),
-                          ("K7", (es_p, eo_p, so)), ("K8", (es_p, eo_p, so))):
+                          ("K7", (es_p, rec)), ("K8", (es_p, rec))):
             ms[kid] += cuda_ms(lambda: _tail_kernel(kid, tabs, p, k))
         if PARENT:
             ms["K8 parent"] = ms.get("K8 parent", 0.0) + cuda_ms(
-                lambda: _parent_k8(es_p, eo_p, so, p, k))
+                lambda: _parent_k8(es, eo, so, p))
     for h in blocked.head or ():
         theta = _pos(gen, h.hu, k)
         beta = torch.nn.functional.pad(_pos(gen, h.hi, k), (0, 0, 0, h.hip - h.hi))
@@ -1172,12 +1167,10 @@ def phase_fit(train, val, smi):
 K2_KERNELS = ("head_user_kernel", "head_item_kernel", "sum_partials_kernel",
               "split_planes_kernel")
 # The row-group kernels in a trace: tail_group_kernel<mode, G, V>, mode 0
-# (K1 "cavi"), 2 (K7), 3 (K5) or 4 (K6).
+# (K1 "cavi"), 2 (K7), 3 (K5), 4 (K6) or 5 (K8).
 K1_TRACE, K7_TRACE = "tail_group_kernel<0,", "tail_group_kernel<2,"
 K5_TRACE, K6_TRACE = "tail_group_kernel<3,", "tail_group_kernel<4,"
-# K8 (mode 5), and K7 and K8 in the record form (modes 6, 7)
-K8_TRACE, K7REC_TRACE, K8REC_TRACE = ("tail_group_kernel<5,", "tail_group_kernel<6,",
-                                      "tail_group_kernel<7,")
+K8_TRACE = "tail_group_kernel<5,"
 GEMM_PARTS = ("gemm", "cutlass", "sm90_xmma", "nvjet")
 
 
@@ -1259,15 +1252,14 @@ def _ext_tables(n_self, n_other, seed):
     return pos(n_self, K), pos(n_self, K), pos(n_other, K), pos(n_other)
 
 
-def _parent_k8(es_new, eo, so, p, k=K):
-    """The parent checkout's K8 (``--parent``) on unpadded tables: its
-    C entry point through its own build module."""
+def _parent_k8(es_new, eo, so, p):
+    """The parent checkout's K8 (``--parent``) on unpadded contiguous
+    tables of K columns: its C entry point through its own build module."""
     import torch
 
     out = torch.empty((p.n_self,), device="cuda")
-    es_new, eo = es_new[:, :k].contiguous(), eo[:, :k].contiguous()
     PARENT["build"].launch("pmf_ext_scalar", PARENT["launches"], es_new.device, es_new,
-                           eo, so, p.row_ptr, p.other, p.n_self, k, out)
+                           eo, so, p.row_ptr, p.other, p.n_self, es_new.shape[1], out)
     return out
 
 
@@ -1291,25 +1283,17 @@ def _log_tail_tables(kid, name, p):
         f"gathered {gather_ms:.4f} ms, scattered {scatter_ms:.4f} ms (equal in bits)")
 
 
-# K7 and K8 in each form: (K7's id, K8's id); the record form reads one
-# [e | s] record a other row.
-EXT_FORMS = (("K7", "K8"), ("K7rec", "K8rec"))
-
-
 def phase_k7k8(blocked):
     """K7 and K8 vs their plain versions on the real tail, both directions,
-    in both forms (s_o beside the row, and [e | s] records), equal in bits
-    to each other and on a repeat; the forms timed in turns, and with
-    ``--parent`` the parent's K8 beside them.  The kept form (the frames'
-    ``ext_edge.RECORD_FORM``) fills the JSON line.  K8 is linear, so two
-    library forms compute it: the row dot of the refreshed rows with K7's
-    second output, and torch.sparse.mm of the tail's pattern by
-    s * E_other followed by that row dot."""
+    on the [e | s] records the frames build, equal bits on a repeat; with
+    ``--parent``, the parent checkout's K8 and this one's timed in turns.
+    K8 is linear, so two library forms compute it: the row dot of the
+    refreshed rows with K7's second output, and torch.sparse.mm of the
+    tail's pattern by s * E_other followed by that row dot."""
     import torch
 
     from pmf_tpu_torch.ops import ext_edge as ee
 
-    kept = EXT_FORMS[1] if ee.RECORD_FORM else EXT_FORMS[0]
     res7 = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, n_bytes=0.0, n_flops=0.0)
     res8 = dict(res7, identity_ms=0.0, sparse_ms=0.0)
     turns = {}
@@ -1318,68 +1302,63 @@ def phase_k7k8(blocked):
                                       ("item", blocked.by_item))):
         es, es_new, eo, so = _ext_tables(p.n_self, p.n_other, 21 + seed)
         rec = ee.es_record(eo, so)
-        tabs = {"K7": (es, eo, so), "K8": (es_new, eo, so), "K7rec": (es, rec),
-                "K8rec": (es_new, rec)}
+        tabs = {"K7": (es, rec), "K8": (es_new, rec)}
         csr = (p.row_ptr, p.other)
-        args7 = (es, eo, so, *csr, p.x, ee.RATE_FLOOR)
-        args8 = (es_new, eo, so, *csr)
-        ref7 = ee.ext_factor_tail_plain(*args7, max_edges=1 << 22)
-        ref8 = ee.ext_scalar_tail_plain(*args8, max_edges=1 << 22)
+        args7 = (es, rec, *csr, p.x, ee.RATE_FLOOR)
+        args8 = (es_new, rec, *csr)
+        ref = {"K7": ee.ext_factor_tail_plain(*args7, max_edges=1 << 22),
+               "K8": ee.ext_scalar_tail_plain(*args8, max_edges=1 << 22)}
         runs = {kid: (lambda kid=kid: _tail_kernel(kid, tabs[kid], p, K))
-                for pair in EXT_FORMS for kid in pair}
+                for kid in ("K7", "K8")}
         if PARENT:
-            runs["K8parent"] = lambda: _parent_k8(es_new, eo, so, p)
+            runs["K8 parent"] = lambda: _parent_k8(es_new, eo, so, p)
         got = {}
         for kid, run in runs.items():
             got[kid] = run()
-            _, rel = compare(got[kid], ref7 if kid.startswith("K7") else ref8)
+            _, rel = compare(got[kid], ref[kid[:2]])
             if not rel <= RTOL:
                 raise AssertionError(f"{kid} {name}: relative error {rel} > {RTOL}")
-            if kid != "K8parent" and not torch.equal(got[kid], run()):
+            if not torch.equal(got[kid], run()):
                 raise AssertionError(f"{kid} {name}: two launches differ in bits")
-        for a, b in zip(*EXT_FORMS):
-            if not torch.equal(got[a], got[b]):
-                raise AssertionError(f"{a} and {b} {name} differ in bits")
-        # every form timed in turns, the order reversed in the second
-        order = list(runs)
-        side = {kid: [0.0, 0.0] for kid in order}
-        for turn in range(2):
-            for kid in order if turn == 0 else order[::-1]:
-                side[kid][turn] = cuda_ms(runs[kid])
-        for kid, (a, b) in side.items():
-            turns.setdefault(kid, [0.0, 0.0])
-            turns[kid] = [turns[kid][0] + a, turns[kid][1] + b]
-        log(f"  K7/K8 {name} forms in turns (kernel ms, turn 1 / turn 2): "
-            + ", ".join(f"{kid} {a:.4f} / {b:.4f}" for kid, (a, b) in side.items()))
+        if PARENT:  # this K8 and the parent's in turns: parent, this, this, parent
+            side = {kid: [0.0, 0.0] for kid in ("K8 parent", "K8")}
+            for turn, kid in enumerate(("K8 parent", "K8", "K8", "K8 parent")):
+                side[kid][turn // 2] = cuda_ms(runs[kid])
+            for kid, (a, b) in side.items():
+                turns[kid] = [t + v for t, v in zip(turns.get(kid, [0.0, 0.0]), (a, b))]
+            log(f"  K8 {name} and the parent's in turns (parent, this, this, parent): "
+                + ", ".join(f"{kid} {a:.4f} / {b:.4f} ms"
+                            for kid, (a, b) in side.items()))
         pattern = _csr_ones(p)
         sparse8 = lambda: torch.sum(  # noqa: E731
             es_new * torch.sparse.mm(pattern, so[:, None] * eo), dim=1)
-        identity8 = lambda: torch.sum(es_new * got[kept[0]][:, K:], dim=1)  # noqa: E731
+        identity8 = lambda: torch.sum(es_new * got["K7"][:, K:], dim=1)  # noqa: E731
         for label, form in (("identity", identity8), ("sparse.mm", sparse8)):
-            _, rel = compare(form(), ref8)
+            _, rel = compare(form(), ref["K8"])
             if not rel <= RTOL:
                 raise AssertionError(f"K8 {name}: library form {label} differs "
                                      f"from the plain version by {rel}")
-        for label, res, kid, ref, plain, a, n_bytes, flops in (
-                ("K7", res7, kept[0], ref7, ee.ext_factor_tail_plain, args7,
-                 sum(t.nbytes for t in args7[:6]), 6 * K + 1),
-                ("K8", res8, kept[1], ref8, ee.ext_scalar_tail_plain, args8,
-                 sum(t.nbytes for t in args8), 2 * K + 1)):
-            abs_err, rel_err = compare(got[kid], ref)
+        # the functions' inputs once: the real columns, not the records' padding
+        inputs = sum(t.nbytes for t in (eo, so, *csr))
+        for kid, res, plain, a, n_bytes, flops in (
+                ("K7", res7, ee.ext_factor_tail_plain, args7,
+                 inputs + es.nbytes + p.x.nbytes, 6 * K + 1),
+                ("K8", res8, ee.ext_scalar_tail_plain, args8,
+                 inputs + es_new.nbytes, 2 * K + 1)):
+            abs_err, rel_err = compare(got[kid], ref[kid])
             ms = cuda_ms(runs[kid])
             plain_ms = cuda_ms(lambda: plain(*a, max_edges=1 << 22), reps=3)
             n_bytes += got[kid].nbytes
             b_ms, b_by = bound(n_bytes, p.nnz * flops)
-            log(f"  {label} {name} ({kid}): nnz {p.nnz} | max abs err {abs_err:.3e} rel "
+            log(f"  {kid} {name}: nnz {p.nnz} | max abs err {abs_err:.3e} rel "
                 f"{rel_err:.3e} (tol {RTOL}) | repeat equal in bits | kernel {ms:.4f} ms "
                 f"| plain {plain_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
+            _tail_notes(kid, name, tabs[kid], p, K, ms, got[kid].nbytes)
             res["ms"] += ms
             res["plain_ms"] += plain_ms
             res["max_abs_err"] = max(res["max_abs_err"], abs_err)
             res["n_bytes"] += n_bytes
             res["n_flops"] += p.nnz * flops
-        for kid in (k for pair in EXT_FORMS for k in pair):
-            _tail_notes(kid, name, tabs[kid], p, K, side[kid][1], got[kid].nbytes)
         _log_tail_tables("K7", name, p)
         ident_ms, sparse_ms = cuda_ms(identity8), cuda_ms(sparse8)
         side_half = cuda_ms(lambda: torch.sparse.mm(pattern, so[:, None] * eo))
@@ -1396,15 +1375,17 @@ def phase_k7k8(blocked):
     # K8's library time is the call on K8's own inputs; the identity form
     # reads K7's output and stays on its log line.
     res8["library_ms"] = res8["sparse_ms"]
-    log(f"phase K7: ok | kept form {kept[0]} | per sweep: kernel {res7['ms']:.4f} ms, "
-        f"plain {res7['plain_ms']:.4f} ms, bound {res7['bound_ms']:.4f} ms "
+    log(f"phase K7: ok | per sweep: kernel {res7['ms']:.4f} ms, plain "
+        f"{res7['plain_ms']:.4f} ms, bound {res7['bound_ms']:.4f} ms "
         f"({res7['bound_by']}), library: none for the allocation half; the "
         f"S_wother half alone by torch.sparse.mm {half_ms:.4f} ms")
-    log(f"phase K8: ok | kept form {kept[1]} | per sweep: kernel {res8['ms']:.4f} ms, "
-        f"plain {res8['plain_ms']:.4f} ms, bound {res8['bound_ms']:.4f} ms "
+    log(f"phase K8: ok | per sweep: kernel {res8['ms']:.4f} ms, plain "
+        f"{res8['plain_ms']:.4f} ms, bound {res8['bound_ms']:.4f} ms "
         f"({res8['bound_by']}), library: identity {res8['identity_ms']:.4f} ms, "
-        f"sparse.mm {res8['sparse_ms']:.4f} ms | in turns, per sweep: "
-        + ", ".join(f"{kid} {a:.4f} / {b:.4f}" for kid, (a, b) in turns.items()))
+        f"sparse.mm {res8['sparse_ms']:.4f} ms"
+        + ("".join(f" | {kid} in turns {a:.4f} / {b:.4f} ms"
+                   for kid, (a, b) in turns.items())
+           if turns else " | no --parent: the parent's K8 not timed"))
     return res7, res8
 
 
@@ -1542,33 +1523,35 @@ def phase_pfit(train, val, smi):
 
 
 def _scalar_pass_products(model):
-    """Matmul launches of one user-side ``ext_scalar_stats`` of the fitted
-    extended model's state, without and with the factor pass's tables:
-    (without, with)."""
+    """Matmul launches of one ``ext_scalar_stats`` a side of the fitted
+    extended model's state, building its own tables and on the factor
+    pass's: {side: (own, on the factor pass's)}."""
     from pmf_tpu_torch.ops import ext_edge as ee
 
     st, lay = model.state, model.blocked
-    E_theta, E_beta = st["a_theta"] / st["b_theta"], st["a_beta"] / st["b_beta"]
-    E_psi = st["a_psi"] / st["b_psi"]
-    args = (E_beta, E_psi, lay.by_user)
-    kw = dict(head=lay.head, head_side="user")
-    _, _, tables = ee.ext_factor_stats(E_theta, *args, keep_tables=True, **kw)
-    counts = []
-    for factor in (None, tables):
-        rows, _, _ = profile_once(lambda: ee.ext_scalar_stats(E_theta, *args, factor=factor,
-                                                             **kw), {})
-        counts.append(trace_parts(rows, {})[1])
-    return tuple(counts)
+    e = {k: st["a_" + k] / st["b_" + k] for k in ("theta", "beta", "phi", "psi")}
+    out = {}
+    for side, p, (E_self, E_other, s_other) in (
+            ("user", lay.by_user, (e["theta"], e["beta"], e["psi"])),
+            ("item", lay.by_item, (e["beta"], e["theta"], e["phi"]))):
+        kw = dict(head=lay.head, head_side=side)
+        *_, tables = ee.ext_factor_stats(E_self, E_other, s_other, p, keep_tables=True,
+                                         **kw)
+        counts = []
+        for factor in (None, tables):
+            rows, _, _ = profile_once(lambda: ee.ext_scalar_stats(
+                E_self, E_other, s_other, p, factor=factor, **kw), {})
+            counts.append(trace_parts(rows, {})[1])
+        out[side] = tuple(counts)
+    return out
 
 
 def phase_pprofile(models, train, smi):
     """Steady sweep times (CUDA events over chained sweeps) of the plain and
-    extended Poisson sweeps; one plain sweep under torch.profiler, and one
-    extended sweep in each K7/K8 form, in turns (busy time, idle share,
-    parts, matmul launches); the matmul launches of one scalar pass with
-    and without the factor pass's tables."""
-    from pmf_tpu_torch.ops import ext_edge as ee
-
+    extended Poisson sweeps; one plain and one extended sweep under
+    torch.profiler (busy time, idle share, parts, matmul launches); the
+    matmul launches of one scalar pass with and without the factor pass's
+    tables."""
     nnz = len(train[0])
     sweeps = {}
     for name, (model, _) in models.items():
@@ -1593,40 +1576,24 @@ def phase_pprofile(models, train, smi):
         f"(idle share {1 - busy / wall_ms:.1%})")
     log_parts(trace_parts(rows, {"K2 head kernels": K2_KERNELS,
                                  "K1 tail_group_kernel<0>": (K1_TRACE,)})[0], busy)
-    kept = ee.RECORD_FORM
-    busy_of = {False: [], True: []}
-    forms = {False: ("K7 tail_group_kernel<2>", K7_TRACE, "K8 tail_group_kernel<5>",
-                     K8_TRACE),
-             True: ("K7 tail_group_kernel<6>", K7REC_TRACE, "K8 tail_group_kernel<7>",
-                    K8REC_TRACE)}
-    for turn, order in enumerate(((kept, not kept), (not kept, kept), (kept, not kept),
-                                  (not kept, kept))):
-        for record in order:
-            ee.RECORD_FORM = record
-            k7, k7_trace, k8, k8_trace = forms[record]
-            rows, busy, wall_ms = profile_once(
-                sweeps["extended"], {k7_trace: 2, k8_trace: 2, **heads})
-            groups, gemm_n = trace_parts(rows, {"K2 head kernels": K2_KERNELS,
-                                                k7: (k7_trace,), k8: (k8_trace,)})
-            form = "record" if record else "scalar-beside"
-            busy_of[record].append((busy, sum(v for g, v in groups.items()
-                                              if g in (k7, k8, "other"))))
-            log(f"phase pprofile: ok | one extended sweep, {form} form (turn "
-                f"{turn + 1}): device busy {busy:.4f} ms of {wall_ms:.4f} ms window "
-                f"(idle share {1 - busy / wall_ms:.1%}) | head-product launches "
-                f"{gemm_n}")
-            log_parts(groups, busy)
-            if record == kept and turn == 1:
-                for dev_ms, n, key in rows[:12]:
-                    log(f"  {dev_ms:9.4f} ms  {n:3d}x  {key[:90]}")
-    ee.RECORD_FORM = kept
-    for record, vals in busy_of.items():
-        log(f"  {'record' if record else 'scalar-beside'} form over {len(vals)} turns: "
-            f"busy mean {np.mean([b for b, _ in vals]):.4f} ms, K7 + K8 + other mean "
-            f"{np.mean([o for _, o in vals]):.4f} ms")
-    without, with_tables = _scalar_pass_products(models["extended"][0])
-    log(f"  head-product launches of one user-side scalar pass: {without} building "
-        f"its own, {with_tables} on the factor pass's tables")
+    rows, busy, wall_ms = profile_once(sweeps["extended"],
+                                       {K7_TRACE: 2, K8_TRACE: 2, **heads})
+    groups, gemm_n = trace_parts(rows, {"K2 head kernels": K2_KERNELS,
+                                        "K7 tail_group_kernel<2>": (K7_TRACE,),
+                                        "K8 tail_group_kernel<5>": (K8_TRACE,)})
+    log(f"phase pprofile: ok | one extended sweep: device busy {busy:.4f} ms of "
+        f"{wall_ms:.4f} ms window (idle share {1 - busy / wall_ms:.1%}) | head-product "
+        f"launches {gemm_n}")
+    log_parts(groups, busy)
+    for dev_ms, n, key in rows[:12]:
+        log(f"  {dev_ms:9.4f} ms  {n:3d}x  {key[:90]}")
+    scalar = _scalar_pass_products(models["extended"][0])
+    own = sum(n for n, _ in scalar.values())
+    log("  head-product launches of one scalar pass (building its own tables, on "
+        "the factor pass's): "
+        + ", ".join(f"{side} {a}, {b}" for side, (a, b) in scalar.items())
+        + f" | a sweep: {gemm_n} on the factor pass's tables, {gemm_n + own} "
+        "building their own")
     return steady
 
 

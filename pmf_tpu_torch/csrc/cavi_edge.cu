@@ -28,7 +28,7 @@ extern "C" int pmf_cavi_edge_raw(const float* e_self, const float* e_other,
                                  const int64_t* row_ptr, const int32_t* other,
                                  int n_self, int n_long, int K, float* out,
                                  void* stream) {
-  const tail_groups::Tables t{e_self, e_other, nullptr, nullptr, row_ptr, other, nullptr};
+  const tail_groups::Tables t{e_self, e_other, nullptr, row_ptr, other, nullptr};
   return tail_groups::launch<tail_groups::kRaw>(t, n_self, n_long, K, 0.f, out,
                                                 static_cast<cudaStream_t>(stream));
 }
@@ -37,7 +37,7 @@ extern "C" int pmf_cavi_edge(const float* e_self, const float* e_other,
                              const int64_t* row_ptr, const int32_t* other,
                              const float* x, int n_self, int n_long, int K,
                              float rate_floor, float* out, void* stream) {
-  const tail_groups::Tables t{e_self, e_other, nullptr, nullptr, row_ptr, other, x};
+  const tail_groups::Tables t{e_self, e_other, nullptr, row_ptr, other, x};
   return tail_groups::launch<tail_groups::kCavi>(t, n_self, n_long, K, rate_floor, out,
                                                  static_cast<cudaStream_t>(stream));
 }

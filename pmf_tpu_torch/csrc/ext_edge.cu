@@ -16,65 +16,42 @@
 //
 // What bounds them on an H100: instruction issue and L2 gather latency, not
 // bytes.  Per edge they move a 4-byte other id (K7 also a 4-byte rating)
-// from HBM, one K-float row of the other table and one scalar; the tables
-// and the scalar vector (<= ~14 MB at 162k x 20 f32) stay resident in the
-// 50 MB L2, so HBM traffic is the CSR arrays plus one read of each table and
-// one write of each output row.  The arithmetic (~6K flops per edge for K7,
-// 3K for K8) is far below the FP32 line.
+// from HBM and one [e | s] record of the other side (K + 1 floats padded
+// to 4 * ceil((K + 1) / 4), 96 bytes and 3 sectors at K=20); the records
+// (<= ~16 MB at 162k x 24 f32) stay resident in the 50 MB L2, so HBM
+// traffic is the CSR arrays plus one read of each table and one write of
+// each output row.  The arithmetic (~6K flops per edge for K7, 2K for K8)
+// is far below the FP32 line.
 //
 // Both are modes of the row-group kernel tail_groups.cuh (K1's row
 // groups: G lanes a self row, float4 words of tables padded to
-// 4 * ceil(K / 4) floats, the first long_rows rows a warp each): K7 is mode
-// kExt (a log2(G)-step butterfly an edge for the allocation's dot), K8 mode
-// kScalar.  K8 is linear in e_other: each lane sums s_o * e_o over its
-// words, one FMA an element an edge and no butterfly, and dots that with
-// its words of e_self_new once at the row's end, one group_sum a row.  In
-// the record form (modes kExtRec, kScalarRec) both read [e | s] records of
-// K + 1 columns, s_o in column K, shared from its lane by one shuffle an
-// edge; in the scalar form s_o is read by every lane of the group from one
-// address beside the row gather.  The header holds the design and the
-// reckoning.
+// 4 * ceil(columns / 4) floats, the first long_rows rows a warp each), on
+// the same [e | s] records, s_o in column K shared from its lane by one
+// shuffle an edge; the self rows are padded to 4 * ceil(K / 4).  K7 is
+// mode kExt (a log2(G)-step butterfly an edge for the allocation's dot),
+// K8 mode kScalar: linear in e_other, each lane sums s_o * e_o over its
+// words, one multiply-add an element an edge and no butterfly, and dots
+// that with its words of e_self_new once at the row's end, one butterfly
+// a row.  The header holds the design and the reckoning.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "tail_groups.cuh"
 
-extern "C" int pmf_ext_factor(const float* e_self, const float* e_other,
-                              const float* s_other, const int64_t* row_ptr,
-                              const int32_t* other, const float* x, int n_self,
-                              int n_long, int K, float rate_floor, float* out,
-                              void* stream) {
-  const tail_groups::Tables t{e_self, e_other, nullptr, s_other, row_ptr, other, x};
+extern "C" int pmf_ext_factor(const float* e_self, const float* es_other,
+                              const int64_t* row_ptr, const int32_t* other,
+                              const float* x, int n_self, int n_long, int K,
+                              float rate_floor, float* out, void* stream) {
+  const tail_groups::Tables t{e_self, es_other, nullptr, row_ptr, other, x};
   return tail_groups::launch<tail_groups::kExt>(t, n_self, n_long, K, rate_floor, out,
                                                 static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int pmf_ext_scalar(const float* e_self_new, const float* e_other,
-                              const float* s_other, const int64_t* row_ptr,
-                              const int32_t* other, int n_self, int n_long, int K,
-                              float* out, void* stream) {
-  const tail_groups::Tables t{e_self_new, e_other, nullptr, s_other, row_ptr, other,
-                              nullptr};
+extern "C" int pmf_ext_scalar(const float* e_self_new, const float* es_other,
+                              const int64_t* row_ptr, const int32_t* other, int n_self,
+                              int n_long, int K, float* out, void* stream) {
+  const tail_groups::Tables t{e_self_new, es_other, nullptr, row_ptr, other, nullptr};
   return tail_groups::launch<tail_groups::kScalar>(t, n_self, n_long, K, 0.f, out,
                                                    static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int pmf_ext_factor_rec(const float* e_self, const float* es_other,
-                                  const int64_t* row_ptr, const int32_t* other,
-                                  const float* x, int n_self, int n_long, int K,
-                                  float rate_floor, float* out, void* stream) {
-  const tail_groups::Tables t{e_self, es_other, nullptr, nullptr, row_ptr, other, x};
-  return tail_groups::launch<tail_groups::kExtRec>(t, n_self, n_long, K, rate_floor, out,
-                                                   static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int pmf_ext_scalar_rec(const float* e_self_new, const float* es_other,
-                                  const int64_t* row_ptr, const int32_t* other,
-                                  int n_self, int n_long, int K, float* out,
-                                  void* stream) {
-  const tail_groups::Tables t{e_self_new, es_other, nullptr, nullptr, row_ptr, other,
-                              nullptr};
-  return tail_groups::launch<tail_groups::kScalarRec>(t, n_self, n_long, K, 0.f, out,
-                                                      static_cast<cudaStream_t>(stream));
 }

@@ -228,7 +228,7 @@ extern "C" int pmf_gauss_factor(const float* aug, int stride, const int64_t* row
 extern "C" int pmf_gauss_bias(const float* mb_other, const int64_t* row_ptr,
                               const int32_t* other, const float* x, int n_self,
                               int n_long, int K, float* out, void* stream) {
-  const tail_groups::Tables t{nullptr, mb_other, nullptr, nullptr, row_ptr, other, x};
+  const tail_groups::Tables t{nullptr, mb_other, nullptr, row_ptr, other, x};
   return tail_groups::launch<tail_groups::kBias>(t, n_self, n_long, K, 0.f, out,
                                                  static_cast<cudaStream_t>(stream));
 }
@@ -237,7 +237,7 @@ extern "C" int pmf_gauss_diag(const float* mb_self, const float* mb_other,
                               const float* sq_other, const int64_t* row_ptr,
                               const int32_t* other, const float* x, int n_self, int n_long,
                               int K, float* out, void* stream) {
-  const tail_groups::Tables t{mb_self, mb_other, sq_other, nullptr, row_ptr, other, x};
+  const tail_groups::Tables t{mb_self, mb_other, sq_other, row_ptr, other, x};
   return tail_groups::launch<tail_groups::kDiag>(t, n_self, n_long, K, 0.f, out,
                                                  static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,9 @@
 // The row-group skeleton of the sparse-tail edge passes K1 (modes "cavi"
-// and "raw"), K7, K5 and K6.
+// and "raw"), K7, K5, K6 and K8.
 //
 // Replaces: pmf_tpu/ops/pallas/cavi_edge.py::_kernel (K1, modes "cavi" and
-//           "raw"), pmf_tpu/ops/pallas/ext_edge.py::_factor_kernel (K7),
+//           "raw"), pmf_tpu/ops/pallas/ext_edge.py::_factor_kernel (K7)
+//           and ::_scalar_kernel (K8),
 //           pmf_tpu/ops/pallas/gaussian_edge.py::_bias_kernel (K5) and
 //           ::_diag_kernel (K6); included by cavi_edge.cu, ext_edge.cu and
 //           gaussian_edge.cu, which hold the entry points.
@@ -14,6 +15,7 @@
 //   bias  out[r] = [sum_e m_o | sum_e b_o | sum_e x]                   (K + 2 columns)
 //   diag  out[r] = [sum_e m_o (x - b_s - b_o - <m_s, m_o>) | sum_e sq_o | sum_e m_o^2]
 //                                                                      (3K columns)
+//   scalar out[r] = sum_e s_o * <e_s, e_o>                             (1 column)
 // with sq_o = v_o + m_o^2 (K6's other-row second moment).  Rows without
 // tail edges get zeros.
 //
@@ -21,8 +23,8 @@
 // row gathers, not bytes.  At K=20 the other table is 4.7 MB (by user) or
 // 13.0 MB (by item), resident in the 50 MB L2; per edge the kernel reads an
 // 8-byte (id, rating) pair from HBM and an 80-byte row (3 sectors) from
-// L2 (K5 a 96-byte [m | b] record, 3 sectors; K6 that record and an 80-byte
-// v + m^2 row; K7 also a scalar's sector).  The previous design (a warp a
+// L2 (K5, K7 and K8 a 96-byte record, [m | b] or [e | s], 3 sectors; K6
+// that record and an 80-byte v + m^2 row).  The previous design (a warp a
 // row, lane l factor l) spent seven warp shuffles an edge in K1: two
 // broadcasts and a five-step dot butterfly.  At one warp shuffle a clock
 // per SM (cc 9.0) that is 7 x 4.74M edges / 132 SMs, about 0.13 ms a
@@ -31,30 +33,33 @@
 //
 // Design: a group of G lanes (a power of two) takes one self row, so a warp
 // holds 32/G rows; ops/_tail.py::launch_plan mirrors the choice of G, V and
-// D below (K=20: G=8, V=1, 5 of 8 lanes loading; K=50: G=8, V=2 for K1 and
-// K7, G=16, V=1 for K5 and K6).  Tables are padded to a stride of
-// 4 * ceil(columns / 4) floats, so every row starts on 16 bytes, and lane l
-// of a group holds the float4 words l, l + G, ..., l + (V - 1) G of a row
-// (words past the row hold 0; the self row's pad columns are zeroed, so
-// finite pad columns of the other tables add nothing to a dot; the builders
-// write zeros there).  K5 and K6 read m and b as one record [m | b] of
-// K + 1 columns: K5 sums the whole record (sum m | sum b); K6 takes b_o
-// from the lane holding column K by one shuffle an edge and b_s once a
-// row, and gathers v + m^2 into the same lanes' words, so its three sums
-// line up with m.  (b read as a scalar of its own, a load and a sector an
-// edge, was 14-29% slower in both; loaded by every lane from the record,
-// 12-15% slower in K6.)  The dot of an edge (cavi, ext, diag) is a
-// log2(G)-step __shfl_xor_sync butterfly inside the group, one warp
-// instruction for 32/G edges.  Each lane loads the (id, rating) of every
-// G-th edge of a batch of B = max(G, 8) edges, coalesced within the group,
-// one batch ahead, and the group shares them by __shfl_sync of width G;
-// K7's scalar s_o is read by every lane of the group from the same address
-// beside the row gather.  A group gathers D edges at once (D = 4; K6, two
-// rows an edge, 2), so a warp has D * 32/G in flight (8 in flight measured
-// slower).  The warp walks its longest row's batches together (edges past
-// a row's end read nothing and add zeros), so every shuffle names the full
-// warp; rows are in descending-count order in new space, so a warp's rows
-// have nearly equal lengths.
+// D below (K=20: G=8, V=1, 5 or 6 of 8 lanes loading; K=50: G=8, V=2 for K1,
+// K7 and K8, G=16, V=1 for K5 and K6).  Tables are padded to a stride of 4 *
+// ceil(columns / 4) floats, so every row starts on 16 bytes, and lane l of a
+// group holds the float4 words l, l + G, ..., l + (V - 1) G of a row (words
+// past the row hold 0; the self row's pad columns are zeroed, so finite pad
+// columns of the other tables add nothing to a dot; the builders write zeros
+// there).  K5 and K6 read m and b as one record [m | b] of K + 1 columns, K7
+// and K8 e and s as one record [e | s]: K5 sums the whole record (sum m |
+// sum b); K6, K7 and K8 take the scalar (b_o, s_o) from the lane holding
+// column K by one shuffle an edge; K6 takes b_s once a row and gathers v +
+// m^2 into the same lanes' words, so its three sums line up with m.  (A
+// scalar read beside the row, a load by every lane and a sector an edge, was
+// 14-29% slower in K5 and K6, and in K8 0.20 against 0.15 ms a sweep at
+// K=20, H100 80GB HBM3 at 700 W; loaded by every lane from the record,
+// 12-15% slower in K6.)  K8 is linear in e_o: each lane sums s_o * e_o over
+// its words, one multiply-add an element an edge and no butterfly, and dots
+// that with its words of the self row at the row's end, one butterfly a row.
+// The dot of an edge (cavi, ext, diag) is a log2(G)-step __shfl_xor_sync
+// butterfly inside the group, one warp instruction for 32/G edges.  Each
+// lane loads the (id, rating) of every G-th edge of a batch of B = max(G, 8)
+// edges, coalesced within the group, one batch ahead, and the group shares
+// them by __shfl_sync of width G.  A group gathers D edges at once (D = 4;
+// K6, two rows an edge, 2), so a warp has D * 32/G in flight (8 in flight
+// measured slower).  The warp walks its longest row's batches together
+// (edges past a row's end read nothing and add zeros), so every shuffle
+// names the full warp; rows are in descending-count order in new space, so a
+// warp's rows have nearly equal lengths.
 //
 // Long rows: a group walks its row one gather round trip at a time, so
 // the item pass's 757-edge rows set its end (on an H100 at K=20 the item
@@ -77,51 +82,40 @@ namespace tail_groups {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 8;     // warps a CTA
 constexpr int kThreads = 32 * kWarps;
-constexpr int kInFlight = 4;       // edges a group gathers at once (K1, K7, K5)
+constexpr int kInFlight = 4;       // edges a group gathers at once (K1, K7, K5, K8)
 constexpr int kDiagInFlight = 2;   // K6
 constexpr int kMaxK = 128;
-constexpr int kOneWord = 8;        // K1, K7: spans up to 8 words take one word a lane, wider two
+constexpr int kOneWord = 8;        // K1, K7, K8: one word a lane up to 8 words, wider two
 constexpr int kRecordOneWord = 16;  // K5, K6 ([m | b] records): up to 16 words
 
-// kScalar: K8.  kExtRec and kScalarRec: K7 and K8 on [e | s] records of
-// K + 1 columns, s_o in column K (record form (b), timed against the
-// scalar-beside form).
-enum Mode { kCavi = 0, kRaw = 1, kExt = 2, kBias = 3, kDiag = 4, kScalar = 5,
-            kExtRec = 6, kScalarRec = 7 };
+enum Mode { kCavi = 0, kRaw = 1, kExt = 2, kBias = 3, kDiag = 4, kScalar = 5 };
 
 // What a pass reads.  Tables of rows are padded to 4 * ceil(columns / 4)
 // floats and start on 16 bytes; a pointer a mode does not read may be null.
 struct Tables {
-  const float* e_self;    // self rows: K1, K7 e_self; K6 [m_self | b_self]
-  const float* e_other;   // other rows: K1, K7 e_other; K5, K6 [m_other | b_other]
+  const float* e_self;    // self rows: K1, K7, K8 e_self; K6 [m_self | b_self]
+  const float* e_other;   // other rows: K1 e_other; K7, K8 [e_other | s_other];
+                          // K5, K6 [m_other | b_other]
   const float* sq_other;  // K6: v_other + m_other^2, K columns
-  const float* s_other;   // K7: s_other, a scalar an other row
   const int64_t* row_ptr;
   const int32_t* other;
   const float* x;         // ratings: every mode but kRaw and K8
 };
 
-// K5 and K6 gather [m | b] records: K + 1 columns, b in column K; the
-// record forms of K7 and K8 [e | s] records, s in column K.
-__host__ __device__ constexpr bool is_record(int mode) {
-  return mode == kBias || mode == kDiag || mode == kExtRec || mode == kScalarRec;
-}
-// The modes that read a scalar of the other row beside its factors: s_o
-// (K7, K8) or b_o (K6).
+// K5 and K6 gather [m | b] records, K7 and K8 [e | s] records: K + 1
+// columns, the scalar in column K.
+__host__ __device__ constexpr bool is_record(int mode) { return mode >= kExt; }
+// The modes that take the other row's scalar (b_o, s_o) from its record.
 __host__ __device__ constexpr bool reads_scalar(int mode) {
-  return mode == kExt || mode == kDiag || mode >= kScalar;
-}
-// K8: one output a row, linear in e_o.
-__host__ __device__ constexpr bool is_scalar(int mode) {
-  return mode == kScalar || mode == kScalarRec;
+  return is_record(mode) && mode != kBias;
 }
 // The modes that read the ratings: all but kRaw and K8.
 __host__ __device__ constexpr bool reads_x(int mode) {
-  return mode != kRaw && !is_scalar(mode);
+  return mode != kRaw && mode != kScalar;
 }
 __host__ __device__ constexpr int columns(int mode, int K) { return is_record(mode) ? K + 1 : K; }
 __host__ __device__ constexpr int out_width(int mode, int K) {
-  return mode == kBias ? K + 2 : mode == kDiag ? 3 * K : is_scalar(mode) ? 1 : 2 * K;
+  return mode == kBias ? K + 2 : mode == kDiag ? 3 * K : mode == kScalar ? 1 : 2 * K;
 }
 __host__ __device__ constexpr int in_flight(int mode) {
   return mode == kDiag ? kDiagInFlight : kInFlight;
@@ -167,7 +161,6 @@ __global__ void __launch_bounds__(kThreads)
 tail_group_kernel(const float* __restrict__ e_self,
                   const float* __restrict__ e_other,
                   const float* __restrict__ sq_other,
-                  const float* __restrict__ s_other,
                   const int64_t* __restrict__ row_ptr,
                   const int32_t* __restrict__ other,
                   const float* __restrict__ x,
@@ -244,7 +237,7 @@ tail_group_kernel(const float* __restrict__ e_self,
   // One edge: the group's dot where the mode needs one, then the lane's
   // words.
   auto edge = [&](const float4 (&eo)[V], const float4 (&sq)[V], float xv, float sv) {
-    if constexpr (is_scalar(kMode)) {  // K8: s_o e_o, dotted with e_s at the end
+    if constexpr (kMode == kScalar) {  // K8: s_o e_o, dotted with e_s at the end
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         acc_o[v].x += sv * eo[v].x;
@@ -309,7 +302,7 @@ tail_group_kernel(const float* __restrict__ e_self,
           acc_a[v].y += coef * p[v].y;
           acc_a[v].z += coef * p[v].z;
           acc_a[v].w += coef * p[v].w;
-          if constexpr (kMode == kExt || kMode == kExtRec) {
+          if constexpr (kMode == kExt) {
             acc_o[v].x += sv * eo[v].x;
             acc_o[v].y += sv * eo[v].y;
             acc_o[v].z += sv * eo[v].z;
@@ -360,13 +353,12 @@ tail_group_kernel(const float* __restrict__ e_self,
           if constexpr (kMode == kDiag)
             sq[d][v] = (ok && w < Wq) ? __ldg(sq4 + (int64_t)o * Wq + w) : zero;
         }
-        if constexpr (reads_scalar(kMode) && !is_record(kMode))
-          sv[d] = ok ? __ldg(s_other + o) : 0.f;
       }
-      if constexpr (reads_scalar(kMode) && is_record(kMode)) {
-        // b_o (K6) or s_o: column K of the record, word K / 4 (lane
-        // (K / 4) % G, slot (K / 4) / G), from that lane to the group (a
-        // shuffle an edge measured faster than a load of it by every lane).
+      if constexpr (reads_scalar(kMode)) {
+        // b_o (K6) or s_o (K7, K8): column K of the record, word K / 4
+        // (lane (K / 4) % G, slot (K / 4) / G), from that lane to the group
+        // (a shuffle an edge measured faster than a load of it by every
+        // lane, or than a scalar read beside the row).
         const int wb = K >> 2;
 #pragma unroll
         for (int d = 0; d < D; ++d) {
@@ -387,7 +379,7 @@ tail_group_kernel(const float* __restrict__ e_self,
     }
   }
 
-  if constexpr (is_scalar(kMode)) {  // K8: <e_s, sum s_o e_o>, one group_sum a row
+  if constexpr (kMode == kScalar) {  // K8: <e_s, sum s_o e_o>, one group_sum a row
     float part = 0.f;
 #pragma unroll
     for (int v = 0; v < V; ++v) {
@@ -491,7 +483,7 @@ template <int kMode, int G, int V, int D>
 int launch_instance(const Tables& t, int n_self, int n_long, int K, float rate_floor,
                     float* out, cudaStream_t stream) {
   tail_group_kernel<kMode, G, V, D><<<blocks_of(n_self, n_long, G), kThreads, 0, stream>>>(
-      t.e_self, t.e_other, t.sq_other, t.s_other, t.row_ptr, t.other, t.x, n_self, n_long,
+      t.e_self, t.e_other, t.sq_other, t.row_ptr, t.other, t.x, n_self, n_long,
       K, rate_floor, out);
   return (int)cudaGetLastError();
 }

@@ -49,17 +49,11 @@ SIGNATURES = {
     "pmf_gauss_diag": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     # mats, R, K, out, stream
     "pmf_gj_inverse": [_P, _I, _I, _P, _P],
-    # e_self, e_other, s_other, row_ptr, other, x, n_self, n_long, K,
-    # rate_floor, out, stream
-    "pmf_ext_factor": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
-    # e_self_new, e_other, s_other, row_ptr, other, n_self, n_long, K, out,
-    # stream
-    "pmf_ext_scalar": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     # e_self, es_other, row_ptr, other, x, n_self, n_long, K, rate_floor, out,
     # stream
-    "pmf_ext_factor_rec": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
+    "pmf_ext_factor": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
     # e_self_new, es_other, row_ptr, other, n_self, n_long, K, out, stream
-    "pmf_ext_scalar_rec": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "pmf_ext_scalar": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     # self_tab, other_tab, step_off, step, max_pieces, piece_ptr, piece_row,
     # piece_first, piece_count, other, x, K, lam_floor, with_nll, out,
     # scratch, counters, stream

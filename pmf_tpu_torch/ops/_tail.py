@@ -1,7 +1,7 @@
 """What the CSR tail passes share: row chunking for the plain versions,
 the argument checks of the kernel wrappers, the head-tier slices and adds
 of the ``*_stats`` frames (permute, tail, head adds, permute back), and
-the row-group geometry and padded tables of K1, K7, K5 and K6
+the row-group geometry and padded tables of K1, K7, K5, K6 and K8
 (``csrc/tail_groups.cuh``)."""
 
 from __future__ import annotations
@@ -20,25 +20,25 @@ GROUP_MAX_K = 128
 GROUP_ONE_WORD = 8
 RECORD_ONE_WORD = 16
 # The kernels that gather records of K + 1 columns: K5's and K6's [m | b],
-# and the record forms of K7 and K8, [e | s].
-RECORD_KERNELS = ("K5", "K6", "K7rec", "K8rec")
+# K7's and K8's [e | s].
+RECORD_KERNELS = ("K5", "K6", "K7", "K8")
 # The kernels that take one word a lane up to RECORD_ONE_WORD words.
 WIDE_KERNELS = ("K5", "K6")
 # The row-group kernels: K1 (modes "cavi", "raw"), K7, K5, K6 and K8.
-PLAN_KERNELS = ("K1", "K1raw", "K7", "K5", "K6", "K8", "K7rec", "K8rec")
+PLAN_KERNELS = ("K1", "K1raw", "K7", "K5", "K6", "K8")
 
 
 def tail_stride(k: int) -> int:
-    """Row width, in floats, of the tables the row-group kernels (K1, K7,
-    K5, K6) take on the card: K rounded up to 4, so that every row starts
-    on 16 bytes."""
+    """Row width, in floats, of the tables of ``k`` columns the row-group
+    kernels (K1, K7, K5, K6, K8) take on the card: rounded up to 4, so that
+    every row starts on 16 bytes."""
     return -(-k // 4) * 4
 
 
 def columns(k: int, kernel: str = "K1") -> int:
-    """Columns of a row of the tables a row-group kernel gathers: K
-    factors, and b beside m in K5's and K6's [m | b] records (s beside e in
-    the [e | s] records of K7's and K8's record form)."""
+    """Columns of a row of the other table a row-group kernel gathers: K
+    factors, and the scalar in column K of the records of K5 and K6
+    ([m | b]) and of K7 and K8 ([e | s])."""
     return k + 1 if kernel in RECORD_KERNELS else k
 
 
@@ -72,7 +72,9 @@ def launch_plan(k: int, kernel: str = "K1") -> dict:
 def padded_rows(tab: torch.Tensor, rows: torch.Tensor | None = None) -> torch.Tensor:
     """Rows ``rows`` of ``tab`` (all when None) in a table of
     ``tail_stride(K)`` columns, zero past K: the rows are gathered straight
-    into the padded table, so padding adds no copy to the permutation."""
+    into the padded table.  The frames scatter instead (``new_space_rows``):
+    on the card a gather of rows of a multiple of 16 bytes is the slow path
+    (``scattered_rows``); chip_smoke.py's phases K1 and K7 time both."""
     n, K = tab.shape
     S = tail_stride(K)
     if S == K:
@@ -96,6 +98,18 @@ def scattered_rows(tab: torch.Tensor, new_of_old: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def record_rows(m: torch.Tensor, b: torch.Tensor,
+                new_of_old: torch.Tensor | None = None) -> torch.Tensor:
+    """Records [m | b | 0 pad] of K + 1 columns padded to ``tail_stride(K +
+    1)``, b in column K (K5's and K6's [m | b], K7's and K8's [e | s]):
+    joined by one cat and, with ``new_of_old``, permuted into new space by
+    one scatter (``scattered_rows``)."""
+    K = m.shape[1]
+    pad = m.new_zeros((1, tail_stride(K + 1) - K - 1)).expand(m.shape[0], -1)
+    tab = torch.cat([m, b[:, None].to(m.dtype), pad], dim=1)
+    return tab if new_of_old is None else scattered_rows(tab, new_of_old)
+
+
 def new_space_rows(tab: torch.Tensor, new_of_old: torch.Tensor | None) -> torch.Tensor:
     """``tab`` padded to ``tail_stride(K)`` columns (``padded_rows``) and,
     with ``new_of_old``, scattered into new space (``scattered_rows``)."""
@@ -106,10 +120,8 @@ def new_space_rows(tab: torch.Tensor, new_of_old: torch.Tensor | None) -> torch.
 def tail_tables(e_self: torch.Tensor, e_other: torch.Tensor, p: TailCSR):
     """A pass's self and other tables in new space, padded for the
     row-group kernels: each scattered by ``TailCSR.*_new_of_old``."""
-    if not p.reordered:
-        return padded_rows(e_self), padded_rows(e_other)
-    return (new_space_rows(e_self, p.self_new_of_old),
-            new_space_rows(e_other, p.other_new_of_old))
+    return (new_space_rows(e_self, p.self_new_of_old if p.reordered else None),
+            new_space_rows(e_other, p.other_new_of_old if p.reordered else None))
 
 
 def check_padded_tables(K: int, tables, kernel: str = "K1") -> None:

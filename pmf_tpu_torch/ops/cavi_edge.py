@@ -13,8 +13,8 @@ the same function in plain PyTorch.  Its ``mode="raw"`` (the reference
 kernel's second mode, which the tensor-parallel extended-Poisson scalar
 pass reads) drops the rating and the rate: ``[sum e_s*e_o | sum e_o]``.
 On the card K1 takes its tables padded to ``_tail.tail_stride(K)``
-columns (``_tail.tail_tables`` builds them inside the permutation) and K
-given apart; its row-group geometry is ``_tail.launch_plan``.
+columns (``_tail.tail_tables`` pads them and scatters them into new
+space) and K given apart; its row-group geometry is ``_tail.launch_plan``.
 """
 
 from __future__ import annotations

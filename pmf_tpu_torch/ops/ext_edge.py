@@ -14,16 +14,21 @@ rows update, then ``ext_scalar_stats`` gives S_sdot -- the same functions
 as the JAX package's ``pmf_tpu/ops/pallas/ext_edge.py``.  Each runs its
 tail kernel over the direction's CSR tail in count-reordered space, adds
 each dense head tier's statistics (``ops.dense_head``) and maps the result
-back to the original row order.  ``ext_factor_stats`` gathers the self
-and other factor tables into new space padded to ``_tail.tail_stride(K)``
-columns (``_tail.tail_tables``) and the scalars unpadded;
-``ext_scalar_stats`` permutes its three tables unpadded.
+back to the original row order.  Both tail kernels read the other side as
+one [e | s] record a row (``es_record``, s in column K, padded to
+``_tail.tail_stride(K + 1)`` columns) and the self rows padded to
+``tail_stride(K)``, each scattered into new space by
+``TailCSR.*_new_of_old``.  ``ext_factor_stats(..., keep_tables=True)``
+also returns what the scalar pass of the same block reads again
+(``FactorTables``: the records and each head tier's S_wother product),
+so that pass permutes neither E_other nor s_other and makes no head
+product of its own.
 
 ``ext_factor_tail`` (K7) and ``ext_scalar_tail`` (K8) wrap the kernels of
-``csrc/ext_edge.cu``: on CUDA tensors they launch (or raise), on CPU
-tensors they run their ``*_plain`` versions.  K7 is K1's row-group kernel
-(``csrc/tail_groups.cuh``, geometry ``_tail.launch_plan``) and takes the
-padded tables and K given apart.
+``csrc/ext_edge.cu``, modes of K1's row-group kernel
+(``csrc/tail_groups.cuh``, geometry ``_tail.launch_plan``): on CUDA
+tensors they launch (or raise), on the padded tables with K given apart;
+on CPU tensors they run their ``*_plain`` versions.
 """
 
 from __future__ import annotations
@@ -45,30 +50,31 @@ from pmf_tpu_torch.ops._tail import (
     head_out,
     head_rows,
     head_tables,
-    products,
     new_space_rows,
+    products,
+    record_rows as es_record,
     row_chunks,
-    scattered_rows,
-    tail_stride,
 )
 from pmf_tpu_torch.ops.dense_head import ext_head_stats, ext_head_stats_t
 
 RATE_FLOOR = 1e-10
 FACTOR_LAUNCHES = _build.LaunchCounter()
 SCALAR_LAUNCHES = _build.LaunchCounter()
-MAX_K = GROUP_MAX_K  # K8: ceil(K / 32) <= 4 factors a lane
+MAX_K = GROUP_MAX_K
 
 
-def ext_factor_tail_plain(e_self, e_other, s_other, row_ptr, other, x,
+def ext_factor_tail_plain(e_self, es_other, row_ptr, other, x,
                           rate_floor: float = RATE_FLOOR,
                           max_edges: int | None = None,
                           K: int | None = None) -> torch.Tensor:
     """Plain K7: (n_self, 2K) [sum x e_s*e_o / max(<e_s, e_o>, floor) |
-    sum s_o e_o] per self row of the CSR tail, in the tables' dtype.
-    ``max_edges`` bounds the edges whose temporaries exist at once; columns
-    of the tables past ``K`` (their width when None) are ignored."""
+    sum s_o e_o] per self row of the CSR tail, from the [e | s] records
+    ``es_other`` (s in column K), in the tables' dtype.  ``max_edges``
+    bounds the edges whose temporaries exist at once; columns of e_self
+    past ``K`` (its width when None) and of the records past K + 1 are
+    ignored."""
     K = e_self.shape[1] if K is None else K
-    e_self, e_other = e_self[:, :K], e_other[:, :K]
+    e_self, e_other, s_other = e_self[:, :K], es_other[:, :K], es_other[:, K]
     n_self = e_self.shape[0]
     out = torch.zeros((n_self, 2 * K), dtype=e_self.dtype, device=e_self.device)
     for r0, r1 in row_chunks(row_ptr, max_edges):
@@ -82,14 +88,15 @@ def ext_factor_tail_plain(e_self, e_other, s_other, row_ptr, other, x,
     return out
 
 
-def ext_scalar_tail_plain(e_self_new, e_other, s_other, row_ptr, other,
+def ext_scalar_tail_plain(e_self_new, es_other, row_ptr, other,
                           max_edges: int | None = None,
                           K: int | None = None) -> torch.Tensor:
     """Plain K8: (n_self,) sum s_o <e_self_new, e_o> per self row of the
-    CSR tail, in the tables' dtype (no floor); columns of the tables past
-    ``K`` (e_self_new's width when None) are ignored."""
+    CSR tail, from the [e | s] records ``es_other`` (s in column K), in the
+    tables' dtype (no floor); columns of e_self_new past ``K`` (its width
+    when None) and of the records past K + 1 are ignored."""
     K = e_self_new.shape[1] if K is None else K
-    e_self_new, e_other = e_self_new[:, :K], e_other[:, :K]
+    e_self_new, e_other, s_other = e_self_new[:, :K], es_other[:, :K], es_other[:, K]
     n_self = e_self_new.shape[0]
     out = torch.zeros((n_self,), dtype=e_self_new.dtype, device=e_self_new.device)
     for r0, r1 in row_chunks(row_ptr, max_edges):
@@ -99,150 +106,76 @@ def ext_scalar_tail_plain(e_self_new, e_other, s_other, row_ptr, other,
     return out
 
 
-def _check_cuda_args(e_self, e_other, s_other, row_ptr, other, x):
-    if e_self.dim() != 2 or not 1 <= e_self.shape[1] <= MAX_K:
-        raise ValueError(f"extended tail kernels need 1 <= K <= {MAX_K}, got "
-                         f"shape {tuple(e_self.shape)}")
-    check_tail_args([("e_self", e_self), ("e_other", e_other),
-                     ("s_other", s_other)], row_ptr, other, x, e_self.shape[0])
-    if e_other.dim() != 2 or e_other.shape[1] != e_self.shape[1]:
-        raise ValueError("e_self and e_other differ in K")
-    if s_other.shape != (e_other.shape[0],):
-        raise ValueError(f"s_other must be ({e_other.shape[0]},), got "
-                         f"{tuple(s_other.shape)}")
-
-
-def ext_factor_tail(e_self, e_other, s_other, row_ptr, other, x,
-                    rate_floor: float = RATE_FLOOR, K: int | None = None,
-                    long_rows: int = 0) -> torch.Tensor:
-    """K7: the extended factor tail pass at ``K`` factors (the tables'
-    width when None).  CUDA tensors launch the kernel, on tables of
-    ``tail_stride(K)`` columns, giving each of the first ``long_rows`` rows
-    a whole warp (``TailCSR.long_rows``); CPU tensors run the plain
-    version, which ignores columns past K."""
-    if not e_self.is_cuda:
-        return ext_factor_tail_plain(e_self, e_other, s_other, row_ptr, other,
-                                     x, rate_floor, K=K)
-    K = e_self.shape[1] if K is None else K
+def _check_cuda_args(name, e_self, es_other, row_ptr, other, x, K, long_rows):
+    """Raise on what K7 and K8 do not take on the card: K outside
+    [1, MAX_K]; self rows not padded to ``tail_stride(K)`` or records not
+    padded to ``tail_stride(K + 1)``, or not starting on 16 bytes; the
+    tail's arguments (``_tail.check_tail_args``); ``long_rows``."""
     if not 1 <= K <= MAX_K:
         raise ValueError(f"extended tail kernels need 1 <= K <= {MAX_K}, got K={K}")
-    _check_cuda_args(e_self, e_other, s_other, row_ptr, other, x)
-    check_padded_tables(K, [("e_self", e_self), ("e_other", e_other)])
-    n_self = e_self.shape[0]
-    check_long_rows(long_rows, n_self)
-    out = torch.empty((n_self, 2 * K), dtype=torch.float32, device=e_self.device)
-    _build.launch("pmf_ext_factor", FACTOR_LAUNCHES, e_self.device, e_self,
-                  e_other, s_other, row_ptr, other, x, n_self, long_rows, K,
-                  rate_floor, out)
-    return out
-
-
-def ext_scalar_tail(e_self_new, e_other, s_other, row_ptr, other,
-                    K: int | None = None, long_rows: int = 0) -> torch.Tensor:
-    """K8: the scalar-rate tail pass at ``K`` factors (the tables' width
-    when None).  CUDA tensors launch the kernel, on tables of
-    ``tail_stride(K)`` columns, giving each of the first ``long_rows`` rows
-    a whole warp; CPU tensors run the plain version, which ignores columns
-    past K."""
-    if not e_self_new.is_cuda:
-        return ext_scalar_tail_plain(e_self_new, e_other, s_other, row_ptr, other, K=K)
-    K = e_self_new.shape[1] if K is None else K
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"extended tail kernels need 1 <= K <= {MAX_K}, got K={K}")
-    _check_cuda_args(e_self_new, e_other, s_other, row_ptr, other, None)
-    check_padded_tables(K, [("e_self_new", e_self_new), ("e_other", e_other)])
-    n_self = e_self_new.shape[0]
-    check_long_rows(long_rows, n_self)
-    out = torch.empty((n_self,), dtype=torch.float32, device=e_self_new.device)
-    _build.launch("pmf_ext_scalar", SCALAR_LAUNCHES, e_self_new.device, e_self_new,
-                  e_other, s_other, row_ptr, other, n_self, long_rows, K, out)
-    return out
-
-
-# Record form (b): K7 and K8 read one [e | s] record of K + 1 columns a
-# other row, padded to tail_stride(K + 1) (``es_record``); the self tables
-# stay at tail_stride(K).  RECORD_FORM picks it in the frames.
-RECORD_FORM = False
-
-
-def es_record(e, s, new_of_old=None) -> torch.Tensor:
-    """The [e | s | 0 pad] records of the record form, ``tail_stride(K +
-    1)`` columns, scattered into new space with ``new_of_old``."""
-    K = e.shape[1]
-    pad = e.new_zeros((1, tail_stride(K + 1) - K - 1)).expand(e.shape[0], -1)
-    tab = torch.cat([e, s[:, None].to(e.dtype), pad], dim=1)
-    return tab if new_of_old is None else scattered_rows(tab, new_of_old)
-
-
-def _check_record_args(e_self, es_other, row_ptr, other, x, K, long_rows):
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"extended tail kernels need 1 <= K <= {MAX_K}, got K={K}")
-    check_tail_args([("e_self", e_self), ("es_other", es_other)], row_ptr, other, x,
+    check_tail_args([(name, e_self), ("es_other", es_other)], row_ptr, other, x,
                     e_self.shape[0])
-    check_padded_tables(K, [("e_self", e_self)])
-    check_padded_tables(K, [("es_other", es_other)], "K7rec")
+    check_padded_tables(K, [(name, e_self)])
+    check_padded_tables(K, [("es_other", es_other)], "K7")
     check_long_rows(long_rows, e_self.shape[0])
 
 
-def ext_factor_tail_rec(e_self, es_other, row_ptr, other, x,
-                        rate_floor: float = RATE_FLOOR, K: int | None = None,
-                        long_rows: int = 0) -> torch.Tensor:
-    """K7 in the record form: ``es_other`` the [e | s] records."""
-    K = es_other.shape[1] - 1 if K is None else K
+def ext_factor_tail(e_self, es_other, row_ptr, other, x,
+                    rate_floor: float = RATE_FLOOR, K: int | None = None,
+                    long_rows: int = 0) -> torch.Tensor:
+    """K7: the extended factor tail pass at ``K`` factors (e_self's width
+    when None) from the [e | s] records ``es_other``.  CUDA tensors launch
+    the kernel, on self rows of ``tail_stride(K)`` columns and records of
+    ``tail_stride(K + 1)`` (``es_record``), giving each of the first
+    ``long_rows`` rows a whole warp (``TailCSR.long_rows``); CPU tensors run
+    the plain version, which ignores pad columns."""
     if not e_self.is_cuda:
-        return ext_factor_tail_plain(e_self, es_other, es_other[:, K], row_ptr, other,
-                                     x, rate_floor, K=K)
-    _check_record_args(e_self, es_other, row_ptr, other, x, K, long_rows)
+        return ext_factor_tail_plain(e_self, es_other, row_ptr, other, x, rate_floor,
+                                     K=K)
+    K = e_self.shape[1] if K is None else K
+    _check_cuda_args("e_self", e_self, es_other, row_ptr, other, x, K, long_rows)
     n_self = e_self.shape[0]
     out = torch.empty((n_self, 2 * K), dtype=torch.float32, device=e_self.device)
-    _build.launch("pmf_ext_factor_rec", FACTOR_LAUNCHES, e_self.device, e_self,
-                  es_other, row_ptr, other, x, n_self, long_rows, K, rate_floor, out)
+    _build.launch("pmf_ext_factor", FACTOR_LAUNCHES, e_self.device, e_self, es_other,
+                  row_ptr, other, x, n_self, long_rows, K, rate_floor, out)
     return out
 
 
-def ext_scalar_tail_rec(e_self_new, es_other, row_ptr, other, K: int | None = None,
-                        long_rows: int = 0) -> torch.Tensor:
-    """K8 in the record form: ``es_other`` the [e | s] records."""
-    K = es_other.shape[1] - 1 if K is None else K
+def ext_scalar_tail(e_self_new, es_other, row_ptr, other, K: int | None = None,
+                    long_rows: int = 0) -> torch.Tensor:
+    """K8: the scalar-rate tail pass at ``K`` factors (e_self_new's width
+    when None) from the [e | s] records ``es_other``.  CUDA tensors launch
+    the kernel, on tables padded as K7's, giving each of the first
+    ``long_rows`` rows a whole warp; CPU tensors run the plain version,
+    which ignores pad columns."""
     if not e_self_new.is_cuda:
-        return ext_scalar_tail_plain(e_self_new, es_other, es_other[:, K], row_ptr,
-                                     other, K=K)
-    _check_record_args(e_self_new, es_other, row_ptr, other, None, K, long_rows)
+        return ext_scalar_tail_plain(e_self_new, es_other, row_ptr, other, K=K)
+    K = e_self_new.shape[1] if K is None else K
+    _check_cuda_args("e_self_new", e_self_new, es_other, row_ptr, other, None, K,
+                     long_rows)
     n_self = e_self_new.shape[0]
     out = torch.empty((n_self,), dtype=torch.float32, device=e_self_new.device)
-    _build.launch("pmf_ext_scalar_rec", SCALAR_LAUNCHES, e_self_new.device, e_self_new,
+    _build.launch("pmf_ext_scalar", SCALAR_LAUNCHES, e_self_new.device, e_self_new,
                   es_other, row_ptr, other, n_self, long_rows, K, out)
     return out
 
 
 @dataclass
 class FactorTables:
-    """What ``ext_factor_stats`` built in new space, which the scalar pass
-    of the same block reads again: ``other``, K7's other table (padded to
-    ``tail_stride(K)``, or the [e | s] records in the record form), ``s``
-    the other side's scalars (a column of the records in that form), and
-    ``sw``, each head tier's (start row, M-product of s * E_other cut to
-    the self rows), the ``S_wother`` head statistic."""
-    other: torch.Tensor
-    s: torch.Tensor
+    """What ``ext_factor_stats`` built in new space that the scalar pass of
+    the same block reads again: ``records``, the other side's [e | s]
+    records (``es_record``), and ``sw``, each head tier's (start row,
+    S_wother head statistic M-product of s * E_other, cut to the self
+    rows)."""
+    records: torch.Tensor
     sw: list
 
 
-def _other_tables(E_other, s_other, p: TailCSR, K: int):
-    """(K7's and K8's other table, s_o, e_other's real columns) in new
-    space: scattered by ``other_new_of_old``, padded."""
-    new_of_old = p.other_new_of_old if p.reordered else None
-    if RECORD_FORM:
-        rec = es_record(E_other, s_other, new_of_old)
-        return rec, rec[:, K], rec[:, :K]
-    t_other = new_space_rows(E_other, new_of_old)
-    s_o = scattered_rows(s_other, new_of_old) if p.reordered else s_other.contiguous()
-    return t_other, s_o, t_other[:, :K]
-
-
-def _s_tab(s_o, e_other, tier, head_side):
-    """s * E_other over the tier's other rows, as the head product takes it."""
-    return head_rows(s_o, tier, head_side)[:, None] * head_rows(e_other, tier, head_side)
+def _s_tab(records, K, tier, head_side):
+    """s * E_other over the tier's other rows, as the head product takes it
+    (from the records' real columns)."""
+    return (head_rows(records[:, K], tier, head_side)[:, None]
+            * head_rows(records[:, :K], tier, head_side))
 
 
 def ext_factor_stats(E_self, E_other, s_other, p: TailCSR,
@@ -257,19 +190,14 @@ def ext_factor_stats(E_self, E_other, s_other, p: TailCSR,
     K = E_self.shape[1]
     heads = check_head(p, head)
     t_self = new_space_rows(E_self, p.self_new_of_old if p.reordered else None)
-    t_other, s_o, e_other = _other_tables(E_other, s_other, p, K)
-    if RECORD_FORM:
-        acc = ext_factor_tail_rec(t_self, t_other, p.row_ptr, p.other, p.x, rate_floor,
-                                  K=K, long_rows=p.long_rows)
-    else:
-        acc = ext_factor_tail(t_self, t_other, s_o, p.row_ptr, p.other, p.x,
-                              rate_floor, K=K, long_rows=p.long_rows)
-    e_self = t_self[:, :K]
+    records = es_record(E_other, s_other, p.other_new_of_old if p.reordered else None)
+    acc = ext_factor_tail(t_self, records, p.row_ptr, p.other, p.x, rate_floor, K=K,
+                          long_rows=p.long_rows)
     fn = ext_head_stats if head_side == "user" else ext_head_stats_t
     head_outs, sw = [], []
     for tier in heads:
-        theta_h, beta_h = head_tables(e_self, e_other, tier, head_side)
-        s_alloc, sw_h = fn(theta_h, beta_h, _s_tab(s_o, e_other, tier, head_side), tier,
+        theta_h, beta_h = head_tables(t_self[:, :K], records[:, :K], tier, head_side)
+        s_alloc, sw_h = fn(theta_h, beta_h, _s_tab(records, K, tier, head_side), tier,
                            rate_floor)
         head_outs.append(head_out(tier, head_side, (s_alloc, sw_h)))
         sw.append((tier.row_start, sw_h) if head_side == "user" else (0, sw_h[: tier.hi]))
@@ -277,7 +205,7 @@ def ext_factor_stats(E_self, E_other, s_other, p: TailCSR,
     if p.reordered:
         acc = acc[p.self_new_of_old]
     if keep_tables:
-        return acc[:, :K], acc[:, K:], FactorTables(t_other, s_o, sw)
+        return acc[:, :K], acc[:, K:], FactorTables(records, sw)
     return acc[:, :K], acc[:, K:]
 
 
@@ -288,22 +216,20 @@ def ext_scalar_stats(E_self_new, E_other, s_other, p: TailCSR, head=None,
     original row order.  The head part reuses the linear product:
     rowsum(E_self_new * (M @ (s * E_other))).  ``factor``: what
     ``ext_factor_stats(..., keep_tables=True)`` of the same block built
-    from the same ``E_other`` and ``s_other`` (then neither is permuted
-    again and no head product is made); without it, built here."""
+    from the same ``E_other`` and ``s_other``; then neither is permuted
+    again and each tier's product is the factor pass's S_wother one, the
+    same call on the same inputs.  Without it, both are built here."""
     K = E_self_new.shape[1]
     heads = check_head(p, head)
     if factor is None:
-        t_other, s_o, e_other = _other_tables(E_other, s_other, p, K)
-        factor = FactorTables(t_other, s_o, [
-            products(tier, _s_tab(s_o, e_other, tier, head_side), None, head_side)[:2]
+        records = es_record(E_other, s_other,
+                            p.other_new_of_old if p.reordered else None)
+        factor = FactorTables(records, [
+            products(tier, _s_tab(records, K, tier, head_side), None, head_side)[:2]
             for tier in heads])
     e_self = new_space_rows(E_self_new, p.self_new_of_old if p.reordered else None)
-    if RECORD_FORM:
-        acc = ext_scalar_tail_rec(e_self, factor.other, p.row_ptr, p.other, K=K,
-                                  long_rows=p.long_rows)
-    else:
-        acc = ext_scalar_tail(e_self, factor.other, factor.s, p.row_ptr, p.other, K=K,
-                              long_rows=p.long_rows)
+    acc = ext_scalar_tail(e_self, factor.records, p.row_ptr, p.other, K=K,
+                          long_rows=p.long_rows)
     acc = add_heads(acc, [
         (start, torch.sum(e_self[start : start + sw.shape[0], :K] * sw, dim=1))
         for start, sw in factor.sw])

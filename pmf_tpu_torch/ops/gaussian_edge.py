@@ -40,9 +40,9 @@ from pmf_tpu_torch.ops._tail import (
     head_rows as _head_rows,
     padded_rows as _padded_rows,
     products as _products,
+    record_rows as record_table,
     row_chunks as _row_chunks,
     scattered_rows as _scattered_rows,
-    tail_stride as _tail_stride,
 )
 
 FACTOR_LAUNCHES = _build.LaunchCounter()
@@ -158,16 +158,6 @@ def factor_tail_stats(aug, row_ptr, other, x, K: int,
 
 
 # ------------------------------------------------------------------ K5 --
-
-def record_table(m, b, new_of_old=None) -> torch.Tensor:
-    """The [m | b | 0 pad] records K5 and K6 gather, ``tail_stride(K + 1)``
-    columns: joined by one cat and, with ``new_of_old``, permuted into new
-    space by one scatter (``_tail.scattered_rows``)."""
-    K = m.shape[1]
-    pad = m.new_zeros((1, _tail_stride(K + 1) - K - 1)).expand(m.shape[0], -1)
-    tab = torch.cat([m, b[:, None].to(m.dtype), pad], dim=1)
-    return tab if new_of_old is None else _scattered_rows(tab, new_of_old)
-
 
 def bias_tail_stats_plain(mb_other, row_ptr, other, x, K: int | None = None,
                           max_edges: int | None = None) -> torch.Tensor:

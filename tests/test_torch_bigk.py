@@ -496,9 +496,8 @@ WRAPPERS = {
     "K5": lambda: gaussian_edge.bias_tail_stats(_wide(5, 132), *_csr(3, 5, 4), K=K9),
     "K6": lambda: gaussian_edge.diag_tail_stats(_wide(3, 132), _wide(5, 132),
                                                 _wide(5, 132), *_csr(3, 5, 4), K=K9),
-    "K7": lambda: ext_edge.ext_factor_tail(_wide(3, K9), _wide(5, K9), _wide(5),
-                                           *_csr(3, 5, 4)),
-    "K8": lambda: ext_edge.ext_scalar_tail(_wide(3, K9), _wide(5, K9), _wide(5),
+    "K7": lambda: ext_edge.ext_factor_tail(_wide(3, K9), _wide(5, 132), *_csr(3, 5, 4)),
+    "K8": lambda: ext_edge.ext_scalar_tail(_wide(3, K9), _wide(5, 132),
                                            *_csr(3, 5, 4)[:2]),
     "K9": lambda: map_grad.map_grad_pieces(*_map_args(K=K9)),
 }
@@ -539,10 +538,10 @@ def test_every_wrapper_takes_k128_on_the_cpu(kernel):
             torch.tensor([0, 2, 2, 4]),
             torch.tensor([0, 4, 1, 2], dtype=torch.int32), torch.ones(4)),
         "K7": lambda: ext_edge.ext_factor_tail(
-            torch.rand(3, k), torch.rand(5, k), torch.rand(5), torch.tensor([0, 2, 2, 4]),
+            torch.rand(3, k), torch.rand(5, k + 1), torch.tensor([0, 2, 2, 4]),
             torch.tensor([0, 4, 1, 2], dtype=torch.int32), torch.ones(4)),
         "K8": lambda: ext_edge.ext_scalar_tail(
-            torch.rand(3, k), torch.rand(5, k), torch.rand(5), torch.tensor([0, 2, 2, 4]),
+            torch.rand(3, k), torch.rand(5, k + 1), torch.tensor([0, 2, 2, 4]),
             torch.tensor([0, 4, 1, 2], dtype=torch.int32)),
         "K9": lambda: map_grad.map_grad_pieces(*_cpu_map_args(k)),
     }[kernel]

@@ -142,10 +142,11 @@ def test_tail_wrappers_on_cpu_are_the_plain_versions(small_ratings):
     th, be, th_new, _, _, psi = (torch.from_numpy(t)
                                  for t in _tables(np.float32, K=5, seed=4))
     before = (ext_edge.FACTOR_LAUNCHES.count, ext_edge.SCALAR_LAUNCHES.count)
-    got7 = ext_edge.ext_factor_tail(th, be, psi, p.row_ptr, p.other, p.x)
-    ref7 = ext_edge.ext_factor_tail_plain(th, be, psi, p.row_ptr, p.other, p.x)
-    got8 = ext_edge.ext_scalar_tail(th_new, be, psi, p.row_ptr, p.other)
-    ref8 = ext_edge.ext_scalar_tail_plain(th_new, be, psi, p.row_ptr, p.other)
+    rec = ext_edge.es_record(be, psi)  # the [e | s] records K7 and K8 read
+    got7 = ext_edge.ext_factor_tail(th, rec, p.row_ptr, p.other, p.x)
+    ref7 = ext_edge.ext_factor_tail_plain(th, rec, p.row_ptr, p.other, p.x)
+    got8 = ext_edge.ext_scalar_tail(th_new, rec, p.row_ptr, p.other)
+    ref8 = ext_edge.ext_scalar_tail_plain(th_new, rec, p.row_ptr, p.other)
     assert got7.shape == (120, 10) and got8.shape == (120,)
     torch.testing.assert_close(got7, ref7, rtol=0, atol=0)
     torch.testing.assert_close(got8, ref8, rtol=0, atol=0)
@@ -158,11 +159,12 @@ def test_plain_row_chunks_agree(small_ratings):
     p = tb.by_item
     th, be, _, be_new, phi, _ = (torch.from_numpy(t)
                                  for t in _tables(np.float64, seed=5))
-    whole7 = ext_edge.ext_factor_tail_plain(be, th, phi, p.row_ptr, p.other, p.x)
-    chunk7 = ext_edge.ext_factor_tail_plain(be, th, phi, p.row_ptr, p.other, p.x,
+    rec = ext_edge.es_record(th, phi)
+    whole7 = ext_edge.ext_factor_tail_plain(be, rec, p.row_ptr, p.other, p.x)
+    chunk7 = ext_edge.ext_factor_tail_plain(be, rec, p.row_ptr, p.other, p.x,
                                             max_edges=7)
-    whole8 = ext_edge.ext_scalar_tail_plain(be_new, th, phi, p.row_ptr, p.other)
-    chunk8 = ext_edge.ext_scalar_tail_plain(be_new, th, phi, p.row_ptr, p.other,
+    whole8 = ext_edge.ext_scalar_tail_plain(be_new, rec, p.row_ptr, p.other)
+    chunk8 = ext_edge.ext_scalar_tail_plain(be_new, rec, p.row_ptr, p.other,
                                             max_edges=7)
     torch.testing.assert_close(chunk7, whole7, rtol=1e-12, atol=0)
     torch.testing.assert_close(chunk8, whole8, rtol=1e-12, atol=0)
@@ -178,14 +180,15 @@ def test_tail_plain_zero_rows_floor_and_weights():
     row_ptr = torch.tensor([0, 2, 2, 3])
     other = torch.tensor([0, 1, 1], dtype=torch.int32)
     x = torch.tensor([4.0, 2.0, 6.0])
-    out = ext_edge.ext_factor_tail_plain(es, eo, so, row_ptr, other, x)
+    rec = torch.cat([eo, so[:, None]], dim=1)  # [e | s]
+    out = ext_edge.ext_factor_tail_plain(es, rec, row_ptr, other, x)
     # row 0: edge to o=0 has dot max(0, floor): alloc = x/floor * 0 = 0;
     # edge to o=1: dot 1, alloc = 2 * [1, 0]; weighted 10*[0,3] + .5*[1,1].
     torch.testing.assert_close(out[0], torch.tensor([2.0, 0.0, 0.5, 30.5]))
     torch.testing.assert_close(out[1], torch.zeros(4))
     torch.testing.assert_close(out[2], torch.tensor([4.0, 2.0, 0.5, 0.5]))
     es_new = torch.tensor([[1.0, 2.0], [3.0, 4.0], [0.5, 0.25]])
-    sdot = ext_edge.ext_scalar_tail_plain(es_new, eo, so, row_ptr, other)
+    sdot = ext_edge.ext_scalar_tail_plain(es_new, rec, row_ptr, other)
     torch.testing.assert_close(sdot, torch.tensor([61.5, 0.0, 0.375]))
     torch.testing.assert_close(sdot, torch.sum(es_new * out[:, 2:], dim=1))
 

@@ -347,13 +347,14 @@ def test_gaussian_wrappers_reject_what_the_kernels_do_not_take():
             _cuda_looking(torch.rand(2, 3, 3, dtype=torch.float64)))
 
 
+# (self rows of K = 4 columns, [e | s] records of tail_stride(K + 1) = 8)
 EXT_WRAPPERS = {
     "K7": ("ext_factor_tail", "FACTOR_LAUNCHES",
-           lambda: (_cuda_looking(torch.rand(3, K)), _cuda_looking(torch.rand(5, K)),
-                    _cuda_looking(torch.rand(5)), *_csr(3, 5, 4))),
+           lambda: (_cuda_looking(torch.rand(3, K)), _cuda_looking(torch.rand(5, 8)),
+                    *_csr(3, 5, 4))),
     "K8": ("ext_scalar_tail", "SCALAR_LAUNCHES",
-           lambda: (_cuda_looking(torch.rand(3, K)), _cuda_looking(torch.rand(5, K)),
-                    _cuda_looking(torch.rand(5)), *_csr(3, 5, 4)[:2])),
+           lambda: (_cuda_looking(torch.rand(3, K)), _cuda_looking(torch.rand(5, 8)),
+                    *_csr(3, 5, 4)[:2])),
 }
 
 
@@ -374,27 +375,25 @@ def test_ext_wrappers_reject_what_the_kernels_do_not_take(kernel):
     good = args()
     wide = _cuda_looking(torch.rand(3, 129))  # K > 128
     with pytest.raises(ValueError, match="K <= 128"):
-        fn(wide, _cuda_looking(torch.rand(5, 129)), *good[2:])
-    with pytest.raises(TypeError, match="e_other"):
-        fn(good[0], _cuda_looking(torch.rand(5, K, dtype=torch.float64)), *good[2:])
-    with pytest.raises(TypeError, match="s_other"):
-        fn(*good[:2], _cuda_looking(torch.rand(5, dtype=torch.float64)), *good[3:])
-    with pytest.raises(ValueError, match="s_other must be"):
-        fn(*good[:2], _cuda_looking(torch.rand(4)), *good[3:])  # one scalar short
-    with pytest.raises(ValueError, match="differ in K"):
-        fn(good[0], _cuda_looking(torch.rand(5, K + 1)), *good[2:])
+        fn(wide, _cuda_looking(torch.rand(5, 132)), *good[2:])
+    with pytest.raises(TypeError, match="es_other"):
+        fn(good[0], _cuda_looking(torch.rand(5, 8, dtype=torch.float64)), *good[2:])
+    with pytest.raises(ValueError, match=r"tail_stride\(K \+ 1\) = 8"):
+        fn(good[0], _cuda_looking(torch.rand(5, K)), *good[2:])  # no s column
+    with pytest.raises(ValueError, match=r"tail_stride\(K\) = 4"):
+        fn(_cuda_looking(torch.rand(3, 8)), *good[1:], K=K)  # self rows of a record
     with pytest.raises(TypeError, match="other must be"):
-        fn(*good[:4], _cuda_looking(torch.zeros(4, dtype=torch.int64)), *good[5:])
+        fn(*good[:3], _cuda_looking(torch.zeros(4, dtype=torch.int64)), *good[4:])
     with pytest.raises(ValueError, match="is on"):
-        fn(good[0], _cuda_looking(torch.rand(5, K, device="meta")), *good[2:])
+        fn(good[0], _cuda_looking(torch.rand(5, 8, device="meta")), *good[2:])
     with pytest.raises(ValueError, match="CSR shapes"):
         fn(_cuda_looking(torch.rand(2, K)), *good[1:])  # row_ptr has 4 entries
 
 
 def _tail_call(kernel, es, eo, **kw):
-    """K1 ("K1", "K1raw"), K7, K5 (its [m | b] table ``eo``) or K6 (the
-    [m | b] tables ``es`` and ``eo``) on CUDA-looking tables over a 4-edge
-    tail."""
+    """K1 ("K1", "K1raw"), K7 or K8 (the [e | s] records ``eo``), K5 (its
+    [m | b] table ``eo``) or K6 (the [m | b] tables ``es`` and ``eo``) on
+    CUDA-looking tables over a 4-edge tail."""
     row_ptr, other, x = _csr(3, 5, 4)
     if kernel == "K5":
         return gaussian_edge.bias_tail_stats(eo, row_ptr, other, x, **kw)
@@ -402,28 +401,30 @@ def _tail_call(kernel, es, eo, **kw):
         K = kw.get("K")
         sq = eo if K is None else _cuda_looking(torch.rand(5, _tail.tail_stride(K)))
         return gaussian_edge.diag_tail_stats(es, eo, sq, row_ptr, other, x, **kw)
-    if kernel == "K7":
-        return ext_edge.ext_factor_tail(es, eo, _cuda_looking(torch.rand(5)), row_ptr,
-                                        other, x, **kw)
+    if kernel == "K7":  # eo: the [e | s] records
+        return ext_edge.ext_factor_tail(es, eo, row_ptr, other, x, **kw)
+    if kernel == "K8":
+        return ext_edge.ext_scalar_tail(es, eo, row_ptr, other, **kw)
     raw = kernel == "K1raw"
     return cavi_edge.tail_edge_stats(es, eo, row_ptr, other, None if raw else x,
                                      mode="raw" if raw else "cavi", **kw)
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K1raw", "K7", "K5", "K6"])
+@pytest.mark.parametrize("kernel", ["K1", "K1raw", "K7", "K5", "K6", "K8"])
 def test_tail_group_wrappers_take_only_padded_tables(monkeypatch, broken_build, kernel):
-    """On the card K1, K7, K5 and K6 take only tables of tail_stride(K)
-    columns (K5's and K6's [m | b] records tail_stride(K + 1)) that start on
+    """On the card K1, K7, K5, K6 and K8 take only tables of tail_stride(K)
+    columns (the [m | b] and [e | s] records tail_stride(K + 1)) that start on
     16 bytes, and 1 <= K <= 128: anything else raises before the build,
     never pads quietly and never runs the plain version."""
     module, plain = {"K7": (ext_edge, "ext_factor_tail_plain"),
+                     "K8": (ext_edge, "ext_scalar_tail_plain"),
                      "K5": (gaussian_edge, "bias_tail_stats_plain"),
                      "K6": (gaussian_edge, "diag_tail_stats_plain")}.get(
                          kernel, (cavi_edge, "tail_edge_stats_plain"))
     _forbid(monkeypatch, module, plain)
     counters = (cavi_edge.TAIL_LAUNCHES, cavi_edge.TAIL_RAW_LAUNCHES,
                 ext_edge.FACTOR_LAUNCHES, gaussian_edge.BIAS_LAUNCHES,
-                gaussian_edge.DIAG_LAUNCHES)
+                gaussian_edge.DIAG_LAUNCHES, ext_edge.SCALAR_LAUNCHES)
     before = [c.count for c in counters]
 
     def tab(n, w):
@@ -435,8 +436,9 @@ def test_tail_group_wrappers_take_only_padded_tables(monkeypatch, broken_build, 
         _tail_call(kernel, tab(3, 8), tab(5, 8), K=3)  # padded for another K
     with pytest.raises(ValueError, match="1 <= K <= 128"):
         _tail_call(kernel, tab(3, 132), tab(5, 132), K=129)
-    with pytest.raises(ValueError, match="padded to tail_stride" if kernel == "K5"
-                       else "differ in K"):  # K5 reads no self table
+    # K5 reads no self table; K7 and K8 check their records apart from it
+    with pytest.raises(ValueError, match="padded to tail_stride"
+                       if kernel in ("K5", "K7", "K8") else "differ in K"):
         _tail_call(kernel, tab(3, 8), tab(5, 5), K=5)
     misaligned = torch.rand(5 * 8 + 1)[1:].view(5, 8).as_subclass(_CudaLooking)
     with pytest.raises(ValueError, match="start on 16 bytes"):

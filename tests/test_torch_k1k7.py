@@ -61,6 +61,10 @@ def test_launch_plan_mirrors_the_kernel_source():
     assert const("kMaxK") == _tail.GROUP_MAX_K == cavi_edge.MAX_K
     assert const("kOneWord") == _tail.GROUP_ONE_WORD
     assert "return g < 8 ? 8 : g;" in src  # batch_of
+    # K8 is mode kScalar, with K1's one word a lane up to kOneWord words
+    assert "K8" in _tail.PLAN_KERNELS and "kScalar = 5" in src
+    assert "return mode == kBias || mode == kDiag ? kRecordOneWord : kOneWord;" in src
+    assert _tail.WIDE_KERNELS == ("K5", "K6")
     built = set(re.findall(r"PMF_TAIL_PLAN\((\d+), (\d+)\)\n", src))
     plans = {(str(_tail.launch_plan(K, kid)["lanes"]), str(_tail.launch_plan(K, kid)["vec"]))
              for K in range(1, _tail.GROUP_MAX_K + 1) for kid in _tail.PLAN_KERNELS}
@@ -71,22 +75,27 @@ def test_launch_plan_mirrors_the_kernel_source():
 
 # ------------------------------------------------------------ emulation --
 
-def _group_sums(mode, K, s_row, eo, so, edges, span, floor=FLOOR):
+def _group_sums(mode, K, s_row, eo, edges, span, floor=FLOOR):
     """One group's (G, V, 4) accumulators over ``edges`` (other id, rating)
     as the kernel walks them: batches of B edges, lane gl loading edges
     base + gl + G q and edge e broadcast from lane e % G, ``span`` edges
     walked (past the group's own, zeros), each lane's partial dot over its
-    words, the in-group butterfly, sums in edge order, in float32."""
-    plan = _tail.launch_plan(K)
+    words, the in-group butterfly, sums in edge order, in float32.  Mode
+    "ext" (K7) reads [e | s] records ``eo`` and takes s_o from the lane
+    holding column K."""
+    plan = _tail.launch_plan(K, "K7" if mode == "ext" else "K1")
     G, V, W, B = plan["lanes"], plan["vec"], plan["words"], plan["batch"]
+    Ws = -(-K // 4)  # words of a self row
     f32 = np.float32
     lane_w = np.array([[v * G + gl for v in range(V)] for gl in range(G)])  # (G, V)
     valid_w = lane_w < W
+    valid_s = lane_w < Ws
     eo_w = eo.reshape(eo.shape[0], W, 4)
     row = s_row.copy()
     row[K:] = 0  # the kernel zeroes the self row's pad columns
     s_w = np.zeros((G, V, 4), f32)
-    s_w[valid_w] = row.reshape(W, 4)[lane_w[valid_w]]
+    s_w[valid_s] = row.reshape(Ws, 4)[lane_w[valid_s]]
+    wb = K // 4  # K7: the word holding s_o, lane wb % G, slot wb // G
     acc_a = np.zeros((G, V, 4), f32)
     acc_o = np.zeros((G, V, 4), f32)
     for base in range(0, span, B):
@@ -99,7 +108,7 @@ def _group_sums(mode, K, s_row, eo, so, edges, span, floor=FLOOR):
             if ok:
                 o_w[valid_w] = eo_w[o][lane_w[valid_w]]
             xv = f32(xv if ok else 0.0)
-            sv = f32(so[o] if ok else 0.0)
+            sv = o_w[wb % G, wb // G, K % 4] if mode == "ext" else f32(0.0)
             if mode == "raw":
                 acc_a += s_w * o_w
                 acc_o += o_w
@@ -121,7 +130,7 @@ def _group_sums(mode, K, s_row, eo, so, edges, span, floor=FLOOR):
 
 
 def _row_out(K, acc_a, acc_o):
-    """The (2K,) output row the group's lanes write."""
+    """The (2K,) output row the group's lanes write (columns below K)."""
     G, V, _ = acc_a.shape
     W = -(-K // 4)
     out = np.zeros(2 * K, np.float32)
@@ -134,23 +143,23 @@ def _row_out(K, acc_a, acc_o):
     return out
 
 
-def _emulate_warp(mode, K, es, eo, so, rows):
+def _emulate_warp(mode, K, es, eo, rows):
     """One warp of row groups: ``rows`` (per group a list of edges) walked
     together to the longest; (len(rows), 2K)."""
     span = max(len(r) for r in rows)
-    return np.stack([_row_out(K, *_group_sums(mode, K, es[g], eo, so, edges, span))
+    return np.stack([_row_out(K, *_group_sums(mode, K, es[g], eo, edges, span))
                      for g, edges in enumerate(rows)])
 
 
-def _emulate_split(mode, K, es_row, eo, so, edges):
+def _emulate_split(mode, K, es_row, eo, edges):
     """One long row given a whole warp: group j walks the j-th contiguous
     share of ceil(n / R) edges, then the groups' sums meet by a butterfly
     over lane offsets G, 2G, ..., 16; (2K,)."""
-    R = _tail.launch_plan(K)["rows_per_warp"]
+    R = _tail.launch_plan(K, "K7" if mode == "ext" else "K1")["rows_per_warp"]
     share = -(-len(edges) // R)
     parts = [edges[min(j * share, len(edges)):(j + 1) * share] for j in range(R)]
     span = max(len(pt) for pt in parts)
-    sums = [_group_sums(mode, K, es_row, eo, so, pt, span) for pt in parts]
+    sums = [_group_sums(mode, K, es_row, eo, pt, span) for pt in parts]
     acc = [np.stack([a for a, _ in sums]), np.stack([o for _, o in sums])]
     step = 1
     while step < R:  # lane offset G * step: group j adds group j ^ step
@@ -172,31 +181,31 @@ def _warp_rows(G, rows_per_warp, n_other, rng):
 @pytest.mark.parametrize("mode", ["cavi", "raw", "ext"])
 @pytest.mark.parametrize("K", PLAN_KS)
 def test_group_emulation_matches_the_float64_plain_version(K, mode):
-    plan = _tail.launch_plan(K)
+    plan = _tail.launch_plan(K, "K7" if mode == "ext" else "K1")
     rng = np.random.default_rng(1000 + K)
     n_other, S = 300, plan["stride"]
     rows = _warp_rows(plan["lanes"], plan["rows_per_warp"], n_other, rng)
     n_rows = len(rows)
-    es = np.zeros((n_rows, S), np.float32)
+    es = np.zeros((n_rows, _tail.tail_stride(K)), np.float32)
     eo = np.zeros((n_other, S), np.float32)
     es[:, :K] = rng.gamma(1.0, 1.0, (n_rows, K))
     eo[:, :K] = rng.gamma(1.0, 1.0, (n_other, K))
-    so = rng.gamma(1.0, 1.0, n_other).astype(np.float32)
+    if mode == "ext":  # K7's [e | s] records: s_o in column K
+        eo[:, K] = rng.gamma(1.0, 1.0, n_other)
     got = np.zeros((n_rows, 2 * K), np.float32)
     rpw = plan["rows_per_warp"]
     for w0 in range(0, n_rows, rpw):  # a warp's rows share its batch walk
-        got[w0:w0 + rpw] = _emulate_warp(mode, K, es[w0:w0 + rpw], eo, so,
+        got[w0:w0 + rpw] = _emulate_warp(mode, K, es[w0:w0 + rpw], eo,
                                          rows[w0:w0 + rpw])
     # The same rows, each given a whole warp (TailCSR.long_rows).
-    split = np.stack([_emulate_split(mode, K, es[g], eo, so, r)
+    split = np.stack([_emulate_split(mode, K, es[g], eo, r)
                       for g, r in enumerate(rows)])
     row_ptr = torch.tensor(np.cumsum([0] + [len(r) for r in rows]))
     other = torch.tensor([o for r in rows for o, _ in r], dtype=torch.int32)
     x = torch.tensor([xv for r in rows for _, xv in r], dtype=torch.float64)
     es64, eo64 = torch.from_numpy(es).double(), torch.from_numpy(eo).double()
     if mode == "ext":
-        ref = ext_edge.ext_factor_tail_plain(es64, eo64, torch.from_numpy(so).double(),
-                                             row_ptr, other, x, FLOOR, K=K)
+        ref = ext_edge.ext_factor_tail_plain(es64, eo64, row_ptr, other, x, FLOOR, K=K)
     else:
         ref = cavi_edge.tail_edge_stats_plain(es64, eo64, row_ptr, other, x, FLOOR,
                                               mode, K=K)
@@ -264,8 +273,10 @@ def test_plain_versions_ignore_pad_columns(small_ratings, K):
         got = cavi_edge.tail_edge_stats(pes, peo, p.row_ptr, p.other, p.x, mode=mode,
                                         K=K)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-    want = ext_edge.ext_factor_tail(es, eo, so, p.row_ptr, p.other, p.x)
-    got = ext_edge.ext_factor_tail(pes, peo, so, p.row_ptr, p.other, p.x, K=K)
+    rec = torch.cat([eo, so[:, None]], dim=1)  # K7's [e | s] records
+    want = ext_edge.ext_factor_tail(es, rec, p.row_ptr, p.other, p.x)
+    got = ext_edge.ext_factor_tail(pes, _nan_padded(rec, S + 4), p.row_ptr, p.other, p.x,
+                                   K=K)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
@@ -324,7 +335,7 @@ def test_ext_factor_stats_on_padded_tables_match_jax(small_ratings, monkeypatch,
     phi = rng.gamma(1.0, 1.0, 120).astype(np.float32)
     psi = rng.gamma(1.0, 1.0, 80).astype(np.float32)
     seen = []
-    _spy(monkeypatch, ext_edge, "ext_factor_tail", seen)
+    _spy(monkeypatch, ext_edge, "ext_factor_tail", seen)  # the self rows, the records
     for side, es, eo, so, jp, tp in (("user", th, be, psi, jb.by_user, tb.by_user),
                                      ("item", be, th, phi, jb.by_item, tb.by_item)):
         ref = jext.ext_factor_stats(jnp.asarray(es), jnp.asarray(eo), jnp.asarray(so),
@@ -336,5 +347,4 @@ def test_ext_factor_stats_on_padded_tables_match_jax(small_ratings, monkeypatch,
             assert g.shape == r.shape
             np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=5e-4, atol=1e-5,
                                        err_msg=f"{side} {name}")
-    S = _tail.tail_stride(K)
-    assert seen == [(S, S, K)] * 2
+    assert seen == [(_tail.tail_stride(K), _tail.tail_stride(K + 1), K)] * 2

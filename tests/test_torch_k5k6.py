@@ -81,11 +81,14 @@ def test_k5_k6_plans_mirror_the_kernel_source():
 
     assert const("kRecordOneWord") == _tail.RECORD_ONE_WORD
     assert const("kDiagInFlight") == _tail.DIAG_IN_FLIGHT
-    # is_record(): K5, K6 and the record forms of K7 and K8
-    assert ("return mode == kBias || mode == kDiag || mode == kExtRec || "
-            "mode == kScalarRec;") in hdr
+    # is_record(): K5, K6 and K7, K8 ([e | s]), the modes from kExt on
+    assert "constexpr bool is_record(int mode) { return mode >= kExt; }" in hdr
+    assert re.search(r"kExt = 2, kBias = 3, kDiag = 4, kScalar = 5 \};", hdr)
     assert "return is_record(mode) ? K + 1 : K;" in hdr  # columns()
-    assert _tail.RECORD_KERNELS == (*KERNELS, "K7rec", "K8rec")
+    assert _tail.RECORD_KERNELS == (*KERNELS, "K7", "K8")
+    # one_word(): only K5 and K6 take one word a lane up to kRecordOneWord
+    assert "return mode == kBias || mode == kDiag ? kRecordOneWord : kOneWord;" in hdr
+    assert _tail.WIDE_KERNELS == tuple(KERNELS)
     assert re.search(r"mode == kBias \? K \+ 2 :", hdr)
     built = set(re.findall(r"PMF_TAIL_PLAN\((\d+), (\d+)\)\n", hdr))
     for kid in KERNELS:
