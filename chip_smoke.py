@@ -27,6 +27,20 @@ result line:
 7. fit     -- ``HPF.fit(engine="blocked_high")`` at K=20 for 4 sweeps, with
               the kernel launch counters reset just before and read after.
 8. profile -- steady sweep time, and one sweep under torch.profiler.
+8a. serve  -- on phase fit's model: ``save_model`` / ``load_model`` onto
+              the card (equal bits, seconds, MB); the exclusion index from
+              the training COO equal to ``build_exclusion_index``'s;
+              ``recommend`` top-10 for all 162k users at batch 1024 (seconds,
+              users/s, one call traced: busy and idle share), held against a
+              float64 host oracle on 2,048 users and checked on the card for
+              training items; ``ranking_metrics`` on the 100k held-out pairs
+              and ``sampled_ranking_metrics`` with 100 negatives (values,
+              seconds); the recommend CLI on 1,000 users from the saved
+              checkpoint, its CSV equal to ``recommend``'s.  No kernel of the
+              port launches (counters checked).
+8b. resume -- ``HPF.fit`` for 2 sweeps with ``checkpoint_every=2``, then
+              resumed for 2 more: equal in bits to phase fit's unbroken
+              4-sweep state; checkpoint save and load seconds and MB.
 
 Between phases 5 and 6, on the same layout's tail: K7 and K8, the
 extended-Poisson factor and scalar-rate tail kernels vs their plain
@@ -50,7 +64,9 @@ steps, two launches of a step equal in bits, and one whole epoch of its
 launches, 2 a step, timed by CUDA events and by the profiler), msmall
 (three blocked and three flat epochs card vs host on a small input), mfit
 (``HPFMap.fit`` for 3 epochs, engine "blocked_high" then "flat", with
-launch counters) and mprofile (20 steady blocked steps under the profiler).
+launch counters), resume (HPF-MAP) (a blocked fit of 1 epoch with
+``checkpoint_every=1``, resumed for 2 more: equal in bits to mfit's blocked
+params) and mprofile (20 steady blocked steps under the profiler).
 
 Before the data, phase bigk: K1 (both modes), K7, K5, K6 and K8 at every K
 where their row-group plan changes, equal bits on a repeat (phase
@@ -85,6 +101,10 @@ Those are freed, then the Gaussian-MF CAVI path:
                 exact full covariance, then 2 diag, with launch counters.
 15. gprofile -- steady sweep times, and one exact and one diag sweep under
                 the profiler (busy time, idle share, parts).
+16. gelbo    -- ``GaussianMF.fit(elbo_every=1)`` on the blocked engine, 3
+                exact then 2 diag sweeps: the ELBO finite and never falling
+                by more than the fit's 1e-4 relative gate; its own time per
+                evaluation (CUDA events).
 
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.
@@ -1233,6 +1253,284 @@ def phase_profile(model, train, smi):
         log(f"  {dev_ms:9.4f} ms  {n:3d}x  {key[:90]}")
 
 
+# ----------------------------------------------------------------- serving --
+
+SERVE_K, SERVE_BATCH = 10, 1024
+ORACLE_USERS, CLI_USERS, SAMPLED_NEGATIVES = 2048, 1000, 100
+# Checkpoints and CSVs of the serving and resume phases: a git-ignored
+# directory beside this script, removed when each phase ends.
+SMOKE_TMP = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_tmp")
+
+
+def _dir_mb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e6
+
+
+def _fresh_dir(name: str) -> str:
+    import shutil
+
+    path = os.path.join(SMOKE_TMP, name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def _oracle_check(served, users, items, scores, row_ptr, items_by_user):
+    """Float64 host oracle on ``users``: each user's scores of every item
+    with its training items removed.  Top-k items equal wherever the k-th
+    and (k+1)-th oracle scores differ by more than 1e-4 relative; sorted
+    scores agree to 1e-5 relative.  Returns (max relative score error,
+    users whose k-th/(k+1)-th gap was too small to order)."""
+    theta, beta = (t.double().cpu().numpy() for t in served._point_estimates())
+    worst, close = 0.0, 0
+    for s in range(0, len(users), 256):
+        block = users[s : s + 256]
+        dense = theta[block] @ beta.T
+        for row, u in enumerate(block):
+            sc = dense[row]
+            sc[items_by_user[row_ptr[u] : row_ptr[u + 1]]] = -np.inf
+            top = np.argpartition(-sc, SERVE_K + 1)[: SERVE_K + 1]
+            top = top[np.argsort(-sc[top], kind="stable")]
+            want = sc[top]
+            got = scores[s + row]
+            err = float(np.max(np.abs(got - want[:SERVE_K]) / np.abs(want[:SERVE_K])))
+            if err > 1e-5:
+                raise AssertionError(f"serve: user {u} scores {got} vs oracle "
+                                     f"{want[:SERVE_K]}")
+            worst = max(worst, err)
+            gap = (want[SERVE_K - 1] - want[SERVE_K]) / abs(want[SERVE_K - 1])
+            if gap > 1e-4:
+                if set(items[s + row]) != set(top[:SERVE_K]):
+                    raise AssertionError(f"serve: user {u} items {items[s + row]} "
+                                         f"vs oracle {top[:SERVE_K]}")
+            else:
+                close += 1
+    return worst, close
+
+
+def phase_serve(model, train, val, smi):
+    """The serving path on phase fit's HPF model: save_model, load_model
+    onto the card (equal bits), the exclusion index from the training COO
+    against build_exclusion_index, recommend top-10 for every user
+    (timed, and once under the profiler) held against a float64 host
+    oracle on ORACLE_USERS users and checked on the card for train items,
+    ranking_metrics on the held-out pairs, sampled_ranking_metrics with
+    100 negatives, and the recommend CLI on CLI_USERS users."""
+    import shutil
+
+    import pandas as pd
+    import torch
+
+    from pmf_tpu_torch.cli.recommend import main as recommend_cli
+    from pmf_tpu_torch.data.coo import build_ratings
+    from pmf_tpu_torch.eval.ranking import ranking_metrics, sampled_ranking_metrics
+    from pmf_tpu_torch.eval.recommend import build_exclusion_index, exclusion_index_from_coo
+    from pmf_tpu_torch.utils.checkpoint import load_model, save_model
+
+    counters = reset_counters()
+    ck = _fresh_dir("serve")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_model(model, ck)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = load_model(ck)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        for k, v in model.state.items():
+            got = served.state[k]
+            if got.device != v.device or not torch.equal(got, v):
+                raise AssertionError(f"serve: loaded {k} differs from the fitted state")
+        log(f"  checkpoint: save_model {t_save:.2f} s, load_model {t_load:.2f} s, "
+            f"{_dir_mb(ck):.1f} MB | state equal in bits on {served.device}")
+
+        nnz = len(train[0])
+        t0 = time.perf_counter()
+        coo = build_ratings(*train, n_users=N_USERS, n_items=N_ITEMS, device="cuda")
+        row_ptr_coo, items_coo = exclusion_index_from_coo(coo)
+        t_coo = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        index = build_exclusion_index(train[0], train[1], n_users=N_USERS,
+                                      n_items=N_ITEMS, device="cuda")
+        torch.cuda.synchronize()
+        t_index = time.perf_counter() - t0
+        row_ptr, items_dev = index
+        if not np.array_equal(row_ptr_coo, row_ptr) \
+                or not torch.equal(items_coo[:nnz], items_dev):
+            raise AssertionError("serve: exclusion index from the COO differs")
+        del coo, items_coo
+        log(f"  exclusion index: build_exclusion_index {t_index:.2f} s, from the "
+            f"training COO (build_ratings included) {t_coo:.2f} s: equal")
+
+        users = np.arange(N_USERS)
+
+        def serve_all():
+            return served.recommend(users, k=SERVE_K, batch=SERVE_BATCH,
+                                    train_index=index)
+
+        serve_all()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        items, scores = serve_all()
+        secs = time.perf_counter() - t0
+        rows, busy, wall_ms = profile_once(serve_all, {})
+        if items.shape != (N_USERS, SERVE_K) or not np.all(np.isfinite(scores)) \
+                or items.min() < 0 or items.max() >= N_ITEMS:
+            raise AssertionError(f"serve: items {items.shape}, scores finite "
+                                 f"{np.all(np.isfinite(scores))}")
+        if not np.all(np.diff(scores, axis=1) <= 0):
+            raise AssertionError("serve: scores not in descending order")
+        log(f"  recommend top-{SERVE_K} for {N_USERS} users at batch {SERVE_BATCH}: "
+            f"{secs:.4f} s ({N_USERS / secs:.0f} users/s) | one call traced: device "
+            f"busy {busy:.4f} ms of {wall_ms:.4f} ms window (idle share "
+            f"{1 - busy / wall_ms:.1%}) | {smi}")
+        for dev_ms, n, key in rows[:6]:
+            log(f"  {dev_ms:9.4f} ms  {n:4d}x  {key[:90]}")
+
+        rng = np.random.default_rng(2)
+        pick = np.sort(rng.choice(N_USERS, size=ORACLE_USERS, replace=False))
+        items_by_user = items_dev.cpu().numpy()
+        worst, close = _oracle_check(served, pick, items[pick], scores[pick],
+                                     row_ptr, items_by_user)
+        # Every user, on the card: no recommended item is a training item.
+        train_keys = torch.sort(torch.from_numpy(train[0]).cuda() * N_ITEMS
+                                + torch.from_numpy(train[1]).cuda()).values
+        rec_keys = (torch.from_numpy(users).cuda()[:, None] * N_ITEMS
+                    + torch.from_numpy(items).cuda()).reshape(-1)
+        at = torch.searchsorted(train_keys, rec_keys).clamp_max(nnz - 1)
+        n_seen = int(torch.sum(train_keys[at] == rec_keys))
+        del train_keys, rec_keys, at
+        if n_seen:
+            raise AssertionError(f"serve: {n_seen} recommended items are training items")
+        log(f"  oracle (float64, host) on {ORACLE_USERS} users: scores within "
+            f"{worst:.2e} relative (tol 1e-5), items equal where the 10th/11th gap "
+            f"> 1e-4 ({ORACLE_USERS - close} users; {close} closer) | no training "
+            f"item among the {N_USERS * SERVE_K} recommendations (card check)")
+
+        theta, beta = served._point_estimates()
+        t0 = time.perf_counter()
+        full = ranking_metrics(theta, beta, train[0], train[1], val[0], val[1])
+        t_rank = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sampled = sampled_ranking_metrics(theta, beta, train[0], train[1], val[0],
+                                          val[1], n_negatives=SAMPLED_NEGATIVES)
+        t_sampled = time.perf_counter() - t0
+        for name, out in (("ranking_metrics", full), ("sampled", sampled)):
+            vals = [v for k, v in out.items() if "@" in k]
+            if out["n_pairs"] != len(val[0]) or not out["mean_rank"] >= 1.0 \
+                    or not all(0.0 <= v <= 1.0 for v in vals):
+                raise AssertionError(f"serve: {name} {out}")
+        log(f"  ranking_metrics on {len(val[0])} held-out pairs: {t_rank:.2f} s | "
+            + ", ".join(f"{k} {v:.6g}" for k, v in full.items() if k != "n_pairs"))
+        log(f"  sampled_ranking_metrics ({SAMPLED_NEGATIVES} negatives): "
+            f"{t_sampled:.2f} s | "
+            + ", ".join(f"{k} {v:.6g}" for k, v in sampled.items()
+                        if k not in ("n_pairs", "n_negatives")))
+
+        cli_users = np.arange(CLI_USERS) * (N_USERS // CLI_USERS) + 1
+        mine = np.isin(train[0], cli_users)
+        csv_in, csv_out = os.path.join(ck, "train.csv"), os.path.join(ck, "rec.csv")
+        pd.DataFrame({"u": train[0][mine], "i": train[1][mine],
+                      "rating": train[2][mine]}).to_csv(csv_in, index=False)
+        t0 = time.perf_counter()
+        recommend_cli(["--checkpoint", ck, "--users", *map(str, cli_users), "--k",
+                       str(SERVE_K), "--train", csv_in, "--out", csv_out])
+        t_cli = time.perf_counter() - t0
+        got = pd.read_csv(csv_out)
+        want_items, want_scores = served.recommend(
+            cli_users, k=SERVE_K, train=(train[0][mine], train[1][mine], train[2][mine]))
+        if not (np.array_equal(got["u"], np.repeat(cli_users, SERVE_K))
+                and np.array_equal(got["i"], want_items.reshape(-1))
+                and np.allclose(got["score"], want_scores.reshape(-1), rtol=1e-6,
+                                atol=0)):
+            raise AssertionError("serve: the CLI's CSV differs from recommend's")
+        log(f"  CLI: {CLI_USERS} users from the saved checkpoint, "
+            f"{int(mine.sum())} training rows: {t_cli:.2f} s, CSV equal to recommend's")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    # Serving runs none of the port's kernels: every counter stays 0.
+    launches = {k: c.count for k, c in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"serve: kernel launches {launches}, expected none")
+    log(f"phase serve: ok | save {t_save:.2f} s / load {t_load:.2f} s | "
+        f"recommend {N_USERS / secs:.0f} users/s | ranking {t_rank:.2f} s, sampled "
+        f"{t_sampled:.2f} s | recall@10 {full['recall@10']:.6g}, hr@10 "
+        f"{sampled['hr@10']:.6g}")
+
+
+def _check_equal_states(label, got: dict, want: dict):
+    import torch
+
+    for k, v in want.items():
+        if not torch.equal(got[k], v):
+            diff = float((got[k].double() - v.double()).abs().max())
+            raise AssertionError(f"{label}: {k} differs from the unbroken fit "
+                                 f"(max abs {diff:.3e})")
+
+
+def _save_load_times(state: dict, name: str):
+    """(save s, load s, MB) of ``state`` through utils.checkpoint."""
+    import torch
+
+    from pmf_tpu_torch.utils.checkpoint import load_state, save_state
+
+    path = _fresh_dir(name)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_state(path, state)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, _ = load_state(path)
+    on_card = {k: torch.from_numpy(v).cuda() for k, v in back.items()}
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    del on_card
+    return t_save, t_load, _dir_mb(path)
+
+
+def phase_resume(model, train, val, smi):
+    """HPF.fit for 2 sweeps with checkpoint_every=2, then a fit resumed
+    from that checkpoint for FIT_SWEEPS - 2 more: its final state equals
+    phase fit's unbroken FIT_SWEEPS-sweep state in bits.  Same data, K
+    and engine as phase fit."""
+    import shutil
+
+    import torch
+
+    from pmf_tpu_torch.models.hpf import HPF, HPFConfig
+
+    ck = _fresh_dir("resume_hpf")
+    try:
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        cfg = dict(n_factors=K, tol=None, verbose=False, engine="blocked_high")
+        first = HPF(HPFConfig(max_iter=2, **cfg)).fit(train, val, checkpoint_dir=ck,
+                                                      checkpoint_every=2)
+        n_first = first.n_sweeps
+        del first
+        resumed = HPF(HPFConfig(max_iter=FIT_SWEEPS - 2, **cfg)).fit(
+            train, val, resume_from=ck)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.count for k, c in counters.items()}
+        n_tiers = len(resumed.blocked.head or ())
+        sweeps = n_first + resumed.n_sweeps
+        want = dict.fromkeys(launches, 0)
+        want.update(K1=2 * sweeps, K2=2 * n_tiers * sweeps)
+        if launches != want:
+            raise AssertionError(f"resume launches {launches}, expected {want}")
+        _check_equal_states("resume (HPF)", resumed.state, model.state)
+        t_save, t_load, mb = _save_load_times(model.state, "resume_hpf_times")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+        shutil.rmtree(os.path.join(SMOKE_TMP, "resume_hpf_times"), ignore_errors=True)
+    log(f"phase resume (HPF): ok | 2 sweeps + checkpoint, then {FIT_SWEEPS - 2} "
+        f"resumed = the unbroken {FIT_SWEEPS}-sweep state in bits | {wall:.1f}s wall "
+        f"(two fits, layout builds included) | launches {launches} | state save "
+        f"{t_save:.2f} s, load to the card {t_load:.2f} s, {mb:.1f} MB | {smi}")
+
+
 # ----------------------------------------------------------------- Poisson --
 
 PFIT_SWEEPS = 4
@@ -1988,6 +2286,51 @@ def phase_mfit(train, val, smi):
     return blocked, {k: launches[k] + flaunches[k] for k in launches}
 
 
+def phase_mresume(model, train, val, smi):
+    """HPFMap.fit blocked for 1 epoch with checkpoint_every=1, then resumed
+    for MAP_EPOCHS - 1 more: params equal phase mfit's unbroken blocked
+    state in bits (Adam moments and the shuffle's generator ride in the
+    checkpoint)."""
+    import shutil
+
+    import torch
+
+    from pmf_tpu_torch.models.hpf_map import HPFMap, HPFMapConfig
+    from pmf_tpu_torch.utils.checkpoint import load_state
+
+    ck = _fresh_dir("resume_map")
+    try:
+        counters = reset_counters()
+        cfg = dict(n_factors=K, lr=MAP_LR, batch_size=MAP_BATCH, mix=MAP_MIX,
+                   verbose=False, engine="blocked_high")
+        t0 = time.perf_counter()
+        HPFMap(HPFMapConfig(epochs=1, **cfg)).fit(train, val, checkpoint_dir=ck,
+                                                  checkpoint_every=1)
+        resumed = HPFMap(HPFMapConfig(epochs=MAP_EPOCHS, **cfg)).fit(
+            train, val, resume_from=ck)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.count for k, c in counters.items()}
+        want = dict.fromkeys(launches, 0)
+        want["K9"] = 2 * (resumed.layout.n_segments // MAP_MIX) * MAP_EPOCHS
+        if launches != want:
+            raise AssertionError(f"mresume launches {launches}, expected {want}")
+        epochs = [rec["epoch"] for rec in resumed.fit_history]
+        if epochs != list(range(2, MAP_EPOCHS + 1)):
+            raise AssertionError(f"mresume: resumed epochs {epochs}")
+        _check_equal_states("resume (HPF-MAP)", resumed.state, model.state)
+        flat, _ = load_state(ck)
+        t_save, t_load, mb = _save_load_times(flat, "resume_map_times")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+        shutil.rmtree(os.path.join(SMOKE_TMP, "resume_map_times"), ignore_errors=True)
+    log(f"phase resume (HPF-MAP): ok | blocked, 1 epoch + checkpoint, then "
+        f"{MAP_EPOCHS - 1} resumed = the unbroken {MAP_EPOCHS}-epoch params in bits | "
+        f"{wall:.1f}s wall (two fits, set-up included) | launches {launches} | "
+        f"checkpoint (params, Adam, generator) save {t_save:.2f} s, load to the card "
+        f"{t_load:.2f} s, {mb:.1f} MB | {smi}")
+
+
 def phase_mprofile(model, train, smi):
     """MPROFILE_STEPS steady blocked steps from the fitted state, grouped
     beforehand, under torch.profiler: busy time, idle share, K9's share and
@@ -2632,6 +2975,57 @@ def phase_gprofile(full, diag, train, smi):
     return steady
 
 
+GELBO_EXACT_SWEEPS, GELBO_DIAG_SWEEPS = 3, 2
+GELBO_GATE = 1e-4  # GaussianMF.fit's monotone slack on the blocked engine
+
+
+def phase_gelbo(train, val, smi):
+    """GaussianMF.fit(elbo_every=1) on the blocked engine: 3 exact sweeps,
+    then 2 diag.  The fit's own gate raises if the ELBO falls by more than
+    1e-4 relative; here the history is checked again, each value finite,
+    and the ELBO's own time per evaluation taken by CUDA events."""
+    import torch
+
+    from pmf_tpu_torch.models.gaussian_mf import GaussianMF, GaussianMFConfig
+
+    for covariance, sweeps, want_of in (
+            ("full", GELBO_EXACT_SWEEPS, lambda n: {"K3": 2 * n, "K4": 2 * n,
+                                                    "K5": 2 * n}),
+            ("diag", GELBO_DIAG_SWEEPS, lambda n: {"K5": 2 * n, "K6": 2 * n})):
+        model = GaussianMF(GaussianMFConfig(
+            n_factors=K, max_iter=sweeps, tol=None, verbose=False,
+            engine="blocked_high", covariance=covariance))
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        model.fit(train, val, global_mean=0.0, elbo_every=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.count for k, c in counters.items()}
+        want = dict.fromkeys(launches, 0)
+        want.update(want_of(model.n_sweeps))
+        if launches != want:
+            raise AssertionError(f"gelbo {covariance} launches {launches}, "
+                                 f"expected {want}")
+        elbos = [rec.get("elbo") for rec in model.fit_history]
+        if len(elbos) != sweeps or None in elbos or not np.all(np.isfinite(elbos)):
+            raise AssertionError(f"gelbo {covariance}: ELBO history {elbos}")
+        for a, b in zip(elbos, elbos[1:]):
+            if b < a - GELBO_GATE * (1.0 + abs(a)):
+                raise AssertionError(f"gelbo {covariance}: ELBO fell {a} -> {b}")
+        elbo_fn = model._make_elbo_fn(train)
+        again = float(elbo_fn(model.state))
+        if not abs(again - elbos[-1]) <= 1e-6 * abs(elbos[-1]):
+            raise AssertionError(f"gelbo {covariance}: ELBO of the final state "
+                                 f"{again} vs the history's {elbos[-1]}")
+        ms = cuda_ms(lambda: elbo_fn(model.state), reps=3)
+        log(f"phase gelbo ({covariance}): ok | {sweeps} sweeps with elbo_every=1 in "
+            f"{wall:.1f}s wall | launches {launches} | ELBO "
+            + " -> ".join(f"{e:.8e}" for e in elbos)
+            + f" (gate {GELBO_GATE:g} relative) | ELBO evaluation {ms:.4f} ms "
+            f"(CUDA events) | {smi}")
+        del model, elbo_fn
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2664,6 +3058,8 @@ def main(argv=None) -> int:
     phase_small()
     model, launches = phase_fit(train, val, smi)
     phase_profile(model, train, smi)
+    phase_serve(model, train, val, smi)
+    phase_resume(model, train, val, smi)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2685,6 +3081,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_msmall()
     mmodel, mlaunches = phase_mfit(train, val, smi)
+    phase_mresume(mmodel, train, val, smi)
     phase_mprofile(mmodel, train, smi)
     del mmodel, train, val
     gc.collect()
@@ -2704,6 +3101,10 @@ def main(argv=None) -> int:
     phase_gsmall()
     full, diag, glaunches = phase_gfit(gtrain, gval, smi)
     phase_gprofile(full, diag, gtrain, smi)
+    del full, diag
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_gelbo(gtrain, gval, smi)
 
     def entry(name, source, replaces, res, n, kid, **more):
         return {"name": name, "route": "cuda", "source": source,

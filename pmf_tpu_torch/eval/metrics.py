@@ -32,6 +32,15 @@ def macro_mae(y_true, y_pred) -> float:
     return float(np.mean(per_class))
 
 
+def gaussian_log_predictive_likelihood(y_true, y_pred, sigma) -> float:
+    """Sum of Gaussian log densities with standard deviation ``sigma``."""
+    y_true = np.asarray(y_true, dtype=np.float64)
+    y_pred = np.asarray(y_pred, dtype=np.float64)
+    var = float(sigma) ** 2
+    sq = (y_true - y_pred) ** 2
+    return float(np.sum(-0.5 * np.log(2.0 * np.pi * var) - sq / (2.0 * var)))
+
+
 def poisson_log_predictive_likelihood(y_true, lam, epsilon: float = 1e-10) -> float:
     """Sum of Poisson log pmfs, the rate floored at ``epsilon``."""
     y_true = np.asarray(y_true, dtype=np.float64)

@@ -6,10 +6,16 @@ asynchronously, so the loop queues the copy of this iteration's
 validation scalars, dispatches the next sweep, and only then waits for
 the copy (the one host-device sync per iteration): the card keeps working
 through the round trip.
+
+With ``checkpoint_dir`` the loop saves the state of sweep ``it`` at the
+top of every ``checkpoint_every``-th iteration, before the next sweep is
+dispatched: that copy waits for sweep ``it`` alone, and iterations that
+save nothing read nothing more than before.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Optional, Tuple
 
@@ -46,11 +52,16 @@ class FitLoop:
 
     ``stop_rule(prev_rmse, rmse, tol) -> bool`` encodes the per-model rule.
     ``n_sweeps`` counts the sweeps dispatched, the discarded speculative
-    one included."""
+    one included.  ``checkpoint_dir``: save the state of every
+    ``checkpoint_every``-th iteration there (``utils.checkpoint``);
+    ``profile_dir``: trace the whole loop with ``torch.profiler`` into
+    that directory (a Chrome trace, ``trace.json``)."""
 
     def __init__(self, sweep_fn: Callable, eval_fn: Optional[Callable],
                  max_iter: int, tol, stop_rule: Callable, verbose: bool = False,
-                 name: str = "CAVI", edge_visits_per_iter: Optional[int] = None,
+                 name: str = "CAVI", checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 10, profile_dir: Optional[str] = None,
+                 edge_visits_per_iter: Optional[int] = None,
                  elbo_fn: Optional[Callable] = None, elbo_every: int = 1,
                  elbo_monotone: Optional[float] = None):
         self.sweep_fn = sweep_fn
@@ -60,6 +71,9 @@ class FitLoop:
         self.stop_rule = stop_rule
         self.verbose = verbose
         self.name = name
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = checkpoint_every
+        self.profile_dir = profile_dir
         # Ratings touched per iteration (nnz x edge passes); when set, each
         # history record carries ``updates_per_sec``.
         self.edge_visits_per_iter = edge_visits_per_iter
@@ -89,6 +103,14 @@ class FitLoop:
         self._maybe_elbo(state, record)
         return time.perf_counter()
 
+    def _maybe_checkpoint(self, state: dict, it: int) -> None:
+        """Save sweep ``it``'s state (called before the next sweep is
+        queued, so the host copy waits for sweep ``it`` alone)."""
+        if self.checkpoint_dir and it % self.checkpoint_every == 0:
+            from pmf_tpu_torch.utils.checkpoint import save_state
+
+            save_state(self.checkpoint_dir, state, {"iteration": it, "name": self.name})
+
     def _maybe_elbo(self, state: dict, record: dict) -> None:
         it = record["iteration"]
         if self.elbo_fn is None or it % self.elbo_every:
@@ -108,6 +130,10 @@ class FitLoop:
     def run(self, state: dict, data, val: Optional[EvalSet]) -> dict:
         """The returned state is the one the stop decision was made on; at
         most one speculative sweep past the stop point is discarded."""
+        with profiled(self.profile_dir):
+            return self._run(state, data, val)
+
+    def _run(self, state: dict, data, val: Optional[EvalSet]) -> dict:
         if self.max_iter <= 0:
             return state
         prev_val_rmse = None
@@ -116,6 +142,7 @@ class FitLoop:
         t0 = time.perf_counter()
         for it in range(1, self.max_iter + 1):
             cur, cur_done = state, done
+            self._maybe_checkpoint(cur, it)
             record = {"iteration": it, "iter_seconds": None}
             if val is not None and self.eval_fn is not None:
                 scalars = reader.start(*self.eval_fn(cur, val))
@@ -154,11 +181,36 @@ class FitLoop:
         return state
 
 
-def resolve_engine(engine: str, nnz: Optional[int] = None) -> str:
-    """"auto" -> "flat" below 300k edges (layout build time dominates a
-    short fit there), "blocked_high" (the hybrid kernels) otherwise."""
+@contextlib.contextmanager
+def profiled(profile_dir: Optional[str]):
+    """Trace the enclosed work with ``torch.profiler`` (host and, where
+    CUDA is present, device activity) into ``profile_dir/trace.json``;
+    nothing when ``profile_dir`` is empty."""
+    if not profile_dir:
+        yield
+        return
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+
+def resolve_engine(engine: str, nnz: Optional[int] = None, device=None) -> str:
+    """"auto" -> "flat" on the CPU, as in the JAX package, and on the card
+    below 300k edges (layout build time dominates a short fit there);
+    "blocked_high" (the hybrid kernels) otherwise.  ``device`` is the
+    fit's resolved device; None means the card."""
     if engine != "auto":
         return engine
+    if device is not None and torch.device(device).type == "cpu":
+        return "flat"
     if nnz is not None and nnz < 300_000:
         return "flat"
     return "blocked_high"
@@ -189,6 +241,35 @@ class FactorModel:
         """(user_factors, item_factors) point estimates (means)."""
         raise NotImplementedError
 
+    def _initial_state(self, default_state: dict, resume_from: Optional[str]) -> dict:
+        """A checkpointed state in place of the fresh one when resuming,
+        on the fresh state's device and in its dtypes."""
+        if resume_from is None:
+            return default_state
+        from pmf_tpu_torch.utils.checkpoint import load_state
+
+        restored, _ = load_state(resume_from)
+        for k, v in default_state.items():
+            want = tuple(v.shape)
+            have = k in restored and tuple(restored[k].shape)
+            if have != want:
+                hint = ""
+                # Tensor-parallel checkpoints of the JAX package store
+                # mesh-padded row counts: a mismatch in the leading
+                # dimension alone almost always means one of those.
+                if have and have[1:] == want[1:] and have[0] != want[0]:
+                    hint = (" — the leading (row) dimension differs; TP "
+                            "(state_sharding='rows') checkpoints store mesh-"
+                            "padded row counts, so resume them with the same "
+                            "state_sharding mode and tp degree as the fit that "
+                            "saved them")
+                raise ValueError(
+                    f"checkpoint at {resume_from} does not match model state "
+                    f"(key {k}: {have} vs {want}){hint}")
+        return {k: torch.from_numpy(np.asarray(restored[k])).to(device=v.device,
+                                                                dtype=v.dtype)
+                for k, v in default_state.items()}
+
     @property
     def _dtype(self):
         return np.dtype(getattr(self.config, "dtype", "float32"))
@@ -202,16 +283,17 @@ class FactorModel:
         return build_eval_set(u, i, x, self.n_users, self.n_items,
                               dtype=self._dtype, device=self.device)
 
-    def _elbo_edges(self, train):
+    def _elbo_edges(self, train, width: Optional[int] = None):
         """(u, i, x, n_chunks): the train edges as tensors on the fit's
-        device and the chunk count that bounds the ELBO's gathers."""
+        device and the chunk count that bounds the ELBO's gathers of
+        ``width`` floats an edge (default K)."""
         from pmf_tpu_torch.eval.elbo import _auto_chunks
 
         u, i, x = as_triples(train)
         dev = self.device
         return (torch.from_numpy(u).to(dev), torch.from_numpy(i).to(dev),
                 torch.from_numpy(x.astype(self._dtype)).to(dev),
-                _auto_chunks(len(u), self.config.n_factors))
+                _auto_chunks(len(u), width or self.config.n_factors))
 
     def _make_elbo_fn(self, train) -> Callable:
         """state -> ELBO over the train edges (``fit(elbo_every=)``, ``elbo``)."""
@@ -221,6 +303,30 @@ class FactorModel:
         """Auxiliary-variable ELBO of the fitted state over ``train`` (on
         the scale passed to fit); see ``eval.elbo``."""
         return float(self._make_elbo_fn(train)(self.state))
+
+    def _score_offsets(self):
+        """(user_bias, item_bias, mean) additive score terms for serving;
+        models whose predict() is not a pure dot product override it so
+        recommend() ranks by the same score."""
+        return None, None, 0.0
+
+    def recommend(self, user_ids, k: int = 10, train=None, batch: int = 1024,
+                  train_index=None):
+        """Top-k unseen items per user on the state's device.  ``train``:
+        a ratings container whose (u, i) pairs are excluded; for repeated
+        calls pass ``train_index`` from ``eval.recommend.build_exclusion_index``
+        (or ``exclusion_index_from_coo``) instead.  Returns (items, scores)
+        as numpy arrays of shape (len(user_ids), k)."""
+        from pmf_tpu_torch.eval.recommend import recommend as _rec
+
+        theta, beta = self._point_estimates()
+        user_bias, item_bias, mean = self._score_offsets()
+        tu = ti = None
+        if train is not None:
+            tu, ti, _ = as_triples(train)
+        return _rec(theta, beta, user_ids, k=k, train_u=tu, train_i=ti,
+                    batch=batch, item_bias=item_bias, user_bias=user_bias,
+                    mean=mean, train_index=train_index)
 
     def predict(self, user_ids, item_ids) -> np.ndarray:
         """Out-of-range (unseen) pairs predict 0."""

@@ -192,20 +192,26 @@ def eval_metrics(state: dict, ev: EvalSet):
 class HPF(FactorModel):
     """HPF-CAVI with the JAX package's fit/predict surface."""
 
-    def fit(self, train_df, val_df=None, device=None, elbo_every: int = 0):
+    def fit(self, train_df, val_df=None, device=None, elbo_every: int = 0,
+            resume_from=None, checkpoint_dir=None, checkpoint_every: int = 10,
+            profile_dir=None):
         """``device``: None = the CUDA card (raises without one); "cpu"
         runs the kernels' plain versions on the host.  ``elbo_every=N``
         records the auxiliary-variable ELBO in fit_history every N
-        iterations (0 = off)."""
+        iterations (0 = off).  ``resume_from``: a checkpoint directory
+        whose state replaces the fresh init; ``checkpoint_dir``: save the
+        state every ``checkpoint_every`` iterations; ``profile_dir``: a
+        ``torch.profiler`` trace of the loop."""
         cfg = self.config
         self.device = resolve_device(device)
         data = self._build_train(train_df)
         self.n_users, self.n_items = data.n_users, data.n_items
         if cfg.verbose:
             print(f"Inferred n_users={self.n_users}, n_items={self.n_items}", flush=True)
-        state = init_state(self.n_users, self.n_items, cfg, self.device)
+        state = self._initial_state(
+            init_state(self.n_users, self.n_items, cfg, self.device), resume_from)
 
-        engine = resolve_engine(cfg.engine, data.nnz)
+        engine = resolve_engine(cfg.engine, data.nnz, self.device)
         self.engine_used = engine
         hyper = (cfg.a, cfg.a_prime, cfg.b_prime, cfg.c, cfg.c_prime, cfg.d_prime)
         if engine == "blocked_high":
@@ -231,6 +237,8 @@ class HPF(FactorModel):
         val = self._build_eval(val_df) if val_df is not None else None
         loop = FitLoop(sweep_fn, eval_metrics, cfg.max_iter, cfg.tol,
                        poisson_stop_rule, verbose=cfg.verbose, name="HPF",
+                       checkpoint_dir=checkpoint_dir,
+                       checkpoint_every=checkpoint_every, profile_dir=profile_dir,
                        edge_visits_per_iter=2 * data.nnz,  # theta + beta passes
                        elbo_fn=self._make_elbo_fn(train_df) if elbo_every else None,
                        elbo_every=elbo_every or 1)

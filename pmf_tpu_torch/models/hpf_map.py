@@ -39,7 +39,7 @@ import torch
 from pmf_tpu_torch.data.blocked import _count_perms
 from pmf_tpu_torch.data.coo import EvalSet
 from pmf_tpu_torch.eval.metrics import masked_macro_mae, masked_rmse
-from pmf_tpu_torch.models.base import FactorModel, as_triples
+from pmf_tpu_torch.models.base import FactorModel, as_triples, profiled
 from pmf_tpu_torch.ops.adam import adam_init, adam_update
 from pmf_tpu_torch.ops.map_grad import PIECE, group_steps, map_grad_grouped
 from pmf_tpu_torch.ops.segment import edge_dot, gather_rows
@@ -376,12 +376,76 @@ def _permute_rows(params, opt_state, u_perm, i_perm):
                        "nu": f(opt_state["nu"])}
 
 
-class HPFMap(FactorModel):
-    """The MAP/SGD HPF path with the JAX package's fit/predict surface."""
+# The epoch shuffle's generator state: a key of the port's own.  A JAX
+# checkpoint holds ``rng_key_data`` (a JAX PRNG key) in its place, which no
+# torch generator can continue.
+GEN_KEY = "torch_generator_state"
 
-    def fit(self, train_df, val_df=None, device=None):
+
+def _pack_ckpt(params, opt_state, gen_state, epoch) -> dict:
+    """(params, Adam state, generator state, epoch) as a flat array dict
+    for ``utils.checkpoint.save_state``.  ``leaf_<n>`` follow the JAX
+    package's leaf order: the params by sorted key, then Adam's count, mu
+    and nu (each by sorted key)."""
+    out, n = {}, 0
+    for leaf in ([params[k] for k in sorted(params)] + [np.int32(opt_state["count"])]
+                 + [opt_state[m][k] for m in ("mu", "nu") for k in sorted(params)]):
+        out[f"leaf_{n}"] = leaf
+        n += 1
+    out[GEN_KEY] = gen_state.numpy()
+    out["epoch"] = np.int32(epoch)
+    return out
+
+
+def _unpack_ckpt(flat: dict, params_template: dict):
+    """Inverse of :func:`_pack_ckpt` given params of matching shapes (on
+    the fit's device, in its dtype): (params, opt_state, generator state,
+    epoch)."""
+    if GEN_KEY not in flat:
+        which = ("a JAX package HPFMap checkpoint: its epoch RNG is a JAX key, "
+                 "which no torch generator continues, so resume it in the JAX "
+                 "package" if "rng_key_data" in flat
+                 else "not an HPFMap checkpoint of this package")
+        raise ValueError(f"checkpoint has no {GEN_KEY}: {which}")
+    keys = sorted(params_template)
+    slots = ([("p", k) for k in keys] + [("count", None)]
+             + [(m, k) for m in ("mu", "nu") for k in keys])
+    found = {}
+    for n, (kind, k) in enumerate(slots):
+        if f"leaf_{n}" not in flat:
+            raise ValueError(
+                f"checkpoint is missing leaf_{n} (have {len(slots)} expected "
+                "leaves): saved by an incompatible model/optimizer?")
+        leaf = np.asarray(flat[f"leaf_{n}"])
+        want = () if kind == "count" else tuple(params_template[k].shape)
+        if leaf.shape != want:
+            raise ValueError(f"checkpoint leaf_{n} shape {leaf.shape} does not "
+                             f"match the model/optimizer state ({want})")
+        found[(kind, k)] = leaf
+    t = params_template[keys[0]]
+
+    def tab(kind):
+        return {k: torch.from_numpy(found[(kind, k)]).to(device=t.device, dtype=t.dtype)
+                for k in keys}
+
+    opt_state = {"count": int(found[("count", None)]), "mu": tab("mu"), "nu": tab("nu")}
+    return tab("p"), opt_state, torch.from_numpy(np.asarray(flat[GEN_KEY])), int(flat["epoch"])
+
+
+class HPFMap(FactorModel):
+    """The MAP/SGD HPF path with the JAX package's fit/predict surface,
+    with exact mid-training checkpoint and resume (Adam moments and the
+    epoch shuffle's generator included)."""
+
+    def fit(self, train_df, val_df=None, device=None, resume_from=None,
+            checkpoint_dir=None, checkpoint_every: int = 5, profile_dir=None):
         """``device``: None = the CUDA card (raises without one); "cpu"
-        runs the gradient kernel's plain version on the host."""
+        runs the gradient kernel's plain version on the host.
+        ``checkpoint_dir``: save params, Adam state, the generator state
+        and the epoch every ``checkpoint_every`` epochs, rows in their
+        original order on both engines; ``resume_from``: continue such a
+        checkpoint of this package from the epoch after it;
+        ``profile_dir``: a ``torch.profiler`` trace of the epochs."""
         cfg = self.config
         self.device = dev = resolve_device(device)
         u, i, x = as_triples(train_df)
@@ -408,6 +472,16 @@ class HPFMap(FactorModel):
         params = init_params(self.n_users, self.n_items, cfg, dev)
         opt_state = adam_init(params)
         gen = torch.Generator(device=dev).manual_seed(cfg.random_state)
+        start_epoch = 1
+        if resume_from is not None:
+            from pmf_tpu_torch.utils.checkpoint import load_state
+
+            flat, _ = load_state(resume_from)
+            params, opt_state, gen_state, done_epoch = _unpack_ckpt(flat, params)
+            gen.set_state(gen_state)
+            start_epoch = done_epoch + 1
+            if cfg.verbose:
+                print(f"Resumed from {resume_from} after epoch {done_epoch}", flush=True)
         val = self._build_eval(val_df) if val_df is not None else None
         export_fn = lambda p, s: (p, s)  # noqa: E731
 
@@ -458,11 +532,14 @@ class HPFMap(FactorModel):
 
         self.fit_history = []
         self.best_val_rmse = float("inf")
-        self._run_epochs(cfg, params, opt_state, nnz, epoch_fn, val, export_fn)
+        with profiled(profile_dir):
+            self._run_epochs(cfg, start_epoch, params, opt_state, nnz, epoch_fn,
+                             val, export_fn, gen, checkpoint_dir, checkpoint_every)
         return self
 
-    def _run_epochs(self, cfg, params, opt_state, nnz, epoch_fn, val, export_fn):
-        for epoch in range(1, cfg.epochs + 1):
+    def _run_epochs(self, cfg, start_epoch, params, opt_state, nnz, epoch_fn, val,
+                    export_fn, gen, checkpoint_dir, checkpoint_every):
+        for epoch in range(start_epoch, cfg.epochs + 1):
             t0 = time.perf_counter()
             params, opt_state, loss = epoch_fn(params, opt_state)
             # Reading the loss waits for the epoch's device work.
@@ -478,6 +555,14 @@ class HPFMap(FactorModel):
             if cfg.verbose:
                 print(msg, flush=True)
             self.fit_history.append(record)
+            if checkpoint_dir and epoch % checkpoint_every == 0:
+                from pmf_tpu_torch.utils.checkpoint import save_state
+
+                # Rows in original order (export_fn unpermutes the blocked
+                # engine's), so a checkpoint resumes on either engine.
+                cp, cs = export_fn(params, opt_state)
+                save_state(checkpoint_dir, _pack_ckpt(cp, cs, gen.get_state(), epoch),
+                           {"epoch": epoch, "name": "HPFMap"})
         self.state, _ = export_fn(params, opt_state)
         return self
 

@@ -273,20 +273,24 @@ class PoissonMF(FactorModel):
     """Plain and extended Poisson MF with the JAX package's fit/predict
     surface."""
 
-    def fit(self, train_df, val_df=None, device=None, elbo_every: int = 0):
+    def fit(self, train_df, val_df=None, device=None, elbo_every: int = 0,
+            resume_from=None, checkpoint_dir=None, checkpoint_every: int = 10,
+            profile_dir=None):
         """``device``: None = the CUDA card (raises without one); "cpu"
         runs the kernels' plain versions on the host.  ``elbo_every=N``
         records the auxiliary-variable ELBO in fit_history every N
-        iterations (0 = off)."""
+        iterations (0 = off).  ``resume_from``, ``checkpoint_dir``,
+        ``checkpoint_every`` and ``profile_dir`` as in ``HPF.fit``."""
         cfg = self.config
         self.device = resolve_device(device)
         data = self._build_train(train_df)
         self.n_users, self.n_items = data.n_users, data.n_items
         if cfg.verbose:
             print(f"Inferred n_users={self.n_users}, n_items={self.n_items}", flush=True)
-        state = init_state(self.n_users, self.n_items, cfg, self.device)
+        state = self._initial_state(
+            init_state(self.n_users, self.n_items, cfg, self.device), resume_from)
 
-        engine = resolve_engine(cfg.engine, data.nnz)
+        engine = resolve_engine(cfg.engine, data.nnz, self.device)
         self.engine_used = engine
         if engine == "blocked_high":
             from pmf_tpu_torch.data.blocked import build_blocked
@@ -328,6 +332,8 @@ class PoissonMF(FactorModel):
         loop = FitLoop(sweep_fn, eval_fn, cfg.max_iter, cfg.tol,
                        poisson_stop_rule, verbose=cfg.verbose,
                        name="PoissonMF" + ("-ext" if cfg.extended else ""),
+                       checkpoint_dir=checkpoint_dir,
+                       checkpoint_every=checkpoint_every, profile_dir=profile_dir,
                        # extended walks each block's edges again for the scalars
                        edge_visits_per_iter=(4 if cfg.extended else 2) * data.nnz,
                        elbo_fn=self._make_elbo_fn(train_df) if elbo_every else None,

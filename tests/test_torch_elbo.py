@@ -142,9 +142,16 @@ def test_elbo_monotone_gate_raises_on_a_decrease():
     assert [r["elbo"] for r in loop.history] == [1.0, 2.0, 1.5]
 
 
-def test_gaussian_model_has_no_elbo_yet():
+def test_gaussian_model_has_no_elbo_yet(small_ratings):
+    """The Gaussian ELBO is ported (tests/test_torch_gaussian_elbo.py);
+    a model without one (HPF-MAP) still raises."""
     from pmf_tpu_torch.models.gaussian_mf import GaussianMF, GaussianMFConfig
+    from pmf_tpu_torch.models.hpf_map import HPFMap, HPFMapConfig
 
-    with pytest.raises(NotImplementedError, match="no ELBO"):
-        GaussianMF(GaussianMFConfig(n_factors=2)).elbo(
+    with pytest.raises(NotImplementedError, match="HPFMap has no ELBO"):
+        HPFMap(HPFMapConfig(n_factors=2)).elbo(
             (np.zeros(1, int), np.zeros(1, int), np.ones(1)))
+    u, i, x = small_ratings
+    m = GaussianMF(GaussianMFConfig(n_factors=2, max_iter=1, verbose=False)).fit(
+        (u, i, x - x.mean()), device="cpu")
+    assert np.isfinite(m.elbo((u, i, x - x.mean())))

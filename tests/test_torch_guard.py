@@ -53,7 +53,12 @@ def test_port_package_files_are_scanned():
     assert {"chip_smoke.py", "hpf.py", "cavi_edge.py", "dense_head.py",
             "blocked.py", "gaussian_mf.py", "gaussian_edge.py", "gj_inverse.py",
             "solve.py", "poisson_mf.py", "ext_edge.py", "elbo.py",
-            "_tail.py", "hpf_map.py", "map_grad.py", "adam.py"} <= names
+            "_tail.py", "hpf_map.py", "map_grad.py", "adam.py", "checkpoint.py",
+            "config.py", "recommend.py", "ranking.py", "synthetic.py",
+            "metrics.py"} <= names
+    rel = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"pmf_tpu_torch/cli/recommend.py", "pmf_tpu_torch/eval/recommend.py",
+            "pmf_tpu_torch/utils/checkpoint.py"} <= rel
     assert Path(pmf_tpu_torch.__file__).parent == REPO / "pmf_tpu_torch"
 
 
@@ -105,6 +110,31 @@ def test_poisson_fit_without_device_raises_without_cuda(monkeypatch, small_split
     # Named, the CPU runs the plain versions.
     m = poisson_mf.PoissonMF(cfg).fit(train, val, device="cpu")
     assert m.device == torch.device("cpu") and len(m.fit_history) == 2
+
+
+def test_serving_entry_points_raise_without_cuda(monkeypatch, tmp_path, small_splits):
+    """load_model, the recommend CLI and the exclusion index default to the
+    card and raise without one; named, the CPU serves."""
+    from pmf_tpu_torch.cli.recommend import main as rec_main
+    from pmf_tpu_torch.eval.recommend import build_exclusion_index
+    from pmf_tpu_torch.utils.checkpoint import load_model, save_model
+
+    train, _, _ = small_splits
+    model = HPF(HPFConfig(n_factors=3, max_iter=1, verbose=False)).fit(
+        (train[0], train[1], train[2] + 1), device="cpu")
+    ck = str(tmp_path / "ck")
+    save_model(model, ck)
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_model(ck)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rec_main(["--checkpoint", ck, "--out", str(tmp_path / "r.csv")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_exclusion_index(train[0], train[1])
+    assert load_model(ck, device="cpu").state["a_theta"].device == torch.device("cpu")
+    rows = rec_main(["--checkpoint", ck, "--users", "0", "--k", "3", "--device",
+                     "cpu", "--out", str(tmp_path / "r.csv")])
+    assert len(rows) == 3
 
 
 def test_builders_without_device_raise_without_cuda(monkeypatch, small_ratings):

@@ -101,6 +101,36 @@ def test_resolve_engine_keeps_the_jax_cutover():
     assert resolve_engine("flat", 10**8) == "flat"
 
 
+def test_resolve_engine_on_the_cpu_is_flat():
+    """Fault F3: the JAX package runs "flat" whenever its backend is the
+    CPU; the port resolves "auto" by the fit's device the same way."""
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    assert resolve_engine("auto", 300_000, cpu) == "flat"
+    assert resolve_engine("auto", 10**8, "cpu") == "flat"
+    assert resolve_engine("auto", 300_000, cuda) == "blocked_high"
+    assert resolve_engine("auto", 299_999, cuda) == "flat"
+    assert resolve_engine("blocked_high", 10, cpu) == "blocked_high"
+
+
+@pytest.mark.parametrize("family", ["hpf", "poisson", "extended", "gaussian"])
+def test_auto_fit_on_the_cpu_runs_flat_above_the_cutover(family):
+    """300k distinct edges (1000 users x 300 items), one sweep, K=2."""
+    from pmf_tpu_torch.models import gaussian_mf as tgmf
+    from pmf_tpu_torch.models import poisson_mf as tpmf
+
+    k = np.arange(300_000)
+    u, i, x = k % 1000, k // 1000, 1.0 + (k % 5)
+    kw = dict(n_factors=2, max_iter=1, tol=None, verbose=False, engine="auto")
+    model = {"hpf": lambda: thpf.HPF(thpf.HPFConfig(**kw)),
+             "poisson": lambda: tpmf.PoissonMF(tpmf.PoissonMFConfig(**kw)),
+             "extended": lambda: tpmf.PoissonMF(tpmf.PoissonMFConfig(extended=True,
+                                                                      **kw)),
+             "gaussian": lambda: tgmf.GaussianMF(tgmf.GaussianMFConfig(**kw))}[family]()
+    model.fit((u, i, x), device="cpu")
+    assert model.engine_used == "flat"
+    assert not hasattr(model, "blocked")
+
+
 def test_state_numpy_round_trip():
     cfg = jhpf.HPFConfig(n_factors=5, verbose=False)
     js = {k: np.asarray(v) for k, v in jhpf.init_state(30, 20, cfg).items()}
