@@ -1,6 +1,8 @@
 """PyTorch/CUDA port of pmf_tpu on an NVIDIA H100: the hybrid HPF-CAVI,
 Gaussian-MF CAVI and Poisson-MF CAVI (plain and extended) fits, and
-HPF-MAP training by SGD (flat and blocked engines).
+HPF-MAP training by SGD (flat and blocked engines); checkpoints and
+resume (``utils.checkpoint``), top-k serving (``FactorModel.recommend``,
+``cli.recommend``) and ranking metrics (``eval.ranking``).
 
 Imports torch only; nothing of JAX or of the JAX package.
 """

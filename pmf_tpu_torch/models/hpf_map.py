@@ -382,16 +382,20 @@ def _permute_rows(params, opt_state, u_perm, i_perm):
 GEN_KEY = "torch_generator_state"
 
 
+def _leaf_slots(keys) -> list:
+    """``leaf_<n>``'s content in the JAX package's leaf order: the params
+    by sorted key, then Adam's count, mu and nu (each by sorted key)."""
+    return ([("p", k) for k in keys] + [("count", None)]
+            + [(m, k) for m in ("mu", "nu") for k in keys])
+
+
 def _pack_ckpt(params, opt_state, gen_state, epoch) -> dict:
     """(params, Adam state, generator state, epoch) as a flat array dict
-    for ``utils.checkpoint.save_state``.  ``leaf_<n>`` follow the JAX
-    package's leaf order: the params by sorted key, then Adam's count, mu
-    and nu (each by sorted key)."""
-    out, n = {}, 0
-    for leaf in ([params[k] for k in sorted(params)] + [np.int32(opt_state["count"])]
-                 + [opt_state[m][k] for m in ("mu", "nu") for k in sorted(params)]):
-        out[f"leaf_{n}"] = leaf
-        n += 1
+    for ``utils.checkpoint.save_state``."""
+    tables = {"p": params, "mu": opt_state["mu"], "nu": opt_state["nu"]}
+    out = {f"leaf_{n}": (np.int32(opt_state["count"]) if kind == "count"
+                         else tables[kind][k])
+           for n, (kind, k) in enumerate(_leaf_slots(sorted(params)))}
     out[GEN_KEY] = gen_state.numpy()
     out["epoch"] = np.int32(epoch)
     return out
@@ -408,8 +412,7 @@ def _unpack_ckpt(flat: dict, params_template: dict):
                  else "not an HPFMap checkpoint of this package")
         raise ValueError(f"checkpoint has no {GEN_KEY}: {which}")
     keys = sorted(params_template)
-    slots = ([("p", k) for k in keys] + [("count", None)]
-             + [(m, k) for m in ("mu", "nu") for k in keys])
+    slots = _leaf_slots(keys)
     found = {}
     for n, (kind, k) in enumerate(slots):
         if f"leaf_{n}" not in flat:
