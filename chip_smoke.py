@@ -106,6 +106,26 @@ Those are freed, then the Gaussian-MF CAVI path:
                 by more than the fit's 1e-4 relative gate; its own time per
                 evaluation (CUDA events).
 
+Then the experiment surface (the CLIs through their ``main``; where
+matplotlib is absent, the runs that would plot call the CLIs' compute
+functions and say so):
+
+17. cli    -- phase data's splits written as processed CSVs and read back
+              by ``data.pipeline.load_all_splits`` (equal; seconds);
+              ``train_full.main --model hpf_cavi`` on them at K=20, 4
+              sweeps (K1, K2), its embeddings and test predictions checked
+              against a host recomputation; at a mid size (2M ratings,
+              40k x 12k, 3 iterations) ``run_single.main`` for all six
+              models, ``compare --ranking``, ``tune.main --n_trials 2
+              --seeds_per_trial 3`` and ``best_k`` with 3 seeds over 3 K,
+              each fit's kernels checked from the launch counters.
+18. mseed  -- ``tune.multi_seed``: HPF, S=3, K=20 at the tuner's size,
+              each seed equal to its single flat fit to 1e-4 relative; on
+              the 24.9M training set, 2 vmapped sweeps timed, peak memory.
+19. repro  -- ``reproduce.main`` on a 1.13M-row synthetic Food.com clone
+              (706k training ratings, blocked engines), one tuner trial a
+              model, the artifact set checked.
+
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.
 """
@@ -253,8 +273,17 @@ def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    import importlib
+
+    versions = []
+    for name in ("pandas", "matplotlib", "sklearn"):
+        try:
+            versions.append(f"{name} {importlib.import_module(name).__version__}")
+        except ImportError:
+            versions.append(f"{name} absent")
     log(f"phase device: ok | {smi} | torch {torch.__version__} "
-        f"cuda {torch.version.cuda} | devices {torch.cuda.device_count()}")
+        f"cuda {torch.version.cuda} | devices {torch.cuda.device_count()} | "
+        + ", ".join(versions))
     return smi
 
 
@@ -3026,6 +3055,444 @@ def phase_gelbo(train, val, smi):
         del model, elbo_fn
 
 
+# ---- The experiment surface: CLIs, multi-seed fits, the reproduction chain.
+
+MID_USERS, MID_ITEMS, MID_NNZ, MID_HELD = 40_000, 12_000, 2_000_000, 20_000
+CLI_ITERS = 3  # iterations of every mid-size CLI fit (HPF-MAP: 1 epoch)
+TRAIN_FULL_SWEEPS = 4
+MSEED_SEEDS, MSEED_ITERS, MSEED_SMALL = (0, 1, 2), 2, (50_000, 10_000)
+MSEED_RTOL = 1e-4  # seed k vs the single flat fit: float32 atomics on both
+# synth_foodcom_raw's defaults: 706k training ratings after preprocessing,
+# over the 300k edges from which "auto" takes the blocked engines.
+REPRO_RAW, REPRO_USERS, REPRO_ITEMS, REPRO_MIN_TRAIN = 1_130_000, 25_076, 178_265, 300_000
+# The kernels each mid-size CLI fit must launch, and no other.  K2 is not
+# among them: the layout has head tiers only from 4M ratings on
+# (data/blocked.py::_pick_tiers), so it runs in train_full's full-width
+# fit, not at the mid size or in the reproduction's clone.
+CLI_KERNELS = {"gaussian": {"K3", "K4"}, "gaussian_bias": {"K3", "K4", "K5"},
+               "poisson": {"K1"}, "poisson_extended": {"K7", "K8"},
+               "hpf_cavi": {"K1"}, "hpf_map": {"K9"}}
+
+
+def _have(module: str) -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec(module) is not None
+
+
+def _write_int_csv(path: str, columns: dict) -> None:
+    """A CSV of non-negative integer columns with pandas' bytes
+    (``to_csv(index=False)``): every field's digits at a fixed width, the
+    leading zeros then dropped by one boolean selection (about 4x faster
+    than pandas' own writer on a host CPU)."""
+    mats, keeps = [], []
+    for k, a in enumerate(columns.values()):
+        a = np.asarray(a, dtype=np.int32)
+        width = len(str(int(a.max())))
+        digits = np.empty((len(a), width), dtype=np.uint8)
+        q = a.copy()
+        for j in range(width - 1, -1, -1):
+            digits[:, j] = q % 10
+            q //= 10
+        mats.append(digits + np.uint8(ord("0")))
+        keep = a[:, None] >= 10 ** np.arange(width - 1, -1, -1, dtype=np.int32)
+        keep[:, -1] = True
+        keeps.append(keep)
+        mats.append(np.full((len(a), 1), ord("," if k < len(columns) - 1 else "\n"),
+                            dtype=np.uint8))
+        keeps.append(np.ones((len(a), 1), dtype=bool))
+    body = np.concatenate(mats, axis=1)[np.concatenate(keeps, axis=1)]
+    with open(path, "wb") as f:
+        f.write((",".join(columns) + "\n").encode())
+        f.write(body.tobytes())
+
+
+def _write_splits(processed: str, splits: dict) -> float:
+    """interactions_{train,validation,test}.csv (u, i, rating) and a
+    dict_i.csv (recipe_id, i) into ``processed``; returns the seconds."""
+    os.makedirs(processed, exist_ok=True)
+    t0 = time.perf_counter()
+    for name, (u, i, x) in splits.items():
+        _write_int_csv(os.path.join(processed, f"interactions_{name}.csv"),
+                       {"u": u, "i": i, "rating": x.astype(np.int64)})
+    n_items = int(max(s[1].max() for s in splits.values())) + 1
+    _write_int_csv(os.path.join(processed, "dict_i.csv"),
+                   {"recipe_id": 7 + 10 * np.arange(n_items), "i": np.arange(n_items)})
+    return time.perf_counter() - t0
+
+
+def _launched(counters) -> dict:
+    return {k: c.count for k, c in counters.items() if c.count}
+
+
+def _check_kernels(label, counters, want):
+    """``want``: the set of kernels that launched, or their exact counts."""
+    got = _launched(counters)
+    if (set(got) if isinstance(want, set) else got) != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    return got
+
+
+def _mid_data():
+    """The mid-size splits: Zipf ids (``synth``, seed 2), 20k validation
+    and 20k test ratings drawn past the id-coverage prefix."""
+    from pmf_tpu_torch.data.synthetic import synth
+
+    u, i, x = synth(MID_USERS, MID_ITEMS, MID_NNZ, seed=2)
+    held = MID_USERS + np.random.default_rng(3).choice(
+        MID_NNZ - MID_USERS, size=2 * MID_HELD, replace=False)
+    is_train = np.ones(MID_NNZ, dtype=bool)
+    is_train[held] = False
+    pick = lambda m: (u[m], i[m], x[m])  # noqa: E731
+    return {"train": pick(is_train), "validation": pick(held[:MID_HELD]),
+            "test": pick(held[MID_HELD:])}
+
+
+def phase_cli(train, val, smi):
+    """The CLIs on the card.  At full width: phase data's splits written as
+    processed CSVs and read back through ``data.pipeline.load_all_splits``
+    (equal), then ``train_full.main --model hpf_cavi`` at K=20 for 4
+    sweeps (K1, K2) with its exports checked against a host recomputation.
+    At the mid size (2M ratings, 40k x 12k, over the 300k cutover):
+    ``run_single.main`` for all six models, ``compare`` with ranking,
+    ``tune.main`` with 3 seeds a trial and ``best_k`` with 3 seeds over 3
+    K; each fit's kernels checked from the launch counters."""
+    import contextlib
+    import shutil
+
+    import pandas as pd
+    import torch
+
+    from pmf_tpu_torch import config as cfg_io
+    from pmf_tpu_torch.cli import best_k, compare, run_single, train_full, tune
+    from pmf_tpu_torch.data.pipeline import load_all_splits
+    from pmf_tpu_torch.models import (
+        GaussianMFConfig, HPFConfig, HPFMapConfig, PoissonMFConfig)
+
+    plots = _have("matplotlib")
+    root = _fresh_dir("cli")
+    try:
+        # -- full width: CSVs, then train_full.
+        half = len(val[0]) // 2
+        splits = {"train": train, "validation": tuple(a[:half] for a in val),
+                  "test": tuple(a[half:] for a in val)}
+        processed = os.path.join(root, "data", "processed")
+        sample = os.path.join(root, "sample.csv")
+        cut = {"u": train[0][:100_000], "i": train[1][:100_000],
+               "rating": train[2][:100_000].astype(np.int64)}
+        _write_int_csv(sample, cut)
+        pd.DataFrame(cut).to_csv(sample + ".pd", index=False)
+        with open(sample, "rb") as mine, open(sample + ".pd", "rb") as theirs:
+            if mine.read() != theirs.read():
+                raise AssertionError("cli: the CSV writer's bytes differ from pandas'")
+        t_write = _write_splits(processed, splits)
+        mb = _dir_mb(processed)
+        t0 = time.perf_counter()
+        frames = load_all_splits(processed)
+        t_read = time.perf_counter() - t0
+        for name, df in zip(splits, frames):
+            u, i, x = splits[name]
+            if not (np.array_equal(df["u"], u) and np.array_equal(df["i"], i)
+                    and np.array_equal(df["rating"], x.astype(np.float64))):
+                raise AssertionError(f"cli: {name} read back differs from the arrays")
+        del frames
+        log(f"  CSVs: {len(train[0])} + {half} + {len(val[0]) - half} rows, {mb:.1f} MB "
+            f"written in {t_write:.2f} s, read by load_all_splits in {t_read:.2f} s "
+            f"(equal) | {smi}")
+
+        hp = os.path.join(root, "best_hyperparams.txt")
+        cfg_io.write_best_hyperparams({cfg_io.HPF_CAVI_KEY: HPFConfig(
+            n_factors=K, max_iter=TRAIN_FULL_SWEEPS, tol=None)}, hp)
+        out = os.path.join(root, "data")
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        models = train_full.main(["--model", "hpf_cavi", "--processed_dir", processed,
+                                  "--data_dir", out, "--hyperparams", hp])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        model = models["hpf_cavi"]
+        n_tiers = len(model.blocked.head or ())
+        got = _check_kernels("cli train_full", counters, {
+            "K1": 2 * TRAIN_FULL_SWEEPS, "K2": 2 * n_tiers * TRAIN_FULL_SWEEPS})
+        if n_tiers == 0 or model.n_sweeps != TRAIN_FULL_SWEEPS:
+            raise AssertionError(f"cli train_full: {model.n_sweeps} sweeps, {n_tiers} tiers")
+        emb = os.path.join(out, "embeddings", "hpf_cavi")
+        users = pd.read_csv(os.path.join(emb, "user_embeddings.csv")).to_numpy()
+        items = pd.read_csv(os.path.join(emb, "item_embeddings.csv"))
+        preds = pd.read_csv(os.path.join(out, "predictions", "hpf_cavi",
+                                         "test_predictions.csv"))
+        if users.shape != (N_USERS, K) or items.shape != (N_ITEMS, K + 1) \
+                or items.columns[0] != "recipe_id" or len(preds) != len(val[0]) - half:
+            raise AssertionError(f"cli train_full: exports {users.shape}, {items.shape}, "
+                                 f"{len(preds)} predictions")
+        if not np.array_equal(items["recipe_id"], 7 + 10 * np.arange(N_ITEMS)):
+            raise AssertionError("cli train_full: item rows lost the recipe-id map")
+        pu, pi = preds["u"].to_numpy(), preds["i"].to_numpy()
+        host = np.sum(users[pu] * items.to_numpy()[pi, 1:], axis=1) - 1.0
+        err = float(np.max(np.abs(preds["y_pred"].to_numpy() - host)
+                           / np.maximum(np.abs(host), 1.0)))
+        if not np.all(np.isfinite(users)) or err > 1e-5:
+            raise AssertionError(f"cli train_full: y_pred vs the host's dot: {err}")
+        log(f"  train_full --model hpf_cavi: {N_USERS}x{N_ITEMS}, {len(train[0])} "
+            f"ratings, K={K}, {model.n_sweeps} sweeps: {wall:.1f} s wall (CSV read "
+            f"included), fit {model.fit_seconds:.1f} s, export "
+            f"{model.export_seconds:.1f} s ({_dir_mb(emb):.1f} MB of embeddings) | "
+            f"launches {got} | {n_tiers} tiers | y_pred vs host dot "
+            f"{err:.2e} | {smi}")
+        del models, model, users, items, preds
+        shutil.rmtree(os.path.join(root, "data"))
+        gc_cuda()
+
+        # -- mid size: run_single, compare, tune, best_k.
+        t_mid = time.perf_counter()
+        mid = _mid_data()
+        processed = os.path.join(root, "mid", "processed")
+        _write_splits(processed, mid)
+        base = ["--processed_dir", processed]
+        for name in sorted(run_single.DEFAULTS):
+            extra = (["--engine", "blocked_high", "--max_iter", "1"] if name == "hpf_map"
+                     else ["--max_iter", str(CLI_ITERS)])
+            counters = reset_counters()
+            t0 = time.perf_counter()
+            res = run_single.main(["--model", name, *base, *extra])
+            torch.cuda.synchronize()
+            model = res["_model"]
+            got = _check_kernels(f"cli run_single {name}", counters, CLI_KERNELS[name])
+            if not all(np.isfinite(res[f"{s}_rmse"]) for s in ("train", "val", "test")):
+                raise AssertionError(f"cli run_single {name}: {res}")
+            log(f"  run_single {name}: engine {model.engine_used}, "
+                f"{time.perf_counter() - t0:.1f} s wall, fit {res['fit_seconds']:.1f} s | "
+                f"val RMSE {res['val_rmse']:.6f} | launches {got}")
+            del res, model
+        gc_cuda()
+
+        hp = os.path.join(root, "mid", "best_hyperparams.txt")
+        small = dict(n_factors=K, max_iter=CLI_ITERS, verbose=False)
+        cfg_io.write_best_hyperparams({
+            cfg_io.GAUSSIAN_KEY: GaussianMFConfig(**small, sigma2=0.5, eta_theta2=0.1,
+                                                  eta_beta2=0.01, eta_bias2=0.01,
+                                                  use_bias=True),
+            cfg_io.POISSON_KEY: PoissonMFConfig(**small),
+            cfg_io.HPF_CAVI_KEY: HPFConfig(**small),
+            cfg_io.HPF_MAP_KEY: HPFMapConfig(n_factors=K, epochs=1, batch_size=4096,
+                                             verbose=False, engine="blocked_high"),
+        }, hp)
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        if plots:
+            table = compare.main([*base, "--hyperparams", hp, "--ranking",
+                                  "--plot", os.path.join(root, "mid", "cmp.png"),
+                                  "--params_out", os.path.join(root, "mid", "cmp.txt")])
+        else:
+            log("  compare: matplotlib is not installed here, so compare_models "
+                "(compare.main's fits, without its plot) runs in place of compare.main")
+            split_frames = load_all_splits(processed)
+            table, _ = compare.compare_models(*split_frames, cfg_io.load_best_hyperparams(hp),
+                                              ranking=True)
+        if table is None or len(table) != 4 or not np.all(
+                np.isfinite(table[["test_rmse", "test_recall@10"]].to_numpy())):
+            raise AssertionError(f"cli compare: {table}")
+        got = _check_kernels("cli compare", counters,
+                             {"K1", "K3", "K4", "K5", "K9"})
+        log(f"  compare --ranking: 4 models in {time.perf_counter() - t0:.1f} s | "
+            + "; ".join(f"{r['model']}: test RMSE {r['test_rmse']:.4f}, recall@10 "
+                        f"{r['test_recall@10']:.4f}, fit {r['fit_seconds']:.1f} s"
+                        for _, r in table.iterrows()) + f" | launches {got}")
+
+        t0 = time.perf_counter()
+        tuned = tune.main([*base, "--n_trials", "2", "--seeds_per_trial", "3",
+                           "--out", os.path.join(root, "mid", "tuned.txt")])
+        if sorted(tuned) != sorted(tune.ARTIFACT_KEY.values()):
+            raise AssertionError(f"cli tune: {sorted(tuned)}")
+        log(f"  tune --n_trials 2 --seeds_per_trial 3: {time.perf_counter() - t0:.1f} s | "
+            + "; ".join(f"{k}: K={c.n_factors}, seed {c.random_state}"
+                        for k, c in tuned.items()))
+
+        t0 = time.perf_counter()
+        ks = [10, 20, 30]
+        if plots:
+            with contextlib.chdir(root):  # its figures go under ./reports
+                rows, best = best_k.main([*base, "--model", "hpf_cavi", "--k_min", "10",
+                                          "--k_max", "30", "--k_step", "10", "--max_iter",
+                                          str(CLI_ITERS), "--seeds", "3"])
+        else:
+            log("  best_k: matplotlib is not installed here, so best_k.sweep "
+                "(best_k.main's fits, without its plots) runs in place of best_k.main")
+            tr_df, va_df, _ = load_all_splits(processed)
+            rows = best_k.sweep("hpf_cavi", tr_df, va_df, ks, max_iter=CLI_ITERS, seeds=3)
+            best = max(rows, key=lambda r: r["val_lpl"])
+        if [r["K"] for r in rows] != ks or not all(
+                np.isfinite(r["val_lpl"]) and len(r["per_seed"]) == 3 for r in rows):
+            raise AssertionError(f"cli best_k: {rows}")
+        log(f"  best_k hpf_cavi --seeds 3, K in {ks}: {time.perf_counter() - t0:.1f} s | "
+            + "; ".join(f"K={r['K']}: val LPL {r['val_lpl']:.1f}" for r in rows)
+            + f" | best K {best['K']}")
+        log(f"phase cli: ok | full-width CSVs {t_write:.1f} s write / {t_read:.1f} s "
+            f"read, train_full {wall:.1f} s; mid size {MID_NNZ} ratings: six run_single, "
+            f"compare, tune, best_k in {time.perf_counter() - t_mid:.1f} s | {smi}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def gc_cuda():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_mseed(train, val, smi):
+    """``tune.multi_seed`` on the card.  At the tuner's size (50k train /
+    10k val drawn from phase data): S=3 HPF seeds at K=20, each equal to
+    the port's single flat fit of that seed to 1e-4 relative per element,
+    the seeds different.  On the full 24.9M training set: S=3, K=20, 2
+    vmapped sweeps timed by CUDA events, the peak memory, a finite state."""
+    import dataclasses
+
+    import torch
+
+    from pmf_tpu_torch.data.coo import build_ratings
+    from pmf_tpu_torch.models.hpf import HPF, HPFConfig
+    from pmf_tpu_torch.tune import multi_seed
+
+    rng = np.random.default_rng(42)
+    tr_idx = rng.choice(len(train[0]), size=MSEED_SMALL[0], replace=False)
+    va_idx = rng.choice(len(val[0]), size=MSEED_SMALL[1], replace=False)
+    tr = tuple(a[tr_idx] for a in train)
+    va = tuple(a[va_idx] for a in val)
+    cfg = HPFConfig(n_factors=K, max_iter=3, tol=None, verbose=False, engine="flat")
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    stacked, metrics = multi_seed.multi_seed_fit(cfg, tr, va, seeds=MSEED_SEEDS)
+    torch.cuda.synchronize()
+    t_small = time.perf_counter() - t0
+    worst = 0.0
+    for k, seed in enumerate(MSEED_SEEDS):
+        solo = HPF(dataclasses.replace(cfg, random_state=seed)).fit(tr, va)
+        for key, v in solo.state.items():
+            _, rel = compare(stacked[key][k], v)
+            worst = max(worst, rel)
+        if abs(metrics[k]["val_rmse"] - solo.fit_history[-1]["val_rmse"]) > 1e-4:
+            raise AssertionError(f"mseed: seed {seed} val RMSE {metrics[k]} vs the "
+                                 f"single fit's {solo.fit_history[-1]}")
+    if worst > MSEED_RTOL:
+        raise AssertionError(f"mseed: a seed differs from its single fit by {worst:.3e}")
+    if torch.equal(stacked["a_theta"][0], stacked["a_theta"][1]):
+        raise AssertionError("mseed: seeds 0 and 1 gave the same state")
+    _check_kernels("mseed", counters, {})  # the flat sweep: no kernel
+    log(f"  multi_seed_fit HPF S={len(MSEED_SEEDS)} K={K} on {MSEED_SMALL[0]} / "
+        f"{MSEED_SMALL[1]} ratings, 3 sweeps: {t_small:.2f} s | each seed vs its single "
+        f"flat fit: max relative error {worst:.3e} (gate {MSEED_RTOL:g}) | val RMSE "
+        + ", ".join(f"{m['val_rmse']:.6f}" for m in metrics))
+    del stacked, solo
+    gc_cuda()
+
+    # Full size, through the pieces multi_seed_fit is made of, to time
+    # each vmapped sweep alone.
+    cfg = dataclasses.replace(cfg, max_iter=MSEED_ITERS)
+    t0 = time.perf_counter()
+    data = build_ratings(*train, dtype=np.float32, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    state = multi_seed.stacked_init(cfg, data.n_users, data.n_items, MSEED_SEEDS, "cuda")
+    step = multi_seed.vmapped_sweep(cfg, data)
+    secs = []
+    for _ in range(MSEED_ITERS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state = step(state)
+        end.record()
+        torch.cuda.synchronize()
+        secs.append(start.elapsed_time(end) / 1e3)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    for key, v in state.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"mseed full: {key} has non-finite values")
+    S = len(MSEED_SEEDS)
+    log(f"phase mseed: ok | full {len(train[0])} ratings, S={S}, K={K}: "
+        f"build_ratings {t_build:.1f} s, vmapped sweeps "
+        + ", ".join(f"{s:.4f}" for s in secs)
+        + f" s ({2 * S * len(train[0]) / min(secs) / 1e6:.1f}M updates/s over the "
+        f"seeds) | peak {peak_mb:.0f} MiB over {base_mb:.0f} MiB before "
+        f"(total {torch.cuda.get_device_properties(0).total_memory / 2**20:.0f}) | {smi}")
+    del state, data
+    gc_cuda()
+
+
+def phase_repro(smi):
+    """``reproduce.main`` on a synthetic Food.com clone whose compare and
+    train_full fits take 706k training edges (blocked engines: K1, K3,
+    K4, K5), one tuner trial a model; the artifact set of
+    ``tests/test_reproduce.py`` checked.  Without matplotlib the plotting
+    stages run as their compute functions (said on a line of their own)."""
+    import json
+    import shutil
+
+    import torch
+
+    from pmf_tpu_torch import config as cfg_io
+    from pmf_tpu_torch.analysis import exploratory, forecasts
+    from pmf_tpu_torch.cli import compare, reproduce
+    from pmf_tpu_torch.data.pipeline import load_all_splits
+
+    wd = _fresh_dir("repro")
+    plots = _have("matplotlib")
+    try:
+        argv = ["--workdir", wd, "--synthetic_clone", str(REPRO_RAW), "--clone_users",
+                str(REPRO_USERS), "--clone_items", str(REPRO_ITEMS), "--n_trials", "1"]
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        if plots:
+            res = reproduce.main(argv)
+        else:
+            log("  repro: matplotlib is not installed here, so reproduce.main runs "
+                "the stages preprocess, tune and train_full, and compare_models, "
+                "forecasts.write_report and exploratory.split_stats (compare's and "
+                "the analysis stage's computations, without their plots) run after it")
+            res = reproduce.main([*argv, "--stages", "preprocess", "tune", "train_full"])
+            processed = os.path.join(wd, "data", "processed")
+            frames = load_all_splits(processed)
+            hp = cfg_io.load_best_hyperparams(os.path.join(wd, "best_hyperparams.txt"))
+            table, used = compare.compare_models(*frames, hp)
+            if table is None or len(table) != 4:
+                raise AssertionError(f"repro compare: {table}")
+            compare.write_params(used, os.path.join(wd, "model_comparison_params.txt"))
+            forecasts.write_report(forecasts.collect(os.path.join(wd, "data")),
+                                   os.path.join(wd, "reports"))
+            exploratory.split_stats(*frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _check_kernels("repro", counters, {"K1", "K3", "K4", "K5"})
+        want = ["data/processed/interactions_train.csv", "data/processed/dict_i.csv",
+                "best_hyperparams.txt", "model_comparison_params.txt",
+                "data/embeddings/gaussian_mf/user_embeddings.csv",
+                "data/embeddings/gaussian_mf/config.txt",
+                "data/predictions/hpf_cavi/test_predictions.csv",
+                "reports/forecast_metrics.csv", "reports/forecast_analysis.md",
+                "reproduce_manifest.json"]
+        if plots:
+            want.append("model_comparison_plots.png")
+        missing = [rel for rel in want if not os.path.exists(os.path.join(wd, rel))]
+        with open(os.path.join(wd, "reproduce_manifest.json")) as f:
+            manifest = json.load(f)
+        n_train = sum(1 for _ in open(os.path.join(
+            wd, "data", "processed", "interactions_train.csv"))) - 1
+        if missing or manifest["stages"]["train_full"]["embeddings"] != [
+                "gaussian_mf", "hpf_cavi", "hpf_pytorch", "poisson_mf"] or n_train < REPRO_MIN_TRAIN:
+            raise AssertionError(f"repro: missing {missing}, manifest {manifest['stages']}, "
+                                 f"{n_train} training rows")
+        log(f"phase repro: ok | clone of {REPRO_RAW} raw rows -> {n_train} training "
+            f"ratings | {wall:.1f} s wall | {len(want)} artifacts present"
+            + ("" if plots else " (no plot: matplotlib absent)")
+            + f" | launches {got} | {smi}")
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3083,7 +3550,7 @@ def main(argv=None) -> int:
     mmodel, mlaunches = phase_mfit(train, val, smi)
     phase_mresume(mmodel, train, val, smi)
     phase_mprofile(mmodel, train, smi)
-    del mmodel, train, val
+    del mmodel
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3105,6 +3572,16 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_gelbo(gtrain, gval, smi)
+    del gtrain, gval
+    gc_cuda()
+
+    t_new = time.perf_counter()
+    phase_cli(train, val, smi)
+    phase_mseed(train, val, smi)
+    del train, val
+    gc_cuda()
+    phase_repro(smi)
+    log(f"  phases cli, mseed and repro: {time.perf_counter() - t_new:.1f} s")
 
     def entry(name, source, replaces, res, n, kid, **more):
         return {"name": name, "route": "cuda", "source": source,

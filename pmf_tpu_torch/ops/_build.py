@@ -26,6 +26,11 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
 
+class KernelError(RuntimeError):
+    """The kernels did not build or load, or a launch reported a CUDA
+    error: a fault of the card or its toolchain, not of one fit."""
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -86,7 +91,7 @@ def _nvcc() -> str:
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise KernelError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def build() -> Path:
@@ -116,14 +121,14 @@ def build() -> Path:
             if proc.returncode != 0:
                 failed.append(src.name)
         if failed:
-            raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
-                               + "\n".join(logs))
+            raise KernelError("nvcc failed for " + ", ".join(failed) + ":\n"
+                              + "\n".join(logs))
         tmp_so = Path(tmp) / out.name
         link = subprocess.run(
             [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_so), *map(str, objs)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
-            raise RuntimeError("linking the kernel library failed:\n" + link.stdout)
+            raise KernelError("linking the kernel library failed:\n" + link.stdout)
         Path(str(out) + ".log").write_text("\n".join(logs))
         os.replace(tmp_so, out)
     return out
@@ -131,7 +136,11 @@ def build() -> Path:
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    path = build()
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as e:
+        raise KernelError(f"loading {path} failed: {e}") from e
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -155,7 +164,7 @@ def check(lib: ctypes.CDLL, err: int, name: str) -> None:
     """Raise when a C entry point reported a CUDA error."""
     if err != 0:
         msg = lib.pmf_error_string(err).decode(errors="replace")
-        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+        raise KernelError(f"{name}: CUDA error {err} ({msg})")
 
 
 def launch(name: str, counter: LaunchCounter, device, *args) -> None:

@@ -13,13 +13,14 @@ import torch
 def sorted_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                        num_segments: int) -> torch.Tensor:
     """Sum ``data`` rows into ``num_segments`` rows; ids outside
-    [0, num_segments) are dropped (they land in a spill row cut off)."""
+    [0, num_segments) are dropped (they land in a spill row cut off).
+    The add is out of place, so the sum also runs under
+    ``torch.func.vmap`` over a batched ``data`` (``tune.multi_seed``)."""
     ids = segment_ids.long()
     ids = torch.where((ids >= 0) & (ids < num_segments), ids, num_segments)
     out = torch.zeros((num_segments + 1,) + tuple(data.shape[1:]),
                       dtype=data.dtype, device=data.device)
-    out.index_add_(0, ids, data)
-    return out[:num_segments]
+    return out.index_add(0, ids, data)[:num_segments]
 
 
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -59,6 +59,11 @@ def test_port_package_files_are_scanned():
     rel = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert {"pmf_tpu_torch/cli/recommend.py", "pmf_tpu_torch/eval/recommend.py",
             "pmf_tpu_torch/utils/checkpoint.py"} <= rel
+    assert {f"pmf_tpu_torch/{m}.py" for m in (
+        "utils/mapping", "data/pipeline", "tune/multi_seed", "cli/common",
+        "cli/run_single", "cli/tune", "cli/best_k", "cli/compare", "cli/train_full",
+        "cli/reproduce", "analysis/forecasts", "analysis/exploratory",
+        "analysis/top_dimensions", "analysis/embedding_viz")} <= rel
     assert Path(pmf_tpu_torch.__file__).parent == REPO / "pmf_tpu_torch"
 
 
