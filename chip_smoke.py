@@ -122,8 +122,8 @@ functions and say so):
 18. mseed  -- ``tune.multi_seed``: HPF, S=3, K=20 at the tuner's size,
               each seed equal to its single flat fit to 1e-4 relative; on
               the 24.9M training set, 2 vmapped sweeps timed, peak memory.
-19. repro  -- ``reproduce.main`` on a 1.13M-row synthetic Food.com clone
-              (706k training ratings, blocked engines), one tuner trial a
+19. repro  -- ``reproduce.main`` on a 700k-row synthetic Food.com clone
+              (369k training ratings, blocked engines), one tuner trial a
               model, the artifact set checked.
 
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and as the
@@ -262,6 +262,17 @@ def reset_counters() -> dict:
     return counters
 
 
+def gc_cuda():
+    """Free what the last phase left: Python garbage, then the cached
+    device blocks."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_device():
     import torch
 
@@ -273,13 +284,16 @@ def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    import importlib
+    from importlib import metadata
 
+    # Versions from the installed metadata, nothing imported: with pandas
+    # imported here, phase K9's host-paced launch loop ran 1.7x slower in
+    # an A/B on one card (PERF.md, PR 12).
     versions = []
-    for name in ("pandas", "matplotlib", "sklearn"):
+    for name in ("pandas", "matplotlib", "scikit-learn"):
         try:
-            versions.append(f"{name} {importlib.import_module(name).__version__}")
-        except ImportError:
+            versions.append(f"{name} {metadata.version(name)}")
+        except metadata.PackageNotFoundError:
             versions.append(f"{name} absent")
     log(f"phase device: ok | {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda} | devices {torch.cuda.device_count()} | "
@@ -3062,9 +3076,11 @@ CLI_ITERS = 3  # iterations of every mid-size CLI fit (HPF-MAP: 1 epoch)
 TRAIN_FULL_SWEEPS = 4
 MSEED_SEEDS, MSEED_ITERS, MSEED_SMALL = (0, 1, 2), 2, (50_000, 10_000)
 MSEED_RTOL = 1e-4  # seed k vs the single flat fit: float32 atomics on both
-# synth_foodcom_raw's defaults: 706k training ratings after preprocessing,
-# over the 300k edges from which "auto" takes the blocked engines.
-REPRO_RAW, REPRO_USERS, REPRO_ITEMS, REPRO_MIN_TRAIN = 1_130_000, 25_076, 178_265, 300_000
+# 700k raw rows over synth_foodcom_raw's default ids: 369,106 training
+# ratings after preprocessing, over the 300k edges from which "auto" takes
+# the blocked engines.  Its default 1.13M rows (706k ratings) kept this
+# phase at 52-54 s, past the new phases' budget (PERF.md, PR 12).
+REPRO_RAW, REPRO_USERS, REPRO_ITEMS, REPRO_MIN_TRAIN = 700_000, 25_076, 178_265, 300_000
 # The kernels each mid-size CLI fit must launch, and no other.  K2 is not
 # among them: the layout has head tiers only from 4M ratings on
 # (data/blocked.py::_pick_tiers), so it runs in train_full's full-width
@@ -3286,8 +3302,8 @@ def phase_cli(train, val, smi):
         else:
             log("  compare: matplotlib is not installed here, so compare_models "
                 "(compare.main's fits, without its plot) runs in place of compare.main")
-            split_frames = load_all_splits(processed)
-            table, _ = compare.compare_models(*split_frames, cfg_io.load_best_hyperparams(hp),
+            mid_frames = load_all_splits(processed)
+            table, _ = compare.compare_models(*mid_frames, cfg_io.load_best_hyperparams(hp),
                                               ranking=True)
         if table is None or len(table) != 4 or not np.all(
                 np.isfinite(table[["test_rmse", "test_recall@10"]].to_numpy())):
@@ -3318,8 +3334,8 @@ def phase_cli(train, val, smi):
         else:
             log("  best_k: matplotlib is not installed here, so best_k.sweep "
                 "(best_k.main's fits, without its plots) runs in place of best_k.main")
-            tr_df, va_df, _ = load_all_splits(processed)
-            rows = best_k.sweep("hpf_cavi", tr_df, va_df, ks, max_iter=CLI_ITERS, seeds=3)
+            rows = best_k.sweep("hpf_cavi", *mid_frames[:2], ks, max_iter=CLI_ITERS,
+                                seeds=3)
             best = max(rows, key=lambda r: r["val_lpl"])
         if [r["K"] for r in rows] != ks or not all(
                 np.isfinite(r["val_lpl"]) and len(r["per_seed"]) == 3 for r in rows):
@@ -3332,15 +3348,6 @@ def phase_cli(train, val, smi):
             f"compare, tune, best_k in {time.perf_counter() - t_mid:.1f} s | {smi}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-
-
-def gc_cuda():
-    import gc
-
-    import torch
-
-    gc.collect()
-    torch.cuda.empty_cache()
 
 
 def phase_mseed(train, val, smi):
@@ -3425,7 +3432,7 @@ def phase_mseed(train, val, smi):
 
 def phase_repro(smi):
     """``reproduce.main`` on a synthetic Food.com clone whose compare and
-    train_full fits take 706k training edges (blocked engines: K1, K3,
+    train_full fits take 369k training edges (blocked engines: K1, K3,
     K4, K5), one tuner trial a model; the artifact set of
     ``tests/test_reproduce.py`` checked.  Without matplotlib the plotting
     stages run as their compute functions (said on a line of their own)."""
@@ -3502,8 +3509,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     smi = phase_device()
-    import gc
-
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -3512,8 +3517,7 @@ def main(argv=None) -> int:
     phase_build()
     phase_k2small()
     phase_bigk()
-    gc.collect()
-    torch.cuda.empty_cache()
+    gc_cuda()
     train, val, blocked, split = phase_data()
     k1 = phase_k1(blocked)
     k1raw = phase_k1raw(blocked)
@@ -3528,8 +3532,7 @@ def main(argv=None) -> int:
     phase_serve(model, train, val, smi)
     phase_resume(model, train, val, smi)
     del model
-    gc.collect()
-    torch.cuda.empty_cache()
+    gc_cuda()
 
     phase_psmall()
     pmodels = phase_pfit(train, val, smi)
@@ -3537,22 +3540,19 @@ def main(argv=None) -> int:
     for _, plaunches in pmodels.values():
         launches = {k: launches[k] + plaunches[k] for k in launches}
     del pmodels
-    gc.collect()
-    torch.cuda.empty_cache()
+    gc_cuda()
     phase_pelbo(train, val, smi)
 
     mlay, morder, mgroups, mseg_groups, mgroup_secs = phase_mdata(train)
     k9 = phase_k9(mlay, morder, mgroups, mseg_groups, mgroup_secs)
     del mlay, mgroups, mseg_groups
-    gc.collect()
-    torch.cuda.empty_cache()
+    gc_cuda()
     phase_msmall()
     mmodel, mlaunches = phase_mfit(train, val, smi)
     phase_mresume(mmodel, train, val, smi)
     phase_mprofile(mmodel, train, smi)
     del mmodel
-    gc.collect()
-    torch.cuda.empty_cache()
+    gc_cuda()
 
     gtrain, gval, gblocked = phase_gdata(split)
     k3 = phase_k3(gblocked)
@@ -3563,14 +3563,12 @@ def main(argv=None) -> int:
     wide.update(phase_wide_gauss(gblocked))
     wide["K9"] = k9["k50_ms"]
     del gblocked
-    gc.collect()
-    torch.cuda.empty_cache()
+    gc_cuda()
     phase_gsmall()
     full, diag, glaunches = phase_gfit(gtrain, gval, smi)
     phase_gprofile(full, diag, gtrain, smi)
     del full, diag
-    gc.collect()
-    torch.cuda.empty_cache()
+    gc_cuda()
     phase_gelbo(gtrain, gval, smi)
     del gtrain, gval
     gc_cuda()
