@@ -286,9 +286,7 @@ def phase_device():
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     from importlib import metadata
 
-    # Versions from the installed metadata, nothing imported: with pandas
-    # imported here, phase K9's host-paced launch loop ran 1.7x slower in
-    # an A/B on one card (PERF.md, PR 12).
+    # Versions from the installed metadata: nothing is imported here.
     versions = []
     for name in ("pandas", "matplotlib", "scikit-learn"):
         try:
@@ -3099,8 +3097,8 @@ def _have(module: str) -> bool:
 def _write_int_csv(path: str, columns: dict) -> None:
     """A CSV of non-negative integer columns with pandas' bytes
     (``to_csv(index=False)``): every field's digits at a fixed width, the
-    leading zeros then dropped by one boolean selection (about 4x faster
-    than pandas' own writer on a host CPU)."""
+    leading zeros then dropped by one boolean selection (faster than
+    pandas' own writer)."""
     mats, keeps = [], []
     for k, a in enumerate(columns.values()):
         a = np.asarray(a, dtype=np.int32)
