@@ -3348,17 +3348,56 @@ def phase_cli(train, val, smi):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _timed_seed_sweeps(cfg, train, n_iter):
+    """The pieces ``multi_seed_fit`` is made of, each vmapped sweep timed
+    alone by CUDA events: (state, build_ratings seconds, sweep seconds,
+    peak MiB, MiB allocated before the seeds' state)."""
+    import torch
+
+    from pmf_tpu_torch.data.coo import build_ratings
+    from pmf_tpu_torch.tune import multi_seed
+
+    t0 = time.perf_counter()
+    data = build_ratings(*train, dtype=np.float32, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    state = multi_seed.stacked_init(cfg, data.n_users, data.n_items, MSEED_SEEDS, "cuda")
+    step = multi_seed.vmapped_sweep(cfg, data)
+    secs = []
+    for _ in range(n_iter):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state = step(state)
+        end.record()
+        torch.cuda.synchronize()
+        secs.append(start.elapsed_time(end) / 1e3)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    for key, v in state.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"mseed: {key} has non-finite values")
+    return state, t_build, secs, peak_mb, base_mb
+
+
+def _sweep_note(n_train, secs, peak_mb, base_mb):
+    S = len(MSEED_SEEDS)
+    return (f"vmapped sweeps {', '.join(f'{s:.4f}' for s in secs)} s "
+            f"({2 * S * n_train / min(secs) / 1e6:.1f}M updates/s over the seeds) | "
+            f"peak {peak_mb:.0f} MiB over {base_mb:.0f} MiB before")
+
+
 def phase_mseed(train, val, smi):
     """``tune.multi_seed`` on the card.  At the tuner's size (50k train /
-    10k val drawn from phase data): S=3 HPF seeds at K=20, each equal to
-    the port's single flat fit of that seed to 1e-4 relative per element,
-    the seeds different.  On the full 24.9M training set: S=3, K=20, 2
-    vmapped sweeps timed by CUDA events, the peak memory, a finite state."""
+    10k val drawn from phase data): ``multi_seed_fit`` for S=3 HPF seeds
+    at K=20, each equal to the port's single flat fit of that seed to 1e-4
+    relative per element, the seeds different.  At that size and on the
+    full 24.9M training set: each vmapped sweep timed by CUDA events, the
+    peak memory, a finite state."""
     import dataclasses
 
     import torch
 
-    from pmf_tpu_torch.data.coo import build_ratings
     from pmf_tpu_torch.models.hpf import HPF, HPFConfig
     from pmf_tpu_torch.tune import multi_seed
 
@@ -3387,44 +3426,21 @@ def phase_mseed(train, val, smi):
     if torch.equal(stacked["a_theta"][0], stacked["a_theta"][1]):
         raise AssertionError("mseed: seeds 0 and 1 gave the same state")
     _check_kernels("mseed", counters, {})  # the flat sweep: no kernel
+    del stacked, solo
+    gc_cuda()
+    _, _, secs, peak_mb, base_mb = _timed_seed_sweeps(cfg, tr, cfg.max_iter)
     log(f"  multi_seed_fit HPF S={len(MSEED_SEEDS)} K={K} on {MSEED_SMALL[0]} / "
         f"{MSEED_SMALL[1]} ratings, 3 sweeps: {t_small:.2f} s | each seed vs its single "
         f"flat fit: max relative error {worst:.3e} (gate {MSEED_RTOL:g}) | val RMSE "
-        + ", ".join(f"{m['val_rmse']:.6f}" for m in metrics))
-    del stacked, solo
+        + ", ".join(f"{m['val_rmse']:.6f}" for m in metrics) + " | "
+        + _sweep_note(MSEED_SMALL[0], secs, peak_mb, base_mb))
     gc_cuda()
 
-    # Full size, through the pieces multi_seed_fit is made of, to time
-    # each vmapped sweep alone.
-    cfg = dataclasses.replace(cfg, max_iter=MSEED_ITERS)
-    t0 = time.perf_counter()
-    data = build_ratings(*train, dtype=np.float32, device="cuda")
-    torch.cuda.synchronize()
-    t_build = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    base_mb = torch.cuda.memory_allocated() / 2**20
-    state = multi_seed.stacked_init(cfg, data.n_users, data.n_items, MSEED_SEEDS, "cuda")
-    step = multi_seed.vmapped_sweep(cfg, data)
-    secs = []
-    for _ in range(MSEED_ITERS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        state = step(state)
-        end.record()
-        torch.cuda.synchronize()
-        secs.append(start.elapsed_time(end) / 1e3)
-    peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    for key, v in state.items():
-        if not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"mseed full: {key} has non-finite values")
-    S = len(MSEED_SEEDS)
-    log(f"phase mseed: ok | full {len(train[0])} ratings, S={S}, K={K}: "
-        f"build_ratings {t_build:.1f} s, vmapped sweeps "
-        + ", ".join(f"{s:.4f}" for s in secs)
-        + f" s ({2 * S * len(train[0]) / min(secs) / 1e6:.1f}M updates/s over the "
-        f"seeds) | peak {peak_mb:.0f} MiB over {base_mb:.0f} MiB before "
-        f"(total {torch.cuda.get_device_properties(0).total_memory / 2**20:.0f}) | {smi}")
-    del state, data
+    state, t_build, secs, peak_mb, base_mb = _timed_seed_sweeps(cfg, train, MSEED_ITERS)
+    log(f"phase mseed: ok | full {len(train[0])} ratings, S={len(MSEED_SEEDS)}, K={K}: "
+        f"build_ratings {t_build:.1f} s, " + _sweep_note(len(train[0]), secs, peak_mb, base_mb)
+        + f" (total {torch.cuda.get_device_properties(0).total_memory / 2**20:.0f}) | {smi}")
+    del state
     gc_cuda()
 
 
