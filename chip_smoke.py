@@ -14,6 +14,11 @@ result line:
 2. build   -- compile the CUDA kernels from ``pmf_tpu_torch/csrc``.
 3. data    -- the benchmark's Zipf data (162k users x 59k items x 25M
               ratings, seed 0) and the hybrid layout the fit builds.
+3a. cache  -- the layout cache: ``build_blocked`` as ``HPF.fit`` calls it,
+              cold into an empty directory under ``_smoke_tmp/``, then warm
+              (seconds, the entry's MB); every tensor of the hit equal in
+              bits to the cold build's and to phase data's, one sweep on
+              each equal in bits.  Every later fit reads that directory.
 4. K1      -- sparse-tail edge kernel vs its plain version, both directions,
               with its per-edge sector reckoning and its long rows alone,
               and its tables built into new space by gather and by scatter.
@@ -22,6 +27,12 @@ result line:
               card's memory rate; before the data, K2small: the same
               kernel vs the plain version in float64 over every padding of
               K, ragged rows, narrow heads and the three cell kinds.
+5a. k2fast -- K2's one-term instance (precision "fast") vs its plain
+              version on the same tiers (1e-3 relative, equal bits on a
+              repeat), its bound, stage bytes and CTAs/SM, its error
+              against the float64 "high" plain version, the high
+              instance's time against PERF.md note (p); then every K where
+              the plan changes, K = 50 and 128 on small shapes.
 6. small   -- three blocked sweeps on the card vs the host (plain kernels)
               on a small input with an explicit two-tier head.
 7. fit     -- ``HPF.fit(engine="blocked_high")`` at K=20 for 4 sweeps, with
@@ -106,12 +117,29 @@ Those are freed, then the Gaussian-MF CAVI path:
                 by more than the fit's 1e-4 relative gate; its own time per
                 evaluation (CUDA events).
 
+Then the other engines:
+
+16a. fastfit -- ``blocked_fast`` fits at full width, the layouts from the
+                cache: HPF 4 sweeps, extended Poisson and exact Gaussian 2
+                each, launch counters reset before and read after (K2's
+                fast instance on the Poisson family); val RMSE within 5e-3
+                of the blocked_high fits' at each sweep; busy ms a sweep at
+                fast and high; one ``blocked_mid`` sweep equal in bits to a
+                ``blocked_high`` one.
+16b. chunked -- HPF ``flat_chunked`` vs ``flat`` at full width, 2 sweeps,
+                in float32 (and ``flat`` again: the atomics' run-to-run
+                difference) and in float64, where the states must agree
+                within 1e-5 relative; peak device memory of each.
+
 Then the experiment surface (the CLIs through their ``main``; where
 matplotlib is absent, the runs that would plot call the CLIs' compute
 functions and say so):
 
 17. cli    -- phase data's splits written as processed CSVs and read back
-              by ``data.pipeline.load_all_splits`` (equal; seconds);
+              by ``data.pipeline.load_all_splits`` (equal; seconds); phase
+              native on the training CSV: the C++ parser against pandas,
+              ``build_ratings`` and the CSR tail by the radix sort against
+              numpy (equal; seconds), failing if the library did not load;
               ``train_full.main --model hpf_cavi`` on them at K=20, 4
               sweeps (K1, K2), its embeddings and test predictions checked
               against a host recomputation; at a mid size (2M ratings,
@@ -248,7 +276,7 @@ def kernel_counters() -> dict:
         cavi_edge, dense_head, ext_edge, gaussian_edge, gj_inverse, map_grad)
 
     return {"K1": cavi_edge.TAIL_LAUNCHES, "K1raw": cavi_edge.TAIL_RAW_LAUNCHES,
-            "K2": dense_head.HEAD_LAUNCHES,
+            "K2": dense_head.HEAD_LAUNCHES, "K2fast": dense_head.HEAD_FAST_LAUNCHES,
             "K3": gaussian_edge.FACTOR_LAUNCHES, "K4": gj_inverse.GJ_LAUNCHES,
             "K5": gaussian_edge.BIAS_LAUNCHES, "K6": gaussian_edge.DIAG_LAUNCHES,
             "K7": ext_edge.FACTOR_LAUNCHES, "K8": ext_edge.SCALAR_LAUNCHES,
@@ -360,7 +388,13 @@ def phase_build():
     _build.load_library()
     log_path = str(path) + ".log"
     report = _ptxas_report(open(log_path).read()) if os.path.exists(log_path) else []
-    log(f"phase build: ok | {path.name} in {secs:.1f}s")
+    from pmf_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("build: the native ingest library did not build or load")
+    log(f"phase build: ok | {path.name} in {secs:.1f}s | "
+        f"{native.library_path().name} (g++) in {time.perf_counter() - t0:.1f}s")
     for ln in report:
         log(f"  ptxas {ln}")
 
@@ -505,7 +539,7 @@ def phase_k1raw(blocked):
     return res
 
 
-def _k2_bound(rows, hip, m_f32, has_lo, n_bytes):
+def _k2_bound(rows, hip, m_f32, has_lo, n_bytes, terms=3):
     """The three lines of K2's bound over one tier and side, in ms: the
     bytes; the tensor-core flops as the kernel issues them (K pads to
     ceil(K / 8) blocks of 8 in depth and in width; per 16 x 16 cells the
@@ -514,13 +548,15 @@ def _k2_bound(rows, hip, m_f32, has_lo, n_bytes):
     float32 M, an mma a block; 4096 flops an mma); and the float32
     elementwise work a cell (clamp, reciprocal, multiply, the subtraction of
     W's split, 1.5 adds into the running sums; one add for x_lo; a select
-    and a subtraction for a float32 M)."""
+    and a subtraction for a float32 M).  ``terms=1`` (precision "fast"):
+    one mma a block for each product, no split of W or M."""
     blocks = -(-K // 8)
-    mmas = (3 + 3 + (3 if m_f32 else 2)) * blocks
+    mmas = (3 + 3 + (3 if m_f32 else 2)) * blocks if terms == 3 else 3 * blocks
+    split = 1 if terms == 3 else 0
     cells = rows * hip
     return {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
             "tensor operations": cells * mmas * 4096 / 256 / BF16_FLOPS_PER_S * 1e3,
-            "elementwise operations": cells * (5.5 + has_lo + 2 * m_f32)
+            "elementwise operations": cells * (4.5 + split + has_lo + (1 + split) * m_f32)
             / FP32_FLOPS_PER_S * 1e3}
 
 
@@ -1095,7 +1131,7 @@ def phase_wide_poisson(blocked):
 
     k = K_WIDE
     gen = torch.Generator(device="cuda").manual_seed(5)
-    ms = dict.fromkeys(("K1", "K1raw", "K2", "K7", "K8"), 0.0)
+    ms = dict.fromkeys(("K1", "K1raw", "K2", "K2fast", "K7", "K8"), 0.0)
     for p in (blocked.by_user, blocked.by_item):
         es, eo, so = _pos(gen, p.n_self, k), _pos(gen, p.n_other, k), _pos(gen, p.n_other)
         es_p, eo_p, rec = padded_rows(es), padded_rows(eo), es_record(eo, so)
@@ -1109,8 +1145,10 @@ def phase_wide_poisson(blocked):
         theta = _pos(gen, h.hu, k)
         beta = torch.nn.functional.pad(_pos(gen, h.hi, k), (0, 0, 0, h.hip - h.hi))
         for item_side in (False, True):
-            ms["K2"] += cuda_ms(lambda: fused_alloc_tier(
-                theta, beta, h.x_hi, h.m, h.x_lo, rate_floor=1e-10, item_side=item_side))
+            for kid, prec in (("K2", "high"), ("K2fast", "fast")):
+                ms[kid] += cuda_ms(lambda: fused_alloc_tier(
+                    theta, beta, h.x_hi, h.m, h.x_lo, rate_floor=1e-10,
+                    item_side=item_side, precision=prec))
     log(f"phase bigk timing (Poisson, real data, K={k}): ok | per sweep "
         + ", ".join(f"{n} {v:.4f} ms" for n, v in ms.items()))
     return ms
@@ -1728,9 +1766,10 @@ def phase_k7k8(blocked):
     return res7, res8
 
 
-def _poisson_sweep_fn(cfg, blocked, train, n_users, n_items, device):
+def _poisson_sweep_fn(cfg, blocked, train, n_users, n_items, device,
+                      precision="high"):
     """state -> state: one blocked Poisson sweep as ``PoissonMF.fit`` runs
-    it, from the training triples."""
+    it, from the training triples, with the head at ``precision``."""
     import torch
 
     from pmf_tpu_torch.models import poisson_mf as pm
@@ -1739,11 +1778,12 @@ def _poisson_sweep_fn(cfg, blocked, train, n_users, n_items, device):
     counts = [torch.bincount(ids, minlength=n).float()
               for ids, n in ((u, n_users), (i, n_items))]
     if not cfg.extended:
-        return lambda s: pm.sweep_blocked(s, blocked, *counts, cfg.a0, cfg.b0)
+        return lambda s: pm.sweep_blocked(s, blocked, *counts, cfg.a0, cfg.b0,
+                                          precision=precision)
     sx = [torch.bincount(ids, weights=x.double(), minlength=n).float()
           for ids, n in ((u, n_users), (i, n_items))]
     return lambda s: pm.sweep_blocked_extended(s, blocked, *counts, *sx,
-                                               cfg.a0, cfg.b0)
+                                               cfg.a0, cfg.b0, precision=precision)
 
 
 def phase_psmall(k=K):
@@ -3213,6 +3253,7 @@ def phase_cli(train, val, smi):
         log(f"  CSVs: {len(train[0])} + {half} + {len(val[0]) - half} rows, {mb:.1f} MB "
             f"written in {t_write:.2f} s, read by load_all_splits in {t_read:.2f} s "
             f"(equal) | {smi}")
+        phase_native(processed, train, smi)
 
         hp = os.path.join(root, "best_hyperparams.txt")
         cfg_io.write_best_hyperparams({cfg_io.HPF_CAVI_KEY: HPFConfig(
@@ -3514,6 +3555,469 @@ def phase_repro(smi):
         shutil.rmtree(wd, ignore_errors=True)
 
 
+# ---------------------------------------- K2 fast, the engines, host ingest --
+
+# K2 "fast" vs its plain version on the real tiers: float sums in another
+# order, and rare one-ulp bf16 flips of W near a rounding boundary (the
+# kernel divides by __fdividef).
+FAST_RTOL = 1e-3
+# On small shapes a row may hold a few cells, so a flip shows whole: each
+# element's W terms are positive, so flips move it by at most one bf16 step
+# of W, 2^-8 relative, beside the float sums' order (RTOL).
+FAST_SMALL_RTOL = 2.0 ** -8 + RTOL
+K2_NOTE_P_MS = (2.7607 + 2.7866 + 2.7920 + 2.7749) / 4  # PERF.md note (p), K2 high
+FASTFIT_RMSE = 5e-3  # the reference's test_fast_engine_converges_like_flat
+FAST_EXT_SWEEPS = FAST_GAUSS_SWEEPS = 2
+CHUNKED_SWEEPS = 2
+# flat vs flat_chunked in float64, where the atomics' order no longer shows.
+CHUNKED_RTOL = 1e-5
+
+
+def phase_k2fast(blocked, k2):
+    """K2's one-term instance (precision "fast") on the four real tiers,
+    both sides, at K=20 vs its plain version (gate FAST_RTOL, equal bits on
+    a repeat): ms, the bound's three lines, stage bytes, CTAs/SM and the
+    error against the float64 plain version at "high" (the bf16 level);
+    the high instance's time against PERF.md note (p); then at every K
+    where the plan changes (K2small's shapes and K = 50, 128) vs the plain
+    version in float64."""
+    import torch
+
+    from pmf_tpu_torch.ops.cavi_edge import RATE_FLOOR
+    from pmf_tpu_torch.ops.dense_head import (
+        fused_alloc_tier, fused_alloc_tier_plain, plan_launch)
+
+    e_user, e_item = _new_space_tables(blocked)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    res = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0)
+    lines, worst_high, worst_norm = {}, 0.0, 0.0
+    for t, h in enumerate(blocked.head or ()):
+        theta_h = e_user[h.row_start : h.row_start + h.hu].contiguous()
+        beta_h = torch.nn.functional.pad(e_item[: h.hi], (0, 0, 0, h.hip - h.hi))
+        chunk = max(1, (1 << 27) // h.hip)
+        m_f32, has_lo = h.m.dtype == torch.float32, h.x_lo is not None
+        cells = (h.x_hi, h.m, h.x_lo)
+        for item_side in (False, True):
+            kw = dict(rate_floor=RATE_FLOOR, item_side=item_side)
+
+            def fast(kw=kw):
+                return fused_alloc_tier(theta_h, beta_h, *cells, precision="fast", **kw)
+
+            def plain(kw=kw):
+                return fused_alloc_tier_plain(theta_h, beta_h, *cells, row_chunk=chunk,
+                                              precision="fast", **kw)
+
+            got, again = fast(), fast()
+            abs_err, rel_err = compare(got, plain())
+            exact = fused_alloc_tier_plain(theta_h.double(), beta_h.double(), *cells,
+                                           row_chunk=chunk, **kw)
+            high_abs, high_rel = compare(got, exact)
+            high_norm = high_abs / float(exact.abs().max())
+            del exact
+            ms = cuda_ms(fast)
+            plain_ms = cuda_ms(plain, reps=3)
+            stored_bytes = sum(a.nbytes for a in cells if a is not None)
+            cells_bytes = stored_bytes * h.hi // h.hip
+            n_bytes = cells_bytes + theta_h.nbytes + beta_h[: h.hi].nbytes + got.nbytes
+            tier_lines = _k2_bound(h.hu, h.hip, m_f32, has_lo, n_bytes, terms=1)
+            by = max(tier_lines, key=tier_lines.get)
+            plan = plan_launch(h.hu, h.hip, K, item_side, m_f32, has_lo, n_sm, terms=1)
+            side = "item" if item_side else "user"
+            log(f"  K2fast tier {t} ({h.row_start}, {h.hu}, {h.hi}) {side}: max abs err "
+                f"{abs_err:.3e} rel {rel_err:.3e} (tol {FAST_RTOL}) | vs float64 high: "
+                f"rel {high_rel:.3e}, {high_norm:.3e} of the largest | kernel {ms:.4f} ms "
+                f"| plain {plain_ms:.4f} ms | bound {tier_lines[by]:.4f} ms ({by}) | "
+                f"cells {cells_bytes / ms / 1e6:.1f} GB/s | {plan.stages} stages of "
+                f"{plan.smem_bytes // plan.stages} B, {plan.ctas_per_sm} CTAs/SM, "
+                f"{plan.splits} splits")
+            if not rel_err <= FAST_RTOL:
+                raise AssertionError(f"K2fast tier {t} {side}: relative error "
+                                     f"{rel_err} > {FAST_RTOL}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"K2fast tier {t} {side}: two launches differ")
+            res["ms"] += ms
+            res["plain_ms"] += plain_ms
+            res["max_abs_err"] = max(res["max_abs_err"], abs_err)
+            worst_high, worst_norm = max(worst_high, high_rel), max(worst_norm, high_norm)
+            for name, v in tier_lines.items():
+                lines[name] = lines.get(name, 0.0) + v
+    by = max(lines, key=lines.get)
+    res["bound_ms"] = lines[by]
+    res["bound_by"] = "bytes" if by == "bytes" else "operations"
+    log(f"  K2 high {k2['ms']:.4f} ms a sweep against PERF.md note (p)'s "
+        f"{K2_NOTE_P_MS:.4f}: {k2['ms'] / K2_NOTE_P_MS - 1:+.1%}; fast / high "
+        f"{res['ms'] / k2['ms']:.3f}")
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    worst, n_cases = 0.0, 0
+    for rows in K2SMALL_ROWS:
+        for hip in K2SMALL_HIPS:
+            hi = hip - 13
+            for kind in ("integer", "fractional", "m_f32"):
+                x_hi, x_lo, m = _k2small_cells(kind, rows, hip, hi, gen)
+                for k in K2SMALL_KS + BIGK_KS:
+                    theta = 0.02 + torch.rand(rows, k, generator=gen, device="cuda")
+                    theta[::5] *= 1e-3  # rates under the floor
+                    beta = 0.02 + torch.rand(hip, k, generator=gen, device="cuda")
+                    beta[hi:] = 0
+                    for item_side in (False, True):
+                        kw = dict(rate_floor=K2SMALL_FLOOR, item_side=item_side,
+                                  precision="fast")
+                        got = fused_alloc_tier(theta, beta, x_hi, m, x_lo, **kw)
+                        again = fused_alloc_tier(theta, beta, x_hi, m, x_lo, **kw)
+                        ref = fused_alloc_tier_plain(theta.double(), beta.double(),
+                                                     x_hi, m, x_lo, **kw)
+                        _, rel = compare(got, ref)
+                        tag = (f"K2fast small rows {rows} hip {hip} K {k} {kind} "
+                               f"{'item' if item_side else 'user'}")
+                        if got.shape != ref.shape or not rel <= FAST_SMALL_RTOL:
+                            raise AssertionError(f"{tag}: relative error {rel}")
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"{tag}: two launches differ in bits")
+                        worst = max(worst, rel)
+                        n_cases += 1
+    log(f"phase k2fast: ok | per sweep: kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({by}; "
+        + ", ".join(f"{k} {v:.4f}" for k, v in lines.items())
+        + f") | vs float64 high: worst rel {worst_high:.3e}, {worst_norm:.3e} of the "
+        f"largest | {n_cases} small cases (K {K2SMALL_KS + BIGK_KS}) vs plain float64: "
+        f"worst rel {worst:.3e} (tol {FAST_SMALL_RTOL:.3e}), repeats equal in bits")
+    return res
+
+
+def _counts_on_card(train):
+    import torch
+
+    return [torch.bincount(torch.from_numpy(ids).cuda(), minlength=n).float()
+            for ids, n in ((train[0], N_USERS), (train[1], N_ITEMS))]
+
+
+def phase_fastfit(train, val, gtrain, gval, high_rmse, smi):
+    """The "blocked_fast" fits at full width (the layouts reloaded from the
+    cache of phase cache and the earlier fits): HPF for FIT_SWEEPS sweeps,
+    extended Poisson and exact Gaussian for 2 each, with the launch
+    counters reset just before and read just after; each val RMSE within
+    FASTFIT_RMSE of the blocked_high fit's at the same sweep (phases fit,
+    pfit, gfit); each model's busy ms a sweep at "fast" and at "high" under
+    the profiler; and one HPF "blocked_mid" sweep equal in bits to a
+    "blocked_high" one."""
+    import torch
+
+    from pmf_tpu_torch.models import gaussian_mf as gm
+    from pmf_tpu_torch.models import hpf
+    from pmf_tpu_torch.models.poisson_mf import PoissonMF, PoissonMFConfig
+
+    runs = {
+        "hpf": lambda: hpf.HPF(hpf.HPFConfig(
+            n_factors=K, max_iter=FIT_SWEEPS, tol=None, verbose=False,
+            engine="blocked_fast")).fit(train, val),
+        "extended": lambda: PoissonMF(PoissonMFConfig(
+            n_factors=K, max_iter=FAST_EXT_SWEEPS, tol=None, verbose=False,
+            engine="blocked_fast", extended=True)).fit(train, val),
+        "gaussian": lambda: gm.GaussianMF(gm.GaussianMFConfig(
+            n_factors=K, max_iter=FAST_GAUSS_SWEEPS, tol=None, verbose=False,
+            engine="blocked_fast")).fit(gtrain, gval, global_mean=0.0),
+    }
+    models, launches, walls = {}, {}, {}
+    counters = reset_counters()
+    before = {k: 0 for k in counters}
+    for name, run in runs.items():
+        t0 = time.perf_counter()
+        models[name] = run()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        now = {k: c.count for k, c in counters.items()}
+        launches[name] = {k: v - before[k] for k, v in now.items() if v - before[k]}
+        before = now
+    total = _launched(counters)
+    tiers = {n: len(m.blocked.head or ()) for n, m in models.items()}
+    sweeps = {n: m.n_sweeps for n, m in models.items()}
+    want = {"hpf": {"K1": 2 * sweeps["hpf"], "K2fast": 2 * tiers["hpf"] * sweeps["hpf"]},
+            "extended": {"K7": 2 * sweeps["extended"], "K8": 2 * sweeps["extended"],
+                         "K2fast": 2 * tiers["extended"] * sweeps["extended"]},
+            "gaussian": {k: 2 * sweeps["gaussian"] for k in ("K3", "K4", "K5")}}
+    for name, m in models.items():
+        rmses = [rec["val_rmse"] for rec in m.fit_history]
+        ref = high_rmse[name][: len(rmses)]
+        gap = max(abs(a - b) for a, b in zip(rmses, ref))
+        state_ok = all(bool(torch.all(torch.isfinite(v))) for v in m.state.values())
+        log(f"  fastfit {name}: {m.n_sweeps} sweeps in {walls[name]:.1f} s wall (layout "
+            f"from the cache) | launches {launches[name]} | val RMSE "
+            + " -> ".join(f"{r:.6f}" for r in rmses) + " | blocked_high "
+            + " -> ".join(f"{r:.6f}" for r in ref) + f" | largest gap {gap:.2e} | {smi}")
+        if launches[name] != want[name] or (name != "gaussian" and tiers[name] == 0):
+            raise AssertionError(f"fastfit {name}: launches {launches[name]}, expected "
+                                 f"{want[name]} ({tiers[name]} tiers)")
+        if m.engine_used != "blocked_fast" or not state_ok or not gap < FASTFIT_RMSE:
+            raise AssertionError(f"fastfit {name}: engine {m.engine_used}, finite "
+                                 f"{state_ok}, val RMSE gap {gap} (tol {FASTFIT_RMSE})")
+
+    # Busy time of one sweep from each fit's final state, at both precisions.
+    counts = _counts_on_card(train)
+    gcounts = _counts_on_card(gtrain)
+    h, e, g = models["hpf"], models["extended"], models["gaussian"]
+    hh = (h.config.a, h.config.a_prime, h.config.b_prime, h.config.c, h.config.c_prime,
+          h.config.d_prime)
+    gc = g.config
+    gh = (gc.sigma2, gc.eta_theta2, gc.eta_beta2, gc.eta_bias2, gc.use_bias)
+    sweep_of = {
+        "hpf": lambda p: lambda: hpf.sweep_blocked(dict(h.state), h.blocked, *counts,
+                                                   *hh, precision=p),
+        "extended": lambda p: (lambda step: lambda: step(dict(e.state)))(
+            _poisson_sweep_fn(e.config, e.blocked, train, N_USERS, N_ITEMS, "cuda",
+                              precision=p)),
+        "gaussian": lambda p: lambda: gm.sweep_blocked(dict(g.state), g.blocked, *gcounts,
+                                                       *gh, precision=p),
+    }
+    expects = {"hpf": {K1_TRACE: 2, **_head_launches(h)},
+               "extended": {K7_TRACE: 2, K8_TRACE: 2, **_head_launches(e)},
+               "gaussian": {"::factor_kernel": 2, "gj_inverse": 2, K5_TRACE: 2}}
+    busy = {}
+    for name in models:
+        # One sweep from the same state at both precisions: the fast head
+        # moves the state by about the bf16 level.  These also make what a
+        # layout keeps after its first sweep at a precision (M's planes).
+        fast, high = sweep_of[name]("fast")(), sweep_of[name]("high")()
+        moved = max(_normwise(fast[k], v) for k, v in high.items())
+        for p in ("fast", "high"):
+            busy[name, p] = profile_once(sweep_of[name](p), expects[name])[1]
+        log(f"  fastfit {name}: one sweep busy {busy[name, 'fast']:.4f} ms at fast, "
+            f"{busy[name, 'high']:.4f} ms at high ({busy[name, 'fast'] / busy[name, 'high']:.3f}) "
+            f"| one sweep's state at fast vs high: {moved:.3e} of a tensor's largest entry")
+        if not moved > 0:
+            raise AssertionError(f"fastfit {name}: a fast sweep equals a high one")
+
+    # blocked_mid computes what blocked_high does, in bits.
+    state = hpf.init_state(N_USERS, N_ITEMS, h.config, device="cuda")
+    mid = hpf.sweep_blocked(dict(state), h.blocked, *counts, *hh, precision="mid")
+    high = hpf.sweep_blocked(dict(state), h.blocked, *counts, *hh, precision="high")
+    if not all(torch.equal(mid[k], high[k]) for k in high):
+        raise AssertionError("fastfit: a blocked_mid sweep differs from blocked_high's")
+    log(f"phase fastfit: ok | launches {total} | HPF blocked_mid sweep "
+        f"equal in bits to blocked_high's")
+    return total, busy
+
+
+def _normwise(got, ref) -> float:
+    """max |got - ref| / max |ref|: the error against the tensor's scale."""
+    return float((got.double() - ref.double()).abs().max() / ref.double().abs().max())
+
+
+def phase_chunked(train, val, smi):
+    """HPF "flat_chunked" (chunks of 2^20 edges) against "flat" at full
+    width for CHUNKED_SWEEPS sweeps, in float32 (then "flat" again), and in
+    float64: no kernel launched, the peak device memory of each.  Both
+    engines sum rows with float32 atomics in an order that changes from run
+    to run, and the heaviest rows hold some 10^5 terms, so in float32 they
+    differ at about 2e-5 relative, as the flat fit differs from its repeat
+    (both logged); in float64 that noise is gone, and the chunked state must
+    be within CHUNKED_RTOL of the flat one, element by element."""
+    import torch
+
+    from pmf_tpu_torch.models.hpf import HPF, HPFConfig
+
+    out = {}
+    for tag, engine, dtype in (("flat", "flat", "float32"),
+                               ("chunked", "flat_chunked", "float32"),
+                               ("flat again", "flat", "float32"),
+                               ("flat f64", "flat", "float64"),
+                               ("chunked f64", "flat_chunked", "float64")):
+        gc_cuda()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        m = HPF(HPFConfig(n_factors=K, max_iter=CHUNKED_SWEEPS, tol=None, verbose=False,
+                          engine=engine, dtype=dtype)).fit(train, val)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        if _launched(counters) or m.engine_used != engine:
+            raise AssertionError(f"chunked {tag}: launches {_launched(counters)}, "
+                                 f"engine {m.engine_used}")
+        rmses = [rec["val_rmse"] for rec in m.fit_history]
+        log(f"  {engine} ({dtype}): {m.n_sweeps} sweeps in {wall:.1f} s wall | sweep "
+            + ", ".join(f"{rec['iter_seconds']:.4f}" for rec in m.fit_history)
+            + " s | val RMSE " + " -> ".join(f"{r:.6f}" for r in rmses)
+            + f" | peak {peak:.0f} MiB above the {base / 2**20:.0f} MiB held | {smi}")
+        out[tag] = (m.state, peak)
+
+    def worst(a, b):
+        sa, sb = out[a][0], out[b][0]
+        return (max(compare(sa[k], v)[1] for k, v in sb.items()),
+                max(_normwise(sa[k], v) for k, v in sb.items()))
+
+    elem, norm = worst("chunked", "flat")
+    noise, noise_norm = worst("flat again", "flat")
+    exact, _ = worst("chunked f64", "flat f64")
+    if not exact <= CHUNKED_RTOL:
+        raise AssertionError(f"chunked: the float64 state differs from flat's by "
+                             f"{exact} > {CHUNKED_RTOL}")
+    log(f"phase chunked: ok | float64: flat_chunked vs flat worst rel {exact:.3e} (tol "
+        f"{CHUNKED_RTOL}) | float32: flat_chunked vs flat {elem:.3e} elementwise, "
+        f"{norm:.3e} of a tensor's largest entry; flat vs its repeat {noise:.3e}, "
+        f"{noise_norm:.3e} | peak float32 {out['chunked'][1]:.0f} vs "
+        f"{out['flat'][1]:.0f} MiB, float64 {out['chunked f64'][1]:.0f} vs "
+        f"{out['flat f64'][1]:.0f} MiB")
+
+
+def _numpy_ingest():
+    """The native runtime switched off: its functions take their numpy and
+    pandas fallbacks until the context ends."""
+    import contextlib
+
+    from pmf_tpu_torch.data import native
+
+    @contextlib.contextmanager
+    def off():
+        saved = native.get_lib
+        native.get_lib = lambda: None
+        try:
+            yield
+        finally:
+            native.get_lib = saved
+
+    return off()
+
+
+def phase_native(processed, train, smi):
+    """The native ingest runtime (``native/ingest.cpp`` through
+    ``data/native.py``): phase cli's training CSV parsed natively and by
+    pandas, ``build_ratings`` and the CSR tail build with the radix sort and
+    with numpy; equal arrays, seconds of each.  Fails if the library did
+    not build and load here."""
+    import torch
+
+    from pmf_tpu_torch.data import native
+    from pmf_tpu_torch.data.blocked import _tail_host
+    from pmf_tpu_torch.data.coo import build_ratings
+
+    if not native.available():
+        raise AssertionError("native: the ingest library did not build or load")
+    path = os.path.join(processed, "interactions_train.csv")
+    calls = dict(native.CALLS)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    secs = {}
+    parsed, secs["parse native"] = timed(lambda: native.parse_interactions_csv(path))
+    with _numpy_ingest():
+        ref, secs["parse pandas"] = timed(lambda: native.parse_interactions_csv(path))
+    if not all(np.array_equal(a, b) for a, b in zip(parsed, ref)):
+        raise AssertionError("native: the parse differs from pandas'")
+    del parsed, ref
+    r_nat, secs["build_ratings native"] = timed(lambda: build_ratings(*train, device="cuda"))
+    with _numpy_ingest():
+        r_np, secs["build_ratings numpy"] = timed(lambda: build_ratings(*train, device="cuda"))
+    for f in ("u_by_u", "i_by_u", "x_by_u", "u_by_i", "i_by_i", "x_by_i", "user_counts",
+              "item_counts"):
+        if not torch.equal(getattr(r_nat, f), getattr(r_np, f)):
+            raise AssertionError(f"native: build_ratings {f} differs from numpy's")
+    del r_nat, r_np
+    u, i, x = train
+    ids = (np.arange(N_USERS), np.arange(N_ITEMS))
+    for name, (s, o, n_s, n_o, perms) in {
+            "by_user": (u, i, N_USERS, N_ITEMS, ids + ids),
+            "by_item": (i, u, N_ITEMS, N_USERS, ids[::-1] + ids[::-1])}.items():
+        args = (s, o, x, n_s, n_o, perms, False, np.float32)
+        (h_nat, m_nat), secs[f"tail {name} native"] = timed(lambda: _tail_host(*args))
+        with _numpy_ingest():
+            (h_np, m_np), secs[f"tail {name} numpy"] = timed(lambda: _tail_host(*args))
+        if m_nat != m_np or not all(np.array_equal(h_nat[k], h_np[k]) for k in h_nat):
+            raise AssertionError(f"native: the {name} CSR differs from numpy's")
+    used = {k: native.CALLS[k] - calls.get(k, 0) for k in native.CALLS}
+    if used != {"parse_csv": 1, "radix_argsort": 4}:
+        raise AssertionError(f"native: library calls {used}")
+    log(f"phase native: ok | {len(train[0])} rows: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+        + f" | arrays and permutations equal | library calls {used} | {smi}")
+
+
+def _layout_tensors(b):
+    """Every tensor and size of a ``BlockedCOO``, by name."""
+    out = {}
+    for side, p in (("by_user", b.by_user), ("by_item", b.by_item)):
+        for f in ("row_ptr", "other", "x", "self_old_of_new", "other_old_of_new",
+                  "self_new_of_old", "other_new_of_old", "n_self", "n_other", "nnz",
+                  "reordered", "long_rows"):
+            out[f"{side}.{f}"] = getattr(p, f)
+    for t, h in enumerate(b.head or ()):
+        for f in ("x_hi", "x_lo", "m", "x_sum_user", "x_sum_item", "hu", "hi", "r0",
+                  "row_start"):
+            out[f"tier{t}.{f}"] = getattr(h, f)
+    return out
+
+
+def _same_layout(a, b) -> list:
+    """Names of the tensors or sizes that differ between two layouts."""
+    import torch
+
+    ta, tb = _layout_tensors(a), _layout_tensors(b)
+    bad = [k for k in ta.keys() | tb.keys() if k not in ta or k not in tb]
+    for k in ta.keys() & tb.keys():
+        x, y = ta[k], tb[k]
+        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+            if not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
+                    and x.dtype == y.dtype and torch.equal(x, y)):
+                bad.append(k)
+        elif x != y:
+            bad.append(k)
+    return sorted(bad)
+
+
+def phase_cache(train, blocked, smi):
+    """The layout cache at full width: ``build_blocked`` as ``HPF.fit``
+    calls it, cold into an empty directory under ``_smoke_tmp/`` (the
+    build and the entry's write), then warm (the entry's read and the
+    head's scatter on the card).  Every tensor of the hit equal in bits to
+    the cold build's and to phase data's uncached layout, one sweep on each
+    equal in bits.  The directory then stays the layout cache of every
+    later fit (``PMF_TPU_TORCH_LAYOUT_CACHE``)."""
+    import torch
+
+    from pmf_tpu_torch.data import layout_cache
+    from pmf_tpu_torch.data.blocked import build_blocked
+    from pmf_tpu_torch.models import hpf
+    from pmf_tpu_torch.models.base import as_triples
+
+    u, i, x = as_triples(train)  # the arrays the fits pass
+    cdir = _fresh_dir("layouts")
+    kw = dict(n_users=N_USERS, n_items=N_ITEMS, dtype=np.float32, reorder=True,
+              head="auto", head_bytes=5 << 29, device="cuda", cache_dir=cdir)
+    secs = {}
+    for name in ("cold", "warm"):
+        t0 = time.perf_counter()
+        built = build_blocked(u, i, x, **kw)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        if name == "cold":
+            cold = built
+    warm = built
+    entries = os.listdir(cdir)
+    for other, label in ((cold, "cold build"), (blocked, "phase data's layout")):
+        bad = _same_layout(warm, other)
+        if bad:
+            raise AssertionError(f"cache: the hit differs from the {label} in {bad}")
+    cfg = hpf.HPFConfig(n_factors=K)
+    hyper = (cfg.a, cfg.a_prime, cfg.b_prime, cfg.c, cfg.c_prime, cfg.d_prime)
+    counts = _counts_on_card(train)
+    state = hpf.init_state(N_USERS, N_ITEMS, cfg, device="cuda")
+    s_cold = hpf.sweep_blocked(dict(state), cold, *counts, *hyper)
+    s_warm = hpf.sweep_blocked(dict(state), warm, *counts, *hyper)
+    if not all(torch.equal(s_cold[k], s_warm[k]) for k in s_cold):
+        raise AssertionError("cache: a sweep on the hit differs from one on the cold build")
+    os.environ[layout_cache.ENV_VAR] = cdir
+    log(f"phase cache: ok | {len(entries)} entry, {_dir_mb(cdir):.1f} MB | cold "
+        f"(build and write) {secs['cold']:.2f} s, warm (read and scatter) "
+        f"{secs['warm']:.2f} s | every tensor of the hit equal in bits to the cold build "
+        f"and to phase data's | one sweep on each equal in bits | later fits read "
+        f"{cdir} | {smi}")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3533,15 +4037,18 @@ def main(argv=None) -> int:
     phase_bigk()
     gc_cuda()
     train, val, blocked, split = phase_data()
+    phase_cache(train, blocked, smi)
     k1 = phase_k1(blocked)
     k1raw = phase_k1raw(blocked)
     k2 = phase_k2(blocked)
+    k2f = phase_k2fast(blocked, k2)
     k7, k8 = phase_k7k8(blocked)
     wide = phase_wide_poisson(blocked)
     del blocked
     torch.cuda.empty_cache()
     phase_small()
     model, launches = phase_fit(train, val, smi)
+    high_rmse = {"hpf": [rec["val_rmse"] for rec in model.fit_history]}
     phase_profile(model, train, smi)
     phase_serve(model, train, val, smi)
     phase_resume(model, train, val, smi)
@@ -3550,6 +4057,7 @@ def main(argv=None) -> int:
 
     phase_psmall()
     pmodels = phase_pfit(train, val, smi)
+    high_rmse["extended"] = [rec["val_rmse"] for rec in pmodels["extended"][0].fit_history]
     phase_pprofile(pmodels, train, smi)
     for _, plaunches in pmodels.values():
         launches = {k: launches[k] + plaunches[k] for k in launches}
@@ -3580,11 +4088,16 @@ def main(argv=None) -> int:
     gc_cuda()
     phase_gsmall()
     full, diag, glaunches = phase_gfit(gtrain, gval, smi)
+    high_rmse["gaussian"] = [rec["val_rmse"] for rec in full.fit_history]
     phase_gprofile(full, diag, gtrain, smi)
     del full, diag
     gc_cuda()
     phase_gelbo(gtrain, gval, smi)
+    gc_cuda()
+    flaunches, _ = phase_fastfit(train, val, gtrain, gval, high_rmse, smi)
     del gtrain, gval
+    gc_cuda()
+    phase_chunked(train, val, smi)
     gc_cuda()
 
     t_new = time.perf_counter()
@@ -3610,6 +4123,10 @@ def main(argv=None) -> int:
               "pmf_tpu/ops/pallas/cavi_edge.py:93", k1, launches["K1"], "K1"),
         entry("dense_head_tier", "pmf_tpu_torch/csrc/dense_head.cu",
               "pmf_tpu/ops/dense_head.py:85", k2, launches["K2"], "K2"),
+        entry("dense_head_tier_fast", "pmf_tpu_torch/csrc/dense_head.cu",
+              "pmf_tpu/ops/dense_head.py:85", k2f, flaunches["K2fast"], "K2fast",
+              note="precision \"fast\" (engine blocked_fast): one bf16 term a "
+                   "product; launches from phase fastfit's blocked_fast fits"),
         entry("gaussian_factor_tail", gsrc,
               "pmf_tpu/ops/pallas/gaussian_edge.py:90", k3, glaunches["K3"], "K3"),
         entry("gj_inverse", "pmf_tpu_torch/csrc/gj_inverse.cu",
@@ -3634,6 +4151,9 @@ def main(argv=None) -> int:
               note="mode \"raw\": no single-device fit runs it (its path is "
                    "the tensor-parallel ring), so its launches are 0"),
     ]
+    import shutil
+
+    shutil.rmtree(os.path.join(SMOKE_TMP, "layouts"), ignore_errors=True)
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

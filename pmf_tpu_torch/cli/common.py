@@ -6,21 +6,30 @@ Every entry point also accepts ``--synthetic N`` to run on generated data
 the CUDA card; it raises without one).  ``setup_runtime`` resolves the
 device and, on the card, builds and loads the kernel library, so a
 missing card or a kernel that fails to build stops the command before
-any model runs.
+any model runs.  It also turns on the layout cache
+(``data.layout_cache``) under ``.torch_cache/layouts`` in the repository
+unless ``PMF_TPU_TORCH_LAYOUT_CACHE`` is set (empty: off), so tune ->
+compare -> train_full reload the blocked layout instead of rebuilding it.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import pandas as pd
 import torch
 
+from pmf_tpu_torch.data import layout_cache
 from pmf_tpu_torch.data.pipeline import load_all_splits
 from pmf_tpu_torch.data.synthetic import synth_splits
 from pmf_tpu_torch.ops._build import KernelError
 from pmf_tpu_torch.utils.device import resolve_device
+
+LAYOUT_CACHE_DEFAULT = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".torch_cache", "layouts")
 
 # Raised out of every CLI's per-model isolation: a fault of the card or of
 # its kernels is not one model's failure.
@@ -30,7 +39,9 @@ DEVICE_FAULTS = (KernelError,) + (
 
 def setup_runtime(device=None) -> torch.device:
     """Resolve ``device`` (None = the card, raising without one); on the
-    card, build and load the kernel library now."""
+    card, build and load the kernel library now.  Sets the layout cache's
+    default directory where the environment names none."""
+    os.environ.setdefault(layout_cache.ENV_VAR, LAYOUT_CACHE_DEFAULT)
     dev = resolve_device(device)
     if dev.type == "cuda":
         from pmf_tpu_torch.ops import _build

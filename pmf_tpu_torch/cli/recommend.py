@@ -43,9 +43,9 @@ def main(argv=None):
              else np.arange(model.n_users, dtype=np.int64))
     train = None
     if args.train:
-        df = pd.read_csv(args.train)
-        train = (df["u"].to_numpy(np.int64), df["i"].to_numpy(np.int64),
-                 df["rating"].to_numpy(np.float64))
+        from pmf_tpu_torch.data.native import parse_interactions_csv
+
+        train = parse_interactions_csv(args.train)
     items, scores = model.recommend(users, k=args.k, train=train, batch=args.batch)
     rows = pd.DataFrame({
         "u": np.repeat(users, args.k),

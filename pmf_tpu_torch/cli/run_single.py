@@ -130,7 +130,9 @@ def main(argv=None):
     parser.add_argument("--n_factors", type=int, help="override latent dimension")
     parser.add_argument("--profile_dir", help="write a torch.profiler trace here")
     parser.add_argument("--engine",
-                        help="sweep engine override (flat, blocked_high, auto)")
+                        help="sweep engine override for every model "
+                             "(flat, flat_chunked, blocked_high, blocked_mid, "
+                             "blocked_fast, auto)")
     parser.add_argument("--bias_update", choices=["exact", "lagged"],
                         help="Gaussian bias-block mode (lagged: bias stats "
                              "ride the factor passes; same fixed point)")

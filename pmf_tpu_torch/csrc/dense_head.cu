@@ -78,6 +78,13 @@
 //    gives the mask with one packed compare.
 //  * 138-168 registers a thread at K = 20 (no spills), 128 threads, three
 //    CTAs an SM by the launch bounds and by shared memory.
+//  * Precision "fast" (pmf_dense_head_tier_fast, TERMS = 1): the
+//    reference's Precision.DEFAULT, one bf16 pass with operands rounded to
+//    nearest.  P, Q, W and a float32 M are one RN plane each, every product
+//    is one mma, split_planes_kernel writes Q's hi plane only and the ring
+//    stages no Q lo tile; X is still x_hi + x_lo in float32, as in the
+//    reference.  The bytes line is that of TERMS = 3; the tensor line falls
+//    to a third.  The per-tile zero-started chains stay.
 //  * K > 32: the depth pads to NT = 4 ceil(K / 32) blocks of 8 (8, 12 or
 //    16), so the instances are few and every output group is whole.  P's
 //    A fragments cover the whole depth (4 NT registers a thread), R is
@@ -205,8 +212,9 @@ __device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_
 }
 
 // tab (n, K) as two bf16 planes of KD zero-padded columns: hi, then lo.
+// With one plane (precision "fast") only hi is written.
 __global__ void split_planes_kernel(const float* __restrict__ tab, int n, int K, int KD,
-                                    uint16_t* __restrict__ planes) {
+                                    int two_planes, uint16_t* __restrict__ planes) {
   const int64_t total = (int64_t)n * KD;
   for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < total;
        e += (int64_t)gridDim.x * blockDim.x) {
@@ -215,7 +223,8 @@ __global__ void split_planes_kernel(const float* __restrict__ tab, int n, int K,
     const float v = k < K ? tab[row * K + k] : 0.f;
     const __nv_bfloat16 hi = __float2bfloat16_rn(v);
     planes[e] = __bfloat16_as_ushort(hi);
-    planes[total + e] = __bfloat16_as_ushort(__float2bfloat16_rn(v - __bfloat162float(hi)));
+    if (two_planes)
+      planes[total + e] = __bfloat16_as_ushort(__float2bfloat16_rn(v - __bfloat162float(hi)));
   }
 }
 
@@ -240,8 +249,9 @@ __host__ __device__ constexpr int q_stride(int nt) { return 16 * nt + (nt % 2 ? 
 // One CTA: kPT rows of P against its split's Q tiles of kBQ rows.  K pads
 // to NT blocks of 8, in depth for the first product and in width for the
 // second; past NT = 4 the CTA's outputs are the group of 4 blocks
-// blockIdx.z.
-template <int NT, bool M_F32, bool ITEM>
+// blockIdx.z.  TERMS = 3: every f32 operand as hi and lo planes, three
+// terms a product; TERMS = 1: one RN plane, one term (precision "fast").
+template <int NT, bool M_F32, bool ITEM, int TERMS>
 __device__ __forceinline__ void head_tile_body(
     const float* __restrict__ p_tab, const uint16_t* __restrict__ q_hi,
     const uint16_t* __restrict__ q_lo, const uint16_t* __restrict__ x_hi,
@@ -262,7 +272,10 @@ __device__ __forceinline__ void head_tile_body(
   constexpr int Q_BYTES = BQ * QS;
   constexpr int OFF_M = X_BYTES;
   constexpr int OFF_Q = X_BYTES + M_BYTES;
-  constexpr int OFF_XLO = OFF_Q + 2 * Q_BYTES;
+  constexpr bool SPLIT = TERMS == 3;
+  static_assert(TERMS == 3 || TERMS == 1, "three terms or one");
+  constexpr int Q_PLANES = SPLIT ? 2 : 1;
+  constexpr int OFF_XLO = OFF_Q + Q_PLANES * Q_BYTES;
   // The user side walks along the cell rows in pieces of 2 * BQ bytes:
   // ask the L2 for the whole 256 bytes the next tiles will want.
   constexpr bool PREFETCH = !ITEM;
@@ -282,7 +295,7 @@ __device__ __forceinline__ void head_tile_body(
 
   // This warp's 16 P rows as A fragments, split into both planes here:
   // block kb holds columns 8 kb + 2p, + 1 of rows g (h = 0) and g + 8.
-  uint32_t a_hi[NT][2], a_lo[NT][2];
+  uint32_t a_hi[NT][2], a_lo[SPLIT ? NT : 1][2];
 #pragma unroll
   for (int kb = 0; kb < NT; ++kb) {
 #pragma unroll
@@ -292,7 +305,8 @@ __device__ __forceinline__ void head_tile_body(
       const float* src = p_tab + (int64_t)row * K + k;
       const float v0 = (row < nP && k < K) ? src[0] : 0.f;
       const float v1 = (row < nP && k + 1 < K) ? src[1] : 0.f;
-      split2(v0, v1, a_hi[kb][h], a_lo[kb][h]);
+      if constexpr (SPLIT) split2(v0, v1, a_hi[kb][h], a_lo[kb][h]);
+      else a_hi[kb][h] = pack_bf16_rn(v0, v1);
     }
   }
 
@@ -328,7 +342,7 @@ __device__ __forceinline__ void head_tile_body(
                              static_cast<const float*>(m_ptr) + off, ok ? 16 : 0);
       }
     }
-    for (int e = tid; e < 2 * BQ * NT; e += THREADS) {
+    for (int e = tid; e < Q_PLANES * BQ * NT; e += THREADS) {
       const int pl = e / (BQ * NT), rem = e % (BQ * NT);
       const int r = rem / NT, ch = rem % NT;
       const int gq = q0 + r;
@@ -365,7 +379,7 @@ __device__ __forceinline__ void head_tile_body(
     s_cur = s_cur + 1 == STAGES ? 0 : s_cur + 1;
 
     // acc[c][j] = P Q^T for Q rows 16c + 8j .. + 7 (n8 tile j): the depth
-    // in k16 steps and, for an odd NT, one k8 step; three terms.  One mma
+    // in k16 steps and, for an odd NT, one k8 step; TERMS terms.  One mma
     // chain a 4-block slice of the depth, the slices added with float adds.
     float acc[NC][2][4];
     auto first_product = [&](int c) {
@@ -377,12 +391,24 @@ __device__ __forceinline__ void head_tile_body(
           const uint32_t addr = st + OFF_Q + (16 * c + 8 * j + lr) * QS
                                 + min(4 * q + mi, NT - 1) * 16;
           ldsm_x4(addr, bh);
-          ldsm_x4(addr + Q_BYTES, bl);
+          if constexpr (SPLIT) ldsm_x4(addr + Q_BYTES, bl);
           float t[4];
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int kb = 4 * q + 2 * h;
-            if (kb + 1 < NT) {
+            if constexpr (!SPLIT) {
+              if (kb + 1 < NT) {
+                if (h == 0)
+                  mma16_z(t, a_hi[kb][0], a_hi[kb][1], a_hi[kb + 1][0], a_hi[kb + 1][1],
+                          bh[2 * h], bh[2 * h + 1]);
+                else
+                  mma16(t, a_hi[kb][0], a_hi[kb][1], a_hi[kb + 1][0], a_hi[kb + 1][1],
+                        bh[2 * h], bh[2 * h + 1]);
+              } else if (kb < NT) {
+                if (h == 0) mma8_z(t, a_hi[kb][0], a_hi[kb][1], bh[2 * h]);
+                else mma8(t, a_hi[kb][0], a_hi[kb][1], bh[2 * h]);
+              }
+            } else if (kb + 1 < NT) {
               if (h == 0)
                 mma16_z(t, a_lo[kb][0], a_lo[kb][1], a_lo[kb + 1][0], a_lo[kb + 1][1],
                         bh[2 * h], bh[2 * h + 1]);
@@ -434,7 +460,8 @@ __device__ __forceinline__ void head_tile_body(
         if (has_lo) { x0 += bf16_lo(xl[i]); x1 += bf16_hi(xl[i]); }
         const float w0 = __fdividef(x0, fmaxf(acc[c][j][2 * h], rate_floor));
         const float w1 = __fdividef(x1, fmaxf(acc[c][j][2 * h + 1], rate_floor));
-        split2(w0, w1, w_hi[i], w_lo[i]);
+        if constexpr (SPLIT) split2(w0, w1, w_hi[i], w_lo[i]);
+        else w_hi[i] = pack_bf16_rn(w0, w1);
         // Empty cells are masked after the split, both halves of a register
         // at once (which also drops what 0 / 0 left there).
         uint32_t keep;
@@ -450,7 +477,8 @@ __device__ __forceinline__ void head_tile_body(
             const float2 mm = *reinterpret_cast<const float2*>(mp + r0 * MS + col * 4);
             m0 = mm.x; m1 = mm.y;
           }
-          split2(m0, m1, m_hi[i], m_lo[i]);
+          if constexpr (SPLIT) split2(m0, m1, m_hi[i], m_lo[i]);
+          else m_hi[i] = pack_bf16_rn(m0, m1);
           keep = (m0 > 0.f ? 0x0000ffffu : 0u) | (m1 > 0.f ? 0xffff0000u : 0u);
         } else {
           const uint32_t zero = 0u;
@@ -459,7 +487,7 @@ __device__ __forceinline__ void head_tile_body(
                              *reinterpret_cast<const __nv_bfloat162*>(&zero));
         }
         w_hi[i] &= keep;
-        w_lo[i] &= keep;
+        if constexpr (SPLIT) w_lo[i] &= keep;
       }
 
       // out[f] += [W | M] (16 x 16) * Q (16 rows x factors 8 (zb + f) .. + 7).
@@ -470,10 +498,10 @@ __device__ __forceinline__ void head_tile_body(
                               + min(zb + f + (mi >> 1), NT - 1) * 16;
         if (f + 1 < NG) {
           ldsm_x4_t(addr, bh);
-          ldsm_x4_t(addr + Q_BYTES, bl);
+          if constexpr (SPLIT) ldsm_x4_t(addr + Q_BYTES, bl);
         } else {
           ldsm_x2_t(addr, bh[0], bh[1]);
-          ldsm_x2_t(addr + Q_BYTES, bl[0], bl[1]);
+          if constexpr (SPLIT) ldsm_x2_t(addr + Q_BYTES, bl[0], bl[1]);
         }
 #pragma unroll
         for (int ff = 0; ff < 2; ++ff) {
@@ -482,20 +510,30 @@ __device__ __forceinline__ void head_tile_body(
             // adds: the tensor core's accumulator truncates, and a chain as
             // long as the reduction axis would lose 6e-8 of the sum a step.
             const uint32_t h0 = bh[2 * ff], h1 = bh[2 * ff + 1];
-            const uint32_t l0 = bl[2 * ff], l1 = bl[2 * ff + 1];
-            if (c == 0) {
-              mma16_z(tw[f + ff], w_lo, h0, h1);
-              if (M_F32) mma16_z(tm[f + ff], m_lo, h0, h1);
-              else mma16_z(tm[f + ff], m_hi, l0, l1);
+            if constexpr (!SPLIT) {
+              if (c == 0) {
+                mma16_z(tw[f + ff], w_hi, h0, h1);
+                mma16_z(tm[f + ff], m_hi, h0, h1);
+              } else {
+                mma16(tw[f + ff], w_hi, h0, h1);
+                mma16(tm[f + ff], m_hi, h0, h1);
+              }
             } else {
-              mma16(tw[f + ff], w_lo, h0, h1);
-              if (M_F32) mma16(tm[f + ff], m_lo, h0, h1);
-              else mma16(tm[f + ff], m_hi, l0, l1);
+              const uint32_t l0 = bl[2 * ff], l1 = bl[2 * ff + 1];
+              if (c == 0) {
+                mma16_z(tw[f + ff], w_lo, h0, h1);
+                if (M_F32) mma16_z(tm[f + ff], m_lo, h0, h1);
+                else mma16_z(tm[f + ff], m_hi, l0, l1);
+              } else {
+                mma16(tw[f + ff], w_lo, h0, h1);
+                if (M_F32) mma16(tm[f + ff], m_lo, h0, h1);
+                else mma16(tm[f + ff], m_hi, l0, l1);
+              }
+              mma16(tw[f + ff], w_hi, l0, l1);
+              mma16(tw[f + ff], w_hi, h0, h1);
+              if (M_F32) mma16(tm[f + ff], m_hi, l0, l1);
+              mma16(tm[f + ff], m_hi, h0, h1);
             }
-            mma16(tw[f + ff], w_hi, l0, l1);
-            mma16(tw[f + ff], w_hi, h0, h1);
-            if (M_F32) mma16(tm[f + ff], m_hi, l0, l1);
-            mma16(tm[f + ff], m_hi, h0, h1);
             if (c == NC - 1) {
 #pragma unroll
               for (int i = 0; i < 4; ++i) {
@@ -526,23 +564,23 @@ __device__ __forceinline__ void head_tile_body(
 }
 
 // planes: the Q table's hi and lo planes, (nQ, 8 NT) bf16 each.
-template <int NT, bool M_F32>
+template <int NT, bool M_F32, int TERMS>
 __global__ void __launch_bounds__(kThreads, NT > kGroupBlocks ? kMinCtasWide : kMinCtas)
 head_user_kernel(const float* __restrict__ theta, const uint16_t* __restrict__ planes,
                  const uint16_t* __restrict__ x_hi, const uint16_t* __restrict__ x_lo,
                  const void* __restrict__ m, int rows, int hip, int K, float rate_floor,
                  int tiles_per_split, float* __restrict__ dst) {
-  head_tile_body<NT, M_F32, false>(theta, planes, planes + (int64_t)hip * 8 * NT, x_hi,
+  head_tile_body<NT, M_F32, false, TERMS>(theta, planes, planes + (int64_t)hip * 8 * NT, x_hi,
                                    x_lo, m, rows, hip, K, rate_floor, tiles_per_split, dst);
 }
 
-template <int NT, bool M_F32>
+template <int NT, bool M_F32, int TERMS>
 __global__ void __launch_bounds__(kThreads, NT > kGroupBlocks ? kMinCtasWide : kMinCtas)
 head_item_kernel(const float* __restrict__ beta, const uint16_t* __restrict__ planes,
                  const uint16_t* __restrict__ x_hi, const uint16_t* __restrict__ x_lo,
                  const void* __restrict__ m, int rows, int hip, int K, float rate_floor,
                  int tiles_per_split, float* __restrict__ dst) {
-  head_tile_body<NT, M_F32, true>(beta, planes, planes + (int64_t)rows * 8 * NT, x_hi,
+  head_tile_body<NT, M_F32, true, TERMS>(beta, planes, planes + (int64_t)rows * 8 * NT, x_hi,
                                   x_lo, m, rows, hip, K, rate_floor, tiles_per_split, dst);
 }
 
@@ -559,25 +597,28 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial, int n_spl
 // Dynamic shared memory of one stage.  ops/dense_head.py::stage_bytes is a
 // copy for the launch plan's reckoning of resident CTAs; the launch uses
 // this one.
-constexpr int stage_bytes_of(int nt, bool m_f32, bool has_lo, bool item) {
+constexpr int stage_bytes_of(int nt, bool m_f32, bool has_lo, bool item, int terms) {
   const int bq = kBQ;
   const int cell_rows = item ? bq : kPT, cell_cols = item ? kPT : bq;
   const int cs = cell_cols * 2 + 16;
   const int ms = m_f32 ? cell_cols * 4 + (item ? 16 : 32) : cs;
-  return cell_rows * cs * (has_lo ? 2 : 1) + cell_rows * ms + 2 * bq * q_stride(nt);
+  return cell_rows * cs * (has_lo ? 2 : 1) + cell_rows * ms
+         + (terms == 3 ? 2 : 1) * bq * q_stride(nt);
 }
 
-template <int NT, bool M_F32>
+template <int NT, bool M_F32, int TERMS>
 cudaError_t launch(const float* p_tab, const uint16_t* planes, const uint16_t* x_hi,
                    const uint16_t* x_lo, const void* m, int rows, int hip, int K,
                    float floor, int item_side, int n_splits, float* dst,
                    cudaStream_t stream) {
-  const int smem_bytes = kStages * stage_bytes_of(NT, M_F32, x_lo != nullptr, item_side != 0);
+  const int smem_bytes =
+      kStages * stage_bytes_of(NT, M_F32, x_lo != nullptr, item_side != 0, TERMS);
   const int nP = item_side ? hip : rows, nQ = item_side ? rows : hip;
   const int n_tiles = (nQ + kBQ - 1) / kBQ;
   const int per = (n_tiles + n_splits - 1) / n_splits;
   dim3 grid((nP + kPT - 1) / kPT, n_splits, NT > kGroupBlocks ? NT / kGroupBlocks : 1);
-  auto kernel = item_side ? head_item_kernel<NT, M_F32> : head_user_kernel<NT, M_F32>;
+  auto kernel = item_side ? head_item_kernel<NT, M_F32, TERMS>
+                          : head_user_kernel<NT, M_F32, TERMS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
@@ -586,16 +627,54 @@ cudaError_t launch(const float* p_tab, const uint16_t* planes, const uint16_t* x
   return cudaGetLastError();
 }
 
-template <typename... Args>
+template <int TERMS, typename... Args>
 cudaError_t launch_nt(int K, int m_is_f32, Args... args) {
 #define PMF_CASE(N)                                                 \
   case N:                                                           \
-    return m_is_f32 ? launch<N, true>(args...) : launch<N, false>(args...);
+    return m_is_f32 ? launch<N, true, TERMS>(args...) : launch<N, false, TERMS>(args...);
   switch (nt_of(K)) {
     PMF_CASE(1) PMF_CASE(2) PMF_CASE(3) PMF_CASE(4) PMF_CASE(8) PMF_CASE(12) PMF_CASE(16)
     default: return cudaErrorInvalidValue;
   }
 #undef PMF_CASE
+}
+
+// planes: scratch for the streamed table's planes, TERMS == 3: hi and lo,
+// 2 * n * 8 * nt_of(K) bf16; TERMS == 1: hi only, n * 8 * nt_of(K); with
+// n = hip (user side) or rows.
+template <int TERMS>
+int dense_head_tier(const float* theta, const float* beta, const void* x_hi,
+                    const void* x_lo, const void* m, int m_is_f32, int rows, int hip,
+                    int K, float rate_floor, int item_side, int n_splits, void* planes,
+                    float* partial, float* out, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (K < 1 || K > 128 || n_splits < 1)
+    return (int)cudaErrorInvalidValue;
+  const int KD = 8 * nt_of(K);
+  uint16_t* pl = static_cast<uint16_t*>(planes);
+  const float* p_tab = item_side ? beta : theta;
+  {
+    const int nQ = item_side ? rows : hip;
+    const int64_t n = (int64_t)nQ * KD;
+    const int threads = 256;
+    const int64_t want = (n + threads - 1) / threads;
+    split_planes_kernel<<<(int)(want < 2048 ? want : 2048), threads, 0, stream>>>(
+        item_side ? theta : beta, nQ, K, KD, TERMS == 3, pl);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const uint16_t* xh = static_cast<const uint16_t*>(x_hi);
+  const uint16_t* xl = static_cast<const uint16_t*>(x_lo);
+  float* dst = n_splits > 1 ? partial : out;
+  cudaError_t err = launch_nt<TERMS>(K, m_is_f32, p_tab, pl, xh, xl, m, rows, hip, K,
+                                     rate_floor, item_side, n_splits, dst, stream);
+  if (err != cudaSuccess || n_splits <= 1) return (int)err;
+  const int64_t n = (int64_t)(item_side ? hip : rows) * 2 * K;
+  const int threads = 256;
+  const int64_t want = (n + threads - 1) / threads;
+  const int blocks = want < 4096 ? (int)want : 4096;
+  sum_partials_kernel<<<blocks, threads, 0, stream>>>(partial, n_splits, n, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -611,32 +690,18 @@ extern "C" int pmf_dense_head_tier(const float* theta, const float* beta,
                                    int hip, int K, float rate_floor,
                                    int item_side, int n_splits, void* planes,
                                    float* partial, float* out, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (K < 1 || K > 128 || n_splits < 1)
-    return (int)cudaErrorInvalidValue;
-  const int KD = 8 * nt_of(K);
-  uint16_t* pl = static_cast<uint16_t*>(planes);
-  const float* p_tab = item_side ? beta : theta;
-  {
-    const int nQ = item_side ? rows : hip;
-    const int64_t n = (int64_t)nQ * KD;
-    const int threads = 256;
-    const int64_t want = (n + threads - 1) / threads;
-    split_planes_kernel<<<(int)(want < 2048 ? want : 2048), threads, 0, stream>>>(
-        item_side ? theta : beta, nQ, K, KD, pl);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  const uint16_t* xh = static_cast<const uint16_t*>(x_hi);
-  const uint16_t* xl = static_cast<const uint16_t*>(x_lo);
-  float* dst = n_splits > 1 ? partial : out;
-  cudaError_t err = launch_nt(K, m_is_f32, p_tab, pl, xh, xl, m, rows, hip, K, rate_floor,
-                              item_side, n_splits, dst, stream);
-  if (err != cudaSuccess || n_splits <= 1) return (int)err;
-  const int64_t n = (int64_t)(item_side ? hip : rows) * 2 * K;
-  const int threads = 256;
-  const int64_t want = (n + threads - 1) / threads;
-  const int blocks = want < 4096 ? (int)want : 4096;
-  sum_partials_kernel<<<blocks, threads, 0, stream>>>(partial, n_splits, n, out);
-  return (int)cudaGetLastError();
+  return dense_head_tier<3>(theta, beta, x_hi, x_lo, m, m_is_f32, rows, hip, K, rate_floor,
+                            item_side, n_splits, planes, partial, out, stream_ptr);
+}
+
+// The same at precision "fast": one RN bf16 plane an operand, one term a
+// product; planes holds the streamed table's hi plane only, n * 8 * nt_of(K).
+extern "C" int pmf_dense_head_tier_fast(const float* theta, const float* beta,
+                                        const void* x_hi, const void* x_lo,
+                                        const void* m, int m_is_f32, int rows,
+                                        int hip, int K, float rate_floor,
+                                        int item_side, int n_splits, void* planes,
+                                        float* partial, float* out, void* stream_ptr) {
+  return dense_head_tier<1>(theta, beta, x_hi, x_lo, m, m_is_f32, rows, hip, K, rate_floor,
+                            item_side, n_splits, planes, partial, out, stream_ptr);
 }

@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from pmf_tpu_torch.data.native import radix_argsort
 from pmf_tpu_torch.utils.device import resolve_device
 
 
@@ -95,6 +96,15 @@ class DenseHead:
             self._planes["m"] = [hi.to(torch.bfloat16),
                                  (self.m - hi).to(torch.bfloat16)]
         return self._planes["m"]
+
+    def m_bf16_rn(self) -> torch.Tensor:
+        """M rounded to nearest bf16 (itself when stored bf16): the one
+        plane of the "fast" head products, made at first use and kept."""
+        if self.m.dtype == torch.bfloat16:
+            return self.m
+        if "m_rn" not in self._planes:
+            self._planes["m_rn"] = self.m.to(torch.bfloat16)
+        return self._planes["m_rn"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,10 +195,13 @@ def _scatter_head(idx: np.ndarray, x: np.ndarray, hu: int, hi: int, r0: int,
         )
     idx_t = torch.from_numpy(np.asarray(idx, np.int64)).to(device)
     xs = torch.from_numpy(np.asarray(x, np.float32)).to(device)
+    # index_put_ with accumulate sums duplicates in edge order on the card
+    # too (a stable sort of the indices, no atomics): a layout rebuilt, or
+    # reloaded from the layout cache, equals the first in bits.
     X = torch.zeros(hu * hip, dtype=torch.float32, device=device)
-    X.index_add_(0, idx_t, xs)
+    X.index_put_((idx_t,), xs, accumulate=True)
     M = torch.zeros(hu * hip, dtype=torch.float32, device=device)
-    M.index_add_(0, idx_t, torch.ones_like(xs))
+    M.index_put_((idx_t,), torch.ones_like(xs), accumulate=True)
     del idx_t, xs
     X = X.view(hu, hip)
     M = M.view(hu, hip)
@@ -226,30 +239,27 @@ def long_rows(counts: np.ndarray, long_row: int = LONG_ROW) -> int:
     return int(at[-1]) + 1 if at.size else 0
 
 
-def _tail_csr(s: np.ndarray, o: np.ndarray, x: np.ndarray, n_self: int,
-              n_other: int, perms: tuple, reordered: bool, dtype,
-              device) -> TailCSR:
-    """CSR over self rows; edges stable-sorted by self row."""
-    order = np.argsort(s, kind="stable")
-    counts = np.bincount(s, minlength=n_self)
+def _tail_host(s: np.ndarray, o: np.ndarray, x: np.ndarray, n_self: int,
+               n_other: int, perms: tuple, reordered: bool, dtype):
+    """A direction's CSR over self rows as host arrays and sizes (what the
+    layout cache stores); edges stable-sorted by self row (the native radix
+    sort, numpy without it: the same permutation)."""
+    order, counts = radix_argsort(s, n_self)
     row_ptr = np.zeros(n_self + 1, dtype=np.int64)
     np.cumsum(counts, out=row_ptr[1:])
-    self_old_of_new, other_old_of_new, self_new_of_old, other_new_of_old = (
-        torch.from_numpy(np.asarray(p, np.int64)).to(device) for p in perms)
-    return TailCSR(
-        row_ptr=torch.from_numpy(row_ptr).to(device),
-        other=torch.from_numpy(o[order].astype(np.int32)).to(device),
-        x=torch.from_numpy(np.asarray(x[order], dtype=dtype)).to(device),
-        self_old_of_new=self_old_of_new,
-        other_old_of_new=other_old_of_new,
-        self_new_of_old=self_new_of_old,
-        other_new_of_old=other_new_of_old,
-        n_self=int(n_self),
-        n_other=int(n_other),
-        nnz=int(len(s)),
-        reordered=reordered,
-        long_rows=long_rows(counts),
-    )
+    host = {"row_ptr": row_ptr, "other": o[order].astype(np.int32),
+            "x": np.asarray(x[order], dtype=dtype)}
+    for name, p in zip(("self_old_of_new", "other_old_of_new", "self_new_of_old",
+                        "other_new_of_old"), perms):
+        host[name] = np.asarray(p, np.int64)
+    meta = {"n_self": int(n_self), "n_other": int(n_other), "nnz": int(len(s)),
+            "reordered": bool(reordered), "long_rows": long_rows(counts)}
+    return host, meta
+
+
+def _tail_from_host(host: dict, meta: dict, device) -> TailCSR:
+    return TailCSR(**{k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                      for k, v in host.items()}, **meta)
 
 
 def _count_perms(ids: np.ndarray, n: int):
@@ -272,13 +282,18 @@ def build_blocked(
     head_r0: int = 512,
     head_row_mult: int = 1,
     device=None,
+    cache_dir: str | None = None,
 ) -> BlockedCOO:
     """``head``: None = all edges in the tail; "auto" = size a dense
     staircase from the data (requires ``reorder``); (hu, hi) = explicit
     head rows/cols (hu a multiple of ``head_r0``); a list of
     (row_start, rows, hi) = explicit tiers.  Edges inside the tiers are
     stored as cell planes and left out of the tail.  ``device`` None =
-    the card."""
+    the card.  ``cache_dir`` (or ``PMF_TPU_TORCH_LAYOUT_CACHE``): keep the
+    layout on disk, keyed by the edges and every geometry argument, and
+    reload it, equal in bits, on a repeat build (``data.layout_cache``)."""
+    from pmf_tpu_torch.data import layout_cache as lc
+
     device = resolve_device(device)
     u = np.asarray(u, dtype=np.int64)
     i = np.asarray(i, dtype=np.int64)
@@ -289,6 +304,18 @@ def build_blocked(
         n_items = int(i.max()) + 1
     if head is not None and not reorder:
         raise ValueError("head requires reorder=True (head = top-count corner)")
+
+    cdir = lc.resolve_cache_dir(cache_dir)
+    cpath = None
+    if cdir is not None:
+        params = dict(n_users=n_users, n_items=n_items, dtype=np.dtype(dtype).str,
+                      reorder=reorder, head=repr(head), head_bytes=head_bytes,
+                      head_r0=head_r0, head_row_mult=head_row_mult,
+                      long_row=LONG_ROW)
+        cpath = lc.entry_path(cdir, lc.make_key(lc.data_fingerprint(u, i, x), params))
+        hit = lc.load_entry(cpath)
+        if hit is not None:
+            return lc.unpack(*hit, device)
 
     if reorder:
         user_old_of_new, user_new_of_old = _count_perms(u, n_users)
@@ -329,26 +356,30 @@ def build_blocked(
             tiers = [(0, hu, hi)] if hu and hi else []
 
     in_head = np.zeros(len(nu), dtype=bool)
-    heads = []
+    heads, triples = [], []
     for rs, rows, hi_t in tiers:
         mask = (nu >= rs) & (nu < rs + rows) & (ni < hi_t)
         hip_t = -(-hi_t // 512) * 512
         idx_t = _head_cell_index(nu[mask] - rs, ni[mask], hip_t)
-        heads.append(_scatter_head(idx_t, x32[mask], hu=rows, hi=hi_t,
-                                   r0=min(r0, rows), row_start=rs,
-                                   device=device))
+        tier = {"hu": rows, "hi": hi_t, "r0": min(r0, rows), "row_start": rs}
+        heads.append(_scatter_head(idx_t, x32[mask], device=device, **tier))
+        if cpath is not None:
+            triples.append((idx_t, x32[mask], tier))
         in_head |= mask
     if tiers:
         tu, ti, tx = nu[~in_head], ni[~in_head], x[~in_head]
     else:
         tu, ti, tx = nu, ni, x
-    by_user = _tail_csr(tu, ti, tx, n_users, n_items,
-                        (user_old_of_new, item_old_of_new, user_new_of_old,
-                         item_new_of_old),
-                        reorder, dtype, device)
-    by_item = _tail_csr(ti, tu, tx, n_items, n_users,
-                        (item_old_of_new, user_old_of_new, item_new_of_old,
-                         user_new_of_old),
-                        reorder, dtype, device)
-    return BlockedCOO(by_user=by_user, by_item=by_item,
+    tails = {
+        "bu": _tail_host(tu, ti, tx, n_users, n_items,
+                         (user_old_of_new, item_old_of_new, user_new_of_old,
+                          item_new_of_old), reorder, dtype),
+        "bi": _tail_host(ti, tu, tx, n_items, n_users,
+                         (item_old_of_new, user_old_of_new, item_new_of_old,
+                          user_new_of_old), reorder, dtype)}
+    if cpath is not None:
+        arrays = {}
+        lc.save_entry(cpath, arrays, lc.pack(tails, triples, arrays))
+    return BlockedCOO(by_user=_tail_from_host(*tails["bu"], device),
+                      by_item=_tail_from_host(*tails["bi"], device),
                       head=tuple(heads) if heads else None)

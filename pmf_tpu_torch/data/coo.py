@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from pmf_tpu_torch.data.native import radix_argsort
 from pmf_tpu_torch.utils.device import resolve_device
 
 PAD_MULTIPLE = 1024
@@ -61,10 +62,12 @@ def build_ratings(
         n_items = int(i.max()) + 1
     nnz_padded = max(_round_up(nnz, pad_multiple), pad_multiple)
 
-    order_u = np.argsort(u, kind="stable")
-    order_i = np.argsort(i, kind="stable")
-    user_counts = np.bincount(u, minlength=n_users).astype(dtype)
-    item_counts = np.bincount(i, minlength=n_items).astype(dtype)
+    # Both stable sorts and the counts by the native radix sort (numpy
+    # without it), as the JAX package's build_ratings: the same arrays.
+    order_u, user_counts = radix_argsort(u, n_users)
+    order_i, item_counts = radix_argsort(i, n_items)
+    user_counts = user_counts.astype(dtype)
+    item_counts = item_counts.astype(dtype)
 
     def t(arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(device)

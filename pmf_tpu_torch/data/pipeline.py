@@ -27,6 +27,8 @@ import zipfile
 import numpy as np
 import pandas as pd
 
+from pmf_tpu_torch.data.native import parse_interactions_csv
+
 DATASET = "shuyangli94/food-com-recipes-and-user-interactions"
 RAW_DIR = os.path.join("data", "raw")
 PROCESSED_DIR = os.path.join("data", "processed")
@@ -104,17 +106,14 @@ def preprocess_data(raw_dir: str = RAW_DIR, processed_dir: str = PROCESSED_DIR) 
 
 def load_interactions(split: str, processed_dir: str = PROCESSED_DIR) -> pd.DataFrame:
     """Load one processed split as a u/i/rating frame (int64 ids, float64
-    ratings).  The JAX package parses the file with its native C++ reader
-    when that builds and with pandas otherwise; the port reads it with
-    pandas until the native reader is ported.  The ratings are integers,
-    so both give the same frame."""
+    ratings), parsed by the native C++ reader (``data.native``; pandas
+    where it does not build), as the JAX package's.  The ratings are
+    integers, so both readers give the same frame."""
     path = os.path.join(processed_dir, f"interactions_{split}.csv")
     if not os.path.exists(path):
         raise FileNotFoundError(f"File not found: {path}")
-    df = pd.read_csv(path, usecols=["u", "i", "rating"])
-    return pd.DataFrame({"u": df["u"].to_numpy(np.int64),
-                         "i": df["i"].to_numpy(np.int64),
-                         "rating": df["rating"].to_numpy(np.float64)})
+    u, i, x = parse_interactions_csv(path, columns=("u", "i", "rating"))
+    return pd.DataFrame({"u": u, "i": i, "rating": x})
 
 
 def load_all_splits(processed_dir: str = PROCESSED_DIR):

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pmf_tpu_torch.data.native import radix_argsort
 from pmf_tpu_torch.utils.device import resolve_device
 
 NEG = -3.0e38  # effectively -inf for float32 scores
@@ -50,8 +51,9 @@ def build_exclusion_index(train_u, train_i, n_users: int | None = None,
     _check_range(tu, n_users, "train user ids")
     if n_items is not None:
         _check_range(ti, n_items, "train item ids")
-    order = np.argsort(tu, kind="stable")
-    counts = np.bincount(tu, minlength=n_users).astype(np.int64)
+    # The stable sort and the counts by the native radix sort (numpy
+    # without it), as the JAX package's.
+    order, counts = radix_argsort(tu, n_users)
     row_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
     ti_dev = torch.from_numpy(ti[order].astype(np.int32)).to(resolve_device(device))
     return row_ptr, ti_dev

@@ -216,6 +216,20 @@ def resolve_engine(engine: str, nnz: Optional[int] = None, device=None) -> str:
     return "blocked_high"
 
 
+# The blocked engines' head precision, as the JAX package maps them; any
+# other name that starts with "blocked" runs "high" there too.
+BLOCKED_PRECISION = {"blocked_fast": "fast", "blocked_mid": "mid",
+                     "blocked_high": "high"}
+
+
+def blocked_precision(engine: str) -> str | None:
+    """The head precision of a blocked engine, None for any engine that
+    runs flat (every name that does not start with "blocked")."""
+    if not engine.startswith("blocked"):
+        return None
+    return BLOCKED_PRECISION.get(engine, "high")
+
+
 def gaussian_stop_rule(prev: float, cur: float, tol) -> bool:
     improvement = prev - cur
     return tol is not None and 0.0 <= improvement < tol

@@ -37,6 +37,7 @@ from pmf_tpu_torch.models.base import (
     FactorModel,
     FitLoop,
     as_triples,
+    blocked_precision,
     gaussian_stop_rule,
     resolve_engine,
 )
@@ -60,7 +61,9 @@ class GaussianMFConfig:
     verbose: bool = True
     use_bias: bool = True
     dtype: str = "float32"
-    # "flat", "blocked_high" or "auto" (flat below 300k edges).
+    # "flat", "blocked_high" / "blocked_mid" / "blocked_fast" (the head
+    # products at two bf16 parts or one) or "auto" (flat below 300k edges
+    # or on the CPU); any other name runs flat, as in the JAX package.
     engine: str = "auto"
     # "full": K x K posterior covariances; "diag": (rows, K) diagonals.
     covariance: str = "full"
@@ -237,12 +240,15 @@ def sweep(state: dict, data: RatingsCOO, sigma2: float, eta_theta2: float,
 def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
                   item_counts: torch.Tensor, sigma2: float, eta_theta2: float,
                   eta_beta2: float, eta_bias2: float, use_bias: bool,
-                  covariance: str = "full", bias_update: str = "exact") -> dict:
+                  covariance: str = "full", bias_update: str = "exact",
+                  precision: str = "high") -> dict:
     """Same iteration as :func:`sweep` over the hybrid layout
     (``data.blocked.BlockedCOO``): the edge passes by kernels K3 (factor),
     K5 (bias) and K6 (diag) on the tail plus the head's linear products,
     the K x K inverses by kernel K4.  Lagged biases ride the factor
-    passes (K3's bias columns), so that mode runs no bias pass."""
+    passes (K3's bias columns), so that mode runs no bias pass.
+    ``precision`` ("fast", "mid", "high") sets the head products' bf16
+    parts; the tail kernels and K4 run in float32 at every precision."""
     from pmf_tpu_torch.ops.gaussian_edge import (
         gaussian_bias_stats,
         gaussian_diag_stats,
@@ -265,7 +271,7 @@ def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
                    counts, eta2, side):
         S_mr, S_sq, S_mm = gaussian_diag_stats(
             m_other, v_other, m_self, b_self, b_other, pass_, use_bias=use_bias,
-            head=head, head_side=side)
+            head=head, head_side=side, precision=precision)
         return _finish_diag(m_self, v_self, S_mr, S_sq, S_mm, counts, eta2, sigma2)
 
     b_user, b_item = state["b_user"], state["b_item"]
@@ -281,14 +287,15 @@ def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
         lagged = True
         S_w, S_A, S_m_u, S_x_u, S_b_u = gaussian_factor_stats(
             state["m_beta"], state["V_beta"], b_user, b_item, blocked.by_user,
-            use_bias=True, with_bias_stats=True, head=head, head_side="user")
+            use_bias=True, with_bias_stats=True, head=head, head_side="user",
+            precision=precision)
         m_theta, V_theta = factor_update(state["m_theta"], state["V_theta"],
                                          S_w, S_A, user_counts, eta_theta2)
         b_user = _bias_block_lagged(b_user, m_theta, S_m_u, S_x_u, S_b_u,
                                     user_counts, eta_bias2, sigma2)
         S_w_i, S_A_i, S_m_i, S_x_i, S_b_i = gaussian_factor_stats(
             m_theta, V_theta, b_item, b_user, blocked.by_item, use_bias=True,
-            with_bias_stats=True, head=head, head_side="item")
+            with_bias_stats=True, head=head, head_side="item", precision=precision)
         m_beta, V_beta = factor_update(state["m_beta"], state["V_beta"],
                                        S_w_i, S_A_i, item_counts, eta_beta2)
         b_item = _bias_block_lagged(b_item, m_beta, S_m_i, S_x_i, S_b_i,
@@ -296,21 +303,21 @@ def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
     else:
         S_w, S_A = gaussian_factor_stats(
             state["m_beta"], state["V_beta"], b_user, b_item, blocked.by_user,
-            use_bias=use_bias, head=head, head_side="user")
+            use_bias=use_bias, head=head, head_side="user", precision=precision)
         m_theta, V_theta = factor_update(state["m_theta"], state["V_theta"],
                                          S_w, S_A, user_counts, eta_theta2)
         S_w_i, S_A_i = gaussian_factor_stats(
             m_theta, V_theta, b_item, b_user, blocked.by_item,
-            use_bias=use_bias, head=head, head_side="item")
+            use_bias=use_bias, head=head, head_side="item", precision=precision)
         m_beta, V_beta = factor_update(state["m_beta"], state["V_beta"],
                                        S_w_i, S_A_i, item_counts, eta_beta2)
 
     if use_bias and not lagged:
         s_u = gaussian_bias_stats(m_theta, m_beta, b_item, blocked.by_user,
-                                  head=head, head_side="user")
+                                  head=head, head_side="user", precision=precision)
         b_user = _bias_update(b_user, s_u, user_counts, eta_bias2, sigma2)
         s_i = gaussian_bias_stats(m_beta, m_theta, b_user, blocked.by_item,
-                                  head=head, head_side="item")
+                                  head=head, head_side="item", precision=precision)
         b_item = _bias_update(b_item, s_i, item_counts, eta_bias2, sigma2)
     return {"m_theta": m_theta, "V_theta": V_theta, "m_beta": m_beta,
             "V_beta": V_beta, "b_user": b_user, "b_item": b_item}
@@ -344,7 +351,7 @@ class GaussianMF(FactorModel):
         the kernels' plain versions on the host.  ``elbo_every=N`` records
         the exact mean-field ELBO every N iterations (0 = off) and gates it
         non-decreasing: the exact block order is coordinate ascent on it
-        (relative slack 1e-6 on "flat", 1e-4 on the blocked engine, whose
+        (relative slack 1e-6 on "flat", 1e-4 on the blocked engines, whose
         statistics round differently; no gate for lagged biases).
         ``resume_from``, ``checkpoint_dir``, ``checkpoint_every`` and
         ``profile_dir`` as in ``HPF.fit``."""
@@ -363,7 +370,8 @@ class GaussianMF(FactorModel):
         hyper = (cfg.sigma2, cfg.eta_theta2, cfg.eta_beta2, cfg.eta_bias2,
                  cfg.use_bias)
         modes = dict(covariance=cfg.covariance, bias_update=cfg.bias_update)
-        if engine == "blocked_high":
+        precision = blocked_precision(engine)
+        if precision is not None:
             from pmf_tpu_torch.data.blocked import build_blocked
 
             u, i, x = as_triples(train_df)
@@ -377,13 +385,11 @@ class GaussianMF(FactorModel):
 
             def sweep_fn(s, d):
                 return sweep_blocked(s, blocked, d.user_counts, d.item_counts,
-                                     *hyper, **modes)
-        elif engine == "flat":
+                                     *hyper, **modes, precision=precision)
+        else:
 
             def sweep_fn(s, d):
                 return sweep(s, d, *hyper, **modes)
-        else:
-            raise ValueError(f"unknown engine {engine!r} (flat, blocked_high, auto)")
 
         val = self._build_eval(val_df) if val_df is not None else None
         loop = FitLoop(sweep_fn, lambda s, ev: eval_metrics(s, ev, cfg.use_bias),
@@ -396,7 +402,7 @@ class GaussianMF(FactorModel):
                        elbo_fn=self._make_elbo_fn(train_df) if elbo_every else None,
                        elbo_every=elbo_every or 1,
                        elbo_monotone=(None if cfg.bias_update == "lagged"
-                                      else 1e-6 if engine == "flat" else 1e-4))
+                                      else 1e-6 if precision is None else 1e-4))
         self.state = loop.run(state, data, val)
         self.fit_history = loop.history
         self.n_sweeps = loop.n_sweeps

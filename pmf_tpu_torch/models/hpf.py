@@ -11,10 +11,15 @@ observations reset to shape a (resp. c) and rate E[xi_u] (resp.
 E[eta_i]).  The state is a dict of tensors with the JAX package's keys.
 
 Engines: "flat" computes the edge statistics with gathers and
-``index_add_`` segment sums over the dual-sorted COO; "blocked_high" runs
-the hybrid layout through the two CUDA kernels (``ops.cavi_edge`` for the
-sparse tail, ``ops.dense_head`` for the dense head tiers) on the card, or
-through their plain versions on the CPU.
+``index_add_`` segment sums over the dual-sorted COO; "flat_chunked" does
+the same in chunks of edges, so no (nnz, K) temporaries exist at once;
+"blocked_high", "blocked_mid" and "blocked_fast" run the hybrid layout
+through the two CUDA kernels (``ops.cavi_edge`` for the sparse tail,
+``ops.dense_head`` for the dense head tiers) on the card, or through their
+plain versions on the CPU.  "mid" computes what "high" does on the card
+(the reference's mid differs only in its TPU tail gathers); "fast" runs the
+head at one bf16 term (K2's one-term instance).  Any other name runs flat,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from pmf_tpu_torch.models.base import (
     FactorModel,
     FitLoop,
     as_triples,
+    blocked_precision,
     poisson_stop_rule,
     resolve_engine,
 )
@@ -55,8 +61,10 @@ class HPFConfig:
     random_state: int = 42
     verbose: bool = True
     dtype: str = "float32"
-    # "flat" (gather + index_add_), "blocked_high" (hybrid layout through
-    # the CUDA kernels) or "auto" (flat below 300k edges, else blocked).
+    # "flat" (gather + index_add_), "flat_chunked" (the same in chunks of
+    # edges), "blocked_high" / "blocked_mid" / "blocked_fast" (hybrid layout
+    # through the CUDA kernels, the head at three bf16 terms or one) or
+    # "auto" (flat below 300k edges or on the CPU, else blocked_high).
     engine: str = "auto"
 
 
@@ -113,6 +121,26 @@ def _hpf_factor_block(E_self, E_other, E_rate_prior, self_ids, other_ids, x,
     return _factor_update(s_alloc, s_other, E_rate_prior, counts, shape0)
 
 
+def _hpf_factor_block_chunked(E_self, E_other, E_rate_prior, self_ids, other_ids,
+                              x, counts, shape0, n_self, chunk_len):
+    """:func:`_hpf_factor_block` over chunks of ``chunk_len`` edges, the
+    two segment sums accumulated, so no (nnz, K) temporary is held at
+    once.  Padding edges (ids out of range) are dropped."""
+    K = E_self.shape[1]
+    sums = torch.zeros((n_self + 1, 2 * K), dtype=E_self.dtype, device=E_self.device)
+    for c0 in range(0, self_ids.shape[0], chunk_len):
+        cs, co = self_ids[c0 : c0 + chunk_len], other_ids[c0 : c0 + chunk_len]
+        self_rows = gather_rows(E_self, cs)
+        other_rows = gather_rows(E_other, co)
+        rate = torch.clamp_min(edge_dot(self_rows, other_rows), RATE_FLOOR)
+        alloc = (x[c0 : c0 + chunk_len] / rate)[:, None] * self_rows * other_rows
+        ids = cs.long()
+        ids = torch.where((ids >= 0) & (ids < n_self), ids, n_self)
+        sums.index_add_(0, ids, torch.cat([alloc, other_rows], dim=1))
+    return _factor_update(sums[:n_self, :K], sums[:n_self, K:], E_rate_prior,
+                          counts, shape0)
+
+
 def _factor_update(s_alloc, s_other, E_rate_prior, counts, shape0):
     has = (counts > 0)[:, None]
     prior = E_rate_prior[:, None]
@@ -150,26 +178,52 @@ def sweep(state: dict, data: RatingsCOO, a: float, a_prime: float,
             "b_beta": b_beta, "b_xi": b_xi, "b_eta": b_eta}
 
 
+def sweep_chunked(state: dict, data: RatingsCOO, a: float, a_prime: float,
+                  b_prime: float, c: float, c_prime: float, d_prime: float,
+                  chunk_len: int = 1 << 20) -> dict:
+    """Same iteration as :func:`sweep` with the edge passes in chunks of
+    ``chunk_len`` edges (engine "flat_chunked"); it runs no kernel."""
+    E_theta, E_beta, E_xi, E_eta = _expectations(state, a, a_prime, c, c_prime)
+
+    a_theta, b_theta = _hpf_factor_block_chunked(
+        E_theta, E_beta, E_xi, data.u_by_u, data.i_by_u, data.x_by_u,
+        data.user_counts, a, data.n_users, chunk_len)
+    E_theta = a_theta / b_theta
+    b_xi = b_prime + torch.sum(E_theta, dim=1)
+
+    a_beta, b_beta = _hpf_factor_block_chunked(
+        E_beta, E_theta, E_eta, data.i_by_i, data.u_by_i, data.x_by_i,
+        data.item_counts, c, data.n_items, chunk_len)
+    E_beta = a_beta / b_beta
+    b_eta = d_prime + torch.sum(E_beta, dim=1)
+
+    return {"a_theta": a_theta, "b_theta": b_theta, "a_beta": a_beta,
+            "b_beta": b_beta, "b_xi": b_xi, "b_eta": b_eta}
+
+
 def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
                   item_counts: torch.Tensor, a: float, a_prime: float,
                   b_prime: float, c: float, c_prime: float,
-                  d_prime: float) -> dict:
+                  d_prime: float, precision: str = "high") -> dict:
     """Same iteration as :func:`sweep`, with the two edge passes computed
     over the hybrid layout (``data.blocked.BlockedCOO``): sparse tail by
-    kernel K1, dense head tiers by kernel K2."""
+    kernel K1, dense head tiers by kernel K2 at ``precision`` ("fast",
+    "mid" or "high")."""
     from pmf_tpu_torch.ops.cavi_edge import poisson_edge_stats
 
     E_theta, E_beta, E_xi, E_eta = _expectations(state, a, a_prime, c, c_prime)
     head = blocked.head
 
     s_alloc, s_other = poisson_edge_stats(E_theta, E_beta, blocked.by_user,
-                                          head=head, head_side="user")
+                                          head=head, head_side="user",
+                                          precision=precision)
     a_theta, b_theta = _factor_update(s_alloc, s_other, E_xi, user_counts, a)
     E_theta = a_theta / b_theta
     b_xi = b_prime + torch.sum(E_theta, dim=1)
 
     s_alloc_i, s_other_i = poisson_edge_stats(E_beta, E_theta, blocked.by_item,
-                                              head=head, head_side="item")
+                                              head=head, head_side="item",
+                                              precision=precision)
     a_beta, b_beta = _factor_update(s_alloc_i, s_other_i, E_eta, item_counts, c)
     E_beta = a_beta / b_beta
     b_eta = d_prime + torch.sum(E_beta, dim=1)
@@ -214,7 +268,8 @@ class HPF(FactorModel):
         engine = resolve_engine(cfg.engine, data.nnz, self.device)
         self.engine_used = engine
         hyper = (cfg.a, cfg.a_prime, cfg.b_prime, cfg.c, cfg.c_prime, cfg.d_prime)
-        if engine == "blocked_high":
+        precision = blocked_precision(engine)
+        if precision is not None:
             from pmf_tpu_torch.data.blocked import build_blocked
 
             u, i, x = as_triples(train_df)
@@ -226,13 +281,16 @@ class HPF(FactorModel):
                 head_bytes=5 << 29, device=self.device)
 
             def sweep_fn(s, d):
-                return sweep_blocked(s, blocked, d.user_counts, d.item_counts, *hyper)
-        elif engine == "flat":
+                return sweep_blocked(s, blocked, d.user_counts, d.item_counts, *hyper,
+                                     precision=precision)
+        elif engine == "flat_chunked":
+
+            def sweep_fn(s, d):
+                return sweep_chunked(s, d, *hyper)
+        else:
 
             def sweep_fn(s, d):
                 return sweep(s, d, *hyper)
-        else:
-            raise ValueError(f"unknown engine {engine!r} (flat, blocked_high, auto)")
 
         val = self._build_eval(val_df) if val_df is not None else None
         loop = FitLoop(sweep_fn, eval_metrics, cfg.max_iter, cfg.tol,

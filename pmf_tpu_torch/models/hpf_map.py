@@ -25,7 +25,9 @@ direction, or from its plain version on the CPU.  The prior terms, the softplus 
 rule, the loss and Adam are dense row-local tensor code.  The blocked
 batches are unions of tile-band segments instead of uniform draws: the
 same estimator family with another batch composition, so "auto" stays
-flat.
+flat.  "blocked_mid" and "blocked_fast" run the same float32 K9 (the
+reference's differ only in its TPU gathers' bf16 parts); any name that does
+not start with "blocked" runs flat.
 """
 
 from __future__ import annotations
@@ -70,6 +72,9 @@ class HPFMapConfig:
     dtype: str = "float32"
     # "flat" (uniform batches, autograd), "blocked_high" (tile-band
     # segments through kernel K9) or "auto" (= flat, see the module text).
+    # "blocked_mid" and "blocked_fast" run the same K9 in float32 (the
+    # reference's differ only in its TPU gathers' bf16 parts); any other
+    # name runs flat, as in the JAX package.  ``engine_used`` records it.
     engine: str = "auto"
     # Blocked engine only: segments of batch_size // mix ratings
     # accumulated per Adam step, drawn from the epoch-wide segment shuffle.
@@ -457,9 +462,8 @@ class HPFMap(FactorModel):
         if cfg.verbose:
             print(f"Inferred n_users={self.n_users}, n_items={self.n_items}", flush=True)
         engine = "flat" if cfg.engine == "auto" else cfg.engine
-        if engine not in ("flat", "blocked_high"):
-            raise ValueError(f"unknown engine {cfg.engine!r} (flat, blocked_high, auto)")
-        self.engine_used = engine
+        blocked = engine.startswith("blocked")
+        self.engine_used = engine if blocked else "flat"
 
         dt = self._dtype
         nnz = len(u)
@@ -488,7 +492,7 @@ class HPFMap(FactorModel):
         val = self._build_eval(val_df) if val_df is not None else None
         export_fn = lambda p, s: (p, s)  # noqa: E731
 
-        if engine == "blocked_high":
+        if blocked:
             # Params, Adam moments, scales and eval ids live in new row
             # space for the whole fit; the final state export unpermutes.
             self.layout = lay = build_map_layout(

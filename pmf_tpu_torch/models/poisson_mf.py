@@ -37,6 +37,7 @@ from pmf_tpu_torch.models.base import (
     FactorModel,
     FitLoop,
     as_triples,
+    blocked_precision,
     poisson_stop_rule,
     resolve_engine,
 )
@@ -59,8 +60,11 @@ class PoissonMFConfig:
     verbose: bool = True
     extended: bool = False  # scalar activity factors phi, psi
     dtype: str = "float32"
-    # "flat" (gather + index_add_), "blocked_high" (hybrid layout through
-    # the CUDA kernels) or "auto" (flat below 300k edges, else blocked).
+    # "flat" (gather + index_add_), "blocked_high" / "blocked_mid" /
+    # "blocked_fast" (hybrid layout through the CUDA kernels, the head at
+    # three bf16 terms or one) or "auto" (flat below 300k edges or on the
+    # CPU, else blocked_high); any other name runs flat, as in the JAX
+    # package.
     engine: str = "auto"
 
 
@@ -188,10 +192,11 @@ def sweep(state: dict, data: RatingsCOO, a0: float, b0: float,
 
 
 def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
-                  item_counts: torch.Tensor, a0: float, b0: float) -> dict:
+                  item_counts: torch.Tensor, a0: float, b0: float,
+                  precision: str = "high") -> dict:
     """The plain iteration of :func:`sweep`, with the two edge passes
     computed over the hybrid layout (``data.blocked.BlockedCOO``): sparse
-    tail by kernel K1, dense head tiers by kernel K2."""
+    tail by kernel K1, dense head tiers by kernel K2 at ``precision``."""
     from pmf_tpu_torch.ops.cavi_edge import poisson_edge_stats
 
     E_theta = state["a_theta"] / state["b_theta"]
@@ -199,14 +204,16 @@ def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
     head = blocked.head
 
     s_alloc, s_other = poisson_edge_stats(E_theta, E_beta, blocked.by_user,
-                                          head=head, head_side="user")
+                                          head=head, head_side="user",
+                                          precision=precision)
     has = (user_counts > 0)[:, None]
     a_theta = _prior_where(has, s_alloc, a0)
     b_theta = _prior_where(has, s_other, b0)
     E_theta = a_theta / b_theta
 
     s_alloc_i, s_other_i = poisson_edge_stats(E_beta, E_theta, blocked.by_item,
-                                              head=head, head_side="item")
+                                              head=head, head_side="item",
+                                              precision=precision)
     has_i = (item_counts > 0)[:, None]
     return {"a_theta": a_theta, "b_theta": b_theta,
             "a_beta": _prior_where(has_i, s_alloc_i, a0),
@@ -215,13 +222,15 @@ def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
 
 def sweep_blocked_extended(state: dict, blocked, user_counts: torch.Tensor,
                            item_counts: torch.Tensor, sx_user: torch.Tensor,
-                           sx_item: torch.Tensor, a0: float, b0: float) -> dict:
+                           sx_item: torch.Tensor, a0: float, b0: float,
+                           precision: str = "high") -> dict:
     """The extended iteration of :func:`sweep` over the hybrid layout: per
     block the factor pass (K7 on the tail, K2 and linear products on the
     head), the row update, then the scalar pass (K8) with the NEW rows, on
     the other table and head products the factor pass made.
     ``sx_user`` / ``sx_item`` are the per-row rating sums (constant across
-    iterations, made once)."""
+    iterations, made once).  ``precision`` is the head's, as in
+    :func:`sweep_blocked`."""
     from pmf_tpu_torch.ops.ext_edge import ext_factor_stats, ext_scalar_stats
 
     head = blocked.head
@@ -231,11 +240,12 @@ def sweep_blocked_extended(state: dict, blocked, user_counts: torch.Tensor,
         has = has1[:, None]
         S_alloc, S_wother, tables = ext_factor_stats(
             E_self, E_other, s_other, p, head=head, head_side=head_side,
-            keep_tables=True)
+            keep_tables=True, precision=precision)
         a_fac = _prior_where(has, S_alloc, a0)
         b_fac = _prior_where(has, S_wother, b0)
         S_sdot = ext_scalar_stats(a_fac / b_fac, E_other, s_other, p, head=head,
-                                  head_side=head_side, factor=tables)
+                                  head_side=head_side, factor=tables,
+                                  precision=precision)
         return (a_fac, b_fac, _prior_where(has1, sx, a0),
                 _prior_where(has1, S_sdot, b0))
 
@@ -292,7 +302,8 @@ class PoissonMF(FactorModel):
 
         engine = resolve_engine(cfg.engine, data.nnz, self.device)
         self.engine_used = engine
-        if engine == "blocked_high":
+        precision = blocked_precision(engine)
+        if precision is not None:
             from pmf_tpu_torch.data.blocked import build_blocked
 
             u, i, x = as_triples(train_df)
@@ -312,18 +323,17 @@ class PoissonMF(FactorModel):
                 def sweep_fn(s, d):
                     return sweep_blocked_extended(
                         s, blocked, d.user_counts, d.item_counts, sx_user,
-                        sx_item, cfg.a0, cfg.b0)
+                        sx_item, cfg.a0, cfg.b0, precision=precision)
             else:
 
                 def sweep_fn(s, d):
                     return sweep_blocked(s, blocked, d.user_counts,
-                                         d.item_counts, cfg.a0, cfg.b0)
-        elif engine == "flat":
+                                         d.item_counts, cfg.a0, cfg.b0,
+                                         precision=precision)
+        else:
 
             def sweep_fn(s, d):
                 return sweep(s, d, cfg.a0, cfg.b0, cfg.extended)
-        else:
-            raise ValueError(f"unknown engine {engine!r} (flat, blocked_high, auto)")
 
         def eval_fn(s, ev):
             return eval_metrics(s, ev, cfg.extended)

@@ -45,6 +45,9 @@ SIGNATURES = {
     # item_side, n_splits, planes, partial, out, stream
     "pmf_dense_head_tier": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                             _P, _P, _P, _P],
+    # the same, precision "fast" (one bf16 term a product)
+    "pmf_dense_head_tier_fast": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+                                 _P, _P, _P, _P],
     # aug, stride, row_ptr, other, x, n_self, K, with_bias_stats, out, stream
     "pmf_gauss_factor": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     # mb_other, row_ptr, other, x, n_self, n_long, K, out, stream

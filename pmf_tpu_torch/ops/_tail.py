@@ -224,12 +224,13 @@ def head_out(tier, head_side: str, cols):
     return (tier.row_start, out) if head_side == "user" else (0, out[: tier.hi])
 
 
-def products(tier, tab, x_tab, head_side):
-    """(start row, M-product, X-product) of one tier, cut to its self rows."""
+def products(tier, tab, x_tab, head_side, precision: str = "high"):
+    """(start row, M-product, X-product) of one tier, cut to its self rows,
+    at the head products' ``precision``."""
     if head_side == "user":
-        mp, xp = head_products(tier, tab, x_tab)
+        mp, xp = head_products(tier, tab, x_tab, precision)
         return tier.row_start, mp, xp
-    mp, xp = head_products_t(tier, tab, x_tab)
+    mp, xp = head_products_t(tier, tab, x_tab, precision)
     return 0, mp[: tier.hi], None if xp is None else xp[: tier.hi]
 
 

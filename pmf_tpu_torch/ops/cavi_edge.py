@@ -6,6 +6,10 @@ direction's CSR tail, adds each dense head tier's statistics
 (``ops.dense_head``, kernel K2) and maps the result back to the original
 row order — the same function as the JAX package's
 ``pmf_tpu/ops/pallas/cavi_edge.py::poisson_edge_stats`` in mode "cavi".
+Its ``precision`` ("fast", "mid", "high": the engines ``blocked_*``)
+reaches the head only.  K1 runs in float32 at every precision: it gathers
+padded float32 rows from L2, and fewer bf16 parts (the reference's
+one-hot gather planes) would save it nothing.
 
 ``tail_edge_stats`` is K1's wrapper: on a CUDA tensor it launches the
 kernel (or raises); on a CPU tensor it runs ``tail_edge_stats_plain``,
@@ -109,7 +113,7 @@ def tail_edge_stats(e_self: torch.Tensor, e_other: torch.Tensor,
 
 def poisson_edge_stats(e_self: torch.Tensor, e_other: torch.Tensor,
                        p: TailCSR, rate_floor: float = RATE_FLOOR,
-                       head=None, head_side: str = "user"):
+                       head=None, head_side: str = "user", precision: str = "high"):
     """(S_alloc, S_other), both (n_self, K), in the original row order:
     S_alloc[r] = sum over r's edges of x * e_self[r] * e_other[o] / rate,
     S_other[r] = sum of e_other[o].  ``head``: the layout's DenseHead tiers
@@ -124,7 +128,7 @@ def poisson_edge_stats(e_self: torch.Tensor, e_other: torch.Tensor,
     fn = poisson_head_stats if head_side == "user" else poisson_head_stats_t
     acc = add_heads(acc, [
         head_out(tier, head_side, fn(*head_tables(e_self, e_other, tier, head_side),
-                                     tier, rate_floor))
+                                     tier, rate_floor, precision))
         for tier in heads])
     if p.reordered:
         acc = acc[p.self_new_of_old]

@@ -10,21 +10,29 @@ tier's user rows and beta its item rows (zero past ``hi``):
 
 ``fused_alloc_tier`` is the wrapper of kernel K2 (``csrc/dense_head.cu``):
 on CUDA tensors it launches the kernel (or raises), on CPU tensors it runs
-``fused_alloc_tier_plain``.  ``plan_launch`` is the kernel's launch plan
-as a pure function of the tier's shape: resident CTAs, splits of the
-reduction axis and shared-memory bytes.  ``poisson_head_stats{,_t}`` apply
+``fused_alloc_tier_plain``.  ``precision`` follows the JAX package's
+engines: "high" and "mid" take every float32 operand as two bf16 planes
+and each product as three terms (``pmf_dense_head_tier``); "fast" is the
+reference's ``Precision.DEFAULT``, one bf16 plane rounded to nearest an
+operand and one term a product (``pmf_dense_head_tier_fast``).
+``plan_launch`` is the kernel's launch plan as a pure function of the
+tier's shape: resident CTAs, splits of the reduction axis and
+shared-memory bytes.  ``poisson_head_stats{,_t}`` apply
 the final self-factor multiply, as the JAX package's functions of the same
 names.
 
 ``head_products{,_t}`` are the linear products the Gaussian statistics
 need over one tier, ``(M @ tab, X @ xtab)`` and their transposes.  The
 JAX package leaves them to XLA dots, so here they are library matmuls.
-On the card they follow the JAX bf16 part scheme: M is one exact bf16
-plane, X the stored ``x_hi`` + ``x_lo`` planes, each f32 table two bf16
-planes; every product accumulates and returns float32
+On the card they follow the JAX bf16 part scheme (``parts_of``): at
+"high" and "mid" M is one exact bf16 plane, X the stored ``x_hi`` +
+``x_lo`` planes, each f32 table two bf16 planes; at "fast" every operand
+is one plane rounded to nearest (M rounded to bf16, X its ``x_hi`` alone);
+every product accumulates and returns float32
 (``torch.mm(..., out_dtype=torch.float32)``: a plain bf16 ``torch.mm``
 would round its output to bf16).  On the CPU, whose torch has no kernel
-for that overload, they are plain matmuls in the table's dtype.
+for that overload, they are plain matmuls in the table's dtype, on
+operands rounded as the card's "fast" planes are.
 
 ``ext_head_stats{,_t}`` are the extended-Poisson head statistics: the
 allocation half from K2 (the scalar factors cancel in it), the
@@ -42,6 +50,8 @@ from pmf_tpu_torch.data.blocked import DenseHead
 from pmf_tpu_torch.ops import _build
 
 HEAD_LAUNCHES = _build.LaunchCounter()
+HEAD_FAST_LAUNCHES = _build.LaunchCounter()  # the one-term instance
+PRECISIONS = ("fast", "mid", "high")
 
 # Kernel geometry, a copy of csrc/dense_head.cu's for the launch plan (the
 # kernel sizes its own shared memory; chip_smoke.py's K2 phases run every
@@ -63,11 +73,29 @@ SMEM_PER_SM = 233_472  # of which every resident CTA reserves 1 KB
 SMEM_RESERVED = 1024
 
 
+def parts_of(precision: str) -> int:
+    """bf16 planes of a float32 operand: 1 at "fast", else 2."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r} {PRECISIONS}")
+    return 1 if precision == "fast" else 2
+
+
+def _bf16_rn(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to nearest bf16, back in its dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
 def fused_alloc_tier_plain(theta_h, beta_h, x_hi, m, x_lo=None, *,
                            rate_floor: float, item_side: bool = False,
-                           row_chunk: int | None = None) -> torch.Tensor:
+                           row_chunk: int | None = None,
+                           precision: str = "high") -> torch.Tensor:
     """Plain version of K2, in the tables' dtype.  ``row_chunk`` bounds the
-    rows whose (rows, hip) temporaries exist at once."""
+    rows whose (rows, hip) temporaries exist at once.  At "fast" theta,
+    beta, W and M are rounded to nearest bf16 before their products, as
+    the one-term kernel's operands are."""
+    fast = parts_of(precision) == 1
+    if fast:
+        theta_h, beta_h = _bf16_rn(theta_h), _bf16_rn(beta_h)
     rows, K = theta_h.shape
     hip = m.shape[1]
     dtype = theta_h.dtype
@@ -82,6 +110,8 @@ def fused_alloc_tier_plain(theta_h, beta_h, x_hi, m, x_lo=None, *,
         mm = m[r0 : r0 + step].to(dtype)
         R = th @ beta_h.T
         W = torch.where(mm > 0, x / torch.clamp_min(R, rate_floor), 0.0)
+        if fast:
+            W, mm = _bf16_rn(W), _bf16_rn(mm)
         if item_side:
             out[:, :K] += W.T @ th
             out[:, K:] += mm.T @ th
@@ -118,31 +148,33 @@ class LaunchPlan(NamedTuple):
     groups: int  # CTAs sharing a P tile, one a group of output columns (grid.z)
 
 
-def stage_bytes(item_side: bool, m_f32: bool, has_lo: bool, K: int) -> int:
+def stage_bytes(item_side: bool, m_f32: bool, has_lo: bool, K: int,
+                terms: int = 3) -> int:
     """Shared memory of one ring stage: the cell tile's planes (rows padded
     by 16 bytes, a float32 M by 32 on the user side) and the Q tile's hi and
-    lo planes (rows of 16 bytes per 8 factors, padded by 16 where that
-    count is even)."""
+    lo planes, or its hi plane alone with one term (rows of 16 bytes per 8
+    factors, padded by 16 where that count is even)."""
     blocks = depth_blocks(K)
     q_stride = 16 * blocks + (0 if blocks % 2 else 16)
     cell_rows, cell_cols = (Q_TILE, P_TILE) if item_side else (P_TILE, Q_TILE)
     cs = cell_cols * 2 + 16
     ms = cell_cols * 4 + (16 if item_side else 32) if m_f32 else cs
     return (cell_rows * cs * (2 if has_lo else 1) + cell_rows * ms
-            + 2 * Q_TILE * q_stride)
+            + (2 if terms == 3 else 1) * Q_TILE * q_stride)
 
 
 @functools.lru_cache(maxsize=None)
 def plan_launch(rows: int, hip: int, K: int, item_side: bool, m_f32: bool,
-                has_lo: bool, n_sm: int) -> LaunchPlan:
+                has_lo: bool, n_sm: int, terms: int = 3) -> LaunchPlan:
     """The launch of one tier and side on a card of ``n_sm`` SMs: the
     resident CTAs the ring's shared memory allows, and the split of the
     reduction axis (columns on the user side, rows on the item side) that
     takes the fewest tile times when the P tiles alone would not fill the
-    card.  Past K = 32 each P tile is ``output_groups(K)`` CTAs."""
+    card.  Past K = 32 each P tile is ``output_groups(K)`` CTAs.  ``terms``:
+    3 for the high instance, 1 for "fast", whose stages hold no Q lo tile."""
     if not 1 <= K <= MAX_K:
         raise ValueError(f"head kernel needs 1 <= K <= {MAX_K}, got K={K}")
-    smem = STAGES * stage_bytes(item_side, m_f32, has_lo, K)
+    smem = STAGES * stage_bytes(item_side, m_f32, has_lo, K, terms)
     if smem > SMEM_PER_CTA:
         raise ValueError(f"a ring of {STAGES} stages, {smem} bytes, does not fit "
                          f"{SMEM_PER_CTA} bytes of shared memory")
@@ -197,12 +229,17 @@ def _check_cuda_args(theta_h, beta_h, x_hi, m, x_lo):
 
 
 def fused_alloc_tier(theta_h, beta_h, x_hi, m, x_lo=None, *,
-                     rate_floor: float, item_side: bool = False) -> torch.Tensor:
+                     rate_floor: float, item_side: bool = False,
+                     precision: str = "high") -> torch.Tensor:
     """K2 over one tier: (rows, 2K) user side or (hip, 2K) item side,
-    [sum W * other | sum M * other] before the self-factor multiply."""
+    [sum W * other | sum M * other] before the self-factor multiply.  On
+    the card "fast" launches the one-term instance, "mid" and "high" the
+    three-term one."""
+    terms = 1 if parts_of(precision) == 1 else 3
     if not theta_h.is_cuda:
         return fused_alloc_tier_plain(theta_h, beta_h, x_hi, m, x_lo,
-                                      rate_floor=rate_floor, item_side=item_side)
+                                      rate_floor=rate_floor, item_side=item_side,
+                                      precision=precision)
     theta_h = theta_h.contiguous()
     beta_h = beta_h.contiguous()
     _check_cuda_args(theta_h, beta_h, x_hi, m, x_lo)
@@ -212,38 +249,41 @@ def fused_alloc_tier(theta_h, beta_h, x_hi, m, x_lo=None, *,
     dev = theta_h.device
     m_f32 = m.dtype == torch.float32
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = plan_launch(rows, hip, K, item_side, m_f32, x_lo is not None, n_sm)
+    plan = plan_launch(rows, hip, K, item_side, m_f32, x_lo is not None, n_sm, terms)
     out_rows = hip if item_side else rows
     out = torch.empty((out_rows, 2 * K), dtype=torch.float32, device=dev)
-    # The streamed table's hi and lo bf16 planes, which the launch fills.
-    planes = torch.empty(2 * (rows if item_side else hip) * plan.depth,
-                         dtype=torch.bfloat16, device=dev)
+    # The streamed table's bf16 planes (hi and lo, or hi alone at "fast"),
+    # which the launch fills.
+    planes = torch.empty((2 if terms == 3 else 1) * (rows if item_side else hip)
+                         * plan.depth, dtype=torch.bfloat16, device=dev)
     partial = (torch.empty((plan.splits, out_rows, 2 * K), dtype=torch.float32,
                            device=dev) if plan.splits > 1 else None)
-    _build.launch("pmf_dense_head_tier", HEAD_LAUNCHES, dev, theta_h, beta_h,
-                  x_hi, x_lo, m, int(m_f32), rows, hip, K, rate_floor,
-                  int(item_side), plan.splits, planes, partial, out)
+    name, counter = (("pmf_dense_head_tier", HEAD_LAUNCHES) if terms == 3
+                     else ("pmf_dense_head_tier_fast", HEAD_FAST_LAUNCHES))
+    _build.launch(name, counter, dev, theta_h, beta_h, x_hi, x_lo, m, int(m_f32),
+                  rows, hip, K, rate_floor, int(item_side), plan.splits, planes,
+                  partial, out)
     return out
 
 
 def poisson_head_stats(theta_h: torch.Tensor, beta_h: torch.Tensor,
-                       head: DenseHead, rate_floor: float):
+                       head: DenseHead, rate_floor: float, precision: str = "high"):
     """User-side head statistics (S_alloc, S_other), both (hu, K).
     theta_h: (hu, K) tier user rows, beta_h: (hip, K) head item rows
     (zero past hi), both in count-reordered space."""
     K = theta_h.shape[1]
     out = fused_alloc_tier(theta_h, beta_h, head.x_hi, head.m, head.x_lo,
-                           rate_floor=rate_floor)
+                           rate_floor=rate_floor, precision=precision)
     return theta_h * out[:, :K], out[:, K:]
 
 
 def poisson_head_stats_t(theta_h: torch.Tensor, beta_h: torch.Tensor,
-                         head: DenseHead, rate_floor: float):
+                         head: DenseHead, rate_floor: float, precision: str = "high"):
     """Item-side head statistics (S_alloc, S_other), both (hip, K); rows
     past hi are zeros (M is zero there)."""
     K = theta_h.shape[1]
     out = fused_alloc_tier(theta_h, beta_h, head.x_hi, head.m, head.x_lo,
-                           rate_floor=rate_floor, item_side=True)
+                           rate_floor=rate_floor, item_side=True, precision=precision)
     return beta_h * out[:, :K], out[:, K:]
 
 
@@ -255,21 +295,27 @@ def _bf16_planes(t: torch.Tensor) -> list:
     return [hi.to(torch.bfloat16), (t.float() - hi).to(torch.bfloat16)]
 
 
-def _cells_product(planes: list, b: torch.Tensor, transpose_a: bool) -> torch.Tensor:
-    """(sum of cell planes) @ b, or its transpose.  On the card the planes
-    are bf16 and b splits into two bf16 planes: sum_{i+j<2} A_i @ B_j in
-    float32, one matmul per A plane with its B planes side by side.  On
-    the CPU, a plain matmul in b's dtype."""
+def _cells_product(planes: list, b: torch.Tensor, transpose_a: bool,
+                   parts: int) -> torch.Tensor:
+    """(sum of cell planes) @ b, or its transpose, with b in as many bf16
+    planes as the cells (``parts_of``: one RN plane at "fast", else the
+    truncated hi and the rounded lo of ``_bf16_planes``).  On the card
+    sum_{i+j<parts} A_i @ B_j in float32, one matmul per A plane with its B
+    planes side by side.  On the CPU, a plain matmul in b's dtype, with b
+    rounded to bf16 at one part."""
+    one = parts == 1
     if not b.is_cuda:
         a = planes[0].to(b.dtype)
         for p in planes[1:]:
             a = a + p.to(b.dtype)
+        if one:
+            b = _bf16_rn(b)
         return a.T @ b if transpose_a else a @ b
-    b_planes = _bf16_planes(b)
+    b_planes = [b.to(torch.bfloat16)] if one else _bf16_planes(b)
     w = b.shape[1]
     out = None
     for i, a in enumerate(planes):
-        bs = b_planes[: 2 - i]
+        bs = b_planes[: len(b_planes) - i]
         prod = torch.mm(a.T if transpose_a else a, torch.cat(bs, dim=1),
                         out_dtype=torch.float32)
         for j in range(len(bs)):
@@ -278,40 +324,48 @@ def _cells_product(planes: list, b: torch.Tensor, transpose_a: bool) -> torch.Te
     return out
 
 
-def _m_planes(head: DenseHead, tab: torch.Tensor) -> list:
-    """M as the card's bf16 planes, or as stored for the CPU's matmuls."""
+def _m_planes(head: DenseHead, tab: torch.Tensor, parts: int) -> list:
+    """M as the card's bf16 planes, or as stored for the CPU's matmuls; at
+    one part, M rounded to bf16 on both."""
+    if parts == 1:
+        return [head.m_bf16_rn()]
     return head.m_bf16_planes() if tab.is_cuda else [head.m]
 
 
-def _x_planes(head: DenseHead) -> list:
-    return [head.x_hi] + ([head.x_lo] if head.x_lo is not None else [])
+def _x_planes(head: DenseHead, parts: int) -> list:
+    """X's stored planes; at one part ``x_lo`` is dropped, as the
+    reference's ``head_products`` drops it."""
+    return [head.x_hi] + ([head.x_lo] if head.x_lo is not None and parts > 1 else [])
 
 
 def head_products(head: DenseHead, other_tab: torch.Tensor,
-                  x_tab: torch.Tensor | None):
+                  x_tab: torch.Tensor | None, precision: str = "high"):
     """User-side linear head statistics ``(M @ other_tab, X @ x_tab)``:
     other_tab (hip, W) and x_tab (hip, Wx) or None, per head item (rows
     past hi zero).  Returns ((hu, W), (hu, Wx) or None), float32 on the
     card, the tables' dtype on the CPU."""
-    mp = _cells_product(_m_planes(head, other_tab), other_tab, transpose_a=False)
+    parts = parts_of(precision)
+    mp = _cells_product(_m_planes(head, other_tab, parts), other_tab, False, parts)
     xp = (None if x_tab is None
-          else _cells_product(_x_planes(head), x_tab, transpose_a=False))
+          else _cells_product(_x_planes(head, parts), x_tab, False, parts))
     return mp, xp
 
 
 def head_products_t(head: DenseHead, self_tab: torch.Tensor,
-                    x_tab: torch.Tensor | None):
+                    x_tab: torch.Tensor | None, precision: str = "high"):
     """Item-side linear head statistics ``(M^T @ self_tab, X^T @ x_tab)``:
     self_tab (hu, W) and x_tab (hu, Wx) or None, per tier user row.
     Returns ((hip, W), (hip, Wx) or None); rows past hi are zeros."""
-    mp = _cells_product(_m_planes(head, self_tab), self_tab, transpose_a=True)
+    parts = parts_of(precision)
+    mp = _cells_product(_m_planes(head, self_tab, parts), self_tab, True, parts)
     xp = (None if x_tab is None
-          else _cells_product(_x_planes(head), x_tab, transpose_a=True))
+          else _cells_product(_x_planes(head, parts), x_tab, True, parts))
     return mp, xp
 
 
 def ext_head_stats(theta_h: torch.Tensor, beta_h: torch.Tensor,
-                   sbeta_h: torch.Tensor, head: DenseHead, rate_floor: float):
+                   sbeta_h: torch.Tensor, head: DenseHead, rate_floor: float,
+                   precision: str = "high"):
     """Extended-Poisson user-side head statistics (S_alloc, S_wother), both
     (hu, K).  The allocation divides by the factor dot alone, so S_alloc
     is the plain form's (K2; its M @ B half goes unused); the rate
@@ -319,18 +373,19 @@ def ext_head_stats(theta_h: torch.Tensor, beta_h: torch.Tensor,
     s_other[:, None] * beta_h made by the caller."""
     K = theta_h.shape[1]
     out = fused_alloc_tier(theta_h, beta_h, head.x_hi, head.m, head.x_lo,
-                           rate_floor=rate_floor)
-    sw, _ = head_products(head, sbeta_h, None)
+                           rate_floor=rate_floor, precision=precision)
+    sw, _ = head_products(head, sbeta_h, None, precision)
     return theta_h * out[:, :K], sw
 
 
 def ext_head_stats_t(theta_h: torch.Tensor, beta_h: torch.Tensor,
-                     stheta_h: torch.Tensor, head: DenseHead, rate_floor: float):
+                     stheta_h: torch.Tensor, head: DenseHead, rate_floor: float,
+                     precision: str = "high"):
     """Extended-Poisson item-side head statistics (S_alloc, S_wother), both
     (hip, K), rows past hi zero; stheta_h = s_other[:, None] * theta_h (the
     user scalars)."""
     K = theta_h.shape[1]
     out = fused_alloc_tier(theta_h, beta_h, head.x_hi, head.m, head.x_lo,
-                           rate_floor=rate_floor, item_side=True)
-    sw, _ = head_products_t(head, stheta_h, None)
+                           rate_floor=rate_floor, item_side=True, precision=precision)
+    sw, _ = head_products_t(head, stheta_h, None, precision)
     return beta_h * out[:, :K], sw

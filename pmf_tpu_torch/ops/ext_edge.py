@@ -22,7 +22,10 @@ one [e | s] record a row (``es_record``, s in column K, padded to
 also returns what the scalar pass of the same block reads again
 (``FactorTables``: the records and each head tier's S_wother product),
 so that pass permutes neither E_other nor s_other and makes no head
-product of its own.
+product of its own.  ``precision`` ("fast", "mid", "high") reaches the
+head (K2's instance and the head products) only: K7 and K8 run in float32
+at every precision, gathering padded float32 records from L2, where fewer
+bf16 parts would save nothing.
 
 ``ext_factor_tail`` (K7) and ``ext_scalar_tail`` (K8) wrap the kernels of
 ``csrc/ext_edge.cu``, modes of K1's row-group kernel
@@ -180,7 +183,8 @@ def _s_tab(records, K, tier, head_side):
 
 def ext_factor_stats(E_self, E_other, s_other, p: TailCSR,
                      rate_floor: float = RATE_FLOOR, head=None,
-                     head_side: str = "user", keep_tables: bool = False):
+                     head_side: str = "user", keep_tables: bool = False,
+                     precision: str = "high"):
     """(S_alloc, S_wother), both (n_self, K), in the original row order.
     ``head``: the layout's DenseHead tiers (their edges are not in ``p``);
     ``head_side`` says whether self rows are the head's user axis ("user",
@@ -198,7 +202,7 @@ def ext_factor_stats(E_self, E_other, s_other, p: TailCSR,
     for tier in heads:
         theta_h, beta_h = head_tables(t_self[:, :K], records[:, :K], tier, head_side)
         s_alloc, sw_h = fn(theta_h, beta_h, _s_tab(records, K, tier, head_side), tier,
-                           rate_floor)
+                           rate_floor, precision)
         head_outs.append(head_out(tier, head_side, (s_alloc, sw_h)))
         sw.append((tier.row_start, sw_h) if head_side == "user" else (0, sw_h[: tier.hi]))
     acc = add_heads(acc, head_outs)
@@ -211,7 +215,8 @@ def ext_factor_stats(E_self, E_other, s_other, p: TailCSR,
 
 def ext_scalar_stats(E_self_new, E_other, s_other, p: TailCSR, head=None,
                      head_side: str = "user",
-                     factor: FactorTables | None = None) -> torch.Tensor:
+                     factor: FactorTables | None = None,
+                     precision: str = "high") -> torch.Tensor:
     """S_sdot (n_self,): sum_e s_other_e * <E_self_new, E_other>, in the
     original row order.  The head part reuses the linear product:
     rowsum(E_self_new * (M @ (s * E_other))).  ``factor``: what
@@ -225,7 +230,8 @@ def ext_scalar_stats(E_self_new, E_other, s_other, p: TailCSR, head=None,
         records = es_record(E_other, s_other,
                             p.other_new_of_old if p.reordered else None)
         factor = FactorTables(records, [
-            products(tier, _s_tab(records, K, tier, head_side), None, head_side)[:2]
+            products(tier, _s_tab(records, K, tier, head_side), None, head_side,
+                     precision)[:2]
             for tier in heads])
     e_self = new_space_rows(E_self_new, p.self_new_of_old if p.reordered else None)
     acc = ext_scalar_tail(e_self, factor.records, p.row_ptr, p.other, K=K,

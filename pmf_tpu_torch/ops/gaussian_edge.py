@@ -14,7 +14,10 @@ other-row table into count-reordered space, runs its tail kernel over the
 direction's CSR tail, adds each dense head tier's linear products
 (``ops.dense_head.head_products{,_t}``) onto the same columns, and maps
 the result back.  The second moment is symmetric, so only its K(K+1)/2
-upper triangle rides the pass (``pack_tri`` / ``unpack_tri``).
+upper triangle rides the pass (``pack_tri`` / ``unpack_tri``).  Their
+``precision`` ("fast", "mid", "high") sets the head products' bf16 parts
+only: K3, K5 and K6 run in float32 at every precision (they gather
+padded float32 records from L2; fewer parts would save them nothing).
 
 ``factor_tail_stats``, ``bias_tail_stats`` and ``diag_tail_stats`` wrap
 the kernels of ``csrc/gaussian_edge.cu``: on CUDA tensors they launch (or
@@ -255,7 +258,7 @@ def _x_sum(tier, head_side):
     return tier.x_sum_user if head_side == "user" else tier.x_sum_item[: tier.hi]
 
 
-def _gauss_head_out(tier, aug, K, T, with_bias_stats, head_side):
+def _gauss_head_out(tier, aug, K, T, with_bias_stats, head_side, precision):
     """One tier's contribution in K3's column layout
     [S_w' | S_m | triA (| S_x | S_b)] (S_w' without the b_self term, like
     the kernel).  ``aug`` is the new-space [m | b | tri] table (b zero
@@ -263,7 +266,7 @@ def _gauss_head_out(tier, aug, K, T, with_bias_stats, head_side):
     a = _head_rows(aug, tier, head_side)
     m_h, b_h, tri_h = a[:, :K], a[:, K : K + 1], a[:, K + 1 : K + 1 + T]
     tab = torch.cat([m_h, b_h * m_h, tri_h, b_h], dim=1)
-    start, mp, xp = _products(tier, tab, m_h, head_side)
+    start, mp, xp = _products(tier, tab, m_h, head_side, precision)
     cols = [xp - mp[:, K : 2 * K], mp[:, :K], mp[:, 2 * K : 2 * K + T]]
     if with_bias_stats:
         cols += [_x_sum(tier, head_side)[:, None].to(mp.dtype), mp[:, -1:]]
@@ -295,7 +298,7 @@ def factor_table(m, b, A_flat, rows=None) -> torch.Tensor:
 
 def gaussian_factor_stats(m_other, V_other, b_self, b_other, p: TailCSR,
                           use_bias: bool = True, with_bias_stats: bool = False,
-                          head=None, head_side: str = "user"):
+                          head=None, head_side: str = "user", precision: str = "high"):
     """(S_w (n_self, K), S_A (n_self, K, K)) for one factor block, with
     S_w = sum m_o (x [- b_s - b_o]) and S_A = sum (V_o + m_o m_o^T).  With
     ``with_bias_stats`` also (S_m, S_x, S_b): the per-row sums of m_o, x
@@ -314,7 +317,7 @@ def gaussian_factor_stats(m_other, V_other, b_self, b_other, p: TailCSR,
     heads = _check_head(p, head)
     out = factor_tail_stats(aug, p.row_ptr, p.other, p.x, K, with_bias_stats)
     out = _add_heads(out, [_gauss_head_out(t, aug, K, T, with_bias_stats,
-                                           head_side) for t in heads])
+                                           head_side, precision) for t in heads])
     if p.reordered:
         out = out[p.self_new_of_old]
     S_w = out[:, :K]
@@ -329,7 +332,7 @@ def gaussian_factor_stats(m_other, V_other, b_self, b_other, p: TailCSR,
 
 
 def gaussian_bias_stats(m_self, m_other, b_other, p: TailCSR, head=None,
-                        head_side: str = "user") -> torch.Tensor:
+                        head_side: str = "user", precision: str = "high") -> torch.Tensor:
     """s (n_self,): per-row sums of bias residuals
     sum (x - b_o - <m_s, m_o>), assembled from the pass-through sums
     [sum m_o | sum b_o | sum x] (K5 on the tail, linear products on the
@@ -343,7 +346,7 @@ def gaussian_bias_stats(m_self, m_other, b_other, p: TailCSR, head=None,
     head_outs = []
     for tier in heads:
         start, mp, _ = _products(tier, _head_rows(mb[:, : K + 1], tier, head_side),
-                                 None, head_side)
+                                 None, head_side, precision)
         head_outs.append((start, torch.cat(
             [mp, _x_sum(tier, head_side)[:, None].to(mp.dtype)], dim=1)))
     out = _add_heads(out, head_outs)
@@ -353,7 +356,7 @@ def gaussian_bias_stats(m_self, m_other, b_other, p: TailCSR, head=None,
     return S_x - S_b - torch.sum(m_self * S_m, dim=1)
 
 
-def _diag_head_out(tier, m_o, sq_o, b_o, m_s, b_s, head_side):
+def _diag_head_out(tier, m_o, sq_o, b_o, m_s, b_s, head_side, precision):
     """One tier's [S_mr | S_sq | S_mm] from the new-space tables' real
     columns (b zero without biases).  The cross term sum m_o <m_s, m_o> is
     unpack(M @ tri(m_o m_o^T)) @ m_s, linear in per-other payloads."""
@@ -362,7 +365,7 @@ def _diag_head_out(tier, m_o, sq_o, b_o, m_s, b_s, head_side):
     b_h = _head_rows(b_o[:, None], tier, head_side)
     tri_mm = pack_tri((m_h[:, :, None] * m_h[:, None, :]).reshape(-1, K * K), K)
     tab = torch.cat([m_h, b_h * m_h, sq_h, m_h * m_h, tri_mm], dim=1)
-    start, mp, xp = _products(tier, tab, m_h, head_side)
+    start, mp, xp = _products(tier, tab, m_h, head_side, precision)
     rows = slice(start, start + mp.shape[0])
     m_s, b_s = m_s[rows].to(mp.dtype), b_s[rows].to(mp.dtype)
     pred_term = torch.einsum("rkl,rl->rk", unpack_tri(mp[:, 4 * K :], K), m_s)
@@ -373,7 +376,7 @@ def _diag_head_out(tier, m_o, sq_o, b_o, m_s, b_s, head_side):
 
 def gaussian_diag_stats(m_other, v_other, m_self, b_self, b_other, p: TailCSR,
                         use_bias: bool = True, head=None,
-                        head_side: str = "user"):
+                        head_side: str = "user", precision: str = "high"):
     """(S_mr, S_sq, S_mm), each (n_self, K), for one diag-covariance
     factor block: S_mr = sum m_o (resid - <m_s, m_o>) with resid =
     x [- b_s - b_o], S_sq = sum (v_o + m_o^2), S_mm = sum m_o^2.  K6 reads
@@ -393,7 +396,8 @@ def gaussian_diag_stats(m_other, v_other, m_self, b_self, b_other, p: TailCSR,
     out = diag_tail_stats(mb_s, mb_o, sq_o, p.row_ptr, p.other, p.x, K=K,
                           long_rows=p.long_rows)
     out = _add_heads(out, [_diag_head_out(t, mb_o[:, :K], sq_o[:, :K], mb_o[:, K],
-                                          mb_s[:, :K], mb_s[:, K], head_side)
+                                          mb_s[:, :K], mb_s[:, K], head_side,
+                                          precision)
                            for t in heads])
     if p.reordered:
         out = out[p.self_new_of_old]

@@ -63,7 +63,8 @@ def test_port_package_files_are_scanned():
         "utils/mapping", "data/pipeline", "tune/multi_seed", "cli/common",
         "cli/run_single", "cli/tune", "cli/best_k", "cli/compare", "cli/train_full",
         "cli/reproduce", "analysis/forecasts", "analysis/exploratory",
-        "analysis/top_dimensions", "analysis/embedding_viz")} <= rel
+        "analysis/top_dimensions", "analysis/embedding_viz", "data/native",
+        "data/layout_cache")} <= rel
     assert Path(pmf_tpu_torch.__file__).parent == REPO / "pmf_tpu_torch"
 
 

@@ -411,6 +411,14 @@ def test_same_seed_same_fit(small_splits):
 
 @pytest.mark.parametrize("engine", ["blocked_mid", "blocked_fast", "flat_chunked"])
 def test_unported_engines_raise(small_splits, engine):
+    """The engines this test once saw raise are ported: "blocked_mid" and
+    "blocked_fast" run the blocked engine's K9 (equal in bits to
+    "blocked_high"), "flat_chunked" runs flat, as in the JAX package."""
     (tu, ti, tx), _, _ = small_splits
-    with pytest.raises(ValueError, match="unknown engine"):
-        _fit(engine, (tu, ti, tx + 1.0), None, 1)
+    train = (tu, ti, tx + 1.0)
+    got = _fit(engine, train, None, 1)
+    want_engine = "flat" if engine == "flat_chunked" else engine
+    assert got.engine_used == want_engine
+    ref = _fit("flat" if engine == "flat_chunked" else "blocked_high", train, None, 1)
+    for k in ("user", "item"):
+        torch.testing.assert_close(got.state[k], ref.state[k], rtol=0, atol=0)

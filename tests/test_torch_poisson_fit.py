@@ -126,10 +126,20 @@ def test_engine_auto_and_unknown(small_splits):
     m = tpmf.PoissonMF(tpmf.PoissonMFConfig(n_factors=3, max_iter=1,
                                             verbose=False)).fit(train, device="cpu")
     assert m.engine_used == "flat"  # below the 300k-edge cutover
-    with pytest.raises(ValueError, match="unknown engine"):
-        tpmf.PoissonMF(tpmf.PoissonMFConfig(
-            n_factors=3, max_iter=1, verbose=False,
-            engine="blocked_fast")).fit(train, device="cpu")
+    # As in the JAX package: "blocked_fast" runs the blocked engine, and a
+    # name that does not start with "blocked" runs flat.
+    m = tpmf.PoissonMF(tpmf.PoissonMFConfig(
+        n_factors=3, max_iter=1, verbose=False,
+        engine="blocked_fast")).fit(train, device="cpu")
+    assert m.engine_used == "blocked_fast" and m.blocked is not None
+    flat = tpmf.PoissonMF(tpmf.PoissonMFConfig(n_factors=3, max_iter=1, verbose=False,
+                                               engine="flat")).fit(train, device="cpu")
+    other = tpmf.PoissonMF(tpmf.PoissonMFConfig(
+        n_factors=3, max_iter=1, verbose=False,
+        engine="unknown")).fit(train, device="cpu")
+    assert other.engine_used == "unknown" and not hasattr(other, "blocked")
+    for k in flat.state:
+        torch.testing.assert_close(other.state[k], flat.state[k], rtol=0, atol=0)
 
 
 def test_package_exports_the_model():
