@@ -18,7 +18,10 @@ result line:
               cold into an empty directory under ``_smoke_tmp/``, then warm
               (seconds, the entry's MB); every tensor of the hit equal in
               bits to the cold build's and to phase data's, one sweep on
-              each equal in bits.  Every later fit reads that directory.
+              each equal in bits.  The cache is off until phase fastfit, so
+              every fit before it builds its layout cold, as a user's first
+              fit does; from fastfit on the fits read and write that
+              directory.
 4. K1      -- sparse-tail edge kernel vs its plain version, both directions,
               with its per-edge sector reckoning and its long rows alone,
               and its tables built into new space by gather and by scatter.
@@ -119,8 +122,10 @@ Those are freed, then the Gaussian-MF CAVI path:
 
 Then the other engines:
 
-16a. fastfit -- ``blocked_fast`` fits at full width, the layouts from the
-                cache: HPF 4 sweeps, extended Poisson and exact Gaussian 2
+16a. fastfit -- ``blocked_fast`` fits at full width with the cache on (the
+                HPF and extended Poisson layouts, of phase cache's data,
+                read from its entry; the Gaussian one built and written):
+                HPF 4 sweeps, extended Poisson and exact Gaussian 2
                 each, launch counters reset before and read after (K2's
                 fast instance on the Poisson family); val RMSE within 5e-3
                 of the blocked_high fits' at each sweep; busy ms a sweep at
@@ -539,7 +544,7 @@ def phase_k1raw(blocked):
     return res
 
 
-def _k2_bound(rows, hip, m_f32, has_lo, n_bytes, terms=3):
+def _k2_bound(rows, hip, m_f32, has_lo, n_bytes, fast=False):
     """The three lines of K2's bound over one tier and side, in ms: the
     bytes; the tensor-core flops as the kernel issues them (K pads to
     ceil(K / 8) blocks of 8 in depth and in width; per 16 x 16 cells the
@@ -548,11 +553,11 @@ def _k2_bound(rows, hip, m_f32, has_lo, n_bytes, terms=3):
     float32 M, an mma a block; 4096 flops an mma); and the float32
     elementwise work a cell (clamp, reciprocal, multiply, the subtraction of
     W's split, 1.5 adds into the running sums; one add for x_lo; a select
-    and a subtraction for a float32 M).  ``terms=1`` (precision "fast"):
+    and a subtraction for a float32 M).  ``fast`` (the one-term instance):
     one mma a block for each product, no split of W or M."""
     blocks = -(-K // 8)
-    mmas = (3 + 3 + (3 if m_f32 else 2)) * blocks if terms == 3 else 3 * blocks
-    split = 1 if terms == 3 else 0
+    mmas = 3 * blocks if fast else (3 + 3 + (3 if m_f32 else 2)) * blocks
+    split = 0 if fast else 1
     cells = rows * hip
     return {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
             "tensor operations": cells * mmas * 4096 / 256 / BF16_FLOPS_PER_S * 1e3,
@@ -3210,7 +3215,9 @@ def phase_cli(train, val, smi):
     At the mid size (2M ratings, 40k x 12k, over the 300k cutover):
     ``run_single.main`` for all six models, ``compare`` with ranking,
     ``tune.main`` with 3 seeds a trial and ``best_k`` with 3 seeds over 3
-    K; each fit's kernels checked from the launch counters."""
+    K; each fit's kernels checked from the launch counters.  The CLIs' layout
+    cache starts empty here, so train_full's fit builds and writes its
+    layout, as a user's first run does."""
     import contextlib
     import shutil
 
@@ -3219,12 +3226,14 @@ def phase_cli(train, val, smi):
 
     from pmf_tpu_torch import config as cfg_io
     from pmf_tpu_torch.cli import best_k, compare, run_single, train_full, tune
+    from pmf_tpu_torch.data import layout_cache
     from pmf_tpu_torch.data.pipeline import load_all_splits
     from pmf_tpu_torch.models import (
         GaussianMFConfig, HPFConfig, HPFMapConfig, PoissonMFConfig)
 
     plots = _have("matplotlib")
     root = _fresh_dir("cli")
+    os.environ[layout_cache.ENV_VAR] = _fresh_dir("cli_layouts")
     try:
         # -- full width: CSVs, then train_full.
         half = len(val[0]) // 2
@@ -3290,7 +3299,8 @@ def phase_cli(train, val, smi):
             raise AssertionError(f"cli train_full: y_pred vs the host's dot: {err}")
         log(f"  train_full --model hpf_cavi: {N_USERS}x{N_ITEMS}, {len(train[0])} "
             f"ratings, K={K}, {model.n_sweeps} sweeps: {wall:.1f} s wall (CSV read "
-            f"included), fit {model.fit_seconds:.1f} s, export "
+            f"included; the layout built and written to an empty cache), fit "
+            f"{model.fit_seconds:.1f} s, export "
             f"{model.export_seconds:.1f} s ({_dir_mb(emb):.1f} MB of embeddings) | "
             f"launches {got} | {n_tiers} tiers | y_pred vs host dot "
             f"{err:.2e} | {smi}")
@@ -3619,9 +3629,9 @@ def phase_k2fast(blocked, k2):
             stored_bytes = sum(a.nbytes for a in cells if a is not None)
             cells_bytes = stored_bytes * h.hi // h.hip
             n_bytes = cells_bytes + theta_h.nbytes + beta_h[: h.hi].nbytes + got.nbytes
-            tier_lines = _k2_bound(h.hu, h.hip, m_f32, has_lo, n_bytes, terms=1)
+            tier_lines = _k2_bound(h.hu, h.hip, m_f32, has_lo, n_bytes, fast=True)
             by = max(tier_lines, key=tier_lines.get)
-            plan = plan_launch(h.hu, h.hip, K, item_side, m_f32, has_lo, n_sm, terms=1)
+            plan = plan_launch(h.hu, h.hip, K, item_side, m_f32, has_lo, n_sm, fast=True)
             side = "item" if item_side else "user"
             log(f"  K2fast tier {t} ({h.row_start}, {h.hu}, {h.hi}) {side}: max abs err "
                 f"{abs_err:.3e} rel {rel_err:.3e} (tol {FAST_RTOL}) | vs float64 high: "
@@ -3693,8 +3703,9 @@ def _counts_on_card(train):
 
 
 def phase_fastfit(train, val, gtrain, gval, high_rmse, smi):
-    """The "blocked_fast" fits at full width (the layouts reloaded from the
-    cache of phase cache and the earlier fits): HPF for FIT_SWEEPS sweeps,
+    """The "blocked_fast" fits at full width with the layout cache on (the
+    HPF and extended Poisson layouts, of phase cache's data, read from its
+    entry; the Gaussian one built and written): HPF for FIT_SWEEPS sweeps,
     extended Poisson and exact Gaussian for 2 each, with the launch
     counters reset just before and read just after; each val RMSE within
     FASTFIT_RMSE of the blocked_high fit's at the same sweep (phases fit,
@@ -3703,8 +3714,10 @@ def phase_fastfit(train, val, gtrain, gval, high_rmse, smi):
     "blocked_high" one."""
     import torch
 
+    from pmf_tpu_torch.data import layout_cache
     from pmf_tpu_torch.models import gaussian_mf as gm
     from pmf_tpu_torch.models import hpf
+    from pmf_tpu_torch.models.base import blocked_precision
     from pmf_tpu_torch.models.poisson_mf import PoissonMF, PoissonMFConfig
 
     runs = {
@@ -3718,14 +3731,17 @@ def phase_fastfit(train, val, gtrain, gval, high_rmse, smi):
             n_factors=K, max_iter=FAST_GAUSS_SWEEPS, tol=None, verbose=False,
             engine="blocked_fast")).fit(gtrain, gval, global_mean=0.0),
     }
-    models, launches, walls = {}, {}, {}
+    models, launches, walls, hits = {}, {}, {}, {}
+    cdir = os.environ[layout_cache.ENV_VAR]
     counters = reset_counters()
     before = {k: 0 for k in counters}
     for name, run in runs.items():
+        n_entries = len(os.listdir(cdir))
         t0 = time.perf_counter()
         models[name] = run()
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
+        hits[name] = len(os.listdir(cdir)) == n_entries
         now = {k: c.count for k, c in counters.items()}
         launches[name] = {k: v - before[k] for k, v in now.items() if v - before[k]}
         before = now
@@ -3741,8 +3757,9 @@ def phase_fastfit(train, val, gtrain, gval, high_rmse, smi):
         ref = high_rmse[name][: len(rmses)]
         gap = max(abs(a - b) for a, b in zip(rmses, ref))
         state_ok = all(bool(torch.all(torch.isfinite(v))) for v in m.state.values())
+        how = "read from the cache" if hits[name] else "built and written to the cache"
         log(f"  fastfit {name}: {m.n_sweeps} sweeps in {walls[name]:.1f} s wall (layout "
-            f"from the cache) | launches {launches[name]} | val RMSE "
+            f"{how}) | launches {launches[name]} | val RMSE "
             + " -> ".join(f"{r:.6f}" for r in rmses) + " | blocked_high "
             + " -> ".join(f"{r:.6f}" for r in ref) + f" | largest gap {gap:.2e} | {smi}")
         if launches[name] != want[name] or (name != "gaussian" and tiers[name] == 0):
@@ -3787,10 +3804,13 @@ def phase_fastfit(train, val, gtrain, gval, high_rmse, smi):
         if not moved > 0:
             raise AssertionError(f"fastfit {name}: a fast sweep equals a high one")
 
-    # blocked_mid computes what blocked_high does, in bits.
+    # blocked_mid computes what blocked_high does, in bits: the engines map
+    # it to the same head precision.
     state = hpf.init_state(N_USERS, N_ITEMS, h.config, device="cuda")
-    mid = hpf.sweep_blocked(dict(state), h.blocked, *counts, *hh, precision="mid")
-    high = hpf.sweep_blocked(dict(state), h.blocked, *counts, *hh, precision="high")
+    mid = hpf.sweep_blocked(dict(state), h.blocked, *counts, *hh,
+                            precision=blocked_precision("blocked_mid"))
+    high = hpf.sweep_blocked(dict(state), h.blocked, *counts, *hh,
+                             precision=blocked_precision("blocked_high"))
     if not all(torch.equal(mid[k], high[k]) for k in high):
         raise AssertionError("fastfit: a blocked_mid sweep differs from blocked_high's")
     log(f"phase fastfit: ok | launches {total} | HPF blocked_mid sweep "
@@ -3975,11 +3995,10 @@ def phase_cache(train, blocked, smi):
     build and the entry's write), then warm (the entry's read and the
     head's scatter on the card).  Every tensor of the hit equal in bits to
     the cold build's and to phase data's uncached layout, one sweep on each
-    equal in bits.  The directory then stays the layout cache of every
-    later fit (``PMF_TPU_TORCH_LAYOUT_CACHE``)."""
+    equal in bits.  Returns the directory, which ``main`` makes the layout
+    cache (``PMF_TPU_TORCH_LAYOUT_CACHE``) from phase fastfit on."""
     import torch
 
-    from pmf_tpu_torch.data import layout_cache
     from pmf_tpu_torch.data.blocked import build_blocked
     from pmf_tpu_torch.models import hpf
     from pmf_tpu_torch.models.base import as_triples
@@ -4010,12 +4029,12 @@ def phase_cache(train, blocked, smi):
     s_warm = hpf.sweep_blocked(dict(state), warm, *counts, *hyper)
     if not all(torch.equal(s_cold[k], s_warm[k]) for k in s_cold):
         raise AssertionError("cache: a sweep on the hit differs from one on the cold build")
-    os.environ[layout_cache.ENV_VAR] = cdir
     log(f"phase cache: ok | {len(entries)} entry, {_dir_mb(cdir):.1f} MB | cold "
         f"(build and write) {secs['cold']:.2f} s, warm (read and scatter) "
         f"{secs['warm']:.2f} s | every tensor of the hit equal in bits to the cold build "
-        f"and to phase data's | one sweep on each equal in bits | later fits read "
-        f"{cdir} | {smi}")
+        f"and to phase data's | one sweep on each equal in bits | the fits read "
+        f"{cdir} from phase fastfit on | {smi}")
+    return cdir
 
 
 def main(argv=None) -> int:
@@ -4037,7 +4056,7 @@ def main(argv=None) -> int:
     phase_bigk()
     gc_cuda()
     train, val, blocked, split = phase_data()
-    phase_cache(train, blocked, smi)
+    layouts = phase_cache(train, blocked, smi)
     k1 = phase_k1(blocked)
     k1raw = phase_k1raw(blocked)
     k2 = phase_k2(blocked)
@@ -4094,6 +4113,11 @@ def main(argv=None) -> int:
     gc_cuda()
     phase_gelbo(gtrain, gval, smi)
     gc_cuda()
+    # The layout cache, off until here so that every fit above builds its
+    # layout cold (each wall a user's first fit).
+    from pmf_tpu_torch.data import layout_cache
+
+    os.environ[layout_cache.ENV_VAR] = layouts
     flaunches, _ = phase_fastfit(train, val, gtrain, gval, high_rmse, smi)
     del gtrain, gval
     gc_cuda()
@@ -4153,7 +4177,8 @@ def main(argv=None) -> int:
     ]
     import shutil
 
-    shutil.rmtree(os.path.join(SMOKE_TMP, "layouts"), ignore_errors=True)
+    for name in ("layouts", "cli_layouts"):
+        shutil.rmtree(os.path.join(SMOKE_TMP, name), ignore_errors=True)
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

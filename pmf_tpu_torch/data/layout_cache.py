@@ -4,8 +4,10 @@ The layout is a pure function of the edge data and the geometry
 arguments, and at 25M edges its host build takes seconds that a repeat
 fit (tune, compare, train_full, a benchmark's turns) need not pay again.
 This module keeps built layouts keyed by a sha1 of the (u, i, x) arrays,
-every geometry argument and ``LAYOUT_CACHE_VERSION``, after the JAX
-package's ``pmf_tpu/data/layout_cache.py``.
+every geometry argument, ``LAYOUT_CACHE_VERSION`` and a sha1 of the
+sources that build and pack the layout (``data/blocked.py`` and this
+module), after the JAX package's ``pmf_tpu/data/layout_cache.py``: an edit
+to either source is a miss even where the version was not bumped.
 
 What is stored, in one self-contained ``.npz`` an entry:
 
@@ -32,6 +34,7 @@ blocked layout is cached, as in the JAX package.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import os
@@ -63,9 +66,22 @@ def data_fingerprint(*arrays) -> str:
     return h.hexdigest()
 
 
+@functools.cache
+def code_fingerprint() -> str:
+    """sha1 of the sources whose code decides an entry's arrays: the
+    layout build (``data/blocked.py``) and this module's packing."""
+    h = hashlib.sha1()
+    here = os.path.dirname(os.path.abspath(__file__))
+    for name in ("blocked.py", "layout_cache.py"):
+        with open(os.path.join(here, name), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
+
+
 def make_key(fingerprint: str, params: dict) -> str:
     blob = json.dumps({"kind": KIND, "fp": fingerprint, "params": params,
-                       "version": LAYOUT_CACHE_VERSION}, sort_keys=True, default=repr)
+                       "version": LAYOUT_CACHE_VERSION, "code": code_fingerprint()},
+                      sort_keys=True, default=repr)
     return hashlib.sha1(blob.encode()).hexdigest()
 
 

@@ -36,6 +36,7 @@ REPO = Path(__file__).resolve().parent.parent.parent
 SRC = REPO / "native" / "ingest.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
+COLUMNS = ("u", "i", "rating")  # the columns parsed, by header name
 
 # Calls that ran in the library, by function ("parse_csv", "radix_argsort").
 CALLS: collections.Counter = collections.Counter()
@@ -98,23 +99,25 @@ def available() -> bool:
     return get_lib() is not None
 
 
-def parse_interactions_csv(path, columns=("u", "i", "rating"), n_threads: int = 0):
-    """(u int64, i int64, x float64) from a CSV with a header row, by the
-    native parser (ratings pass through float32, as the JAX package's), or
-    by pandas without the library."""
+def parse_interactions_csv(path):
+    """(u int64, i int64, x float64) from the ``u``, ``i`` and ``rating``
+    columns of a CSV with a header row, by the native parser (ratings pass
+    through float32, as the JAX package's), or by pandas without the
+    library."""
     path = str(path)
     lib = get_lib()
     if lib is None:
         import pandas as pd
 
         df = pd.read_csv(path)
-        return (df[columns[0]].to_numpy(np.int64), df[columns[1]].to_numpy(np.int64),
-                df[columns[2]].to_numpy(np.float64))
+        return (df["u"].to_numpy(np.int64), df["i"].to_numpy(np.int64),
+                df["rating"].to_numpy(np.float64))
     with open(path) as f:
         header = f.readline().strip().split(",")
-    idx = [header.index(c) for c in columns]
+    idx = [header.index(c) for c in COLUMNS]
     up, ip, xp = _I32P(), _I32P(), _F32P()
-    n = lib.pmf_parse_csv(path.encode(), idx[0], idx[1], idx[2], n_threads,
+    # 0 threads: the library picks its own count.
+    n = lib.pmf_parse_csv(path.encode(), idx[0], idx[1], idx[2], 0,
                           ctypes.byref(up), ctypes.byref(ip), ctypes.byref(xp))
     if n < 0:
         raise IOError(f"native parse failed for {path}")
@@ -128,11 +131,11 @@ def parse_interactions_csv(path, columns=("u", "i", "rating"), n_threads: int = 
     return u, i, x
 
 
-def radix_argsort(keys, n_keys: int, return_counts: bool = True):
-    """(perm int64, counts int64 or None): the stable argsort of
-    non-negative keys below ``n_keys`` (the permutation of
-    ``np.argsort(kind="stable")``) and each key's count, by the native
-    radix sort, or by numpy without the library."""
+def radix_argsort(keys, n_keys: int):
+    """(perm int64, counts int64): the stable argsort of non-negative keys
+    below ``n_keys`` (the permutation of ``np.argsort(kind="stable")``) and
+    each key's count, by the native radix sort, or by numpy without the
+    library."""
     keys32 = np.ascontiguousarray(keys, dtype=np.int32)
     if len(keys32) and (keys32.min() < 0 or keys32.max() >= n_keys):
         # The radix passes cover [0, n_keys) only: another key would sort
@@ -140,15 +143,12 @@ def radix_argsort(keys, n_keys: int, return_counts: bool = True):
         raise ValueError(f"keys outside [0, {n_keys})")
     lib = get_lib()
     if lib is None:
-        perm = np.argsort(keys32, kind="stable")
-        if not return_counts:
-            return perm, None
-        return perm, np.bincount(keys32, minlength=n_keys).astype(np.int64)
+        return (np.argsort(keys32, kind="stable"),
+                np.bincount(keys32, minlength=n_keys).astype(np.int64))
     n = len(keys32)
     perm = np.empty(n, dtype=np.int64)
-    counts = np.zeros(n_keys, dtype=np.int64) if return_counts else None
+    counts = np.zeros(n_keys, dtype=np.int64)
     lib.pmf_radix_argsort(keys32.ctypes.data_as(_I32P), n, n_keys,
-                          perm.ctypes.data_as(_I64P),
-                          counts.ctypes.data_as(_I64P) if return_counts else None)
+                          perm.ctypes.data_as(_I64P), counts.ctypes.data_as(_I64P))
     CALLS["radix_argsort"] += 1
     return perm, counts

@@ -112,7 +112,7 @@ def load_interactions(split: str, processed_dir: str = PROCESSED_DIR) -> pd.Data
     path = os.path.join(processed_dir, f"interactions_{split}.csv")
     if not os.path.exists(path):
         raise FileNotFoundError(f"File not found: {path}")
-    u, i, x = parse_interactions_csv(path, columns=("u", "i", "rating"))
+    u, i, x = parse_interactions_csv(path)
     return pd.DataFrame({"u": u, "i": i, "rating": x})
 
 

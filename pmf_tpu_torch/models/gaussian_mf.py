@@ -247,7 +247,7 @@ def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
     K5 (bias) and K6 (diag) on the tail plus the head's linear products,
     the K x K inverses by kernel K4.  Lagged biases ride the factor
     passes (K3's bias columns), so that mode runs no bias pass.
-    ``precision`` ("fast", "mid", "high") sets the head products' bf16
+    ``precision`` ("fast" or "high") sets the head products' bf16
     parts; the tail kernels and K4 run in float32 at every precision."""
     from pmf_tpu_torch.ops.gaussian_edge import (
         gaussian_bias_stats,

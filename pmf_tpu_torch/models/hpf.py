@@ -45,6 +45,7 @@ from pmf_tpu_torch.utils.device import resolve_device
 
 RATE_FLOOR = 1e-10
 STATE_KEYS = ("a_theta", "b_theta", "a_beta", "b_beta", "b_xi", "b_eta")
+CHUNK_LEN = 1 << 20  # edges a chunk of the "flat_chunked" engine
 
 
 @dataclasses.dataclass
@@ -158,42 +159,27 @@ def _expectations(state: dict, a, a_prime, c, c_prime):
 
 
 def sweep(state: dict, data: RatingsCOO, a: float, a_prime: float,
-          b_prime: float, c: float, c_prime: float, d_prime: float) -> dict:
-    """One CAVI iteration over the flat dual-sorted COO."""
+          b_prime: float, c: float, c_prime: float, d_prime: float,
+          chunk_len: int | None = None) -> dict:
+    """One CAVI iteration over the flat dual-sorted COO; with ``chunk_len``
+    (engine "flat_chunked") the edge passes run in chunks of that many
+    edges.  It runs no kernel."""
     E_theta, E_beta, E_xi, E_eta = _expectations(state, a, a_prime, c, c_prime)
+    if chunk_len is None:
+        block = _hpf_factor_block
+    else:
+        def block(*args):
+            return _hpf_factor_block_chunked(*args, chunk_len)
 
-    a_theta, b_theta = _hpf_factor_block(
+    a_theta, b_theta = block(
         E_theta, E_beta, E_xi, data.u_by_u, data.i_by_u, data.x_by_u,
         data.user_counts, a, data.n_users)
     E_theta = a_theta / b_theta
     b_xi = b_prime + torch.sum(E_theta, dim=1)
 
-    a_beta, b_beta = _hpf_factor_block(
+    a_beta, b_beta = block(
         E_beta, E_theta, E_eta, data.i_by_i, data.u_by_i, data.x_by_i,
         data.item_counts, c, data.n_items)
-    E_beta = a_beta / b_beta
-    b_eta = d_prime + torch.sum(E_beta, dim=1)
-
-    return {"a_theta": a_theta, "b_theta": b_theta, "a_beta": a_beta,
-            "b_beta": b_beta, "b_xi": b_xi, "b_eta": b_eta}
-
-
-def sweep_chunked(state: dict, data: RatingsCOO, a: float, a_prime: float,
-                  b_prime: float, c: float, c_prime: float, d_prime: float,
-                  chunk_len: int = 1 << 20) -> dict:
-    """Same iteration as :func:`sweep` with the edge passes in chunks of
-    ``chunk_len`` edges (engine "flat_chunked"); it runs no kernel."""
-    E_theta, E_beta, E_xi, E_eta = _expectations(state, a, a_prime, c, c_prime)
-
-    a_theta, b_theta = _hpf_factor_block_chunked(
-        E_theta, E_beta, E_xi, data.u_by_u, data.i_by_u, data.x_by_u,
-        data.user_counts, a, data.n_users, chunk_len)
-    E_theta = a_theta / b_theta
-    b_xi = b_prime + torch.sum(E_theta, dim=1)
-
-    a_beta, b_beta = _hpf_factor_block_chunked(
-        E_beta, E_theta, E_eta, data.i_by_i, data.u_by_i, data.x_by_i,
-        data.item_counts, c, data.n_items, chunk_len)
     E_beta = a_beta / b_beta
     b_eta = d_prime + torch.sum(E_beta, dim=1)
 
@@ -207,8 +193,8 @@ def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
                   d_prime: float, precision: str = "high") -> dict:
     """Same iteration as :func:`sweep`, with the two edge passes computed
     over the hybrid layout (``data.blocked.BlockedCOO``): sparse tail by
-    kernel K1, dense head tiers by kernel K2 at ``precision`` ("fast",
-    "mid" or "high")."""
+    kernel K1, dense head tiers by kernel K2 at ``precision`` ("fast" or
+    "high")."""
     from pmf_tpu_torch.ops.cavi_edge import poisson_edge_stats
 
     E_theta, E_beta, E_xi, E_eta = _expectations(state, a, a_prime, c, c_prime)
@@ -283,14 +269,11 @@ class HPF(FactorModel):
             def sweep_fn(s, d):
                 return sweep_blocked(s, blocked, d.user_counts, d.item_counts, *hyper,
                                      precision=precision)
-        elif engine == "flat_chunked":
-
-            def sweep_fn(s, d):
-                return sweep_chunked(s, d, *hyper)
         else:
+            chunk_len = CHUNK_LEN if engine == "flat_chunked" else None
 
             def sweep_fn(s, d):
-                return sweep(s, d, *hyper)
+                return sweep(s, d, *hyper, chunk_len=chunk_len)
 
         val = self._build_eval(val_df) if val_df is not None else None
         loop = FitLoop(sweep_fn, eval_metrics, cfg.max_iter, cfg.tol,

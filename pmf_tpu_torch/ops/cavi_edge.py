@@ -6,7 +6,7 @@ direction's CSR tail, adds each dense head tier's statistics
 (``ops.dense_head``, kernel K2) and maps the result back to the original
 row order — the same function as the JAX package's
 ``pmf_tpu/ops/pallas/cavi_edge.py::poisson_edge_stats`` in mode "cavi".
-Its ``precision`` ("fast", "mid", "high": the engines ``blocked_*``)
+Its ``precision`` ("fast" or "high", ``models.base.BLOCKED_PRECISION``)
 reaches the head only.  K1 runs in float32 at every precision: it gathers
 padded float32 rows from L2, and fewer bf16 parts (the reference's
 one-hot gather planes) would save it nothing.

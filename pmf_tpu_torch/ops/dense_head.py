@@ -10,11 +10,12 @@ tier's user rows and beta its item rows (zero past ``hi``):
 
 ``fused_alloc_tier`` is the wrapper of kernel K2 (``csrc/dense_head.cu``):
 on CUDA tensors it launches the kernel (or raises), on CPU tensors it runs
-``fused_alloc_tier_plain``.  ``precision`` follows the JAX package's
-engines: "high" and "mid" take every float32 operand as two bf16 planes
-and each product as three terms (``pmf_dense_head_tier``); "fast" is the
-reference's ``Precision.DEFAULT``, one bf16 plane rounded to nearest an
-operand and one term a product (``pmf_dense_head_tier_fast``).
+``fused_alloc_tier_plain``.  ``precision`` is "high" or "fast" (the
+engines map "blocked_mid" to "high", ``models.base.BLOCKED_PRECISION``):
+"high" takes every float32 operand as two bf16 planes and each product as
+three terms (``pmf_dense_head_tier``); "fast" is the reference's
+``Precision.DEFAULT``, one bf16 plane rounded to nearest an operand and
+one term a product (``pmf_dense_head_tier_fast``).
 ``plan_launch`` is the kernel's launch plan as a pure function of the
 tier's shape: resident CTAs, splits of the reduction axis and
 shared-memory bytes.  ``poisson_head_stats{,_t}`` apply
@@ -24,8 +25,8 @@ names.
 ``head_products{,_t}`` are the linear products the Gaussian statistics
 need over one tier, ``(M @ tab, X @ xtab)`` and their transposes.  The
 JAX package leaves them to XLA dots, so here they are library matmuls.
-On the card they follow the JAX bf16 part scheme (``parts_of``): at
-"high" and "mid" M is one exact bf16 plane, X the stored ``x_hi`` +
+On the card they follow the JAX bf16 part scheme: at
+"high" M is one exact bf16 plane, X the stored ``x_hi`` +
 ``x_lo`` planes, each f32 table two bf16 planes; at "fast" every operand
 is one plane rounded to nearest (M rounded to bf16, X its ``x_hi`` alone);
 every product accumulates and returns float32
@@ -51,7 +52,7 @@ from pmf_tpu_torch.ops import _build
 
 HEAD_LAUNCHES = _build.LaunchCounter()
 HEAD_FAST_LAUNCHES = _build.LaunchCounter()  # the one-term instance
-PRECISIONS = ("fast", "mid", "high")
+PRECISIONS = ("fast", "high")
 
 # Kernel geometry, a copy of csrc/dense_head.cu's for the launch plan (the
 # kernel sizes its own shared memory; chip_smoke.py's K2 phases run every
@@ -73,11 +74,12 @@ SMEM_PER_SM = 233_472  # of which every resident CTA reserves 1 KB
 SMEM_RESERVED = 1024
 
 
-def parts_of(precision: str) -> int:
-    """bf16 planes of a float32 operand: 1 at "fast", else 2."""
+def is_fast(precision: str) -> bool:
+    """Whether ``precision`` is "fast" (one bf16 plane an operand, one term
+    a product) rather than "high" (two planes, three terms)."""
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r} {PRECISIONS}")
-    return 1 if precision == "fast" else 2
+    return precision == "fast"
 
 
 def _bf16_rn(t: torch.Tensor) -> torch.Tensor:
@@ -93,7 +95,7 @@ def fused_alloc_tier_plain(theta_h, beta_h, x_hi, m, x_lo=None, *,
     rows whose (rows, hip) temporaries exist at once.  At "fast" theta,
     beta, W and M are rounded to nearest bf16 before their products, as
     the one-term kernel's operands are."""
-    fast = parts_of(precision) == 1
+    fast = is_fast(precision)
     if fast:
         theta_h, beta_h = _bf16_rn(theta_h), _bf16_rn(beta_h)
     rows, K = theta_h.shape
@@ -149,10 +151,10 @@ class LaunchPlan(NamedTuple):
 
 
 def stage_bytes(item_side: bool, m_f32: bool, has_lo: bool, K: int,
-                terms: int = 3) -> int:
+                fast: bool = False) -> int:
     """Shared memory of one ring stage: the cell tile's planes (rows padded
     by 16 bytes, a float32 M by 32 on the user side) and the Q tile's hi and
-    lo planes, or its hi plane alone with one term (rows of 16 bytes per 8
+    lo planes, or its hi plane alone at "fast" (rows of 16 bytes per 8
     factors, padded by 16 where that count is even)."""
     blocks = depth_blocks(K)
     q_stride = 16 * blocks + (0 if blocks % 2 else 16)
@@ -160,21 +162,21 @@ def stage_bytes(item_side: bool, m_f32: bool, has_lo: bool, K: int,
     cs = cell_cols * 2 + 16
     ms = cell_cols * 4 + (16 if item_side else 32) if m_f32 else cs
     return (cell_rows * cs * (2 if has_lo else 1) + cell_rows * ms
-            + (2 if terms == 3 else 1) * Q_TILE * q_stride)
+            + (1 if fast else 2) * Q_TILE * q_stride)
 
 
 @functools.lru_cache(maxsize=None)
 def plan_launch(rows: int, hip: int, K: int, item_side: bool, m_f32: bool,
-                has_lo: bool, n_sm: int, terms: int = 3) -> LaunchPlan:
+                has_lo: bool, n_sm: int, fast: bool = False) -> LaunchPlan:
     """The launch of one tier and side on a card of ``n_sm`` SMs: the
     resident CTAs the ring's shared memory allows, and the split of the
     reduction axis (columns on the user side, rows on the item side) that
     takes the fewest tile times when the P tiles alone would not fill the
-    card.  Past K = 32 each P tile is ``output_groups(K)`` CTAs.  ``terms``:
-    3 for the high instance, 1 for "fast", whose stages hold no Q lo tile."""
+    card.  Past K = 32 each P tile is ``output_groups(K)`` CTAs.  ``fast``:
+    the one-term instance, whose stages hold no Q lo tile."""
     if not 1 <= K <= MAX_K:
         raise ValueError(f"head kernel needs 1 <= K <= {MAX_K}, got K={K}")
-    smem = STAGES * stage_bytes(item_side, m_f32, has_lo, K, terms)
+    smem = STAGES * stage_bytes(item_side, m_f32, has_lo, K, fast)
     if smem > SMEM_PER_CTA:
         raise ValueError(f"a ring of {STAGES} stages, {smem} bytes, does not fit "
                          f"{SMEM_PER_CTA} bytes of shared memory")
@@ -233,9 +235,9 @@ def fused_alloc_tier(theta_h, beta_h, x_hi, m, x_lo=None, *,
                      precision: str = "high") -> torch.Tensor:
     """K2 over one tier: (rows, 2K) user side or (hip, 2K) item side,
     [sum W * other | sum M * other] before the self-factor multiply.  On
-    the card "fast" launches the one-term instance, "mid" and "high" the
-    three-term one."""
-    terms = 1 if parts_of(precision) == 1 else 3
+    the card "fast" launches the one-term instance, "high" the three-term
+    one."""
+    fast = is_fast(precision)
     if not theta_h.is_cuda:
         return fused_alloc_tier_plain(theta_h, beta_h, x_hi, m, x_lo,
                                       rate_floor=rate_floor, item_side=item_side,
@@ -249,17 +251,17 @@ def fused_alloc_tier(theta_h, beta_h, x_hi, m, x_lo=None, *,
     dev = theta_h.device
     m_f32 = m.dtype == torch.float32
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = plan_launch(rows, hip, K, item_side, m_f32, x_lo is not None, n_sm, terms)
+    plan = plan_launch(rows, hip, K, item_side, m_f32, x_lo is not None, n_sm, fast)
     out_rows = hip if item_side else rows
     out = torch.empty((out_rows, 2 * K), dtype=torch.float32, device=dev)
     # The streamed table's bf16 planes (hi and lo, or hi alone at "fast"),
     # which the launch fills.
-    planes = torch.empty((2 if terms == 3 else 1) * (rows if item_side else hip)
+    planes = torch.empty((1 if fast else 2) * (rows if item_side else hip)
                          * plan.depth, dtype=torch.bfloat16, device=dev)
     partial = (torch.empty((plan.splits, out_rows, 2 * K), dtype=torch.float32,
                            device=dev) if plan.splits > 1 else None)
-    name, counter = (("pmf_dense_head_tier", HEAD_LAUNCHES) if terms == 3
-                     else ("pmf_dense_head_tier_fast", HEAD_FAST_LAUNCHES))
+    name, counter = (("pmf_dense_head_tier_fast", HEAD_FAST_LAUNCHES) if fast
+                     else ("pmf_dense_head_tier", HEAD_LAUNCHES))
     _build.launch(name, counter, dev, theta_h, beta_h, x_hi, x_lo, m, int(m_f32),
                   rows, hip, K, rate_floor, int(item_side), plan.splits, planes,
                   partial, out)
@@ -296,22 +298,21 @@ def _bf16_planes(t: torch.Tensor) -> list:
 
 
 def _cells_product(planes: list, b: torch.Tensor, transpose_a: bool,
-                   parts: int) -> torch.Tensor:
-    """(sum of cell planes) @ b, or its transpose, with b in as many bf16
-    planes as the cells (``parts_of``: one RN plane at "fast", else the
-    truncated hi and the rounded lo of ``_bf16_planes``).  On the card
-    sum_{i+j<parts} A_i @ B_j in float32, one matmul per A plane with its B
-    planes side by side.  On the CPU, a plain matmul in b's dtype, with b
-    rounded to bf16 at one part."""
-    one = parts == 1
+                   fast: bool) -> torch.Tensor:
+    """(sum of cell planes) @ b, or its transpose, with b as one RN bf16
+    plane at "fast", else as the truncated hi and the rounded lo of
+    ``_bf16_planes``.  On the card sum_{i+j<2} A_i @ B_j (one term at
+    "fast") in float32, one matmul per A plane with its B planes side by
+    side.  On the CPU, a plain matmul in b's dtype, with b rounded to bf16
+    at "fast"."""
     if not b.is_cuda:
         a = planes[0].to(b.dtype)
         for p in planes[1:]:
             a = a + p.to(b.dtype)
-        if one:
+        if fast:
             b = _bf16_rn(b)
         return a.T @ b if transpose_a else a @ b
-    b_planes = [b.to(torch.bfloat16)] if one else _bf16_planes(b)
+    b_planes = [b.to(torch.bfloat16)] if fast else _bf16_planes(b)
     w = b.shape[1]
     out = None
     for i, a in enumerate(planes):
@@ -324,18 +325,18 @@ def _cells_product(planes: list, b: torch.Tensor, transpose_a: bool,
     return out
 
 
-def _m_planes(head: DenseHead, tab: torch.Tensor, parts: int) -> list:
+def _m_planes(head: DenseHead, tab: torch.Tensor, fast: bool) -> list:
     """M as the card's bf16 planes, or as stored for the CPU's matmuls; at
-    one part, M rounded to bf16 on both."""
-    if parts == 1:
+    "fast", M rounded to bf16 on both."""
+    if fast:
         return [head.m_bf16_rn()]
     return head.m_bf16_planes() if tab.is_cuda else [head.m]
 
 
-def _x_planes(head: DenseHead, parts: int) -> list:
-    """X's stored planes; at one part ``x_lo`` is dropped, as the
-    reference's ``head_products`` drops it."""
-    return [head.x_hi] + ([head.x_lo] if head.x_lo is not None and parts > 1 else [])
+def _x_planes(head: DenseHead, fast: bool) -> list:
+    """X's stored planes; at "fast" ``x_lo`` is dropped, as the reference's
+    ``head_products`` drops it at one part."""
+    return [head.x_hi] + ([head.x_lo] if head.x_lo is not None and not fast else [])
 
 
 def head_products(head: DenseHead, other_tab: torch.Tensor,
@@ -344,10 +345,10 @@ def head_products(head: DenseHead, other_tab: torch.Tensor,
     other_tab (hip, W) and x_tab (hip, Wx) or None, per head item (rows
     past hi zero).  Returns ((hu, W), (hu, Wx) or None), float32 on the
     card, the tables' dtype on the CPU."""
-    parts = parts_of(precision)
-    mp = _cells_product(_m_planes(head, other_tab, parts), other_tab, False, parts)
+    fast = is_fast(precision)
+    mp = _cells_product(_m_planes(head, other_tab, fast), other_tab, False, fast)
     xp = (None if x_tab is None
-          else _cells_product(_x_planes(head, parts), x_tab, False, parts))
+          else _cells_product(_x_planes(head, fast), x_tab, False, fast))
     return mp, xp
 
 
@@ -356,10 +357,10 @@ def head_products_t(head: DenseHead, self_tab: torch.Tensor,
     """Item-side linear head statistics ``(M^T @ self_tab, X^T @ x_tab)``:
     self_tab (hu, W) and x_tab (hu, Wx) or None, per tier user row.
     Returns ((hip, W), (hip, Wx) or None); rows past hi are zeros."""
-    parts = parts_of(precision)
-    mp = _cells_product(_m_planes(head, self_tab, parts), self_tab, True, parts)
+    fast = is_fast(precision)
+    mp = _cells_product(_m_planes(head, self_tab, fast), self_tab, True, fast)
     xp = (None if x_tab is None
-          else _cells_product(_x_planes(head, parts), x_tab, True, parts))
+          else _cells_product(_x_planes(head, fast), x_tab, True, fast))
     return mp, xp
 
 

@@ -22,7 +22,7 @@ one [e | s] record a row (``es_record``, s in column K, padded to
 also returns what the scalar pass of the same block reads again
 (``FactorTables``: the records and each head tier's S_wother product),
 so that pass permutes neither E_other nor s_other and makes no head
-product of its own.  ``precision`` ("fast", "mid", "high") reaches the
+product of its own.  ``precision`` ("fast" or "high") reaches the
 head (K2's instance and the head products) only: K7 and K8 run in float32
 at every precision, gathering padded float32 records from L2, where fewer
 bf16 parts would save nothing.

@@ -15,7 +15,7 @@ direction's CSR tail, adds each dense head tier's linear products
 (``ops.dense_head.head_products{,_t}``) onto the same columns, and maps
 the result back.  The second moment is symmetric, so only its K(K+1)/2
 upper triangle rides the pass (``pack_tri`` / ``unpack_tri``).  Their
-``precision`` ("fast", "mid", "high") sets the head products' bf16 parts
+``precision`` ("fast" or "high") sets the head products' bf16 parts
 only: K3, K5 and K6 run in float32 at every precision (they gather
 padded float32 records from L2; fewer parts would save them nothing).
 

@@ -30,6 +30,7 @@ from pmf_tpu_torch.cli import reproduce as treproduce
 from pmf_tpu_torch.cli import run_single as trun
 from pmf_tpu_torch.cli import train_full as ttrain
 from pmf_tpu_torch.cli import tune as ttune
+from pmf_tpu_torch.data import layout_cache
 from pmf_tpu_torch.data.synthetic import synth_splits
 from pmf_tpu_torch.ops._build import KernelError
 
@@ -46,6 +47,14 @@ def _no_jax_runtime(monkeypatch):
     """The JAX CLIs' compile-cache set-up writes beside the repo: off."""
     for mod in (jrun, jtune, jbest_k, jcompare, jtrain):
         monkeypatch.setattr(mod, "setup_runtime", lambda: None)
+
+
+@pytest.fixture(autouse=True)
+def _layout_cache_in_tmp(monkeypatch, tmp_path):
+    """A CLI's ``main`` turns the layout cache on where the environment
+    names no directory: keep it in this test's own directory, so no layout
+    outlives the test."""
+    monkeypatch.setenv(layout_cache.ENV_VAR, str(tmp_path / "layouts"))
 
 
 @pytest.fixture(scope="module")

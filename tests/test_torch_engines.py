@@ -21,6 +21,7 @@ from pmf_tpu.models import gaussian_mf as jgm
 from pmf_tpu.models import hpf as jhpf
 from pmf_tpu.models import poisson_mf as jpmf
 from pmf_tpu_torch.cli import run_single as trun
+from pmf_tpu_torch.data import layout_cache
 from pmf_tpu_torch.data.blocked import DenseHead
 from pmf_tpu_torch.data.blocked import build_blocked as t_build_blocked
 from pmf_tpu_torch.data.coo import build_eval_set, build_ratings
@@ -36,6 +37,14 @@ torch.set_num_threads(1)
 SWEEPS = 10
 HEAD = [(0, 48, 60)]  # one tier: the 48 busiest users x the 60 busiest items
 HEAD_R0 = 16
+
+
+@pytest.fixture(autouse=True)
+def _layout_cache_in_tmp(monkeypatch, tmp_path):
+    """A CLI's ``main`` turns the layout cache on where the environment
+    names no directory: keep it in this test's own directory, so no layout
+    outlives the test."""
+    monkeypatch.setenv(layout_cache.ENV_VAR, str(tmp_path / "layouts"))
 
 
 def _rn_bf16(a) -> np.ndarray:
@@ -107,8 +116,7 @@ def test_k2_fast_plain_matches_default_precision_emulation(item_side, kind, K):
 def test_fast_head_products_drop_x_lo_and_round_m(transpose, m_f32):
     """``head_products{,_t}`` at "fast": M rounded to bf16, X its x_hi
     plane alone (x_lo dropped, as the reference's ``parts > 1`` test does),
-    the table rounded to nearest bf16; at "mid" and "high", the exact
-    planes."""
+    the table rounded to nearest bf16; at "high", the exact planes."""
     rows, hip, hi = 32, 512, 200
     x_hi, x_lo, m = _cells(rows, hip, hi, m_f32, True, seed=3)
     head = DenseHead(x_hi=x_hi, x_lo=x_lo, m=m, x_sum_user=torch.zeros(rows),
@@ -124,27 +132,30 @@ def test_fast_head_products_drop_x_lo_and_round_m(transpose, m_f32):
         mr, xr = mr.T, xr.T
     np.testing.assert_allclose(mp.numpy(), mr @ _rn_bf16(tab.numpy()), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(xp.numpy(), xr @ _rn_bf16(xtab.numpy()), rtol=1e-5, atol=1e-5)
-    for prec in ("mid", "high"):
-        mp2, xp2 = fn(head, tab, xtab, prec)
-        x_full = xr + (_bf16_bits(x_lo).T if transpose else _bf16_bits(x_lo))
-        m_full = m.float().numpy().astype(np.float64)
-        np.testing.assert_allclose(xp2.numpy(), x_full @ xtab.numpy().astype(np.float64),
-                                   rtol=1e-4, atol=1e-4)
-        np.testing.assert_allclose(
-            mp2.numpy(), (m_full.T if transpose else m_full) @ tab.numpy().astype(np.float64),
-            rtol=1e-4, atol=1e-4)
+    mp2, xp2 = fn(head, tab, xtab, "high")
+    x_full = xr + (_bf16_bits(x_lo).T if transpose else _bf16_bits(x_lo))
+    m_full = m.float().numpy().astype(np.float64)
+    np.testing.assert_allclose(xp2.numpy(), x_full @ xtab.numpy().astype(np.float64),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(
+        mp2.numpy(), (m_full.T if transpose else m_full) @ tab.numpy().astype(np.float64),
+        rtol=1e-4, atol=1e-4)
 
 
 def test_precision_names():
-    assert BLOCKED_PRECISION == {"blocked_fast": "fast", "blocked_mid": "mid",
+    """The engines' head precision: "blocked_mid" runs "high" (the
+    reference's mid differs only in its TPU tail gathers), and the ops
+    take "fast" and "high" alone."""
+    assert BLOCKED_PRECISION == {"blocked_fast": "fast", "blocked_mid": "high",
                                  "blocked_high": "high"}
     assert [blocked_precision(e) for e in ("blocked_fast", "blocked_mid", "blocked_high",
                                            "blocked_other", "flat", "flat_chunked",
-                                           "other")] == ["fast", "mid", "high", "high",
+                                           "other")] == ["fast", "high", "high", "high",
                                                          None, None, None]
-    assert [dense_head.parts_of(p) for p in ("fast", "mid", "high")] == [1, 2, 2]
-    with pytest.raises(ValueError, match="unknown precision"):
-        dense_head.parts_of("highest")
+    assert [dense_head.is_fast(p) for p in ("fast", "high")] == [True, False]
+    for bad in ("mid", "highest"):
+        with pytest.raises(ValueError, match="unknown precision"):
+            dense_head.is_fast(bad)
 
 
 # ------------------------------------------------------------ fits --
@@ -252,8 +263,8 @@ def test_fast_engine_converges_like_jax_flat(small_splits, family):
 
 @pytest.mark.parametrize("family", sorted(RUNS))
 def test_mid_equals_high_in_bits(small_splits, family):
-    mid, _ = RUNS[family](small_splits, "mid")
-    high, _ = RUNS[family](small_splits, "high")
+    mid, _ = RUNS[family](small_splits, blocked_precision("blocked_mid"))
+    high, _ = RUNS[family](small_splits, blocked_precision("blocked_high"))
     for k in high:
         assert torch.equal(mid[k], high[k]), k
 
@@ -311,7 +322,7 @@ def test_sweep_chunked_matches_flat_and_jax(small_splits, chunk_len):
     js = dict(s0)
     for _ in range(3):
         ts = thpf.sweep(ts, data, *hyper)
-        tc = thpf.sweep_chunked(tc, data, *hyper, chunk_len=chunk_len)
+        tc = thpf.sweep(tc, data, *hyper, chunk_len=chunk_len)
         js = jhpf.sweep_chunked(js, jdata, *hyper, chunk_len=chunk_len)
     for k in ts:
         np.testing.assert_allclose(tc[k].numpy(), ts[k].numpy(), rtol=1e-12, atol=0,
@@ -382,3 +393,23 @@ def test_run_single_accepts_every_engine_name(engine):
                      "--synthetic_items", "120", "--device", "cpu"])
     assert res["_model"].engine_used == ("flat" if engine == "auto" else engine)
     assert np.isfinite(res["test_rmse"])
+
+
+@pytest.mark.parametrize("K", [8, 20, 64, 128])
+@pytest.mark.parametrize("item_side", [False, True], ids=["user", "item"])
+def test_fast_stage_holds_no_q_lo_tile(K, item_side):
+    """The one-term instance's ring stage is the three-term one's less the
+    Q lo tile (32 rows of 16 bytes per 8 factors, padded by 16 where that
+    count is even), so its launch plan fits at least as many CTAs."""
+    blocks = dense_head.depth_blocks(K)
+    q_plane = dense_head.Q_TILE * (16 * blocks + (0 if blocks % 2 else 16))
+    for m_f32 in (False, True):
+        for has_lo in (False, True):
+            high = dense_head.stage_bytes(item_side, m_f32, has_lo, K)
+            fast = dense_head.stage_bytes(item_side, m_f32, has_lo, K, fast=True)
+            assert high - fast == q_plane
+            ph = dense_head.plan_launch(36864, 4096, K, item_side, m_f32, has_lo, 132)
+            pf = dense_head.plan_launch(36864, 4096, K, item_side, m_f32, has_lo, 132,
+                                        fast=True)
+            assert pf.smem_bytes == dense_head.STAGES * fast < ph.smem_bytes
+            assert pf.ctas_per_sm >= ph.ctas_per_sm

@@ -122,6 +122,24 @@ def test_key_follows_data_and_geometry(small_ratings, tmp_path):
     assert lc.make_key(fp, {"a": 1}) != lc.make_key(lc.data_fingerprint(u, i, x2), {"a": 1})
 
 
+def test_key_follows_the_layout_code(small_ratings, tmp_path, spy, monkeypatch):
+    """An edit to the code that builds or packs the layout is a miss, even
+    where LAYOUT_CACHE_VERSION stayed: the key holds the sources' sha1."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for mod in (tblocked, lc):
+        with open(mod.__file__, "rb") as f:
+            h.update(f.read())
+    assert lc.code_fingerprint() == h.hexdigest()
+    _build(small_ratings, str(tmp_path), **HEADS["one_tier"])
+    _build(small_ratings, str(tmp_path), **HEADS["one_tier"])
+    assert spy["tail"] == 2 and len(os.listdir(tmp_path)) == 1
+    monkeypatch.setattr(lc, "code_fingerprint", lambda: "an edited build")
+    _build(small_ratings, str(tmp_path), **HEADS["one_tier"])
+    assert spy["tail"] == 4 and len(os.listdir(tmp_path)) == 2
+
+
 def test_corrupt_entry_means_a_rebuild(small_ratings, tmp_path, spy):
     ref = _build(small_ratings, None, **HEADS["one_tier"])
     _build(small_ratings, str(tmp_path), **HEADS["one_tier"])

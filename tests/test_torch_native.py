@@ -78,9 +78,6 @@ def test_radix_argsort_equals_stable_argsort(lib, n_keys, n):
     assert native.CALLS["radix_argsort"] == before + 1
     np.testing.assert_array_equal(perm, np.argsort(keys, kind="stable"))
     np.testing.assert_array_equal(counts, np.bincount(keys, minlength=n_keys))
-    perm2, none = native.radix_argsort(keys, n_keys, return_counts=False)
-    assert none is None
-    np.testing.assert_array_equal(perm2, perm)
 
 
 def test_radix_fallback_is_numpy(no_lib):

@@ -31,7 +31,12 @@ ARTIFACTS = (
 def test_reproduce_chain_end_to_end(tmp_path, monkeypatch):
     from pmf_tpu_torch.cli.reproduce import main
 
+    from pmf_tpu_torch.data import layout_cache
+
     monkeypatch.chdir(tmp_path)
+    # The chain's CLIs turn the layout cache on where the environment names
+    # no directory: keep it in this test's directory, not the checkout's.
+    monkeypatch.setenv(layout_cache.ENV_VAR, str(tmp_path / "layouts"))
     wd = str(tmp_path / "repro")
     # A smaller clone than the JAX test's 9000 x 250 x 120, so the chain
     # stays well inside a minute on one CPU thread.
