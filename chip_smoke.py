@@ -131,7 +131,24 @@ Then the other engines:
                 of the blocked_high fits' at each sweep; busy ms a sweep at
                 fast and high; one ``blocked_mid`` sweep equal in bits to a
                 ``blocked_high`` one.
-16b. chunked -- HPF ``flat_chunked`` vs ``flat`` at full width, 2 sweeps,
+16b. mesh    -- the multi-device modes (``pmf_tpu_torch.parallel``) at
+                world size 1 over NCCL (a file rendezvous under
+                ``_smoke_tmp/``), the cache on: the data-parallel HPF fit
+                (blocked_high, 4 sweeps) against phase fit's (1e-6
+                relative, equal bits said); the tensor-parallel blocked
+                ring (``state_sharding="rows"``) for HPF, extended Poisson
+                and exact Gaussian, 2 sweeps each, against the
+                single-device blocked_high fits at the reference's gates
+                (3e-4 / 3e-5, Gaussian 2e-3 / 2e-4, val RMSE 1e-3), the
+                extended one the first fit that launches K1 "raw" (one of
+                its launches held against the plain version); the flat
+                ring against the flat fit in float64 (1e-6); the
+                data-parallel HPFMap epoch against the single-device one;
+                ``recommend_sharded`` for every user against
+                ``recommend``.  Each fit's launches, peak memory and one
+                sweep's busy time with its heaviest kernels; the TP
+                layouts' buckets and tiers.
+16c. chunked -- HPF ``flat_chunked`` vs ``flat`` at full width, 2 sweeps,
                 in float32 (and ``flat`` again: the atomics' run-to-run
                 difference) and in float64, where the states must agree
                 within 1e-5 relative; peak device memory of each.
@@ -3823,6 +3840,274 @@ def _normwise(got, ref) -> float:
     return float((got.double() - ref.double()).abs().max() / ref.double().abs().max())
 
 
+# ------------------------------------------------------- the mesh modes --
+
+MESH_SWEEPS = 2
+DP_RTOL = 1e-6  # the data-parallel fits against the single-device ones
+# The reference's own gates for its blocked ring (tests/test_tp_blocked.py):
+# states 3e-4 relative / 3e-5 absolute and val RMSE within 1e-3 (HPF and
+# Poisson), 2e-3 / 2e-4 (Gaussian).
+TP_RTOL, TP_ATOL, TP_RMSE = 3e-4, 3e-5, 1e-3
+TP_GAUSS_RTOL, TP_GAUSS_ATOL = 2e-3, 2e-4
+FLAT_TP_RTOL = 1e-6  # the flat ring against the flat fit, both float64
+K1RAW_TRACE = "tail_group_kernel<1,"
+
+
+def _gate(label, got: dict, want: dict, rtol: float, atol: float) -> tuple:
+    """Raise unless |got - want| <= atol + rtol |want| everywhere; returns
+    (the worst of |got - want| / (atol + rtol |want|), equal in bits)."""
+    import torch
+
+    worst, bits = 0.0, True
+    for k, w in want.items():
+        g = got[k].to(w.device)
+        bits = bits and torch.equal(g, w)
+        diff = (g.double() - w.double()).abs()
+        ratio = float((diff / (atol + rtol * w.double().abs())).max())
+        if not ratio <= 1.0:
+            raise AssertionError(f"{label}: {k} differs by up to {float(diff.max()):.3e} "
+                                 f"(rtol {rtol}, atol {atol})")
+        worst = max(worst, ratio)
+    return worst, bits
+
+
+def _mesh_run(label, fit, smi, want: dict):
+    """One fit with the launch counters reset just before and read just
+    after, the peak device memory above what was held, the wall; raises
+    unless the launches are ``want(model)`` and the state finite."""
+    import torch
+
+    gc_cuda()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    model = fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launched(counters)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    expected = {k: v for k, v in want(model).items() if v}
+    if launches != expected:
+        raise AssertionError(f"mesh {label}: launches {launches}, expected {expected}")
+    for k, v in model.state.items():
+        if not bool(torch.all(torch.isfinite(v))):
+            raise AssertionError(f"mesh {label}: state {k} has non-finite values")
+    rmses = [rec["val_rmse"] for rec in model.fit_history]
+    log(f"  mesh {label}: {len(model.fit_history)} iterations in {wall:.1f} s wall | "
+        f"launches {launches} | peak {peak:.0f} MiB above the {base / 2**20:.0f} MiB "
+        "held | val RMSE " + " -> ".join(f"{r:.6f}" for r in rmses) + f" | {smi}")
+    return model, launches
+
+
+def _tp_expect(model, kernels: dict) -> dict:
+    """Launches of a TP blocked fit: ``kernels`` maps a counter to its
+    launches a bucket and sweep ("tiers" for one a tier)."""
+    lay = model.tp.layout
+    tiers = sum(len(b.head) for b in lay.by_user + lay.by_item)
+    return {k: model.n_sweeps * (tiers if n == "tiers" else n * lay.n_buckets)
+            for k, n in kernels.items()}
+
+
+def _tp_note(model) -> str:
+    lay = model.tp.layout
+    return (f"{lay.n_buckets} buckets (D={lay.n_devices}) | tiers by user "
+            f"{list(getattr(lay, 'tiers_user', ()))}, by item "
+            f"{list(getattr(lay, 'tiers_item', ()))}")
+
+
+def _busy(label, step, expect: dict) -> float:
+    """Busy ms of one more sweep of a fit, under the profiler, and its
+    heaviest kernels."""
+    rows, busy, wall_ms = profile_once(step, expect)
+    log(f"  mesh {label}: one sweep busy {busy:.4f} ms of {wall_ms:.4f} ms window "
+        f"(idle share {1 - busy / wall_ms:.1%})")
+    for dev_ms, n, key in rows[:6]:
+        log(f"    {dev_ms:9.4f} ms  {n:3d}x  {key[:90]}")
+    return busy
+
+
+def _single(cls, cfg_cls, data, fit_kw=None, **cfg):
+    """A fit of K factors, no early stop; ``fit_kw`` (the mesh) to ``fit``."""
+    train, val, extra = data
+    return cls(cfg_cls(n_factors=K, tol=None, verbose=False, **cfg)).fit(
+        train, val, **extra, **(fit_kw or {}))
+
+
+def phase_mesh(train, val, gtrain, gval, fit_ref, smi):
+    """The multi-device modes at world size 1 on an NCCL process group
+    (``init_method`` a file under ``_smoke_tmp/``, torn down at the end),
+    with the layout cache on: the data-parallel HPF fit (blocked_high,
+    FIT_SWEEPS sweeps) against phase fit's; the TP blocked ring
+    (``state_sharding="rows"``) for HPF, extended Poisson (the first fit
+    that launches K1 "raw") and exact Gaussian, MESH_SWEEPS sweeps each,
+    against the single-device blocked_high fits at the reference's gates;
+    the TP flat ring for HPF against the flat fit, both float64; the
+    data-parallel HPFMap (1 epoch, flat) against the single-device one;
+    ``recommend_sharded`` for every user against ``recommend``.  Each fit's
+    launches, peak memory and one sweep's busy time; returns the extended
+    ring's launches."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from pmf_tpu_torch.eval.recommend import build_exclusion_index
+    from pmf_tpu_torch.models import gaussian_mf as gm
+    from pmf_tpu_torch.models import hpf, hpf_map
+    from pmf_tpu_torch.models.poisson_mf import PoissonMF, PoissonMFConfig
+    from pmf_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    wd = _fresh_dir("mesh")
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(wd, 'rdv')}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1)
+        pdata = (train, val, {})
+        gdata = (gtrain, gval, {"global_mean": 0.0})
+
+        # 1. Data-parallel HPF against phase fit (the same fit on one device).
+        dp, _ = _mesh_run("dp hpf blocked_high", lambda: hpf.HPF(hpf.HPFConfig(
+            n_factors=K, max_iter=FIT_SWEEPS, tol=None, verbose=False,
+            engine="blocked_high")).fit(train, val, mesh=mesh), smi,
+            lambda m: {"K1": 2 * m.n_sweeps,
+                       "K2": 2 * len(m.blocked.head or ()) * m.n_sweeps})
+        ref_state, ref_rmse = fit_ref
+        worst, bits = _gate("dp hpf", dp.state, ref_state, DP_RTOL, 0.0)
+        rmse = [rec["val_rmse"] for rec in dp.fit_history]
+        if not np.allclose(rmse, ref_rmse, rtol=DP_RTOL, atol=0):
+            raise AssertionError(f"mesh dp hpf: val RMSE {rmse} vs {ref_rmse}")
+        _busy("dp hpf", lambda: dp.sweep_once(dict(dp.state)),
+              {K1_TRACE: 2, **_head_launches(dp)})
+        log(f"  mesh dp hpf vs phase fit: worst {worst:.3e} of the gate (rtol {DP_RTOL}) | "
+            f"state and history equal in bits: {bits and rmse == ref_rmse}")
+
+        # 2-4. The TP blocked ring against the single-device blocked fits.
+        rings = {
+            "hpf": (lambda fit_kw=None: _single(hpf.HPF, hpf.HPFConfig, pdata, fit_kw,
+                                                max_iter=MESH_SWEEPS,
+                                                engine="blocked_high"),
+                    {"K1": 1, "K2": "tiers"}, {"K1": 2, "K2": 2}, TP_RTOL, TP_ATOL,
+                    {K1_TRACE: 1, "head_user_kernel": "tiers"}),
+            "extended": (lambda fit_kw=None: _single(
+                PoissonMF, PoissonMFConfig, pdata, fit_kw, max_iter=MESH_SWEEPS,
+                extended=True, engine="blocked_high"),
+                         {"K1": 2, "K1raw": 1, "K2": "tiers"},
+                         {"K7": 2, "K8": 2, "K2": 2}, TP_RTOL, TP_ATOL,
+                         {K1_TRACE: 2, K1RAW_TRACE: 1, "head_user_kernel": "tiers"}),
+            "gaussian": (lambda fit_kw=None: _single(
+                gm.GaussianMF, gm.GaussianMFConfig, gdata, fit_kw, max_iter=MESH_SWEEPS,
+                engine="blocked_high"),
+                         {"K3": 1, "K5": 1}, {"K3": 2, "K4": 2, "K5": 2},
+                         TP_GAUSS_RTOL, TP_GAUSS_ATOL,
+                         {"::factor_kernel": 1, K5_TRACE: 1}),
+        }
+        raw_launches = None
+        for name, (run, tp_k, one_k, rtol, atol, trace) in rings.items():
+            tp, launches = _mesh_run(
+                f"tp {name} blocked_high",
+                lambda: run(dict(mesh=mesh, state_sharding="rows")), smi,
+                lambda m: _tp_expect(m, tp_k))
+            one, _ = _mesh_run(f"one-device {name} blocked_high", run, smi,
+                               lambda m: {k: n * m.n_sweeps for k, n in one_k.items()}
+                               if name == "gaussian" else
+                               {k: n * m.n_sweeps * (len(m.blocked.head or ())
+                                                     if k == "K2" else 1)
+                                for k, n in one_k.items()})
+            worst, _ = _gate(f"tp {name}", tp.state, one.state, rtol, atol)
+            gap = max(abs(a["val_rmse"] - b["val_rmse"])
+                      for a, b in zip(tp.fit_history, one.fit_history))
+            if not gap < TP_RMSE:
+                raise AssertionError(f"mesh tp {name}: val RMSE gap {gap} >= {TP_RMSE}")
+            lay = tp.tp.layout
+            tiers = sum(len(b.head) for b in lay.by_user + lay.by_item)
+            expect = {k: tiers if n == "tiers" else n * lay.n_buckets
+                      for k, n in trace.items()}
+            _busy(f"tp {name}", lambda: tp.tp.sweep(dict(tp.tp.state)),
+                  {k: v for k, v in expect.items() if v})
+            log(f"  mesh tp {name} vs one device: worst {worst:.3e} of the gate (rtol "
+                f"{rtol}, atol {atol}) | val RMSE gap {gap:.3e} (tol {TP_RMSE}) | "
+                + _tp_note(tp))
+            if name == "extended":
+                raw_launches = launches["K1raw"]
+                _check_raw_launch(tp.tp.layout.by_user[0].tail, K)
+            del tp, one
+        # 5. The flat ring against the flat fit, float64 at full width.
+        flat_tp, _ = _mesh_run("tp hpf flat float64", lambda: _single(
+            hpf.HPF, hpf.HPFConfig, pdata, dict(mesh=mesh, state_sharding="rows"),
+            max_iter=MESH_SWEEPS, engine="flat", dtype="float64"), smi, lambda m: {})
+        flat_one, _ = _mesh_run("one-device hpf flat float64", lambda: _single(
+            hpf.HPF, hpf.HPFConfig, pdata, max_iter=MESH_SWEEPS, engine="flat",
+            dtype="float64"), smi, lambda m: {})
+        worst, _ = _gate("tp hpf flat", flat_tp.state, flat_one.state, FLAT_TP_RTOL, 0.0)
+        _busy("tp hpf flat", lambda: flat_tp.tp.sweep(dict(flat_tp.tp.state)), {})
+        log(f"  mesh tp hpf flat vs flat: worst {worst:.3e} of the gate (rtol "
+            f"{FLAT_TP_RTOL}) | {_tp_note(flat_tp)}")
+        del flat_tp, flat_one
+
+        # 6. Data-parallel HPFMap, and recommend_sharded.
+        mcfg = dict(n_factors=K, batch_size=65536, epochs=1, verbose=False, engine="flat")
+        mdp, _ = _mesh_run("dp hpf_map flat", lambda: hpf_map.HPFMap(
+            hpf_map.HPFMapConfig(**mcfg)).fit(train, val, mesh=mesh), smi, lambda m: {})
+        mone, _ = _mesh_run("one-device hpf_map flat", lambda: hpf_map.HPFMap(
+            hpf_map.HPFMapConfig(**mcfg)).fit(train, val), smi, lambda m: {})
+        worst, bits = _gate("dp hpf_map", mdp.state, mone.state, DP_RTOL, DP_RTOL)
+        log(f"  mesh dp hpf_map vs one device: worst {worst:.3e} of the gate | equal in "
+            f"bits: {bits} | loss {mdp.fit_history[0]['train_loss']:.6e}")
+        del mdp, mone
+        users = np.arange(N_USERS)
+        index = build_exclusion_index(train[0], train[1], n_users=N_USERS,
+                                      n_items=N_ITEMS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        items_s, scores_s = dp.recommend(users, k=SERVE_K, batch=SERVE_BATCH,
+                                         train_index=index, mesh=mesh)
+        t_sharded = time.perf_counter() - t0
+        items, scores = dp.recommend(users, k=SERVE_K, batch=SERVE_BATCH,
+                                     train_index=index)
+        if not (np.array_equal(items_s, items) and np.array_equal(scores_s, scores)):
+            raise AssertionError("mesh: recommend_sharded differs from recommend")
+        log(f"  mesh recommend_sharded: {N_USERS} users top-{SERVE_K} in {t_sharded:.2f} s, "
+            "items and scores equal to recommend's")
+        del dp
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(wd, ignore_errors=True)
+    log(f"phase mesh: ok | world size 1 over nccl | {time.perf_counter() - t_phase:.1f} s "
+        f"| K1 raw launches from the extended TP fit: {raw_launches} | {smi}")
+    return {"K1raw": raw_launches}
+
+
+def _check_raw_launch(p, k):
+    """One K1 "raw" launch on a ring bucket's tail against its plain version
+    (relative RTOL), on random positive tables at the bucket's shape."""
+    import torch
+
+    from pmf_tpu_torch.ops._tail import tail_stride
+    from pmf_tpu_torch.ops.cavi_edge import tail_edge_stats, tail_edge_stats_plain
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    S = tail_stride(k)
+
+    def tab(n):
+        t = torch.zeros((n, S), device="cuda")
+        t[:, :k] = torch.rand((n, k), generator=g, device="cuda") + 0.1
+        return t
+
+    e_self, e_other = tab(p.rows), tab(p.n_other)
+    got = tail_edge_stats(e_self, e_other, p.row_ptr, p.other, None, mode="raw", K=k,
+                          long_rows=p.long_rows)
+    ref = tail_edge_stats_plain(e_self, e_other, p.row_ptr, p.other, None, mode="raw",
+                                K=k)
+    err, rel = compare(got, ref)
+    if not rel <= RTOL:
+        raise AssertionError(f"mesh: a ring bucket's K1 raw launch vs plain rel {rel}")
+    log(f"  mesh K1 raw on bucket (user, step 0): {p.rows} rows, {p.nnz} edges, "
+        f"{p.long_rows} long rows | vs plain max abs {err:.3e}, rel {rel:.3e} "
+        f"(tol {RTOL})")
+
+
 def phase_chunked(train, val, smi):
     """HPF "flat_chunked" (chunks of 2^20 edges) against "flat" at full
     width for CHUNKED_SWEEPS sweeps, in float32 (then "flat" again), and in
@@ -4068,6 +4353,7 @@ def main(argv=None) -> int:
     phase_small()
     model, launches = phase_fit(train, val, smi)
     high_rmse = {"hpf": [rec["val_rmse"] for rec in model.fit_history]}
+    fit_ref = ({k: v.clone() for k, v in model.state.items()}, high_rmse["hpf"])
     phase_profile(model, train, smi)
     phase_serve(model, train, val, smi)
     phase_resume(model, train, val, smi)
@@ -4119,7 +4405,9 @@ def main(argv=None) -> int:
 
     os.environ[layout_cache.ENV_VAR] = layouts
     flaunches, _ = phase_fastfit(train, val, gtrain, gval, high_rmse, smi)
-    del gtrain, gval
+    gc_cuda()
+    mesh_launches = phase_mesh(train, val, gtrain, gval, fit_ref, smi)
+    del gtrain, gval, fit_ref
     gc_cuda()
     phase_chunked(train, val, smi)
     gc_cuda()
@@ -4171,9 +4459,10 @@ def main(argv=None) -> int:
                    "is the epoch's regrouping"),
         entry("cavi_edge_tail_raw", "pmf_tpu_torch/csrc/cavi_edge.cu",
               "pmf_tpu/ops/pallas/cavi_edge.py:93", k1raw,
-              launches["K1raw"] + glaunches["K1raw"] + mlaunches["K1raw"], "K1raw",
-              note="mode \"raw\": no single-device fit runs it (its path is "
-                   "the tensor-parallel ring), so its launches are 0"),
+              mesh_launches["K1raw"], "K1raw",
+              note="mode \"raw\": launches from phase mesh's extended Poisson "
+                   "fit on the tensor-parallel blocked ring (pass 2, a bucket a "
+                   "direction and sweep); no single-device fit runs it"),
     ]
     import shutil
 

@@ -49,11 +49,45 @@ class TailCSR:
     # row-group tail kernels (K1, K7, K5, K6) give each of them a whole warp
     # (a schedule; results do not depend on it).
     long_rows: int = 0
+    # A band (``band_of``): the CSR holds self rows [row0, row0 + rows) of
+    # the n_self rows, its row_ptr rebased to 0 and long_rows counted
+    # within it.  A whole direction has row0 = 0 and rows = n_self.
+    row0: int = 0
+
+    @property
+    def rows(self) -> int:
+        """Self rows the CSR holds (n_self for a whole direction)."""
+        return self.row_ptr.shape[0] - 1
 
     def max_row_len(self) -> int:
-        if self.n_self == 0:
+        if self.rows == 0:
             return 0
         return int((self.row_ptr[1:] - self.row_ptr[:-1]).max())
+
+
+def band_bounds(row_ptr: np.ndarray, parts: int) -> list:
+    """``parts`` contiguous (row_start, row_end) bands of a CSR's rows, cut
+    where the edge count reaches k * nnz / parts, so each band holds about
+    as many edges (a band of a row longer than nnz / parts holds more)."""
+    rp = np.asarray(row_ptr, dtype=np.int64)
+    n = rp.shape[0] - 1
+    cuts = [0] + [int(np.searchsorted(rp, rp[-1] * k / parts, side="left"))
+                  for k in range(1, parts)] + [n]
+    cuts = np.minimum(np.maximum.accumulate(cuts), n)
+    return [(int(a), int(b)) for a, b in zip(cuts[:-1], cuts[1:])]
+
+
+def band_of(p: TailCSR, r0: int, r1: int) -> TailCSR:
+    """Self rows [r0, r1) of a whole direction's CSR as a CSR of its own:
+    row_ptr rebased to 0, ``other`` and ``x`` cut to the band (copies, so
+    the whole direction can be freed), ``long_rows`` counted within the
+    band.  The permutations and sizes stay the direction's."""
+    rp = p.row_ptr[r0 : r1 + 1]
+    lo, hi = int(rp[0]), int(rp[-1])
+    counts = (rp[1:] - rp[:-1]).cpu().numpy()
+    return dataclasses.replace(p, row_ptr=(rp - lo).clone(), other=p.other[lo:hi].clone(),
+                               x=p.x[lo:hi].clone(), nnz=hi - lo,
+                               long_rows=long_rows(counts), row0=p.row0 + r0)
 
 
 @dataclasses.dataclass(frozen=True)

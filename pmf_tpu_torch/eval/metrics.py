@@ -62,12 +62,39 @@ def masked_macro_mae(y_true: torch.Tensor, y_pred: torch.Tensor,
                      n_classes: int) -> torch.Tensor:
     """Macro-MAE via one segment mean per rating class; classes with no
     masked-in rows are left out of the average."""
+    per_class_sum, per_class_n = _class_sums(y_true, y_pred, mask, class_id, n_classes)
+    return _macro(per_class_sum, per_class_n)
+
+
+def _class_sums(y_true, y_pred, mask, class_id, n_classes):
+    """(sum of absolute errors, rows) per rating class, masked rows only."""
     m = mask.to(y_true.dtype)
     abs_err = m * torch.abs(y_true - y_pred)
     ids = torch.where(mask, class_id.long(), n_classes)
-    per_class_sum = sorted_segment_sum(abs_err, ids, n_classes)
-    per_class_n = sorted_segment_sum(m, ids, n_classes)
+    return (sorted_segment_sum(abs_err, ids, n_classes),
+            sorted_segment_sum(m, ids, n_classes))
+
+
+def _macro(per_class_sum, per_class_n):
     present = per_class_n > 0
     per_class_mae = per_class_sum / torch.clamp_min(per_class_n, 1.0)
     return torch.sum(torch.where(present, per_class_mae, 0.0)) / torch.clamp_min(
-        torch.sum(present.to(y_true.dtype)), 1.0)
+        torch.sum(present.to(per_class_n.dtype)), 1.0)
+
+
+def masked_metrics(y_true: torch.Tensor, y_pred: torch.Tensor, mask: torch.Tensor,
+                   class_id: torch.Tensor, n_classes: int, reduce=None):
+    """(RMSE, macro-MAE) over the masked rows, as 0-d tensors.  ``reduce``:
+    a mesh's sum over the ranks' shares of the rows (``parallel.mesh.Mesh.sum``);
+    the squared-error sum, the row count and the per-class sums and counts
+    are summed before the ratios, so the metrics equal the single-device
+    ones."""
+    if reduce is None:
+        return (masked_rmse(y_true, y_pred, mask),
+                masked_macro_mae(y_true, y_pred, mask, class_id, n_classes))
+    m = mask.to(y_true.dtype)
+    err2, n, per_class_sum, per_class_n = reduce(
+        torch.sum(m * (y_true - y_pred) ** 2), torch.sum(m),
+        *_class_sums(y_true, y_pred, mask, class_id, n_classes))
+    return (torch.sqrt(err2 / torch.clamp_min(n, 1.0)),
+            _macro(per_class_sum, per_class_n))

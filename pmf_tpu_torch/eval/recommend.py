@@ -169,3 +169,37 @@ def recommend(theta, beta, user_ids, k: int = 10, train_u=None, train_i=None,
             shift = shift + user_bias.detach().cpu().numpy().astype(np.float32)[users]
         out = out + shift[:, None]
     return items, out
+
+
+def recommend_sharded(theta, beta, user_ids, k: int = 10, train_u=None, train_i=None,
+                      mesh=None, item_bias=None, user_bias=None, mean: float = 0.0,
+                      batch: int = 1024, train_index=None):
+    """``recommend`` with the queried users cut over the mesh's ranks: each
+    rank scores its contiguous share against its own copy of the tables
+    (``torch.mm`` and ``torch.topk``, no kernel of the port), then one
+    gather gives every rank the whole (items, scores), equal to
+    ``recommend``'s.  ``batch`` bounds each rank's users a dispatch."""
+    import torch.distributed as dist
+
+    from pmf_tpu_torch.parallel.mesh import share
+
+    if mesh is None:
+        raise ValueError("recommend_sharded requires a mesh")
+    users = np.asarray(user_ids, dtype=np.int64).reshape(-1)
+    _check_range(users, theta.shape[0], "user ids")
+    n = len(users)
+    mine = share(n, mesh.rank, mesh.size)
+    items, scores = recommend(theta, beta, users[mine], k=k, train_u=train_u,
+                              train_i=train_i, batch=batch, item_bias=item_bias,
+                              user_bias=user_bias, mean=mean, train_index=train_index)
+    # Every share padded to the longest, gathered, and the padding dropped.
+    width = -(-n // mesh.size)
+    dev = mesh.device
+    packed = torch.zeros((width, 2 * k), dtype=torch.float64, device=dev)
+    packed[: len(items), :k] = torch.from_numpy(items).to(dev, torch.float64)
+    packed[: len(items), k:] = torch.from_numpy(scores).to(dev, torch.float64)
+    parts = [torch.empty_like(packed) for _ in range(mesh.size)]
+    dist.all_gather(parts, packed)
+    lengths = [len(range(n)[share(n, r, mesh.size)]) for r in range(mesh.size)]
+    rows = torch.cat([part[:m] for part, m in zip(parts, lengths)]).cpu().numpy()
+    return rows[:, :k].astype(np.int64), rows[:, k:].astype(np.float32)

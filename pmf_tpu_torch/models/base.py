@@ -53,9 +53,11 @@ class FitLoop:
     ``stop_rule(prev_rmse, rmse, tol) -> bool`` encodes the per-model rule.
     ``n_sweeps`` counts the sweeps dispatched, the discarded speculative
     one included.  ``checkpoint_dir``: save the state of every
-    ``checkpoint_every``-th iteration there (``utils.checkpoint``);
-    ``profile_dir``: trace the whole loop with ``torch.profiler`` into
-    that directory (a Chrome trace, ``trace.json``)."""
+    ``checkpoint_every``-th iteration there (``utils.checkpoint``, or
+    ``saver(path, state, meta)``: under a mesh, rank 0 writes and every
+    rank waits); ``profile_dir``: trace the whole loop with
+    ``torch.profiler`` into that directory (a Chrome trace,
+    ``trace.json``)."""
 
     def __init__(self, sweep_fn: Callable, eval_fn: Optional[Callable],
                  max_iter: int, tol, stop_rule: Callable, verbose: bool = False,
@@ -63,7 +65,8 @@ class FitLoop:
                  checkpoint_every: int = 10, profile_dir: Optional[str] = None,
                  edge_visits_per_iter: Optional[int] = None,
                  elbo_fn: Optional[Callable] = None, elbo_every: int = 1,
-                 elbo_monotone: Optional[float] = None):
+                 elbo_monotone: Optional[float] = None,
+                 saver: Optional[Callable] = None):
         self.sweep_fn = sweep_fn
         self.eval_fn = eval_fn
         self.max_iter = max_iter
@@ -85,6 +88,7 @@ class FitLoop:
         self.elbo_every = max(int(elbo_every), 1)
         self.elbo_monotone = elbo_monotone
         self._prev_elbo: Optional[float] = None
+        self.saver = saver
         self.history: list[dict] = []
         self.n_sweeps = 0
 
@@ -109,7 +113,8 @@ class FitLoop:
         if self.checkpoint_dir and it % self.checkpoint_every == 0:
             from pmf_tpu_torch.utils.checkpoint import save_state
 
-            save_state(self.checkpoint_dir, state, {"iteration": it, "name": self.name})
+            (self.saver or save_state)(self.checkpoint_dir, state,
+                                       {"iteration": it, "name": self.name})
 
     def _maybe_elbo(self, state: dict, record: dict) -> None:
         it = record["iteration"]
@@ -232,6 +237,13 @@ def blocked_precision(engine: str) -> str | None:
     return BLOCKED_PRECISION.get(engine, "high")
 
 
+def reduced(reduce: Optional[Callable], *stats: torch.Tensor) -> tuple:
+    """``stats`` summed over a mesh's data axis by ``reduce`` (the sweeps'
+    hook, ``parallel.mesh.Mesh.sum``: each rank computed them over its own
+    edges), or as they are on one device."""
+    return stats if reduce is None else tuple(reduce(*stats))
+
+
 def gaussian_stop_rule(prev: float, cur: float, tol) -> bool:
     improvement = prev - cur
     return tol is not None and 0.0 <= improvement < tol
@@ -257,9 +269,15 @@ class FactorModel:
         """(user_factors, item_factors) point estimates (means)."""
         raise NotImplementedError
 
-    def _initial_state(self, default_state: dict, resume_from: Optional[str]) -> dict:
+    def _initial_state(self, default_state: dict, resume_from: Optional[str],
+                       mesh=None) -> dict:
         """A checkpointed state in place of the fresh one when resuming,
-        on the fresh state's device and in its dtypes."""
+        on the fresh state's device and in its dtypes; under a
+        data-parallel mesh, rank 0's, broadcast (``parallel.mesh.replicate``)."""
+        if mesh is not None:
+            from pmf_tpu_torch.parallel.mesh import replicate
+
+            return replicate(self._initial_state(default_state, resume_from), mesh)
         if resume_from is None:
             return default_state
         from pmf_tpu_torch.utils.checkpoint import load_state
@@ -290,14 +308,86 @@ class FactorModel:
     def _dtype(self):
         return np.dtype(getattr(self.config, "dtype", "float32"))
 
-    def _build_train(self, train) -> RatingsCOO:
+    def _build_train(self, train, mesh=None) -> RatingsCOO:
+        """The training COO on the fit's device; under a mesh, the rank's
+        share of it (built on the host, then cut)."""
         u, i, x = as_triples(train)
-        return build_ratings(u, i, x, dtype=self._dtype, device=self.device)
+        if mesh is None:
+            return build_ratings(u, i, x, dtype=self._dtype, device=self.device)
+        from pmf_tpu_torch.parallel.mesh import shard_ratings
 
-    def _build_eval(self, df) -> EvalSet:
+        return shard_ratings(build_ratings(u, i, x, dtype=self._dtype, device="cpu"),
+                             mesh)
+
+    def _build_eval(self, df, mesh=None) -> EvalSet:
+        """The validation rows on the fit's device; under a mesh, the rank's
+        share of them."""
         u, i, x = as_triples(df)
-        return build_eval_set(u, i, x, self.n_users, self.n_items,
-                              dtype=self._dtype, device=self.device)
+        if mesh is None:
+            return build_eval_set(u, i, x, self.n_users, self.n_items,
+                                  dtype=self._dtype, device=self.device)
+        from pmf_tpu_torch.parallel.mesh import shard_eval_set
+
+        return shard_eval_set(build_eval_set(u, i, x, self.n_users, self.n_items,
+                                             dtype=self._dtype, device="cpu"), mesh)
+
+    def _fit_device(self, device, mesh) -> torch.device:
+        """The fit's device: the mesh's under a mesh (a ``device`` given
+        beside it must name the same), else ``resolve_device(device)``."""
+        from pmf_tpu_torch.utils.device import resolve_device
+
+        if mesh is None:
+            return resolve_device(device)
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device!r} differs from the mesh's {mesh.device}")
+        return mesh.device
+
+    @staticmethod
+    def _mesh_loop_args(mesh, verbose: bool, profile_dir, elbo_fn) -> dict:
+        """FitLoop arguments under a data-parallel mesh: rank 0 prints,
+        profiles and writes checkpoints; the ELBO every rank sees (and
+        gates) is rank 0's."""
+        if mesh is None:
+            return dict(verbose=verbose, profile_dir=profile_dir, elbo_fn=elbo_fn)
+        return dict(verbose=verbose and mesh.is_writer,
+                    profile_dir=profile_dir if mesh.is_writer else None,
+                    elbo_fn=None if elbo_fn is None
+                    else (lambda s: mesh.decide(elbo_fn(s))),
+                    saver=mesh.save_state)
+
+    def _blocked_layout(self, train, head_bytes: int, mesh=None):
+        """The hybrid layout of the training edges on the fit's device, its
+        head tiers picked within ``head_bytes`` (the JAX package's budgets,
+        so the tiers equal the reference's); under a mesh, the rank's band
+        of it, the tiers' rows a multiple of the data axis."""
+        from pmf_tpu_torch.data.blocked import build_blocked
+
+        u, i, x = as_triples(train)
+        blocked = build_blocked(u, i, x, n_users=self.n_users, n_items=self.n_items,
+                                dtype=self._dtype, reorder=True, head="auto",
+                                head_bytes=head_bytes,
+                                head_row_mult=mesh.dp if mesh else 1,
+                                device=self.device)
+        if mesh is None:
+            return blocked
+        from pmf_tpu_torch.parallel.mesh import shard_blocked
+
+        return shard_blocked(blocked, mesh)
+
+    @staticmethod
+    def _check_sharding(state_sharding, mesh, elbo_every) -> bool:
+        """Whether the fit runs row-sharded (TP); raises on what the TP fits
+        do not take, with the JAX package's messages."""
+        if state_sharding == "rows":
+            if elbo_every:
+                raise ValueError("elbo_every is not supported with TP "
+                                 "(row-sharded) fits yet")
+            if mesh is None:
+                raise ValueError("state_sharding='rows' requires a mesh")
+            return True
+        if state_sharding not in (None, "replicated"):
+            raise ValueError(f"unknown state_sharding {state_sharding!r}")
+        return False
 
     def _elbo_edges(self, train, width: Optional[int] = None):
         """(u, i, x, n_chunks): the train edges as tensors on the fit's
@@ -327,19 +417,27 @@ class FactorModel:
         return None, None, 0.0
 
     def recommend(self, user_ids, k: int = 10, train=None, batch: int = 1024,
-                  train_index=None):
+                  train_index=None, mesh=None):
         """Top-k unseen items per user on the state's device.  ``train``:
         a ratings container whose (u, i) pairs are excluded; for repeated
         calls pass ``train_index`` from ``eval.recommend.build_exclusion_index``
-        (or ``exclusion_index_from_coo``) instead.  Returns (items, scores)
-        as numpy arrays of shape (len(user_ids), k)."""
+        (or ``exclusion_index_from_coo``) instead.  ``mesh``: the queried
+        users cut over the mesh's ranks (``eval.recommend.recommend_sharded``;
+        every rank gets the whole answer).  Returns (items, scores) as numpy
+        arrays of shape (len(user_ids), k)."""
         from pmf_tpu_torch.eval.recommend import recommend as _rec
+        from pmf_tpu_torch.eval.recommend import recommend_sharded
 
         theta, beta = self._point_estimates()
         user_bias, item_bias, mean = self._score_offsets()
         tu = ti = None
         if train is not None:
             tu, ti, _ = as_triples(train)
+        if mesh is not None:
+            return recommend_sharded(theta, beta, user_ids, k=k, train_u=tu,
+                                     train_i=ti, mesh=mesh, item_bias=item_bias,
+                                     user_bias=user_bias, mean=mean, batch=batch,
+                                     train_index=train_index)
         return _rec(theta, beta, user_ids, k=k, train_u=tu, train_i=ti,
                     batch=batch, item_bias=item_bias, user_bias=user_bias,
                     mean=mean, train_index=train_index)

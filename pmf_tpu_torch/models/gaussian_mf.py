@@ -32,13 +32,14 @@ import numpy as np
 import torch
 
 from pmf_tpu_torch.data.coo import EvalSet, RatingsCOO
-from pmf_tpu_torch.eval.metrics import macro_mae, masked_macro_mae, masked_rmse, rmse
+from pmf_tpu_torch.eval.metrics import macro_mae, masked_metrics, rmse
 from pmf_tpu_torch.models.base import (
     FactorModel,
     FitLoop,
     as_triples,
     blocked_precision,
     gaussian_stop_rule,
+    reduced,
     resolve_engine,
 )
 from pmf_tpu_torch.ops.segment import edge_dot, gather_rows, sorted_segment_sum
@@ -140,9 +141,10 @@ def _finish_diag(m_self, v_self, S_mr, S_sq, S_mm, counts, eta2, sigma2):
 
 
 def _factor_block(m_self, V_self, m_other, V_other, b_self, b_other, self_ids,
-                  other_ids, x, counts, eta2, sigma2, n_self, use_bias):
+                  other_ids, x, counts, eta2, sigma2, n_self, use_bias, reduce=None):
     """One full-covariance factor block over the flat COO (edges sorted by
-    ``self_ids``).  Returns updated (m_self, V_self)."""
+    ``self_ids``); ``reduce`` sums its statistics over a mesh.  Returns
+    updated (m_self, V_self)."""
     K = m_self.shape[1]
     A_other = V_other + m_other[:, :, None] * m_other[:, None, :]
     A_edges = gather_rows(A_other.reshape(-1, K * K), other_ids)
@@ -151,13 +153,14 @@ def _factor_block(m_self, V_self, m_other, V_other, b_self, b_other, self_ids,
     resid = (x - gather_rows(b_self, self_ids) - gather_rows(b_other, other_ids)
              if use_bias else x)
     S_w = sorted_segment_sum(m_other_e * resid[:, None], self_ids, n_self)
+    S_w, S_A = reduced(reduce, S_w, S_A)
     return _finish_factor(m_self, V_self, S_w, S_A, counts, eta2, sigma2,
                           batched_psd_inverse)
 
 
 def _factor_block_diag(m_self, v_self, m_other, v_other, b_self, b_other,
                        self_ids, other_ids, x, counts, eta2, sigma2, n_self,
-                       use_bias):
+                       use_bias, reduce=None):
     """Diagonal-covariance factor block: coordinate k's update given the
     other coordinates' current means (the cross terms)."""
     m_other_e = gather_rows(m_other, other_ids)
@@ -168,6 +171,7 @@ def _factor_block_diag(m_self, v_self, m_other, v_other, b_self, b_other,
     S_sq = sorted_segment_sum(sq_e, self_ids, n_self)
     S_mr = sorted_segment_sum(m_other_e * (resid - pred)[:, None], self_ids, n_self)
     S_mm = sorted_segment_sum(m_other_e * m_other_e, self_ids, n_self)
+    S_mr, S_sq, S_mm = reduced(reduce, S_mr, S_sq, S_mm)
     return _finish_diag(m_self, v_self, S_mr, S_sq, S_mm, counts, eta2, sigma2)
 
 
@@ -179,12 +183,12 @@ def _bias_update(b_self, s, counts, eta_bias2, sigma2):
 
 
 def _bias_block(b_self, b_other, m_self, m_other, self_ids, other_ids, x,
-                counts, eta_bias2, sigma2, n_self):
+                counts, eta_bias2, sigma2, n_self, reduce=None):
     """Scalar bias block on the residual r - b_other - <theta, beta>."""
     interaction = edge_dot(gather_rows(m_self, self_ids),
                            gather_rows(m_other, other_ids))
     resid = x - gather_rows(b_other, other_ids) - interaction
-    s = sorted_segment_sum(resid, self_ids, n_self)
+    (s,) = reduced(reduce, sorted_segment_sum(resid, self_ids, n_self))
     return _bias_update(b_self, s, counts, eta_bias2, sigma2)
 
 
@@ -197,8 +201,11 @@ def _bias_block_lagged(b_self, m_self_new, S_m, S_x, S_b, counts, eta_bias2,
 
 def sweep(state: dict, data: RatingsCOO, sigma2: float, eta_theta2: float,
           eta_beta2: float, eta_bias2: float, use_bias: bool,
-          covariance: str = "full", bias_update: str = "exact") -> dict:
-    """One CAVI iteration over the flat dual-sorted COO."""
+          covariance: str = "full", bias_update: str = "exact",
+          reduce=None) -> dict:
+    """One CAVI iteration over the flat dual-sorted COO.  ``reduce``: under a
+    data-parallel mesh, the sum of the statistics over the ranks' shares of
+    the edges (``parallel.mesh``)."""
     block = _factor_block if covariance == "full" else _factor_block_diag
     lagged = use_bias and bias_update == "lagged"
     by_u = (data.u_by_u, data.i_by_u, data.x_by_u)
@@ -206,7 +213,7 @@ def sweep(state: dict, data: RatingsCOO, sigma2: float, eta_theta2: float,
     m_theta, V_theta = block(
         state["m_theta"], state["V_theta"], state["m_beta"], state["V_beta"],
         state["b_user"], state["b_item"], *by_u, data.user_counts, eta_theta2,
-        sigma2, data.n_users, use_bias)
+        sigma2, data.n_users, use_bias, reduce)
     b_user, b_item = state["b_user"], state["b_item"]
     if lagged:
         S_m_u = sorted_segment_sum(gather_rows(state["m_beta"], data.i_by_u),
@@ -214,25 +221,29 @@ def sweep(state: dict, data: RatingsCOO, sigma2: float, eta_theta2: float,
         S_b_u = sorted_segment_sum(gather_rows(b_item, data.i_by_u),
                                    data.u_by_u, data.n_users)
         S_x_u = sorted_segment_sum(data.x_by_u, data.u_by_u, data.n_users)
+        S_m_u, S_b_u, S_x_u = reduced(reduce, S_m_u, S_b_u, S_x_u)
         b_user = _bias_block_lagged(b_user, m_theta, S_m_u, S_x_u, S_b_u,
                                     data.user_counts, eta_bias2, sigma2)
     m_beta, V_beta = block(
         state["m_beta"], state["V_beta"], m_theta, V_theta, state["b_item"],
         b_user, *by_i, data.item_counts, eta_beta2, sigma2, data.n_items,
-        use_bias)
+        use_bias, reduce)
     if lagged:
         S_m_i = sorted_segment_sum(gather_rows(m_theta, data.u_by_i),
                                    data.i_by_i, data.n_items)
         S_b_i = sorted_segment_sum(gather_rows(b_user, data.u_by_i),
                                    data.i_by_i, data.n_items)
         S_x_i = sorted_segment_sum(data.x_by_i, data.i_by_i, data.n_items)
+        S_m_i, S_b_i, S_x_i = reduced(reduce, S_m_i, S_b_i, S_x_i)
         b_item = _bias_block_lagged(b_item, m_beta, S_m_i, S_x_i, S_b_i,
                                     data.item_counts, eta_bias2, sigma2)
     elif use_bias:
         b_user = _bias_block(b_user, b_item, m_theta, m_beta, *by_u,
-                             data.user_counts, eta_bias2, sigma2, data.n_users)
+                             data.user_counts, eta_bias2, sigma2, data.n_users,
+                             reduce)
         b_item = _bias_block(b_item, b_user, m_beta, m_theta, *by_i,
-                             data.item_counts, eta_bias2, sigma2, data.n_items)
+                             data.item_counts, eta_bias2, sigma2, data.n_items,
+                             reduce)
     return {"m_theta": m_theta, "V_theta": V_theta, "m_beta": m_beta,
             "V_beta": V_beta, "b_user": b_user, "b_item": b_item}
 
@@ -241,14 +252,17 @@ def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
                   item_counts: torch.Tensor, sigma2: float, eta_theta2: float,
                   eta_beta2: float, eta_bias2: float, use_bias: bool,
                   covariance: str = "full", bias_update: str = "exact",
-                  precision: str = "high") -> dict:
+                  precision: str = "high", reduce=None) -> dict:
     """Same iteration as :func:`sweep` over the hybrid layout
     (``data.blocked.BlockedCOO``): the edge passes by kernels K3 (factor),
     K5 (bias) and K6 (diag) on the tail plus the head's linear products,
     the K x K inverses by kernel K4.  Lagged biases ride the factor
     passes (K3's bias columns), so that mode runs no bias pass.
     ``precision`` ("fast" or "high") sets the head products' bf16
-    parts; the tail kernels and K4 run in float32 at every precision."""
+    parts; the tail kernels and K4 run in float32 at every precision.
+    Under a data-parallel mesh ``blocked`` is the rank's band
+    (``parallel.mesh.shard_blocked``) and ``reduce`` sums the statistics
+    before each update; the inverses are every rank's own, replicated."""
     from pmf_tpu_torch.ops.gaussian_edge import (
         gaussian_bias_stats,
         gaussian_diag_stats,
@@ -272,6 +286,7 @@ def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
         S_mr, S_sq, S_mm = gaussian_diag_stats(
             m_other, v_other, m_self, b_self, b_other, pass_, use_bias=use_bias,
             head=head, head_side=side, precision=precision)
+        S_mr, S_sq, S_mm = reduced(reduce, S_mr, S_sq, S_mm)
         return _finish_diag(m_self, v_self, S_mr, S_sq, S_mm, counts, eta2, sigma2)
 
     b_user, b_item = state["b_user"], state["b_item"]
@@ -289,6 +304,7 @@ def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
             state["m_beta"], state["V_beta"], b_user, b_item, blocked.by_user,
             use_bias=True, with_bias_stats=True, head=head, head_side="user",
             precision=precision)
+        S_w, S_A, S_m_u, S_x_u, S_b_u = reduced(reduce, S_w, S_A, S_m_u, S_x_u, S_b_u)
         m_theta, V_theta = factor_update(state["m_theta"], state["V_theta"],
                                          S_w, S_A, user_counts, eta_theta2)
         b_user = _bias_block_lagged(b_user, m_theta, S_m_u, S_x_u, S_b_u,
@@ -296,6 +312,8 @@ def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
         S_w_i, S_A_i, S_m_i, S_x_i, S_b_i = gaussian_factor_stats(
             m_theta, V_theta, b_item, b_user, blocked.by_item, use_bias=True,
             with_bias_stats=True, head=head, head_side="item", precision=precision)
+        S_w_i, S_A_i, S_m_i, S_x_i, S_b_i = reduced(reduce, S_w_i, S_A_i, S_m_i,
+                                                    S_x_i, S_b_i)
         m_beta, V_beta = factor_update(state["m_beta"], state["V_beta"],
                                        S_w_i, S_A_i, item_counts, eta_beta2)
         b_item = _bias_block_lagged(b_item, m_beta, S_m_i, S_x_i, S_b_i,
@@ -304,36 +322,39 @@ def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
         S_w, S_A = gaussian_factor_stats(
             state["m_beta"], state["V_beta"], b_user, b_item, blocked.by_user,
             use_bias=use_bias, head=head, head_side="user", precision=precision)
+        S_w, S_A = reduced(reduce, S_w, S_A)
         m_theta, V_theta = factor_update(state["m_theta"], state["V_theta"],
                                          S_w, S_A, user_counts, eta_theta2)
         S_w_i, S_A_i = gaussian_factor_stats(
             m_theta, V_theta, b_item, b_user, blocked.by_item,
             use_bias=use_bias, head=head, head_side="item", precision=precision)
+        S_w_i, S_A_i = reduced(reduce, S_w_i, S_A_i)
         m_beta, V_beta = factor_update(state["m_beta"], state["V_beta"],
                                        S_w_i, S_A_i, item_counts, eta_beta2)
 
     if use_bias and not lagged:
         s_u = gaussian_bias_stats(m_theta, m_beta, b_item, blocked.by_user,
                                   head=head, head_side="user", precision=precision)
+        (s_u,) = reduced(reduce, s_u)
         b_user = _bias_update(b_user, s_u, user_counts, eta_bias2, sigma2)
         s_i = gaussian_bias_stats(m_beta, m_theta, b_user, blocked.by_item,
                                   head=head, head_side="item", precision=precision)
+        (s_i,) = reduced(reduce, s_i)
         b_item = _bias_update(b_item, s_i, item_counts, eta_bias2, sigma2)
     return {"m_theta": m_theta, "V_theta": V_theta, "m_beta": m_beta,
             "V_beta": V_beta, "b_user": b_user, "b_item": b_item}
 
 
-def eval_metrics(state: dict, ev: EvalSet, use_bias: bool):
+def eval_metrics(state: dict, ev: EvalSet, use_bias: bool, reduce=None):
     """Centred-scale (val RMSE, val macro-MAE) over in-range rows, as 0-d
-    tensors on the state's device."""
+    tensors on the state's device; ``reduce`` sums them over a mesh's
+    shares of the rows (``eval.metrics.masked_metrics``)."""
     pred = edge_dot(gather_rows(state["m_theta"], ev.u),
                     gather_rows(state["m_beta"], ev.i))
     if use_bias:
         pred = (pred + gather_rows(state["b_user"], ev.u)
                 + gather_rows(state["b_item"], ev.i))
-    r = masked_rmse(ev.x, pred, ev.valid)
-    mm = masked_macro_mae(ev.x, pred, ev.valid, ev.class_id, ev.n_classes)
-    return r, mm
+    return masked_metrics(ev.x, pred, ev.valid, ev.class_id, ev.n_classes, reduce)
 
 
 class GaussianMF(FactorModel):
@@ -345,7 +366,8 @@ class GaussianMF(FactorModel):
 
     def fit(self, train_df, val_df=None, global_mean: float = 0.0, device=None,
             elbo_every: int = 0, resume_from=None, checkpoint_dir=None,
-            checkpoint_every: int = 10, profile_dir=None):
+            checkpoint_every: int = 10, profile_dir=None, mesh=None,
+            state_sharding=None):
         """Ratings are centred by the caller (``global_mean`` is recorded).
         ``device``: None = the CUDA card (raises without one); "cpu" runs
         the kernels' plain versions on the host.  ``elbo_every=N`` records
@@ -353,17 +375,25 @@ class GaussianMF(FactorModel):
         non-decreasing: the exact block order is coordinate ascent on it
         (relative slack 1e-6 on "flat", 1e-4 on the blocked engines, whose
         statistics round differently; no gate for lagged biases).
-        ``resume_from``, ``checkpoint_dir``, ``checkpoint_every`` and
-        ``profile_dir`` as in ``HPF.fit``."""
+        ``resume_from``, ``checkpoint_dir``, ``checkpoint_every``,
+        ``profile_dir``, ``mesh`` and ``state_sharding`` as in ``HPF.fit``;
+        a row-sharded fit takes lagged biases only on a blocked engine with
+        full covariances, as the JAX package's."""
         cfg = self.config
-        self.device = resolve_device(device)
         self.global_mean = float(global_mean)
-        data = self._build_train(train_df)
+        if self._check_sharding(state_sharding, mesh, elbo_every):
+            from pmf_tpu_torch.parallel.tp import fit_tp, gaussian_family
+
+            return fit_tp(self, gaussian_family(cfg), train_df, val_df, resume_from,
+                          checkpoint_dir, checkpoint_every, profile_dir, mesh)
+        self.device = self._fit_device(device, mesh)
+        data = self._build_train(train_df, mesh)
         self.n_users, self.n_items = data.n_users, data.n_items
-        if cfg.verbose:
+        if cfg.verbose and (mesh is None or mesh.is_writer):
             print(f"Inferred n_users={self.n_users}, n_items={self.n_items}", flush=True)
         state = self._initial_state(
-            init_state(self.n_users, self.n_items, cfg, self.device), resume_from)
+            init_state(self.n_users, self.n_items, cfg, self.device), resume_from, mesh)
+        reduce = mesh.sum if mesh else None
 
         engine = resolve_engine(cfg.engine, data.nnz, self.device)
         self.engine_used = engine
@@ -372,40 +402,36 @@ class GaussianMF(FactorModel):
         modes = dict(covariance=cfg.covariance, bias_update=cfg.bias_update)
         precision = blocked_precision(engine)
         if precision is not None:
-            from pmf_tpu_torch.data.blocked import build_blocked
-
-            u, i, x = as_triples(train_df)
             # head_bytes: 3.75 GiB, the JAX package's Gaussian budget
-            # (centred ratings carry an x_lo plane, 6 B a cell), so the
-            # head tiers equal the reference's.
-            self.blocked = blocked = build_blocked(
-                u, i, x, n_users=self.n_users, n_items=self.n_items,
-                dtype=self._dtype, reorder=True, head="auto",
-                head_bytes=15 << 28, device=self.device)
+            # (centred ratings carry an x_lo plane, 6 B a cell).
+            self.blocked = blocked = self._blocked_layout(train_df, 15 << 28, mesh)
 
             def sweep_fn(s, d):
                 return sweep_blocked(s, blocked, d.user_counts, d.item_counts,
-                                     *hyper, **modes, precision=precision)
+                                     *hyper, **modes, precision=precision,
+                                     reduce=reduce)
         else:
 
             def sweep_fn(s, d):
-                return sweep(s, d, *hyper, **modes)
+                return sweep(s, d, *hyper, **modes, reduce=reduce)
 
-        val = self._build_eval(val_df) if val_df is not None else None
-        loop = FitLoop(sweep_fn, lambda s, ev: eval_metrics(s, ev, cfg.use_bias),
-                       cfg.max_iter, cfg.tol, gaussian_stop_rule,
-                       verbose=cfg.verbose, name="GaussianMF",
+        val = self._build_eval(val_df, mesh) if val_df is not None else None
+        loop = FitLoop(sweep_fn, lambda s, ev: eval_metrics(s, ev, cfg.use_bias, reduce),
+                       cfg.max_iter, cfg.tol, gaussian_stop_rule, name="GaussianMF",
                        checkpoint_dir=checkpoint_dir,
-                       checkpoint_every=checkpoint_every, profile_dir=profile_dir,
+                       checkpoint_every=checkpoint_every,
                        # theta + beta passes, plus the two bias passes
                        edge_visits_per_iter=(4 if cfg.use_bias else 2) * data.nnz,
-                       elbo_fn=self._make_elbo_fn(train_df) if elbo_every else None,
                        elbo_every=elbo_every or 1,
                        elbo_monotone=(None if cfg.bias_update == "lagged"
-                                      else 1e-6 if precision is None else 1e-4))
+                                      else 1e-6 if precision is None else 1e-4),
+                       **self._mesh_loop_args(
+                           mesh, cfg.verbose, profile_dir,
+                           self._make_elbo_fn(train_df) if elbo_every else None))
         self.state = loop.run(state, data, val)
         self.fit_history = loop.history
         self.n_sweeps = loop.n_sweeps
+        self.sweep_once = lambda s: sweep_fn(s, data)
         return self
 
     def _make_elbo_fn(self, train):

@@ -31,13 +31,13 @@ import numpy as np
 import torch
 
 from pmf_tpu_torch.data.coo import EvalSet, RatingsCOO
-from pmf_tpu_torch.eval.metrics import masked_macro_mae, masked_rmse
+from pmf_tpu_torch.eval.metrics import masked_metrics
 from pmf_tpu_torch.models.base import (
     FactorModel,
     FitLoop,
-    as_triples,
     blocked_precision,
     poisson_stop_rule,
+    reduced,
     resolve_engine,
 )
 from pmf_tpu_torch.ops.segment import edge_dot, gather_rows, sorted_segment_sum
@@ -109,21 +109,23 @@ def init_state(n_users: int, n_items: int, cfg: HPFConfig, device=None) -> dict:
 
 
 def _hpf_factor_block(E_self, E_other, E_rate_prior, self_ids, other_ids, x,
-                      counts, shape0, n_self):
+                      counts, shape0, n_self, reduce=None):
     """theta- or beta-block: multinomial allocation for the shape, observed
     sum of other rows plus the hierarchical rate expectation for the rate.
-    Empty rows -> (shape0, E_rate_prior)."""
+    Empty rows -> (shape0, E_rate_prior).  ``reduce``: the mesh's sum of
+    the statistics over its data axis (``models.base.reduced``)."""
     self_rows = gather_rows(E_self, self_ids)
     other_rows = gather_rows(E_other, other_ids)
     rate = torch.clamp_min(edge_dot(self_rows, other_rows), RATE_FLOOR)
     alloc = (x / rate)[:, None] * self_rows * other_rows
     s_alloc = sorted_segment_sum(alloc, self_ids, n_self)
     s_other = sorted_segment_sum(other_rows, self_ids, n_self)
+    s_alloc, s_other = reduced(reduce, s_alloc, s_other)
     return _factor_update(s_alloc, s_other, E_rate_prior, counts, shape0)
 
 
 def _hpf_factor_block_chunked(E_self, E_other, E_rate_prior, self_ids, other_ids,
-                              x, counts, shape0, n_self, chunk_len):
+                              x, counts, shape0, n_self, chunk_len, reduce=None):
     """:func:`_hpf_factor_block` over chunks of ``chunk_len`` edges, the
     two segment sums accumulated, so no (nnz, K) temporary is held at
     once.  Padding edges (ids out of range) are dropped."""
@@ -138,8 +140,8 @@ def _hpf_factor_block_chunked(E_self, E_other, E_rate_prior, self_ids, other_ids
         ids = cs.long()
         ids = torch.where((ids >= 0) & (ids < n_self), ids, n_self)
         sums.index_add_(0, ids, torch.cat([alloc, other_rows], dim=1))
-    return _factor_update(sums[:n_self, :K], sums[:n_self, K:], E_rate_prior,
-                          counts, shape0)
+    s_alloc, s_other = reduced(reduce, sums[:n_self, :K], sums[:n_self, K:])
+    return _factor_update(s_alloc, s_other, E_rate_prior, counts, shape0)
 
 
 def _factor_update(s_alloc, s_other, E_rate_prior, counts, shape0):
@@ -160,16 +162,19 @@ def _expectations(state: dict, a, a_prime, c, c_prime):
 
 def sweep(state: dict, data: RatingsCOO, a: float, a_prime: float,
           b_prime: float, c: float, c_prime: float, d_prime: float,
-          chunk_len: int | None = None) -> dict:
+          chunk_len: int | None = None, reduce=None) -> dict:
     """One CAVI iteration over the flat dual-sorted COO; with ``chunk_len``
     (engine "flat_chunked") the edge passes run in chunks of that many
-    edges.  It runs no kernel."""
+    edges.  ``reduce``: under a data-parallel mesh, the sum of each block's
+    statistics over the ranks' shares of the edges (``parallel.mesh``).
+    It runs no kernel."""
     E_theta, E_beta, E_xi, E_eta = _expectations(state, a, a_prime, c, c_prime)
     if chunk_len is None:
-        block = _hpf_factor_block
+        def block(*args):
+            return _hpf_factor_block(*args, reduce=reduce)
     else:
         def block(*args):
-            return _hpf_factor_block_chunked(*args, chunk_len)
+            return _hpf_factor_block_chunked(*args, chunk_len, reduce=reduce)
 
     a_theta, b_theta = block(
         E_theta, E_beta, E_xi, data.u_by_u, data.i_by_u, data.x_by_u,
@@ -190,11 +195,12 @@ def sweep(state: dict, data: RatingsCOO, a: float, a_prime: float,
 def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
                   item_counts: torch.Tensor, a: float, a_prime: float,
                   b_prime: float, c: float, c_prime: float,
-                  d_prime: float, precision: str = "high") -> dict:
+                  d_prime: float, precision: str = "high", reduce=None) -> dict:
     """Same iteration as :func:`sweep`, with the two edge passes computed
     over the hybrid layout (``data.blocked.BlockedCOO``): sparse tail by
     kernel K1, dense head tiers by kernel K2 at ``precision`` ("fast" or
-    "high")."""
+    "high").  Under a data-parallel mesh ``blocked`` is the rank's band
+    (``parallel.mesh.shard_blocked``) and ``reduce`` sums the statistics."""
     from pmf_tpu_torch.ops.cavi_edge import poisson_edge_stats
 
     E_theta, E_beta, E_xi, E_eta = _expectations(state, a, a_prime, c, c_prime)
@@ -203,6 +209,7 @@ def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
     s_alloc, s_other = poisson_edge_stats(E_theta, E_beta, blocked.by_user,
                                           head=head, head_side="user",
                                           precision=precision)
+    s_alloc, s_other = reduced(reduce, s_alloc, s_other)
     a_theta, b_theta = _factor_update(s_alloc, s_other, E_xi, user_counts, a)
     E_theta = a_theta / b_theta
     b_xi = b_prime + torch.sum(E_theta, dim=1)
@@ -210,6 +217,7 @@ def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
     s_alloc_i, s_other_i = poisson_edge_stats(E_beta, E_theta, blocked.by_item,
                                               head=head, head_side="item",
                                               precision=precision)
+    s_alloc_i, s_other_i = reduced(reduce, s_alloc_i, s_other_i)
     a_beta, b_beta = _factor_update(s_alloc_i, s_other_i, E_eta, item_counts, c)
     E_beta = a_beta / b_beta
     b_eta = d_prime + torch.sum(E_beta, dim=1)
@@ -218,15 +226,15 @@ def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
             "b_beta": b_beta, "b_xi": b_xi, "b_eta": b_eta}
 
 
-def eval_metrics(state: dict, ev: EvalSet):
-    """(val RMSE, val macro-MAE) as 0-d tensors on the state's device."""
+def eval_metrics(state: dict, ev: EvalSet, reduce=None):
+    """(val RMSE, val macro-MAE) as 0-d tensors on the state's device;
+    ``reduce`` sums them over a mesh's shares of the rows
+    (``eval.metrics.masked_metrics``)."""
     E_theta = state["a_theta"] / state["b_theta"]
     E_beta = state["a_beta"] / state["b_beta"]
     pred = edge_dot(gather_rows(E_theta, ev.u), gather_rows(E_beta, ev.i))
     pred = torch.where(ev.valid, pred, 0.0)
-    r = masked_rmse(ev.x, pred, ev.real)
-    mm = masked_macro_mae(ev.x, pred, ev.real, ev.class_id, ev.n_classes)
-    return r, mm
+    return masked_metrics(ev.x, pred, ev.real, ev.class_id, ev.n_classes, reduce)
 
 
 class HPF(FactorModel):
@@ -234,58 +242,63 @@ class HPF(FactorModel):
 
     def fit(self, train_df, val_df=None, device=None, elbo_every: int = 0,
             resume_from=None, checkpoint_dir=None, checkpoint_every: int = 10,
-            profile_dir=None):
+            profile_dir=None, mesh=None, state_sharding=None):
         """``device``: None = the CUDA card (raises without one); "cpu"
         runs the kernels' plain versions on the host.  ``elbo_every=N``
         records the auxiliary-variable ELBO in fit_history every N
         iterations (0 = off).  ``resume_from``: a checkpoint directory
         whose state replaces the fresh init; ``checkpoint_dir``: save the
         state every ``checkpoint_every`` iterations; ``profile_dir``: a
-        ``torch.profiler`` trace of the loop."""
+        ``torch.profiler`` trace of the loop.  ``mesh``
+        (``parallel.make_mesh``): data-parallel training, each rank's share
+        of the edges and of the validation rows, the statistics summed over
+        the ranks, the state replicated; ``state_sharding="rows"``: the
+        state's rows sharded over the mesh and ring sweeps
+        (``parallel.tp``)."""
         cfg = self.config
-        self.device = resolve_device(device)
-        data = self._build_train(train_df)
+        if self._check_sharding(state_sharding, mesh, elbo_every):
+            from pmf_tpu_torch.parallel.tp import fit_tp, hpf_family
+
+            return fit_tp(self, hpf_family(cfg), train_df, val_df, resume_from,
+                          checkpoint_dir, checkpoint_every, profile_dir, mesh)
+        self.device = self._fit_device(device, mesh)
+        data = self._build_train(train_df, mesh)
         self.n_users, self.n_items = data.n_users, data.n_items
-        if cfg.verbose:
+        if cfg.verbose and (mesh is None or mesh.is_writer):
             print(f"Inferred n_users={self.n_users}, n_items={self.n_items}", flush=True)
         state = self._initial_state(
-            init_state(self.n_users, self.n_items, cfg, self.device), resume_from)
+            init_state(self.n_users, self.n_items, cfg, self.device), resume_from, mesh)
+        reduce = mesh.sum if mesh else None
 
         engine = resolve_engine(cfg.engine, data.nnz, self.device)
         self.engine_used = engine
         hyper = (cfg.a, cfg.a_prime, cfg.b_prime, cfg.c, cfg.c_prime, cfg.d_prime)
         precision = blocked_precision(engine)
         if precision is not None:
-            from pmf_tpu_torch.data.blocked import build_blocked
-
-            u, i, x = as_triples(train_df)
-            # head_bytes: 2.5 GiB, the JAX package's tuned budget, so the
-            # head tiers equal the reference's.
-            self.blocked = blocked = build_blocked(
-                u, i, x, n_users=self.n_users, n_items=self.n_items,
-                dtype=self._dtype, reorder=True, head="auto",
-                head_bytes=5 << 29, device=self.device)
+            self.blocked = blocked = self._blocked_layout(train_df, 5 << 29, mesh)
 
             def sweep_fn(s, d):
                 return sweep_blocked(s, blocked, d.user_counts, d.item_counts, *hyper,
-                                     precision=precision)
+                                     precision=precision, reduce=reduce)
         else:
             chunk_len = CHUNK_LEN if engine == "flat_chunked" else None
 
             def sweep_fn(s, d):
-                return sweep(s, d, *hyper, chunk_len=chunk_len)
+                return sweep(s, d, *hyper, chunk_len=chunk_len, reduce=reduce)
 
-        val = self._build_eval(val_df) if val_df is not None else None
-        loop = FitLoop(sweep_fn, eval_metrics, cfg.max_iter, cfg.tol,
-                       poisson_stop_rule, verbose=cfg.verbose, name="HPF",
-                       checkpoint_dir=checkpoint_dir,
-                       checkpoint_every=checkpoint_every, profile_dir=profile_dir,
+        val = self._build_eval(val_df, mesh) if val_df is not None else None
+        loop = FitLoop(sweep_fn, lambda s, ev: eval_metrics(s, ev, reduce), cfg.max_iter,
+                       cfg.tol, poisson_stop_rule, name="HPF",
+                       checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
                        edge_visits_per_iter=2 * data.nnz,  # theta + beta passes
-                       elbo_fn=self._make_elbo_fn(train_df) if elbo_every else None,
-                       elbo_every=elbo_every or 1)
+                       elbo_every=elbo_every or 1,
+                       **self._mesh_loop_args(
+                           mesh, cfg.verbose, profile_dir,
+                           self._make_elbo_fn(train_df) if elbo_every else None))
         self.state = loop.run(state, data, val)
         self.fit_history = loop.history
         self.n_sweeps = loop.n_sweeps
+        self.sweep_once = lambda s: sweep_fn(s, data)
         return self
 
     def _make_elbo_fn(self, train):

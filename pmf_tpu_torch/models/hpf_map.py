@@ -40,7 +40,7 @@ import torch
 
 from pmf_tpu_torch.data.blocked import _count_perms
 from pmf_tpu_torch.data.coo import EvalSet
-from pmf_tpu_torch.eval.metrics import masked_macro_mae, masked_rmse
+from pmf_tpu_torch.eval.metrics import masked_metrics
 from pmf_tpu_torch.models.base import FactorModel, as_triples, profiled
 from pmf_tpu_torch.ops.adam import adam_init, adam_update
 from pmf_tpu_torch.ops.map_grad import PIECE, group_steps, map_grad_grouped
@@ -161,18 +161,27 @@ def batch_loss(params, u, i, x, mask, user_scale, item_scale, cfg_scalars):
 
 
 def train_epoch(params, opt_state, perm, ui_all, x_all, user_scale, item_scale,
-                cfg_scalars, lr: float, batch_size: int):
+                cfg_scalars, lr: float, batch_size: int, mesh=None):
     """One flat epoch: batch the padded edge list in the order ``perm`` (a
     permutation of its n_pad rows) and take one Adam step per batch.
 
     ``ui_all``: (n_pad, 2) int32 with columns [u-or-minus-one, i]; padding
-    rows carry u == -1 (the batch mask).  Returns (params, opt_state, sum
-    of the batch losses as a 0-d tensor on the device)."""
+    rows carry u == -1 (the batch mask).  ``mesh``: data-parallel SGD, each
+    rank takes its contiguous share of every batch and the gradients and
+    losses are summed over the data axis before Adam, which every rank
+    applies to its replica.  Returns (params, opt_state, sum of the batch
+    losses as a 0-d tensor on the device)."""
     n = ui_all.shape[0]
     n_batches = n // batch_size
     perm = torch.as_tensor(perm, device=ui_all.device).long()
     uib = ui_all[perm].view(n_batches, batch_size, 2)
     xb = x_all[perm].view(n_batches, batch_size)
+    if mesh is not None:
+        from pmf_tpu_torch.parallel.mesh import DATA_AXIS
+
+        part = batch_size // mesh.dp
+        cut = slice(mesh.coords[DATA_AXIS] * part, (mesh.coords[DATA_AXIS] + 1) * part)
+        uib, xb = uib[:, cut], xb[:, cut]
     total = torch.zeros((), dtype=params["user"].dtype, device=ui_all.device)
     for b in range(n_batches):
         rows = uib[b]
@@ -182,9 +191,12 @@ def train_epoch(params, opt_state, perm, ui_all, x_all, user_scale, item_scale,
         loss = batch_loss(leaves, bu, rows[:, 1], xb[b], bm, user_scale,
                           item_scale, cfg_scalars)
         g_user, g_item = torch.autograd.grad(loss, [leaves["user"], leaves["item"]])
+        loss = loss.detach()
+        if mesh is not None:
+            g_user, g_item, loss = mesh.sum(g_user, g_item, loss)
         params, opt_state = adam_update({"user": g_user, "item": g_item},
                                         opt_state, params, lr)
-        total = total + loss.detach()
+        total = total + loss
     return params, opt_state, total
 
 
@@ -359,15 +371,14 @@ def train_steps_grouped(params, opt_state, groups, user_scale, item_scale,
     return params, opt_state, total
 
 
-def eval_metrics(params: dict, ev: EvalSet):
-    """(val RMSE, val macro-MAE) as 0-d tensors on the params' device."""
+def eval_metrics(params: dict, ev: EvalSet, reduce=None):
+    """(val RMSE, val macro-MAE) as 0-d tensors on the params' device;
+    ``reduce`` sums them over a mesh's shares of the rows."""
     theta = softplus(params["user"][:, :-1])
     beta = softplus(params["item"][:, :-1])
     pred = edge_dot(gather_rows(theta, ev.u), gather_rows(beta, ev.i))
     pred = torch.where(ev.valid, pred, 0.0)
-    r = masked_rmse(ev.x, pred, ev.real)
-    mm = masked_macro_mae(ev.x, pred, ev.real, ev.class_id, ev.n_classes)
-    return r, mm
+    return masked_metrics(ev.x, pred, ev.real, ev.class_id, ev.n_classes, reduce)
 
 
 def _permute_rows(params, opt_state, u_perm, i_perm):
@@ -446,24 +457,37 @@ class HPFMap(FactorModel):
     epoch shuffle's generator included)."""
 
     def fit(self, train_df, val_df=None, device=None, resume_from=None,
-            checkpoint_dir=None, checkpoint_every: int = 5, profile_dir=None):
+            checkpoint_dir=None, checkpoint_every: int = 5, profile_dir=None,
+            mesh=None):
         """``device``: None = the CUDA card (raises without one); "cpu"
         runs the gradient kernel's plain version on the host.
         ``checkpoint_dir``: save params, Adam state, the generator state
         and the epoch every ``checkpoint_every`` epochs, rows in their
         original order on both engines; ``resume_from``: continue such a
         checkpoint of this package from the epoch after it;
-        ``profile_dir``: a ``torch.profiler`` trace of the epochs."""
+        ``profile_dir``: a ``torch.profiler`` trace of the epochs.
+        ``mesh`` (``parallel.make_mesh``): data-parallel SGD, every rank
+        drawing the same shuffle and taking its share of each batch
+        (``batch_size`` a multiple of the data axis), the gradients summed
+        before Adam; a blocked engine runs flat under a mesh, as in the JAX
+        package, and ``engine_used`` says so."""
         cfg = self.config
-        self.device = dev = resolve_device(device)
+        self.device = dev = self._fit_device(device, mesh)
+        writer = mesh is None or mesh.is_writer
         u, i, x = as_triples(train_df)
         self.n_users = int(u.max()) + 1
         self.n_items = int(i.max()) + 1
-        if cfg.verbose:
+        if cfg.verbose and writer:
             print(f"Inferred n_users={self.n_users}, n_items={self.n_items}", flush=True)
         engine = "flat" if cfg.engine == "auto" else cfg.engine
-        blocked = engine.startswith("blocked")
+        blocked = engine.startswith("blocked") and mesh is None
+        if engine.startswith("blocked") and mesh is not None and cfg.verbose and writer:
+            print("HPFMap: blocked engine has no mesh path yet; using flat DP batches",
+                  flush=True)
         self.engine_used = engine if blocked else "flat"
+        if mesh is not None and cfg.batch_size % mesh.dp:
+            raise ValueError(f"batch_size={cfg.batch_size} not divisible by {mesh.dp} "
+                             "mesh devices")
 
         dt = self._dtype
         nnz = len(u)
@@ -489,7 +513,7 @@ class HPFMap(FactorModel):
             start_epoch = done_epoch + 1
             if cfg.verbose:
                 print(f"Resumed from {resume_from} after epoch {done_epoch}", flush=True)
-        val = self._build_eval(val_df) if val_df is not None else None
+        val = self._build_eval(val_df, mesh) if val_df is not None else None
         export_fn = lambda p, s: (p, s)  # noqa: E731
 
         if blocked:
@@ -535,17 +559,26 @@ class HPFMap(FactorModel):
             def epoch_fn(p, s):
                 perm = torch.randperm(n_pad, generator=gen, device=dev)
                 return train_epoch(p, s, perm, ui_all, x_all, user_scale,
-                                   item_scale, cfg_scalars, cfg.lr, B)
+                                   item_scale, cfg_scalars, cfg.lr, B, mesh)
 
+        if mesh is not None:
+            from pmf_tpu_torch.parallel.mesh import replicate
+
+            params = replicate(params, mesh)
         self.fit_history = []
         self.best_val_rmse = float("inf")
-        with profiled(profile_dir):
+        with profiled(profile_dir if writer else None):
             self._run_epochs(cfg, start_epoch, params, opt_state, nnz, epoch_fn,
-                             val, export_fn, gen, checkpoint_dir, checkpoint_every)
+                             val, export_fn, gen, checkpoint_dir, checkpoint_every,
+                             mesh)
         return self
 
     def _run_epochs(self, cfg, start_epoch, params, opt_state, nnz, epoch_fn, val,
-                    export_fn, gen, checkpoint_dir, checkpoint_every):
+                    export_fn, gen, checkpoint_dir, checkpoint_every, mesh=None):
+        from pmf_tpu_torch.utils.checkpoint import save_state
+
+        reduce = None if mesh is None else mesh.sum
+        save = save_state if mesh is None else mesh.save_state
         for epoch in range(start_epoch, cfg.epochs + 1):
             t0 = time.perf_counter()
             params, opt_state, loss = epoch_fn(params, opt_state)
@@ -555,21 +588,20 @@ class HPFMap(FactorModel):
             record["updates_per_sec"] = nnz / record["epoch_seconds"]
             msg = f"HPFMap epoch {epoch}/{cfg.epochs} | loss {record['train_loss']:.1f}"
             if val is not None:
-                val_rmse, val_macro = (float(v) for v in eval_metrics(params, val))
+                val_rmse, val_macro = (float(v) for v in eval_metrics(params, val,
+                                                                      reduce))
                 record.update(val_rmse=val_rmse, val_macro_mae=val_macro)
                 self.best_val_rmse = min(self.best_val_rmse, val_rmse)
                 msg += f" | val RMSE {val_rmse:.4f}"
-            if cfg.verbose:
+            if cfg.verbose and (mesh is None or mesh.is_writer):
                 print(msg, flush=True)
             self.fit_history.append(record)
             if checkpoint_dir and epoch % checkpoint_every == 0:
-                from pmf_tpu_torch.utils.checkpoint import save_state
-
                 # Rows in original order (export_fn unpermutes the blocked
                 # engine's), so a checkpoint resumes on either engine.
                 cp, cs = export_fn(params, opt_state)
-                save_state(checkpoint_dir, _pack_ckpt(cp, cs, gen.get_state(), epoch),
-                           {"epoch": epoch, "name": "HPFMap"})
+                save(checkpoint_dir, _pack_ckpt(cp, cs, gen.get_state(), epoch),
+                     {"epoch": epoch, "name": "HPFMap"})
         self.state, _ = export_fn(params, opt_state)
         return self
 

@@ -32,13 +32,14 @@ import numpy as np
 import torch
 
 from pmf_tpu_torch.data.coo import EvalSet, RatingsCOO
-from pmf_tpu_torch.eval.metrics import masked_macro_mae, masked_rmse
+from pmf_tpu_torch.eval.metrics import masked_metrics
 from pmf_tpu_torch.models.base import (
     FactorModel,
     FitLoop,
     as_triples,
     blocked_precision,
     poisson_stop_rule,
+    reduced,
     resolve_engine,
 )
 from pmf_tpu_torch.ops.segment import edge_dot, gather_rows, sorted_segment_sum
@@ -122,23 +123,27 @@ def _prior_where(has, stat, prior: float):
     return torch.where(has, prior + stat, torch.full_like(stat, prior))
 
 
-def _plain_block(E_self, E_other, self_ids, other_ids, x, counts, a0, b0, n_self):
+def _plain_block(E_self, E_other, self_ids, other_ids, x, counts, a0, b0, n_self,
+                 reduce=None):
     """One plain-Poisson coordinate block: allocation, then shape and rate
-    segment sums.  Empty rows reset to the (a0, b0) prior."""
+    segment sums (summed over a mesh by ``reduce``).  Empty rows reset to
+    the (a0, b0) prior."""
     self_rows = gather_rows(E_self, self_ids)
     other_rows = gather_rows(E_other, other_ids)
     rate = torch.clamp_min(edge_dot(self_rows, other_rows), RATE_FLOOR)
     alloc = (x / rate)[:, None] * self_rows * other_rows
     has = (counts > 0)[:, None]
-    return (_prior_where(has, sorted_segment_sum(alloc, self_ids, n_self), a0),
-            _prior_where(has, sorted_segment_sum(other_rows, self_ids, n_self), b0))
+    s_alloc, s_other = reduced(reduce, sorted_segment_sum(alloc, self_ids, n_self),
+                               sorted_segment_sum(other_rows, self_ids, n_self))
+    return _prior_where(has, s_alloc, a0), _prior_where(has, s_other, b0)
 
 
 def _extended_block(E_self, E_other, s_other, self_ids, other_ids, x, counts,
-                    a0, b0, n_self):
+                    a0, b0, n_self, reduce=None):
     """One extended-Poisson coordinate block, updating the K-factor row
     (theta or beta) and its scalar factor (phi or psi): returns
-    (a_fac, b_fac, a_s, b_s)."""
+    (a_fac, b_fac, a_s, b_s).  ``reduce`` sums each pass's statistics over
+    a mesh, the factor pass's before the rows update."""
     self_rows = gather_rows(E_self, self_ids)
     other_rows = gather_rows(E_other, other_ids)
     s_edges = gather_rows(s_other, other_ids)
@@ -146,46 +151,50 @@ def _extended_block(E_self, E_other, s_other, self_ids, other_ids, x, counts,
     dot = torch.clamp_min(edge_dot(self_rows, other_rows), RATE_FLOOR)
     alloc = (x / dot)[:, None] * self_rows * other_rows
     has = (counts > 0)[:, None]
-    a_fac = _prior_where(has, sorted_segment_sum(alloc, self_ids, n_self), a0)
-    b_fac = _prior_where(
-        has, sorted_segment_sum(other_rows * s_edges[:, None], self_ids, n_self), b0)
+    s_alloc, s_wother = reduced(
+        reduce, sorted_segment_sum(alloc, self_ids, n_self),
+        sorted_segment_sum(other_rows * s_edges[:, None], self_ids, n_self))
+    a_fac = _prior_where(has, s_alloc, a0)
+    b_fac = _prior_where(has, s_wother, b0)
     E_fac = a_fac / b_fac
 
     # Scalar factor: shape a0 + sum x; the rate uses the UPDATED factor row.
     dot_new = edge_dot(gather_rows(E_fac, self_ids), other_rows)
     has1 = counts > 0
-    a_s = _prior_where(has1, sorted_segment_sum(x, self_ids, n_self), a0)
-    b_s = _prior_where(has1, sorted_segment_sum(s_edges * dot_new, self_ids, n_self), b0)
-    return a_fac, b_fac, a_s, b_s
+    s_x, s_sdot = reduced(reduce, sorted_segment_sum(x, self_ids, n_self),
+                          sorted_segment_sum(s_edges * dot_new, self_ids, n_self))
+    return a_fac, b_fac, _prior_where(has1, s_x, a0), _prior_where(has1, s_sdot, b0)
 
 
 def sweep(state: dict, data: RatingsCOO, a0: float, b0: float,
-          extended: bool) -> dict:
+          extended: bool, reduce=None) -> dict:
     """One CAVI iteration over the flat dual-sorted COO: user block, then
-    item block, expectations refreshed between the blocks."""
+    item block, expectations refreshed between the blocks.  ``reduce``:
+    under a data-parallel mesh, the sum of the statistics over the ranks'
+    shares of the edges (``parallel.mesh``)."""
     E_theta = state["a_theta"] / state["b_theta"]
     E_beta = state["a_beta"] / state["b_beta"]
 
     if not extended:
         a_theta, b_theta = _plain_block(
             E_theta, E_beta, data.u_by_u, data.i_by_u, data.x_by_u,
-            data.user_counts, a0, b0, data.n_users)
+            data.user_counts, a0, b0, data.n_users, reduce)
         E_theta = a_theta / b_theta
         a_beta, b_beta = _plain_block(
             E_beta, E_theta, data.i_by_i, data.u_by_i, data.x_by_i,
-            data.item_counts, a0, b0, data.n_items)
+            data.item_counts, a0, b0, data.n_items, reduce)
         return {"a_theta": a_theta, "b_theta": b_theta, "a_beta": a_beta,
                 "b_beta": b_beta}
 
     E_psi = state["a_psi"] / state["b_psi"]
     a_theta, b_theta, a_phi, b_phi = _extended_block(
         E_theta, E_beta, E_psi, data.u_by_u, data.i_by_u, data.x_by_u,
-        data.user_counts, a0, b0, data.n_users)
+        data.user_counts, a0, b0, data.n_users, reduce)
     E_theta = a_theta / b_theta
     E_phi = a_phi / b_phi
     a_beta, b_beta, a_psi, b_psi = _extended_block(
         E_beta, E_theta, E_phi, data.i_by_i, data.u_by_i, data.x_by_i,
-        data.item_counts, a0, b0, data.n_items)
+        data.item_counts, a0, b0, data.n_items, reduce)
     return {"a_theta": a_theta, "b_theta": b_theta, "a_beta": a_beta,
             "b_beta": b_beta, "a_phi": a_phi, "b_phi": b_phi, "a_psi": a_psi,
             "b_psi": b_psi}
@@ -193,10 +202,12 @@ def sweep(state: dict, data: RatingsCOO, a0: float, b0: float,
 
 def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
                   item_counts: torch.Tensor, a0: float, b0: float,
-                  precision: str = "high") -> dict:
+                  precision: str = "high", reduce=None) -> dict:
     """The plain iteration of :func:`sweep`, with the two edge passes
     computed over the hybrid layout (``data.blocked.BlockedCOO``): sparse
-    tail by kernel K1, dense head tiers by kernel K2 at ``precision``."""
+    tail by kernel K1, dense head tiers by kernel K2 at ``precision``.
+    Under a data-parallel mesh ``blocked`` is the rank's band
+    (``parallel.mesh.shard_blocked``) and ``reduce`` sums the statistics."""
     from pmf_tpu_torch.ops.cavi_edge import poisson_edge_stats
 
     E_theta = state["a_theta"] / state["b_theta"]
@@ -206,6 +217,7 @@ def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
     s_alloc, s_other = poisson_edge_stats(E_theta, E_beta, blocked.by_user,
                                           head=head, head_side="user",
                                           precision=precision)
+    s_alloc, s_other = reduced(reduce, s_alloc, s_other)
     has = (user_counts > 0)[:, None]
     a_theta = _prior_where(has, s_alloc, a0)
     b_theta = _prior_where(has, s_other, b0)
@@ -214,6 +226,7 @@ def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
     s_alloc_i, s_other_i = poisson_edge_stats(E_beta, E_theta, blocked.by_item,
                                               head=head, head_side="item",
                                               precision=precision)
+    s_alloc_i, s_other_i = reduced(reduce, s_alloc_i, s_other_i)
     has_i = (item_counts > 0)[:, None]
     return {"a_theta": a_theta, "b_theta": b_theta,
             "a_beta": _prior_where(has_i, s_alloc_i, a0),
@@ -223,14 +236,14 @@ def sweep_blocked(state: dict, blocked, user_counts: torch.Tensor,
 def sweep_blocked_extended(state: dict, blocked, user_counts: torch.Tensor,
                            item_counts: torch.Tensor, sx_user: torch.Tensor,
                            sx_item: torch.Tensor, a0: float, b0: float,
-                           precision: str = "high") -> dict:
+                           precision: str = "high", reduce=None) -> dict:
     """The extended iteration of :func:`sweep` over the hybrid layout: per
     block the factor pass (K7 on the tail, K2 and linear products on the
     head), the row update, then the scalar pass (K8) with the NEW rows, on
     the other table and head products the factor pass made.
     ``sx_user`` / ``sx_item`` are the per-row rating sums (constant across
-    iterations, made once).  ``precision`` is the head's, as in
-    :func:`sweep_blocked`."""
+    iterations, made once).  ``precision`` is the head's and ``reduce`` the
+    mesh's sum, as in :func:`sweep_blocked`."""
     from pmf_tpu_torch.ops.ext_edge import ext_factor_stats, ext_scalar_stats
 
     head = blocked.head
@@ -241,11 +254,13 @@ def sweep_blocked_extended(state: dict, blocked, user_counts: torch.Tensor,
         S_alloc, S_wother, tables = ext_factor_stats(
             E_self, E_other, s_other, p, head=head, head_side=head_side,
             keep_tables=True, precision=precision)
+        S_alloc, S_wother = reduced(reduce, S_alloc, S_wother)
         a_fac = _prior_where(has, S_alloc, a0)
         b_fac = _prior_where(has, S_wother, b0)
         S_sdot = ext_scalar_stats(a_fac / b_fac, E_other, s_other, p, head=head,
                                   head_side=head_side, factor=tables,
                                   precision=precision)
+        (S_sdot,) = reduced(reduce, S_sdot)
         return (a_fac, b_fac, _prior_where(has1, sx, a0),
                 _prior_where(has1, S_sdot, b0))
 
@@ -264,9 +279,10 @@ def sweep_blocked_extended(state: dict, blocked, user_counts: torch.Tensor,
             "b_psi": b_psi}
 
 
-def eval_metrics(state: dict, ev: EvalSet, extended: bool):
+def eval_metrics(state: dict, ev: EvalSet, extended: bool, reduce=None):
     """(val RMSE, val macro-MAE) as 0-d tensors on the state's device;
-    out-of-range pairs predict 0."""
+    out-of-range pairs predict 0; ``reduce`` sums them over a mesh's shares
+    of the rows (``eval.metrics.masked_metrics``)."""
     E_theta = state["a_theta"] / state["b_theta"]
     E_beta = state["a_beta"] / state["b_beta"]
     pred = edge_dot(gather_rows(E_theta, ev.u), gather_rows(E_beta, ev.i))
@@ -274,9 +290,7 @@ def eval_metrics(state: dict, ev: EvalSet, extended: bool):
         pred = pred * gather_rows(state["a_phi"] / state["b_phi"], ev.u)
         pred = pred * gather_rows(state["a_psi"] / state["b_psi"], ev.i)
     pred = torch.where(ev.valid, pred, 0.0)
-    r = masked_rmse(ev.x, pred, ev.real)
-    mm = masked_macro_mae(ev.x, pred, ev.real, ev.class_id, ev.n_classes)
-    return r, mm
+    return masked_metrics(ev.x, pred, ev.real, ev.class_id, ev.n_classes, reduce)
 
 
 class PoissonMF(FactorModel):
@@ -285,35 +299,36 @@ class PoissonMF(FactorModel):
 
     def fit(self, train_df, val_df=None, device=None, elbo_every: int = 0,
             resume_from=None, checkpoint_dir=None, checkpoint_every: int = 10,
-            profile_dir=None):
+            profile_dir=None, mesh=None, state_sharding=None):
         """``device``: None = the CUDA card (raises without one); "cpu"
         runs the kernels' plain versions on the host.  ``elbo_every=N``
         records the auxiliary-variable ELBO in fit_history every N
         iterations (0 = off).  ``resume_from``, ``checkpoint_dir``,
-        ``checkpoint_every`` and ``profile_dir`` as in ``HPF.fit``."""
+        ``checkpoint_every``, ``profile_dir``, ``mesh`` and
+        ``state_sharding`` as in ``HPF.fit``."""
         cfg = self.config
-        self.device = resolve_device(device)
-        data = self._build_train(train_df)
+        if self._check_sharding(state_sharding, mesh, elbo_every):
+            from pmf_tpu_torch.parallel.tp import fit_tp, poisson_family
+
+            return fit_tp(self, poisson_family(cfg), train_df, val_df, resume_from,
+                          checkpoint_dir, checkpoint_every, profile_dir, mesh)
+        self.device = self._fit_device(device, mesh)
+        data = self._build_train(train_df, mesh)
         self.n_users, self.n_items = data.n_users, data.n_items
-        if cfg.verbose:
+        if cfg.verbose and (mesh is None or mesh.is_writer):
             print(f"Inferred n_users={self.n_users}, n_items={self.n_items}", flush=True)
         state = self._initial_state(
-            init_state(self.n_users, self.n_items, cfg, self.device), resume_from)
+            init_state(self.n_users, self.n_items, cfg, self.device), resume_from, mesh)
+        reduce = mesh.sum if mesh else None
 
         engine = resolve_engine(cfg.engine, data.nnz, self.device)
         self.engine_used = engine
         precision = blocked_precision(engine)
         if precision is not None:
-            from pmf_tpu_torch.data.blocked import build_blocked
-
-            u, i, x = as_triples(train_df)
-            # head_bytes: 2.5 GiB, the JAX package's tuned budget, so the
-            # head tiers equal the reference's.
-            self.blocked = blocked = build_blocked(
-                u, i, x, n_users=self.n_users, n_items=self.n_items,
-                dtype=self._dtype, reorder=True, head="auto",
-                head_bytes=5 << 29, device=self.device)
+            # head_bytes: 2.5 GiB, the JAX package's tuned budget.
+            self.blocked = blocked = self._blocked_layout(train_df, 5 << 29, mesh)
             if cfg.extended:
+                u, i, x = as_triples(train_df)
                 # Per-row rating sums: constant across iterations.
                 sx_user, sx_item = (
                     torch.from_numpy(np.bincount(ids, weights=x, minlength=n)
@@ -323,34 +338,37 @@ class PoissonMF(FactorModel):
                 def sweep_fn(s, d):
                     return sweep_blocked_extended(
                         s, blocked, d.user_counts, d.item_counts, sx_user,
-                        sx_item, cfg.a0, cfg.b0, precision=precision)
+                        sx_item, cfg.a0, cfg.b0, precision=precision, reduce=reduce)
             else:
 
                 def sweep_fn(s, d):
                     return sweep_blocked(s, blocked, d.user_counts,
                                          d.item_counts, cfg.a0, cfg.b0,
-                                         precision=precision)
+                                         precision=precision, reduce=reduce)
         else:
 
             def sweep_fn(s, d):
-                return sweep(s, d, cfg.a0, cfg.b0, cfg.extended)
+                return sweep(s, d, cfg.a0, cfg.b0, cfg.extended, reduce=reduce)
 
         def eval_fn(s, ev):
-            return eval_metrics(s, ev, cfg.extended)
+            return eval_metrics(s, ev, cfg.extended, reduce)
 
-        val = self._build_eval(val_df) if val_df is not None else None
+        val = self._build_eval(val_df, mesh) if val_df is not None else None
         loop = FitLoop(sweep_fn, eval_fn, cfg.max_iter, cfg.tol,
-                       poisson_stop_rule, verbose=cfg.verbose,
+                       poisson_stop_rule,
                        name="PoissonMF" + ("-ext" if cfg.extended else ""),
                        checkpoint_dir=checkpoint_dir,
-                       checkpoint_every=checkpoint_every, profile_dir=profile_dir,
+                       checkpoint_every=checkpoint_every,
                        # extended walks each block's edges again for the scalars
                        edge_visits_per_iter=(4 if cfg.extended else 2) * data.nnz,
-                       elbo_fn=self._make_elbo_fn(train_df) if elbo_every else None,
-                       elbo_every=elbo_every or 1)
+                       elbo_every=elbo_every or 1,
+                       **self._mesh_loop_args(
+                           mesh, cfg.verbose, profile_dir,
+                           self._make_elbo_fn(train_df) if elbo_every else None))
         self.state = loop.run(state, data, val)
         self.fit_history = loop.history
         self.n_sweeps = loop.n_sweeps
+        self.sweep_once = lambda s: sweep_fn(s, data)
         return self
 
     def _make_elbo_fn(self, train):

@@ -124,6 +124,26 @@ def tail_tables(e_self: torch.Tensor, e_other: torch.Tensor, p: TailCSR):
             new_space_rows(e_other, p.other_new_of_old if p.reordered else None))
 
 
+def band_rows(tab: torch.Tensor, p: TailCSR) -> torch.Tensor:
+    """The rows of a new-space self table that ``p`` holds: all of them for a
+    whole direction, rows [row0, row0 + rows) for a band
+    (``data.blocked.band_of``).  A band of a padded table still starts on
+    16 bytes."""
+    if p.row0 == 0 and p.rows == tab.shape[0]:
+        return tab
+    return tab[p.row0 : p.row0 + p.rows]
+
+
+def unband(out: torch.Tensor, p: TailCSR) -> torch.Tensor:
+    """Per-row statistics of ``p``'s rows placed in a table of all n_self
+    rows, zero outside a band."""
+    if p.row0 == 0 and p.rows == p.n_self:
+        return out
+    full = out.new_zeros((p.n_self,) + tuple(out.shape[1:]))
+    full[p.row0 : p.row0 + p.rows] = out
+    return full
+
+
 def check_padded_tables(K: int, tables, kernel: str = "K1") -> None:
     """Raise unless the (name, tensor) ``tables`` are the padded tables the
     row-group ``kernel`` takes on the card: 2-D, of one width,

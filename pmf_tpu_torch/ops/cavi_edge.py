@@ -30,6 +30,7 @@ from pmf_tpu_torch.ops import _build
 from pmf_tpu_torch.ops._tail import (
     GROUP_MAX_K,
     add_heads,
+    band_rows,
     check_head,
     check_long_rows,
     check_padded_tables,
@@ -37,6 +38,7 @@ from pmf_tpu_torch.ops._tail import (
     head_out,
     head_tables,
     tail_tables,
+    unband,
 )
 from pmf_tpu_torch.ops.dense_head import poisson_head_stats, poisson_head_stats_t
 
@@ -118,12 +120,14 @@ def poisson_edge_stats(e_self: torch.Tensor, e_other: torch.Tensor,
     S_alloc[r] = sum over r's edges of x * e_self[r] * e_other[o] / rate,
     S_other[r] = sum of e_other[o].  ``head``: the layout's DenseHead tiers
     (their edges are not in ``p``); ``head_side`` says whether self rows
-    are the head's user axis ("user", by_user pass) or item axis."""
+    are the head's user axis ("user", by_user pass) or item axis.  ``p``
+    may be a band of the direction (``data.blocked.band_of``): the tail
+    rows outside it are zero, and ``head`` is then the band's tiers."""
     K = e_self.shape[1]
     heads = check_head(p, head)
     t_self, t_other = tail_tables(e_self, e_other, p)
-    acc = tail_edge_stats(t_self, t_other, p.row_ptr, p.other, p.x, rate_floor, K=K,
-                          long_rows=p.long_rows)
+    acc = unband(tail_edge_stats(band_rows(t_self, p), t_other, p.row_ptr, p.other,
+                                 p.x, rate_floor, K=K, long_rows=p.long_rows), p)
     e_self, e_other = t_self[:, :K], t_other[:, :K]
     fn = poisson_head_stats if head_side == "user" else poisson_head_stats_t
     acc = add_heads(acc, [

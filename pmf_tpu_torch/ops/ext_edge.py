@@ -45,6 +45,7 @@ from pmf_tpu_torch.ops import _build
 from pmf_tpu_torch.ops._tail import (
     GROUP_MAX_K,
     add_heads,
+    band_rows,
     check_head,
     check_long_rows,
     check_padded_tables,
@@ -57,6 +58,7 @@ from pmf_tpu_torch.ops._tail import (
     products,
     record_rows as es_record,
     row_chunks,
+    unband,
 )
 from pmf_tpu_torch.ops.dense_head import ext_head_stats, ext_head_stats_t
 
@@ -195,8 +197,8 @@ def ext_factor_stats(E_self, E_other, s_other, p: TailCSR,
     heads = check_head(p, head)
     t_self = new_space_rows(E_self, p.self_new_of_old if p.reordered else None)
     records = es_record(E_other, s_other, p.other_new_of_old if p.reordered else None)
-    acc = ext_factor_tail(t_self, records, p.row_ptr, p.other, p.x, rate_floor, K=K,
-                          long_rows=p.long_rows)
+    acc = unband(ext_factor_tail(band_rows(t_self, p), records, p.row_ptr, p.other,
+                                 p.x, rate_floor, K=K, long_rows=p.long_rows), p)
     fn = ext_head_stats if head_side == "user" else ext_head_stats_t
     head_outs, sw = [], []
     for tier in heads:
@@ -234,8 +236,8 @@ def ext_scalar_stats(E_self_new, E_other, s_other, p: TailCSR, head=None,
                      precision)[:2]
             for tier in heads])
     e_self = new_space_rows(E_self_new, p.self_new_of_old if p.reordered else None)
-    acc = ext_scalar_tail(e_self, factor.records, p.row_ptr, p.other, K=K,
-                          long_rows=p.long_rows)
+    acc = unband(ext_scalar_tail(band_rows(e_self, p), factor.records, p.row_ptr,
+                                 p.other, K=K, long_rows=p.long_rows), p)
     acc = add_heads(acc, [
         (start, torch.sum(e_self[start : start + sw.shape[0], :K] * sw, dim=1))
         for start, sw in factor.sw])

@@ -35,6 +35,7 @@ from pmf_tpu_torch.ops import _build
 from pmf_tpu_torch.ops._tail import (
     GROUP_MAX_K,
     add_heads as _add_heads,
+    band_rows,
     check_head as _check_head,
     check_long_rows as _check_long_rows,
     check_padded_tables as _check_padded_tables,
@@ -46,6 +47,7 @@ from pmf_tpu_torch.ops._tail import (
     record_rows as record_table,
     row_chunks as _row_chunks,
     scattered_rows as _scattered_rows,
+    unband,
 )
 
 FACTOR_LAUNCHES = _build.LaunchCounter()
@@ -315,7 +317,7 @@ def gaussian_factor_stats(m_other, V_other, b_self, b_other, p: TailCSR,
                        p.other_old_of_new if p.reordered else None)
     del A_flat
     heads = _check_head(p, head)
-    out = factor_tail_stats(aug, p.row_ptr, p.other, p.x, K, with_bias_stats)
+    out = unband(factor_tail_stats(aug, p.row_ptr, p.other, p.x, K, with_bias_stats), p)
     out = _add_heads(out, [_gauss_head_out(t, aug, K, T, with_bias_stats,
                                            head_side, precision) for t in heads])
     if p.reordered:
@@ -342,7 +344,8 @@ def gaussian_bias_stats(m_self, m_other, b_other, p: TailCSR, head=None,
     K = m_self.shape[1]
     heads = _check_head(p, head)
     mb = record_table(m_other, b_other, p.other_new_of_old if p.reordered else None)
-    out = bias_tail_stats(mb, p.row_ptr, p.other, p.x, K=K, long_rows=p.long_rows)
+    out = unband(bias_tail_stats(mb, p.row_ptr, p.other, p.x, K=K,
+                                 long_rows=p.long_rows), p)
     head_outs = []
     for tier in heads:
         start, mp, _ = _products(tier, _head_rows(mb[:, : K + 1], tier, head_side),
@@ -393,8 +396,8 @@ def gaussian_diag_stats(m_other, v_other, m_self, b_self, b_other, p: TailCSR,
     sq_o = _padded_rows(torch.addcmul(v_other, m_other, m_other))
     if p.reordered:
         sq_o = _scattered_rows(sq_o, p.other_new_of_old)
-    out = diag_tail_stats(mb_s, mb_o, sq_o, p.row_ptr, p.other, p.x, K=K,
-                          long_rows=p.long_rows)
+    out = unband(diag_tail_stats(band_rows(mb_s, p), mb_o, sq_o, p.row_ptr, p.other,
+                                 p.x, K=K, long_rows=p.long_rows), p)
     out = _add_heads(out, [_diag_head_out(t, mb_o[:, :K], sq_o[:, :K], mb_o[:, K],
                                           mb_s[:, :K], mb_s[:, K], head_side,
                                           precision)

@@ -64,8 +64,27 @@ def test_port_package_files_are_scanned():
         "cli/run_single", "cli/tune", "cli/best_k", "cli/compare", "cli/train_full",
         "cli/reproduce", "analysis/forecasts", "analysis/exploratory",
         "analysis/top_dimensions", "analysis/embedding_viz", "data/native",
-        "data/layout_cache")} <= rel
+        "data/layout_cache", "parallel/__init__", "parallel/mesh", "parallel/tp",
+        "parallel/tp_blocked")} <= rel
     assert Path(pmf_tpu_torch.__file__).parent == REPO / "pmf_tpu_torch"
+
+
+def test_importing_parallel_starts_no_group_and_touches_no_card():
+    """The lazy rule holds for torch.distributed too: importing the mesh
+    modules (and the models that use them) starts no process group and
+    initialises no CUDA device."""
+    import subprocess
+    import sys
+
+    code = ("import torch, torch.distributed as dist\n"
+            "import pmf_tpu_torch, pmf_tpu_torch.parallel\n"
+            "from pmf_tpu_torch.parallel import mesh, tp, tp_blocked\n"
+            "from pmf_tpu_torch.eval import recommend\n"
+            "assert not dist.is_initialized(), 'a process group started'\n"
+            "assert not torch.cuda.is_initialized(), 'CUDA initialised'\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def _no_cuda(monkeypatch):
