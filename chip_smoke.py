@@ -147,7 +147,9 @@ Then the other engines:
                 ``recommend_sharded`` for every user against
                 ``recommend``.  Each fit's launches, peak memory and one
                 sweep's busy time with its heaviest kernels; the TP
-                layouts' buckets and tiers.
+                layouts' buckets and tiers; the TP layout's cache entry
+                (the HPF ring's layout cold into an empty directory, then
+                warm: seconds, MB, equal fields, one sweep equal in bits).
 16c. chunked -- HPF ``flat_chunked`` vs ``flat`` at full width, 2 sweeps,
                 in float32 (and ``flat`` again: the atomics' run-to-run
                 difference) and in float64, where the states must agree
@@ -169,6 +171,16 @@ functions and say so):
               models, ``compare --ranking``, ``tune.main --n_trials 2
               --seeds_per_trial 3`` and ``best_k`` with 3 seeds over 3 K,
               each fit's kernels checked from the launch counters.
+17a. torchrun -- inside phase cli, after its six run_single:
+              ``python -m torch.distributed.run --standalone
+              --nproc_per_node 1`` runs this script's ``--torchrun-child``:
+              ``run_single --mesh_devices 1`` for HPF and the Gaussian
+              model with biases (as phase cli ran them, ``--engine
+              blocked_high``) and ``recommend --mesh_devices 1`` on the
+              HPF run's checkpoint, NCCL at world size 1 from ``env://``;
+              launches equal to the runs without a mesh, states and
+              metrics equal in bits, the recommendations CSV equal byte
+              for byte.
 18. mseed  -- ``tune.multi_seed``: HPF, S=3, K=20 at the tuner's size,
               each seed equal to its single flat fit to 1e-4 relative; on
               the 24.9M training set, 2 vmapped sweeps timed, peak memory.
@@ -176,8 +188,15 @@ functions and say so):
               (369k training ratings, blocked engines), one tuner trial a
               model, the artifact set checked.
 
+20. roofline -- ``utils.roofline.roofline_fields`` of the HPF, plain and
+               extended Poisson and exact Gaussian sweeps' work counts
+               over the busy times of phases profile, pprofile and
+               gprofile, against the peaks of the card's own name; a
+               share above 100% fails the run.
+
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and as the
-last line ``{"ok": true, "device": {...}}``.
+last line ``{"ok": true, "device": {...}}``.  The peaks and ``bound``
+come from ``pmf_tpu_torch/utils/roofline.py``.
 """
 
 from __future__ import annotations
@@ -190,13 +209,19 @@ import time
 
 import numpy as np
 
+# The card's peaks (HBM bytes/s, FP32 and dense bf16 FLOP/s) and the bound
+# of a kernel's bytes and FP32 operations, from the port's roofline module.
+from pmf_tpu_torch.utils import roofline
+from pmf_tpu_torch.utils.roofline import (
+    BF16_FLOPS_PER_S,
+    FP32_FLOPS_PER_S,
+    HBM_BYTES_PER_S,
+    bound,
+)
+
 N_USERS, N_ITEMS, NNZ, K = 162_000, 59_000, 25_000_000, 20
 N_VAL = 100_000
 FIT_SWEEPS = 4
-# Published H100 SXM peaks: HBM bytes/s and float32 CUDA-core FLOP/s.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12  # dense tensor cores
 # Kernel vs plain version: f32 sums of positive terms taken in another
 # order; relative error per element.
 RTOL = 1e-4
@@ -240,12 +265,6 @@ def compare(got, ref) -> tuple[float, float]:
     rel = diff / ref.double().abs().clamp_min(1e-30)
     rel = torch.where(diff == 0, torch.zeros_like(rel), rel)
     return float(diff.max()), float(rel.max())
-
-
-def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / FP32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 WARM_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
@@ -1322,7 +1341,8 @@ def log_parts(groups, busy):
 def phase_profile(model, train, smi):
     """Steady sweep time (CUDA events over chained sweeps) and one sweep
     under torch.profiler: device time by kernel, K2's share of it and the
-    idle share."""
+    idle share.  Returns {"hpf": (the sweep's work count, busy ms)} for
+    phase roofline."""
     import torch
 
     from pmf_tpu_torch.models.hpf import sweep_blocked
@@ -1352,6 +1372,7 @@ def phase_profile(model, train, smi):
                                  "K1 tail_group_kernel<0>": (K1_TRACE,)})[0], busy)
     for dev_ms, n, key in rows[:8]:
         log(f"  {dev_ms:9.4f} ms  {n:3d}x  {key[:90]}")
+    return {"hpf": (roofline.hpf_blocked_traffic(model.blocked, K), busy)}
 
 
 # ----------------------------------------------------------------- serving --
@@ -1952,7 +1973,8 @@ def phase_pprofile(models, train, smi):
     extended Poisson sweeps; one plain and one extended sweep under
     torch.profiler (busy time, idle share, parts, matmul launches); the
     matmul launches of one scalar pass with and without the factor pass's
-    tables."""
+    tables.  Returns each sweep's work count and busy ms for phase
+    roofline."""
     nnz = len(train[0])
     sweeps = {}
     for name, (model, _) in models.items():
@@ -1973,12 +1995,15 @@ def phase_pprofile(models, train, smi):
             f"| {smi}")
     heads = _head_launches(models["extended"][0])
     rows, busy, wall_ms = profile_once(sweeps["plain"], {K1_TRACE: 2, **heads})
+    out = {"poisson": (roofline.hpf_blocked_traffic(models["plain"][0].blocked, K), busy)}
     log(f"  one plain sweep: device busy {busy:.4f} ms of {wall_ms:.4f} ms window "
         f"(idle share {1 - busy / wall_ms:.1%})")
     log_parts(trace_parts(rows, {"K2 head kernels": K2_KERNELS,
                                  "K1 tail_group_kernel<0>": (K1_TRACE,)})[0], busy)
     rows, busy, wall_ms = profile_once(sweeps["extended"],
                                        {K7_TRACE: 2, K8_TRACE: 2, **heads})
+    out["extended"] = (roofline.poisson_ext_blocked_traffic(
+        models["extended"][0].blocked, K), busy)
     groups, gemm_n = trace_parts(rows, {"K2 head kernels": K2_KERNELS,
                                         "K7 tail_group_kernel<2>": (K7_TRACE,),
                                         "K8 tail_group_kernel<5>": (K8_TRACE,)})
@@ -1995,7 +2020,7 @@ def phase_pprofile(models, train, smi):
         + ", ".join(f"{side} {a}, {b}" for side, (a, b) in scalar.items())
         + f" | a sweep: {gemm_n} on the factor pass's tables, {gemm_n + own} "
         "building their own")
-    return steady
+    return out
 
 
 def phase_pelbo(train, val, smi):
@@ -3029,7 +3054,8 @@ def phase_gprofile(full, diag, train, smi):
     """Steady sweep times (CUDA events over chained sweeps) of both
     configurations, and one exact and one diag sweep under torch.profiler:
     busy time, idle share and parts.  The diag sweep's steady time is paced
-    by the host; its busy time shows K6."""
+    by the host; its busy time shows K6.  Returns {"gaussian": (the exact
+    sweep's work count, busy ms)} for phase roofline."""
     import torch
 
     from pmf_tpu_torch.models.gaussian_mf import sweep_blocked
@@ -3068,14 +3094,19 @@ def phase_gprofile(full, diag, train, smi):
              "diag": {"K6 tail_group_kernel<4>": (K6_TRACE,),
                       "K5 tail_group_kernel<3>": (K5_TRACE,)}}
     expects = {"full": expect, "diag": {K6_TRACE: 2, K5_TRACE: 2}}
+    out = {}
     for name, label in (("full", "exact"), ("diag", "diag")):
         rows, busy, wall_ms = profile_once(sweeps[name], expects[name])
+        if name == "full":
+            cfg = full.config
+            out["gaussian"] = (roofline.gaussian_blocked_traffic(
+                full.blocked, K, bias_update=cfg.bias_update, use_bias=cfg.use_bias), busy)
         log(f"phase gprofile: ok | one {label} sweep: device busy {busy:.4f} ms of "
             f"{wall_ms:.4f} ms window (idle share {1 - busy / wall_ms:.1%})")
         log_parts(trace_parts(rows, parts[name])[0], busy)
         for dev_ms, n, key in rows[:12]:
             log(f"  {dev_ms:9.4f} ms  {n:3d}x  {key[:90]}")
-    return steady
+    return out
 
 
 GELBO_EXACT_SWEEPS, GELBO_DIAG_SWEEPS = 3, 2
@@ -3331,21 +3362,35 @@ def phase_cli(train, val, smi):
         processed = os.path.join(root, "mid", "processed")
         _write_splits(processed, mid)
         base = ["--processed_dir", processed]
+        plain = {}  # the runs phase torchrun repeats under a mesh
         for name in sorted(run_single.DEFAULTS):
             extra = (["--engine", "blocked_high", "--max_iter", "1"] if name == "hpf_map"
                      else ["--max_iter", str(CLI_ITERS)])
+            if name in TORCHRUN_MODELS:
+                extra = ["--engine", "blocked_high", *extra]
             counters = reset_counters()
             t0 = time.perf_counter()
             res = run_single.main(["--model", name, *base, *extra])
             torch.cuda.synchronize()
             model = res["_model"]
             got = _check_kernels(f"cli run_single {name}", counters, CLI_KERNELS[name])
+            if name in TORCHRUN_MODELS:
+                plain[name] = {"argv": ["--model", name, *base, *extra], "launches": got,
+                               "metrics": {k: res[k] for k in CLI_METRICS},
+                               "state": {k: v.clone() for k, v in model.state.items()}}
+                if name == "hpf_cavi":
+                    from pmf_tpu_torch.utils.checkpoint import save_model
+
+                    save_model(model, os.path.join(root, "mid", "hpf_ckpt"))
             if not all(np.isfinite(res[f"{s}_rmse"]) for s in ("train", "val", "test")):
                 raise AssertionError(f"cli run_single {name}: {res}")
             log(f"  run_single {name}: engine {model.engine_used}, "
                 f"{time.perf_counter() - t0:.1f} s wall, fit {res['fit_seconds']:.1f} s | "
                 f"val RMSE {res['val_rmse']:.6f} | launches {got}")
             del res, model
+        gc_cuda()
+        phase_torchrun(os.path.join(root, "mid"), plain, smi)
+        del plain
         gc_cuda()
 
         hp = os.path.join(root, "mid", "best_hyperparams.txt")
@@ -3414,6 +3459,105 @@ def phase_cli(train, val, smi):
             f"compare, tune, best_k in {time.perf_counter() - t_mid:.1f} s | {smi}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+TORCHRUN_MODELS = ("hpf_cavi", "gaussian_bias")
+TORCHRUN_SECONDS = 400  # the child's limit, its process start included
+CLI_METRICS = [f"{s}_{m}" for s in ("train", "val", "test") for m in ("rmse", "macro_mae")]
+
+
+def torchrun_child(workdir: str) -> int:
+    """The child of phase torchrun, one rank under ``torch.distributed.run``:
+    each command of ``workdir/commands.json`` with ``--mesh_devices 1``
+    appended, the launch counters reset just before each and read just
+    after; rank 0 writes each fit's state (npz), metrics and launches and
+    prints them with the recommend CLI's launches as one JSON line."""
+    import torch
+
+    from pmf_tpu_torch.cli import recommend, run_single
+
+    with open(os.path.join(workdir, "commands.json")) as f:
+        commands = json.load(f)
+    out = {}
+    for name, argv in commands["run_single"].items():
+        counters = reset_counters()
+        res = run_single.main([*argv, "--mesh_devices", "1"])
+        torch.cuda.synchronize()
+        out[name] = {"metrics": {k: res[k] for k in CLI_METRICS},
+                     "launches": _launched(counters)}
+        np.savez(os.path.join(workdir, f"mesh_{name}.npz"),
+                 **{k: v.cpu().numpy() for k, v in res["_model"].state.items()})
+    counters = reset_counters()
+    recommend.main([*commands["recommend"], "--mesh_devices", "1"])
+    torch.cuda.synchronize()
+    out["recommend"] = {"launches": _launched(counters)}
+    if int(os.environ.get("RANK", 0)) == 0:
+        with open(os.path.join(workdir, "mesh.json"), "w") as f:
+            json.dump(out, f)
+        print(json.dumps(out), flush=True)
+    return 0
+
+
+def phase_torchrun(mid_dir, plain, smi):
+    """The CLIs under ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1`` with ``--mesh_devices 1`` (NCCL at world size 1,
+    ``env://``) on phase cli's mid-size data: ``run_single`` for HPF and
+    the Gaussian model with biases as phase cli ran them (``plain``: their
+    argv, launches, metrics and states), and ``recommend`` on the HPF
+    run's checkpoint.  The child (this script's ``--torchrun-child``) must
+    end with 0; its fits must launch the kernels the runs without a mesh
+    launched and equal them in bits, and its recommendations CSV must equal
+    the one without a mesh byte for byte."""
+    import torch
+
+    from pmf_tpu_torch.cli import recommend
+
+    t_phase = time.perf_counter()
+    wd = os.path.join(mid_dir, "torchrun")
+    os.makedirs(wd)
+    ckpt = os.path.join(mid_dir, "hpf_ckpt")
+    rec = ["--checkpoint", ckpt]
+    t0 = time.perf_counter()
+    recommend.main([*rec, "--out", os.path.join(wd, "plain_rec.csv")])
+    t_rec = time.perf_counter() - t0
+    with open(os.path.join(wd, "commands.json"), "w") as f:
+        json.dump({"run_single": {n: p["argv"] for n, p in plain.items()},
+                   "recommend": [*rec, "--out", os.path.join(wd, "mesh_rec.csv")]}, f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", os.path.abspath(__file__), "--torchrun-child", wd]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=TORCHRUN_SECONDS)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun: the child exited {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    with open(os.path.join(wd, "mesh.json")) as f:
+        got = json.load(f)
+    for name, p in plain.items():
+        mesh = got[name]
+        if mesh["launches"] != p["launches"]:
+            raise AssertionError(f"torchrun {name}: launches {mesh['launches']} under the "
+                                 f"mesh, {p['launches']} without")
+        with np.load(os.path.join(wd, f"mesh_{name}.npz")) as z:
+            same = sorted(z.files) == sorted(p["state"]) and all(
+                torch.equal(torch.from_numpy(z[k]), p["state"][k].cpu()) for k in z.files)
+        if not (same and mesh["metrics"] == p["metrics"]):
+            raise AssertionError(f"torchrun {name}: the mesh run differs from the run "
+                                 f"without a mesh ({mesh['metrics']} vs {p['metrics']})")
+        log(f"  torchrun run_single {name} --mesh_devices 1: launches {mesh['launches']} "
+            f"| state and metrics equal in bits to the run without a mesh | val RMSE "
+            f"{mesh['metrics']['val_rmse']:.6f}")
+    with open(os.path.join(wd, "plain_rec.csv"), "rb") as a, \
+            open(os.path.join(wd, "mesh_rec.csv"), "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("torchrun: the recommendations CSV differs from the one "
+                                 "without a mesh")
+    log(f"  torchrun recommend --mesh_devices 1: CSV equal byte for byte to the one "
+        f"without a mesh ({t_rec:.1f} s in this process) | launches "
+        f"{got['recommend']['launches']}")
+    log(f"phase torchrun: ok | one child of torch.distributed.run (nccl, world size 1) "
+        f"ran 2 fits and recommend in {wall:.1f} s wall (process start included) | phase "
+        f"{time.perf_counter() - t_phase:.1f} s | {smi}")
 
 
 def _timed_seed_sweeps(cfg, train, n_iter):
@@ -4033,6 +4177,7 @@ def phase_mesh(train, val, gtrain, gval, fit_ref, smi):
                 raw_launches = launches["K1raw"]
                 _check_raw_launch(tp.tp.layout.by_user[0].tail, K)
             del tp, one
+        tp_cache = _tp_cache(train, mesh, smi)
         # 5. The flat ring against the flat fit, float64 at full width.
         flat_tp, _ = _mesh_run("tp hpf flat float64", lambda: _single(
             hpf.HPF, hpf.HPFConfig, pdata, dict(mesh=mesh, state_sharding="rows"),
@@ -4075,8 +4220,81 @@ def phase_mesh(train, val, gtrain, gval, fit_ref, smi):
         dist.destroy_process_group()
         shutil.rmtree(wd, ignore_errors=True)
     log(f"phase mesh: ok | world size 1 over nccl | {time.perf_counter() - t_phase:.1f} s "
-        f"| K1 raw launches from the extended TP fit: {raw_launches} | {smi}")
+        f"| K1 raw launches from the extended TP fit: {raw_launches} | TP layout cache: "
+        f"{tp_cache} | {smi}")
     return {"K1raw": raw_launches}
+
+
+def _layout_differences(a, b, path="layout") -> list:
+    """The fields where two layouts (dataclasses of tensors, sizes and
+    tuples) differ: tensors in dtype, shape or bits, the rest in value."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        same = (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a, b))
+        return [] if same else [path]
+    if dataclasses.is_dataclass(a):
+        return [d for f in dataclasses.fields(a) if f.compare
+                for d in _layout_differences(getattr(a, f.name), getattr(b, f.name),
+                                             f"{path}.{f.name}")]
+    if isinstance(a, (tuple, list)):
+        if len(a) != len(b):
+            return [path]
+        return [d for n, (x, y) in enumerate(zip(a, b))
+                for d in _layout_differences(x, y, f"{path}[{n}]")]
+    return [] if a == b else [path]
+
+
+def _tp_cache(train, mesh, smi) -> str:
+    """The TP blocked layout's cache entry at full width: the HPF ring's
+    layout (as ``fit(state_sharding="rows")`` builds it) built cold into
+    an empty directory, then read back warm (seconds, the entry's MB); the
+    two equal field by field, and one ring sweep on each equal in bits."""
+    import shutil
+
+    import torch
+
+    from pmf_tpu_torch.models.hpf import HPFConfig
+    from pmf_tpu_torch.parallel import tp, tp_blocked
+
+    u, i, x = train
+    fam = tp.hpf_family(HPFConfig(n_factors=K))
+    D = tp.tp_degree(mesh)
+    bal = tp.balance_perms(u, i, -(-N_USERS // D) * D, -(-N_ITEMS // D) * D, D)
+    ub, ib = bal.u_new_of_old[u], bal.i_new_of_old[i]
+    cdir = _fresh_dir("tp_layouts")
+    lays, secs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lays.append(tp_blocked.build_tp_blocked(ub, ib, x, N_USERS, N_ITEMS, mesh,
+                                                dtype=np.float32, head=fam.head,
+                                                cache_dir=cdir))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    mb = _dir_mb(cdir)
+    bad = _layout_differences(lays[1], lays[0])
+    if bad:
+        raise AssertionError(f"mesh: the warm TP layout differs from the cold one in {bad}")
+    init = tp.permute_state_rows(
+        tp.pad_state_rows(fam.init_numpy(N_USERS, N_ITEMS), fam.axis_of,
+                          lays[0].n_users_pad, lays[0].n_items_pad, fam.pad_ones),
+        fam.axis_of, bal.u_old_of_new, bal.i_old_of_new)
+    cold, warm = (fam.blocked(tp.place_tp(init, fam.axis_of, mesh), lay, mesh, "high")
+                  for lay in lays)
+    if not all(torch.equal(cold[k], warm[k]) for k in cold):
+        raise AssertionError("mesh: a ring sweep on the warm TP layout differs from one "
+                             "on the cold layout")
+    tiers = sum(len(b.head) for b in lays[0].by_user + lays[0].by_item)
+    del lays, cold, warm
+    shutil.rmtree(cdir, ignore_errors=True)
+    note = (f"cold build {secs[0]:.2f} s, warm {secs[1]:.2f} s, entry {mb:.1f} MB, "
+            "equal field by field, one sweep equal in bits")
+    log(f"  mesh tp cache (HPF ring layout, {tiers} tiers): {note} | {smi}")
+    return note
 
 
 def _check_raw_launch(p, k):
@@ -4242,38 +4460,6 @@ def phase_native(processed, train, smi):
         + f" | arrays and permutations equal | library calls {used} | {smi}")
 
 
-def _layout_tensors(b):
-    """Every tensor and size of a ``BlockedCOO``, by name."""
-    out = {}
-    for side, p in (("by_user", b.by_user), ("by_item", b.by_item)):
-        for f in ("row_ptr", "other", "x", "self_old_of_new", "other_old_of_new",
-                  "self_new_of_old", "other_new_of_old", "n_self", "n_other", "nnz",
-                  "reordered", "long_rows"):
-            out[f"{side}.{f}"] = getattr(p, f)
-    for t, h in enumerate(b.head or ()):
-        for f in ("x_hi", "x_lo", "m", "x_sum_user", "x_sum_item", "hu", "hi", "r0",
-                  "row_start"):
-            out[f"tier{t}.{f}"] = getattr(h, f)
-    return out
-
-
-def _same_layout(a, b) -> list:
-    """Names of the tensors or sizes that differ between two layouts."""
-    import torch
-
-    ta, tb = _layout_tensors(a), _layout_tensors(b)
-    bad = [k for k in ta.keys() | tb.keys() if k not in ta or k not in tb]
-    for k in ta.keys() & tb.keys():
-        x, y = ta[k], tb[k]
-        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
-            if not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
-                    and x.dtype == y.dtype and torch.equal(x, y)):
-                bad.append(k)
-        elif x != y:
-            bad.append(k)
-    return sorted(bad)
-
-
 def phase_cache(train, blocked, smi):
     """The layout cache at full width: ``build_blocked`` as ``HPF.fit``
     calls it, cold into an empty directory under ``_smoke_tmp/`` (the
@@ -4303,7 +4489,7 @@ def phase_cache(train, blocked, smi):
     warm = built
     entries = os.listdir(cdir)
     for other, label in ((cold, "cold build"), (blocked, "phase data's layout")):
-        bad = _same_layout(warm, other)
+        bad = _layout_differences(warm, other)
         if bad:
             raise AssertionError(f"cache: the hit differs from the {label} in {bad}")
     cfg = hpf.HPFConfig(n_factors=K)
@@ -4322,13 +4508,37 @@ def phase_cache(train, blocked, smi):
     return cdir
 
 
+def phase_roofline(sweeps: dict, smi):
+    """``utils.roofline.roofline_fields`` of each exact sweep's work count
+    (``hpf_blocked_traffic``, ``poisson_ext_blocked_traffic``,
+    ``gaussian_blocked_traffic``) over its busy time from phases profile,
+    pprofile and gprofile, against the peaks of the card's own name; a
+    share above 100% fails the run (the count would be wrong)."""
+    for name, (traffic, busy_ms) in sweeps.items():
+        f = roofline.roofline_fields(traffic, busy_ms / 1e3)
+        log(f"  roofline {name} sweep: busy {busy_ms:.4f} ms | {f['bytes_per_iter']} B "
+            f"(tail {f['tail_bytes_per_iter']}, head {f['head_bytes_per_iter']}) | "
+            f"{f['effective_gbps']:.2f} GB/s, pct_hbm_roofline "
+            f"{f['pct_hbm_roofline']:.3f} | {f['effective_tflops']:.4f} TFLOP/s, "
+            f"pct_mfu_bf16 {f['pct_mfu_bf16']:.4f} | "
+            f"{f['card']} | {smi}")
+        if not (0 < f["pct_hbm_roofline"] <= 100 and 0 < f["pct_mfu_bf16"] <= 100):
+            raise AssertionError(f"roofline {name}: a share outside (0, 100]: {f}")
+    log(f"phase roofline: ok | {len(sweeps)} sweeps | {smi}")
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on one CUDA card.")
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of another commit whose K8 phase K8 times in turns")
+    ap.add_argument("--torchrun-child", metavar="DIR",
+                    help="run phase torchrun's commands of DIR/commands.json under a mesh "
+                         "(this process started by torch.distributed.run)")
     args = ap.parse_args(argv)
+    if args.torchrun_child:
+        return torchrun_child(args.torchrun_child)
     t_start = time.perf_counter()
     smi = phase_device()
     import torch
@@ -4354,7 +4564,7 @@ def main(argv=None) -> int:
     model, launches = phase_fit(train, val, smi)
     high_rmse = {"hpf": [rec["val_rmse"] for rec in model.fit_history]}
     fit_ref = ({k: v.clone() for k, v in model.state.items()}, high_rmse["hpf"])
-    phase_profile(model, train, smi)
+    sweeps = phase_profile(model, train, smi)
     phase_serve(model, train, val, smi)
     phase_resume(model, train, val, smi)
     del model
@@ -4363,7 +4573,7 @@ def main(argv=None) -> int:
     phase_psmall()
     pmodels = phase_pfit(train, val, smi)
     high_rmse["extended"] = [rec["val_rmse"] for rec in pmodels["extended"][0].fit_history]
-    phase_pprofile(pmodels, train, smi)
+    sweeps.update(phase_pprofile(pmodels, train, smi))
     for _, plaunches in pmodels.values():
         launches = {k: launches[k] + plaunches[k] for k in launches}
     del pmodels
@@ -4394,7 +4604,7 @@ def main(argv=None) -> int:
     phase_gsmall()
     full, diag, glaunches = phase_gfit(gtrain, gval, smi)
     high_rmse["gaussian"] = [rec["val_rmse"] for rec in full.fit_history]
-    phase_gprofile(full, diag, gtrain, smi)
+    sweeps.update(phase_gprofile(full, diag, gtrain, smi))
     del full, diag
     gc_cuda()
     phase_gelbo(gtrain, gval, smi)
@@ -4419,6 +4629,7 @@ def main(argv=None) -> int:
     gc_cuda()
     phase_repro(smi)
     log(f"  phases cli, mseed and repro: {time.perf_counter() - t_new:.1f} s")
+    phase_roofline(sweeps, smi)
 
     def entry(name, source, replaces, res, n, kid, **more):
         return {"name": name, "route": "cuda", "source": source,
@@ -4466,7 +4677,7 @@ def main(argv=None) -> int:
     ]
     import shutil
 
-    for name in ("layouts", "cli_layouts"):
+    for name in ("layouts", "cli_layouts", "tp_layouts"):
         shutil.rmtree(os.path.join(SMOKE_TMP, name), ignore_errors=True)
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

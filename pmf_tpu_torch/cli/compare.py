@@ -3,11 +3,14 @@ with tuned configs, collect train/val/test RMSE, macro-MAE and
 wall-clock, render the 3-panel bar chart and write the params artifact.
 
     python -m pmf_tpu_torch.cli.compare [--synthetic N] [--hyperparams PATH]
-        [--ranking] [--device cuda|cpu]
+        [--ranking] [--device cuda|cpu] [--mesh_devices N]
 
 Each model runs inside its own try/except, so one model's failure does
 not stop the run (as in the reference); a missing card or a kernel fault
-raises out of the command.
+raises out of the command.  With ``--mesh_devices N`` (under ``torchrun
+--nproc_per_node N``) every fit is data-parallel over the ranks, the ranks
+agree on each model's outcome before the next one starts, and rank 0
+alone writes the plot and the params file.
 """
 
 from __future__ import annotations
@@ -20,10 +23,12 @@ import pandas as pd
 
 from pmf_tpu_torch import config as cfg_io
 from pmf_tpu_torch.cli.common import (
-    DEVICE_FAULTS,
     add_data_args,
     add_device_arg,
+    add_mesh_arg,
     get_splits,
+    isolated,
+    mesh_session,
     print_header,
     setup_runtime,
 )
@@ -48,20 +53,24 @@ def _config_for(run_name, key, config_cls, hyperparams):
 
 
 def compare_models(train_df, val_df, test_df, hyperparams: dict, verbose=False,
-                   elbo_every: int = 0, ranking: bool = False, device=None):
+                   elbo_every: int = 0, ranking: bool = False, device=None, mesh=None):
     """Fit the four models; returns (results DataFrame or None when none
     succeeded, {display name: config used}).  ``ranking``: add test
-    recall@10 / NDCG@10 (``eval.ranking``)."""
-    device = resolve_device(device)
+    recall@10 / NDCG@10 (``eval.ranking``).  ``mesh``: every fit
+    data-parallel over its ranks, each model kept or skipped on every rank
+    alike (``cli.common.isolated``)."""
+    device = mesh.device if mesh is not None else resolve_device(device)
     rows, configs_used = [], {}
     for display, run_name, key, config_cls in MODELS:
         print_header(display)
         config = _config_for(run_name, key, config_cls, hyperparams)
         config.verbose = verbose
         configs_used[display] = config
-        try:
+
+        def fit_one():
             res = run_model(run_name, train_df, val_df, test_df, config=config,
-                            elbo_every=elbo_every, verbose=verbose, device=device)
+                            elbo_every=elbo_every, verbose=verbose, device=device,
+                            mesh=mesh)
             model = res.pop("_model", None)
             res["model"] = display
             if ranking and model is not None:
@@ -76,16 +85,17 @@ def compare_models(train_df, val_df, test_df, hyperparams: dict, verbose=False,
                 )
                 res["test_recall@10"] = r["recall@10"]
                 res["test_ndcg@10"] = r["ndcg@10"]
-            rows.append(res)
-            print(
-                f"train/val/test RMSE: {res['train_rmse']:.3f} / "
-                f"{res['val_rmse']:.3f} / {res['test_rmse']:.3f} | "
-                f"time {res['fit_seconds']:.1f}s"
-            )
-        except DEVICE_FAULTS:
-            raise
-        except Exception as e:  # isolation, as in the reference
-            print(f"{display} FAILED: {e}", flush=True)
+            return res
+
+        res = isolated(display, fit_one, mesh)
+        if res is None:
+            continue
+        rows.append(res)
+        print(
+            f"train/val/test RMSE: {res['train_rmse']:.3f} / "
+            f"{res['val_rmse']:.3f} / {res['test_rmse']:.3f} | "
+            f"time {res['fit_seconds']:.1f}s"
+        )
     return (pd.DataFrame(rows) if rows else None), configs_used
 
 
@@ -145,10 +155,15 @@ def main(argv=None):
                         help="also compute test recall@10 / NDCG@10 "
                              "(beyond the reference's metric set)")
     add_device_arg(parser)
+    add_mesh_arg(parser)
     add_data_args(parser)
     args = parser.parse_args(argv)
     device = setup_runtime(args.device)
+    with mesh_session(args.mesh_devices, args.device, "compare") as mesh:
+        return _run(args, device, mesh)
 
+
+def _run(args, device, mesh):
     train_df, val_df, test_df = get_splits(args)
     hyperparams = cfg_io.load_best_hyperparams(args.hyperparams)
     if hyperparams:
@@ -158,12 +173,13 @@ def main(argv=None):
 
     results_df, configs_used = compare_models(
         train_df, val_df, test_df, hyperparams, verbose=args.verbose,
-        elbo_every=args.elbo, ranking=args.ranking, device=device)
+        elbo_every=args.elbo, ranking=args.ranking, device=device, mesh=mesh)
     if results_df is None:
         print("No model succeeded.")
         return None
-    plot_results(results_df, args.plot)
-    write_params(configs_used, args.params_out)
+    if mesh is None or mesh.is_writer:
+        plot_results(results_df, args.plot)
+        write_params(configs_used, args.params_out)
     print(f"\nWrote {args.plot} and {args.params_out}")
     print(results_df.drop(columns=[c for c in results_df.columns if c.startswith('_')])
           .to_string(index=False))

@@ -2,13 +2,15 @@
 
     python -m pmf_tpu_torch.cli.run_single --model {gaussian,gaussian_bias,
         poisson,poisson_extended,hpf_cavi,hpf_map} [--synthetic N]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--mesh_devices N]
 
 Per-model preprocessing as in the JAX package's runner: the Gaussian
 variants train on centred ratings; the Poisson variants check that the
 ratings are non-negative; HPF-CAVI and HPF-MAP train on ratings shifted
 by +1 and report metrics on the original scale.  Every fit runs on
-``--device`` (default: the CUDA card; it raises without one).
+``--device`` (default: the CUDA card; it raises without one).  With
+``--mesh_devices N`` it runs under ``torchrun --nproc_per_node N``, each
+fit data-parallel over the N ranks (``cli.common.mesh_session``).
 """
 
 from __future__ import annotations
@@ -20,8 +22,10 @@ from pmf_tpu_torch.cli.common import (
     Timer,
     add_data_args,
     add_device_arg,
+    add_mesh_arg,
     center,
     get_splits,
+    mesh_session,
     print_header,
     setup_runtime,
     shift,
@@ -64,10 +68,12 @@ DEFAULTS = {
 
 
 def run_model(model_name: str, train_df, val_df, test_df, config=None, verbose=True,
-              profile_dir=None, elbo_every: int = 0, device=None):
+              profile_dir=None, elbo_every: int = 0, device=None, mesh=None):
     """Train one model with its reference preprocessing; return metrics.
 
-    ``device``: None = the CUDA card (raises without one).
+    ``device``: None = the CUDA card (raises without one).  ``mesh``
+    (``parallel.make_mesh``): every fit data-parallel over its ranks (then
+    ``device`` is the mesh's); HPF-MAP runs flat under a mesh.
     ``profile_dir``: a ``torch.profiler`` trace of the whole fit.
     ``elbo_every=N``: the CAVI families record their ELBO every N
     iterations and the final one lands in the result; ignored for
@@ -81,7 +87,7 @@ def run_model(model_name: str, train_df, val_df, test_df, config=None, verbose=T
         model = GaussianMF(config)
         with Timer() as t:
             model.fit(train_c, val_c, global_mean=mean, device=device,
-                      profile_dir=profile_dir, elbo_every=elbo_every)
+                      profile_dir=profile_dir, elbo_every=elbo_every, mesh=mesh)
         for split, df in (("train", train_c), ("val", val_c), ("test", test_c)):
             results[f"{split}_rmse"] = model.evaluate_rmse(df, global_mean=mean)
             results[f"{split}_macro_mae"] = model.evaluate_macro_mae(df, global_mean=mean)
@@ -90,7 +96,7 @@ def run_model(model_name: str, train_df, val_df, test_df, config=None, verbose=T
         model = PoissonMF(config)
         with Timer() as t:
             model.fit(train_df, val_df, device=device, profile_dir=profile_dir,
-                      elbo_every=elbo_every)
+                      elbo_every=elbo_every, mesh=mesh)
         for split, df in (("train", train_df), ("val", val_df), ("test", test_df)):
             results[f"{split}_rmse"] = model.evaluate_rmse(df)
             results[f"{split}_macro_mae"] = model.evaluate_macro_mae(df)
@@ -101,10 +107,10 @@ def run_model(model_name: str, train_df, val_df, test_df, config=None, verbose=T
             if model_name == "hpf_cavi":
                 model = HPF(config)
                 model.fit(tr, va, device=device, profile_dir=profile_dir,
-                          elbo_every=elbo_every)
+                          elbo_every=elbo_every, mesh=mesh)
             else:
                 model = HPFMap(config)
-                model.fit(tr, va, device=device, profile_dir=profile_dir)
+                model.fit(tr, va, device=device, profile_dir=profile_dir, mesh=mesh)
         for split, df0, df1 in (("train", train_df, tr), ("val", val_df, va),
                                 ("test", test_df, te)):
             preds = model.predict(df1["u"].to_numpy(), df1["i"].to_numpy()) - 1.0
@@ -140,10 +146,15 @@ def main(argv=None):
                         help="record the ELBO every N iterations in "
                              "fit_history (CAVI models; 0 = off)")
     add_device_arg(parser)
+    add_mesh_arg(parser)
     add_data_args(parser)
     args = parser.parse_args(argv)
     device = setup_runtime(args.device)
+    with mesh_session(args.mesh_devices, args.device, "run_single") as mesh:
+        return _run(args, mesh.device if mesh else device, mesh)
 
+
+def _run(args, device, mesh):
     config = dataclasses.replace(DEFAULTS[args.model])
     if args.n_factors:
         config.n_factors = args.n_factors
@@ -160,7 +171,8 @@ def main(argv=None):
     train_df, val_df, test_df = get_splits(args)
     print_header(f"run_single: {args.model}")
     res = run_model(args.model, train_df, val_df, test_df, config=config,
-                    profile_dir=args.profile_dir, elbo_every=args.elbo, device=device)
+                    profile_dir=args.profile_dir, elbo_every=args.elbo, device=device,
+                    mesh=mesh)
     for split in ("train", "val", "test"):
         print(
             f"{split:>5} RMSE {res[f'{split}_rmse']:.4f} | "

@@ -2,6 +2,7 @@
 
     python -m pmf_tpu_torch.cli.train_full --model {gaussian,poisson,hpf_cavi,
         hpf_map,all} --dataset_mode {train,train+val,full} [--device cuda|cpu]
+        [--mesh_devices N]
 
 Per model: train on the selected union of splits with the tuned config
 (``best_hyperparams.txt``, else the defaults), then export
@@ -10,7 +11,10 @@ Per model: train on the selected union of splits with the tuned config
   data/embeddings/<model>/config.txt,
   data/predictions/<model>/test_predictions.csv  (u,i,y_true,y_pred),
 the same files as the JAX package's.  A model that fails is reported and
-the next one runs; a missing card or a kernel fault raises.
+the next one runs; a missing card or a kernel fault raises.  With
+``--mesh_devices N`` (under ``torchrun --nproc_per_node N``) every fit is
+data-parallel over the ranks, the ranks agree on each model's outcome, and
+rank 0 alone exports.
 """
 
 from __future__ import annotations
@@ -23,11 +27,13 @@ import pandas as pd
 
 from pmf_tpu_torch import config as cfg_io
 from pmf_tpu_torch.cli.common import (
-    DEVICE_FAULTS,
     Timer,
     add_data_args,
     add_device_arg,
+    add_mesh_arg,
     get_splits,
+    isolated,
+    mesh_session,
     print_header,
     setup_runtime,
     shift,
@@ -100,9 +106,12 @@ def _export(model_dir_name, user_emb, item_emb, config, extra_cfg, test_df, pred
 
 
 def train_one(model_name, train_df, val_df, test_df, dataset_mode, hyperparams,
-              data_dir="data", verbose=True, map_data_dir=None, device=None):
+              data_dir="data", verbose=True, map_data_dir=None, device=None,
+              mesh=None):
     """Fit one model and export its artifacts; returns the model, with
-    ``fit_seconds`` and ``export_seconds`` set on it."""
+    ``fit_seconds`` and ``export_seconds`` set on it.  ``mesh``: the fit
+    data-parallel over its ranks (``device`` then the mesh's); rank 0 alone
+    exports (the others' ``export_seconds`` is 0)."""
     dir_name, default_key, artifact_key, config_cls = SPECS[model_name]
     raw = hyperparams.get(artifact_key)
     config = (
@@ -120,7 +129,7 @@ def train_one(model_name, train_df, val_df, test_df, dataset_mode, hyperparams,
         dfc["rating"] -= mean
         model = GaussianMF(config)
         with Timer() as t:
-            model.fit(dfc, global_mean=mean, device=device)
+            model.fit(dfc, global_mean=mean, device=device, mesh=mesh)
         user_emb, item_emb = model.state["m_theta"], model.state["m_beta"]
 
         def predict_fn(u, i):
@@ -130,14 +139,14 @@ def train_one(model_name, train_df, val_df, test_df, dataset_mode, hyperparams,
     elif model_name == "poisson":
         model = PoissonMF(config)
         with Timer() as t:
-            model.fit(df, device=device)
+            model.fit(df, device=device, mesh=mesh)
         user_emb, item_emb = model._point_estimates()
         predict_fn = model.predict
         extra = {}
     else:  # hpf_cavi, hpf_map: +1 shift in, -1 out
         model = (HPF if model_name == "hpf_cavi" else HPFMap)(config)
         with Timer() as t:
-            model.fit(shift(df, 1), device=device)
+            model.fit(shift(df, 1), device=device, mesh=mesh)
         user_emb, item_emb = model._point_estimates()
 
         def predict_fn(u, i):
@@ -146,10 +155,12 @@ def train_one(model_name, train_df, val_df, test_df, dataset_mode, hyperparams,
         extra = {"rating_shift": 1}
 
     print(f"Training finished in {t.seconds:.1f}s")
-    with Timer() as e:
-        _export(dir_name, user_emb, item_emb, config, extra, test_df, predict_fn,
-                data_dir, map_data_dir)
-    model.fit_seconds, model.export_seconds = t.seconds, e.seconds
+    model.fit_seconds, model.export_seconds = t.seconds, 0.0
+    if mesh is None or mesh.is_writer:
+        with Timer() as e:
+            _export(dir_name, user_emb, item_emb, config, extra, test_df, predict_fn,
+                    data_dir, map_data_dir)
+        model.export_seconds = e.seconds
     return model
 
 
@@ -166,24 +177,26 @@ def main(argv=None):
                         "--data_dir)")
     parser.add_argument("--verbose", action="store_true")
     add_device_arg(parser)
+    add_mesh_arg(parser)
     add_data_args(parser)
     args = parser.parse_args(argv)
     device = setup_runtime(args.device)
+    with mesh_session(args.mesh_devices, args.device, "train_full") as mesh:
+        return _run(args, mesh.device if mesh else device, mesh)
 
+
+def _run(args, device, mesh):
     train_df, val_df, test_df = get_splits(args)
     hyperparams = cfg_io.load_best_hyperparams(args.hyperparams)
     names = list(SPECS) if args.model == "all" else [args.model]
     models = {}
     for name in names:
-        try:
-            models[name] = train_one(name, train_df, val_df, test_df, args.dataset_mode,
-                                     hyperparams, data_dir=args.data_dir,
-                                     verbose=args.verbose,
-                                     map_data_dir=args.map_data_dir, device=device)
-        except DEVICE_FAULTS:
-            raise
-        except Exception as e:  # isolation, as in the reference
-            print(f"{name} FAILED: {e}", flush=True)
+        model = isolated(name, lambda: train_one(
+            name, train_df, val_df, test_df, args.dataset_mode, hyperparams,
+            data_dir=args.data_dir, verbose=args.verbose, map_data_dir=args.map_data_dir,
+            device=device, mesh=mesh), mesh)
+        if model is not None:
+            models[name] = model
     return models
 
 

@@ -21,7 +21,17 @@ What is stored, in one self-contained ``.npz`` an entry:
   the cell planes.
 
 The kind string (``torch_blocked``) is the port's own, so the two packages
-never read each other's entries.  Entries are written to a temporary file
+never read each other's entries.
+
+A TP rank's share of the blocked ring layout
+(``parallel.tp_blocked.build_tp_blocked``) is an entry of its own kind
+(``torch_tp_blocked``), one a rank: its key adds the rank's ring and
+replica coordinates, so the ranks of a mesh write distinct files.  It
+holds the rank's buckets (each CSR tail verbatim, with its row pieces;
+each tier as its scatter triples), its permutations, counts and rating
+sums and the tiers picked (``pack_tp`` / ``unpack_tp``), and its code
+fingerprint adds ``parallel/tp_blocked.py`` and ``parallel/mesh.py``
+(whose ``band_csr`` cuts the buckets' bands).  Entries are written to a temporary file
 and moved into place (``os.replace``): readers never see a partial entry.
 An entry that does not load is a miss: the layout is rebuilt and written
 again.  A write that fails warns and keeps the built layout.
@@ -29,7 +39,8 @@ again.  A write that fails warns and keeps the built layout.
 On with ``build_blocked(..., cache_dir=DIR)`` or the environment variable
 ``PMF_TPU_TORCH_LAYOUT_CACHE`` (the CLIs set a default, see
 ``cli.common.setup_runtime``); an empty value turns it off.  Only the
-blocked layout is cached, as in the JAX package.
+blocked layouts are cached (single-device and TP), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -46,6 +57,13 @@ import numpy as np
 LAYOUT_CACHE_VERSION = 1
 ENV_VAR = "PMF_TPU_TORCH_LAYOUT_CACHE"
 KIND = "torch_blocked"
+TP_KIND = "torch_tp_blocked"
+# Sources beside those of ``code_fingerprint`` that decide a TP entry: the
+# bucket build and the modules it calls (the native sort's result is the
+# stable argsort whichever code runs it, so its C source is left out).
+TP_SOURCES = ("parallel/tp_blocked.py", "parallel/mesh.py", "parallel/tp.py",
+              "data/native.py", "ops/_tail.py")
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def resolve_cache_dir(cache_dir: str | None) -> str | None:
@@ -70,23 +88,36 @@ def data_fingerprint(*arrays) -> str:
 def code_fingerprint() -> str:
     """sha1 of the sources whose code decides an entry's arrays: the
     layout build (``data/blocked.py``) and this module's packing."""
-    h = hashlib.sha1()
-    here = os.path.dirname(os.path.abspath(__file__))
-    for name in ("blocked.py", "layout_cache.py"):
-        with open(os.path.join(here, name), "rb") as f:
+    return _sha1_of_sources(hashlib.sha1(), ("data/blocked.py", "data/layout_cache.py"))
+
+
+@functools.cache
+def tp_code_fingerprint() -> str:
+    """sha1 of ``code_fingerprint`` and the sources that build a TP
+    rank's buckets (``TP_SOURCES``)."""
+    return _sha1_of_sources(hashlib.sha1(code_fingerprint().encode()), TP_SOURCES)
+
+
+def _sha1_of_sources(h, names) -> str:
+    for name in names:
+        with open(os.path.join(PKG_DIR, name), "rb") as f:
             h.update(f.read())
     return h.hexdigest()
 
 
-def make_key(fingerprint: str, params: dict) -> str:
-    blob = json.dumps({"kind": KIND, "fp": fingerprint, "params": params,
-                       "version": LAYOUT_CACHE_VERSION, "code": code_fingerprint()},
+def make_key(fingerprint: str, params: dict, kind: str = KIND,
+             code: str | None = None) -> str:
+    """The entry's key: ``kind``, the data fingerprint, ``params``, the
+    version and ``code`` (None: ``code_fingerprint()``)."""
+    blob = json.dumps({"kind": kind, "fp": fingerprint, "params": params,
+                       "version": LAYOUT_CACHE_VERSION,
+                       "code": code_fingerprint() if code is None else code},
                       sort_keys=True, default=repr)
     return hashlib.sha1(blob.encode()).hexdigest()
 
 
-def entry_path(cache_dir: str, key: str) -> str:
-    return os.path.join(cache_dir, f"{KIND}_{key}.npz")
+def entry_path(cache_dir: str, key: str, kind: str = KIND) -> str:
+    return os.path.join(cache_dir, f"{kind}_{key}.npz")
 
 
 def save_entry(path: str, arrays: dict, meta: dict) -> None:
@@ -155,3 +186,83 @@ def unpack(arrays: dict, meta: dict, device):
              for t, tm in enumerate(meta["tiers"])]
     return BlockedCOO(by_user=tails["bu"], by_item=tails["bi"],
                       head=tuple(heads) if heads else None)
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def pack_tp(layout, triples: dict, arrays: dict) -> dict:
+    """A TP rank's ``TPBlockedLayout``: each bucket's tail arrays (and
+    row pieces) read back to the host, each tier as its scatter triples
+    (``triples[prefix][step]``: per tier (idx, x, {"hu", "hi", "r0",
+    "row_start"}), as ``build_tp_blocked`` collected them), the rank's
+    permutations, counts and sums.  Fills ``arrays`` and returns the
+    entry's meta."""
+    meta = {"dirs": {}, "layout": {}}
+    for prefix, buckets in (("bu", layout.by_user), ("bi", layout.by_item)):
+        dmeta = []
+        for st, b in enumerate(buckets):
+            key = f"{prefix}{st}"
+            p = b.tail
+            for name in ("row_ptr", "other", "x"):
+                arrays[f"{key}.{name}"] = _host(getattr(p, name))
+            if b.pieces is not None:
+                arrays[f"{key}.piece_row"] = _host(b.piece_row)
+                arrays[f"{key}.pieces"] = _host(b.pieces)
+            tiers = []
+            for t, (idx, xs, tm) in enumerate(triples[prefix][st]):
+                arrays[f"{key}.t{t}.idx"] = np.asarray(idx, np.int32)
+                arrays[f"{key}.t{t}.x"] = np.asarray(xs, np.float32)
+                tiers.append(tm)
+            dmeta.append({"n_self": p.n_self, "n_other": p.n_other, "nnz": p.nnz,
+                          "long_rows": p.long_rows, "row0": b.row0, "rows": b.rows,
+                          "pieces": b.pieces is not None, "tiers": tiers})
+        meta["dirs"][prefix] = dmeta
+    for name in ("u_old_of_new", "u_new_of_old", "i_old_of_new", "i_new_of_old",
+                 "user_counts", "item_counts", "x_sum_user", "x_sum_item"):
+        arrays[name] = _host(getattr(layout, name))
+    meta["layout"] = {n: getattr(layout, n) for n in (
+        "n_users", "n_items", "n_users_pad", "n_items_pad", "users_per", "items_per",
+        "n_devices", "nnz", "tiers_user", "tiers_item")}
+    return meta
+
+
+def unpack_tp(arrays: dict, meta: dict, device):
+    """The ``TPBlockedLayout`` of a TP entry on ``device``, each tier
+    scattered there from its triples as the cold build does."""
+    import torch
+
+    from pmf_tpu_torch.data.blocked import TailCSR, _scatter_head
+    from pmf_tpu_torch.parallel.tp_blocked import TPBlockedBucket, TPBlockedLayout
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    none = torch.empty(0, dtype=torch.int64, device=device)
+    dirs = {}
+    for prefix, dmeta in meta["dirs"].items():
+        buckets = []
+        for st, bm in enumerate(dmeta):
+            key = f"{prefix}{st}"
+            tail = TailCSR(row_ptr=t(arrays[f"{key}.row_ptr"]), other=t(arrays[f"{key}.other"]),
+                           x=t(arrays[f"{key}.x"]), self_old_of_new=none,
+                           other_old_of_new=none, self_new_of_old=none,
+                           other_new_of_old=none, n_self=bm["n_self"],
+                           n_other=bm["n_other"], nnz=bm["nnz"], reordered=False,
+                           long_rows=bm["long_rows"])
+            head = tuple(_scatter_head(arrays[f"{key}.t{n}.idx"], arrays[f"{key}.t{n}.x"],
+                                       device=device, **tm)
+                         for n, tm in enumerate(bm["tiers"]))
+            pieces = ((t(arrays[f"{key}.piece_row"]), t(arrays[f"{key}.pieces"]))
+                      if bm["pieces"] else (None, None))
+            buckets.append(TPBlockedBucket(tail, head, bm["row0"], bm["rows"], *pieces))
+        dirs[prefix] = tuple(buckets)
+    lm = dict(meta["layout"])
+    for side in ("tiers_user", "tiers_item"):
+        lm[side] = tuple(tuple(tier) for tier in lm[side])
+    return TPBlockedLayout(by_user=dirs["bu"], by_item=dirs["bi"],
+                           **{n: t(arrays[n]) for n in (
+                               "u_old_of_new", "u_new_of_old", "i_old_of_new",
+                               "i_new_of_old", "user_counts", "item_counts",
+                               "x_sum_user", "x_sum_item")}, **lm)

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from pmf_tpu_torch.data.blocked import (
+    LONG_ROW,
     TailCSR,
     _head_cell_index,
     _pick_tiers,
@@ -226,10 +227,12 @@ def _tiers(head, s_loc, o_loc, x, s_per, o_per, D, dp, head_bytes, head_r0,
 
 
 def _build_dir(s_glob, o_glob, x, s_per, o_per, D, d, dp, p, s_n2o, o_n2o, tiers,
-               head_r0, dtype, device, split_row) -> tuple:
+               head_r0, dtype, device, split_row, triples=None) -> tuple:
     """Rank d's D buckets of one direction: the tiers' cells of each
     bucket (replica p's band of rows) scattered into dense tiers, the rest
-    of the bucket's edges as its CSR tail (replica p's band)."""
+    of the bucket's edges as its CSR tail (replica p's band).  ``triples``
+    (a list, for the layout cache): each bucket's tiers as their scatter
+    triples (idx, x, tier arguments) are appended to it."""
     own = s_glob // s_per == d
     s_glob, o_glob, x = s_glob[own], o_glob[own], np.asarray(x)[own]
     v = o_glob // o_per
@@ -239,6 +242,7 @@ def _build_dir(s_glob, o_glob, x, s_per, o_per, D, d, dp, p, s_n2o, o_n2o, tiers
     x32 = x.astype(np.float32)
     tail = np.ones(len(s_loc), dtype=bool)
     heads = [[] for _ in range(D)]
+    kept = [[] for _ in range(D)]
     for rs, rows, hi in tiers:
         hip = -(-hi // 512) * 512
         hu_r = rows // dp
@@ -246,11 +250,15 @@ def _build_dir(s_glob, o_glob, x, s_per, o_per, D, d, dp, p, s_n2o, o_n2o, tiers
         sel = tail & (s_loc >= rs) & (s_loc < rs + rows) & (o_loc < hi)
         tail &= ~sel
         mine = sel & (s_loc >= band0) & (s_loc < band0 + hu_r)
+        tier = {"hu": hu_r, "hi": hi, "r0": min(head_r0, hu_r), "row_start": band0}
         for st in range(D):
             m = mine & (step == st)
-            heads[st].append(_scatter_head(
-                _head_cell_index(s_loc[m] - band0, o_loc[m], hip), x32[m], hu_r, hi,
-                min(head_r0, hu_r), band0, device))
+            idx = _head_cell_index(s_loc[m] - band0, o_loc[m], hip)
+            heads[st].append(_scatter_head(idx, x32[m], device=device, **tier))
+            if triples is not None:
+                kept[st].append((idx, x32[m], tier))
+    if triples is not None:
+        triples.extend(kept)
     out = []
     for st in range(D):
         m = tail & (step == st)
@@ -264,7 +272,8 @@ def _build_dir(s_glob, o_glob, x, s_per, o_per, D, d, dp, p, s_n2o, o_n2o, tiers
 def build_tp_blocked(u, i, x, n_users: int, n_items: int, mesh: Mesh,
                      dtype=np.float32, head=None, head_bytes: int = 2 << 30,
                      head_r0: int = 512, head_min_nnz: int = 4_000_000,
-                     split_row: int = SPLIT_ROW) -> TPBlockedLayout:
+                     split_row: int = SPLIT_ROW,
+                     cache_dir: str | None = None) -> TPBlockedLayout:
     """This rank's share of the blocked dual bucket layout, on the mesh's
     device; every rank calls it with the same edges (ids already balanced).
     ``head``: None = tails only; "auto" = a staircase per direction sized
@@ -273,7 +282,12 @@ def build_tp_blocked(u, i, x, n_users: int, n_items: int, mesh: Mesh,
     buckets); a list of (row_start, rows, hi) = explicit tiers for both
     directions in shard-local rows, each ``rows`` a multiple of
     ``head_r0 * dp``.  ``split_row``: the most edges a piece of a tail
-    row holds (``TPBlockedBucket``)."""
+    row holds (``TPBlockedBucket``).  ``cache_dir`` (or
+    ``PMF_TPU_TORCH_LAYOUT_CACHE``): keep this rank's share on disk, keyed
+    by the edges, every argument and the rank's coordinates, and reload it
+    equal in bits on a repeat build (``data.layout_cache.pack_tp``)."""
+    from pmf_tpu_torch.data import layout_cache as lc
+
     u = np.asarray(u, dtype=np.int64)
     i = np.asarray(i, dtype=np.int64)
     x = np.asarray(x, dtype=dtype)
@@ -281,6 +295,21 @@ def build_tp_blocked(u, i, x, n_users: int, n_items: int, mesh: Mesh,
     users_per = _round_up(n_users, D) // D
     items_per = _round_up(n_items, D) // D
     dev = mesh.device
+    cdir = lc.resolve_cache_dir(cache_dir)
+    cpath = None
+    triples = {"bu": None, "bi": None}
+    if cdir is not None:
+        params = dict(n_users=n_users, n_items=n_items, D=D, dp=dp, ring=d, replica=p,
+                      dtype=np.dtype(dtype).str, head=repr(head), head_bytes=head_bytes,
+                      head_r0=head_r0, head_min_nnz=head_min_nnz, split_row=split_row,
+                      long_row=LONG_ROW)
+        key = lc.make_key(lc.data_fingerprint(u, i, x), params, kind=lc.TP_KIND,
+                          code=lc.tp_code_fingerprint())
+        cpath = lc.entry_path(cdir, key, kind=lc.TP_KIND)
+        hit = lc.load_entry(cpath)
+        if hit is not None:
+            return lc.unpack_tp(*hit, dev)
+        triples = {"bu": [], "bi": []}
     u_o2n, u_n2o = _local_perms(u, users_per, D)
     i_o2n, i_n2o = _local_perms(i, items_per, D)
     u_loc = u_n2o[u // users_per, u % users_per]
@@ -289,9 +318,9 @@ def build_tp_blocked(u, i, x, n_users: int, n_items: int, mesh: Mesh,
     tiers_u = _tiers(head, u_loc, i_loc, x, users_per, items_per, *knobs)
     tiers_i = _tiers(head, i_loc, u_loc, x, items_per, users_per, *knobs)
     by_user = _build_dir(u, i, x, users_per, items_per, D, d, dp, p, u_n2o, i_n2o,
-                         tiers_u, head_r0, dtype, dev, split_row)
+                         tiers_u, head_r0, dtype, dev, split_row, triples["bu"])
     by_item = _build_dir(i, u, x, items_per, users_per, D, d, dp, p, i_n2o, u_n2o,
-                         tiers_i, head_r0, dtype, dev, split_row)
+                         tiers_i, head_r0, dtype, dev, split_row, triples["bi"])
     own_u = slice(d * users_per, (d + 1) * users_per)
     own_i = slice(d * items_per, (d + 1) * items_per)
     x64 = np.asarray(x, np.float64)
@@ -300,7 +329,7 @@ def build_tp_blocked(u, i, x, n_users: int, n_items: int, mesh: Mesh,
         return torch.from_numpy(np.ascontiguousarray(a if dt is None else a.astype(dt))
                                 ).to(dev)
 
-    return TPBlockedLayout(
+    layout = TPBlockedLayout(
         by_user=by_user, by_item=by_item,
         u_old_of_new=t(u_o2n[d]), u_new_of_old=t(u_n2o[d]),
         i_old_of_new=t(i_o2n[d]), i_new_of_old=t(i_n2o[d]),
@@ -311,6 +340,10 @@ def build_tp_blocked(u, i, x, n_users: int, n_items: int, mesh: Mesh,
         n_users=n_users, n_items=n_items, n_users_pad=users_per * D,
         n_items_pad=items_per * D, users_per=users_per, items_per=items_per,
         n_devices=D, nnz=int(len(u)), tiers_user=tiers_u, tiers_item=tiers_i)
+    if cpath is not None:
+        arrays = {}
+        lc.save_entry(cpath, arrays, lc.pack_tp(layout, triples, arrays))
+    return layout
 
 
 # -------------------------------------------------------------- passes --

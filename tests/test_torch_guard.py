@@ -65,7 +65,7 @@ def test_port_package_files_are_scanned():
         "cli/reproduce", "analysis/forecasts", "analysis/exploratory",
         "analysis/top_dimensions", "analysis/embedding_viz", "data/native",
         "data/layout_cache", "parallel/__init__", "parallel/mesh", "parallel/tp",
-        "parallel/tp_blocked")} <= rel
+        "parallel/tp_blocked", "utils/roofline", "utils/platform")} <= rel
     assert Path(pmf_tpu_torch.__file__).parent == REPO / "pmf_tpu_torch"
 
 
