@@ -88,9 +88,17 @@ k17small), K3 and K4 at every K where their geometry changes (phase
 k34small), every kernel at K = 50
 and K = 128 vs its plain version on small shapes (K2 on both sides with
 both M types), then
-at K = 50 the small, psmall, gsmall and msmall card-vs-host runs.  Beside
-the real-data phases, "bigk timing": every kernel's time at K = 50 on the
-real tail, tiers, matrices and steps.
+at K = 50 the small, psmall, gsmall and msmall card-vs-host runs.  Past
+K = 128 inside phase bigk, phase hugek: every kernel at K = 129, 160,
+256, 300 and on both sides of every boundary its module lists
+(``hugek_plan``; K2 at both precisions), then the four card-vs-host runs
+at K = 160 (gsmall on a 600 x 300 input, 2 sweeps).  Beside the
+real-data phases, "bigk timing": every kernel's time at K = 50 on the
+real tail, tiers, matrices and steps; "huge timing": the same at K = 160
+with the bound at K = 160 (K2 also against its plain version on every
+tier).  After phase resume, phase hugefit: ``HPF(n_factors=160)`` at full
+width, 4 sweeps with launch counters, one sweep traced (K2, K1, the
+rest), read by phase roofline.
 
 Those are freed, then the Gaussian-MF CAVI path:
 
@@ -580,7 +588,7 @@ def phase_k1raw(blocked):
     return res
 
 
-def _k2_bound(rows, hip, m_f32, has_lo, n_bytes, fast=False):
+def _k2_bound(rows, hip, m_f32, has_lo, n_bytes, fast=False, k=K):
     """The three lines of K2's bound over one tier and side, in ms: the
     bytes; the tensor-core flops as the kernel issues them (K pads to
     ceil(K / 8) blocks of 8 in depth and in width; per 16 x 16 cells the
@@ -590,8 +598,10 @@ def _k2_bound(rows, hip, m_f32, has_lo, n_bytes, fast=False):
     elementwise work a cell (clamp, reciprocal, multiply, the subtraction of
     W's split, 1.5 adds into the running sums; one add for x_lo; a select
     and a subtraction for a float32 M).  ``fast`` (the one-term instance):
-    one mma a block for each product, no split of W or M."""
-    blocks = -(-K // 8)
+    one mma a block for each product, no split of W or M.  At ``k`` past
+    K = 32 the count is the function's (ceil(k / 8) blocks, R once), not
+    the padding and the output groups' R the kernel adds."""
+    blocks = -(-k // 8)
     mmas = 3 * blocks if fast else (3 + 3 + (3 if m_f32 else 2)) * blocks
     split = 0 if fast else 1
     cells = rows * hip
@@ -737,6 +747,16 @@ def phase_k2small():
 
 BIGK_KS = (50, 128)  # the K of the bigk phase's checks
 K_WIDE = 50  # the K at which every kernel is also timed on the real data
+# Past K = 128 (phase hugek): every kernel at these K and at K - 1 and K of
+# each boundary its module lists (``boundary_ks``), on small shapes.
+HUGEK_KS = (129, 160, 256, 300)
+K_HUGE = 160  # every kernel timed on the real data; the full-width HPF fit
+# The input of the checks past K = 300 and of the K = 160 Gaussian
+# card-vs-host run: (users, items, ratings), a head of (row_start, rows,
+# items) tiers and its row multiple.
+TINY = (600, 300, 12_000)
+TINY_HEAD = ([(0, 64, 300), (64, 128, 100)], 64)
+HUGE_K4_MATS = 264  # K4's matrices a check where its form is "global"
 
 
 def _pos(gen, *shape):
@@ -854,6 +874,26 @@ def _tail_plain(kid, tabs, p, k):
     return fn(*tabs, p.row_ptr, p.other, p.x, max_edges=1 << 22, K=k)
 
 
+def _tail_plain_rows(kid, tabs, p, k, max_edges=1 << 22):
+    """``_tail_plain`` on runs of whole self rows of at most ``max_edges``
+    edges each, so that its per-edge temporaries stay a few GB on the real
+    tail past K = 128."""
+    import types
+
+    import torch
+
+    from pmf_tpu_torch.ops._tail import row_chunks
+
+    outs = []
+    for r0, r1 in row_chunks(p.row_ptr, max_edges):
+        e0, e1 = int(p.row_ptr[r0]), int(p.row_ptr[r1])
+        sub = types.SimpleNamespace(row_ptr=p.row_ptr[r0 : r1 + 1] - e0,
+                                    other=p.other[e0:e1], x=p.x[e0:e1])
+        outs.append(_tail_plain(kid, tuple(t[r0:r1] if i in SELF_TABS[kid] else t
+                                           for i, t in enumerate(tabs)), sub, k))
+    return torch.cat(outs)
+
+
 def _tail_error(kid, got, ref):
     """(error, ok): relative per element for K1 and K7's positive sums, per
     column for K5 and K6's signed ones."""
@@ -919,16 +959,15 @@ def _tail_notes(kid, name, tabs, p, k, ms, out_bytes):
 
 
 def _tail_geometry_ks():
-    """Every K where a row-group kernel's plan changes (its first and last
-    K), and K = 3, 7, 20, 50, 70, 127 (padded strides and the timed K)."""
-    from pmf_tpu_torch.ops._tail import GROUP_MAX_K, launch_plan
+    """Every K where a row-group kernel's plan changes (K - 1 and K of each
+    ``_tail.boundary_ks``, past K = 128 too), HUGEK_KS, and K = 3, 7, 20,
+    50, 70, 127 (padded strides and the timed K)."""
+    from pmf_tpu_torch.ops._tail import boundary_ks
 
-    plans = [tuple(launch_plan(k, kid)[f] for kid in TAIL_KERNELS for f in ("lanes", "vec"))
-             for k in range(1, GROUP_MAX_K + 1)]
-    edges = {k + 1 for k in range(len(plans))
-             if k == 0 or k == len(plans) - 1 or plans[k] != plans[k - 1]
-             or plans[k] != plans[k + 1]}
-    return sorted(edges | {3, 7, 20, 50, 70, 127})
+    ks = {3, 7, 20, 50, 70, 127, *HUGEK_KS}
+    for kid in TAIL_KERNELS:
+        ks |= {k for b in boundary_ks(kid) for k in (b - 1, b) if k >= 1}
+    return sorted(ks)
 
 
 def phase_k17small(blocked, gblocked):
@@ -1003,10 +1042,10 @@ def _gauss_tail_tabs(kid, m_s, b_s, m_o, v_o, b_o):
 
 
 def _small_k34(blocked, ks=(1, 2, 5, 7, 8, 9, 16, 17, 20, 24, 25, 30, 31, 32, 33, 48,
-                            49, 64, 65, 100, 128)):
-    """K3 (lagged) and K4 (1003 matrices: no multiple of any packing) at
-    every K where the kernels' geometry changes, against their plain
-    versions."""
+                            49, 64, 65, 100, 128), n_mats=1003):
+    """K3 (lagged) and K4 (``n_mats`` matrices, 1003: no multiple of any
+    packing) at every K where the kernels' geometry changes, against
+    their plain versions."""
     import torch
 
     from pmf_tpu_torch.ops import gaussian_edge as ge
@@ -1023,7 +1062,7 @@ def _small_k34(blocked, ks=(1, 2, 5, 7, 8, 9, 16, 17, 20, 24, 25, 30, 31, 32, 33
             if not ok:
                 raise AssertionError(f"K3 K={k}: column error {col} > {COL_RTOL}")
             worst3 = max(worst3, col)
-        P = _spd(1003, k, 60 + k)
+        P = _spd(n_mats, k, 60 + k)
         ref = batched_psd_inverse_gj_plain(P)
         ref64 = torch.linalg.inv(P.double())
         scale = ref64.abs().amax(dim=(1, 2))
@@ -1034,20 +1073,25 @@ def _small_k34(blocked, ks=(1, 2, 5, 7, 8, 9, 16, 17, 20, 24, 25, 30, 31, 32, 33
             raise AssertionError(f"K4 K={k}: error {err} > {INV_RTOL}")
         worst4 = max(worst4, err)
     torch.cuda.synchronize()
-    log(f"phase k34small: ok | K in {list(ks)} | K3 worst column error {worst3:.3e} "
+    log(f"phase k34small: ok | K in {list(ks)} | {blocked.by_user.n_self} x "
+        f"{blocked.by_item.n_self}, {blocked.by_user.nnz} ratings, {n_mats} matrices "
+        f"| K3 worst column error {worst3:.3e} "
         f"(tol {COL_RTOL}), K4 worst per-matrix error {worst4:.3e} (tol {INV_RTOL})")
 
 
-def _bigk_head(k):
-    """K2 at ``k`` vs its plain version in float64: two shapes, the three
-    cell kinds (bf16 and float32 M), both sides, a second launch in bits."""
+def _bigk_head(k, shapes=((70, 128), (3000, 960)), precision="high"):
+    """K2 at ``k`` vs its plain version in float64: ``shapes``, the three
+    cell kinds (bf16 and float32 M), both sides, a second launch in bits;
+    at ``precision`` "fast" the one-term instance, at k2fast's small-shape
+    gate FAST_SMALL_RTOL."""
     import torch
 
     from pmf_tpu_torch.ops.dense_head import fused_alloc_tier, fused_alloc_tier_plain
 
+    tol = RTOL if precision == "high" else FAST_SMALL_RTOL
     gen = torch.Generator(device="cuda").manual_seed(70 + k)
     worst = 0.0
-    for rows, hip in ((70, 128), (3000, 960)):
+    for rows, hip in shapes:
         hi = hip - 13
         for kind in ("integer", "fractional", "m_f32"):
             x_hi, x_lo, m = _k2small_cells(kind, rows, hip, hi, gen)
@@ -1055,39 +1099,46 @@ def _bigk_head(k):
             beta = 0.02 + torch.rand(hip, k, generator=gen, device="cuda")
             beta[hi:] = 0
             for item_side in (False, True):
-                kw = dict(rate_floor=K2SMALL_FLOOR, item_side=item_side)
+                kw = dict(rate_floor=K2SMALL_FLOOR, item_side=item_side,
+                          precision=precision)
                 got = fused_alloc_tier(theta, beta, x_hi, m, x_lo, **kw)
                 again = fused_alloc_tier(theta, beta, x_hi, m, x_lo, **kw)
                 ref = fused_alloc_tier_plain(theta.double(), beta.double(), x_hi, m,
                                              x_lo, **kw)
                 _, rel = compare(got, ref)
-                tag = (f"bigk K2 K={k} rows {rows} hip {hip} {kind} "
+                tag = (f"bigk K2 {precision} K={k} rows {rows} hip {hip} {kind} "
                        f"{'item' if item_side else 'user'}")
-                if got.shape != ref.shape or not rel <= RTOL:
-                    raise AssertionError(f"{tag}: relative error {rel} > {RTOL}")
+                if got.shape != ref.shape or not rel <= tol:
+                    raise AssertionError(f"{tag}: relative error {rel} > {tol}")
                 if not torch.equal(got, again):
                     raise AssertionError(f"{tag}: two launches differ in bits")
                 worst = max(worst, rel)
     return worst
 
 
-def _spd(n, k, seed):
-    """n random K x K positive-definite matrices on the card."""
+def _spd(n, k, seed, chunk=8192):
+    """n random K x K positive-definite matrices on the card, 0.5 I + A A^T,
+    made ``chunk`` at a time (no n x K x K temporary beside the result)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    A = 0.1 * torch.randn(n, k, k, generator=g, device="cuda")
-    return (0.5 * torch.eye(k, device="cuda") + A @ A.transpose(1, 2)).contiguous()
+    P = torch.empty((n, k, k), device="cuda")
+    for r0 in range(0, n, chunk):
+        A = 0.1 * torch.randn(min(chunk, n - r0), k, k, generator=g, device="cuda")
+        torch.bmm(A, A.transpose(1, 2), out=P[r0 : r0 + A.shape[0]])
+        P[r0 : r0 + A.shape[0]].diagonal(dim1=1, dim2=2).add_(0.5)
+    return P
 
 
-def _bigk_inverse(k):
-    """K4 at ``k`` vs its plain version and float64 inv, per matrix."""
+def _bigk_inverse(k, n=3000):
+    """K4 at ``k`` vs its plain version and float64 inv, per matrix, on
+    ``n`` matrices."""
     import torch
 
     from pmf_tpu_torch.ops.gj_inverse import (
         batched_psd_inverse_gj, batched_psd_inverse_gj_plain)
 
-    P = _spd(3000, k, 40 + k)
+    P = _spd(n, k, 40 + k)
     got = batched_psd_inverse_gj(P)
     ref = batched_psd_inverse_gj_plain(P)
     ref64 = torch.linalg.inv(P.double())
@@ -1099,16 +1150,18 @@ def _bigk_inverse(k):
     return err
 
 
-def _bigk_map(u, i, x, k):
-    """K9 at ``k`` on a small layout: three steps of an epoch grouping
-    (the first, the last, the one with the longest item run), with pieces
-    of PIECE edges and of 16 (so that many runs span several pieces)."""
+def _bigk_map(u, i, x, k, lay=None):
+    """K9 at ``k`` on a small layout (``lay``, or one built here): three
+    steps of an epoch grouping (the first, the last, the one with the
+    longest item run), with pieces of PIECE edges and of 16 (so that many
+    runs span several pieces)."""
     from pmf_tpu_torch.models.hpf_map import build_map_layout
     from pmf_tpu_torch.ops.map_grad import PIECE
 
     mix = 4
-    lay = build_map_layout(u, i, x, int(u.max()) + 1, int(i.max()) + 1, 4096, mix=mix,
-                           device="cuda")
+    if lay is None:
+        lay = build_map_layout(u, i, x, int(u.max()) + 1, int(i.max()) + 1, 4096,
+                               mix=mix, device="cuda")
     u_sp, i_sp = _map_tables(lay, k)
     order = np.random.default_rng(9).permutation(lay.n_segments)
     worst = 0.0
@@ -1154,45 +1207,349 @@ def phase_bigk():
             + ", ".join(f"{n} {v:.3e}" for n, v in worst.items())
             + f" (K1, K1raw, K2, K7, K8 relative, tol {RTOL}; K3, K5, K6, K9 per "
             f"column, tol {COL_RTOL}; K4 per matrix, tol {INV_RTOL})")
+    phase_hugek(u, i, x, blocked, gblocked)
     del blocked, gblocked
     phase_small(K_WIDE)
     phase_psmall(K_WIDE)
     phase_gsmall(K_WIDE)
     phase_msmall(K_WIDE)
+    t0 = time.perf_counter()
+    phase_small(K_HUGE)
+    phase_psmall(K_HUGE)
+    phase_gsmall(K_HUGE, shape=TINY, head=TINY_HEAD, sweeps=2)
+    phase_msmall(K_HUGE)
+    log(f"  card-vs-host runs at K={K_HUGE}: {time.perf_counter() - t0:.1f} s")
 
 
-def phase_wide_poisson(blocked):
-    """Device time at K_WIDE factors of K1, K1raw, K7, K8 on the real tail
-    and of K2 on the real tiers, both directions (CUDA events)."""
+def _beside(bounds, lo=129):
+    """K - 1 and K of each boundary at or past ``lo``."""
+    return {k for b in bounds if b >= lo for k in (b - 1, b)}
+
+
+def hugek_plan() -> dict:
+    """The K of phase hugek per kernel: HUGEK_KS, and K - 1 and K of each
+    boundary past 128 that the kernel's module lists: K3's wide instance
+    and its b leaving the first chunk, K4's global form, K9's instances,
+    K2's staged depth and P in the ring (for each kind of cell tile and
+    precision).  The row-group kernels' are phase k17small's."""
+    from pmf_tpu_torch.ops import dense_head, gaussian_edge, gj_inverse, map_grad
+
+    base = set(HUGEK_KS)
+    kinds = [(item, m_f32, lo) for item in (False, True)
+             for m_f32, lo in ((False, False), (False, True), (True, True))]
+    return {
+        "K3": sorted(base | _beside(gaussian_edge.factor_boundary_ks())),
+        "K4": sorted(base | _beside(gj_inverse.boundary_ks())),
+        "K9": sorted(base | _beside(map_grad.boundary_ks())),
+        "K2": sorted(base | {k for kind in kinds
+                             for k in _beside(dense_head.boundary_ks(*kind))}),
+        "K2fast": sorted(base | {k for kind in kinds
+                                 for k in _beside(dense_head.boundary_ks(*kind, True))}),
+    }
+
+
+def phase_hugek(u, i, x, blocked, gblocked):
+    """Every kernel past K = 128 vs its plain version (phase bigk's
+    tolerances), at the K of ``hugek_plan``: K1 (both modes), K7, K8, K5,
+    K6 at HUGEK_KS on phase bigk's small input (and at every boundary in
+    phase k17small); K3 and K4 up to K = 300 there (K4 on HUGE_K4_MATS
+    matrices where its form is global) and past it on the TINY input; K2
+    at both precisions, on both small shapes up to K = 300 and on the
+    narrow one past it; K9 on one small MAP layout."""
+    import torch
+
+    from pmf_tpu_torch.data.blocked import build_blocked
+    from pmf_tpu_torch.data.synthetic import synth_ratings
+    from pmf_tpu_torch.models.hpf_map import build_map_layout
+    from pmf_tpu_torch.ops.gj_inverse import form
+
+    t0 = time.perf_counter()
+    plan = hugek_plan()
+    for k in HUGEK_KS:
+        worst = _bigk_poisson_tail(blocked, k)
+        worst.update(_bigk_gauss_tail(gblocked, k))
+        torch.cuda.synchronize()
+        log(f"  hugek tail K={k}: ok | worst error vs plain: "
+            + ", ".join(f"{n} {v:.3e}" for n, v in worst.items()))
+    tu, ti, _ = synth_ratings(*TINY, seed=8)
+    tx = np.random.default_rng(4).standard_normal(len(tu)).astype(np.float32)
+    tiny = build_blocked(tu, ti, tx, reorder=True, device="cuda")
+    small_k = [k for k in plan["K3"] if k <= 300]
+    _small_k34(gblocked, ks=small_k, n_mats=HUGE_K4_MATS)
+    _small_k34(tiny, ks=[k for k in plan["K3"] if k > 300], n_mats=HUGE_K4_MATS)
+    k4 = {k: _bigk_inverse(k, HUGE_K4_MATS if form(k) == "global" else 3000)
+          for k in plan["K4"]}
+    log(f"  hugek K4: ok | per-matrix error vs plain and float64 inv (tol {INV_RTOL}): "
+        + ", ".join(f"K={k} {form(k)} {v:.3e}" for k, v in k4.items()))
+    for precision, key in (("high", "K2"), ("fast", "K2fast")):
+        worst = {k: _bigk_head(k, precision=precision) if k <= 300 else
+                 _bigk_head(k, shapes=((70, 128),), precision=precision)
+                 for k in plan[key]}
+        torch.cuda.synchronize()
+        log(f"  hugek {key}: ok | worst relative error vs plain float64 (tol "
+            f"{RTOL if precision == 'high' else FAST_SMALL_RTOL}): "
+            + ", ".join(f"K={k} {v:.3e}" for k, v in worst.items()))
+    lay = build_map_layout(u, i, x, int(u.max()) + 1, int(i.max()) + 1, 4096, mix=4,
+                           device="cuda")
+    worst = {k: _bigk_map(u, i, x, k, lay) for k in plan["K9"]}
+    torch.cuda.synchronize()
+    log(f"  hugek K9: ok | worst column error vs plain (tol {COL_RTOL}): "
+        + ", ".join(f"K={k} {v:.3e}" for k, v in worst.items()))
+    log(f"phase hugek: ok | K per kernel {plan} (the row-group kernels' in phase "
+        f"k17small) | {time.perf_counter() - t0:.1f} s")
+
+
+def phase_wide_poisson(blocked, k=K_WIDE):
+    """At ``k`` factors on the real data (K_WIDE, K_HUGE): K1, K1raw, K7
+    and K8 on the tail and K2 at both precisions on the tiers, both
+    directions: device time (CUDA events) and the bound at ``k``, reckoned
+    as phases K1, K7, K8 and K2 reckon theirs at K = 20 (each input read
+    once, each output written once; K2's work without its padding); with
+    ``--parent``, the parent's K8 at K_WIDE.  Each tail kernel first
+    against its plain version on the same tables (on runs of rows, at
+    RTOL), both directions; K2 also against its plain
+    version on every tier and side, as phases K2 and k2fast do at K = 20:
+    "high" at RTOL, "fast" at FAST_SMALL_RTOL, one bf16 step of W (at K =
+    160 the kernel's R, summed chunk by chunk, flips more of W's roundings
+    than at K = 20, and a head column of few cells shows a flip whole),
+    with the share of elements past FAST_RTOL logged.  Returns {kid: {ms,
+    bound_ms, bound_by}}."""
     import torch
 
     from pmf_tpu_torch.ops._tail import padded_rows
-    from pmf_tpu_torch.ops.dense_head import fused_alloc_tier
+    from pmf_tpu_torch.ops.dense_head import fused_alloc_tier, fused_alloc_tier_plain
     from pmf_tpu_torch.ops.ext_edge import es_record
 
-    k = K_WIDE
     gen = torch.Generator(device="cuda").manual_seed(5)
-    ms = dict.fromkeys(("K1", "K1raw", "K2", "K2fast", "K7", "K8"), 0.0)
+    reps = TIMING_REPS if k <= K_WIDE else 3
+    kids = ("K1", "K1raw", "K2", "K2fast", "K7", "K8")
+    ms, n_bytes, n_flops = (dict.fromkeys(kids, 0.0) for _ in range(3))
+    tail_worst = {}
     for p in (blocked.by_user, blocked.by_item):
         es, eo, so = _pos(gen, p.n_self, k), _pos(gen, p.n_other, k), _pos(gen, p.n_other)
         es_p, eo_p, rec = padded_rows(es), padded_rows(eo), es_record(eo, so)
-        for kid, tabs in (("K1", (es_p, eo_p)), ("K1raw", (es_p, eo_p)),
-                          ("K7", (es_p, rec)), ("K8", (es_p, rec))):
-            ms[kid] += cuda_ms(lambda: _tail_kernel(kid, tabs, p, k))
-        if PARENT:
+        csr = p.row_ptr.nbytes + p.other.nbytes
+        out2 = 4 * 2 * k * p.n_self
+        for kid, tabs, nb, flops in (
+                ("K1", (es_p, eo_p), es.nbytes + eo.nbytes + csr + p.x.nbytes + out2,
+                 5 * k + 1),
+                ("K1raw", (es_p, eo_p), es.nbytes + eo.nbytes + csr + out2, 3 * k),
+                ("K7", (es_p, rec), es.nbytes + eo.nbytes + so.nbytes + csr + p.x.nbytes
+                 + out2, 6 * k + 1),
+                ("K8", (es_p, rec), es.nbytes + eo.nbytes + so.nbytes + csr
+                 + 4 * p.n_self, 2 * k + 1)):
+            err, ok = _tail_error(kid, _tail_kernel(kid, tabs, p, k),
+                                  _tail_plain_rows(kid, tabs, p, k))
+            if not ok:
+                raise AssertionError(f"wide {kid} K={k} on the real tail: relative "
+                                     f"error {err} > {RTOL}")
+            tail_worst[kid] = max(tail_worst.get(kid, 0.0), err)
+            ms[kid] += cuda_ms(lambda: _tail_kernel(kid, tabs, p, k), reps=reps)
+            n_bytes[kid] += nb
+            n_flops[kid] += p.nnz * flops
+        if PARENT and k == K_WIDE:
             ms["K8 parent"] = ms.get("K8 parent", 0.0) + cuda_ms(
                 lambda: _parent_k8(es, eo, so, p))
+        del es, eo, so, es_p, eo_p, rec
+    lines = {"K2": {}, "K2fast": {}}
+    worst = dict.fromkeys(lines, 0.0)
+    past, n_out = 0, 0  # K2fast elements past FAST_RTOL
     for h in blocked.head or ():
         theta = _pos(gen, h.hu, k)
         beta = torch.nn.functional.pad(_pos(gen, h.hi, k), (0, 0, 0, h.hip - h.hi))
+        cells = (h.x_hi, h.m, h.x_lo)
+        m_f32, has_lo = h.m.dtype == torch.float32, h.x_lo is not None
+        cells_bytes = sum(a.nbytes for a in cells if a is not None) * h.hi // h.hip
+        chunk = max(1, (1 << 27) // h.hip)
         for item_side in (False, True):
-            for kid, prec in (("K2", "high"), ("K2fast", "fast")):
-                ms[kid] += cuda_ms(lambda: fused_alloc_tier(
-                    theta, beta, h.x_hi, h.m, h.x_lo, rate_floor=1e-10,
-                    item_side=item_side, precision=prec))
-    log(f"phase bigk timing (Poisson, real data, K={k}): ok | per sweep "
-        + ", ".join(f"{n} {v:.4f} ms" for n, v in ms.items()))
-    return ms
+            for kid, prec, tol in (("K2", "high", RTOL),
+                                   ("K2fast", "fast", FAST_SMALL_RTOL)):
+                kw = dict(rate_floor=1e-10, item_side=item_side, precision=prec)
+                got = fused_alloc_tier(theta, beta, *cells, **kw)
+                ref = fused_alloc_tier_plain(theta, beta, *cells, row_chunk=chunk, **kw)
+                _, rel = compare(got, ref)
+                if prec == "fast":
+                    d = (got.double() - ref.double()).abs()
+                    past += int((d > FAST_RTOL * ref.double().abs()).sum())
+                    n_out += got.numel()
+                if got.shape != ref.shape or not rel <= tol:
+                    raise AssertionError(f"huge {kid} tier ({h.row_start}, {h.hu}, {h.hi}) "
+                                         f"item_side={item_side}: relative error {rel} > "
+                                         f"{tol}")
+                worst[kid] = max(worst[kid], rel)
+                del ref
+                ms[kid] += cuda_ms(lambda: fused_alloc_tier(theta, beta, *cells, **kw),
+                                   reps=reps)
+                nb = cells_bytes + theta.nbytes + beta[: h.hi].nbytes + got.nbytes
+                for name, v in _k2_bound(h.hu, h.hip, m_f32, has_lo, nb,
+                                         fast=prec == "fast", k=k).items():
+                    lines[kid][name] = lines[kid].get(name, 0.0) + v
+    out = {"K8 parent": dict(ms=ms["K8 parent"])} if "K8 parent" in ms else {}
+    for kid in kids:
+        if kid in lines:
+            by = max(lines[kid], key=lines[kid].get)
+            b_ms, b_by = lines[kid][by], "bytes" if by == "bytes" else "operations"
+        else:
+            b_ms, b_by = bound(n_bytes[kid], n_flops[kid])
+        out[kid] = dict(ms=ms[kid], bound_ms=b_ms, bound_by=b_by)
+    log(f"phase {'bigk' if k == K_WIDE else 'huge'} timing (Poisson, real data, K={k}): "
+        "ok | per sweep "
+        + ", ".join(f"{n} {v['ms']:.4f} ms" + (f" (bound {v['bound_ms']:.4f}, "
+                                                  f"{v['bound_by']})" if "bound_ms" in v
+                                                  else "")
+                    for n, v in out.items())
+        + " | tail vs plain, both directions: worst rel "
+        + ", ".join(f"{n} {v:.3e}" for n, v in tail_worst.items())
+        + f" (tol {RTOL}) | K2 vs plain on every tier: worst rel {worst['K2']:.3e} (tol "
+        f"{RTOL}), fast {worst['K2fast']:.3e} (tol {FAST_SMALL_RTOL:.3e}; {past} of {n_out} elements "
+        f"past {FAST_RTOL})")
+    return out
+
+
+def phase_huge_gauss(blocked):
+    """At K_HUGE on the real Gaussian tail: K3 (on a random table of its
+    padded records, 52 KB a record: made directly, without the (rows, K, K)
+    covariances it packs), K5 and K6, both directions, and K4 on 162k and
+    59k matrices, each side alone: device time (CUDA events) and the bound
+    at K_HUGE reckoned as phases K3, K4, K5 and K6 do at K = 20; K3, K5 and
+    K6 first against their plain versions on the same tables (per column,
+    COL_RTOL).  Returns
+    {kid: {ms, bound_ms, bound_by}}."""
+    import torch
+
+    from pmf_tpu_torch.ops import gaussian_edge as ge
+    from pmf_tpu_torch.ops._tail import padded_rows
+
+    k = K_HUGE
+    T, stride = ge.tri_size(k), ge.factor_stride(k)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    kids = ("K3", "K5", "K6", "K4")
+    ms, n_bytes, n_flops = (dict.fromkeys(kids, 0.0) for _ in range(3))
+    per_edge, worst = 0.0, {}
+    for p in (blocked.by_user, blocked.by_item):
+        aug = 0.1 * torch.rand(p.n_other, stride, generator=gen, device="cuda")
+        aug[:, k + 1 + T :] = 0
+        _, err, ok = column_check(ge.factor_tail_stats(aug, p.row_ptr, p.other, p.x, k),
+                                  ge.factor_tail_stats_plain(aug, p.row_ptr, p.other, p.x,
+                                                             k, max_edges=1 << 16))
+        if not ok:
+            raise AssertionError(f"huge K3 on the real tail: column error {err} > "
+                                 f"{COL_RTOL}")
+        worst["K3"] = max(worst.get("K3", 0.0), err)
+        ms["K3"] += cuda_ms(lambda: ge.factor_tail_stats(aug, p.row_ptr, p.other, p.x, k),
+                            reps=2)
+        del aug
+        torch.cuda.empty_cache()
+        r = ge.factor_reckoning(p, k)
+        n_bytes["K3"] += r["table_once"]
+        per_edge += r["per_edge"]
+        n_flops["K3"] += p.nnz * (3 * k + 1 + T)
+        m_s, m_o = 0.1 * _pos(gen, p.n_self, k), 0.1 * _pos(gen, p.n_other, k)
+        b_s, b_o, v_o = _pos(gen, p.n_self), _pos(gen, p.n_other), _pos(gen, p.n_other, k)
+        csr = p.row_ptr.nbytes + p.other.nbytes + p.x.nbytes
+        for kid, tabs, nb, flops in (
+                ("K5", (ge.record_table(m_o, b_o),),
+                 m_o.nbytes + b_o.nbytes + csr + 4 * (k + 2) * p.n_self, k + 2),
+                ("K6", (ge.record_table(m_s, b_s), ge.record_table(m_o, b_o),
+                        padded_rows(v_o + m_o * m_o)),
+                 m_s.nbytes + b_s.nbytes + m_o.nbytes + b_o.nbytes + v_o.nbytes + csr
+                 + 4 * 3 * k * p.n_self, 7 * k + 2)):
+            err, ok = _tail_error(kid, _tail_kernel(kid, tabs, p, k),
+                                  _tail_plain_rows(kid, tabs, p, k))
+            if not ok:
+                raise AssertionError(f"huge {kid} on the real tail: column error {err} > "
+                                     f"{COL_RTOL}")
+            worst[kid] = max(worst.get(kid, 0.0), err)
+            ms[kid] += cuda_ms(lambda: _tail_kernel(kid, tabs, p, k), reps=3)
+            n_bytes[kid] += nb
+            n_flops[kid] += p.nnz * flops
+    from pmf_tpu_torch.ops.gj_inverse import batched_psd_inverse_gj
+
+    for n, seed in ((N_USERS, 1), (N_ITEMS, 2)):
+        P = _spd(n, k, seed)
+        ms["K4"] += cuda_ms(lambda: batched_psd_inverse_gj(P), reps=2)
+        del P
+        torch.cuda.empty_cache()
+    b_bytes, b_ops = _k4_bounds(N_USERS + N_ITEMS, k)
+    out = {kid: dict(ms=ms[kid], **dict(zip(("bound_ms", "bound_by"),
+                                            bound(n_bytes[kid], n_flops[kid]))))
+           for kid in ("K3", "K5", "K6")}
+    out["K4"] = dict(ms=ms["K4"], bound_ms=max(b_bytes, b_ops),
+                     bound_by="bytes" if b_bytes >= b_ops else "operations")
+    log(f"phase huge timing (Gaussian, real data, K={k}): ok | per sweep "
+        + ", ".join(f"{n} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, {v['bound_by']})"
+                    for n, v in out.items())
+        + f" | K3 per-edge gather {per_edge / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s, "
+        f"record {4 * (k + 1 + T)} B | K4 on {N_USERS} + {N_ITEMS} matrices | tail vs "
+        "plain, both directions: worst column error "
+        + ", ".join(f"{n} {v:.3e}" for n, v in worst.items()) + f" (tol {COL_RTOL})")
+    return out
+
+
+def phase_hugefit(train, val, smi):
+    """This slice's path at full width: ``HPF(n_factors=K_HUGE,
+    engine="blocked_high").fit`` on the real data for FIT_SWEEPS sweeps,
+    the launch counters reset just before and read just after (K1 twice a
+    sweep, K2 twice a tier and sweep); finite state and a val RMSE that
+    never rises; then one steady sweep timed by CUDA events and traced:
+    busy ms split into K2, K1 and the rest.  Returns {"hpf_k160": (the
+    sweep's work count, busy ms)} for phase roofline."""
+    import torch
+
+    from pmf_tpu_torch.models.hpf import HPF, HPFConfig, state_to_numpy, sweep_blocked
+
+    model = HPF(HPFConfig(n_factors=K_HUGE, max_iter=FIT_SWEEPS, tol=None,
+                          verbose=False, engine="blocked_high"))
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    model.fit(train, val)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    n_tiers = len(model.blocked.head or ())
+    for rec in model.fit_history:
+        log(f"  K={K_HUGE} sweep {rec['iteration']}: {rec['iter_seconds']:.4f} s | "
+            f"{rec['updates_per_sec'] / 1e6:.1f}M updates/s | val RMSE "
+            f"{rec['val_rmse']:.6f} | {smi}")
+    want = dict.fromkeys(launches, 0)
+    want.update(K1=2 * model.n_sweeps, K2=2 * n_tiers * model.n_sweeps)
+    if launches != want or n_tiers == 0:
+        raise AssertionError(f"hugefit launches {launches}, expected {want}")
+    for name, v in state_to_numpy(model.state).items():
+        if (v.ndim == 2 and v.shape[1] != K_HUGE) or not np.all(np.isfinite(v)):
+            raise AssertionError(f"hugefit state {name}: shape {v.shape} or not finite")
+    rmses = [rec["val_rmse"] for rec in model.fit_history]
+    if len(rmses) != FIT_SWEEPS or not np.all(np.isfinite(rmses)):
+        raise AssertionError(f"hugefit val RMSE history {rmses}")
+    if not all(b <= a for a, b in zip(rmses, rmses[1:])):
+        raise AssertionError(f"hugefit val RMSE rose: {rmses}")
+
+    cfg = model.config
+    hyper = (cfg.a, cfg.a_prime, cfg.b_prime, cfg.c, cfg.c_prime, cfg.d_prime)
+    user_counts, item_counts = (
+        torch.bincount(torch.from_numpy(ids).cuda(), minlength=n).float()
+        for ids, n in ((train[0], N_USERS), (train[1], N_ITEMS)))
+    state = dict(model.state)
+
+    def one_sweep():
+        nonlocal state
+        state = sweep_blocked(state, model.blocked, user_counts, item_counts, *hyper)
+
+    ms = cuda_ms(one_sweep, reps=2)
+    rows, busy, wall_ms = profile_once(
+        one_sweep, {K1_TRACE: 2, "head_deep_kernel": 2 * n_tiers})
+    groups, _ = trace_parts(rows, {"K2 head kernels": K2_KERNELS,
+                                   "K1 tail_group_kernel<0>": (K1_TRACE,)})
+    log(f"phase hugefit: ok | K={K_HUGE}, {model.n_sweeps} sweeps in {wall:.1f}s wall "
+        f"(layout build included) | launches {launches} | val RMSE {rmses} | steady "
+        f"sweep {ms:.4f} ms (CUDA events) | one sweep traced: busy {busy:.4f} ms of "
+        f"{wall_ms:.4f} ms (idle share {1 - busy / wall_ms:.1%}) | {smi}")
+    log_parts(groups, busy)
+    for dev_ms, n, key in rows[:6]:
+        log(f"  {dev_ms:9.4f} ms  {n:3d}x  {key[:90]}")
+    traffic = roofline.hpf_blocked_traffic(model.blocked, K_HUGE)
+    del model, state
+    return {f"hpf_k{K_HUGE}": (traffic, busy)}
 
 
 def phase_wide_gauss(blocked):
@@ -1304,8 +1661,8 @@ def phase_fit(train, val, smi):
     return model, launches
 
 
-K2_KERNELS = ("head_user_kernel", "head_item_kernel", "sum_partials_kernel",
-              "split_planes_kernel")
+K2_KERNELS = ("head_user_kernel", "head_item_kernel", "head_deep_kernel",
+              "sum_partials_kernel", "split_planes_kernel")
 # The row-group kernels in a trace: tail_group_kernel<mode, G, V>, mode 0
 # (K1 "cavi"), 2 (K7), 3 (K5), 4 (K6) or 5 (K8).
 K1_TRACE, K7_TRACE = "tail_group_kernel<0,", "tail_group_kernel<2,"
@@ -2169,7 +2526,7 @@ def _map_bound(groups, k, lay=None):
     return bound(n_bytes, n_flops) + (n_bytes,)
 
 
-K9_KERNELS = ("map_grad_kernel", "map_grad_wide_kernel")
+K9_KERNELS = ("map_grad_kernel", "map_grad_wide_kernel", "map_grad_general_kernel")
 
 
 def phase_k9(lay, order, groups, seg_groups, group_secs):
@@ -2237,7 +2594,8 @@ def phase_k9(lay, order, groups, seg_groups, group_secs):
         f"{seg_bound:.4f} ms, {seg_bytes / 1e9:.3f} GB) | library: none (a nonlinear "
         f"weight inside the sums)")
     _k9_pieces(lay, order, u_sp, i_sp, launches)
-    res["k50_ms"] = _k9_at(lay, order, K_WIDE)
+    res["k50_ms"] = _k9_at(lay, order, K_WIDE)["ms"]
+    res["k160"] = _k9_at(lay, order, K_HUGE)
     return res
 
 
@@ -2277,16 +2635,18 @@ def _k9_pieces(lay, order, u_sp, i_sp, launches):
 
 def _k9_at(lay, order, k):
     """One epoch of K9 launches at ``k`` factors on the same layout and
-    segment order: (CUDA events ms, profiler device ms)."""
+    segment order: {ms: profiler device ms, events_ms: CUDA events ms,
+    bound_ms, bound_by} (``_map_bound``)."""
     u_sp, i_sp = _map_tables(lay, k)
     groups = lay.group(order, MAP_MIX, k)
     epoch = _epoch_launches(u_sp, i_sp, groups)
     ms = cuda_ms(epoch, reps=2)
     rows, _, _ = profile_once(epoch, {"map_grad": 2 * groups[0].n_steps})
     dev = sum(r[0] for r in rows if any(n in r[2] for n in K9_KERNELS))
+    b_ms, b_by, _ = _map_bound(groups, k)
     log(f"  bigk K9 K={k}: one epoch of launches {ms:.4f} ms (CUDA events), "
-        f"{dev:.4f} ms (profiler device sum)")
-    return dev
+        f"{dev:.4f} ms (profiler device sum) | bound {b_ms:.4f} ms ({b_by})")
+    return dict(ms=dev, events_ms=ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def phase_msmall(k=K):
@@ -2931,11 +3291,12 @@ def phase_k4(blocked):
     return res
 
 
-def phase_gsmall(k=K):
-    """Three blocked Gaussian sweeps on the card vs the host (plain
-    kernels) on one small input with a two-tier head, in the exact,
-    lagged and diag modes, at the JAX package's blocked-vs-flat gate, at
-    ``k`` factors."""
+def phase_gsmall(k=K, shape=(3000, 1500, 120_000),
+                 head=([(0, 256, 1500), (256, 768, 300)], 256), sweeps=3):
+    """``sweeps`` blocked Gaussian sweeps on the card vs the host (plain
+    kernels) on one small input of ``shape`` (users, items, ratings) with a
+    two-tier ``head`` (tiers, row multiple), in the exact, lagged and diag
+    modes, at the JAX package's blocked-vs-flat gate, at ``k`` factors."""
     import torch
 
     from pmf_tpu_torch.data.blocked import build_blocked
@@ -2943,19 +3304,19 @@ def phase_gsmall(k=K):
     from pmf_tpu_torch.data.synthetic import synth_ratings
     from pmf_tpu_torch.models import gaussian_mf as gm
 
-    u, i, _ = synth_ratings(3000, 1500, 120_000, seed=5)
+    u, i, _ = synth_ratings(*shape, seed=5)
     x = np.random.default_rng(2).standard_normal(len(u)).astype(np.float32)
-    head = [(0, 256, 1500), (256, 768, 300)]
+    tiers, head_r0 = head
     worst = {}
     for cov, upd in (("full", "exact"), ("full", "lagged"), ("diag", "exact")):
         cfg = gm.GaussianMFConfig(n_factors=k, covariance=cov, bias_update=upd)
         states = {}
         for dev in ("cpu", "cuda"):
-            blocked = build_blocked(u, i, x, reorder=True, head=head, head_r0=256,
+            blocked = build_blocked(u, i, x, reorder=True, head=tiers, head_r0=head_r0,
                                     device=dev)
             flat = build_ratings(u, i, x, device=dev)
             s = gm.init_state(flat.n_users, flat.n_items, cfg, device=dev)
-            for _ in range(3):
+            for _ in range(sweeps):
                 s = gm.sweep_blocked(s, blocked, flat.user_counts, flat.item_counts,
                                      cfg.sigma2, cfg.eta_theta2, cfg.eta_beta2,
                                      cfg.eta_bias2, True, cov, upd)
@@ -2970,7 +3331,8 @@ def phase_gsmall(k=K):
             w = max(w, float(np.max(np.abs(got - ref) / (2e-5 + 5e-3 * np.abs(ref)))))
         worst[f"{cov}/{upd}"] = w
     torch.cuda.synchronize()
-    log(f"phase gsmall (K={k}): ok | 3 sweeps card vs host (rtol 5e-3, atol 2e-5), worst "
+    log(f"phase gsmall (K={k}): ok | {shape[0]} x {shape[1]}, {shape[2]} ratings | "
+        f"{sweeps} sweeps card vs host (rtol 5e-3, atol 2e-5), worst "
         f"|diff| / (atol + rtol |host|): "
         + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
 
@@ -4557,7 +4919,8 @@ def main(argv=None) -> int:
     k2 = phase_k2(blocked)
     k2f = phase_k2fast(blocked, k2)
     k7, k8 = phase_k7k8(blocked)
-    wide = phase_wide_poisson(blocked)
+    wide = {kid: r["ms"] for kid, r in phase_wide_poisson(blocked).items()}
+    huge = phase_wide_poisson(blocked, K_HUGE)
     del blocked
     torch.cuda.empty_cache()
     phase_small()
@@ -4568,6 +4931,8 @@ def main(argv=None) -> int:
     phase_serve(model, train, val, smi)
     phase_resume(model, train, val, smi)
     del model
+    gc_cuda()
+    sweeps.update(phase_hugefit(train, val, smi))
     gc_cuda()
 
     phase_psmall()
@@ -4599,6 +4964,9 @@ def main(argv=None) -> int:
     k4 = phase_k4(gblocked)
     wide.update(phase_wide_gauss(gblocked))
     wide["K9"] = k9["k50_ms"]
+    gc_cuda()
+    huge.update(phase_huge_gauss(gblocked))
+    huge["K9"] = k9["k160"]
     del gblocked
     gc_cuda()
     phase_gsmall()
@@ -4638,7 +5006,9 @@ def main(argv=None) -> int:
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"],
                 "library_ms": res.get("library_ms"), f"ms_k{K_WIDE}": wide[kid],
-                **more}
+                f"ms_k{K_HUGE}": huge[kid]["ms"],
+                f"bound_ms_k{K_HUGE}": huge[kid]["bound_ms"],
+                f"bound_by_k{K_HUGE}": huge[kid]["bound_by"], **more}
 
     gsrc = "pmf_tpu_torch/csrc/gaussian_edge.cu"
     kernels = [

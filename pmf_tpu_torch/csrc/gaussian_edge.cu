@@ -47,7 +47,12 @@
 // record is cut into chunks of 512 floats on grid.y: each chunk's warp
 // walks the row's edges again, rereading the 8 bytes of id and rating an
 // edge; the first chunk holds all of m and b (K + 1 <= 512), so it alone
-// computes m (x - b), sum m and sum x.  Two other designs were timed
+// computes m (x - b), sum m and sum x.  Past K = 128 (the wide instance)
+// the factors reach past the first float4 load of a lane and, from K = 512
+// on, past the first chunk, and b past it too: every load of every chunk
+// checks which of its floats are factors, each lane reads b_o by a load of
+// its own (one address for the warp), and each chunk sums the factors it
+// holds; the first chunk alone sums x.  Two other designs were timed
 // against this one on the real tail (PERF.md): bands of the other table
 // sized to L2, no faster by item and slower by user, since the gathers
 // still move 4.5 GB a direction and each band launch walks every self row
@@ -64,7 +69,8 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxK = 128;
+// Up to K = 128 the factors lie in the first float4 load of each lane.
+constexpr int kNarrowMaxK = 128;
 // Past K = 30 a K3 warp takes a chunk of 512 record floats (4 float4
 // loads a lane), where the whole record no longer fits 16 floats a lane.
 constexpr int kWholeRecordMaxK = 30;
@@ -77,8 +83,10 @@ constexpr int kEdges = 4;  // K3 edges in flight a warp
 // NV * 128 floats); lane l loads record floats c0 + 128 t + 4 l .. + 3 as
 // one float4 (t < NV), E edges in flight, and keeps one accumulator per
 // loaded float.  Floats < K (all in t = 0, K <= 128) are factors, float K
-// is b (broadcast by a shuffle from the lane that loaded it).
-template <int NV, int E>
+// is b (broadcast by a shuffle from the lane that loaded it).  WIDE (K >
+// 128): floats < K of any load are factors, each with its own sum of m,
+// and b is a load of its own.
+template <int NV, int E, bool WIDE>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 factor_kernel(const float* __restrict__ aug, int stride,
                   const int64_t* __restrict__ row_ptr, const int32_t* __restrict__ other,
@@ -95,7 +103,9 @@ factor_kernel(const float* __restrict__ aug, int stride,
   float4 acc[NV];
 #pragma unroll
   for (int t = 0; t < NV; ++t) acc[t] = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 acc_m = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 acc_m[WIDE ? NV : 1];
+#pragma unroll
+  for (int t = 0; t < (WIDE ? NV : 1); ++t) acc_m[t] = make_float4(0.f, 0.f, 0.f, 0.f);
   float acc_x = 0.f;
   const int64_t begin = row_ptr[row];
   const int64_t end = row_ptr[row + 1];
@@ -112,8 +122,21 @@ factor_kernel(const float* __restrict__ aug, int stride,
   auto add4 = [](float4& a, const float4& v) {
     a.x += v.x; a.y += v.y; a.z += v.z; a.w += v.w;
   };
-  auto add = [&](const float4 (&v)[NV], float xv) {
-    if (first) {
+  auto add = [&](const float4 (&v)[NV], float xv, float b_wide) {
+    if constexpr (WIDE) {
+      const float r = xv - b_wide;
+#pragma unroll
+      for (int t = 0; t < NV; ++t) {
+        const int c = c0 + t * 128 + 4 * lane;
+        float4 a = v[t];
+        if (c < K) { acc_m[t].x += a.x; a.x *= r; }
+        if (c + 1 < K) { acc_m[t].y += a.y; a.y *= r; }
+        if (c + 2 < K) { acc_m[t].z += a.z; a.z *= r; }
+        if (c + 3 < K) { acc_m[t].w += a.w; a.w *= r; }
+        add4(acc[t], a);
+      }
+      acc_x += xv;
+    } else if (first) {
       float4 vb = v[0];
 #pragma unroll
       for (int t = 1; t < NV; ++t)
@@ -123,10 +146,10 @@ factor_kernel(const float* __restrict__ aug, int stride,
       const float r = xv - b;
       const int c = 4 * lane;
       float4 a = v[0];
-      if (c < K) { acc_m.x += a.x; a.x *= r; }
-      if (c + 1 < K) { acc_m.y += a.y; a.y *= r; }
-      if (c + 2 < K) { acc_m.z += a.z; a.z *= r; }
-      if (c + 3 < K) { acc_m.w += a.w; a.w *= r; }
+      if (c < K) { acc_m[0].x += a.x; a.x *= r; }
+      if (c + 1 < K) { acc_m[0].y += a.y; a.y *= r; }
+      if (c + 2 < K) { acc_m[0].z += a.z; a.z *= r; }
+      if (c + 3 < K) { acc_m[0].w += a.w; a.w *= r; }
       add4(acc[0], a);
 #pragma unroll
       for (int t = 1; t < NV; ++t) add4(acc[t], v[t]);
@@ -149,20 +172,23 @@ factor_kernel(const float* __restrict__ aug, int stride,
     int j = 0;
     for (; j + E <= n; j += E) {
       float4 v[E][NV];
-      float xv[E];
+      float xv[E], bv[E];
 #pragma unroll
       for (int q = 0; q < E; ++q) {
         xv[q] = __shfl_sync(kFull, my_x, j + q);
-        load(__shfl_sync(kFull, my_o, j + q), v[q]);
+        const int o = __shfl_sync(kFull, my_o, j + q);
+        load(o, v[q]);
+        bv[q] = WIDE ? __ldg(aug + (int64_t)o * stride + K) : 0.f;
       }
 #pragma unroll
-      for (int q = 0; q < E; ++q) add(v[q], xv[q]);
+      for (int q = 0; q < E; ++q) add(v[q], xv[q], bv[q]);
     }
     for (; j < n; ++j) {
       float4 v[NV];
       const float xv = __shfl_sync(kFull, my_x, j);
-      load(__shfl_sync(kFull, my_o, j), v);
-      add(v, xv);
+      const int o = __shfl_sync(kFull, my_o, j);
+      load(o, v);
+      add(v, xv, WIDE ? __ldg(aug + (int64_t)o * stride + K) : 0.f);
     }
   }
 
@@ -171,14 +197,15 @@ factor_kernel(const float* __restrict__ aug, int stride,
 #pragma unroll
   for (int t = 0; t < NV; ++t) {
     const float a4[4] = {acc[t].x, acc[t].y, acc[t].z, acc[t].w};
-    const float m4[4] = {acc_m.x, acc_m.y, acc_m.z, acc_m.w};
+    const float4& am = acc_m[WIDE ? t : 0];
+    const float m4[4] = {am.x, am.y, am.z, am.w};
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int c = c0 + t * 128 + 4 * lane + q;
       if (c >= w_in) continue;
       if (c < K) {
         __stcs(dst + c, a4[q]);
-        __stcs(dst + K + c, m4[q]);  // c < K holds only in t = 0 of the first chunk
+        __stcs(dst + K + c, m4[q]);  // narrow: c < K holds only in t = 0 of chunk 0
       } else if (c == K) {
         if (with_bias_stats) __stcs(dst + 2 * K + T + 1, a4[q]);
       } else {
@@ -189,13 +216,13 @@ factor_kernel(const float* __restrict__ aug, int stride,
   if (with_bias_stats && first && lane == 0) __stcs(dst + 2 * K + T, acc_x);
 }
 
-template <int NV, int E>
+template <int NV, int E, bool WIDE = false>
 cudaError_t launch_factor_vec(const float* aug, int stride, const int64_t* row_ptr,
                               const int32_t* other, const float* x, int n_self, int K,
                               int wbs, float* out, cudaStream_t stream) {
   const dim3 grid((n_self + kWarpsPerBlock - 1) / kWarpsPerBlock,
                   (stride + NV * 128 - 1) / (NV * 128));
-  factor_kernel<NV, E><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+  factor_kernel<NV, E, WIDE><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
       aug, stride, row_ptr, other, x, n_self, K, wbs, out);
   return cudaGetLastError();
 }
@@ -203,6 +230,9 @@ cudaError_t launch_factor_vec(const float* aug, int stride, const int64_t* row_p
 cudaError_t launch_factor_vec_nv(const float* aug, int stride, const int64_t* row_ptr,
                                  const int32_t* other, const float* x, int n_self,
                                  int K, int wbs, float* out, cudaStream_t s) {
+  if (K > kNarrowMaxK)
+    return launch_factor_vec<kChunkNV, kEdges, true>(aug, stride, row_ptr, other, x, n_self,
+                                                    K, wbs, out, s);
   const int nv = K <= kWholeRecordMaxK ? (stride + 127) / 128 : kChunkNV;
   switch (nv) {
     case 1: return launch_factor_vec<1, kEdges>(aug, stride, row_ptr, other, x, n_self, K, wbs, out, s);
@@ -218,7 +248,7 @@ cudaError_t launch_factor_vec_nv(const float* aug, int stride, const int64_t* ro
 extern "C" int pmf_gauss_factor(const float* aug, int stride, const int64_t* row_ptr,
                                 const int32_t* other, const float* x, int n_self,
                                 int K, int with_bias_stats, float* out, void* stream) {
-  if (K < 1 || K > kMaxK || stride % 4 != 0 || stride < K + 1 + K * (K + 1) / 2)
+  if (K < 1 || stride % 4 != 0 || (int64_t)stride < K + 1 + (int64_t)K * (K + 1) / 2)
     return (int)cudaErrorInvalidValue;
   if (n_self <= 0) return (int)cudaGetLastError();
   return (int)launch_factor_vec_nv(aug, stride, row_ptr, other, x, n_self, K,

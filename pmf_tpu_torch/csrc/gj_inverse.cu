@@ -38,21 +38,65 @@
 // a compile-time constant after unrolling, so a[i][p] is a register.  The
 // rows go back to the same shared tile and out with coalesced stores.
 //
-// Design, 64 < K <= 128 (gj_inverse_cta_kernel): one CTA of 256 threads per
-// matrix, held in shared memory (K x (K + 1) floats, 66 KB at K = 128; the
-// odd row stride keeps a column read free of bank conflicts), in place.
-// Per pivot the CTA copies the scaled pivot row and the old column p into
-// two K-float buffers, syncs, updates every entry from the buffers and
-// syncs again.  (A row form there would keep up to 128 floats a thread,
-// more registers than its unrolled elimination can hold.)
+// Design, 64 < K < 240 (gj_inverse_cta_kernel): one CTA of 256 threads per
+// matrix, held in shared memory (K x (K + 1) floats, 66 KB at K = 128, 226
+// KB at K = 239, the most that fits a CTA's 227 KB with the two buffers;
+// the odd row stride keeps a column read free of bank conflicts), in
+// place.  Per pivot the CTA copies the scaled pivot row and the old column
+// p into two K-float buffers, syncs, updates every entry from the buffers
+// and syncs again.  (A row form there would keep up to 128 floats a
+// thread, more registers than its unrolled elimination can hold.)
+//
+// Design, K >= 240 (gj_inverse_global_kernel): the CTA form's steps with
+// the matrix split: as many of its first rows as fit beside the two
+// buffers stay in shared memory (224 of 256 at K = 256, 191 of 300 at K =
+// 300), the rest in the output in global memory, where every pivot reads
+// and writes them through L1 and L2.  Past K = 29,056 the buffers too are
+// global (a scratch row pair a matrix).  Correct at any K, not tuned.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxK = 128;
+// BEGIN host plan: the dispatch's choice of form, in plain C++ (the tests
+// compile this block alone with a host compiler and hold it against
+// ops/gj_inverse.py's form and global_shared_rows).
 constexpr int kRowsMaxK = 64;  // the row form; past it the CTA form
+constexpr int kSmemPerCta = 232448;  // dynamic shared memory a CTA may ask for
+
+// Shared memory of the CTA form: the K x (K + 1) matrix and two K-float
+// buffers, in 64 bits (it passes 2^31 bytes from K = 23,170).
+int64_t cta_smem_bytes(int K) {
+  return ((int64_t)K * (K + 1) + 2 * (int64_t)K) * (int64_t)sizeof(float);
+}
+
+enum Form { kFormRows, kFormCta, kFormGlobal };
+
+Form form_of(int K) {
+  if (K <= kRowsMaxK) return kFormRows;
+  return cta_smem_bytes(K) <= kSmemPerCta ? kFormCta : kFormGlobal;
+}
+
+// Past the CTA form: the pivot row and column buffers and the first `rs`
+// rows of the matrix (stride K + 1) in shared memory, the other rows in
+// global memory (the output, stride K, A's rows copied in first).  Where
+// even the buffers do not fit (2K floats past kSmemPerCta) they are the
+// matrix's 2K floats of global scratch and rs = 0.
+struct GlobalPlan {
+  int rs;        // rows in shared memory
+  int smem;      // bytes of dynamic shared memory
+  bool buffers;  // the buffers in shared memory
+};
+
+GlobalPlan global_plan(int K) {
+  const int64_t buf = 2 * (int64_t)K * (int64_t)sizeof(float);
+  if (buf > kSmemPerCta) return {0, 0, false};
+  const int64_t rs = (kSmemPerCta - buf) / ((int64_t)(K + 1) * (int64_t)sizeof(float));
+  const int r = rs < K ? (int)rs : K;
+  return {r, (int)(buf + (int64_t)r * (K + 1) * (int64_t)sizeof(float)), true};
+}
+// END host plan
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -255,7 +299,7 @@ gj_inverse_cta_kernel(const float* __restrict__ mats, int K, float* __restrict__
 }
 
 cudaError_t launch_cta(const float* mats, int R, int K, float* out, cudaStream_t stream) {
-  const int smem = (K * (K + 1) + 2 * K) * (int)sizeof(float);
+  const int smem = (int)cta_smem_bytes(K);  // <= kSmemPerCta (form_of)
   cudaError_t err = cudaFuncSetAttribute(
       gj_inverse_cta_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -263,11 +307,60 @@ cudaError_t launch_cta(const float* mats, int R, int K, float* out, cudaStream_t
   return cudaGetLastError();
 }
 
+// The CTA form's elimination with rows [0, rs) in shared memory and rows
+// [rs, K) in global memory (GlobalPlan).  Stores of one thread to global
+// memory reach the others of its CTA at each __syncthreads.
+__global__ void __launch_bounds__(kCtaThreads)
+gj_inverse_global_kernel(const float* __restrict__ mats, int K, int rs, int buffers,
+                         float* out, float* scratch) {
+  extern __shared__ float sm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int kWarps = kCtaThreads / 32;
+  const int64_t kk = (int64_t)K * K;
+  const int S = K + 1;
+  const float* src = mats + blockIdx.x * kk;
+  float* g = out + blockIdx.x * kk;
+  float* row = buffers ? sm : scratch + blockIdx.x * 2 * (int64_t)K;
+  float* col = row + K;
+  float* shared_rows = sm + 2 * K;
+  auto row_of = [&](int i) -> float* {
+    return i < rs ? shared_rows + (int64_t)i * S : g + (int64_t)i * K;
+  };
+  for (int i = warp; i < K; i += kWarps) {
+    float* ai = row_of(i);
+    for (int j = lane; j < K; j += 32) ai[j] = src[(int64_t)i * K + j];
+  }
+  __syncthreads();
+  for (int p = 0; p < K; ++p) {
+    const float* ap = row_of(p);
+    const float piv = ap[p];
+    for (int j = threadIdx.x; j < K; j += kCtaThreads) {
+      row[j] = (j == p ? 1.f : ap[j]) / piv;
+      col[j] = row_of(j)[p];
+    }
+    __syncthreads();
+    for (int i = warp; i < K; i += kWarps) {
+      float* ai = row_of(i);
+      if (i == p) {
+        for (int j = lane; j < K; j += 32) ai[j] = row[j];
+      } else {
+        const float ci = col[i];
+        for (int j = lane; j < K; j += 32) ai[j] = (j == p ? 0.f : ai[j]) - ci * row[j];
+      }
+    }
+    __syncthreads();
+  }
+  for (int i = warp; i < rs; i += kWarps)
+    for (int j = lane; j < K; j += 32) g[(int64_t)i * K + j] = shared_rows[(int64_t)i * S + j];
+}
+
 }  // namespace
 
+// scratch: 2K floats a matrix, read only where the global form's buffers
+// do not fit shared memory (K > 29,056); may be null below that.
 extern "C" int pmf_gj_inverse(const float* mats, int R, int K, float* out,
-                              void* stream) {
-  if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
+                              float* scratch, void* stream) {
+  if (K < 1) return (int)cudaErrorInvalidValue;
   if (R <= 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // Keep in step with ops/gj_inverse.py::launch_plan.
@@ -280,5 +373,13 @@ extern "C" int pmf_gj_inverse(const float* mats, int R, int K, float* out,
   if (K <= 52) return (int)launch_rows<52, 4>(mats, R, K, out, s);
   if (K <= 56) return (int)launch_rows<56, 4>(mats, R, K, out, s);
   if (K <= kRowsMaxK) return (int)launch_rows<64, 4>(mats, R, K, out, s);
-  return (int)launch_cta(mats, R, K, out, s);
+  if (form_of(K) == kFormCta) return (int)launch_cta(mats, R, K, out, s);
+  const GlobalPlan gp = global_plan(K);
+  if (!gp.buffers && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      gj_inverse_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, gp.smem);
+  if (err != cudaSuccess) return (int)err;
+  gj_inverse_global_kernel<<<R, kCtaThreads, gp.smem, s>>>(mats, K, gp.rs, gp.buffers, out,
+                                                          scratch);
+  return (int)cudaGetLastError();
 }

@@ -44,8 +44,14 @@
 //    partial sums across its lanes by a reduce-scatter (31 shuffles),
 //    which leaves factor k's total in lane k.  The register arrays are
 //    sized by a template bound KMAX (8, 16, 24 or 32).
-//  * K > 32: lanes over factors, F = ceil(K / 32) a lane, a warp dot an
-//    edge (one __shfl_xor_sync butterfly), four edges in flight, as K1.
+//  * 32 < K <= 256: lanes over factors, F = ceil(K / 32) a lane (an
+//    instance for each F up to 8), a warp dot an edge (one __shfl_xor_sync
+//    butterfly), four edges in flight, as K1.
+//  * K > 256 (map_grad_general_kernel): lanes over factors in a loop, one
+//    edge at a time, the sums of w * other kept in the row the piece
+//    stores (its output row or its scratch partial) instead of registers:
+//    a read and a write of L1 a factor an edge.  Correct at any K, not
+//    tuned.
 //  * Rows are unique within a step.  A run of one piece STORES its row: no
 //    read-modify-write.  A run of several pieces writes each piece's
 //    partial row to a scratch slot; the last piece to arrive (a counter a
@@ -61,7 +67,7 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxK = 128;
+constexpr int kWideMaxF = 8;  // factors a lane of the register instances: K <= 256
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -113,6 +119,10 @@ __device__ __forceinline__ void store_row(float* dst, const float (&v)[F], float
   }
 }
 
+__device__ __forceinline__ void merge_run(const Pieces& pc, int p, int p0, int row, int n,
+                                          int width, float* out, float* scratch,
+                                          unsigned* counters, int lane);
+
 // Piece p (local slot p - p0) is done: store its row, or its partial and,
 // if it is the run's last piece to arrive, the run's sum.
 template <int F>
@@ -127,6 +137,15 @@ __device__ __forceinline__ void finish_piece(const Pieces& pc, int p, int p0, in
     return;
   }
   store_row(scratch + (int64_t)(p - p0) * width, v, count, nll, K, with_nll, lane);
+  merge_run(pc, p, p0, row, n, width, out, scratch, counters, lane);
+}
+
+// After piece p (local slot p - p0) of a run of n > 1 pieces has stored
+// its partial row: if it is the run's last piece to arrive, add the run's
+// partials in piece order into the row.
+__device__ __forceinline__ void merge_run(const Pieces& pc, int p, int p0, int row, int n,
+                                          int width, float* out, float* scratch,
+                                          unsigned* counters, int lane) {
   __threadfence();  // this lane's partial is visible before the count moves
   __syncwarp();
   const int first = pc.piece_first[p] - p0;
@@ -269,6 +288,58 @@ map_grad_wide_kernel(const float* __restrict__ self_tab,
   }
 }
 
+// K > 256: the sums of w * other in the row the piece stores (its output
+// row, or its scratch partial for a run of several pieces), lanes over the
+// factors in a loop, one edge at a time.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+map_grad_general_kernel(const float* __restrict__ self_tab,
+                        const float* __restrict__ other_tab, Pieces pc, int step, int K,
+                        float lam_floor, int with_nll, float* out, float* scratch,
+                        unsigned* counters) {
+  const int lane = threadIdx.x & 31;
+  const int p0 = pc.step_off[step];
+  const int p1 = pc.step_off[step + 1];
+  const int stride = K + 1;
+  const int width = K + 1 + with_nll;
+  for (int p = p0 + blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); p < p1;
+       p += gridDim.x * kWarpsPerBlock) {
+    const int row = pc.piece_row[p];
+    const int n_run = pc.piece_count[p];
+    const float* srow = self_tab + (int64_t)row * stride;
+    float* dst = n_run == 1 ? out + (int64_t)row * width : scratch + (int64_t)(p - p0) * width;
+    for (int k = lane; k < K; k += 32) dst[k] = 0.f;
+    float acc_nll = 0.f;  // the same on every lane
+    const int64_t begin = pc.piece_ptr[p];
+    const int64_t end = pc.piece_ptr[p + 1];
+    for (int64_t base = begin; base < end; base += 32) {
+      const int64_t left = end - base;
+      const int n = left < 32 ? (int)left : 32;
+      int my_o = 0;
+      float my_x = 0.f;
+      if (lane < n) {
+        my_o = pc.other[base + lane];
+        my_x = pc.x[base + lane];
+      }
+      for (int j = 0; j < n; ++j) {
+        const float xv = __shfl_sync(kFull, my_x, j);
+        const float* orow = other_tab + (int64_t)__shfl_sync(kFull, my_o, j) * stride;
+        float part = 0.f;
+        for (int k = lane; k < K; k += 32) part = fmaf(__ldg(srow + k), __ldg(orow + k), part);
+        const float dot = warp_sum(part);
+        const float lam = fmaxf(dot, lam_floor);
+        const float w = dot >= lam_floor ? 1.f - xv / lam : 0.f;
+        for (int k = lane; k < K; k += 32) dst[k] = fmaf(w, __ldg(orow + k), dst[k]);
+        acc_nll += lam - xv * logf(lam);
+      }
+    }
+    if (lane == 0) {
+      dst[K] = (float)(end - begin);
+      if (with_nll) dst[K + 1] = acc_nll;
+    }
+    if (n_run > 1) merge_run(pc, p, p0, row, n_run, width, out, scratch, counters, lane);
+  }
+}
+
 }  // namespace
 
 // One direction of step `step`.  max_pieces: the most pieces any step of
@@ -281,7 +352,7 @@ extern "C" int pmf_map_grad(const float* self_tab, const float* other_tab,
                             const int32_t* other, const float* x, int K,
                             float lam_floor, int with_nll, float* out, float* scratch,
                             unsigned* counters, void* stream) {
-  if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
+  if (K < 1) return (int)cudaErrorInvalidValue;
   if (max_pieces > 0) {
     const int blocks = (max_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -296,7 +367,12 @@ extern "C" int pmf_map_grad(const float* self_tab, const float* other_tab,
     else if (K <= 32) PMF_MAP_GRAD_LAUNCH(map_grad_kernel<32>);
     else if (K <= 64) PMF_MAP_GRAD_LAUNCH(map_grad_wide_kernel<2>);
     else if (K <= 96) PMF_MAP_GRAD_LAUNCH(map_grad_wide_kernel<3>);
-    else PMF_MAP_GRAD_LAUNCH(map_grad_wide_kernel<4>);
+    else if (K <= 128) PMF_MAP_GRAD_LAUNCH(map_grad_wide_kernel<4>);
+    else if (K <= 160) PMF_MAP_GRAD_LAUNCH(map_grad_wide_kernel<5>);
+    else if (K <= 192) PMF_MAP_GRAD_LAUNCH(map_grad_wide_kernel<6>);
+    else if (K <= 224) PMF_MAP_GRAD_LAUNCH(map_grad_wide_kernel<7>);
+    else if (K <= 32 * kWideMaxF) PMF_MAP_GRAD_LAUNCH(map_grad_wide_kernel<kWideMaxF>);
+    else PMF_MAP_GRAD_LAUNCH(map_grad_general_kernel);
 #undef PMF_MAP_GRAD_LAUNCH
   }
   return (int)cudaGetLastError();

@@ -61,6 +61,16 @@
 // names the full warp; rows are in descending-count order in new space, so a
 // warp's rows have nearly equal lengths.
 //
+// Past a span of 64 words (K1 past K = 256, the record modes from K = 255
+// on: rows of more than 64 float4 words) tail_wide_kernel takes the row:
+// a warp a row, lane l holding words l and l + 32 of a chunk of 64 words,
+// the chunks one after another (a second walk of the row's edges a chunk).
+// Each edge's dot runs over the whole row in every chunk, the lane's words
+// l, l + 32, ... of e_s and e_o read again from L1 and L2, and the scalar
+// (b_o, s_o) is a load by every lane; K8 sums its chunks' dots in the
+// warp.  Correct at any K, not tuned: at K = 300 it reads each row's
+// factors three times where the register form reads them once.
+//
 // Long rows: a group walks its row one gather round trip at a time, so
 // the item pass's 757-edge rows set its end (on an H100 at K=20 the item
 // pass took 0.26 ms unsplit against the user pass's 0.14 on as many
@@ -84,9 +94,10 @@ constexpr int kWarps = 8;     // warps a CTA
 constexpr int kThreads = 32 * kWarps;
 constexpr int kInFlight = 4;       // edges a group gathers at once (K1, K7, K5, K8)
 constexpr int kDiagInFlight = 2;   // K6
-constexpr int kMaxK = 128;
 constexpr int kOneWord = 8;        // K1, K7, K8: one word a lane up to 8 words, wider two
 constexpr int kRecordOneWord = 16;  // K5, K6 ([m | b] records): up to 16 words
+constexpr int kMaxSpan = 64;        // words a row of the register form: G = 32, V = 2
+constexpr int kWideWords = 64;      // words a chunk of tail_wide_kernel: 2 a lane
 
 enum Mode { kCavi = 0, kRaw = 1, kExt = 2, kBias = 3, kDiag = 4, kScalar = 5 };
 
@@ -447,10 +458,178 @@ tail_group_kernel(const float* __restrict__ e_self,
   }
 }
 
+// Rows of more than kMaxSpan words: a warp a row (n_long plays no part:
+// the warp walks the whole row), the output words in chunks of kWideWords,
+// lane l holding words c + l and c + 32 + l of chunk c.  Every chunk walks
+// the row's edges; the dot of an edge (cavi, ext, diag) is taken over the
+// whole row each time, and the scalar of a record (b_o, s_o) is read by
+// every lane.  K8 dots each chunk's sum of s_o e_o with e_s and adds the
+// chunks' dots in order.
+template <int kMode>
+__global__ void __launch_bounds__(kThreads)
+tail_wide_kernel(const float* __restrict__ e_self, const float* __restrict__ e_other,
+                 const float* __restrict__ sq_other, const int64_t* __restrict__ row_ptr,
+                 const int32_t* __restrict__ other, const float* __restrict__ x,
+                 int n_self, int K, float rate_floor, float* __restrict__ out) {
+  constexpr int V = kWideWords / 32;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= n_self) return;  // whole warp leaves together
+  const int64_t begin = row_ptr[row];
+  const int len = (int)(row_ptr[row + 1] - begin);
+  const int C = columns(kMode, K);
+  const int W = (C + 3) >> 2;   // float4 words a row of e_other
+  const int Wq = (K + 3) >> 2;  // words holding the K factors
+  const int Ws = kMode == kDiag ? W : Wq;  // of e_self (K6: a record)
+  const int Wout = kMode == kBias ? W : Wq;  // words a chunk walk sums
+  const float4* __restrict__ es4 = reinterpret_cast<const float4*>(e_self) + (int64_t)row * Ws;
+  const float4* __restrict__ eo4 = reinterpret_cast<const float4*>(e_other);
+  const float4* __restrict__ sq4 = reinterpret_cast<const float4*>(sq_other);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // Word w of the self row with the columns past K zeroed (K6: b_s).
+  auto self_word = [&](int w) {
+    float4 e = es4[w];
+    const int k = 4 * w;
+    if (k >= K) e.x = 0.f;
+    if (k + 1 >= K) e.y = 0.f;
+    if (k + 2 >= K) e.z = 0.f;
+    if (k + 3 >= K) e.w = 0.f;
+    return e;
+  };
+  float bs = 0.f;
+  if constexpr (kMode == kDiag) bs = e_self[(int64_t)row * 4 * W + K];
+  float scalar_total = 0.f;  // K8
+
+  for (int c0 = 0; c0 < Wout; c0 += kWideWords) {
+    float4 es[V], acc_a[V], acc_o[V], acc_c[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int w = c0 + 32 * v + lane;
+      es[v] = (kMode != kBias && w < Wq) ? self_word(w) : zero;
+      acc_a[v] = zero;
+      acc_o[v] = zero;
+      acc_c[v] = zero;
+    }
+    float acc_x = 0.f;
+    for (int base = 0; base < len; base += 32) {
+      const int n = min(len - base, 32);
+      int my_o = 0;
+      float my_x = 0.f;
+      if (lane < n) {
+        my_o = other[begin + base + lane];
+        if constexpr (reads_x(kMode)) my_x = x[begin + base + lane];
+      }
+      for (int j = 0; j < n; ++j) {
+        const int o = __shfl_sync(kFull, my_o, j);
+        const float xv = __shfl_sync(kFull, my_x, j);
+        const float4* orow = eo4 + (int64_t)o * W;
+        float4 eo[V], sq[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const int w = c0 + 32 * v + lane;
+          eo[v] = w < Wout ? __ldg(orow + w) : zero;
+          if constexpr (kMode == kDiag)
+            sq[v] = w < Wq ? __ldg(sq4 + (int64_t)o * Wq + w) : zero;
+        }
+        float sv = 0.f;
+        if constexpr (reads_scalar(kMode)) sv = __ldg(e_other + (int64_t)o * 4 * W + K);
+        float coef = 0.f;
+        if constexpr (kMode == kCavi || kMode == kExt || kMode == kDiag) {
+          float part = 0.f;
+          for (int w = lane; w < Wq; w += 32) {
+            const float4 p = mul4(self_word(w), __ldg(orow + w));
+            part += p.x;
+            part += p.y;
+            part += p.z;
+            part += p.w;
+          }
+          const float dot = group_sum<32>(part);
+          coef = kMode == kDiag ? ((xv - bs) - sv) - dot : xv / fmaxf(dot, rate_floor);
+        }
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          if constexpr (kMode == kScalar) {
+            acc_o[v].x += sv * eo[v].x;
+            acc_o[v].y += sv * eo[v].y;
+            acc_o[v].z += sv * eo[v].z;
+            acc_o[v].w += sv * eo[v].w;
+          } else if constexpr (kMode == kBias) {
+            acc_o[v].x += eo[v].x;
+            acc_o[v].y += eo[v].y;
+            acc_o[v].z += eo[v].z;
+            acc_o[v].w += eo[v].w;
+          } else if constexpr (kMode == kDiag) {
+            acc_a[v].x += coef * eo[v].x;
+            acc_a[v].y += coef * eo[v].y;
+            acc_a[v].z += coef * eo[v].z;
+            acc_a[v].w += coef * eo[v].w;
+            acc_o[v].x += sq[v].x;
+            acc_o[v].y += sq[v].y;
+            acc_o[v].z += sq[v].z;
+            acc_o[v].w += sq[v].w;
+            acc_c[v].x += eo[v].x * eo[v].x;
+            acc_c[v].y += eo[v].y * eo[v].y;
+            acc_c[v].z += eo[v].z * eo[v].z;
+            acc_c[v].w += eo[v].w * eo[v].w;
+          } else {
+            const float4 p = mul4(es[v], eo[v]);
+            const float a = kMode == kRaw ? 1.f : coef;
+            acc_a[v].x += a * p.x;
+            acc_a[v].y += a * p.y;
+            acc_a[v].z += a * p.z;
+            acc_a[v].w += a * p.w;
+            const float b = kMode == kExt ? sv : 1.f;
+            acc_o[v].x += b * eo[v].x;
+            acc_o[v].y += b * eo[v].y;
+            acc_o[v].z += b * eo[v].z;
+            acc_o[v].w += b * eo[v].w;
+          }
+        }
+        if constexpr (kMode == kBias) acc_x += xv;
+      }
+    }
+    if constexpr (kMode == kScalar) {
+      float part = 0.f;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        part += es[v].x * acc_o[v].x;
+        part += es[v].y * acc_o[v].y;
+        part += es[v].z * acc_o[v].z;
+        part += es[v].w * acc_o[v].w;
+      }
+      scalar_total += group_sum<32>(part);
+      continue;
+    }
+    float* dst = out + (int64_t)row * out_width(kMode, K);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int w = c0 + 32 * v + lane;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = 4 * w + j;
+        if constexpr (kMode == kBias) {
+          if (k < C) dst[k] = comp(acc_o[v], j);  // [sum m | sum b]
+        } else if (k < K) {
+          dst[k] = comp(acc_a[v], j);
+          dst[K + k] = comp(acc_o[v], j);
+          if constexpr (kMode == kDiag) dst[2 * K + k] = comp(acc_c[v], j);
+        }
+      }
+    }
+    if constexpr (kMode == kBias) {
+      if (c0 == 0 && lane == 0) dst[K + 1] = acc_x;
+    }
+  }
+  if constexpr (kMode == kScalar) {
+    if (lane == 0) out[row] = scalar_total;
+  }
+}
+
 // The plan for K: W = ceil(columns / 4) words a row, span = the power of
 // two at or above W, V = 1 word a lane up to a span of one_word(mode) and 2
 // past it, G = span / V lanes a row, in_flight(mode) edges in flight a
-// group (ops/_tail.py::launch_plan mirrors it).
+// group; past a span of kMaxSpan words tail_wide_kernel
+// (ops/_tail.py::launch_plan mirrors it).
 __host__ __device__ constexpr int plan_span(int mode, int K) {
   int span = 1;
   while (span < (columns(mode, K) + 3) / 4) span *= 2;
@@ -462,10 +641,13 @@ __host__ __device__ constexpr int plan_vec(int mode, int K) {
 __host__ __device__ constexpr int plan_lanes(int mode, int K) {
   return plan_span(mode, K) / plan_vec(mode, K);
 }
-// Whether some K in [1, kMaxK] takes the plan (G, V) in this mode: only
-// those instances are built.
+__host__ __device__ constexpr bool plan_wide(int mode, int K) {
+  return plan_span(mode, K) > kMaxSpan;
+}
+// Whether some K of the register form takes the plan (G, V) in this mode:
+// only those instances are built.
 __host__ __device__ constexpr bool reachable(int mode, int G, int V) {
-  for (int K = 1; K <= kMaxK; ++K)
+  for (int K = 1; !plan_wide(mode, K); ++K)
     if (plan_lanes(mode, K) == G && plan_vec(mode, K) == V) return true;
   return false;
 }
@@ -476,7 +658,7 @@ inline int blocks_of(int n_self, int n_long, int G) {
 }
 
 inline bool bad_args(int n_self, int n_long, int K) {
-  return K < 1 || K > kMaxK || n_long < 0 || n_long > n_self;
+  return K < 1 || n_long < 0 || n_long > n_self;
 }
 
 template <int kMode, int G, int V, int D>
@@ -494,6 +676,12 @@ int launch(const Tables& t, int n_self, int n_long, int K, float rate_floor, flo
            cudaStream_t stream) {
   if (bad_args(n_self, n_long, K)) return (int)cudaErrorInvalidValue;
   if (n_self == 0) return (int)cudaGetLastError();
+  if (plan_wide(kMode, K)) {
+    tail_wide_kernel<kMode><<<(n_self + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+        t.e_self, t.e_other, t.sq_other, t.row_ptr, t.other, t.x, n_self, K, rate_floor,
+        out);
+    return (int)cudaGetLastError();
+  }
   const int G = plan_lanes(kMode, K), V = plan_vec(kMode, K);
   constexpr int D = in_flight(kMode);
 #define PMF_TAIL_PLAN(G_, V_)                                                      \

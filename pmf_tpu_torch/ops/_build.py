@@ -55,8 +55,8 @@ SIGNATURES = {
     # mb_self, mb_other, sq_other, row_ptr, other, x, n_self, n_long, K, out,
     # stream
     "pmf_gauss_diag": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    # mats, R, K, out, stream
-    "pmf_gj_inverse": [_P, _I, _I, _P, _P],
+    # mats, R, K, out, scratch, stream
+    "pmf_gj_inverse": [_P, _I, _I, _P, _P, _P],
     # e_self, es_other, row_ptr, other, x, n_self, n_long, K, rate_floor, out,
     # stream
     "pmf_ext_factor": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
@@ -161,6 +161,13 @@ class LaunchCounter:
 
     def reset(self) -> None:
         self.count = 0
+
+
+def check_k(k: int, what: str) -> None:
+    """Raise unless ``k`` >= 1: every kernel takes any K from 1 on, and
+    ``what`` names the kernel in the error."""
+    if not k >= 1:
+        raise ValueError(f"{what} needs K >= 1, got K={k}")
 
 
 def check(lib: ctypes.CDLL, err: int, name: str) -> None:

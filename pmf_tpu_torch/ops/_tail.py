@@ -9,16 +9,18 @@ from __future__ import annotations
 import torch
 
 from pmf_tpu_torch.data.blocked import TailCSR
+from pmf_tpu_torch.ops import _build
 from pmf_tpu_torch.ops.dense_head import head_products, head_products_t
 
-# csrc/tail_groups.cuh: kWarps, kInFlight, kDiagInFlight, kMaxK, kOneWord,
-# kRecordOneWord, batch_of.
+# csrc/tail_groups.cuh: kWarps, kInFlight, kDiagInFlight, kOneWord,
+# kRecordOneWord, kMaxSpan, kWideWords, batch_of.
 GROUP_WARPS = 8
 GROUP_IN_FLIGHT = 4
 DIAG_IN_FLIGHT = 2
-GROUP_MAX_K = 128
 GROUP_ONE_WORD = 8
 RECORD_ONE_WORD = 16
+GROUP_MAX_SPAN = 64  # words a row of the register form (G = 32, V = 2)
+WIDE_WORDS = 64  # words a chunk of the wide form, two a lane
 # The kernels that gather records of K + 1 columns: K5's and K6's [m | b],
 # K7's and K8's [e | s].
 RECORD_KERNELS = ("K5", "K6", "K7", "K8")
@@ -52,21 +54,43 @@ def launch_plan(k: int, kernel: str = "K1") -> dict:
     loads ``batch`` / G edges' ids a batch; ``in_flight`` edges a group
     gathers at once (K6: DIAG_IN_FLIGHT); ``rows_per_warp`` and
     ``rows_per_cta`` (warps past TailCSR.long_rows); ``stride`` the padded
-    width of the gathered rows."""
-    if not 1 <= k <= GROUP_MAX_K:
-        raise ValueError(f"tail kernel needs 1 <= K <= {GROUP_MAX_K}, got K={k}")
+    width of the gathered rows.  ``wide``: past a span of GROUP_MAX_SPAN
+    words, ``tail_wide_kernel`` (a warp a row, one edge at a time, the
+    summed words in ``chunks`` of WIDE_WORDS walked one after another);
+    ``chunks`` is 1 in the register form."""
+    _build.check_k(k, "tail kernel")
     if kernel not in PLAN_KERNELS:
         raise ValueError(f"unknown row-group kernel {kernel!r} {PLAN_KERNELS}")
     cols = columns(k, kernel)
     words = -(-cols // 4)
     span = 1 << (words - 1).bit_length()
+    if span > GROUP_MAX_SPAN:
+        summed = words if kernel == "K5" else -(-k // 4)
+        return dict(lanes=32, vec=WIDE_WORDS // 32, words=words, stride=tail_stride(cols),
+                    batch=32, in_flight=1, rows_per_warp=1, rows_per_cta=GROUP_WARPS,
+                    wide=True, chunks=-(-summed // WIDE_WORDS))
     one_word = RECORD_ONE_WORD if kernel in WIDE_KERNELS else GROUP_ONE_WORD
     vec = 1 if span <= one_word else 2
     lanes = span // vec
     return dict(lanes=lanes, vec=vec, words=words, stride=tail_stride(cols),
                 batch=max(lanes, 8),
                 in_flight=DIAG_IN_FLIGHT if kernel == "K6" else GROUP_IN_FLIGHT,
-                rows_per_warp=32 // lanes, rows_per_cta=32 * GROUP_WARPS // lanes)
+                rows_per_warp=32 // lanes, rows_per_cta=32 * GROUP_WARPS // lanes,
+                wide=False, chunks=1)
+
+
+def boundary_ks(kernel: str = "K1", k_max: int = 600) -> list:
+    """Every K up to ``k_max`` at which ``kernel``'s geometry changes: the
+    first K of each plan (lanes, vec, wide form, chunks).  The tests and
+    chip_smoke.py hold the kernel at K - 1 and K of each."""
+    out, last = [], None
+    for k in range(1, k_max + 1):
+        p = launch_plan(k, kernel)
+        key = (p["lanes"], p["vec"], p["wide"], p["chunks"])
+        if key != last:
+            out.append(k)
+            last = key
+    return out
 
 
 def padded_rows(tab: torch.Tensor, rows: torch.Tensor | None = None) -> torch.Tensor:

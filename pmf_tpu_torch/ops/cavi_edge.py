@@ -28,7 +28,6 @@ import torch
 from pmf_tpu_torch.data.blocked import TailCSR
 from pmf_tpu_torch.ops import _build
 from pmf_tpu_torch.ops._tail import (
-    GROUP_MAX_K,
     add_heads,
     band_rows,
     check_head,
@@ -46,7 +45,6 @@ RATE_FLOOR = 1e-10
 TAIL_LAUNCHES = _build.LaunchCounter()
 TAIL_RAW_LAUNCHES = _build.LaunchCounter()
 MODES = ("cavi", "raw")
-MAX_K = GROUP_MAX_K  # at most 32 float4 words a row
 
 
 def tail_edge_stats_plain(e_self: torch.Tensor, e_other: torch.Tensor,
@@ -95,8 +93,7 @@ def tail_edge_stats(e_self: torch.Tensor, e_other: torch.Tensor,
         raise ValueError(f"unknown mode {mode!r} {MODES}")
     raw = mode == "raw"
     K = e_self.shape[1] if K is None else K
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"tail kernel needs 1 <= K <= {MAX_K}, got K={K}")
+    _build.check_k(K, "tail kernel")
     check_tail_args([("e_self", e_self), ("e_other", e_other)], row_ptr, other,
                     None if raw else x, e_self.shape[0])
     check_padded_tables(K, [("e_self", e_self), ("e_other", e_other)])

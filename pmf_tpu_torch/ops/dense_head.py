@@ -66,7 +66,8 @@ Q_TILE = 32  # rows of Q per tile
 MAX_CTAS_PER_SM = 3  # resident CTAs the kernel's launch bounds keep registers for
 MAX_CTAS_PER_SM_WIDE = 2  # the same past K = 32
 GROUP_BLOCKS = 4  # output blocks of 8 factors a CTA keeps past K = 32 (grid.z)
-MAX_K = 128
+REGISTER_MAX_K = 128  # P's fragments in registers; past it the staged depth
+CHUNK_STRIDE = 16 * GROUP_BLOCKS + 16  # bytes a row of a staged depth chunk plane
 STAGES = 3  # ring of staged tiles: two in flight, one computed
 MAX_SPLITS = 64  # CTAs that may share one reduction axis
 SMEM_PER_CTA = 232_448  # dynamic shared memory one CTA may ask for
@@ -136,6 +137,47 @@ def output_groups(K: int) -> int:
     return nt // GROUP_BLOCKS if nt > GROUP_BLOCKS else 1
 
 
+def _cell_bytes(item_side: bool, m_f32: bool, has_lo: bool) -> int:
+    """Shared memory of one stage's cell tile: x_hi (and x_lo) and M."""
+    cell_rows, cell_cols = (Q_TILE, P_TILE) if item_side else (P_TILE, Q_TILE)
+    cs = cell_cols * 2 + 16
+    ms = cell_cols * 4 + (16 if item_side else 32) if m_f32 else cs
+    return cell_rows * cs * (2 if has_lo else 1) + cell_rows * ms
+
+
+def deep_smem_bytes(K: int, item_side: bool, m_f32: bool, has_lo: bool,
+                    fast: bool = False, p_ring: bool = False) -> int:
+    """Shared memory of the staged-depth form (K > REGISTER_MAX_K): P's
+    planes over the whole depth (none with ``p_ring``) and STAGES stages,
+    each the cell tile and one depth chunk of Q's planes (and of P's with
+    ``p_ring``); ``deep_smem_bytes`` in the source."""
+    planes = 1 if fast else 2
+    nd = -(-K // 32)
+    p_res = 0 if p_ring else planes * P_TILE * (64 * nd + 16)
+    stage = (_cell_bytes(item_side, m_f32, has_lo)
+             + planes * (Q_TILE + (P_TILE if p_ring else 0)) * CHUNK_STRIDE)
+    return p_res + STAGES * stage
+
+
+def p_rides_ring(K: int, item_side: bool, m_f32: bool, has_lo: bool,
+                 fast: bool = False) -> bool:
+    """Whether the staged depth streams P's planes through the ring: where
+    they and the ring no longer fit one CTA's shared memory."""
+    return (K > REGISTER_MAX_K
+            and deep_smem_bytes(K, item_side, m_f32, has_lo, fast) > SMEM_PER_CTA)
+
+
+def boundary_ks(item_side: bool = False, m_f32: bool = False, has_lo: bool = True,
+                fast: bool = False) -> list:
+    """The first K of each form of K2 past K = 32, for one kind of tier:
+    the wide register form (33), the staged depth with P resident (129)
+    and with P in the ring.  The tests and chip_smoke.py hold K2 on both
+    sides of each."""
+    ring = next(k for k in range(REGISTER_MAX_K + 1, 100_000)
+                if p_rides_ring(k, item_side, m_f32, has_lo, fast))
+    return [33, REGISTER_MAX_K + 1, ring]
+
+
 class LaunchPlan(NamedTuple):
     """How one tier and side is launched."""
 
@@ -148,6 +190,7 @@ class LaunchPlan(NamedTuple):
     tiles_per_split: int
     smem_bytes: int  # dynamic shared memory a CTA
     groups: int  # CTAs sharing a P tile, one a group of output columns (grid.z)
+    p_ring: bool = False  # staged depth: P's chunks ride the ring
 
 
 def stage_bytes(item_side: bool, m_f32: bool, has_lo: bool, K: int,
@@ -158,10 +201,7 @@ def stage_bytes(item_side: bool, m_f32: bool, has_lo: bool, K: int,
     factors, padded by 16 where that count is even)."""
     blocks = depth_blocks(K)
     q_stride = 16 * blocks + (0 if blocks % 2 else 16)
-    cell_rows, cell_cols = (Q_TILE, P_TILE) if item_side else (P_TILE, Q_TILE)
-    cs = cell_cols * 2 + 16
-    ms = cell_cols * 4 + (16 if item_side else 32) if m_f32 else cs
-    return (cell_rows * cs * (2 if has_lo else 1) + cell_rows * ms
+    return (_cell_bytes(item_side, m_f32, has_lo)
             + (1 if fast else 2) * Q_TILE * q_stride)
 
 
@@ -173,10 +213,12 @@ def plan_launch(rows: int, hip: int, K: int, item_side: bool, m_f32: bool,
     reduction axis (columns on the user side, rows on the item side) that
     takes the fewest tile times when the P tiles alone would not fill the
     card.  Past K = 32 each P tile is ``output_groups(K)`` CTAs.  ``fast``:
-    the one-term instance, whose stages hold no Q lo tile."""
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"head kernel needs 1 <= K <= {MAX_K}, got K={K}")
-    smem = STAGES * stage_bytes(item_side, m_f32, has_lo, K, fast)
+    the one-term instance, whose stages hold no Q lo tile.  Past
+    REGISTER_MAX_K the staged depth (``deep_smem_bytes``, ``p_ring``)."""
+    _build.check_k(K, "head kernel")
+    p_ring = p_rides_ring(K, item_side, m_f32, has_lo, fast)
+    smem = (STAGES * stage_bytes(item_side, m_f32, has_lo, K, fast) if K <= REGISTER_MAX_K
+            else deep_smem_bytes(K, item_side, m_f32, has_lo, fast, p_ring))
     if smem > SMEM_PER_CTA:
         raise ValueError(f"a ring of {STAGES} stages, {smem} bytes, does not fit "
                          f"{SMEM_PER_CTA} bytes of shared memory")
@@ -202,14 +244,13 @@ def plan_launch(rows: int, hip: int, K: int, item_side: bool, m_f32: bool,
             best = (cost, s, per)
     _, splits, per = best
     return LaunchPlan(P_TILE, Q_TILE, 8 * depth_blocks(K), STAGES, ctas, splits, per,
-                      smem, groups)
+                      smem, groups, p_ring)
 
 
 def _check_cuda_args(theta_h, beta_h, x_hi, m, x_lo):
     rows, K = theta_h.shape
     hip = m.shape[1]
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"head kernel needs 1 <= K <= {MAX_K}, got K={K}")
+    _build.check_k(K, "head kernel")
     if rows < 1 or hip < 64 or hip % 64:
         raise ValueError(f"head of {rows} rows by {hip} columns: the kernel needs "
                          f"rows >= 1 and a width that is a multiple of 64")
@@ -255,9 +296,12 @@ def fused_alloc_tier(theta_h, beta_h, x_hi, m, x_lo=None, *,
     out_rows = hip if item_side else rows
     out = torch.empty((out_rows, 2 * K), dtype=torch.float32, device=dev)
     # The streamed table's bf16 planes (hi and lo, or hi alone at "fast"),
-    # which the launch fills.
-    planes = torch.empty((1 if fast else 2) * (rows if item_side else hip)
-                         * plan.depth, dtype=torch.bfloat16, device=dev)
+    # and past REGISTER_MAX_K the fixed table's after them, which the launch
+    # fills.
+    n_planed = (rows if item_side else hip) + (0 if K <= REGISTER_MAX_K else
+                                               (hip if item_side else rows))
+    planes = torch.empty((1 if fast else 2) * n_planed * plan.depth, dtype=torch.bfloat16,
+                         device=dev)
     partial = (torch.empty((plan.splits, out_rows, 2 * K), dtype=torch.float32,
                            device=dev) if plan.splits > 1 else None)
     name, counter = (("pmf_dense_head_tier_fast", HEAD_FAST_LAUNCHES) if fast

@@ -43,7 +43,6 @@ import torch
 from pmf_tpu_torch.data.blocked import TailCSR
 from pmf_tpu_torch.ops import _build
 from pmf_tpu_torch.ops._tail import (
-    GROUP_MAX_K,
     add_heads,
     band_rows,
     check_head,
@@ -65,7 +64,6 @@ from pmf_tpu_torch.ops.dense_head import ext_head_stats, ext_head_stats_t
 RATE_FLOOR = 1e-10
 FACTOR_LAUNCHES = _build.LaunchCounter()
 SCALAR_LAUNCHES = _build.LaunchCounter()
-MAX_K = GROUP_MAX_K
 
 
 def ext_factor_tail_plain(e_self, es_other, row_ptr, other, x,
@@ -112,12 +110,11 @@ def ext_scalar_tail_plain(e_self_new, es_other, row_ptr, other,
 
 
 def _check_cuda_args(name, e_self, es_other, row_ptr, other, x, K, long_rows):
-    """Raise on what K7 and K8 do not take on the card: K outside
-    [1, MAX_K]; self rows not padded to ``tail_stride(K)`` or records not
+    """Raise on what K7 and K8 do not take on the card: K below 1;
+    self rows not padded to ``tail_stride(K)`` or records not
     padded to ``tail_stride(K + 1)``, or not starting on 16 bytes; the
     tail's arguments (``_tail.check_tail_args``); ``long_rows``."""
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"extended tail kernels need 1 <= K <= {MAX_K}, got K={K}")
+    _build.check_k(K, "extended tail kernels")
     check_tail_args([(name, e_self), ("es_other", es_other)], row_ptr, other, x,
                     e_self.shape[0])
     check_padded_tables(K, [(name, e_self)])

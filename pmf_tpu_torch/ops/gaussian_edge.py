@@ -33,7 +33,6 @@ import torch
 from pmf_tpu_torch.data.blocked import TailCSR
 from pmf_tpu_torch.ops import _build
 from pmf_tpu_torch.ops._tail import (
-    GROUP_MAX_K,
     add_heads as _add_heads,
     band_rows,
     check_head as _check_head,
@@ -54,10 +53,12 @@ FACTOR_LAUNCHES = _build.LaunchCounter()
 BIAS_LAUNCHES = _build.LaunchCounter()
 DIAG_LAUNCHES = _build.LaunchCounter()
 # Past K = 30 the factor pass cuts its K + 1 + K(K+1)/2 record floats into
-# chunks of 512 on grid.y; the bias and diag passes are row-group kernels
-# (csrc/tail_groups.cuh), at most 32 float4 words a row.
-FACTOR_MAX_K = 128
-BIAS_MAX_K = DIAG_MAX_K = GROUP_MAX_K
+# chunks of 512 on grid.y; past K = 128 its wide instance takes the factors
+# from every load of the first chunks and b_o by a load of its own.  The
+# bias and diag passes are row-group kernels (csrc/tail_groups.cuh).
+FACTOR_WHOLE_RECORD_MAX_K = 30  # csrc/gaussian_edge.cu: kWholeRecordMaxK
+FACTOR_CHUNK = 512  # record floats a chunk past it (kChunkNV float4 loads a lane)
+FACTOR_NARROW_MAX_K = 128  # kNarrowMaxK: the factors in the chunk's first load
 
 
 def tri_size(k: int) -> int:
@@ -98,6 +99,14 @@ def factor_stride(k: int) -> int:
     to 4, so that every record starts on 16 bytes (the kernel's float4
     loads); the plain version ignores the pad columns."""
     return -(-(k + 1 + tri_size(k)) // 4) * 4
+
+
+def factor_boundary_ks() -> list:
+    """The first K of each form of K3: the whole record in a warp's loads,
+    chunks of FACTOR_CHUNK floats on grid.y, the wide instance, and b_o past
+    the first chunk (K + 1 > FACTOR_CHUNK).  The tests and chip_smoke.py hold
+    K3 on both sides of each."""
+    return [1, FACTOR_WHOLE_RECORD_MAX_K + 1, FACTOR_NARROW_MAX_K + 1, FACTOR_CHUNK]
 
 
 def factor_reckoning(p: TailCSR, K: int, with_bias_stats: bool = False) -> dict:
@@ -144,8 +153,7 @@ def factor_tail_stats(aug, row_ptr, other, x, K: int,
     tensors run the plain version, which also takes an unpadded table."""
     if not aug.is_cuda:
         return factor_tail_stats_plain(aug, row_ptr, other, x, K, with_bias_stats)
-    if not 1 <= K <= FACTOR_MAX_K:
-        raise ValueError(f"factor kernel needs 1 <= K <= {FACTOR_MAX_K}, got K={K}")
+    _build.check_k(K, "factor kernel")
     T = tri_size(K)
     stride = factor_stride(K)
     if aug.dim() != 2 or aug.shape[1] != stride:
@@ -190,8 +198,7 @@ def bias_tail_stats(mb_other, row_ptr, other, x, K: int | None = None,
     if not mb_other.is_cuda:
         return bias_tail_stats_plain(mb_other, row_ptr, other, x, K)
     K = mb_other.shape[1] - 1 if K is None else K
-    if not 1 <= K <= BIAS_MAX_K:
-        raise ValueError(f"bias kernel needs 1 <= K <= {BIAS_MAX_K}, got K={K}")
+    _build.check_k(K, "bias kernel")
     n_self = row_ptr.shape[0] - 1
     _check_tail_args([("mb_other", mb_other)], row_ptr, other, x, n_self)
     _check_padded_tables(K, [("mb_other", mb_other)], "K5")
@@ -238,8 +245,7 @@ def diag_tail_stats(mb_self, mb_other, sq_other, row_ptr, other, x,
     if not mb_self.is_cuda:
         return diag_tail_stats_plain(mb_self, mb_other, sq_other, row_ptr, other, x, K)
     K = mb_self.shape[1] - 1 if K is None else K
-    if not 1 <= K <= DIAG_MAX_K:
-        raise ValueError(f"diag kernel needs 1 <= K <= {DIAG_MAX_K}, got K={K}")
+    _build.check_k(K, "diag kernel")
     n_self = row_ptr.shape[0] - 1
     _check_tail_args([("mb_self", mb_self), ("mb_other", mb_other),
                       ("sq_other", sq_other)], row_ptr, other, x, n_self)

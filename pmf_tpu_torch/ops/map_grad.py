@@ -43,8 +43,28 @@ import torch
 from pmf_tpu_torch.ops import _build
 
 MAP_GRAD_LAUNCHES = _build.LaunchCounter()
-MAX_K = 128  # one lane an edge up to K = 32, then ceil(K / 32) factors a lane
+WIDE_MAX_F = 8  # csrc/map_grad.cu: kWideMaxF, factors a lane of the register instances
 PIECE = 128  # edges a piece at most: the longest walk of one warp (tuned, PERF.md PR 6)
+
+
+def kernel_of(k: int) -> tuple:
+    """The instance of ``csrc/map_grad.cu`` that takes ``k`` factors:
+    ("lane", KMAX) one lane an edge up to K = 32, ("wide", F) F = ceil(K /
+    32) factors a lane up to 32 WIDE_MAX_F, then ("general",), the sums
+    kept in the stored row."""
+    _build.check_k(k, "map-grad kernel")
+    if k <= 32:
+        return ("lane", 8 * -(-k // 8))
+    if k <= 32 * WIDE_MAX_F:
+        return ("wide", -(-k // 32))
+    return ("general",)
+
+
+def boundary_ks(k_max: int = 600) -> list:
+    """The first K of each instance up to ``k_max``: the tests and
+    chip_smoke.py hold K9 on both sides of each."""
+    return [k for k in range(1, k_max + 1)
+            if k == 1 or kernel_of(k) != kernel_of(k - 1)]
 
 
 def _edge_terms(g_self, g_other, x, lam_floor):
@@ -198,9 +218,9 @@ def map_grad_pieces_plain(self_tab, other_tab, g: StepGroups, step: int,
 
 
 def _check_cuda_args(self_tab, other_tab, g: StepGroups, with_nll, out):
-    if self_tab.dim() != 2 or not 1 <= self_tab.shape[1] - 1 <= MAX_K:
-        raise ValueError(f"map-grad kernel needs 1 <= K <= {MAX_K} (tables carry "
-                         f"K+1 columns), got shape {tuple(self_tab.shape)}")
+    if self_tab.dim() != 2:
+        raise ValueError(f"self_tab must be (n, K+1), got shape {tuple(self_tab.shape)}")
+    _build.check_k(self_tab.shape[1] - 1, "map-grad kernel (tables carry K+1 columns)")
     checks = [("self_tab", self_tab, torch.float32), ("other_tab", other_tab, torch.float32),
               ("out", out, torch.float32), ("x", g.x, torch.float32),
               ("other", g.other, torch.int32), ("piece_ptr", g.piece_ptr, torch.int64),

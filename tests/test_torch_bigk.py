@@ -2,8 +2,9 @@
 package at K in {33, 50, 70} (the Pallas kernels in interpret mode, at
 the gates the K <= 32 tests use), one blocked fit per family at K = 50
 against the JAX fit, the wide K2's launch plan and arithmetic, the K4
-CTA form's in-place elimination, and every kernel wrapper's bound of
-K <= 128, named in the error it raises at K = 129."""
+CTA form's in-place elimination, and every kernel wrapper's one bound,
+K >= 1: K = 0 raises before anything is built, K = 128, 129 and 300 run
+each plain version on the CPU.  Past K = 128: tests/test_torch_hugek.py."""
 
 import dataclasses
 
@@ -325,13 +326,19 @@ def test_hpf_map_blocked_epoch_at_k50_matches_jax():
     """One blocked epoch on the JAX layout's segments in the JAX epoch's
     segment order, at K = 50 (the fits draw other segments, so the epoch
     is the comparison)."""
+    hpf_map_blocked_epoch_matches_jax(50)
+
+
+def hpf_map_blocked_epoch_matches_jax(K):
+    """One blocked HPF-MAP epoch at ``K`` factors, the port against the
+    JAX package, from the same parameters and segment order."""
     from tests.test_torch_hpf_map import SCAL, _compare_state, _j, _scales
     import jax
     import optax
 
     u, i, x, n_users, n_items = map_data()
     mix = 3
-    cfg = t_map.HPFMapConfig(n_factors=50, random_state=0, lr=0.01)
+    cfg = t_map.HPFMapConfig(n_factors=K, random_state=0, lr=0.01)
     lay = j_map.build_map_layout(u, i, x, n_users, n_items, batch_size=mix * 2048,
                                  dtype=np.float32, mix=mix)
     us, is_ = _scales(u, i, n_users, n_items, np.float32)
@@ -395,8 +402,8 @@ def test_k2_plan_keeps_the_k32_plans():
     """The K <= 32 plans are those of the three-CTA instances."""
     plan = dense_head.plan_launch(36864, 4096, 20, False, False, True, 132)
     assert plan.groups == 1 and plan.ctas_per_sm == 3 and plan.depth == 24
-    with pytest.raises(ValueError, match="K <= 128"):
-        dense_head.plan_launch(36864, 4096, 129, False, False, True, 132)
+    with pytest.raises(ValueError, match="K >= 1"):
+        dense_head.plan_launch(36864, 4096, 0, False, False, True, 132)
 
 
 def _emulate_wide(theta, beta, x_hi, m, x_lo, item_side):
@@ -468,7 +475,7 @@ def test_k4_in_place_elimination_equals_the_plain_version(K):
                                atol=1e-9)
 
 
-# ---------------------------------------------- the bound at K = 129 --
+# ------------------------------------------------ the one bound: K >= 1 --
 
 def _csr(n_self, n_other, nnz):
     row_ptr = torch.full((n_self + 1,), nnz, dtype=torch.int64)
@@ -481,40 +488,42 @@ def _wide(*shape):
     return _cuda_looking(torch.rand(*shape))
 
 
-K9 = 129
+K0 = 0
 WRAPPERS = {
-    "K1": lambda: cavi_edge.tail_edge_stats(_wide(3, K9), _wide(5, K9), *_csr(3, 5, 4)),
-    "K1raw": lambda: cavi_edge.tail_edge_stats(_wide(3, K9), _wide(5, K9),
+    "K1": lambda: cavi_edge.tail_edge_stats(_wide(3, K0), _wide(5, K0), *_csr(3, 5, 4)),
+    "K1raw": lambda: cavi_edge.tail_edge_stats(_wide(3, K0), _wide(5, K0),
                                                *_csr(3, 5, 4)[:2], None, mode="raw"),
     "K2": lambda: dense_head.fused_alloc_tier(
-        _wide(8, K9), _wide(128, K9),
+        _wide(8, K0), _wide(128, K0),
         _cuda_looking(torch.ones(8, 128, dtype=torch.bfloat16)),
         _cuda_looking(torch.ones(8, 128, dtype=torch.bfloat16)), rate_floor=1e-10),
-    "K3": lambda: gaussian_edge.factor_tail_stats(
-        _wide(5, K9 + 1 + K9 * (K9 + 1) // 2), *_csr(3, 5, 4), K9),
-    "K4": lambda: gj_inverse.batched_psd_inverse_gj(_wide(2, K9, K9)),
-    "K5": lambda: gaussian_edge.bias_tail_stats(_wide(5, 132), *_csr(3, 5, 4), K=K9),
-    "K6": lambda: gaussian_edge.diag_tail_stats(_wide(3, 132), _wide(5, 132),
-                                                _wide(5, 132), *_csr(3, 5, 4), K=K9),
-    "K7": lambda: ext_edge.ext_factor_tail(_wide(3, K9), _wide(5, 132), *_csr(3, 5, 4)),
-    "K8": lambda: ext_edge.ext_scalar_tail(_wide(3, K9), _wide(5, 132),
+    "K3": lambda: gaussian_edge.factor_tail_stats(_wide(5, 4), *_csr(3, 5, 4), K0),
+    "K4": lambda: gj_inverse.batched_psd_inverse_gj(_wide(2, K0, K0)),
+    "K5": lambda: gaussian_edge.bias_tail_stats(_wide(5, 4), *_csr(3, 5, 4), K=K0),
+    "K6": lambda: gaussian_edge.diag_tail_stats(_wide(3, 4), _wide(5, 4), _wide(5, 4),
+                                                *_csr(3, 5, 4), K=K0),
+    "K7": lambda: ext_edge.ext_factor_tail(_wide(3, K0), _wide(5, 4), *_csr(3, 5, 4)),
+    "K8": lambda: ext_edge.ext_scalar_tail(_wide(3, K0), _wide(5, 4),
                                            *_csr(3, 5, 4)[:2]),
-    "K9": lambda: map_grad.map_grad_pieces(*_map_args(K=K9)),
+    "K9": lambda: map_grad.map_grad_pieces(_wide(3, K0 + 1), _wide(5, K0 + 1),
+                                           *_map_args()[2:]),
 }
 
 
 @pytest.mark.parametrize("kernel", sorted(WRAPPERS))
 def test_every_wrapper_names_the_k128_bound(kernel):
-    """Each kernel wrapper raises on K = 129 before anything is built, and
-    says where the bound lies."""
-    with pytest.raises(ValueError, match="1 <= K <= 128"):
+    """The wrappers keep one bound on K, K >= 1 (no upper one since K = 128
+    was lifted): each raises on K = 0 before anything is built, and names
+    the bound."""
+    with pytest.raises(ValueError, match="K >= 1"):
         WRAPPERS[kernel]()
 
 
+@pytest.mark.parametrize("k", [128, 129, 300])
 @pytest.mark.parametrize("kernel", sorted(WRAPPERS))
-def test_every_wrapper_takes_k128_on_the_cpu(kernel):
-    """On CPU tensors K = 128 runs each wrapper's plain version."""
-    k = 128
+def test_every_wrapper_takes_k128_on_the_cpu(kernel, k):
+    """On CPU tensors K = 128 and past it runs each wrapper's plain
+    version."""
     cpu = {
         "K1": lambda: cavi_edge.tail_edge_stats(
             torch.rand(3, k), torch.rand(5, k), torch.tensor([0, 2, 2, 4]),

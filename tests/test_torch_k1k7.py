@@ -58,7 +58,8 @@ def test_launch_plan_mirrors_the_kernel_source():
 
     assert const("kWarps") == _tail.GROUP_WARPS
     assert const("kInFlight") == _tail.GROUP_IN_FLIGHT
-    assert const("kMaxK") == _tail.GROUP_MAX_K == cavi_edge.MAX_K
+    assert const("kMaxSpan") == _tail.GROUP_MAX_SPAN
+    assert const("kWideWords") == _tail.WIDE_WORDS
     assert const("kOneWord") == _tail.GROUP_ONE_WORD
     assert "return g < 8 ? 8 : g;" in src  # batch_of
     # K8 is mode kScalar, with K1's one word a lane up to kOneWord words
@@ -66,11 +67,12 @@ def test_launch_plan_mirrors_the_kernel_source():
     assert "return mode == kBias || mode == kDiag ? kRecordOneWord : kOneWord;" in src
     assert _tail.WIDE_KERNELS == ("K5", "K6")
     built = set(re.findall(r"PMF_TAIL_PLAN\((\d+), (\d+)\)\n", src))
-    plans = {(str(_tail.launch_plan(K, kid)["lanes"]), str(_tail.launch_plan(K, kid)["vec"]))
-             for K in range(1, _tail.GROUP_MAX_K + 1) for kid in _tail.PLAN_KERNELS}
-    assert plans == built  # every plan of a row-group kernel built, and nothing else
-    with pytest.raises(ValueError, match="1 <= K <= 128"):
-        _tail.launch_plan(129)
+    plans = {(str(p["lanes"]), str(p["vec"])) for K in range(1, 600)
+             for kid in _tail.PLAN_KERNELS
+             for p in [_tail.launch_plan(K, kid)] if not p["wide"]}
+    assert plans == built  # every plan of the register form built, and nothing else
+    with pytest.raises(ValueError, match="K >= 1"):
+        _tail.launch_plan(0)
 
 
 # ------------------------------------------------------------ emulation --

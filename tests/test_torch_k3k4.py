@@ -141,10 +141,12 @@ def test_k4_launch_plan(K, warps, matrices):
 
 def test_k4_cta_form_past_64_and_the_bound():
     assert gj_inverse.launch_plan(65) is None and gj_inverse.launch_plan(128) is None
-    with pytest.raises(ValueError, match="1 <= K <= 128"):
-        gj_inverse.launch_plan(129)
-    with pytest.raises(ValueError, match="1 <= K <= 128"):
-        gj_inverse.batched_psd_inverse_gj(_cuda_looking(torch.rand(2, 129, 129)))
+    assert gj_inverse.form(65) == gj_inverse.form(239) == "cta"
+    assert gj_inverse.form(240) == "global"
+    with pytest.raises(ValueError, match="K >= 1"):
+        gj_inverse.launch_plan(0)
+    with pytest.raises(ValueError, match="K >= 1"):
+        gj_inverse.batched_psd_inverse_gj(_cuda_looking(torch.rand(2, 0, 0)))
 
 
 # ------------------------------------------------------------------ K3 --
@@ -260,9 +262,8 @@ def test_factor_wrapper_bounds():
     csr = tuple(_cuda_looking(t) for t in (torch.tensor([0, 1, 1, 2]),
                                            torch.tensor([0, 4], dtype=torch.int32),
                                            torch.ones(2)))
-    k = 129
-    with pytest.raises(ValueError, match="1 <= K <= 128"):
-        ge.factor_tail_stats(_cuda_looking(torch.rand(5, ge.factor_stride(k))), *csr, k)
+    with pytest.raises(ValueError, match="K >= 1"):
+        ge.factor_tail_stats(_cuda_looking(torch.rand(5, 4)), *csr, 0)
 
 
 @pytest.mark.parametrize("K", [1, 2, 4, 20, 50, 128])
