@@ -5,7 +5,9 @@
 
 ``--parent DIR``: a checkout of another commit (for instance the parent,
 unpacked by ``git archive`` into a git-ignored directory); its kernels
-build beside this tree's, and phase K8 times its K8 and this one in turns.
+build beside this tree's, and phase k2 parent (after k2fast) times its K2
+and this one at K = 20, 50 and 160, both precisions, in turns parent,
+this, this, parent.
 
 Phases, one status line each; any failure exits non-zero and prints no
 result line:
@@ -59,8 +61,7 @@ result line:
 Between phases 5 and 6, on the same layout's tail: K7 and K8, the
 extended-Poisson factor and scalar-rate tail kernels vs their plain
 versions on [e | s] records, both directions, with their per-edge sector
-reckonings, long rows alone and the linear library forms of K8 (and with
-``--parent`` the parent's K8 in turns).  After
+reckonings, long rows alone and the linear library forms of K8.  After
 phase 8 the HPF model is freed, then the Poisson-MF CAVI path on the same
 ratings: psmall (three blocked sweeps card vs host, plain and extended),
 pfit (``PoissonMF.fit(engine="blocked_high")``, 4 sweeps plain then 4
@@ -95,10 +96,12 @@ K = 128 inside phase bigk, phase hugek: every kernel at K = 129, 160,
 at K = 160 (gsmall on a 600 x 300 input, 2 sweeps).  Beside the
 real-data phases, "bigk timing": every kernel's time at K = 50 on the
 real tail, tiers, matrices and steps; "huge timing": the same at K = 160
-with the bound at K = 160 (K2 also against its plain version on every
-tier).  After phase resume, phase hugefit: ``HPF(n_factors=160)`` at full
-width, 4 sweeps with launch counters, one sweep traced (K2, K1, the
-rest), read by phase roofline.
+with the bound at K = 160 (K2 at both K also against its plain version on
+every tier, its launch plan logged with passes over the cells and the
+instance's registers and spills).  After phase resume, phase hugefit:
+``HPF(n_factors=160)`` and ``HPF(n_factors=50)`` at full width, 4 sweeps
+each with launch counters, one sweep traced (K2, K1, the rest), read by
+phase roofline as hpf_k160 and hpf_k50.
 
 Those are freed, then the Gaussian-MF CAVI path:
 
@@ -376,9 +379,14 @@ def phase_device():
     return smi
 
 
+# The build's ptxas report, by kernel name with its template arguments
+# (e.g. "head_pass_kernel<160, 1, 0, 3, 0>"): "N registers, <spill line>".
+PTXAS: dict = {}
+
+
 def _ptxas_report(text: str) -> list:
     """One line per compiled kernel from ``ptxas -v``: its name (template
-    argument kept), registers and spills."""
+    argument kept), registers and spills; each also kept in PTXAS."""
     import re
 
     out, name = [], "?"
@@ -399,15 +407,15 @@ def _ptxas_report(text: str) -> list:
             spill = ln.strip()
         elif "registers" in ln:
             regs = re.search(r"Used (\d+) registers", ln)
-            out.append(f"{name}: {regs.group(1) if regs else '?'} registers, "
-                       f"{spill}")
+            PTXAS[name] = f"{regs.group(1) if regs else '?'} registers, {spill}"
+            out.append(f"{name}: {PTXAS[name]}")
     return out
 
 
 # With ``--parent DIR`` (a checkout of another commit, e.g. by git archive
 # into a git-ignored directory): that tree's build module, whose kernels
-# build into DIR's own _build/, and a launch counter of its own.  Phase K8
-# then times that tree's K8 in turns beside this one's.
+# build into DIR's own _build/.  Phase k2 parent then times that tree's K2
+# (its ops/dense_head.py over that build) in turns beside this one's.
 PARENT: dict = {}
 
 
@@ -418,7 +426,7 @@ def _load_parent(parent_dir):
     spec = importlib.util.spec_from_file_location("parent_build", path)
     build = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(build)
-    PARENT.update(dir=parent_dir, build=build, launches=build.LaunchCounter())
+    PARENT.update(dir=parent_dir, build=build)
 
 
 def phase_build():
@@ -600,7 +608,7 @@ def _k2_bound(rows, hip, m_f32, has_lo, n_bytes, fast=False, k=K):
     and a subtraction for a float32 M).  ``fast`` (the one-term instance):
     one mma a block for each product, no split of W or M.  At ``k`` past
     K = 32 the count is the function's (ceil(k / 8) blocks, R once), not
-    the padding and the output groups' R the kernel adds."""
+    the padding of the pass form's chunks."""
     blocks = -(-k // 8)
     mmas = 3 * blocks if fast else (3 + 3 + (3 if m_f32 else 2)) * blocks
     split = 0 if fast else 1
@@ -609,6 +617,24 @@ def _k2_bound(rows, hip, m_f32, has_lo, n_bytes, fast=False, k=K):
             "tensor operations": cells * mmas * 4096 / 256 / BF16_FLOPS_PER_S * 1e3,
             "elementwise operations": cells * (4.5 + split + has_lo + (1 + split) * m_f32)
             / FP32_FLOPS_PER_S * 1e3}
+
+
+def _k2_plan_note(plan, k, item_side, m_f32, fast=False) -> str:
+    """One K2 launch's plan (passes over the cells, stages, threads,
+    resident CTAs an SM, splits, shared memory) and its instance's
+    registers and spills from the build's ptxas report."""
+    from pmf_tpu_torch.ops.dense_head import pass_width
+
+    terms = 1 if fast else 3
+    if k <= 32:
+        name = (f"head_{'item' if item_side else 'user'}_kernel<{-(-k // 8)}, "
+                f"{int(m_f32)}, {terms}>")
+    else:
+        name = (f"head_pass_kernel<{pass_width(k)}, {int(m_f32)}, {int(item_side)}, "
+                f"{terms}, {int(plan.p_ring)}>")
+    return (f"passes {plan.passes}, {plan.stages} stages, {plan.threads} threads, "
+            f"{plan.ctas_per_sm} CTAs/SM, {plan.splits} splits, {plan.smem_bytes} B "
+            f"shared | {name}: {PTXAS.get(name, 'no ptxas line')}")
 
 
 def phase_k2(blocked):
@@ -654,9 +680,7 @@ def phase_k2(blocked):
                 f"{plain_ms:.4f} ms | bound {tier_lines[by]:.4f} ms ({by}) | cells "
                 f"{rate:.1f} GB/s, {rate * 1e9 / HBM_BYTES_PER_S:.1%} of "
                 f"{HBM_BYTES_PER_S / 1e12} TB/s (stored {stored_bytes / ms / 1e6:.1f} "
-                f"GB/s) | {plan.stages} stages, "
-                f"{plan.ctas_per_sm} CTAs/SM, {plan.splits} splits, "
-                f"{plan.smem_bytes} B shared")
+                f"GB/s) | {_k2_plan_note(plan, K, item_side, m_f32)}")
             if not rel_err <= RTOL:
                 raise AssertionError(
                     f"K2 tier {t} {side}: relative error {rel_err} > {RTOL}")
@@ -1229,9 +1253,10 @@ def _beside(bounds, lo=129):
 def hugek_plan() -> dict:
     """The K of phase hugek per kernel: HUGEK_KS, and K - 1 and K of each
     boundary past 128 that the kernel's module lists: K3's wide instance
-    and its b leaving the first chunk, K4's global form, K9's instances,
-    K2's staged depth and P in the ring (for each kind of cell tile and
-    precision).  The row-group kernels' are phase k17small's."""
+    and its b leaving the first chunk, K4's global form, K9's instances;
+    for K2 every boundary past 32 (the pass form's chunk widths, two
+    passes, P in the ring, for each kind of cell tile and precision).  The
+    row-group kernels' are phase k17small's."""
     from pmf_tpu_torch.ops import dense_head, gaussian_edge, gj_inverse, map_grad
 
     base = set(HUGEK_KS)
@@ -1242,9 +1267,10 @@ def hugek_plan() -> dict:
         "K4": sorted(base | _beside(gj_inverse.boundary_ks())),
         "K9": sorted(base | _beside(map_grad.boundary_ks())),
         "K2": sorted(base | {k for kind in kinds
-                             for k in _beside(dense_head.boundary_ks(*kind))}),
+                             for k in _beside(dense_head.boundary_ks(*kind), lo=33)}),
         "K2fast": sorted(base | {k for kind in kinds
-                                 for k in _beside(dense_head.boundary_ks(*kind, True))}),
+                                 for k in _beside(dense_head.boundary_ks(*kind, True),
+                                                  lo=33)}),
     }
 
 
@@ -1304,8 +1330,8 @@ def phase_wide_poisson(blocked, k=K_WIDE):
     and K8 on the tail and K2 at both precisions on the tiers, both
     directions: device time (CUDA events) and the bound at ``k``, reckoned
     as phases K1, K7, K8 and K2 reckon theirs at K = 20 (each input read
-    once, each output written once; K2's work without its padding); with
-    ``--parent``, the parent's K8 at K_WIDE.  Each tail kernel first
+    once, each output written once; K2's work without its padding).  Each
+    tail kernel first
     against its plain version on the same tables (on runs of rows, at
     RTOL), both directions; K2 also against its plain
     version on every tier and side, as phases K2 and k2fast do at K = 20:
@@ -1317,10 +1343,12 @@ def phase_wide_poisson(blocked, k=K_WIDE):
     import torch
 
     from pmf_tpu_torch.ops._tail import padded_rows
-    from pmf_tpu_torch.ops.dense_head import fused_alloc_tier, fused_alloc_tier_plain
+    from pmf_tpu_torch.ops.dense_head import (
+        PASS_MAX_K, fused_alloc_tier, fused_alloc_tier_plain, plan_launch)
     from pmf_tpu_torch.ops.ext_edge import es_record
 
     gen = torch.Generator(device="cuda").manual_seed(5)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     reps = TIMING_REPS if k <= K_WIDE else 3
     kids = ("K1", "K1raw", "K2", "K2fast", "K7", "K8")
     ms, n_bytes, n_flops = (dict.fromkeys(kids, 0.0) for _ in range(3))
@@ -1347,9 +1375,6 @@ def phase_wide_poisson(blocked, k=K_WIDE):
             ms[kid] += cuda_ms(lambda: _tail_kernel(kid, tabs, p, k), reps=reps)
             n_bytes[kid] += nb
             n_flops[kid] += p.nnz * flops
-        if PARENT and k == K_WIDE:
-            ms["K8 parent"] = ms.get("K8 parent", 0.0) + cuda_ms(
-                lambda: _parent_k8(es, eo, so, p))
         del es, eo, so, es_p, eo_p, rec
     lines = {"K2": {}, "K2fast": {}}
     worst = dict.fromkeys(lines, 0.0)
@@ -1378,13 +1403,20 @@ def phase_wide_poisson(blocked, k=K_WIDE):
                                          f"{tol}")
                 worst[kid] = max(worst[kid], rel)
                 del ref
-                ms[kid] += cuda_ms(lambda: fused_alloc_tier(theta, beta, *cells, **kw),
-                                   reps=reps)
+                t_ms = cuda_ms(lambda: fused_alloc_tier(theta, beta, *cells, **kw), reps=reps)
+                ms[kid] += t_ms
+                plan = plan_launch(h.hu, h.hip, k, item_side, m_f32, has_lo, n_sm,
+                                   prec == "fast")
+                log(f"  {kid} K={k} tier ({h.row_start}, {h.hu}, {h.hi}) "
+                    f"{'item' if item_side else 'user'}: rel {rel:.3e} | {t_ms:.4f} ms | "
+                    f"{_k2_plan_note(plan, k, item_side, m_f32, prec == 'fast')}")
+                if plan.passes != -(-k // PASS_MAX_K):
+                    raise AssertionError(f"{kid} K={k}: {plan.passes} passes over the cells")
                 nb = cells_bytes + theta.nbytes + beta[: h.hi].nbytes + got.nbytes
                 for name, v in _k2_bound(h.hu, h.hip, m_f32, has_lo, nb,
                                          fast=prec == "fast", k=k).items():
                     lines[kid][name] = lines[kid].get(name, 0.0) + v
-    out = {"K8 parent": dict(ms=ms["K8 parent"])} if "K8 parent" in ms else {}
+    out = {}
     for kid in kids:
         if kid in lines:
             by = max(lines[kid], key=lines[kid].get)
@@ -1486,29 +1518,40 @@ def phase_huge_gauss(blocked):
     return out
 
 
-def phase_hugefit(train, val, smi):
-    """This slice's path at full width: ``HPF(n_factors=K_HUGE,
-    engine="blocked_high").fit`` on the real data for FIT_SWEEPS sweeps,
-    the launch counters reset just before and read just after (K1 twice a
-    sweep, K2 twice a tier and sweep); finite state and a val RMSE that
-    never rises; then one steady sweep timed by CUDA events and traced:
-    busy ms split into K2, K1 and the rest.  Returns {"hpf_k160": (the
-    sweep's work count, busy ms)} for phase roofline."""
+# blocked_high's val RMSE against engine flat's, a sweep, at K_WIDE: a sound
+# head reads 1.03e-6, a one-bf16-term head (engine blocked_fast) 5.4e-6.
+HUGEFIT_FLAT_RTOL = 3e-6
+
+
+def phase_hugefit(train, val, smi, k=K_HUGE):
+    """The wide path at full width: ``HPF(n_factors=k,
+    engine="blocked_high").fit`` on the real data for FIT_SWEEPS sweeps
+    (K_HUGE, and K_WIDE), the launch counters reset just before and
+    read just after (K1 twice a sweep, K2 twice a tier and sweep); finite
+    state and a val RMSE that never rises; then one steady sweep timed by
+    CUDA events and traced: busy ms split into K2, K1 and the rest.  At
+    K_WIDE the model itself lets the val RMSE rise on the fourth sweep
+    (about 1e-5 relative; engine "flat", which runs no K2, does the same),
+    so there the history is held sweep by sweep to a flat fit's within
+    HUGEFIT_FLAT_RTOL, and a rise passes only where the flat fit rises at
+    the same sweep; a blocked_fast fit's gap to the flat one is logged
+    beside that limit.  Returns {"hpf_k<k>": (the sweep's work count, busy ms)}
+    for phase roofline."""
     import torch
 
     from pmf_tpu_torch.models.hpf import HPF, HPFConfig, state_to_numpy, sweep_blocked
 
-    model = HPF(HPFConfig(n_factors=K_HUGE, max_iter=FIT_SWEEPS, tol=None,
+    model = HPF(HPFConfig(n_factors=k, max_iter=FIT_SWEEPS, tol=None,
                           verbose=False, engine="blocked_high"))
     counters = reset_counters()
     t0 = time.perf_counter()
     model.fit(train, val)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: c.count for k, c in counters.items()}
+    launches = {kid: c.count for kid, c in counters.items()}
     n_tiers = len(model.blocked.head or ())
     for rec in model.fit_history:
-        log(f"  K={K_HUGE} sweep {rec['iteration']}: {rec['iter_seconds']:.4f} s | "
+        log(f"  K={k} sweep {rec['iteration']}: {rec['iter_seconds']:.4f} s | "
             f"{rec['updates_per_sec'] / 1e6:.1f}M updates/s | val RMSE "
             f"{rec['val_rmse']:.6f} | {smi}")
     want = dict.fromkeys(launches, 0)
@@ -1516,12 +1559,33 @@ def phase_hugefit(train, val, smi):
     if launches != want or n_tiers == 0:
         raise AssertionError(f"hugefit launches {launches}, expected {want}")
     for name, v in state_to_numpy(model.state).items():
-        if (v.ndim == 2 and v.shape[1] != K_HUGE) or not np.all(np.isfinite(v)):
+        if (v.ndim == 2 and v.shape[1] != k) or not np.all(np.isfinite(v)):
             raise AssertionError(f"hugefit state {name}: shape {v.shape} or not finite")
     rmses = [rec["val_rmse"] for rec in model.fit_history]
     if len(rmses) != FIT_SWEEPS or not np.all(np.isfinite(rmses)):
         raise AssertionError(f"hugefit val RMSE history {rmses}")
-    if not all(b <= a for a, b in zip(rmses, rmses[1:])):
+    rises = [b > a for a, b in zip(rmses, rmses[1:])]
+    if k == K_WIDE:
+        flat = HPF(HPFConfig(n_factors=k, max_iter=FIT_SWEEPS, tol=None, verbose=False,
+                             engine="flat"))
+        flat.fit(train, val)
+        f_rmses = [rec["val_rmse"] for rec in flat.fit_history]
+        del flat
+        gap = max(abs(a - b) / b for a, b in zip(rmses, f_rmses))
+        if not gap <= HUGEFIT_FLAT_RTOL:
+            raise AssertionError(f"hugefit K={k}: val RMSE {rmses} against engine flat's "
+                                 f"{f_rmses}: {gap} > {HUGEFIT_FLAT_RTOL}")
+        rises = [r and not b > a for r, a, b in zip(rises, f_rmses, f_rmses[1:])]
+        # How far a head that differs from the exact one moves this check:
+        # engine blocked_fast (K2 at one bf16 term a product), logged only.
+        fast = HPF(HPFConfig(n_factors=k, max_iter=FIT_SWEEPS, tol=None, verbose=False,
+                             engine="blocked_fast"))
+        fast.fit(train, val)
+        fast_gap = max(abs(a["val_rmse"] - b) / b for a, b in zip(fast.fit_history, f_rmses))
+        del fast
+        log(f"  K={k} engine flat (no K2): val RMSE {f_rmses} | worst relative gap "
+            f"{gap:.3e} (tol {HUGEFIT_FLAT_RTOL}) | engine blocked_fast's {fast_gap:.3e}")
+    if any(rises):
         raise AssertionError(f"hugefit val RMSE rose: {rmses}")
 
     cfg = model.config
@@ -1537,36 +1601,44 @@ def phase_hugefit(train, val, smi):
 
     ms = cuda_ms(one_sweep, reps=2)
     rows, busy, wall_ms = profile_once(
-        one_sweep, {K1_TRACE: 2, "head_deep_kernel": 2 * n_tiers})
+        one_sweep, {K1_TRACE: 2, "head_pass_kernel": 2 * n_tiers})
     groups, _ = trace_parts(rows, {"K2 head kernels": K2_KERNELS,
                                    "K1 tail_group_kernel<0>": (K1_TRACE,)})
-    log(f"phase hugefit: ok | K={K_HUGE}, {model.n_sweeps} sweeps in {wall:.1f}s wall "
+    log(f"phase hugefit: ok | K={k}, {model.n_sweeps} sweeps in {wall:.1f}s wall "
         f"(layout build included) | launches {launches} | val RMSE {rmses} | steady "
         f"sweep {ms:.4f} ms (CUDA events) | one sweep traced: busy {busy:.4f} ms of "
         f"{wall_ms:.4f} ms (idle share {1 - busy / wall_ms:.1%}) | {smi}")
     log_parts(groups, busy)
     for dev_ms, n, key in rows[:6]:
         log(f"  {dev_ms:9.4f} ms  {n:3d}x  {key[:90]}")
-    traffic = roofline.hpf_blocked_traffic(model.blocked, K_HUGE)
+    traffic = roofline.hpf_blocked_traffic(model.blocked, k)
     del model, state
-    return {f"hpf_k{K_HUGE}": (traffic, busy)}
+    return {f"hpf_k{k}": (traffic, busy)}
 
 
 def phase_wide_gauss(blocked):
     """Device time at K_WIDE factors of K3 (exact, with its byte
-    reckonings), K5, K6 on the real Gaussian tail and K4 on 162k + 59k
-    matrices (beside torch.linalg.inv, with its bounds), by CUDA events;
-    and K4 at K = 128 on 59k matrices."""
+    reckonings), K5, K6 on the real Gaussian tail (with their bounds,
+    reckoned as phase huge timing's) and K4 on 162k + 59k matrices (beside
+    torch.linalg.inv, with its bounds), by CUDA events; and K4 at K = 128
+    on 59k matrices."""
     import torch
 
     k = K_WIDE
     ms = dict.fromkeys(("K3", "K5", "K6", "K4"), 0.0)
     k3 = phase_k3(blocked, k, f"bigk timing K3 (K={k})", check=False)
     ms["K3"] = k3["ms"]
+    n_bytes, n_flops = dict.fromkeys(GAUSS_TAIL, 0.0), dict.fromkeys(GAUSS_TAIL, 0.0)
     for _, p, (m_s, _, b_s, _), (m_o, _, b_o, v_o) in _new_space_gauss(blocked, k):
+        csr = p.row_ptr.nbytes + p.other.nbytes + p.x.nbytes
+        reckoning = {"K5": (m_o.nbytes + b_o.nbytes + csr + 4 * (k + 2) * p.n_self, k + 2),
+                     "K6": (m_s.nbytes + b_s.nbytes + m_o.nbytes + b_o.nbytes + v_o.nbytes
+                            + csr + 4 * 3 * k * p.n_self, 7 * k + 2)}
         for kid in GAUSS_TAIL:
             tabs = _gauss_tail_tabs(kid, m_s, b_s, m_o, v_o, b_o)
             ms[kid] += cuda_ms(lambda: _tail_kernel(kid, tabs, p, k))
+            n_bytes[kid] += reckoning[kid][0]
+            n_flops[kid] += p.nnz * reckoning[kid][1]
     P = _spd(N_ITEMS, 128, 3)
     _k4_check(P, f"K=128, {N_ITEMS} matrices", 128, check_plain=False)
     del P
@@ -1580,8 +1652,11 @@ def phase_wide_gauss(blocked):
         del P
     torch.cuda.empty_cache()
     b_bytes, b_ops = _k4_bounds(k4["n"], k)
+    tail_bounds = {kid: bound(n_bytes[kid], n_flops[kid]) for kid in GAUSS_TAIL}
     log(f"phase bigk timing (Gaussian, real data, K={k}): ok | per sweep "
         + ", ".join(f"{n} {v:.4f} ms" for n, v in ms.items())
+        + " | " + ", ".join(f"{kid} bound {b:.4f} ms ({by})"
+                            for kid, (b, by) in tail_bounds.items())
         + f" | K4 beside torch.linalg.inv {k4['library_ms']:.4f} ms, bound: bytes {b_bytes:.4f} ms, "
         f"FP32 {b_ops:.4f} ms")
     return ms
@@ -1661,7 +1736,7 @@ def phase_fit(train, val, smi):
     return model, launches
 
 
-K2_KERNELS = ("head_user_kernel", "head_item_kernel", "head_deep_kernel",
+K2_KERNELS = ("head_user_kernel", "head_item_kernel", "head_pass_kernel",
               "sum_partials_kernel", "split_planes_kernel")
 # The row-group kernels in a trace: tail_group_kernel<mode, G, V>, mode 0
 # (K1 "cavi"), 2 (K7), 3 (K5), 4 (K6) or 5 (K8).
@@ -2029,17 +2104,6 @@ def _ext_tables(n_self, n_other, seed):
     return pos(n_self, K), pos(n_self, K), pos(n_other, K), pos(n_other)
 
 
-def _parent_k8(es_new, eo, so, p):
-    """The parent checkout's K8 (``--parent``) on unpadded contiguous
-    tables of K columns: its C entry point through its own build module."""
-    import torch
-
-    out = torch.empty((p.n_self,), device="cuda")
-    PARENT["build"].launch("pmf_ext_scalar", PARENT["launches"], es_new.device, es_new,
-                           eo, so, p.row_ptr, p.other, p.n_self, es_new.shape[1], out)
-    return out
-
-
 def _log_tail_tables(kid, name, p):
     """Log the time of building a pass's self and other tables of K
     columns into new space, padded: gathered by ``*_old_of_new`` into the
@@ -2062,8 +2126,7 @@ def _log_tail_tables(kid, name, p):
 
 def phase_k7k8(blocked):
     """K7 and K8 vs their plain versions on the real tail, both directions,
-    on the [e | s] records the frames build, equal bits on a repeat; with
-    ``--parent``, the parent checkout's K8 and this one's timed in turns.
+    on the [e | s] records the frames build, equal bits on a repeat.
     K8 is linear, so two library forms compute it: the row dot of the
     refreshed rows with K7's second output, and torch.sparse.mm of the
     tail's pattern by s * E_other followed by that row dot."""
@@ -2073,7 +2136,6 @@ def phase_k7k8(blocked):
 
     res7 = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, n_bytes=0.0, n_flops=0.0)
     res8 = dict(res7, identity_ms=0.0, sparse_ms=0.0)
-    turns = {}
     half_ms = 0.0
     for seed, (name, p) in enumerate((("user", blocked.by_user),
                                       ("item", blocked.by_item))):
@@ -2087,8 +2149,6 @@ def phase_k7k8(blocked):
                "K8": ee.ext_scalar_tail_plain(*args8, max_edges=1 << 22)}
         runs = {kid: (lambda kid=kid: _tail_kernel(kid, tabs[kid], p, K))
                 for kid in ("K7", "K8")}
-        if PARENT:
-            runs["K8 parent"] = lambda: _parent_k8(es_new, eo, so, p)
         got = {}
         for kid, run in runs.items():
             got[kid] = run()
@@ -2097,15 +2157,6 @@ def phase_k7k8(blocked):
                 raise AssertionError(f"{kid} {name}: relative error {rel} > {RTOL}")
             if not torch.equal(got[kid], run()):
                 raise AssertionError(f"{kid} {name}: two launches differ in bits")
-        if PARENT:  # this K8 and the parent's in turns: parent, this, this, parent
-            side = {kid: [0.0, 0.0] for kid in ("K8 parent", "K8")}
-            for turn, kid in enumerate(("K8 parent", "K8", "K8", "K8 parent")):
-                side[kid][turn // 2] = cuda_ms(runs[kid])
-            for kid, (a, b) in side.items():
-                turns[kid] = [t + v for t, v in zip(turns.get(kid, [0.0, 0.0]), (a, b))]
-            log(f"  K8 {name} and the parent's in turns (parent, this, this, parent): "
-                + ", ".join(f"{kid} {a:.4f} / {b:.4f} ms"
-                            for kid, (a, b) in side.items()))
         pattern = _csr_ones(p)
         sparse8 = lambda: torch.sum(  # noqa: E731
             es_new * torch.sparse.mm(pattern, so[:, None] * eo), dim=1)
@@ -2159,10 +2210,7 @@ def phase_k7k8(blocked):
     log(f"phase K8: ok | per sweep: kernel {res8['ms']:.4f} ms, plain "
         f"{res8['plain_ms']:.4f} ms, bound {res8['bound_ms']:.4f} ms "
         f"({res8['bound_by']}), library: identity {res8['identity_ms']:.4f} ms, "
-        f"sparse.mm {res8['sparse_ms']:.4f} ms"
-        + ("".join(f" | {kid} in turns {a:.4f} / {b:.4f} ms"
-                   for kid, (a, b) in turns.items())
-           if turns else " | no --parent: the parent's K8 not timed"))
+        f"sparse.mm {res8['sparse_ms']:.4f} ms")
     return res7, res8
 
 
@@ -4160,9 +4208,8 @@ def phase_k2fast(blocked, k2):
                 f"{abs_err:.3e} rel {rel_err:.3e} (tol {FAST_RTOL}) | vs float64 high: "
                 f"rel {high_rel:.3e}, {high_norm:.3e} of the largest | kernel {ms:.4f} ms "
                 f"| plain {plain_ms:.4f} ms | bound {tier_lines[by]:.4f} ms ({by}) | "
-                f"cells {cells_bytes / ms / 1e6:.1f} GB/s | {plan.stages} stages of "
-                f"{plan.smem_bytes // plan.stages} B, {plan.ctas_per_sm} CTAs/SM, "
-                f"{plan.splits} splits")
+                f"cells {cells_bytes / ms / 1e6:.1f} GB/s | "
+                f"{_k2_plan_note(plan, K, item_side, m_f32, fast=True)}")
             if not rel_err <= FAST_RTOL:
                 raise AssertionError(f"K2fast tier {t} {side}: relative error "
                                      f"{rel_err} > {FAST_RTOL}")
@@ -4216,6 +4263,69 @@ def phase_k2fast(blocked, k2):
         f"largest | {n_cases} small cases (K {K2SMALL_KS + BIGK_KS}) vs plain float64: "
         f"worst rel {worst:.3e} (tol {FAST_SMALL_RTOL:.3e}), repeats equal in bits")
     return res
+
+
+def _parent_dense_head():
+    """The ``--parent`` tree's ops/dense_head.py, launching through that
+    tree's build module (its kernels, its own launch counters)."""
+    import importlib.util
+
+    path = os.path.join(os.path.abspath(PARENT["dir"]), "pmf_tpu_torch", "ops",
+                        "dense_head.py")
+    spec = importlib.util.spec_from_file_location("parent_dense_head", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod._build = PARENT["build"]
+    return mod
+
+
+K2_AB_TURNS = ("parent", "this", "this", "parent")
+
+
+def phase_k2_parent(blocked):
+    """With ``--parent``: K2 of this tree and of the parent tree at K,
+    K_WIDE and K_HUGE on the real tiers, both precisions, every tier and
+    side (random positive tables from a seed), timed a sweep at a time by
+    CUDA events in turns parent, this, this, parent.  At "high" the two
+    trees' outputs agree within RTOL; at "fast" their worst relative
+    difference is logged (each holds FAST_SMALL_RTOL against the plain
+    version in phase wide_poisson).  Returns {(k, precision): {turn label:
+    ms}}."""
+    import torch
+
+    from pmf_tpu_torch.ops import dense_head
+
+    trees = {"this": dense_head, "parent": _parent_dense_head()}
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    for k in (K, K_WIDE, K_HUGE):
+        reps = TIMING_REPS if k <= K_WIDE else 3
+        tiers = []
+        for h in blocked.head or ():
+            beta = torch.nn.functional.pad(_pos(gen, h.hi, k), (0, 0, 0, h.hip - h.hi))
+            tiers.append((_pos(gen, h.hu, k), beta, (h.x_hi, h.m, h.x_lo)))
+        for prec in ("high", "fast"):
+            def sweep(mod, prec=prec):
+                return [mod.fused_alloc_tier(th, be, *cells, rate_floor=1e-10,
+                                             item_side=side, precision=prec)
+                        for th, be, cells in tiers for side in (False, True)]
+
+            worst = max(compare(a, b)[1]
+                        for a, b in zip(sweep(trees["this"]), sweep(trees["parent"])))
+            if prec == "high" and not worst <= RTOL:
+                raise AssertionError(f"k2 parent K={k}: this tree and the parent differ "
+                                     f"by {worst} > {RTOL}")
+            turns = [cuda_ms(lambda t=t: sweep(trees[t]), reps=reps) for t in K2_AB_TURNS]
+            mean = {t: float(np.mean([ms for u, ms in zip(K2_AB_TURNS, turns) if u == t]))
+                    for t in ("parent", "this")}
+            out[(k, prec)] = mean
+            log(f"  k2 parent K={k} {prec}: turns "
+                + ", ".join(f"{t} {ms:.4f}" for t, ms in zip(K2_AB_TURNS, turns))
+                + f" ms a sweep | this / parent {mean['this'] / mean['parent'] - 1:+.2%} | "
+                f"worst rel difference {worst:.3e}")
+    log(f"phase k2 parent: ok | {PARENT['dir']} | K {K}, {K_WIDE}, {K_HUGE}, both "
+        f"precisions, in turns {', '.join(K2_AB_TURNS)}")
+    return out
 
 
 def _counts_on_card(train):
@@ -4894,7 +5004,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port on one CUDA card.")
     ap.add_argument("--parent", metavar="DIR",
-                    help="a checkout of another commit whose K8 phase K8 times in turns")
+                    help="a checkout of another commit whose K2 phase k2 parent times "
+                         "in turns")
     ap.add_argument("--torchrun-child", metavar="DIR",
                     help="run phase torchrun's commands of DIR/commands.json under a mesh "
                          "(this process started by torch.distributed.run)")
@@ -4918,6 +5029,8 @@ def main(argv=None) -> int:
     k1raw = phase_k1raw(blocked)
     k2 = phase_k2(blocked)
     k2f = phase_k2fast(blocked, k2)
+    if PARENT:
+        phase_k2_parent(blocked)
     k7, k8 = phase_k7k8(blocked)
     wide = {kid: r["ms"] for kid, r in phase_wide_poisson(blocked).items()}
     huge = phase_wide_poisson(blocked, K_HUGE)
@@ -4933,6 +5046,8 @@ def main(argv=None) -> int:
     del model
     gc_cuda()
     sweeps.update(phase_hugefit(train, val, smi))
+    gc_cuda()
+    sweeps.update(phase_hugefit(train, val, smi, K_WIDE))
     gc_cuda()
 
     phase_psmall()

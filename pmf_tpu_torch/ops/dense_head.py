@@ -17,8 +17,8 @@ three terms (``pmf_dense_head_tier``); "fast" is the reference's
 ``Precision.DEFAULT``, one bf16 plane rounded to nearest an operand and
 one term a product (``pmf_dense_head_tier_fast``).
 ``plan_launch`` is the kernel's launch plan as a pure function of the
-tier's shape: resident CTAs, splits of the reduction axis and
-shared-memory bytes.  ``poisson_head_stats{,_t}`` apply
+tier's shape: resident CTAs, splits of the reduction axis, passes over
+the cells and shared-memory bytes.  ``poisson_head_stats{,_t}`` apply
 the final self-factor multiply, as the JAX package's functions of the same
 names.
 
@@ -58,17 +58,18 @@ PRECISIONS = ("fast", "high")
 # kernel sizes its own shared memory; chip_smoke.py's K2 phases run every
 # case of it on the card, where a copy out of step would show as a wrong
 # count of resident CTAs in the log, not as a wrong result).  P is the table
-# a CTA keeps in registers (theta on the user side, beta on the item side),
-# Q the table that streams past it in tiles along the reduction axis.
-WARPS = 4  # warps a CTA; each owns 16 rows of P
+# a CTA keeps (theta on the user side, beta on the item side), Q the table
+# that streams past it in tiles along the reduction axis.
+WARPS = 4  # warps a CTA up to K = 32; each owns 16 rows of P
+PASS_WARPS = 8  # warps a CTA past K = 32 (head_pass_kernel)
 P_TILE = 16 * WARPS  # rows of P a CTA
 Q_TILE = 32  # rows of Q per tile
 MAX_CTAS_PER_SM = 3  # resident CTAs the kernel's launch bounds keep registers for
-MAX_CTAS_PER_SM_WIDE = 2  # the same past K = 32
-GROUP_BLOCKS = 4  # output blocks of 8 factors a CTA keeps past K = 32 (grid.z)
-REGISTER_MAX_K = 128  # P's fragments in registers; past it the staged depth
-CHUNK_STRIDE = 16 * GROUP_BLOCKS + 16  # bytes a row of a staged depth chunk plane
+PASS_MAX_K = 160  # output factors one pass over the cells keeps (K_pass)
+W_STRIDE = 2 * Q_TILE + 16  # bytes a row of a W tile plane
 STAGES = 3  # ring of staged tiles: two in flight, one computed
+MAX_STAGES = 4  # the most a ring of the pass form takes
+RING_STAGES = 2  # the same where P's chunks ride the ring
 MAX_SPLITS = 64  # CTAs that may share one reduction axis
 SMEM_PER_CTA = 232_448  # dynamic shared memory one CTA may ask for
 SMEM_PER_SM = 233_472  # of which every resident CTA reserves 1 KB
@@ -124,17 +125,24 @@ def fused_alloc_tier_plain(theta_h, beta_h, x_hi, m, x_lo=None, *,
     return out
 
 
+def passes(K: int) -> int:
+    """Passes over a tier's cells (grid.z): 1 up to PASS_MAX_K, then
+    ceil(K / PASS_MAX_K), each keeping the outputs of one depth chunk;
+    ``pass_chunks`` in the source."""
+    return -(-K // PASS_MAX_K)
+
+
+def pass_width(K: int) -> int:
+    """Factors of a depth chunk past K = 32 (CW: 64, 96, 128 or 160): K
+    shared evenly by ``passes(K)`` chunks, rounded up to 32."""
+    return 32 * -(-K // (32 * passes(K)))
+
+
 def depth_blocks(K: int) -> int:
-    """Blocks of 8 factors in the kernel's depth (``nt_of`` in the
-    source): ceil(K / 8) up to K = 32, then 4 ceil(K / 32), whole groups
-    of GROUP_BLOCKS."""
-    return -(-K // 8) if K <= 32 else GROUP_BLOCKS * -(-K // 32)
-
-
-def output_groups(K: int) -> int:
-    """CTAs (grid.z) that share one P tile, each keeping 4 output blocks."""
-    nt = depth_blocks(K)
-    return nt // GROUP_BLOCKS if nt > GROUP_BLOCKS else 1
+    """Blocks of 8 factors in the kernel's depth: ceil(K / 8) up to K = 32
+    (``nt_of`` in the source), then ``passes(K)`` chunks of
+    ``pass_width(K)``."""
+    return -(-K // 8) if K <= 32 else passes(K) * pass_width(K) // 8
 
 
 def _cell_bytes(item_side: bool, m_f32: bool, has_lo: bool) -> int:
@@ -145,37 +153,55 @@ def _cell_bytes(item_side: bool, m_f32: bool, has_lo: bool) -> int:
     return cell_rows * cs * (2 if has_lo else 1) + cell_rows * ms
 
 
-def deep_smem_bytes(K: int, item_side: bool, m_f32: bool, has_lo: bool,
-                    fast: bool = False, p_ring: bool = False) -> int:
-    """Shared memory of the staged-depth form (K > REGISTER_MAX_K): P's
-    planes over the whole depth (none with ``p_ring``) and STAGES stages,
-    each the cell tile and one depth chunk of Q's planes (and of P's with
-    ``p_ring``); ``deep_smem_bytes`` in the source."""
+def w_planes(m_f32: bool, fast: bool) -> int:
+    """Planes of a W tile past K = 32: W hi (and lo at "high"), and for a
+    float32 M its hi (and lo); a bf16 M is read from the staged cells."""
+    return (1 if fast else 2) * (2 if m_f32 else 1)
+
+
+def pass_smem_bytes(K: int, item_side: bool, m_f32: bool, has_lo: bool,
+                    fast: bool = False, p_ring: bool = False, stages: int = STAGES) -> int:
+    """Shared memory of the form past K = 32: P's planes over the whole
+    depth (none with ``p_ring``), the W tile, and ``stages`` stages, each
+    the cell tile and one depth chunk of Q's planes (and of P's with
+    ``p_ring``); ``pass_smem_bytes`` in the source."""
     planes = 1 if fast else 2
-    nd = -(-K // 32)
-    p_res = 0 if p_ring else planes * P_TILE * (64 * nd + 16)
-    stage = (_cell_bytes(item_side, m_f32, has_lo)
-             + planes * (Q_TILE + (P_TILE if p_ring else 0)) * CHUNK_STRIDE)
-    return p_res + STAGES * stage
+    p_res = 0 if p_ring else planes * P_TILE * (2 * 8 * depth_blocks(K) + 16)
+    w_tile = w_planes(m_f32, fast) * P_TILE * W_STRIDE
+    return p_res + w_tile + stages * stage_bytes(item_side, m_f32, has_lo, K, fast, p_ring)
+
+
+def pass_stages(K: int, item_side: bool, m_f32: bool, has_lo: bool,
+                fast: bool = False, p_ring: bool = False) -> int:
+    """Stages of the pass form's ring: RING_STAGES where P rides the ring;
+    else the most, from MAX_STAGES down to two, that keep the launch
+    bounds' resident CTAs (two at a chunk of 64 factors, one wider), or
+    STAGES where none does; ``pass_stages`` in the source."""
+    if p_ring:
+        return RING_STAGES
+    room = min(SMEM_PER_SM // (2 if pass_width(K) == 64 else 1) - SMEM_RESERVED,
+               SMEM_PER_CTA)
+    return next((n for n in range(MAX_STAGES, 1, -1)
+                 if pass_smem_bytes(K, item_side, m_f32, has_lo, fast, stages=n) <= room),
+                STAGES)
 
 
 def p_rides_ring(K: int, item_side: bool, m_f32: bool, has_lo: bool,
                  fast: bool = False) -> bool:
-    """Whether the staged depth streams P's planes through the ring: where
-    they and the ring no longer fit one CTA's shared memory."""
-    return (K > REGISTER_MAX_K
-            and deep_smem_bytes(K, item_side, m_f32, has_lo, fast) > SMEM_PER_CTA)
+    """Whether P's planes stream through the ring: where they and three
+    stages no longer fit one CTA's shared memory (only past PASS_MAX_K)."""
+    return K > 32 and pass_smem_bytes(K, item_side, m_f32, has_lo, fast) > SMEM_PER_CTA
 
 
 def boundary_ks(item_side: bool = False, m_f32: bool = False, has_lo: bool = True,
                 fast: bool = False) -> list:
     """The first K of each form of K2 past K = 32, for one kind of tier:
-    the wide register form (33), the staged depth with P resident (129)
-    and with P in the ring.  The tests and chip_smoke.py hold K2 on both
-    sides of each."""
-    ring = next(k for k in range(REGISTER_MAX_K + 1, 100_000)
+    the pass form at each chunk width (33, 65, 97, 129), two passes (161)
+    and P in the ring.  The tests and chip_smoke.py hold K2 on both sides
+    of each."""
+    ring = next(k for k in range(PASS_MAX_K + 1, 100_000)
                 if p_rides_ring(k, item_side, m_f32, has_lo, fast))
-    return [33, REGISTER_MAX_K + 1, ring]
+    return [33, 65, 97, 129, PASS_MAX_K + 1, ring]
 
 
 class LaunchPlan(NamedTuple):
@@ -184,25 +210,31 @@ class LaunchPlan(NamedTuple):
     p_tile: int  # rows of P a CTA owns
     q_tile: int  # rows of Q per staged tile
     depth: int  # K padded to 8 depth_blocks(K) (columns of the bf16 planes)
-    stages: int  # ring stages (STAGES)
+    stages: int  # ring stages
     ctas_per_sm: int  # resident CTAs the shared memory and registers allow
     splits: int  # CTAs sharing the reduction axis (grid.y)
     tiles_per_split: int
     smem_bytes: int  # dynamic shared memory a CTA
-    groups: int  # CTAs sharing a P tile, one a group of output columns (grid.z)
-    p_ring: bool = False  # staged depth: P's chunks ride the ring
+    passes: int  # passes over the cells (grid.z), each one depth chunk's outputs
+    threads: int  # threads a CTA
+    p_ring: bool = False  # P's chunks ride the ring
 
 
 def stage_bytes(item_side: bool, m_f32: bool, has_lo: bool, K: int,
-                fast: bool = False) -> int:
+                fast: bool = False, p_ring: bool = False) -> int:
     """Shared memory of one ring stage: the cell tile's planes (rows padded
     by 16 bytes, a float32 M by 32 on the user side) and the Q tile's hi and
     lo planes, or its hi plane alone at "fast" (rows of 16 bytes per 8
-    factors, padded by 16 where that count is even)."""
-    blocks = depth_blocks(K)
-    q_stride = 16 * blocks + (0 if blocks % 2 else 16)
-    return (_cell_bytes(item_side, m_f32, has_lo)
-            + (1 if fast else 2) * Q_TILE * q_stride)
+    factors, padded by 16 where that count is even; past K = 32 one depth
+    chunk of ``pass_width(K)`` factors, and P's chunk too with
+    ``p_ring``)."""
+    if K <= 32:
+        blocks = depth_blocks(K)
+        q_rows, q_stride = Q_TILE, 16 * blocks + (0 if blocks % 2 else 16)
+    else:
+        q_rows = Q_TILE + (P_TILE if p_ring else 0)
+        q_stride = 2 * pass_width(K) + 16
+    return _cell_bytes(item_side, m_f32, has_lo) + (1 if fast else 2) * q_rows * q_stride
 
 
 @functools.lru_cache(maxsize=None)
@@ -212,21 +244,25 @@ def plan_launch(rows: int, hip: int, K: int, item_side: bool, m_f32: bool,
     resident CTAs the ring's shared memory allows, and the split of the
     reduction axis (columns on the user side, rows on the item side) that
     takes the fewest tile times when the P tiles alone would not fill the
-    card.  Past K = 32 each P tile is ``output_groups(K)`` CTAs.  ``fast``:
-    the one-term instance, whose stages hold no Q lo tile.  Past
-    REGISTER_MAX_K the staged depth (``deep_smem_bytes``, ``p_ring``)."""
+    card.  ``fast``: the one-term instance, whose stages hold no Q lo tile.
+    Past K = 32 the pass form: ``passes(K)`` CTAs a P tile (grid.z), two
+    resident CTAs an SM at a chunk of 64 factors (the launch bounds), one
+    wider."""
     _build.check_k(K, "head kernel")
     p_ring = p_rides_ring(K, item_side, m_f32, has_lo, fast)
-    smem = (STAGES * stage_bytes(item_side, m_f32, has_lo, K, fast) if K <= REGISTER_MAX_K
-            else deep_smem_bytes(K, item_side, m_f32, has_lo, fast, p_ring))
+    if K <= 32:
+        stages, threads, max_ctas = STAGES, 32 * WARPS, MAX_CTAS_PER_SM
+        smem = stages * stage_bytes(item_side, m_f32, has_lo, K, fast)
+    else:
+        stages = pass_stages(K, item_side, m_f32, has_lo, fast, p_ring)
+        threads, max_ctas = 32 * PASS_WARPS, 2 if pass_width(K) == 64 else 1
+        smem = pass_smem_bytes(K, item_side, m_f32, has_lo, fast, p_ring, stages)
     if smem > SMEM_PER_CTA:
-        raise ValueError(f"a ring of {STAGES} stages, {smem} bytes, does not fit "
+        raise ValueError(f"a ring of {stages} stages, {smem} bytes, does not fit "
                          f"{SMEM_PER_CTA} bytes of shared memory")
-    groups = output_groups(K)
-    max_ctas = MAX_CTAS_PER_SM if K <= 32 else MAX_CTAS_PER_SM_WIDE
     ctas = min(max_ctas, SMEM_PER_SM // (smem + SMEM_RESERVED))
     n_p, n_q = (hip, rows) if item_side else (rows, hip)
-    parallel = -(-n_p // P_TILE) * groups
+    parallel = -(-n_p // P_TILE) * passes(K)
     serial = max(-(-n_q // Q_TILE), 1)
     slots = ctas * n_sm
     # Cost in tile times (one tile through every resident CTA): the waves
@@ -239,12 +275,12 @@ def plan_launch(rows: int, hip: int, K: int, item_side: bool, m_f32: bool,
         per = -(-serial // s)
         s = -(-serial // per)  # as the kernel cuts them: no split is empty
         waves = -(-parallel * s // slots)
-        cost = waves * (per + STAGES - 1) + (s * partial_tiles if s > 1 else 0)
+        cost = waves * (per + stages - 1) + (s * partial_tiles if s > 1 else 0)
         if best is None or cost < best[0]:
             best = (cost, s, per)
     _, splits, per = best
-    return LaunchPlan(P_TILE, Q_TILE, 8 * depth_blocks(K), STAGES, ctas, splits, per,
-                      smem, groups, p_ring)
+    return LaunchPlan(P_TILE, Q_TILE, 8 * depth_blocks(K), stages, ctas, splits, per,
+                      smem, passes(K), threads, p_ring)
 
 
 def _check_cuda_args(theta_h, beta_h, x_hi, m, x_lo):
@@ -296,9 +332,8 @@ def fused_alloc_tier(theta_h, beta_h, x_hi, m, x_lo=None, *,
     out_rows = hip if item_side else rows
     out = torch.empty((out_rows, 2 * K), dtype=torch.float32, device=dev)
     # The streamed table's bf16 planes (hi and lo, or hi alone at "fast"),
-    # and past REGISTER_MAX_K the fixed table's after them, which the launch
-    # fills.
-    n_planed = (rows if item_side else hip) + (0 if K <= REGISTER_MAX_K else
+    # and past K = 32 the fixed table's after them, which the launch fills.
+    n_planed = (rows if item_side else hip) + (0 if K <= 32 else
                                                (hip if item_side else rows))
     planes = torch.empty((1 if fast else 2) * n_planed * plan.depth, dtype=torch.bfloat16,
                          device=dev)

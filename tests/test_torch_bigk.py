@@ -39,7 +39,7 @@ from pmf_tpu_torch.ops import (
     map_grad,
 )
 from pmf_tpu_torch.ops.adam import adam_init
-from tests.test_torch_dense_head import _emulate_kernel
+from tests.test_torch_dense_head import _planes, _three_terms
 from tests.test_torch_guard import _cuda_looking, _map_args
 from tests.test_torch_map_grad import (
     jax_step_accumulators,
@@ -363,15 +363,17 @@ def hpf_map_blocked_epoch_matches_jax(K):
 # ----------------------------------------------- launch plan and dispatch --
 
 @pytest.mark.parametrize("K,blocks,groups", [(1, 1, 1), (20, 3, 1), (32, 4, 1),
-                                             (33, 8, 2), (50, 8, 2), (64, 8, 2),
-                                             (65, 12, 3), (128, 16, 4)])
+                                             (33, 8, 1), (50, 8, 1), (64, 8, 1),
+                                             (65, 12, 1), (128, 16, 1)])
 def test_k2_depth_and_output_groups(K, blocks, groups):
-    """Up to K = 32 the depth pads to blocks of 8; past it to whole groups
-    of 4 blocks, one CTA a group (grid.z)."""
+    """Up to K = 32 the depth pads to blocks of 8; past it to one chunk of
+    a multiple of 32 factors, and every output up to K = 160 is kept in
+    one pass over the cells (``groups``: the passes, grid.z)."""
     assert dense_head.depth_blocks(K) == blocks and 8 * blocks >= K
-    assert dense_head.output_groups(K) == groups
+    assert dense_head.passes(K) == groups == -(-K // dense_head.PASS_MAX_K)
     if K > 32:
-        assert blocks == dense_head.GROUP_BLOCKS * groups
+        assert 8 * blocks == groups * dense_head.pass_width(K)
+        assert dense_head.pass_width(K) % 32 == 0
 
 
 REAL_TIERS = [(3072, 59392), (9216, 14848), (36864, 4096), (112640, 1024), (70, 128)]
@@ -380,55 +382,88 @@ REAL_TIERS = [(3072, 59392), (9216, 14848), (36864, 4096), (112640, 1024), (70, 
 @pytest.mark.parametrize("K", [33, 50, 128])
 @pytest.mark.parametrize("rows,hip", REAL_TIERS)
 def test_k2_plan_fits_shared_memory_past_k32(rows, hip, K):
-    """The wide instances' ring fits one CTA's shared memory, two CTAs fit
-    an SM (the launch bounds' count), and the grid counts each P tile once
-    a group of outputs."""
+    """The pass form's P planes, W tile and ring fit one CTA's shared
+    memory, its resident CTAs fit an SM (the launch bounds' two at a chunk
+    of 64 factors, one wider), one pass covers every output, and no split
+    of the reduction axis is left empty."""
     for item_side in (False, True):
         for m_f32, has_lo in ((False, False), (False, True), (True, True)):
-            plan = dense_head.plan_launch(rows, hip, K, item_side, m_f32, has_lo, 132)
-            nt = dense_head.depth_blocks(K)
-            assert plan.depth == 8 * nt and plan.groups == nt // 4
-            assert plan.smem_bytes == plan.stages * dense_head.stage_bytes(
-                item_side, m_f32, has_lo, K) <= 232_448
-            assert plan.ctas_per_sm == dense_head.MAX_CTAS_PER_SM_WIDE == 2
-            assert plan.ctas_per_sm * (plan.smem_bytes + 1024) <= 233_472
-            n_q = rows if item_side else hip
-            serial = -(-n_q // plan.q_tile)
-            assert (plan.splits - 1) * plan.tiles_per_split < serial
-            assert plan.splits * plan.tiles_per_split >= serial
+            for fast in (False, True):
+                plan = dense_head.plan_launch(rows, hip, K, item_side, m_f32, has_lo, 132,
+                                              fast)
+                nt = dense_head.depth_blocks(K)
+                assert plan.depth == 8 * nt == dense_head.pass_width(K)
+                assert plan.passes == 1 and not plan.p_ring
+                assert plan.threads == 32 * dense_head.PASS_WARPS == 256
+                assert plan.stages == dense_head.pass_stages(K, item_side, m_f32, has_lo,
+                                                             fast) in (2, 3, 4)
+                assert plan.smem_bytes == dense_head.pass_smem_bytes(
+                    K, item_side, m_f32, has_lo, fast, stages=plan.stages) <= 232_448
+                # two CTAs an SM at a chunk of 64 factors (the ring as deep
+                # as that leaves room for), one wider
+                assert plan.ctas_per_sm == (2 if dense_head.pass_width(K) == 64 else 1)
+                assert plan.ctas_per_sm * (plan.smem_bytes + 1024) <= 233_472
+                n_q = rows if item_side else hip
+                serial = -(-n_q // plan.q_tile)
+                assert (plan.splits - 1) * plan.tiles_per_split < serial
+                assert plan.splits * plan.tiles_per_split >= serial
 
 
 def test_k2_plan_keeps_the_k32_plans():
     """The K <= 32 plans are those of the three-CTA instances."""
     plan = dense_head.plan_launch(36864, 4096, 20, False, False, True, 132)
-    assert plan.groups == 1 and plan.ctas_per_sm == 3 and plan.depth == 24
+    assert plan.passes == 1 and plan.ctas_per_sm == 3 and plan.depth == 24
+    assert plan.threads == 128 and plan.stages == 3 and not plan.p_ring
     with pytest.raises(ValueError, match="K >= 1"):
         dense_head.plan_launch(36864, 4096, 0, False, False, True, 132)
 
 
-def _emulate_wide(theta, beta, x_hi, m, x_lo, item_side):
-    """K2's wide form: the depth padded to 8 depth_blocks(K) columns, each
-    output group of 32 factors from its own recomputed R (the same R, so
-    the groups side by side are the whole product)."""
+def _emulate_pass(theta, beta, x_hi, m, x_lo, item_side, rate_floor=1e-10):
+    """K2's form past K = 32 in plain float32 tensor code, in its order of
+    sums: the depth padded to ``passes(K)`` chunks of ``pass_width(K)``
+    factors; for pass z, R summed over the chunks in the kernel's order
+    z + 1, ..., z, each chunk in chains of 32 factors (a three-term product
+    in float32, added in float32); W's and M's planes once; then each Q
+    tile's chains (32 rows of the reduction axis, three terms, two for a
+    bf16 M) against Q's columns of chunk z, added tile by tile in float32."""
     K = theta.shape[1]
-    pad = 8 * dense_head.depth_blocks(K) - K
-    th = torch.nn.functional.pad(theta, (0, pad))
-    be = torch.nn.functional.pad(beta, (0, pad))
-    out, _ = _emulate_kernel(th, be, x_hi, m, x_lo, 1e-10, item_side)
-    width = th.shape[1]
-    groups = [torch.cat([out[:, 32 * z : 32 * z + 32],
-                         out[:, width + 32 * z : width + 32 * z + 32]], dim=1)
-              for z in range(dense_head.output_groups(K))]
-    w = torch.cat([g[:, :32] for g in groups], dim=1)[:, :K]
-    mo = torch.cat([g[:, 32:] for g in groups], dim=1)[:, :K]
-    return torch.cat([w, mo], dim=1)
+    nd, cw = dense_head.passes(K), dense_head.pass_width(K)
+    th = _planes(torch.nn.functional.pad(theta, (0, nd * cw - K)))
+    be = _planes(torch.nn.functional.pad(beta, (0, nd * cw - K)))
+    p_tab, q_tab = (be, th) if item_side else (th, be)
+    x = x_hi.float() + (0 if x_lo is None else x_lo.float())
+    mf = m.float()
+    if item_side:
+        x, mf = x.T, mf.T
+    mp = (mf, torch.zeros_like(mf)) if m.dtype == torch.bfloat16 else _planes(mf)
+    n_q = q_tab[0].shape[0]
+    w_out, m_out = [], []
+    for z in range(nd):
+        R = None
+        for j in range(nd):
+            d = (z + 1 + j) % nd
+            for kc in range(cw // 32):
+                c = slice(d * cw + 32 * kc, d * cw + 32 * kc + 32)
+                part = _three_terms((p_tab[0][:, c], p_tab[1][:, c]),
+                               (q_tab[0][:, c].T, q_tab[1][:, c].T))
+                R = part if R is None else R + part
+        W = torch.where(mf > 0, x * (1.0 / torch.clamp_min(R, rate_floor)), 0.0)
+        w = _planes(W)
+        g = slice(z * cw, z * cw + cw)
+        ow = om = None
+        for t0 in range(0, n_q, dense_head.Q_TILE):
+            t = slice(t0, t0 + dense_head.Q_TILE)
+            q = (q_tab[0][t, g], q_tab[1][t, g])
+            tw = _three_terms((w[0][:, t], w[1][:, t]), q)
+            tm = _three_terms((mp[0][:, t], mp[1][:, t]), q)
+            ow, om = (tw, tm) if ow is None else (ow + tw, om + tm)
+        w_out.append(ow)
+        m_out.append(om)
+    return torch.cat([torch.cat(w_out, dim=1)[:, :K], torch.cat(m_out, dim=1)[:, :K]],
+                     dim=1)
 
 
-@pytest.mark.parametrize("K", [50, 128])
-@pytest.mark.parametrize("item_side", [False, True], ids=["user", "item"])
-def test_k2_wide_arithmetic_matches_plain_float64(small_ratings, K, item_side):
-    """The wide form's bf16-plane arithmetic over a padded depth holds the
-    card check's 1e-4 against the plain version in float64."""
+def _pass_case(small_ratings, K):
     u, i, x = small_ratings
     h = t_build_blocked(u, i, x + 1.0 + 0.013 * np.arange(len(x)) % 0.7, reorder=True,
                         head=(40, 60), head_r0=4, device="cpu").head[0]
@@ -436,13 +471,28 @@ def test_k2_wide_arithmetic_matches_plain_float64(small_ratings, K, item_side):
     theta = _t(rng.gamma(0.3, 1.0, size=(h.hu, K)).astype(np.float32))
     beta = np.zeros((h.hip, K), np.float32)
     beta[: h.hi] = rng.gamma(0.3, 1.0, size=(h.hi, K))
-    beta = _t(beta)
-    got = _emulate_wide(theta, beta, h.x_hi, h.m, h.x_lo, item_side)
+    return h, theta, _t(beta)
+
+
+def check_pass_arithmetic(small_ratings, K, item_side):
+    """The pass form's emulation against the plain version in float64, at
+    the card check's 1e-4."""
+    h, theta, beta = _pass_case(small_ratings, K)
+    got = _emulate_pass(theta, beta, h.x_hi, h.m, h.x_lo, item_side)
     ref = dense_head.fused_alloc_tier_plain(theta.double(), beta.double(), h.x_hi, h.m,
                                             h.x_lo, rate_floor=1e-10,
                                             item_side=item_side)
     assert got.shape == ref.shape
     torch.testing.assert_close(got.double(), ref, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("K", [50, 128])
+@pytest.mark.parametrize("item_side", [False, True], ids=["user", "item"])
+def test_k2_wide_arithmetic_matches_plain_float64(small_ratings, K, item_side):
+    """The pass form's bf16-plane arithmetic over a padded depth, in its
+    order of sums, holds the card check's 1e-4 against the plain version in
+    float64."""
+    check_pass_arithmetic(small_ratings, K, item_side)
 
 
 def _gj_in_place(mats):

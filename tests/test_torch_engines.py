@@ -400,8 +400,10 @@ def test_run_single_accepts_every_engine_name(engine):
 def test_fast_stage_holds_no_q_lo_tile(K, item_side):
     """The one-term instance's ring stage is the three-term one's less the
     Q lo tile (32 rows of 16 bytes per 8 factors, padded by 16 where that
-    count is even), so its launch plan fits at least as many CTAs."""
-    blocks = dense_head.depth_blocks(K)
+    count is even; past K = 32 one depth chunk of ``pass_width(K)``
+    factors, beside P's and W's planes), so its launch plan fits at least
+    as many CTAs."""
+    blocks = dense_head.depth_blocks(K) if K <= 32 else dense_head.pass_width(K) // 8
     q_plane = dense_head.Q_TILE * (16 * blocks + (0 if blocks % 2 else 16))
     for m_f32 in (False, True):
         for has_lo in (False, True):
@@ -411,5 +413,12 @@ def test_fast_stage_holds_no_q_lo_tile(K, item_side):
             ph = dense_head.plan_launch(36864, 4096, K, item_side, m_f32, has_lo, 132)
             pf = dense_head.plan_launch(36864, 4096, K, item_side, m_f32, has_lo, 132,
                                         fast=True)
-            assert pf.smem_bytes == dense_head.STAGES * fast < ph.smem_bytes
+            if K <= 32:
+                assert pf.smem_bytes == dense_head.STAGES * fast < ph.smem_bytes
+            else:  # the ring as deep as the shared memory allows
+                assert pf.smem_bytes == dense_head.pass_smem_bytes(
+                    K, item_side, m_f32, has_lo, fast=True, stages=pf.stages)
+                assert pf.stages >= ph.stages
+                assert dense_head.pass_smem_bytes(
+                    K, item_side, m_f32, has_lo, fast=True, stages=ph.stages) < ph.smem_bytes
             assert pf.ctas_per_sm >= ph.ctas_per_sm

@@ -3,7 +3,7 @@ package's Pallas kernel (interpret mode) at K in {129, 160, 300}, the
 blocked fits of every family past 128 against the JAX fits at the gates of
 ``test_torch_bigk.py``, and the geometry of the kernels' forms past 128:
 the row-group plan at every boundary, K2's launch plan on the real tiers
-and the arithmetic of its staged depth, K4's form on each side of
+and the arithmetic of its pass form, K4's form on each side of
 239/240 and its elimination, K3's and K9's boundaries."""
 
 import numpy as np
@@ -20,7 +20,6 @@ from pmf_tpu_torch.models import poisson_mf as tpmf
 from pmf_tpu_torch.ops import _tail, dense_head, gaussian_edge, gj_inverse, map_grad
 from tests import test_torch_bigk as bigk
 from tests.test_torch_bigk import jax_map_layout  # noqa: F401  (a fixture)
-from tests.test_torch_dense_head import _planes, _three_terms
 
 torch.set_num_threads(1)
 
@@ -229,81 +228,45 @@ def _k2_kinds():
 
 @pytest.mark.parametrize("rows,hip", bigk.REAL_TIERS)
 def test_k2_plan_fits_shared_memory_past_k128(rows, hip):
-    """The staged depth's shared memory fits one CTA at K = 129, 160, 256,
+    """The pass form's shared memory fits one CTA at K = 129, 160, 256,
     300 and on each side of its P-in-the-ring boundary, for every kind of
-    tile and both precisions; CTAs an SM as the memory allows, at most
-    the launch bounds' two; P rides the ring exactly past the boundary."""
+    tile and both precisions; ceil(K / 160) passes over the cells, each a
+    chunk of at most 160 factors; one resident CTA an SM (the launch
+    bounds past a chunk of 64); P rides the ring exactly past the
+    boundary, with two stages (else three or four)."""
     for item, m_f32, lo, fast in _k2_kinds():
-        ring = dense_head.boundary_ks(item, m_f32, lo, fast)[-1]
-        assert dense_head.boundary_ks(item, m_f32, lo, fast)[:2] == [33, 129]
+        bounds = dense_head.boundary_ks(item, m_f32, lo, fast)
+        ring = bounds[-1]
+        assert bounds[:5] == [33, 65, 97, 129, 161] and ring > 161
         for K in HUGE_PLAN_KS + [ring - 1, ring]:
             plan = dense_head.plan_launch(rows, hip, K, item, m_f32, lo, 132, fast)
-            nd = -(-K // 32)
-            assert plan.depth == 32 * nd and plan.groups == nd
+            n_pass, cw = dense_head.passes(K), dense_head.pass_width(K)
+            assert n_pass == -(-K // 160) == plan.passes
+            assert (plan.passes == 1) == (K <= 160)
+            assert plan.depth == n_pass * cw and cw <= 160 and cw % 32 == 0
+            assert plan.depth - K < 32 * n_pass
             assert plan.p_ring == (K >= ring)
-            assert plan.smem_bytes == dense_head.deep_smem_bytes(
-                K, item, m_f32, lo, fast, plan.p_ring) <= dense_head.SMEM_PER_CTA
-            assert 1 <= plan.ctas_per_sm <= dense_head.MAX_CTAS_PER_SM_WIDE
+            assert plan.stages == dense_head.pass_stages(K, item, m_f32, lo, fast,
+                                                         plan.p_ring)
+            assert plan.stages == 2 if plan.p_ring else plan.stages in (3, 4)
+            assert plan.smem_bytes == dense_head.pass_smem_bytes(
+                K, item, m_f32, lo, fast, plan.p_ring, plan.stages) <= dense_head.SMEM_PER_CTA
+            assert plan.ctas_per_sm == 1
             assert plan.ctas_per_sm * (plan.smem_bytes + 1024) <= dense_head.SMEM_PER_SM
             serial = -(-(rows if item else hip) // plan.q_tile)
             assert (plan.splits - 1) * plan.tiles_per_split < serial
             assert plan.splits * plan.tiles_per_split >= serial
     big = dense_head.plan_launch(70, 128, 5000, False, True, True, 132)
-    assert big.p_ring and big.smem_bytes <= dense_head.SMEM_PER_CTA
-
-
-def _emulate_deep(theta, beta, x_hi, m, x_lo, item_side, rate_floor=1e-10):
-    """K2's staged depth in plain float32 tensor code: the depth padded to
-    chunks of 32 factors; for output group z, R summed over the chunks in
-    the kernel's order z + 1, ..., z (each chunk's three-term product in
-    float32, added in float32); W and M against Q's columns of group z."""
-    K = theta.shape[1]
-    nd = -(-K // 32)
-    th = _planes(torch.nn.functional.pad(theta, (0, 32 * nd - K)))
-    be = _planes(torch.nn.functional.pad(beta, (0, 32 * nd - K)))
-    x = x_hi.float() + (0 if x_lo is None else x_lo.float())
-    mf = m.float()
-    mp = (mf, torch.zeros_like(mf)) if m.dtype == torch.bfloat16 else _planes(mf)
-    w_out, m_out = [], []
-    for z in range(nd):
-        R = None
-        for j in range(nd):
-            c = slice(32 * ((z + 1 + j) % nd), 32 * ((z + 1 + j) % nd) + 32)
-            part = _three_terms((th[0][:, c], th[1][:, c]), (be[0][:, c].T, be[1][:, c].T))
-            R = part if R is None else R + part
-        W = torch.where(mf > 0, x * (1.0 / torch.clamp_min(R, rate_floor)), 0.0)
-        w = _planes(W)
-        g = slice(32 * z, 32 * z + 32)
-        if item_side:
-            w_out.append(_three_terms((w[0].T, w[1].T), (th[0][:, g], th[1][:, g])))
-            m_out.append(_three_terms((mp[0].T, mp[1].T), (th[0][:, g], th[1][:, g])))
-        else:
-            w_out.append(_three_terms(w, (be[0][:, g], be[1][:, g])))
-            m_out.append(_three_terms(mp, (be[0][:, g], be[1][:, g])))
-    return torch.cat([torch.cat(w_out, dim=1)[:, :K], torch.cat(m_out, dim=1)[:, :K]],
-                     dim=1)
+    assert big.p_ring and big.smem_bytes <= dense_head.SMEM_PER_CTA and big.passes == 32
 
 
 @pytest.mark.parametrize("K", [160, 300])
 @pytest.mark.parametrize("item_side", [False, True], ids=["user", "item"])
 def test_k2_staged_depth_arithmetic_matches_plain_float64(small_ratings, K, item_side):
-    """The staged depth's bf16-plane arithmetic, R summed chunk by chunk in
-    the order of each output group, holds the card check's 1e-4 against
-    the plain version in float64."""
-    u, i, x = small_ratings
-    h = t_build_blocked(u, i, x + 1.0 + 0.013 * np.arange(len(x)) % 0.7, reorder=True,
-                        head=(40, 60), head_r0=4, device="cpu").head[0]
-    rng = np.random.default_rng(K)
-    theta = torch.from_numpy(rng.gamma(0.3, 1.0, size=(h.hu, K)).astype(np.float32))
-    beta = np.zeros((h.hip, K), np.float32)
-    beta[: h.hi] = rng.gamma(0.3, 1.0, size=(h.hi, K))
-    beta = torch.from_numpy(beta)
-    got = _emulate_deep(theta, beta, h.x_hi, h.m, h.x_lo, item_side)
-    ref = dense_head.fused_alloc_tier_plain(theta.double(), beta.double(), h.x_hi, h.m,
-                                            h.x_lo, rate_floor=1e-10,
-                                            item_side=item_side)
-    assert got.shape == ref.shape
-    torch.testing.assert_close(got.double(), ref, rtol=1e-4, atol=0)
+    """The pass form past its first chunk width (one pass at K = 160, two
+    at 300, R summed chunk by chunk in the order of each pass) holds the
+    card check's 1e-4 against the plain version in float64."""
+    bigk.check_pass_arithmetic(small_ratings, K, item_side)
 
 
 def test_k4_form_on_each_side_of_240():
