@@ -7,7 +7,11 @@
 unpacked by ``git archive`` into a git-ignored directory); its kernels
 build beside this tree's, and phase k2 parent (after k2fast) times its K2
 and this one at K = 20, 50 and 160, both precisions, in turns parent,
-this, this, parent.
+this, this, parent; phase k4 parent (after k4wide) holds K4's rows
+instances' ptxas lines equal to that build's, times both trees' K4 at
+K = 50, 80, 160 and 239 a sweep in the same turns, and on 20,000 matrices
+on both sides of every boundary of the CTA form, where this tree must be
+faster in every turn.
 
 Phases, one status line each; any failure exits non-zero and prints no
 result line:
@@ -98,7 +102,11 @@ real-data phases, "bigk timing": every kernel's time at K = 50 on the
 real tail, tiers, matrices and steps; "huge timing": the same at K = 160
 with the bound at K = 160 (K2 at both K also against its plain version on
 every tier, its launch plan logged with passes over the cells and the
-instance's registers and spills).  After phase resume, phase hugefit:
+instance's registers and spills).  After huge timing, phase k4wide: K4's
+CTA form against its plain version at K - 1 and K of every boundary of
+``gj_inverse.cta_boundary_ks`` and at 239, every K4 instance's ptxas line,
+and its time at K = 80, 128, 160 on 162k + 59k matrices and at K = 200,
+239 on 59k beside ``torch.linalg.inv`` and its bounds.  After phase resume, phase hugefit:
 ``HPF(n_factors=160)`` and ``HPF(n_factors=50)`` at full width, 4 sweeps
 each with launch counters, one sweep traced (K2, K1, the rest), read by
 phase roofline as hpf_k160 and hpf_k50.
@@ -130,6 +138,12 @@ Those are freed, then the Gaussian-MF CAVI path:
                 exact then 2 diag sweeps: the ELBO finite and never falling
                 by more than the fit's 1e-4 relative gate; its own time per
                 evaluation (CUDA events).
+16'. gwidefit -- the exact fit at K = 80 at full width (``n_factors=80``,
+                4 sweeps, ``elbo_every=1``): peak memory beside its
+                reckoning, launches as gfit's, the state finite, the ELBO
+                monotone within 1e-4; K4 on the user precisions after
+                sweep 1 against its plain version; one sweep traced (busy,
+                idle share, K4 beside K3 and the head products).
 
 Then the other engines:
 
@@ -384,9 +398,9 @@ def phase_device():
 PTXAS: dict = {}
 
 
-def _ptxas_report(text: str) -> list:
+def _ptxas_report(text: str, into: dict = PTXAS) -> list:
     """One line per compiled kernel from ``ptxas -v``: its name (template
-    argument kept), registers and spills; each also kept in PTXAS."""
+    argument kept), registers and spills; each also kept in ``into``."""
     import re
 
     out, name = [], "?"
@@ -407,8 +421,8 @@ def _ptxas_report(text: str) -> list:
             spill = ln.strip()
         elif "registers" in ln:
             regs = re.search(r"Used (\d+) registers", ln)
-            PTXAS[name] = f"{regs.group(1) if regs else '?'} registers, {spill}"
-            out.append(f"{name}: {PTXAS[name]}")
+            into[name] = f"{regs.group(1) if regs else '?'} registers, {spill}"
+            out.append(f"{name}: {into[name]}")
     return out
 
 
@@ -440,7 +454,8 @@ def phase_build():
         path = _build.build()
         secs = time.perf_counter() - t0
         if parent:
-            log(f"  parent {PARENT['dir']}: {parent.result().name} built "
+            PARENT["lib"] = parent.result()
+            log(f"  parent {PARENT['dir']}: {PARENT['lib'].name} built "
                 f"{time.perf_counter() - t0:.1f}s")
     _build.load_library()
     log_path = str(path) + ".log"
@@ -1253,7 +1268,8 @@ def _beside(bounds, lo=129):
 def hugek_plan() -> dict:
     """The K of phase hugek per kernel: HUGEK_KS, and K - 1 and K of each
     boundary past 128 that the kernel's module lists: K3's wide instance
-    and its b leaving the first chunk, K4's global form, K9's instances;
+    and its b leaving the first chunk, K4's global form and each tile
+    width of its CTA form (from 65), K9's instances;
     for K2 every boundary past 32 (the pass form's chunk widths, two
     passes, P in the ring, for each kind of cell tile and precision).  The
     row-group kernels' are phase k17small's."""
@@ -1264,7 +1280,8 @@ def hugek_plan() -> dict:
              for m_f32, lo in ((False, False), (False, True), (True, True))]
     return {
         "K3": sorted(base | _beside(gaussian_edge.factor_boundary_ks())),
-        "K4": sorted(base | _beside(gj_inverse.boundary_ks())),
+        "K4": sorted(base | _beside(gj_inverse.boundary_ks())
+                     | _beside(gj_inverse.cta_boundary_ks(), lo=65)),
         "K9": sorted(base | _beside(map_grad.boundary_ks())),
         "K2": sorted(base | {k for kind in kinds
                              for k in _beside(dense_head.boundary_ks(*kind), lo=33)}),
@@ -1518,6 +1535,163 @@ def phase_huge_gauss(blocked):
     return out
 
 
+K4_WIDE_KS = (80, 128, K_HUGE)  # K4's CTA form timed on 162k + 59k matrices
+K4_ITEM_KS = (200, 239)  # and on 59k (phase k4wide)
+K4_PARENT_KS = (K_WIDE, 80, K_HUGE, 239)  # phase k4 parent, in turns
+K4_CHECK_MATS = 67  # matrices a check beside each boundary of the CTA form
+K4_PARENT_MATS = 20_000  # phase k4 parent's turns beside every CTA-form boundary
+K4_CHUNK = 16_384  # matrices a K4 comparison takes at once (no R x K x K temporaries)
+
+
+def _k4_sides(k):
+    """(matrices, seed) of K4's launches a sweep timed at ``k``: the user
+    and item sides to K_HUGE, the item side alone past it."""
+    return ((N_USERS, 1), (N_ITEMS, 2)) if k <= K_HUGE else ((N_ITEMS, 2),)
+
+
+def _once_ms(fn) -> float:
+    """Device time of one call of ``fn`` (CUDA events), no warm-up."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_k4wide():
+    """K4's CTA form: against its plain version and float64 inv, per
+    matrix, on K4_CHECK_MATS matrices at K - 1 and K of every
+    ``cta_boundary_ks`` value and at 239, a second launch equal in bits;
+    every K4 instance's ptxas line; then device time (CUDA events) of a
+    sweep's launches (``_k4_sides``) at K4_WIDE_KS and K4_ITEM_KS beside
+    one ``torch.linalg.inv`` call on each side's batch (warmed on 256 of
+    its matrices) and ``_k4_bounds``.  Returns {k: {ms, library_ms,
+    bound_ms, bound_by, n}}."""
+    import torch
+
+    from pmf_tpu_torch.ops.gj_inverse import (
+        batched_psd_inverse_gj, batched_psd_inverse_gj_plain, cta_boundary_ks, cta_plan, form)
+
+    t0 = time.perf_counter()
+    worst = {}
+    for k in sorted(_beside(cta_boundary_ks(), lo=65) | {239}):
+        P = _spd(K4_CHECK_MATS, k, 70 + k)
+        got = batched_psd_inverse_gj(P)
+        if not torch.equal(got, batched_psd_inverse_gj(P)):
+            raise AssertionError(f"k4wide K={k}: two launches differ in bits")
+        ref = batched_psd_inverse_gj_plain(P)
+        ref64 = torch.linalg.inv(P.double())
+        scale = ref64.abs().amax(dim=(1, 2))
+        worst[k] = max(float(((got - ref).abs().amax(dim=(1, 2)) / scale).max()),
+                       float(((got.double() - ref64).abs().amax(dim=(1, 2)) / scale).max()))
+        if not worst[k] <= INV_RTOL:
+            raise AssertionError(f"k4wide K={k}: error {worst[k]} > {INV_RTOL}")
+    log(f"  k4wide: per-matrix error vs plain and float64 inv (tol {INV_RTOL}), "
+        f"{K4_CHECK_MATS} matrices, repeats equal in bits: "
+        + ", ".join(f"K={k} {form(k)} {v:.3e}" for k, v in worst.items()))
+    for name, line in PTXAS.items():
+        if "gj_inverse" in name:
+            log(f"  k4wide ptxas {name}: {line}")
+    out = {}
+    for k in K4_WIDE_KS + K4_ITEM_KS:
+        sides = _k4_sides(k)
+        ms = lib = 0.0
+        for n, seed in sides:
+            P = _spd(n, k, seed)
+            ms += cuda_ms(lambda: batched_psd_inverse_gj(P), reps=3)
+            torch.linalg.inv(P[:256])
+            lib += _once_ms(lambda: torch.linalg.inv(P))
+            del P
+            torch.cuda.empty_cache()
+        R = sum(n for n, _ in sides)
+        b_bytes, b_ops = _k4_bounds(R, k)
+        plan = cta_plan(k)
+        out[k] = dict(ms=ms, library_ms=lib, bound_ms=max(b_bytes, b_ops),
+                      bound_by="bytes" if b_bytes >= b_ops else "operations", n=R)
+        log(f"  k4wide K={k}: {' + '.join(str(n) for n, _ in sides)} matrices | kernel "
+            f"{ms:.4f} ms a sweep | torch.linalg.inv {lib:.4f} ms | bound: bytes "
+            f"{b_bytes:.4f} ms, FP32 {b_ops:.4f} ms ({ms / max(b_bytes, b_ops):.2f}x) | "
+            f"tile {plan['tile']}, {plan['reg_rows']} rows in registers, "
+            f"{plan['ctas_per_sm']} CTAs an SM")
+    log(f"phase k4wide: ok | K {list(out)} | {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_k4_parent():
+    """With ``--parent``: the rows instances' ptxas lines equal to the
+    parent build's; then K4 of this tree and of the parent tree at
+    K4_PARENT_KS, on a sweep's matrices (``_k4_sides``), the two outputs
+    compared (per matrix, INV_RTOL; equal in bits said), timed a sweep at
+    a time by CUDA events in turns parent, this, this, parent; then the
+    same turns on K4_PARENT_MATS matrices at K - 1 and K of every
+    ``cta_boundary_ks`` value and at 239, where this tree must be faster
+    in every turn.  Returns {k: {turn label: mean ms}}."""
+    import torch
+
+    from pmf_tpu_torch.ops import gj_inverse
+
+    theirs: dict = {}
+    _ptxas_report(open(str(PARENT["lib"]) + ".log").read(), theirs)
+    rows = {n: v for n, v in PTXAS.items() if n.startswith("gj_inverse_rows_kernel")}
+    prows = {n: v for n, v in theirs.items() if n.startswith("gj_inverse_rows_kernel")}
+    if not rows or rows != prows:
+        raise AssertionError(f"k4 parent: rows instances' ptxas {rows} vs the parent's "
+                             f"{prows}")
+    log(f"  k4 parent: the {len(rows)} rows instances' ptxas lines equal the parent's")
+    trees = {"this": gj_inverse, "parent": _parent_op("gj_inverse")}
+    out = {}
+    for k in K4_PARENT_KS:
+        turns, same, worst = [0.0] * len(K2_AB_TURNS), True, 0.0
+        for n, seed in _k4_sides(k):
+            P = _spd(n, k, seed)
+            a, b = (trees[t].batched_psd_inverse_gj(P) for t in ("this", "parent"))
+            same = same and torch.equal(a, b)
+            for r0 in range(0, n, K4_CHUNK):  # no n x K x K temporary
+                ca, cb = a[r0 : r0 + K4_CHUNK], b[r0 : r0 + K4_CHUNK]
+                worst = max(worst, float(((ca - cb).abs().amax(dim=(1, 2))
+                                          / cb.abs().amax(dim=(1, 2))).max()))
+            del a, b, ca, cb
+            reps = TIMING_REPS if k <= K_WIDE else 2
+            for j, t in enumerate(K2_AB_TURNS):
+                turns[j] += cuda_ms(lambda t=t: trees[t].batched_psd_inverse_gj(P), reps=reps)
+            del P
+            torch.cuda.empty_cache()
+        if not worst <= INV_RTOL:
+            raise AssertionError(f"k4 parent K={k}: the trees differ by {worst} > {INV_RTOL}")
+        mean = {t: float(np.mean([ms for u, ms in zip(K2_AB_TURNS, turns) if u == t]))
+                for t in ("parent", "this")}
+        out[k] = mean
+        log(f"  k4 parent K={k}: turns "
+            + ", ".join(f"{t} {ms:.4f}" for t, ms in zip(K2_AB_TURNS, turns))
+            + f" ms a sweep | this / parent {mean['this'] / mean['parent'] - 1:+.2%} | "
+            f"outputs equal in bits: {same}, worst per-matrix difference {worst:.3e}")
+    slower = []
+    for k in sorted(_beside(gj_inverse.cta_boundary_ks(), lo=66) | {65, 239}):
+        P = _spd(K4_PARENT_MATS, k, 80 + k)
+        turns = [cuda_ms(lambda t=t: trees[t].batched_psd_inverse_gj(P), reps=2)
+                 for t in K2_AB_TURNS]
+        del P
+        mine = [ms for t, ms in zip(K2_AB_TURNS, turns) if t == "this"]
+        theirs = [ms for t, ms in zip(K2_AB_TURNS, turns) if t == "parent"]
+        out[k] = {"this": float(np.mean(mine)), "parent": float(np.mean(theirs))}
+        if max(mine) >= min(theirs):
+            slower.append(k)
+        log(f"  k4 parent K={k}, {K4_PARENT_MATS} matrices: turns "
+            + ", ".join(f"{t} {ms:.4f}" for t, ms in zip(K2_AB_TURNS, turns))
+            + f" ms | this / parent {out[k]['this'] / out[k]['parent'] - 1:+.2%}")
+    torch.cuda.empty_cache()
+    if slower:
+        raise AssertionError(f"k4 parent: this tree not faster in every turn at K {slower}")
+    log(f"phase k4 parent: ok | {PARENT['dir']} | K {list(K4_PARENT_KS)} a sweep and every "
+        f"CTA-form boundary on {K4_PARENT_MATS} matrices, in turns {', '.join(K2_AB_TURNS)}")
+    return out
+
+
 # blocked_high's val RMSE against engine flat's, a sweep, at K_WIDE: a sound
 # head reads 1.03e-6, a one-bf16-term head (engine blocked_fast) 5.4e-6.
 HUGEFIT_FLAT_RTOL = 3e-6
@@ -1621,7 +1795,8 @@ def phase_wide_gauss(blocked):
     reckonings), K5, K6 on the real Gaussian tail (with their bounds,
     reckoned as phase huge timing's) and K4 on 162k + 59k matrices (beside
     torch.linalg.inv, with its bounds), by CUDA events; and K4 at K = 128
-    on 59k matrices."""
+    on 59k matrices.  Returns ({kid: ms}, torch.linalg.inv's ms at
+    K_WIDE)."""
     import torch
 
     k = K_WIDE
@@ -1659,7 +1834,7 @@ def phase_wide_gauss(blocked):
                             for kid, (b, by) in tail_bounds.items())
         + f" | K4 beside torch.linalg.inv {k4['library_ms']:.4f} ms, bound: bytes {b_bytes:.4f} ms, "
         f"FP32 {b_ops:.4f} ms")
-    return ms
+    return ms, k4["library_ms"]
 
 
 def phase_small(k=K):
@@ -3570,6 +3745,128 @@ def phase_gelbo(train, val, smi):
         del model, elbo_fn
 
 
+GWIDE_K = 80  # phase gwidefit: the exact Gaussian fit at full width
+GWIDE_SWEEPS = 4
+
+
+def _gwide_reckoning(n_train, k):
+    """Peak device bytes of the exact fit at ``k``, reckoned from shapes
+    at the user block's update: the layout (the head budget and a tail of
+    16 bytes an edge), the state, the user side's statistics table
+    (N_users x (2K + T + 2)) and four N_users x K x K tensors at once
+    (S_A, the precisions, K4's output, the new covariances)."""
+    tri = k * (k + 1) // 2
+    parts = {"layout": GAUSS_HEAD_BYTES + 16 * n_train,
+             "state": 4 * (N_USERS + N_ITEMS) * (k + k * k + 1),
+             "statistics": 4 * N_USERS * (2 * k + tri + 2),
+             "user block": 4 * 4 * N_USERS * k * k}
+    return sum(parts.values()), parts
+
+
+def phase_gwidefit(train, val, smi, k=GWIDE_K):
+    """``GaussianMF(n_factors=k, covariance="full", engine="blocked_high")``
+    at full width for GWIDE_SWEEPS sweeps with ``elbo_every=1``: peak
+    device memory against ``_gwide_reckoning``, launches (K3, K4, K5
+    twice a sweep, as phase gfit), the state finite at its shapes, the
+    ELBO monotone within GELBO_GATE relative; K4 on the precision matrices
+    the fit forms after sweep 1 (the user side of sweep 2) against its
+    plain version, per matrix, K4_CHUNK at a time; one sweep from the
+    fit's state traced: busy ms, idle share, K4's share beside K3's and
+    the head products'.  Returns {"launches", "busy_ms", "k4_ms"}."""
+    import torch
+
+    from pmf_tpu_torch.models.gaussian_mf import (
+        GaussianMF, GaussianMFConfig, init_state, state_to_numpy, sweep_blocked)
+    from pmf_tpu_torch.ops.gaussian_edge import gaussian_factor_stats
+    from pmf_tpu_torch.ops.gj_inverse import (
+        batched_psd_inverse_gj, batched_psd_inverse_gj_plain, cta_plan)
+
+    reckon, parts = _gwide_reckoning(len(train[0]), k)
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"  gwidefit K={k}: peak reckoned {reckon / 1e9:.3f} GB ("
+        + ", ".join(f"{n} {b / 1e9:.3f}" for n, b in parts.items())
+        + f") of {total / 1e9:.3f} GB | K4 tile {cta_plan(k)['tile']}")
+    cfg = GaussianMFConfig(n_factors=k, covariance="full", engine="blocked_high",
+                           max_iter=GWIDE_SWEEPS, tol=None, verbose=False)
+    model = GaussianMF(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    model.fit(train, val, global_mean=0.0, elbo_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {kid: c.count for kid, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n = model.n_sweeps
+    want = dict.fromkeys(launches, 0)
+    want.update({"K3": 2 * n, "K4": 2 * n, "K5": 2 * n})
+    if n != GWIDE_SWEEPS or launches != want:
+        raise AssertionError(f"gwidefit: {n} sweeps, launches {launches}, expected {want}")
+    elbos = [rec.get("elbo") for rec in model.fit_history]
+    if None in elbos or not np.all(np.isfinite(elbos)):
+        raise AssertionError(f"gwidefit: ELBO history {elbos}")
+    for rec in model.fit_history:
+        log(f"  K={k} sweep {rec['iteration']}: {rec['iter_seconds']:.4f} s | ELBO "
+            f"{rec['elbo']:.8e} | val RMSE {rec['val_rmse']:.6f} | {smi}")
+    for a, b in zip(elbos, elbos[1:]):
+        if b < a - GELBO_GATE * (1.0 + abs(a)):
+            raise AssertionError(f"gwidefit: ELBO fell {a} -> {b}")
+    shapes = {"m_theta": (N_USERS, k), "m_beta": (N_ITEMS, k),
+              "V_theta": (N_USERS, k, k), "V_beta": (N_ITEMS, k, k),
+              "b_user": (N_USERS,), "b_item": (N_ITEMS,)}
+    for name, v in state_to_numpy(model.state).items():
+        if v.shape != shapes[name] or not np.all(np.isfinite(v)):
+            raise AssertionError(f"gwidefit state {name}: shape {v.shape} or non-finite")
+    log(f"  gwidefit: {n} sweeps in {wall:.1f} s wall (layout build and ELBOs included) "
+        f"| peak {peak / 1e9:.3f} GB allocated (reckoned {reckon / 1e9:.3f}), "
+        f"{(total - peak) / 1e9:.3f} GB spare | launches {launches}")
+
+    counts = _counts_on_card(train)
+    args = (cfg.sigma2, cfg.eta_theta2, cfg.eta_beta2, cfg.eta_bias2, cfg.use_bias,
+            cfg.covariance, cfg.bias_update)
+    st1 = sweep_blocked(init_state(N_USERS, N_ITEMS, cfg, device="cuda"), model.blocked,
+                        *counts, *args)
+    _, S_A = gaussian_factor_stats(st1["m_beta"], st1["V_beta"], st1["b_user"],
+                                   st1["b_item"], model.blocked.by_user,
+                                   head=model.blocked.head, head_side="user")
+    del st1
+    P = torch.eye(k, device="cuda") / cfg.eta_theta2 + S_A / cfg.sigma2
+    del S_A
+    worst = 0.0
+    for r0 in range(0, P.shape[0], K4_CHUNK):
+        c = P[r0 : r0 + K4_CHUNK]
+        got, ref = batched_psd_inverse_gj(c), batched_psd_inverse_gj_plain(c)
+        scale = ref.abs().amax(dim=(1, 2))
+        worst = max(worst, float(((got - ref).abs().amax(dim=(1, 2)) / scale).max()))
+    del P, got, ref
+    if not worst <= INV_RTOL:
+        raise AssertionError(f"gwidefit: K4 on the sweep-1 precisions {worst} > {INV_RTOL}")
+    log(f"  gwidefit: K4 on the {N_USERS} user precisions after sweep 1 vs plain: worst "
+        f"per-matrix error {worst:.3e} (tol {INV_RTOL})")
+
+    box = [dict(model.state)]
+
+    def one_sweep():
+        box[0] = sweep_blocked(box[0], model.blocked, *counts, *args)
+
+    expect = {"::factor_kernel": 2, "gj_inverse": 2, K5_TRACE: 2}
+    rows, busy, wall_ms = profile_once(one_sweep, expect)
+    groups = trace_parts(rows, {"K3 factor_kernel": ("::factor_kernel",),
+                                "K4 gj_inverse": ("gj_inverse",),
+                                "K5 tail_group_kernel<3>": (K5_TRACE,)})[0]
+    log_parts(groups, busy)
+    for dev_ms, cnt, key in rows[:8]:
+        log(f"  {dev_ms:9.4f} ms  {cnt:3d}x  {key[:90]}")
+    head = groups["head products (gemm)"]
+    k4_ms, k3_ms = groups["K4 gj_inverse"], groups["K3 factor_kernel"]
+    log(f"phase gwidefit: ok | GaussianMF K={k} exact, {n} sweeps | one sweep busy "
+        f"{busy:.4f} ms of {wall_ms:.4f} ms (idle share {1 - busy / wall_ms:.1%}) | K4 "
+        f"{k4_ms:.4f} ms ({k4_ms / busy:.1%}), K3 {k3_ms:.4f} ms ({k3_ms / busy:.1%}), "
+        f"head products {head:.4f} ms ({head / busy:.1%}) | {smi}")
+    del model, box
+    return {"launches": launches, "busy_ms": busy, "k4_ms": k4_ms}
+
+
 # ---- The experiment surface: CLIs, multi-seed fits, the reproduction chain.
 
 MID_USERS, MID_ITEMS, MID_NNZ, MID_HELD = 40_000, 12_000, 2_000_000, 20_000
@@ -4265,14 +4562,14 @@ def phase_k2fast(blocked, k2):
     return res
 
 
-def _parent_dense_head():
-    """The ``--parent`` tree's ops/dense_head.py, launching through that
-    tree's build module (its kernels, its own launch counters)."""
+def _parent_op(name):
+    """The ``--parent`` tree's ops/<name>.py, launching through that tree's
+    build module (its kernels, its own launch counters)."""
     import importlib.util
 
     path = os.path.join(os.path.abspath(PARENT["dir"]), "pmf_tpu_torch", "ops",
-                        "dense_head.py")
-    spec = importlib.util.spec_from_file_location("parent_dense_head", path)
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"parent_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod._build = PARENT["build"]
@@ -4295,7 +4592,7 @@ def phase_k2_parent(blocked):
 
     from pmf_tpu_torch.ops import dense_head
 
-    trees = {"this": dense_head, "parent": _parent_dense_head()}
+    trees = {"this": dense_head, "parent": _parent_op("dense_head")}
     gen = torch.Generator(device="cuda").manual_seed(9)
     out = {}
     for k in (K, K_WIDE, K_HUGE):
@@ -5077,13 +5374,19 @@ def main(argv=None) -> int:
     k6 = phase_k6(gblocked)
     phase_ghead(gblocked)
     k4 = phase_k4(gblocked)
-    wide.update(phase_wide_gauss(gblocked))
+    gwide_ms, k4_lib50 = phase_wide_gauss(gblocked)
+    wide.update(gwide_ms)
     wide["K9"] = k9["k50_ms"]
     gc_cuda()
     huge.update(phase_huge_gauss(gblocked))
     huge["K9"] = k9["k160"]
     del gblocked
     gc_cuda()
+    k4w = phase_k4wide()
+    gc_cuda()
+    if PARENT:
+        phase_k4_parent()
+        gc_cuda()
     phase_gsmall()
     full, diag, glaunches = phase_gfit(gtrain, gval, smi)
     high_rmse["gaussian"] = [rec["val_rmse"] for rec in full.fit_history]
@@ -5091,6 +5394,8 @@ def main(argv=None) -> int:
     del full, diag
     gc_cuda()
     phase_gelbo(gtrain, gval, smi)
+    gc_cuda()
+    gwide = phase_gwidefit(gtrain, gval, smi)
     gc_cuda()
     # The layout cache, off until here so that every fit above builds its
     # layout cold (each wall a user's first fit).
@@ -5138,7 +5443,17 @@ def main(argv=None) -> int:
         entry("gaussian_factor_tail", gsrc,
               "pmf_tpu/ops/pallas/gaussian_edge.py:90", k3, glaunches["K3"], "K3"),
         entry("gj_inverse", "pmf_tpu_torch/csrc/gj_inverse.cu",
-              "pmf_tpu/ops/pallas/gj_inverse.py:25", k4, glaunches["K4"], "K4"),
+              "pmf_tpu/ops/pallas/gj_inverse.py:25", k4, glaunches["K4"], "K4",
+              **{f"library_ms_k{K_WIDE}": k4_lib50,
+                 **{f"{key}_k{k}": r[key] for k, r in k4w.items()
+                    for key in ("ms", "library_ms", "bound_ms")
+                    if k != K_HUGE or key == "library_ms"},
+                 f"launches_k{GWIDE_K}": gwide["launches"]["K4"],
+                 f"sweep_busy_ms_k{GWIDE_K}": gwide["busy_ms"],
+                 f"sweep_ms_k{GWIDE_K}": gwide["k4_ms"]},
+              note=f"_k80 .. _k239: phase k4wide (the CTA form, a sweep's matrices); "
+                   f"launches_k{GWIDE_K}, sweep_*: phase gwidefit's exact fit at "
+                   f"K={GWIDE_K} (K4's ms in one traced sweep of sweep_busy_ms)"),
         entry("gaussian_bias_tail", gsrc,
               "pmf_tpu/ops/pallas/gaussian_edge.py:175", k5, glaunches["K5"], "K5"),
         entry("gaussian_diag_tail", gsrc,

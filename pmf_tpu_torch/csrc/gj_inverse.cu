@@ -38,14 +38,10 @@
 // a compile-time constant after unrolling, so a[i][p] is a register.  The
 // rows go back to the same shared tile and out with coalesced stores.
 //
-// Design, 64 < K < 240 (gj_inverse_cta_kernel): one CTA of 256 threads per
-// matrix, held in shared memory (K x (K + 1) floats, 66 KB at K = 128, 226
-// KB at K = 239, the most that fits a CTA's 227 KB with the two buffers;
-// the odd row stride keeps a column read free of bank conflicts), in
-// place.  Per pivot the CTA copies the scaled pivot row and the old column
-// p into two K-float buffers, syncs, updates every entry from the buffers
-// and syncs again.  (A row form there would keep up to 128 floats a
-// thread, more registers than its unrolled elimination can hold.)
+// Design, 64 < K < 240 (the CTA form, gj_inverse_tile_kernel in
+// gj_tile.cuh): one CTA of 256 threads a matrix, held in registers as a
+// 16 x 16 grid of T x T tiles, T = ceil(K / 16); the warp holding each
+// pivot row publishes it and its readers meet it at named barriers.
 //
 // Design, K >= 240 (gj_inverse_global_kernel): the CTA form's steps with
 // the matrix split: as many of its first rows as fit beside the two
@@ -57,6 +53,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The CTA form (gj_tile.cuh), its instances split over two sources.
+cudaError_t gj_tile_launch_lo(const float* mats, int R, int K, float* out,
+                              cudaStream_t stream);
+cudaError_t gj_tile_launch_hi(const float* mats, int R, int K, float* out,
+                              cudaStream_t stream);
+
 namespace {
 
 // BEGIN host plan: the dispatch's choice of form, in plain C++ (the tests
@@ -65,8 +67,9 @@ namespace {
 constexpr int kRowsMaxK = 64;  // the row form; past it the CTA form
 constexpr int kSmemPerCta = 232448;  // dynamic shared memory a CTA may ask for
 
-// Shared memory of the CTA form: the K x (K + 1) matrix and two K-float
-// buffers, in 64 bits (it passes 2^31 bytes from K = 23,170).
+// The K x (K + 1) matrix and two K-float buffers, in 64 bits (it passes
+// 2^31 bytes from K = 23,170): the CTA form runs while these would fit a
+// CTA (to K = 239), the global form past it.
 int64_t cta_smem_bytes(int K) {
   return ((int64_t)K * (K + 1) + 2 * (int64_t)K) * (int64_t)sizeof(float);
 }
@@ -258,54 +261,7 @@ cudaError_t launch_rows(const float* mats, int R, int K, float* out,
   return cudaGetLastError();
 }
 
-constexpr int kCtaThreads = 256;
-
-__global__ void __launch_bounds__(kCtaThreads)
-gj_inverse_cta_kernel(const float* __restrict__ mats, int K, float* __restrict__ out) {
-  extern __shared__ float sm[];
-  const int S = K + 1;  // row stride in shared memory
-  float* a = sm;  // K x S
-  float* row = a + K * S;  // the scaled pivot row
-  float* col = row + K;  // the pivot column before the step
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int kWarps = kCtaThreads / 32;
-  const int64_t r = blockIdx.x;
-  const float* src = mats + r * K * K;
-  float* dst = out + r * K * K;
-  // Warp w takes rows w, w + 8, ...; lane l columns l, l + 32, ...
-  for (int i = warp; i < K; i += kWarps)
-    for (int j = lane; j < K; j += 32) a[i * S + j] = src[(int64_t)i * K + j];
-  __syncthreads();
-  for (int p = 0; p < K; ++p) {
-    const float piv = a[p * S + p];
-    for (int j = threadIdx.x; j < K; j += kCtaThreads) {
-      row[j] = (j == p ? 1.f : a[p * S + j]) / piv;
-      col[j] = a[j * S + p];
-    }
-    __syncthreads();
-    for (int i = warp; i < K; i += kWarps) {
-      float* ai = a + i * S;
-      if (i == p) {
-        for (int j = lane; j < K; j += 32) ai[j] = row[j];
-      } else {
-        const float ci = col[i];
-        for (int j = lane; j < K; j += 32) ai[j] = (j == p ? 0.f : ai[j]) - ci * row[j];
-      }
-    }
-    __syncthreads();
-  }
-  for (int i = warp; i < K; i += kWarps)
-    for (int j = lane; j < K; j += 32) dst[(int64_t)i * K + j] = a[i * S + j];
-}
-
-cudaError_t launch_cta(const float* mats, int R, int K, float* out, cudaStream_t stream) {
-  const int smem = (int)cta_smem_bytes(K);  // <= kSmemPerCta (form_of)
-  cudaError_t err = cudaFuncSetAttribute(
-      gj_inverse_cta_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  gj_inverse_cta_kernel<<<R, kCtaThreads, smem, stream>>>(mats, K, out);
-  return cudaGetLastError();
-}
+constexpr int kCtaThreads = 256;  // the global form
 
 // The CTA form's elimination with rows [0, rs) in shared memory and rows
 // [rs, K) in global memory (GlobalPlan).  Stores of one thread to global
@@ -373,7 +329,8 @@ extern "C" int pmf_gj_inverse(const float* mats, int R, int K, float* out,
   if (K <= 52) return (int)launch_rows<52, 4>(mats, R, K, out, s);
   if (K <= 56) return (int)launch_rows<56, 4>(mats, R, K, out, s);
   if (K <= kRowsMaxK) return (int)launch_rows<64, 4>(mats, R, K, out, s);
-  if (form_of(K) == kFormCta) return (int)launch_cta(mats, R, K, out, s);
+  if (form_of(K) == kFormCta)  // gj_tile_lo.cu's tiles to T = 10, K = 160
+    return (int)(K <= 160 ? gj_tile_launch_lo : gj_tile_launch_hi)(mats, R, K, out, s);
   const GlobalPlan gp = global_plan(K);
   if (!gp.buffers && scratch == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(

@@ -11,12 +11,17 @@ matrix leaves a positive-definite trailing block, so pivots stay
 positive.
 
 K4 inverts in place (column p of A becomes column p of the inverse at
-pivot p), one row a thread, the matrices of a CTA packed across its
-threads, scaling the pivot row by one reciprocal; ``launch_plan`` gives
-the geometry the kernel picks for a K.  Past K = 64 a CTA inverts one
-matrix in shared memory while it fits (``form``: "cta" up to K = 239), then
-with its first ``global_shared_rows(K)`` rows in shared memory and the rest
-in global memory ("global"), at any K.
+pivot p).  Up to K = 64 one row a thread, the matrices of a CTA packed
+across its threads, scaling the pivot row by one reciprocal;
+``launch_plan`` gives the geometry the kernel picks for a K.  From K = 65
+to 239 (``form`` "cta") a CTA of 16 x 16 threads inverts one matrix held
+in registers, thread (ty, tx) keeping the T x T tile of entries (16 r +
+ty, 16 c + tx), T = ceil(K / 16), the warp holding each pivot row
+publishing it to the others through named barriers; ``cta_plan`` gives
+its geometry (tile rows in registers and in shared
+memory, CTAs an SM, shared bytes).  Past it a CTA inverts one matrix
+with its first ``global_shared_rows(K)`` rows in shared memory and the
+rest in global memory ("global"), at any K.
 """
 
 from __future__ import annotations
@@ -28,11 +33,17 @@ from pmf_tpu_torch.ops import _build
 GJ_LAUNCHES = _build.LaunchCounter()
 ROWS_MAX_K = 64  # csrc/gj_inverse.cu: kRowsMaxK
 SMEM_PER_CTA = 232_448  # kSmemPerCta
+# The CTA form's plan: csrc/gj_tile.cuh's host plan block.
+TILE_GRID = 16  # kTileGrid: the CTA form's threads, 16 x 16
+TILE_THREADS = TILE_GRID * TILE_GRID
+REGS_PER_SM = 65_536  # kRegsPerSm
+WORDS_ONE_CTA = 210  # kWordsOneCta
+TILE_CTAS = (4, 3, 2, 2, 2, 2, 1, 1, 1, 1, 1)  # kTileCtas: CTAs an SM for T = 5..15
 
 
 def cta_smem_bytes(k: int) -> int:
-    """Shared memory of the CTA form: the K x (K + 1) matrix and two
-    K-float buffers."""
+    """The K x (K + 1) matrix and two K-float buffers: the CTA form runs
+    while these would fit a CTA (to K = 239), the global form past it."""
     return 4 * (k * (k + 1) + 2 * k)
 
 
@@ -64,6 +75,69 @@ def boundary_ks(k_max: int = 600) -> list:
         if key != last:
             out.append(k)
             last = key
+    return out
+
+
+def tile_pad(t: int) -> int:
+    """A thread's stride in the CTA form's row buffers: T rounded up to 4
+    floats, made 4 mod 8 (float4 reads of 8 threads touch 32 banks)."""
+    s = -(-t // 4) * 4
+    return s + 4 if s % 8 == 0 else s
+
+
+def tile_words(t: int, reg_rows: int) -> int:
+    """Words a thread of the CTA form keeps in registers: its tile rows
+    there and its T row values."""
+    return reg_rows * t + t
+
+
+def reg_cap(ctas: int) -> int:
+    """Registers a thread may hold with ``ctas`` CTAs of 256 threads an SM
+    (in units of 8, at most 255)."""
+    return min(255, REGS_PER_SM // (TILE_THREADS * ctas) // 8 * 8)
+
+
+def cta_plan(k: int) -> dict | None:
+    """The CTA form's geometry for ``k`` (``csrc/gj_tile.cuh``'s
+    ``cta_plan``; None outside 65 <= K <= 239): ``threads`` 256 as a
+    ``grid`` of 16 x 16, thread (ty, tx) holding the ``tile`` of T x T
+    entries (16 r + ty, 16 c + tx), T = ceil(K / 16); the launch bound's
+    ``ctas_per_sm`` (TILE_CTAS, as timed on the card: more CTAs spill the
+    tiles); ``reg_rows`` of its tile rows in registers, all but where one
+    CTA fills an SM, there those whose ``words`` (tile rows and row
+    values) fit WORDS_ONE_CTA, and ``smem_rows`` in shared memory;
+    ``tpad``, the row buffers' stride a thread; ``stride``, the staging
+    chunks' row stride
+    (K rounded up to 4 floats); ``smem_bytes``: two row buffers, two
+    staging chunks of 16 rows and the shared tile rows."""
+    if form(k) != "cta":
+        return None
+    t = -(-k // TILE_GRID)
+    ctas = TILE_CTAS[t - 5]
+    reg_rows = t
+    if ctas == 1:
+        while reg_rows > 0 and tile_words(t, reg_rows) > WORDS_ONE_CTA:
+            reg_rows -= 1
+    tp, stride = tile_pad(t), -(-k // 4) * 4
+    words = 2 * TILE_GRID * tp + 2 * TILE_GRID * stride + (t - reg_rows) * t * TILE_THREADS
+    return dict(threads=TILE_THREADS, grid=(TILE_GRID, TILE_GRID), tile=(t, t),
+                reg_rows=reg_rows, smem_rows=t - reg_rows, ctas_per_sm=ctas,
+                words=tile_words(t, reg_rows), tpad=tp, stride=stride,
+                smem_bytes=4 * words)
+
+
+def cta_boundary_ks() -> list:
+    """Each K of the CTA form (65 to 239) where ``cta_plan``'s geometry
+    (tile, rows in registers, CTAs an SM) changes, its first K included:
+    the tests and chip_smoke.py hold K4 on both sides of each."""
+    out, last, k = [], None, ROWS_MAX_K + 1
+    while form(k) == "cta":
+        p = cta_plan(k)
+        key = (p["tile"], p["reg_rows"], p["ctas_per_sm"])
+        if key != last:
+            out.append(k)
+            last = key
+        k += 1
     return out
 
 

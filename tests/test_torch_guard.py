@@ -514,6 +514,9 @@ def test_kernel_sources_name_what_they_replace():
             "pmf_tpu/ops/pallas/gaussian_edge.py::_bias_kernel",
             "pmf_tpu/ops/pallas/gaussian_edge.py::_diag_kernel"],
         "gj_inverse.cu": ["pmf_tpu/ops/pallas/gj_inverse.py::_gj_kernel"],
+        "gj_tile.cuh": ["pmf_tpu/ops/pallas/gj_inverse.py::_gj_kernel"],
+        "gj_tile_lo.cu": ["pmf_tpu/ops/pallas/gj_inverse.py::_gj_kernel"],
+        "gj_tile_hi.cu": ["pmf_tpu/ops/pallas/gj_inverse.py::_gj_kernel"],
         "ext_edge.cu": ["pmf_tpu/ops/pallas/ext_edge.py::_factor_kernel",
                         "pmf_tpu/ops/pallas/ext_edge.py::_scalar_kernel"],
         "map_grad.cu": ["pmf_tpu/ops/pallas/map_grad.py::_kernel"],
