@@ -7,11 +7,12 @@
 unpacked by ``git archive`` into a git-ignored directory); its kernels
 build beside this tree's, and phase k2 parent (after k2fast) times its K2
 and this one at K = 20, 50 and 160, both precisions, in turns parent,
-this, this, parent; phase k4 parent (after k4wide) holds K4's rows
-instances' ptxas lines equal to that build's, times both trees' K4 at
-K = 50, 80, 160 and 239 a sweep in the same turns, and on 20,000 matrices
-on both sides of every boundary of the CTA form, where this tree must be
-faster in every turn.
+this, this, parent; phase k4 parent (after k4wide) holds K4's rows and
+tile instances' ptxas lines equal to that build's, times both trees' K4
+at K = 50, 80, 160 and 239 a sweep in the same turns (within 3% at 80,
+160, 239) and at 240, 256, 300 and 384 on the K = 256 fit's sides, and on
+2,000 matrices on both sides of each boundary of the panel form to 400,
+where this tree must be faster in every turn, its output equal in bits.
 
 Phases, one status line each; any failure exits non-zero and prints no
 result line:
@@ -102,11 +103,14 @@ real-data phases, "bigk timing": every kernel's time at K = 50 on the
 real tail, tiers, matrices and steps; "huge timing": the same at K = 160
 with the bound at K = 160 (K2 at both K also against its plain version on
 every tier, its launch plan logged with passes over the cells and the
-instance's registers and spills).  After huge timing, phase k4wide: K4's
-CTA form against its plain version at K - 1 and K of every boundary of
-``gj_inverse.cta_boundary_ks`` and at 239, every K4 instance's ptxas line,
-and its time at K = 80, 128, 160 on 162k + 59k matrices and at K = 200,
-239 on 59k beside ``torch.linalg.inv`` and its bounds.  After phase resume, phase hugefit:
+instance's registers and spills; the library forms of K1 raw, K3, K5 and
+K8).  After huge timing, phase k4wide: K4's CTA and panel forms against
+the plain version at K - 1 and K of every boundary of
+``gj_inverse.boundary_ks``, ``cta_boundary_ks`` and ``panel_boundary_ks``
+and at 239, every K4 instance's ptxas line, and its time at K = 80, 128,
+160 on 162k + 59k matrices, at K = 200, 239 on 59k and at K = 240, 256,
+300, 384, 512 on 6,040 + 3,706 beside ``torch.linalg.inv`` and its
+bounds.  After phase resume, phase hugefit:
 ``HPF(n_factors=160)`` and ``HPF(n_factors=50)`` at full width, 4 sweeps
 each with launch counters, one sweep traced (K2, K1, the rest), read by
 phase roofline as hpf_k160 and hpf_k50.
@@ -144,6 +148,10 @@ Those are freed, then the Gaussian-MF CAVI path:
                 monotone within 1e-4; K4 on the user precisions after
                 sweep 1 against its plain version; one sweep traced (busy,
                 idle share, K4 beside K3 and the head products).
+16''. gxlfit -- the same at K = 256 on a rating log of MovieLens 1M's
+                shape (6,040 x 3,706 x 1,000,209 ratings, 10,000 held out;
+                phase gxldata): no head, K3's wide instance, K4's panel
+                form, K5's wide form.
 
 Then the other engines:
 
@@ -795,7 +803,11 @@ K_HUGE = 160  # every kernel timed on the real data; the full-width HPF fit
 # items) tiers and its row multiple.
 TINY = (600, 300, 12_000)
 TINY_HEAD = ([(0, 64, 300), (64, 128, 100)], 64)
-HUGE_K4_MATS = 264  # K4's matrices a check where its form is "global"
+HUGE_K4_MATS = 264  # K4's matrices a check where its form is "panel"
+# K4 far past the CTA form, on a few matrices: K = 1000 (the strips in
+# shared memory, one CTA an SM) and the first K whose strips go to global
+# memory (``gj_inverse.boundary_ks``'s last past 600).
+HUGE_K4_FAR = (1000,)
 
 
 def _pos(gen, *shape):
@@ -1253,10 +1265,14 @@ def phase_bigk():
     phase_gsmall(K_WIDE)
     phase_msmall(K_WIDE)
     t0 = time.perf_counter()
-    phase_small(K_HUGE)
-    phase_psmall(K_HUGE)
-    phase_gsmall(K_HUGE, shape=TINY, head=TINY_HEAD, sweeps=2)
-    phase_msmall(K_HUGE)
+    # At K = 160 one sweep (epoch) a family, cut from 3 to keep the script
+    # within its time limit (101.6 s at 3 on the H100): the kernels past 128
+    # are held against their plain versions in phase hugek, and the runs
+    # at K_WIDE keep 3.
+    phase_small(K_HUGE, sweeps=1)
+    phase_psmall(K_HUGE, sweeps=1)
+    phase_gsmall(K_HUGE, shape=TINY, head=TINY_HEAD, sweeps=1)
+    phase_msmall(K_HUGE, epochs=1)
     log(f"  card-vs-host runs at K={K_HUGE}: {time.perf_counter() - t0:.1f} s")
 
 
@@ -1268,8 +1284,9 @@ def _beside(bounds, lo=129):
 def hugek_plan() -> dict:
     """The K of phase hugek per kernel: HUGEK_KS, and K - 1 and K of each
     boundary past 128 that the kernel's module lists: K3's wide instance
-    and its b leaving the first chunk, K4's global form and each tile
-    width of its CTA form (from 65), K9's instances;
+    and its b leaving the first chunk, K4's panel form, each tile width of
+    its CTA form (from 65), each change of the panel plan to 600 and
+    HUGE_K4_FAR, K9's instances;
     for K2 every boundary past 32 (the pass form's chunk widths, two
     passes, P in the ring, for each kind of cell tile and precision).  The
     row-group kernels' are phase k17small's."""
@@ -1281,7 +1298,9 @@ def hugek_plan() -> dict:
     return {
         "K3": sorted(base | _beside(gaussian_edge.factor_boundary_ks())),
         "K4": sorted(base | _beside(gj_inverse.boundary_ks())
-                     | _beside(gj_inverse.cta_boundary_ks(), lo=65)),
+                     | _beside(gj_inverse.cta_boundary_ks(), lo=65)
+                     | _beside(gj_inverse.panel_boundary_ks(600))
+                     | set(HUGE_K4_FAR) | set(gj_inverse.boundary_ks(5000)[-1:])),
         "K9": sorted(base | _beside(map_grad.boundary_ks())),
         "K2": sorted(base | {k for kind in kinds
                              for k in _beside(dense_head.boundary_ks(*kind), lo=33)}),
@@ -1320,7 +1339,8 @@ def phase_hugek(u, i, x, blocked, gblocked):
     small_k = [k for k in plan["K3"] if k <= 300]
     _small_k34(gblocked, ks=small_k, n_mats=HUGE_K4_MATS)
     _small_k34(tiny, ks=[k for k in plan["K3"] if k > 300], n_mats=HUGE_K4_MATS)
-    k4 = {k: _bigk_inverse(k, HUGE_K4_MATS if form(k) == "global" else 3000)
+    k4 = {k: _bigk_inverse(k, 3000 if form(k) != "panel" else HUGE_K4_MATS if k <= 600
+                           else 4 if k <= 1000 else 1)
           for k in plan["K4"]}
     log(f"  hugek K4: ok | per-matrix error vs plain and float64 inv (tol {INV_RTOL}): "
         + ", ".join(f"K={k} {form(k)} {v:.3e}" for k, v in k4.items()))
@@ -1369,7 +1389,7 @@ def phase_wide_poisson(blocked, k=K_WIDE):
     reps = TIMING_REPS if k <= K_WIDE else 3
     kids = ("K1", "K1raw", "K2", "K2fast", "K7", "K8")
     ms, n_bytes, n_flops = (dict.fromkeys(kids, 0.0) for _ in range(3))
-    tail_worst = {}
+    tail_worst, lib_ms = {}, {}
     for p in (blocked.by_user, blocked.by_item):
         es, eo, so = _pos(gen, p.n_self, k), _pos(gen, p.n_other, k), _pos(gen, p.n_other)
         es_p, eo_p, rec = padded_rows(es), padded_rows(eo), es_record(eo, so)
@@ -1392,7 +1412,22 @@ def phase_wide_poisson(blocked, k=K_WIDE):
             ms[kid] += cuda_ms(lambda: _tail_kernel(kid, tabs, p, k), reps=reps)
             n_bytes[kid] += nb
             n_flops[kid] += p.nnz * flops
-        del es, eo, so, es_p, eo_p, rec
+        # The linear kernels' library forms (notes (e), (g) of PERF.md's
+        # kernel table), on the same tables: K1 raw as e_s * S and S, S =
+        # sparse.mm(pattern, e_o); K8 as the row dot of e_s with
+        # sparse.mm(pattern, s_o e_o).
+        pattern = _csr_ones(p)
+
+        def k1raw_lib(es=es, eo=eo, pattern=pattern):
+            s_other = torch.sparse.mm(pattern, eo)
+            return torch.cat([es * s_other, s_other], dim=1)
+
+        def k8_lib(es=es, eo=eo, so=so, pattern=pattern):
+            return torch.sum(es * torch.sparse.mm(pattern, so[:, None] * eo), dim=1)
+
+        for kid, fn in (("K1raw", k1raw_lib), ("K8", k8_lib)):
+            lib_ms[kid] = lib_ms.get(kid, 0.0) + cuda_ms(fn, reps=reps)
+        del es, eo, so, es_p, eo_p, rec, pattern
     lines = {"K2": {}, "K2fast": {}}
     worst = dict.fromkeys(lines, 0.0)
     past, n_out = 0, 0  # K2fast elements past FAST_RTOL
@@ -1440,12 +1475,13 @@ def phase_wide_poisson(blocked, k=K_WIDE):
             b_ms, b_by = lines[kid][by], "bytes" if by == "bytes" else "operations"
         else:
             b_ms, b_by = bound(n_bytes[kid], n_flops[kid])
-        out[kid] = dict(ms=ms[kid], bound_ms=b_ms, bound_by=b_by)
+        out[kid] = dict(ms=ms[kid], bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms.get(kid))
     log(f"phase {'bigk' if k == K_WIDE else 'huge'} timing (Poisson, real data, K={k}): "
         "ok | per sweep "
         + ", ".join(f"{n} {v['ms']:.4f} ms" + (f" (bound {v['bound_ms']:.4f}, "
                                                   f"{v['bound_by']})" if "bound_ms" in v
                                                   else "")
+                    + (f" library {v['library_ms']:.4f} ms" if v["library_ms"] else "")
                     for n, v in out.items())
         + " | tail vs plain, both directions: worst rel "
         + ", ".join(f"{n} {v:.3e}" for n, v in tail_worst.items())
@@ -1474,7 +1510,7 @@ def phase_huge_gauss(blocked):
     gen = torch.Generator(device="cuda").manual_seed(6)
     kids = ("K3", "K5", "K6", "K4")
     ms, n_bytes, n_flops = (dict.fromkeys(kids, 0.0) for _ in range(3))
-    per_edge, worst = 0.0, {}
+    per_edge, worst, lib_ms = 0.0, {}, {}
     for p in (blocked.by_user, blocked.by_item):
         aug = 0.1 * torch.rand(p.n_other, stride, generator=gen, device="cuda")
         aug[:, k + 1 + T :] = 0
@@ -1487,7 +1523,12 @@ def phase_huge_gauss(blocked):
         worst["K3"] = max(worst.get("K3", 0.0), err)
         ms["K3"] += cuda_ms(lambda: ge.factor_tail_stats(aug, p.row_ptr, p.other, p.x, k),
                             reps=2)
-        del aug
+        # note (b): CSR-ones @ [m | b | tri], the pass-through bulk alone
+        ones = _csr_ones(p)
+        bulk = aug[:, : k + 1 + T].contiguous()
+        lib_ms["K3"] = lib_ms.get("K3", 0.0) + cuda_ms(lambda: torch.sparse.mm(ones, bulk),
+                                                       reps=2)
+        del aug, bulk
         torch.cuda.empty_cache()
         r = ge.factor_reckoning(p, k)
         n_bytes["K3"] += r["table_once"]
@@ -1512,6 +1553,10 @@ def phase_huge_gauss(blocked):
             ms[kid] += cuda_ms(lambda: _tail_kernel(kid, tabs, p, k), reps=3)
             n_bytes[kid] += nb
             n_flops[kid] += p.nnz * flops
+        mb = torch.cat([m_o, b_o[:, None]], dim=1)  # note (b): K5's CSR-ones @ [m | b]
+        lib_ms["K5"] = lib_ms.get("K5", 0.0) + cuda_ms(lambda: torch.sparse.mm(ones, mb),
+                                                       reps=3)
+        del ones, mb
     from pmf_tpu_torch.ops.gj_inverse import batched_psd_inverse_gj
 
     for n, seed in ((N_USERS, 1), (N_ITEMS, 2)):
@@ -1520,13 +1565,14 @@ def phase_huge_gauss(blocked):
         del P
         torch.cuda.empty_cache()
     b_bytes, b_ops = _k4_bounds(N_USERS + N_ITEMS, k)
-    out = {kid: dict(ms=ms[kid], **dict(zip(("bound_ms", "bound_by"),
-                                            bound(n_bytes[kid], n_flops[kid]))))
+    out = {kid: dict(ms=ms[kid], library_ms=lib_ms.get(kid),
+                     **dict(zip(("bound_ms", "bound_by"), bound(n_bytes[kid], n_flops[kid]))))
            for kid in ("K3", "K5", "K6")}
     out["K4"] = dict(ms=ms["K4"], bound_ms=max(b_bytes, b_ops),
                      bound_by="bytes" if b_bytes >= b_ops else "operations")
     log(f"phase huge timing (Gaussian, real data, K={k}): ok | per sweep "
         + ", ".join(f"{n} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, {v['bound_by']})"
+                    + (f" library {v['library_ms']:.4f} ms" if v.get("library_ms") else "")
                     for n, v in out.items())
         + f" | K3 per-edge gather {per_edge / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s, "
         f"record {4 * (k + 1 + T)} B | K4 on {N_USERS} + {N_ITEMS} matrices | tail vs "
@@ -1537,16 +1583,38 @@ def phase_huge_gauss(blocked):
 
 K4_WIDE_KS = (80, 128, K_HUGE)  # K4's CTA form timed on 162k + 59k matrices
 K4_ITEM_KS = (200, 239)  # and on 59k (phase k4wide)
-K4_PARENT_KS = (K_WIDE, 80, K_HUGE, 239)  # phase k4 parent, in turns
+# The panel form, on the K = 256 fit's 6,040 + 3,706 matrices.
+K4_XL_KS = (240, 256, 300, 384, 512)
+K4_PARENT_KS = (K_WIDE, 80, K_HUGE, 239)  # phase k4 parent, in turns, a sweep
+K4_PARENT_XL_KS = (240, 256, 300, 384)  # and on the XL sides
+K4_SAME_KS = (80, K_HUGE, 239)  # unchanged code: within K4_SAME_TOL of the parent
+K4_SAME_TOL = 0.03
 K4_CHECK_MATS = 67  # matrices a check beside each boundary of the CTA form
-K4_PARENT_MATS = 20_000  # phase k4 parent's turns beside every CTA-form boundary
+K4_PARENT_MATS = 2_000  # phase k4 parent's turns beside every boundary past 239
 K4_CHUNK = 16_384  # matrices a K4 comparison takes at once (no R x K x K temporaries)
 
 
 def _k4_sides(k):
     """(matrices, seed) of K4's launches a sweep timed at ``k``: the user
-    and item sides to K_HUGE, the item side alone past it."""
+    and item sides to K_HUGE, the item side alone past it; the K = 256
+    fit's two sides at K4_XL_KS."""
+    if k in K4_XL_KS:
+        return (XL_USERS, 3), (XL_ITEMS, 4)
     return ((N_USERS, 1), (N_ITEMS, 2)) if k <= K_HUGE else ((N_ITEMS, 2),)
+
+
+def _k4_form_note(k):
+    from pmf_tpu_torch.ops.gj_inverse import cta_plan, form, panel_plan
+
+    if form(k) == "cta":
+        p = cta_plan(k)
+        return (f"tile {p['tile']}, {p['reg_rows']} rows in registers, "
+                f"{p['ctas_per_sm']} CTAs an SM")
+    if form(k) == "panel":
+        p = panel_plan(k)
+        return (f"panel b = {p['b']}, {p['ctas_per_sm']} CTAs an SM, "
+                f"{p['smem_bytes']} B shared, strips in global memory {p['global_panels']}")
+    return "rows"
 
 
 def _once_ms(fn) -> float:
@@ -1564,22 +1632,26 @@ def _once_ms(fn) -> float:
 
 
 def phase_k4wide():
-    """K4's CTA form: against its plain version and float64 inv, per
-    matrix, on K4_CHECK_MATS matrices at K - 1 and K of every
-    ``cta_boundary_ks`` value and at 239, a second launch equal in bits;
-    every K4 instance's ptxas line; then device time (CUDA events) of a
-    sweep's launches (``_k4_sides``) at K4_WIDE_KS and K4_ITEM_KS beside
-    one ``torch.linalg.inv`` call on each side's batch (warmed on 256 of
-    its matrices) and ``_k4_bounds``.  Returns {k: {ms, library_ms,
-    bound_ms, bound_by, n}}."""
+    """K4's CTA and panel forms: against the plain version and float64 inv,
+    per matrix, on K4_CHECK_MATS matrices at K - 1 and K of every
+    ``boundary_ks`` value from 65 (the CTA and panel forms), every
+    ``panel_boundary_ks`` value to 600 (each change of the panel plan) and
+    at 239, a second launch equal in bits; every K4 instance's ptxas line;
+    then device time (CUDA events) of a sweep's launches (``_k4_sides``) at
+    K4_WIDE_KS, K4_ITEM_KS and K4_XL_KS beside one ``torch.linalg.inv``
+    call on each side's batch (warmed on 256 of its matrices) and
+    ``_k4_bounds``, K4 faster than the library at K4_XL_KS.  Returns {k:
+    {ms, library_ms, bound_ms, bound_by, n}}."""
     import torch
 
     from pmf_tpu_torch.ops.gj_inverse import (
-        batched_psd_inverse_gj, batched_psd_inverse_gj_plain, cta_boundary_ks, cta_plan, form)
+        batched_psd_inverse_gj, batched_psd_inverse_gj_plain, boundary_ks, form,
+        panel_boundary_ks)
 
     t0 = time.perf_counter()
     worst = {}
-    for k in sorted(_beside(cta_boundary_ks(), lo=65) | {239}):
+    for k in sorted(_beside(boundary_ks(), lo=65) | _beside(panel_boundary_ks(600))
+                    | {239}):
         P = _spd(K4_CHECK_MATS, k, 70 + k)
         got = batched_psd_inverse_gj(P)
         if not torch.equal(got, batched_psd_inverse_gj(P)):
@@ -1598,7 +1670,7 @@ def phase_k4wide():
         if "gj_inverse" in name:
             log(f"  k4wide ptxas {name}: {line}")
     out = {}
-    for k in K4_WIDE_KS + K4_ITEM_KS:
+    for k in K4_WIDE_KS + K4_ITEM_KS + K4_XL_KS:
         sides = _k4_sides(k)
         ms = lib = 0.0
         for n, seed in sides:
@@ -1610,42 +1682,48 @@ def phase_k4wide():
             torch.cuda.empty_cache()
         R = sum(n for n, _ in sides)
         b_bytes, b_ops = _k4_bounds(R, k)
-        plan = cta_plan(k)
         out[k] = dict(ms=ms, library_ms=lib, bound_ms=max(b_bytes, b_ops),
                       bound_by="bytes" if b_bytes >= b_ops else "operations", n=R)
         log(f"  k4wide K={k}: {' + '.join(str(n) for n, _ in sides)} matrices | kernel "
             f"{ms:.4f} ms a sweep | torch.linalg.inv {lib:.4f} ms | bound: bytes "
             f"{b_bytes:.4f} ms, FP32 {b_ops:.4f} ms ({ms / max(b_bytes, b_ops):.2f}x) | "
-            f"tile {plan['tile']}, {plan['reg_rows']} rows in registers, "
-            f"{plan['ctas_per_sm']} CTAs an SM")
+            f"{form(k)}: {_k4_form_note(k)}")
+        if k in K4_XL_KS and not ms < lib:
+            raise AssertionError(f"k4wide K={k}: K4 {ms} ms not faster than "
+                                 f"torch.linalg.inv {lib} ms")
     log(f"phase k4wide: ok | K {list(out)} | {time.perf_counter() - t0:.1f} s")
     return out
 
 
 def phase_k4_parent():
-    """With ``--parent``: the rows instances' ptxas lines equal to the
-    parent build's; then K4 of this tree and of the parent tree at
-    K4_PARENT_KS, on a sweep's matrices (``_k4_sides``), the two outputs
-    compared (per matrix, INV_RTOL; equal in bits said), timed a sweep at
-    a time by CUDA events in turns parent, this, this, parent; then the
-    same turns on K4_PARENT_MATS matrices at K - 1 and K of every
-    ``cta_boundary_ks`` value and at 239, where this tree must be faster
-    in every turn.  Returns {k: {turn label: mean ms}}."""
+    """With ``--parent``: the rows instances' and the CTA form's instances'
+    ptxas lines equal to the parent build's; then K4 of
+    this tree and of the parent tree at K4_PARENT_KS and K4_PARENT_XL_KS,
+    on a sweep's matrices (``_k4_sides``), the two outputs compared (per
+    matrix, INV_RTOL; equal in bits said), timed a sweep at a time by CUDA
+    events in turns parent, this, this, parent: within K4_SAME_TOL of the
+    parent at K4_SAME_KS (the same code), faster in every turn at
+    K4_PARENT_XL_KS; then the same turns on K4_PARENT_MATS matrices at K -
+    1 and K of every ``panel_boundary_ks`` value to 400 (from 240) and at
+    241, 256, 257, 300, 304 and 305, where this tree must be faster in
+    every turn.  Returns {k: {turn label: mean ms}}."""
     import torch
 
     from pmf_tpu_torch.ops import gj_inverse
 
     theirs: dict = {}
     _ptxas_report(open(str(PARENT["lib"]) + ".log").read(), theirs)
-    rows = {n: v for n, v in PTXAS.items() if n.startswith("gj_inverse_rows_kernel")}
-    prows = {n: v for n, v in theirs.items() if n.startswith("gj_inverse_rows_kernel")}
-    if not rows or rows != prows:
-        raise AssertionError(f"k4 parent: rows instances' ptxas {rows} vs the parent's "
-                             f"{prows}")
-    log(f"  k4 parent: the {len(rows)} rows instances' ptxas lines equal the parent's")
+    same_code = ("gj_inverse_rows_kernel", "gj_inverse_tile_kernel<")
+    mine = {n: v for n, v in PTXAS.items() if n.startswith(same_code)}
+    prev = {n: v for n, v in theirs.items() if n.startswith(same_code)}
+    if not mine or mine != prev:
+        raise AssertionError(f"k4 parent: rows and tile instances' ptxas {mine} vs the "
+                             f"parent's {prev}")
+    log(f"  k4 parent: the {len(mine)} rows and tile instances' ptxas lines equal the "
+        "parent's")
     trees = {"this": gj_inverse, "parent": _parent_op("gj_inverse")}
     out = {}
-    for k in K4_PARENT_KS:
+    for k in K4_PARENT_KS + K4_PARENT_XL_KS:
         turns, same, worst = [0.0] * len(K2_AB_TURNS), True, 0.0
         for n, seed in _k4_sides(k):
             P = _spd(n, k, seed)
@@ -1670,16 +1748,24 @@ def phase_k4_parent():
             + ", ".join(f"{t} {ms:.4f}" for t, ms in zip(K2_AB_TURNS, turns))
             + f" ms a sweep | this / parent {mean['this'] / mean['parent'] - 1:+.2%} | "
             f"outputs equal in bits: {same}, worst per-matrix difference {worst:.3e}")
+        mine_t = [ms for t, ms in zip(K2_AB_TURNS, turns) if t == "this"]
+        prev_t = [ms for t, ms in zip(K2_AB_TURNS, turns) if t == "parent"]
+        if k in K4_SAME_KS and not mean["this"] <= (1 + K4_SAME_TOL) * mean["parent"]:
+            raise AssertionError(f"k4 parent K={k}: {mean} past {K4_SAME_TOL:.0%}")
+        if k in K4_PARENT_XL_KS and not max(mine_t) < min(prev_t):
+            raise AssertionError(f"k4 parent K={k}: this tree not faster in every turn")
     slower = []
-    for k in sorted(_beside(gj_inverse.cta_boundary_ks(), lo=66) | {65, 239}):
+    ks = sorted({k for k in _beside(gj_inverse.panel_boundary_ks(400)) if k >= 240}
+                | {241, 256, 257, 300, 304, 305})
+    for k in ks:
         P = _spd(K4_PARENT_MATS, k, 80 + k)
         turns = [cuda_ms(lambda t=t: trees[t].batched_psd_inverse_gj(P), reps=2)
                  for t in K2_AB_TURNS]
         del P
-        mine = [ms for t, ms in zip(K2_AB_TURNS, turns) if t == "this"]
-        theirs = [ms for t, ms in zip(K2_AB_TURNS, turns) if t == "parent"]
-        out[k] = {"this": float(np.mean(mine)), "parent": float(np.mean(theirs))}
-        if max(mine) >= min(theirs):
+        mine_t = [ms for t, ms in zip(K2_AB_TURNS, turns) if t == "this"]
+        prev_t = [ms for t, ms in zip(K2_AB_TURNS, turns) if t == "parent"]
+        out[k] = {"this": float(np.mean(mine_t)), "parent": float(np.mean(prev_t))}
+        if max(mine_t) >= min(prev_t):
             slower.append(k)
         log(f"  k4 parent K={k}, {K4_PARENT_MATS} matrices: turns "
             + ", ".join(f"{t} {ms:.4f}" for t, ms in zip(K2_AB_TURNS, turns))
@@ -1687,8 +1773,9 @@ def phase_k4_parent():
     torch.cuda.empty_cache()
     if slower:
         raise AssertionError(f"k4 parent: this tree not faster in every turn at K {slower}")
-    log(f"phase k4 parent: ok | {PARENT['dir']} | K {list(K4_PARENT_KS)} a sweep and every "
-        f"CTA-form boundary on {K4_PARENT_MATS} matrices, in turns {', '.join(K2_AB_TURNS)}")
+    log(f"phase k4 parent: ok | {PARENT['dir']} | K {list(K4_PARENT_KS + K4_PARENT_XL_KS)} "
+        f"a sweep and every boundary from 240 to 400 on {K4_PARENT_MATS} matrices, in "
+        f"turns {', '.join(K2_AB_TURNS)}")
     return out
 
 
@@ -1837,9 +1924,9 @@ def phase_wide_gauss(blocked):
     return ms, k4["library_ms"]
 
 
-def phase_small(k=K):
-    """Blocked sweeps on the card vs the host on one small input, at ``k``
-    factors."""
+def phase_small(k=K, sweeps=3):
+    """``sweeps`` blocked sweeps on the card vs the host on one small
+    input, at ``k`` factors."""
     import torch
 
     from pmf_tpu_torch.data.blocked import build_blocked
@@ -1858,7 +1945,7 @@ def phase_small(k=K):
                                 device=dev)
         flat = build_ratings(u, i, x, device=dev)
         s = hpf.init_state(flat.n_users, flat.n_items, cfg, device=dev)
-        for _ in range(3):
+        for _ in range(sweeps):
             s = hpf.sweep_blocked(s, blocked, flat.user_counts, flat.item_counts,
                                   *hyper)
         states[dev] = hpf.state_to_numpy(s)
@@ -1870,7 +1957,7 @@ def phase_small(k=K):
         np.testing.assert_allclose(got, ref, rtol=5e-4, atol=1e-5, err_msg=key)
         worst = max(worst, float(np.max(np.abs(got - ref) / np.abs(ref))))
     torch.cuda.synchronize()
-    log(f"phase small (K={k}): ok | 3 sweeps card vs host, max rel diff {worst:.3e} "
+    log(f"phase small (K={k}): ok | {sweeps} sweeps card vs host, max rel diff {worst:.3e} "
         f"(tol 5e-4)")
 
 
@@ -2409,8 +2496,8 @@ def _poisson_sweep_fn(cfg, blocked, train, n_users, n_items, device,
                                                cfg.a0, cfg.b0, precision=precision)
 
 
-def phase_psmall(k=K):
-    """Three blocked Poisson sweeps on the card vs the host (plain
+def phase_psmall(k=K, sweeps=3):
+    """``sweeps`` (three) blocked Poisson sweeps on the card vs the host (plain
     kernels), plain and extended, on one small input with a two-tier
     head, at the JAX package's blocked-vs-flat gate, at ``k`` factors."""
     import torch
@@ -2432,7 +2519,7 @@ def phase_psmall(k=K):
             step = _poisson_sweep_fn(cfg, blocked, (u, i, x.astype(np.float32)),
                                      n_users, n_items, dev)
             s = pm.init_state(n_users, n_items, cfg, device=dev)
-            for _ in range(3):
+            for _ in range(sweeps):
                 s = step(s)
             states[dev] = pm.state_to_numpy(s)
         name = "extended" if extended else "plain"
@@ -2448,7 +2535,7 @@ def phase_psmall(k=K):
             w = max(w, float(np.max(np.abs(got - ref) / np.abs(ref))))
         worst[name] = w
     torch.cuda.synchronize()
-    log(f"phase psmall (K={k}): ok | 3 sweeps card vs host (rtol 5e-4, atol 1e-5), max rel "
+    log(f"phase psmall (K={k}): ok | {sweeps} sweeps card vs host (rtol 5e-4, atol 1e-5), max rel "
         "diff: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
 
 
@@ -2872,8 +2959,8 @@ def _k9_at(lay, order, k):
     return dict(ms=dev, events_ms=ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def phase_msmall(k=K):
-    """Three blocked and three flat epochs on the card vs the host (plain
+def phase_msmall(k=K, epochs=3):
+    """``epochs`` (three) blocked and as many flat epochs on the card vs the host (plain
     gradients) on one small input, from the same segment orders and
     permutations, at ``k`` factors."""
     import torch
@@ -2901,8 +2988,8 @@ def phase_msmall(k=K):
         us, is_ = (torch.from_numpy(s).to(dev) for s in scales)
         lay = hm.build_map_layout(u, i, x, n_users, n_items, B, mix=mix, device=dev)
         if dev == "cpu":
-            seg_perms = [rng.permutation(lay.n_segments) for _ in range(3)]
-            flat_perms = [rng.permutation(n_pad) for _ in range(3)]
+            seg_perms = [rng.permutation(lay.n_segments) for _ in range(epochs)]
+            flat_perms = [rng.permutation(n_pad) for _ in range(epochs)]
         params = hm.init_params(n_users, n_items, cfg, device=dev)
         p, st = hm._permute_rows(params, adam_init(params), lay.u_old_of_new,
                                  lay.i_old_of_new)
@@ -2929,7 +3016,7 @@ def phase_msmall(k=K):
                                        err_msg=f"{engine} {key}")
             w = max(w, float(np.max(np.abs(got - ref) / (1e-5 + 5e-4 * np.abs(ref)))))
         worst[engine] = w
-    log(f"phase msmall (K={k}): ok | 3 epochs card vs host (rtol 5e-4, atol 1e-5), worst "
+    log(f"phase msmall (K={k}): ok | {epochs} epochs card vs host (rtol 5e-4, atol 1e-5), worst "
         f"|diff| / (atol + rtol |host|): "
         + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
         + f" | last epoch loss card {out['cuda']['losses']} host {out['cpu']['losses']}")
@@ -3747,48 +3834,88 @@ def phase_gelbo(train, val, smi):
 
 GWIDE_K = 80  # phase gwidefit: the exact Gaussian fit at full width
 GWIDE_SWEEPS = 4
+# Phase gxlfit: the exact fit at K = 256 on a rating log of MovieLens 1M's
+# shape (GroupLens "MovieLens 1M" README: 6,040 users, 3,706 rated movies,
+# 1,000,209 ratings), 10,000 of them held out; no head tiers below 4M
+# ratings (data/blocked.py::_pick_tiers), so its layout is the tail alone.
+# The generator drops repeated (user, item) pairs: asked for 1,000,209 it
+# keeps 511,962 over these ids, asked for XL_DRAW it keeps 1,023,855, of
+# which the first XL_NNZ (in its random order) are the log.
+XL_USERS, XL_ITEMS, XL_NNZ, XL_VAL, XL_K = 6_040, 3_706, 1_000_209, 10_000, 256
+XL_DRAW = 2_600_000
 
 
-def _gwide_reckoning(n_train, k):
+def _gwide_reckoning(n_users, n_items, n_train, k, head_bytes):
     """Peak device bytes of the exact fit at ``k``, reckoned from shapes
     at the user block's update: the layout (the head budget and a tail of
     16 bytes an edge), the state, the user side's statistics table
-    (N_users x (2K + T + 2)) and four N_users x K x K tensors at once
-    (S_A, the precisions, K4's output, the new covariances)."""
+    (N_users x (2K + T + 2)), K3's records of the item side (N_items x
+    factor_stride(K)), four N_users x K x K tensors at once (S_A, the
+    precisions, K4's output, the new covariances) and the ELBO's two
+    N x K x K tables of the previous sweep (one a side)."""
+    from pmf_tpu_torch.ops.gaussian_edge import factor_stride
+
     tri = k * (k + 1) // 2
-    parts = {"layout": GAUSS_HEAD_BYTES + 16 * n_train,
-             "state": 4 * (N_USERS + N_ITEMS) * (k + k * k + 1),
-             "statistics": 4 * N_USERS * (2 * k + tri + 2),
-             "user block": 4 * 4 * N_USERS * k * k}
+    parts = {"layout": head_bytes + 16 * n_train,
+             "state": 4 * (n_users + n_items) * (k + k * k + 1),
+             "statistics": 4 * n_users * (2 * k + tri + 2),
+             "K3 records": 4 * n_items * factor_stride(k),
+             "user block": 4 * 4 * n_users * k * k,
+             "ELBO tables": 4 * (n_users + n_items) * k * k}
     return sum(parts.values()), parts
 
 
-def phase_gwidefit(train, val, smi, k=GWIDE_K):
+def phase_gxldata():
+    """MovieLens 1M's shape at random (``data/synthetic.py::synth_ratings``,
+    seed 0, XL_NNZ distinct pairs), the ratings centred, XL_VAL of them
+    held out at random."""
+    from pmf_tpu_torch.data.synthetic import synth_ratings
+
+    t0 = time.perf_counter()
+    u, i, x = (a[:XL_NNZ] for a in synth_ratings(XL_USERS, XL_ITEMS, XL_DRAW, seed=0))
+    x = x.astype(np.float32)
+    mean = float(x.mean())
+    x -= mean
+    val = np.zeros(len(u), bool)
+    val[np.random.default_rng(0).choice(len(u), XL_VAL, replace=False)] = True
+    train, hold = (u[~val], i[~val], x[~val]), (u[val], i[val], x[val])
+    log(f"phase gxldata: ok | {XL_USERS} users x {XL_ITEMS} items, {len(u)} ratings (mean "
+        f"{mean:.4f} taken out), {len(train[0])} train, {XL_VAL} held out | "
+        f"{time.perf_counter() - t0:.1f} s")
+    return train, hold
+
+
+def phase_gwidefit(train, val, smi, k=GWIDE_K, n_users=N_USERS, n_items=N_ITEMS,
+                   head_bytes=GAUSS_HEAD_BYTES, label="gwidefit"):
     """``GaussianMF(n_factors=k, covariance="full", engine="blocked_high")``
-    at full width for GWIDE_SWEEPS sweeps with ``elbo_every=1``: peak
-    device memory against ``_gwide_reckoning``, launches (K3, K4, K5
-    twice a sweep, as phase gfit), the state finite at its shapes, the
-    ELBO monotone within GELBO_GATE relative; K4 on the precision matrices
-    the fit forms after sweep 1 (the user side of sweep 2) against its
-    plain version, per matrix, K4_CHUNK at a time; one sweep from the
-    fit's state traced: busy ms, idle share, K4's share beside K3's and
-    the head products'.  Returns {"launches", "busy_ms", "k4_ms"}."""
+    at full width for GWIDE_SWEEPS sweeps with ``elbo_every=1`` on ``n_users``
+    x ``n_items`` (phase gwidefit: K = 80 on the bench's ratings; phase
+    gxlfit: K = 256 on MovieLens 1M's shape): peak device memory against
+    ``_gwide_reckoning``, launches (K3, K4, K5 twice a sweep, as phase
+    gfit), the state finite at its shapes, the ELBO monotone within
+    GELBO_GATE relative; K4 on the precision matrices the fit forms after
+    sweep 1 (the user side of sweep 2) against its plain version, per
+    matrix, K4_CHUNK at a time; one sweep from the fit's state traced: busy
+    ms, idle share, K4's share beside K3's, the head products' and the
+    glue's.  Returns {"launches", "busy_ms", "k4_ms"}."""
     import torch
 
     from pmf_tpu_torch.models.gaussian_mf import (
         GaussianMF, GaussianMFConfig, init_state, state_to_numpy, sweep_blocked)
     from pmf_tpu_torch.ops.gaussian_edge import gaussian_factor_stats
     from pmf_tpu_torch.ops.gj_inverse import (
-        batched_psd_inverse_gj, batched_psd_inverse_gj_plain, cta_plan)
+        batched_psd_inverse_gj, batched_psd_inverse_gj_plain, cta_plan, form, panel_plan)
 
-    reckon, parts = _gwide_reckoning(len(train[0]), k)
+    reckon, parts = _gwide_reckoning(n_users, n_items, len(train[0]), k, head_bytes)
     total = torch.cuda.get_device_properties(0).total_memory
-    log(f"  gwidefit K={k}: peak reckoned {reckon / 1e9:.3f} GB ("
+    log(f"  {label} K={k}: peak reckoned {reckon / 1e9:.3f} GB ("
         + ", ".join(f"{n} {b / 1e9:.3f}" for n, b in parts.items())
-        + f") of {total / 1e9:.3f} GB | K4 tile {cta_plan(k)['tile']}")
+        + f") of {total / 1e9:.3f} GB | K4 form {form(k)}: "
+        f"{cta_plan(k) or panel_plan(k)}")
     cfg = GaussianMFConfig(n_factors=k, covariance="full", engine="blocked_high",
                            max_iter=GWIDE_SWEEPS, tol=None, verbose=False)
     model = GaussianMF(cfg)
+    held = torch.cuda.memory_allocated()  # earlier phases' tensors, not the fit's
     torch.cuda.reset_peak_memory_stats()
     counters = reset_counters()
     t0 = time.perf_counter()
@@ -3801,30 +3928,31 @@ def phase_gwidefit(train, val, smi, k=GWIDE_K):
     want = dict.fromkeys(launches, 0)
     want.update({"K3": 2 * n, "K4": 2 * n, "K5": 2 * n})
     if n != GWIDE_SWEEPS or launches != want:
-        raise AssertionError(f"gwidefit: {n} sweeps, launches {launches}, expected {want}")
+        raise AssertionError(f"{label}: {n} sweeps, launches {launches}, expected {want}")
     elbos = [rec.get("elbo") for rec in model.fit_history]
     if None in elbos or not np.all(np.isfinite(elbos)):
-        raise AssertionError(f"gwidefit: ELBO history {elbos}")
+        raise AssertionError(f"{label}: ELBO history {elbos}")
     for rec in model.fit_history:
         log(f"  K={k} sweep {rec['iteration']}: {rec['iter_seconds']:.4f} s | ELBO "
             f"{rec['elbo']:.8e} | val RMSE {rec['val_rmse']:.6f} | {smi}")
     for a, b in zip(elbos, elbos[1:]):
         if b < a - GELBO_GATE * (1.0 + abs(a)):
-            raise AssertionError(f"gwidefit: ELBO fell {a} -> {b}")
-    shapes = {"m_theta": (N_USERS, k), "m_beta": (N_ITEMS, k),
-              "V_theta": (N_USERS, k, k), "V_beta": (N_ITEMS, k, k),
-              "b_user": (N_USERS,), "b_item": (N_ITEMS,)}
+            raise AssertionError(f"{label}: ELBO fell {a} -> {b}")
+    shapes = {"m_theta": (n_users, k), "m_beta": (n_items, k),
+              "V_theta": (n_users, k, k), "V_beta": (n_items, k, k),
+              "b_user": (n_users,), "b_item": (n_items,)}
     for name, v in state_to_numpy(model.state).items():
         if v.shape != shapes[name] or not np.all(np.isfinite(v)):
-            raise AssertionError(f"gwidefit state {name}: shape {v.shape} or non-finite")
-    log(f"  gwidefit: {n} sweeps in {wall:.1f} s wall (layout build and ELBOs included) "
-        f"| peak {peak / 1e9:.3f} GB allocated (reckoned {reckon / 1e9:.3f}), "
+            raise AssertionError(f"{label} state {name}: shape {v.shape} or non-finite")
+    log(f"  {label}: {n} sweeps in {wall:.1f} s wall (layout build and ELBOs included) "
+        f"| peak {peak / 1e9:.3f} GB allocated, {(peak - held) / 1e9:.3f} above the "
+        f"{held / 1e9:.3f} held before the fit (reckoned {reckon / 1e9:.3f}), "
         f"{(total - peak) / 1e9:.3f} GB spare | launches {launches}")
 
-    counts = _counts_on_card(train)
+    counts = _counts_on_card(train, n_users, n_items)
     args = (cfg.sigma2, cfg.eta_theta2, cfg.eta_beta2, cfg.eta_bias2, cfg.use_bias,
             cfg.covariance, cfg.bias_update)
-    st1 = sweep_blocked(init_state(N_USERS, N_ITEMS, cfg, device="cuda"), model.blocked,
+    st1 = sweep_blocked(init_state(n_users, n_items, cfg, device="cuda"), model.blocked,
                         *counts, *args)
     _, S_A = gaussian_factor_stats(st1["m_beta"], st1["V_beta"], st1["b_user"],
                                    st1["b_item"], model.blocked.by_user,
@@ -3840,8 +3968,8 @@ def phase_gwidefit(train, val, smi, k=GWIDE_K):
         worst = max(worst, float(((got - ref).abs().amax(dim=(1, 2)) / scale).max()))
     del P, got, ref
     if not worst <= INV_RTOL:
-        raise AssertionError(f"gwidefit: K4 on the sweep-1 precisions {worst} > {INV_RTOL}")
-    log(f"  gwidefit: K4 on the {N_USERS} user precisions after sweep 1 vs plain: worst "
+        raise AssertionError(f"{label}: K4 on the sweep-1 precisions {worst} > {INV_RTOL}")
+    log(f"  {label}: K4 on the {n_users} user precisions after sweep 1 vs plain: worst "
         f"per-matrix error {worst:.3e} (tol {INV_RTOL})")
 
     box = [dict(model.state)]
@@ -3849,22 +3977,30 @@ def phase_gwidefit(train, val, smi, k=GWIDE_K):
     def one_sweep():
         box[0] = sweep_blocked(box[0], model.blocked, *counts, *args)
 
-    expect = {"::factor_kernel": 2, "gj_inverse": 2, K5_TRACE: 2}
+    from pmf_tpu_torch.ops._tail import launch_plan
+
+    # K5's kernel: the row groups, or past 64 words a row the wide form
+    k5 = "tail_wide_kernel<3>" if launch_plan(k, "K5")["wide"] else K5_TRACE
+    expect = {"::factor_kernel": 2, "gj_inverse": 2, k5: 2}
     rows, busy, wall_ms = profile_once(one_sweep, expect)
     groups = trace_parts(rows, {"K3 factor_kernel": ("::factor_kernel",),
                                 "K4 gj_inverse": ("gj_inverse",),
-                                "K5 tail_group_kernel<3>": (K5_TRACE,)})[0]
+                                f"K5 {k5.rstrip(',')}": (k5,)})[0]
     log_parts(groups, busy)
     for dev_ms, cnt, key in rows[:8]:
         log(f"  {dev_ms:9.4f} ms  {cnt:3d}x  {key[:90]}")
     head = groups["head products (gemm)"]
     k4_ms, k3_ms = groups["K4 gj_inverse"], groups["K3 factor_kernel"]
-    log(f"phase gwidefit: ok | GaussianMF K={k} exact, {n} sweeps | one sweep busy "
+    glue = groups["other"]
+    log(f"phase {label}: ok | GaussianMF K={k} exact, {n} sweeps | one sweep busy "
         f"{busy:.4f} ms of {wall_ms:.4f} ms (idle share {1 - busy / wall_ms:.1%}) | K4 "
         f"{k4_ms:.4f} ms ({k4_ms / busy:.1%}), K3 {k3_ms:.4f} ms ({k3_ms / busy:.1%}), "
-        f"head products {head:.4f} ms ({head / busy:.1%}) | {smi}")
+        f"head products {head:.4f} ms ({head / busy:.1%}), glue {glue:.4f} ms "
+        f"({glue / busy:.1%}) | peak {(peak - held) / 1e9:.3f} GB above the held "
+        f"(reckoned {reckon / 1e9:.3f}) | {smi}")
     del model, box
-    return {"launches": launches, "busy_ms": busy, "k4_ms": k4_ms}
+    return {"launches": launches, "busy_ms": busy, "k4_ms": k4_ms, "k3_ms": k3_ms,
+            "peak_gb": (peak - held) / 1e9, "reckoned_gb": reckon / 1e9}
 
 
 # ---- The experiment surface: CLIs, multi-seed fits, the reproduction chain.
@@ -4625,11 +4761,11 @@ def phase_k2_parent(blocked):
     return out
 
 
-def _counts_on_card(train):
+def _counts_on_card(train, n_users=N_USERS, n_items=N_ITEMS):
     import torch
 
     return [torch.bincount(torch.from_numpy(ids).cuda(), minlength=n).float()
-            for ids, n in ((train[0], N_USERS), (train[1], N_ITEMS))]
+            for ids, n in ((train[0], n_users), (train[1], n_items))]
 
 
 def phase_fastfit(train, val, gtrain, gval, high_rmse, smi):
@@ -5397,6 +5533,11 @@ def main(argv=None) -> int:
     gc_cuda()
     gwide = phase_gwidefit(gtrain, gval, smi)
     gc_cuda()
+    xtrain, xval = phase_gxldata()
+    gxl = phase_gwidefit(xtrain, xval, smi, k=XL_K, n_users=XL_USERS, n_items=XL_ITEMS,
+                         head_bytes=0, label="gxlfit")
+    del xtrain, xval
+    gc_cuda()
     # The layout cache, off until here so that every fit above builds its
     # layout cold (each wall a user's first fit).
     from pmf_tpu_torch.data import layout_cache
@@ -5428,7 +5569,8 @@ def main(argv=None) -> int:
                 "library_ms": res.get("library_ms"), f"ms_k{K_WIDE}": wide[kid],
                 f"ms_k{K_HUGE}": huge[kid]["ms"],
                 f"bound_ms_k{K_HUGE}": huge[kid]["bound_ms"],
-                f"bound_by_k{K_HUGE}": huge[kid]["bound_by"], **more}
+                f"bound_by_k{K_HUGE}": huge[kid]["bound_by"],
+                f"library_ms_k{K_HUGE}": huge[kid].get("library_ms"), **more}
 
     gsrc = "pmf_tpu_torch/csrc/gaussian_edge.cu"
     kernels = [
@@ -5450,10 +5592,15 @@ def main(argv=None) -> int:
                     if k != K_HUGE or key == "library_ms"},
                  f"launches_k{GWIDE_K}": gwide["launches"]["K4"],
                  f"sweep_busy_ms_k{GWIDE_K}": gwide["busy_ms"],
-                 f"sweep_ms_k{GWIDE_K}": gwide["k4_ms"]},
-              note=f"_k80 .. _k239: phase k4wide (the CTA form, a sweep's matrices); "
-                   f"launches_k{GWIDE_K}, sweep_*: phase gwidefit's exact fit at "
-                   f"K={GWIDE_K} (K4's ms in one traced sweep of sweep_busy_ms)"),
+                 f"sweep_ms_k{GWIDE_K}": gwide["k4_ms"],
+                 f"launches_k{XL_K}": gxl["launches"]["K4"],
+                 f"sweep_busy_ms_k{XL_K}": gxl["busy_ms"],
+                 f"sweep_ms_k{XL_K}": gxl["k4_ms"]},
+              note=f"_k80 .. _k239: phase k4wide (the CTA form, a sweep's matrices), "
+                   f"_k240 .. _k512: the panel form on the K={XL_K} fit's "
+                   f"{XL_USERS} + {XL_ITEMS} matrices; launches_k*, sweep_*: phases "
+                   f"gwidefit (K={GWIDE_K}) and gxlfit (K={XL_K}), exact fits (K4's ms "
+                   f"in one traced sweep of sweep_busy_ms)"),
         entry("gaussian_bias_tail", gsrc,
               "pmf_tpu/ops/pallas/gaussian_edge.py:175", k5, glaunches["K5"], "K5"),
         entry("gaussian_diag_tail", gsrc,

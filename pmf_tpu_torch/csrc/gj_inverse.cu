@@ -43,61 +43,85 @@
 // 16 x 16 grid of T x T tiles, T = ceil(K / 16); the warp holding each
 // pivot row publishes it and its readers meet it at named barriers.
 //
-// Design, K >= 240 (gj_inverse_global_kernel): the CTA form's steps with
-// the matrix split: as many of its first rows as fit beside the two
-// buffers stay in shared memory (224 of 256 at K = 256, 191 of 300 at K =
-// 300), the rest in the output in global memory, where every pivot reads
-// and writes them through L1 and L2.  Past K = 29,056 the buffers too are
-// global (a scratch row pair a matrix).  Correct at any K, not tuned.
+// Design, K >= 240 (the panel form, gj_inverse_panel_kernel in
+// gj_panel.cu): the matrix in global memory, its pivots in panels of b
+// (panel_plan below), the matrix passing through the SM K / b times.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// The CTA form (gj_tile.cuh), its instances split over two sources.
+// The CTA form (gj_tile.cuh), its instances split over two sources, and
+// the panel form (gj_panel.cu).
 cudaError_t gj_tile_launch_lo(const float* mats, int R, int K, float* out,
                               cudaStream_t stream);
 cudaError_t gj_tile_launch_hi(const float* mats, int R, int K, float* out,
                               cudaStream_t stream);
+cudaError_t gj_panel_launch(const float* mats, int R, int K, float* out, float* scratch,
+                            int b, int smem, bool global, int stride, cudaStream_t stream);
 
 namespace {
 
-// BEGIN host plan: the dispatch's choice of form, in plain C++ (the tests
-// compile this block alone with a host compiler and hold it against
-// ops/gj_inverse.py's form and global_shared_rows).
-constexpr int kRowsMaxK = 64;  // the row form; past it the CTA form
+// BEGIN host plan: the dispatch's choice of form and the panel form's
+// plan, in plain C++ (the tests compile this block alone with a host
+// compiler and hold it against ops/gj_inverse.py's form and panel_plan).
+constexpr int kRowsMaxK = 64;   // the row form; past it the CTA form
+constexpr int kCtaMaxK = 239;   // the CTA form's last K (gj_tile.cuh's tiles to T = 15)
 constexpr int kSmemPerCta = 232448;  // dynamic shared memory a CTA may ask for
+constexpr int kSmemPerSm = 233472;   // an SM's, 1 KB of it reserved a CTA
+constexpr int kPanelMaxB = 32;  // pivots a panel at most: a strip's values in registers
+constexpr int kPanelMinB = 8;   // the fewest before the strips' rows go to global memory
+constexpr int kPanelCtas = 2;   // the panel kernel's launch bound: 128 registers a thread
+constexpr int kPanelMinB2 = 16; // the fewest pivots a panel with two CTAs an SM
 
-// The K x (K + 1) matrix and two K-float buffers, in 64 bits (it passes
-// 2^31 bytes from K = 23,170): the CTA form runs while these would fit a
-// CTA (to K = 239), the global form past it.
-int64_t cta_smem_bytes(int K) {
-  return ((int64_t)K * (K + 1) + 2 * (int64_t)K) * (int64_t)sizeof(float);
-}
-
-enum Form { kFormRows, kFormCta, kFormGlobal };
+enum Form { kFormRows, kFormCta, kFormPanel };
 
 Form form_of(int K) {
   if (K <= kRowsMaxK) return kFormRows;
-  return cta_smem_bytes(K) <= kSmemPerCta ? kFormCta : kFormGlobal;
+  return K <= kCtaMaxK ? kFormCta : kFormPanel;
 }
 
-// Past the CTA form: the pivot row and column buffers and the first `rs`
-// rows of the matrix (stride K + 1) in shared memory, the other rows in
-// global memory (the output, stride K, A's rows copied in first).  Where
-// even the buffers do not fit (2K floats past kSmemPerCta) they are the
-// matrix's 2K floats of global scratch and rs = 0.
-struct GlobalPlan {
-  int rs;        // rows in shared memory
-  int smem;      // bytes of dynamic shared memory
-  bool buffers;  // the buffers in shared memory
+// Floats of the panel form's shared memory for K and b: the pivot block's
+// two buffers and its rows and columns (4 b x b4), the pivots (b4) and,
+// unless they are in global memory, the strips' rows r_k and columns
+// c^(k) at the other entries (2 b x stride, and 8 floats of slack for the
+// tiles' reads past the last row).
+int64_t panel_stride(int K) { return ((int64_t)K + 3) / 4 * 4; }
+
+int64_t panel_words(int K, int b, bool global) {
+  const int64_t b4 = (b + 3) / 4 * 4;
+  return 4 * b * b4 + b4 + (global ? 0 : 2 * b * panel_stride(K) + 8);
+}
+
+struct PanelPlan {
+  int b;         // pivots a panel
+  int ctas;      // CTAs an SM, as shared memory allows (at most kPanelCtas)
+  int64_t smem;  // bytes of dynamic shared memory
+  bool global;   // the strips' rows in global scratch (2 b stride + 8 floats a matrix)
 };
 
-GlobalPlan global_plan(int K) {
-  const int64_t buf = 2 * (int64_t)K * (int64_t)sizeof(float);
-  if (buf > kSmemPerCta) return {0, 0, false};
-  const int64_t rs = (kSmemPerCta - buf) / ((int64_t)(K + 1) * (int64_t)sizeof(float));
-  const int r = rs < K ? (int)rs : K;
-  return {r, (int)(buf + (int64_t)r * (K + 1) * (int64_t)sizeof(float)), true};
+// b: the largest multiple of 8 up to kPanelMaxB whose shared memory
+// leaves two CTAs an SM, if it is at least kPanelMinB2 (one CTA's
+// elimination of its pivot block then overlaps the other's passes); else
+// the largest that fits one CTA; else kPanelMaxB with the strips' rows in
+// global memory.
+PanelPlan panel_plan(int K) {
+  auto fits = [&](int b, int ctas) {
+    return ctas * (panel_words(K, b, false) * 4 + 1024) <= kSmemPerSm &&
+           panel_words(K, b, false) * 4 <= kSmemPerCta;
+  };
+  int b = 0, ctas = 0;
+  for (int c = kPanelCtas; c >= 1 && b == 0; --c)
+    for (int t = kPanelMaxB; t >= (c > 1 ? kPanelMinB2 : kPanelMinB); t -= 8)
+      if (fits(t, c)) {
+        b = t;
+        ctas = c;
+        break;
+      }
+  const bool global = b == 0;
+  if (global) b = kPanelMaxB;
+  const int64_t smem = panel_words(K, b, global) * 4;
+  if (global) ctas = kPanelCtas * (smem + 1024) <= kSmemPerSm ? kPanelCtas : 1;
+  return {b, ctas, smem, global};
 }
 // END host plan
 
@@ -261,59 +285,11 @@ cudaError_t launch_rows(const float* mats, int R, int K, float* out,
   return cudaGetLastError();
 }
 
-constexpr int kCtaThreads = 256;  // the global form
-
-// The CTA form's elimination with rows [0, rs) in shared memory and rows
-// [rs, K) in global memory (GlobalPlan).  Stores of one thread to global
-// memory reach the others of its CTA at each __syncthreads.
-__global__ void __launch_bounds__(kCtaThreads)
-gj_inverse_global_kernel(const float* __restrict__ mats, int K, int rs, int buffers,
-                         float* out, float* scratch) {
-  extern __shared__ float sm[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int kWarps = kCtaThreads / 32;
-  const int64_t kk = (int64_t)K * K;
-  const int S = K + 1;
-  const float* src = mats + blockIdx.x * kk;
-  float* g = out + blockIdx.x * kk;
-  float* row = buffers ? sm : scratch + blockIdx.x * 2 * (int64_t)K;
-  float* col = row + K;
-  float* shared_rows = sm + 2 * K;
-  auto row_of = [&](int i) -> float* {
-    return i < rs ? shared_rows + (int64_t)i * S : g + (int64_t)i * K;
-  };
-  for (int i = warp; i < K; i += kWarps) {
-    float* ai = row_of(i);
-    for (int j = lane; j < K; j += 32) ai[j] = src[(int64_t)i * K + j];
-  }
-  __syncthreads();
-  for (int p = 0; p < K; ++p) {
-    const float* ap = row_of(p);
-    const float piv = ap[p];
-    for (int j = threadIdx.x; j < K; j += kCtaThreads) {
-      row[j] = (j == p ? 1.f : ap[j]) / piv;
-      col[j] = row_of(j)[p];
-    }
-    __syncthreads();
-    for (int i = warp; i < K; i += kWarps) {
-      float* ai = row_of(i);
-      if (i == p) {
-        for (int j = lane; j < K; j += 32) ai[j] = row[j];
-      } else {
-        const float ci = col[i];
-        for (int j = lane; j < K; j += 32) ai[j] = (j == p ? 0.f : ai[j]) - ci * row[j];
-      }
-    }
-    __syncthreads();
-  }
-  for (int i = warp; i < rs; i += kWarps)
-    for (int j = lane; j < K; j += 32) g[(int64_t)i * K + j] = shared_rows[(int64_t)i * S + j];
-}
-
 }  // namespace
 
-// scratch: 2K floats a matrix, read only where the global form's buffers
-// do not fit shared memory (K > 29,056); may be null below that.
+// scratch: 2 b S + 8 floats a matrix (ops/gj_inverse.py::panel_plan), read
+// only where the panel form's strips do not fit shared memory; may be null
+// elsewhere.
 extern "C" int pmf_gj_inverse(const float* mats, int R, int K, float* out,
                               float* scratch, void* stream) {
   if (K < 1) return (int)cudaErrorInvalidValue;
@@ -331,12 +307,8 @@ extern "C" int pmf_gj_inverse(const float* mats, int R, int K, float* out,
   if (K <= kRowsMaxK) return (int)launch_rows<64, 4>(mats, R, K, out, s);
   if (form_of(K) == kFormCta)  // gj_tile_lo.cu's tiles to T = 10, K = 160
     return (int)(K <= 160 ? gj_tile_launch_lo : gj_tile_launch_hi)(mats, R, K, out, s);
-  const GlobalPlan gp = global_plan(K);
-  if (!gp.buffers && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      gj_inverse_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, gp.smem);
-  if (err != cudaSuccess) return (int)err;
-  gj_inverse_global_kernel<<<R, kCtaThreads, gp.smem, s>>>(mats, K, gp.rs, gp.buffers, out,
-                                                          scratch);
-  return (int)cudaGetLastError();
+  const PanelPlan pp = panel_plan(K);
+  if (pp.global && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)gj_panel_launch(mats, R, K, out, scratch, pp.b, (int)pp.smem, pp.global,
+                              (int)panel_stride(K), s);
 }

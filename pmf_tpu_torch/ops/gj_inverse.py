@@ -19,9 +19,11 @@ in registers, thread (ty, tx) keeping the T x T tile of entries (16 r +
 ty, 16 c + tx), T = ceil(K / 16), the warp holding each pivot row
 publishing it to the others through named barriers; ``cta_plan`` gives
 its geometry (tile rows in registers and in shared
-memory, CTAs an SM, shared bytes).  Past it a CTA inverts one matrix
-with its first ``global_shared_rows(K)`` rows in shared memory and the
-rest in global memory ("global"), at any K.
+memory, CTAs an SM, shared bytes).  Past it ("panel") a CTA inverts one
+matrix held in global memory, its pivots in panels of b: the panel's
+pivot block eliminated alone, then the panel's rows and columns, then the
+rest of the matrix once, each entry through the panel's pivots in order;
+``panel_plan`` gives b, the CTAs an SM and the shared bytes, at any K.
 """
 
 from __future__ import annotations
@@ -39,39 +41,100 @@ TILE_THREADS = TILE_GRID * TILE_GRID
 REGS_PER_SM = 65_536  # kRegsPerSm
 WORDS_ONE_CTA = 210  # kWordsOneCta
 TILE_CTAS = (4, 3, 2, 2, 2, 2, 1, 1, 1, 1, 1)  # kTileCtas: CTAs an SM for T = 5..15
-
-
-def cta_smem_bytes(k: int) -> int:
-    """The K x (K + 1) matrix and two K-float buffers: the CTA form runs
-    while these would fit a CTA (to K = 239), the global form past it."""
-    return 4 * (k * (k + 1) + 2 * k)
+TILE_MAX_K = 239  # kCtaMaxK: the CTA form's last K
+# The panel form's plan: csrc/gj_inverse.cu's host plan block.
+SMEM_PER_SM = 233_472  # kSmemPerSm: 228 KB an SM, 1 KB of it reserved a CTA
+PANEL_THREADS = 256  # gj_panel.cu: kThreads
+PANEL_MAX_B = 32  # kPanelMaxB: a strip's values in registers
+PANEL_MIN_B = 8  # kPanelMinB
+PANEL_CTAS = 2  # kPanelCtas: the launch bound
+PANEL_MIN_B2 = 16  # kPanelMinB2: the fewest pivots a panel with two CTAs an SM
+PANEL_TILE = (8, 4)  # a thread's entries of the rest, rows x columns
+PANEL_BLOCK = (128, 64)  # the rest's blocks: 16 x 16 threads of PANEL_TILE
 
 
 def form(k: int) -> str:
     """The kernel's form for ``k``: "rows" (a row a thread) up to K = 64,
-    "cta" (a CTA a matrix in shared memory) while ``cta_smem_bytes`` fits a
-    CTA, then "global" (a CTA a matrix in global memory)."""
+    "cta" (a CTA a matrix in registers) to TILE_MAX_K, then "panel" (a CTA
+    a matrix in global memory, its pivots in panels)."""
     _build.check_k(k, "Gauss-Jordan kernel")
     if k <= ROWS_MAX_K:
         return "rows"
-    return "cta" if cta_smem_bytes(k) <= SMEM_PER_CTA else "global"
+    return "cta" if k <= TILE_MAX_K else "panel"
 
 
-def global_shared_rows(k: int) -> int:
-    """Rows of the matrix the global form keeps in shared memory beside
-    its two K-float buffers (0 where the buffers alone do not fit)."""
-    if 8 * k > SMEM_PER_CTA:
-        return 0
-    return min(k, (SMEM_PER_CTA - 8 * k) // (4 * (k + 1)))
+def panel_stride(k: int) -> int:
+    """The strips' row stride: K rounded up to 4 floats."""
+    return -(-k // 4) * 4
+
+
+def panel_words(k: int, b: int, in_global: bool) -> int:
+    """Floats of the panel form's shared memory: the pivot block's two
+    buffers, its rows and columns (4 b x b4), the pivots (b4) and, unless
+    ``in_global``, the
+    strips' rows and columns (2 b x stride) and 8 floats of slack."""
+    b4 = -(-b // 4) * 4
+    return 4 * b * b4 + b4 + (0 if in_global else 2 * b * panel_stride(k) + 8)
+
+
+def panel_plan(k: int) -> dict | None:
+    """The panel form's geometry for ``k`` (``csrc/gj_inverse.cu``'s
+    ``panel_plan``; None below it): ``b`` pivots a panel, the largest
+    multiple of 8 up to PANEL_MAX_B whose shared memory leaves two CTAs an
+    SM if it is at least PANEL_MIN_B2, else the largest that fits one CTA, else
+    PANEL_MAX_B with the strips' rows and columns in global scratch
+    (``global_panels``, ``scratch_floats`` a matrix); ``ctas_per_sm`` as
+    shared memory allows, ``smem_bytes``, ``stride``; ``threads`` 256,
+    each holding a ``tile`` of 8 x 4 entries of each 128 x 64 ``block`` of
+    the rest."""
+    if form(k) != "panel":
+        return None
+
+    def fits(b, ctas):
+        nbytes = 4 * panel_words(k, b, False)
+        return ctas * (nbytes + 1024) <= SMEM_PER_SM and nbytes <= SMEM_PER_CTA
+
+    b = ctas = 0
+    for c in range(PANEL_CTAS, 0, -1):
+        b = next((t for t in range(PANEL_MAX_B, (PANEL_MIN_B2 if c > 1 else PANEL_MIN_B) - 1,
+                                   -8)
+                  if fits(t, c)), 0)
+        if b:
+            ctas = c
+            break
+    in_global = b == 0
+    if in_global:
+        b = PANEL_MAX_B
+    smem = 4 * panel_words(k, b, in_global)
+    if in_global:
+        ctas = PANEL_CTAS if PANEL_CTAS * (smem + 1024) <= SMEM_PER_SM else 1
+    return dict(b=b, threads=PANEL_THREADS, tile=PANEL_TILE, block=PANEL_BLOCK,
+                ctas_per_sm=ctas, smem_bytes=smem, global_panels=in_global,
+                stride=panel_stride(k),
+                scratch_floats=2 * b * panel_stride(k) if in_global else 0)
 
 
 def boundary_ks(k_max: int = 600) -> list:
-    """The first K of each form and of each row-form instance up to
+    """The first K of each form, of each row-form instance and of each
+    panel-form instance (the strips in shared or in global memory) up to
     ``k_max``: the tests and chip_smoke.py hold K4 on both sides of each."""
     out, last = [], None
     for k in range(1, k_max + 1):
-        p = launch_plan(k)
-        key = (form(k), p and p["kmax"])
+        p, q = launch_plan(k), panel_plan(k)
+        key = (form(k), p and p["kmax"], q and q["global_panels"])
+        if key != last:
+            out.append(k)
+            last = key
+    return out
+
+
+def panel_boundary_ks(k_max: int = 1200) -> list:
+    """Each K of the panel form up to ``k_max`` where ``panel_plan`` (b,
+    CTAs an SM, strips in global memory) changes, its first K included."""
+    out, last = [], None
+    for k in range(TILE_MAX_K + 1, k_max + 1):
+        q = panel_plan(k)
+        key = (q["b"], q["ctas_per_sm"], q["global_panels"])
         if key != last:
             out.append(k)
             last = key
@@ -99,7 +162,7 @@ def reg_cap(ctas: int) -> int:
 
 def cta_plan(k: int) -> dict | None:
     """The CTA form's geometry for ``k`` (``csrc/gj_tile.cuh``'s
-    ``cta_plan``; None outside 65 <= K <= 239): ``threads`` 256 as a
+    ``cta_plan``; None outside 65 <= K <= TILE_MAX_K): ``threads`` 256 as a
     ``grid`` of 16 x 16, thread (ty, tx) holding the ``tile`` of T x T
     entries (16 r + ty, 16 c + tx), T = ceil(K / 16); the launch bound's
     ``ctas_per_sm`` (TILE_CTAS, as timed on the card: more CTAs spill the
@@ -127,7 +190,7 @@ def cta_plan(k: int) -> dict | None:
 
 
 def cta_boundary_ks() -> list:
-    """Each K of the CTA form (65 to 239) where ``cta_plan``'s geometry
+    """Each K of the CTA form (65 to TILE_MAX_K) where ``cta_plan``'s geometry
     (tile, rows in registers, CTAs an SM) changes, its first K included:
     the tests and chip_smoke.py hold K4 on both sides of each."""
     out, last, k = [], None, ROWS_MAX_K + 1
@@ -205,6 +268,8 @@ def batched_psd_inverse_gj(mats: torch.Tensor) -> torch.Tensor:
     mats = mats.contiguous()
     R, K, _ = mats.shape
     out = torch.empty_like(mats)
-    scratch = mats.new_empty((R, 2 * K)) if 8 * K > SMEM_PER_CTA and R > 0 else None
+    plan = panel_plan(K)
+    scratch = (mats.new_empty(R * plan["scratch_floats"] + 8)
+               if plan and plan["global_panels"] and R > 0 else None)
     _build.launch("pmf_gj_inverse", GJ_LAUNCHES, mats.device, mats, R, K, out, scratch)
     return out

@@ -517,6 +517,7 @@ def test_kernel_sources_name_what_they_replace():
         "gj_tile.cuh": ["pmf_tpu/ops/pallas/gj_inverse.py::_gj_kernel"],
         "gj_tile_lo.cu": ["pmf_tpu/ops/pallas/gj_inverse.py::_gj_kernel"],
         "gj_tile_hi.cu": ["pmf_tpu/ops/pallas/gj_inverse.py::_gj_kernel"],
+        "gj_panel.cu": ["pmf_tpu/ops/pallas/gj_inverse.py::_gj_kernel"],
         "ext_edge.cu": ["pmf_tpu/ops/pallas/ext_edge.py::_factor_kernel",
                         "pmf_tpu/ops/pallas/ext_edge.py::_scalar_kernel"],
         "map_grad.cu": ["pmf_tpu/ops/pallas/map_grad.py::_kernel"],

@@ -4,7 +4,7 @@ blocked fits of every family past 128 against the JAX fits at the gates of
 ``test_torch_bigk.py``, and the geometry of the kernels' forms past 128:
 the row-group plan at every boundary, K2's launch plan on the real tiers
 and the arithmetic of its pass form, K4's form on each side of
-239/240 and its elimination, K3's and K9's boundaries."""
+239/240 and the panel form's elimination, K3's and K9's boundaries."""
 
 import numpy as np
 import pytest
@@ -24,6 +24,9 @@ from tests.test_torch_bigk import jax_map_layout  # noqa: F401  (a fixture)
 torch.set_num_threads(1)
 
 HUGE_KS = pytest.mark.parametrize("K", [129, 160, 300])
+# K4's first K whose panel strips go to global memory
+FIRST_GLOBAL_K = next(k for k in range(240, 40_000)
+                      if gj_inverse.panel_plan(k)["global_panels"])
 M_F32 = pytest.mark.parametrize("m_f32", [False, True], ids=["m_bf16", "m_f32"])
 
 
@@ -270,26 +273,30 @@ def test_k2_staged_depth_arithmetic_matches_plain_float64(small_ratings, K, item
 
 
 def test_k4_form_on_each_side_of_240():
-    """The CTA form while its K x (K + 1) matrix and two buffers fit a
-    CTA's shared memory (to K = 239), then the global form, which keeps
-    the first rows that fit beside the buffers."""
+    """The CTA form to K = 239, then the panel form, whose pivot block,
+    rows and columns fit a CTA's shared memory beside its b x K strips, or
+    leave the strips to global memory (from FIRST_GLOBAL_K, where even b =
+    8 passes a CTA's shared memory)."""
     assert [gj_inverse.form(k) for k in (64, 65, 239, 240, 300)] == [
-        "rows", "cta", "cta", "global", "global"]
-    assert gj_inverse.cta_smem_bytes(239) <= gj_inverse.SMEM_PER_CTA
-    assert gj_inverse.cta_smem_bytes(240) > gj_inverse.SMEM_PER_CTA
+        "rows", "cta", "cta", "panel", "panel"]
+    assert gj_inverse.cta_plan(239)["tile"] == (15, 15) and gj_inverse.cta_plan(240) is None
     assert gj_inverse.boundary_ks()[-2:] == [65, 240]
-    for k in (240, 256, 300, 1000):
-        rs = gj_inverse.global_shared_rows(k)
-        assert 0 < rs < k and 4 * (2 * k + rs * (k + 1)) <= gj_inverse.SMEM_PER_CTA
-        assert 4 * (2 * k + (rs + 1) * (k + 1)) > gj_inverse.SMEM_PER_CTA
-    assert gj_inverse.global_shared_rows(30_000) == 0  # the buffers alone do not fit
+    assert gj_inverse.boundary_ks(5000)[-3:] == [65, 240, FIRST_GLOBAL_K]
+    assert 3000 < FIRST_GLOBAL_K < 4000
+    assert 4 * gj_inverse.panel_words(FIRST_GLOBAL_K, 8, False) > gj_inverse.SMEM_PER_CTA
+    assert 4 * gj_inverse.panel_words(FIRST_GLOBAL_K - 1, 8, False) <= gj_inverse.SMEM_PER_CTA
+    for k in (240, 256, 300, 384, 512, 1000, FIRST_GLOBAL_K - 1, FIRST_GLOBAL_K):
+        p = gj_inverse.panel_plan(k)
+        assert p["smem_bytes"] <= gj_inverse.SMEM_PER_CTA
+        assert p["ctas_per_sm"] * (p["smem_bytes"] + 1024) <= gj_inverse.SMEM_PER_SM
+        assert p["global_panels"] == (k >= FIRST_GLOBAL_K) and p["b"] % 8 == 0
+    assert gj_inverse.panel_plan(30_000)["scratch_floats"] == 2 * 32 * 30_000
 
 
 def _gj_host_plan(tmp_path):
     """The dispatch's plan of ``csrc/gj_inverse.cu`` (its "host plan"
-    block, plain C++) built alone with the host compiler: K -> (form,
-    CTA-form bytes, the global form's shared rows, its bytes, its buffers
-    in shared memory)."""
+    block, plain C++) built alone with the host compiler: K -> (form, the
+    panel plan's b, CTAs an SM, bytes, strips in global memory, stride)."""
     import ctypes
     import shutil
     import subprocess
@@ -304,50 +311,58 @@ def _gj_host_plan(tmp_path):
     src = tmp_path / "gj_plan.cpp"
     src.write_text("#include <stdint.h>\nnamespace {\n" + block + "}\n"
                    'extern "C" void plan(int K, int64_t* o) {\n'
-                   "  const GlobalPlan g = global_plan(K);\n"
-                   "  o[0] = form_of(K); o[1] = cta_smem_bytes(K);\n"
-                   "  o[2] = g.rs; o[3] = g.smem; o[4] = g.buffers;\n}\n")
+                   "  const PanelPlan g = panel_plan(K);\n"
+                   "  o[0] = form_of(K); o[1] = g.b; o[2] = g.ctas; o[3] = g.smem;\n"
+                   "  o[4] = g.global; o[5] = panel_stride(K);\n}\n")
     lib = tmp_path / "libgj_plan.so"
     subprocess.run([cxx, "-O1", "-shared", "-fPIC", "-o", str(lib), str(src)], check=True)
     fn = ctypes.CDLL(str(lib)).plan
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int64)]
 
     def plan(k):
-        out = (ctypes.c_int64 * 5)()
+        out = (ctypes.c_int64 * 6)()
         fn(k, out)
         return tuple(out)
     return plan
 
 
+GJ_EDGE_KS = (1, 64, 65, 239, 240, 300, 1000, FIRST_GLOBAL_K - 1, FIRST_GLOBAL_K, 23_169,
+              23_170, 23_171, 29_056, 29_057, 46_341, 100_000, 2**31 // 8)
+
+
 def test_k4_dispatch_plan_matches_the_wrapper_at_any_k(tmp_path):
     """The CUDA dispatch picks the form ``gj_inverse.form`` names, and the
-    global form keeps ``global_shared_rows`` rows, at every boundary and
-    far past the K where the CTA form's bytes pass 2^31 (23,170) and the
-    buffers leave shared memory (29,056)."""
+    panel form the plan ``gj_inverse.panel_plan`` gives, at every boundary
+    and far past the K where the strips leave shared memory
+    (FIRST_GLOBAL_K) and a matrix's bytes pass 2^31 (23,170)."""
     plan = _gj_host_plan(tmp_path)
-    forms = ("rows", "cta", "global")
-    for k in (1, 64, 65, 239, 240, 300, 1000, 23_169, 23_170, 23_171, 29_056, 29_057,
-              46_341, 100_000, 2**31 // 8):
-        f, cta_bytes, rs, smem, buffers = plan(k)
+    forms = ("rows", "cta", "panel")
+    for k in GJ_EDGE_KS:
+        f, b, ctas, smem, in_global, stride = plan(k)
         assert forms[f] == gj_inverse.form(k), k
-        assert cta_bytes == gj_inverse.cta_smem_bytes(k), k
-        if forms[f] == "global":
-            assert rs == gj_inverse.global_shared_rows(k), k
-            assert buffers == (8 * k <= gj_inverse.SMEM_PER_CTA), k
-            assert 0 <= smem <= gj_inverse.SMEM_PER_CTA, k
-            assert smem == (4 * (2 * k + rs * (k + 1)) if buffers else 0), k
+        if forms[f] == "panel":
+            p = gj_inverse.panel_plan(k)
+            assert (b, ctas, smem, bool(in_global), stride) == (
+                p["b"], p["ctas_per_sm"], p["smem_bytes"], p["global_panels"],
+                p["stride"]), k
+            assert 0 < smem <= gj_inverse.SMEM_PER_CTA, k
 
 
 @pytest.mark.parametrize("K", [240, 300])
 def test_k4_global_form_elimination_equals_the_plain_version(K):
-    """The global form takes the CTA form's in-place steps (its split of
-    rows between shared and global memory moves values, not operations):
-    equal to the plain [A | I] form in float64."""
+    """The panel form, which took the global form's place past the CTA
+    form, takes the in-place steps in panels (its split into the pivot
+    block, the strips and the rest moves values, not operations): equal to
+    the plain [A | I] form in float64, with its plan's b (a last partial
+    panel at K = 300)."""
+    from tests.test_torch_k4panel import emulate_panel
+
     rng = np.random.default_rng(K)
     A = rng.standard_normal((3, K, K + 3)) * 0.5
     mats = np.eye(K) / 0.4 + A @ np.transpose(A, (0, 2, 1)) / 0.5
     ref = gj_inverse.batched_psd_inverse_gj_plain(torch.from_numpy(mats)).numpy()
-    np.testing.assert_allclose(bigk._gj_in_place(mats), ref, rtol=1e-12, atol=1e-13)
+    got = emulate_panel(mats, gj_inverse.panel_plan(K)["b"], np.float64)
+    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-13)
     np.testing.assert_allclose(ref @ mats, np.broadcast_to(np.eye(K), mats.shape),
                                atol=1e-9)
 

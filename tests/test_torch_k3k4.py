@@ -142,7 +142,7 @@ def test_k4_launch_plan(K, warps, matrices):
 def test_k4_cta_form_past_64_and_the_bound():
     assert gj_inverse.launch_plan(65) is None and gj_inverse.launch_plan(128) is None
     assert gj_inverse.form(65) == gj_inverse.form(239) == "cta"
-    assert gj_inverse.form(240) == "global"
+    assert gj_inverse.form(240) == "panel"
     with pytest.raises(ValueError, match="K >= 1"):
         gj_inverse.launch_plan(0)
     with pytest.raises(ValueError, match="K >= 1"):
