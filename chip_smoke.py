@@ -8,11 +8,14 @@ unpacked by ``git archive`` into a git-ignored directory); its kernels
 build beside this tree's, and phase k2 parent (after k2fast) times its K2
 and this one at K = 20, 50 and 160, both precisions, in turns parent,
 this, this, parent; phase k4 parent (after k4wide) holds K4's rows and
-tile instances' ptxas lines equal to that build's, times both trees' K4
-at K = 50, 80, 160 and 239 a sweep in the same turns (within 3% at 80,
-160, 239) and at 240, 256, 300 and 384 on the K = 256 fit's sides, and on
-2,000 matrices on both sides of each boundary of the panel form to 400,
-where this tree must be faster in every turn, its output equal in bits.
+tile and panel instances' ptxas lines equal to that build's (K4 is the
+parent's), times both trees' K4 at K = 50, 80, 160 and 239 a sweep in the
+same turns and at 240, 256, 300 and 384 on the K = 256 fit's sides, within
+3% of the parent, the outputs equal in bits;
+phase k3 parent (after k3wide) times both trees' K3 a sweep in the same
+turns at K = 20, 50, 80, 128 on the bench's Gaussian tail (within 3%, the
+same code) and at K = 160 there and K = 256 on the XL CSR (faster in every
+turn), its output equal in bits where the plan's form sums in CSR order.
 
 Phases, one status line each; any failure exits non-zero and prints no
 result line:
@@ -97,14 +100,23 @@ both M types), then
 at K = 50 the small, psmall, gsmall and msmall card-vs-host runs.  Past
 K = 128 inside phase bigk, phase hugek: every kernel at K = 129, 160,
 256, 300 and on both sides of every boundary its module lists
-(``hugek_plan``; K2 at both precisions), then the four card-vs-host runs
+(``hugek_plan``; K2 at both precisions; K3 past 128 in the plan's form,
+the group form and the slab form at 64 and 512 floats), then the four
+card-vs-host runs
 at K = 160 (gsmall on a 600 x 300 input, 2 sweeps).  Beside the
 real-data phases, "bigk timing": every kernel's time at K = 50 on the
 real tail, tiers, matrices and steps; "huge timing": the same at K = 160
 with the bound at K = 160 (K2 at both K also against its plain version on
 every tier, its launch plan logged with passes over the cells and the
 instance's registers and spills; the library forms of K1 raw, K3, K5 and
-K8).  After huge timing, phase k4wide: K4's CTA and panel forms against
+K8).  After huge timing, phase k3wide: K3's wide forms (``factor_plan``: the
+slab form, its chunk sized to L2, or the group form where rows share other
+rows) on the bench's Gaussian tail at K = 160 and on the XL CSR (phase
+gxldata's) at K = 256 and 300, both directions: the plan, the kernel
+against its plain version per column, equal bits on a repeat, two timed
+turns, ``torch.sparse.mm`` of the pass-through bulk, the bounds per-edge
+gather, table once and grouped, every K3 instance's ptxas line.  Then
+phase k4wide: K4's CTA and panel forms against
 the plain version at K - 1 and K of every boundary of
 ``gj_inverse.boundary_ks``, ``cta_boundary_ks`` and ``panel_boundary_ks``
 and at 239, every K4 instance's ptxas line, and its time at K = 80, 128,
@@ -1061,10 +1073,9 @@ def _bigk_gauss_tail(blocked, k):
     for _, p, (m_s, _, b_s, _), (m_o, V_o, b_o, v_o) in _new_space_gauss(blocked, k):
         aug3 = _k3_table(m_o, V_o, b_o, k)
         csr = (p.row_ptr, p.other, p.x)
-        cases = [("K3", lambda wbs=wbs: ge.factor_tail_stats(aug3, *csr, k, wbs),
-                  lambda wbs=wbs: ge.factor_tail_stats_plain(aug3, *csr, k, wbs,
-                                                             max_edges=1 << 13))
-                 for wbs in (False, True)]
+        cases = [("K3", kern, lambda wbs=wbs: ge.factor_tail_stats_plain(
+                      aug3, *csr, k, wbs, max_edges=1 << 13))
+                 for wbs in (False, True) for kern in _k3_forms(aug3, p, k, wbs).values()]
         for kid in GAUSS_TAIL:
             tabs = _gauss_tail_tabs(kid, m_s, b_s, m_o, v_o, b_o)
             cases.append((kid, lambda kid=kid, tabs=tabs: _tail_kernel(kid, tabs, p, k),
@@ -1092,6 +1103,41 @@ def _gauss_tail_tabs(kid, m_s, b_s, m_o, v_o, b_o):
     return record_table(m_s, b_s), mb_o, padded_rows(v_o + m_o * m_o)
 
 
+def _k3_forms(aug, p, k, wbs=False) -> dict:
+    """K3 at ``k`` on one CSR, as callables: to K = 128 its one form; past
+    it the plan's (the wrapper, on the CSR's schedule), and the group form
+    and the slab form at its narrowest and widest chunks, each by giving
+    the plan the inputs that select it (a pair count, L2 bytes)."""
+    from pmf_tpu_torch.ops import gaussian_edge as ge
+
+    args = (aug, p.row_ptr, p.other, p.x, k, wbs)
+    if k <= ge.FACTOR_NARROW_MAX_K:
+        return {"plan": lambda: ge.factor_tail_stats(*args)}
+    sched = ge.build_factor_schedule(p.row_ptr, p.other, p.x, p.n_other, grouped=True)
+    return {"plan": lambda: ge.factor_tail_stats(*args, schedule=sched),
+            "group": lambda: ge.launch_factor(*args, sched, pairs=1, l2=0),
+            "slab 64": lambda: ge.launch_factor(*args, sched, pairs=0, l2=0),
+            "slab 512": lambda: ge.launch_factor(*args, sched, pairs=0, l2=1 << 62)}
+
+
+def _k3_trace(k, blocked) -> dict:
+    """K3's kernels in a sweep's trace at ``k`` (name piece -> launches a
+    sweep): one a direction to K = 128; past it the slab copy and two of the
+    form each direction's plan takes (its instance for the chunks that hold
+    factors and the one for the rest)."""
+    from pmf_tpu_torch.ops import gaussian_edge as ge
+
+    if k <= ge.FACTOR_NARROW_MAX_K:
+        return {"::factor_kernel": 2}
+    out = {"factor_copy_kernel": 2}
+    for p in (blocked.by_user, blocked.by_item):
+        s = ge.factor_schedule(p)
+        form = ge.factor_plan(k, p.n_other, p.nnz, s.pairs)["form"]
+        key = f"factor_{form}_kernel"
+        out[key] = out.get(key, 0) + 2
+    return out
+
+
 def _small_k34(blocked, ks=(1, 2, 5, 7, 8, 9, 16, 17, 20, 24, 25, 30, 31, 32, 33, 48,
                             49, 64, 65, 100, 128), n_mats=1003):
     """K3 (lagged) and K4 (``n_mats`` matrices, 1003: no multiple of any
@@ -1109,10 +1155,11 @@ def _small_k34(blocked, ks=(1, 2, 5, 7, 8, 9, 16, 17, 20, 24, 25, 30, 31, 32, 33
             aug = _k3_table(m_o, V_o, b_o, k)
             args = (aug, p.row_ptr, p.other, p.x, k, True)
             ref = ge.factor_tail_stats_plain(*args, max_edges=1 << 13)
-            col, ok = column_check(ge.factor_tail_stats(*args), ref)[1:]
-            if not ok:
-                raise AssertionError(f"K3 K={k}: column error {col} > {COL_RTOL}")
-            worst3 = max(worst3, col)
+            for form, kern in _k3_forms(aug, p, k, True).items():
+                col, ok = column_check(kern(), ref)[1:]
+                if not ok:
+                    raise AssertionError(f"K3 K={k} {form}: column error {col} > {COL_RTOL}")
+                worst3 = max(worst3, col)
         P = _spd(n_mats, k, 60 + k)
         ref = batched_psd_inverse_gj_plain(P)
         ref64 = torch.linalg.inv(P.double())
@@ -1492,13 +1539,11 @@ def phase_wide_poisson(blocked, k=K_WIDE):
 
 
 def phase_huge_gauss(blocked):
-    """At K_HUGE on the real Gaussian tail: K3 (on a random table of its
-    padded records, 52 KB a record: made directly, without the (rows, K, K)
-    covariances it packs), K5 and K6, both directions, and K4 on 162k and
-    59k matrices, each side alone: device time (CUDA events) and the bound
-    at K_HUGE reckoned as phases K3, K4, K5 and K6 do at K = 20; K3, K5 and
-    K6 first against their plain versions on the same tables (per column,
-    COL_RTOL).  Returns
+    """At K_HUGE on the real Gaussian tail: K5 and K6, both directions,
+    and K4 on 162k and 59k matrices, each side alone: device time (CUDA
+    events) and the bound at K_HUGE reckoned as phases K4, K5 and K6 do at
+    K = 20; K5 and K6 first against their plain versions on the same tables
+    (per column, COL_RTOL).  K3 at K_HUGE is phase k3wide's.  Returns
     {kid: {ms, bound_ms, bound_by}}."""
     import torch
 
@@ -1506,34 +1551,12 @@ def phase_huge_gauss(blocked):
     from pmf_tpu_torch.ops._tail import padded_rows
 
     k = K_HUGE
-    T, stride = ge.tri_size(k), ge.factor_stride(k)
     gen = torch.Generator(device="cuda").manual_seed(6)
-    kids = ("K3", "K5", "K6", "K4")
+    kids = ("K5", "K6", "K4")
     ms, n_bytes, n_flops = (dict.fromkeys(kids, 0.0) for _ in range(3))
-    per_edge, worst, lib_ms = 0.0, {}, {}
+    worst, lib_ms = {}, {}
     for p in (blocked.by_user, blocked.by_item):
-        aug = 0.1 * torch.rand(p.n_other, stride, generator=gen, device="cuda")
-        aug[:, k + 1 + T :] = 0
-        _, err, ok = column_check(ge.factor_tail_stats(aug, p.row_ptr, p.other, p.x, k),
-                                  ge.factor_tail_stats_plain(aug, p.row_ptr, p.other, p.x,
-                                                             k, max_edges=1 << 16))
-        if not ok:
-            raise AssertionError(f"huge K3 on the real tail: column error {err} > "
-                                 f"{COL_RTOL}")
-        worst["K3"] = max(worst.get("K3", 0.0), err)
-        ms["K3"] += cuda_ms(lambda: ge.factor_tail_stats(aug, p.row_ptr, p.other, p.x, k),
-                            reps=2)
-        # note (b): CSR-ones @ [m | b | tri], the pass-through bulk alone
         ones = _csr_ones(p)
-        bulk = aug[:, : k + 1 + T].contiguous()
-        lib_ms["K3"] = lib_ms.get("K3", 0.0) + cuda_ms(lambda: torch.sparse.mm(ones, bulk),
-                                                       reps=2)
-        del aug, bulk
-        torch.cuda.empty_cache()
-        r = ge.factor_reckoning(p, k)
-        n_bytes["K3"] += r["table_once"]
-        per_edge += r["per_edge"]
-        n_flops["K3"] += p.nnz * (3 * k + 1 + T)
         m_s, m_o = 0.1 * _pos(gen, p.n_self, k), 0.1 * _pos(gen, p.n_other, k)
         b_s, b_o, v_o = _pos(gen, p.n_self), _pos(gen, p.n_other), _pos(gen, p.n_other, k)
         csr = p.row_ptr.nbytes + p.other.nbytes + p.x.nbytes
@@ -1567,18 +1590,190 @@ def phase_huge_gauss(blocked):
     b_bytes, b_ops = _k4_bounds(N_USERS + N_ITEMS, k)
     out = {kid: dict(ms=ms[kid], library_ms=lib_ms.get(kid),
                      **dict(zip(("bound_ms", "bound_by"), bound(n_bytes[kid], n_flops[kid]))))
-           for kid in ("K3", "K5", "K6")}
+           for kid in ("K5", "K6")}
     out["K4"] = dict(ms=ms["K4"], bound_ms=max(b_bytes, b_ops),
                      bound_by="bytes" if b_bytes >= b_ops else "operations")
     log(f"phase huge timing (Gaussian, real data, K={k}): ok | per sweep "
         + ", ".join(f"{n} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, {v['bound_by']})"
                     + (f" library {v['library_ms']:.4f} ms" if v.get("library_ms") else "")
                     for n, v in out.items())
-        + f" | K3 per-edge gather {per_edge / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s, "
-        f"record {4 * (k + 1 + T)} B | K4 on {N_USERS} + {N_ITEMS} matrices | tail vs "
+        + f" | K3 in phase k3wide | K4 on {N_USERS} + {N_ITEMS} matrices | tail vs "
         "plain, both directions: worst column error "
         + ", ".join(f"{n} {v:.3e}" for n, v in worst.items()) + f" (tol {COL_RTOL})")
     return out
+
+
+K3_XL_KS = (256, 300)  # phase k3wide on the XL CSR (XL_K and past it)
+K3_TURN_REPS = 2  # launches a timed turn of K3 past K = 128
+
+
+def _k3_random_table(n_other, k, seed):
+    """K3's padded table of random records (made directly, without the
+    (rows, K, K) covariances it packs): 0.1 U(0, 1) - 0.03, zero pad."""
+    import torch
+
+    from pmf_tpu_torch.ops import gaussian_edge as ge
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    aug = 0.1 * torch.rand(n_other, ge.factor_stride(k), generator=gen, device="cuda") - 0.03
+    aug[:, k + 1 + ge.tri_size(k):] = 0
+    return aug
+
+
+def _xl_layout(train):
+    """The XL CSR as GaussianMF.fit builds it (no head below 4M ratings)."""
+    from pmf_tpu_torch.data.blocked import build_blocked
+
+    return build_blocked(*train, n_users=XL_USERS, n_items=XL_ITEMS, reorder=True,
+                         head="auto", head_bytes=GAUSS_HEAD_BYTES, device="cuda")
+
+
+def phase_k3wide(gblocked, xl):
+    """K3's wide forms where the port runs them at full size: the bench's
+    Gaussian tail at K_HUGE and the XL CSR (``xl``) at K3_XL_KS, both
+    directions, on random tables.  Each: the plan (form, chunk, CTA rows,
+    the pair count and edges a pair), the kernel against its plain version
+    per column (COL_RTOL), a second launch equal in bits, two turns of
+    K3_TURN_REPS launches by CUDA events, torch.sparse.mm of the CSR's
+    pattern by the same records (the pass-through bulk), and the bounds:
+    per-edge gather, table once, grouped (each distinct (group, other)
+    pair's record once), with the slab form's CSR rereads; then every K3
+    instance's ptxas line.  Returns {"bench": huge-timing entry, "xl":
+    {k: entry}}."""
+    import torch
+
+    from pmf_tpu_torch.ops import gaussian_edge as ge
+
+    t0 = time.perf_counter()
+    res = {}
+    to_ms = lambda n: n / HBM_BYTES_PER_S * 1e3  # noqa: E731
+    for label, k, lay in [("bench", K_HUGE, gblocked)] + [("XL", k, xl) for k in K3_XL_KS]:
+        T = ge.tri_size(k)
+        tot = dict(ms=0.0, library_ms=0.0, n_bytes=0.0, n_flops=0.0, per_edge=0.0,
+                   grouped=0.0, max_abs_err=0.0, turns=[0.0, 0.0], forms=[])
+        for name, p in (("user", lay.by_user), ("item", lay.by_item)):
+            sched = ge.factor_schedule(p)
+            plan = ge.factor_plan(k, p.n_other, p.nnz, sched.pairs,
+                                  ge.device_l2_bytes(p.x.device))
+            aug = _k3_random_table(p.n_other, k, k + len(name))
+            args = (aug, p.row_ptr, p.other, p.x, k)
+            got = ge.factor_tail_stats(*args, schedule=sched)
+            ref = ge.factor_tail_stats_plain(*args, max_edges=1 << 16)
+            abs_err, worst, ok = column_check(got, ref)
+            del ref
+            if not ok:
+                raise AssertionError(f"k3wide {label} K={k} {name}: column error {worst} > "
+                                     f"{COL_RTOL}")
+            if not torch.equal(got, ge.factor_tail_stats(*args, schedule=sched)):
+                raise AssertionError(f"k3wide {label} K={k} {name}: two runs differ in bits")
+            del got
+            torch.cuda.empty_cache()
+            turns = [cuda_ms(lambda: ge.factor_tail_stats(*args, schedule=sched),
+                             reps=K3_TURN_REPS) for _ in range(2)]
+            ones = _csr_ones(p)
+            bulk = aug[:, : k + 1 + T].contiguous()
+            lib = cuda_ms(lambda: torch.sparse.mm(ones, bulk), reps=K3_TURN_REPS)
+            del ones, bulk, aug
+            torch.cuda.empty_cache()
+            r = ge.factor_reckoning(p, k, l2_bytes=ge.device_l2_bytes(p.x.device))
+            flops = p.nnz * (3 * k + 1 + T)
+            b_ms, b_by = bound(r["table_once"], flops)
+            log(f"  k3wide {label} K={k} {name}: n_self {p.n_self} n_other {p.n_other} nnz "
+                f"{p.nnz} | pairs {sched.pairs} ({p.nnz / max(sched.pairs, 1):.3f} edges a "
+                f"pair) | plan {plan} | kernel {turns[0]:.4f} {turns[1]:.4f} ms | "
+                f"torch.sparse.mm {lib:.4f} ms | bound {b_ms:.4f} ms ({b_by}, table once) | "
+                f"per-edge gather {to_ms(r['per_edge']):.4f}, grouped "
+                f"{to_ms(r['grouped']):.4f} ms, CSR rereads {r['csr_rereads'] / 1e9:.3f} GB "
+                f"({to_ms(r['csr_rereads']):.4f} ms) | max abs err {abs_err:.3e}, worst "
+                f"column {worst:.3e} (tol {COL_RTOL}) | repeat equal in bits")
+            tot["ms"] += (turns[0] + turns[1]) / 2
+            tot["turns"] = [a + b for a, b in zip(tot["turns"], turns)]
+            tot["library_ms"] += lib
+            tot["n_bytes"] += r["table_once"]
+            tot["n_flops"] += flops
+            tot["per_edge"] += r["per_edge"]
+            tot["grouped"] += r["grouped"]
+            tot["max_abs_err"] = max(tot["max_abs_err"], abs_err)
+            tot["forms"].append(f"{name} {plan['form']} {plan['chunk']}")
+        tot["bound_ms"], tot["bound_by"] = bound(tot["n_bytes"], tot["n_flops"])
+        log(f"  k3wide {label} K={k}: per sweep kernel {tot['ms']:.4f} ms (turns "
+            f"{tot['turns'][0]:.4f}, {tot['turns'][1]:.4f}) | torch.sparse.mm "
+            f"{tot['library_ms']:.4f} ms | bounds: table once {tot['bound_ms']:.4f} ms "
+            f"({tot['bound_by']}), per-edge gather {to_ms(tot['per_edge']):.4f}, grouped "
+            f"{to_ms(tot['grouped']):.4f} | forms {tot['forms']}")
+        if label == "bench":
+            res["bench"] = tot
+        else:
+            res.setdefault("xl", {})[k] = tot
+    for name, line in sorted(PTXAS.items()):
+        if "factor_" in name:
+            log(f"  k3wide ptxas {name}: {line}")
+    log(f"phase k3wide: ok | bench K={K_HUGE} {res['bench']['ms']:.4f} ms a sweep, XL "
+        + ", ".join(f"K={k} {v['ms']:.4f} ms" for k, v in res["xl"].items())
+        + f" | {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+K3_PARENT_SAME_KS = (K, K_WIDE, 80, 128)  # the K <= 128 forms: the parent's code
+K3_SAME_TOL = 0.03
+
+
+def phase_k3_parent(gblocked, xl):
+    """With ``--parent``: K3 of this tree and of the parent tree on random
+    tables, a sweep (both directions) in turns parent, this, this, parent:
+    at K3_PARENT_SAME_KS on the bench tail within K3_SAME_TOL of the parent
+    (the same code); at K_HUGE on the bench tail and XL_K on the XL CSR
+    faster in every turn.  Outputs equal in bits where the plan's form sums
+    in CSR order (the slab form and the K <= 128 forms); the group form's
+    largest difference from the parent logged."""
+    import torch
+
+    from pmf_tpu_torch.ops import gaussian_edge as ge
+
+    trees = {"this": ge, "parent": _parent_op("gaussian_edge")}
+    cells = ([("bench", k, gblocked) for k in K3_PARENT_SAME_KS + (K_HUGE,)]
+             + [("XL", XL_K, xl)])
+    for label, k, lay in cells:
+        tabs = [(p, _k3_random_table(p.n_other, k, 40 + k)) for p in (lay.by_user, lay.by_item)]
+
+        def sweep(tree):
+            return [ge.factor_tail_of(aug, p, k) if tree is ge else
+                    tree.factor_tail_stats(aug, p.row_ptr, p.other, p.x, k)
+                    for p, aug in tabs]
+
+        notes = []
+        for (p, _), a, b in zip(tabs, sweep(trees["this"]), sweep(trees["parent"])):
+            form = "chunked" if k <= ge.FACTOR_NARROW_MAX_K else ge.factor_plan(
+                k, p.n_other, p.nnz, ge.factor_schedule(p).pairs)["form"]
+            if form == "group":
+                scale = b.abs().amax(dim=0).clamp_min(1e-30)
+                worst = float(((a - b).abs().amax(dim=0) / scale).max())
+                notes.append(f"{form}: worst column difference {worst:.3e}")
+            elif not torch.equal(a, b):
+                raise AssertionError(f"k3 parent {label} K={k}: the {form} form differs "
+                                     "from the parent in bits")
+            else:
+                notes.append(f"{form}: equal in bits")
+            del a, b
+        reps = K3_TURN_REPS if k > ge.FACTOR_NARROW_MAX_K else TIMING_REPS
+        turns = [cuda_ms(lambda t=t: sweep(trees[t]), reps=reps) for t in K2_AB_TURNS]
+        mean = {t: float(np.mean([ms for u, ms in zip(K2_AB_TURNS, turns) if u == t]))
+                for t in ("parent", "this")}
+        log(f"  k3 parent {label} K={k}: turns "
+            + ", ".join(f"{t} {ms:.4f}" for t, ms in zip(K2_AB_TURNS, turns))
+            + f" ms a sweep | this / parent {mean['this'] / mean['parent'] - 1:+.2%} | "
+            + "; ".join(notes))
+        if k in K3_PARENT_SAME_KS:
+            if not mean["this"] <= (1 + K3_SAME_TOL) * mean["parent"]:
+                raise AssertionError(f"k3 parent K={k}: {mean} past {K3_SAME_TOL:.0%}")
+        elif max(ms for t, ms in zip(K2_AB_TURNS, turns) if t == "this") >= min(
+                ms for t, ms in zip(K2_AB_TURNS, turns) if t == "parent"):
+            raise AssertionError(f"k3 parent {label} K={k}: this tree not faster in every "
+                                 "turn")
+        del tabs
+        torch.cuda.empty_cache()
+    log(f"phase k3 parent: ok | {PARENT['dir']} | bench K {list(K3_PARENT_SAME_KS)} within "
+        f"{K3_SAME_TOL:.0%}, K={K_HUGE} and XL K={XL_K} faster in every turn")
 
 
 K4_WIDE_KS = (80, 128, K_HUGE)  # K4's CTA form timed on 162k + 59k matrices
@@ -1587,10 +1782,8 @@ K4_ITEM_KS = (200, 239)  # and on 59k (phase k4wide)
 K4_XL_KS = (240, 256, 300, 384, 512)
 K4_PARENT_KS = (K_WIDE, 80, K_HUGE, 239)  # phase k4 parent, in turns, a sweep
 K4_PARENT_XL_KS = (240, 256, 300, 384)  # and on the XL sides
-K4_SAME_KS = (80, K_HUGE, 239)  # unchanged code: within K4_SAME_TOL of the parent
 K4_SAME_TOL = 0.03
 K4_CHECK_MATS = 67  # matrices a check beside each boundary of the CTA form
-K4_PARENT_MATS = 2_000  # phase k4 parent's turns beside every boundary past 239
 K4_CHUNK = 16_384  # matrices a K4 comparison takes at once (no R x K x K temporaries)
 
 
@@ -1696,86 +1889,51 @@ def phase_k4wide():
 
 
 def phase_k4_parent():
-    """With ``--parent``: the rows instances' and the CTA form's instances'
-    ptxas lines equal to the parent build's; then K4 of
-    this tree and of the parent tree at K4_PARENT_KS and K4_PARENT_XL_KS,
-    on a sweep's matrices (``_k4_sides``), the two outputs compared (per
-    matrix, INV_RTOL; equal in bits said), timed a sweep at a time by CUDA
-    events in turns parent, this, this, parent: within K4_SAME_TOL of the
-    parent at K4_SAME_KS (the same code), faster in every turn at
-    K4_PARENT_XL_KS; then the same turns on K4_PARENT_MATS matrices at K -
-    1 and K of every ``panel_boundary_ks`` value to 400 (from 240) and at
-    241, 256, 257, 300, 304 and 305, where this tree must be faster in
-    every turn.  Returns {k: {turn label: mean ms}}."""
+    """With ``--parent`` (a tree whose K4 this one keeps): every K4
+    instance's ptxas line (rows, tile and panel forms) equal to the parent
+    build's; then K4 of this tree and of the parent tree at K4_PARENT_KS and
+    K4_PARENT_XL_KS, on a sweep's matrices (``_k4_sides``), the outputs
+    equal in bits, timed a sweep at a time by CUDA events in turns parent,
+    this, this, parent, within K4_SAME_TOL of the parent.  Returns {k:
+    {turn label: mean ms}}."""
     import torch
 
     from pmf_tpu_torch.ops import gj_inverse
 
     theirs: dict = {}
     _ptxas_report(open(str(PARENT["lib"]) + ".log").read(), theirs)
-    same_code = ("gj_inverse_rows_kernel", "gj_inverse_tile_kernel<")
-    mine = {n: v for n, v in PTXAS.items() if n.startswith(same_code)}
-    prev = {n: v for n, v in theirs.items() if n.startswith(same_code)}
+    mine = {n: v for n, v in PTXAS.items() if n.startswith("gj_inverse")}
+    prev = {n: v for n, v in theirs.items() if n.startswith("gj_inverse")}
     if not mine or mine != prev:
-        raise AssertionError(f"k4 parent: rows and tile instances' ptxas {mine} vs the "
-                             f"parent's {prev}")
-    log(f"  k4 parent: the {len(mine)} rows and tile instances' ptxas lines equal the "
-        "parent's")
+        raise AssertionError(f"k4 parent: K4's ptxas {mine} vs the parent's {prev}")
+    log(f"  k4 parent: the {len(mine)} K4 instances' ptxas lines equal the parent's")
     trees = {"this": gj_inverse, "parent": _parent_op("gj_inverse")}
     out = {}
     for k in K4_PARENT_KS + K4_PARENT_XL_KS:
-        turns, same, worst = [0.0] * len(K2_AB_TURNS), True, 0.0
+        turns, same = [0.0] * len(K2_AB_TURNS), True
         for n, seed in _k4_sides(k):
             P = _spd(n, k, seed)
             a, b = (trees[t].batched_psd_inverse_gj(P) for t in ("this", "parent"))
             same = same and torch.equal(a, b)
-            for r0 in range(0, n, K4_CHUNK):  # no n x K x K temporary
-                ca, cb = a[r0 : r0 + K4_CHUNK], b[r0 : r0 + K4_CHUNK]
-                worst = max(worst, float(((ca - cb).abs().amax(dim=(1, 2))
-                                          / cb.abs().amax(dim=(1, 2))).max()))
-            del a, b, ca, cb
+            del a, b
             reps = TIMING_REPS if k <= K_WIDE else 2
             for j, t in enumerate(K2_AB_TURNS):
                 turns[j] += cuda_ms(lambda t=t: trees[t].batched_psd_inverse_gj(P), reps=reps)
             del P
             torch.cuda.empty_cache()
-        if not worst <= INV_RTOL:
-            raise AssertionError(f"k4 parent K={k}: the trees differ by {worst} > {INV_RTOL}")
+        if not same:
+            raise AssertionError(f"k4 parent K={k}: the trees' outputs differ in bits")
         mean = {t: float(np.mean([ms for u, ms in zip(K2_AB_TURNS, turns) if u == t]))
                 for t in ("parent", "this")}
         out[k] = mean
         log(f"  k4 parent K={k}: turns "
             + ", ".join(f"{t} {ms:.4f}" for t, ms in zip(K2_AB_TURNS, turns))
             + f" ms a sweep | this / parent {mean['this'] / mean['parent'] - 1:+.2%} | "
-            f"outputs equal in bits: {same}, worst per-matrix difference {worst:.3e}")
-        mine_t = [ms for t, ms in zip(K2_AB_TURNS, turns) if t == "this"]
-        prev_t = [ms for t, ms in zip(K2_AB_TURNS, turns) if t == "parent"]
-        if k in K4_SAME_KS and not mean["this"] <= (1 + K4_SAME_TOL) * mean["parent"]:
+            "outputs equal in bits")
+        if not mean["this"] <= (1 + K4_SAME_TOL) * mean["parent"]:
             raise AssertionError(f"k4 parent K={k}: {mean} past {K4_SAME_TOL:.0%}")
-        if k in K4_PARENT_XL_KS and not max(mine_t) < min(prev_t):
-            raise AssertionError(f"k4 parent K={k}: this tree not faster in every turn")
-    slower = []
-    ks = sorted({k for k in _beside(gj_inverse.panel_boundary_ks(400)) if k >= 240}
-                | {241, 256, 257, 300, 304, 305})
-    for k in ks:
-        P = _spd(K4_PARENT_MATS, k, 80 + k)
-        turns = [cuda_ms(lambda t=t: trees[t].batched_psd_inverse_gj(P), reps=2)
-                 for t in K2_AB_TURNS]
-        del P
-        mine_t = [ms for t, ms in zip(K2_AB_TURNS, turns) if t == "this"]
-        prev_t = [ms for t, ms in zip(K2_AB_TURNS, turns) if t == "parent"]
-        out[k] = {"this": float(np.mean(mine_t)), "parent": float(np.mean(prev_t))}
-        if max(mine_t) >= min(prev_t):
-            slower.append(k)
-        log(f"  k4 parent K={k}, {K4_PARENT_MATS} matrices: turns "
-            + ", ".join(f"{t} {ms:.4f}" for t, ms in zip(K2_AB_TURNS, turns))
-            + f" ms | this / parent {out[k]['this'] / out[k]['parent'] - 1:+.2%}")
-    torch.cuda.empty_cache()
-    if slower:
-        raise AssertionError(f"k4 parent: this tree not faster in every turn at K {slower}")
     log(f"phase k4 parent: ok | {PARENT['dir']} | K {list(K4_PARENT_KS + K4_PARENT_XL_KS)} "
-        f"a sweep and every boundary from 240 to 400 on {K4_PARENT_MATS} matrices, in "
-        f"turns {', '.join(K2_AB_TURNS)}")
+        f"a sweep within {K4_SAME_TOL:.0%} of the parent, in turns {', '.join(K2_AB_TURNS)}")
     return out
 
 
@@ -3189,12 +3347,17 @@ COL_RTOL = 1e-4
 INV_RTOL = 1e-4
 
 
-def column_check(got, ref):
-    """(max abs error, worst column ratio max|got-ref| / max|ref|, ok)."""
+def column_check(got, ref, rows=1 << 14):
+    """(max abs error, worst column ratio max|got-ref| / max|ref|, ok), in
+    chunks of ``rows`` rows (no float64 copy of a whole output at once)."""
     import torch
 
-    diff = (got.double() - ref.double()).abs().amax(dim=0)
-    scale = ref.double().abs().amax(dim=0)
+    diff = torch.zeros(got.shape[1:], dtype=torch.float64, device=got.device)
+    scale = torch.zeros_like(diff)
+    for r in range(0, got.shape[0], rows):
+        g, f = got[r : r + rows].double(), ref[r : r + rows].double()
+        diff = torch.maximum(diff, (g - f).abs().amax(dim=0))
+        scale = torch.maximum(scale, f.abs().amax(dim=0))
     ratio = torch.where(diff == 0, torch.zeros_like(diff),
                         diff / scale.clamp_min(1e-300))
     return (float(diff.max()), float(ratio.max()),
@@ -3850,7 +4013,8 @@ def _gwide_reckoning(n_users, n_items, n_train, k, head_bytes):
     at the user block's update: the layout (the head budget and a tail of
     16 bytes an edge), the state, the user side's statistics table
     (N_users x (2K + T + 2)), K3's records of the item side (N_items x
-    factor_stride(K)), four N_users x K x K tensors at once (S_A, the
+    factor_stride(K)) and past K = 128 their slab-major copy, four N_users x
+    K x K tensors at once (S_A, the
     precisions, K4's output, the new covariances) and the ELBO's two
     N x K x K tables of the previous sweep (one a side)."""
     from pmf_tpu_torch.ops.gaussian_edge import factor_stride
@@ -3860,6 +4024,8 @@ def _gwide_reckoning(n_users, n_items, n_train, k, head_bytes):
              "state": 4 * (n_users + n_items) * (k + k * k + 1),
              "statistics": 4 * n_users * (2 * k + tri + 2),
              "K3 records": 4 * n_items * factor_stride(k),
+             # past K = 128 K3's slab-major copy of them, about their size
+             "K3 slab copy": 4 * n_items * factor_stride(k) if k > 128 else 0,
              "user block": 4 * 4 * n_users * k * k,
              "ELBO tables": 4 * (n_users + n_items) * k * k}
     return sum(parts.values()), parts
@@ -3981,9 +4147,10 @@ def phase_gwidefit(train, val, smi, k=GWIDE_K, n_users=N_USERS, n_items=N_ITEMS,
 
     # K5's kernel: the row groups, or past 64 words a row the wide form
     k5 = "tail_wide_kernel<3>" if launch_plan(k, "K5")["wide"] else K5_TRACE
-    expect = {"::factor_kernel": 2, "gj_inverse": 2, k5: 2}
+    k3 = _k3_trace(k, model.blocked)
+    expect = {**k3, "gj_inverse": 2, k5: 2}
     rows, busy, wall_ms = profile_once(one_sweep, expect)
-    groups = trace_parts(rows, {"K3 factor_kernel": ("::factor_kernel",),
+    groups = trace_parts(rows, {"K3 factor_kernel": tuple(k3),
                                 "K4 gj_inverse": ("gj_inverse",),
                                 f"K5 {k5.rstrip(',')}": (k5,)})[0]
     log_parts(groups, busy)
@@ -3994,7 +4161,8 @@ def phase_gwidefit(train, val, smi, k=GWIDE_K, n_users=N_USERS, n_items=N_ITEMS,
     glue = groups["other"]
     log(f"phase {label}: ok | GaussianMF K={k} exact, {n} sweeps | one sweep busy "
         f"{busy:.4f} ms of {wall_ms:.4f} ms (idle share {1 - busy / wall_ms:.1%}) | K4 "
-        f"{k4_ms:.4f} ms ({k4_ms / busy:.1%}), K3 {k3_ms:.4f} ms ({k3_ms / busy:.1%}), "
+        f"{k4_ms:.4f} ms ({k4_ms / busy:.1%}), K3 ({', '.join(k3)}) {k3_ms:.4f} ms "
+        f"({k3_ms / busy:.1%}), "
         f"head products {head:.4f} ms ({head / busy:.1%}), glue {glue:.4f} ms "
         f"({glue / busy:.1%}) | peak {(peak - held) / 1e9:.3f} GB above the held "
         f"(reckoned {reckon / 1e9:.3f}) | {smi}")
@@ -5516,7 +5684,15 @@ def main(argv=None) -> int:
     gc_cuda()
     huge.update(phase_huge_gauss(gblocked))
     huge["K9"] = k9["k160"]
-    del gblocked
+    gc_cuda()
+    xtrain, xval = phase_gxldata()
+    xl = _xl_layout(xtrain)
+    k3w = phase_k3wide(gblocked, xl)
+    huge["K3"] = k3w["bench"]
+    gc_cuda()
+    if PARENT:
+        phase_k3_parent(gblocked, xl)
+    del gblocked, xl
     gc_cuda()
     k4w = phase_k4wide()
     gc_cuda()
@@ -5533,7 +5709,6 @@ def main(argv=None) -> int:
     gc_cuda()
     gwide = phase_gwidefit(gtrain, gval, smi)
     gc_cuda()
-    xtrain, xval = phase_gxldata()
     gxl = phase_gwidefit(xtrain, xval, smi, k=XL_K, n_users=XL_USERS, n_items=XL_ITEMS,
                          head_bytes=0, label="gxlfit")
     del xtrain, xval
@@ -5583,7 +5758,15 @@ def main(argv=None) -> int:
               note="precision \"fast\" (engine blocked_fast): one bf16 term a "
                    "product; launches from phase fastfit's blocked_fast fits"),
         entry("gaussian_factor_tail", gsrc,
-              "pmf_tpu/ops/pallas/gaussian_edge.py:90", k3, glaunches["K3"], "K3"),
+              "pmf_tpu/ops/pallas/gaussian_edge.py:90", k3, glaunches["K3"], "K3",
+              **{f"{key}_k{k}_xl": v[key] for k, v in k3w["xl"].items()
+                 for key in ("ms", "bound_ms", "library_ms")},
+              **{f"forms_k{k}_xl": v["forms"] for k, v in k3w["xl"].items()},
+              forms_k160=k3w["bench"]["forms"],
+              launches_k256_xl=gxl["launches"]["K3"], sweep_ms_k256_xl=gxl["k3_ms"],
+              note="_k160: the bench tail (phase k3wide); _k256_xl, _k300_xl: the "
+                   f"{XL_USERS} x {XL_ITEMS} CSR of phase gxlfit; sweep_ms_k256_xl: K3's "
+                   "share of its traced sweep"),
         entry("gj_inverse", "pmf_tpu_torch/csrc/gj_inverse.cu",
               "pmf_tpu/ops/pallas/gj_inverse.py:25", k4, glaunches["K4"], "K4",
               **{f"library_ms_k{K_WIDE}": k4_lib50,

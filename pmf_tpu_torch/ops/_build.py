@@ -34,6 +34,7 @@ class KernelError(RuntimeError):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
 # C entry points: name -> argtypes (every entry returns cudaError_t as int).
 SIGNATURES = {
     # e_self, e_other, row_ptr, other, x, n_self, n_long, K, rate_floor, out,
@@ -48,8 +49,12 @@ SIGNATURES = {
     # the same, precision "fast" (one bf16 term a product)
     "pmf_dense_head_tier_fast": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                                  _P, _P, _P, _P],
-    # aug, stride, row_ptr, other, x, n_self, K, with_bias_stats, out, stream
-    "pmf_gauss_factor": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P],
+    # aug, stride, row_ptr, other, x, n_self, K, with_bias_stats, n_other, nnz,
+    # pairs, l2_bytes (the plan's inputs), gp_other, gp_ptr, gw_ptr, w_off,
+    # e_slot, e_x (the group form's schedule, or nulls), slabs (the wide
+    # forms' slab-major copy of the table), out, stream
+    "pmf_gauss_factor": [_P, _I, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L,
+                         _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # mb_other, row_ptr, other, x, n_self, n_long, K, out, stream
     "pmf_gauss_bias": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     # mb_self, mb_other, sq_other, row_ptr, other, x, n_self, n_long, K, out,

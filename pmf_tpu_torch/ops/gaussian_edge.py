@@ -26,6 +26,7 @@ raise), on CPU tensors they run their ``*_plain`` versions.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -53,12 +54,30 @@ FACTOR_LAUNCHES = _build.LaunchCounter()
 BIAS_LAUNCHES = _build.LaunchCounter()
 DIAG_LAUNCHES = _build.LaunchCounter()
 # Past K = 30 the factor pass cuts its K + 1 + K(K+1)/2 record floats into
-# chunks of 512 on grid.y; past K = 128 its wide instance takes the factors
-# from every load of the first chunks and b_o by a load of its own.  The
-# bias and diag passes are row-group kernels (csrc/tail_groups.cuh).
+# chunks of 512 on grid.y; past K = 128 one of two wide forms walks them
+# (factor_plan, csrc/gaussian_edge.cu's host plan block: change them
+# together).  The bias and diag passes are row-group kernels
+# (csrc/tail_groups.cuh).
 FACTOR_WHOLE_RECORD_MAX_K = 30  # csrc/gaussian_edge.cu: kWholeRecordMaxK
 FACTOR_CHUNK = 512  # record floats a chunk past it (kChunkNV float4 loads a lane)
 FACTOR_NARROW_MAX_K = 128  # kNarrowMaxK: the factors in the chunk's first load
+FACTOR_EDGES = 4  # kEdges: edges in flight a warp to K = 128
+FACTOR_SLAB_MAX_CHUNK = 512  # kSlabMaxChunk: the slab form's widest chunk
+FACTOR_SLAB_MIN_CHUNK = 64  # kSlabMinChunk: and its narrowest (8 sectors)
+FACTOR_SLAB_L2_DIV = 1  # kSlabL2Div: the column slab fills at most the L2
+FACTOR_SLAB_NV = 4  # kSlabNV: float4s a lane a record chunk (chunk / 16 lanes a row)
+FACTOR_SLAB_EDGES = 2  # kSlabEdges: edges in flight a row
+FACTOR_GROUP_ROWS = 32  # kGroupRows: self rows a CTA of the group form
+FACTOR_GROUP_CHUNK = 128  # kGroupChunk: record floats a chunk there
+FACTOR_GROUP_SLOTS = 64  # kGroupSlots: other records a window of shared memory
+FACTOR_GROUP_EDGES = 4  # kGroupEdges: edges in flight a warp there
+FACTOR_GROUP_STAGES = 2  # kGroupStages: windows in the shared-memory ring
+FACTOR_GROUP_CTAS = 3  # kGroupCtas: CTAs an SM, the launch bound
+FACTOR_GROUP_MIN_REUSE_X4 = 8  # kGroupMinReuseX4: the group form from 2 edges a pair
+# The L2 of an H100 (torch.cuda.get_device_properties().L2_cache_size),
+# the plan's default where no card is asked.
+H100_L2_BYTES = 50 * 1024 * 1024
+FACTOR_FORMS = ("whole", "chunked", "slab", "group")  # the C enum FactorForm
 
 
 def tri_size(k: int) -> int:
@@ -103,24 +122,173 @@ def factor_stride(k: int) -> int:
 
 def factor_boundary_ks() -> list:
     """The first K of each form of K3: the whole record in a warp's loads,
-    chunks of FACTOR_CHUNK floats on grid.y, the wide instance, and b_o past
-    the first chunk (K + 1 > FACTOR_CHUNK).  The tests and chip_smoke.py hold
-    K3 on both sides of each."""
-    return [1, FACTOR_WHOLE_RECORD_MAX_K + 1, FACTOR_NARROW_MAX_K + 1, FACTOR_CHUNK]
+    chunks of FACTOR_CHUNK floats on grid.y, the wide forms (``factor_plan``:
+    their chunk and form follow the data, not K), and b_o past the first
+    chunk of the slab form's widest (K + 1 > FACTOR_SLAB_MAX_CHUNK).  The
+    tests and chip_smoke.py hold K3 on both sides of each."""
+    return [1, FACTOR_WHOLE_RECORD_MAX_K + 1, FACTOR_NARROW_MAX_K + 1,
+            FACTOR_SLAB_MAX_CHUNK]
 
 
-def factor_reckoning(p: TailCSR, K: int, with_bias_stats: bool = False) -> dict:
-    """K3's bytes two ways, each with the edges' ids and ratings read and
-    the output written once: ``per_edge`` gathers a record an edge (the
-    32-byte sectors it spans), ``table_once`` reads the table once.  One
-    reduction over the edges, on their device."""
+def factor_plan(k: int, n_other: int, nnz: int = 0, pairs: int = 0,
+                l2_bytes: int = H100_L2_BYTES) -> dict:
+    """K3's form and geometry (``csrc/gaussian_edge.cu``'s ``factor_plan``)
+    for ``k`` factors over a table of ``n_other`` records and a CSR of
+    ``nnz`` edges with ``pairs`` distinct (group of FACTOR_GROUP_ROWS self
+    rows, other row) pairs (0: not counted), on a card of ``l2_bytes`` of
+    L2.  ``form``: "whole" (K <= 30, one warp a row and its whole record),
+    "chunked" (K <= 128, chunks of 512 floats); past K = 128 "group" where
+    the CSR has at least FACTOR_GROUP_MIN_REUSE_X4 / 4 edges a pair, else
+    "slab".  ``chunk``: record floats a chunk (the slab form's widest of
+    512 .. 64 whose column slab, n_other x chunk floats, fills at most 1 /
+    FACTOR_SLAB_L2_DIV of L2, FACTOR_SLAB_NV float4s a lane); ``lanes`` a
+    self row, ``edges`` in flight, ``rows`` a CTA, ``smem_bytes`` a CTA,
+    ``chunks`` a record."""
+    _build.check_k(k, "factor kernel")
+    stride = factor_stride(k)
+    if k <= FACTOR_WHOLE_RECORD_MAX_K:
+        form, chunk, lanes, edges, rows, smem = ("whole", -(-stride // 128) * 128, 32,
+                                                 FACTOR_EDGES, 8, 0)
+    elif k <= FACTOR_NARROW_MAX_K:
+        form, chunk, lanes, edges, rows, smem = "chunked", FACTOR_CHUNK, 32, FACTOR_EDGES, 8, 0
+    elif pairs > 0 and 4 * nnz >= FACTOR_GROUP_MIN_REUSE_X4 * pairs:
+        form, chunk, lanes, edges = "group", FACTOR_GROUP_CHUNK, 32, FACTOR_GROUP_EDGES
+        rows = FACTOR_GROUP_ROWS
+        smem = FACTOR_GROUP_STAGES * FACTOR_GROUP_SLOTS * (FACTOR_GROUP_CHUNK + 1) * 4
+    else:
+        chunk = FACTOR_SLAB_MAX_CHUNK
+        while (chunk > FACTOR_SLAB_MIN_CHUNK
+               and n_other * chunk * 4 > l2_bytes // FACTOR_SLAB_L2_DIV):
+            chunk //= 2
+        lanes = chunk // (4 * FACTOR_SLAB_NV)
+        form, edges, rows, smem = "slab", FACTOR_SLAB_EDGES, 8 * (32 // lanes), 0
+    return dict(form=form, chunk=chunk, lanes=lanes, edges=edges, rows=rows,
+                smem_bytes=smem, chunks=-(-stride // chunk), stride=stride)
+
+
+@dataclasses.dataclass(frozen=True)
+class FactorSchedule:
+    """The group form's schedule of one CSR (``build_factor_schedule``):
+    its self rows in groups of FACTOR_GROUP_ROWS, each group's distinct
+    other rows ascending (``gp_other`` from ``gp_ptr[g]``) cut into windows
+    of FACTOR_GROUP_SLOTS (the group's first at ``gw_ptr[g]``), and the
+    edges ordered by (group, window, row, slot), so that each row sums its
+    edges in the order of their other ids: ``e_slot`` the edge's slot in its
+    window, ``e_x`` its rating, and row r's edges of window w from
+    ``w_off[w * FACTOR_GROUP_ROWS + r]``.  ``pairs``: the distinct (group,
+    other) pairs; the arrays are None where the plan takes the slab form.
+    ``key``: the CSR's tensors it was built from."""
+
+    pairs: int
+    nnz: int
+    rows: int
+    n_other: int
+    key: tuple
+    geometry: tuple = (FACTOR_GROUP_ROWS, FACTOR_GROUP_SLOTS)  # (rows a group, slots a window)
+    gp_other: torch.Tensor | None = None
+    gp_ptr: torch.Tensor | None = None
+    gw_ptr: torch.Tensor | None = None
+    w_off: torch.Tensor | None = None
+    e_slot: torch.Tensor | None = None
+    e_x: torch.Tensor | None = None
+
+    @property
+    def grouped(self) -> bool:
+        return self.e_slot is not None
+
+    def arrays(self) -> tuple:
+        return (self.gp_other, self.gp_ptr, self.gw_ptr, self.w_off, self.e_slot, self.e_x)
+
+
+def _csr_key(row_ptr, other, x) -> tuple:
+    return tuple((t.data_ptr(), tuple(t.shape)) for t in (row_ptr, other, x))
+
+
+def _self_rows(row_ptr, nnz: int) -> torch.Tensor:
+    """Each edge's self row."""
+    return torch.repeat_interleave(torch.arange(row_ptr.shape[0] - 1, device=row_ptr.device),
+                                   row_ptr[1:] - row_ptr[:-1], output_size=nnz)
+
+
+def group_pairs(row_ptr, other, n_other: int) -> int:
+    """The distinct (group of FACTOR_GROUP_ROWS consecutive self rows, other
+    row) pairs of a CSR: the records the group form stages, each once."""
+    if other.shape[0] == 0:
+        return 0
+    g = _self_rows(row_ptr, other.shape[0]) // FACTOR_GROUP_ROWS
+    return int(torch.unique(g * n_other + other.long()).numel())
+
+
+def build_factor_schedule(row_ptr, other, x, n_other: int,
+                          grouped: bool | None = None) -> FactorSchedule:
+    """The group form's schedule of a CSR (``FactorSchedule``), on its
+    device, by sorts alone (the same arrays on every run).  ``grouped``
+    None: the arrays where ``factor_plan`` takes the group form past
+    K = 128 (enough edges a pair), only the pair count elsewhere; True or
+    False builds them or not whatever the count."""
+    G, S = FACTOR_GROUP_ROWS, FACTOR_GROUP_SLOTS
+    rows, nnz, dev = row_ptr.shape[0] - 1, other.shape[0], row_ptr.device
+    key = _csr_key(row_ptr, other, x)
+    if nnz == 0:
+        return FactorSchedule(0, 0, rows, n_other, key, (G, S))
+    row = _self_rows(row_ptr, nnz)
+    g = row // G
+    uk, inv = torch.unique(g * n_other + other.long(), sorted=True, return_inverse=True)
+    pairs = int(uk.numel())
+    if grouped is None:
+        grouped = factor_plan(FACTOR_NARROW_MAX_K + 1, n_other, nnz, pairs)["form"] == "group"
+    if not grouped:
+        return FactorSchedule(pairs, nnz, rows, n_other, key, (G, S))
+    n_groups = -(-rows // G)
+    ug = uk // n_other
+    gp_ptr = torch.searchsorted(ug, torch.arange(n_groups + 1, device=dev))
+    slot = inv - gp_ptr[g]
+    n_win = (gp_ptr[1:] - gp_ptr[:-1] + S - 1) // S
+    gw_ptr = torch.cat([n_win.new_zeros(1), torch.cumsum(n_win, 0)])
+    n_windows = int(gw_ptr[-1])
+    cell = (gw_ptr[g] + slot // S) * G + (row - g * G)  # (window, row in the group)
+    perm = torch.sort(cell * S + slot % S, stable=True).indices
+    counts = torch.bincount(cell, minlength=n_windows * G)
+    w_off = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return FactorSchedule(
+        pairs, nnz, rows, n_other, key, (G, S), gp_other=(uk - ug * n_other).int(),
+        gp_ptr=gp_ptr.long(), gw_ptr=gw_ptr.int(), w_off=w_off.long(),
+        e_slot=(slot % S)[perm].int(), e_x=x[perm].float().contiguous())
+
+
+def factor_schedule(p: TailCSR) -> FactorSchedule:
+    """``build_factor_schedule`` of a layout's CSR, built once and kept on
+    the TailCSR beside its ``long_rows`` (not a field: ``band_of`` and
+    ``dataclasses.replace`` do not carry it to another CSR)."""
+    s = p.__dict__.get("_factor_schedule")
+    if s is None:
+        s = build_factor_schedule(p.row_ptr, p.other, p.x, p.n_other)
+        object.__setattr__(p, "_factor_schedule", s)
+    return s
+
+
+def factor_reckoning(p: TailCSR, K: int, with_bias_stats: bool = False,
+                     l2_bytes: int = H100_L2_BYTES) -> dict:
+    """K3's bytes, each with the edges' ids and ratings read and the output
+    written once: ``per_edge`` gathers a record an edge (the 32-byte
+    sectors it spans), ``table_once`` reads the table once, ``grouped``
+    reads each distinct (group, other row) pair's record once (the group
+    form's staging, ``group_pairs``); ``csr_rereads``: the bytes of ids and
+    ratings that the slab form's chunks after the first read again, at the
+    chunk ``factor_plan`` gives this table.  Reductions over the edges, on
+    their device."""
     T = tri_size(K)
     rec = 4 * (K + 1 + T)
     row_out = 4 * (2 * K + T + (2 if with_bias_stats else 0))
-    fixed = p.nnz * (4 + p.x.element_size()) + p.n_self * row_out
+    edge_bytes = 4 + p.x.element_size()
+    fixed = p.nnz * edge_bytes + p.n_self * row_out
     off = (p.other.long() * (4 * factor_stride(K))) % 32
     sectors = int(torch.sum((off + rec + 31) // 32))
-    return {"per_edge": fixed + 32 * sectors, "table_once": fixed + p.n_other * rec}
+    slab = factor_plan(max(K, FACTOR_NARROW_MAX_K + 1), p.n_other, l2_bytes=l2_bytes)
+    chunks = -(-factor_stride(K) // slab["chunk"])
+    return {"per_edge": fixed + 32 * sectors, "table_once": fixed + p.n_other * rec,
+            "grouped": fixed + group_pairs(p.row_ptr, p.other, p.n_other) * rec,
+            "csr_rereads": p.nnz * edge_bytes * (chunks - 1)}
 
 
 def factor_tail_stats_plain(aug, row_ptr, other, x, K: int,
@@ -146,15 +314,24 @@ def factor_tail_stats_plain(aug, row_ptr, other, x, K: int,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def device_l2_bytes(device: torch.device) -> int:
+    """The card's L2 in bytes, factor_plan's input."""
+    return torch.cuda.get_device_properties(device).L2_cache_size
+
+
 def factor_tail_stats(aug, row_ptr, other, x, K: int,
-                      with_bias_stats: bool = False) -> torch.Tensor:
+                      with_bias_stats: bool = False,
+                      schedule: FactorSchedule | None = None) -> torch.Tensor:
     """K3: the factor tail pass.  CUDA tensors launch the kernel, on a
-    table padded to ``factor_stride(K)`` columns (``factor_table``); CPU
-    tensors run the plain version, which also takes an unpadded table."""
+    table padded to ``factor_stride(K)`` columns (``factor_table``), in the
+    form ``factor_plan`` gives; past K = 128 it reads ``schedule`` (the
+    CSR's ``build_factor_schedule``, kept by ``factor_schedule`` on a
+    layout's TailCSR; built here when None).  CPU tensors run the plain
+    version, which also takes an unpadded table."""
     if not aug.is_cuda:
         return factor_tail_stats_plain(aug, row_ptr, other, x, K, with_bias_stats)
     _build.check_k(K, "factor kernel")
-    T = tri_size(K)
     stride = factor_stride(K)
     if aug.dim() != 2 or aug.shape[1] != stride:
         raise ValueError(f"aug must be (n_other, {stride}): [m | b | tri] padded to "
@@ -163,10 +340,50 @@ def factor_tail_stats(aug, row_ptr, other, x, K: int,
     _check_tail_args([("aug", aug)], row_ptr, other, x, n_self)
     if aug.data_ptr() % 16:
         raise ValueError("aug must start on 16 bytes")
+    if K > FACTOR_NARROW_MAX_K and schedule is None:
+        schedule = build_factor_schedule(row_ptr, other, x, aug.shape[0])
+    return launch_factor(aug, row_ptr, other, x, K, with_bias_stats, schedule)
+
+
+def factor_tail_of(aug, p: TailCSR, K: int, with_bias_stats: bool = False) -> torch.Tensor:
+    """``factor_tail_stats`` over a layout's CSR ``p``, reading its kept
+    schedule (``factor_schedule``) where the card runs a wide form."""
+    wide = aug.is_cuda and K > FACTOR_NARROW_MAX_K
+    return factor_tail_stats(aug, p.row_ptr, p.other, p.x, K, with_bias_stats,
+                             schedule=factor_schedule(p) if wide else None)
+
+
+def launch_factor(aug, row_ptr, other, x, K: int, with_bias_stats: bool,
+                  schedule: FactorSchedule | None, pairs: int | None = None,
+                  l2: int | None = None) -> torch.Tensor:
+    """Launch K3 on checked CUDA tensors in the form ``factor_plan`` gives
+    for its inputs: the table's rows, the edges, ``pairs`` (the schedule's
+    count when None; past K = 128 a schedule must be given) and ``l2``
+    bytes (the card's when None).  A phase that times the forms side by
+    side passes the plan other inputs."""
+    T = tri_size(K)
+    stride = factor_stride(K)
+    n_self, n_other, nnz = row_ptr.shape[0] - 1, aug.shape[0], other.shape[0]
+    arrays, slabs = (None,) * 6, None
+    if K > FACTOR_NARROW_MAX_K:
+        if schedule.key != _csr_key(row_ptr, other, x) or schedule.n_other != n_other:
+            raise ValueError("schedule was built for another CSR or table")
+        pairs = schedule.pairs if pairs is None else pairs
+    _build.load_library()  # a failed build raises before the card is asked
+    l2 = device_l2_bytes(aug.device) if l2 is None else l2
+    if K > FACTOR_NARROW_MAX_K:
+        plan = factor_plan(K, n_other, nnz, pairs, l2)
+        if plan["form"] == "group":
+            if not schedule.grouped or schedule.geometry != (plan["rows"], FACTOR_GROUP_SLOTS):
+                raise ValueError("the group form needs the schedule's arrays at its "
+                                 "geometry")
+            arrays = schedule.arrays()
+        slabs = aug.new_empty(plan["chunks"] * max(n_other, 1) * plan["chunk"])
     out = torch.empty((n_self, 2 * K + T + (2 if with_bias_stats else 0)),
                       dtype=torch.float32, device=aug.device)
     _build.launch("pmf_gauss_factor", FACTOR_LAUNCHES, aug.device, aug, stride, row_ptr,
-                  other, x, n_self, K, int(with_bias_stats), out)
+                  other, x, n_self, K, int(with_bias_stats), n_other, nnz, pairs or 0, l2,
+                  *arrays, slabs, out)
     return out
 
 
@@ -323,7 +540,7 @@ def gaussian_factor_stats(m_other, V_other, b_self, b_other, p: TailCSR,
                        p.other_old_of_new if p.reordered else None)
     del A_flat
     heads = _check_head(p, head)
-    out = unband(factor_tail_stats(aug, p.row_ptr, p.other, p.x, K, with_bias_stats), p)
+    out = unband(factor_tail_of(aug, p, K, with_bias_stats), p)
     out = _add_heads(out, [_gauss_head_out(t, aug, K, T, with_bias_stats,
                                            head_side, precision) for t in heads])
     if p.reordered:

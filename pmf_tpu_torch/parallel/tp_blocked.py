@@ -584,7 +584,7 @@ def tp_sweep_gaussian_blocked(state: dict, layout: TPBlockedLayout, sigma2,
     from pmf_tpu_torch.models.gaussian_mf import (
         _bias_block_lagged, _bias_update, _finish_diag, _finish_factor)
     from pmf_tpu_torch.ops.gaussian_edge import (
-        bias_tail_stats, diag_tail_stats, factor_table, factor_tail_stats, tri_size,
+        bias_tail_stats, diag_tail_stats, factor_table, factor_tail_of, tri_size,
         unpack_tri)
     from pmf_tpu_torch.ops.solve import batched_psd_inverse
 
@@ -614,8 +614,7 @@ def tp_sweep_gaussian_blocked(state: dict, layout: TPBlockedLayout, sigma2,
         A_flat = (V_other + m_other[:, :, None] * m_other[:, None, :]).reshape(-1, K * K)
         aug = factor_table(m_other, bias_col(b_other), A_flat, other_o2n)
         acc = _pass(buckets, [aug], 2 * K + T + (2 if lagged else 0),
-                    lambda b, t: factor_tail_stats(t[0], b.tail.row_ptr, b.tail.other,
-                                                   b.tail.x, K, lagged),
+                    lambda b, t: factor_tail_of(t[0], b.tail, K, lagged),
                     n_self, m_self, mesh)
         out = acc[self_perm].to(m_self.dtype)
         S_w, S_m = out[:, :K], out[:, K : 2 * K]
