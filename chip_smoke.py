@@ -15,7 +15,13 @@ same turns and at 240, 256, 300 and 384 on the K = 256 fit's sides, within
 phase k3 parent (after k3wide) times both trees' K3 a sweep in the same
 turns at K = 20, 50, 80, 128 on the bench's Gaussian tail (within 3%, the
 same code) and at K = 160 there and K = 256 on the XL CSR (faster in every
-turn), its output equal in bits where the plan's form sums in CSR order.
+turn), its output equal in bits where the plan's form sums in CSR order;
+phase tail parent (after huge timing) holds every row-group instance this
+tree keeps to the parent build's ptxas line, K1 "cavi" (K = 20, 50, 128)
+and K7 (K = 20, 50, 127) equal in bits and within 3% of the parent, K1
+raw, K5, K6 and K8 equal in bits, and logs both trees' K1 "cavi", K1 raw
+and K7 in turns at K = 160, 200, 256, 300 and 512 (the dot form against
+the parent's register and wide forms).
 
 Phases, one status line each; any failure exits non-zero and prints no
 result line:
@@ -109,7 +115,8 @@ real tail, tiers, matrices and steps; "huge timing": the same at K = 160
 with the bound at K = 160 (K2 at both K also against its plain version on
 every tier, its launch plan logged with passes over the cells and the
 instance's registers and spills; the library forms of K1 raw, K3, K5 and
-K8).  After huge timing, phase k3wide: K3's wide forms (``factor_plan``: the
+K8, and K7's S_wother half; each row-group kernel's per-edge sector
+reckoning beside its time).  After huge timing, phase k3wide: K3's wide forms (``factor_plan``: the
 slab form, its chunk sized to L2, or the group form where rows share other
 rows) on the bench's Gaussian tail at K = 160 and on the XL CSR (phase
 gxldata's) at K = 256 and 300, both directions: the plan, the kernel
@@ -125,7 +132,12 @@ and at 239, every K4 instance's ptxas line, and its time at K = 80, 128,
 bounds.  After phase resume, phase hugefit:
 ``HPF(n_factors=160)`` and ``HPF(n_factors=50)`` at full width, 4 sweeps
 each with launch counters, one sweep traced (K2, K1, the rest), read by
-phase roofline as hpf_k160 and hpf_k50.
+phase roofline as hpf_k160 and hpf_k50; then phase exthugefit:
+``PoissonMF(n_factors=160, extended=True)`` at full width, 4 sweeps with
+launch counters (K7 and K8 twice a sweep, K2 twice a tier), finite state,
+a val RMSE that never rises, the fit's peak memory, one steady sweep by
+CUDA events (read by phase roofline as ext_k160) and one traced for the
+shares of K2, K7 and K8.
 
 Those are freed, then the Gaussian-MF CAVI path:
 
@@ -903,13 +915,16 @@ def _tail_tabs(kid, n_self, n_other, k, seed):
     return (mb_o,) if kid == "K5" else (record_table(m_s, b_s), mb_o, padded_rows(sq_o))
 
 
-def _tail_kernel(kid, tabs, p, k):
+def _tail_kernel(kid, tabs, p, k, mods=None):
     """The kept K1 ("K1", "K1raw"), K7, K5, K6 or K8 wrapper on padded
-    tables, as the fits call it (``p.long_rows`` rows a warp each)."""
+    tables, as the fits call it (``p.long_rows`` rows a warp each); ``mods``
+    another tree's (cavi_edge, ext_edge, gaussian_edge) modules."""
     from pmf_tpu_torch.ops import cavi_edge as ce
     from pmf_tpu_torch.ops import ext_edge as ee
     from pmf_tpu_torch.ops import gaussian_edge as ge
 
+    if mods is not None:
+        ce, ee, ge = mods
     kw = dict(K=k, long_rows=p.long_rows)
     if kid == "K1raw":
         return ce.tail_edge_stats(*tabs, p.row_ptr, p.other, None, mode="raw", **kw)
@@ -1422,8 +1437,11 @@ def phase_wide_poisson(blocked, k=K_WIDE):
     "high" at RTOL, "fast" at FAST_SMALL_RTOL, one bf16 step of W (at K =
     160 the kernel's R, summed chunk by chunk, flips more of W's roundings
     than at K = 20, and a head column of few cells shows a flip whole),
-    with the share of elements past FAST_RTOL logged.  Returns {kid: {ms,
-    bound_ms, bound_by}}."""
+    with the share of elements past FAST_RTOL logged.  Beside each tail
+    kernel's time its per-edge sector reckoning (``_tail_reckoning``), and
+    K7's S_wother half alone by torch.sparse.mm (note (b) of PERF.md's
+    kernel table).  Returns {kid: {ms, bound_ms, bound_by, library_ms}}, the
+    tail kernels with ``sector_ms`` and K7 with ``half_ms``."""
     import torch
 
     from pmf_tpu_torch.ops._tail import padded_rows
@@ -1436,8 +1454,8 @@ def phase_wide_poisson(blocked, k=K_WIDE):
     reps = TIMING_REPS if k <= K_WIDE else 3
     kids = ("K1", "K1raw", "K2", "K2fast", "K7", "K8")
     ms, n_bytes, n_flops = (dict.fromkeys(kids, 0.0) for _ in range(3))
-    tail_worst, lib_ms = {}, {}
-    for p in (blocked.by_user, blocked.by_item):
+    tail_worst, lib_ms, sectors = {}, {}, {}
+    for name, p in (("user", blocked.by_user), ("item", blocked.by_item)):
         es, eo, so = _pos(gen, p.n_self, k), _pos(gen, p.n_other, k), _pos(gen, p.n_other)
         es_p, eo_p, rec = padded_rows(es), padded_rows(eo), es_record(eo, so)
         csr = p.row_ptr.nbytes + p.other.nbytes
@@ -1456,9 +1474,15 @@ def phase_wide_poisson(blocked, k=K_WIDE):
                 raise AssertionError(f"wide {kid} K={k} on the real tail: relative "
                                      f"error {err} > {RTOL}")
             tail_worst[kid] = max(tail_worst.get(kid, 0.0), err)
-            ms[kid] += cuda_ms(lambda: _tail_kernel(kid, tabs, p, k), reps=reps)
+            dir_ms = cuda_ms(lambda: _tail_kernel(kid, tabs, p, k), reps=reps)
+            ms[kid] += dir_ms
+            if k == K_HUGE and kid in ("K1", "K7"):  # the long rows alone (the dot form)
+                _tail_notes(kid, name, tabs, p, k, dir_ms, 4 * p.n_self * 2 * k)
             n_bytes[kid] += nb
             n_flops[kid] += p.nnz * flops
+            out_bytes = 4 * p.n_self * (1 if kid == "K8" else 2 * k)
+            sectors[kid] = sectors.get(kid, 0) + _tail_reckoning(
+                kid, p, k, tabs[0].nbytes, out_bytes)
         # The linear kernels' library forms (notes (e), (g) of PERF.md's
         # kernel table), on the same tables: K1 raw as e_s * S and S, S =
         # sparse.mm(pattern, e_o); K8 as the row dot of e_s with
@@ -1474,7 +1498,11 @@ def phase_wide_poisson(blocked, k=K_WIDE):
 
         for kid, fn in (("K1raw", k1raw_lib), ("K8", k8_lib)):
             lib_ms[kid] = lib_ms.get(kid, 0.0) + cuda_ms(fn, reps=reps)
-        del es, eo, so, es_p, eo_p, rec, pattern
+        # K7's S_wother half alone (its allocation half has no library form)
+        half = lambda so=so, eo=eo, pattern=pattern: torch.sparse.mm(  # noqa: E731
+            pattern, so[:, None] * eo)
+        lib_ms["K7 half"] = lib_ms.get("K7 half", 0.0) + cuda_ms(half, reps=reps)
+        del es, eo, so, es_p, eo_p, rec, pattern, half
     lines = {"K2": {}, "K2fast": {}}
     worst = dict.fromkeys(lines, 0.0)
     past, n_out = 0, 0  # K2fast elements past FAST_RTOL
@@ -1523,12 +1551,19 @@ def phase_wide_poisson(blocked, k=K_WIDE):
         else:
             b_ms, b_by = bound(n_bytes[kid], n_flops[kid])
         out[kid] = dict(ms=ms[kid], bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms.get(kid))
+        if kid in sectors:
+            out[kid]["sector_ms"] = sectors[kid] / HBM_BYTES_PER_S * 1e3
+    out["K7"]["half_ms"] = lib_ms["K7 half"]
     log(f"phase {'bigk' if k == K_WIDE else 'huge'} timing (Poisson, real data, K={k}): "
         "ok | per sweep "
         + ", ".join(f"{n} {v['ms']:.4f} ms" + (f" (bound {v['bound_ms']:.4f}, "
                                                   f"{v['bound_by']})" if "bound_ms" in v
                                                   else "")
+                    + (f" per-edge sectors {v['sector_ms']:.4f} ms" if "sector_ms" in v
+                       else "")
                     + (f" library {v['library_ms']:.4f} ms" if v["library_ms"] else "")
+                    + (f" S_wother half by torch.sparse.mm {v['half_ms']:.4f} ms"
+                       if "half_ms" in v else "")
                     for n, v in out.items())
         + " | tail vs plain, both directions: worst rel "
         + ", ".join(f"{n} {v:.3e}" for n, v in tail_worst.items())
@@ -1554,7 +1589,7 @@ def phase_huge_gauss(blocked):
     gen = torch.Generator(device="cuda").manual_seed(6)
     kids = ("K5", "K6", "K4")
     ms, n_bytes, n_flops = (dict.fromkeys(kids, 0.0) for _ in range(3))
-    worst, lib_ms = {}, {}
+    worst, lib_ms, sectors = {}, {}, {}
     for p in (blocked.by_user, blocked.by_item):
         ones = _csr_ones(p)
         m_s, m_o = 0.1 * _pos(gen, p.n_self, k), 0.1 * _pos(gen, p.n_other, k)
@@ -1576,6 +1611,9 @@ def phase_huge_gauss(blocked):
             ms[kid] += cuda_ms(lambda: _tail_kernel(kid, tabs, p, k), reps=3)
             n_bytes[kid] += nb
             n_flops[kid] += p.nnz * flops
+            sectors[kid] = sectors.get(kid, 0) + _tail_reckoning(
+                kid, p, k, sum(tabs[i].nbytes for i in SELF_TABS[kid]),
+                4 * p.n_self * (k + 2 if kid == "K5" else 3 * k))
         mb = torch.cat([m_o, b_o[:, None]], dim=1)  # note (b): K5's CSR-ones @ [m | b]
         lib_ms["K5"] = lib_ms.get("K5", 0.0) + cuda_ms(lambda: torch.sparse.mm(ones, mb),
                                                        reps=3)
@@ -1589,12 +1627,15 @@ def phase_huge_gauss(blocked):
         torch.cuda.empty_cache()
     b_bytes, b_ops = _k4_bounds(N_USERS + N_ITEMS, k)
     out = {kid: dict(ms=ms[kid], library_ms=lib_ms.get(kid),
+                     sector_ms=sectors[kid] / HBM_BYTES_PER_S * 1e3,
                      **dict(zip(("bound_ms", "bound_by"), bound(n_bytes[kid], n_flops[kid]))))
            for kid in ("K5", "K6")}
     out["K4"] = dict(ms=ms["K4"], bound_ms=max(b_bytes, b_ops),
                      bound_by="bytes" if b_bytes >= b_ops else "operations")
     log(f"phase huge timing (Gaussian, real data, K={k}): ok | per sweep "
         + ", ".join(f"{n} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, {v['bound_by']})"
+                    + (f" per-edge sectors {v['sector_ms']:.4f} ms" if "sector_ms" in v
+                       else "")
                     + (f" library {v['library_ms']:.4f} ms" if v.get("library_ms") else "")
                     for n, v in out.items())
         + f" | K3 in phase k3wide | K4 on {N_USERS} + {N_ITEMS} matrices | tail vs "
@@ -1774,6 +1815,87 @@ def phase_k3_parent(gblocked, xl):
         torch.cuda.empty_cache()
     log(f"phase k3 parent: ok | {PARENT['dir']} | bench K {list(K3_PARENT_SAME_KS)} within "
         f"{K3_SAME_TOL:.0%}, K={K_HUGE} and XL K={XL_K} faster in every turn")
+
+
+# Phase tail parent: K1 "cavi" and K7 at the K of their unchanged register
+# form (equal bits, within TAIL_SAME_TOL of the parent), then at the K of
+# the dot form (turns logged); K1 raw at all of them; K1 raw, K5, K6 and K8
+# (unchanged at every K) equal in bits at TAIL_SAME_KS["K1"] and the dot K.
+TAIL_SAME_KS = {"K1": (K, K_WIDE, 128), "K7": (K, K_WIDE, 127)}
+TAIL_DOT_KS = (K_HUGE, 200, 256, 300, 512)
+TAIL_SAME_TOL = 0.03
+
+
+def phase_tail_parent(blocked):
+    """With ``--parent``: every row-group instance this tree keeps has the
+    parent build's ptxas line (the dot form's instances are new, the
+    register form's G = 32 instances of K1 "cavi" and K7 gone); then, on
+    the bench tail (random tables, both directions a sweep), K1 "cavi", K1
+    raw and K7 of both trees timed by CUDA events in turns parent, this,
+    this, parent at TAIL_SAME_KS and TAIL_DOT_KS: equal in bits and within
+    TAIL_SAME_TOL at TAIL_SAME_KS and wherever this tree's plan is not the
+    dot form (K7 at 512: the wide form in both), the dot form's turns and
+    its largest difference from the parent logged (no speed asserted: the
+    parent's register form to K = 256, its wide form past it); K1 raw, K5,
+    K6 and K8 equal in bits at every K."""
+    import torch
+
+    from pmf_tpu_torch.ops._tail import launch_plan
+
+    theirs: dict = {}
+    _ptxas_report(open(str(PARENT["lib"]) + ".log").read(), theirs)
+    mine = {n: v for n, v in PTXAS.items() if n.startswith("tail_")}
+    prev = {n: v for n, v in theirs.items() if n.startswith("tail_")}
+    gone = sorted(set(prev) - set(mine))
+    new = sorted(set(mine) - set(prev))
+    kept = sorted(set(mine) & set(prev))
+    if gone != ["tail_group_kernel<0, 32, 2, 4>", "tail_group_kernel<2, 32, 2, 4>"] or \
+            not all(n.startswith("tail_dot_kernel<") for n in new) or not new:
+        raise AssertionError(f"tail parent: instances gone {gone}, new {new}")
+    differ = [n for n in kept if mine[n] != prev[n]]
+    if differ:
+        raise AssertionError(f"tail parent: ptxas differs from the parent's for {differ}")
+    log(f"  tail parent: {len(kept)} kept row-group instances' ptxas lines equal the "
+        f"parent's; gone {gone}; new {new}")
+    trees = {"this": None, "parent": tuple(_parent_op(n) for n in
+                                           ("cavi_edge", "ext_edge", "gaussian_edge"))}
+    dirs = (blocked.by_user, blocked.by_item)
+    for kid in ("K1", "K1raw", "K7", "K5", "K6", "K8"):
+        same_ks = TAIL_SAME_KS.get(kid, TAIL_SAME_KS["K1"])
+        for k in same_ks + TAIL_DOT_KS:
+            tabs = [_tail_tabs(kid, p.n_self, p.n_other, k, 70 + k + j)
+                    for j, p in enumerate(dirs)]
+
+            def sweep(tree, tabs=tabs, k=k):
+                return [_tail_kernel(kid, t, p, k, trees[tree]) for t, p in zip(tabs, dirs)]
+
+            dot = launch_plan(k, kid)["form"] == "dot"
+            pairs = list(zip(sweep("this"), sweep("parent")))
+            if dot:
+                note = f"largest relative difference {max(compare(a, b)[1] for a, b in pairs):.3e}"
+            elif all(torch.equal(a, b) for a, b in pairs):
+                note = "equal in bits"
+            else:
+                raise AssertionError(f"tail parent {kid} K={k}: the trees differ in bits")
+            del pairs
+            mean = None
+            if kid in ("K1", "K1raw", "K7"):
+                reps = TIMING_REPS if k <= 128 else 3
+                turns = [cuda_ms(lambda t=t: sweep(t), reps=reps) for t in K2_AB_TURNS]
+                mean = {t: float(np.mean([ms for u, ms in zip(K2_AB_TURNS, turns) if u == t]))
+                        for t in ("parent", "this")}
+                note = ("turns " + ", ".join(f"{t} {ms:.4f}" for t, ms in zip(K2_AB_TURNS, turns))
+                        + f" ms a sweep | this / parent {mean['this'] / mean['parent'] - 1:+.2%}"
+                        f" | {note}")
+            log(f"  tail parent {kid} K={k} ({tail_trace(kid, k)}): {note}")
+            if mean and kid != "K1raw" and not dot and \
+                    not mean["this"] <= (1 + TAIL_SAME_TOL) * mean["parent"]:
+                raise AssertionError(f"tail parent {kid} K={k}: {mean} past {TAIL_SAME_TOL:.0%}")
+            del tabs
+            torch.cuda.empty_cache()
+    log(f"phase tail parent: ok | {PARENT['dir']} | K1 at K {list(TAIL_SAME_KS['K1'])}, K7 "
+        f"at {list(TAIL_SAME_KS['K7'])} equal in bits and within {TAIL_SAME_TOL:.0%}; K1 raw, "
+        f"K5, K6, K8 equal in bits; K {list(TAIL_DOT_KS)} in turns {', '.join(K2_AB_TURNS)}")
 
 
 K4_WIDE_KS = (80, 128, K_HUGE)  # K4's CTA form timed on 162k + 59k matrices
@@ -2019,10 +2141,9 @@ def phase_hugefit(train, val, smi, k=K_HUGE):
         state = sweep_blocked(state, model.blocked, user_counts, item_counts, *hyper)
 
     ms = cuda_ms(one_sweep, reps=2)
-    rows, busy, wall_ms = profile_once(
-        one_sweep, {K1_TRACE: 2, "head_pass_kernel": 2 * n_tiers})
-    groups, _ = trace_parts(rows, {"K2 head kernels": K2_KERNELS,
-                                   "K1 tail_group_kernel<0>": (K1_TRACE,)})
+    k1 = tail_trace("K1", k)
+    rows, busy, wall_ms = profile_once(one_sweep, {k1: 2, "head_pass_kernel": 2 * n_tiers})
+    groups, _ = trace_parts(rows, {"K2 head kernels": K2_KERNELS, f"K1 {k1}": (k1,)})
     log(f"phase hugefit: ok | K={k}, {model.n_sweeps} sweeps in {wall:.1f}s wall "
         f"(layout build included) | launches {launches} | val RMSE {rmses} | steady "
         f"sweep {ms:.4f} ms (CUDA events) | one sweep traced: busy {busy:.4f} ms of "
@@ -2033,6 +2154,103 @@ def phase_hugefit(train, val, smi, k=K_HUGE):
     traffic = roofline.hpf_blocked_traffic(model.blocked, k)
     del model, state
     return {f"hpf_k{k}": (traffic, busy)}
+
+
+def phase_exthugefit(train, val, smi, k=K_HUGE):
+    """The extended Poisson path at full width: ``PoissonMF(n_factors=k,
+    extended=True, engine="blocked_high").fit`` on phase fit's data for
+    FIT_SWEEPS sweeps, the launch counters reset just before and read just
+    after (K7 and K8 twice a sweep, K2 twice a tier and sweep); finite
+    state of the right shapes, a val RMSE that never rises (where it rises,
+    held sweep by sweep to an engine-flat fit's within HUGEFIT_FLAT_RTOL,
+    and a rise passes only where the flat fit rises at the same sweep);
+    the peak device memory of the fit; then one steady sweep timed by CUDA
+    events and one traced for its parts' shares (fault F2: a trace can
+    lose records, so the sweep's time is the events').  Returns the fit's
+    launches, the sweep's event ms, K7's traced ms and the sweep's work
+    count (``traffic``, for phase roofline as ext_k<k>)."""
+    import torch
+
+    from pmf_tpu_torch.models.poisson_mf import PoissonMF, PoissonMFConfig, state_to_numpy
+
+    def fit(engine):
+        return PoissonMF(PoissonMFConfig(n_factors=k, max_iter=FIT_SWEEPS, tol=None,
+                                         verbose=False, engine=engine, extended=True))
+
+    gc_cuda()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = fit("blocked_high")
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    model.fit(train, val)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {kid: c.count for kid, c in counters.items()}
+    n_tiers = len(model.blocked.head or ())
+    for rec in model.fit_history:
+        log(f"  extended K={k} sweep {rec['iteration']}: {rec['iter_seconds']:.4f} s | "
+            f"{rec['updates_per_sec'] / 1e6:.1f}M updates/s | val RMSE "
+            f"{rec['val_rmse']:.6f} | {smi}")
+    n = model.n_sweeps
+    want = dict.fromkeys(launches, 0)
+    want.update(K7=2 * n, K8=2 * n, K2=2 * n_tiers * n)
+    if launches != want or n_tiers == 0:
+        raise AssertionError(f"exthugefit launches {launches}, expected {want}")
+    shapes = {"a_theta": (N_USERS, k), "b_theta": (N_USERS, k), "a_beta": (N_ITEMS, k),
+              "b_beta": (N_ITEMS, k), "a_phi": (N_USERS,), "b_phi": (N_USERS,),
+              "a_psi": (N_ITEMS,), "b_psi": (N_ITEMS,)}
+    state = state_to_numpy(model.state)
+    if {key: v.shape for key, v in state.items()} != shapes or not all(
+            np.all(np.isfinite(v)) for v in state.values()):
+        raise AssertionError("exthugefit: state shapes or values "
+                             f"{ {key: v.shape for key, v in state.items()} }")
+    del state
+    rmses = [rec["val_rmse"] for rec in model.fit_history]
+    if len(rmses) != FIT_SWEEPS or not np.all(np.isfinite(rmses)):
+        raise AssertionError(f"exthugefit val RMSE history {rmses}")
+    rises = [b > a for a, b in zip(rmses, rmses[1:])]
+    if any(rises):
+        flat = fit("flat")
+        flat.fit(train, val)
+        f_rmses = [rec["val_rmse"] for rec in flat.fit_history]
+        del flat
+        gap = max(abs(a - b) / b for a, b in zip(rmses, f_rmses))
+        log(f"  extended K={k}: val RMSE rose {rmses}; engine flat (no K2, K7, K8) "
+            f"{f_rmses}, worst relative gap {gap:.3e} (tol {HUGEFIT_FLAT_RTOL})")
+        if not gap <= HUGEFIT_FLAT_RTOL:
+            raise AssertionError(f"exthugefit: val RMSE {rmses} against engine flat's "
+                                 f"{f_rmses}: {gap} > {HUGEFIT_FLAT_RTOL}")
+        rises = [r and not b > a for r, a, b in zip(rises, f_rmses, f_rmses[1:])]
+    if any(rises):
+        raise AssertionError(f"exthugefit val RMSE rose: {rmses}")
+
+    step = _poisson_sweep_fn(model.config, model.blocked, train, N_USERS, N_ITEMS, "cuda")
+    box = [dict(model.state)]
+
+    def one_sweep():
+        box[0] = step(box[0])
+
+    ms = cuda_ms(one_sweep, reps=2)
+    k7, k8 = tail_trace("K7", k), tail_trace("K8", k)
+    rows, busy, wall_ms = profile_once(
+        one_sweep, {k7: 2, k8: 2, "head_pass_kernel": 2 * n_tiers})
+    groups, gemm_n = trace_parts(rows, {"K2 head kernels": K2_KERNELS, f"K7 {k7}": (k7,),
+                                        f"K8 {k8}": (k8,)})
+    k7_ms = groups[f"K7 {k7}"]
+    log(f"phase exthugefit: ok | K={k}, {n} sweeps in {wall:.1f}s wall (layout build "
+        f"included) | launches {launches} | val RMSE {rmses} | peak {peak / 1e9:.3f} GB "
+        f"({(peak - held) / 1e9:.3f} GB above the {held / 1e9:.3f} GB held before) | steady "
+        f"sweep {ms:.4f} ms (CUDA events) | one sweep traced: busy {busy:.4f} ms of "
+        f"{wall_ms:.4f} ms (idle share {1 - busy / wall_ms:.1%}), K7 {k7_ms:.4f} ms "
+        f"({k7_ms / busy:.1%} of the traced busy), head-product launches {gemm_n} | {smi}")
+    log_parts(groups, busy)
+    for dev_ms, cnt, key in rows[:8]:
+        log(f"  {dev_ms:9.4f} ms  {cnt:3d}x  {key[:90]}")
+    traffic = roofline.poisson_ext_blocked_traffic(model.blocked, k)
+    del model, box
+    return dict(launches=launches, sweep_ms=ms, k7_ms=k7_ms, traffic=traffic)
 
 
 def phase_wide_gauss(blocked):
@@ -2158,11 +2376,24 @@ def phase_fit(train, val, smi):
 
 K2_KERNELS = ("head_user_kernel", "head_item_kernel", "head_pass_kernel",
               "sum_partials_kernel", "split_planes_kernel")
-# The row-group kernels in a trace: tail_group_kernel<mode, G, V>, mode 0
-# (K1 "cavi"), 2 (K7), 3 (K5), 4 (K6) or 5 (K8).
-K1_TRACE, K7_TRACE = "tail_group_kernel<0,", "tail_group_kernel<2,"
-K5_TRACE, K6_TRACE = "tail_group_kernel<3,", "tail_group_kernel<4,"
-K8_TRACE = "tail_group_kernel<5,"
+# The row-group kernels in a trace: tail_<form>_kernel<mode, ...>, mode 0
+# (K1 "cavi"), 1 (K1 "raw"), 2 (K7), 3 (K5), 4 (K6) or 5 (K8), the form
+# their plan takes at K (``_tail.launch_plan``: "group", "dot" for K1
+# "cavi" and K7 past 32 words a row, "wide").
+TAIL_MODES = {"K1": 0, "K1raw": 1, "K7": 2, "K5": 3, "K6": 4, "K8": 5}
+
+
+def tail_trace(kid, k=K):
+    """The name piece of the row-group kernel ``kid`` launches at ``k``."""
+    from pmf_tpu_torch.ops._tail import launch_plan
+
+    form = launch_plan(k, kid)["form"]
+    return f"tail_{form}_kernel<{TAIL_MODES[kid]}" + (">" if form == "wide" else ",")
+
+
+# At K = 20 (the phases on the bench's widths).
+K1_TRACE, K7_TRACE = tail_trace("K1"), tail_trace("K7")
+K5_TRACE, K6_TRACE, K8_TRACE = tail_trace("K5"), tail_trace("K6"), tail_trace("K8")
 GEMM_PARTS = ("gemm", "cutlass", "sm90_xmma", "nvjet")
 
 
@@ -4143,10 +4374,8 @@ def phase_gwidefit(train, val, smi, k=GWIDE_K, n_users=N_USERS, n_items=N_ITEMS,
     def one_sweep():
         box[0] = sweep_blocked(box[0], model.blocked, *counts, *args)
 
-    from pmf_tpu_torch.ops._tail import launch_plan
-
     # K5's kernel: the row groups, or past 64 words a row the wide form
-    k5 = "tail_wide_kernel<3>" if launch_plan(k, "K5")["wide"] else K5_TRACE
+    k5 = tail_trace("K5", k)
     k3 = _k3_trace(k, model.blocked)
     expect = {**k3, "gj_inverse": 2, k5: 2}
     rows, busy, wall_ms = profile_once(one_sweep, expect)
@@ -4875,6 +5104,7 @@ def _parent_op(name):
                         f"{name}.py")
     spec = importlib.util.spec_from_file_location(f"parent_{name}", path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # a dataclass of the module looks itself up there
     spec.loader.exec_module(mod)
     mod._build = PARENT["build"]
     return mod
@@ -5067,7 +5297,7 @@ DP_RTOL = 1e-6  # the data-parallel fits against the single-device ones
 TP_RTOL, TP_ATOL, TP_RMSE = 3e-4, 3e-5, 1e-3
 TP_GAUSS_RTOL, TP_GAUSS_ATOL = 2e-3, 2e-4
 FLAT_TP_RTOL = 1e-6  # the flat ring against the flat fit, both float64
-K1RAW_TRACE = "tail_group_kernel<1,"
+K1RAW_TRACE = tail_trace("K1raw")
 
 
 def _gate(label, got: dict, want: dict, rtol: float, atol: float) -> tuple:
@@ -5635,6 +5865,8 @@ def main(argv=None) -> int:
     k7, k8 = phase_k7k8(blocked)
     wide = {kid: r["ms"] for kid, r in phase_wide_poisson(blocked).items()}
     huge = phase_wide_poisson(blocked, K_HUGE)
+    if PARENT:
+        phase_tail_parent(blocked)
     del blocked
     torch.cuda.empty_cache()
     phase_small()
@@ -5649,6 +5881,9 @@ def main(argv=None) -> int:
     sweeps.update(phase_hugefit(train, val, smi))
     gc_cuda()
     sweeps.update(phase_hugefit(train, val, smi, K_WIDE))
+    gc_cuda()
+    exthuge = phase_exthugefit(train, val, smi)
+    sweeps[f"ext_k{K_HUGE}"] = (exthuge["traffic"], exthuge["sweep_ms"])
     gc_cuda()
 
     phase_psmall()
@@ -5745,12 +5980,16 @@ def main(argv=None) -> int:
                 f"ms_k{K_HUGE}": huge[kid]["ms"],
                 f"bound_ms_k{K_HUGE}": huge[kid]["bound_ms"],
                 f"bound_by_k{K_HUGE}": huge[kid]["bound_by"],
-                f"library_ms_k{K_HUGE}": huge[kid].get("library_ms"), **more}
+                f"library_ms_k{K_HUGE}": huge[kid].get("library_ms"),
+                **({f"sector_ms_k{K_HUGE}": huge[kid]["sector_ms"]}
+                   if "sector_ms" in huge[kid] else {}), **more}
 
     gsrc = "pmf_tpu_torch/csrc/gaussian_edge.cu"
     kernels = [
         entry("cavi_edge_tail", "pmf_tpu_torch/csrc/cavi_edge.cu",
-              "pmf_tpu/ops/pallas/cavi_edge.py:93", k1, launches["K1"], "K1"),
+              "pmf_tpu/ops/pallas/cavi_edge.py:93", k1, launches["K1"], "K1",
+              note=f"_k{K_HUGE}: the dot form (tail_dot_kernel, "
+                   "pmf_tpu_torch/csrc/tail_groups.cuh) on the bench tail"),
         entry("dense_head_tier", "pmf_tpu_torch/csrc/dense_head.cu",
               "pmf_tpu/ops/dense_head.py:85", k2, launches["K2"], "K2"),
         entry("dense_head_tier_fast", "pmf_tpu_torch/csrc/dense_head.cu",
@@ -5789,9 +6028,17 @@ def main(argv=None) -> int:
         entry("gaussian_diag_tail", gsrc,
               "pmf_tpu/ops/pallas/gaussian_edge.py:242", k6, glaunches["K6"], "K6"),
         entry("ext_factor_tail", "pmf_tpu_torch/csrc/ext_edge.cu",
-              "pmf_tpu/ops/pallas/ext_edge.py:59", k7, launches["K7"], "K7"),
+              "pmf_tpu/ops/pallas/ext_edge.py:59", k7, launches["K7"], "K7",
+              **{f"s_wother_half_ms_k{K_HUGE}": huge["K7"]["half_ms"],
+                 f"launches_k{K_HUGE}_ext": exthuge["launches"]["K7"],
+                 f"sweep_ms_k{K_HUGE}_ext": exthuge["sweep_ms"],
+                 f"sweep_k7_ms_k{K_HUGE}_ext": exthuge["k7_ms"]},
+              note=f"_k{K_HUGE}: the dot form (tail_dot_kernel) on the bench tail; "
+                   f"*_ext: phase exthugefit's extended fit at K={K_HUGE} (its steady "
+                   "sweep by CUDA events, K7's ms in one traced sweep)"),
         entry("ext_scalar_tail", "pmf_tpu_torch/csrc/ext_edge.cu",
-              "pmf_tpu/ops/pallas/ext_edge.py:107", k8, launches["K8"], "K8"),
+              "pmf_tpu/ops/pallas/ext_edge.py:107", k8, launches["K8"], "K8",
+              **{f"launches_k{K_HUGE}_ext": exthuge["launches"]["K8"]}),
         entry("map_grad", "pmf_tpu_torch/csrc/map_grad.cu",
               "pmf_tpu/ops/pallas/map_grad.py:56", k9, mlaunches["K9"], "K9",
               device_ms=k9["device_ms"], group_ms=k9["group_ms"],

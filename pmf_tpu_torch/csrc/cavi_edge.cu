@@ -16,8 +16,10 @@
 // pairs, the tables once and the outputs).  tail_groups.cuh holds the
 // kernel, its reckoning and its design: row groups of G lanes within a
 // warp, float4 words of tables padded to 4 * ceil(K / 4) floats, a
-// log2(G)-step butterfly an edge.  Both modes are instances of it; this
-// file holds their entry points.
+// log2(G)-step butterfly an edge; past 32 words a row mode "cavi" takes
+// its dot form (tail_dot_kernel: a warp a row, rounds of edges staged by
+// cp.async, one reduction for a round's dots).  Both modes are instances
+// of it; this file holds their entry points.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -28,7 +28,8 @@
 // 4 * ceil(columns / 4) floats, the first long_rows rows a warp each), on
 // the same [e | s] records, s_o in column K shared from its lane by one
 // shuffle an edge; the self rows are padded to 4 * ceil(K / 4).  K7 is
-// mode kExt (a log2(G)-step butterfly an edge for the allocation's dot),
+// mode kExt (a log2(G)-step butterfly an edge for the allocation's dot;
+// past 32 words a row K1's dot form, tail_dot_kernel),
 // K8 mode kScalar: linear in e_other, each lane sums s_o * e_o over its
 // words, one multiply-add an element an edge and no butterfly, and dots
 // that with its words of e_self_new once at the row's end, one butterfly

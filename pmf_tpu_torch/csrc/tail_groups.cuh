@@ -61,8 +61,33 @@
 // names the full warp; rows are in descending-count order in new space, so a
 // warp's rows have nearly equal lengths.
 //
+// The dot form (K1 "cavi" from K = 129, K7 from K = 128, rows of 33 to
+// 32 * kDotMaxVec float4 words): tail_dot_kernel.  There the register form
+// has G = 32, V = 2: a warp a row, 4 edges in flight a warp, 103-109
+// registers (16 warps an SM), five shuffles and a division an edge that no
+// second edge shares.  In the dot form a warp takes a row and walks its
+// edges in rounds of D edges: their rows are copied by cp.async into a
+// ring of S rounds in the warp's shared memory (S - 1 rounds in flight
+// while one is summed, no registers held for them); lane l reads words l,
+// l + 32, ... of each of the round's rows, the D partial dots meet in one
+// transposed reduction (log2(D) halving steps, then a butterfly: D + 4 -
+// log2(D) shuffles for D dots, not 5 D), after which lane l holds the dot
+// of edge l / (32 / D), takes that edge's rating from the ring and its
+// coefficient x / max(dot, floor) (one division a lane for D edges), and D
+// shuffles share the coefficients.  The sums are linear in e_o: acc_a sums
+// coef * e_o and acc_o e_o (K7 s_o e_o, s_o read from the record in the
+// ring), and the row's end multiplies acc_a by e_s.  Sums in edge order,
+// no atomics, equal bits on a repeat.  Long rows keep a warp each (the
+// register form's G = 32 did the same).  What bounds it on an H100 at
+// K = 160: the gathers of 640-byte rows, 6.6 GB a sweep counted by sector
+// (1.96 ms at 3.35 TB/s) of which L2 serves most; the item pass's user
+// table (104 MB) is twice the L2, and with the other ids cut to 40,000
+// rows the pass took 0.59 ms against 0.67 (K1 "raw", no dot, 0.43 against
+// 0.75).
+//
 // Past a span of 64 words (K1 past K = 256, the record modes from K = 255
-// on: rows of more than 64 float4 words) tail_wide_kernel takes the row:
+// on: rows of more than 64 float4 words; K1 and K7 past the dot form)
+// tail_wide_kernel takes the row:
 // a warp a row, lane l holding words l and l + 32 of a chunk of 64 words,
 // the chunks one after another (a second walk of the row's edges a chunk).
 // Each edge's dot runs over the whole row in every chunk, the lane's words
@@ -98,6 +123,10 @@ constexpr int kOneWord = 8;        // K1, K7, K8: one word a lane up to 8 words,
 constexpr int kRecordOneWord = 16;  // K5, K6 ([m | b] records): up to 16 words
 constexpr int kMaxSpan = 64;        // words a row of the register form: G = 32, V = 2
 constexpr int kWideWords = 64;      // words a chunk of tail_wide_kernel: 2 a lane
+constexpr int kDotWarps = 4;        // warps a CTA of tail_dot_kernel, a row each
+constexpr int kDotInFlight = 4;     // D: edges a round of the dot form
+constexpr int kDotStages = 3;       // S: rounds in a warp's ring
+constexpr int kDotMaxVec = 4;       // words a lane: the dot form up to 128 words a row
 
 enum Mode { kCavi = 0, kRaw = 1, kExt = 2, kBias = 3, kDiag = 4, kScalar = 5 };
 
@@ -625,14 +654,224 @@ tail_wide_kernel(const float* __restrict__ e_self, const float* __restrict__ e_o
   }
 }
 
+// ------------------------------------------------------------ dot form --
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// D partial dots (one a lane, each a register p[d]) summed over the warp:
+// log2(D) halving steps at lane offsets 16, 8, ... (a lane keeps the half
+// of its dots that its bit names and adds its partner's half), then a
+// butterfly over the offsets left.  Lane l returns the whole dot of edge
+// l / (32 / D).
+template <int D>
+__device__ __forceinline__ float warp_dots(float (&p)[D], int lane) {
+#pragma unroll
+  for (int j = 0; (D >> j) > 1; ++j) {
+    const int n = D >> (j + 1);
+    const bool hi = lane & (16 >> j);
+#pragma unroll
+    for (int i = 0; i < n; ++i) {
+      const float send = hi ? p[i] : p[i + n];
+      const float keep = hi ? p[i + n] : p[i];
+      p[i] = keep + __shfl_xor_sync(kFull, send, 16 >> j);
+    }
+  }
+  float v = p[0];
+#pragma unroll
+  for (int off = 32 / D / 2; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// Float4 words of one warp's ring: S rounds of D rows of W words, then the
+// S * D ratings (a word holds four).
+__host__ __device__ constexpr int dot_ring_words(int W, int D, int S) {
+  return S * D * W + (S * D + 3) / 4;
+}
+
+// K1 "cavi" (kCavi) or K7 (kExt) on rows of up to 32 V words: a warp a row
+// (kDotWarps rows a CTA), its edges in rounds of D, a ring of S rounds in
+// dynamic shared memory (the header's design note).
+template <int kMode, int V, int D, int S>
+__global__ void __launch_bounds__(32 * kDotWarps)
+tail_dot_kernel(const float* __restrict__ e_self, const float* __restrict__ e_other,
+                const int64_t* __restrict__ row_ptr, const int32_t* __restrict__ other,
+                const float* __restrict__ x, int n_self, int K, float rate_floor,
+                float* __restrict__ out) {
+  static_assert(kMode == kCavi || kMode == kExt, "the dot form is K1 cavi's and K7's");
+  static_assert((D & (D - 1)) == 0 && D <= 32 && S >= 2, "D a power of two, S >= 2");
+  extern __shared__ float4 dot_ring[];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int row = blockIdx.x * kDotWarps + wid;
+  if (row >= n_self) return;  // whole warp leaves together
+  const int W = (columns(kMode, K) + 3) >> 2;  // words a row of e_other
+  const int Ws = (K + 3) >> 2;                 // of e_self and of the output
+  float4* __restrict__ ring = dot_ring + (int64_t)wid * dot_ring_words(W, D, S);
+  float* __restrict__ ring_x = reinterpret_cast<float*>(ring + S * D * W);
+  const int64_t begin = row_ptr[row];
+  const int len = (int)(row_ptr[row + 1] - begin);
+  const float4* __restrict__ eo4 = reinterpret_cast<const float4*>(e_other);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 es[V], acc_a[V], acc_o[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int w = 32 * v + lane;
+    float4 e = zero;
+    if (w < Ws) {
+      e = reinterpret_cast<const float4*>(e_self)[(int64_t)row * Ws + w];
+      const int k = 4 * w;
+      if (k + 1 >= K) e.y = 0.f;  // the self row's pad columns
+      if (k + 2 >= K) e.z = 0.f;
+      if (k + 3 >= K) e.w = 0.f;
+    }
+    es[v] = e;
+    acc_a[v] = zero;
+    acc_o[v] = zero;
+  }
+
+  // Lane l holds the other id of edge 32 b + l of the batch b the copies
+  // have reached (ids) and of the batch after it (nids).
+  int batch = 0;
+  int ids = lane < len ? other[begin + lane] : 0;
+  int nids = 32 + lane < len ? other[begin + 32 + lane] : 0;
+  const int rounds = (len + D - 1) / D;
+  // Round q's rows and ratings into ring stage q % S; one commit group a
+  // round (empty past the last).
+  auto issue = [&](int q) {
+    if (q < rounds) {
+      const int b = (q * D) >> 5;  // rounds come in order: b is batch or batch + 1
+      if (b != batch) {
+        batch = b;
+        ids = nids;
+        const int e = 32 * (b + 1) + lane;
+        nids = e < len ? other[begin + e] : 0;
+      }
+      const int st = q % S;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const int e = q * D + d;
+        const int o = __shfl_sync(kFull, ids, e & 31);
+        if (e < len) {
+          float4* dst = ring + (st * D + d) * W;
+          const float4* src = eo4 + (int64_t)o * W;
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            const int w = 32 * v + lane;
+            if (w < W) cp_async16(dst + w, src + w);
+          }
+        }
+      }
+      if (lane < D && q * D + lane < len) cp_async4(ring_x + st * D + lane, x + begin + q * D + lane);
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int q = 0; q < S - 1; ++q) issue(q);
+  for (int r = 0; r < rounds; ++r) {
+    issue(r + S - 1);
+    cp_async_wait<S - 1>();  // round r has landed (this lane's copies)
+    __syncwarp();            // and every lane's
+    const int st = r % S;
+    const float4* rows = ring + st * D * W;
+    float4 eo[D][V];
+    float part[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const bool ok = r * D + d < len;  // warp-uniform
+      part[d] = 0.f;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int w = 32 * v + lane;
+        eo[d][v] = (ok && w < W) ? rows[d * W + w] : zero;
+        part[d] = fmaf(es[v].x, eo[d][v].x, part[d]);
+        part[d] = fmaf(es[v].y, eo[d][v].y, part[d]);
+        part[d] = fmaf(es[v].z, eo[d][v].z, part[d]);
+        part[d] = fmaf(es[v].w, eo[d][v].w, part[d]);
+      }
+    }
+    const float dot = warp_dots<D>(part, lane);
+    const int dl = lane / (32 / D);  // the edge whose dot this lane holds
+    const float xv = r * D + dl < len ? ring_x[st * D + dl] : 0.f;
+    const float coef = xv / fmaxf(dot, rate_floor);
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const float c = __shfl_sync(kFull, coef, d * (32 / D));
+      float sv = 1.f;
+      if constexpr (kMode == kExt)  // s_o, column K of the record
+        sv = r * D + d < len ? reinterpret_cast<const float*>(rows + d * W)[K] : 0.f;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        acc_a[v].x = fmaf(c, eo[d][v].x, acc_a[v].x);
+        acc_a[v].y = fmaf(c, eo[d][v].y, acc_a[v].y);
+        acc_a[v].z = fmaf(c, eo[d][v].z, acc_a[v].z);
+        acc_a[v].w = fmaf(c, eo[d][v].w, acc_a[v].w);
+        if constexpr (kMode == kExt) {
+          acc_o[v].x = fmaf(sv, eo[d][v].x, acc_o[v].x);
+          acc_o[v].y = fmaf(sv, eo[d][v].y, acc_o[v].y);
+          acc_o[v].z = fmaf(sv, eo[d][v].z, acc_o[v].z);
+          acc_o[v].w = fmaf(sv, eo[d][v].w, acc_o[v].w);
+        } else {
+          acc_o[v].x += eo[d][v].x;
+          acc_o[v].y += eo[d][v].y;
+          acc_o[v].z += eo[d][v].z;
+          acc_o[v].w += eo[d][v].w;
+        }
+      }
+    }
+    __syncwarp();  // every lane has read stage st before round r + S refills it
+  }
+
+  float* dst = out + (int64_t)row * 2 * K;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int w = 32 * v + lane;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = 4 * w + j;
+      if (w < Ws && k < K) {
+        dst[k] = comp(es[v], j) * comp(acc_a[v], j);
+        dst[K + k] = comp(acc_o[v], j);
+      }
+    }
+  }
+}
+
 // The plan for K: W = ceil(columns / 4) words a row, span = the power of
 // two at or above W, V = 1 word a lane up to a span of one_word(mode) and 2
 // past it, G = span / V lanes a row, in_flight(mode) edges in flight a
-// group; past a span of kMaxSpan words tail_wide_kernel
-// (ops/_tail.py::launch_plan mirrors it).
+// group; past a span of kMaxSpan words tail_wide_kernel.  K1 "cavi" and
+// K7 take the dot form for W in (32, 32 * kDotMaxVec], V = ceil(W / 32)
+// words a lane, and tail_wide_kernel past it (ops/_tail.py::launch_plan
+// mirrors it).
+__host__ __device__ constexpr int plan_words(int mode, int K) { return (columns(mode, K) + 3) / 4; }
+__host__ __device__ constexpr bool plan_dot(int mode, int K) {
+  return (mode == kCavi || mode == kExt) && plan_words(mode, K) > 32 &&
+         plan_words(mode, K) <= 32 * kDotMaxVec;
+}
+__host__ __device__ constexpr int plan_dot_vec(int mode, int K) {
+  return (plan_words(mode, K) + 31) / 32;
+}
 __host__ __device__ constexpr int plan_span(int mode, int K) {
   int span = 1;
-  while (span < (columns(mode, K) + 3) / 4) span *= 2;
+  while (span < plan_words(mode, K)) span *= 2;
   return span;
 }
 __host__ __device__ constexpr int plan_vec(int mode, int K) {
@@ -642,13 +881,14 @@ __host__ __device__ constexpr int plan_lanes(int mode, int K) {
   return plan_span(mode, K) / plan_vec(mode, K);
 }
 __host__ __device__ constexpr bool plan_wide(int mode, int K) {
-  return plan_span(mode, K) > kMaxSpan;
+  return mode == kCavi || mode == kExt ? plan_words(mode, K) > 32 * kDotMaxVec
+                                       : plan_span(mode, K) > kMaxSpan;
 }
 // Whether some K of the register form takes the plan (G, V) in this mode:
 // only those instances are built.
 __host__ __device__ constexpr bool reachable(int mode, int G, int V) {
-  for (int K = 1; !plan_wide(mode, K); ++K)
-    if (plan_lanes(mode, K) == G && plan_vec(mode, K) == V) return true;
+  for (int K = 1; plan_span(mode, K) <= kMaxSpan; ++K)
+    if (!plan_dot(mode, K) && plan_lanes(mode, K) == G && plan_vec(mode, K) == V) return true;
   return false;
 }
 
@@ -670,7 +910,25 @@ int launch_instance(const Tables& t, int n_self, int n_long, int K, float rate_f
   return (int)cudaGetLastError();
 }
 
-// Warps [0, n_long) take a row each.
+// The dot form at V words a lane: dynamic shared memory of kDotWarps rings
+// (the attribute raised past the default 48 KB).
+template <int kMode, int V>
+int launch_dot(const Tables& t, int n_self, int K, float rate_floor, float* out,
+               cudaStream_t stream) {
+  constexpr int D = kDotInFlight, S = kDotStages;
+  auto kernel = tail_dot_kernel<kMode, V, D, S>;
+  const int smem = kDotWarps * 16 * dot_ring_words(plan_words(kMode, K), D, S);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(n_self + kDotWarps - 1) / kDotWarps, 32 * kDotWarps, smem, stream>>>(
+      t.e_self, t.e_other, t.row_ptr, t.other, t.x, n_self, K, rate_floor, out);
+  return (int)cudaGetLastError();
+}
+
+// Warps [0, n_long) take a row each (the dot form gives every row a warp).
 template <int kMode>
 int launch(const Tables& t, int n_self, int n_long, int K, float rate_floor, float* out,
            cudaStream_t stream) {
@@ -681,6 +939,16 @@ int launch(const Tables& t, int n_self, int n_long, int K, float rate_floor, flo
         t.e_self, t.e_other, t.sq_other, t.row_ptr, t.other, t.x, n_self, K, rate_floor,
         out);
     return (int)cudaGetLastError();
+  }
+  if constexpr (kMode == kCavi || kMode == kExt) {
+    if (plan_dot(kMode, K)) {
+      switch (plan_dot_vec(kMode, K)) {
+        case 2: return launch_dot<kMode, 2>(t, n_self, K, rate_floor, out, stream);
+        case 3: return launch_dot<kMode, 3>(t, n_self, K, rate_floor, out, stream);
+        case 4: return launch_dot<kMode, 4>(t, n_self, K, rate_floor, out, stream);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    }
   }
   const int G = plan_lanes(kMode, K), V = plan_vec(kMode, K);
   constexpr int D = in_flight(kMode);

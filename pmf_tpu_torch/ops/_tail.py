@@ -13,7 +13,8 @@ from pmf_tpu_torch.ops import _build
 from pmf_tpu_torch.ops.dense_head import head_products, head_products_t
 
 # csrc/tail_groups.cuh: kWarps, kInFlight, kDiagInFlight, kOneWord,
-# kRecordOneWord, kMaxSpan, kWideWords, batch_of.
+# kRecordOneWord, kMaxSpan, kWideWords, batch_of, and the dot form's
+# kDotWarps, kDotInFlight, kDotStages, kDotMaxVec, dot_ring_words.
 GROUP_WARPS = 8
 GROUP_IN_FLIGHT = 4
 DIAG_IN_FLIGHT = 2
@@ -21,6 +22,12 @@ GROUP_ONE_WORD = 8
 RECORD_ONE_WORD = 16
 GROUP_MAX_SPAN = 64  # words a row of the register form (G = 32, V = 2)
 WIDE_WORDS = 64  # words a chunk of the wide form, two a lane
+DOT_WARPS = 4  # warps a CTA of the dot form, a row each
+DOT_IN_FLIGHT = 4  # D: edges a round
+DOT_STAGES = 3  # S: rounds in a warp's ring of shared memory
+DOT_MAX_VEC = 4  # words a lane: the dot form up to 128 words a row
+# The kernels whose mode has a dot form past 32 words a row: K1 "cavi", K7.
+DOT_KERNELS = ("K1", "K7")
 # The kernels that gather records of K + 1 columns: K5's and K6's [m | b],
 # K7's and K8's [e | s].
 RECORD_KERNELS = ("K5", "K6", "K7", "K8")
@@ -44,9 +51,17 @@ def columns(k: int, kernel: str = "K1") -> int:
     return k + 1 if kernel in RECORD_KERNELS else k
 
 
+def dot_ring_words(words: int, d: int = DOT_IN_FLIGHT, s: int = DOT_STAGES) -> int:
+    """Float4 words of one warp's ring in the dot form: S rounds of D rows
+    of ``words`` words, then the S * D ratings, four a word."""
+    return s * d * words + -(-(s * d) // 4)
+
+
 def launch_plan(k: int, kernel: str = "K1") -> dict:
     """The row-group geometry of ``kernel`` (one of PLAN_KERNELS) at ``k``
-    factors, as ``tail_groups::launch`` chooses it: ``words`` W =
+    factors, as ``tail_groups::launch`` chooses it; ``form`` names the
+    kernel: "group" (``tail_group_kernel``), "dot" (``tail_dot_kernel``)
+    or "wide" (``tail_wide_kernel``).  ``words`` W =
     ceil(columns / 4) float4 words a row; ``lanes`` G a row and ``vec`` V
     words a lane, V = 1 up to a span of GROUP_ONE_WORD words (K5, K6:
     RECORD_ONE_WORD) and 2 past it, G = span / V, for span the power of two
@@ -57,22 +72,32 @@ def launch_plan(k: int, kernel: str = "K1") -> dict:
     width of the gathered rows.  ``wide``: past a span of GROUP_MAX_SPAN
     words, ``tail_wide_kernel`` (a warp a row, one edge at a time, the
     summed words in ``chunks`` of WIDE_WORDS walked one after another);
-    ``chunks`` is 1 in the register form."""
+    ``chunks`` is 1 in the other forms.  The dot form (K1 "cavi" and K7
+    past 32 words a row, up to 32 * DOT_MAX_VEC): a warp a row (``lanes``
+    32, ``vec`` ceil(W / 32) words a lane), ``in_flight`` D edges a round,
+    ``stages`` S rounds in the warp's ring, ``smem`` the CTA's bytes of
+    DOT_WARPS rings."""
     _build.check_k(k, "tail kernel")
     if kernel not in PLAN_KERNELS:
         raise ValueError(f"unknown row-group kernel {kernel!r} {PLAN_KERNELS}")
     cols = columns(k, kernel)
     words = -(-cols // 4)
     span = 1 << (words - 1).bit_length()
+    if kernel in DOT_KERNELS and 32 < words <= 32 * DOT_MAX_VEC:
+        return dict(form="dot", lanes=32, vec=-(-words // 32), words=words,
+                    stride=tail_stride(cols), batch=32, in_flight=DOT_IN_FLIGHT,
+                    stages=DOT_STAGES, rows_per_warp=1, rows_per_cta=DOT_WARPS,
+                    wide=False, chunks=1, smem=DOT_WARPS * 16 * dot_ring_words(words))
     if span > GROUP_MAX_SPAN:
         summed = words if kernel == "K5" else -(-k // 4)
-        return dict(lanes=32, vec=WIDE_WORDS // 32, words=words, stride=tail_stride(cols),
+        return dict(form="wide", lanes=32, vec=WIDE_WORDS // 32, words=words,
+                    stride=tail_stride(cols),
                     batch=32, in_flight=1, rows_per_warp=1, rows_per_cta=GROUP_WARPS,
                     wide=True, chunks=-(-summed // WIDE_WORDS))
     one_word = RECORD_ONE_WORD if kernel in WIDE_KERNELS else GROUP_ONE_WORD
     vec = 1 if span <= one_word else 2
     lanes = span // vec
-    return dict(lanes=lanes, vec=vec, words=words, stride=tail_stride(cols),
+    return dict(form="group", lanes=lanes, vec=vec, words=words, stride=tail_stride(cols),
                 batch=max(lanes, 8),
                 in_flight=DIAG_IN_FLIGHT if kernel == "K6" else GROUP_IN_FLIGHT,
                 rows_per_warp=32 // lanes, rows_per_cta=32 * GROUP_WARPS // lanes,
@@ -81,12 +106,12 @@ def launch_plan(k: int, kernel: str = "K1") -> dict:
 
 def boundary_ks(kernel: str = "K1", k_max: int = 600) -> list:
     """Every K up to ``k_max`` at which ``kernel``'s geometry changes: the
-    first K of each plan (lanes, vec, wide form, chunks).  The tests and
+    first K of each plan (form, lanes, vec, chunks).  The tests and
     chip_smoke.py hold the kernel at K - 1 and K of each."""
     out, last = [], None
     for k in range(1, k_max + 1):
         p = launch_plan(k, kernel)
-        key = (p["lanes"], p["vec"], p["wide"], p["chunks"])
+        key = (p["form"], p["lanes"], p["vec"], p["chunks"])
         if key != last:
             out.append(k)
             last = key

@@ -195,9 +195,10 @@ def test_hpf_map_blocked_epoch_at_k160_matches_jax():
 @pytest.mark.parametrize("kernel", _tail.PLAN_KERNELS)
 def test_tail_plan_at_every_boundary(kernel):
     """On each side of every boundary the row-group plan covers each
-    summed word once: the register form's G lanes of V words, or the wide
-    form's chunks of WIDE_WORDS (two words a lane of a warp); the plan
-    changes exactly there."""
+    summed word once: the register form's G lanes of V words, the dot
+    form's 32 lanes of V words (K1 "cavi" and K7), or the wide form's
+    chunks of WIDE_WORDS (two words a lane of a warp); the plan changes
+    exactly there."""
     bounds = _tail.boundary_ks(kernel)
     assert bounds[0] == 1 and any(b > 256 for b in bounds)
     for b in bounds[1:]:
@@ -216,8 +217,8 @@ def test_tail_plan_at_every_boundary(kernel):
                 assert p["chunks"] == -(-summed // _tail.WIDE_WORDS)
             else:
                 assert p["lanes"] * p["vec"] >= words and p["chunks"] == 1
-    assert not _tail.launch_plan(256, "K1")["wide"] and _tail.launch_plan(257, "K1")["wide"]
-    assert not _tail.launch_plan(255, "K7")["wide"] and _tail.launch_plan(256, "K7")["wide"]
+    assert not _tail.launch_plan(512, "K1")["wide"] and _tail.launch_plan(513, "K1")["wide"]
+    assert not _tail.launch_plan(511, "K7")["wide"] and _tail.launch_plan(512, "K7")["wide"]
 
 
 HUGE_PLAN_KS = [129, 160, 256, 300]

@@ -69,7 +69,7 @@ def test_launch_plan_mirrors_the_kernel_source():
     built = set(re.findall(r"PMF_TAIL_PLAN\((\d+), (\d+)\)\n", src))
     plans = {(str(p["lanes"]), str(p["vec"])) for K in range(1, 600)
              for kid in _tail.PLAN_KERNELS
-             for p in [_tail.launch_plan(K, kid)] if not p["wide"]}
+             for p in [_tail.launch_plan(K, kid)] if p["form"] == "group"}
     assert plans == built  # every plan of the register form built, and nothing else
     with pytest.raises(ValueError, match="K >= 1"):
         _tail.launch_plan(0)

@@ -44,7 +44,7 @@ SIDES = pytest.mark.parametrize("side", ["user", "item"])
 @pytest.mark.parametrize("K", K8_KS)
 def test_k8_plan_covers_every_column_once(K):
     """Every column of the [e | s] records (K + 1) is held by exactly one
-    (lane, word, component); K7 takes the same plan."""
+    (lane, word, component); K7 takes the same plan below its dot form."""
     plan = _tail.launch_plan(K, "K8")
     G, V, W = plan["lanes"], plan["vec"], plan["words"]
     assert W == -(-(K + 1) // 4) and plan["stride"] == 4 * W == _tail.tail_stride(K + 1)
@@ -54,7 +54,8 @@ def test_k8_plan_covers_every_column_once(K):
     held = [4 * (v * G + lane) + j for lane in range(G) for v in range(V)
             for j in range(4) if v * G + lane < W and 4 * (v * G + lane) + j < K + 1]
     assert sorted(held) == list(range(K + 1))
-    assert plan == _tail.launch_plan(K, "K7")
+    if _tail.launch_plan(K, "K7")["form"] == "group":  # K7's dot form starts at 128
+        assert plan == _tail.launch_plan(K, "K7")
 
 
 # ------------------------------------------------------------ emulation --
