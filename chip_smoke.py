@@ -17,11 +17,11 @@ turns at K = 20, 50, 80, 128 on the bench's Gaussian tail (within 3%, the
 same code) and at K = 160 there and K = 256 on the XL CSR (faster in every
 turn), its output equal in bits where the plan's form sums in CSR order;
 phase tail parent (after huge timing) holds every row-group instance this
-tree keeps to the parent build's ptxas line, K1 "cavi" (K = 20, 50, 128)
-and K7 (K = 20, 50, 127) equal in bits and within 3% of the parent, K1
-raw, K5, K6 and K8 equal in bits, and logs both trees' K1 "cavi", K1 raw
-and K7 in turns at K = 160, 200, 256, 300 and 512 (the dot form against
-the parent's register and wide forms).
+tree keeps to the parent build's ptxas line, K1 (both modes), K7, K5 and
+K8 equal in bits at K = 20, 50, 128, 160, 200, 256, 300 and 512, K6 (K =
+20, 50, 127) equal in bits and within 3% of the parent, and both trees'
+K6 in turns at K = 160, 200, 255, 256, 300, 511 and 512 (the ring form
+against the parent's register and wide forms, faster in every turn).
 
 Phases, one status line each; any failure exits non-zero and prints no
 result line:
@@ -176,6 +176,15 @@ Those are freed, then the Gaussian-MF CAVI path:
                 shape (6,040 x 3,706 x 1,000,209 ratings, 10,000 held out;
                 phase gxldata): no head, K3's wide instance, K4's panel
                 form, K5's wide form.
+16'''. gdiaghugefit -- the diag fit at K = 160 at full width on phase
+                gdata's ratings (4 sweeps, ``elbo_every=1``): peak memory
+                beside its reckoning (state, K6's tables, the head tiers'
+                transients), launches (K5 and K6 twice a sweep, nothing
+                else), the state and every ELBO finite (whether it rose
+                logged); K6 on the state of sweep 2 against its plain
+                version, bits of a repeat, timed by CUDA events; one sweep
+                by CUDA events and one traced (K5's, the head products' and
+                the glue's shares; K6's from the events).
 
 Then the other engines:
 
@@ -289,10 +298,16 @@ LOG_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out
                         "chip_smoke.log")
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
     """One line to standard output and to ``chiprun_out/chip_smoke.log``
     beside this script (a git-ignored directory; the file is started anew
-    by ``phase_device``)."""
+    by ``phase_device``); a phase's status line ends with the seconds since
+    the script started."""
+    if msg.startswith("phase "):
+        msg += f" | at {time.perf_counter() - T_START:.1f} s"
     print(msg, flush=True)
     with open(LOG_PATH, "a") as f:
         f.write(msg + "\n")
@@ -1817,31 +1832,19 @@ def phase_k3_parent(gblocked, xl):
         f"{K3_SAME_TOL:.0%}, K={K_HUGE} and XL K={XL_K} faster in every turn")
 
 
-# Phase tail parent: K1 "cavi" and K7 at the K of their unchanged register
-# form (equal bits, within TAIL_SAME_TOL of the parent), then at the K of
-# the dot form (turns logged); K1 raw at all of them; K1 raw, K5, K6 and K8
-# (unchanged at every K) equal in bits at TAIL_SAME_KS["K1"] and the dot K.
-TAIL_SAME_KS = {"K1": (K, K_WIDE, 128), "K7": (K, K_WIDE, 127)}
+# Phase tail parent: K1 (both modes), K7, K5 and K8 (unchanged at every K)
+# equal in bits at TAIL_SAME_KS["K1"] and TAIL_DOT_KS; K6 at the K of its
+# unchanged register form (TAIL_SAME_KS["K6"]: equal bits, within
+# TAIL_SAME_TOL of the parent) and at TAIL_RING_KS, where its ring form
+# runs against the parent's register and wide forms (timed in turns,
+# faster in every one; at 512 the wide form in both trees, equal bits).
+TAIL_SAME_KS = {"K1": (K, K_WIDE, 128), "K6": (K, K_WIDE, 127)}
 TAIL_DOT_KS = (K_HUGE, 200, 256, 300, 512)
+TAIL_RING_KS = (K_HUGE, 200, 255, 256, 300, 511, 512)
 TAIL_SAME_TOL = 0.03
 
 
-def phase_tail_parent(blocked):
-    """With ``--parent``: every row-group instance this tree keeps has the
-    parent build's ptxas line (the dot form's instances are new, the
-    register form's G = 32 instances of K1 "cavi" and K7 gone); then, on
-    the bench tail (random tables, both directions a sweep), K1 "cavi", K1
-    raw and K7 of both trees timed by CUDA events in turns parent, this,
-    this, parent at TAIL_SAME_KS and TAIL_DOT_KS: equal in bits and within
-    TAIL_SAME_TOL at TAIL_SAME_KS and wherever this tree's plan is not the
-    dot form (K7 at 512: the wide form in both), the dot form's turns and
-    its largest difference from the parent logged (no speed asserted: the
-    parent's register form to K = 256, its wide form past it); K1 raw, K5,
-    K6 and K8 equal in bits at every K."""
-    import torch
-
-    from pmf_tpu_torch.ops._tail import launch_plan
-
+def _tail_ptxas_against_parent():
     theirs: dict = {}
     _ptxas_report(open(str(PARENT["lib"]) + ".log").read(), theirs)
     mine = {n: v for n, v in PTXAS.items() if n.startswith("tail_")}
@@ -1849,53 +1852,90 @@ def phase_tail_parent(blocked):
     gone = sorted(set(prev) - set(mine))
     new = sorted(set(mine) - set(prev))
     kept = sorted(set(mine) & set(prev))
-    if gone != ["tail_group_kernel<0, 32, 2, 4>", "tail_group_kernel<2, 32, 2, 4>"] or \
-            not all(n.startswith("tail_dot_kernel<") for n in new) or not new:
+    if gone != ["tail_group_kernel<4, 32, 2, 2>"] or \
+            not all(n.startswith("tail_ring_kernel<") for n in new) or not new:
         raise AssertionError(f"tail parent: instances gone {gone}, new {new}")
     differ = [n for n in kept if mine[n] != prev[n]]
     if differ:
         raise AssertionError(f"tail parent: ptxas differs from the parent's for {differ}")
     log(f"  tail parent: {len(kept)} kept row-group instances' ptxas lines equal the "
         f"parent's; gone {gone}; new {new}")
+
+
+TAIL_UNCHANGED = ("K1", "K1raw", "K7", "K5", "K8")
+
+
+def phase_tail_parent(blocked, kids=TAIL_UNCHANGED):
+    """With ``--parent``, on ``blocked``'s tail (random tables, both
+    directions a sweep): for TAIL_UNCHANGED, every row-group instance this
+    tree keeps has the parent build's ptxas line (K6's ring form instances
+    are new, its register form's G = 32 instance gone), and K1 "cavi", K1
+    raw, K7, K5 and K8 of both trees are equal in bits at
+    TAIL_SAME_KS["K1"] + TAIL_DOT_KS; for ("K6",) (on the Gaussian layout's
+    tail, after huge timing), K6 of both trees timed by CUDA events in turns
+    parent, this, this, parent at TAIL_SAME_KS["K6"] + TAIL_RING_KS: equal
+    in bits and within TAIL_SAME_TOL wherever this tree's plan is not the
+    ring form; the ring form within COL_RTOL per column of the parent and
+    faster in every turn.  Returns {k: (this tree's mean ms, the
+    parent's)} of K6."""
+    import torch
+
+    from pmf_tpu_torch.ops._tail import launch_plan
+
+    if kids == TAIL_UNCHANGED:
+        _tail_ptxas_against_parent()
     trees = {"this": None, "parent": tuple(_parent_op(n) for n in
                                            ("cavi_edge", "ext_edge", "gaussian_edge"))}
     dirs = (blocked.by_user, blocked.by_item)
-    for kid in ("K1", "K1raw", "K7", "K5", "K6", "K8"):
-        same_ks = TAIL_SAME_KS.get(kid, TAIL_SAME_KS["K1"])
-        for k in same_ks + TAIL_DOT_KS:
+    k6 = {}
+    for kid in kids:
+        ks = TAIL_SAME_KS["K6"] + TAIL_RING_KS if kid == "K6" else \
+            TAIL_SAME_KS["K1"] + TAIL_DOT_KS
+        for k in ks:
             tabs = [_tail_tabs(kid, p.n_self, p.n_other, k, 70 + k + j)
                     for j, p in enumerate(dirs)]
 
             def sweep(tree, tabs=tabs, k=k):
                 return [_tail_kernel(kid, t, p, k, trees[tree]) for t, p in zip(tabs, dirs)]
 
-            dot = launch_plan(k, kid)["form"] == "dot"
+            ring = launch_plan(k, kid)["form"] == "ring"
             pairs = list(zip(sweep("this"), sweep("parent")))
-            if dot:
-                note = f"largest relative difference {max(compare(a, b)[1] for a, b in pairs):.3e}"
+            if ring:
+                col = max(column_check(a, b)[1] for a, b in pairs)
+                if not col <= COL_RTOL:
+                    raise AssertionError(f"tail parent {kid} K={k}: column difference {col}")
+                note = f"largest column difference {col:.3e}"
             elif all(torch.equal(a, b) for a, b in pairs):
                 note = "equal in bits"
             else:
                 raise AssertionError(f"tail parent {kid} K={k}: the trees differ in bits")
             del pairs
-            mean = None
-            if kid in ("K1", "K1raw", "K7"):
+            if kid == "K6":
                 reps = TIMING_REPS if k <= 128 else 3
                 turns = [cuda_ms(lambda t=t: sweep(t), reps=reps) for t in K2_AB_TURNS]
-                mean = {t: float(np.mean([ms for u, ms in zip(K2_AB_TURNS, turns) if u == t]))
-                        for t in ("parent", "this")}
+                by = {t: [ms for u, ms in zip(K2_AB_TURNS, turns) if u == t]
+                      for t in ("parent", "this")}
+                mean = {t: float(np.mean(v)) for t, v in by.items()}
+                k6[k] = (mean["this"], mean["parent"])
                 note = ("turns " + ", ".join(f"{t} {ms:.4f}" for t, ms in zip(K2_AB_TURNS, turns))
                         + f" ms a sweep | this / parent {mean['this'] / mean['parent'] - 1:+.2%}"
                         f" | {note}")
+                if ring and not max(by["this"]) < min(by["parent"]):
+                    raise AssertionError(f"tail parent K6 K={k}: the ring form is not faster "
+                                         f"in every turn: {note}")
+                if not ring and not mean["this"] <= (1 + TAIL_SAME_TOL) * mean["parent"]:
+                    raise AssertionError(f"tail parent K6 K={k}: {mean} past {TAIL_SAME_TOL:.0%}")
             log(f"  tail parent {kid} K={k} ({tail_trace(kid, k)}): {note}")
-            if mean and kid != "K1raw" and not dot and \
-                    not mean["this"] <= (1 + TAIL_SAME_TOL) * mean["parent"]:
-                raise AssertionError(f"tail parent {kid} K={k}: {mean} past {TAIL_SAME_TOL:.0%}")
             del tabs
             torch.cuda.empty_cache()
-    log(f"phase tail parent: ok | {PARENT['dir']} | K1 at K {list(TAIL_SAME_KS['K1'])}, K7 "
-        f"at {list(TAIL_SAME_KS['K7'])} equal in bits and within {TAIL_SAME_TOL:.0%}; K1 raw, "
-        f"K5, K6, K8 equal in bits; K {list(TAIL_DOT_KS)} in turns {', '.join(K2_AB_TURNS)}")
+    if kids == TAIL_UNCHANGED:
+        log(f"phase tail parent: ok | {PARENT['dir']} | K1, K1 raw, K7, K5, K8 equal in "
+            f"bits at K {list(TAIL_SAME_KS['K1'] + TAIL_DOT_KS)}")
+    else:
+        log(f"phase tail parent (K6, Gaussian tail): ok | K6 at {list(TAIL_SAME_KS['K6'])} "
+            f"equal in bits and within {TAIL_SAME_TOL:.0%}, at {list(TAIL_RING_KS)} in "
+            f"turns {', '.join(K2_AB_TURNS)}")
+    return k6
 
 
 K4_WIDE_KS = (80, 128, K_HUGE)  # K4's CTA form timed on 162k + 59k matrices
@@ -2388,6 +2428,8 @@ def tail_trace(kid, k=K):
     from pmf_tpu_torch.ops._tail import launch_plan
 
     form = launch_plan(k, kid)["form"]
+    if form == "ring":  # K6's alone: no mode among its template arguments
+        return "tail_ring_kernel<"
     return f"tail_{form}_kernel<{TAIL_MODES[kid]}" + (">" if form == "wide" else ",")
 
 
@@ -4400,6 +4442,169 @@ def phase_gwidefit(train, val, smi, k=GWIDE_K, n_users=N_USERS, n_items=N_ITEMS,
             "peak_gb": (peak - held) / 1e9, "reckoned_gb": reckon / 1e9}
 
 
+GDIAG_HUGE_SWEEPS = 4  # phase gdiaghugefit: the diag Gaussian fit at K_HUGE
+
+
+def _gdiag_reckoning(tiers, n_train, k, head_bytes):
+    """Peak device bytes of the diag fit at ``k`` on the bench's ids,
+    reckoned from shapes: the layout (the head budget and 16 bytes a tail
+    edge), the state (m and v of both sides, the biases), K6's tables of
+    the larger direction ([m | b] records of both sides, v + m^2 of the
+    other), two N x 3K statistics tables, and the largest of the head
+    tiers' transients (``ops/gaussian_edge.py::_diag_head_out``; ``tiers``
+    as (hu, hip); w = 4K + T, T = K(K+1)/2; in floats a row).  The rows
+    that build the table (the head items on the user side, the tier's users
+    on the item side) hold their outer products beside the triangle (K^2 +
+    T), then the triangle, the table and its bf16 split (T + 4w: the split's
+    float32 hi and remainder beside the two planes); the product's rows
+    hold the first plane's product beside the sum (3w), then the sum beside
+    its unpacking (w + K^2)."""
+    from pmf_tpu_torch.ops._tail import tail_stride
+
+    T = k * (k + 1) // 2
+    w = 4 * k + T
+    S1, Sq = tail_stride(k + 1), tail_stride(k)
+    table, product = max(k * k + T, T + 4 * w), max(3 * w, w + k * k)
+
+    def user(hu, hip):
+        return 4 * hip * table + 4 * hu * product
+
+    def item(hu, hip):
+        return 4 * hu * table + 4 * hip * product
+
+    parts = {"layout": head_bytes + 16 * n_train,
+             "state": 4 * (N_USERS + N_ITEMS) * (2 * k + 1),
+             "K6 tables": 4 * max(N_USERS * S1 + N_ITEMS * (S1 + Sq),
+                                  N_ITEMS * S1 + N_USERS * (S1 + Sq)),
+             "statistics": 2 * 4 * max(N_USERS, N_ITEMS) * 3 * k,
+             "head tier": max(max(user(hu, hip), item(hu, hip)) for hu, hip in tiers)}
+    return sum(parts.values()), parts
+
+
+def phase_gdiaghugefit(train, val, smi, tiers, k=K_HUGE):
+    """``GaussianMF(n_factors=k, covariance="diag", engine="blocked_high")``
+    at full width on phase gdata's ratings for GDIAG_HUGE_SWEEPS sweeps with
+    ``elbo_every=1``: the peak device memory against ``_gdiag_reckoning``
+    (``tiers``: phase gdata's (hu, hip), the layout the fit builds);
+    launches (K5 and K6 twice a sweep, nothing else); the state finite at
+    its shapes, the ELBO finite every sweep and logged with whether it rose
+    (noise ratings: no gate here beyond the fit's own); K6 on the state of
+    sweep 2 (both directions, the tables the frame builds) against its
+    plain version per column at COL_RTOL, equal in bits on a repeat, and
+    timed there by CUDA events; one sweep timed by CUDA events, and one
+    traced for its parts' shares (fault F2: a trace can lose a launch, so
+    K6's share is its events' ms over the sweep's).  Returns the launches,
+    the sweep's ms, K6's ms by events and its share, K5's traced ms, the
+    peak."""
+    import torch
+
+    from pmf_tpu_torch.models.gaussian_mf import (
+        GaussianMF, GaussianMFConfig, init_state, state_to_numpy, sweep_blocked)
+    from pmf_tpu_torch.ops import gaussian_edge as ge
+    from pmf_tpu_torch.ops._tail import band_rows, new_space_rows
+
+    reckon, parts = _gdiag_reckoning(tiers, len(train[0]), k, GAUSS_HEAD_BYTES)
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"  gdiaghugefit K={k}: peak reckoned {reckon / 1e9:.3f} GB ("
+        + ", ".join(f"{n} {b / 1e9:.3f}" for n, b in parts.items())
+        + f") of {total / 1e9:.3f} GB | head tiers (hu, hip) {list(tiers)} | K6 "
+        f"{tail_trace('K6', k)}, K5 {tail_trace('K5', k)}")
+    cfg = GaussianMFConfig(n_factors=k, covariance="diag", engine="blocked_high",
+                           max_iter=GDIAG_HUGE_SWEEPS, tol=None, verbose=False)
+    model = GaussianMF(cfg)
+    gc_cuda()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    model.fit(train, val, global_mean=0.0, elbo_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {kid: c.count for kid, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n = model.n_sweeps
+    want = dict.fromkeys(launches, 0)
+    want.update({"K5": 2 * n, "K6": 2 * n})
+    if n != GDIAG_HUGE_SWEEPS or launches != want:
+        raise AssertionError(f"gdiaghugefit: {n} sweeps, launches {launches}, "
+                             f"expected {want}")
+    elbos = [rec.get("elbo") for rec in model.fit_history]
+    if None in elbos or not np.all(np.isfinite(elbos)):
+        raise AssertionError(f"gdiaghugefit: ELBO history {elbos}")
+    for rec in model.fit_history:
+        log(f"  diag K={k} sweep {rec['iteration']}: {rec['iter_seconds']:.4f} s | ELBO "
+            f"{rec['elbo']:.8e} | val RMSE {rec['val_rmse']:.6f} | {smi}")
+    rose = [b > a for a, b in zip(elbos, elbos[1:])]
+    shapes = {"m_theta": (N_USERS, k), "m_beta": (N_ITEMS, k), "V_theta": (N_USERS, k),
+              "V_beta": (N_ITEMS, k), "b_user": (N_USERS,), "b_item": (N_ITEMS,)}
+    for name, v in state_to_numpy(model.state).items():
+        if v.shape != shapes[name] or not np.all(np.isfinite(v)):
+            raise AssertionError(f"gdiaghugefit state {name}: shape {v.shape} or non-finite")
+    log(f"  gdiaghugefit: {n} sweeps in {wall:.1f} s wall (layout build and ELBOs "
+        f"included) | ELBO rose at every sweep: {all(rose)} ({rose}) | peak "
+        f"{peak / 1e9:.3f} GB allocated, {(peak - held) / 1e9:.3f} above the "
+        f"{held / 1e9:.3f} held before the fit (reckoned {reckon / 1e9:.3f}), "
+        f"{(total - peak) / 1e9:.3f} GB spare | launches {launches}")
+
+    counts = _counts_on_card(train, N_USERS, N_ITEMS)
+    args = (cfg.sigma2, cfg.eta_theta2, cfg.eta_beta2, cfg.eta_bias2, cfg.use_bias,
+            cfg.covariance, cfg.bias_update)
+    st = init_state(N_USERS, N_ITEMS, cfg, device="cuda")
+    for _ in range(2):
+        st = sweep_blocked(st, model.blocked, *counts, *args)
+    worst, k6_ms = 0.0, 0.0
+    for p, (m_s, b_s), (m_o, v_o, b_o) in (
+            (model.blocked.by_user, (st["m_theta"], st["b_user"]),
+             (st["m_beta"], st["V_beta"], st["b_item"])),
+            (model.blocked.by_item, (st["m_beta"], st["b_item"]),
+             (st["m_theta"], st["V_theta"], st["b_user"]))):
+        tabs = (band_rows(ge.record_table(m_s, b_s, p.self_new_of_old), p),
+                ge.record_table(m_o, b_o, p.other_new_of_old),
+                new_space_rows(torch.addcmul(v_o, m_o, m_o), p.other_new_of_old))
+        got = _tail_kernel("K6", tabs, p, k)
+        err, ok = _tail_error("K6", got, _tail_plain_rows("K6", tabs, p, k))
+        if not ok:
+            raise AssertionError(f"gdiaghugefit: K6 on the sweep-2 state, column error "
+                                 f"{err} > {COL_RTOL}")
+        if not torch.equal(got, _tail_kernel("K6", tabs, p, k)):
+            raise AssertionError("gdiaghugefit: K6 on the sweep-2 state, two launches "
+                                 "differ in bits")
+        worst = max(worst, err)
+        k6_ms += cuda_ms(lambda: _tail_kernel("K6", tabs, p, k), reps=3)
+        del tabs, got
+    del st
+    log(f"  gdiaghugefit: K6 on the state of sweep 2 vs plain, both directions: worst "
+        f"column error {worst:.3e} (tol {COL_RTOL}) | repeats equal in bits | "
+        f"{k6_ms:.4f} ms a sweep (CUDA events)")
+
+    box = [dict(model.state)]
+
+    def one_sweep():
+        box[0] = sweep_blocked(box[0], model.blocked, *counts, *args)
+
+    ms = cuda_ms(one_sweep, reps=2)
+    k5, k6 = tail_trace("K5", k), tail_trace("K6", k)
+    rows, busy, wall_ms = profile_once(one_sweep, {k5: 2, k6: 2})
+    groups = trace_parts(rows, {f"K6 {k6}": (k6,), f"K5 {k5}": (k5,)})[0]
+    k6_traced, k5_ms = groups[f"K6 {k6}"], groups[f"K5 {k5}"]
+    head, glue = groups["head products (gemm)"], groups["other"]
+    log_parts(groups, busy)
+    for dev_ms, cnt, key in rows[:8]:
+        log(f"  {dev_ms:9.4f} ms  {cnt:3d}x  {key[:90]}")
+    log(f"phase gdiaghugefit: ok | GaussianMF K={k} diag, {n} sweeps | a sweep "
+        f"{ms:.4f} ms (CUDA events) | one sweep traced: busy {busy:.4f} ms of "
+        f"{wall_ms:.4f} ms (idle share {1 - busy / wall_ms:.1%}), K6 {k6_traced:.4f} ms "
+        f"({k6_traced / busy:.2%}; by CUDA events {k6_ms:.4f} ms, {k6_ms / ms:.2%} of the "
+        f"sweep), K5 {k5_ms:.4f} ms ({k5_ms / busy:.2%}), head products "
+        f"{head:.4f} ms ({head / busy:.1%}), glue {glue:.4f} ms ({glue / busy:.1%}) | "
+        f"peak {(peak - held) / 1e9:.3f} GB above the held (reckoned "
+        f"{reckon / 1e9:.3f}) | {smi}")
+    del model, box
+    return {"launches": launches, "sweep_ms": ms, "busy_ms": busy, "k6_ms": k6_ms,
+            "k6_share": k6_ms / ms, "k5_ms": k5_ms, "peak_gb": (peak - held) / 1e9,
+            "reckoned_gb": reckon / 1e9}
+
+
 # ---- The experiment surface: CLIs, multi-seed fits, the reproduction chain.
 
 MID_USERS, MID_ITEMS, MID_NNZ, MID_HELD = 40_000, 12_000, 2_000_000, 20_000
@@ -5908,6 +6113,7 @@ def main(argv=None) -> int:
     gc_cuda()
 
     gtrain, gval, gblocked = phase_gdata(split)
+    gtiers = [(h.hu, h.hip) for h in gblocked.head]
     k3 = phase_k3(gblocked)
     k5 = phase_k5(gblocked)
     k6 = phase_k6(gblocked)
@@ -5920,6 +6126,9 @@ def main(argv=None) -> int:
     huge.update(phase_huge_gauss(gblocked))
     huge["K9"] = k9["k160"]
     gc_cuda()
+    if PARENT:
+        phase_tail_parent(gblocked, ("K6",))
+        gc_cuda()
     xtrain, xval = phase_gxldata()
     xl = _xl_layout(xtrain)
     k3w = phase_k3wide(gblocked, xl)
@@ -5947,6 +6156,8 @@ def main(argv=None) -> int:
     gxl = phase_gwidefit(xtrain, xval, smi, k=XL_K, n_users=XL_USERS, n_items=XL_ITEMS,
                          head_bytes=0, label="gxlfit")
     del xtrain, xval
+    gc_cuda()
+    gdiag = phase_gdiaghugefit(gtrain, gval, smi, gtiers)
     gc_cuda()
     # The layout cache, off until here so that every fit above builds its
     # layout cold (each wall a user's first fit).
@@ -6026,7 +6237,16 @@ def main(argv=None) -> int:
         entry("gaussian_bias_tail", gsrc,
               "pmf_tpu/ops/pallas/gaussian_edge.py:175", k5, glaunches["K5"], "K5"),
         entry("gaussian_diag_tail", gsrc,
-              "pmf_tpu/ops/pallas/gaussian_edge.py:242", k6, glaunches["K6"], "K6"),
+              "pmf_tpu/ops/pallas/gaussian_edge.py:242", k6, glaunches["K6"], "K6",
+              **{f"launches_k{K_HUGE}_diag": gdiag["launches"]["K6"],
+                 f"sweep_ms_k{K_HUGE}_diag": gdiag["sweep_ms"],
+                 f"sweep_k6_ms_k{K_HUGE}_diag": gdiag["k6_ms"],
+                 f"peak_gb_k{K_HUGE}_diag": gdiag["peak_gb"]},
+              note=f"_k{K_HUGE}: the ring form (tail_ring_kernel, "
+                   "pmf_tpu_torch/csrc/tail_groups.cuh) on the bench tail; *_diag: phase "
+                   f"gdiaghugefit's diag fit at K={K_HUGE} (a sweep and K6's two launches "
+                   "on its sweep-2 tables by CUDA events, the fit's peak above the memory "
+                   "held)"),
         entry("ext_factor_tail", "pmf_tpu_torch/csrc/ext_edge.cu",
               "pmf_tpu/ops/pallas/ext_edge.py:59", k7, launches["K7"], "K7",
               **{f"s_wother_half_ms_k{K_HUGE}": huge["K7"]["half_ms"],
@@ -6056,6 +6276,10 @@ def main(argv=None) -> int:
 
     for name in ("layouts", "cli_layouts", "tp_layouts"):
         shutil.rmtree(os.path.join(SMOKE_TMP, name), ignore_errors=True)
+    log(f"  gdiaghugefit (diag Gaussian, K={K_HUGE}): a sweep {gdiag['sweep_ms']:.4f} ms "
+        f"by CUDA events (traced busy {gdiag['busy_ms']:.4f} ms), K6 {gdiag['k6_ms']:.4f} ms "
+        f"by CUDA events ({gdiag['k6_share']:.2%} of the sweep) | peak "
+        f"{gdiag['peak_gb']:.3f} GB (reckoned {gdiag['reckoned_gb']:.3f})")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -23,8 +23,11 @@
 // a group of G lanes a self row, the rows [m | b] read as records of
 // 4 * ceil((K + 1) / 4) floats in float4 words (K6 also v + m^2, padded to
 // 4 * ceil(K / 4)), K6's b_o shared from the lane that holds column K and
-// its dot the group's log2(G)-step butterfly.  This file holds their entry
-// points.
+// its dot the group's log2(G)-step butterfly.  K6 takes that register form
+// to K = 127; from K = 128 to 511 (33 to 128 words a record) the ring form,
+// tail_ring_kernel (a warp a row, each edge's two rows copied by cp.async
+// into a ring in shared memory, D dots a round in one reduction); past it
+// tail_wide_kernel.  This file holds their entry points.
 //
 // K3's table is padded to a multiple of 4 floats a record (stride), so
 // that every record starts on 16 bytes.  What bounds it on an H100:

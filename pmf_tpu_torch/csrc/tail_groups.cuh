@@ -85,9 +85,36 @@
 // rows the pass took 0.59 ms against 0.67 (K1 "raw", no dot, 0.43 against
 // 0.75).
 //
-// Past a span of 64 words (K1 past K = 256, the record modes from K = 255
-// on: rows of more than 64 float4 words; K1 and K7 past the dot form)
-// tail_wide_kernel takes the row:
+// The ring form (K6 from K = 128, rows of 33 to 32 * kRingMaxVec float4
+// words): tail_ring_kernel, the dot form's walk for two rows an edge.  There
+// the register form had G = 32, V = 2, D = 2: 110 registers, two edges in
+// flight a warp, each edge's [m | b] record and v + m^2 row in registers,
+// a five-step butterfly an edge.  In the ring form each edge's record (W
+// words) and its v + m^2 row (Wq = ceil(K / 4) words) are copied by
+// cp.async into a ring of S rounds of D edges in the warp's shared memory;
+// lane l reads words l, l + 32, ... of both; the round's D partial dots
+// <m_s, m_o> meet in one transposed reduction; the lane that holds edge
+// d's dot reads its rating and b_o (column K of the record in the ring)
+// and forms ((x - b_s) - b_o) - dot, the register form's float order
+// (b_s read once a row from the self record); D shuffles share the
+// coefficients.  Three accumulators a lane-word, in edge order: coef *
+// m_o, v_o + m_o^2 (added straight from the ring) and m_o^2.  No atomics,
+// equal bits on a repeat; long rows keep a warp each.  Geometry from
+// scripts/probe_k6_ring.py (H100 80GB HBM3 at 700 W, the bench tail): D =
+// 4, S = 3 at V = 2 (118 registers, 62.4 KB a CTA of 4 warps at K = 160: 3
+// CTAs, 12 warps an SM), D = 2, S = 3 at V = 3 and 4 (118 and 140
+// registers): there D = 4 left one or two CTAs an SM (116 KB a CTA at K =
+// 300, 14% slower).  One record [m | b | v + m^2] a row, one contiguous
+// copy an edge, ran within 2% of the two tables (the same sectors) and
+// was not kept.  What bounds it at K = 160: the gathers of two rows an
+// edge, 13.1 GB a sweep counted by sector (3.90 ms at 3.35 TB/s) of which
+// L2 serves most; the item pass misses on the user tables (2 x 104 MB,
+// four times the L2): with the other ids cut to 40,000 rows it took 1.12
+// ms against 1.70.
+//
+// Past a span of 64 words (K1 past K = 256, K5 and K8 from K = 255 on:
+// rows of more than 64 float4 words; K1 and K7 past the dot form, K6 past
+// the ring form) tail_wide_kernel takes the row:
 // a warp a row, lane l holding words l and l + 32 of a chunk of 64 words,
 // the chunks one after another (a second walk of the row's edges a chunk).
 // Each edge's dot runs over the whole row in every chunk, the lane's words
@@ -127,6 +154,10 @@ constexpr int kDotWarps = 4;        // warps a CTA of tail_dot_kernel, a row eac
 constexpr int kDotInFlight = 4;     // D: edges a round of the dot form
 constexpr int kDotStages = 3;       // S: rounds in a warp's ring
 constexpr int kDotMaxVec = 4;       // words a lane: the dot form up to 128 words a row
+constexpr int kRingInFlight = 4;      // D: edges a round of K6's ring form, 2 words a lane
+constexpr int kRingWideInFlight = 2;  // and at 3 or 4 words a lane (rows past 64 words)
+constexpr int kRingStages = 3;        // S: rounds in a warp's ring there
+constexpr int kRingMaxVec = 4;        // words a lane: the ring form up to 128 words a row
 
 enum Mode { kCavi = 0, kRaw = 1, kExt = 2, kBias = 3, kDiag = 4, kScalar = 5 };
 
@@ -854,17 +885,183 @@ tail_dot_kernel(const float* __restrict__ e_self, const float* __restrict__ e_ot
   }
 }
 
+// K6 (kDiag) on records of 33 to 32 V words: the ring form (the header's
+// design note).  A warp a row (kDotWarps rows a CTA); each edge's [m | b]
+// record (W words, rows rec_stride words apart) and its v + m^2 row (Wq
+// words, sq_stride apart) copied into the warp's ring, E = W + Wq words an
+// edge.  The entry passes W and Wq; scripts/probe_k6_ring.py passes one
+// joined table's [m | b | v + m^2] rows.
+template <int V, int D, int S>
+__global__ void __launch_bounds__(32 * kDotWarps)
+tail_ring_kernel(const float* __restrict__ mb_self, const float* __restrict__ mb_other,
+                 const float* __restrict__ sq_other, const int64_t* __restrict__ row_ptr,
+                 const int32_t* __restrict__ other, const float* __restrict__ x,
+                 int n_self, int K, int rec_stride, int sq_stride, float* __restrict__ out) {
+  static_assert((D & (D - 1)) == 0 && D <= 32 && S >= 2, "D a power of two, S >= 2");
+  extern __shared__ float4 dot_ring[];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int row = blockIdx.x * kDotWarps + wid;
+  if (row >= n_self) return;  // whole warp leaves together
+  const int W = (K + 4) >> 2;   // words a record, [m | b]
+  const int Wq = (K + 3) >> 2;  // of a v + m^2 row, and of each output block
+  const int E = W + Wq;
+  float4* __restrict__ ring = dot_ring + (int64_t)wid * dot_ring_words(E, D, S);
+  float* __restrict__ ring_x = reinterpret_cast<float*>(ring + S * D * E);
+  const int64_t begin = row_ptr[row];
+  const int len = (int)(row_ptr[row + 1] - begin);
+  const float4* __restrict__ mb4 = reinterpret_cast<const float4*>(mb_other);
+  const float4* __restrict__ sq4 = reinterpret_cast<const float4*>(sq_other);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // ms: m_s with b_s and the pad zeroed; acc_a, acc_o, acc_c the three
+  // output blocks.
+  float4 ms[V], acc_a[V], acc_o[V], acc_c[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int w = 32 * v + lane;
+    float4 e = zero;
+    if (w < Wq) {
+      e = reinterpret_cast<const float4*>(mb_self)[(int64_t)row * W + w];
+      const int k = 4 * w;
+      if (k + 1 >= K) e.y = 0.f;
+      if (k + 2 >= K) e.z = 0.f;
+      if (k + 3 >= K) e.w = 0.f;
+    }
+    ms[v] = e;
+    acc_a[v] = zero;
+    acc_o[v] = zero;
+    acc_c[v] = zero;
+  }
+  const float bs = mb_self[(int64_t)row * 4 * W + K];
+
+  int batch = 0;
+  int ids = lane < len ? other[begin + lane] : 0;
+  int nids = 32 + lane < len ? other[begin + 32 + lane] : 0;
+  const int rounds = (len + D - 1) / D;
+  // Round q's records, v + m^2 rows and ratings into ring stage q % S; one
+  // commit group a round (empty past the last).
+  auto issue = [&](int q) {
+    if (q < rounds) {
+      const int b = (q * D) >> 5;
+      if (b != batch) {
+        batch = b;
+        ids = nids;
+        const int e = 32 * (b + 1) + lane;
+        nids = e < len ? other[begin + e] : 0;
+      }
+      const int st = q % S;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const int e = q * D + d;
+        const int o = __shfl_sync(kFull, ids, e & 31);
+        if (e < len) {
+          float4* dst = ring + (st * D + d) * E;
+          const float4* rec = mb4 + (int64_t)o * rec_stride;
+          const float4* sq = sq4 + (int64_t)o * sq_stride;
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            const int w = 32 * v + lane;
+            if (w < W) cp_async16(dst + w, rec + w);
+            if (w < Wq) cp_async16(dst + W + w, sq + w);
+          }
+        }
+      }
+      if (lane < D && q * D + lane < len) cp_async4(ring_x + st * D + lane, x + begin + q * D + lane);
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int q = 0; q < S - 1; ++q) issue(q);
+  for (int r = 0; r < rounds; ++r) {
+    issue(r + S - 1);
+    cp_async_wait<S - 1>();  // round r has landed (this lane's copies)
+    __syncwarp();            // and every lane's
+    const int st = r % S;
+    const float4* edges = ring + st * D * E;
+    float4 mo[D][V];
+    float part[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const bool ok = r * D + d < len;  // warp-uniform
+      part[d] = 0.f;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int w = 32 * v + lane;
+        mo[d][v] = (ok && w < Wq) ? edges[d * E + w] : zero;
+        part[d] = fmaf(ms[v].x, mo[d][v].x, part[d]);
+        part[d] = fmaf(ms[v].y, mo[d][v].y, part[d]);
+        part[d] = fmaf(ms[v].z, mo[d][v].z, part[d]);
+        part[d] = fmaf(ms[v].w, mo[d][v].w, part[d]);
+      }
+    }
+    const float dot = warp_dots<D>(part, lane);
+    const int dl = lane / (32 / D);  // the edge whose dot this lane holds
+    float xv = 0.f, bo = 0.f;
+    if (r * D + dl < len) {
+      xv = ring_x[st * D + dl];
+      bo = reinterpret_cast<const float*>(edges + dl * E)[K];  // b_o, column K
+    }
+    const float coef = ((xv - bs) - bo) - dot;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const float c = __shfl_sync(kFull, coef, d * (32 / D));
+      const bool ok = r * D + d < len;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int w = 32 * v + lane;
+        acc_a[v].x = fmaf(c, mo[d][v].x, acc_a[v].x);
+        acc_a[v].y = fmaf(c, mo[d][v].y, acc_a[v].y);
+        acc_a[v].z = fmaf(c, mo[d][v].z, acc_a[v].z);
+        acc_a[v].w = fmaf(c, mo[d][v].w, acc_a[v].w);
+        acc_c[v].x = fmaf(mo[d][v].x, mo[d][v].x, acc_c[v].x);
+        acc_c[v].y = fmaf(mo[d][v].y, mo[d][v].y, acc_c[v].y);
+        acc_c[v].z = fmaf(mo[d][v].z, mo[d][v].z, acc_c[v].z);
+        acc_c[v].w = fmaf(mo[d][v].w, mo[d][v].w, acc_c[v].w);
+        if (ok && w < Wq) {
+          const float4 sq = edges[d * E + W + w];
+          acc_o[v].x += sq.x;
+          acc_o[v].y += sq.y;
+          acc_o[v].z += sq.z;
+          acc_o[v].w += sq.w;
+        }
+      }
+    }
+    __syncwarp();  // every lane has read stage st before round r + S refills it
+  }
+
+  float* dst = out + (int64_t)row * 3 * K;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int w = 32 * v + lane;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = 4 * w + j;
+      if (w < Wq && k < K) {
+        dst[k] = comp(acc_a[v], j);
+        dst[K + k] = comp(acc_o[v], j);
+        dst[2 * K + k] = comp(acc_c[v], j);
+      }
+    }
+  }
+}
+
 // The plan for K: W = ceil(columns / 4) words a row, span = the power of
 // two at or above W, V = 1 word a lane up to a span of one_word(mode) and 2
 // past it, G = span / V lanes a row, in_flight(mode) edges in flight a
 // group; past a span of kMaxSpan words tail_wide_kernel.  K1 "cavi" and
-// K7 take the dot form for W in (32, 32 * kDotMaxVec], V = ceil(W / 32)
-// words a lane, and tail_wide_kernel past it (ops/_tail.py::launch_plan
-// mirrors it).
+// K7 take the dot form for W in (32, 32 * kDotMaxVec], K6 the ring form
+// for W in (32, 32 * kRingMaxVec], V = ceil(W / 32) words a lane, and
+// tail_wide_kernel past them (ops/_tail.py::launch_plan mirrors it).
 __host__ __device__ constexpr int plan_words(int mode, int K) { return (columns(mode, K) + 3) / 4; }
 __host__ __device__ constexpr bool plan_dot(int mode, int K) {
   return (mode == kCavi || mode == kExt) && plan_words(mode, K) > 32 &&
          plan_words(mode, K) <= 32 * kDotMaxVec;
+}
+// K6 takes the ring form for W in (32, 32 * kRingMaxVec], V = ceil(W / 32).
+static_assert(kRingMaxVec >= 2, "the ring form takes every K6 row of 33 to 64 words");
+__host__ __device__ constexpr bool plan_ring(int mode, int K) {
+  return mode == kDiag && plan_words(mode, K) > 32 && plan_words(mode, K) <= 32 * kRingMaxVec;
 }
 __host__ __device__ constexpr int plan_dot_vec(int mode, int K) {
   return (plan_words(mode, K) + 31) / 32;
@@ -882,13 +1079,16 @@ __host__ __device__ constexpr int plan_lanes(int mode, int K) {
 }
 __host__ __device__ constexpr bool plan_wide(int mode, int K) {
   return mode == kCavi || mode == kExt ? plan_words(mode, K) > 32 * kDotMaxVec
+         : mode == kDiag               ? plan_words(mode, K) > 32 * kRingMaxVec
                                        : plan_span(mode, K) > kMaxSpan;
 }
 // Whether some K of the register form takes the plan (G, V) in this mode:
 // only those instances are built.
 __host__ __device__ constexpr bool reachable(int mode, int G, int V) {
   for (int K = 1; plan_span(mode, K) <= kMaxSpan; ++K)
-    if (!plan_dot(mode, K) && plan_lanes(mode, K) == G && plan_vec(mode, K) == V) return true;
+    if (!plan_dot(mode, K) && !plan_ring(mode, K) && plan_lanes(mode, K) == G &&
+        plan_vec(mode, K) == V)
+      return true;
   return false;
 }
 
@@ -928,7 +1128,27 @@ int launch_dot(const Tables& t, int n_self, int K, float rate_floor, float* out,
   return (int)cudaGetLastError();
 }
 
-// Warps [0, n_long) take a row each (the dot form gives every row a warp).
+// K6's ring form at V words a lane, D edges a round, S rounds a ring, its
+// other tables' rows rec_stride and sq_stride float4 words apart: dynamic
+// shared memory of kDotWarps rings.
+template <int V, int D, int S>
+int launch_ring(const Tables& t, int n_self, int K, int rec_stride, int sq_stride, float* out,
+                cudaStream_t stream) {
+  auto kernel = tail_ring_kernel<V, D, S>;
+  const int smem = kDotWarps * 16 * dot_ring_words(plan_words(kDiag, K) + (K + 3) / 4, D, S);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(n_self + kDotWarps - 1) / kDotWarps, 32 * kDotWarps, smem, stream>>>(
+      t.e_self, t.e_other, t.sq_other, t.row_ptr, t.other, t.x, n_self, K, rec_stride,
+      sq_stride, out);
+  return (int)cudaGetLastError();
+}
+
+// Warps [0, n_long) take a row each (the dot and ring forms give every row
+// a warp).
 template <int kMode>
 int launch(const Tables& t, int n_self, int n_long, int K, float rate_floor, float* out,
            cudaStream_t stream) {
@@ -946,6 +1166,18 @@ int launch(const Tables& t, int n_self, int n_long, int K, float rate_floor, flo
         case 2: return launch_dot<kMode, 2>(t, n_self, K, rate_floor, out, stream);
         case 3: return launch_dot<kMode, 3>(t, n_self, K, rate_floor, out, stream);
         case 4: return launch_dot<kMode, 4>(t, n_self, K, rate_floor, out, stream);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    }
+  }
+  if constexpr (kMode == kDiag) {
+    if (plan_ring(kMode, K)) {
+      constexpr int D = kRingInFlight, Dw = kRingWideInFlight, S = kRingStages;
+      const int W = plan_words(kMode, K), Wq = (K + 3) / 4;
+      switch (plan_dot_vec(kMode, K)) {
+        case 2: return launch_ring<2, D, S>(t, n_self, K, W, Wq, out, stream);
+        case 3: return launch_ring<3, Dw, S>(t, n_self, K, W, Wq, out, stream);
+        case 4: return launch_ring<4, Dw, S>(t, n_self, K, W, Wq, out, stream);
         default: return (int)cudaErrorInvalidValue;
       }
     }

@@ -13,8 +13,9 @@ from pmf_tpu_torch.ops import _build
 from pmf_tpu_torch.ops.dense_head import head_products, head_products_t
 
 # csrc/tail_groups.cuh: kWarps, kInFlight, kDiagInFlight, kOneWord,
-# kRecordOneWord, kMaxSpan, kWideWords, batch_of, and the dot form's
-# kDotWarps, kDotInFlight, kDotStages, kDotMaxVec, dot_ring_words.
+# kRecordOneWord, kMaxSpan, kWideWords, batch_of, the dot form's
+# kDotWarps, kDotInFlight, kDotStages, kDotMaxVec, dot_ring_words, and K6's
+# ring form's kRingInFlight, kRingWideInFlight, kRingStages, kRingMaxVec.
 GROUP_WARPS = 8
 GROUP_IN_FLIGHT = 4
 DIAG_IN_FLIGHT = 2
@@ -26,8 +27,14 @@ DOT_WARPS = 4  # warps a CTA of the dot form, a row each
 DOT_IN_FLIGHT = 4  # D: edges a round
 DOT_STAGES = 3  # S: rounds in a warp's ring of shared memory
 DOT_MAX_VEC = 4  # words a lane: the dot form up to 128 words a row
-# The kernels whose mode has a dot form past 32 words a row: K1 "cavi", K7.
+RING_IN_FLIGHT = 4  # D: edges a round of K6's ring form, 2 words a lane
+RING_WIDE_IN_FLIGHT = 2  # and at 3 or 4 words a lane (rows past 64 words)
+RING_STAGES = 3  # S: rounds in a warp's ring there
+RING_MAX_VEC = 4  # words a lane: the ring form up to 128 words a row
+# The kernels whose mode has a dot form past 32 words a row: K1 "cavi", K7;
+# and the ring form, two rows an edge: K6.
 DOT_KERNELS = ("K1", "K7")
+RING_KERNELS = ("K6",)
 # The kernels that gather records of K + 1 columns: K5's and K6's [m | b],
 # K7's and K8's [e | s].
 RECORD_KERNELS = ("K5", "K6", "K7", "K8")
@@ -60,8 +67,8 @@ def dot_ring_words(words: int, d: int = DOT_IN_FLIGHT, s: int = DOT_STAGES) -> i
 def launch_plan(k: int, kernel: str = "K1") -> dict:
     """The row-group geometry of ``kernel`` (one of PLAN_KERNELS) at ``k``
     factors, as ``tail_groups::launch`` chooses it; ``form`` names the
-    kernel: "group" (``tail_group_kernel``), "dot" (``tail_dot_kernel``)
-    or "wide" (``tail_wide_kernel``).  ``words`` W =
+    kernel: "group" (``tail_group_kernel``), "dot" (``tail_dot_kernel``),
+    "ring" (``tail_ring_kernel``) or "wide" (``tail_wide_kernel``).  ``words`` W =
     ceil(columns / 4) float4 words a row; ``lanes`` G a row and ``vec`` V
     words a lane, V = 1 up to a span of GROUP_ONE_WORD words (K5, K6:
     RECORD_ONE_WORD) and 2 past it, G = span / V, for span the power of two
@@ -76,18 +83,29 @@ def launch_plan(k: int, kernel: str = "K1") -> dict:
     past 32 words a row, up to 32 * DOT_MAX_VEC): a warp a row (``lanes``
     32, ``vec`` ceil(W / 32) words a lane), ``in_flight`` D edges a round,
     ``stages`` S rounds in the warp's ring, ``smem`` the CTA's bytes of
-    DOT_WARPS rings."""
+    DOT_WARPS rings.  The ring form (K6 past 32 words a row, up to 32 *
+    RING_MAX_VEC): the dot form's geometry, D = RING_IN_FLIGHT edges a
+    round at V = 2 (RING_WIDE_IN_FLIGHT past it), RING_STAGES rounds, each
+    edge's ``words`` record words and its ceil(K / 4) words of v + m^2 in
+    the ring."""
     _build.check_k(k, "tail kernel")
     if kernel not in PLAN_KERNELS:
         raise ValueError(f"unknown row-group kernel {kernel!r} {PLAN_KERNELS}")
     cols = columns(k, kernel)
     words = -(-cols // 4)
     span = 1 << (words - 1).bit_length()
-    if kernel in DOT_KERNELS and 32 < words <= 32 * DOT_MAX_VEC:
-        return dict(form="dot", lanes=32, vec=-(-words // 32), words=words,
-                    stride=tail_stride(cols), batch=32, in_flight=DOT_IN_FLIGHT,
-                    stages=DOT_STAGES, rows_per_warp=1, rows_per_cta=DOT_WARPS,
-                    wide=False, chunks=1, smem=DOT_WARPS * 16 * dot_ring_words(words))
+    ring = kernel in RING_KERNELS and 32 < words <= 32 * RING_MAX_VEC
+    if ring or kernel in DOT_KERNELS and 32 < words <= 32 * DOT_MAX_VEC:
+        vec = -(-words // 32)
+        if ring:  # the ring holds each edge's record and its v + m^2 row
+            d = RING_IN_FLIGHT if vec == 2 else RING_WIDE_IN_FLIGHT
+            stages, edge_words = RING_STAGES, words + -(-k // 4)
+        else:
+            d, stages, edge_words = DOT_IN_FLIGHT, DOT_STAGES, words
+        return dict(form="ring" if ring else "dot", lanes=32, vec=vec, words=words,
+                    stride=tail_stride(cols), batch=32, in_flight=d, stages=stages,
+                    rows_per_warp=1, rows_per_cta=DOT_WARPS, wide=False, chunks=1,
+                    smem=DOT_WARPS * 16 * dot_ring_words(edge_words, d, stages))
     if span > GROUP_MAX_SPAN:
         summed = words if kernel == "K5" else -(-k // 4)
         return dict(form="wide", lanes=32, vec=WIDE_WORDS // 32, words=words,

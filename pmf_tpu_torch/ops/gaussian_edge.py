@@ -454,7 +454,9 @@ def diag_tail_stats_plain(mb_self, mb_other, sq_other, row_ptr, other, x,
 def diag_tail_stats(mb_self, mb_other, sq_other, row_ptr, other, x,
                     K: int | None = None, long_rows: int = 0) -> torch.Tensor:
     """K6: the diag tail pass at ``K`` factors (mb_self's width less one
-    when None).  CUDA tensors launch the kernel, on the [m | b] tables
+    when None): the register form to K = 127, the ring form from 128 to 511,
+    the wide form past it (``_tail.launch_plan(K, "K6")``).  CUDA tensors
+    launch the kernel, on the [m | b] tables
     padded to ``tail_stride(K + 1)`` columns (``record_table``) and sq_other
     padded to ``tail_stride(K)``, giving each of the first ``long_rows``
     rows a whole warp; CPU tensors run the plain version, which ignores pad

@@ -11,7 +11,8 @@ self record, its dot by the in-group butterfly and its coefficient
 ((x - b_s) - b_o) - dot; the batch loads and their broadcasts; edges past
 a row's end adding zeros; sums in edge order), and of a long row given a
 whole warp (contiguous shares met by a butterfly), against the float64
-plain version: per element at 1e-4 relative on positive data, where no
+plain version (K6 at K = 128: its ring form's emulation, from
+``tests/test_torch_k6dot.py``): per element at 1e-4 relative on positive data, where no
 sum cancels, and per column at 1e-4 of the column's largest magnitude on
 signed Gaussian data (the card's criterion for these signed sums).  The
 padded-table builders (``record_table``), the plain versions ignoring pad
@@ -35,6 +36,7 @@ from pmf_tpu_torch.ops import _build, _tail
 from pmf_tpu_torch.ops import gaussian_edge as ge
 from tests.test_torch_gaussian_edge import _assert_tier_gate
 from tests.test_torch_k1k7 import PLAN_KS, _warp_rows
+from tests.test_torch_k6dot import _emulate_row as emulate_ring_row
 
 torch.set_num_threads(1)
 
@@ -67,8 +69,9 @@ def test_k5_k6_plans_mirror_the_kernel_source():
     """The entry points launch modes kBias and kDiag through
     ``tail_groups::launch``; the record kernels' constants (one word a lane
     up to kRecordOneWord words, K6's kDiagInFlight edges in flight) and
-    their K + 1 columns equal ``launch_plan``'s; every plan of K5 and K6 is
-    among the built instances."""
+    their K + 1 columns equal ``launch_plan``'s; every register-form plan
+    of K5 and K6 is among the built instances (K6's ring form from K = 128:
+    ``tests/test_torch_k6dot.py``)."""
     src = (_build.SRC_DIR / "gaussian_edge.cu").read_text()
     hdr = (_build.SRC_DIR / "tail_groups.cuh").read_text()
     for entry, mode in (("pmf_gauss_bias", "kBias"), ("pmf_gauss_diag", "kDiag")):
@@ -93,7 +96,7 @@ def test_k5_k6_plans_mirror_the_kernel_source():
     built = set(re.findall(r"PMF_TAIL_PLAN\((\d+), (\d+)\)\n", hdr))
     for kid in KERNELS:
         plans = {(str(p["lanes"]), str(p["vec"])) for K in range(1, 600)
-                 for p in [_tail.launch_plan(K, kid)] if not p["wide"]}
+                 for p in [_tail.launch_plan(K, kid)] if p["form"] == "group"}
         assert plans <= built, kid
     with pytest.raises(ValueError, match="unknown row-group kernel"):
         _tail.launch_plan(20, "K3")
@@ -236,11 +239,15 @@ def _case(kid, K, signed, seed):
     mb_s, mb_o = records(m_s, b_s), records(m_o, b_o)
     tabs, selfs = (mb_o, sq_o), list(mb_s)
     rpw = plan["rows_per_warp"]
-    got = np.concatenate([_emulate_warp(kid, K, selfs[w0:w0 + rpw], tabs,
-                                        rows[w0:w0 + rpw])
-                          for w0 in range(0, n_rows, rpw)])
-    split = np.stack([_emulate_split(kid, K, selfs[g], tabs, r)
-                      for g, r in enumerate(rows)])
+    if plan["form"] == "ring":  # K6 from K = 128: a warp a row, long rows too
+        got = split = np.stack([emulate_ring_row(K, selfs[g], mb_o, sq_o, r)
+                                for g, r in enumerate(rows)])
+    else:
+        got = np.concatenate([_emulate_warp(kid, K, selfs[w0:w0 + rpw], tabs,
+                                            rows[w0:w0 + rpw])
+                              for w0 in range(0, n_rows, rpw)])
+        split = np.stack([_emulate_split(kid, K, selfs[g], tabs, r)
+                          for g, r in enumerate(rows)])
     csr = (torch.tensor(np.cumsum([0] + [len(r) for r in rows])),
            torch.tensor([o for r in rows for o, _ in r], dtype=torch.int32),
            torch.tensor([x for r in rows for _, x in r], dtype=torch.float64))
