@@ -21,7 +21,13 @@ tree keeps to the parent build's ptxas line, K1 (both modes), K7, K5 and
 K8 equal in bits at K = 20, 50, 128, 160, 200, 256, 300 and 512, K6 (K =
 20, 50, 127) equal in bits and within 3% of the parent, and both trees'
 K6 in turns at K = 160, 200, 255, 256, 300, 511 and 512 (the ring form
-against the parent's register and wide forms, faster in every turn).
+against the parent's register and wide forms, faster in every turn);
+phase k9 parent (after K9) holds every K9 instance both builds keep to
+the parent build's ptxas line, times both trees' K9 an epoch (a CUDA
+graph's replay) in the same turns at K = 20, 50 and 128 (equal in bits,
+within 3%) and at K = 129, 160, 200, 256, 257, 300 and 512 (this tree's
+plan, the same kernels on pieces of 32 edges in place of 128, within
+1e-4 per column of the parent's and faster in every turn).
 
 Phases, one status line each; any failure exits non-zero and prints no
 result line:
@@ -90,12 +96,21 @@ the same ratings, the HPF-MAP/SGD path: mdata (the segment layout at
 batch_size=65536, mix=8, and one epoch's grouping by (step, self row),
 timed), K9 (the minibatch-gradient kernel vs its plain version on real
 steps, two launches of a step equal in bits, and one whole epoch of its
-launches, 2 a step, timed by CUDA events and by the profiler), msmall
+launches, 2 a step, timed by CUDA events and by the profiler; at K = 50
+and 160 again on one real step against the plain version, and at K = 160
+also by CUDA events around a replay of the epoch's launches captured in a
+CUDA graph, which the host does not pace), msmall
 (three blocked and three flat epochs card vs host on a small input), mfit
 (``HPFMap.fit`` for 3 epochs, engine "blocked_high" then "flat", with
 launch counters), resume (HPF-MAP) (a blocked fit of 1 epoch with
 ``checkpoint_every=1``, resumed for 2 more: equal in bits to mfit's blocked
-params) and mprofile (20 steady blocked steps under the profiler).
+params), mprofile (20 steady blocked steps under the profiler) and
+mhugefit (``HPFMap.fit`` at K = 160 at full width, 3 blocked epochs: per
+epoch seconds, edge-visits/s, loss and val RMSE; K9 twice a step and no
+other kernel; the state finite, the loss falling, the host's val RMSE
+equal to the history's; the peak beside its reckoning; K9 on the fit's
+state against its plain version; 20 steady steps by CUDA events and
+under the profiler, K9's share beside the dense part's).
 
 Before the data, phase bigk: K1 (both modes), K7, K5, K6 and K8 at every K
 where their row-group plan changes, equal bits on a repeat (phase
@@ -327,6 +342,26 @@ def cuda_ms(fn, reps: int = TIMING_REPS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_of(fn):
+    """``fn``'s launches captured in a CUDA graph (after one call outside
+    the capture, which builds and sets up whatever it launches)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    torch.cuda.synchronize()
+    return graph
+
+
+def graph_ms(graph, reps: int = TIMING_REPS) -> float:
+    """Mean device time of a replay of ``graph`` over ``reps`` replays
+    (CUDA events): the captured launches without the host's pace."""
+    return cuda_ms(graph.replay, reps)
 
 
 def compare(got, ref) -> tuple[float, float]:
@@ -1281,10 +1316,10 @@ def _bigk_inverse(k, n=3000):
 def _bigk_map(u, i, x, k, lay=None):
     """K9 at ``k`` on a small layout (``lay``, or one built here): three
     steps of an epoch grouping (the first, the last, the one with the
-    longest item run), with pieces of PIECE edges and of 16 (so that many
-    runs span several pieces)."""
+    longest item run), with pieces of PIECE edges, of the plan's
+    ``piece_of(k)`` and of 16 (so that many runs span several pieces)."""
     from pmf_tpu_torch.models.hpf_map import build_map_layout
-    from pmf_tpu_torch.ops.map_grad import PIECE
+    from pmf_tpu_torch.ops.map_grad import PIECE, piece_of
 
     mix = 4
     if lay is None:
@@ -1293,7 +1328,7 @@ def _bigk_map(u, i, x, k, lay=None):
     u_sp, i_sp = _map_tables(lay, k)
     order = np.random.default_rng(9).permutation(lay.n_segments)
     worst = 0.0
-    for piece in (PIECE, 16):
+    for piece in sorted({PIECE, piece_of(k), 16}, reverse=True):
         groups = lay.group(order, mix, k, piece)
         n_steps = groups[0].n_steps
         longest, edges = _longest_run_step(groups[1])
@@ -3335,7 +3370,7 @@ def phase_k9(lay, order, groups, seg_groups, group_secs):
         f"{seg_bound:.4f} ms, {seg_bytes / 1e9:.3f} GB) | library: none (a nonlinear "
         f"weight inside the sums)")
     _k9_pieces(lay, order, u_sp, i_sp, launches)
-    res["k50_ms"] = _k9_at(lay, order, K_WIDE)["ms"]
+    res["k50_ms"] = _k9_at(lay, order, K_WIDE, graph=False)["ms"]
     res["k160"] = _k9_at(lay, order, K_HUGE)
     return res
 
@@ -3374,20 +3409,37 @@ def _k9_pieces(lay, order, u_sp, i_sp, launches):
     log("  K9 piece length, one epoch by the profiler's device sum: " + " | ".join(out))
 
 
-def _k9_at(lay, order, k):
+def _k9_at(lay, order, k, graph=True):
     """One epoch of K9 launches at ``k`` factors on the same layout and
-    segment order: {ms: profiler device ms, events_ms: CUDA events ms,
-    bound_ms, bound_by} (``_map_bound``)."""
+    segment order, after one real step of that grouping against the plain
+    version (``_check_map_step``): {ms: profiler device ms, events_ms: CUDA
+    events ms (the host's enqueue paces them), graph_ms: with ``graph``,
+    CUDA events around a replay of the epoch's launches captured in a CUDA
+    graph (no host pacing), else None; bound_ms, bound_by}
+    (``_map_bound``)."""
+    from pmf_tpu_torch.ops.map_grad import kernel_of, piece_of
+
     u_sp, i_sp = _map_tables(lay, k)
     groups = lay.group(order, MAP_MIX, k)
+    step = groups[0].n_steps // 2
+    _check_map_step(lay, u_sp, i_sp, order[step * MAP_MIX:(step + 1) * MAP_MIX].tolist(),
+                    f"bigk K9 K={k} {kernel_of(k)} real step {step} (pieces of <= "
+                    f"{piece_of(k)})", groups, step)
     epoch = _epoch_launches(u_sp, i_sp, groups)
     ms = cuda_ms(epoch, reps=2)
+    g_ms = None
+    if graph:
+        replay = graph_of(epoch)
+        g_ms = graph_ms(replay, reps=3)
+        del replay
     rows, _, _ = profile_once(epoch, {"map_grad": 2 * groups[0].n_steps})
     dev = sum(r[0] for r in rows if any(n in r[2] for n in K9_KERNELS))
     b_ms, b_by, _ = _map_bound(groups, k)
-    log(f"  bigk K9 K={k}: one epoch of launches {ms:.4f} ms (CUDA events), "
-        f"{dev:.4f} ms (profiler device sum) | bound {b_ms:.4f} ms ({b_by})")
-    return dict(ms=dev, events_ms=ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"  bigk K9 K={k} {kernel_of(k)}: one epoch of launches {ms:.4f} ms (CUDA events), "
+        f"{dev:.4f} ms (profiler device sum)"
+        + (f", {g_ms:.4f} ms (CUDA graph replay)" if graph else "")
+        + f" | bound {b_ms:.4f} ms ({b_by})")
+    return dict(ms=dev, events_ms=ms, graph_ms=g_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def phase_msmall(k=K, epochs=3):
@@ -3560,10 +3612,11 @@ def phase_mresume(model, train, val, smi):
         f"{t_load:.2f} s, {mb:.1f} MB | {smi}")
 
 
-def phase_mprofile(model, train, smi):
+def phase_mprofile(model, train, smi, label="mprofile"):
     """MPROFILE_STEPS steady blocked steps from the fitted state, grouped
     beforehand, under torch.profiler: busy time, idle share, K9's share and
-    the dense part's."""
+    the dense part's.  Returns {step_ms (CUDA events), busy_ms, window_ms,
+    k9_ms, k9_share} (shares of the traced busy time)."""
     import torch
 
     from pmf_tpu_torch.models import hpf_map as hm
@@ -3579,7 +3632,7 @@ def phase_mprofile(model, train, smi):
                                    lay.u_old_of_new, lay.i_old_of_new)
     box = [params, opt]
     order = np.random.default_rng(8).permutation(lay.n_segments)
-    groups = lay.group(order[: MPROFILE_STEPS * MAP_MIX], MAP_MIX, K)
+    groups = lay.group(order[: MPROFILE_STEPS * MAP_MIX], MAP_MIX, cfg.n_factors)
     n_real = int(np.count_nonzero(groups[0].step_edges))
 
     def steps():
@@ -3587,21 +3640,209 @@ def phase_mprofile(model, train, smi):
                                                    scal, cfg.lr)
 
     ms = cuda_ms(steps, reps=3)
-    log(f"  steady blocked step: {ms / MPROFILE_STEPS:.4f} ms "
+    log(f"  {label} steady blocked step (K={cfg.n_factors}): {ms / MPROFILE_STEPS:.4f} ms "
         f"({MAP_BATCH / (ms / MPROFILE_STEPS) / 1e3:.1f}M edge-visits/s) | {smi}")
     rows, busy, wall_ms = profile_once(steps, {"map_grad": 2 * n_real})
     k9 = sum(r[0] for r in rows if any(n in r[2] for n in K9_KERNELS))
     n_k9 = sum(r[1] for r in rows if any(n in r[2] for n in K9_KERNELS))
     n_dense = sum(r[1] for r in rows if not any(n in r[2] for n in K9_KERNELS))
-    log(f"phase mprofile: ok | {MPROFILE_STEPS} blocked steps: device busy "
-        f"{busy:.4f} ms of {wall_ms:.4f} ms window (idle share "
+    log(f"{'phase ' if label == 'mprofile' else '  '}{label}: ok | {MPROFILE_STEPS} blocked "
+        f"steps: device busy {busy:.4f} ms of {wall_ms:.4f} ms window (idle share "
         f"{1 - busy / wall_ms:.1%})")
-    if busy > 0:
+    if busy > 0 and n_k9:
         log(f"  by part: K9 {k9:.4f} ms ({k9 / busy:.1%}) in {n_k9} traced launches "
             f"of {2 * n_real} ({k9 / n_k9 * 2e3:.2f} us a step), dense part "
             f"{busy - k9:.4f} ms ({1 - k9 / busy:.1%}) in {n_dense} launches")
     for dev_ms, n, key in rows[:12]:
         log(f"  {dev_ms:9.4f} ms  {n:4d}x  {key[:90]}")
+    return dict(step_ms=ms / MPROFILE_STEPS, busy_ms=busy, window_ms=wall_ms, k9_ms=k9,
+                k9_share=k9 / busy if busy > 0 else float("nan"))
+
+
+MHUGE_EPOCHS = 3  # phase mhugefit: the blocked HPF-MAP fit at K_HUGE
+
+
+def _map_reckoning(n_users, n_items, nnz, k, n_pieces):
+    """Bytes the blocked MAP fit at ``k`` holds on the card, reckoned before
+    it runs: {params, Adam moments, gradients, softplus'd tables and
+    accumulators of a step, the layout, both directions' groupings}."""
+    rows = n_users + n_items
+    params = 4 * rows * (k + 1)
+    return {"params": params, "adam": 2 * params, "grads": params, "softplus": params,
+            "accumulators": 4 * (n_users * (k + 2) + n_items * (k + 1)),
+            # ids and ratings of the edges, the two row permutations each way
+            "layout": 12 * nnz + 16 * rows,
+            # each direction's (other, x) an edge and 20 bytes a piece
+            "groupings": 2 * 8 * nnz + 20 * n_pieces}
+
+
+def phase_mhugefit(train, val, smi, n_pieces, k=K_HUGE):
+    """HPFMap.fit at ``k`` factors at full width (the bench's ratings,
+    batch_size 65536, mix 8, MHUGE_EPOCHS epochs, engine blocked_high):
+    per epoch seconds, edge-visits/s, loss and val RMSE; K9 = 2 x steps x
+    epochs and no other kernel; the state finite, the loss falling, the
+    host's val RMSE equal to the history's; the peak beside its reckoning
+    (``n_pieces``: both directions' pieces of an epoch, phase mdata's); K9
+    on the fit's state against its plain version (per column, counts
+    exact, a second launch in bits); MPROFILE_STEPS steady steps by CUDA
+    events and under the profiler."""
+    import torch
+
+    from pmf_tpu_torch.models.hpf_map import (HPFMap, HPFMapConfig, params_to_numpy,
+                                              softplus)
+    from pmf_tpu_torch.ops.map_grad import kernel_of
+
+    reck = _map_reckoning(N_USERS, N_ITEMS, len(train[0]), k, n_pieces)
+    gc_cuda()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = HPFMap(HPFMapConfig(n_factors=k, lr=MAP_LR, batch_size=MAP_BATCH, mix=MAP_MIX,
+                                epochs=MHUGE_EPOCHS, verbose=False, engine="blocked_high"))
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    model.fit(train, val)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    launches = {kid: c.count for kid, c in counters.items()}
+    lay = model.layout
+    want = dict.fromkeys(launches, 0)
+    want["K9"] = 2 * (lay.n_segments // MAP_MIX) * MHUGE_EPOCHS
+    if launches != want or model.engine_used != "blocked_high":
+        raise AssertionError(f"mhugefit launches {launches}, expected {want}")
+    nnz = len(train[0])
+    for rec in model.fit_history:
+        log(f"  mhugefit epoch {rec['epoch']}: {rec['epoch_seconds']:.4f} s | "
+            f"{nnz / rec['epoch_seconds'] / 1e6:.1f}M edge-visits/s | loss "
+            f"{rec['train_loss']:.6e} | val RMSE {rec['val_rmse']:.6f} | {smi}")
+    state = params_to_numpy(model.state)
+    for name, v in state.items():
+        n = N_USERS if name == "user" else N_ITEMS
+        if v.shape != (n, k + 1) or not np.all(np.isfinite(v)):
+            raise AssertionError(f"mhugefit state {name}: shape {v.shape} or non-finite values")
+    losses = [rec["train_loss"] for rec in model.fit_history]
+    if len(losses) != MHUGE_EPOCHS or not np.all(np.isfinite(losses)) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"mhugefit: train loss history {losses}")
+    host = model.evaluate_rmse(val)
+    last = model.fit_history[-1]["val_rmse"]
+    if not abs(host - last) < 1e-4:
+        raise AssertionError(f"mhugefit: host val RMSE {host} vs {last}")
+    reck_gb = sum(reck.values()) / 1e9
+    log(f"  mhugefit memory: peak {peak_gb:.3f} GB above the {held / 1e9:.3f} GB held before "
+        f"the fit | reckoned {reck_gb:.3f} GB: " + ", ".join(
+            f"{name} {v / 1e9:.3f}" for name, v in reck.items())
+        + " (the dense part's temporaries not counted)")
+    # K9 on the fit's state: one real step in the layout's row space.
+    u_sp = softplus(model.state["user"][lay.u_old_of_new].float()).contiguous()
+    i_sp = softplus(model.state["item"][lay.i_old_of_new].float()).contiguous()
+    seg_ids = np.random.default_rng(10).choice(lay.n_segments, MAP_MIX, replace=False).tolist()
+    err, col = _check_map_step(lay, u_sp, i_sp, seg_ids,
+                               f"mhugefit K9 {kernel_of(k)} on the fit's state {seg_ids}")
+    del u_sp, i_sp
+    secs = [rec["epoch_seconds"] for rec in model.fit_history]
+    prof = phase_mprofile(model, train, smi, label="mhugefit")
+    log(f"phase mhugefit (K={k}): ok | {MHUGE_EPOCHS} epochs in {wall:.1f}s wall (set-up "
+        f"included) | epochs " + ", ".join(f"{t:.4f}" for t in secs)
+        + f" s ({nnz / np.mean(secs[1:]) / 1e6:.1f}M edge-visits/s after the first) | "
+        f"launches {launches} | loss {losses[0]:.6e} -> {losses[-1]:.6e} | val RMSE "
+        f"{model.fit_history[0]['val_rmse']:.6f} -> {last:.6f} (host {host:.6f}) | K9 on "
+        f"the fit's state: worst column {col:.3e} | steady step {prof['step_ms']:.4f} ms, "
+        f"K9 {prof['k9_share']:.1%} of busy | peak {peak_gb:.3f} GB (reckoned {reck_gb:.3f})")
+    del model
+    return dict(launches=launches, epoch_s=secs, peak_gb=peak_gb, reckoned_gb=reck_gb,
+                max_abs_err=err, **prof)
+
+
+K9_SAME_KS = (K, K_WIDE, 128)  # phase k9 parent: the K <= 128 plan, equal in bits
+K9_PAST_KS = (129, K_HUGE, 200, 256, 257, 300, 512)  # this tree's plan past 128
+K9_SAME_TOL = 0.03
+
+
+def _k9_ptxas_against_parent():
+    """Both builds hold the same K9 instances, each with the parent's
+    ptxas line."""
+    theirs: dict = {}
+    _ptxas_report(open(str(PARENT["lib"]) + ".log").read(), theirs)
+    mine = {n: v for n, v in PTXAS.items() if n.startswith("map_grad_")}
+    prev = {n: v for n, v in theirs.items() if n.startswith("map_grad_")}
+    gone = sorted(set(prev) - set(mine))
+    new = sorted(set(mine) - set(prev))
+    kept = sorted(set(mine) & set(prev))
+    if gone or new:
+        raise AssertionError(f"k9 parent: instances gone {gone}, new {new}")
+    differ = [n for n in kept if mine[n] != prev[n]]
+    if differ:
+        raise AssertionError(f"k9 parent: ptxas differs from the parent's for {differ}")
+    log(f"  k9 parent: {len(kept)} K9 instances' ptxas lines equal the parent's "
+        f"({', '.join(kept)})")
+
+
+def phase_k9_parent(lay, order):
+    """With ``--parent``: K9 of this tree and of the parent tree on the
+    bench's MAP layout (random softplus'd tables, the same epoch order),
+    one epoch of launches (both directions, every step) captured in a CUDA
+    graph and replayed, by CUDA events, in turns parent, this, this,
+    parent.  At K9_SAME_KS both trees run the K <= 128 plan: the accumulators
+    equal in bits and the means within K9_SAME_TOL; every parent instance's
+    ptxas line is kept.  At K9_PAST_KS this tree's plan (the same kernels
+    on pieces of <= 32 edges, not 128) is within COL_RTOL per column of the
+    parent's, and faster in every turn.
+    Returns {k: (this tree's mean ms, the parent's)}."""
+    import torch
+
+    from pmf_tpu_torch.models.hpf_map import LAMBDA_FLOOR
+    from pmf_tpu_torch.ops import map_grad as mg
+
+    _k9_ptxas_against_parent()
+    pm = _parent_op("map_grad")
+    out = {}
+    for k in K9_SAME_KS + K9_PAST_KS:
+        u_sp, i_sp = _map_tables(lay, k)
+        groups = {"this": lay.group(order, MAP_MIX, k),
+                  "parent": (pm.group_steps(lay.u, lay.i, lay.x, lay.seg_off, order, MAP_MIX,
+                                            lay.n_users, k),
+                             pm.group_steps(lay.i, lay.u, lay.x, lay.seg_off, order, MAP_MIX,
+                                            lay.n_items, k))}
+        ops = {"this": mg, "parent": pm}
+        accs = {t: (torch.zeros((u_sp.shape[0], k + 2), device="cuda"),
+                    torch.zeros((i_sp.shape[0], k + 1), device="cuda")) for t in groups}
+
+        def epoch(tree, k=k, u_sp=u_sp, i_sp=i_sp):
+            g, op, (acc_u, acc_i) = groups[tree], ops[tree], accs[tree]
+            for s in range(g[0].n_steps):
+                op.map_grad_pieces(u_sp, i_sp, g[0], s, LAMBDA_FLOOR, True, acc_u)
+                op.map_grad_pieces(i_sp, u_sp, g[1], s, LAMBDA_FLOOR, False, acc_i)
+
+        graphs = {t: graph_of(lambda t=t: epoch(t)) for t in groups}
+        past = k > 128
+        if past:
+            col = max(column_check(a, b)[1] for a, b in zip(accs["this"], accs["parent"]))
+            if not col <= COL_RTOL:
+                raise AssertionError(f"k9 parent K={k}: column difference {col}")
+            note = f"largest column difference {col:.3e}"
+        elif all(torch.equal(a, b) for a, b in zip(accs["this"], accs["parent"])):
+            note = "equal in bits"
+        else:
+            raise AssertionError(f"k9 parent K={k}: the trees differ in bits")
+        turns = [graph_ms(graphs[t], reps=3) for t in K2_AB_TURNS]
+        by = {t: [ms for u, ms in zip(K2_AB_TURNS, turns) if u == t] for t in ("parent", "this")}
+        mean = {t: float(np.mean(v)) for t, v in by.items()}
+        out[k] = (mean["this"], mean["parent"])
+        note = ("turns " + ", ".join(f"{t} {ms:.4f}" for t, ms in zip(K2_AB_TURNS, turns))
+                + f" ms an epoch | this / parent {mean['this'] / mean['parent'] - 1:+.2%} | "
+                + note)
+        log(f"  k9 parent K={k} ({mg.kernel_of(k)}, pieces of <= {mg.piece_of(k)}): {note}")
+        if past and not max(by["this"]) < min(by["parent"]):
+            raise AssertionError(f"k9 parent K={k}: this tree's plan is not faster in every "
+                                 f"turn: {note}")
+        if not past and not mean["this"] <= (1 + K9_SAME_TOL) * mean["parent"]:
+            raise AssertionError(f"k9 parent K={k}: {mean} past {K9_SAME_TOL:.0%}")
+        del graphs, groups, accs, u_sp, i_sp
+        gc_cuda()
+    log(f"phase k9 parent: ok | {PARENT['dir']} | K {list(K9_SAME_KS)} equal in bits and "
+        f"within {K9_SAME_TOL:.0%}; K {list(K9_PAST_KS)} faster in every turn")
+    return out
 
 
 # ---------------------------------------------------------------- Gaussian --
@@ -6040,8 +6281,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port on one CUDA card.")
     ap.add_argument("--parent", metavar="DIR",
-                    help="a checkout of another commit whose K2 phase k2 parent times "
-                         "in turns")
+                    help="a checkout of another commit whose kernels the parent phases "
+                         "time in turns")
     ap.add_argument("--torchrun-child", metavar="DIR",
                     help="run phase torchrun's commands of DIR/commands.json under a mesh "
                          "(this process started by torch.distributed.run)")
@@ -6103,6 +6344,9 @@ def main(argv=None) -> int:
 
     mlay, morder, mgroups, mseg_groups, mgroup_secs = phase_mdata(train)
     k9 = phase_k9(mlay, morder, mgroups, mseg_groups, mgroup_secs)
+    if PARENT:
+        phase_k9_parent(mlay, morder)
+    m_pieces = mgroups[0].n_pieces + mgroups[1].n_pieces
     del mlay, mgroups, mseg_groups
     gc_cuda()
     phase_msmall()
@@ -6110,6 +6354,8 @@ def main(argv=None) -> int:
     phase_mresume(mmodel, train, val, smi)
     phase_mprofile(mmodel, train, smi)
     del mmodel
+    gc_cuda()
+    mhuge = phase_mhugefit(train, val, smi, m_pieces)
     gc_cuda()
 
     gtrain, gval, gblocked = phase_gdata(split)
@@ -6262,9 +6508,18 @@ def main(argv=None) -> int:
         entry("map_grad", "pmf_tpu_torch/csrc/map_grad.cu",
               "pmf_tpu/ops/pallas/map_grad.py:56", k9, mlaunches["K9"], "K9",
               device_ms=k9["device_ms"], group_ms=k9["group_ms"],
-              note="ms (CUDA events), device_ms and ms_k50 (profiler sums), "
-                   "plain_ms and bound_ms are per epoch of launches; group_ms "
-                   "is the epoch's regrouping"),
+              **{f"graph_ms_k{K_HUGE}": huge["K9"]["graph_ms"],
+                 f"launches_k{K_HUGE}_map": mhuge["launches"]["K9"],
+                 f"step_ms_k{K_HUGE}_map": mhuge["step_ms"],
+                 f"step_k9_share_k{K_HUGE}_map": mhuge["k9_share"],
+                 f"peak_gb_k{K_HUGE}_map": mhuge["peak_gb"]},
+              note="ms (CUDA events), device_ms, ms_k50 and ms_k160 (profiler sums), "
+                   "plain_ms and bound_ms are per epoch of launches; graph_ms_k160 a "
+                   "CUDA graph replay of the epoch's launches; _k160: the wide form on "
+                   "pieces of <= 32 edges; *_map: phase mhugefit's blocked HPF-MAP fit "
+                   "at K=160 (its launches, a steady step by CUDA events, K9's share of "
+                   "the step's traced busy time, the fit's peak above the memory held); "
+                   "group_ms is the epoch's regrouping"),
         entry("cavi_edge_tail_raw", "pmf_tpu_torch/csrc/cavi_edge.cu",
               "pmf_tpu/ops/pallas/cavi_edge.py:93", k1raw,
               mesh_launches["K1raw"], "K1raw",
@@ -6280,6 +6535,11 @@ def main(argv=None) -> int:
         f"by CUDA events (traced busy {gdiag['busy_ms']:.4f} ms), K6 {gdiag['k6_ms']:.4f} ms "
         f"by CUDA events ({gdiag['k6_share']:.2%} of the sweep) | peak "
         f"{gdiag['peak_gb']:.3f} GB (reckoned {gdiag['reckoned_gb']:.3f})")
+    log(f"  mhugefit (HPF-MAP, K={K_HUGE}): epochs "
+        + ", ".join(f"{t:.4f}" for t in mhuge["epoch_s"])
+        + f" s | a steady step {mhuge['step_ms']:.4f} ms by CUDA events, K9 "
+        f"{mhuge['k9_share']:.2%} of its traced busy {mhuge['busy_ms'] / MPROFILE_STEPS:.4f} "
+        f"ms | peak {mhuge['peak_gb']:.3f} GB (reckoned {mhuge['reckoned_gb']:.3f})")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -26,16 +26,24 @@
 //
 // What bounds it on an H100: memory and latency, not arithmetic.  Per edge
 // it streams an 8-byte (other id, rating) pair from HBM and gathers one
-// (K+1)-float row of the other table; both tables (under 19 MB at
-// 162k + 59k rows of 21 floats) stay in the 50 MB L2.  Per piece it reads
-// 20 bytes of piece list and writes one accumulator row (or one partial
-// row and, for the last piece of a run, reads the run's partials).  The
-// arithmetic (~4K flops per edge) is far below the FP32 line.
+// (K+1)-float row of the other table (at K = 20 both tables, under 19 MB,
+// stay in the 50 MB L2; at K = 160 the user table, 104 MB, is twice the
+// L2, one step's rows are not).  Per piece it reads 20 bytes of piece list
+// and writes one accumulator row (or one partial row and, for the last
+// piece of a run, reads the run's partials).  The arithmetic (~4K flops
+// per edge) is far below the FP32 line.
 //
 // Design: one launch covers a whole step (65,536 edges at batch_size
 // 65536), enough pieces to fill 132 SMs, and no piece holds more than
-// PIECE edges, so no warp walks a run of a thousand edges while the card
-// waits.  One warp a piece.
+// PIECE edges (128 to K = 128, 32 past it: ops/map_grad.py::piece_of), so
+// no warp walks a long run while the card waits.  One warp a piece.  What
+// sets a launch's end past K = 128 (H100, scripts/probe_k9.py, PERF.md) is
+// the longest walk of one warp, not the gathers' bytes: at K = 160 pieces
+// of 32 edges in place of 128 took an epoch from 34.8 to 23.1 ms.  A form
+// that gave a warp a span of short pieces and copied their rows through a
+// cp.async ring in shared memory lost to this one at K = 129-256 and won
+// 1.2-1.4x only past 256, where no fit runs; it is kept in the probe
+// (scripts/probe_k9_stream.cuh), not here.
 //  * K <= 32: one LANE PER EDGE.  Each lane takes every 32nd edge of the
 //    piece, gathers that edge's other row into registers (K independent
 //    loads in flight), and computes its dot, lam, w and nll privately.

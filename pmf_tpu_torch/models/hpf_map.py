@@ -43,7 +43,7 @@ from pmf_tpu_torch.data.coo import EvalSet
 from pmf_tpu_torch.eval.metrics import masked_metrics
 from pmf_tpu_torch.models.base import FactorModel, as_triples, profiled
 from pmf_tpu_torch.ops.adam import adam_init, adam_update
-from pmf_tpu_torch.ops.map_grad import PIECE, group_steps, map_grad_grouped
+from pmf_tpu_torch.ops.map_grad import group_steps, map_grad_grouped
 from pmf_tpu_torch.ops.segment import edge_dot, gather_rows
 from pmf_tpu_torch.utils.device import resolve_device
 
@@ -230,11 +230,11 @@ class MapBlockedLayout:
         lo, hi = int(self.seg_off[s]), int(self.seg_off[s + 1])
         return self.u[lo:hi].long(), self.i[lo:hi].long(), self.x[lo:hi]
 
-    def group(self, seg_order, mix: int, K: int, piece: int = PIECE):
+    def group(self, seg_order, mix: int, K: int, piece: int | None = None):
         """(by user, by item) ``StepGroups`` of the segments ``seg_order``
         (host ints), ``mix`` a step, runs cut into pieces of at most
-        ``piece`` edges: the user direction's self rows are users, the item
-        direction's items."""
+        ``piece`` edges (``map_grad.piece_of(K)`` by default): the user
+        direction's self rows are users, the item direction's items."""
         return (group_steps(self.u, self.i, self.x, self.seg_off, seg_order, mix,
                             self.n_users, K, piece),
                 group_steps(self.i, self.u, self.x, self.seg_off, seg_order, mix,

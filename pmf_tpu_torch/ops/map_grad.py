@@ -22,15 +22,19 @@ of segments taken ``mix`` at a time (an epoch's shuffle, or one step's
 segments): one stable sort of the 64-bit key (step, self row) on the
 tensors' device, so that a row's edges inside one step form one run
 (ordered by the segments' place in the list, then by their order inside
-the segment), and every run cut into pieces of at most ``PIECE`` edges.
-``map_grad_pieces`` is kernel K9's wrapper (``csrc/map_grad.cu``) for one
-direction of one step of such a grouping: on CUDA tensors it launches
-the kernel (or raises), one launch for the whole step; on CPU tensors it
-runs ``map_grad_pieces_plain``.  It STORES each row the step holds into
-``out``, which the caller zeroes.  ``map_grad_grouped`` is the two
-accumulators of one step, ``map_grad_step`` the same for any list of
-segments, and ``map_grad_plain`` the plain version of a whole step over a
-COO batch, the oracle of both.
+the segment), and every run cut into pieces of at most ``piece_of(K)``
+edges.  ``map_grad_pieces`` is kernel K9's wrapper (``csrc/map_grad.cu``)
+for one direction of one step of such a grouping: on CUDA tensors it
+launches the kernel (or raises), one launch for the whole step; on CPU
+tensors it runs ``map_grad_pieces_plain``.  Every form gives a piece one
+warp (``kernel_of``): up to K = 32 one lane an edge, to 256 F = ceil(K /
+32) factors a lane in registers, past 256 the general form, its sums in
+the stored row; past K = 128 on pieces of 32 edges, not 128.  It STORES
+each row the step holds into ``out``, which the caller zeroes.
+``map_grad_grouped`` is the two accumulators of one step,
+``map_grad_step`` the same for any list of segments, and
+``map_grad_plain`` the plain version of a whole step over a COO batch,
+the oracle of both.
 """
 
 from __future__ import annotations
@@ -44,7 +48,15 @@ from pmf_tpu_torch.ops import _build
 
 MAP_GRAD_LAUNCHES = _build.LaunchCounter()
 WIDE_MAX_F = 8  # csrc/map_grad.cu: kWideMaxF, factors a lane of the register instances
-PIECE = 128  # edges a piece at most: the longest walk of one warp (tuned, PERF.md PR 6)
+PIECE = 128  # edges a piece at most to K = 128: the longest walk of one warp (PERF.md)
+PIECE_WIDE = 32  # past K = 128 (PERF.md)
+
+
+def piece_of(k: int) -> int:
+    """The most edges a piece holds at ``k`` factors: PIECE to K = 128
+    (tuned at K = 20), PIECE_WIDE past it, where the longest walk of one
+    warp sets a launch's end (tuned at K = 160 on an H100, PERF.md)."""
+    return PIECE if k <= 128 else PIECE_WIDE
 
 
 def kernel_of(k: int) -> tuple:
@@ -61,10 +73,10 @@ def kernel_of(k: int) -> tuple:
 
 
 def boundary_ks(k_max: int = 600) -> list:
-    """The first K of each instance up to ``k_max``: the tests and
-    chip_smoke.py hold K9 on both sides of each."""
+    """The first K of each instance, and of each piece length, up to
+    ``k_max``: the tests and chip_smoke.py hold K9 on both sides of each."""
     return [k for k in range(1, k_max + 1)
-            if k == 1 or kernel_of(k) != kernel_of(k - 1)]
+            if k == 1 or kernel_of(k) != kernel_of(k - 1) or piece_of(k) != piece_of(k - 1)]
 
 
 def _edge_terms(g_self, g_other, x, lam_floor):
@@ -127,15 +139,17 @@ class StepGroups:
 
 def group_steps(self_ids: torch.Tensor, other: torch.Tensor, x: torch.Tensor,
                 seg_off: np.ndarray, seg_order, mix: int, n_self: int, K: int,
-                piece: int = PIECE) -> StepGroups:
+                piece: int | None = None) -> StepGroups:
     """Group one direction's edges (segment order, ``seg_off`` the host
     offsets of the segments) for the segments ``seg_order`` (host ints),
-    ``mix`` a step.  Segments not in the list are left out.  Runs on the
-    tensors' device and waits for it twice: for the runs' count, and for
+    ``mix`` a step, runs cut into pieces of at most ``piece`` edges
+    (``piece_of(K)`` by default).  Segments not in the list are left out.
+    Runs on the tensors' device and waits for it twice: for the runs' count, and for
     the pieces of each step, which size the pieces, the launches and the
     scratch rows a card grouping carries (``K + 2`` floats each).  The
     sort key (step, self row) is 64 bits wide, or 32 where it fits."""
     dev = self_ids.device
+    piece = piece_of(K) if piece is None else piece
     seg_order = np.asarray(seg_order, dtype=np.int64).reshape(-1)
     if len(seg_order) % mix:
         raise ValueError(f"{len(seg_order)} segments are not a multiple of mix={mix}")
