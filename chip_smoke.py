@@ -17,11 +17,15 @@ turns at K = 20, 50, 80, 128 on the bench's Gaussian tail (within 3%, the
 same code) and at K = 160 there and K = 256 on the XL CSR (faster in every
 turn), its output equal in bits where the plan's form sums in CSR order;
 phase tail parent (after huge timing) holds every row-group instance this
-tree keeps to the parent build's ptxas line, K1 (both modes), K7, K5 and
-K8 equal in bits at K = 20, 50, 128, 160, 200, 256, 300 and 512, K6 (K =
-20, 50, 127) equal in bits and within 3% of the parent, and both trees'
-K6 in turns at K = 160, 200, 255, 256, 300, 511 and 512 (the ring form
-against the parent's register and wide forms, faster in every turn);
+tree keeps to the parent build's ptxas line, K1 (both modes) and K7 equal
+in bits at K = 20, 50, 128, 160, 200, 256, 300 and 512, K8 (K = 20, 50,
+127, 128, 143: the register form) equal in bits and within 3% of the
+parent, and both trees' K8 in turns at K = 144, 160, 200, 255, 256, 300
+and 511 (the sum form against the parent's register and wide forms,
+faster in every turn, equal in bits to 255 on a pass without other-id
+windows); after huge timing (Gaussian) the same for K5 (the register form
+to 159, the sum form from 160) and K6 (K = 20, 50, 127, then the ring form
+at K = 160, 200, 255, 256, 300, 511 and 512);
 phase k9 parent (after K9) holds every K9 instance both builds keep to
 the parent build's ptxas line, times both trees' K9 an epoch (a CUDA
 graph's replay) in the same turns at K = 20, 50 and 128 (equal in bits,
@@ -152,7 +156,7 @@ phase roofline as hpf_k160 and hpf_k50; then phase exthugefit:
 launch counters (K7 and K8 twice a sweep, K2 twice a tier), finite state,
 a val RMSE that never rises, the fit's peak memory, one steady sweep by
 CUDA events (read by phase roofline as ext_k160) and one traced for the
-shares of K2, K7 and K8.
+shares of K2, K7 and K8 (K8's sum form: its ms and share of the sweep).
 
 Those are freed, then the Gaussian-MF CAVI path:
 
@@ -190,7 +194,7 @@ Those are freed, then the Gaussian-MF CAVI path:
 16''. gxlfit -- the same at K = 256 on a rating log of MovieLens 1M's
                 shape (6,040 x 3,706 x 1,000,209 ratings, 10,000 held out;
                 phase gxldata): no head, K3's wide instance, K4's panel
-                form, K5's wide form.
+                form, K5's sum form (its traced ms).
 16'''. gdiaghugefit -- the diag fit at K = 160 at full width on phase
                 gdata's ratings (4 sweeps, ``elbo_every=1``): peak memory
                 beside its reckoning (state, K6's tables, the head tiers'
@@ -965,17 +969,25 @@ def _tail_tabs(kid, n_self, n_other, k, seed):
     return (mb_o,) if kid == "K5" else (record_table(m_s, b_s), mb_o, padded_rows(sq_o))
 
 
-def _tail_kernel(kid, tabs, p, k, mods=None):
+def _tail_kernel(kid, tabs, p, k, mods=None, windows="plan"):
     """The kept K1 ("K1", "K1raw"), K7, K5, K6 or K8 wrapper on padded
-    tables, as the fits call it (``p.long_rows`` rows a warp each); ``mods``
-    another tree's (cavi_edge, ext_edge, gaussian_edge) modules."""
+    tables, as the fits call it (``p.long_rows`` rows a warp each; K5 and
+    K8 on a layout's TailCSR with the other-id windows the frames give them,
+    ``_tail.tail_windows``, or ``windows`` where given); ``mods`` another
+    tree's (cavi_edge, ext_edge, gaussian_edge) modules."""
+    from pmf_tpu_torch.data.blocked import TailCSR
     from pmf_tpu_torch.ops import cavi_edge as ce
     from pmf_tpu_torch.ops import ext_edge as ee
     from pmf_tpu_torch.ops import gaussian_edge as ge
+    from pmf_tpu_torch.ops._tail import tail_windows
 
+    kw = dict(K=k, long_rows=p.long_rows)
     if mods is not None:
         ce, ee, ge = mods
-    kw = dict(K=k, long_rows=p.long_rows)
+    elif kid in ("K5", "K8") and windows != "plan":
+        kw["windows"] = windows
+    elif kid in ("K5", "K8") and isinstance(p, TailCSR):
+        kw["windows"] = tail_windows(p, k, kid)
     if kid == "K1raw":
         return ce.tail_edge_stats(*tabs, p.row_ptr, p.other, None, mode="raw", **kw)
     if kid == "K8":
@@ -1098,30 +1110,46 @@ def _tail_geometry_ks():
     return sorted(ks)
 
 
+K17_WINDOWS = 3  # the other-id windows phase k17small gives K5's and K8's sum form
+
+
 def phase_k17small(blocked, gblocked):
     """K1 (both modes), K7, K5, K6 and K8 against their plain versions at
     every K where a row-group plan changes, both directions of a small tail (with
     rows long enough for a warp each; the Gaussian ratings for K5 and K6),
-    equal bits on a repeat."""
+    equal bits on a repeat; K5 and K8 in their sum form also walking
+    K17_WINDOWS windows of other ids (``_tail.build_windows``; the small
+    tables fit the L2, so their plan walks none)."""
     import torch
+
+    from pmf_tpu_torch.ops._tail import build_windows, launch_plan
 
     ks = _tail_geometry_ks()
     worst = dict.fromkeys(TAIL_KERNELS, 0.0)
+    windowed = set()
     for k in ks:
         for kid in TAIL_KERNELS:
             lay = gblocked if kid in GAUSS_TAIL else blocked
             for seed, p in enumerate((lay.by_user, lay.by_item)):
                 tabs = _tail_tabs(kid, p.n_self, p.n_other, k, 90 + 2 * k + seed)
-                got = _tail_kernel(kid, tabs, p, k)
-                err, ok = _tail_error(kid, got, _tail_plain(kid, tabs, p, k))
-                tag = f"k17small {kid} K={k} {'user' if seed == 0 else 'item'}"
-                if not ok:
-                    raise AssertionError(f"{tag}: error {err} over tolerance")
-                if not torch.equal(got, _tail_kernel(kid, tabs, p, k)):
-                    raise AssertionError(f"{tag}: two launches differ in bits")
-                worst[kid] = max(worst[kid], err)
+                ref = _tail_plain(kid, tabs, p, k)
+                runs = [("plan", "plan")]
+                if launch_plan(k, kid)["form"] == "sum":
+                    runs.append((f"{K17_WINDOWS} windows", build_windows(
+                        p.row_ptr, p.other, p.x, p.n_other, K17_WINDOWS)))
+                    windowed.add(k)
+                for label, win in runs:
+                    got = _tail_kernel(kid, tabs, p, k, windows=win)
+                    err, ok = _tail_error(kid, got, ref)
+                    tag = f"k17small {kid} K={k} {'user' if seed == 0 else 'item'} {label}"
+                    if not ok:
+                        raise AssertionError(f"{tag}: error {err} over tolerance")
+                    if not torch.equal(got, _tail_kernel(kid, tabs, p, k, windows=win)):
+                        raise AssertionError(f"{tag}: two launches differ in bits")
+                    worst[kid] = max(worst[kid], err)
     torch.cuda.synchronize()
-    log(f"phase k17small: ok | K in {ks} | worst error vs plain: "
+    log(f"phase k17small: ok | K in {ks} (K5's and K8's sum form also in {K17_WINDOWS} "
+        f"windows of other ids at {sorted(windowed)}) | worst error vs plain: "
         + ", ".join(f"{n} {v:.3e}" for n, v in worst.items())
         + f" (K1, K1raw, K7, K8 relative, tol {RTOL}; K5, K6 per column, tol {COL_RTOL}) "
         "| repeats equal in bits")
@@ -1814,9 +1842,11 @@ def phase_k3_parent(gblocked, xl):
     tables, a sweep (both directions) in turns parent, this, this, parent:
     at K3_PARENT_SAME_KS on the bench tail within K3_SAME_TOL of the parent
     (the same code); at K_HUGE on the bench tail and XL_K on the XL CSR
-    faster in every turn.  Outputs equal in bits where the plan's form sums
-    in CSR order (the slab form and the K <= 128 forms); the group form's
-    largest difference from the parent logged."""
+    faster in every turn where the parent's ``factor_plan`` differs from
+    this tree's, within K3_SAME_TOL where it is the same.  Outputs equal in
+    bits where the plan's form sums in CSR order (the slab form and the
+    K <= 128 forms); the group form's largest difference from the parent
+    logged."""
     import torch
 
     from pmf_tpu_torch.ops import gaussian_edge as ge
@@ -1832,10 +1862,14 @@ def phase_k3_parent(gblocked, xl):
                     tree.factor_tail_stats(aug, p.row_ptr, p.other, p.x, k)
                     for p, aug in tabs]
 
-        notes = []
+        notes, plans_same = [], []
         for (p, _), a, b in zip(tabs, sweep(trees["this"]), sweep(trees["parent"])):
             form = "chunked" if k <= ge.FACTOR_NARROW_MAX_K else ge.factor_plan(
                 k, p.n_other, p.nnz, ge.factor_schedule(p).pairs)["form"]
+            if k > ge.FACTOR_NARROW_MAX_K and hasattr(trees["parent"], "factor_plan"):
+                pairs = ge.factor_schedule(p).pairs
+                plans_same.append(trees["parent"].factor_plan(k, p.n_other, p.nnz, pairs)
+                                  == ge.factor_plan(k, p.n_other, p.nnz, pairs))
             if form == "group":
                 scale = b.abs().amax(dim=0).clamp_min(1e-30)
                 worst = float(((a - b).abs().amax(dim=0) / scale).max())
@@ -1854,7 +1888,7 @@ def phase_k3_parent(gblocked, xl):
             + ", ".join(f"{t} {ms:.4f}" for t, ms in zip(K2_AB_TURNS, turns))
             + f" ms a sweep | this / parent {mean['this'] / mean['parent'] - 1:+.2%} | "
             + "; ".join(notes))
-        if k in K3_PARENT_SAME_KS:
+        if k in K3_PARENT_SAME_KS or (plans_same and all(plans_same)):
             if not mean["this"] <= (1 + K3_SAME_TOL) * mean["parent"]:
                 raise AssertionError(f"k3 parent K={k}: {mean} past {K3_SAME_TOL:.0%}")
         elif max(ms for t, ms in zip(K2_AB_TURNS, turns) if t == "this") >= min(
@@ -1864,18 +1898,23 @@ def phase_k3_parent(gblocked, xl):
         del tabs
         torch.cuda.empty_cache()
     log(f"phase k3 parent: ok | {PARENT['dir']} | bench K {list(K3_PARENT_SAME_KS)} within "
-        f"{K3_SAME_TOL:.0%}, K={K_HUGE} and XL K={XL_K} faster in every turn")
+        f"{K3_SAME_TOL:.0%}, K={K_HUGE} and XL K={XL_K} faster in every turn where the "
+        "plans differ, else within it")
 
 
-# Phase tail parent: K1 (both modes), K7, K5 and K8 (unchanged at every K)
-# equal in bits at TAIL_SAME_KS["K1"] and TAIL_DOT_KS; K6 at the K of its
-# unchanged register form (TAIL_SAME_KS["K6"]: equal bits, within
-# TAIL_SAME_TOL of the parent) and at TAIL_RING_KS, where its ring form
-# runs against the parent's register and wide forms (timed in turns,
-# faster in every one; at 512 the wide form in both trees, equal bits).
-TAIL_SAME_KS = {"K1": (K, K_WIDE, 128), "K6": (K, K_WIDE, 127)}
+# Phase tail parent: K1 (both modes) and K7 (unchanged at every K) equal in
+# bits at TAIL_SAME_KS["K1"] and TAIL_DOT_KS; K6, K5 and K8 timed in turns
+# at TAIL_SAME_KS + TAIL_TIMED: where this tree's plan is the parent's (K6
+# everywhere against a parent that has its ring form; K5 to 159, K8 to 143)
+# equal bits within TAIL_SAME_TOL, where it is not (K5's and K8's sum form
+# against the parent's register and wide forms) faster in every turn.
+TAIL_SAME_KS = {"K1": (K, K_WIDE, 128), "K6": (K, K_WIDE, 127),
+                "K5": (K, K_WIDE, 127, 128, 159), "K8": (K, K_WIDE, 127, 128, 143)}
 TAIL_DOT_KS = (K_HUGE, 200, 256, 300, 512)
 TAIL_RING_KS = (K_HUGE, 200, 255, 256, 300, 511, 512)
+TAIL_SUM_KS = (K_HUGE, 200, 255, 256, 300, 511)  # K5's and K8's sum form
+# The kernels timed in turns, and the K past their unchanged forms.
+TAIL_TIMED = {"K6": TAIL_RING_KS, "K5": TAIL_SUM_KS, "K8": (144,) + TAIL_SUM_KS}
 TAIL_SAME_TOL = 0.03
 
 
@@ -1887,8 +1926,7 @@ def _tail_ptxas_against_parent():
     gone = sorted(set(prev) - set(mine))
     new = sorted(set(mine) - set(prev))
     kept = sorted(set(mine) & set(prev))
-    if gone != ["tail_group_kernel<4, 32, 2, 2>"] or \
-            not all(n.startswith("tail_ring_kernel<") for n in new) or not new:
+    if gone or not all(n.startswith("tail_sum_kernel<") for n in new) or not new:
         raise AssertionError(f"tail parent: instances gone {gone}, new {new}")
     differ = [n for n in kept if mine[n] != prev[n]]
     if differ:
@@ -1897,34 +1935,38 @@ def _tail_ptxas_against_parent():
         f"parent's; gone {gone}; new {new}")
 
 
-TAIL_UNCHANGED = ("K1", "K1raw", "K7", "K5", "K8")
+TAIL_UNCHANGED = ("K1", "K1raw", "K7")
 
 
-def phase_tail_parent(blocked, kids=TAIL_UNCHANGED):
+def phase_tail_parent(blocked, kids=TAIL_UNCHANGED + ("K8",)):
     """With ``--parent``, on ``blocked``'s tail (random tables, both
-    directions a sweep): for TAIL_UNCHANGED, every row-group instance this
-    tree keeps has the parent build's ptxas line (K6's ring form instances
-    are new, its register form's G = 32 instance gone), and K1 "cavi", K1
-    raw, K7, K5 and K8 of both trees are equal in bits at
-    TAIL_SAME_KS["K1"] + TAIL_DOT_KS; for ("K6",) (on the Gaussian layout's
-    tail, after huge timing), K6 of both trees timed by CUDA events in turns
-    parent, this, this, parent at TAIL_SAME_KS["K6"] + TAIL_RING_KS: equal
-    in bits and within TAIL_SAME_TOL wherever this tree's plan is not the
-    ring form; the ring form within COL_RTOL per column of the parent and
-    faster in every turn.  Returns {k: (this tree's mean ms, the
-    parent's)} of K6."""
+    directions a sweep): with K1 among ``kids``, every row-group instance
+    this tree keeps has the parent build's ptxas line (K5's and K8's sum
+    form instances are new, none gone);
+    K1 "cavi", K1 raw and K7 (TAIL_UNCHANGED) of both trees are equal in
+    bits at TAIL_SAME_KS["K1"] + TAIL_DOT_KS; K8 (the Poisson tail), or K6
+    and K5 (the Gaussian layout's tail, after huge timing), of both trees
+    timed by CUDA events in turns parent, this, this, parent at
+    TAIL_SAME_KS + TAIL_TIMED: equal in bits and within TAIL_SAME_TOL
+    wherever this tree's plan (``_tail.launch_plan``) is the parent's; where
+    it is not, within COL_RTOL per column of the parent (the sum form equal
+    in bits where the parent ran the register form on a pass without
+    windows) and faster in every turn.
+    Returns {kid: {k: (this tree's mean ms, the parent's)}} of the timed
+    kernels."""
     import torch
 
-    from pmf_tpu_torch.ops._tail import launch_plan
+    from pmf_tpu_torch.ops._tail import SUM_KERNELS, launch_plan, tail_windows
 
-    if kids == TAIL_UNCHANGED:
+    if "K1" in kids:
         _tail_ptxas_against_parent()
     trees = {"this": None, "parent": tuple(_parent_op(n) for n in
                                            ("cavi_edge", "ext_edge", "gaussian_edge"))}
+    parent_plan = _parent_op("_tail").launch_plan
     dirs = (blocked.by_user, blocked.by_item)
-    k6 = {}
+    timed = {}
     for kid in kids:
-        ks = TAIL_SAME_KS["K6"] + TAIL_RING_KS if kid == "K6" else \
+        ks = TAIL_SAME_KS[kid] + TAIL_TIMED[kid] if kid in TAIL_TIMED else \
             TAIL_SAME_KS["K1"] + TAIL_DOT_KS
         for k in ks:
             tabs = [_tail_tabs(kid, p.n_self, p.n_other, k, 70 + k + j)
@@ -1933,44 +1975,55 @@ def phase_tail_parent(blocked, kids=TAIL_UNCHANGED):
             def sweep(tree, tabs=tabs, k=k):
                 return [_tail_kernel(kid, t, p, k, trees[tree]) for t, p in zip(tabs, dirs)]
 
-            ring = launch_plan(k, kid)["form"] == "ring"
+            new = launch_plan(k, kid) != parent_plan(k, kid)  # a form the parent lacks
+            # This tree keeps the parent's float order in every plan but the
+            # new forms, and in the sum form where the parent ran the register
+            # form (K <= 255) on a direction that walks no windows.
+            windows = [tail_windows(p, k, kid) if kid in SUM_KERNELS else None for p in dirs]
+            kept = [not new or (kid in SUM_KERNELS and k <= 255 and w is None)
+                    for w in windows]
             pairs = list(zip(sweep("this"), sweep("parent")))
-            if ring:
-                col = max(column_check(a, b)[1] for a, b in pairs)
-                if not col <= COL_RTOL:
-                    raise AssertionError(f"tail parent {kid} K={k}: column difference {col}")
-                note = f"largest column difference {col:.3e}"
-            elif all(torch.equal(a, b) for a, b in pairs):
+            equal = [torch.equal(a, b) for a, b in pairs]
+            if not all(e or not keep for e, keep in zip(equal, kept)):
+                raise AssertionError(f"tail parent {kid} K={k}: the trees differ in bits "
+                                     f"(user, item: {equal})")
+            if all(equal):
                 note = "equal in bits"
             else:
-                raise AssertionError(f"tail parent {kid} K={k}: the trees differ in bits")
+                col = max(column_check(a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1))[1]
+                          for a, b in pairs)
+                if not col <= COL_RTOL:
+                    raise AssertionError(f"tail parent {kid} K={k}: column difference {col}")
+                note = (f"equal in bits (user, item) {equal}, windows "
+                        f"{[1 if w is None else w.n for w in windows]}, largest column "
+                        f"difference {col:.3e}")
             del pairs
-            if kid == "K6":
+            if kid in TAIL_TIMED:
                 reps = TIMING_REPS if k <= 128 else 3
                 turns = [cuda_ms(lambda t=t: sweep(t), reps=reps) for t in K2_AB_TURNS]
                 by = {t: [ms for u, ms in zip(K2_AB_TURNS, turns) if u == t]
                       for t in ("parent", "this")}
                 mean = {t: float(np.mean(v)) for t, v in by.items()}
-                k6[k] = (mean["this"], mean["parent"])
+                timed.setdefault(kid, {})[k] = (mean["this"], mean["parent"])
                 note = ("turns " + ", ".join(f"{t} {ms:.4f}" for t, ms in zip(K2_AB_TURNS, turns))
                         + f" ms a sweep | this / parent {mean['this'] / mean['parent'] - 1:+.2%}"
                         f" | {note}")
-                if ring and not max(by["this"]) < min(by["parent"]):
-                    raise AssertionError(f"tail parent K6 K={k}: the ring form is not faster "
-                                         f"in every turn: {note}")
-                if not ring and not mean["this"] <= (1 + TAIL_SAME_TOL) * mean["parent"]:
-                    raise AssertionError(f"tail parent K6 K={k}: {mean} past {TAIL_SAME_TOL:.0%}")
+                if new and not max(by["this"]) < min(by["parent"]):
+                    raise AssertionError(f"tail parent {kid} K={k}: the new form is not "
+                                         f"faster in every turn: {note}")
+                if not new and not mean["this"] <= (1 + TAIL_SAME_TOL) * mean["parent"]:
+                    raise AssertionError(f"tail parent {kid} K={k}: {mean} past "
+                                         f"{TAIL_SAME_TOL:.0%}")
             log(f"  tail parent {kid} K={k} ({tail_trace(kid, k)}): {note}")
             del tabs
             torch.cuda.empty_cache()
-    if kids == TAIL_UNCHANGED:
-        log(f"phase tail parent: ok | {PARENT['dir']} | K1, K1 raw, K7, K5, K8 equal in "
-            f"bits at K {list(TAIL_SAME_KS['K1'] + TAIL_DOT_KS)}")
-    else:
-        log(f"phase tail parent (K6, Gaussian tail): ok | K6 at {list(TAIL_SAME_KS['K6'])} "
-            f"equal in bits and within {TAIL_SAME_TOL:.0%}, at {list(TAIL_RING_KS)} in "
-            f"turns {', '.join(K2_AB_TURNS)}")
-    return k6
+    log(f"phase tail parent ({', '.join(kids)}): ok | {PARENT['dir']} | "
+        + "; ".join(f"{kid} at {list(TAIL_SAME_KS[kid])} equal in bits and within "
+                    f"{TAIL_SAME_TOL:.0%}, at {list(TAIL_TIMED[kid])} in turns "
+                    f"{', '.join(K2_AB_TURNS)}" if kid in TAIL_TIMED else
+                    f"{kid} equal in bits at {list(TAIL_SAME_KS['K1'] + TAIL_DOT_KS)}"
+                    for kid in kids))
+    return timed
 
 
 K4_WIDE_KS = (80, 128, K_HUGE)  # K4's CTA form timed on 162k + 59k matrices
@@ -2313,19 +2366,21 @@ def phase_exthugefit(train, val, smi, k=K_HUGE):
         one_sweep, {k7: 2, k8: 2, "head_pass_kernel": 2 * n_tiers})
     groups, gemm_n = trace_parts(rows, {"K2 head kernels": K2_KERNELS, f"K7 {k7}": (k7,),
                                         f"K8 {k8}": (k8,)})
-    k7_ms = groups[f"K7 {k7}"]
+    k7_ms, k8_ms = groups[f"K7 {k7}"], groups[f"K8 {k8}"]
     log(f"phase exthugefit: ok | K={k}, {n} sweeps in {wall:.1f}s wall (layout build "
         f"included) | launches {launches} | val RMSE {rmses} | peak {peak / 1e9:.3f} GB "
         f"({(peak - held) / 1e9:.3f} GB above the {held / 1e9:.3f} GB held before) | steady "
         f"sweep {ms:.4f} ms (CUDA events) | one sweep traced: busy {busy:.4f} ms of "
         f"{wall_ms:.4f} ms (idle share {1 - busy / wall_ms:.1%}), K7 {k7_ms:.4f} ms "
-        f"({k7_ms / busy:.1%} of the traced busy), head-product launches {gemm_n} | {smi}")
+        f"({k7_ms / busy:.1%} of the traced busy), K8 ({k8}) {k8_ms:.4f} ms "
+        f"({k8_ms / busy:.1%} of the traced busy, {k8_ms / ms:.1%} of the events' sweep), "
+        f"head-product launches {gemm_n} | {smi}")
     log_parts(groups, busy)
     for dev_ms, cnt, key in rows[:8]:
         log(f"  {dev_ms:9.4f} ms  {cnt:3d}x  {key[:90]}")
     traffic = roofline.poisson_ext_blocked_traffic(model.blocked, k)
     del model, box
-    return dict(launches=launches, sweep_ms=ms, k7_ms=k7_ms, traffic=traffic)
+    return dict(launches=launches, sweep_ms=ms, k7_ms=k7_ms, k8_ms=k8_ms, traffic=traffic)
 
 
 def phase_wide_gauss(blocked):
@@ -2454,7 +2509,7 @@ K2_KERNELS = ("head_user_kernel", "head_item_kernel", "head_pass_kernel",
 # The row-group kernels in a trace: tail_<form>_kernel<mode, ...>, mode 0
 # (K1 "cavi"), 1 (K1 "raw"), 2 (K7), 3 (K5), 4 (K6) or 5 (K8), the form
 # their plan takes at K (``_tail.launch_plan``: "group", "dot" for K1
-# "cavi" and K7 past 32 words a row, "wide").
+# "cavi" and K7 past 32 words a row, "sum" for K5 and K8 there, "wide").
 TAIL_MODES = {"K1": 0, "K1raw": 1, "K7": 2, "K5": 3, "K6": 4, "K8": 5}
 
 
@@ -3787,7 +3842,8 @@ def phase_k9_parent(lay, order):
     equal in bits and the means within K9_SAME_TOL; every parent instance's
     ptxas line is kept.  At K9_PAST_KS this tree's plan (the same kernels
     on pieces of <= 32 edges, not 128) is within COL_RTOL per column of the
-    parent's, and faster in every turn.
+    parent's, and faster in every turn; where the parent's plan is this
+    tree's (``kernel_of``, ``piece_of``), held as at K <= 128.
     Returns {k: (this tree's mean ms, the parent's)}."""
     import torch
 
@@ -3815,7 +3871,10 @@ def phase_k9_parent(lay, order):
                 op.map_grad_pieces(i_sp, u_sp, g[1], s, LAMBDA_FLOOR, False, acc_i)
 
         graphs = {t: graph_of(lambda t=t: epoch(t)) for t in groups}
-        past = k > 128
+        # Faster in every turn where this tree's plan is not the parent's
+        # (a parent that is this tree's own K9 plan is held as at K <= 128).
+        past = k > 128 and (not hasattr(pm, "piece_of") or (
+            pm.kernel_of(k), pm.piece_of(k)) != (mg.kernel_of(k), mg.piece_of(k)))
         if past:
             col = max(column_check(a, b)[1] for a, b in zip(accs["this"], accs["parent"]))
             if not col <= COL_RTOL:
@@ -3841,7 +3900,8 @@ def phase_k9_parent(lay, order):
         del graphs, groups, accs, u_sp, i_sp
         gc_cuda()
     log(f"phase k9 parent: ok | {PARENT['dir']} | K {list(K9_SAME_KS)} equal in bits and "
-        f"within {K9_SAME_TOL:.0%}; K {list(K9_PAST_KS)} faster in every turn")
+        f"within {K9_SAME_TOL:.0%}; K {list(K9_PAST_KS)} faster in every turn where the "
+        "plans differ, else as those")
     return out
 
 
@@ -4657,7 +4717,7 @@ def phase_gwidefit(train, val, smi, k=GWIDE_K, n_users=N_USERS, n_items=N_ITEMS,
     def one_sweep():
         box[0] = sweep_blocked(box[0], model.blocked, *counts, *args)
 
-    # K5's kernel: the row groups, or past 64 words a row the wide form
+    # K5's kernel: the row groups, or past 32 words a row the sum form
     k5 = tail_trace("K5", k)
     k3 = _k3_trace(k, model.blocked)
     expect = {**k3, "gj_inverse": 2, k5: 2}
@@ -4670,17 +4730,18 @@ def phase_gwidefit(train, val, smi, k=GWIDE_K, n_users=N_USERS, n_items=N_ITEMS,
         log(f"  {dev_ms:9.4f} ms  {cnt:3d}x  {key[:90]}")
     head = groups["head products (gemm)"]
     k4_ms, k3_ms = groups["K4 gj_inverse"], groups["K3 factor_kernel"]
+    k5_ms = groups[f"K5 {k5.rstrip(',')}"]
     glue = groups["other"]
     log(f"phase {label}: ok | GaussianMF K={k} exact, {n} sweeps | one sweep busy "
         f"{busy:.4f} ms of {wall_ms:.4f} ms (idle share {1 - busy / wall_ms:.1%}) | K4 "
         f"{k4_ms:.4f} ms ({k4_ms / busy:.1%}), K3 ({', '.join(k3)}) {k3_ms:.4f} ms "
-        f"({k3_ms / busy:.1%}), "
+        f"({k3_ms / busy:.1%}), K5 ({k5.rstrip(',')}) {k5_ms:.4f} ms ({k5_ms / busy:.2%}), "
         f"head products {head:.4f} ms ({head / busy:.1%}), glue {glue:.4f} ms "
         f"({glue / busy:.1%}) | peak {(peak - held) / 1e9:.3f} GB above the held "
         f"(reckoned {reckon / 1e9:.3f}) | {smi}")
     del model, box
     return {"launches": launches, "busy_ms": busy, "k4_ms": k4_ms, "k3_ms": k3_ms,
-            "peak_gb": (peak - held) / 1e9, "reckoned_gb": reckon / 1e9}
+            "k5_ms": k5_ms, "peak_gb": (peak - held) / 1e9, "reckoned_gb": reckon / 1e9}
 
 
 GDIAG_HUGE_SWEEPS = 4  # phase gdiaghugefit: the diag Gaussian fit at K_HUGE
@@ -6373,7 +6434,7 @@ def main(argv=None) -> int:
     huge["K9"] = k9["k160"]
     gc_cuda()
     if PARENT:
-        phase_tail_parent(gblocked, ("K6",))
+        phase_tail_parent(gblocked, ("K6", "K5"))
         gc_cuda()
     xtrain, xval = phase_gxldata()
     xl = _xl_layout(xtrain)
@@ -6481,7 +6542,16 @@ def main(argv=None) -> int:
                    f"gwidefit (K={GWIDE_K}) and gxlfit (K={XL_K}), exact fits (K4's ms "
                    f"in one traced sweep of sweep_busy_ms)"),
         entry("gaussian_bias_tail", gsrc,
-              "pmf_tpu/ops/pallas/gaussian_edge.py:175", k5, glaunches["K5"], "K5"),
+              "pmf_tpu/ops/pallas/gaussian_edge.py:175", k5, glaunches["K5"], "K5",
+              **{f"launches_k{K_HUGE}_diag": gdiag["launches"]["K5"],
+                 f"sweep_k5_ms_k{K_HUGE}_diag": gdiag["k5_ms"],
+                 f"launches_k{XL_K}_xl": gxl["launches"]["K5"],
+                 f"sweep_k5_ms_k{XL_K}_xl": gxl["k5_ms"]},
+              note=f"_k{K_HUGE}: the sum form (tail_sum_kernel, "
+                   "pmf_tpu_torch/csrc/tail_groups.cuh; the item pass in windows of "
+                   f"other ids) on the bench tail; *_diag, *_xl: K5's launches and its "
+                   f"ms in one traced sweep of phases gdiaghugefit (K={K_HUGE}) and "
+                   f"gxlfit (K={XL_K})"),
         entry("gaussian_diag_tail", gsrc,
               "pmf_tpu/ops/pallas/gaussian_edge.py:242", k6, glaunches["K6"], "K6",
               **{f"launches_k{K_HUGE}_diag": gdiag["launches"]["K6"],
@@ -6504,7 +6574,11 @@ def main(argv=None) -> int:
                    "sweep by CUDA events, K7's ms in one traced sweep)"),
         entry("ext_scalar_tail", "pmf_tpu_torch/csrc/ext_edge.cu",
               "pmf_tpu/ops/pallas/ext_edge.py:107", k8, launches["K8"], "K8",
-              **{f"launches_k{K_HUGE}_ext": exthuge["launches"]["K8"]}),
+              **{f"launches_k{K_HUGE}_ext": exthuge["launches"]["K8"],
+                 f"sweep_k8_ms_k{K_HUGE}_ext": exthuge["k8_ms"]},
+              note=f"_k{K_HUGE}: the sum form (tail_sum_kernel; the item pass in "
+                   "windows of other ids) on the bench tail; *_ext: phase exthugefit's "
+                   f"extended fit at K={K_HUGE} (K8's ms in one traced sweep)"),
         entry("map_grad", "pmf_tpu_torch/csrc/map_grad.cu",
               "pmf_tpu/ops/pallas/map_grad.py:56", k9, mlaunches["K9"], "K9",
               device_ms=k9["device_ms"], group_ms=k9["group_ms"],

@@ -33,7 +33,9 @@
 // K8 mode kScalar: linear in e_other, each lane sums s_o * e_o over its
 // words, one multiply-add an element an edge and no butterfly, and dots
 // that with its words of e_self_new once at the row's end, one butterfly
-// a row.  The header holds the design and the reckoning.
+// a row; from 37 words a record (K = 144) the sum form, tail_sum_kernel,
+// with other-id windows where the records outgrow the L2.  The header
+// holds the design and the reckoning.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,10 +51,15 @@ extern "C" int pmf_ext_factor(const float* e_self, const float* es_other,
                                                 static_cast<cudaStream_t>(stream));
 }
 
+// K8.  n_win > 1: the sum form's other-id windows, as pmf_gauss_bias's
+// (no ratings).
 extern "C" int pmf_ext_scalar(const float* e_self_new, const float* es_other,
                               const int64_t* row_ptr, const int32_t* other, int n_self,
-                              int n_long, int K, float* out, void* stream) {
+                              int n_long, int K, int n_win, const int64_t* win_ptr,
+                              const int32_t* win_other, float* part, unsigned* count,
+                              float* out, void* stream) {
   const tail_groups::Tables t{e_self_new, es_other, nullptr, row_ptr, other, nullptr};
+  const tail_groups::Windows win{n_win, win_ptr, win_other, nullptr, part, count};
   return tail_groups::launch<tail_groups::kScalar>(t, n_self, n_long, K, 0.f, out,
-                                                   static_cast<cudaStream_t>(stream));
+                                                   static_cast<cudaStream_t>(stream), win);
 }

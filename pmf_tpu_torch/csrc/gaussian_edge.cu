@@ -27,7 +27,10 @@
 // to K = 127; from K = 128 to 511 (33 to 128 words a record) the ring form,
 // tail_ring_kernel (a warp a row, each edge's two rows copied by cp.async
 // into a ring in shared memory, D dots a round in one reduction); past it
-// tail_wide_kernel.  This file holds their entry points.
+// tail_wide_kernel.  K5 takes the register form to K = 159; from K = 160 to
+// 511 the sum form, tail_sum_kernel (a warp a row, the records through a
+// cp.async ring, other-id windows where they outgrow the L2).  This file
+// holds their entry points.
 //
 // K3's table is padded to a multiple of 4 floats a record (stride), so
 // that every record starts on 16 bytes.  What bounds it on an H100:
@@ -747,12 +750,18 @@ extern "C" int pmf_gauss_factor(const float* aug, int stride, const int64_t* row
                             static_cast<cudaStream_t>(stream));
 }
 
+// K5.  n_win > 1: the sum form's other-id windows (tail_groups::Windows:
+// the window row pointers, the edges regrouped by window, n_win partial
+// rows a self row, a zeroed arrival count a self row).
 extern "C" int pmf_gauss_bias(const float* mb_other, const int64_t* row_ptr,
                               const int32_t* other, const float* x, int n_self,
-                              int n_long, int K, float* out, void* stream) {
+                              int n_long, int K, int n_win, const int64_t* win_ptr,
+                              const int32_t* win_other, const float* win_x, float* part,
+                              unsigned* count, float* out, void* stream) {
   const tail_groups::Tables t{nullptr, mb_other, nullptr, row_ptr, other, x};
+  const tail_groups::Windows win{n_win, win_ptr, win_other, win_x, part, count};
   return tail_groups::launch<tail_groups::kBias>(t, n_self, n_long, K, 0.f, out,
-                                                 static_cast<cudaStream_t>(stream));
+                                                 static_cast<cudaStream_t>(stream), win);
 }
 
 extern "C" int pmf_gauss_diag(const float* mb_self, const float* mb_other,

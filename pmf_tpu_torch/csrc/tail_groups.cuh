@@ -112,9 +112,31 @@
 // four times the L2): with the other ids cut to 40,000 rows it took 1.12
 // ms against 1.70.
 //
-// Past a span of 64 words (K1 past K = 256, K5 and K8 from K = 255 on:
-// rows of more than 64 float4 words; K1 and K7 past the dot form, K6 past
-// the ring form) tail_wide_kernel takes the row:
+// The sum form (K5 from K = 160, K8 from K = 144, to 128 float4 words a
+// record: K = 511): tail_sum_kernel.  K5 and K8 take no per-edge dot: each
+// lane sums its words of the other rows (K5 [m | b] and x, K8 s_o * e_o,
+// dotted with e_s at the row's end).  A warp a row walks its edges in
+// rounds of D = kSumInFlight = 2, each edge's record copied by cp.async into
+// a ring of S = kSumStages = 4 rounds in the warp's shared memory, in edge
+// order: equal bits to the register form's G = 32, V = 2 instance.  Where
+// the gathered records exceed 1.5 times the L2 (the item pass's user
+// records: 106 MB at K = 160), the rows' edges are walked in windows of
+// other ids (ops/_tail.py::tail_windows: up to 4, each at most 0.75 of the
+// L2, on passes of at least 16 edges a mean row and window), one window
+// per grid.y, window-major so the CTAs of one window run together; each
+// window's warp writes its row's partial sums, and the warp that arrives
+// last (an arrival count a row) adds the row's nonempty windows in window
+// order: no atomics on the sums, equal bits on a repeat.  Measured by
+// scripts/probe_k5k8.py (H100 80GB HBM3 at 700 W, the bench tails): the
+// ring alone lost to the register form by 4-12% (its loads cost less where
+// every gather hits, and the register form was never short of warps: 40
+// an SM for K5); the item pass lost 37-45% of its time to the user table's
+// L2 misses, and the windows take 0.15-0.3 ms off it at K = 160; below K =
+// 160 (K5) and 144 (K8) the register form stays, faster there.
+//
+// Past a span of 64 words (K1 raw past K = 256: rows of more than 64 float4
+// words; K1 and K7 past the dot form, K6 past the ring form, K5 and K8 past
+// the sum form) tail_wide_kernel takes the row:
 // a warp a row, lane l holding words l and l + 32 of a chunk of 64 words,
 // the chunks one after another (a second walk of the row's edges a chunk).
 // Each edge's dot runs over the whole row in every chunk, the lane's words
@@ -158,6 +180,11 @@ constexpr int kRingInFlight = 4;      // D: edges a round of K6's ring form, 2 w
 constexpr int kRingWideInFlight = 2;  // and at 3 or 4 words a lane (rows past 64 words)
 constexpr int kRingStages = 3;        // S: rounds in a warp's ring there
 constexpr int kRingMaxVec = 4;        // words a lane: the ring form up to 128 words a row
+constexpr int kSumInFlight = 2;    // D: edges a round of K5's and K8's sum form
+constexpr int kSumStages = 4;      // S: rounds in a warp's ring there
+constexpr int kSumMaxVec = 4;      // words a lane: the sum form up to 128 words a row
+constexpr int kSumBiasFrom = 41;   // K5's sum form from 41 words a record (K = 160)
+constexpr int kSumScalarFrom = 37; // K8's from 37 words (K = 144)
 
 enum Mode { kCavi = 0, kRaw = 1, kExt = 2, kBias = 3, kDiag = 4, kScalar = 5 };
 
@@ -731,7 +758,7 @@ __device__ __forceinline__ float warp_dots(float (&p)[D], int lane) {
 }
 
 // Float4 words of one warp's ring: S rounds of D rows of W words, then the
-// S * D ratings (a word holds four).
+// S * D ratings (a word holds four; K8's sum form reads none).
 __host__ __device__ constexpr int dot_ring_words(int W, int D, int S) {
   return S * D * W + (S * D + 3) / 4;
 }
@@ -1046,13 +1073,244 @@ tail_ring_kernel(const float* __restrict__ mb_self, const float* __restrict__ mb
   }
 }
 
+// K5's and K8's other-id windows (the sum form): n windows of other ids;
+// window w's edges of self row r are [ptr[w n_self + r], ptr[(w + 1) n_self
+// + r]) of ``other`` and ``x`` (the tail's edges regrouped by window inside
+// each row, so ptr[0] and ptr[n] are the CSR's row pointers); ``part``
+// holds n partial output rows a self row, ``count`` an arrival count a self
+// row (zero before the launch).  n = 1: no windows, the CSR itself.
+struct Windows {
+  int n = 1;
+  const int64_t* ptr = nullptr;
+  const int32_t* other = nullptr;
+  const float* x = nullptr;
+  float* part = nullptr;
+  unsigned* count = nullptr;
+};
+
+// K5 (kBias) or K8 (kScalar) on records of up to 32 V words: the sum form
+// (the header's design note).  A warp a row (kDotWarps rows a CTA) and a
+// window (blockIdx.y); each edge's record (W words) copied into the warp's
+// ring, K5's ratings beside the rounds.  Lane l sums words l, l + 32, ... of
+// the records in edge order: K5 the record and the rating, K8 s_o * e_o
+// (s_o, column K, read from the ring); K8 dots its sums with its words of
+// e_self at the row's end, one butterfly a row.  With windows, each
+// window's warp writes its partial row (K5) or dot (K8), and the warp that
+// arrives last adds the row's nonempty windows' partials in window order.
+template <int kMode, int V, int D, int S>
+__global__ void __launch_bounds__(32 * kDotWarps)
+tail_sum_kernel(const float* __restrict__ e_self, const float* __restrict__ e_other,
+                const int64_t* __restrict__ row_ptr, const int32_t* __restrict__ other,
+                const float* __restrict__ x, int n_self, int K, Windows win,
+                float* __restrict__ out) {
+  static_assert(kMode == kBias || kMode == kScalar, "the sum form is K5's and K8's");
+  static_assert((D & (D - 1)) == 0 && D <= 32 && S >= 2, "D a power of two, S >= 2");
+  extern __shared__ float4 dot_ring[];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int row = blockIdx.x * kDotWarps + wid;
+  if (row >= n_self) return;  // whole warp leaves together
+  const int wnd = blockIdx.y;  // the window
+  const int W = (K + 4) >> 2;   // words a record, [m | b] or [e | s]
+  const int Ws = (K + 3) >> 2;  // of e_self (K8)
+  const int Wout = kMode == kBias ? K + 2 : 1;  // floats an output row
+  float4* __restrict__ ring = dot_ring + (int64_t)wid * dot_ring_words(W, D, S);
+  float* __restrict__ ring_x = reinterpret_cast<float*>(ring + S * D * W);
+  int64_t begin = row_ptr[row];
+  int len = (int)(row_ptr[row + 1] - begin);
+  if (win.n > 1) {
+    begin = win.ptr[(int64_t)wnd * n_self + row];
+    len = (int)(win.ptr[(int64_t)(wnd + 1) * n_self + row] - begin);
+    other = win.other;
+    x = win.x;
+  }
+  const float4* __restrict__ eo4 = reinterpret_cast<const float4*>(e_other);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 acc[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = zero;
+  float acc_x = 0.f;  // K5: sum x
+
+  int batch = 0;
+  int ids = lane < len ? other[begin + lane] : 0;
+  int nids = 32 + lane < len ? other[begin + 32 + lane] : 0;
+  const int rounds = (len + D - 1) / D;
+  // Round q's records (and K5's ratings) into ring stage q % S; one commit
+  // group a round (empty past the last).
+  auto issue = [&](int q) {
+    if (q < rounds) {
+      const int b = (q * D) >> 5;
+      if (b != batch) {
+        batch = b;
+        ids = nids;
+        const int e = 32 * (b + 1) + lane;
+        nids = e < len ? other[begin + e] : 0;
+      }
+      const int st = q % S;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const int e = q * D + d;
+        const int o = __shfl_sync(kFull, ids, e & 31);
+        if (e < len) {
+          float4* dst = ring + (st * D + d) * W;
+          const float4* src = eo4 + (int64_t)o * W;
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            const int w = 32 * v + lane;
+            if (w < W) cp_async16(dst + w, src + w);
+          }
+        }
+      }
+      if constexpr (kMode == kBias) {
+        if (lane < D && q * D + lane < len)
+          cp_async4(ring_x + st * D + lane, x + begin + q * D + lane);
+      }
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int q = 0; q < S - 1; ++q) issue(q);
+  for (int r = 0; r < rounds; ++r) {
+    issue(r + S - 1);
+    cp_async_wait<S - 1>();  // round r has landed (this lane's copies)
+    __syncwarp();            // and every lane's
+    const int st = r % S;
+    const float4* rows = ring + st * D * W;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      if (r * D + d >= len) break;  // warp-uniform: the row's last round
+      const float4* rec = rows + d * W;
+      float sv = 0.f;  // K8: s_o, column K of the record
+      if constexpr (kMode == kScalar) sv = reinterpret_cast<const float*>(rec)[K];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float4 eo = 32 * v + lane < W ? rec[32 * v + lane] : zero;
+        if constexpr (kMode == kScalar) {
+          acc[v].x = fmaf(sv, eo.x, acc[v].x);
+          acc[v].y = fmaf(sv, eo.y, acc[v].y);
+          acc[v].z = fmaf(sv, eo.z, acc[v].z);
+          acc[v].w = fmaf(sv, eo.w, acc[v].w);
+        } else {
+          acc[v].x += eo.x;
+          acc[v].y += eo.y;
+          acc[v].z += eo.z;
+          acc[v].w += eo.w;
+        }
+      }
+      if constexpr (kMode == kBias) acc_x += ring_x[st * D + d];
+    }
+    __syncwarp();  // every lane has read stage st before round r + S refills it
+  }
+
+  float dot = 0.f;  // K8: <e_s, sum s_o e_o>, one butterfly a row
+  if constexpr (kMode == kScalar) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int w = 32 * v + lane;
+      float4 e = zero;
+      if (w < Ws) {
+        e = reinterpret_cast<const float4*>(e_self)[(int64_t)row * Ws + w];
+        const int k = 4 * w;
+        if (k + 1 >= K) e.y = 0.f;  // the self row's pad columns
+        if (k + 2 >= K) e.z = 0.f;
+        if (k + 3 >= K) e.w = 0.f;
+      }
+      dot = fmaf(e.x, acc[v].x, dot);
+      dot = fmaf(e.y, acc[v].y, dot);
+      dot = fmaf(e.z, acc[v].z, dot);
+      dot = fmaf(e.w, acc[v].w, dot);
+    }
+    dot = group_sum<32>(dot);
+  }
+  // Lane l's output floats: K8 float 0 (lane 0), K5 4 w + j for its words w
+  // (k <= K) and K + 1 (sum x, lane 0).
+  auto own = [&](int v, int j) { return comp(acc[v], j); };
+  if (win.n > 1) {  // the partial into the window's slot; the last to arrive adds
+    float* mine = win.part + ((int64_t)wnd * n_self + row) * Wout;
+    if (len > 0) {
+      if constexpr (kMode == kScalar) {
+        if (lane == 0) mine[0] = dot;
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const int w = 32 * v + lane;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (w < W && 4 * w + j <= K) mine[4 * w + j] = own(v, j);
+        }
+        if (lane == 0) mine[K + 1] = acc_x;
+      }
+    }
+    __threadfence();
+    __syncwarp();
+    unsigned before = 0;
+    if (lane == 0) before = atomicAdd(win.count + row, 1u);
+    if (__shfl_sync(kFull, before, 0) != (unsigned)(win.n - 1)) return;
+    __threadfence();
+    // The windows' partials in window order, the empty ones left out.
+    float4 tot[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) tot[v] = zero;
+    float tot_x = 0.f, tot_dot = 0.f;
+    for (int u = 0; u < win.n; ++u) {
+      const int64_t lo = win.ptr[(int64_t)u * n_self + row];
+      if (win.ptr[(int64_t)(u + 1) * n_self + row] == lo) continue;  // warp-uniform
+      const float* theirs = win.part + ((int64_t)u * n_self + row) * Wout;
+      if constexpr (kMode == kScalar) {
+        tot_dot += u == wnd ? dot : __ldcg(theirs);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const int w = 32 * v + lane;
+          if (w < W) {
+            float4 p = acc[v];
+            if (u != wnd) {
+              p.x = 4 * w <= K ? __ldcg(theirs + 4 * w) : 0.f;
+              p.y = 4 * w + 1 <= K ? __ldcg(theirs + 4 * w + 1) : 0.f;
+              p.z = 4 * w + 2 <= K ? __ldcg(theirs + 4 * w + 2) : 0.f;
+              p.w = 4 * w + 3 <= K ? __ldcg(theirs + 4 * w + 3) : 0.f;
+            }
+            tot[v].x += p.x;
+            tot[v].y += p.y;
+            tot[v].z += p.z;
+            tot[v].w += p.w;
+          }
+        }
+        tot_x += u == wnd ? acc_x : __ldcg(theirs + K + 1);
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = tot[v];
+    acc_x = tot_x;
+    dot = tot_dot;
+  }
+
+  if constexpr (kMode == kScalar) {
+    if (lane == 0) out[row] = dot;
+  } else {
+    float* dst = out + (int64_t)row * Wout;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int w = 32 * v + lane;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = 4 * w + j;
+        if (w < W && k <= K) dst[k] = own(v, j);  // [sum m | sum b]
+      }
+    }
+    if (lane == 0) dst[K + 1] = acc_x;
+  }
+}
+
 // The plan for K: W = ceil(columns / 4) words a row, span = the power of
 // two at or above W, V = 1 word a lane up to a span of one_word(mode) and 2
 // past it, G = span / V lanes a row, in_flight(mode) edges in flight a
 // group; past a span of kMaxSpan words tail_wide_kernel.  K1 "cavi" and
 // K7 take the dot form for W in (32, 32 * kDotMaxVec], K6 the ring form
-// for W in (32, 32 * kRingMaxVec], V = ceil(W / 32) words a lane, and
-// tail_wide_kernel past them (ops/_tail.py::launch_plan mirrors it).
+// for W in (32, 32 * kRingMaxVec], K5 and K8 the sum form for W in (32,
+// 32 * kSumMaxVec], V = ceil(W / 32) words a lane, and tail_wide_kernel
+// past them (ops/_tail.py::launch_plan mirrors it).
 __host__ __device__ constexpr int plan_words(int mode, int K) { return (columns(mode, K) + 3) / 4; }
 __host__ __device__ constexpr bool plan_dot(int mode, int K) {
   return (mode == kCavi || mode == kExt) && plan_words(mode, K) > 32 &&
@@ -1062,6 +1320,17 @@ __host__ __device__ constexpr bool plan_dot(int mode, int K) {
 static_assert(kRingMaxVec >= 2, "the ring form takes every K6 row of 33 to 64 words");
 __host__ __device__ constexpr bool plan_ring(int mode, int K) {
   return mode == kDiag && plan_words(mode, K) > 32 && plan_words(mode, K) <= 32 * kRingMaxVec;
+}
+// K5 takes the sum form for W in [kSumBiasFrom, 32 * kSumMaxVec], K8 for W in
+// [kSumScalarFrom, 32 * kSumMaxVec], V = ceil(W / 32); the register form's
+// G = 32, V = 2 below (it ran faster there: PERF.md, the sum form).
+static_assert(kSumBiasFrom > 32 && kSumScalarFrom > 32 && kSumBiasFrom <= kMaxSpan + 1 &&
+                  kSumScalarFrom <= kMaxSpan + 1 && kSumMaxVec >= 2,
+              "the register form takes K5's and K8's rows below the sum form");
+__host__ __device__ constexpr bool plan_sum(int mode, int K) {
+  return ((mode == kBias && plan_words(mode, K) >= kSumBiasFrom) ||
+          (mode == kScalar && plan_words(mode, K) >= kSumScalarFrom)) &&
+         plan_words(mode, K) <= 32 * kSumMaxVec;
 }
 __host__ __device__ constexpr int plan_dot_vec(int mode, int K) {
   return (plan_words(mode, K) + 31) / 32;
@@ -1080,14 +1349,15 @@ __host__ __device__ constexpr int plan_lanes(int mode, int K) {
 __host__ __device__ constexpr bool plan_wide(int mode, int K) {
   return mode == kCavi || mode == kExt ? plan_words(mode, K) > 32 * kDotMaxVec
          : mode == kDiag               ? plan_words(mode, K) > 32 * kRingMaxVec
-                                       : plan_span(mode, K) > kMaxSpan;
+         : mode == kRaw                ? plan_span(mode, K) > kMaxSpan
+                                       : plan_words(mode, K) > 32 * kSumMaxVec;  // K5, K8
 }
 // Whether some K of the register form takes the plan (G, V) in this mode:
 // only those instances are built.
 __host__ __device__ constexpr bool reachable(int mode, int G, int V) {
   for (int K = 1; plan_span(mode, K) <= kMaxSpan; ++K)
     if (!plan_dot(mode, K) && !plan_ring(mode, K) && plan_lanes(mode, K) == G &&
-        plan_vec(mode, K) == V)
+        plan_vec(mode, K) == V && !plan_sum(mode, K))
       return true;
   return false;
 }
@@ -1147,12 +1417,34 @@ int launch_ring(const Tables& t, int n_self, int K, int rec_stride, int sq_strid
   return (int)cudaGetLastError();
 }
 
-// Warps [0, n_long) take a row each (the dot and ring forms give every row
-// a warp).
+// K5's or K8's sum form at V words a lane, D edges a round, S rounds a
+// ring: dynamic shared memory of kDotWarps rings; grid.y the windows.
+template <int kMode, int V, int D, int S>
+int launch_sum(const Tables& t, int n_self, int K, const Windows& win, float* out,
+               cudaStream_t stream) {
+  auto kernel = tail_sum_kernel<kMode, V, D, S>;
+  const int smem = kDotWarps * 16 * dot_ring_words(plan_words(kMode, K), D, S);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((n_self + kDotWarps - 1) / kDotWarps, win.n);  // window-major
+  kernel<<<grid, 32 * kDotWarps, smem, stream>>>(t.e_self, t.e_other, t.row_ptr, t.other,
+                                                 t.x, n_self, K, win, out);
+  return (int)cudaGetLastError();
+}
+
+// Warps [0, n_long) take a row each (the dot, ring and sum forms give every
+// row a warp).
+// ``win``: K5's and K8's other-id windows, taken by the sum form alone.
 template <int kMode>
 int launch(const Tables& t, int n_self, int n_long, int K, float rate_floor, float* out,
-           cudaStream_t stream) {
-  if (bad_args(n_self, n_long, K)) return (int)cudaErrorInvalidValue;
+           cudaStream_t stream, const Windows& win = Windows{}) {
+  if (bad_args(n_self, n_long, K) || win.n < 1 ||
+      (win.n > 1 && !(plan_sum(kMode, K) && win.ptr && win.other && win.part && win.count &&
+                      (kMode != kBias || win.x))))
+    return (int)cudaErrorInvalidValue;
   if (n_self == 0) return (int)cudaGetLastError();
   if (plan_wide(kMode, K)) {
     tail_wide_kernel<kMode><<<(n_self + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
@@ -1178,6 +1470,17 @@ int launch(const Tables& t, int n_self, int n_long, int K, float rate_floor, flo
         case 2: return launch_ring<2, D, S>(t, n_self, K, W, Wq, out, stream);
         case 3: return launch_ring<3, Dw, S>(t, n_self, K, W, Wq, out, stream);
         case 4: return launch_ring<4, Dw, S>(t, n_self, K, W, Wq, out, stream);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    }
+  }
+  if constexpr (kMode == kBias || kMode == kScalar) {
+    if (plan_sum(kMode, K)) {
+      constexpr int D = kSumInFlight, S = kSumStages;
+      switch (plan_dot_vec(kMode, K)) {
+        case 2: return launch_sum<kMode, 2, D, S>(t, n_self, K, win, out, stream);
+        case 3: return launch_sum<kMode, 3, D, S>(t, n_self, K, win, out, stream);
+        case 4: return launch_sum<kMode, 4, D, S>(t, n_self, K, win, out, stream);
         default: return (int)cudaErrorInvalidValue;
       }
     }

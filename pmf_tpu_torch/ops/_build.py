@@ -55,8 +55,9 @@ SIGNATURES = {
     # forms' slab-major copy of the table), out, stream
     "pmf_gauss_factor": [_P, _I, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L,
                          _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    # mb_other, row_ptr, other, x, n_self, n_long, K, out, stream
-    "pmf_gauss_bias": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # mb_other, row_ptr, other, x, n_self, n_long, K, n_win, win_ptr,
+    # win_other, win_x, part, count, out, stream
+    "pmf_gauss_bias": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     # mb_self, mb_other, sq_other, row_ptr, other, x, n_self, n_long, K, out,
     # stream
     "pmf_gauss_diag": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
@@ -65,8 +66,9 @@ SIGNATURES = {
     # e_self, es_other, row_ptr, other, x, n_self, n_long, K, rate_floor, out,
     # stream
     "pmf_ext_factor": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
-    # e_self_new, es_other, row_ptr, other, n_self, n_long, K, out, stream
-    "pmf_ext_scalar": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # e_self_new, es_other, row_ptr, other, n_self, n_long, K, n_win, win_ptr,
+    # win_other, part, count, out, stream
+    "pmf_ext_scalar": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     # self_tab, other_tab, step_off, step, max_pieces, piece_ptr, piece_row,
     # piece_first, piece_count, other, x, K, lam_floor, with_nll, out,
     # scratch, counters, stream

@@ -6,6 +6,8 @@ the row-group geometry and padded tables of K1, K7, K5, K6 and K8
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from pmf_tpu_torch.data.blocked import TailCSR
@@ -15,7 +17,9 @@ from pmf_tpu_torch.ops.dense_head import head_products, head_products_t
 # csrc/tail_groups.cuh: kWarps, kInFlight, kDiagInFlight, kOneWord,
 # kRecordOneWord, kMaxSpan, kWideWords, batch_of, the dot form's
 # kDotWarps, kDotInFlight, kDotStages, kDotMaxVec, dot_ring_words, and K6's
-# ring form's kRingInFlight, kRingWideInFlight, kRingStages, kRingMaxVec.
+# ring form's kRingInFlight, kRingWideInFlight, kRingStages, kRingMaxVec,
+# and K5's and K8's sum form's kSumInFlight, kSumStages, kSumMaxVec,
+# kSumBiasFrom, kSumScalarFrom.
 GROUP_WARPS = 8
 GROUP_IN_FLIGHT = 4
 DIAG_IN_FLIGHT = 2
@@ -31,10 +35,27 @@ RING_IN_FLIGHT = 4  # D: edges a round of K6's ring form, 2 words a lane
 RING_WIDE_IN_FLIGHT = 2  # and at 3 or 4 words a lane (rows past 64 words)
 RING_STAGES = 3  # S: rounds in a warp's ring there
 RING_MAX_VEC = 4  # words a lane: the ring form up to 128 words a row
+SUM_IN_FLIGHT = 2  # D: edges a round of K5's and K8's sum form
+SUM_STAGES = 4  # S: rounds in a warp's ring there
+SUM_MAX_VEC = 4  # words a lane: the sum form up to 128 words a row
+# Words a record from which K5 (kSumBiasFrom, K = 160) and K8
+# (kSumScalarFrom, K = 144) take the sum form; the register form below.
+SUM_FIRST_WORDS = {"K5": 41, "K8": 37}
+# The sum form's other-id windows: where the gathered records exceed
+# WINDOW_MIN_L2 times the card's L2, the pass walks windows of other ids,
+# each window's records at most WINDOW_L2_SHARE of the L2, at most
+# MAX_WINDOWS of them and at most one a WINDOW_MIN_EDGES edges of a mean
+# self row (a window's share of a row pays the row's fixed costs again).
+WINDOW_MIN_L2 = 1.5
+WINDOW_L2_SHARE = 0.75
+MAX_WINDOWS = 4
+WINDOW_MIN_EDGES = 16
 # The kernels whose mode has a dot form past 32 words a row: K1 "cavi", K7;
-# and the ring form, two rows an edge: K6.
+# the ring form, two rows an edge: K6.
 DOT_KERNELS = ("K1", "K7")
 RING_KERNELS = ("K6",)
+# The sum form, one record an edge and no per-edge dot: K5, K8.
+SUM_KERNELS = ("K5", "K8")
 # The kernels that gather records of K + 1 columns: K5's and K6's [m | b],
 # K7's and K8's [e | s].
 RECORD_KERNELS = ("K5", "K6", "K7", "K8")
@@ -68,7 +89,8 @@ def launch_plan(k: int, kernel: str = "K1") -> dict:
     """The row-group geometry of ``kernel`` (one of PLAN_KERNELS) at ``k``
     factors, as ``tail_groups::launch`` chooses it; ``form`` names the
     kernel: "group" (``tail_group_kernel``), "dot" (``tail_dot_kernel``),
-    "ring" (``tail_ring_kernel``) or "wide" (``tail_wide_kernel``).  ``words`` W =
+    "ring" (``tail_ring_kernel``), "sum" (``tail_sum_kernel``) or "wide"
+    (``tail_wide_kernel``).  ``words`` W =
     ceil(columns / 4) float4 words a row; ``lanes`` G a row and ``vec`` V
     words a lane, V = 1 up to a span of GROUP_ONE_WORD words (K5, K6:
     RECORD_ONE_WORD) and 2 past it, G = span / V, for span the power of two
@@ -87,7 +109,10 @@ def launch_plan(k: int, kernel: str = "K1") -> dict:
     RING_MAX_VEC): the dot form's geometry, D = RING_IN_FLIGHT edges a
     round at V = 2 (RING_WIDE_IN_FLIGHT past it), RING_STAGES rounds, each
     edge's ``words`` record words and its ceil(K / 4) words of v + m^2 in
-    the ring."""
+    the ring.  The sum form (K5 and K8 from SUM_FIRST_WORDS words a row, up
+    to 32 * SUM_MAX_VEC): the dot form's geometry, D = SUM_IN_FLIGHT edges a
+    round, SUM_STAGES rounds, each edge's ``words`` record words in the ring
+    (K8's ring keeps the ratings' words unread)."""
     _build.check_k(k, "tail kernel")
     if kernel not in PLAN_KERNELS:
         raise ValueError(f"unknown row-group kernel {kernel!r} {PLAN_KERNELS}")
@@ -95,14 +120,18 @@ def launch_plan(k: int, kernel: str = "K1") -> dict:
     words = -(-cols // 4)
     span = 1 << (words - 1).bit_length()
     ring = kernel in RING_KERNELS and 32 < words <= 32 * RING_MAX_VEC
-    if ring or kernel in DOT_KERNELS and 32 < words <= 32 * DOT_MAX_VEC:
+    summed = kernel in SUM_KERNELS and SUM_FIRST_WORDS[kernel] <= words <= 32 * SUM_MAX_VEC
+    if ring or summed or kernel in DOT_KERNELS and 32 < words <= 32 * DOT_MAX_VEC:
         vec = -(-words // 32)
         if ring:  # the ring holds each edge's record and its v + m^2 row
             d = RING_IN_FLIGHT if vec == 2 else RING_WIDE_IN_FLIGHT
             stages, edge_words = RING_STAGES, words + -(-k // 4)
+        elif summed:
+            d, stages, edge_words = SUM_IN_FLIGHT, SUM_STAGES, words
         else:
             d, stages, edge_words = DOT_IN_FLIGHT, DOT_STAGES, words
-        return dict(form="ring" if ring else "dot", lanes=32, vec=vec, words=words,
+        form = "ring" if ring else "sum" if summed else "dot"
+        return dict(form=form, lanes=32, vec=vec, words=words,
                     stride=tail_stride(cols), batch=32, in_flight=d, stages=stages,
                     rows_per_warp=1, rows_per_cta=DOT_WARPS, wide=False, chunks=1,
                     smem=DOT_WARPS * 16 * dot_ring_words(edge_words, d, stages))
@@ -134,6 +163,92 @@ def boundary_ks(kernel: str = "K1", k_max: int = 600) -> list:
             out.append(k)
             last = key
     return out
+
+
+def window_count(k: int, n_other: int, nnz: int, rows: int, l2_bytes: int,
+                 kernel: str = "K5") -> int:
+    """Windows of other ids the sum form of ``kernel`` (K5, K8) walks at
+    ``k`` factors over ``n_other`` records, ``nnz`` edges of ``rows`` self
+    rows, on a card of ``l2_bytes`` of L2: 1 where the records' bytes are at
+    most WINDOW_MIN_L2 x L2 or the plan takes another form, else ceil(bytes
+    / (WINDOW_L2_SHARE x L2)), at most MAX_WINDOWS and at most nnz / (rows x
+    WINDOW_MIN_EDGES)."""
+    if kernel not in SUM_KERNELS or launch_plan(k, kernel)["form"] != "sum":
+        return 1
+    table = n_other * 4 * tail_stride(k + 1)
+    if table <= WINDOW_MIN_L2 * l2_bytes:
+        return 1
+    n = min(MAX_WINDOWS, -(-table // int(WINDOW_L2_SHARE * l2_bytes)),
+            nnz // (max(rows, 1) * WINDOW_MIN_EDGES))
+    return max(n, 1)
+
+
+@dataclass(frozen=True)
+class TailWindows:
+    """A CSR's edges in ``n`` windows of other ids (equal ranges of
+    ceil(n_other / n) ids): ``other`` and ``x`` the edges regrouped by
+    window inside each self row (CSR order within a window), ``ptr`` (n +
+    1, rows) int64: window w's edges of row r are [ptr[w, r], ptr[w + 1,
+    r]), so ptr[0] and ptr[n] are the CSR's row pointers."""
+
+    n: int
+    ptr: torch.Tensor
+    other: torch.Tensor
+    x: torch.Tensor
+
+
+def build_windows(row_ptr: torch.Tensor, other: torch.Tensor, x: torch.Tensor,
+                  n_other: int, n: int) -> TailWindows:
+    """``TailWindows`` of a CSR: one stable sort by (self row, window)."""
+    rows = row_ptr.shape[0] - 1
+    size = -(-n_other // n)
+    row_of = torch.repeat_interleave(torch.arange(rows, device=row_ptr.device),
+                                     row_ptr[1:] - row_ptr[:-1])
+    key = row_of * n + other.long() // size
+    order = torch.sort(key, stable=True).indices
+    cum = torch.cumsum(torch.bincount(key, minlength=rows * n).view(rows, n), dim=1)
+    ptr = torch.empty((n + 1, rows), dtype=torch.int64, device=row_ptr.device)
+    ptr[0] = row_ptr[:-1]
+    ptr[1:] = row_ptr[:-1][None, :] + cum.t()
+    return TailWindows(n, ptr, other[order].contiguous(), x[order].contiguous())
+
+
+def tail_windows(p: TailCSR, k: int, kernel: str = "K5") -> TailWindows | None:
+    """The windows K5's or K8's pass over ``p`` walks on its card at ``k``
+    (``window_count`` of the card's L2), None where it walks none or on the
+    host.  Each (kernel, k)'s answer and each window count's windows are
+    kept on the TailCSR (not a field: ``band_of`` and ``dataclasses.replace``
+    do not carry it), so a sweep's call costs a lookup; below the sum form
+    no device is asked."""
+    if (kernel not in SUM_KERNELS or -(-(k + 1) // 4) < SUM_FIRST_WORDS[kernel]
+            or not p.row_ptr.is_cuda):
+        return None
+    cache = p.__dict__.get("_tail_windows")
+    if cache is None:
+        cache = {}
+        object.__setattr__(p, "_tail_windows", cache)
+    if (kernel, k) not in cache:
+        l2 = torch.cuda.get_device_properties(p.row_ptr.device).L2_cache_size
+        n = window_count(k, p.n_other, p.nnz, p.rows, l2, kernel)
+        if n > 1 and n not in cache:
+            cache[n] = build_windows(p.row_ptr, p.other, p.x, p.n_other, n)
+        cache[(kernel, k)] = cache[n] if n > 1 else None
+    return cache[(kernel, k)]
+
+
+def window_args(windows: TailWindows | None, n_self: int, width: int, device,
+                with_x: bool = True) -> tuple:
+    """The C entries' window arguments (n, ptr, other, [x,] part, count):
+    ``part`` n partial rows of ``width`` floats a self row, ``count`` a
+    zeroed arrival count a self row; (1, null, ...) without windows."""
+    if windows is None:
+        return (1, None, None) + ((None,) if with_x else ()) + (None, None)
+    if tuple(windows.ptr.shape) != (windows.n + 1, n_self):
+        raise ValueError(f"windows of {tuple(windows.ptr.shape)} pointers for {n_self} rows")
+    part = torch.empty((windows.n, n_self, width), dtype=torch.float32, device=device)
+    count = torch.zeros((n_self,), dtype=torch.int32, device=device)
+    return ((windows.n, windows.ptr, windows.other) + ((windows.x,) if with_x else ())
+            + (part, count))
 
 
 def padded_rows(tab: torch.Tensor, rows: torch.Tensor | None = None) -> torch.Tensor:

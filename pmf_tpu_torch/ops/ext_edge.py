@@ -57,7 +57,9 @@ from pmf_tpu_torch.ops._tail import (
     products,
     record_rows as es_record,
     row_chunks,
+    tail_windows,
     unband,
+    window_args,
 )
 from pmf_tpu_torch.ops.dense_head import ext_head_stats, ext_head_stats_t
 
@@ -144,12 +146,13 @@ def ext_factor_tail(e_self, es_other, row_ptr, other, x,
 
 
 def ext_scalar_tail(e_self_new, es_other, row_ptr, other, K: int | None = None,
-                    long_rows: int = 0) -> torch.Tensor:
+                    long_rows: int = 0, windows=None) -> torch.Tensor:
     """K8: the scalar-rate tail pass at ``K`` factors (e_self_new's width
     when None) from the [e | s] records ``es_other``.  CUDA tensors launch
     the kernel, on tables padded as K7's, giving each of the first
-    ``long_rows`` rows a whole warp; CPU tensors run the plain version,
-    which ignores pad columns."""
+    ``long_rows`` rows a whole warp, the sum form walking ``windows``
+    (``_tail.tail_windows``) where given; CPU tensors run the plain
+    version, which ignores pad columns."""
     if not e_self_new.is_cuda:
         return ext_scalar_tail_plain(e_self_new, es_other, row_ptr, other, K=K)
     K = e_self_new.shape[1] if K is None else K
@@ -158,7 +161,8 @@ def ext_scalar_tail(e_self_new, es_other, row_ptr, other, K: int | None = None,
     n_self = e_self_new.shape[0]
     out = torch.empty((n_self,), dtype=torch.float32, device=e_self_new.device)
     _build.launch("pmf_ext_scalar", SCALAR_LAUNCHES, e_self_new.device, e_self_new,
-                  es_other, row_ptr, other, n_self, long_rows, K, out)
+                  es_other, row_ptr, other, n_self, long_rows, K,
+                  *window_args(windows, n_self, 1, e_self_new.device, with_x=False), out)
     return out
 
 
@@ -234,7 +238,8 @@ def ext_scalar_stats(E_self_new, E_other, s_other, p: TailCSR, head=None,
             for tier in heads])
     e_self = new_space_rows(E_self_new, p.self_new_of_old if p.reordered else None)
     acc = unband(ext_scalar_tail(band_rows(e_self, p), factor.records, p.row_ptr,
-                                 p.other, K=K, long_rows=p.long_rows), p)
+                                 p.other, K=K, long_rows=p.long_rows,
+                                 windows=tail_windows(p, K, "K8")), p)
     acc = add_heads(acc, [
         (start, torch.sum(e_self[start : start + sw.shape[0], :K] * sw, dim=1))
         for start, sw in factor.sw])

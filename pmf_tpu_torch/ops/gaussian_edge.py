@@ -47,7 +47,9 @@ from pmf_tpu_torch.ops._tail import (
     record_rows as record_table,
     row_chunks as _row_chunks,
     scattered_rows as _scattered_rows,
+    tail_windows,
     unband,
+    window_args,
 )
 
 FACTOR_LAUNCHES = _build.LaunchCounter()
@@ -406,12 +408,14 @@ def bias_tail_stats_plain(mb_other, row_ptr, other, x, K: int | None = None,
 
 
 def bias_tail_stats(mb_other, row_ptr, other, x, K: int | None = None,
-                    long_rows: int = 0) -> torch.Tensor:
+                    long_rows: int = 0, windows=None) -> torch.Tensor:
     """K5: the bias tail pass at ``K`` factors (the table's width less one
     when None).  CUDA tensors launch the kernel, on the [m | b] table padded
     to ``tail_stride(K + 1)`` columns (``record_table``), giving each of the
-    first ``long_rows`` rows a whole warp (``TailCSR.long_rows``); CPU
-    tensors run the plain version, which ignores columns past K + 1."""
+    first ``long_rows`` rows a whole warp (``TailCSR.long_rows``), the sum
+    form walking ``windows`` (``_tail.tail_windows`` of the same CSR) where
+    given; CPU tensors run the plain version, which ignores columns past
+    K + 1."""
     if not mb_other.is_cuda:
         return bias_tail_stats_plain(mb_other, row_ptr, other, x, K)
     K = mb_other.shape[1] - 1 if K is None else K
@@ -422,7 +426,8 @@ def bias_tail_stats(mb_other, row_ptr, other, x, K: int | None = None,
     _check_long_rows(long_rows, n_self)
     out = torch.empty((n_self, K + 2), dtype=torch.float32, device=mb_other.device)
     _build.launch("pmf_gauss_bias", BIAS_LAUNCHES, mb_other.device, mb_other, row_ptr,
-                  other, x, n_self, long_rows, K, out)
+                  other, x, n_self, long_rows, K,
+                  *window_args(windows, n_self, K + 2, mb_other.device), out)
     return out
 
 
@@ -569,8 +574,8 @@ def gaussian_bias_stats(m_self, m_other, b_other, p: TailCSR, head=None,
     K = m_self.shape[1]
     heads = _check_head(p, head)
     mb = record_table(m_other, b_other, p.other_new_of_old if p.reordered else None)
-    out = unband(bias_tail_stats(mb, p.row_ptr, p.other, p.x, K=K,
-                                 long_rows=p.long_rows), p)
+    out = unband(bias_tail_stats(mb, p.row_ptr, p.other, p.x, K=K, long_rows=p.long_rows,
+                                 windows=tail_windows(p, K, "K5")), p)
     head_outs = []
     for tier in heads:
         start, mp, _ = _products(tier, _head_rows(mb[:, : K + 1], tier, head_side),

@@ -195,10 +195,10 @@ def test_hpf_map_blocked_epoch_at_k160_matches_jax():
 @pytest.mark.parametrize("kernel", _tail.PLAN_KERNELS)
 def test_tail_plan_at_every_boundary(kernel):
     """On each side of every boundary the row-group plan covers each
-    summed word once: the register form's G lanes of V words, the dot
-    form's 32 lanes of V words (K1 "cavi" and K7), or the wide form's
-    chunks of WIDE_WORDS (two words a lane of a warp); the plan changes
-    exactly there."""
+    summed word once: the register form's G lanes of V words, the dot,
+    ring and sum forms' 32 lanes of V words (K1 "cavi" and K7; K6; K5 and
+    K8), or the wide form's chunks of WIDE_WORDS (two words a lane of a
+    warp); the plan changes exactly there."""
     bounds = _tail.boundary_ks(kernel)
     assert bounds[0] == 1 and any(b > 256 for b in bounds)
     for b in bounds[1:]:
@@ -219,6 +219,9 @@ def test_tail_plan_at_every_boundary(kernel):
                 assert p["lanes"] * p["vec"] >= words and p["chunks"] == 1
     assert not _tail.launch_plan(512, "K1")["wide"] and _tail.launch_plan(513, "K1")["wide"]
     assert not _tail.launch_plan(511, "K7")["wide"] and _tail.launch_plan(512, "K7")["wide"]
+    for kid in _tail.SUM_KERNELS:  # the sum form to 128 words a record (K = 511)
+        assert _tail.launch_plan(511, kid)["form"] == "sum"
+        assert _tail.launch_plan(512, kid)["wide"]
 
 
 HUGE_PLAN_KS = [129, 160, 256, 300]

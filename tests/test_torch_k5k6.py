@@ -62,7 +62,9 @@ def test_k5_k6_plan_covers_every_column_once(K, kid):
     held = [4 * (v * G + lane) + j for lane in range(G) for v in range(V)
             for j in range(4) if v * G + lane < W and 4 * (v * G + lane) + j < cols]
     assert sorted(held) == list(range(cols))
-    assert not plan["wide"] and plan["chunks"] == 1  # the register form up to K = 254
+    assert not plan["wide"] and plan["chunks"] == 1
+    # the register form; from K = 128 K6's ring form (K5's sum form from 160)
+    assert plan["form"] == ("ring" if kid == "K6" and K >= 128 else "group")
 
 
 def test_k5_k6_plans_mirror_the_kernel_source():
@@ -70,8 +72,9 @@ def test_k5_k6_plans_mirror_the_kernel_source():
     ``tail_groups::launch``; the record kernels' constants (one word a lane
     up to kRecordOneWord words, K6's kDiagInFlight edges in flight) and
     their K + 1 columns equal ``launch_plan``'s; every register-form plan
-    of K5 and K6 is among the built instances (K6's ring form from K = 128:
-    ``tests/test_torch_k6dot.py``)."""
+    of K5 and K6 is among the built instances (from K = 128 K6's ring form:
+    ``tests/test_torch_k6dot.py``; K5's sum form:
+    ``tests/test_torch_k5k8ring.py``)."""
     src = (_build.SRC_DIR / "gaussian_edge.cu").read_text()
     hdr = (_build.SRC_DIR / "tail_groups.cuh").read_text()
     for entry, mode in (("pmf_gauss_bias", "kBias"), ("pmf_gauss_diag", "kDiag")):
@@ -326,9 +329,10 @@ def _spy(monkeypatch, name, seen):
     ``gaussian_edge.name``."""
     fn = getattr(ge, name)
 
-    def spy(*args, K=None, long_rows=0):
+    def spy(*args, K=None, long_rows=0, **kw):  # kw: K5's windows (none on the host)
         seen.append(([a.shape[1] for a in args if a.dim() == 2], K, long_rows))
-        return fn(*args, K=K, long_rows=long_rows)
+        assert kw.get("windows") is None
+        return fn(*args, K=K, long_rows=long_rows, **kw)
 
     monkeypatch.setattr(ge, name, spy)
 

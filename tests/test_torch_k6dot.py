@@ -146,10 +146,14 @@ def _parent_plan(k, kernel):
 
 @pytest.mark.parametrize("kernel", _tail.PLAN_KERNELS)
 def test_other_plans_unchanged(kernel):
-    """Every plan but K6's from K = 128 to the ring form's last K is the
-    parent's, at every K to 600."""
+    """Every plan but K6's from K = 128 to the ring form's last K, and K5's
+    and K8's where their sum form runs (``tests/test_torch_k5k8ring.py``),
+    is the parent's, at every K to 600."""
     for k in range(1, 601):
         if kernel == "K6" and FIRST <= k <= LAST:
+            continue
+        if kernel in _tail.SUM_KERNELS and _tail.launch_plan(k, kernel)["form"] == "sum":
+            assert 144 <= k <= 511, (kernel, k)
             continue
         assert _tail.launch_plan(k, kernel) == _parent_plan(k, kernel), (kernel, k)
 

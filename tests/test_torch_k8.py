@@ -44,7 +44,8 @@ SIDES = pytest.mark.parametrize("side", ["user", "item"])
 @pytest.mark.parametrize("K", K8_KS)
 def test_k8_plan_covers_every_column_once(K):
     """Every column of the [e | s] records (K + 1) is held by exactly one
-    (lane, word, component); K7 takes the same plan below its dot form."""
+    (lane, word, component); K7 takes the same plan below its dot form;
+    from K = 144 the sum form (``tests/test_torch_k5k8ring.py``)."""
     plan = _tail.launch_plan(K, "K8")
     G, V, W = plan["lanes"], plan["vec"], plan["words"]
     assert W == -(-(K + 1) // 4) and plan["stride"] == 4 * W == _tail.tail_stride(K + 1)
@@ -56,6 +57,7 @@ def test_k8_plan_covers_every_column_once(K):
     assert sorted(held) == list(range(K + 1))
     if _tail.launch_plan(K, "K7")["form"] == "group":  # K7's dot form starts at 128
         assert plan == _tail.launch_plan(K, "K7")
+    assert plan["form"] == "group"  # the sum form from K = 144
 
 
 # ------------------------------------------------------------ emulation --

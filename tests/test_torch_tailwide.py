@@ -56,7 +56,8 @@ def test_dot_plan_covers_every_column_once(kernel):
 @pytest.mark.parametrize("kernel", _tail.DOT_KERNELS)
 def test_dot_form_boundaries(kernel):
     """The dot form's boundaries: its start, each word a lane more, and
-    the wide form past 32 * DOT_MAX_VEC words; the other modes keep theirs."""
+    the wide form past 32 * DOT_MAX_VEC words; the other modes keep theirs
+    (K1 raw the register form, K8 the sum form at K = 160)."""
     bounds = _tail.boundary_ks(kernel)
     want = [129, 257, 385, 513] if kernel == "K1" else [128, 256, 384, 512, 513]
     assert [b for b in bounds if b >= 128] == want
@@ -65,7 +66,7 @@ def test_dot_form_boundaries(kernel):
     last = _tail.launch_plan(want[-1] if kernel == "K1" else 512, kernel)
     assert last["form"] == "wide" and last["words"] > 32 * _tail.DOT_MAX_VEC
     assert _tail.launch_plan(160, "K1raw")["form"] == "group"
-    assert _tail.launch_plan(160, "K8")["form"] == "group"
+    assert _tail.launch_plan(160, "K8")["form"] == "sum"  # K5's and K8's form past 32
 
 
 def test_dot_plan_mirrors_the_kernel_source():
