@@ -233,8 +233,10 @@ class MapBlockedLayout:
     def group(self, seg_order, mix: int, K: int, piece: int | None = None):
         """(by user, by item) ``StepGroups`` of the segments ``seg_order``
         (host ints), ``mix`` a step, runs cut into pieces of at most
-        ``piece`` edges (``map_grad.piece_of(K)`` by default): the user
-        direction's self rows are users, the item direction's items."""
+        ``piece`` edges (``map_grad.piece_of(K)`` by default), to K = 128
+        runs of at most ``map_grad.short_of(K)`` edges in the short class:
+        the user direction's self rows are users, the item direction's
+        items."""
         return (group_steps(self.u, self.i, self.x, self.seg_off, seg_order, mix,
                             self.n_users, K, piece),
                 group_steps(self.i, self.u, self.x, self.seg_off, seg_order, mix,

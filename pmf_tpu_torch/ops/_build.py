@@ -74,6 +74,11 @@ SIGNATURES = {
     # scratch, counters, stream
     "pmf_map_grad": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _I, _P, _P,
                      _P, _P],
+    # self_tab, other_tab, p0, n_long, n_short, piece_ptr, piece_row,
+    # piece_first, piece_count, other, x, K, lam_floor, with_nll, out,
+    # scratch, counters, stream
+    "pmf_map_grad_runs": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _I, _P, _P,
+                          _P, _P],
 }
 
 
@@ -184,17 +189,34 @@ def check(lib: ctypes.CDLL, err: int, name: str) -> None:
         raise KernelError(f"{name}: CUDA error {err} ({msg})")
 
 
-def launch(name: str, counter: LaunchCounter, device, *args) -> None:
-    """Call C entry point ``name`` on ``device``'s current stream (its
-    last argument): tensors pass as data pointers, None as a null pointer,
-    numbers as they are.  Raises on a reported CUDA error; counts the
-    launch only when it was made."""
+@functools.cache
+def entry(name: str):
+    """The ctypes function of C entry point ``name`` (argtypes set)."""
+    return getattr(load_library(), name)
+
+
+def launch_on(name: str, counter: LaunchCounter, device, args: tuple) -> None:
+    """Call C entry point ``name`` with ``args`` (data pointers and numbers,
+    the stream left out) on ``device``'s current stream, entering no
+    device context when ``device`` is the current one.  Raises on a
+    reported CUDA error; counts the launch only when it was made."""
     import torch
 
-    lib = load_library()
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, name)(*ptrs, stream)
-    check(lib, err, name)
+    fn = entry(name)
+    if torch.cuda.current_device() == device.index:
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        check(load_library(), err, name)
     counter.count += 1
+
+
+def launch(name: str, counter: LaunchCounter, device, *args) -> None:
+    """``launch_on`` with tensors passed as their data pointers and None as
+    a null pointer."""
+    import torch
+
+    launch_on(name, counter, device,
+              tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args))

@@ -4,51 +4,55 @@ and time the stream form (``scripts/probe_k9_stream.cuh``, tried and not
 kept in the port) against the port's one-warp-a-piece forms on one CUDA
 card.
 
-    python3 scripts/probe_k9.py --part breakdown
+    python3 scripts/probe_k9.py --part breakdown [--ks 20,50,128,160] [--parent DIR]
     python3 scripts/probe_k9.py --part stream [--ks 129,160,200,256,257,300,384,512]
     python3 scripts/probe_k9.py --part parts
     python3 scripts/probe_k9.py --part parent --parent DIR
 
 K9 is the gradient pass of ``pmf_tpu_torch``'s blocked HPF-MAP engine.  The
-script builds the port's kernels (``ops/_build.py``) and, beside them,
-probe libraries compiled from the same source followed by the stream
-form's header: as they stand, with the edge loop of
-``map_grad_wide_kernel`` compiled out (a piece's start, its store and its
-merge alone), with ``finish_piece``'s merge compiled out, and with parts of
-the stream form cut out.  Each exports the one-warp-a-piece forms past K =
-128 (``map_grad_wide_kernel<F>`` to K = 256, the general form past it) and
-the stream form at several rounds of D edges and rings of S rounds.  The
-stream form gives a warp a span of consecutive pieces of a step, those
-whose first edge lies in one window of ``SPAN_EDGES`` edges (``spans``
-builds the table on the card).  The data is the bench's
-HPF-MAP layout (``chip_smoke.py``'s phases data and mdata: 162,000 x 59,000
-ids, 25M ratings less 100,000 held out, ``batch_size=65536``, ``mix=8``, the
-same epoch order) with softplus'd random tables at each K.  Every time is
-one epoch of launches (both directions of its 380 steps) captured in a
-CUDA graph and replayed, by CUDA events: no host pacing.
+data is the bench's HPF-MAP layout (``chip_smoke.py``'s phases data and
+mdata: 162,000 x 59,000 ids, 25M ratings less 100,000 held out,
+``batch_size=65536``, ``mix=8``, the same epoch order) with softplus'd
+random tables at each K.  Every time is one epoch of launches (380 steps,
+both directions or one) captured in a CUDA graph and replayed, by CUDA
+events: no host pacing.  The labels of a table are timed in turns (in
+order, then reversed).
 
-Part "breakdown": the pieces a step by length (1, 2-4, 5-32, 33-128 edges),
-the runs of more than one piece, the spans a step; at K = 160 the wide form
-whole, without its edge loop, without its merge, and with every other id
-at row 0 (each gather served by one row), in turns; the ptxas lines and the
-resident warps an SM of ``map_grad_wide_kernel<5>`` and of the stream
-form's instances; and the port's wrapper against the plain version on real
-steps at K = 160 (not timed).  Part "stream": at each K, the parent's plan
-(one warp a piece on pieces of <= 128 edges), the port's wrapper (one warp
-a piece on its own grouping) and the stream form's variants on that
-grouping, in turns (the labels in order, then reversed); at K = 300 the
+Part "breakdown", at each K of ``--ks``.  To K = 128 (the runs form): the
+runs by length class (1, 2-4, 5-32, 33-128, > 128 edges) and each step's
+classes and grid; the port against the plain version on real steps (the
+step of the longest item run among them) and a second launch in bits;
+then per direction, in turns, the port as it is, with its edge walk and
+with its long runs' merge compiled out, on other short-run thresholds and
+piece lengths and, with ``--parent DIR`` (a checkout of another commit),
+the parent's form as it is, without its edge loop, its merge, its lane
+form's reduce-scatter, and with its grid sized by each step's own pieces
+in place of the largest step's; the step of the longest item run alone
+with and without the merge; the ptxas lines and resident warps an SM of
+each instance timed.  Past K = 128: the wide form whole, without its edge
+loop, without its merge, and with every other id at row 0 (each gather
+served by one row), in turns; the ptxas lines and the resident warps an
+SM of ``map_grad_wide_kernel<5>`` and of the stream form's instances; and
+the port's wrapper against the plain version on real steps (not timed).
+Part "stream": at each K, the parent's plan (one warp a piece on pieces of
+<= 128 edges), the port's wrapper (one warp a piece on its own grouping)
+and the stream form's variants on that grouping, in turns; at K = 300 the
 stream form on other pieces and spans; at K = 50 and 128 the stream form
 beside the port.  Part "parts": the stream form at K = 160 with its
-copies, its waits or its batched merge loads cut out of the source, and
-on other pieces and spans.  Part "parent":
-``chip_smoke.py``'s phase k9 parent alone (``DIR`` a checkout of another
-commit).  Every line also goes to ``chiprun_out/probe_k9_<part>.log``.
+copies, its waits or its batched merge loads cut out of the source, and on
+other pieces and spans.  Part "parent": ``chip_smoke.py``'s phase k9
+parent alone.  The probe libraries are compiled from the sources (this
+tree's, the stream header, the parent's) with parts cut out by text, one
+``nvcc`` each, beside the port's build, into
+``pmf_tpu_torch/_build/probe_k9/``.  Every line also goes to
+``chiprun_out/probe_k9_<part>.log``.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import ctypes
 import os
 import subprocess
@@ -113,6 +117,33 @@ CUTS = {
                 "  merge_run(pc, p, p0, row, n, width, out, scratch, counters, lane);\n",
                 "  store_row(scratch + (int64_t)(p - p0) * width, v, count, nll, K, with_nll, lane);\n"),
 }
+
+# The runs form (this tree, K <= 128) and the parent's forms at K <= 128,
+# each cut by text: (anchor, replacement) pairs.
+RUNS_CUTS = {
+    "runs_noedges": [("  for (int base = 0; base < span; base += G) {",
+                      "  for (int base = 0; base < 0; base += G) {")],
+    "runs_nomerge": [("  if (n_run > 1) merge_run(pc, p, p0, row, n_run, width, out, scratch, "
+                      "counters, lane);\n}\n", "}\n")],
+}
+PARENT_CUTS = {
+    "parent": [],
+    "parent_noedges": [("    for (int64_t e = begin + lane; e < end; e += 32) {",
+                        "    for (int64_t e = begin + lane; e < begin; e += 32) {"),
+                       CUTS["noedges"]],
+    "parent_nomerge": [CUTS["nomerge"]],
+    "parent_noreduce": [("    const float total[1] = {warp_reduce_scatter(v, lane)};",
+                         "    const float total[1] = {v[0]};")],
+}
+CUT_SRC = r"""
+#include "%(source)s"
+extern "C" int probe_occupancy(int which, int* blocks) {
+  switch (which) {
+%(cases)s
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+"""
 
 PROBE_SRC = r"""
 #include "%(source)s"
@@ -222,6 +253,44 @@ def build_probe(name: str, streams: bool):
         getattr(so, f"probe_occupancy_{f}_{d}_{s}").argtypes = [I, ctypes.POINTER(I)]
     report = cs._ptxas_report(proc.stdout + proc.stderr, {})
     return so, report, time.perf_counter() - t0
+
+
+def build_cut(name: str, source: str, patches, kernels):
+    """One probe library: ``source`` (a map_grad.cu) with ``patches`` (pairs
+    whose anchor is not found are left out and named) and an occupancy
+    export for each of ``kernels``; (library, ptxas lines, seconds, cuts
+    not found)."""
+    from pmf_tpu_torch.ops import _build
+
+    out_dir = _build.BUILD_DIR / "probe_k9"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    text, missed = open(source).read(), []
+    for anchor, repl in patches:
+        if text.count(anchor) == 1:
+            text = text.replace(anchor, repl)
+        else:
+            missed.append(anchor.strip()[:40])
+    (out_dir / f"{name}.cu").write_text(text)
+    src = out_dir / f"probe_{name}.cu"
+    cases = "\n".join(
+        f"    case {n}: return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, {k}, "
+        f"kWarpsPerBlock * 32, 0);" for n, k in enumerate(kernels))
+    src.write_text(CUT_SRC % {"source": f"{name}.cu", "cases": cases})
+    lib = out_dir / f"libprobe_k9_{name}.so"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_build._nvcc(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS, "-shared",
+         "-I", str(_build.SRC_DIR), "-o", str(lib), str(src)],
+        capture_output=True, text=True)
+    if proc.returncode:
+        raise SystemExit(f"probe build {name} failed:\n" + proc.stdout + proc.stderr)
+    so = ctypes.CDLL(str(lib))
+    for entry in ("pmf_map_grad", "pmf_map_grad_runs"):
+        if hasattr(so, entry) and entry in _build.SIGNATURES:
+            getattr(so, entry).argtypes = _build.SIGNATURES[entry]
+            getattr(so, entry).restype = ctypes.c_int
+    so.probe_occupancy.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    return so, cs._ptxas_report(proc.stdout + proc.stderr, {}), time.perf_counter() - t0, missed
 
 
 def map_layout():
@@ -403,12 +472,12 @@ def one_step(so, name, groups, u_sp, i_sp, accs):
     return lambda s: caller(so, name, groups, u_sp, i_sp, accs, steps=[s])()
 
 
-def part_breakdown(libs, lay, order):
+def part_breakdown(libs, lay, order, k=cs.K_HUGE):
+    """The wide form past K = 128 (``map_grad_wide_kernel<5>``'s cuts)."""
     import torch
 
     from pmf_tpu_torch.ops.map_grad import kernel_of
 
-    k = cs.K_HUGE
     groups = grouping(lay, order, k)
     piece_stats(groups)
     u_sp, i_sp = cs._map_tables(lay, k)
@@ -442,6 +511,141 @@ def part_breakdown(libs, lay, order):
            f"{worst:.3e}; a second launch equal in bits {bits} (not timed)")
     if not bits:
         raise AssertionError("the port's wrapper: a second launch differs in bits")
+
+
+def _dir_call(so, entry, g, self_tab, other_tab, acc, with_nll, own_grid=False, steps=None):
+    """A call that launches ``entry`` of ``so`` for one direction of every
+    step of ``g`` (or ``steps``): the parent's ``pmf_map_grad`` (its grid
+    from the largest step, or with ``own_grid`` from each step's own
+    pieces) or this tree's ``pmf_map_grad_runs``."""
+    import torch
+
+    from pmf_tpu_torch.models.hpf_map import LAMBDA_FLOOR
+
+    fn = getattr(so, entry)
+    k = self_tab.shape[1] - 1
+    own = np.diff(g.step_off.cpu().numpy())
+    tail = (g.piece_ptr.data_ptr(), g.piece_row.data_ptr(), g.piece_first.data_ptr(),
+            g.piece_count.data_ptr(), g.other.data_ptr(), g.x.data_ptr(), k, LAMBDA_FLOOR,
+            int(with_nll), acc.data_ptr(), g.scratch.data_ptr(), g.counters.data_ptr())
+
+    def run():
+        stream = torch.cuda.current_stream().cuda_stream
+        for s in range(g.n_steps) if steps is None else steps:
+            if entry == "pmf_map_grad_runs":
+                head = (int(g.step_first[s]), int(g.step_long[s]), int(g.step_short[s]))
+            else:
+                head = (g.step_off.data_ptr(), s, int(own[s]) if own_grid else g.max_step_pieces)
+            err = fn(self_tab.data_ptr(), other_tab.data_ptr(), *head, *tail, stream)
+            if err:
+                raise RuntimeError(f"{entry} K={k} step {s}: CUDA error {err}")
+
+    return run
+
+
+def _port_dir(g, self_tab, other_tab, acc, with_nll, steps=None):
+    from pmf_tpu_torch.models.hpf_map import LAMBDA_FLOOR
+    from pmf_tpu_torch.ops.map_grad import map_grad_pieces
+
+    def run():
+        for s in range(g.n_steps) if steps is None else steps:
+            map_grad_pieces(self_tab, other_tab, g, s, LAMBDA_FLOOR, with_nll, acc)
+
+    return run
+
+
+def _occupancy(so, which) -> int:
+    n = ctypes.c_int(0)
+    err = so.probe_occupancy(which, ctypes.byref(n))
+    return n.value if err == 0 else -1
+
+
+@contextlib.contextmanager
+def short_run(edges: int):
+    """The port's grouping with short runs of at most ``edges`` edges."""
+    from pmf_tpu_torch.ops import map_grad
+
+    kept = map_grad.SHORT_RUN
+    map_grad.SHORT_RUN = edges
+    try:
+        yield
+    finally:
+        map_grad.SHORT_RUN = kept
+
+
+def breakdown_runs(libs, lay, order, k, pm) -> None:
+    """The runs form at ``k`` <= 128 beside its cuts, other thresholds and
+    pieces and, with a parent (``pm``: its ops/map_grad.py), the parent's
+    form and its cuts, per direction in turns (module text)."""
+    import torch
+
+    from pmf_tpu_torch.ops.map_grad import PIECE, kernel_of, short_of
+
+    groups = lay.group(order, cs.MAP_MIX, k)
+    for name, g in zip(("by_user", "by_item"), groups):
+        cs._log_run_classes(f"K={k} {name}", g)
+    u_sp, i_sp = cs._map_tables(lay, k)
+    accs = accumulators(u_sp, i_sp)
+    longest, n_long = cs._longest_run_step(groups[1])
+    checked = (0, 7, 191, 379, longest)
+    worst = step_check("the port", one_step(None, None, groups, u_sp, i_sp, accs), groups,
+                       u_sp, i_sp, accs, lay, order, steps=checked)
+    again = [a.clone() for a in accs]
+    for a in accs:
+        a.zero_()
+    one_step(None, None, groups, u_sp, i_sp, accs)(longest)
+    bits = all(torch.equal(a, b) for a, b in zip(accs, again))
+    cs.log(f"  K={k} the port {kernel_of(k)} vs plain on steps {checked} (step {longest}: the "
+           f"longest item run, {n_long} edges): worst column {worst:.3e}; a second launch "
+           f"equal in bits {bits}")
+    if not bits or not worst <= cs.COL_RTOL:
+        raise AssertionError(f"K={k}: the runs form disagrees")
+    pgroups = None
+    if pm is not None:
+        pgroups = (pm.group_steps(lay.u, lay.i, lay.x, lay.seg_off, order, cs.MAP_MIX,
+                                  lay.n_users, k),
+                   pm.group_steps(lay.i, lay.u, lay.x, lay.seg_off, order, cs.MAP_MIX,
+                                  lay.n_items, k))
+    other_groups = {}
+    for sh, pc in ((8, PIECE), (32, PIECE), (short_of(k), 32), (short_of(k), 128), (32, 128)):
+        with short_run(sh):
+            other_groups[f"short <= {sh}, pieces of <= {pc}"] = lay.group(
+                order, cs.MAP_MIX, k, piece=pc)
+    for d, (name, with_nll) in enumerate((("by user", True), ("by item", False))):
+        tabs = (u_sp, i_sp) if with_nll else (i_sp, u_sp)
+        acc = accs[d]
+        fns = {f"this {kernel_of(k)} (short <= {short_of(k)}, pieces <= {PIECE})":
+               _port_dir(groups[d], *tabs, acc, with_nll)}
+        for c in RUNS_CUTS:
+            fns[f"this, {c}"] = _dir_call(libs[c][0], "pmf_map_grad_runs", groups[d], *tabs,
+                                          acc, with_nll)
+        for v, g2 in other_groups.items():
+            fns[f"this, {v}"] = _port_dir(g2[d], *tabs, acc, with_nll)
+        if pgroups is not None:
+            pg = pgroups[d]
+            for c in PARENT_CUTS:
+                fns[c] = _dir_call(libs[c][0], "pmf_map_grad", pg, *tabs, acc, with_nll)
+            fns["parent, grid by the step's own pieces"] = _dir_call(
+                libs["parent"][0], "pmf_map_grad", pg, *tabs, acc, with_nll, own_grid=True)
+        for label, (mean, v) in turns(fns).items():
+            cs.log(f"  K={k} {name} {label}: {mean:.4f} ms an epoch of {groups[0].n_steps} "
+                   "launches (turns " + ", ".join(f"{t:.4f}" for t in v) + ")")
+    # The step of the longest item run alone (20 launches a replay).
+    tabs = (i_sp, u_sp)
+    fns = {"this": _port_dir(groups[1], *tabs, accs[1], False, steps=[longest] * 20),
+           "this, runs_nomerge": _dir_call(libs["runs_nomerge"][0], "pmf_map_grad_runs",
+                                           groups[1], *tabs, accs[1], False,
+                                           steps=[longest] * 20)}
+    if pgroups is not None:
+        for c in ("parent", "parent_nomerge"):
+            fns[c] = _dir_call(libs[c][0], "pmf_map_grad", pgroups[1], *tabs, accs[1], False,
+                               steps=[longest] * 20)
+    for label, (mean, v) in turns(fns).items():
+        cs.log(f"  K={k} by item, step {longest} ({n_long}-edge run) {label}: "
+               f"{mean / 20 * 1e3:.2f} us a launch (turns "
+               + ", ".join(f"{t / 20 * 1e3:.2f}" for t in v) + ")")
+    del groups, other_groups, pgroups, accs, u_sp, i_sp
+    cs.gc_cuda()
 
 
 def part_stream(libs, lay, order, ks):
@@ -545,9 +749,11 @@ def main(argv=None) -> int:
     ap.add_argument("--part", choices=("breakdown", "stream", "parts", "parent"),
                     required=True)
     ap.add_argument("--parent", metavar="DIR",
-                    help="part parent: a checkout of another commit (chip_smoke.py's phase "
-                         "k9 parent on the bench's MAP layout)")
-    ap.add_argument("--ks", default="129,160,200,256,257,300,384,512")
+                    help="a checkout of another commit: part parent runs chip_smoke.py's "
+                         "phase k9 parent; part breakdown adds that tree's forms at K <= 128")
+    ap.add_argument("--ks", default=None,
+                    help="comma-separated K (breakdown: 20,50,128,160; stream: "
+                         "129,160,200,256,257,300,384,512)")
     args = ap.parse_args(argv)
     cs.LOG_PATH = os.path.join(ROOT, "chiprun_out", f"probe_k9_{args.part}.log")
     smi = cs.phase_device()
@@ -560,13 +766,36 @@ def main(argv=None) -> int:
         cs.phase_k9_parent(lay, order)
         cs.log(f"probe k9 parent: ok | {smi}")
         return 0
-    cuts = {"breakdown": ("full", "noedges", "nomerge"), "stream": ("full",),
-            "parts": ("full", *STREAM_CUTS)}[args.part]
-    with ThreadPoolExecutor(len(cuts)) as pool:  # the probes' nvcc beside the port's
+    ks = [int(k) for k in (args.ks or ("20,50,128,160" if args.part == "breakdown" else
+                                       "129,160,200,256,257,300,384,512")).split(",")]
+    cuts = {"breakdown": ("full", "noedges", "nomerge") if max(ks) > 128 else (),
+            "stream": ("full",), "parts": ("full", *STREAM_CUTS)}[args.part]
+    pm = None
+    runs_libs = {}
+    if args.part == "breakdown" and min(ks) <= 128:
+        from pmf_tpu_torch.ops import _build, map_grad
+
+        insts = sorted({map_grad.kernel_of(k) for k in ks if k <= 128})
+        runs_libs = {c: (os.path.join(str(_build.SRC_DIR), "map_grad.cu"), RUNS_CUTS[c],
+                         [f"map_grad_runs_kernel<{g}, {v}>" for _, g, v in insts])
+                     for c in RUNS_CUTS}
+        if args.parent:
+            cs._load_parent(args.parent)
+            pm = cs._parent_op("map_grad")  # its grouping and plan; its kernels are cut below
+            cs.PARENT.clear()  # so that phase_build builds no parent library
+            psrc = os.path.join(os.path.abspath(args.parent), "pmf_tpu_torch", "csrc",
+                                "map_grad.cu")
+            pk = sorted({pm.kernel_of(k) for k in ks if k <= 128})
+            names = [f"map_grad_kernel<{v[1]}>" if v[0] == "lane" else
+                     f"map_grad_wide_kernel<{v[1]}>" for v in pk if v[0] in ("lane", "wide")]
+            runs_libs.update({c: (psrc, PARENT_CUTS[c], names) for c in PARENT_CUTS})
+    with ThreadPoolExecutor(max(len(cuts) + len(runs_libs), 1)) as pool:
         futs = {c: pool.submit(build_probe, c, True if c == "full" else
                                [(5, 4, 3)] if c in STREAM_CUTS else False) for c in cuts}
+        rfuts = {c: pool.submit(build_cut, c, *v) for c, v in runs_libs.items()}
         cs.phase_build()
         libs = {c: f.result() for c, f in futs.items()}
+        rlibs = {c: f.result() for c, f in rfuts.items()}
     for c, (_, report, secs) in libs.items():
         cs.log(f"probe library {c} built in {secs:.1f} s")
         for ln in report:
@@ -574,16 +803,30 @@ def main(argv=None) -> int:
                 PTXAS[ln.split(":")[0]] = ln.split(": ", 1)[1]
             if c == "full" or "wide_kernel<5>" in ln:
                 cs.log(f"  ptxas ({c}) {ln}")
+    for c, (so, report, secs, missed) in rlibs.items():
+        kernels = runs_libs[c][2]
+        occ = ", ".join(f"{kn} {8 * _occupancy(so, n)} warps an SM"
+                        for n, kn in enumerate(kernels))
+        cs.log(f"probe library {c} built in {secs:.1f} s | resident: {occ}"
+               + (f" | cuts not found: {missed}" if missed else ""))
+        for ln in report:
+            if any(ln.startswith(kn + ":") for kn in kernels):
+                cs.log(f"  ptxas ({c}) {ln}")
+    libs.update({c: (so,) for c, (so, *_) in rlibs.items()})
     t0 = time.perf_counter()
     lay, order = map_layout()
     cs.log(f"layout: {lay.n_segments} segments, {lay.nnz} ratings in "
            f"{time.perf_counter() - t0:.1f} s")
     if args.part == "breakdown":
-        part_breakdown(libs, lay, order)
+        for k in ks:
+            if k <= 128:
+                breakdown_runs(libs, lay, order, k, pm)
+            else:
+                part_breakdown(libs, lay, order, k)
     elif args.part == "parts":
         part_parts(libs, lay, order)
     else:
-        part_stream(libs, lay, order, [int(k) for k in args.ks.split(",")])
+        part_stream(libs, lay, order, ks)
     cs.log(f"probe k9 {args.part}: ok | {smi}")
     return 0
 

@@ -565,13 +565,15 @@ def test_map_entry_points_without_device_raise_without_cuda(monkeypatch, small_s
 
 def _map_groups(K=4, n_users=3, n_items=5, seg_ids=(0,)):
     """CUDA-looking (by user, by item) groupings of a two-segment layout:
-    segment 0 holds four edges over users 0 and 2, segment 1 none."""
+    segment 0 holds four edges over users 0 and 2, segment 1 none; runs
+    cut into pieces of 2 edges, so user 0's run of 3 is a long run of two
+    pieces that merge through the scratch rows."""
     segs = [(np.array([0, 0, 0, 2]), np.array([0, 1, 4, 2]), np.ones(4)),
             (np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0))]
     ident = (np.arange(n_users),) * 2 + (np.arange(n_items),) * 2
     lay = hpf_map.MapBlockedLayout.from_segments(segs, ident, n_users, n_items, 1,
                                                  device="cpu")
-    groups = lay.group(list(seg_ids), len(seg_ids), K)
+    groups = lay.group(list(seg_ids), len(seg_ids), K, piece=2)
     out = []
     for g in groups:
         # The card's grouping carries its scratch rows; the CPU's none.
@@ -696,6 +698,10 @@ def test_map_grad_source_names_what_it_replaces_and_its_entry_point():
     assert "atomicInc(" in src  # the arrival counters are integers
     assert 'extern "C" int pmf_map_grad(' in src
     assert len(_build.SIGNATURES["pmf_map_grad"]) == 18
+    # K <= 128: the runs form's entry, the step's first piece and classes in
+    # place of step_off, step and max_pieces
+    assert 'extern "C" int pmf_map_grad_runs(' in src
+    assert len(_build.SIGNATURES["pmf_map_grad_runs"]) == 18
     raw = (_build.SRC_DIR / "cavi_edge.cu").read_text()
     assert 'extern "C" int pmf_cavi_edge_raw(' in raw
     assert len(_build.SIGNATURES["pmf_cavi_edge_raw"]) == 9  # with the long-row count

@@ -308,7 +308,8 @@ def test_build_map_layout_properties(batch_size, mix):
         np.testing.assert_array_equal(o2n.numpy(), np.argsort(-counts, kind="stable"))
     # Every edge once, in tile-major order (stable in the input order),
     # cut into uniform segments; each direction's grouping of one step of
-    # segments holds those edges sorted by its self row.
+    # segments holds those edges by its self row's run, the runs longest
+    # first (the runs form's order at K = 3), then by row.
     nu, ni = lay.u_new_of_old.numpy()[u], lay.i_new_of_old.numpy()[i]
     order = np.lexsort((np.arange(nnz), ni // 512, nu // 512))
     want = np.stack([nu[order], ni[order], x[order]], axis=1)
@@ -326,7 +327,9 @@ def test_build_map_layout_properties(batch_size, mix):
             assert g.piece_ptr.dtype == torch.int64 and int(g.piece_ptr[-1]) == len(su)
             rows = np.repeat(g.piece_row.numpy(), np.diff(g.piece_ptr.numpy()))
             got = np.stack([rows, g.other.numpy(), g.x.numpy()], axis=1)
-            ref = seg[np.argsort(seg[:, self_col], kind="stable")]
+            ids = seg[:, self_col].astype(np.int64)
+            run_len = np.bincount(ids)[ids]
+            ref = seg[np.lexsort((np.arange(len(seg)), ids, -run_len))]
             np.testing.assert_array_equal(got, ref[:, [self_col, 1 - self_col, 2]])
         lo += len(seg)
     assert lo == nnz

@@ -373,10 +373,11 @@ def test_k4_global_form_elimination_equals_the_plain_version(K):
 
 def test_k3_and_k9_boundaries():
     """K3: the wide instance from K = 129, b_o past the first chunk of 512
-    floats from K = 512.  K9: an instance for each 32 factors a lane up to
-    K = 256, the general form past it."""
+    floats from K = 512.  K9: the runs form's instances to K = 128 (G lanes
+    of V columns), an instance for each 32 factors a lane up to K = 256,
+    the general form past it."""
     assert gaussian_edge.factor_boundary_ks() == [1, 31, 129, 512]
-    assert map_grad.boundary_ks() == [1, 9, 17, 25, 33, 65, 97, 129, 161, 193, 225, 257]
+    assert map_grad.boundary_ks() == [1, 9, 17, 25, 33, 49, 65, 97, 129, 161, 193, 225, 257]
     assert map_grad.kernel_of(256) == ("wide", 8) and map_grad.kernel_of(257) == ("general",)
     with pytest.raises(ValueError, match="K >= 1"):
         map_grad.kernel_of(0)

@@ -27,21 +27,32 @@ def test_launch_plan_mirrors_the_kernel_source():
     src = (_build.SRC_DIR / "map_grad.cu").read_text()
     assert int(re.search(r"constexpr int kWideMaxF = (\d+);", src).group(1)) \
         == map_grad.WIDE_MAX_F
-    lane = [int(k) for k in re.findall(r"PMF_MAP_GRAD_LAUNCH\(map_grad_kernel<(\d+)>\)", src)]
+    runs = re.findall(r"if \(K <= (\d+)\) PMF_MAP_GRAD_RUNS\((\d+), (\d+)\);", src)
+    runs = [tuple(int(v) for v in r) for r in runs]
+    assert runs == [(8, 4, 2), (16, 4, 4), (24, 4, 6), (32, 4, 8), (48, 8, 6), (64, 8, 8),
+                    (96, 16, 6)]  # then (16, 8) to RUNS_MAX_K
+    assert "else PMF_MAP_GRAD_RUNS(16, 8);" in src
+    assert "if (K < 1 || K > 128 || n_long < 0 || n_short < 0)" in src
+    assert map_grad.RUNS_MAX_K == 128
+    lo = 1
+    for hi, g, v in runs + [(128, 16, 8)]:
+        assert {map_grad.kernel_of(k) for k in range(lo, hi + 1)} == {("runs", g, v)}
+        lo = hi + 1
     wide = [int(f) for f in re.findall(r"PMF_MAP_GRAD_LAUNCH\(map_grad_wide_kernel<(\d+)>\)",
                                        src)]
-    assert lane == [8, 16, 24, 32] and wide == [2, 3, 4, 5, 6, 7]  # then kWideMaxF
+    assert wide == [5, 6, 7]  # then kWideMaxF
+    assert "if (K <= 128) return (int)cudaErrorInvalidValue;" in src
     assert "else if (K <= 32 * kWideMaxF) PMF_MAP_GRAD_LAUNCH(map_grad_wide_kernel<kWideMaxF>);" \
         in src
     assert "else PMF_MAP_GRAD_LAUNCH(map_grad_general_kernel);" in src
     kinds = {k: map_grad.kernel_of(k) for k in (32, 33, 128, 129, 160, 256, 257, 600)}
-    assert kinds == {32: ("lane", 32), 33: ("wide", 2), 128: ("wide", 4), 129: ("wide", 5),
-                     160: ("wide", 5), 256: ("wide", 8), 257: ("general",),
+    assert kinds == {32: ("runs", 4, 8), 33: ("runs", 8, 6), 128: ("runs", 16, 8),
+                     129: ("wide", 5), 160: ("wide", 5), 256: ("wide", 8), 257: ("general",),
                      600: ("general",)}
     assert [map_grad.piece_of(k) for k in (1, 20, 128, 129, 160, 256, 257, 600)] \
-        == [128] * 3 + [map_grad.PIECE_WIDE] * 5
+        == [map_grad.PIECE] * 3 + [map_grad.PIECE_WIDE] * 5
     # The piece length changes where the wide form's fifth instance starts.
-    assert map_grad.boundary_ks() == [1, 9, 17, 25, 33, 65, 97, 129, 161, 193, 225, 257]
+    assert map_grad.boundary_ks() == [1, 9, 17, 25, 33, 49, 65, 97, 129, 161, 193, 225, 257]
 
 
 @pytest.mark.parametrize("K", [128, 129, 160, 300])
