@@ -106,15 +106,23 @@ also by CUDA events around a replay of the epoch's launches captured in a
 CUDA graph, which the host does not pace), msmall
 (three blocked and three flat epochs card vs host on a small input), mfit
 (``HPFMap.fit`` for 3 epochs, engine "blocked_high" then "flat", with
-launch counters), resume (HPF-MAP) (a blocked fit of 1 epoch with
+launch counters: K9 twice and K10, the dense part, once a step; the
+blocked fit again through the plain dense part on the card's tensors,
+its loss and val RMSE each epoch within 1e-4 of the fit through K10), k10
+(K10 against its plain version on a real step at K = 20 on mfit's fitted
+state and at K = 50, 128 and 300 from the initial state, per column, the
+loss, the accumulators cleared, a repeat equal in bits; its time by CUDA
+events beside its bytes bound, with no row to clear, and the plain
+version's), resume (HPF-MAP) (a blocked fit of 1 epoch with
 ``checkpoint_every=1``, resumed for 2 more: equal in bits to mfit's blocked
-params), mprofile (20 steady blocked steps under the profiler) and
+params), mprofile (20 steady blocked steps under the profiler: K9, K10
+and the run's other launches) and
 mhugefit (``HPFMap.fit`` at K = 160 at full width, 3 blocked epochs: per
-epoch seconds, edge-visits/s, loss and val RMSE; K9 twice a step and no
-other kernel; the state finite, the loss falling, the host's val RMSE
-equal to the history's; the peak beside its reckoning; K9 on the fit's
-state against its plain version; 20 steady steps by CUDA events and
-under the profiler, K9's share beside the dense part's).
+epoch seconds, edge-visits/s, loss and val RMSE; K9 twice a step, K10 once
+and no other kernel; the state finite, the loss falling, the host's val
+RMSE equal to the history's; the peak beside its reckoning; K9 and K10 on
+the fit's state against their plain versions; 20 steady steps by CUDA
+events and under the profiler, K9's share beside the dense part's).
 
 Before the data, phase bigk: K1 (both modes), K7, K5, K6 and K8 at every K
 where their row-group plan changes, equal bits on a repeat (phase
@@ -286,6 +294,7 @@ come from ``pmf_tpu_torch/utils/roofline.py``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -346,6 +355,24 @@ def cuda_ms(fn, reps: int = TIMING_REPS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def launch_ms(fn, before, reps: int = TIMING_REPS) -> float:
+    """Mean device time of ``fn`` alone (CUDA events around each call),
+    ``before()`` run ahead of each call outside the timed span; one call
+    first as warm-up."""
+    import torch
+
+    pairs = []
+    for _ in range(reps + 1):
+        before()
+        pairs.append((torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True)))
+        pairs[-1][0].record()
+        fn()
+        pairs[-1][1].record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs[1:]) / reps
 
 
 def graph_of(fn):
@@ -429,14 +456,14 @@ def _head_launches(model) -> dict:
 def kernel_counters() -> dict:
     """Every kernel wrapper's launch counter, by kernel id."""
     from pmf_tpu_torch.ops import (
-        cavi_edge, dense_head, ext_edge, gaussian_edge, gj_inverse, map_grad)
+        cavi_edge, dense_head, ext_edge, gaussian_edge, gj_inverse, map_dense, map_grad)
 
     return {"K1": cavi_edge.TAIL_LAUNCHES, "K1raw": cavi_edge.TAIL_RAW_LAUNCHES,
             "K2": dense_head.HEAD_LAUNCHES, "K2fast": dense_head.HEAD_FAST_LAUNCHES,
             "K3": gaussian_edge.FACTOR_LAUNCHES, "K4": gj_inverse.GJ_LAUNCHES,
             "K5": gaussian_edge.BIAS_LAUNCHES, "K6": gaussian_edge.DIAG_LAUNCHES,
             "K7": ext_edge.FACTOR_LAUNCHES, "K8": ext_edge.SCALAR_LAUNCHES,
-            "K9": map_grad.MAP_GRAD_LAUNCHES}
+            "K9": map_grad.MAP_GRAD_LAUNCHES, "K10": map_dense.MAP_DENSE_LAUNCHES}
 
 
 def reset_counters() -> dict:
@@ -3639,6 +3666,8 @@ def _run_mfit(train, val, smi, engine):
         lay = model.layout
         assert lay.n_segments - lay.n_real_segments < MAP_MIX
         want["K9"] = 2 * (lay.n_segments // MAP_MIX) * MAP_EPOCHS
+        # and one K10 launch a step, every step (the dense part moves every row)
+        want["K10"] = (lay.n_segments // MAP_MIX) * MAP_EPOCHS
     if launches != want or model.engine_used != engine:
         raise AssertionError(f"mfit {engine} launches {launches}, expected {want}")
     state = params_to_numpy(model.state)
@@ -3665,11 +3694,78 @@ def _run_mfit(train, val, smi, engine):
     return model, launches
 
 
+# Phase mfit's witness: the blocked fit through the plain dense part on the
+# card's tensors against the fit through K10, loss and val RMSE each epoch
+# (K10's row sums of theta and of the log prior are taken in another order).
+MFIT_WITNESS_RTOL = 1e-4
+
+
+@contextlib.contextmanager
+def _plain_dense_part():
+    """HPFMap's blocked steps through the plain dense part on the card's
+    tensors in place of K10: ``map_dense_step_plain``, the next softplus
+    tables from the moved parameters, the loss into the run's first slot,
+    K9's accumulators zeroed after the step (as K10 leaves them).  Only
+    this script calls it."""
+    from pmf_tpu_torch.models import hpf_map as hm
+    from pmf_tpu_torch.ops import map_dense as md
+
+    def step(run):
+        params, state, loss = md.map_dense_step_plain(
+            run.params, run.opt_state, run.u_sp, run.i_sp, *run.acc, run.user_scale,
+            run.item_scale, run.cfg_scalars, run.lr)
+        run.params, run.opt_state = params, state
+        run.loss[0] += loss
+        run.u_sp, run.i_sp = (md.softplus(params[k].float()) for k in ("user", "item"))
+        for acc in run.acc:
+            acc.zero_()
+
+    saved, hm.map_dense_step = hm.map_dense_step, step
+    try:
+        yield
+    finally:
+        hm.map_dense_step = saved
+
+
+def _mfit_witness(model, train, val, smi):
+    """Phase mfit's blocked fit again through the plain dense part
+    (``_plain_dense_part``): its launches (K9 only), and its loss and val
+    RMSE each epoch within MFIT_WITNESS_RTOL of the fit through K10."""
+    import torch
+
+    from pmf_tpu_torch.models.hpf_map import HPFMap
+
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    with _plain_dense_part():
+        witness = HPFMap(model.config).fit(train, val)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    want = dict.fromkeys(launches, 0)
+    want["K9"] = 2 * (witness.layout.n_segments // MAP_MIX) * MAP_EPOCHS
+    if launches != want:
+        raise AssertionError(f"mfit witness launches {launches}, expected {want}")
+    worst = 0.0
+    for got, ref in zip(model.fit_history, witness.fit_history):
+        for key in ("train_loss", "val_rmse"):
+            rel = abs(got[key] - ref[key]) / abs(ref[key])
+            worst = max(worst, rel)
+            log(f"  mfit witness epoch {got['epoch']} {key}: K10 {got[key]:.8e}, plain "
+                f"{ref[key]:.8e} (rel {rel:.3e}) | plain epoch {ref['epoch_seconds']:.4f} s")
+    if not worst <= MFIT_WITNESS_RTOL or len(witness.fit_history) != MAP_EPOCHS:
+        raise AssertionError(f"mfit witness: rel {worst:.3e} past {MFIT_WITNESS_RTOL}")
+    log(f"  mfit witness (the plain dense part, K9 as always): {MAP_EPOCHS} epochs in "
+        f"{wall:.1f}s wall | worst rel {worst:.3e} (tol {MFIT_WITNESS_RTOL}) | {smi}")
+
+
 def phase_mfit(train, val, smi):
     """HPFMap.fit at batch_size 65536, mix 8, 3 epochs: the blocked engine
-    (2 K9 launches a step, the grouping once an epoch), then the flat one
-    (no kernel)."""
+    (2 K9 launches and one of K10 a step, the grouping once an epoch) and
+    its witness through the plain dense part (``_mfit_witness``), then the
+    flat one (no kernel)."""
     blocked, launches = _run_mfit(train, val, smi, "blocked_high")
+    _mfit_witness(blocked, train, val, smi)
     flat, flaunches = _run_mfit(train, val, smi, "flat")
     del flat
     return blocked, {k: launches[k] + flaunches[k] for k in launches}
@@ -3702,6 +3798,7 @@ def phase_mresume(model, train, val, smi):
         launches = {k: c.count for k, c in counters.items()}
         want = dict.fromkeys(launches, 0)
         want["K9"] = 2 * (resumed.layout.n_segments // MAP_MIX) * MAP_EPOCHS
+        want["K10"] = (resumed.layout.n_segments // MAP_MIX) * MAP_EPOCHS
         if launches != want:
             raise AssertionError(f"mresume launches {launches}, expected {want}")
         epochs = [rec["epoch"] for rec in resumed.fit_history]
@@ -3720,22 +3817,34 @@ def phase_mresume(model, train, val, smi):
         f"{t_load:.2f} s, {mb:.1f} MB | {smi}")
 
 
+MPROFILE_OTHER = 9  # launches of a run of steps besides K9 and K10 (phase mprofile)
+
+
+def _map_scales(lay, train):
+    """1/count scales of the layout's rows in its row space, as
+    HPFMap.fit makes them."""
+    import torch
+
+    return tuple(torch.from_numpy((1.0 / (np.bincount(ids, minlength=n) + 1e-6))
+                                  .astype(np.float32)).cuda()[perm]
+                 for ids, n, perm in ((train[0], lay.n_users, lay.u_old_of_new),
+                                      (train[1], lay.n_items, lay.i_old_of_new)))
+
+
 def phase_mprofile(model, train, smi, label="mprofile"):
     """MPROFILE_STEPS steady blocked steps from the fitted state, grouped
     beforehand, under torch.profiler: busy time, idle share, K9's share and
-    the dense part's.  Returns {step_ms (CUDA events), busy_ms, window_ms,
-    k9_ms, k9_share} (shares of the traced busy time)."""
-    import torch
-
+    the dense part's (K10, one launch a step; the run's other launches,
+    once a run: the first softplus tables, the zeroed accumulators and
+    loss slots, the loss's sum, at most MPROFILE_OTHER).  Returns {step_ms
+    (CUDA events), busy_ms, window_ms, k9_ms, k9_share, dense_ms,
+    dense_share, k10_ms} (shares of the traced busy time)."""
     from pmf_tpu_torch.models import hpf_map as hm
     from pmf_tpu_torch.ops.adam import adam_init
 
     cfg, lay = model.config, model.layout
     scal = (cfg.a, cfg.a_prime, cfg.b_prime, cfg.c, cfg.c_prime, cfg.d_prime)
-    scales = [torch.from_numpy((1.0 / (np.bincount(ids, minlength=n) + 1e-6))
-                               .astype(np.float32)).cuda()[perm]
-              for ids, n, perm in ((train[0], N_USERS, lay.u_old_of_new),
-                                   (train[1], N_ITEMS, lay.i_old_of_new))]
+    scales = _map_scales(lay, train)
     params, opt = hm._permute_rows(model.state, adam_init(model.state),
                                    lay.u_old_of_new, lay.i_old_of_new)
     box = [params, opt]
@@ -3750,21 +3859,216 @@ def phase_mprofile(model, train, smi, label="mprofile"):
     ms = cuda_ms(steps, reps=3)
     log(f"  {label} steady blocked step (K={cfg.n_factors}): {ms / MPROFILE_STEPS:.4f} ms "
         f"({MAP_BATCH / (ms / MPROFILE_STEPS) / 1e3:.1f}M edge-visits/s) | {smi}")
-    rows, busy, wall_ms = profile_once(steps, {"map_grad": 2 * n_real})
-    k9 = sum(r[0] for r in rows if any(n in r[2] for n in K9_KERNELS))
-    n_k9 = sum(r[1] for r in rows if any(n in r[2] for n in K9_KERNELS))
-    n_dense = sum(r[1] for r in rows if not any(n in r[2] for n in K9_KERNELS))
+    rows, busy, wall_ms = profile_once(steps, {"map_grad": 2 * n_real,
+                                               K10_KERNEL: MPROFILE_STEPS})
+
+    def part(rows_of):
+        return sum(r[0] for r in rows_of), sum(r[1] for r in rows_of)
+
+    k9, n_k9 = part([r for r in rows if any(n in r[2] for n in K9_KERNELS)])
+    k10, n_k10 = part([r for r in rows if K10_KERNEL in r[2]])
+    other = [r for r in rows if K10_KERNEL not in r[2]
+             and not any(n in r[2] for n in K9_KERNELS)]
+    other_ms, n_other = part(other)
     log(f"{'phase ' if label == 'mprofile' else '  '}{label}: ok | {MPROFILE_STEPS} blocked "
         f"steps: device busy {busy:.4f} ms of {wall_ms:.4f} ms window (idle share "
         f"{1 - busy / wall_ms:.1%})")
     if busy > 0 and n_k9:
         log(f"  by part: K9 {k9:.4f} ms ({k9 / busy:.1%}) in {n_k9} traced launches "
-            f"of {2 * n_real} ({k9 / n_k9 * 2e3:.2f} us a step), dense part "
-            f"{busy - k9:.4f} ms ({1 - k9 / busy:.1%}) in {n_dense} launches")
+            f"of {2 * n_real} ({k9 / n_k9 * 2e3:.2f} us a step); the dense part "
+            f"{busy - k9:.4f} ms ({1 - k9 / busy:.1%}): K10 {k10:.4f} ms ({k10 / busy:.1%}) in "
+            f"{n_k10} launches ({n_k10 / MPROFILE_STEPS:.2f} a step, "
+            f"{k10 / max(n_k10, 1) * 1e3:.2f} us each), the run's other launches "
+            f"{other_ms:.4f} ms in {n_other} (once a run, at most {MPROFILE_OTHER})")
     for dev_ms, n, key in rows[:12]:
         log(f"  {dev_ms:9.4f} ms  {n:4d}x  {key[:90]}")
+    if n_k10 > MPROFILE_STEPS or n_other > MPROFILE_OTHER or n_k9 > 2 * n_real:
+        raise AssertionError(f"{label}: launches K9 {n_k9}, K10 {n_k10}, other {n_other} "
+                             f"in {MPROFILE_STEPS} steps: " + "; ".join(
+                                 f"{n}x {key[:60]}" for _, n, key in other))
     return dict(step_ms=ms / MPROFILE_STEPS, busy_ms=busy, window_ms=wall_ms, k9_ms=k9,
-                k9_share=k9 / busy if busy > 0 else float("nan"))
+                k9_share=k9 / busy if busy > 0 else float("nan"), k10_ms=k10,
+                dense_ms=busy - k9, dense_share=1 - k9 / busy if busy > 0 else float("nan"))
+
+
+K10_KERNEL = "map_dense_kernel"
+K10_KS = (K_WIDE, 128, 300)  # phase k10's K beside K (the fitted state); K_HUGE: mhugefit
+K10_WARM = 3  # K10 steps that give a checked step its Adam moments
+K10_OPS = 40  # K10's operations an element (a transcendental function counted once)
+
+
+def _k10_inputs(lay, params, order, scales, scal, lr):
+    """A real step of the layout at the parameters' K: K10_WARM blocked
+    steps (K9 and K10) from fresh Adam moments on the first segments of
+    ``order``, then the next step's K9 accumulators.  Returns (params,
+    opt_state, acc_u, acc_i) in the layout's row space."""
+    from pmf_tpu_torch.models import hpf_map as hm
+    from pmf_tpu_torch.ops.adam import adam_init
+    from pmf_tpu_torch.ops.map_grad import map_grad_grouped
+
+    k = params["user"].shape[1] - 1
+    params = {side: v.clone() for side, v in params.items()}
+    warm = lay.group(order[: K10_WARM * MAP_MIX], MAP_MIX, k)
+    params, opt, _ = hm.train_steps_grouped(params, adam_init(params), warm, *scales, scal,
+                                            lr)
+    step = lay.group(order[K10_WARM * MAP_MIX : (K10_WARM + 1) * MAP_MIX], MAP_MIX, k)
+    acc_u, acc_i = map_grad_grouped(hm.softplus(params["user"]), hm.softplus(params["item"]),
+                                    step, 0, hm.LAMBDA_FLOOR)
+    return params, opt, acc_u, acc_i
+
+
+def _k10_run(inputs, scales, scal, lr):
+    """A run of K10 over copies of ``inputs`` (``_k10_inputs``), the
+    step's K9 sums in its accumulators."""
+    from pmf_tpu_torch.ops import map_dense as md
+
+    params, opt, acc_u, acc_i = inputs
+    state = {"count": opt["count"], "mu": {k: v.clone() for k, v in opt["mu"].items()},
+             "nu": {k: v.clone() for k, v in opt["nu"].items()}}
+    run = md.dense_run({k: v.clone() for k, v in params.items()}, state, *scales, scal, lr)
+    run.acc[0].copy_(acc_u)
+    run.acc[1].copy_(acc_i)
+    return run
+
+
+def _k10_plain(inputs, scales, scal, lr, sp=None):
+    """The plain version on ``inputs`` (it moves nothing in place), from
+    the softplus tables ``sp`` (made from the parameters if None): (tables
+    as ``_k10_tables`` names them, the loss)."""
+    from pmf_tpu_torch.ops import map_dense as md
+
+    params, opt, acc_u, acc_i = inputs
+    if sp is None:
+        sp = (md.softplus(params["user"].float()), md.softplus(params["item"].float()))
+    p, state, loss = md.map_dense_step_plain(params, opt, *sp, acc_u, acc_i, *scales, scal,
+                                             lr)
+    return {"params": p, "mu": state["mu"], "nu": state["nu"],
+            "softplus": {k: md.softplus(v.float()) for k, v in p.items()}}, loss
+
+
+def _k10_tables(run):
+    return {"params": run.params, "mu": run.opt_state["mu"], "nu": run.opt_state["nu"],
+            "softplus": {"user": run.u_sp, "item": run.i_sp}}
+
+
+def _k10_bound(n_users, n_items, k, touched, elt=4):
+    """K10's bound in ms: each row's parameters and both moments read and
+    written, its K9 row and scale read, its softplus row written, the
+    ``touched`` rows' K9 rows (users', items') cleared; K10_OPS FP32
+    operations an element.  (ms, by, bytes)."""
+    rows, row = n_users + n_items, (k + 1) * elt
+    n_bytes = (rows * (6 * row + 4 * (k + 1) + elt) + 4 * (n_users * (k + 2) + n_items * (k + 1))
+               + 4 * (touched[0] * (k + 2) + touched[1] * (k + 1)))
+    return bound(n_bytes, K10_OPS * rows * (k + 1)) + (n_bytes,)
+
+
+def _check_k10(label, inputs, scales, scal, lr, timed=True):
+    """K10 against ``map_dense_step_plain`` on one step's inputs (CUDA
+    tensors): per column (COL_RTOL) of the parameters, both moments and the
+    next softplus tables, the loss relatively (RTOL), the accumulators left
+    zero, the count advanced; a second launch on the same inputs equal in
+    bits in every table and loss slot.  With ``timed``, K10 alone by CUDA
+    events (``launch_ms``: launches in place on one run, the step's K9
+    sums put back before each), on accumulators of zeros (no row to clear:
+    clear_ms is the difference), the two zero-fills that clearing saves,
+    and the plain version with the next softplus tables.  Returns
+    {max_abs_err, worst, ms, plain_ms, idle_ms, clear_ms, fill_ms,
+    bound_ms, bound_by, bytes}."""
+    import torch
+
+    from pmf_tpu_torch.ops import map_dense as md
+
+    params, opt, acc_u, acc_i = inputs
+    k = params["user"].shape[1] - 1
+    touched = (int(torch.count_nonzero(acc_u[:, k])), int(torch.count_nonzero(acc_i[:, k])))
+    runs = [_k10_run(inputs, scales, scal, lr) for _ in range(2)]
+    for run in runs:
+        md.map_dense_step(run)
+    ref, ref_loss = _k10_plain(inputs, scales, scal, lr)
+    got, again = (_k10_tables(run) for run in runs)
+    err, worst, ok, bits, same = 0.0, 0.0, True, True, []
+    for name, tabs in ref.items():
+        for side, want in tabs.items():
+            a, w, good = column_check(got[name][side], want)
+            err, worst, ok = max(err, a), max(worst, w), ok and good
+            bits = bits and torch.equal(got[name][side], again[name][side])
+            if name != "softplus":
+                same.append(float((got[name][side] == want).float().mean()))
+    loss = float(runs[0].result()[2])
+    _, rel_loss = compare(torch.tensor(loss), ref_loss.detach().cpu())
+    bits = bits and torch.equal(runs[0].loss, runs[1].loss)
+    cleared = all(int(torch.count_nonzero(a)) == 0 for a in runs[0].acc)
+    counted = runs[0].opt_state["count"] == opt["count"] + 1
+    res = dict(max_abs_err=err, worst=worst)
+    note = ""
+    if timed:
+        run = runs[0]
+
+        def put_back():
+            run.acc[0].copy_(acc_u)
+            run.acc[1].copy_(acc_i)
+
+        res["ms"] = launch_ms(lambda: md.map_dense_step(run), put_back)
+        res["idle_ms"] = launch_ms(lambda: md.map_dense_step(run),
+                                   lambda: [a.zero_() for a in run.acc])
+        res["clear_ms"] = res["ms"] - res["idle_ms"]
+        res["fill_ms"] = cuda_ms(lambda: [a.zero_() for a in run.acc])
+        sp = (md.softplus(params["user"].float()), md.softplus(params["item"].float()))
+        res["plain_ms"] = cuda_ms(lambda: _k10_plain(inputs, scales, scal, lr, sp))
+        res["bound_ms"], res["bound_by"], res["bytes"] = _k10_bound(
+            params["user"].shape[0], params["item"].shape[0], k, touched)
+        note = (f" | K10 {res['ms']:.4f} ms by CUDA events (bound {res['bound_ms']:.4f}, "
+                f"{res['bound_by']}, {res['bytes'] / 1e6:.1f} MB; "
+                f"{res['bound_ms'] / res['ms']:.1%} of it); with no row to clear "
+                f"{res['idle_ms']:.4f} ms (clearing {res['clear_ms']:+.4f} ms against the "
+                f"two zero-fills it saves, {res['fill_ms']:.4f} ms) | plain (with the next "
+                f"softplus tables) "
+                f"{res['plain_ms']:.4f} ms")
+    log(f"  {label}: {touched[0]} + {touched[1]} rows in the step | worst column "
+        f"max|err|/max|plain| {worst:.3e} (tol {COL_RTOL}), max |err| {err:.3e} | loss rel "
+        f"{rel_loss:.3e} (tol {RTOL}) | equal in bits to plain: {min(same):.4%} of the "
+        f"parameter and moment entries (least table) | accumulators cleared {cleared} | "
+        f"second launch equal in bits {bits}" + note)
+    if not (ok and bits and cleared and counted and rel_loss <= RTOL):
+        raise AssertionError(f"{label}: K10 and its plain version disagree")
+    return res
+
+
+def _k10_at(lay, params, train, cfg, label, timed=True):
+    """``_check_k10`` on a real step of ``lay`` from ``params`` (the
+    layout's row space) at cfg's priors and lr."""
+    scal = (cfg.a, cfg.a_prime, cfg.b_prime, cfg.c, cfg.c_prime, cfg.d_prime)
+    scales = _map_scales(lay, train)
+    order = np.random.default_rng(12).permutation(lay.n_segments)
+    inputs = _k10_inputs(lay, params, order, scales, scal, cfg.lr)
+    return _check_k10(label, inputs, scales, scal, cfg.lr, timed)
+
+
+def phase_k10(model, train):
+    """K10 against its plain version and timed on real steps of phase
+    mfit's layout (``_k10_at``): at K on the fitted state, at K10_KS from
+    the initial state (K9 at each K gives the step's sums).  Returns K's
+    result with {"at": {k: result}}."""
+    from pmf_tpu_torch.models import hpf_map as hm
+
+    lay = model.layout
+    fitted = {k: v[perm].contiguous() for (k, v), perm in
+              zip(model.state.items(), (lay.u_old_of_new, lay.i_old_of_new))}
+    res = _k10_at(lay, fitted, train, model.config, f"K10 K={K} on phase mfit's state")
+    res["at"] = {}
+    for k in K10_KS:
+        cfg = hm.HPFMapConfig(n_factors=k, lr=MAP_LR)
+        params = hm.init_params(lay.n_users, lay.n_items, cfg, device="cuda")
+        params = {side: v[perm].contiguous() for (side, v), perm in
+                  zip(params.items(), (lay.u_old_of_new, lay.i_old_of_new))}
+        res["at"][k] = _k10_at(lay, params, train, cfg, f"K10 K={k} from the initial state")
+        del params
+        gc_cuda()
+    log(f"phase k10: ok | K={K}: {res['ms']:.4f} ms a step (bound {res['bound_ms']:.4f}), "
+        f"plain {res['plain_ms']:.4f} ms | " + ", ".join(
+            f"K={k} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f})" for k, r in res["at"].items())
+        + f" | worst column {max([res['worst']] + [r['worst'] for r in res['at'].values()]):.3e}")
+    return res
 
 
 MHUGE_EPOCHS = 3  # phase mhugefit: the blocked HPF-MAP fit at K_HUGE
@@ -3778,6 +4082,13 @@ MHUGE_LR = 0.01
 # width, and both engines on the 1/MHUGE_CUT cut.  So the card and the width
 # converge; the blocked engine's full-width batches (mix tile-band segments a
 # step) converge more slowly, as at K = 20 (phase mfit: blocked 2.69, flat 1.92).
+# The lag is the engine's own, not the port's: on the CPU at K = 20 and lr 0.001
+# (scripts/map_blocked_lag.py) the JAX package's blocked fit lags its flat fit
+# wherever its layout keeps the bench's 380 steps an epoch, at 1/4 of the bench
+# 2.353 against 1.906 (the port's blocked 2.396), and the lag grows with the
+# width (the port's blocked fit 1.96, 1.99, 2.11, 2.26, 2.40 at 1/64 .. 1/4, flat
+# 1.89-1.93); on the reference's own segments the port's blocked fit follows the
+# reference's epoch by epoch (tests/test_torch_map_dense.py, at 1/64).
 MHUGE_RMSE = 3.0
 # Each witness's last val RMSE stays below this (tests/test_torch_maplr.py's
 # CONVERGED), and on the cut the blocked fit's last within MHUGE_CUT_RTOL of the
@@ -3836,12 +4147,16 @@ def _mhuge_witnesses(train, val, k):
 
 def _map_reckoning(n_users, n_items, nnz, k, n_pieces):
     """Bytes the blocked MAP fit at ``k`` holds on the card, reckoned before
-    it runs: {params, Adam moments, gradients, softplus'd tables and
-    accumulators of a step, the layout, both directions' groupings}."""
+    it runs: {params, Adam moments (both moved in place by K10), the
+    softplus'd tables and K9's accumulators of a run of steps, K10's loss
+    slots, the layout, both directions' groupings}."""
+    from pmf_tpu_torch.ops.map_dense import blocks_of
+
     rows = n_users + n_items
     params = 4 * rows * (k + 1)
-    return {"params": params, "adam": 2 * params, "grads": params, "softplus": params,
+    return {"params": params, "adam": 2 * params, "softplus": params,
             "accumulators": 4 * (n_users * (k + 2) + n_items * (k + 1)),
+            "loss slots": 8 * (blocks_of(n_users) + blocks_of(n_items)),
             # ids and ratings of the edges, the two row permutations each way
             "layout": 12 * nnz + 16 * rows,
             # each direction's (other, x) an edge and 20 bytes a piece
@@ -3881,6 +4196,7 @@ def phase_mhugefit(train, val, smi, n_pieces, k=K_HUGE):
     lay = model.layout
     want = dict.fromkeys(launches, 0)
     want["K9"] = 2 * (lay.n_segments // MAP_MIX) * MHUGE_EPOCHS
+    want["K10"] = (lay.n_segments // MAP_MIX) * MHUGE_EPOCHS
     if launches != want or model.engine_used != "blocked_high":
         raise AssertionError(f"mhugefit launches {launches}, expected {want}")
     nnz = len(train[0])
@@ -3908,8 +4224,7 @@ def phase_mhugefit(train, val, smi, n_pieces, k=K_HUGE):
     reck_gb = sum(reck.values()) / 1e9
     log(f"  mhugefit memory: peak {peak_gb:.3f} GB above the {held / 1e9:.3f} GB held before "
         f"the fit | reckoned {reck_gb:.3f} GB: " + ", ".join(
-            f"{name} {v / 1e9:.3f}" for name, v in reck.items())
-        + " (the dense part's temporaries not counted)")
+            f"{name} {v / 1e9:.3f}" for name, v in reck.items()))
     # K9 on the fit's state: one real step in the layout's row space.
     u_sp = softplus(model.state["user"][lay.u_old_of_new].float()).contiguous()
     i_sp = softplus(model.state["item"][lay.i_old_of_new].float()).contiguous()
@@ -3917,6 +4232,10 @@ def phase_mhugefit(train, val, smi, n_pieces, k=K_HUGE):
     err, col = _check_map_step(lay, u_sp, i_sp, seg_ids,
                                f"mhugefit K9 {kernel_of(k)} on the fit's state {seg_ids}")
     del u_sp, i_sp
+    fitted = {name: v[perm].contiguous() for (name, v), perm in
+              zip(model.state.items(), (lay.u_old_of_new, lay.i_old_of_new))}
+    k10 = _k10_at(lay, fitted, train, model.config, f"mhugefit K10 K={k} on the fit's state")
+    del fitted
     secs = [rec["epoch_seconds"] for rec in model.fit_history]
     prof = phase_mprofile(model, train, smi, label="mhugefit")
     del model
@@ -3928,10 +4247,12 @@ def phase_mhugefit(train, val, smi, n_pieces, k=K_HUGE):
         f"launches {launches} | lr {MHUGE_LR} | loss {losses[0]:.6e} -> {losses[-1]:.6e} | "
         f"val RMSE " + " -> ".join(f"{v:.6f}" for v in rmse) + f" (host {host:.6f}, "
         f"gate < {MHUGE_RMSE}) | K9 on "
-        f"the fit's state: worst column {col:.3e} | steady step {prof['step_ms']:.4f} ms, "
-        f"K9 {prof['k9_share']:.1%} of busy | peak {peak_gb:.3f} GB (reckoned {reck_gb:.3f})")
+        f"the fit's state: worst column {col:.3e} | K10 on it: worst column "
+        f"{k10['worst']:.3e}, {k10['ms']:.4f} ms (bound {k10['bound_ms']:.4f}) | steady step "
+        f"{prof['step_ms']:.4f} ms, K9 {prof['k9_share']:.1%}, the dense part "
+        f"{prof['dense_share']:.1%} of busy | peak {peak_gb:.3f} GB (reckoned {reck_gb:.3f})")
     return dict(launches=launches, epoch_s=secs, peak_gb=peak_gb, reckoned_gb=reck_gb,
-                max_abs_err=err, val_rmse=rmse, witness=witness, **prof)
+                max_abs_err=err, val_rmse=rmse, witness=witness, k10=k10, **prof)
 
 
 K9_PARENT_KS = (K, K_WIDE, 128, 129, K_HUGE, 200, 256, 257, 300, 512)  # phase k9 parent
@@ -5073,7 +5394,7 @@ REPRO_RAW, REPRO_USERS, REPRO_ITEMS, REPRO_MIN_TRAIN = 700_000, 25_076, 178_265,
 # fit, not at the mid size or in the reproduction's clone.
 CLI_KERNELS = {"gaussian": {"K3", "K4"}, "gaussian_bias": {"K3", "K4", "K5"},
                "poisson": {"K1"}, "poisson_extended": {"K7", "K8"},
-               "hpf_cavi": {"K1"}, "hpf_map": {"K9"}}
+               "hpf_cavi": {"K1"}, "hpf_map": {"K9", "K10"}}
 
 
 def _have(module: str) -> bool:
@@ -5315,7 +5636,7 @@ def phase_cli(train, val, smi):
                 np.isfinite(table[["test_rmse", "test_recall@10"]].to_numpy())):
             raise AssertionError(f"cli compare: {table}")
         got = _check_kernels("cli compare", counters,
-                             {"K1", "K3", "K4", "K5", "K9"})
+                             {"K1", "K3", "K4", "K5", "K9", "K10"})
         log(f"  compare --ranking: 4 models in {time.perf_counter() - t0:.1f} s | "
             + "; ".join(f"{r['model']}: test RMSE {r['test_rmse']:.4f}, recall@10 "
                         f"{r['test_recall@10']:.4f}, fit {r['fit_seconds']:.1f} s"
@@ -6560,8 +6881,10 @@ def main(argv=None) -> int:
     gc_cuda()
     phase_msmall()
     mmodel, mlaunches = phase_mfit(train, val, smi)
+    k10 = phase_k10(mmodel, train)
+    gc_cuda()
     phase_mresume(mmodel, train, val, smi)
-    phase_mprofile(mmodel, train, smi)
+    mprof = phase_mprofile(mmodel, train, smi)
     del mmodel
     gc_cuda()
     mhuge = phase_mhugefit(train, val, smi, m_pieces)
@@ -6747,6 +7070,31 @@ def main(argv=None) -> int:
                    f"{MHUGE_LR} (its launches, val RMSE by epoch, a steady step by CUDA "
                    "events, K9's share of the step's traced busy time, the fit's peak "
                    "above the memory held); group_ms is the epoch's regrouping"),
+        {"name": "map_dense", "route": "cuda", "source": "pmf_tpu_torch/csrc/map_dense.cu",
+         "replaces": "pmf_tpu/models/hpf_map.py:377", "launches": mlaunches["K10"],
+         **{key: k10[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None,
+         **{f"{key}_k{k}": r[key] for k, r in k10["at"].items()
+            for key in ("ms", "plain_ms", "bound_ms")},
+         f"ms_k{K_HUGE}": mhuge["k10"]["ms"], f"plain_ms_k{K_HUGE}": mhuge["k10"]["plain_ms"],
+         f"bound_ms_k{K_HUGE}": mhuge["k10"]["bound_ms"],
+         f"bound_by_k{K_HUGE}": mhuge["k10"]["bound_by"],
+         "clear_ms": k10["clear_ms"], "fill_ms": k10["fill_ms"],
+         f"clear_ms_k{K_HUGE}": mhuge["k10"]["clear_ms"],
+         f"fill_ms_k{K_HUGE}": mhuge["k10"]["fill_ms"],
+         "step_ms": mprof["step_ms"], "step_dense_share": mprof["dense_share"],
+         f"launches_k{K_HUGE}_map": mhuge["launches"]["K10"],
+         f"step_ms_k{K_HUGE}_map": mhuge["step_ms"],
+         f"step_dense_share_k{K_HUGE}_map": mhuge["dense_share"],
+         "note": "no Pallas kernel: the XLA fusion of train_epoch_blocked's step body (the "
+                 "prior gradients, the softplus chain rule, Adam, the loss); ms, plain_ms, "
+                 "bound_ms a step by CUDA events on a real step of phase mfit's layout (K=20 "
+                 "on its fitted state, K=50, 128, 300 from the initial state, K=160 on phase "
+                 "mhugefit's fitted state), each launch with the step's K9 sums; clear_ms "
+                 "its time less that on accumulators of zeros, fill_ms the two zero-fills "
+                 "that clearing saves; step_*: a steady blocked "
+                 "step by CUDA events and the dense part's share of its traced busy time "
+                 "(phases mprofile, mhugefit)"},
         entry("cavi_edge_tail_raw", "pmf_tpu_torch/csrc/cavi_edge.cu",
               "pmf_tpu/ops/pallas/cavi_edge.py:93", k1raw,
               mesh_launches["K1raw"], "K1raw",
@@ -6766,9 +7114,17 @@ def main(argv=None) -> int:
         + ", ".join(f"{t:.4f}" for t in mhuge["epoch_s"])
         + f" s | a steady step {mhuge['step_ms']:.4f} ms by CUDA events, K9 "
         f"{mhuge['k9_share']:.2%} of its traced busy {mhuge['busy_ms'] / MPROFILE_STEPS:.4f} "
-        f"ms | peak {mhuge['peak_gb']:.3f} GB (reckoned {mhuge['reckoned_gb']:.3f}) | last val "
+        f"ms, the dense part {mhuge['dense_share']:.2%} (K10 {mhuge['k10_ms'] / MPROFILE_STEPS:.4f} "
+        f"ms a step traced) | peak {mhuge['peak_gb']:.3f} GB (reckoned "
+        f"{mhuge['reckoned_gb']:.3f}) | last val "
         f"RMSE {mhuge['val_rmse'][-1]:.6f}, witnesses " + ", ".join(
             f"{name} {v[-1]:.6f}" for name, v in mhuge["witness"].items()))
+    log(f"  mprofile (HPF-MAP, K={K}): a steady step {mprof['step_ms']:.4f} ms by CUDA events, "
+        f"traced busy {mprof['busy_ms'] / MPROFILE_STEPS:.4f} ms of "
+        f"{mprof['window_ms'] / MPROFILE_STEPS:.4f} (idle share "
+        f"{1 - mprof['busy_ms'] / mprof['window_ms']:.2%}), the dense part "
+        f"{mprof['dense_share']:.2%} | K10 alone {k10['ms']:.4f} ms (bound {k10['bound_ms']:.4f}), "
+        f"at K={K_HUGE} {mhuge['k10']['ms']:.4f} ms (bound {mhuge['k10']['bound_ms']:.4f})")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -22,7 +22,9 @@ both directions' edges are regrouped on the device by (step, self row)
 (``ops.map_grad.group_steps``), and each step's NLL gradients come from
 two launches of the CUDA kernel K9 (``ops.map_grad``) on the card, one a
 direction, or from its plain version on the CPU.  The prior terms, the softplus chain
-rule, the loss and Adam are dense row-local tensor code.  The blocked
+rule, Adam and the loss, dense and row-local, are one launch of K10
+(``ops.map_dense``) on the card, which also writes the softplus tables the
+next step's K9 reads; the CPU runs its plain version.  The blocked
 batches are unions of tile-band segments instead of uniform draws: the
 same estimator family with another batch composition, so "auto" stays
 flat.  "blocked_mid" and "blocked_fast" run the same float32 K9 (the
@@ -43,6 +45,7 @@ from pmf_tpu_torch.data.coo import EvalSet
 from pmf_tpu_torch.eval.metrics import masked_metrics
 from pmf_tpu_torch.models.base import FactorModel, as_triples, profiled
 from pmf_tpu_torch.ops.adam import adam_init, adam_update
+from pmf_tpu_torch.ops.map_dense import dense_run, log_priors, map_dense_step, softplus
 from pmf_tpu_torch.ops.map_grad import group_steps, map_grad_grouped
 from pmf_tpu_torch.ops.segment import edge_dot, gather_rows
 from pmf_tpu_torch.utils.device import resolve_device
@@ -79,12 +82,6 @@ class HPFMapConfig:
     # Blocked engine only: segments of batch_size // mix ratings
     # accumulated per Adam step, drawn from the epoch-wide segment shuffle.
     mix: int = 8
-
-
-def softplus(x: torch.Tensor) -> torch.Tensor:
-    """log(1 + exp(x)) at every x (``torch.nn.functional.softplus``
-    switches to the identity above its threshold)."""
-    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def _init_params_numpy(n_users: int, n_items: int, cfg: HPFMapConfig) -> dict:
@@ -130,19 +127,6 @@ def init_params(n_users: int, n_items: int, cfg: HPFMapConfig, device=None) -> d
     return params_from_numpy(_init_params_numpy(n_users, n_items, cfg), device)
 
 
-def _log_priors(theta, xi, beta, eta, cfg_scalars):
-    """Per-row negative log-Gamma prior terms (lp_theta + lp_xi per user
-    row, lp_beta + lp_eta per item row)."""
-    a, a_prime, b_prime, c, c_prime, d_prime = cfg_scalars
-    lp_theta = torch.sum(-a * torch.log(xi)[:, None] + xi[:, None] * theta
-                         - (a - 1.0) * torch.log(theta), dim=1)
-    lp_beta = torch.sum(-c * torch.log(eta)[:, None] + eta[:, None] * beta
-                        - (c - 1.0) * torch.log(beta), dim=1)
-    lp_xi = -(a_prime - 1.0) * torch.log(xi) + b_prime * xi
-    lp_eta = -(c_prime - 1.0) * torch.log(eta) + d_prime * eta
-    return lp_theta + lp_xi, lp_beta + lp_eta
-
-
 def batch_loss(params, u, i, x, mask, user_scale, item_scale, cfg_scalars):
     """Masked MAP loss of one batch; ``mask`` zeroes padded rows."""
     urows = softplus(gather_rows(params["user"], u))
@@ -156,7 +140,7 @@ def batch_loss(params, u, i, x, mask, user_scale, item_scale, cfg_scalars):
 
     u_scale = gather_rows(user_scale, u) * m
     i_scale = gather_rows(item_scale, i) * m
-    lp_user, lp_item = _log_priors(theta, xi, beta, eta, cfg_scalars)
+    lp_user, lp_item = log_priors(theta, xi, beta, eta, cfg_scalars)
     return nll + torch.sum(lp_user * u_scale) + torch.sum(lp_item * i_scale)
 
 
@@ -337,40 +321,18 @@ def train_epoch_blocked(params, opt_state, perm, lay: MapBlockedLayout,
 def train_steps_grouped(params, opt_state, groups, user_scale, item_scale,
                         cfg_scalars, lr: float):
     """Every step of a grouping (``MapBlockedLayout.group``), one Adam
-    step each: two K9 launches and the dense part.  Returns (params,
-    opt_state, sum of the step losses as a 0-d tensor on the device)."""
-    a, a_prime, b_prime, c, c_prime, d_prime = cfg_scalars
-    dt = params["user"].dtype
-    work = torch.float32 if params["user"].is_cuda else dt
-    K = params["user"].shape[1] - 1
-    total = torch.zeros((), dtype=work, device=params["user"].device)
+    step each: two K9 launches and one of K10 (``ops.map_dense``), the
+    dense part, on the card; their plain versions on the CPU.  On the card
+    the parameters and Adam moments are moved in place (as the JAX
+    package's epoch donates them): use the ones returned.  Returns
+    (params, opt_state, sum of the step losses as a 0-d tensor on the
+    device)."""
+    run = dense_run(params, opt_state, user_scale, item_scale, cfg_scalars, lr)
     for step in range(groups[0].n_steps):
-        p_user, p_item = params["user"].to(work), params["item"].to(work)
-        u_sp, i_sp = softplus(p_user), softplus(p_item)
-        acc_u, acc_i = map_grad_grouped(u_sp, i_sp, groups, step, LAMBDA_FLOOR)
-        theta, xi = u_sp[:, :K], u_sp[:, K]
-        beta, eta = i_sp[:, :K], i_sp[:, K]
-
-        # Frequency-scaled prior gradients, dense and row-local: weight =
-        # the row's count in this batch times 1/count(entity).
-        wu = acc_u[:, K] * user_scale
-        wi = acc_i[:, K] * item_scale
-        g_theta = acc_u[:, :K] + wu[:, None] * (xi[:, None] - (a - 1.0) / theta)
-        g_xi = wu * (-a * K / xi + theta.sum(1) - (a_prime - 1.0) / xi + b_prime)
-        g_beta = acc_i[:, :K] + wi[:, None] * (eta[:, None] - (c - 1.0) / beta)
-        g_eta = wi * (-c * K / eta + beta.sum(1) - (c_prime - 1.0) / eta + d_prime)
-        # Softplus chain rule: d softplus(p) / dp = sigmoid(p).
-        grads = {
-            "user": (torch.cat([g_theta, g_xi[:, None]], 1)
-                     * torch.sigmoid(p_user)).to(dt),
-            "item": (torch.cat([g_beta, g_eta[:, None]], 1)
-                     * torch.sigmoid(p_item)).to(dt),
-        }
-        lp_user, lp_item = _log_priors(theta, xi, beta, eta, cfg_scalars)
-        total = total + (acc_u[:, K + 1].sum() + torch.sum(wu * lp_user)
-                         + torch.sum(wi * lp_item))
-        params, opt_state = adam_update(grads, opt_state, params, lr)
-    return params, opt_state, total
+        run.acc = map_grad_grouped(run.u_sp, run.i_sp, groups, step, LAMBDA_FLOOR,
+                                   run.acc)
+        map_dense_step(run)
+    return run.result()
 
 
 def eval_metrics(params: dict, ev: EvalSet, reduce=None):

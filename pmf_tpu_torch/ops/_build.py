@@ -35,6 +35,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_int64
+_D = ctypes.c_double
 # C entry points: name -> argtypes (every entry returns cudaError_t as int).
 SIGNATURES = {
     # e_self, e_other, row_ptr, other, x, n_self, n_long, K, rate_floor, out,
@@ -79,6 +80,10 @@ SIGNATURES = {
     # scratch, counters, stream
     "pmf_map_grad_runs": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _I, _P, _P,
                           _P, _P],
+    # p_u, mu_u, nu_u, acc_u, scale_u, sp_u, n_u, the same for items, K,
+    # is_double, priors (12 host doubles), partials, lr, c1, c2, stream
+    "pmf_map_dense": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P, _P,
+                      _D, _D, _D, _P],
 }
 
 

@@ -380,13 +380,17 @@ def map_grad_pieces(self_tab: torch.Tensor, other_tab: torch.Tensor, g: StepGrou
 
 
 def map_grad_grouped(u_sp: torch.Tensor, i_sp: torch.Tensor, groups, step: int,
-                     lam_floor: float):
+                     lam_floor: float, out: tuple | None = None):
     """The two accumulators of step ``step``: zeroed, then each
     direction's rows stored by one K9 launch.  ``groups``: the (by user,
-    by item) groupings of one segment order."""
+    by item) groupings of one segment order.  ``out``: (acc_u, acc_i)
+    that hold zeros (K10 sets the rows it reads back to zeros), stored
+    into in place of new zeroed ones."""
     K = u_sp.shape[1] - 1
-    acc_u = torch.zeros((u_sp.shape[0], K + 2), dtype=u_sp.dtype, device=u_sp.device)
-    acc_i = torch.zeros((i_sp.shape[0], K + 1), dtype=i_sp.dtype, device=i_sp.device)
+    if out is None:
+        out = (torch.zeros((u_sp.shape[0], K + 2), dtype=u_sp.dtype, device=u_sp.device),
+               torch.zeros((i_sp.shape[0], K + 1), dtype=i_sp.dtype, device=i_sp.device))
+    acc_u, acc_i = out
     by_user, by_item = groups
     map_grad_pieces(u_sp, i_sp, by_user, step, lam_floor, True, acc_u)
     map_grad_pieces(i_sp, u_sp, by_item, step, lam_floor, False, acc_i)

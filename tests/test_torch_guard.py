@@ -521,6 +521,7 @@ def test_kernel_sources_name_what_they_replace():
         "ext_edge.cu": ["pmf_tpu/ops/pallas/ext_edge.py::_factor_kernel",
                         "pmf_tpu/ops/pallas/ext_edge.py::_scalar_kernel"],
         "map_grad.cu": ["pmf_tpu/ops/pallas/map_grad.py::_kernel"],
+        "map_dense.cu": ["pmf_tpu/models/hpf_map.py::train_epoch_blocked"],
         "tail_groups.cuh": ["pmf_tpu/ops/pallas/cavi_edge.py::_kernel",
                             "pmf_tpu/ops/pallas/ext_edge.py::_factor_kernel",
                             "pmf_tpu/ops/pallas/gaussian_edge.py::_bias_kernel",
